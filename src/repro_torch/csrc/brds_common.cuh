@@ -1,0 +1,134 @@
+// Device routines shared by the BRDS-LSTM kernels (rb_spmv.cu,
+// lstm_gates.cu, fused_step.cu).
+//
+// The fused step must be bitwise equal to the chained rb_dual_spmv ->
+// lstm_gates pair, so both use the same row routine and the same cell
+// function:
+//  - row_dot fixes the reduction order of a packed row: lane l of the owning
+//    warp takes entries l, l+32, ... with an explicit fmaf, and a butterfly
+//    over the warp adds the 32 partial sums. Float addition is commutative,
+//    so every lane ends with the same total.
+//  - lstm_cell rounds every product and sum on its own (__fmul_rn,
+//    __fadd_rn), so the compiler cannot contract a product into the
+//    following add in one kernel and not in another.
+#pragma once
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+#include <type_traits>
+
+namespace brds {
+
+constexpr int kWarp = 32;
+// Per-batch accumulators live in registers: the batch is capped here and
+// the launchers return cudaErrorInvalidValue above it.
+constexpr int kMaxBatch = 16;
+constexpr int kSeg = 16;   // PWL segments; LUT rows: a_sig, b_sig, a_tanh, b_tanh
+
+// acc[b] += sum_k vals[k] * act[b * ld + col[k]] for b < B, where col is the
+// int32 inclusive running sum of deltas. Called by a whole warp, which owns
+// the row. Each value is loaded once and used for all B batch rows: the
+// packed weights are the bytes that bound the kernel.
+template <typename DT, int NB>
+__device__ __forceinline__ void row_dot(const float* __restrict__ vals,
+                                        const DT* __restrict__ deltas, int K,
+                                        const float* __restrict__ act, int ld,
+                                        int B, float (&acc)[NB]) {
+  const int lane = threadIdx.x & (kWarp - 1);
+  int carry = 0;
+  for (int k0 = 0; k0 < K; k0 += kWarp) {
+    const int k = k0 + lane;
+    const bool live = k < K;
+    int d = live ? static_cast<int>(deltas[k]) : 0;
+#pragma unroll
+    for (int off = 1; off < kWarp; off <<= 1) {
+      const int t = __shfl_up_sync(0xffffffffu, d, off);
+      if (lane >= off) d += t;
+    }
+    const int col = carry + d;
+    carry = __shfl_sync(0xffffffffu, col, kWarp - 1);
+    if (live) {
+      const float v = __ldg(vals + k);
+#pragma unroll
+      for (int b = 0; b < NB; ++b)
+        if (b < B) acc[b] = fmaf(v, __ldg(act + b * ld + col), acc[b]);
+    }
+  }
+#pragma unroll
+  for (int b = 0; b < NB; ++b) {
+    float s = acc[b];
+#pragma unroll
+    for (int off = kWarp / 2; off > 0; off >>= 1)
+      s += __shfl_xor_sync(0xffffffffu, s, off);
+    acc[b] = s;
+  }
+}
+
+// Activation parameters of the cell: exact sigmoid/tanh, or the paper's
+// 16-segment piecewise-linear LUT on [lo, hi) that saturates outside it.
+struct Act {
+  const float* lut;   // (4, kSeg) on the device; null when exact
+  float lo, hi;
+  float hic;          // float32(hi - 1e-6), the reference's upper clip
+};
+
+__device__ __forceinline__ float pwl(float x, const float* a, const float* b,
+                                     const Act& p, float sat_lo, float sat_hi) {
+  const float xc = fminf(fmaxf(x, p.lo), p.hic);
+  // floor((xc - lo) / (hi - lo) * n_seg) in the reference's op order
+  const float u = __fmul_rn(__fdiv_rn(__fsub_rn(xc, p.lo),
+                                      __fsub_rn(p.hi, p.lo)),
+                            static_cast<float>(kSeg));
+  int idx = static_cast<int>(floorf(u));
+  idx = min(max(idx, 0), kSeg - 1);
+  float y = __fadd_rn(__fmul_rn(__ldg(a + idx), xc), __ldg(b + idx));
+  y = x < p.lo ? sat_lo : y;
+  return x >= p.hi ? sat_hi : y;
+}
+
+__device__ __forceinline__ float act_sigmoid(float x, const Act& p) {
+  if (p.lut) return pwl(x, p.lut, p.lut + kSeg, p, 0.0f, 1.0f);
+  return __fdiv_rn(1.0f, __fadd_rn(1.0f, expf(-x)));
+}
+
+__device__ __forceinline__ float act_tanh(float x, const Act& p) {
+  if (p.lut) return pwl(x, p.lut + 2 * kSeg, p.lut + 3 * kSeg, p, -1.0f, 1.0f);
+  return tanhf(x);
+}
+
+// c = f*c_prev + i*g with each product rounded on its own; h = o*tanh(c).
+__device__ __forceinline__ void lstm_cell(float zf, float zi, float zg,
+                                          float zo, float c_prev,
+                                          const Act& p, float* c_out,
+                                          float* h_out) {
+  const float f = act_sigmoid(zf, p);
+  const float i = act_sigmoid(zi, p);
+  const float g = act_tanh(zg, p);
+  const float o = act_sigmoid(zo, p);
+  const float c = __fadd_rn(__fmul_rn(f, c_prev), __fmul_rn(i, g));
+  *c_out = c;
+  *h_out = __fmul_rn(o, act_tanh(c, p));
+}
+
+// Host side: run `body` with the accumulator count NB for batch B.
+template <typename F>
+cudaError_t by_batch(int B, F&& body) {
+  if (B <= 0 || B > kMaxBatch) return cudaErrorInvalidValue;
+  if (B <= 4) return body(std::integral_constant<int, 4>{});
+  if (B <= 8) return body(std::integral_constant<int, 8>{});
+  return body(std::integral_constant<int, kMaxBatch>{});
+}
+
+// Host side: run `body` with the delta index type of `bytes`.
+template <typename F>
+cudaError_t by_delta(int bytes, F&& body) {
+  switch (bytes) {
+    case 1: return body(int8_t{});
+    case 2: return body(int16_t{});
+    case 4: return body(int32_t{});
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+}  // namespace brds

@@ -1,0 +1,150 @@
+"""Build the CUDA sources under ``repro_torch/csrc`` and bind them.
+
+Each ``csrc/<name>.cu`` compiles with ``nvcc`` for ``sm_90a`` into a shared
+library with a plain C interface under ``build/`` at the repository root,
+at its first use in a process; the file name carries a hash of the sources
+and flags, so an edited source rebuilds. ``ctypes`` binds the entry points,
+with ``c_void_p`` for every pointer and for the stream. Each entry point
+returns ``cudaGetLastError()`` and ``check`` raises on anything but 0.
+
+Nothing here runs at import: the CPU tests import every module on a machine
+without ``nvcc``.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+import threading
+from pathlib import Path
+
+import torch
+
+CSRC = Path(__file__).resolve().parents[1] / "csrc"
+BUILD = Path(__file__).resolve().parents[3] / "build"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+# Launch counts by kernel name: each wrapper adds one where it launches its
+# kernel, and nowhere else (``chip_smoke.py`` reads them around the serve
+# path to show it went through the kernels).
+LAUNCHES = {"rb_dual_spmv": 0, "lstm_gates": 0, "fused_brds_lstm_step": 0}
+
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+# C signatures of the entry points, by source name
+SIGNATURES = {
+    "rb_spmv": {"brds_rb_dual_spmv": [_P, _P, _I, _I, _P, _I, _P, _P, _I, _I,
+                                      _P, _I, _P, _P, _I, _I, _P]},
+    "lstm_gates": {"brds_lstm_gates": [_P, _P, _P, _P, _I, _P, _P, _P, _I, _I,
+                                       _P, _F, _F, _F, _P]},
+    "fused_step": {"brds_fused_lstm_step": [_P, _P, _I, _I, _P, _I, _P, _P, _I,
+                                            _I, _P, _I, _P, _P, _P, _P, _I, _P,
+                                            _F, _F, _F, _P]},
+}
+
+_libs: dict[str, ctypes.CDLL] = {}
+_lock = threading.Lock()
+# ptxas reports (registers, spills) of the builds made in this process
+BUILD_LOG: dict[str, str] = {}
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    default = "/usr/local/cuda/bin/nvcc"
+    if os.path.exists(default):
+        return default
+    raise RuntimeError("nvcc not found: the CUDA kernels are compiled at "
+                       "their first launch and need the CUDA toolkit")
+
+
+def _target(name: str) -> Path:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in sorted(CSRC.iterdir()):
+        if src.name == f"{name}.cu" or src.suffix == ".cuh":
+            h.update(src.name.encode())
+            h.update(src.read_bytes())
+    return BUILD / f"lib{name}-{h.hexdigest()[:16]}.so"
+
+
+def _start(name: str, target: Path):
+    """Start one nvcc that writes ``target`` through a temporary file."""
+    BUILD.mkdir(parents=True, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD)
+    os.close(fd)
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, str(CSRC / f"{name}.cu")]
+    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True)
+    return proc, tmp
+
+
+def _finish(name: str, target: Path, proc, tmp: str) -> None:
+    out, _ = proc.communicate()
+    if proc.returncode != 0:
+        os.unlink(tmp)
+        raise RuntimeError(f"nvcc failed for csrc/{name}.cu:\n{out}")
+    os.replace(tmp, target)   # atomic: a concurrent builder sees all or none
+    BUILD_LOG[name] = out
+
+
+def _bind(name: str, target: Path) -> ctypes.CDLL:
+    lib = ctypes.CDLL(str(target))
+    for fn, argtypes in SIGNATURES[name].items():
+        f = getattr(lib, fn)
+        f.argtypes = argtypes
+        f.restype = ctypes.c_int
+    _libs[name] = lib
+    return lib
+
+
+def build_all() -> dict[str, ctypes.CDLL]:
+    """Build every source not yet built, one nvcc per source, all started
+    together; returns the bound libraries."""
+    with _lock:
+        todo = {n: _target(n) for n in SIGNATURES if n not in _libs}
+        running = {n: _start(n, t) for n, t in todo.items()
+                   if not t.exists()}
+        for n, (proc, tmp) in running.items():
+            _finish(n, todo[n], proc, tmp)
+        for n, t in todo.items():
+            _bind(n, t)
+        return dict(_libs)
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The bound library of ``csrc/<name>.cu``; the first call builds every
+    source (``build_all``)."""
+    lib = _libs.get(name)
+    return lib if lib is not None else build_all()[name]
+
+
+def check(err: int, kernel: str) -> None:
+    if err != 0:
+        raise RuntimeError(f"{kernel}: CUDA launch failed with error {err} "
+                           "(cudaError_t)")
+
+
+def stream(device: torch.device) -> int:
+    return torch.cuda.current_stream(device).cuda_stream
+
+
+def require(t: torch.Tensor, name: str, *, dtypes, ndim: int,
+            device: torch.device | None = None,
+            contiguous: bool = True) -> None:
+    """Raise unless ``t`` is a CUDA tensor of one of ``dtypes`` and ``ndim``
+    dims (on ``device``, contiguous when asked)."""
+    if not t.is_cuda:
+        raise ValueError(f"{name} must be a CUDA tensor, got one on "
+                         f"{t.device}")
+    if device is not None and t.device != device:
+        raise ValueError(f"{name} is on {t.device}, expected {device}")
+    if t.dtype not in dtypes:
+        raise TypeError(f"{name} must be one of {dtypes}, got {t.dtype}")
+    if t.ndim != ndim:
+        raise ValueError(f"{name} must be {ndim}-D, got {tuple(t.shape)}")
+    if contiguous and not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")

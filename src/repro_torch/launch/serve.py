@@ -1,0 +1,140 @@
+"""Lockstep serving driver for the paper's LSTMs, dense or BRDS-packed:
+
+  python -m repro_torch.launch.serve --arch lstm_ptb --brds
+  python -m repro_torch.launch.serve --arch lstm_ptb --brds --smoke \\
+      --device cpu
+
+Runs on the card unless ``--device cpu`` is given, at the configuration's
+full width unless ``--smoke`` narrows it to 128. Prints the generation
+rate (median and range of ``RUNS`` timed runs after one warm-up run) and
+the device it ran on.
+"""
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import statistics
+import time
+
+import torch
+
+RUNS = 5   # timed generate runs: host-clock rates spread between runs
+
+def _sync(device: torch.device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def _profile(run, device: torch.device) -> None:
+    """Run ``run`` under torch.profiler; print the device time by kernel and
+    the device's busy share of the wall time (the profiler's own overhead
+    included, so the share reads low)."""
+    from torch.profiler import ProfilerActivity, profile
+    acts = [ProfilerActivity.CPU]
+    if device.type == "cuda":
+        acts.append(ProfilerActivity.CUDA)
+    _sync(device)
+    with profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        run()
+        _sync(device)
+        wall = time.perf_counter() - t0
+    events = prof.key_averages()
+    print(events.table(sort_by="self_device_time_total", row_limit=12))
+    # device-side events only: an operator's row repeats its kernels' time
+    busy = sum(e.self_device_time_total for e in events
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and not e.is_user_annotation) / 1e6
+    print(f"profile: wall {wall * 1e3:.3f} ms, device busy "
+          f"{busy * 1e3:.3f} ms ({busy / wall:.1%} of wall)")
+
+
+def main(argv=None):
+    from repro_torch.device import resolve_device
+    from repro_torch.models import LSTMModel, LSTM_CONFIGS
+    from repro_torch.serving import ServeEngine, SamplingConfig
+    from repro_torch.sparse import lstm_policy, set_default_backend
+
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default="lstm_ptb", choices=sorted(
+        k for k, c in LSTM_CONFIGS.items() if c.vocab_size))
+    ap.add_argument("--smoke", action="store_true",
+                    help="narrow input and hidden widths to 128")
+    ap.add_argument("--device", default=None,
+                    help="torch device (default: cuda; raises without a "
+                         "card unless 'cpu' is given)")
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--batch", type=int, default=4)
+    ap.add_argument("--prompt-len", type=int, default=64)
+    ap.add_argument("--gen", type=int, default=32)
+    ap.add_argument("--brds", action="store_true",
+                    help="row-balanced prune and pack the LSTM weights")
+    ap.add_argument("--spar-a", type=float, default=0.75,
+                    help="sparsity of the input weights W_x")
+    ap.add_argument("--spar-b", type=float, default=0.5,
+                    help="sparsity of the recurrent weights W_h")
+    ap.add_argument("--backend", default="auto",
+                    choices=("auto", "ref", "cuda"),
+                    help="kernel backend for packed decode")
+    ap.add_argument("--no-fused", dest="fused", action="store_false",
+                    help="chained rb_dual_spmv -> lstm_gates decode instead "
+                         "of the fused single-launch step")
+    ap.add_argument("--temperature", type=float, default=0.0)
+    ap.add_argument("--top-k", type=int, default=0)
+    ap.add_argument("--top-p", type=float, default=0.0)
+    ap.add_argument("--eos-id", type=int, default=-1)
+    ap.add_argument("--profile", action="store_true",
+                    help="generate once more under torch.profiler and print "
+                         "the device time by kernel and the busy share")
+    args = ap.parse_args(argv)
+
+    device = resolve_device(args.device)
+    set_default_backend(args.backend)
+    cfg = LSTM_CONFIGS[args.arch]
+    if args.smoke:
+        cfg = dataclasses.replace(cfg, input_size=min(cfg.input_size, 128),
+                                  hidden=min(cfg.hidden, 128))
+    model = LSTMModel(cfg, fused=args.fused)
+    params = model.init(torch.Generator().manual_seed(args.seed), device)
+    print(f"arch={cfg.name} params={model.param_count() / 1e6:.1f}M "
+          f"device={device}")
+    sparsity = lstm_policy(args.spar_a, args.spar_b) if args.brds else None
+    eng = ServeEngine(model, max_len=args.prompt_len + args.gen,
+                      sparsity=sparsity, device=device)
+    params, report = eng.prepare(params)
+    if report is not None:
+        print("BRDS:", report)
+    gen = torch.Generator().manual_seed(args.seed + 1)
+    tokens = torch.randint(0, cfg.vocab_size, (args.batch, args.prompt_len),
+                           generator=gen).to(device)
+    sampling = SamplingConfig(temperature=args.temperature, top_k=args.top_k,
+                              top_p=args.top_p, eos_id=args.eos_id)
+
+    def run():
+        return eng.generate(
+            params, tokens, args.gen, sampling=sampling,
+            rng=torch.Generator(device).manual_seed(args.seed + 2))
+
+    run()   # builds the kernels at their first launch, warms the libraries
+    dts = []
+    for _ in range(RUNS):
+        _sync(device)
+        t0 = time.perf_counter()
+        out = run()
+        _sync(device)
+        dts.append(time.perf_counter() - t0)
+    dt = statistics.median(dts)
+    toks = args.batch * args.gen
+    name = (torch.cuda.get_device_name(device) if device.type == "cuda"
+            else "cpu")
+    print(f"generated {tuple(out.shape)} in {dt:.4f}s, median of "
+          f"{len(dts)} runs ({toks / dt:.1f} tok/s, prefill included; "
+          f"range {toks / max(dts):.1f}-{toks / min(dts):.1f} tok/s) "
+          f"on {name}")
+    print("sample ids:", out[0, :16].tolist())
+    if args.profile:
+        _profile(run, device)
+
+
+if __name__ == "__main__":
+    main()

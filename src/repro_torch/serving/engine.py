@@ -1,0 +1,93 @@
+"""Serving engine: prefill + on-device lockstep batched decode.
+
+``sparsity=`` is the BRDS seam: ``prepare(params)`` prunes to the policy's
+patterns and, for models that decode through packed kernels
+(``supports_packed_decode``, the LSTM's dual-ratio datapath), packs the
+surviving weights and pads their rows once, so serving runs the BRDS
+kernels rather than masked dense matmuls.
+"""
+from __future__ import annotations
+
+import torch
+
+from . import runtime
+from .sampling import SamplingConfig
+from ..device import resolve_device
+
+
+class ServeEngine:
+    def __init__(self, model, *, max_len: int = 2048, sparsity=None,
+                 device=None):
+        """``sparsity``: a SparsityPolicy (or compiled SparsityPlan) applied
+        by ``prepare``. ``device`` defaults to ``cuda`` and raises without
+        a card unless ``device="cpu"`` is given."""
+        if not runtime.conforms(model):
+            raise TypeError(
+                f"{type(model).__name__} does not implement the serving "
+                "contract (cache_defs / init_cache / prefill / decode_step)")
+        self.model = model
+        self.max_len = max_len
+        self.sparsity = sparsity
+        self.device = resolve_device(device)
+
+    def prepare(self, params):
+        """Prune params to the engine's policy and, when the model decodes
+        through packed kernels (``supports_packed_decode``), pack the
+        survivors from the prune masks with rows padded to the kernel
+        block. Returns (params, report); report is None when the engine is
+        dense."""
+        if self.sparsity is None:
+            return params, None
+        plan = (self.sparsity.compile(params)
+                if hasattr(self.sparsity, "compile") else self.sparsity)
+        pruned, masks = plan.prune(params)
+        report = plan.summary(masks)
+        if not getattr(self.model, "supports_packed_decode", False):
+            return pruned, report
+        packed, pack_report = plan.pack(pruned, masks)
+        if hasattr(self.model, "pad_packed_params"):
+            packed = self.model.pad_packed_params(packed)
+        return packed, {**report, **pack_report}
+
+    def generate(self, params, tokens, steps: int, *,
+                 temperature: float = 0.0, top_k: int = 0, eos_id: int = -1,
+                 rng: torch.Generator | None = None,
+                 sampling: SamplingConfig | None = None,
+                 return_state: bool = False, lengths=None):
+        """Generate ``steps`` tokens for a lockstep batch of prompts.
+
+        tokens (B, S) prompt ids. Returns (B, steps) int32 ids; finished
+        sequences (per-sequence EOS) pad with ``sampling.pad_id``.
+        ``return_state=True`` also returns the decode loop's final state.
+
+        ``lengths`` ((B,) ints) serves a ragged batch in one lockstep call:
+        ``tokens`` is right-padded to a common width, the length-masked
+        prefill keeps each sequence's padding out of its state, and decode
+        runs with per-sequence positions.
+        """
+        if sampling is None:
+            sampling = SamplingConfig(temperature=temperature, top_k=top_k,
+                                      eos_id=eos_id)
+        if rng is None:
+            rng = torch.Generator(device=self.device).manual_seed(0)
+        tokens = torch.as_tensor(tokens, device=self.device)
+        if lengths is not None:
+            if not runtime.prefill_accepts_length(self.model):
+                raise TypeError(
+                    f"{type(self.model).__name__}.prefill has no "
+                    "length-masked path — ragged lockstep serving needs the "
+                    "`length` prefill parameter")
+            lengths = torch.as_tensor(lengths, dtype=torch.int32,
+                                      device=self.device)
+            logits, cache = self.model.prefill(params, tokens,
+                                               max_len=self.max_len,
+                                               length=lengths)
+            pos = lengths
+        else:
+            logits, cache = self.model.prefill(params, tokens,
+                                               max_len=self.max_len)
+            pos = tokens.shape[1]
+        toks, state = runtime.decode_loop(self.model, params, cache, logits,
+                                          pos, rng, steps, sampling,
+                                          limit=self.max_len)
+        return (toks, state) if return_state else toks

@@ -1,0 +1,284 @@
+"""SparsityPolicy → SparsityPlan: one declaration drives prune and pack.
+
+A policy is a list of rules, each mapping a param-path regex to a
+(format, ratio) pair:
+
+    policy = SparsityPolicy.of({"w_x$": ("row_balanced", 0.875),
+                                "w_h$": ("row_balanced", 0.75)},
+                               layout="out_in")
+    plan = policy.compile(params)
+    pruned, masks = plan.prune(params)         # masks: {path: bool mask}
+    packed, report = plan.pack(pruned, masks)  # packed-format param tree
+
+Param trees are nested dicts / lists of tensors; a leaf's path joins its
+keys and indices with "/" (``layers/0/w_x``). Weight layout per rule (how
+a leaf maps to the (rows=output, cols=fan-in) matrix):
+
+  "out_in"        (out, in...)   — the LSTM's W ∈ R^{4H×X} convention
+  "in_out"        (in..., out)   — transformer projections (out = last dim)
+  "out_trailing"  (in, out...)   — rwkv mixer weights
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+import re
+from typing import Any, Mapping
+
+import torch
+
+from .formats import SparseFormat, get_format
+
+__all__ = ["Rule", "SparsityPolicy", "SparsityPlan", "lstm_policy",
+           "apply_masks", "sparsity_report"]
+
+_LAYOUTS = ("out_in", "in_out", "out_trailing")
+
+
+# ----------------------------------------------------------------- paths
+
+def _leaves_with_path(tree, prefix: str = ""):
+    """Yield (path, leaf) over nested dicts (sorted keys) and lists."""
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from _leaves_with_path(tree[k], f"{prefix}{k}/")
+    elif isinstance(tree, (list, tuple)):
+        for i, v in enumerate(tree):
+            yield from _leaves_with_path(v, f"{prefix}{i}/")
+    else:
+        yield prefix[:-1], tree
+
+
+def _map_with_path(tree, fn, prefix: str = ""):
+    """Rebuild ``tree`` with every leaf replaced by ``fn(path, leaf)``."""
+    if isinstance(tree, dict):
+        return {k: _map_with_path(v, fn, f"{prefix}{k}/")
+                for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_map_with_path(v, fn, f"{prefix}{i}/")
+                          for i, v in enumerate(tree))
+    return fn(prefix[:-1], tree)
+
+
+# ----------------------------------------------------------------- rules
+
+@dataclasses.dataclass(frozen=True)
+class Rule:
+    """One policy entry: params whose path matches ``pattern`` (re.search)
+    are pruned with ``format`` at ``ratio``."""
+
+    pattern: str
+    format: str = "row_balanced"
+    ratio: float = 0.0
+    layout: str = "in_out"
+    options: Mapping[str, Any] = dataclasses.field(default_factory=dict)
+
+    def __post_init__(self):
+        if self.layout not in _LAYOUTS:
+            raise ValueError(f"layout must be one of {_LAYOUTS}, "
+                             f"got {self.layout!r}")
+        if not (0.0 <= self.ratio < 1.0):
+            raise ValueError(f"ratio must be in [0, 1), got {self.ratio}")
+
+
+@dataclasses.dataclass(frozen=True)
+class _Site:
+    """One matched param leaf, normalized to the (rows=out, cols=in) view."""
+
+    path: str
+    rule: Rule
+    fmt: SparseFormat
+    d_in: int
+    d_out: int
+    shape: tuple
+    dtype: Any
+
+    def to_oi(self, leaf: torch.Tensor) -> torch.Tensor:
+        """leaf → (d_out, d_in) with rows = output units."""
+        if self.rule.layout == "out_in":
+            return leaf.reshape(self.d_out, self.d_in)
+        return leaf.reshape(self.d_in, self.d_out).T
+
+    def from_oi(self, arr: torch.Tensor) -> torch.Tensor:
+        if self.rule.layout == "out_in":
+            return arr.reshape(self.shape)
+        return arr.T.reshape(self.shape)
+
+
+def _resolve_dims(layout: str, shape: tuple) -> tuple[int, int]:
+    """→ (d_in, d_out)."""
+    if layout == "out_in":
+        return math.prod(shape[1:]), shape[0]
+    if layout == "out_trailing":
+        return shape[0], math.prod(shape[1:])
+    return math.prod(shape[:-1]), shape[-1]
+
+
+# ---------------------------------------------------------------- policy
+
+@dataclasses.dataclass(frozen=True)
+class SparsityPolicy:
+    """Ordered weight rules (first match wins) selecting a (format, ratio)
+    per param-path regex. (The kernel backend is chosen per call, by
+    ``sparse.backend``, not here.)
+
+    Examples
+    --------
+    >>> p = SparsityPolicy.of({r"w_x$": ("row_balanced", 0.875),
+    ...                        r"w_h$": ("row_balanced", 0.75)},
+    ...                       layout="out_in")
+    >>> p.match("layers/0/w_x").ratio
+    0.875
+    >>> p.match("layers/0/b") is None
+    True
+    """
+
+    rules: tuple
+
+    @classmethod
+    def of(cls, mapping: Mapping[str, Any], *,
+           layout: str = "in_out") -> "SparsityPolicy":
+        """Build a policy from ``{pattern: ratio | (format, ratio) |
+        (format, ratio, options)}``; bare floats mean ``row_balanced``."""
+        rules = []
+        for pat, spec in mapping.items():
+            if isinstance(spec, (int, float)):
+                rules.append(Rule(pat, "row_balanced", float(spec), layout))
+            else:
+                fmt, ratio, *rest = spec
+                opts = rest[0] if rest else {}
+                rules.append(Rule(pat, fmt, float(ratio), layout,
+                                  dict(opts)))
+        return cls(rules=tuple(rules))
+
+    def match(self, path_str: str) -> Rule | None:
+        """First rule whose pattern ``re.search``-matches ``path_str``."""
+        for r in self.rules:
+            if re.search(r.pattern, path_str):
+                return r
+        return None
+
+    def compile(self, params) -> "SparsityPlan":
+        """Resolve every matched ≥2-D leaf to a (format, layout, dims)
+        site; only shapes and dtypes are read."""
+        sites = {}
+        for ps, leaf in _leaves_with_path(params):
+            if not isinstance(leaf, torch.Tensor) or leaf.ndim < 2:
+                continue
+            rule = self.match(ps)
+            if rule is None or rule.ratio <= 0.0:
+                continue
+            d_in, d_out = _resolve_dims(rule.layout, tuple(leaf.shape))
+            sites[ps] = _Site(path=ps, rule=rule, fmt=get_format(rule.format),
+                              d_in=d_in, d_out=d_out,
+                              shape=tuple(leaf.shape), dtype=leaf.dtype)
+        return SparsityPlan(policy=self, sites=sites)
+
+
+# ------------------------------------------------------------------ plan
+
+class SparsityPlan:
+    """A policy compiled against one param tree: ``prune`` → ``pack``.
+
+    Attributes
+    ----------
+    policy : SparsityPolicy
+        The declaration this plan was compiled from.
+    sites : dict
+        ``{path: _Site}`` for every matched param leaf.
+    """
+
+    def __init__(self, policy: SparsityPolicy, sites: dict):
+        self.policy = policy
+        self.sites = sites
+
+    def __repr__(self):
+        return f"SparsityPlan(sites={len(self.sites)})"
+
+    def _site_mask(self, site: _Site, leaf) -> torch.Tensor:
+        m = site.fmt.mask(site.to_oi(leaf), site.rule.ratio,
+                          **site.rule.options)
+        return site.from_oi(m)
+
+    def masks(self, params) -> dict:
+        """{path: bool mask} for every matched leaf (True = keep)."""
+        return {ps: self._site_mask(self.sites[ps], leaf)
+                for ps, leaf in _leaves_with_path(params)
+                if ps in self.sites}
+
+    def prune(self, params):
+        """→ (pruned_params, masks)."""
+        masks = self.masks(params)
+        return apply_masks(params, masks), masks
+
+    def pack(self, params, masks: dict | None = None):
+        """Replace every matched leaf with its packed-format rep.
+
+        masks=None recomputes masks from the rule ratios. Pass the masks
+        from ``prune`` to pack an exact pattern. Returns
+        (packed_params, report)."""
+        totals = dict(dense=0, packed=0)
+
+        def one(ps, leaf):
+            if not isinstance(leaf, torch.Tensor):
+                return leaf
+            nbytes = leaf.numel() * leaf.element_size()
+            totals["dense"] += nbytes
+            site = self.sites.get(ps)
+            if site is None:
+                totals["packed"] += nbytes
+                return leaf
+            r, opts = site.rule.ratio, site.rule.options
+            totals["packed"] += site.fmt.packed_bytes(
+                site.d_out, site.d_in, r, leaf.dtype, **opts)
+            if masks is not None and ps in masks:
+                m_oi = site.to_oi(masks[ps])
+            else:
+                m_oi = site.to_oi(self._site_mask(site, leaf))
+            return site.fmt.pack(site.to_oi(leaf), m_oi, **opts)
+
+        packed = _map_with_path(params, one)
+        return packed, dict(dense_bytes=totals["dense"],
+                            packed_bytes=totals["packed"],
+                            ratio=totals["packed"] / max(totals["dense"], 1))
+
+    def summary(self, masks: dict) -> dict:
+        return sparsity_report(masks)
+
+
+# -------------------------------------------------------- tree utilities
+
+def apply_masks(params, masks: dict):
+    """Zero pruned weights. masks: {path: bool mask}."""
+    return _map_with_path(
+        params, lambda ps, leaf: (torch.where(masks[ps], leaf,
+                                              torch.zeros_like(leaf))
+                                  if ps in masks else leaf))
+
+
+def sparsity_report(masks: dict) -> dict:
+    total = pruned = 0
+    for m in masks.values():
+        total += m.numel()
+        pruned += int(m.numel() - int(m.sum()))
+    return {"prunable_params": total, "pruned": pruned,
+            "sparsity": pruned / max(total, 1)}
+
+
+# --------------------------------------------------------- stock policies
+
+def lstm_policy(spar_x: float, spar_h: float, *,
+                fmt: str = "row_balanced", delta=None,
+                quant=None) -> SparsityPolicy:
+    """The paper's dual-ratio split: input weights W_x at ``spar_x``,
+    recurrent weights W_h at ``spar_h`` (both row-balanced by default).
+
+    ``delta`` (temporal-delta activations) and ``quant`` (fixed-point
+    packing) are not ported yet and raise ``NotImplementedError``.
+    """
+    if delta is not None:
+        raise NotImplementedError("temporal-delta sparsity is not ported yet")
+    if quant is not None:
+        raise NotImplementedError("quantized packing is not ported yet")
+    return SparsityPolicy.of(
+        {r"w_x$": (fmt, spar_x), r"w_h$": (fmt, spar_h)}, layout="out_in")
