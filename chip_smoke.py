@@ -8,18 +8,27 @@
    started together).
 2. Kernels: calls each kernel's wrapper at the serve path's full-width
    shapes (lstm_ptb, B=8, int16 deltas), at a small shape (B=3, int8
-   deltas, odd H: the fused kernel's partial last block) and at a wide one
+   deltas, odd H: the fused kernels' partial last block) and at a wide one
    (B=12: the 16-accumulator tier; int32 deltas for W_x), holds it against
-   its plain PyTorch version on the same inputs, holds the fused step
-   bitwise against the chained kernels, and times the kernel, the plain
-   version and the dense library call with L2 flushed.
+   its plain PyTorch version on the same inputs, holds each fused step
+   bitwise against its chained kernels, and times the kernel, the plain
+   version and the dense library call with L2 flushed. The float kernels
+   (rb_dual_spmv, lstm_gates, fused step), the temporal-delta ones
+   (delta_rb_dual_spmv, fused delta step) at a fired share of about 50%
+   and at 100%, and the quantized ones (rb_dual_parts_q8, fused q8 step)
+   with int8 and with q1.11 (int16) codes; the q8 partial sums must equal
+   the plain version's exactly.
 3. Serve: full-width ``lstm_ptb`` (random weights from seed 0) pruned and
    packed by ``lstm_policy(0.75, 0.5)`` through ``ServeEngine``, greedy
-   ``generate`` with B=8, prompt 32, gen 64 on the fused path (the
-   default) and on the chained path (``fused=False``), the launch counts
-   set to 0 just before each and read just after; then the same run on the
-   plain versions (``backend="ref"``), with teacher-forced logits and
-   greedy tokens compared.
+   ``generate`` with B=8, prompt 32, gen 64, the launch counts set to 0
+   just before each path and read just after: packed float fused (the
+   default) and chained; temporal delta at Θ=0 fused and chained and at
+   Θ=0.05 (occupancy printed); int8 calibrated on a prompt-shaped batch,
+   fused and chained; q1.11 fused; and Θ=0 delta with int8 on the chained
+   path (its fused kernel is not ported). Each mode's teacher-forced logits
+   and greedy tokens are held against the same run on the plain versions
+   (``backend="ref"``), fused against chained tokens, and Θ=0 delta tokens
+   against the packed float ones.
 
 Prints a ``{"kernels": [...]}`` line and, last, the device line. Exits
 non-zero on any failure, and without a card.
@@ -38,12 +47,18 @@ sys.path.insert(0, str(ROOT / "src"))
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory rate
 FP32_FLOPS = 67e12             # H100 SXM float32 outside the tensor cores
-Z_TOL = 1e-4      # z sums up to 8299 products: warp-tree vs sequential order
+INT8_OPS = 1979e12             # H100 SXM int8 peak (no int16/int32 entry)
+Z_TOL = 1e-4      # z and m sums of up to 8299 products: warp-tree vs
+                  # sequential order
 CELL_TOL = 1e-5   # c, h: the cell's inputs differ by at most z's rounding
 LOGIT_TOL = 1e-3  # 96 recurrent steps of z-level differences through the head
 MARGIN = 1e-4     # greedy tokens may differ only below this top-2 margin
 SERVE = dict(batch=8, prompt=32, gen=64)
 RUNS = 5          # timed generate runs per path; median and range reported
+SCHEMES = ("int8", "q1.11")
+KERNELS = ("rb_dual_spmv", "lstm_gates", "fused_brds_lstm_step",
+           "delta_rb_dual_spmv", "fused_brds_delta_lstm_step",
+           "rb_dual_parts_q8", "fused_brds_lstm_step_q8")
 
 
 def log(msg: str) -> None:
@@ -76,10 +91,12 @@ def time_ms(fn, flush, reps: int = 30) -> float:
     return statistics.median(s.elapsed_time(e) for s, e in pairs)
 
 
-def bound(nbytes: int, flops: int) -> tuple[float, str]:
-    """Least time (ms) for the work: bytes over the memory rate vs float32
-    operations over the peak rate, the larger of the two."""
-    tb, tf = nbytes / HBM_BYTES_PER_S, flops / FP32_FLOPS
+def bound(nbytes: int, flops: int, int_ops: int = 0) -> tuple[float, str]:
+    """Least time (ms) for the work: bytes over the memory rate vs the
+    operations over the peak rate of their type (float32; integer at the
+    int8 rate), the larger of the two."""
+    tb = nbytes / HBM_BYTES_PER_S
+    tf = flops / FP32_FLOPS + int_ops / INT8_OPS
     return max(tb, tf) * 1e3, "bytes" if tb >= tf else "operations"
 
 
@@ -88,30 +105,65 @@ def nbytes(*ts) -> int:
 
 
 def packed_bytes(s) -> int:
-    """Values and deltas of the logical rows: what a kernel must read
+    """Values (or codes) and deltas of the logical rows, plus a q8
+    packing's per-row combined scales: what a kernel must read
     (``pad_packed``'s zero rows are not)."""
-    return s.rows * s.K * (s.values.element_size() + s.deltas.element_size())
+    n = s.rows * s.K * (s.values.element_size() + s.deltas.element_size())
+    return n + (4 * s.rows if hasattr(s, "scales") else 0)
+
+
+def cell(z, c, pwl=False):
+    """The plain cell on z (B, 4H) grouped [f; i; g; o]."""
+    from repro_torch.kernels.ref import lstm_cell_ref
+    H = z.shape[-1] // 4
+    return lstm_cell_ref(*(z[:, i * H:(i + 1) * H] for i in range(4)), c,
+                         pwl=pwl)
 
 
 def make_case(torch, device, *, B, X, H, spar_x, spar_h, seed):
+    """Packed weights (float, int8 and q1.11, rows padded as serving pads
+    them) and activations from one seeded generator on the card."""
     from repro_torch.core import pack_from_dense, pad_packed
+    from repro_torch.quant import quantize_packed
     g = torch.Generator(device=device).manual_seed(seed)
     rand = lambda *shape, s=1.0: torch.randn(*shape, generator=g,
                                              device=device) * s
     wx, wh = rand(4 * H, X, s=X ** -0.5), rand(4 * H, H, s=H ** -0.5)
-    sx = pad_packed(pack_from_dense(wx, spar_x))
-    sh = pad_packed(pack_from_dense(wh, spar_h))
-    return dict(B=B, X=X, H=H, sx=sx, sh=sh, x=rand(B, X), h=rand(B, H),
-                c=rand(B, H), bias=rand(4 * H, s=0.1))
+    sx, sh = pack_from_dense(wx, spar_x), pack_from_dense(wh, spar_h)
+    case = dict(B=B, X=X, H=H, sx=pad_packed(sx), sh=pad_packed(sh),
+                x=rand(B, X), h=rand(B, H), c=rand(B, H),
+                bias=rand(4 * H, s=0.1))
+    case["q8"] = {spec: (pad_packed(quantize_packed(sx, spec)),
+                         pad_packed(quantize_packed(sh, spec)))
+                  for spec in SCHEMES}
+    # fired masks: about half the columns, and all of them (Θ = 0)
+    case["fired"] = {share: tuple(
+        (torch.rand(B, n, generator=g, device=device) < share).float()
+        for n in (X, H)) for share in (0.5, 1.0)}
+    case.update(dx=rand(B, X, s=0.5), dh=rand(B, H, s=0.3),
+                m=rand(B, 4 * H))
+    return case
+
+
+def q8_acts(case, spec):
+    """Activation codes and scales for a q8 case: a static max-abs scale
+    for int8 (as calibration gives), 2^-11 for q1.11."""
+    from repro_torch.quant import parse_scheme, quantize
+    scheme = parse_scheme(spec)
+    out = []
+    for v in (case["x"], case["h"]):
+        s = scheme.act_scale(float(v.abs().max()) / scheme.qmax)
+        out += [quantize(v, s, scheme), s]
+    return out
 
 
 def check_kernels(torch, device, flush):
     """Phase 2: each kernel against its plain version; returns per-kernel
     records (errors, times, bounds)."""
     from repro_torch.core import unpack
-    from repro_torch.kernels import ops
-    rec = {n: dict(max_abs_err=0.0) for n in
-           ("rb_dual_spmv", "lstm_gates", "fused_brds_lstm_step")}
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels import rb_spmv_q8 as kq8
+    rec = {n: dict(max_abs_err=0.0) for n in KERNELS}
 
     def err(name, a, b, tol, what):
         e = (a.float() - b.float()).abs().max().item()
@@ -163,6 +215,8 @@ def check_kernels(torch, device, flush):
                                      f"the chained kernels ({tag}, pwl={pwl})")
             log(f"  fused step     pwl={pwl!s:5} max|c,h err| {e:.3e} "
                 f"(tol {CELL_TOL:.0e}); bitwise equal to chained kernels")
+        check_delta(torch, ops, err, tag, cs)
+        check_q8(torch, ops, ref, kq8, err, tag, cs)
 
     # times at the serve path's shapes
     sx, sh, x, h, c, b, H = (full[k] for k in
@@ -198,6 +252,8 @@ def check_kernels(torch, device, flush):
             bound(weights + nbytes(x, h, c, b) + 2 * nbytes(c),
                   flops + 30 * B * H)),
     }
+    runs.update(delta_runs(torch, ops, full, wxT, whT))
+    runs.update(q8_runs(torch, full))
     for name, (kern, plain, lib, (bms, by)) in runs.items():
         r = rec[name]
         r["ms"] = time_ms(kern, flush)
@@ -208,7 +264,180 @@ def check_kernels(torch, device, flush):
         log(f"[time] {name:22} kernel {r['ms']:.4f} ms, plain "
             f"{r['plain_ms']:.4f} ms, library {lib_s} ms, bound "
             f"{bms * 1e3:.2f} us ({by}) — median of 30, L2 flushed")
+    # q1.11 (int16 codes) beside the int8 times the record keeps
+    for name, (kern, plain, _, (bms, by)) in q8_runs(
+            torch, full, spec="q1.11").items():
+        log(f"[time] {name:22} q1.11: kernel {time_ms(kern, flush):.4f} ms, "
+            f"plain {time_ms(plain, flush):.4f} ms, bound "
+            f"{bms * 1e3:.2f} us ({by}) — median of 30, L2 flushed")
     return rec
+
+
+def check_delta(torch, ops, err, tag, cs):
+    """delta_rb_dual_spmv and the fused delta step against their plain
+    versions at a fired share of about 50% and 100%; fused bitwise equal
+    to delta_rb_dual_spmv -> m + bias -> lstm_gates."""
+    sx, sh, dx, dh, m, b, c = (cs[k] for k in ("sx", "sh", "dx", "dh", "m",
+                                               "bias", "c"))
+    for share, (fx, fh) in cs["fired"].items():
+        args = (sx, dx, fx, sh, dh, fh, m)
+        mk = ops.delta_rb_dual_spmv(*args, backend="cuda")
+        mr = ops.delta_rb_dual_spmv(*args, backend="ref")
+        torch.cuda.synchronize()
+        e = err("delta_rb_dual_spmv", mk, mr, Z_TOL, f"{tag} {share}")
+        log(f"  delta_rb_dual  fired {float(fx.mean()):.2f}/"
+            f"{float(fh.mean()):.2f} max|m err| {e:.3e} (tol {Z_TOL:.0e})")
+        for pwl in (False, True):
+            kf = ops.fused_brds_delta_lstm_step(*args, b, c, pwl=pwl,
+                                                backend="cuda")
+            kc = ops.brds_delta_lstm_step(*args, b, c, pwl=pwl,
+                                          backend="cuda")
+            kp = ops.fused_brds_delta_lstm_step(*args, b, c, pwl=pwl,
+                                                backend="ref")
+            torch.cuda.synchronize()
+            name = "fused_brds_delta_lstm_step"
+            e = max(err(name, kf[0], kp[0], CELL_TOL, f"{tag} c"),
+                    err(name, kf[1], kp[1], CELL_TOL, f"{tag} h"))
+            em = err(name, kf[2], kp[2], Z_TOL, f"{tag} m")
+            if not all(torch.equal(a, b_) for a, b_ in zip(kf, kc)):
+                raise AssertionError(f"fused delta step is not bitwise equal "
+                                     f"to the chained kernels ({tag}, "
+                                     f"fired {share}, pwl={pwl})")
+            log(f"  fused delta    pwl={pwl!s:5} max|c,h err| {e:.3e} "
+                f"(tol {CELL_TOL:.0e}), max|m err| {em:.3e}; bitwise equal "
+                "to chained kernels")
+
+
+def check_q8(torch, ops, ref, kq8, err, tag, cs):
+    """rb_dual_parts_q8 exactly equal to its plain version, the fused q8
+    step within tolerance of its plain version and bitwise equal to
+    rb_dual_parts_q8 -> zx + zh + bias -> lstm_gates, for int8 and q1.11
+    codes."""
+    x, h, b, c = cs["x"], cs["h"], cs["bias"], cs["c"]
+    for spec in SCHEMES:
+        qsx, qsh = cs["q8"][spec]
+        qx, sax, qh, sah = q8_acts(cs, spec)
+        zx, zh = kq8.rb_dual_parts_q8(qsx.values, qsx.deltas,
+                                      qsx.scales * sax, qx, qsh.values,
+                                      qsh.deltas, qsh.scales * sah, qh,
+                                      qsx.rows)
+        zxr, zhr = ref.rb_spmv_q8_ref(qsx, qx, sax), ref.rb_spmv_q8_ref(
+            qsh, qh, sah)
+        torch.cuda.synchronize()
+        err("rb_dual_parts_q8", zx, zxr, 0.0, f"{tag} {spec} zx")
+        err("rb_dual_parts_q8", zh, zhr, 0.0, f"{tag} {spec} zh")
+        if not (torch.equal(zx, zxr) and torch.equal(zh, zhr)):
+            raise AssertionError(f"rb_dual_parts_q8 differs from its plain "
+                                 f"version ({tag}, {spec})")
+        log(f"  rb_dual_parts_q8 {spec:5} codes {qsx.values.dtype}: zx, zh "
+            "exactly equal to the plain version")
+        kw = dict(act_scale_x=sax, act_scale_h=sah)
+        for pwl in (False, True):
+            args = (qsx, x, qsh, h, b, c)
+            kf = ops.fused_brds_lstm_step_q8(*args, pwl=pwl, backend="cuda",
+                                             **kw)
+            kc = ops.brds_lstm_step_q8(*args, pwl=pwl, backend="cuda", **kw)
+            kp = ops.fused_brds_lstm_step_q8(*args, pwl=pwl, backend="ref",
+                                             **kw)
+            torch.cuda.synchronize()
+            name = "fused_brds_lstm_step_q8"
+            e = max(err(name, kf[0], kp[0], CELL_TOL, f"{tag} {spec} c"),
+                    err(name, kf[1], kp[1], CELL_TOL, f"{tag} {spec} h"))
+            if not all(torch.equal(a, b_) for a, b_ in zip(kf, kc)):
+                raise AssertionError(f"fused q8 step is not bitwise equal to "
+                                     f"the chained kernels ({tag}, {spec}, "
+                                     f"pwl={pwl})")
+            log(f"  fused q8 {spec:5} pwl={pwl!s:5} max|c,h err| {e:.3e} "
+                f"(tol {CELL_TOL:.0e}); bitwise equal to chained kernels")
+    # the fused delta-q8 step has no kernel yet (ROADMAP B9): the card's
+    # backend raises instead of chaining
+    fx, fh = cs["fired"][1.0]
+    try:
+        ops.fused_brds_delta_lstm_step_q8(qsx, cs["dx"], fx, qsh, cs["dh"],
+                                          fh, cs["m"], b, c, backend="cuda")
+    except NotImplementedError:
+        pass
+    else:
+        raise AssertionError("fused_brds_delta_lstm_step_q8 ran on the card "
+                             "without a kernel")
+
+
+def delta_runs(torch, ops, cs, wxT, whT):
+    """Timing entries of the delta kernels at the serve shapes, every
+    column fired (the Θ = 0 serve path fires nearly all of them)."""
+    B, H = cs["B"], cs["H"]
+    sx, sh, dx, dh, m, b, c = (cs[k] for k in ("sx", "sh", "dx", "dh", "m",
+                                               "bias", "c"))
+    fx, fh = cs["fired"][1.0]
+    args = (sx, dx, fx, sh, dh, fh, m)
+    weights = packed_bytes(sx) + packed_bytes(sh)
+    flops = 2 * B * (sx.rows * sx.K + sh.rows * sh.K) + 2 * B * sx.rows
+
+    def addmm_pair():
+        torch.addmm(torch.addmm(m, dx * fx, wxT), dh * fh, whT)
+
+    return {
+        "delta_rb_dual_spmv": (
+            lambda: ops.delta_rb_dual_spmv(*args, backend="cuda"),
+            lambda: ops.delta_rb_dual_spmv(*args, backend="ref"),
+            addmm_pair,
+            bound(weights + nbytes(dx, fx, dh, fh, m) + nbytes(m), flops)),
+        "fused_brds_delta_lstm_step": (
+            lambda: ops.fused_brds_delta_lstm_step(*args, b, c,
+                                                   backend="cuda"),
+            lambda: ops.fused_brds_delta_lstm_step(*args, b, c,
+                                                   backend="ref"),
+            addmm_pair,
+            bound(weights + nbytes(dx, fx, dh, fh, m, b, c) + nbytes(m)
+                  + 2 * nbytes(c), flops + 30 * B * H)),
+    }
+
+
+def q8_runs(torch, cs, spec="int8"):
+    """Timing entries of the q8 kernels at the serve shapes: the kernel
+    wrappers on codes quantized beforehand, the plain versions on the same
+    codes, and the dense float32 addmm pair on the dequantized weights
+    (``torch._int_mm`` needs more than 16 rows: no integer library call
+    serves B=8)."""
+    from repro_torch.core import unpack
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import fused_step as kfused
+    from repro_torch.kernels import rb_spmv_q8 as kq8
+    from repro_torch.quant import dequantize_packed
+    B, H = cs["B"], cs["H"]
+    b, c = cs["bias"], cs["c"]
+    qsx, qsh = cs["q8"][spec]
+    qx, sax, qh, sah = q8_acts(cs, spec)
+    cx, ch = qsx.scales * sax, qsh.scales * sah
+    wxT = unpack(dequantize_packed(qsx)).T.contiguous()
+    whT = unpack(dequantize_packed(qsh)).T.contiguous()
+    x, h = cs["x"], cs["h"]
+    R = qsx.rows
+    weights = packed_bytes(qsx) + packed_bytes(qsh)
+    int_ops = 2 * B * (qsx.rows * qsx.K + qsh.rows * qsh.K)
+    parts = (qsx.values, qsx.deltas, cx, qx, qsh.values, qsh.deltas, ch, qh)
+
+    def addmm_pair():
+        torch.addmm(torch.addmm(b, x, wxT), h, whT)
+
+    def plain_parts():
+        return ref.rb_spmv_q8_ref(qsx, qx, sax), ref.rb_spmv_q8_ref(qsh, qh,
+                                                                    sah)
+
+    return {
+        "rb_dual_parts_q8": (
+            lambda: kq8.rb_dual_parts_q8(*parts, R),
+            plain_parts, addmm_pair,
+            bound(weights + nbytes(qx, qh) + 2 * B * R * 4, 2 * B * R,
+                  int_ops)),
+        "fused_brds_lstm_step_q8": (
+            lambda: kfused.fused_brds_lstm_step_q8(*parts, b, c),
+            lambda: cell(ref.rb_dual_spmv_q8_ref(
+                qsx, qx, sax, qsh, qh, sah, b), c),
+            addmm_pair,
+            bound(weights + nbytes(qx, qh, b, c) + 2 * nbytes(c),
+                  4 * B * R + 30 * B * H, int_ops)),
+    }
 
 
 def teacher_forced(torch, model, params, seq):
@@ -221,11 +450,11 @@ def teacher_forced(torch, model, params, seq):
     return torch.stack(out, 1)
 
 
-def timed_runs(torch, run) -> list[float]:
-    """Host-clock seconds of ``RUNS`` calls of ``run``, each ended by a
+def timed_runs(torch, run, runs: int = RUNS) -> list[float]:
+    """Host-clock seconds of ``runs`` calls of ``run``, each ended by a
     synchronize."""
     out = []
-    for _ in range(RUNS):
+    for _ in range(runs):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         run()
@@ -234,97 +463,196 @@ def timed_runs(torch, run) -> list[float]:
     return out
 
 
-def serve(torch, device):
-    """Phase 3: full-width lstm_ptb greedy serving on the fused kernel and
-    on the chained pair, then on the plain versions. Returns each kernel's
-    launch count from the path that runs it."""
-    from repro_torch.kernels import ops
-    from repro_torch.models import LSTMModel, LSTM_CONFIGS
-    from repro_torch.serving import ServeEngine
-    from repro_torch.sparse import lstm_policy, use_backend
-    cfg = LSTM_CONFIGS["lstm_ptb"]
+def run_path(torch, ops, tag, eng, packed, tokens, expect, runs=RUNS):
+    """One greedy generate with every launch count set to 0 just before it
+    and read just after (held against ``expect``: kernel → count, 0 for
+    the rest), then ``runs`` timed generates. Returns (tokens, state,
+    launch counts of the path's kernels)."""
     B, P, G = SERVE["batch"], SERVE["prompt"], SERVE["gen"]
-    model = LSTMModel(cfg)
-    params = model.init(torch.Generator().manual_seed(0), device)
-    eng = ServeEngine(model, max_len=P + G, sparsity=lstm_policy(0.75, 0.5),
-                      device=device)
-    t0 = time.perf_counter()
-    packed, report = eng.prepare(params)
+    expect = {k: expect.get(k, 0) for k in ops.LAUNCHES}
+    for k in ops.LAUNCHES:
+        ops.LAUNCHES[k] = 0
+    out, state = eng.generate(packed, tokens, G, return_state=True)
     torch.cuda.synchronize()
-    lp = packed["layers"][0]
-    log(f"[serve] lstm_ptb X={cfg.input_size} H={cfg.hidden} "
-        f"V={cfg.vocab_size} layers={cfg.num_layers}; prepare "
-        f"{time.perf_counter() - t0:.2f}s: W_x {tuple(lp['w_x'].values.shape)}"
-        f" {lp['w_x'].deltas.dtype}, W_h {tuple(lp['w_h'].values.shape)} "
-        f"{lp['w_h'].deltas.dtype}, packed/dense bytes {report['ratio']:.4f}")
-    tokens = torch.randint(0, cfg.vocab_size, (B, P),
-                           generator=torch.Generator().manual_seed(1)
-                           ).to(device)
-    chained = ServeEngine(LSTMModel(cfg, fused=False), max_len=P + G,
-                          device=device)
-    want = (P + G) * cfg.num_layers
-    paths = (("fused", eng, {"fused_brds_lstm_step": want,
-                             "rb_dual_spmv": 0, "lstm_gates": 0}),
-             ("chained", chained, {"fused_brds_lstm_step": 0,
-                                   "rb_dual_spmv": want, "lstm_gates": want}))
-    outs, launches = {}, {}
-    for tag, e, expect in paths:
-        for k in ops.LAUNCHES:
-            ops.LAUNCHES[k] = 0
-        out = e.generate(packed, tokens, G)
-        torch.cuda.synchronize()
-        got = dict(ops.LAUNCHES)
-        log(f"[serve] launches on the {tag} path: {got} (expected {expect}: "
-            f"(prompt + gen) x layers = {want} per kernel of the path)")
-        if got != expect:
-            raise AssertionError(f"{tag} path launched {got}, expected "
-                                 f"{expect}")
-        if out.shape != (B, G) or not bool(((out >= 0)
-                                            & (out < cfg.vocab_size)).all()):
-            raise AssertionError(f"bad tokens: shape {tuple(out.shape)}")
-        launches.update({k: n for k, n in got.items() if expect[k]})
-        outs[tag] = out
-        dts = timed_runs(torch, lambda: e.generate(packed, tokens, G))
+    got = dict(ops.LAUNCHES)
+    log(f"[serve] {tag}: launches {({k: n for k, n in got.items() if n})} "
+        f"(expected {({k: n for k, n in expect.items() if n})}: (prompt + "
+        f"gen) x layers per kernel of the path)")
+    if got != expect:
+        raise AssertionError(f"{tag} path launched {got}, expected {expect}")
+    vocab = eng.model.cfg.vocab_size
+    if out.shape != (B, G) or not bool(((out >= 0) & (out < vocab)).all()):
+        raise AssertionError(f"bad tokens: shape {tuple(out.shape)}")
+    if runs:
+        dts = timed_runs(torch, lambda: eng.generate(packed, tokens, G),
+                         runs)
         med = statistics.median(dts)
         log(f"[serve] {tag} greedy B={B} prompt={P} gen={G}: median "
-            f"{med:.4f}s of {RUNS} runs ({B * G / med:.1f} tok/s, prefill "
+            f"{med:.4f}s of {runs} runs ({B * G / med:.1f} tok/s, prefill "
             f"included; range {min(dts):.4f}-{max(dts):.4f}s, "
             f"{B * G / max(dts):.1f}-{B * G / min(dts):.1f} tok/s)")
-    if not torch.equal(outs["fused"], outs["chained"]):
-        raise AssertionError("fused and chained serving gave other tokens")
-    log("[serve] fused and chained tokens identical")
-    out = outs["fused"]
+    return out, state, {k: n for k, n in got.items() if n}
 
+
+def check_plain(torch, tag, eng, packed, tokens, out):
+    """The same run on the plain versions: teacher-forced logits within
+    LOGIT_TOL, greedy tokens identical up to the first step whose top-2
+    margin is below MARGIN. Returns that step."""
+    from repro_torch.sparse import use_backend
+    P, G = SERVE["prompt"], SERVE["gen"]
     with use_backend("ref"):
-        t0 = time.perf_counter()
         out_ref = eng.generate(packed, tokens, G)
-        torch.cuda.synchronize()
-        dt_ref = time.perf_counter() - t0
-    log(f"[serve] same run on the plain versions: {dt_ref:.3f}s "
-        f"({B * G / dt_ref:.1f} tok/s)")
     seq = torch.cat([tokens, out.to(tokens.dtype)], 1)
-    lg_k = teacher_forced(torch, model, packed, seq)
+    lg_k = teacher_forced(torch, eng.model, packed, seq)
     with use_backend("ref"):
-        lg_r = teacher_forced(torch, model, packed, seq)
+        lg_r = teacher_forced(torch, eng.model, packed, seq)
     if not bool(torch.isfinite(lg_k).all()):
-        raise AssertionError("non-finite logits on the kernel path")
+        raise AssertionError(f"{tag}: non-finite logits on the kernel path")
     dl = (lg_k - lg_r).abs().max().item()
-    log(f"[serve] teacher-forced logits, kernels vs plain: max|diff| "
-        f"{dl:.3e} (tol {LOGIT_TOL:.0e})")
     if not dl <= LOGIT_TOL:
-        raise AssertionError(f"logits differ by {dl:.3e}")
-    top2 = lg_r[:, P - 1:].topk(2, dim=-1).values      # steps 0..G-1
-    margin = (top2[..., 0] - top2[..., 1]).amin(dim=0)
-    low = (margin < MARGIN).nonzero()
-    first = int(low[0]) if len(low) else G
+        raise AssertionError(f"{tag}: logits differ by {dl:.3e}")
+    first = first_small_margin(lg_r)
+    margin = margins(lg_r)
     same = bool(torch.equal(out[:, :first], out_ref[:, :first]))
-    log(f"[serve] greedy tokens kernels vs plain identical up to step "
-        f"{first} (first step with a top-2 margin < {MARGIN:.0e}: "
+    log(f"[serve] {tag}: teacher-forced logits, kernels vs plain: max|diff| "
+        f"{dl:.3e} (tol {LOGIT_TOL:.0e}); greedy tokens identical up to "
+        f"step {first} (first step with a top-2 margin < {MARGIN:.0e}: "
         f"{'none' if first == G else first}; smallest margin "
         f"{margin.min().item():.3e}); full match "
         f"{bool(torch.equal(out, out_ref))}")
     if not same:
-        raise AssertionError("greedy tokens differ before any small margin")
+        raise AssertionError(f"{tag}: greedy tokens differ before any small "
+                             "margin")
+    return first
+
+
+def margins(logits):
+    """Per-step smallest top-2 margin over the batch, generated steps."""
+    top2 = logits[:, SERVE["prompt"] - 1:].topk(2, dim=-1).values
+    return (top2[..., 0] - top2[..., 1]).amin(dim=0)
+
+
+def first_small_margin(logits) -> int:
+    low = (margins(logits) < MARGIN).nonzero()
+    return int(low[0]) if len(low) else SERVE["gen"]
+
+
+def same_tokens(torch, what, a, b, upto=None):
+    n = a.shape[1] if upto is None else upto
+    if not torch.equal(a[:, :n], b[:, :n]):
+        raise AssertionError(f"{what}: tokens differ (compared steps < {n})")
+    log(f"[serve] {what}: tokens identical"
+        + ("" if upto is None else f" up to step {n}"))
+
+
+def serve(torch, device):
+    """Phase 3: full-width lstm_ptb greedy serving on every path: packed
+    float, temporal delta and quantized, fused and chained, each against
+    the plain versions. Returns each kernel's launch count from the path
+    that runs it."""
+    from repro_torch.kernels import ops
+    from repro_torch.models import LSTMModel, LSTM_CONFIGS
+    from repro_torch.serving import ServeEngine
+    from repro_torch.sparse import (DeltaGateConfig, QuantConfig,
+                                    lstm_policy, occupancy_report)
+    cfg = LSTM_CONFIGS["lstm_ptb"]
+    B, P, G = SERVE["batch"], SERVE["prompt"], SERVE["gen"]
+    params = LSTMModel(cfg).init(torch.Generator().manual_seed(0), device)
+    tokens = torch.randint(0, cfg.vocab_size, (B, P),
+                           generator=torch.Generator().manual_seed(1)
+                           ).to(device)
+    # a prompt-shaped calibration batch, as launch.serve draws it
+    calib = torch.randint(0, cfg.vocab_size, (B, min(P, 32)),
+                          generator=torch.Generator().manual_seed(3)
+                          ).to(device)
+    want = (P + G) * cfg.num_layers
+
+    def prepared(tag, fused=True, **rules):
+        eng = ServeEngine(LSTMModel(cfg, fused=fused), max_len=P + G,
+                          sparsity=lstm_policy(0.75, 0.5, **rules),
+                          device=device)
+        t0 = time.perf_counter()
+        packed, report = eng.prepare(
+            params, calib=calib if "quant" in rules else None)
+        torch.cuda.synchronize()
+        lp = packed["layers"][0]
+        log(f"[serve] {tag}: lstm_ptb X={cfg.input_size} H={cfg.hidden} "
+            f"V={cfg.vocab_size} layers={cfg.num_layers}; prepare "
+            f"{time.perf_counter() - t0:.2f}s: W_x "
+            f"{tuple(lp['w_x'].values.shape)} {lp['w_x'].values.dtype}/"
+            f"{lp['w_x'].deltas.dtype}, W_h {tuple(lp['w_h'].values.shape)} "
+            f"{lp['w_h'].values.dtype}/{lp['w_h'].deltas.dtype}, packed/dense "
+            f"bytes {report['ratio']:.4f}"
+            + (f", act scales {eng.model.quant.act_scales}"
+               if eng.model.quant else ""))
+        return eng, packed
+
+    def chained(eng):
+        return ServeEngine(eng.model.with_fused(False), max_len=P + G,
+                           device=device)
+
+    launches = {}
+    # packed float: fused (the default) and chained
+    eng, packed = prepared("float")
+    out, _, n = run_path(torch, ops, "float fused", eng, packed, tokens,
+                         {"fused_brds_lstm_step": want})
+    launches.update(n)
+    out_c, _, n = run_path(torch, ops, "float chained", chained(eng), packed,
+                           tokens, {"rb_dual_spmv": want, "lstm_gates": want})
+    launches.update(n)
+    same_tokens(torch, "float fused vs chained", out, out_c)
+    float_first = check_plain(torch, "float", eng, packed, tokens, out)
+    float_out = out
+
+    # temporal delta at Θ = 0: fused and chained; then Θ = 0.05
+    eng, packed = prepared("delta0", delta=DeltaGateConfig())
+    out, state, n = run_path(torch, ops, "delta0 fused", eng, packed, tokens,
+                             {"fused_brds_delta_lstm_step": want})
+    launches.update(n)
+    out_c, _, n = run_path(torch, ops, "delta0 chained", chained(eng),
+                           packed, tokens, {"delta_rb_dual_spmv": want,
+                                            "lstm_gates": want})
+    launches.update(n)
+    same_tokens(torch, "delta0 fused vs chained", out, out_c)
+    check_plain(torch, "delta0", eng, packed, tokens, out)
+    same_tokens(torch, "delta0 vs packed float (Θ = 0 is exact up to "
+                "re-association)", out, float_out, upto=float_first)
+    occ = occupancy_report(state["cache"], steps=P + G, packed=packed)
+    log(f"[serve] delta0 occupancy x={occ['occupancy_x']:.4f} "
+        f"h={occ['occupancy_h']:.4f}")
+    eng, packed = prepared("delta0.05",
+                           delta=DeltaGateConfig(theta_x=0.05, theta_h=0.05))
+    out, state, _ = run_path(torch, ops, "delta0.05 fused", eng, packed,
+                             tokens, {"fused_brds_delta_lstm_step": want})
+    check_plain(torch, "delta0.05", eng, packed, tokens, out)
+    occ = occupancy_report(state["cache"], steps=P + G, packed=packed)
+    log(f"[serve] delta0.05 occupancy x={occ['occupancy_x']:.4f} "
+        f"h={occ['occupancy_h']:.4f}, effective-ops reduction "
+        f"{occ['ops_reduction']:.3f}x (tokens not gated against float)")
+
+    # quantized: int8 fused and chained, q1.11 fused
+    eng, packed = prepared("int8", quant=QuantConfig("int8"))
+    out, _, n = run_path(torch, ops, "int8 fused", eng, packed, tokens,
+                         {"fused_brds_lstm_step_q8": want})
+    launches.update(n)
+    out_c, _, n = run_path(torch, ops, "int8 chained", chained(eng), packed,
+                           tokens, {"rb_dual_parts_q8": want,
+                                    "lstm_gates": want})
+    launches.update(n)
+    same_tokens(torch, "int8 fused vs chained", out, out_c)
+    check_plain(torch, "int8", eng, packed, tokens, out)
+    eng, packed = prepared("q1.11", quant=QuantConfig("q1.11"))
+    out, _, _ = run_path(torch, ops, "q1.11 fused", eng, packed, tokens,
+                         {"fused_brds_lstm_step_q8": want})
+    check_plain(torch, "q1.11", eng, packed, tokens, out)
+
+    # Θ = 0 delta with int8, chained (the fused kernel, B9, is not ported)
+    eng, packed = prepared("delta0+int8", fused=False,
+                           delta=DeltaGateConfig(), quant=QuantConfig("int8"))
+    out, _, _ = run_path(torch, ops, "delta0+int8 chained", eng, packed,
+                         tokens, {"rb_dual_parts_q8": want,
+                                  "lstm_gates": want}, runs=1)
+    check_plain(torch, "delta0+int8", eng, packed, tokens, out)
     return launches
 
 
@@ -357,7 +685,15 @@ def main() -> int:
            "lstm_gates": ("lstm_gates.cu",
                           "src/repro/kernels/lstm_gates.py:70"),
            "fused_brds_lstm_step": ("fused_step.cu",
-                                    "src/repro/kernels/fused_step.py:158")}
+                                    "src/repro/kernels/fused_step.py:158"),
+           "delta_rb_dual_spmv": ("delta_rb_spmv.cu",
+                                  "src/repro/kernels/delta_rb_spmv.py:99"),
+           "fused_brds_delta_lstm_step": (
+               "fused_step.cu", "src/repro/kernels/fused_step.py:220"),
+           "rb_dual_parts_q8": ("rb_spmv_q8.cu",
+                                "src/repro/kernels/rb_spmv_q8.py:101"),
+           "fused_brds_lstm_step_q8": ("fused_step.cu",
+                                       "src/repro/kernels/fused_step.py:284")}
     kernels = []
     for name, r in rec.items():
         kernels.append(dict(

@@ -126,12 +126,14 @@ def unpack(s: RowBalancedSparse) -> torch.Tensor:
     return out.scatter_(1, s.col_indices().long(), s.values)
 
 
-def pad_packed(s: RowBalancedSparse, block_rows: int = 256):
+def pad_packed(s, block_rows: int = 256):
     """Pad the row axis once to a block multiple (zero rows appended,
     ``pad``/``block_rows`` recorded), the layout the reference's kernels
     tile by. The port's kernels consume the arrays as they are and read
-    only the logical rows. No-op when the rows already divide the block or
-    the struct is already padded for it.
+    only the logical rows. Takes ``RowBalancedSparse`` and its quantized
+    twin ``RowBalancedSparseQ8``, whose per-row ``scales`` pad with zeros
+    too. No-op when the rows already divide the block or the struct is
+    already padded for it.
     """
     r = s.rows
     eff = min(block_rows, r) if r else block_rows
@@ -140,7 +142,9 @@ def pad_packed(s: RowBalancedSparse, block_rows: int = 256):
                          else s.block_rows == eff):
         return dataclasses.replace(s, block_rows=eff)
     s = s.logical()
-    return dataclasses.replace(
-        s, values=torch.nn.functional.pad(s.values, (0, 0, 0, pad)),
-        deltas=torch.nn.functional.pad(s.deltas, (0, 0, 0, pad)),
-        pad=pad, block_rows=eff)
+    kw = dict(values=torch.nn.functional.pad(s.values, (0, 0, 0, pad)),
+              deltas=torch.nn.functional.pad(s.deltas, (0, 0, 0, pad)),
+              pad=pad, block_rows=eff)
+    if hasattr(s, "scales"):
+        kw["scales"] = torch.nn.functional.pad(s.scales, (0, pad))
+    return dataclasses.replace(s, **kw)

@@ -1,16 +1,19 @@
 // Device routines shared by the BRDS-LSTM kernels (rb_spmv.cu,
-// lstm_gates.cu, fused_step.cu).
+// delta_rb_spmv.cu, rb_spmv_q8.cu, lstm_gates.cu, fused_step.cu).
 //
-// The fused step must be bitwise equal to the chained rb_dual_spmv ->
-// lstm_gates pair, so both use the same row routine and the same cell
+// Each fused step must be bitwise equal to its chained pair, so both use
+// the same row routine, the same per-row epilogue and the same cell
 // function:
 //  - row_dot fixes the reduction order of a packed row: lane l of the owning
-//    warp takes entries l, l+32, ... with an explicit fmaf, and a butterfly
-//    over the warp adds the 32 partial sums. Float addition is commutative,
-//    so every lane ends with the same total.
-//  - lstm_cell rounds every product and sum on its own (__fmul_rn,
-//    __fadd_rn), so the compiler cannot contract a product into the
-//    following add in one kernel and not in another.
+//    warp takes entries l, l+32, ... and a butterfly over the warp adds the
+//    32 partial sums. Float and integer addition commute, so every lane ends
+//    with the same total. What a packed entry is multiplied by is a policy
+//    (F32Act, DeltaAct, CodeAct): one routine serves the float, the
+//    temporal-delta and the quantized kernels.
+//  - the epilogues (delta_update, dequant) and lstm_cell round every
+//    product and sum on its own (__fmul_rn, __fadd_rn), so the compiler
+//    cannot contract a product into the following add in one kernel and
+//    not in another.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -26,15 +29,62 @@ constexpr int kWarp = 32;
 constexpr int kMaxBatch = 16;
 constexpr int kSeg = 16;   // PWL segments; LUT rows: a_sig, b_sig, a_tanh, b_tanh
 
-// acc[b] += sum_k vals[k] * act[b * ld + col[k]] for b < B, where col is the
-// int32 inclusive running sum of deltas. Called by a whole warp, which owns
-// the row. Each value is loaded once and used for all B batch rows: the
-// packed weights are the bytes that bound the kernel.
-template <typename DT, int NB>
-__device__ __forceinline__ void row_dot(const float* __restrict__ vals,
+// Gather/multiply policies of row_dot: the packed value type W, the
+// accumulator Acc, and mac(acc, v, b, col), which adds the product of one
+// packed value with batch row b's activation at column col.
+
+// z += v * x[b, col]
+struct F32Act {
+  using W = float;
+  using Acc = float;
+  const float* __restrict__ act;
+  int ld;
+  __device__ __forceinline__ float mac(float acc, float v, int b,
+                                       int col) const {
+    return fmaf(v, __ldg(act + b * ld + col), acc);
+  }
+};
+
+// m += v * (d[b, col] * f[b, col]): a raw activation delta times its 0/1
+// fired mask, so an unfired column adds an exact zero product.
+struct DeltaAct {
+  using W = float;
+  using Acc = float;
+  const float* __restrict__ d;
+  const float* __restrict__ f;
+  int ld;
+  __device__ __forceinline__ float mac(float acc, float v, int b,
+                                       int col) const {
+    const int o = b * ld + col;
+    return fmaf(v, __fmul_rn(__ldg(d + o), __ldg(f + o)), acc);
+  }
+};
+
+// acc += code * q[b, col] in 32-bit two's complement: the sum wraps as the
+// plain version's int32 sum does (signed overflow is undefined in C++, so
+// the accumulator is unsigned and cast back by dequant).
+template <typename CT>
+struct CodeAct {
+  using W = CT;
+  using Acc = uint32_t;
+  const CT* __restrict__ act;
+  int ld;
+  __device__ __forceinline__ uint32_t mac(uint32_t acc, CT v, int b,
+                                          int col) const {
+    const int p = static_cast<int>(v) * static_cast<int>(__ldg(act + b * ld + col));
+    return acc + static_cast<uint32_t>(p);
+  }
+};
+
+// acc[b] += sum_k op(vals[k], b, col[k]) for b < B, where col is the int32
+// inclusive running sum of deltas. Called by a whole warp, which owns the
+// row. Each value is loaded once and used for all B batch rows: the packed
+// weights are the bytes that bound the kernels.
+template <typename DT, int NB, typename Op>
+__device__ __forceinline__ void row_dot(const typename Op::W* __restrict__ vals,
                                         const DT* __restrict__ deltas, int K,
-                                        const float* __restrict__ act, int ld,
-                                        int B, float (&acc)[NB]) {
+                                        const Op& op, int B,
+                                        typename Op::Acc (&acc)[NB]) {
   const int lane = threadIdx.x & (kWarp - 1);
   int carry = 0;
   for (int k0 = 0; k0 < K; k0 += kWarp) {
@@ -49,20 +99,32 @@ __device__ __forceinline__ void row_dot(const float* __restrict__ vals,
     const int col = carry + d;
     carry = __shfl_sync(0xffffffffu, col, kWarp - 1);
     if (live) {
-      const float v = __ldg(vals + k);
+      const typename Op::W v = __ldg(vals + k);
 #pragma unroll
       for (int b = 0; b < NB; ++b)
-        if (b < B) acc[b] = fmaf(v, __ldg(act + b * ld + col), acc[b]);
+        if (b < B) acc[b] = op.mac(acc[b], v, b, col);
     }
   }
 #pragma unroll
   for (int b = 0; b < NB; ++b) {
-    float s = acc[b];
+    typename Op::Acc s = acc[b];
 #pragma unroll
     for (int off = kWarp / 2; off > 0; off >>= 1)
       s += __shfl_xor_sync(0xffffffffu, s, off);
     acc[b] = s;
   }
+}
+
+// The partial-sum memory update m' = (m + accx) + acch, the reference's
+// order.
+__device__ __forceinline__ float delta_update(float m, float ax, float ah) {
+  return __fadd_rn(__fadd_rn(m, ax), ah);
+}
+
+// One dequant multiply per row: the int32 sum times the combined
+// (row x activation) scale.
+__device__ __forceinline__ float dequant(uint32_t acc, float comb) {
+  return __fmul_rn(__int2float_rn(static_cast<int>(acc)), comb);
 }
 
 // Activation parameters of the cell: exact sigmoid/tanh, or the paper's
@@ -127,6 +189,17 @@ cudaError_t by_delta(int bytes, F&& body) {
     case 1: return body(int8_t{});
     case 2: return body(int16_t{});
     case 4: return body(int32_t{});
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+// Host side: run `body` with the integer code type of `bytes` (int8 for
+// the int8 scheme, int16 for qM.N).
+template <typename F>
+cudaError_t by_code(int bytes, F&& body) {
+  switch (bytes) {
+    case 1: return body(int8_t{});
+    case 2: return body(int16_t{});
     default: return cudaErrorInvalidValue;
   }
 }

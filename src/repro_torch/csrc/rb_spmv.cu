@@ -25,10 +25,10 @@ rb_dual_spmv_kernel(const float* __restrict__ vx, const DX* __restrict__ dx,
   const int row = (blockIdx.x * blockDim.x + threadIdx.x) / brds::kWarp;
   if (row >= R) return;   // uniform across the warp
   float ax[NB] = {}, ah[NB] = {};
-  brds::row_dot<DX, NB>(vx + (size_t)row * kx, dx + (size_t)row * kx, kx, x,
-                        X, B, ax);
-  brds::row_dot<DH, NB>(vh + (size_t)row * kh, dh + (size_t)row * kh, kh, h,
-                        H, B, ah);
+  brds::row_dot<DX, NB>(vx + (size_t)row * kx, dx + (size_t)row * kx, kx,
+                        brds::F32Act{x, X}, B, ax);
+  brds::row_dot<DH, NB>(vh + (size_t)row * kh, dh + (size_t)row * kh, kh,
+                        brds::F32Act{h, H}, B, ah);
   const int lane = threadIdx.x % brds::kWarp;
   const float bb = bias[row];
 #pragma unroll

@@ -1,8 +1,16 @@
 """Kernels of the port: plain PyTorch versions (``ref``) and hand-written
 CUDA kernels (``csrc/``) behind the ``ops`` wrappers."""
 from .ops import (LAUNCHES, rb_dual_spmv, lstm_gates, brds_lstm_step,
-                  fused_brds_lstm_step)
+                  fused_brds_lstm_step, delta_rb_dual_spmv,
+                  brds_delta_lstm_step, fused_brds_delta_lstm_step,
+                  rb_dual_spmv_q8, delta_rb_dual_spmv_q8, brds_lstm_step_q8,
+                  brds_delta_lstm_step_q8, fused_brds_lstm_step_q8,
+                  fused_brds_delta_lstm_step_q8)
 from . import ref
 
 __all__ = ["LAUNCHES", "rb_dual_spmv", "lstm_gates", "brds_lstm_step",
-           "fused_brds_lstm_step", "ref"]
+           "fused_brds_lstm_step", "delta_rb_dual_spmv",
+           "brds_delta_lstm_step", "fused_brds_delta_lstm_step",
+           "rb_dual_spmv_q8", "delta_rb_dual_spmv_q8", "brds_lstm_step_q8",
+           "brds_delta_lstm_step_q8", "fused_brds_lstm_step_q8",
+           "fused_brds_delta_lstm_step_q8", "ref"]

@@ -1,0 +1,64 @@
+"""CUDA kernel: the temporal-delta dual-family SpMV
+(``csrc/delta_rb_spmv.cu``).
+
+The Spartus composition on the BRDS Gate-module MxV: the partial-sum memory
+advances by the products of fired columns only, m' = m + Sx@(fx·dx) +
+Sh@(fh·dh), over the same row-balanced packing as ``rb_dual_spmv``.
+Thresholding happens in PyTorch before the launch
+(``sparse.temporal.delta_threshold``), so the kernel and its plain version
+read the same deltas and masks. Replaces
+``repro/kernels/delta_rb_spmv.py::delta_rb_dual_spmv``.
+"""
+from __future__ import annotations
+
+import torch
+
+from . import _build
+from .rb_spmv import check_batch, check_packed
+
+
+def check_delta(d, f, name: str, device) -> None:
+    """A float32 (B, N) delta and its float32 0/1 fired mask."""
+    _build.require(d, f"d{name}", dtypes=(torch.float32,), ndim=2,
+                   device=device)
+    _build.require(f, f"f{name}", dtypes=(torch.float32,), ndim=2,
+                   device=device)
+    if f.shape != d.shape:
+        raise ValueError(f"d{name} {tuple(d.shape)} and f{name} "
+                         f"{tuple(f.shape)} differ")
+
+
+def delta_rb_dual_spmv(vals_x, deltas_x, dx, fx, vals_h, deltas_h, dh, fh,
+                       m):
+    """m' = m + Sx @ (fx·dx) + Sh @ (fh·dh) over the first R = m.shape[1]
+    rows of packed Sx (≥ R, Kx) and Sh (≥ R, Kh); rows past R
+    (``pad_packed``'s zero rows) are not read.
+
+    dx, fx (B, X); dh, fh (B, H); m (B, R); all float32 on one card, the
+    masks exactly 0 or 1. Returns m' (B, R) float32.
+    """
+    dev = m.device
+    _build.require(m, "m", dtypes=(torch.float32,), ndim=2)
+    B, R = m.shape
+    check_batch(B)
+    check_packed(vals_x, deltas_x, "Sx", dev)
+    check_packed(vals_h, deltas_h, "Sh", dev)
+    check_delta(dx, fx, "x", dev)
+    check_delta(dh, fh, "h", dev)
+    X, H = dx.shape[1], dh.shape[1]
+    if (min(vals_x.shape[0], vals_h.shape[0]) < R or dx.shape[0] != B
+            or dh.shape[0] != B):
+        raise ValueError(f"shape mismatch: Sx {tuple(vals_x.shape)}, Sh "
+                         f"{tuple(vals_h.shape)}, m {tuple(m.shape)}, dx "
+                         f"{tuple(dx.shape)}, dh {tuple(dh.shape)}")
+    m_out = torch.empty_like(m)
+    lib = _build.load("delta_rb_spmv")
+    err = lib.brds_delta_rb_dual_spmv(
+        vals_x.data_ptr(), deltas_x.data_ptr(), deltas_x.element_size(),
+        vals_x.shape[1], dx.data_ptr(), fx.data_ptr(), X, vals_h.data_ptr(),
+        deltas_h.data_ptr(), deltas_h.element_size(), vals_h.shape[1],
+        dh.data_ptr(), fh.data_ptr(), H, m.data_ptr(), m_out.data_ptr(), B,
+        R, _build.stream(dev))
+    _build.check(err, "delta_rb_dual_spmv")
+    _build.LAUNCHES["delta_rb_dual_spmv"] += 1
+    return m_out

@@ -7,8 +7,14 @@ the plain version.
 
 A struct pre-padded by ``core.packing.pad_packed`` is consumed as it is
 (no per-call copy of the weight stream), as is an unpadded one: the kernels
-read only the logical rows, so only logical rows come out, and the bias is
-fitted to them as the reference's ``_fit`` does.
+read only the logical rows, so only logical rows come out, and the bias
+and the partial-sum memory are fitted to them as the reference's ``_fit``
+does.
+
+The temporal-delta wrappers take the raw deltas and their fired masks from
+``sparse.temporal.delta_threshold``; the quantized wrappers quantize the
+activations here (``_quant_act``), so a kernel and its plain version read
+the same masks and codes.
 """
 from __future__ import annotations
 
@@ -16,14 +22,23 @@ import torch
 
 from . import ref as _ref
 from ._build import LAUNCHES
-from .fused_step import fused_brds_lstm_step as _fused_kernel
+from .delta_rb_spmv import delta_rb_dual_spmv as _delta_dual_kernel
+from .fused_step import (fused_brds_delta_lstm_step as _fused_delta_kernel,
+                         fused_brds_lstm_step as _fused_kernel,
+                         fused_brds_lstm_step_q8 as _fused_q8_kernel)
 from .lstm_gates import lstm_gates as _lstm_gates_kernel
 from .rb_spmv import rb_dual_spmv as _rb_dual_kernel
+from .rb_spmv_q8 import rb_dual_parts_q8 as _rb_dual_parts_q8_kernel
 from ..core.packing import RowBalancedSparse
+from ..quant.scheme import f32_scalar, quantize
 from ..sparse import backend as _backend
 
 __all__ = ["LAUNCHES", "rb_dual_spmv", "lstm_gates", "brds_lstm_step",
-           "fused_brds_lstm_step"]
+           "fused_brds_lstm_step", "delta_rb_dual_spmv",
+           "brds_delta_lstm_step", "fused_brds_delta_lstm_step",
+           "rb_dual_spmv_q8", "delta_rb_dual_spmv_q8", "brds_lstm_step_q8",
+           "brds_delta_lstm_step_q8", "fused_brds_lstm_step_q8",
+           "fused_brds_delta_lstm_step_q8"]
 
 
 def _fit(vec, n):
@@ -36,7 +51,7 @@ def _fit(vec, n):
     return torch.nn.functional.pad(vec, (0, n - have))
 
 
-def _check_dual(sx: RowBalancedSparse, x, sh: RowBalancedSparse, h):
+def _check_dual(sx, x, sh, h):
     """The kernels gather x and h by column without bounds checks, over the
     rows the two families share."""
     if sx.ncols != x.shape[-1] or sh.ncols != h.shape[-1]:
@@ -45,6 +60,26 @@ def _check_dual(sx: RowBalancedSparse, x, sh: RowBalancedSparse, h):
     if sx.rows != sh.rows:
         raise ValueError(f"Sx has {sx.rows} rows, Sh {sh.rows}")
 
+
+def _gates(z, c_prev, pwl, backend):
+    """The cell on z (B, 4H) grouped [f; i; g; o]."""
+    H = z.shape[-1] // 4
+    return lstm_gates(z[:, :H], z[:, H:2 * H], z[:, 2 * H:3 * H],
+                      z[:, 3 * H:], c_prev, pwl=pwl, backend=backend)
+
+
+def _cell_ref(z, c_prev, pwl):
+    H = z.shape[-1] // 4
+    return _ref.lstm_cell_ref(z[:, :H], z[:, H:2 * H], z[:, 2 * H:3 * H],
+                              z[:, 3 * H:], c_prev, pwl=pwl)
+
+
+def _plus_bias(v, bias):
+    """v + bias over v's rows, in float32: the chained steps' bias add."""
+    return v.float() + bias[:v.shape[-1]].float()[None, :]
+
+
+# ---------------------------------------------------------------- float
 
 def rb_dual_spmv(sx: RowBalancedSparse, x, sh: RowBalancedSparse, h, bias,
                  *, backend: str | None = None):
@@ -72,9 +107,7 @@ def brds_lstm_step(sx: RowBalancedSparse, x, sh: RowBalancedSparse, h_prev,
     through device memory, then the cell (Function module). x (B, X),
     h/c (B, H), sx/sh packed over the 4H gate rows. Returns (c, h)."""
     z = rb_dual_spmv(sx, x, sh, h_prev, bias, backend=backend)
-    H = z.shape[-1] // 4
-    return lstm_gates(z[:, :H], z[:, H:2 * H], z[:, 2 * H:3 * H],
-                      z[:, 3 * H:], c_prev, pwl=pwl, backend=backend)
+    return _gates(z, c_prev, pwl, backend)
 
 
 def fused_brds_lstm_step(sx: RowBalancedSparse, x, sh: RowBalancedSparse,
@@ -83,11 +116,169 @@ def fused_brds_lstm_step(sx: RowBalancedSparse, x, sh: RowBalancedSparse,
     """``brds_lstm_step`` in one kernel launch, bitwise equal to the
     chained form. Returns (c, h)."""
     if _backend.resolve(backend, x) == "ref":
-        z = _ref.rb_dual_spmv_ref(sx, x, sh, h_prev, bias)
-        H = z.shape[-1] // 4
-        return _ref.lstm_cell_ref(z[:, :H], z[:, H:2 * H],
-                                  z[:, 2 * H:3 * H], z[:, 3 * H:],
-                                  c_prev, pwl=pwl)
+        return _cell_ref(_ref.rb_dual_spmv_ref(sx, x, sh, h_prev, bias),
+                         c_prev, pwl)
     _check_dual(sx, x, sh, h_prev)
     return _fused_kernel(sx.values, sx.deltas, x, sh.values, sh.deltas,
                          h_prev, _fit(bias, sx.rows), c_prev, pwl=pwl)
+
+
+# ---------------------------------------------------------- temporal delta
+
+def delta_rb_dual_spmv(sx: RowBalancedSparse, dx, fx, sh: RowBalancedSparse,
+                       dh, fh, m, *, backend: str | None = None):
+    """m' = m + Sx@(fx·dx) + Sh@(fh·dh) — the temporal-delta gate
+    accumulation (partial-sum memory update). fx, fh: bool or 0/1 fired
+    masks."""
+    fx, fh = fx.float(), fh.float()
+    if _backend.resolve(backend, dx) == "ref":
+        return _ref.delta_rb_dual_spmv_ref(sx, dx, fx, sh, dh, fh, m)
+    _check_dual(sx, dx, sh, dh)
+    return _delta_dual_kernel(sx.values, sx.deltas, dx, fx, sh.values,
+                              sh.deltas, dh, fh, _fit(m, sx.rows))
+
+
+def brds_delta_lstm_step(sx: RowBalancedSparse, dx, fx,
+                         sh: RowBalancedSparse, dh, fh, m_prev, bias, c_prev,
+                         *, pwl: bool = False, backend: str | None = None):
+    """One temporally-sparse BRDS-LSTM step, chained: the delta dual-SpMV
+    advances the partial-sum memory m with the fired columns' products, the
+    bias is added on top, and the cell closes. Returns (c, h, m)."""
+    m = delta_rb_dual_spmv(sx, dx, fx, sh, dh, fh, m_prev, backend=backend)
+    c, h = _gates(_plus_bias(m, bias), c_prev, pwl, backend)
+    return c, h, m
+
+
+def fused_brds_delta_lstm_step(sx: RowBalancedSparse, dx, fx,
+                               sh: RowBalancedSparse, dh, fh, m_prev, bias,
+                               c_prev, *, pwl: bool = False,
+                               backend: str | None = None):
+    """``brds_delta_lstm_step`` in one launch, bitwise equal to the
+    chained form. Returns (c, h, m)."""
+    fx, fh = fx.float(), fh.float()
+    if _backend.resolve(backend, dx) == "ref":
+        m = _ref.delta_rb_dual_spmv_ref(sx, dx, fx, sh, dh, fh, m_prev)
+        c, h = _cell_ref(_plus_bias(m, bias), c_prev, pwl)
+        return c, h, m
+    _check_dual(sx, dx, sh, dh)
+    return _fused_delta_kernel(sx.values, sx.deltas, dx, fx, sh.values,
+                               sh.deltas, dh, fh, _fit(m_prev, sx.rows),
+                               _fit(bias, sx.rows), c_prev, pwl=pwl)
+
+
+# --------------------------------------------------------------- quantized
+
+def _quant_act(x, packed, act_scale):
+    """→ (codes, scale): quantize one activation batch for a q8 matvec.
+
+    ``act_scale`` None → the packing's scheme decides: fixed point uses
+    its constant 2^-N; scaled schemes take the dynamic max-abs of ``x``,
+    reduced on the device (no host sync)."""
+    scheme = packed.scheme
+    sa = scheme.act_scale(act_scale)
+    if sa is None:
+        amax = x.float().abs().amax()
+        sa = torch.clamp_min(amax / f32_scalar(scheme.qmax, amax), 1e-12)
+    return quantize(x, sa, scheme), sa
+
+
+def _dual_parts_q8(sx, qx, sax, sh, qh, sah):
+    """(zx, zh): the two families' dequantized partial sums, (B, rows)
+    float32, from the q8 kernel."""
+    _check_dual(sx, qx, sh, qh)
+    return _rb_dual_parts_q8_kernel(sx.values, sx.deltas, sx.scales * sax,
+                                    qx, sh.values, sh.deltas,
+                                    sh.scales * sah, qh, sx.rows)
+
+
+def rb_dual_spmv_q8(sx, x, sh, h, bias, *, act_scale_x=None,
+                    act_scale_h=None, backend: str | None = None):
+    """z = dq(Sx@qx) + dq(Sh@qh) + bias — the quantized dual-ratio gate
+    preactivation, each family dequantized by its own row × activation
+    scales. Returns (B, rows) float32."""
+    qx, sax = _quant_act(x, sx, act_scale_x)
+    qh, sah = _quant_act(h, sh, act_scale_h)
+    if _backend.resolve(backend, x) == "ref":
+        return _ref.rb_dual_spmv_q8_ref(sx, qx, sax, sh, qh, sah, bias)
+    zx, zh = _dual_parts_q8(sx, qx, sax, sh, qh, sah)
+    return _plus_bias(zx + zh, bias)
+
+
+def _masked_codes(dx, fx, sx, act_scale_x, dh, fh, sh, act_scale_h):
+    """(qdx, sax, qdh, sah): codes and scales of the masked deltas, so
+    unfired columns carry exact 0 codes."""
+    qdx, sax = _quant_act(torch.where(fx.bool(), dx, 0).to(dx.dtype), sx,
+                          act_scale_x)
+    qdh, sah = _quant_act(torch.where(fh.bool(), dh, 0).to(dh.dtype), sh,
+                          act_scale_h)
+    return qdx, sax, qdh, sah
+
+
+def delta_rb_dual_spmv_q8(sx, dx, fx, sh, dh, fh, m, *, act_scale_x=None,
+                          act_scale_h=None, backend: str | None = None):
+    """m' = m + dq(Sx@q(fx·dx)) + dq(Sh@q(fh·dh)) — the quantized temporal
+    gate accumulation; m stays the float32 partial-sum memory. Returns
+    (B, rows) float32."""
+    qdx, sax, qdh, sah = _masked_codes(dx, fx, sx, act_scale_x, dh, fh, sh,
+                                       act_scale_h)
+    if _backend.resolve(backend, dx) == "ref":
+        return _ref.delta_rb_dual_spmv_q8_ref(sx, qdx, sax, sh, qdh, sah, m)
+    zx, zh = _dual_parts_q8(sx, qdx, sax, sh, qdh, sah)
+    return m.float() + zx + zh
+
+
+def brds_lstm_step_q8(sx, x, sh, h_prev, bias, c_prev, *, act_scale_x=None,
+                      act_scale_h=None, pwl: bool = False,
+                      backend: str | None = None):
+    """One quantized BRDS-LSTM step, chained: the q8 dual-ratio SpMV (int32
+    accumulate + per-row dequant), then the cell. Returns (c, h)."""
+    z = rb_dual_spmv_q8(sx, x, sh, h_prev, bias, act_scale_x=act_scale_x,
+                        act_scale_h=act_scale_h, backend=backend)
+    return _gates(z, c_prev, pwl, backend)
+
+
+def brds_delta_lstm_step_q8(sx, dx, fx, sh, dh, fh, m_prev, bias, c_prev,
+                            *, act_scale_x=None, act_scale_h=None,
+                            pwl: bool = False, backend: str | None = None):
+    """One quantized temporally-sparse step, chained: the fired columns'
+    quantized products advance the float32 partial-sum memory, the bias
+    is added on top, the cell closes. Returns (c, h, m)."""
+    m = delta_rb_dual_spmv_q8(sx, dx, fx, sh, dh, fh, m_prev,
+                              act_scale_x=act_scale_x,
+                              act_scale_h=act_scale_h, backend=backend)
+    c, h = _gates(_plus_bias(m, bias), c_prev, pwl, backend)
+    return c, h, m
+
+
+def fused_brds_lstm_step_q8(sx, x, sh, h_prev, bias, c_prev, *,
+                            act_scale_x=None, act_scale_h=None,
+                            pwl: bool = False, backend: str | None = None):
+    """``brds_lstm_step_q8`` in one launch, bitwise equal to the chained
+    form. Returns (c, h)."""
+    qx, sax = _quant_act(x, sx, act_scale_x)
+    qh, sah = _quant_act(h_prev, sh, act_scale_h)
+    if _backend.resolve(backend, x) == "ref":
+        z = _ref.rb_dual_spmv_q8_ref(sx, qx, sax, sh, qh, sah, bias)
+        return _cell_ref(z, c_prev, pwl)
+    _check_dual(sx, qx, sh, qh)
+    return _fused_q8_kernel(sx.values, sx.deltas, sx.scales * sax, qx,
+                            sh.values, sh.deltas, sh.scales * sah, qh,
+                            _fit(bias, sx.rows), c_prev, pwl=pwl)
+
+
+def fused_brds_delta_lstm_step_q8(sx, dx, fx, sh, dh, fh, m_prev, bias,
+                                  c_prev, *, act_scale_x=None,
+                                  act_scale_h=None, pwl: bool = False,
+                                  backend: str | None = None):
+    """``brds_delta_lstm_step_q8`` in one launch. Its kernel is not ported
+    yet (ROADMAP B9): the "cuda" backend raises; the plain version runs.
+    Returns (c, h, m)."""
+    if _backend.resolve(backend, dx) != "ref":
+        raise NotImplementedError(
+            "fused_brds_delta_lstm_step_q8 has no CUDA kernel yet (ROADMAP "
+            "B9); the chained brds_delta_lstm_step_q8 runs on the card")
+    qdx, sax, qdh, sah = _masked_codes(dx, fx, sx, act_scale_x, dh, fh, sh,
+                                       act_scale_h)
+    m = _ref.delta_rb_dual_spmv_q8_ref(sx, qdx, sax, sh, qdh, sah, m_prev)
+    c, h = _cell_ref(_plus_bias(m, bias), c_prev, pwl)
+    return c, h, m

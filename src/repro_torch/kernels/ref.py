@@ -32,6 +32,55 @@ def rb_dual_spmv_ref(sx: RowBalancedSparse, x: torch.Tensor,
     return z.to(x.dtype)
 
 
+# ----------------------------------------------------------- delta_rb_spmv
+
+def delta_rb_spmv_ref(s: RowBalancedSparse, d: torch.Tensor,
+                      fired: torch.Tensor) -> torch.Tensor:
+    """Temporal-delta SpMV: y[b, r] = Σ_k vals[r, k] · fired[b, c] · d[b, c];
+    columns that did not fire contribute an exact 0."""
+    return rb_spmv_ref(s, (d.float() * fired.float()).to(d.dtype))
+
+
+def delta_rb_dual_spmv_ref(sx: RowBalancedSparse, dx, fx,
+                           sh: RowBalancedSparse, dh, fh,
+                           m: torch.Tensor) -> torch.Tensor:
+    """The partial-sum memory update m' = m + Sx@(fx·dx) + Sh@(fh·dh), m
+    added first; the bias is not folded in."""
+    z = (m.float() + delta_rb_spmv_ref(sx, dx, fx).float()
+         + delta_rb_spmv_ref(sh, dh, fh).float())
+    return z.to(m.dtype)
+
+
+# ------------------------------------------------------------ quantized
+
+def rb_spmv_q8_ref(s, qx: torch.Tensor, act_scale) -> torch.Tensor:
+    """Quantized packed SpMV: integer products accumulated in int32
+    (wrapping), then one dequant multiply per row by the combined scale
+    ``scales * act_scale``. ``s`` a RowBalancedSparseQ8, ``qx`` (B, ncols)
+    integer codes. Returns (B, rows) float32."""
+    s = s.logical()
+    cols = s.col_indices().long()
+    g = qx[:, cols].to(torch.int32)                         # (B, R, K)
+    acc = (g * s.values.to(torch.int32)[None]).sum(-1, dtype=torch.int32)
+    return acc.float() * (s.scales * act_scale)[None, :]
+
+
+def rb_dual_spmv_q8_ref(sx, qx, ax, sh, qh, ah,
+                        bias: torch.Tensor) -> torch.Tensor:
+    """z = dq(Sx@qx) + dq(Sh@qh) + bias, each family dequantized by its
+    own combined scales. Returns (B, rows) float32."""
+    z = rb_spmv_q8_ref(sx, qx, ax) + rb_spmv_q8_ref(sh, qh, ah)
+    return z + bias[:z.shape[-1]].float()[None, :]
+
+
+def delta_rb_dual_spmv_q8_ref(sx, qdx, ax, sh, qdh, ah,
+                              m: torch.Tensor) -> torch.Tensor:
+    """m' = m + dq(Sx@qdx) + dq(Sh@qdh) over the codes of the masked
+    deltas (exact 0 where unfired); the bias is not folded in."""
+    return (m.float() + rb_spmv_q8_ref(sx, qdx, ax)
+            + rb_spmv_q8_ref(sh, qdh, ah))
+
+
 # ---------------------------------------------------------------- lstm cell
 
 def pwl_tables(n_seg: int = 16, lo: float = -8.0, hi: float = 8.0):

@@ -1,13 +1,16 @@
-"""Lockstep serving driver for the paper's LSTMs, dense or BRDS-packed:
+"""Lockstep serving driver for the paper's LSTMs, dense or BRDS-packed,
+with temporal-delta and quantized variants:
 
   python -m repro_torch.launch.serve --arch lstm_ptb --brds
+  python -m repro_torch.launch.serve --arch lstm_ptb --brds --delta 0
+  python -m repro_torch.launch.serve --arch lstm_ptb --brds --quant int8
   python -m repro_torch.launch.serve --arch lstm_ptb --brds --smoke \\
       --device cpu
 
 Runs on the card unless ``--device cpu`` is given, at the configuration's
 full width unless ``--smoke`` narrows it to 128. Prints the generation
-rate (median and range of ``RUNS`` timed runs after one warm-up run) and
-the device it ran on.
+rate (median and range of ``RUNS`` timed runs after one warm-up run), the
+device it ran on and, after a ``--delta`` run, the fired-column occupancy.
 """
 from __future__ import annotations
 
@@ -53,7 +56,9 @@ def main(argv=None):
     from repro_torch.device import resolve_device
     from repro_torch.models import LSTMModel, LSTM_CONFIGS
     from repro_torch.serving import ServeEngine, SamplingConfig
-    from repro_torch.sparse import lstm_policy, set_default_backend
+    from repro_torch.sparse import (DeltaGateConfig, QuantConfig,
+                                    lstm_policy, occupancy_report,
+                                    set_default_backend)
 
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="lstm_ptb", choices=sorted(
@@ -76,9 +81,21 @@ def main(argv=None):
     ap.add_argument("--backend", default="auto",
                     choices=("auto", "ref", "cuda"),
                     help="kernel backend for packed decode")
+    ap.add_argument("--delta", type=float, default=None, metavar="THETA",
+                    help="serve with temporal-delta sparsity at threshold "
+                         "THETA (0 = exact; composes with --brds)")
+    ap.add_argument("--delta-h", type=float, default=None,
+                    help="recurrent-path threshold (default: --delta)")
+    ap.add_argument("--occupancy", type=float, default=None, metavar="CAP",
+                    help="cap the fired-column fraction per step")
+    ap.add_argument("--quant", default=None, metavar="SCHEME",
+                    help="requires --brds: serve quantized packed weights "
+                         "('int8' or 'qM.N', e.g. 'q1.11'); activation "
+                         "scales are calibrated on a prompt-shaped batch")
     ap.add_argument("--no-fused", dest="fused", action="store_false",
-                    help="chained rb_dual_spmv -> lstm_gates decode instead "
-                         "of the fused single-launch step")
+                    help="chained per-kernel decode (gate kernel, then "
+                         "lstm_gates) instead of the fused single-launch "
+                         "step")
     ap.add_argument("--temperature", type=float, default=0.0)
     ap.add_argument("--top-k", type=int, default=0)
     ap.add_argument("--top-p", type=float, default=0.0)
@@ -87,6 +104,12 @@ def main(argv=None):
                     help="generate once more under torch.profiler and print "
                          "the device time by kernel and the busy share")
     args = ap.parse_args(argv)
+    if args.delta is None and (args.delta_h is not None
+                               or args.occupancy is not None):
+        ap.error("--delta-h/--occupancy require --delta")
+    if args.quant is not None and not args.brds:
+        ap.error("--quant requires --brds (quantization rides the packed "
+                 "row-balanced weights)")
 
     device = resolve_device(args.device)
     set_default_backend(args.backend)
@@ -98,10 +121,32 @@ def main(argv=None):
     params = model.init(torch.Generator().manual_seed(args.seed), device)
     print(f"arch={cfg.name} params={model.param_count() / 1e6:.1f}M "
           f"device={device}")
-    sparsity = lstm_policy(args.spar_a, args.spar_b) if args.brds else None
+    sparsity = None
+    if args.brds or args.delta is not None:
+        delta = None
+        if args.delta is not None:
+            delta = DeltaGateConfig(
+                theta_x=args.delta,
+                theta_h=(args.delta_h if args.delta_h is not None
+                         else args.delta),
+                cap_x=args.occupancy, cap_h=args.occupancy)
+        quant = QuantConfig(args.quant) if args.quant else None
+        # ratio 0 compiles to an empty weight plan: --delta without --brds
+        # serves dense weights with temporal skipping only
+        sparsity = lstm_policy(args.spar_a if args.brds else 0.0,
+                               args.spar_b if args.brds else 0.0,
+                               delta=delta, quant=quant)
     eng = ServeEngine(model, max_len=args.prompt_len + args.gen,
                       sparsity=sparsity, device=device)
-    params, report = eng.prepare(params)
+    calib = None
+    if args.quant:
+        # activation scales from a prompt-shaped batch through the dense
+        # params (prepare prunes and packs afterwards)
+        calib = torch.randint(0, cfg.vocab_size,
+                              (args.batch, min(args.prompt_len, 32)),
+                              generator=torch.Generator().manual_seed(
+                                  args.seed + 3)).to(device)
+    params, report = eng.prepare(params, calib=calib)
     if report is not None:
         print("BRDS:", report)
     gen = torch.Generator().manual_seed(args.seed + 1)
@@ -113,14 +158,15 @@ def main(argv=None):
     def run():
         return eng.generate(
             params, tokens, args.gen, sampling=sampling,
-            rng=torch.Generator(device).manual_seed(args.seed + 2))
+            rng=torch.Generator(device).manual_seed(args.seed + 2),
+            return_state=True)
 
     run()   # builds the kernels at their first launch, warms the libraries
     dts = []
     for _ in range(RUNS):
         _sync(device)
         t0 = time.perf_counter()
-        out = run()
+        out, state = run()
         _sync(device)
         dts.append(time.perf_counter() - t0)
     dt = statistics.median(dts)
@@ -131,6 +177,15 @@ def main(argv=None):
           f"{len(dts)} runs ({toks / dt:.1f} tok/s, prefill included; "
           f"range {toks / max(dts):.1f}-{toks / min(dts):.1f} tok/s) "
           f"on {name}")
+    if args.delta is not None:
+        occ = occupancy_report(state["cache"],
+                               steps=args.prompt_len + args.gen,
+                               packed=params if args.brds else None)
+        line = (f"delta: occupancy x={occ['occupancy_x']:.1%} "
+                f"h={occ['occupancy_h']:.1%}")
+        if "ops_reduction" in occ:
+            line += f", effective-ops reduction {occ['ops_reduction']:.2f}x"
+        print(line)
     print("sample ids:", out[0, :16].tolist())
     if args.profile:
         _profile(run, device)

@@ -4,10 +4,11 @@ Gate layout: rows grouped by gate [f; i; g; o], each H rows, so
 W_x ∈ R^{4H×X} and W_h ∈ R^{4H×H}. Dense params step through a plain
 matmul; packed row-balanced params step through the BRDS datapath
 (``kernels.ops``): the fused single-launch kernel by default, or the
-chained rb_dual_spmv → lstm_gates pair with ``fused=False``.
+chained rb_dual_spmv → lstm_gates pair with ``fused=False``. Quantized
+packings (``RowBalancedSparseQ8``) step through the q8 kernels, and a
+``delta`` rule through the temporal-delta ones.
 
-Temporal-delta serving (``delta``), quantized packing (``quant``) and
-sharded decode (``mesh``) are not ported yet.
+Sharded decode (``mesh``) is not ported yet.
 """
 from __future__ import annotations
 
@@ -21,7 +22,12 @@ from ..core.packing import RowBalancedSparse, pad_packed
 from ..device import resolve_device
 from ..kernels import ops as K
 from ..kernels.ref import lstm_cell_ref
+from ..quant import (QuantPlan, RowBalancedSparseQ8, parse_scheme,
+                     quantize_packed)
 from ..sparse import get_format, lstm_policy
+from ..sparse.temporal import delta_threshold
+
+_PACKED = (RowBalancedSparse, RowBalancedSparseQ8)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -51,19 +57,58 @@ class LSTMModel:
     ``fused``: True (the default) steps every packed layer through the
     fused single-launch kernel; False takes the chained per-kernel path
     (two launches per layer-step).
+
+    ``delta`` (a ``DeltaGateConfig`` or None) switches serving to
+    Spartus-style temporal sparsity: the decode cache grows per-layer
+    reference states (x_ref, h_ref), a float32 partial-sum memory m and
+    fired-column counters (nx, nh), and prefill / decode step through
+    ``_delta_step``.
+
+    ``quant`` (a ``QuantPlan`` or None) carries the calibrated per-layer
+    activation scales for quantized packed params; without a plan they
+    still serve, with dynamic max-abs activation scales.
+
+    With both ``delta`` and ``quant``, the fused step needs kernel B9,
+    which is not ported: ``fused=True`` raises and ``fused=False`` runs
+    the chained delta-q8 path. ``mesh`` raises: sharded decode is not
+    ported.
     """
 
     supports_packed_decode = True
 
     def __init__(self, cfg: LSTMConfig, delta=None, quant=None, mesh=None,
                  fused: bool = True):
-        for name, v in (("delta", delta), ("quant", quant), ("mesh", mesh)):
-            if v is not None:
-                raise NotImplementedError(f"LSTMModel({name}=...) is not "
-                                          "ported yet")
+        if mesh is not None:
+            raise NotImplementedError("LSTMModel(mesh=...) is not ported "
+                                      "yet")
+        if delta is not None and quant is not None and fused:
+            raise NotImplementedError(
+                "fused temporal-delta q8 decode needs the kernel "
+                "fused_brds_delta_lstm_step_q8, not ported yet (ROADMAP "
+                "B9); use fused=False for the chained delta-q8 path")
         _full_fp32_matmuls()
         self.cfg = cfg
+        self.delta = delta
+        self.quant = quant
         self.fused = fused
+
+    def with_delta(self, delta) -> "LSTMModel":
+        """Copy of this model serving through the temporal-delta path
+        (``delta``: a DeltaGateConfig, or None to disable)."""
+        return LSTMModel(self.cfg, delta=delta, quant=self.quant,
+                         fused=self.fused)
+
+    def with_quant(self, quant) -> "LSTMModel":
+        """Copy of this model carrying a quantization plan (``quant``: a
+        QuantPlan, or None to disable)."""
+        return LSTMModel(self.cfg, delta=self.delta, quant=quant,
+                         fused=self.fused)
+
+    def with_fused(self, fused: bool) -> "LSTMModel":
+        """Copy of this model with the fused (True) or chained (False)
+        packed step."""
+        return LSTMModel(self.cfg, delta=self.delta, quant=self.quant,
+                         fused=fused)
 
     # ------------------------------------------------------------- params
     def param_defs(self) -> dict:
@@ -105,12 +150,17 @@ class LSTMModel:
         (pruned_params, masks) with masks {path: bool mask}."""
         return lstm_policy(spar_x, spar_h).compile(params).prune(params)
 
-    def pack(self, params, masks: dict | None = None):
+    def pack(self, params, masks: dict | None = None, quant=None):
         """Pack pruned layers into per-layer ``{"sx", "sh", "b"}`` with the
         rows padded once to the kernel block (``pad_packed``). ``masks``
         from ``prune`` keeps surviving weights that are exactly zero; with
-        None the survivors are re-selected per row by magnitude."""
+        None the survivors are re-selected per row by magnitude. ``quant``
+        (a scheme name such as ``"int8"`` / ``"q1.11"``, a QuantScheme or a
+        QuantConfig) also quantizes each matrix to RowBalancedSparseQ8."""
         fmt = get_format("row_balanced")
+        scheme = None
+        if quant is not None:
+            scheme = parse_scheme(getattr(quant, "scheme", quant))
         packed = []
         for i, lp in enumerate(params["layers"]):
             entry = {"b": lp["b"]}
@@ -118,7 +168,9 @@ class LSTMModel:
                 m = (masks or {}).get(f"layers/{i}/{key}")
                 if m is None:
                     m = _survivor_mask(lp[key])
-                entry[out] = pad_packed(fmt.pack(lp[key], m))
+                s = fmt.pack(lp[key], m)
+                entry[out] = pad_packed(quantize_packed(s, scheme)
+                                        if scheme else s)
             packed.append(entry)
         return packed
 
@@ -128,8 +180,7 @@ class LSTMModel:
         so no step re-pads the weight stream. Accepts ``pack``'s per-layer
         list or a ``SparsityPlan.pack``'d tree; dense leaves pass."""
         def _pad(s):
-            return (pad_packed(s, block_rows)
-                    if isinstance(s, RowBalancedSparse) else s)
+            return pad_packed(s, block_rows) if isinstance(s, _PACKED) else s
         if isinstance(packed, dict) and "layers" in packed:
             return {**packed, "layers": [
                 {**lp, "w_x": _pad(lp["w_x"]), "w_h": _pad(lp["w_h"])}
@@ -139,7 +190,19 @@ class LSTMModel:
 
     @staticmethod
     def is_packed(params) -> bool:
-        return isinstance(params["layers"][0]["w_x"], RowBalancedSparse)
+        return isinstance(params["layers"][0]["w_x"], _PACKED)
+
+    @staticmethod
+    def is_quantized(params) -> bool:
+        return isinstance(params["layers"][0]["w_x"], RowBalancedSparseQ8)
+
+    def _act_scales(self, i: int):
+        """Calibrated (s_x, s_h) activation scales of layer ``i``, or
+        (None, None): the q8 wrappers then take dynamic max-abs scales
+        (scaled schemes) or the fixed-point constant."""
+        if self.quant is None or i >= self.quant.num_layers:
+            return (None, None)
+        return self.quant.scale_for(i)
 
     # ------------------------------------------------------------- core
     @staticmethod
@@ -148,6 +211,18 @@ class LSTMModel:
         H = z.shape[-1] // 4
         return lstm_cell_ref(z[..., :H], z[..., H:2 * H], z[..., 2 * H:3 * H],
                              z[..., 3 * H:], c_prev, pwl=pwl)
+
+    def _scan_layer(self, lp, xs, c0, h0):
+        """Dense layer over a sequence: xs (B, T, X_in) → (hs (B, T, H),
+        (c_T, h_T))."""
+        c, h = c0, h0
+        hs = []
+        for t in range(xs.shape[1]):
+            z = (xs[:, t] @ lp["w_x"].T + h @ lp["w_h"].T
+                 + lp["b"][None, :]).float()
+            c, h = self._cell(z, c, pwl=self.cfg.pwl_activations)
+            hs.append(h)
+        return torch.stack(hs, 1), (c, h)
 
     def init_state(self, batch: int, device):
         cfg = self.cfg
@@ -159,27 +234,54 @@ class LSTMModel:
 
     def cache_defs(self, batch: int, max_len: int) -> dict:
         """Decode-cache declaration: (c, h) per layer. ``max_len`` is part
-        of the serving contract but unused — the state is O(1)."""
+        of the serving contract but unused — the state is O(1). With a
+        ``delta`` rule each layer also carries the reference states
+        ``x_ref`` (B, X_in) / ``h_ref`` (B, H), the float32 partial-sum
+        memory ``m`` (B, 4H) and the cumulative fired-column counters
+        ``nx`` / ``nh`` (B,) that ``occupancy_report`` reduces."""
         cfg = self.cfg
-        return {"layers": [
+        defs = {"layers": [
             {"c": L.PSpec((batch, cfg.hidden), init="zeros", dtype=cfg.dtype),
              "h": L.PSpec((batch, cfg.hidden), init="zeros", dtype=cfg.dtype)}
             for _ in range(cfg.num_layers)]}
+        if self.delta is not None:
+            f32 = torch.float32
+            for i, lp in enumerate(defs["layers"]):
+                x_in = cfg.input_size if i == 0 else cfg.hidden
+                lp.update({
+                    "x_ref": L.PSpec((batch, x_in), init="zeros",
+                                     dtype=cfg.dtype),
+                    "h_ref": L.PSpec((batch, cfg.hidden), init="zeros",
+                                     dtype=cfg.dtype),
+                    "m": L.PSpec((batch, 4 * cfg.hidden), init="zeros",
+                                 dtype=f32),
+                    "nx": L.PSpec((batch,), init="zeros", dtype=f32),
+                    "nh": L.PSpec((batch,), init="zeros", dtype=f32)})
+        return defs
 
     def init_cache(self, batch: int, max_len: int, device):
         return L.init_params(self.cache_defs(batch, max_len), None,
                              torch.device(device))
 
     def _step(self, params, x_t, state):
-        """One time step, packed or dense by param type. state/new_state:
-        list of (c, h); returns (h_last, new_state) in cfg.dtype."""
+        """One time step, packed (float or q8) or dense by param type.
+        state/new_state: list of (c, h); returns (h_last, new_state) in
+        cfg.dtype."""
         cfg = self.cfg
         packed = self.is_packed(params)
+        quantized = packed and self.is_quantized(params)
         step = K.fused_brds_lstm_step if self.fused else K.brds_lstm_step
+        step_q8 = (K.fused_brds_lstm_step_q8 if self.fused
+                   else K.brds_lstm_step_q8)
         new_state = []
         inp = x_t
-        for lp, (c, h) in zip(params["layers"], state):
-            if packed:
+        for i, (lp, (c, h)) in enumerate(zip(params["layers"], state)):
+            if quantized:
+                ax, ah = self._act_scales(i)
+                c, h = step_q8(lp["w_x"], inp, lp["w_h"], h, lp["b"], c,
+                               act_scale_x=ax, act_scale_h=ah,
+                               pwl=cfg.pwl_activations)
+            elif packed:
                 c, h = step(lp["w_x"], inp, lp["w_h"], h, lp["b"], c,
                             pwl=cfg.pwl_activations)
             else:
@@ -189,6 +291,57 @@ class LSTMModel:
             c, h = c.to(cfg.dtype), h.to(cfg.dtype)
             new_state.append((c, h))
             inp = h
+        return inp, new_state
+
+    def _delta_step(self, params, x_t, state):
+        """One temporally-sparse time step (the Spartus composition).
+
+        ``state``: per-layer dicts {c, h, x_ref, h_ref, m, nx, nh}. Each
+        layer thresholds its input / hidden deltas against the reference
+        states and advances the partial-sum memory with the fired columns'
+        products only: packed params through the delta kernels (q8 ones
+        for quantized params), dense params through a masked-delta matmul.
+        Returns (h_last, new_state)."""
+        cfg = self.cfg
+        d = self.delta
+        packed = self.is_packed(params)
+        quantized = packed and self.is_quantized(params)
+        pwl = cfg.pwl_activations
+        new_state = []
+        inp = x_t
+        for i, (lp, st) in enumerate(zip(params["layers"], state)):
+            dx, fx, x_ref = delta_threshold(inp, st["x_ref"], d.theta_x,
+                                            d.cap_x)
+            dh, fh, h_ref = delta_threshold(st["h"], st["h_ref"], d.theta_h,
+                                            d.cap_h)
+            if quantized:
+                # The calibrated scales bound absolute activations; a delta
+                # spans up to twice that range, and a clipped delta would
+                # bake its error into the partial-sum memory for good, so
+                # this path doubles them (fixed point ignores them).
+                ax, ah = (None if s is None else 2.0 * s
+                          for s in self._act_scales(i))
+                c, h, m = K.brds_delta_lstm_step_q8(
+                    lp["w_x"], dx, fx, lp["w_h"], dh, fh, st["m"], lp["b"],
+                    st["c"], act_scale_x=ax, act_scale_h=ah, pwl=pwl)
+            elif packed:
+                step = (K.fused_brds_delta_lstm_step if self.fused
+                        else K.brds_delta_lstm_step)
+                c, h, m = step(lp["w_x"], dx, fx, lp["w_h"], dh, fh,
+                               st["m"], lp["b"], st["c"], pwl=pwl)
+            else:
+                dxm = torch.where(fx, dx, 0).float()
+                dhm = torch.where(fh, dh, 0).float()
+                m = (st["m"].float() + dxm @ lp["w_x"].T.float()
+                     + dhm @ lp["w_h"].T.float())
+                c, h = self._cell(m + lp["b"].float()[None, :], st["c"],
+                                  pwl=pwl)
+            new_state.append({
+                "c": c.to(cfg.dtype), "h": h.to(cfg.dtype),
+                "x_ref": x_ref, "h_ref": h_ref, "m": m.float(),
+                "nx": st["nx"] + fx.sum(1, dtype=torch.float32),
+                "nh": st["nh"] + fh.sum(1, dtype=torch.float32)})
+            inp = new_state[-1]["h"]
         return inp, new_state
 
     def _head_logits(self, params, h):
@@ -220,10 +373,10 @@ class LSTMModel:
                 raise ValueError("framewise score needs labels")
             labels = inputs
         xs = self._inputs(params, inputs)
-        state = self.init_state(xs.shape[1], xs.device)
+        state, step = self._initial(params, xs.shape[1], xs.device)
         hs = []
         for x_t in xs:
-            h, state = self._step(params, x_t, state)
+            h, state = step(x_t, state)
             hs.append(h)
         logits = self._head_logits(params, torch.stack(hs, 1).flatten(0, 1))
         logits = logits.reshape(xs.shape[1], xs.shape[0], -1)
@@ -231,6 +384,16 @@ class LSTMModel:
             logits, labels = logits[:, :-1], labels[:, 1:]
         return torch.nn.functional.cross_entropy(
             logits.reshape(-1, logits.shape[-1]), labels.reshape(-1).long())
+
+    def _initial(self, params, batch: int, device):
+        """(initial state, step function) of the serving step path: per-
+        layer (c, h) through ``_step``, or the delta cache's layer dicts
+        through ``_delta_step``."""
+        if self.delta is not None:
+            state = self.init_cache(batch, 0, device)["layers"]
+            return state, lambda x_t, st: self._delta_step(params, x_t, st)
+        return (self.init_state(batch, device),
+                lambda x_t, st: self._step(params, x_t, st))
 
     # ------------------------------------------------------------- serving
     def prefill(self, params, tokens, max_len: int, extra=None, length=None):
@@ -240,7 +403,8 @@ class LSTMModel:
         lengths when ``tokens`` is right-padded: steps at t ≥ length
         compute and discard (each sequence's state is frozen), so the
         cache and last-valid logits are what the unpadded prompt gives.
-        Every prefill runs this masked body, as the reference does.
+        Every prefill runs this masked body, as the reference does; every
+        cache leaf freezes, the delta cache's counters included.
 
         Returns (logits at the last valid position (B, 1, V), cache).
         """
@@ -251,15 +415,16 @@ class LSTMModel:
         if length is None:
             length = S
         length = torch.as_tensor(length, dtype=torch.int32, device=dev)
-        state = self.init_state(B, dev)
+        state, step = self._initial(params, B, dev)
         h_last = torch.zeros((B, cfg.hidden), dtype=cfg.dtype, device=dev)
         for t in range(S):
-            h, st2 = self._step(params, xs[t], state)
-            keep = torch.broadcast_to(t < length, (B,))[:, None]
-            state = [(torch.where(keep, c2, c), torch.where(keep, h2, h0))
-                     for (c2, h2), (c, h0) in zip(st2, state)]
-            h_last = torch.where(keep, h, h_last)
+            h, st2 = step(xs[t], state)
+            keep = torch.broadcast_to(t < length, (B,))
+            state = _select(keep, st2, state)
+            h_last = torch.where(keep[:, None], h, h_last)
         logits = self._head_logits(params, h_last)
+        if self.delta is not None:
+            return logits, {"layers": state}
         return logits, {"layers": [{"c": c, "h": h} for c, h in state]}
 
     def decode_step(self, params, cache, tokens, pos):
@@ -267,10 +432,23 @@ class LSTMModel:
         serving contract but unused (the recurrent cache has no positions).
         Returns (logits (B, 1, V), cache)."""
         x_t = self._embed_step(params, tokens)
+        if self.delta is not None:
+            h, new_state = self._delta_step(params, x_t, cache["layers"])
+            return self._head_logits(params, h), {"layers": new_state}
         state = [(lp["c"], lp["h"]) for lp in cache["layers"]]
         h, new_state = self._step(params, x_t, state)
         cache = {"layers": [{"c": c, "h": h} for c, h in new_state]}
         return self._head_logits(params, h), cache
+
+
+def _select(keep: torch.Tensor, new, old):
+    """``new`` where ``keep`` (B,) else ``old``, leaf by leaf over a list
+    of per-layer tuples or dicts whose leaves lead with the batch axis."""
+    if isinstance(new, dict):
+        return {k: _select(keep, new[k], old[k]) for k in new}
+    if isinstance(new, (list, tuple)):
+        return type(new)(_select(keep, n, o) for n, o in zip(new, old))
+    return torch.where(keep.reshape((-1,) + (1,) * (new.ndim - 1)), new, old)
 
 
 def _survivor_mask(w: torch.Tensor) -> torch.Tensor:
@@ -302,6 +480,29 @@ def packed_from_numpy(values, deltas, ncols: int, pad: int = 0,
         values=torch.tensor(np.asarray(values), device=device),
         deltas=torch.tensor(np.asarray(deltas), device=device),
         ncols=int(ncols), pad=int(pad), block_rows=block_rows)
+
+
+def packed_q8_from_numpy(values, deltas, scales, ncols: int, qmax: int,
+                        frac_bits: int | None = None, pad: int = 0,
+                        block_rows: int | None = None,
+                        device="cpu") -> RowBalancedSparseQ8:
+    """A ``RowBalancedSparseQ8`` from the reference's quantized packed
+    arrays (codes, deltas, scales), so the port's kernels run on the very
+    codes the reference produced."""
+    t = lambda a: torch.tensor(np.asarray(a), device=device)
+    return RowBalancedSparseQ8(
+        values=t(values), deltas=t(deltas), scales=t(scales),
+        ncols=int(ncols), qmax=int(qmax),
+        frac_bits=None if frac_bits is None else int(frac_bits),
+        pad=int(pad), block_rows=block_rows)
+
+
+def quant_plan_from_scales(scheme, act_scales) -> QuantPlan:
+    """A ``QuantPlan`` from a scheme (name or QuantScheme) and the
+    reference plan's ``act_scales`` tuple of per-layer (s_x, s_h)."""
+    return QuantPlan(scheme=parse_scheme(getattr(scheme, "name", scheme)),
+                     act_scales=tuple((float(sx), float(sh))
+                                      for sx, sh in act_scales))
 
 
 # Paper benchmark configs (§5.1): TIMIT X=153 H=1024; PTB large 1500/1500;

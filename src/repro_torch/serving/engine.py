@@ -4,7 +4,8 @@
 patterns and, for models that decode through packed kernels
 (``supports_packed_decode``, the LSTM's dual-ratio datapath), packs the
 surviving weights and pads their rows once, so serving runs the BRDS
-kernels rather than masked dense matmuls.
+kernels rather than masked dense matmuls. The policy's temporal-delta and
+quant rules rewire the model there too.
 """
 from __future__ import annotations
 
@@ -30,16 +31,48 @@ class ServeEngine:
         self.sparsity = sparsity
         self.device = resolve_device(device)
 
-    def prepare(self, params):
+    def prepare(self, params, calib=None):
         """Prune params to the engine's policy and, when the model decodes
         through packed kernels (``supports_packed_decode``), pack the
         survivors from the prune masks with rows padded to the kernel
         block. Returns (params, report); report is None when the engine is
-        dense."""
+        dense.
+
+        A policy carrying an activation rule (``DeltaGateConfig``) rewires
+        ``self.model`` through ``with_delta``, so the decode cache grows the
+        temporal reference state. A ``quant`` rule (``QuantConfig``)
+        calibrates activation scales over ``calib`` (a token batch run
+        through the dense ``params``, ``calibrate_lstm``; ``default_plan``
+        when None), rewires the model through ``with_quant``, and packing
+        emits RowBalancedSparseQ8 for the q8 kernels."""
         if self.sparsity is None:
             return params, None
         plan = (self.sparsity.compile(params)
                 if hasattr(self.sparsity, "compile") else self.sparsity)
+        act = getattr(plan, "activation", None)
+        qcfg = getattr(plan, "quant", None)
+        if act is not None:
+            if not hasattr(self.model, "with_delta"):
+                raise ValueError(
+                    f"sparsity policy carries an activation rule ({act}) "
+                    f"but {type(self.model).__name__} has no temporal-"
+                    "delta serving path (with_delta)")
+            self.model = self.model.with_delta(act)
+        if qcfg is not None:
+            if not hasattr(self.model, "with_quant"):
+                raise ValueError(
+                    f"sparsity policy carries a quant rule ({qcfg}) but "
+                    f"{type(self.model).__name__} has no quantized "
+                    "serving path (with_quant)")
+            from ..quant import calibrate_lstm, default_plan
+            if calib is not None:
+                qplan = calibrate_lstm(self.model, params,
+                                       torch.as_tensor(calib,
+                                                       device=self.device),
+                                       qcfg)
+            else:
+                qplan = default_plan(qcfg, len(params["layers"]))
+            self.model = self.model.with_quant(qplan)
         pruned, masks = plan.prune(params)
         report = plan.summary(masks)
         if not getattr(self.model, "supports_packed_decode", False):

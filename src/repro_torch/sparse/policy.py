@@ -134,12 +134,16 @@ class SparsityPolicy:
     """
 
     rules: tuple
+    activation: Any = None
+    quant: Any = None
 
     @classmethod
-    def of(cls, mapping: Mapping[str, Any], *,
-           layout: str = "in_out") -> "SparsityPolicy":
+    def of(cls, mapping: Mapping[str, Any], *, layout: str = "in_out",
+           activation: Any = None, quant: Any = None) -> "SparsityPolicy":
         """Build a policy from ``{pattern: ratio | (format, ratio) |
-        (format, ratio, options)}``; bare floats mean ``row_balanced``."""
+        (format, ratio, options)}``; bare floats mean ``row_balanced``.
+        ``activation`` is a temporal-delta rule (``DeltaGateConfig``),
+        ``quant`` a fixed-point rule (``repro_torch.quant.QuantConfig``)."""
         rules = []
         for pat, spec in mapping.items():
             if isinstance(spec, (int, float)):
@@ -149,7 +153,17 @@ class SparsityPolicy:
                 opts = rest[0] if rest else {}
                 rules.append(Rule(pat, fmt, float(ratio), layout,
                                   dict(opts)))
-        return cls(rules=tuple(rules))
+        return cls(rules=tuple(rules), activation=activation, quant=quant)
+
+    def with_activation(self, activation) -> "SparsityPolicy":
+        """Copy of this policy with a temporal-delta activation rule
+        (a ``DeltaGateConfig``, or None to disable)."""
+        return dataclasses.replace(self, activation=activation)
+
+    def with_quant(self, quant) -> "SparsityPolicy":
+        """Copy of this policy with a fixed-point inference rule
+        (a ``QuantConfig``, or None to disable)."""
+        return dataclasses.replace(self, quant=quant)
 
     def match(self, path_str: str) -> Rule | None:
         """First rule whose pattern ``re.search``-matches ``path_str``."""
@@ -192,6 +206,17 @@ class SparsityPlan:
         self.policy = policy
         self.sites = sites
 
+    @property
+    def activation(self):
+        """The policy's temporal-delta rule (``DeltaGateConfig`` or
+        None)."""
+        return self.policy.activation
+
+    @property
+    def quant(self):
+        """The policy's fixed-point rule (``QuantConfig`` or None)."""
+        return self.policy.quant
+
     def __repr__(self):
         return f"SparsityPlan(sites={len(self.sites)})"
 
@@ -215,8 +240,14 @@ class SparsityPlan:
         """Replace every matched leaf with its packed-format rep.
 
         masks=None recomputes masks from the rule ratios. Pass the masks
-        from ``prune`` to pack an exact pattern. Returns
+        from ``prune`` to pack an exact pattern. A policy ``quant`` rule
+        quantizes every row-balanced site on the way out (integer codes +
+        per-row scales, counted by ``packed_bytes_q``). Returns
         (packed_params, report)."""
+        qscheme = None
+        if self.quant is not None:
+            from ..quant import packed_bytes_q, parse_scheme, quantize_packed
+            qscheme = parse_scheme(getattr(self.quant, "scheme", self.quant))
         totals = dict(dense=0, packed=0)
 
         def one(ps, leaf):
@@ -229,13 +260,19 @@ class SparsityPlan:
                 totals["packed"] += nbytes
                 return leaf
             r, opts = site.rule.ratio, site.rule.options
-            totals["packed"] += site.fmt.packed_bytes(
-                site.d_out, site.d_in, r, leaf.dtype, **opts)
+            quantized = qscheme is not None and site.fmt.name == "row_balanced"
+            if quantized:
+                totals["packed"] += packed_bytes_q(site.d_out, site.d_in, r,
+                                                   qscheme)
+            else:
+                totals["packed"] += site.fmt.packed_bytes(
+                    site.d_out, site.d_in, r, leaf.dtype, **opts)
             if masks is not None and ps in masks:
                 m_oi = site.to_oi(masks[ps])
             else:
                 m_oi = site.to_oi(self._site_mask(site, leaf))
-            return site.fmt.pack(site.to_oi(leaf), m_oi, **opts)
+            rep = site.fmt.pack(site.to_oi(leaf), m_oi, **opts)
+            return quantize_packed(rep, qscheme) if quantized else rep
 
         packed = _map_with_path(params, one)
         return packed, dict(dense_bytes=totals["dense"],
@@ -273,12 +310,11 @@ def lstm_policy(spar_x: float, spar_h: float, *,
     """The paper's dual-ratio split: input weights W_x at ``spar_x``,
     recurrent weights W_h at ``spar_h`` (both row-balanced by default).
 
-    ``delta`` (temporal-delta activations) and ``quant`` (fixed-point
-    packing) are not ported yet and raise ``NotImplementedError``.
+    ``delta`` (a ``DeltaGateConfig``) is the temporal-delta activation
+    rule serving wires into the LSTM's decode cache; ``quant`` (a
+    ``QuantConfig``) makes ``pack`` emit integer codes + per-row scales so
+    decode runs the q8 kernels.
     """
-    if delta is not None:
-        raise NotImplementedError("temporal-delta sparsity is not ported yet")
-    if quant is not None:
-        raise NotImplementedError("quantized packing is not ported yet")
     return SparsityPolicy.of(
-        {r"w_x$": (fmt, spar_x), r"w_h$": (fmt, spar_h)}, layout="out_in")
+        {r"w_x$": (fmt, spar_x), r"w_h$": (fmt, spar_h)}, layout="out_in",
+        activation=delta, quant=quant)

@@ -20,8 +20,10 @@ from repro.core.packing import pack_from_dense, pad_packed
 from repro.kernels import ops as jops
 from repro.kernels import ref as jref
 from repro_torch.kernels import ops, ref
+from repro_torch.kernels import delta_rb_spmv as tdelta
 from repro_torch.kernels import fused_step as tfused
 from repro_torch.kernels import rb_spmv as trb
+from repro_torch.kernels import rb_spmv_q8 as tq8
 from repro_torch.models import packed_from_numpy
 from repro_torch.sparse import backend as tbackend
 
@@ -173,6 +175,36 @@ def test_cpu_tensors_never_reach_a_kernel():
     with pytest.raises(ValueError, match="CUDA"):
         tgates.lstm_gates(z[:, :16], z[:, 16:32], z[:, 32:48], z[:, 48:],
                           t["c"])
+    # the temporal-delta and q8 paths: plain versions on CPU tensors, and
+    # their kernel wrappers refuse them
+    fx, fh = (t["x"] > 0).float(), (t["h"] > 0).float()
+    m = torch.zeros((2, 64))
+    ops.fused_brds_delta_lstm_step(sx, t["x"], fx, sh, t["h"], fh, m,
+                                   t["b"], t["c"])
+    ops.brds_delta_lstm_step(sx, t["x"], fx, sh, t["h"], fh, m, t["b"],
+                             t["c"])
+    with pytest.raises(ValueError, match="CUDA"):
+        tdelta.delta_rb_dual_spmv(sx.values, sx.deltas, t["x"], fx,
+                                  sh.values, sh.deltas, t["h"], fh, m)
+    with pytest.raises(ValueError, match="CUDA"):
+        tfused.fused_brds_delta_lstm_step(sx.values, sx.deltas, t["x"], fx,
+                                          sh.values, sh.deltas, t["h"], fh,
+                                          m, t["b"], t["c"])
+    from repro_torch.quant import quantize_packed
+    qx8, qh8 = quantize_packed(sx, "int8"), quantize_packed(sh, "int8")
+    ops.fused_brds_lstm_step_q8(qx8, t["x"], qh8, t["h"], t["b"], t["c"])
+    ops.brds_lstm_step_q8(qx8, t["x"], qh8, t["h"], t["b"], t["c"])
+    ops.brds_delta_lstm_step_q8(qx8, t["x"], fx, qh8, t["h"], fh, m, t["b"],
+                                t["c"])
+    codes = torch.zeros((2, 32), dtype=torch.int8)
+    comb = torch.ones(64)
+    with pytest.raises(ValueError, match="CUDA"):
+        tq8.rb_dual_parts_q8(qx8.values, qx8.deltas, comb, codes, qh8.values,
+                             qh8.deltas, comb, codes[:, :16], 64)
+    with pytest.raises(ValueError, match="CUDA"):
+        tfused.fused_brds_lstm_step_q8(qx8.values, qx8.deltas, comb, codes,
+                                       qh8.values, qh8.deltas, comb,
+                                       codes[:, :16], t["b"], t["c"])
     assert ops.LAUNCHES == before
 
 
@@ -199,6 +231,7 @@ def test_import_needs_no_compiler_and_loads_no_jax():
     JAX nor the reference package."""
     code = ("import sys, repro_torch, repro_torch.launch.serve, "
             "repro_torch.serving, repro_torch.kernels.ops as o, "
+            "repro_torch.quant, repro_torch.sparse.temporal, "
             "repro_torch.kernels._build as b\n"
             "assert not b._libs and not b.BUILD_LOG\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "

@@ -128,12 +128,51 @@ def test_lstm_policy_plan_matches(lstm_params):
 
 
 def test_lstm_policy_unported_rules_raise():
-    with pytest.raises(NotImplementedError):
-        lstm_policy(0.5, 0.5, delta=object())
-    with pytest.raises(NotImplementedError):
-        lstm_policy(0.5, 0.5, quant="int8")
+    """The delta and quant rules are ported: the policy and its plan carry
+    them as the reference's do, and invalid rules still raise."""
+    from repro.sparse import DeltaGateConfig as JDelta, QuantConfig as JQC
+    from repro_torch.sparse import DeltaGateConfig, QuantConfig
+    d, q = DeltaGateConfig(0.1, 0.05, cap_x=0.5), QuantConfig("q1.11")
+    jp = jlstm_policy(0.5, 0.5, delta=JDelta(0.1, 0.05, cap_x=0.5),
+                      quant=JQC("q1.11"))
+    tp = lstm_policy(0.5, 0.5, delta=d, quant=q)
+    assert (tp.activation, tp.quant) == (d, q)
+    assert tp.with_activation(None).activation is None
+    assert tp.with_quant(None).quant is None and tp.quant == q
+    w = {"layers": [{"w_x": torch.zeros(8, 4), "w_h": torch.zeros(8, 2)}]}
+    plan = tp.compile(w)
+    assert (plan.activation, plan.quant) == (d, q)
+    assert (jp.activation.theta_x, jp.quant.scheme) == (d.theta_x, q.scheme)
     with pytest.raises(ValueError):
         lstm_policy(1.0, 0.5)
+    with pytest.raises(ValueError):
+        DeltaGateConfig(theta_x=-1.0)
+    with pytest.raises(ValueError):
+        QuantConfig("int4")
+
+
+@pytest.mark.parametrize("spec", ["int8", "q1.11"])
+def test_lstm_policy_quant_plan_matches(lstm_params, spec):
+    """A quant rule packs every row-balanced site to the reference's codes,
+    scales and deltas, with the reference's byte report."""
+    from repro.quant import QuantConfig as JQC
+    from repro_torch.quant import QuantConfig
+    jplan = jlstm_policy(0.75, 0.5, quant=JQC(spec)).compile(lstm_params)
+    jpruned, jmasks = jplan.prune(lstm_params)
+    jpacked, jrep = jplan.pack(jpruned, jmasks)
+    tparams = params_from_numpy(jax.tree.map(np.asarray, lstm_params), "cpu")
+    tplan = lstm_policy(0.75, 0.5, quant=QuantConfig(spec)).compile(tparams)
+    tpruned, tmasks = tplan.prune(tparams)
+    tpacked, trep = tplan.pack(tpruned, tmasks)
+    assert trep == jrep
+    for jl, tl in zip(jpacked["layers"], tpacked["layers"]):
+        for key in ("w_x", "w_h"):
+            for k in ("values", "deltas", "scales"):
+                np.testing.assert_array_equal(
+                    getattr(tl[key], k).numpy(), np.asarray(getattr(jl[key],
+                                                                    k)))
+            assert (tl[key].qmax, tl[key].frac_bits) == \
+                (jl[key].qmax, jl[key].frac_bits)
 
 
 def test_packed_from_numpy_carries_reference_packing():

@@ -295,11 +295,30 @@ def test_entry_points_default_to_the_card():
 
 
 def test_unported_model_options_raise():
+    """Sharded decode is not ported, nor is the fused delta-q8 kernel
+    (ROADMAP B9): fused delta + quant raises instead of chaining; delta or
+    quant alone, and chained delta + quant, construct."""
+    from repro_torch.quant import QuantConfig, default_plan
+    from repro_torch.sparse import DeltaGateConfig
     cfg = LSTMConfig("t", input_size=8, hidden=8, vocab_size=11)
-    for kw in (dict(delta=object()), dict(quant=object()),
-               dict(mesh=object())):
-        with pytest.raises(NotImplementedError):
-            LSTMModel(cfg, **kw)
+    plan, delta = default_plan(QuantConfig("int8"), 1), DeltaGateConfig()
+    with pytest.raises(NotImplementedError):
+        LSTMModel(cfg, mesh=object())
+    with pytest.raises(NotImplementedError, match="B9"):
+        LSTMModel(cfg, delta=delta, quant=plan)
+    with pytest.raises(NotImplementedError, match="B9"):
+        LSTMModel(cfg, quant=plan).with_delta(delta)
+    with pytest.raises(NotImplementedError, match="B9"):
+        LSTMModel(cfg, fused=False, delta=delta, quant=plan).with_fused(True)
+    for kw in (dict(delta=delta), dict(quant=plan),
+               dict(delta=delta, quant=plan, fused=False)):
+        LSTMModel(cfg, **kw)
+    eng = ServeEngine(LSTMModel(cfg), device="cpu",
+                      sparsity=lstm_policy(0.5, 0.5, delta=delta,
+                                           quant=QuantConfig("int8")))
+    params = eng.model.init(device="cpu")
+    with pytest.raises(NotImplementedError, match="B9"):
+        eng.prepare(params)
 
 
 def test_serve_cli_on_cpu(capsys):
@@ -314,6 +333,30 @@ def test_serve_cli_on_cpu(capsys):
     out = capsys.readouterr().out
     assert "generated (1, 2)" in out and "median of 5 runs" in out
     assert "profile: wall" in out
+
+
+@pytest.mark.parametrize("extra,expect", [
+    (["--delta", "0"], "delta: occupancy x="),
+    (["--delta", "0.05", "--delta-h", "0.02", "--occupancy", "0.5",
+      "--no-fused"], "effective-ops reduction"),
+    (["--quant", "int8"], "packed_bytes"),
+    (["--quant", "q1.11", "--delta", "0", "--no-fused"], "delta: occupancy"),
+])
+def test_serve_cli_delta_and_quant_on_cpu(capsys, extra, expect):
+    from repro_torch.launch import serve
+    serve.main(["--smoke", "--brds", "--device", "cpu", "--batch", "2",
+                "--prompt-len", "4", "--gen", "3", *extra])
+    out = capsys.readouterr().out
+    assert "generated (2, 3)" in out and expect in out
+
+
+@pytest.mark.parametrize("argv", [["--quant", "int8"],
+                                  ["--brds", "--delta-h", "0.1"],
+                                  ["--brds", "--occupancy", "0.5"]])
+def test_serve_cli_rejects_bad_flag_combinations(argv):
+    from repro_torch.launch import serve
+    with pytest.raises(SystemExit):
+        serve.main(["--smoke", "--device", "cpu", *argv])
 
 
 def test_full_width_config_shapes():
