@@ -14,21 +14,30 @@
    bitwise against its chained kernels, and times the kernel, the plain
    version and the dense library call with L2 flushed. The float kernels
    (rb_dual_spmv, lstm_gates, fused step), the temporal-delta ones
-   (delta_rb_dual_spmv, fused delta step) at a fired share of about 50%
-   and at 100%, and the quantized ones (rb_dual_parts_q8, fused q8 step)
-   with int8 and with q1.11 (int16) codes; the q8 partial sums must equal
-   the plain version's exactly.
+   (delta_rb_dual_spmv, fused delta step, delta_rb_spmv) at a fired share
+   of about 50% and at 100%, the quantized ones (rb_dual_parts_q8, fused
+   q8 step, rb_spmv_q8) with int8 and with q1.11 (int16) codes, the fused
+   delta-q8 step on both code types and fired shares, and the
+   single-family float rb_spmv; the q8 partial sums, rb_spmv_q8 and the
+   fused delta-q8 step's m' must equal the plain version's exactly.
 3. Serve: full-width ``lstm_ptb`` (random weights from seed 0) pruned and
    packed by ``lstm_policy(0.75, 0.5)`` through ``ServeEngine``, greedy
    ``generate`` with B=8, prompt 32, gen 64, the launch counts set to 0
    just before each path and read just after: packed float fused (the
    default) and chained; temporal delta at Θ=0 fused and chained and at
    Θ=0.05 (occupancy printed); int8 calibrated on a prompt-shaped batch,
-   fused and chained; q1.11 fused; and Θ=0 delta with int8 on the chained
-   path (its fused kernel is not ported). Each mode's teacher-forced logits
-   and greedy tokens are held against the same run on the plain versions
-   (``backend="ref"``), fused against chained tokens, and Θ=0 delta tokens
-   against the packed float ones.
+   fused and chained; q1.11 fused; and Θ=0 delta with int8, fused and
+   chained. Each mode's teacher-forced logits and greedy tokens are held
+   against the same run on the plain versions (``backend="ref"``), fused
+   against chained tokens, and Θ=0 delta tokens against the packed float
+   ones.
+4. Format API: the same W_x and W_h through ``SparsityPlan.matvec``, the
+   ``row_balanced`` and ``row_balanced_q8`` formats' matvec and
+   dual_matvec and ``ops.delta_rb_spmv`` on the card against the plain
+   backend, with the launch counts set to 0 just before and read just
+   after; and the baseline formats (bank-balanced, block, unstructured)
+   at ratio 0.75: mask and byte accounting on the card equal to the CPU's,
+   matvec and a mixed-format dual_matvec within tolerance.
 
 Prints a ``{"kernels": [...]}`` line and, last, the device line. Exits
 non-zero on any failure, and without a card.
@@ -58,7 +67,11 @@ RUNS = 5          # timed generate runs per path; median and range reported
 SCHEMES = ("int8", "q1.11")
 KERNELS = ("rb_dual_spmv", "lstm_gates", "fused_brds_lstm_step",
            "delta_rb_dual_spmv", "fused_brds_delta_lstm_step",
-           "rb_dual_parts_q8", "fused_brds_lstm_step_q8")
+           "rb_dual_parts_q8", "fused_brds_lstm_step_q8",
+           "fused_brds_delta_lstm_step_q8", "rb_spmv", "rb_spmv_q8",
+           "delta_rb_spmv")
+# the format-API phase's kernels; the rest launch on the serve paths
+FORMAT_KERNELS = ("rb_spmv", "rb_spmv_q8", "delta_rb_spmv")
 
 
 def log(msg: str) -> None:
@@ -76,12 +89,16 @@ def time_ms(fn, flush, reps: int = 30) -> float:
     """Median CUDA-event time of ``fn`` with L2 flushed before each run:
     writing a buffer larger than the 50 MB L2 evicts the packed weights,
     which would otherwise stay cached across reruns and beat the HBM bound
-    (the serve path reads them once per step, after the head's 60 MB)."""
+    (the serve path reads them once per step, after the head's 60 MB). A
+    spin of about 1 ms on the card after the flush lets the host enqueue
+    ``fn`` before the card reaches the start event, so the time is the
+    card's alone and not the wrapper's host overhead."""
     import torch
     fn()
     pairs = []
     for _ in range(reps):
         flush.zero_()
+        torch.cuda._sleep(2_000_000)
         s, e = (torch.cuda.Event(enable_timing=True) for _ in range(2))
         s.record()
         fn()
@@ -110,6 +127,40 @@ def packed_bytes(s) -> int:
     (``pad_packed``'s zero rows are not)."""
     n = s.rows * s.K * (s.values.element_size() + s.deltas.element_size())
     return n + (4 * s.rows if hasattr(s, "scales") else 0)
+
+
+_TYPES = {"a": "int8", "s": "int16", "i": "int32"}
+
+
+def ptxas_serve_tier(out: str) -> list[str]:
+    """From ``nvcc -Xptxas -v`` output: registers and spill bytes of each
+    kernel instantiation the B=8 serve path launches (the 8-accumulator
+    tier, int16 column deltas), e.g. ``fused_step_q8_kernel<int8,int16,
+    int16,8>: 48 registers, 0 B spill``."""
+    import re
+    rows, name, spill = [], None, 0
+    for ln in out.splitlines():
+        m = re.search(r"Compiling entry function '(\w+?)_kernelI([asi]+)"
+                      r"Li(\d+)E", ln)
+        if m:
+            # the mangled kernel name ends its length-prefixed identifier
+            head = m.group(1) + "_kernel"
+            base = next((head[-n:] for n in range(1, len(head))
+                         if head[:-n].endswith(str(n))), head)
+            name, spill = (base, m.group(2), int(m.group(3))), 0
+        m = re.search(r"(\d+) bytes spill stores", ln)
+        if m and name:
+            spill = int(m.group(1))
+        m = re.search(r"Used (\d+) registers", ln)
+        if m and name:
+            base, types, nb = name
+            deltas = types[1:] if "q8" in base else types
+            if nb == 8 and set(deltas) == {"s"}:
+                rows.append(f"{base}<{','.join(_TYPES[c] for c in types)},"
+                            f"{nb}>: {m.group(1)} registers, {spill} B "
+                            "spill")
+            name = None
+    return rows
 
 
 def cell(z, c, pwl=False):
@@ -217,6 +268,8 @@ def check_kernels(torch, device, flush):
                 f"(tol {CELL_TOL:.0e}); bitwise equal to chained kernels")
         check_delta(torch, ops, err, tag, cs)
         check_q8(torch, ops, ref, kq8, err, tag, cs)
+        check_single(torch, ops, err, tag, cs)
+        check_delta_q8(torch, ops, err, tag, cs)
 
     # times at the serve path's shapes
     sx, sh, x, h, c, b, H = (full[k] for k in
@@ -232,6 +285,17 @@ def check_kernels(torch, device, flush):
     def addmm_pair():
         torch.addmm(torch.addmm(b, x, wxT), h, whT)
 
+    def fused_cell():
+        # PyTorch's fused LSTM cell takes the gates as (i, f, g, o) and a
+        # second gate matrix, zero here; the permuted z is set-up
+        torch.ops.aten._thnn_fused_lstm_cell(z_ifgo, z_zero, c)
+
+    z_ifgo = torch.cat([zs[1], zs[0], zs[2], zs[3]], 1)
+    z_zero = torch.zeros_like(z_ifgo)
+    hy, cy, _ = torch.ops.aten._thnn_fused_lstm_cell(z_ifgo, z_zero, c)
+    cg, hg = ops.lstm_gates(*zs, c, backend="cuda")
+    log(f"  _thnn_fused_lstm_cell (lstm_gates' library call) vs lstm_gates: "
+        f"max|c, h diff| {max((cy - cg).abs().max().item(), (hy - hg).abs().max().item()):.3e}")
     runs = {
         "rb_dual_spmv": (
             lambda: ops.rb_dual_spmv(sx, x, sh, h, b, backend="cuda"),
@@ -241,7 +305,7 @@ def check_kernels(torch, device, flush):
         "lstm_gates": (
             lambda: ops.lstm_gates(*zs, c, backend="cuda"),
             lambda: ops.lstm_gates(*zs, c, backend="ref"),
-            None,
+            fused_cell,
             bound(nbytes(*zs, c) + 2 * nbytes(c), 30 * B * H)),
         "fused_brds_lstm_step": (
             lambda: ops.fused_brds_lstm_step(sx, x, sh, h, b, c,
@@ -254,6 +318,7 @@ def check_kernels(torch, device, flush):
     }
     runs.update(delta_runs(torch, ops, full, wxT, whT))
     runs.update(q8_runs(torch, full))
+    runs.update(single_runs(torch, ops, full, "W_x"))
     for name, (kern, plain, lib, (bms, by)) in runs.items():
         r = rec[name]
         r["ms"] = time_ms(kern, flush)
@@ -261,15 +326,20 @@ def check_kernels(torch, device, flush):
         r["library_ms"] = time_ms(lib, flush) if lib else None
         r["bound_ms"], r["bound_by"] = bms, by
         lib_s = "null" if lib is None else f"{r['library_ms']:.4f}"
-        log(f"[time] {name:22} kernel {r['ms']:.4f} ms, plain "
+        log(f"[time] {name:29} kernel {r['ms']:.4f} ms, plain "
             f"{r['plain_ms']:.4f} ms, library {lib_s} ms, bound "
             f"{bms * 1e3:.2f} us ({by}) — median of 30, L2 flushed")
-    # q1.11 (int16 codes) beside the int8 times the record keeps
-    for name, (kern, plain, _, (bms, by)) in q8_runs(
-            torch, full, spec="q1.11").items():
-        log(f"[time] {name:22} q1.11: kernel {time_ms(kern, flush):.4f} ms, "
-            f"plain {time_ms(plain, flush):.4f} ms, bound "
-            f"{bms * 1e3:.2f} us ({by}) — median of 30, L2 flushed")
+    # beside the records (int8 codes, W_x): q1.11 (int16 codes), and the
+    # single-family kernels on W_h
+    extra = {f"{n} q1.11": v for n, v in q8_runs(torch, full,
+                                                  spec="q1.11").items()}
+    extra.update({f"{n} W_h": v for n, v in single_runs(
+        torch, ops, full, "W_h").items()})
+    for name, (kern, plain, lib, (bms, by)) in extra.items():
+        log(f"[time] {name:35} kernel {time_ms(kern, flush):.4f} ms, "
+            f"plain {time_ms(plain, flush):.4f} ms, library "
+            f"{time_ms(lib, flush):.4f} ms, bound {bms * 1e3:.2f} us "
+            f"({by}) — median of 30, L2 flushed")
     return rec
 
 
@@ -349,17 +419,89 @@ def check_q8(torch, ops, ref, kq8, err, tag, cs):
                                      f"pwl={pwl})")
             log(f"  fused q8 {spec:5} pwl={pwl!s:5} max|c,h err| {e:.3e} "
                 f"(tol {CELL_TOL:.0e}); bitwise equal to chained kernels")
-    # the fused delta-q8 step has no kernel yet (ROADMAP B9): the card's
-    # backend raises instead of chaining
-    fx, fh = cs["fired"][1.0]
-    try:
-        ops.fused_brds_delta_lstm_step_q8(qsx, cs["dx"], fx, qsh, cs["dh"],
-                                          fh, cs["m"], b, c, backend="cuda")
-    except NotImplementedError:
-        pass
-    else:
-        raise AssertionError("fused_brds_delta_lstm_step_q8 ran on the card "
-                             "without a kernel")
+
+
+def check_single(torch, ops, err, tag, cs):
+    """The single-family kernels against their plain versions on both
+    families: rb_spmv and delta_rb_spmv (fired about 50% and 100%, the
+    mask given as bool once) within Z_TOL, rb_spmv_q8 exactly equal with a
+    static and a dynamic activation scale; and rb_spmv(Sx, x) + rb_spmv(Sh,
+    h) + bias against rb_dual_spmv (reported: one row routine, so 0 is
+    expected)."""
+    sx, sh, x, h, b, dx, dh = (cs[k] for k in ("sx", "sh", "x", "h", "bias",
+                                               "dx", "dh"))
+    ys = []
+    for fam, s, v in (("Sx", sx, x), ("Sh", sh, h)):
+        y = ops.rb_spmv(s, v, backend="cuda")
+        e = err("rb_spmv", y, ops.rb_spmv(s, v, backend="ref"), Z_TOL,
+                f"{tag} {fam}")
+        ys.append(y)
+        log(f"  rb_spmv        {fam} max|y err| {e:.3e} (tol {Z_TOL:.0e})")
+    d = (ys[0] + ys[1] + b[:sx.rows]) - ops.rb_dual_spmv(sx, x, sh, h, b,
+                                                        backend="cuda")
+    log(f"  rb_spmv(Sx, x) + rb_spmv(Sh, h) + bias vs rb_dual_spmv: "
+        f"max|diff| {d.abs().max().item():.3e}")
+    for share, (fx, fh) in cs["fired"].items():
+        for fam, s, dv, f in (("Sx", sx, dx, fx.bool()), ("Sh", sh, dh, fh)):
+            y = ops.delta_rb_spmv(s, dv, f, backend="cuda")
+            e = err("delta_rb_spmv", y,
+                    ops.delta_rb_spmv(s, dv, f, backend="ref"), Z_TOL,
+                    f"{tag} {fam} {share}")
+            log(f"  delta_rb_spmv  {fam} fired {float(f.float().mean()):.2f} "
+                f"max|y err| {e:.3e} (tol {Z_TOL:.0e})")
+    for spec in SCHEMES:
+        qsx, qsh = cs["q8"][spec]
+        _, sax, _, sah = q8_acts(cs, spec)
+        for fam, q, v, sa in (("Sx", qsx, x, sax), ("Sh", qsh, h, sah)):
+            for scale in (sa, None):
+                y = ops.rb_spmv_q8(q, v, act_scale=scale, backend="cuda")
+                yr = ops.rb_spmv_q8(q, v, act_scale=scale, backend="ref")
+                torch.cuda.synchronize()
+                err("rb_spmv_q8", y, yr, 0.0, f"{tag} {spec} {fam}")
+                if not torch.equal(y, yr):
+                    raise AssertionError(f"rb_spmv_q8 differs from its plain "
+                                         f"version ({tag}, {spec}, {fam})")
+        log(f"  rb_spmv_q8 {spec:5} Sx, Sh, static and dynamic act scale: "
+            "exactly equal to the plain version")
+
+
+def check_delta_q8(torch, ops, err, tag, cs):
+    """The fused delta-q8 step against its plain version (m' exactly
+    equal, c and h within CELL_TOL) and bitwise against the chained
+    rb_dual_parts_q8 -> m + zx + zh -> + bias -> lstm_gates, for int8 and
+    q1.11 codes, fired about 50% and 100%, PWL off and on. The activation
+    scales are the static ones doubled, as the model doubles them for
+    deltas."""
+    dx, dh, m, b, c = (cs[k] for k in ("dx", "dh", "m", "bias", "c"))
+    name = "fused_brds_delta_lstm_step_q8"
+    for spec in SCHEMES:
+        qsx, qsh = cs["q8"][spec]
+        _, sax, _, sah = q8_acts(cs, spec)
+        kw = dict(act_scale_x=2 * sax, act_scale_h=2 * sah)
+        for share, (fx, fh) in cs["fired"].items():
+            args = (qsx, dx, fx, qsh, dh, fh, m, b, c)
+            for pwl in (False, True):
+                kf = ops.fused_brds_delta_lstm_step_q8(*args, pwl=pwl,
+                                                       backend="cuda", **kw)
+                kc = ops.brds_delta_lstm_step_q8(*args, pwl=pwl,
+                                                 backend="cuda", **kw)
+                kp = ops.fused_brds_delta_lstm_step_q8(*args, pwl=pwl,
+                                                       backend="ref", **kw)
+                torch.cuda.synchronize()
+                e = max(err(name, kf[0], kp[0], CELL_TOL, f"{tag} {spec} c"),
+                        err(name, kf[1], kp[1], CELL_TOL, f"{tag} {spec} h"))
+                err(name, kf[2], kp[2], 0.0, f"{tag} {spec} m")
+                if not torch.equal(kf[2], kp[2]):
+                    raise AssertionError(f"fused delta-q8 m' differs from "
+                                         f"its plain version ({tag}, {spec})")
+                if not all(torch.equal(u, v) for u, v in zip(kf, kc)):
+                    raise AssertionError(
+                        f"fused delta-q8 step is not bitwise equal to the "
+                        f"chained kernels ({tag}, {spec}, fired {share}, "
+                        f"pwl={pwl})")
+                log(f"  fused dq8 {spec:5} fired {share} pwl={pwl!s:5} "
+                    f"max|c,h err| {e:.3e} (tol {CELL_TOL:.0e}), m' exactly "
+                    "equal; bitwise equal to chained kernels")
 
 
 def delta_runs(torch, ops, cs, wxT, whT):
@@ -403,6 +545,7 @@ def q8_runs(torch, cs, spec="int8"):
     from repro_torch.kernels import ref
     from repro_torch.kernels import fused_step as kfused
     from repro_torch.kernels import rb_spmv_q8 as kq8
+    from repro_torch.kernels.ops import _masked_codes as ops_masked_codes
     from repro_torch.quant import dequantize_packed
     B, H = cs["B"], cs["H"]
     b, c = cs["bias"], cs["c"]
@@ -424,6 +567,22 @@ def q8_runs(torch, cs, spec="int8"):
         return ref.rb_spmv_q8_ref(qsx, qx, sax), ref.rb_spmv_q8_ref(qsh, qh,
                                                                     sah)
 
+    # the fused delta-q8 step on the codes of the masked deltas, every
+    # column fired (the Θ = 0 serve path), scales doubled as for deltas
+    dx, dh, m = cs["dx"], cs["dh"], cs["m"]
+    fx, fh = cs["fired"][1.0]
+    qdx, sdx, qdh, sdh = ops_masked_codes(dx, fx, qsx, 2 * sax, dh, fh, qsh,
+                                          2 * sah)
+    dparts = (qsx.values, qsx.deltas, qsx.scales * sdx, qdx, qsh.values,
+              qsh.deltas, qsh.scales * sdh, qdh)
+
+    def delta_addmm_pair():
+        torch.addmm(torch.addmm(m, dx * fx, wxT), dh * fh, whT)
+
+    def delta_plain():
+        mp = ref.delta_rb_dual_spmv_q8_ref(qsx, qdx, sdx, qsh, qdh, sdh, m)
+        return cell(mp + b[None, :], c)
+
     return {
         "rb_dual_parts_q8": (
             lambda: kq8.rb_dual_parts_q8(*parts, R),
@@ -437,6 +596,54 @@ def q8_runs(torch, cs, spec="int8"):
             addmm_pair,
             bound(weights + nbytes(qx, qh, b, c) + 2 * nbytes(c),
                   4 * B * R + 30 * B * H, int_ops)),
+        "fused_brds_delta_lstm_step_q8": (
+            lambda: kfused.fused_brds_delta_lstm_step_q8(*dparts, m, b, c),
+            delta_plain, delta_addmm_pair,
+            bound(weights + nbytes(qdx, qdh, m, b, c) + nbytes(m)
+                  + 2 * nbytes(c), 5 * B * R + 30 * B * H, int_ops)),
+    }
+
+
+def single_runs(torch, ops, cs, fam):
+    """Timing entries of the single-family kernels on one packed family
+    (``fam`` "W_x" or "W_h") at the serve shapes: rb_spmv, rb_spmv_q8 on
+    int8 codes quantized beforehand, and delta_rb_spmv with every column
+    fired; the library call is one dense torch.mm on the unpacked (for q8,
+    dequantized) weights."""
+    from repro_torch.core import unpack
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import rb_spmv_q8 as kq8
+    from repro_torch.quant import dequantize_packed
+    i = 0 if fam == "W_x" else 1
+    B = cs["B"]
+    s = (cs["sx"], cs["sh"])[i]
+    v = (cs["x"], cs["h"])[i]
+    d = (cs["dx"], cs["dh"])[i]
+    f = cs["fired"][1.0][i]
+    q = cs["q8"]["int8"][i]
+    qv, sa = q8_acts(cs, "int8")[2 * i:2 * i + 2]
+    comb = q.scales * sa
+    wT = unpack(s).T.contiguous()
+    qwT = unpack(dequantize_packed(q)).T.contiguous()
+    R = s.rows
+    out = B * R * 4
+    flops = 2 * B * R * s.K
+    return {
+        "rb_spmv": (
+            lambda: ops.rb_spmv(s, v, backend="cuda"),
+            lambda: ops.rb_spmv(s, v, backend="ref"),
+            lambda: torch.mm(v, wT),
+            bound(packed_bytes(s) + nbytes(v) + out, flops)),
+        "rb_spmv_q8": (
+            lambda: kq8.rb_spmv_q8(q.values, q.deltas, comb, qv, R),
+            lambda: ref.rb_spmv_q8_ref(q, qv, sa),
+            lambda: torch.mm(v, qwT),
+            bound(packed_bytes(q) + nbytes(qv) + out, B * R, flops)),
+        "delta_rb_spmv": (
+            lambda: ops.delta_rb_spmv(s, d, f, backend="cuda"),
+            lambda: ops.delta_rb_spmv(s, d, f, backend="ref"),
+            lambda: torch.mm(d * f, wT),
+            bound(packed_bytes(s) + nbytes(d, f) + out, flops)),
     }
 
 
@@ -646,14 +853,120 @@ def serve(torch, device):
                          {"fused_brds_lstm_step_q8": want})
     check_plain(torch, "q1.11", eng, packed, tokens, out)
 
-    # Θ = 0 delta with int8, chained (the fused kernel, B9, is not ported)
-    eng, packed = prepared("delta0+int8", fused=False,
-                           delta=DeltaGateConfig(), quant=QuantConfig("int8"))
-    out, _, _ = run_path(torch, ops, "delta0+int8 chained", eng, packed,
-                         tokens, {"rb_dual_parts_q8": want,
-                                  "lstm_gates": want}, runs=1)
+    # Θ = 0 delta with int8: fused and chained
+    eng, packed = prepared("delta0+int8", delta=DeltaGateConfig(),
+                           quant=QuantConfig("int8"))
+    out, _, n = run_path(torch, ops, "delta0+int8 fused", eng, packed,
+                         tokens, {"fused_brds_delta_lstm_step_q8": want})
+    launches.update(n)
+    out_c, _, _ = run_path(torch, ops, "delta0+int8 chained", chained(eng),
+                           packed, tokens, {"rb_dual_parts_q8": want,
+                                            "lstm_gates": want}, runs=1)
+    same_tokens(torch, "delta0+int8 fused vs chained", out, out_c)
     check_plain(torch, "delta0+int8", eng, packed, tokens, out)
     return launches
+
+
+def format_api(torch, device):
+    """Phase 4: the sparse-format API on lstm_ptb's W_x and W_h (seed 0) at
+    lstm_policy(0.75, 0.5), B=8, with every launch count set to 0 just
+    before and read just after; the single-family kernels must have
+    launched. Returns their launch counts."""
+    from repro_torch.kernels import ops
+    from repro_torch.models import LSTMModel, LSTM_CONFIGS
+    from repro_torch.sparse import formats, get_format, lstm_policy
+    cfg = LSTM_CONFIGS["lstm_ptb"]
+    B = SERVE["batch"]
+    params = LSTMModel(cfg).init(torch.Generator().manual_seed(0), device)
+    lp = params["layers"][0]
+    plan = lstm_policy(0.75, 0.5).compile(params)
+    g = torch.Generator(device=device).manual_seed(4)
+    rand = lambda *shape: torch.randn(*shape, generator=g, device=device)
+    x, h = rand(B, cfg.input_size), rand(B, cfg.hidden)
+    bias = 0.1 * rand(4 * cfg.hidden)
+
+    def close(what, a, b, tol):
+        e = (a.float().cpu() - b.float().cpu()).abs().max().item()
+        if not e <= tol:
+            raise AssertionError(f"{what}: max |card - plain| = {e:.3e} > "
+                                 f"{tol:.0e}")
+        log(f"[format] {what}: max|diff| {e:.3e} (tol {tol:.0e})")
+
+    def equal(what, a, b):
+        if not torch.equal(a, b):
+            raise AssertionError(f"{what}: not equal")
+        log(f"[format] {what}: exactly equal")
+
+    for k in ops.LAUNCHES:
+        ops.LAUNCHES[k] = 0
+    pruned, masks = plan.prune(params)
+    packed, _ = plan.pack(pruned, masks)
+    px, ph = packed["layers"][0]["w_x"], packed["layers"][0]["w_h"]
+    for path, p, v in (("layers/0/w_x", px, x), ("layers/0/w_h", ph, h)):
+        close(f"plan.matvec({path!r})", plan.matvec(path, p, v),
+              plan.matvec(path, p, v, backend="ref"), Z_TOL)
+    rb = get_format("row_balanced")
+    close("row_balanced.dual_matvec", rb.dual_matvec(px, x, ph, h, bias),
+          rb.dual_matvec(px, x, ph, h, bias, backend="ref"), Z_TOL)
+    q8 = get_format("row_balanced_q8")
+    for spec in SCHEMES:
+        qx = q8.pack(lp["w_x"], masks["layers/0/w_x"], scheme=spec)
+        qh = q8.pack(lp["w_h"], masks["layers/0/w_h"], scheme=spec)
+        equal(f"row_balanced_q8.matvec {spec}", q8.matvec(qx, x),
+              q8.matvec(qx, x, backend="ref"))
+        equal(f"row_balanced_q8.dual_matvec {spec}",
+              q8.dual_matvec(qx, x, qh, h, bias),
+              q8.dual_matvec(qx, x, qh, h, bias, backend="ref"))
+    d = 0.5 * rand(B, cfg.input_size)
+    for share in (0.5, 1.0):
+        fired = torch.rand(B, cfg.input_size, generator=g,
+                           device=device) < share
+        close(f"ops.delta_rb_spmv fired {float(fired.float().mean()):.2f}",
+              ops.delta_rb_spmv(px, d, fired),
+              ops.delta_rb_spmv(px, d, fired, backend="ref"), Z_TOL)
+    torch.cuda.synchronize()
+    got = {k: ops.LAUNCHES[k] for k in FORMAT_KERNELS}
+    log(f"[format] launches {got}")
+    if not all(got.values()):
+        raise AssertionError(f"format API launched {got}: a kernel of the "
+                             "path never ran")
+
+    # the baseline formats at ratio 0.75 on W_x, mask on the card vs the
+    # CPU; bank-balanced W_h for the mixed pair
+    wx, wh = lp["w_x"], lp["w_h"]
+    opts = {"bank_balanced": {"num_banks": 4}, "block": {"block": (4, 4)},
+            "unstructured": {}}
+    for name, o in opts.items():
+        fmt = get_format(name)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        m_card = fmt.mask(wx, 0.75, **o)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        m_cpu = fmt.mask(wx.cpu(), 0.75, **o)
+        dt_cpu = time.perf_counter() - t0
+        equal(f"{name} mask on the card vs the CPU ({dt * 1e3:.1f} ms on "
+              f"the card, {dt_cpu * 1e3:.1f} ms on the CPU)", m_card.cpu(),
+              m_cpu)
+        p_card, p_cpu = fmt.pack(wx, m_card, **o), fmt.pack(wx.cpu(), m_cpu,
+                                                             **o)
+        mem = fmt.memory_bytes(p_card, **o)
+        if mem != fmt.memory_bytes(p_cpu, **o):
+            raise AssertionError(f"{name}: memory_bytes differ")
+        log(f"[format] {name}: memory_bytes equal, total {mem['total']} "
+            f"(ratio {mem['ratio']:.4f})")
+        close(f"{name}.matvec on the card vs the CPU", fmt.matvec(p_card, x),
+              fmt.matvec(p_cpu, x.cpu()), Z_TOL)
+    bank = get_format("bank_balanced")
+    pb = bank.pack(wh, bank.mask(wh, 0.5, num_banks=4))
+    pb_cpu = bank.pack(wh.cpu(), bank.mask(wh.cpu(), 0.5, num_banks=4))
+    close("formats.dual_matvec(row_balanced, bank_balanced) on the card vs "
+          "the CPU",
+          formats.dual_matvec(rb, px, x, bank, pb, h, bias),
+          formats.dual_matvec(rb, px.to("cpu"), x.cpu(), bank, pb_cpu,
+                              h.cpu(), bias.cpu()), Z_TOL)
+    return got
 
 
 def main() -> int:
@@ -673,13 +986,14 @@ def main() -> int:
     log(f"built {len(_build.SIGNATURES)} CUDA sources in "
         f"{time.perf_counter() - t0:.1f}s (into {_build.BUILD})")
     for name, out in _build.BUILD_LOG.items():
-        regs = [ln.split("ptxas info    :")[-1].strip()
-                for ln in out.splitlines() if "registers" in ln]
-        log(f"  {name}: {len(regs)} kernels, e.g. {regs[:1]}")
+        n = sum("Compiling entry function" in ln for ln in out.splitlines())
+        log(f"  {name}: {n} kernels; the B=8 serve tier: "
+            + "; ".join(ptxas_serve_tier(out)))
 
     flush = torch.empty(256 << 20, dtype=torch.uint8, device=device)
     rec = check_kernels(torch, device, flush)
     launches = serve(torch, device)
+    launches.update(format_api(torch, device))
 
     src = {"rb_dual_spmv": ("rb_spmv.cu", "src/repro/kernels/rb_spmv.py:86"),
            "lstm_gates": ("lstm_gates.cu",
@@ -693,7 +1007,14 @@ def main() -> int:
            "rb_dual_parts_q8": ("rb_spmv_q8.cu",
                                 "src/repro/kernels/rb_spmv_q8.py:101"),
            "fused_brds_lstm_step_q8": ("fused_step.cu",
-                                       "src/repro/kernels/fused_step.py:284")}
+                                       "src/repro/kernels/fused_step.py:284"),
+           "fused_brds_delta_lstm_step_q8": (
+               "fused_step.cu", "src/repro/kernels/fused_step.py:346"),
+           "rb_spmv": ("rb_spmv.cu", "src/repro/kernels/rb_spmv.py:45"),
+           "rb_spmv_q8": ("rb_spmv_q8.cu",
+                          "src/repro/kernels/rb_spmv_q8.py:50"),
+           "delta_rb_spmv": ("delta_rb_spmv.cu",
+                             "src/repro/kernels/delta_rb_spmv.py:53")}
     kernels = []
     for name, r in rec.items():
         kernels.append(dict(

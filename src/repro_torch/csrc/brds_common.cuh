@@ -115,8 +115,9 @@ __device__ __forceinline__ void row_dot(const typename Op::W* __restrict__ vals,
   }
 }
 
-// The partial-sum memory update m' = (m + accx) + acch, the reference's
-// order.
+// The partial-sum memory update m' = (m + ax) + ah, the reference's order;
+// ax and ah are the two families' float partial sums (for integer codes,
+// after dequant: the raw accumulators are integer sums).
 __device__ __forceinline__ float delta_update(float m, float ax, float ah) {
   return __fadd_rn(__fadd_rn(m, ax), ah);
 }

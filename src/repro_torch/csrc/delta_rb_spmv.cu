@@ -1,14 +1,17 @@
-// delta_rb_dual_spmv: the temporal-delta partial-sum memory update
-// m' = m + Sx@(fx*dx) + Sh@(fh*dh) over packed row-balanced Sx (R, Kx) and
-// Sh (R, Kh); dx, dh are raw activation deltas and fx, fh their 0/1 fired
-// masks, all float32.
+// The temporal-delta row-balanced SpMVs over packed values and delta-coded
+// columns; d are raw activation deltas and f their 0/1 fired masks, all
+// float32:
+//  - delta_rb_spmv: y = S@(f*d) over one packed family S (R, K). Replaces
+//    src/repro/kernels/delta_rb_spmv.py::delta_rb_spmv.
+//  - delta_rb_dual_spmv: the partial-sum memory update
+//    m' = m + Sx@(fx*dx) + Sh@(fh*dh) over Sx (R, Kx) and Sh (R, Kh).
+//    Replaces src/repro/kernels/delta_rb_spmv.py::delta_rb_dual_spmv.
 //
-// Replaces src/repro/kernels/delta_rb_spmv.py::delta_rb_dual_spmv (the
-// Pallas kernel that masks the deltas in VMEM and streams (block_rows, K)
-// tiles on the TPU's sequential grid). Here one warp owns one packed row,
-// as in rb_dual_spmv: brds::row_dot with the DeltaAct policy gathers
-// d*f for each entry, so an unfired column adds an exact zero, and the row
-// ends with brds::delta_update, m first, as the reference adds.
+// The Pallas kernels mask the deltas in VMEM and stream (block_rows, K)
+// tiles on the TPU's sequential grid. Here one warp owns one packed row,
+// as in rb_spmv.cu: brds::row_dot with the DeltaAct policy gathers d*f for
+// each entry, so an unfired column adds an exact zero, and the dual kernel
+// ends the row with brds::delta_update, m first, as the reference adds.
 //
 // Bound: bytes. The packed values and deltas are read once and used for
 // all B batch rows; d and f (B x 1500 floats each at full width) stay in
@@ -18,8 +21,29 @@
 
 namespace {
 
+constexpr int kThreads = 256;
+constexpr int kRowsPerBlock = kThreads / brds::kWarp;
+
+template <typename IX, int NB>
+__global__ void __launch_bounds__(kThreads)
+delta_rb_spmv_kernel(const float* __restrict__ vals,
+                     const IX* __restrict__ ix, int K,
+                     const float* __restrict__ d,
+                     const float* __restrict__ f, int X,
+                     float* __restrict__ y, int B, int R) {
+  const int row = (blockIdx.x * blockDim.x + threadIdx.x) / brds::kWarp;
+  if (row >= R) return;   // uniform across the warp
+  float acc[NB] = {};
+  brds::row_dot<IX, NB>(vals + (size_t)row * K, ix + (size_t)row * K, K,
+                        brds::DeltaAct{d, f, X}, B, acc);
+  const int lane = threadIdx.x % brds::kWarp;
+#pragma unroll
+  for (int b = 0; b < NB; ++b)
+    if (b < B && b == lane) y[(size_t)b * R + row] = acc[b];
+}
+
 template <typename IX, typename IH, int NB>
-__global__ void __launch_bounds__(256)
+__global__ void __launch_bounds__(kThreads)
 delta_rb_dual_spmv_kernel(const float* __restrict__ vx,
                           const IX* __restrict__ ix, int kx,
                           const float* __restrict__ dx,
@@ -48,15 +72,35 @@ delta_rb_dual_spmv_kernel(const float* __restrict__ vx,
 
 }  // namespace
 
+extern "C" int brds_delta_rb_spmv(const void* vals, const void* ix,
+                                  int ix_bytes, int K, const void* d,
+                                  const void* f, int X, void* y, int B,
+                                  int R, void* stream) {
+  if (R <= 0) return cudaErrorInvalidValue;
+  const dim3 grid((R + kRowsPerBlock - 1) / kRowsPerBlock);
+  cudaError_t st = brds::by_delta(ix_bytes, [&](auto ixt) {
+    using IX = decltype(ixt);
+    return brds::by_batch(B, [&](auto nb) {
+      constexpr int NB = decltype(nb)::value;
+      delta_rb_spmv_kernel<IX, NB>
+          <<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+              static_cast<const float*>(vals), static_cast<const IX*>(ix), K,
+              static_cast<const float*>(d), static_cast<const float*>(f), X,
+              static_cast<float*>(y), B, R);
+      return cudaSuccess;
+    });
+  });
+  if (st != cudaSuccess) return st;
+  return cudaGetLastError();
+}
+
 extern "C" int brds_delta_rb_dual_spmv(
     const void* vx, const void* ix, int ix_bytes, int kx, const void* dx,
     const void* fx, int X, const void* vh, const void* ih, int ih_bytes,
     int kh, const void* dh, const void* fh, int H, const void* m,
     void* m_out, int B, int R, void* stream) {
-  constexpr int kThreads = 256;
-  const int rows_per_block = kThreads / brds::kWarp;
   if (R <= 0) return cudaErrorInvalidValue;
-  const dim3 grid((R + rows_per_block - 1) / rows_per_block);
+  const dim3 grid((R + kRowsPerBlock - 1) / kRowsPerBlock);
   cudaError_t st = brds::by_delta(ix_bytes, [&](auto ixt) {
     using IX = decltype(ixt);
     return brds::by_delta(ih_bytes, [&](auto iht) {

@@ -9,6 +9,10 @@
 //  - fused_brds_lstm_step_q8: zx, zh = dq(Sx@qx), dq(Sh@qh),
 //    z = (zx + zh) + bias. Replaces
 //    src/repro/kernels/fused_step.py::fused_brds_lstm_step_q8.
+//  - fused_brds_delta_lstm_step_q8: zx, zh = dq(Sx@qdx), dq(Sh@qdh) over
+//    the codes of the masked deltas, m' = (m + zx) + zh, z = m' + bias;
+//    also writes m'. Replaces
+//    src/repro/kernels/fused_step.py::fused_brds_delta_lstm_step_q8.
 //
 // The TPU kernels write each row block's z (or m, zx, zh) into VMEM
 // scratch and close the cell on the last step of their sequential grid
@@ -18,7 +22,8 @@
 // epilogue as the chained kernel), keeps z in shared memory, and closes
 // the cell in-block with the same brds::lstm_cell as lstm_gates. Each step
 // is bitwise equal to its chained pair: rb_dual_spmv / delta_rb_dual_spmv /
-// rb_dual_parts_q8, then the bias add in PyTorch, then lstm_gates.
+// rb_dual_parts_q8 (then m + zx + zh for the delta q8 step), then the bias
+// add in PyTorch, then lstm_gates.
 //
 // Bound: bytes, as the chained gate kernels: the packed weights are read
 // once; z, c and h never round-trip through device memory between the two
@@ -161,6 +166,52 @@ fused_step_q8_kernel(const CT* __restrict__ vx, const IX* __restrict__ ix,
   close_cells<NB>(zs, H, B, c_prev, c_out, h_out, act);
 }
 
+template <typename CT, typename IX, typename IH, int NB>
+__global__ void __launch_bounds__(kThreads)
+fused_delta_step_q8_kernel(const CT* __restrict__ vx,
+                           const IX* __restrict__ ix, int kx,
+                           const float* __restrict__ comb_x,
+                           const CT* __restrict__ qx, int X,
+                           const CT* __restrict__ vh,
+                           const IH* __restrict__ ih, int kh,
+                           const float* __restrict__ comb_h,
+                           const CT* __restrict__ qh, int H,
+                           const float* __restrict__ m,
+                           const float* __restrict__ bias,
+                           const float* __restrict__ c_prev,
+                           float* __restrict__ c_out,
+                           float* __restrict__ h_out,
+                           float* __restrict__ m_out, int B, brds::Act act) {
+  __shared__ float zs[kJT][4][NB];
+  const int warp = threadIdx.x / brds::kWarp;
+  const int lane = threadIdx.x % brds::kWarp;
+  const int jl = warp / 4, gate = warp % 4;
+  const int j = blockIdx.x * kJT + jl;
+  if (j < H) {
+    const int row = gate * H + j;
+    const int R = 4 * H;
+    uint32_t ax[NB] = {}, ah[NB] = {};
+    brds::row_dot<IX, NB>(vx + (size_t)row * kx, ix + (size_t)row * kx, kx,
+                          brds::CodeAct<CT>{qx, X}, B, ax);
+    brds::row_dot<IH, NB>(vh + (size_t)row * kh, ih + (size_t)row * kh, kh,
+                          brds::CodeAct<CT>{qh, H}, B, ah);
+    const float cx = comb_x[row], ch = comb_h[row], bb = bias[row];
+#pragma unroll
+    for (int b = 0; b < NB; ++b)
+      if (b < B && b == lane) {
+        const size_t o = (size_t)b * R + row;
+        // the integer sums are dequantized first; then the chained
+        // m + zx + zh, in that order, and m + bias
+        const float mn = brds::delta_update(m[o], brds::dequant(ax[b], cx),
+                                            brds::dequant(ah[b], ch));
+        m_out[o] = mn;
+        zs[jl][gate][b] = __fadd_rn(mn, bb);
+      }
+  }
+  __syncthreads();
+  close_cells<NB>(zs, H, B, c_prev, c_out, h_out, act);
+}
+
 }  // namespace
 
 extern "C" int brds_fused_lstm_step(const void* vx, const void* dx,
@@ -264,6 +315,46 @@ extern "C" int brds_fused_lstm_step_q8(
                   static_cast<const float*>(c_prev),
                   static_cast<float*>(c_out), static_cast<float*>(h_out), B,
                   act);
+          return cudaSuccess;
+        });
+      });
+    });
+  });
+  if (st != cudaSuccess) return st;
+  return cudaGetLastError();
+}
+
+extern "C" int brds_fused_delta_lstm_step_q8(
+    const void* vx, const void* ix, int ix_bytes, int kx, const void* comb_x,
+    const void* qx, int X, const void* vh, const void* ih, int ih_bytes,
+    int kh, const void* comb_h, const void* qh, int H, int code_bytes,
+    const void* m, const void* bias, const void* c_prev, void* c_out,
+    void* h_out, void* m_out, int B, const void* lut, float lo, float hi,
+    float hic, void* stream) {
+  if (H <= 0) return cudaErrorInvalidValue;
+  const dim3 grid((H + kJT - 1) / kJT);
+  const brds::Act act{static_cast<const float*>(lut), lo, hi, hic};
+  cudaError_t st = brds::by_code(code_bytes, [&](auto ct) {
+    using CT = decltype(ct);
+    return brds::by_delta(ix_bytes, [&](auto ixt) {
+      using IX = decltype(ixt);
+      return brds::by_delta(ih_bytes, [&](auto iht) {
+        using IH = decltype(iht);
+        return brds::by_batch(B, [&](auto nb) {
+          constexpr int NB = decltype(nb)::value;
+          fused_delta_step_q8_kernel<CT, IX, IH, NB>
+              <<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+                  static_cast<const CT*>(vx), static_cast<const IX*>(ix), kx,
+                  static_cast<const float*>(comb_x),
+                  static_cast<const CT*>(qx), X, static_cast<const CT*>(vh),
+                  static_cast<const IH*>(ih), kh,
+                  static_cast<const float*>(comb_h),
+                  static_cast<const CT*>(qh), H,
+                  static_cast<const float*>(m),
+                  static_cast<const float*>(bias),
+                  static_cast<const float*>(c_prev),
+                  static_cast<float*>(c_out), static_cast<float*>(h_out),
+                  static_cast<float*>(m_out), B, act);
           return cudaSuccess;
         });
       });

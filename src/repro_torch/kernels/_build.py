@@ -33,12 +33,15 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 # path to show it went through the kernels).
 LAUNCHES = {"rb_dual_spmv": 0, "lstm_gates": 0, "fused_brds_lstm_step": 0,
             "delta_rb_dual_spmv": 0, "fused_brds_delta_lstm_step": 0,
-            "rb_dual_parts_q8": 0, "fused_brds_lstm_step_q8": 0}
+            "rb_dual_parts_q8": 0, "fused_brds_lstm_step_q8": 0,
+            "fused_brds_delta_lstm_step_q8": 0, "rb_spmv": 0,
+            "rb_spmv_q8": 0, "delta_rb_spmv": 0}
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # C signatures of the entry points, by source name
 SIGNATURES = {
-    "rb_spmv": {"brds_rb_dual_spmv": [_P, _P, _I, _I, _P, _I, _P, _P, _I, _I,
+    "rb_spmv": {"brds_rb_spmv": [_P, _P, _I, _I, _P, _I, _P, _I, _I, _P],
+                "brds_rb_dual_spmv": [_P, _P, _I, _I, _P, _I, _P, _P, _I, _I,
                                       _P, _I, _P, _P, _I, _I, _P]},
     "lstm_gates": {"brds_lstm_gates": [_P, _P, _P, _P, _I, _P, _P, _P, _I, _I,
                                        _P, _F, _F, _F, _P]},
@@ -50,13 +53,19 @@ SIGNATURES = {
                                        _P, _P, _I, _P, _F, _F, _F, _P],
         "brds_fused_lstm_step_q8": [_P, _P, _I, _I, _P, _P, _I, _P, _P, _I,
                                     _I, _P, _P, _I, _I, _P, _P, _P, _P, _I,
-                                    _P, _F, _F, _F, _P]},
-    "delta_rb_spmv": {"brds_delta_rb_dual_spmv": [_P, _P, _I, _I, _P, _P, _I,
-                                                  _P, _P, _I, _I, _P, _P, _I,
-                                                  _P, _P, _I, _I, _P]},
-    "rb_spmv_q8": {"brds_rb_dual_parts_q8": [_P, _P, _I, _I, _P, _P, _I, _P,
-                                             _P, _I, _I, _P, _P, _I, _I, _P,
-                                             _P, _I, _I, _P]},
+                                    _P, _F, _F, _F, _P],
+        "brds_fused_delta_lstm_step_q8": [_P, _P, _I, _I, _P, _P, _I, _P, _P,
+                                          _I, _I, _P, _P, _I, _I, _P, _P, _P,
+                                          _P, _P, _P, _I, _P, _F, _F, _F,
+                                          _P]},
+    "delta_rb_spmv": {
+        "brds_delta_rb_spmv": [_P, _P, _I, _I, _P, _P, _I, _P, _I, _I, _P],
+        "brds_delta_rb_dual_spmv": [_P, _P, _I, _I, _P, _P, _I, _P, _P, _I,
+                                    _I, _P, _P, _I, _P, _P, _I, _I, _P]},
+    "rb_spmv_q8": {
+        "brds_rb_spmv_q8": [_P, _P, _I, _I, _P, _P, _I, _I, _P, _I, _I, _P],
+        "brds_rb_dual_parts_q8": [_P, _P, _I, _I, _P, _P, _I, _P, _P, _I, _I,
+                                  _P, _P, _I, _I, _P, _P, _I, _I, _P]},
 }
 
 _libs: dict[str, ctypes.CDLL] = {}

@@ -1,20 +1,21 @@
-"""CUDA kernel: the temporal-delta dual-family SpMV
-(``csrc/delta_rb_spmv.cu``).
+"""CUDA kernels: the temporal-delta SpMVs (``csrc/delta_rb_spmv.cu``).
 
 The Spartus composition on the BRDS Gate-module MxV: the partial-sum memory
 advances by the products of fired columns only, m' = m + Sx@(fx·dx) +
-Sh@(fh·dh), over the same row-balanced packing as ``rb_dual_spmv``.
+Sh@(fh·dh), over the same row-balanced packing as ``rb_dual_spmv``; the
+single-family form y = S@(f·d) sits behind ``ops.delta_rb_spmv``.
 Thresholding happens in PyTorch before the launch
-(``sparse.temporal.delta_threshold``), so the kernel and its plain version
+(``sparse.temporal.delta_threshold``), so a kernel and its plain version
 read the same deltas and masks. Replaces
-``repro/kernels/delta_rb_spmv.py::delta_rb_dual_spmv``.
+``repro/kernels/delta_rb_spmv.py::delta_rb_dual_spmv`` and
+``::delta_rb_spmv``.
 """
 from __future__ import annotations
 
 import torch
 
 from . import _build
-from .rb_spmv import check_batch, check_packed
+from .rb_spmv import check_batch, check_packed, check_rows
 
 
 def check_delta(d, f, name: str, device) -> None:
@@ -26,6 +27,27 @@ def check_delta(d, f, name: str, device) -> None:
     if f.shape != d.shape:
         raise ValueError(f"d{name} {tuple(d.shape)} and f{name} "
                          f"{tuple(f.shape)} differ")
+
+
+def delta_rb_spmv(vals, deltas, d, f, rows: int):
+    """y = S @ (f·d) over the first ``rows`` rows of packed S (≥ rows, K);
+    d, f (B, X) float32 on one card, the mask exactly 0 or 1. Returns
+    (B, rows) float32."""
+    dev = d.device
+    check_delta(d, f, "", dev)
+    check_packed(vals, deltas, "S", dev)
+    check_rows(vals, rows, "S")
+    B, X = d.shape
+    check_batch(B)
+    y = torch.empty((B, rows), dtype=d.dtype, device=dev)
+    lib = _build.load("delta_rb_spmv")
+    err = lib.brds_delta_rb_spmv(vals.data_ptr(), deltas.data_ptr(),
+                                 deltas.element_size(), vals.shape[1],
+                                 d.data_ptr(), f.data_ptr(), X, y.data_ptr(),
+                                 B, rows, _build.stream(dev))
+    _build.check(err, "delta_rb_spmv")
+    _build.LAUNCHES["delta_rb_spmv"] += 1
+    return y
 
 
 def delta_rb_dual_spmv(vals_x, deltas_x, dx, fx, vals_h, deltas_h, dh, fh,

@@ -1,5 +1,6 @@
 """CUDA kernels: a whole BRDS-LSTM layer step in one launch
-(``csrc/fused_step.cu``), in its float, temporal-delta and quantized forms.
+(``csrc/fused_step.cu``), in its float, temporal-delta, quantized and
+quantized temporal-delta forms.
 
 The gate stage (Gate module) feeds the cell (Function module) without z, c
 or h leaving the chip between them, the paper's pipelined datapath. Each
@@ -9,7 +10,8 @@ the same row routine and epilogue as the chained gate kernel
 closes the cell with the same cell function as ``lstm_gates``, so each
 step is bitwise equal to its chained pair. Replaces
 ``repro/kernels/fused_step.py::fused_brds_lstm_step``,
-``::fused_brds_delta_lstm_step`` and ``::fused_brds_lstm_step_q8``.
+``::fused_brds_delta_lstm_step``, ``::fused_brds_lstm_step_q8`` and
+``::fused_brds_delta_lstm_step_q8``.
 """
 from __future__ import annotations
 
@@ -133,3 +135,36 @@ def fused_brds_lstm_step_q8(vals_x, deltas_x, comb_x, qx, vals_h, deltas_h,
     _build.check(err, "fused_brds_lstm_step_q8")
     _build.LAUNCHES["fused_brds_lstm_step_q8"] += 1
     return c_out, h_out
+
+
+def fused_brds_delta_lstm_step_q8(vals_x, deltas_x, comb_x, qdx, vals_h,
+                                  deltas_h, comb_h, qdh, m, bias, c_prev, *,
+                                  pwl: bool = False):
+    """One quantized temporal-delta BRDS-LSTM step: zx, zh = dq(Sx@qdx),
+    dq(Sh@qdh) over the codes of the masked deltas, m' = m + zx + zh,
+    z = m' + bias, then the cell, over the 4H gate rows of packed integer
+    codes Sx, Sh (int8 or int16, as qdx (B, X) and qdh (B, H); rows past
+    4H are not read); comb_* (≥ 4H,) float32 combined dequant scales;
+    m (B, 4H), bias (4H,) and c_prev (B, H) float32. Returns (c, h, m')."""
+    dev = qdx.device
+    B, X, H = check_q8(vals_x, deltas_x, comb_x, qdx, vals_h, deltas_h,
+                       comb_h, qdh, 4 * qdh.shape[-1])
+    _check_cell(bias, c_prev, dev, B, H)
+    _build.require(m, "m", dtypes=(torch.float32,), ndim=2, device=dev)
+    if m.shape != (B, 4 * H):
+        raise ValueError(f"m {tuple(m.shape)} must be ({B}, {4 * H})")
+    c_out = torch.empty_like(c_prev)
+    h_out = torch.empty_like(c_prev)
+    m_out = torch.empty_like(m)
+    lib = _build.load("fused_step")
+    err = lib.brds_fused_delta_lstm_step_q8(
+        vals_x.data_ptr(), deltas_x.data_ptr(), deltas_x.element_size(),
+        vals_x.shape[1], comb_x.data_ptr(), qdx.data_ptr(), X,
+        vals_h.data_ptr(), deltas_h.data_ptr(), deltas_h.element_size(),
+        vals_h.shape[1], comb_h.data_ptr(), qdh.data_ptr(), H,
+        vals_x.element_size(), m.data_ptr(), bias.data_ptr(),
+        c_prev.data_ptr(), c_out.data_ptr(), h_out.data_ptr(),
+        m_out.data_ptr(), B, *act_args(pwl, dev), _build.stream(dev))
+    _build.check(err, "fused_brds_delta_lstm_step_q8")
+    _build.LAUNCHES["fused_brds_delta_lstm_step_q8"] += 1
+    return c_out, h_out, m_out

@@ -22,21 +22,26 @@ import torch
 
 from . import ref as _ref
 from ._build import LAUNCHES
-from .delta_rb_spmv import delta_rb_dual_spmv as _delta_dual_kernel
-from .fused_step import (fused_brds_delta_lstm_step as _fused_delta_kernel,
-                         fused_brds_lstm_step as _fused_kernel,
-                         fused_brds_lstm_step_q8 as _fused_q8_kernel)
+from .delta_rb_spmv import (delta_rb_dual_spmv as _delta_dual_kernel,
+                            delta_rb_spmv as _delta_kernel)
+from .fused_step import (
+    fused_brds_delta_lstm_step as _fused_delta_kernel,
+    fused_brds_delta_lstm_step_q8 as _fused_delta_q8_kernel,
+    fused_brds_lstm_step as _fused_kernel,
+    fused_brds_lstm_step_q8 as _fused_q8_kernel)
 from .lstm_gates import lstm_gates as _lstm_gates_kernel
-from .rb_spmv import rb_dual_spmv as _rb_dual_kernel
-from .rb_spmv_q8 import rb_dual_parts_q8 as _rb_dual_parts_q8_kernel
+from .rb_spmv import rb_dual_spmv as _rb_dual_kernel, rb_spmv as _rb_kernel
+from .rb_spmv_q8 import (rb_dual_parts_q8 as _rb_dual_parts_q8_kernel,
+                         rb_spmv_q8 as _rb_q8_kernel)
 from ..core.packing import RowBalancedSparse
 from ..quant.scheme import f32_scalar, quantize
 from ..sparse import backend as _backend
 
-__all__ = ["LAUNCHES", "rb_dual_spmv", "lstm_gates", "brds_lstm_step",
-           "fused_brds_lstm_step", "delta_rb_dual_spmv",
-           "brds_delta_lstm_step", "fused_brds_delta_lstm_step",
-           "rb_dual_spmv_q8", "delta_rb_dual_spmv_q8", "brds_lstm_step_q8",
+__all__ = ["LAUNCHES", "rb_spmv", "rb_dual_spmv", "lstm_gates",
+           "brds_lstm_step", "fused_brds_lstm_step", "delta_rb_spmv",
+           "delta_rb_dual_spmv", "brds_delta_lstm_step",
+           "fused_brds_delta_lstm_step", "rb_spmv_q8", "rb_dual_spmv_q8",
+           "delta_rb_dual_spmv_q8", "brds_lstm_step_q8",
            "brds_delta_lstm_step_q8", "fused_brds_lstm_step_q8",
            "fused_brds_delta_lstm_step_q8"]
 
@@ -51,12 +56,17 @@ def _fit(vec, n):
     return torch.nn.functional.pad(vec, (0, n - have))
 
 
+def _check_cols(s, x):
+    """The kernels gather x by column without bounds checks."""
+    if s.ncols != x.shape[-1]:
+        raise ValueError(f"packed ncols {s.ncols} does not match "
+                         f"{tuple(x.shape)}")
+
+
 def _check_dual(sx, x, sh, h):
-    """The kernels gather x and h by column without bounds checks, over the
-    rows the two families share."""
-    if sx.ncols != x.shape[-1] or sh.ncols != h.shape[-1]:
-        raise ValueError(f"packed ncols ({sx.ncols}, {sh.ncols}) do not "
-                         f"match x {tuple(x.shape)} and h {tuple(h.shape)}")
+    """Both families' columns, over the rows the two share."""
+    _check_cols(sx, x)
+    _check_cols(sh, h)
     if sx.rows != sh.rows:
         raise ValueError(f"Sx has {sx.rows} rows, Sh {sh.rows}")
 
@@ -80,6 +90,15 @@ def _plus_bias(v, bias):
 
 
 # ---------------------------------------------------------------- float
+
+def rb_spmv(s: RowBalancedSparse, x, *, backend: str | None = None):
+    """y = S@x — the packed row-balanced SpMV; x (B, ncols) → (B, rows)
+    in x.dtype."""
+    if _backend.resolve(backend, x) == "ref":
+        return _ref.rb_spmv_ref(s, x)
+    _check_cols(s, x)
+    return _rb_kernel(s.values, s.deltas, x, s.rows)
+
 
 def rb_dual_spmv(sx: RowBalancedSparse, x, sh: RowBalancedSparse, h, bias,
                  *, backend: str | None = None):
@@ -124,6 +143,18 @@ def fused_brds_lstm_step(sx: RowBalancedSparse, x, sh: RowBalancedSparse,
 
 
 # ---------------------------------------------------------- temporal delta
+
+def delta_rb_spmv(s: RowBalancedSparse, d, fired, *,
+                  backend: str | None = None):
+    """y = S@(fired·d) — the temporal-delta SpMV: ``d`` (B, ncols) raw
+    activation deltas, ``fired`` their bool or 0/1 threshold mask; an
+    unfired column contributes an exact 0. Returns (B, rows) in d.dtype."""
+    fired = fired.float()
+    if _backend.resolve(backend, d) == "ref":
+        return _ref.delta_rb_spmv_ref(s, d, fired)
+    _check_cols(s, d)
+    return _delta_kernel(s.values, s.deltas, d, fired, s.rows)
+
 
 def delta_rb_dual_spmv(sx: RowBalancedSparse, dx, fx, sh: RowBalancedSparse,
                        dh, fh, m, *, backend: str | None = None):
@@ -180,6 +211,19 @@ def _quant_act(x, packed, act_scale):
         amax = x.float().abs().amax()
         sa = torch.clamp_min(amax / f32_scalar(scheme.qmax, amax), 1e-12)
     return quantize(x, sa, scheme), sa
+
+
+def rb_spmv_q8(s, x, *, act_scale=None, backend: str | None = None):
+    """y = dq(S@q(x)) — the quantized packed SpMV: ``s`` a
+    RowBalancedSparseQ8, x (B, ncols) float activations, quantized here
+    (so the kernel and its plain version read the same codes), integer
+    products accumulated in int32, one dequant multiply per row. Returns
+    (B, rows) float32."""
+    qx, sa = _quant_act(x, s, act_scale)
+    if _backend.resolve(backend, x) == "ref":
+        return _ref.rb_spmv_q8_ref(s, qx, sa)
+    _check_cols(s, qx)
+    return _rb_q8_kernel(s.values, s.deltas, s.scales * sa, qx, s.rows)
 
 
 def _dual_parts_q8(sx, qx, sax, sh, qh, sah):
@@ -270,15 +314,20 @@ def fused_brds_delta_lstm_step_q8(sx, dx, fx, sh, dh, fh, m_prev, bias,
                                   c_prev, *, act_scale_x=None,
                                   act_scale_h=None, pwl: bool = False,
                                   backend: str | None = None):
-    """``brds_delta_lstm_step_q8`` in one launch. Its kernel is not ported
-    yet (ROADMAP B9): the "cuda" backend raises; the plain version runs.
-    Returns (c, h, m)."""
-    if _backend.resolve(backend, dx) != "ref":
-        raise NotImplementedError(
-            "fused_brds_delta_lstm_step_q8 has no CUDA kernel yet (ROADMAP "
-            "B9); the chained brds_delta_lstm_step_q8 runs on the card")
+    """``brds_delta_lstm_step_q8`` in one launch, bitwise equal to the
+    chained form: the codes of the masked deltas (``_masked_codes``) and
+    the combined scales are made here, so the kernel and the plain version
+    read the same ones. Returns (c, h, m)."""
     qdx, sax, qdh, sah = _masked_codes(dx, fx, sx, act_scale_x, dh, fh, sh,
                                        act_scale_h)
-    m = _ref.delta_rb_dual_spmv_q8_ref(sx, qdx, sax, sh, qdh, sah, m_prev)
-    c, h = _cell_ref(_plus_bias(m, bias), c_prev, pwl)
-    return c, h, m
+    if _backend.resolve(backend, dx) == "ref":
+        m = _ref.delta_rb_dual_spmv_q8_ref(sx, qdx, sax, sh, qdh, sah,
+                                           m_prev)
+        c, h = _cell_ref(_plus_bias(m, bias), c_prev, pwl)
+        return c, h, m
+    _check_dual(sx, qdx, sh, qdh)
+    return _fused_delta_q8_kernel(sx.values, sx.deltas, sx.scales * sax,
+                                  qdx, sh.values, sh.deltas,
+                                  sh.scales * sah, qdh,
+                                  _fit(m_prev, sx.rows), _fit(bias, sx.rows),
+                                  c_prev, pwl=pwl)

@@ -1,8 +1,10 @@
-"""CUDA kernel: packed row-balanced dual-family SpMV (``csrc/rb_spmv.cu``).
+"""CUDA kernels: packed row-balanced float SpMV (``csrc/rb_spmv.cu``).
 
 The BRDS accelerator's Gate-module MxV: z = Sx@x + Sh@h + bias, with both
 packed families consumed by the warp that owns a row (the Large/Small
-mult-array lockstep). Replaces ``repro/kernels/rb_spmv.py::rb_dual_spmv``.
+mult-array lockstep), and its single-family form y = S@x behind the
+format API. Replaces ``repro/kernels/rb_spmv.py::rb_dual_spmv`` and
+``::rb_spmv``.
 """
 from __future__ import annotations
 
@@ -27,6 +29,33 @@ def check_packed(vals, deltas, name: str, device) -> None:
 def check_batch(B: int) -> None:
     if not 0 < B <= MAX_BATCH:
         raise ValueError(f"batch {B} outside the kernels' 1..{MAX_BATCH}")
+
+
+def check_rows(vals, rows: int, name: str) -> None:
+    if not 0 < rows <= vals.shape[0]:
+        raise ValueError(f"{name} has {vals.shape[0]} packed rows, asked "
+                         f"for {rows}")
+
+
+def rb_spmv(vals, deltas, x, rows: int):
+    """y = S @ x over the first ``rows`` rows of packed S (≥ rows, K);
+    rows past them (``pad_packed``'s zero rows) are not read. x (B, X)
+    float32 on one card. Returns (B, rows) float32."""
+    dev = x.device
+    _build.require(x, "x", dtypes=(torch.float32,), ndim=2)
+    check_packed(vals, deltas, "S", dev)
+    check_rows(vals, rows, "S")
+    B, X = x.shape
+    check_batch(B)
+    y = torch.empty((B, rows), dtype=x.dtype, device=dev)
+    lib = _build.load("rb_spmv")
+    err = lib.brds_rb_spmv(vals.data_ptr(), deltas.data_ptr(),
+                           deltas.element_size(), vals.shape[1],
+                           x.data_ptr(), X, y.data_ptr(), B, rows,
+                           _build.stream(dev))
+    _build.check(err, "rb_spmv")
+    _build.LAUNCHES["rb_spmv"] += 1
+    return y
 
 
 def rb_dual_spmv(vals_x, deltas_x, x, vals_h, deltas_h, h, bias):

@@ -4,6 +4,8 @@ with temporal-delta and quantized variants:
   python -m repro_torch.launch.serve --arch lstm_ptb --brds
   python -m repro_torch.launch.serve --arch lstm_ptb --brds --delta 0
   python -m repro_torch.launch.serve --arch lstm_ptb --brds --quant int8
+  python -m repro_torch.launch.serve --arch lstm_ptb --brds --delta 0 \\
+      --quant int8
   python -m repro_torch.launch.serve --arch lstm_ptb --brds --smoke \\
       --device cpu
 
@@ -91,11 +93,13 @@ def main(argv=None):
     ap.add_argument("--quant", default=None, metavar="SCHEME",
                     help="requires --brds: serve quantized packed weights "
                          "('int8' or 'qM.N', e.g. 'q1.11'); activation "
-                         "scales are calibrated on a prompt-shaped batch")
+                         "scales are calibrated on a prompt-shaped batch; "
+                         "composes with --delta")
     ap.add_argument("--no-fused", dest="fused", action="store_false",
                     help="chained per-kernel decode (gate kernel, then "
                          "lstm_gates) instead of the fused single-launch "
-                         "step")
+                         "step, on every packed path: float, --delta, "
+                         "--quant and both")
     ap.add_argument("--temperature", type=float, default=0.0)
     ap.add_argument("--top-k", type=int, default=0)
     ap.add_argument("--top-p", type=float, default=0.0)

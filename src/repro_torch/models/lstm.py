@@ -24,7 +24,7 @@ from ..kernels import ops as K
 from ..kernels.ref import lstm_cell_ref
 from ..quant import (QuantPlan, RowBalancedSparseQ8, parse_scheme,
                      quantize_packed)
-from ..sparse import get_format, lstm_policy
+from ..sparse import MaskedDense, get_format, lstm_policy
 from ..sparse.temporal import delta_threshold
 
 _PACKED = (RowBalancedSparse, RowBalancedSparseQ8)
@@ -68,10 +68,9 @@ class LSTMModel:
     activation scales for quantized packed params; without a plan they
     still serve, with dynamic max-abs activation scales.
 
-    With both ``delta`` and ``quant``, the fused step needs kernel B9,
-    which is not ported: ``fused=True`` raises and ``fused=False`` runs
-    the chained delta-q8 path. ``mesh`` raises: sharded decode is not
-    ported.
+    With both ``delta`` and ``quant``, packed params step through the
+    quantized temporal-delta kernels, fused or chained as ``fused`` says.
+    ``mesh`` raises: sharded decode is not ported.
     """
 
     supports_packed_decode = True
@@ -81,11 +80,6 @@ class LSTMModel:
         if mesh is not None:
             raise NotImplementedError("LSTMModel(mesh=...) is not ported "
                                       "yet")
-        if delta is not None and quant is not None and fused:
-            raise NotImplementedError(
-                "fused temporal-delta q8 decode needs the kernel "
-                "fused_brds_delta_lstm_step_q8, not ported yet (ROADMAP "
-                "B9); use fused=False for the chained delta-q8 path")
         _full_fp32_matmuls()
         self.cfg = cfg
         self.delta = delta
@@ -321,7 +315,9 @@ class LSTMModel:
                 # this path doubles them (fixed point ignores them).
                 ax, ah = (None if s is None else 2.0 * s
                           for s in self._act_scales(i))
-                c, h, m = K.brds_delta_lstm_step_q8(
+                step_q8 = (K.fused_brds_delta_lstm_step_q8 if self.fused
+                           else K.brds_delta_lstm_step_q8)
+                c, h, m = step_q8(
                     lp["w_x"], dx, fx, lp["w_h"], dh, fh, st["m"], lp["b"],
                     st["c"], act_scale_x=ax, act_scale_h=ah, pwl=pwl)
             elif packed:
@@ -495,6 +491,13 @@ def packed_q8_from_numpy(values, deltas, scales, ncols: int, qmax: int,
         ncols=int(ncols), qmax=int(qmax),
         frac_bits=None if frac_bits is None else int(frac_bits),
         pad=int(pad), block_rows=block_rows)
+
+
+def masked_dense_from_numpy(values, mask, device="cpu") -> MaskedDense:
+    """A ``MaskedDense`` (the baseline formats' packing) from the
+    reference's (values, mask) arrays."""
+    return MaskedDense(values=torch.tensor(np.asarray(values), device=device),
+                       mask=torch.tensor(np.asarray(mask), device=device))
 
 
 def quant_plan_from_scales(scheme, act_scales) -> QuantPlan:

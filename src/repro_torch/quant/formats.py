@@ -142,8 +142,10 @@ def packed_bytes_q(rows: int, ncols: int, ratio: float, scheme) -> int:
 
 class RowBalancedQ8Format(SparseFormat):
     """The registered quantized row-balanced format (``row_balanced_q8``):
-    the ``row_balanced`` mask, and a ``pack`` that also quantizes (the
-    rule's ``scheme`` option, default int8)."""
+    the ``row_balanced`` mask, a ``pack`` that also quantizes (the rule's
+    ``scheme`` option, default int8), and a matvec through the q8 kernels
+    with a dynamic max-abs activation scale (calibrated static scales come
+    in through the model, not this surface)."""
 
     name = "row_balanced_q8"
 
@@ -169,15 +171,16 @@ class RowBalancedQ8Format(SparseFormat):
         return packed.memory_bytes()
 
     def matvec(self, packed, x, *, backend=None):
-        raise NotImplementedError(
-            "row_balanced_q8.matvec needs the single-family q8 kernel "
-            "rb_spmv_q8, which is not ported yet (ROADMAP B10)")
+        from ..kernels import ops as K
+        return K.rb_spmv_q8(packed, x, backend=backend).to(x.dtype)
 
     def dual_matvec(self, pa, x, pb, h, bias=None, *, backend=None):
-        raise NotImplementedError(
-            "row_balanced_q8.dual_matvec goes through the format's matvec "
-            "surface, which is not ported yet (ROADMAP B10); the LSTM "
-            "steps call kernels.ops.rb_dual_spmv_q8 directly")
+        from ..kernels import ops as K
+        if bias is None:
+            bias = torch.zeros((pa.rows,), dtype=torch.float32,
+                               device=x.device)
+        return K.rb_dual_spmv_q8(pa, x, pb, h, bias,
+                                 backend=backend).to(x.dtype)
 
 
 register(RowBalancedQ8Format())

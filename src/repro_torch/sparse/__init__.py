@@ -1,10 +1,27 @@
-"""Sparsity API of the port: backend selection, formats, policy → plan,
-and the temporal-delta activation rule."""
+"""repro_torch.sparse — the one public API for sparsity.
+
+  formats  — SparseFormat registry (row_balanced, bank_balanced, block,
+             unstructured; quant adds row_balanced_q8): mask generation,
+             packed representation, matvec / dual_matvec kernel dispatch,
+             memory accounting.
+  policy   — SparsityPolicy (per-weight-family pattern + ratio) compiles
+             against a param tree into a SparsityPlan with prune / pack /
+             matvec.
+  search   — the BRDS Fig.-5 search over SparsityPolicy objects.
+  temporal — DeltaGateConfig: Spartus-style activation-delta skipping,
+             the policy's activation rule.
+  backend  — "cuda" | "ref" | "auto", per call or process-wide.
+
+``transformer_policy`` and ``mask_grads`` wait for the model zoo and
+training (ROADMAP A13, A11)."""
 from .backend import (BACKENDS, get_default_backend, set_default_backend,
                       use_backend)
-from .formats import SparseFormat, get_format, register
+from .formats import (SparseFormat, MaskedDense, register, get_format,
+                      available_formats, dual_matvec)
 from .policy import (Rule, SparsityPolicy, SparsityPlan, lstm_policy,
                      apply_masks, sparsity_report)
+from .search import (BRDSResult, brds_search, plane_search,
+                     execution_time_model)
 from .temporal import (DeltaGateConfig, cap_count, delta_threshold,
                        occupancy_report)
 
@@ -14,7 +31,9 @@ from ..quant import formats as _quant_formats  # noqa: E402,F401
 from ..quant import QuantConfig  # noqa: E402  (re-export: the policy rule)
 
 __all__ = ["BACKENDS", "get_default_backend", "set_default_backend",
-           "use_backend", "SparseFormat", "get_format", "register", "Rule",
+           "use_backend", "SparseFormat", "MaskedDense", "register",
+           "get_format", "available_formats", "dual_matvec", "Rule",
            "SparsityPolicy", "SparsityPlan", "lstm_policy", "apply_masks",
-           "sparsity_report", "DeltaGateConfig", "cap_count",
+           "sparsity_report", "BRDSResult", "brds_search", "plane_search",
+           "execution_time_model", "DeltaGateConfig", "cap_count",
            "delta_threshold", "occupancy_report", "QuantConfig"]

@@ -9,6 +9,7 @@ A policy is a list of rules, each mapping a param-path regex to a
     plan = policy.compile(params)
     pruned, masks = plan.prune(params)         # masks: {path: bool mask}
     packed, report = plan.pack(pruned, masks)  # packed-format param tree
+    y = plan.matvec("layers/0/w_x", packed["layers"][0]["w_x"], x)
 
 Param trees are nested dicts / lists of tensors; a leaf's path joins its
 keys and indices with "/" (``layers/0/w_x``). Weight layout per rule (how
@@ -192,7 +193,8 @@ class SparsityPolicy:
 # ------------------------------------------------------------------ plan
 
 class SparsityPlan:
-    """A policy compiled against one param tree: ``prune`` → ``pack``.
+    """A policy compiled against one param tree: ``prune`` → ``pack`` →
+    ``matvec``.
 
     Attributes
     ----------
@@ -278,6 +280,12 @@ class SparsityPlan:
         return packed, dict(dense_bytes=totals["dense"],
                             packed_bytes=totals["packed"],
                             ratio=totals["packed"] / max(totals["dense"], 1))
+
+    def matvec(self, path: str, packed, x, *, backend: str | None = None):
+        """One packed matvec through the site's format: x (B, d_in) →
+        (B, d_out). ``backend`` as in ``sparse.backend`` (None: the
+        process default)."""
+        return self.sites[path].fmt.matvec(packed, x, backend=backend)
 
     def summary(self, masks: dict) -> dict:
         return sparsity_report(masks)

@@ -109,6 +109,25 @@ def test_delta_plain_versions_match_jax(jbackend, pwl):
             _close(g, w, KERNEL_ATOL)
 
 
+@pytest.mark.parametrize("jbackend", ["pallas", "ref"])
+@pytest.mark.parametrize("mask", ["float", "bool"])
+def test_delta_rb_spmv_matches_jax(jbackend, mask):
+    """The single-family delta SpMV on both families, the fired mask given
+    as 0/1 floats or as bool (cast to float32 first, as the reference
+    casts it); an all-zero mask gives an exact 0."""
+    j, t = _delta_case(7, 3, 100, 96)
+    for fam, d, f in (("sx", "dx", "fx"), ("sh", "dh", "fh")):
+        jf, tf = j[f], t[f]
+        if mask == "bool":
+            jf, tf = jf.astype(bool), tf.bool()
+        want = jops.delta_rb_spmv(j[fam], j[d], jf, backend=jbackend)
+        got = ops.delta_rb_spmv(t[fam], t[d], tf)
+        assert got.shape == (3, 4 * 96)
+        _close(got, want, KERNEL_ATOL)
+        zero = ops.delta_rb_spmv(t[fam], t[d], torch.zeros_like(tf))
+        assert not zero.any()
+
+
 @pytest.mark.parametrize("pwl", [False, True])
 def test_delta_fused_bitwise_vs_chained(pwl):
     _, t = _delta_case(6, 3, 72, 40)

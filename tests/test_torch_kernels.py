@@ -97,6 +97,30 @@ def test_rb_dual_spmv_matches_jax(jbackend, B, X, H, pad):
 
 
 @pytest.mark.parametrize("jbackend", ["pallas", "ref"])
+@pytest.mark.parametrize("B,X,H,pad", [(3, 100, 96, True), (2, 48, 64, False),
+                                       (1, 200, 40, True)])
+def test_rb_spmv_matches_jax(jbackend, B, X, H, pad):
+    """The single-family SpMV on both families, padded struct or not:
+    only the logical rows come out."""
+    j, t = _case(5, B, X, H, pad=pad)
+    for fam, act in (("sx", "x"), ("sh", "h")):
+        want = jops.rb_spmv(j[fam], j[act], backend=jbackend)
+        got = ops.rb_spmv(t[fam], t[act])
+        assert got.shape == (B, 4 * H) and got.dtype == torch.float32
+        _close(got, want)
+
+
+def test_single_family_sum_equals_dual():
+    """rb_spmv(Sx, x) + rb_spmv(Sh, h) + bias is rb_dual_spmv bit for bit:
+    the same products, summed per family, added in the same order."""
+    _, t = _case(6, 3, 72, 40)
+    z = (ops.rb_spmv(t["sx"], t["x"]) + ops.rb_spmv(t["sh"], t["h"])
+         + t["b"][None, :])
+    assert torch.equal(z, ops.rb_dual_spmv(t["sx"], t["x"], t["sh"], t["h"],
+                                           t["b"]))
+
+
+@pytest.mark.parametrize("jbackend", ["pallas", "ref"])
 @pytest.mark.parametrize("pwl", [False, True])
 @pytest.mark.parametrize("B,H", [(3, 96), (2, 128)])
 def test_lstm_gates_matches_jax(jbackend, pwl, B, H):
@@ -205,6 +229,24 @@ def test_cpu_tensors_never_reach_a_kernel():
         tfused.fused_brds_lstm_step_q8(qx8.values, qx8.deltas, comb, codes,
                                        qh8.values, qh8.deltas, comb,
                                        codes[:, :16], t["b"], t["c"])
+    # the fused delta-q8 step and the single-family kernels
+    ops.fused_brds_delta_lstm_step_q8(qx8, t["x"], fx, qh8, t["h"], fh, m,
+                                      t["b"], t["c"])
+    ops.rb_spmv(sx, t["x"])
+    ops.rb_spmv_q8(qx8, t["x"])
+    ops.delta_rb_spmv(sx, t["x"], fx.bool())
+    with pytest.raises(ValueError):
+        ops.rb_spmv(sx, t["x"], backend="cuda")
+    with pytest.raises(ValueError, match="CUDA"):
+        tfused.fused_brds_delta_lstm_step_q8(
+            qx8.values, qx8.deltas, comb, codes, qh8.values, qh8.deltas,
+            comb, codes[:, :16], m, t["b"], t["c"])
+    with pytest.raises(ValueError, match="CUDA"):
+        trb.rb_spmv(sx.values, sx.deltas, t["x"], 64)
+    with pytest.raises(ValueError, match="CUDA"):
+        tq8.rb_spmv_q8(qx8.values, qx8.deltas, comb, codes, 64)
+    with pytest.raises(ValueError, match="CUDA"):
+        tdelta.delta_rb_spmv(sx.values, sx.deltas, t["x"], fx, 64)
     assert ops.LAUNCHES == before
 
 

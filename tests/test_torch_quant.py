@@ -158,10 +158,13 @@ def test_registered_q8_format_matches_jax():
         assert tfmt.packed_bytes(64, 48, 0.75, torch.float32, **opts) == \
             jfmt.packed_bytes(64, 48, 0.75, jnp.float32, **opts)
         assert tfmt.memory_bytes(tq) == jfmt.memory_bytes(jq)
-    with pytest.raises(NotImplementedError, match="B10"):
-        tfmt.matvec(tq, torch.zeros(1, 48))
-    with pytest.raises(NotImplementedError, match="B10"):
-        tfmt.dual_matvec(tq, torch.zeros(1, 48), tq, torch.zeros(1, 48))
+        # matvec (B10) and dual_matvec (B7) equal the reference's: the
+        # same codes and a dynamic max-abs activation scale each
+        x, h = _arr(np.random.default_rng(7), 2, 48), _arr(
+            np.random.default_rng(8), 2, 48)
+        _eq(tfmt.matvec(tq, _t(x)), jfmt.matvec(jq, jnp.asarray(x)))
+        _eq(tfmt.dual_matvec(tq, _t(x), tq, _t(h)),
+            jfmt.dual_matvec(jq, jnp.asarray(x), jq, jnp.asarray(h)))
 
 
 # ------------------------------------------------------- q8 plain kernels
@@ -237,6 +240,50 @@ def test_q8_ops_match_jax(jbackend, spec, scales):
             _close(g, w, 1e-5)
 
 
+@pytest.mark.parametrize("jbackend", ["pallas", "ref"])
+@pytest.mark.parametrize("spec", SCHEMES)
+@pytest.mark.parametrize("scale", [None, 0.03])
+def test_rb_spmv_q8_matches_jax(jbackend, spec, scale):
+    """The single-family q8 SpMV on both families equals the reference's:
+    the same codes (quantized inside, with a dynamic max-abs scale when
+    none is given), integer sums, one dequant multiply per row."""
+    j, t = _q8_case(11, spec)
+    for fam, act in (("sx", "x"), ("sh", "h")):
+        got = ops.rb_spmv_q8(t[fam], t[act], act_scale=scale)
+        assert got.shape == (3, 4 * 96)
+        _eq(got, jops.rb_spmv_q8(j[fam], j[act], act_scale=scale,
+                                 backend=jbackend))
+
+
+@pytest.mark.parametrize("jbackend", ["pallas", "ref"])
+@pytest.mark.parametrize("spec", SCHEMES)
+@pytest.mark.parametrize("pwl", [False, True])
+def test_fused_delta_q8_step_matches_jax(jbackend, spec, pwl):
+    """The fused delta-q8 step on the reference's codes: the codes of the
+    masked deltas equal, m' exactly equal, c and h within 1e-6 (the cell's
+    exp and tanh in other libraries)."""
+    j, t = _q8_case(12, spec)
+    kw = dict(act_scale_x=0.05, act_scale_h=None)
+    jcodes = []
+    for d, f, fam, sc in (("dx", "fx", "sx", 0.05), ("dh", "fh", "sh", None)):
+        jm = jnp.where(j[f].astype(bool), j[d], 0).astype(j[d].dtype)
+        jcodes += jops._quant_act(jm, j[fam], sc)
+    tcodes = ops._masked_codes(t["dx"], t["fx"], t["sx"], 0.05, t["dh"],
+                               t["fh"], t["sh"], None)
+    for g, w in zip(tcodes[0::2], jcodes[0::2]):
+        _eq(g, w)
+    for g, w in zip(tcodes[1::2], jcodes[1::2]):   # the activation scales
+        assert np.float32(g) == np.float32(w)
+    dargs = ("sx", "dx", "fx", "sh", "dh", "fh", "m", "b", "c")
+    want = jops.fused_brds_delta_lstm_step_q8(*(j[k] for k in dargs),
+                                              pwl=pwl, backend=jbackend, **kw)
+    got = ops.fused_brds_delta_lstm_step_q8(*(t[k] for k in dargs), pwl=pwl,
+                                            **kw)
+    _eq(got[2], want[2])
+    for g, w in zip(got[:2], want[:2]):
+        _close(g, w, 1e-6)
+
+
 @pytest.mark.parametrize("spec", SCHEMES)
 @pytest.mark.parametrize("pwl", [False, True])
 def test_q8_fused_bitwise_vs_chained(spec, pwl):
@@ -290,14 +337,14 @@ def test_calibrate_lstm_matches_jax(base, cfg):
 
 # ------------------------------------------------------- model + engine
 
-def _engines(base, spec, delta=False, calib=True):
+def _engines(base, spec, delta=False, calib=True, fused=True):
     jd = JDelta() if delta else None
     td = DeltaGateConfig() if delta else None
-    jeng = JEngine(base["jmodel"].with_fused(False if delta else None),
+    jeng = JEngine(base["jmodel"].with_fused(fused),
                    base["jmodel"].cfg, max_len=MAX_LEN, batch=3,
                    sparsity=jlstm_policy(0.75, 0.5, delta=jd,
                                          quant=JQuantConfig(spec)))
-    eng = ServeEngine(LSTMModel(base["cfg"], fused=not delta),
+    eng = ServeEngine(LSTMModel(base["cfg"], fused=fused),
                       max_len=MAX_LEN,
                       sparsity=lstm_policy(0.75, 0.5, delta=td,
                                            quant=QuantConfig(spec)),
@@ -310,14 +357,16 @@ def _engines(base, spec, delta=False, calib=True):
     return jeng, eng, jpacked, packed, jrep, rep
 
 
-MODES = {"int8": ("int8", False), "q1.11": ("q1.11", False),
-         "delta_int8_chained": ("int8", True)}
+MODES = {"int8": ("int8", False, True), "q1.11": ("q1.11", False, True),
+         "delta_int8_chained": ("int8", True, False),
+         "delta_int8_fused": ("int8", True, True)}
 
 
 @pytest.fixture(scope="module", params=sorted(MODES))
 def served(base, request):
-    spec, delta = MODES[request.param]
-    jeng, eng, jpacked, packed, jrep, rep = _engines(base, spec, delta)
+    spec, delta, fused = MODES[request.param]
+    jeng, eng, jpacked, packed, jrep, rep = _engines(base, spec, delta,
+                                                     fused=fused)
     plan = eng.model.quant
     # both packages serve with the reference's calibrated scales
     eng.model = eng.model.with_quant(quant_plan_from_scales(
@@ -403,6 +452,25 @@ def test_quant_fused_and_chained_serving_bitwise(base):
     assert torch.equal(ta, tb)
     for la, lb in zip(sa["cache"]["layers"], sb["cache"]["layers"]):
         assert torch.equal(la["c"], lb["c"]) and torch.equal(la["h"], lb["h"])
+
+
+def test_delta_quant_fused_and_chained_serving_bitwise(base):
+    """Temporal delta with int8: the fused path (one kernel per layer-step)
+    equals the chained one bit for bit, tokens and every cache leaf."""
+    _, eng, _, packed, _, _ = _engines(base, "int8", delta=True)
+    assert eng.model.fused and eng.model.delta is not None
+    prompt = _t(base["prompt"])
+    outs = {}
+    for fused in (True, False):
+        e = ServeEngine(eng.model.with_fused(fused), max_len=MAX_LEN,
+                        device="cpu")
+        outs[fused] = e.generate(packed, prompt, 6, return_state=True)
+    (ta, sa), (tb, sb) = outs[True], outs[False]
+    assert torch.equal(ta, tb)
+    for la, lb in zip(sa["cache"]["layers"], sb["cache"]["layers"]):
+        assert sorted(la) == sorted(lb)
+        for k in la:
+            assert torch.equal(la[k], lb[k]), k
 
 
 def test_uncalibrated_prepare_and_model_pack_match_jax(base):

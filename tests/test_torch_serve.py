@@ -295,21 +295,20 @@ def test_entry_points_default_to_the_card():
 
 
 def test_unported_model_options_raise():
-    """Sharded decode is not ported, nor is the fused delta-q8 kernel
-    (ROADMAP B9): fused delta + quant raises instead of chaining; delta or
-    quant alone, and chained delta + quant, construct."""
+    """Sharded decode is not ported: ``mesh=`` raises. Fused delta + quant
+    is ported (kernel B9): every way of building it constructs a fused
+    model, and it serves the same tokens and cache as the chained path."""
     from repro_torch.quant import QuantConfig, default_plan
     from repro_torch.sparse import DeltaGateConfig
     cfg = LSTMConfig("t", input_size=8, hidden=8, vocab_size=11)
     plan, delta = default_plan(QuantConfig("int8"), 1), DeltaGateConfig()
     with pytest.raises(NotImplementedError):
         LSTMModel(cfg, mesh=object())
-    with pytest.raises(NotImplementedError, match="B9"):
-        LSTMModel(cfg, delta=delta, quant=plan)
-    with pytest.raises(NotImplementedError, match="B9"):
-        LSTMModel(cfg, quant=plan).with_delta(delta)
-    with pytest.raises(NotImplementedError, match="B9"):
-        LSTMModel(cfg, fused=False, delta=delta, quant=plan).with_fused(True)
+    for model in (LSTMModel(cfg, delta=delta, quant=plan),
+                  LSTMModel(cfg, quant=plan).with_delta(delta),
+                  LSTMModel(cfg, fused=False, delta=delta,
+                            quant=plan).with_fused(True)):
+        assert model.fused and model.delta == delta and model.quant == plan
     for kw in (dict(delta=delta), dict(quant=plan),
                dict(delta=delta, quant=plan, fused=False)):
         LSTMModel(cfg, **kw)
@@ -317,8 +316,26 @@ def test_unported_model_options_raise():
                       sparsity=lstm_policy(0.5, 0.5, delta=delta,
                                            quant=QuantConfig("int8")))
     params = eng.model.init(device="cpu")
-    with pytest.raises(NotImplementedError, match="B9"):
-        eng.prepare(params)
+    packed, report = eng.prepare(params)
+    assert eng.model.fused and report["sparsity"] > 0
+    prompt = torch.tensor([[1, 2, 3], [4, 5, 6]])
+    fused = eng.generate(packed, prompt, 4, return_state=True)
+    chained = ServeEngine(eng.model.with_fused(False), device="cpu").generate(
+        packed, prompt, 4, return_state=True)
+    assert torch.equal(fused[0], chained[0])
+    for la, lb in zip(fused[1]["cache"]["layers"],
+                      chained[1]["cache"]["layers"]):
+        assert all(torch.equal(la[k], lb[k]) for k in la)
+
+
+def test_serve_cli_delta_quant_fused_needs_the_card_by_default():
+    """Delta + quant runs fused by default; without ``--device cpu`` and
+    with no card the CLI raises rather than fall back to the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default is valid here")
+    from repro_torch.launch import serve
+    with pytest.raises(RuntimeError, match="CUDA"):
+        serve.main(["--smoke", "--brds", "--delta", "0", "--quant", "int8"])
 
 
 def test_serve_cli_on_cpu(capsys):
@@ -341,6 +358,7 @@ def test_serve_cli_on_cpu(capsys):
       "--no-fused"], "effective-ops reduction"),
     (["--quant", "int8"], "packed_bytes"),
     (["--quant", "q1.11", "--delta", "0", "--no-fused"], "delta: occupancy"),
+    (["--quant", "int8", "--delta", "0"], "delta: occupancy"),
 ])
 def test_serve_cli_delta_and_quant_on_cpu(capsys, extra, expect):
     from repro_torch.launch import serve
