@@ -19,7 +19,12 @@
    q8 step, rb_spmv_q8) with int8 and with q1.11 (int16) codes, the fused
    delta-q8 step on both code types and fired shares, and the
    single-family float rb_spmv; the q8 partial sums, rb_spmv_q8 and the
-   fused delta-q8 step's m' must equal the plain version's exactly.
+   fused delta-q8 step's m' must equal the plain version's exactly. The
+   multi-token scans over T=32 steps (the serve prompt), float and
+   temporal delta (Θ=0 and 0.05), must be bitwise equal to T launches of
+   their single-step kernels (the delta one after T thresholds in
+   PyTorch), with PWL off and on; they are timed beside those T launches
+   and, for the float scan, one cuDNN LSTM call on the dense weights.
 3. Serve: full-width ``lstm_ptb`` (random weights from seed 0) pruned and
    packed by ``lstm_policy(0.75, 0.5)`` through ``ServeEngine``, greedy
    ``generate`` with B=8, prompt 32, gen 64, the launch counts set to 0
@@ -31,7 +36,16 @@
    against the same run on the plain versions (``backend="ref"``), fused
    against chained tokens, and Θ=0 delta tokens against the packed float
    ones.
-4. Format API: the same W_x and W_h through ``SparsityPlan.matvec``, the
+4. Speculative serve: the same packed lstm_ptb target, greedy, B=8,
+   prompt 32, gen 64, ``spec_k`` 4, with three drafts (the target's own
+   packed params; ``lstm_imdb`` at its published width rebound to the
+   vocabulary, packed, weights from seed 7; the target's weights with
+   Θ=0 temporal delta), each generating the target-only greedy tokens,
+   with its launch counts set to 0 just before and read just after (the
+   scan kernel primes the packed float drafts' prompt state); and the
+   delta scan op priming a full-width Θ=0 layer over the prompt, bitwise
+   the state the model's own prefill builds.
+5. Format API: the same W_x and W_h through ``SparsityPlan.matvec``, the
    ``row_balanced`` and ``row_balanced_q8`` formats' matvec and
    dual_matvec and ``ops.delta_rb_spmv`` on the card against the plain
    backend, with the launch counts set to 0 just before and read just
@@ -64,12 +78,14 @@ LOGIT_TOL = 1e-3  # 96 recurrent steps of z-level differences through the head
 MARGIN = 1e-4     # greedy tokens may differ only below this top-2 margin
 SERVE = dict(batch=8, prompt=32, gen=64)
 RUNS = 5          # timed generate runs per path; median and range reported
+SPEC_K = 4        # draft tokens proposed per speculative round
 SCHEMES = ("int8", "q1.11")
 KERNELS = ("rb_dual_spmv", "lstm_gates", "fused_brds_lstm_step",
            "delta_rb_dual_spmv", "fused_brds_delta_lstm_step",
            "rb_dual_parts_q8", "fused_brds_lstm_step_q8",
            "fused_brds_delta_lstm_step_q8", "rb_spmv", "rb_spmv_q8",
-           "delta_rb_spmv")
+           "delta_rb_spmv", "fused_brds_lstm_scan",
+           "fused_brds_delta_lstm_scan")
 # the format-API phase's kernels; the rest launch on the serve paths
 FORMAT_KERNELS = ("rb_spmv", "rb_spmv_q8", "delta_rb_spmv")
 
@@ -193,6 +209,9 @@ def make_case(torch, device, *, B, X, H, spar_x, spar_h, seed):
         for n in (X, H)) for share in (0.5, 1.0)}
     case.update(dx=rand(B, X, s=0.5), dh=rand(B, H, s=0.3),
                 m=rand(B, 4 * H))
+    # the scans: T = the serve prompt's steps, and delta references
+    case.update(xs=rand(SERVE["prompt"], B, X), x_ref=rand(B, X),
+                h_ref=rand(B, H))
     return case
 
 
@@ -270,6 +289,7 @@ def check_kernels(torch, device, flush):
         check_q8(torch, ops, ref, kq8, err, tag, cs)
         check_single(torch, ops, err, tag, cs)
         check_delta_q8(torch, ops, err, tag, cs)
+        check_scans(torch, ops, err, tag, cs)
 
     # times at the serve path's shapes
     sx, sh, x, h, c, b, H = (full[k] for k in
@@ -319,6 +339,8 @@ def check_kernels(torch, device, flush):
     runs.update(delta_runs(torch, ops, full, wxT, whT))
     runs.update(q8_runs(torch, full))
     runs.update(single_runs(torch, ops, full, "W_x"))
+    scans, steps = scan_runs(torch, ops, full, wx, wh)
+    runs.update(scans)
     for name, (kern, plain, lib, (bms, by)) in runs.items():
         r = rec[name]
         r["ms"] = time_ms(kern, flush)
@@ -329,6 +351,9 @@ def check_kernels(torch, device, flush):
         log(f"[time] {name:29} kernel {r['ms']:.4f} ms, plain "
             f"{r['plain_ms']:.4f} ms, library {lib_s} ms, bound "
             f"{bms * 1e3:.2f} us ({by}) — median of 30, L2 flushed")
+    for name, fn in steps.items():
+        log(f"[time] {name:35} {time_ms(fn, flush):.4f} ms — median of 30, "
+            "L2 flushed before the first step")
     # beside the records (int8 codes, W_x): q1.11 (int16 codes), and the
     # single-family kernels on W_h
     extra = {f"{n} q1.11": v for n, v in q8_runs(torch, full,
@@ -502,6 +527,146 @@ def check_delta_q8(torch, ops, err, tag, cs):
                 log(f"  fused dq8 {spec:5} fired {share} pwl={pwl!s:5} "
                     f"max|c,h err| {e:.3e} (tol {CELL_TOL:.0e}), m' exactly "
                     "equal; bitwise equal to chained kernels")
+
+
+def delta_steps(torch, ops, cs, theta, pwl=False):
+    """T × (delta_threshold on x and on h → the fused delta step kernel):
+    what the delta scan must equal. Returns (hs, c, x_ref, h_ref, m)."""
+    from repro_torch.sparse.temporal import delta_threshold
+    sx, sh, b = cs["sx"], cs["sh"], cs["bias"]
+    c, h, xr, hr, m = (cs[k] for k in ("c", "h", "x_ref", "h_ref", "m"))
+    hs = []
+    for x in cs["xs"]:
+        dx, fx, xr = delta_threshold(x, xr, theta)
+        dh, fh, hr = delta_threshold(h, hr, theta)
+        c, h, m = ops.fused_brds_delta_lstm_step(sx, dx, fx, sh, dh, fh, m,
+                                                 b, c, pwl=pwl,
+                                                 backend="cuda")
+        hs.append(h)
+    return torch.stack(hs), c, xr, hr, m
+
+
+def check_scans(torch, ops, err, tag, cs):
+    """The multi-token scans over T steps: bitwise equal to T launches of
+    their single-step kernels (the delta scan to T × (thresholds → fused
+    delta step)), and against their plain versions, with PWL off and on;
+    the delta scan at Θ = 0 and 0.05."""
+    sx, sh, xs, h0, c0, b = (cs[k] for k in ("sx", "sh", "xs", "h", "c",
+                                             "bias"))
+    T = xs.shape[0]
+    for pwl in (False, True):
+        got = ops.fused_brds_lstm_scan(sx, xs, sh, h0, b, c0, pwl=pwl,
+                                       backend="cuda")
+        c, h, hs = c0, h0, []
+        for x in xs:
+            c, h = ops.fused_brds_lstm_step(sx, x, sh, h, b, c, pwl=pwl,
+                                            backend="cuda")
+            hs.append(h)
+        plain = ops.fused_brds_lstm_scan(sx, xs, sh, h0, b, c0, pwl=pwl,
+                                         backend="ref")
+        torch.cuda.synchronize()
+        name = "fused_brds_lstm_scan"
+        e = max(err(name, got[0], plain[0], CELL_TOL, f"{tag} hs"),
+                err(name, got[1], plain[1], CELL_TOL, f"{tag} c"))
+        if not (torch.equal(got[0], torch.stack(hs))
+                and torch.equal(got[1], c)):
+            raise AssertionError(f"scan is not bitwise equal to {T} fused "
+                                 f"steps ({tag}, pwl={pwl})")
+        log(f"  scan T={T}      pwl={pwl!s:5} max|hs,c err| {e:.3e} (tol "
+            f"{CELL_TOL:.0e}); bitwise equal to {T} fused-step launches")
+        for theta in (0.0, 0.05):
+            args = (sx, xs, sh, h0, c0, cs["x_ref"], cs["h_ref"], cs["m"], b)
+            kw = dict(theta_x=theta, theta_h=theta, pwl=pwl)
+            got = ops.fused_brds_delta_lstm_scan(*args, backend="cuda", **kw)
+            want = delta_steps(torch, ops, cs, theta, pwl)
+            plain = ops.fused_brds_delta_lstm_scan(*args, backend="ref",
+                                                   **kw)
+            torch.cuda.synchronize()
+            name = "fused_brds_delta_lstm_scan"
+            # m is a running sum of T steps of products added in another
+            # order than the plain version's, and the cell and the
+            # references read it: z's tolerance for every output
+            e = max(err(name, g, p_, Z_TOL, f"{tag} {what} Θ={theta}")
+                    for g, p_, what in zip(got, plain, ("hs", "c", "x_ref",
+                                                        "h_ref", "m")))
+            if not all(torch.equal(g, w) for g, w in zip(got, want)):
+                raise AssertionError(
+                    f"delta scan is not bitwise equal to {T} × (thresholds "
+                    f"→ fused delta step) ({tag}, Θ={theta}, pwl={pwl})")
+            log(f"  delta scan T={T} Θ={theta:<4} pwl={pwl!s:5} "
+                f"max|hs,c,refs,m err| {e:.3e} (tol {Z_TOL:.0e}); bitwise "
+                f"equal to {T} × (thresholds → fused delta step)")
+
+
+def scan_runs(torch, ops, cs, wx, wh):
+    """Timing entries of the scans at the serve shapes over T = the serve
+    prompt (the delta scan at Θ = 0: every column of these random inputs
+    fires), and the T single-step launches each replaces. The float scan's
+    library call is one cuDNN LSTM over the T steps on the dense
+    (unpacked) weights, gate rows permuted from (f, i, g, o) to PyTorch's
+    (i, f, g, o); the delta scan has none."""
+    B, H, X = cs["B"], cs["H"], cs["X"]
+    sx, sh, xs, h0, c0, b = (cs[k] for k in ("sx", "sh", "xs", "h", "c",
+                                             "bias"))
+    T = xs.shape[0]
+    dargs = (sx, xs, sh, h0, c0, cs["x_ref"], cs["h_ref"], cs["m"], b)
+    weights = packed_bytes(sx) + packed_bytes(sh)
+    step_flops = 2 * B * (sx.rows * sx.K + sh.rows * sh.K) + 30 * B * H
+    state = nbytes(h0, c0, b) + nbytes(c0) + T * nbytes(h0)   # in and out
+
+    def ifgo(w):
+        return torch.cat([w[H:2 * H], w[:H], w[2 * H:]])
+
+    torch.backends.cudnn.allow_tf32 = False
+    lstm = torch.nn.LSTM(X, H, device=xs.device)
+    with torch.no_grad():
+        lstm.weight_ih_l0.copy_(ifgo(wx))
+        lstm.weight_hh_l0.copy_(ifgo(wh))
+        lstm.bias_ih_l0.copy_(ifgo(b))
+        lstm.bias_hh_l0.zero_()
+    lstm.flatten_parameters()
+
+    def cudnn():
+        with torch.no_grad():
+            return lstm(xs, (h0[None], c0[None]))
+
+    hs_lib, (_, c_lib) = cudnn()
+    hs, c = ops.fused_brds_lstm_scan(sx, xs, sh, h0, b, c0, backend="cuda")
+    diff = max((hs_lib - hs).abs().max().item(),
+               (c_lib[0] - c).abs().max().item())
+    log(f"  cuDNN LSTM (the scan's library call) vs the scan: max|hs, c "
+        f"diff| {diff:.3e}")
+
+    def steps():
+        c, h = c0, h0
+        for x in xs:
+            c, h = ops.fused_brds_lstm_step(sx, x, sh, h, b, c,
+                                            backend="cuda")
+
+    runs = {
+        "fused_brds_lstm_scan": (
+            lambda: ops.fused_brds_lstm_scan(sx, xs, sh, h0, b, c0,
+                                             backend="cuda"),
+            lambda: ops.fused_brds_lstm_scan(sx, xs, sh, h0, b, c0,
+                                             backend="ref"),
+            cudnn,
+            bound(weights + nbytes(xs) + state, T * step_flops)),
+        "fused_brds_delta_lstm_scan": (
+            lambda: ops.fused_brds_delta_lstm_scan(
+                *dargs, theta_x=0.0, theta_h=0.0, backend="cuda"),
+            lambda: ops.fused_brds_delta_lstm_scan(
+                *dargs, theta_x=0.0, theta_h=0.0, backend="ref"),
+            None,
+            bound(weights + nbytes(xs) + state
+                  + 2 * nbytes(cs["x_ref"], cs["h_ref"], cs["m"]),
+                  T * (step_flops + 2 * B * sx.rows + 6 * B * (X + H)))),
+    }
+    step_runs = {
+        f"{T} launches of fused_brds_lstm_step": steps,
+        f"{T} x (thresholds + fused delta step)":
+            lambda: delta_steps(torch, ops, cs, 0.0),
+    }
+    return runs, step_runs
 
 
 def delta_runs(torch, ops, cs, wxT, whT):
@@ -864,6 +1029,126 @@ def serve(torch, device):
                                             "lstm_gates": want}, runs=1)
     same_tokens(torch, "delta0+int8 fused vs chained", out, out_c)
     check_plain(torch, "delta0+int8", eng, packed, tokens, out)
+    return launches, float_first
+
+
+def spec_serve(torch, device, first):
+    """Phase 4: speculative greedy decode of the packed full-width lstm_ptb
+    target with three drafts, each with every launch count set to 0 just
+    before one generate and read just after: the tokens must be the
+    target-only greedy tokens up to ``first`` (the float path's first
+    small-margin step), the packed float drafts must prime their prompt
+    state through one scan launch per layer, and the kernel counts must be
+    what the rounds imply. Then the delta scan op over the prompt on a Θ=0
+    delta layer, bitwise the model's own prefill state. Returns the scans'
+    launch counts."""
+    import dataclasses
+    from repro_torch.kernels import ops
+    from repro_torch.models import LSTMModel, LSTM_CONFIGS
+    from repro_torch.models.layers import embed_apply
+    from repro_torch.serving import ServeEngine
+    from repro_torch.sparse import DeltaGateConfig, lstm_policy
+    from repro_torch.spec import DraftModel
+    cfg = LSTM_CONFIGS["lstm_ptb"]
+    B, P, G, K = SERVE["batch"], SERVE["prompt"], SERVE["gen"], SPEC_K
+    params = LSTMModel(cfg).init(torch.Generator().manual_seed(0), device)
+    tokens = torch.randint(0, cfg.vocab_size, (B, P),
+                           generator=torch.Generator().manual_seed(1)
+                           ).to(device)
+
+    def engine(c, **rules):
+        return ServeEngine(LSTMModel(c), max_len=P + G, device=device,
+                           sparsity=lstm_policy(0.75, 0.5, **rules))
+
+    eng = engine(cfg)
+    packed, _ = eng.prepare(params)
+    base = eng.generate(packed, tokens, G)
+    dts = timed_runs(torch, lambda: eng.generate(packed, tokens, G))
+    med = statistics.median(dts)
+    log(f"[spec] target-only greedy: median {med:.4f}s ({B * G / med:.1f} "
+        f"tok/s; range {B * G / max(dts):.1f}-{B * G / min(dts):.1f})")
+    # lstm_imdb at its published width as a language model over the
+    # target's vocabulary (its classifier head becomes a vocabulary head)
+    imdb = dataclasses.replace(LSTM_CONFIGS["lstm_imdb"],
+                               vocab_size=cfg.vocab_size, num_classes=0)
+    ieng = engine(imdb)
+    iparams, _ = ieng.prepare(ieng.model.init(
+        torch.Generator().manual_seed(7), device))
+    deng = engine(cfg, delta=DeltaGateConfig())
+    dpacked, _ = deng.prepare(params)
+    drafts = {"self": (DraftModel(eng.model, packed), "fused_brds_lstm_step",
+                       cfg.num_layers),
+              "lstm_imdb": (DraftModel(ieng.model, iparams),
+                            "fused_brds_lstm_step", imdb.num_layers),
+              "delta0": (DraftModel(deng.model, dpacked),
+                         "fused_brds_delta_lstm_step", 0)}
+    launches = {}
+    for tag, (draft, step, scans) in drafts.items():
+        for k in ops.LAUNCHES:
+            ops.LAUNCHES[k] = 0
+        out, st = eng.generate(packed, tokens, G, draft=draft, spec_k=K,
+                               return_state=True)
+        torch.cuda.synchronize()
+        got = {k: n for k, n in ops.LAUNCHES.items() if n}
+        rounds = int(st["rounds"].max())
+        dl = draft.model.cfg.num_layers
+        # target: prompt steps, then k+1 verify steps a round; draft: its
+        # prompt (one scan a layer, or P steps) and k+1 proposal steps
+        want = {"fused_brds_lstm_step": (P + (K + 1) * rounds)
+                * cfg.num_layers}
+        want[step] = want.get(step, 0) + (K + 1) * rounds * dl
+        if scans:
+            want["fused_brds_lstm_scan"] = scans
+        else:
+            want[step] += P * dl
+        log(f"[spec] {tag} draft: launches {got} (expected {want}: {rounds} "
+            f"rounds of {K + 1} verify and {K + 1} draft steps, prefills)")
+        if got != want:
+            raise AssertionError(f"spec {tag}: launched {got}, expected "
+                                 f"{want}")
+        if scans:
+            launches.setdefault("fused_brds_lstm_scan", got[
+                "fused_brds_lstm_scan"])
+        same_tokens(torch, f"spec {tag} vs target-only greedy", out, base,
+                    upto=first)
+        acc, drafted = int(st["accepted"].sum()), int(st["drafted"].sum())
+        dts = timed_runs(torch, lambda: eng.generate(
+            packed, tokens, G, draft=draft, spec_k=K))
+        med = statistics.median(dts)
+        log(f"[spec] {tag} draft, spec_k={K}: full match "
+            f"{bool(torch.equal(out, base))}; acceptance "
+            f"{acc / max(drafted, 1):.4f} ({acc}/{drafted}), {rounds} rounds "
+            f"(per-row {st['rounds'].tolist()}); median {med:.4f}s of "
+            f"{RUNS} runs ({B * G / med:.1f} tok/s; range "
+            f"{B * G / max(dts):.1f}-{B * G / min(dts):.1f}), "
+            f"{med / rounds * 1e3:.3f} ms per round")
+
+    # the delta scan op: a Θ=0 layer's state over the prompt in one launch
+    lp = dpacked["layers"][0]
+    xs = embed_apply(dpacked["embed"], tokens).transpose(0, 1).contiguous()
+    H, X = cfg.hidden, cfg.input_size
+    z = lambda n: torch.zeros((B, n), device=device)
+    for k in ops.LAUNCHES:
+        ops.LAUNCHES[k] = 0
+    got = ops.fused_brds_delta_lstm_scan(
+        lp["w_x"], xs, lp["w_h"], z(H), z(H), z(X), z(H), z(4 * H), lp["b"],
+        theta_x=0.0, theta_h=0.0, pwl=cfg.pwl_activations)
+    torch.cuda.synchronize()
+    n = ops.LAUNCHES["fused_brds_delta_lstm_scan"]
+    log(f"[spec] delta scan op over the prompt: launches "
+        f"{ {k: v for k, v in ops.LAUNCHES.items() if v} }")
+    if n != 1 or sum(ops.LAUNCHES.values()) != 1:
+        raise AssertionError(f"delta scan op launched {ops.LAUNCHES}")
+    launches["fused_brds_delta_lstm_scan"] = n
+    _, cache = deng.model.prefill(dpacked, tokens, P + G)
+    lc = cache["layers"][0]
+    want = (lc["h"], lc["c"], lc["x_ref"], lc["h_ref"], lc["m"])
+    if not all(torch.equal(g, w) for g, w in zip((got[0][-1], *got[1:]),
+                                                 want)):
+        raise AssertionError("delta scan state differs from the delta "
+                             "model's prefill state")
+    log("[spec] delta scan op: h, c, x_ref, h_ref, m bitwise the Θ=0 "
+        "model's prefill state")
     return launches
 
 
@@ -992,7 +1277,8 @@ def main() -> int:
 
     flush = torch.empty(256 << 20, dtype=torch.uint8, device=device)
     rec = check_kernels(torch, device, flush)
-    launches = serve(torch, device)
+    launches, first = serve(torch, device)
+    launches.update(spec_serve(torch, device, first))
     launches.update(format_api(torch, device))
 
     src = {"rb_dual_spmv": ("rb_spmv.cu", "src/repro/kernels/rb_spmv.py:86"),
@@ -1014,7 +1300,11 @@ def main() -> int:
            "rb_spmv_q8": ("rb_spmv_q8.cu",
                           "src/repro/kernels/rb_spmv_q8.py:50"),
            "delta_rb_spmv": ("delta_rb_spmv.cu",
-                             "src/repro/kernels/delta_rb_spmv.py:53")}
+                             "src/repro/kernels/delta_rb_spmv.py:53"),
+           "fused_brds_lstm_scan": ("fused_scan.cu",
+                                    "src/repro/kernels/fused_step.py:415"),
+           "fused_brds_delta_lstm_scan": (
+               "fused_scan.cu", "src/repro/kernels/fused_step.py:513")}
     kernels = []
     for name, r in rec.items():
         kernels.append(dict(

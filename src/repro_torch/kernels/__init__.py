@@ -9,7 +9,8 @@ from .ops import (LAUNCHES, rb_dual_spmv, lstm_gates, brds_lstm_step,
                   brds_delta_lstm_step, fused_brds_delta_lstm_step,
                   rb_dual_spmv_q8, delta_rb_dual_spmv_q8, brds_lstm_step_q8,
                   brds_delta_lstm_step_q8, fused_brds_lstm_step_q8,
-                  fused_brds_delta_lstm_step_q8)
+                  fused_brds_delta_lstm_step_q8, fused_brds_lstm_scan,
+                  fused_brds_delta_lstm_scan)
 from . import ref
 
 __all__ = ["LAUNCHES", "rb_dual_spmv", "lstm_gates", "brds_lstm_step",
@@ -17,4 +18,5 @@ __all__ = ["LAUNCHES", "rb_dual_spmv", "lstm_gates", "brds_lstm_step",
            "brds_delta_lstm_step", "fused_brds_delta_lstm_step",
            "rb_dual_spmv_q8", "delta_rb_dual_spmv_q8", "brds_lstm_step_q8",
            "brds_delta_lstm_step_q8", "fused_brds_lstm_step_q8",
-           "fused_brds_delta_lstm_step_q8", "ref"]
+           "fused_brds_delta_lstm_step_q8", "fused_brds_lstm_scan",
+           "fused_brds_delta_lstm_scan", "ref"]

@@ -35,7 +35,8 @@ LAUNCHES = {"rb_dual_spmv": 0, "lstm_gates": 0, "fused_brds_lstm_step": 0,
             "delta_rb_dual_spmv": 0, "fused_brds_delta_lstm_step": 0,
             "rb_dual_parts_q8": 0, "fused_brds_lstm_step_q8": 0,
             "fused_brds_delta_lstm_step_q8": 0, "rb_spmv": 0,
-            "rb_spmv_q8": 0, "delta_rb_spmv": 0}
+            "rb_spmv_q8": 0, "delta_rb_spmv": 0, "fused_brds_lstm_scan": 0,
+            "fused_brds_delta_lstm_scan": 0}
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # C signatures of the entry points, by source name
@@ -66,6 +67,14 @@ SIGNATURES = {
         "brds_rb_spmv_q8": [_P, _P, _I, _I, _P, _P, _I, _I, _P, _I, _I, _P],
         "brds_rb_dual_parts_q8": [_P, _P, _I, _I, _P, _P, _I, _P, _P, _I, _I,
                                   _P, _P, _I, _I, _P, _P, _I, _I, _P]},
+    "fused_scan": {
+        "brds_fused_lstm_scan": [_P, _P, _I, _I, _P, _I, _P, _P, _I, _I, _P,
+                                 _I, _P, _P, _P, _P, _I, _I, _P, _F, _F, _F,
+                                 _P],
+        "brds_fused_delta_lstm_scan": [_P, _P, _I, _I, _P, _I, _P, _P, _I,
+                                       _I, _P, _I, _P, _P, _P, _P, _P, _P,
+                                       _P, _P, _P, _P, _F, _F, _I, _I, _P,
+                                       _F, _F, _F, _P]},
 }
 
 _libs: dict[str, ctypes.CDLL] = {}

@@ -1,0 +1,105 @@
+"""CUDA kernels: T BRDS-LSTM layer steps in one persistent launch
+(``csrc/fused_scan.cu``), float and temporal-delta.
+
+The grid is sized to be co-resident and launched cooperatively; each block
+owns its hidden-unit tiles for all T steps and keeps their c (and the
+delta scan's partial-sum memory m) in shared memory, and only h crosses
+blocks, through ``hs`` and one grid barrier per step (two for the delta
+scan, whose thresholds are shared by every row). Each step is bitwise
+equal to one launch of the single-step kernel of ``fused_step``. Replaces
+``repro/kernels/fused_step.py::fused_brds_lstm_scan`` and
+``::fused_brds_delta_lstm_scan``.
+"""
+from __future__ import annotations
+
+import torch
+
+from . import _build
+from .lstm_gates import act_args
+from .rb_spmv import check_batch, check_packed
+
+
+def _check_scan(vals_x, deltas_x, xs, vals_h, deltas_h, h0, c0, bias):
+    """xs (T, B, X), h0 and c0 (B, H), bias (4H,): float32 on one card,
+    with Sx and Sh packed over at least the 4H gate rows."""
+    dev = xs.device
+    _build.require(xs, "xs", dtypes=(torch.float32,), ndim=3)
+    for name, t in (("h0", h0), ("c0", c0)):
+        _build.require(t, name, dtypes=(torch.float32,), ndim=2, device=dev)
+    _build.require(bias, "bias", dtypes=(torch.float32,), ndim=1, device=dev)
+    check_packed(vals_x, deltas_x, "Sx", dev)
+    check_packed(vals_h, deltas_h, "Sh", dev)
+    T, B, X = xs.shape
+    H = h0.shape[1]
+    check_batch(B)
+    if (T == 0 or min(vals_x.shape[0], vals_h.shape[0]) < 4 * H
+            or bias.shape != (4 * H,) or h0.shape[0] != B
+            or c0.shape != h0.shape):
+        raise ValueError(f"shape mismatch: Sx {tuple(vals_x.shape)}, Sh "
+                         f"{tuple(vals_h.shape)}, bias {tuple(bias.shape)}, "
+                         f"xs {tuple(xs.shape)}, h0 {tuple(h0.shape)}, c0 "
+                         f"{tuple(c0.shape)}")
+    return T, B, X, H
+
+
+def fused_brds_lstm_scan(vals_x, deltas_x, xs, vals_h, deltas_h, h0, bias,
+                         c0, *, pwl: bool = False):
+    """T BRDS-LSTM decode steps of one layer: for each t, (c, h) from
+    packed Sx (≥ 4H, Kx) and Sh (≥ 4H, Kh) over the 4H gate rows grouped
+    [f; i; g; o] (rows past 4H are not read), xs[t] (B, X), the previous
+    h (h0 at t = 0), c and bias (4H,); all float32 on one card. Returns
+    (hs (T, B, H), c_T (B, H))."""
+    dev = xs.device
+    T, B, X, H = _check_scan(vals_x, deltas_x, xs, vals_h, deltas_h, h0, c0,
+                             bias)
+    hs = torch.empty((T, B, H), dtype=torch.float32, device=dev)
+    c_out = torch.empty_like(c0)
+    lib = _build.load("fused_scan")
+    err = lib.brds_fused_lstm_scan(
+        vals_x.data_ptr(), deltas_x.data_ptr(), deltas_x.element_size(),
+        vals_x.shape[1], xs.data_ptr(), X, vals_h.data_ptr(),
+        deltas_h.data_ptr(), deltas_h.element_size(), vals_h.shape[1],
+        h0.data_ptr(), H, bias.data_ptr(), c0.data_ptr(), hs.data_ptr(),
+        c_out.data_ptr(), T, B, *act_args(pwl, dev), _build.stream(dev))
+    _build.check(err, "fused_brds_lstm_scan")
+    _build.LAUNCHES["fused_brds_lstm_scan"] += 1
+    return hs, c_out
+
+
+def fused_brds_delta_lstm_scan(vals_x, deltas_x, xs, vals_h, deltas_h, h0,
+                               c0, x_ref0, h_ref0, m0, bias, *,
+                               theta_x: float, theta_h: float,
+                               pwl: bool = False):
+    """T uncapped temporal-delta BRDS-LSTM steps of one layer: for each t,
+    the deltas of xs[t] and of the previous h against their references,
+    fired where |d| > theta, the references moved to the fired values,
+    m' = m + Sx@(fx·dx) + Sh@(fh·dh), z = m' + bias, then the cell. xs
+    (T, B, X); h0, c0, h_ref0 (B, H); x_ref0 (B, X); m0 (B, 4H); bias
+    (4H,); all float32 on one card. Returns (hs, c_T, x_ref_T, h_ref_T,
+    m_T)."""
+    dev = xs.device
+    T, B, X, H = _check_scan(vals_x, deltas_x, xs, vals_h, deltas_h, h0, c0,
+                             bias)
+    for name, t, shape in (("x_ref0", x_ref0, (B, X)),
+                           ("h_ref0", h_ref0, (B, H)),
+                           ("m0", m0, (B, 4 * H))):
+        _build.require(t, name, dtypes=(torch.float32,), ndim=2, device=dev)
+        if t.shape != shape:
+            raise ValueError(f"{name} {tuple(t.shape)} must be {shape}")
+    hs = torch.empty((T, B, H), dtype=torch.float32, device=dev)
+    c_out = torch.empty_like(c0)
+    m_out = torch.empty_like(m0)
+    x_ref, h_ref = x_ref0.clone(), h_ref0.clone()   # updated in place
+    dxm, dhm = torch.empty_like(x_ref0), torch.empty_like(h_ref0)
+    lib = _build.load("fused_scan")
+    err = lib.brds_fused_delta_lstm_scan(
+        vals_x.data_ptr(), deltas_x.data_ptr(), deltas_x.element_size(),
+        vals_x.shape[1], xs.data_ptr(), X, vals_h.data_ptr(),
+        deltas_h.data_ptr(), deltas_h.element_size(), vals_h.shape[1],
+        h0.data_ptr(), H, bias.data_ptr(), c0.data_ptr(), m0.data_ptr(),
+        x_ref.data_ptr(), h_ref.data_ptr(), dxm.data_ptr(), dhm.data_ptr(),
+        hs.data_ptr(), c_out.data_ptr(), m_out.data_ptr(), float(theta_x),
+        float(theta_h), T, B, *act_args(pwl, dev), _build.stream(dev))
+    _build.check(err, "fused_brds_delta_lstm_scan")
+    _build.LAUNCHES["fused_brds_delta_lstm_scan"] += 1
+    return hs, c_out, x_ref, h_ref, m_out

@@ -29,6 +29,9 @@ from .fused_step import (
     fused_brds_delta_lstm_step_q8 as _fused_delta_q8_kernel,
     fused_brds_lstm_step as _fused_kernel,
     fused_brds_lstm_step_q8 as _fused_q8_kernel)
+from .fused_scan import (
+    fused_brds_delta_lstm_scan as _delta_scan_kernel,
+    fused_brds_lstm_scan as _scan_kernel)
 from .lstm_gates import lstm_gates as _lstm_gates_kernel
 from .rb_spmv import rb_dual_spmv as _rb_dual_kernel, rb_spmv as _rb_kernel
 from .rb_spmv_q8 import (rb_dual_parts_q8 as _rb_dual_parts_q8_kernel,
@@ -36,6 +39,7 @@ from .rb_spmv_q8 import (rb_dual_parts_q8 as _rb_dual_parts_q8_kernel,
 from ..core.packing import RowBalancedSparse
 from ..quant.scheme import f32_scalar, quantize
 from ..sparse import backend as _backend
+from ..sparse.temporal import delta_threshold
 
 __all__ = ["LAUNCHES", "rb_spmv", "rb_dual_spmv", "lstm_gates",
            "brds_lstm_step", "fused_brds_lstm_step", "delta_rb_spmv",
@@ -43,7 +47,8 @@ __all__ = ["LAUNCHES", "rb_spmv", "rb_dual_spmv", "lstm_gates",
            "fused_brds_delta_lstm_step", "rb_spmv_q8", "rb_dual_spmv_q8",
            "delta_rb_dual_spmv_q8", "brds_lstm_step_q8",
            "brds_delta_lstm_step_q8", "fused_brds_lstm_step_q8",
-           "fused_brds_delta_lstm_step_q8"]
+           "fused_brds_delta_lstm_step_q8", "fused_brds_lstm_scan",
+           "fused_brds_delta_lstm_scan"]
 
 
 def _fit(vec, n):
@@ -331,3 +336,56 @@ def fused_brds_delta_lstm_step_q8(sx, dx, fx, sh, dh, fh, m_prev, bias,
                                   sh.scales * sah, qdh,
                                   _fit(m_prev, sx.rows), _fit(bias, sx.rows),
                                   c_prev, pwl=pwl)
+
+
+# -------------------------------------------------------- multi-token scan
+
+def fused_brds_lstm_scan(sx: RowBalancedSparse, xs, sh: RowBalancedSparse,
+                         h0, bias, c0, *, pwl: bool = False,
+                         backend: str | None = None):
+    """T decode steps of one layer in one launch: c stays with the block
+    that owns its hidden units, h crosses blocks through ``hs`` and one
+    grid barrier per step. Bitwise equal to T ``fused_brds_lstm_step``s.
+
+    xs (T, B, X); h0/c0 (B, H). Returns (hs (T, B, H), c_T)."""
+    if _backend.resolve(backend, xs) == "ref":
+        c, h, hs = c0, h0, []
+        for x in xs:
+            c, h = _cell_ref(_ref.rb_dual_spmv_ref(sx, x, sh, h, bias), c,
+                             pwl)
+            hs.append(h)
+        return torch.stack(hs), c
+    _check_dual(sx, xs, sh, h0)
+    return _scan_kernel(sx.values, sx.deltas, xs, sh.values, sh.deltas, h0,
+                        _fit(bias, sx.rows), c0, pwl=pwl)
+
+
+def fused_brds_delta_lstm_scan(sx: RowBalancedSparse, xs,
+                               sh: RowBalancedSparse, h0, c0, x_ref0,
+                               h_ref0, m0, bias, *, theta_x: float,
+                               theta_h: float, pwl: bool = False,
+                               backend: str | None = None):
+    """T temporally-sparse decode steps of one layer in one launch: the
+    thresholds, reference tracking, partial-sum memory and cell all
+    advance inside it. Bitwise equal to T × (``delta_threshold`` on x and
+    on h → ``fused_brds_delta_lstm_step``). Uncapped thresholds only: an
+    occupancy cap (a per-row top-k) stays on per-step launches.
+
+    xs (T, B, X); x_ref0/h_ref0 reference states; m0 (B, 4H) float32
+    partial sums. Returns (hs, c_T, x_ref_T, h_ref_T, m_T)."""
+    if _backend.resolve(backend, xs) == "ref":
+        c, h, xr, hr, m = c0, h0, x_ref0, h_ref0, m0
+        hs = []
+        for x in xs:
+            dx, fx, xr = delta_threshold(x, xr, theta_x)
+            dh, fh, hr = delta_threshold(h, hr, theta_h)
+            m = _ref.delta_rb_dual_spmv_ref(sx, dx, fx.float(), sh, dh,
+                                            fh.float(), m)
+            c, h = _cell_ref(_plus_bias(m, bias), c, pwl)
+            hs.append(h)
+        return torch.stack(hs), c, xr, hr, m
+    _check_dual(sx, xs, sh, h0)
+    return _delta_scan_kernel(sx.values, sx.deltas, xs, sh.values, sh.deltas,
+                              h0, c0, x_ref0, h_ref0, _fit(m0, sx.rows),
+                              _fit(bias, sx.rows), theta_x=theta_x,
+                              theta_h=theta_h, pwl=pwl)

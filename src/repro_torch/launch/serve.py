@@ -8,11 +8,16 @@ with temporal-delta and quantized variants:
       --quant int8
   python -m repro_torch.launch.serve --arch lstm_ptb --brds --smoke \\
       --device cpu
+  python -m repro_torch.launch.serve --arch lstm_ptb --brds \\
+      --draft lstm_imdb --draft-brds --spec-k 4
 
 Runs on the card unless ``--device cpu`` is given, at the configuration's
 full width unless ``--smoke`` narrows it to 128. Prints the generation
 rate (median and range of ``RUNS`` timed runs after one warm-up run), the
 device it ran on and, after a ``--delta`` run, the fired-column occupancy.
+``--draft ARCH`` decodes by speculative rounds with an LSTM draft of that
+configuration (``--draft-brds`` / ``--draft-delta`` / ``--draft-quant``
+serve it packed, temporal-delta or quantized) and prints its acceptance.
 """
 from __future__ import annotations
 
@@ -24,6 +29,45 @@ import time
 import torch
 
 RUNS = 5   # timed generate runs: host-clock rates spread between runs
+
+
+def _build_draft(args, vocab: int, max_len: int, device: torch.device):
+    """The ``--draft`` DraftModel: an LSTM from ``LSTM_CONFIGS`` rebound to
+    the target's vocabulary as a language model (a classifier's head is
+    replaced by a vocabulary head), with weights from seed 7, prepared
+    (prune, pack, delta, quant) by its own ServeEngine."""
+    from repro_torch.models import LSTMModel, LSTM_CONFIGS
+    from repro_torch.serving import ServeEngine
+    from repro_torch.sparse import DeltaGateConfig, QuantConfig, lstm_policy
+    from repro_torch.spec import DraftModel
+    cfg = LSTM_CONFIGS[args.draft]
+    if args.smoke:
+        cfg = dataclasses.replace(cfg, input_size=min(cfg.input_size, 128),
+                                  hidden=min(cfg.hidden, 128))
+    cfg = dataclasses.replace(cfg, vocab_size=vocab, num_classes=0,
+                              framewise=False)
+    sparsity = None
+    if args.draft_brds or args.draft_delta is not None:
+        delta = None
+        if args.draft_delta is not None:
+            delta = DeltaGateConfig(theta_x=args.draft_delta,
+                                    theta_h=args.draft_delta)
+        quant = QuantConfig(args.draft_quant) if args.draft_quant else None
+        sparsity = lstm_policy(args.spar_a if args.draft_brds else 0.0,
+                               args.spar_b if args.draft_brds else 0.0,
+                               delta=delta, quant=quant)
+    deng = ServeEngine(LSTMModel(cfg, fused=args.fused), max_len=max_len,
+                       sparsity=sparsity, device=device)
+    dparams = deng.model.init(torch.Generator().manual_seed(7), device)
+    calib = None
+    if args.draft_quant:
+        calib = torch.randint(0, vocab, (args.batch, min(args.prompt_len, 32)),
+                              generator=torch.Generator().manual_seed(8)
+                              ).to(device)
+    dparams, report = deng.prepare(dparams, calib=calib)
+    if report is not None:
+        print("draft BRDS:", report)
+    return DraftModel(deng.model, dparams)
 
 def _sync(device: torch.device) -> None:
     if device.type == "cuda":
@@ -100,6 +144,23 @@ def main(argv=None):
                          "lstm_gates) instead of the fused single-launch "
                          "step, on every packed path: float, --delta, "
                          "--quant and both")
+    ap.add_argument("--draft", default=None, metavar="ARCH",
+                    choices=sorted(LSTM_CONFIGS),
+                    help="speculative decoding: propose with this LSTM "
+                         "configuration rebound to the target's vocabulary; "
+                         "greedy output is token for token that of serving "
+                         "without it")
+    ap.add_argument("--spec-k", type=int, default=4,
+                    help="--draft: tokens proposed per speculative round")
+    ap.add_argument("--draft-brds", action="store_true",
+                    help="row-balanced prune and pack the draft's weights "
+                         "(--spar-a/--spar-b ratios)")
+    ap.add_argument("--draft-delta", type=float, default=None,
+                    metavar="THETA",
+                    help="draft with temporal-delta sparsity at THETA")
+    ap.add_argument("--draft-quant", default=None, metavar="SCHEME",
+                    help="draft with quantized packed weights ('int8' or "
+                         "'qM.N'); requires --draft-brds")
     ap.add_argument("--temperature", type=float, default=0.0)
     ap.add_argument("--top-k", type=int, default=0)
     ap.add_argument("--top-p", type=float, default=0.0)
@@ -114,6 +175,11 @@ def main(argv=None):
     if args.quant is not None and not args.brds:
         ap.error("--quant requires --brds (quantization rides the packed "
                  "row-balanced weights)")
+    if args.draft is None and (args.draft_brds or args.draft_quant
+                               or args.draft_delta is not None):
+        ap.error("--draft-brds/--draft-delta/--draft-quant require --draft")
+    if args.draft_quant and not args.draft_brds:
+        ap.error("--draft-quant requires --draft-brds")
 
     device = resolve_device(args.device)
     set_default_backend(args.backend)
@@ -158,12 +224,17 @@ def main(argv=None):
                            generator=gen).to(device)
     sampling = SamplingConfig(temperature=args.temperature, top_k=args.top_k,
                               top_p=args.top_p, eos_id=args.eos_id)
+    draft = None
+    if args.draft is not None:
+        draft = _build_draft(args, cfg.vocab_size, args.prompt_len + args.gen,
+                             device)
+        print(f"draft={args.draft} spec_k={args.spec_k}")
 
     def run():
         return eng.generate(
             params, tokens, args.gen, sampling=sampling,
             rng=torch.Generator(device).manual_seed(args.seed + 2),
-            return_state=True)
+            return_state=True, draft=draft, spec_k=args.spec_k)
 
     run()   # builds the kernels at their first launch, warms the libraries
     dts = []
@@ -181,6 +252,11 @@ def main(argv=None):
           f"{len(dts)} runs ({toks / dt:.1f} tok/s, prefill included; "
           f"range {toks / max(dts):.1f}-{toks / min(dts):.1f} tok/s) "
           f"on {name}")
+    if draft is not None:
+        drafted, accepted, rounds = (int(state[k].sum()) for k in
+                                     ("drafted", "accepted", "rounds"))
+        print(f"spec: acceptance={accepted / max(drafted, 1):.1%} "
+              f"({accepted}/{drafted} drafted over {rounds} rounds)")
     if args.delta is not None:
         occ = occupancy_report(state["cache"],
                                steps=args.prompt_len + args.gen,

@@ -13,11 +13,19 @@ import torch
 
 @dataclasses.dataclass(frozen=True)
 class PSpec:
-    """Declaration of one parameter tensor."""
+    """Declaration of one parameter tensor. ``axes`` names its logical
+    axes (the reference's names: ``"batch"``, ``"lstm_hidden"``, ...),
+    one per dimension, or is empty when nothing reads them."""
     shape: tuple
     init: str = "normal"             # normal | zeros
     scale: float | None = None       # stddev override (default 1/sqrt(fan_in))
     dtype: torch.dtype = torch.float32
+    axes: tuple = ()
+
+    def __post_init__(self):
+        if self.axes and len(self.axes) != len(self.shape):
+            raise ValueError(f"axes {self.axes} do not name the "
+                             f"{len(self.shape)} dims of {self.shape}")
 
 
 def _default_scale(shape) -> float:

@@ -232,11 +232,16 @@ class LSTMModel:
         ``delta`` rule each layer also carries the reference states
         ``x_ref`` (B, X_in) / ``h_ref`` (B, H), the float32 partial-sum
         memory ``m`` (B, 4H) and the cumulative fired-column counters
-        ``nx`` / ``nh`` (B,) that ``occupancy_report`` reduces."""
+        ``nx`` / ``nh`` (B,) that ``occupancy_report`` reduces. Each leaf
+        names its logical axes (``"batch"`` first): none is positional, so
+        the cache is pure recurrent state (``spec.verify``)."""
         cfg = self.cfg
+        hid = ("batch", "lstm_hidden")
         defs = {"layers": [
-            {"c": L.PSpec((batch, cfg.hidden), init="zeros", dtype=cfg.dtype),
-             "h": L.PSpec((batch, cfg.hidden), init="zeros", dtype=cfg.dtype)}
+            {"c": L.PSpec((batch, cfg.hidden), init="zeros", dtype=cfg.dtype,
+                          axes=hid),
+             "h": L.PSpec((batch, cfg.hidden), init="zeros", dtype=cfg.dtype,
+                          axes=hid)}
             for _ in range(cfg.num_layers)]}
         if self.delta is not None:
             f32 = torch.float32
@@ -244,13 +249,15 @@ class LSTMModel:
                 x_in = cfg.input_size if i == 0 else cfg.hidden
                 lp.update({
                     "x_ref": L.PSpec((batch, x_in), init="zeros",
-                                     dtype=cfg.dtype),
+                                     dtype=cfg.dtype, axes=("batch", "embed")),
                     "h_ref": L.PSpec((batch, cfg.hidden), init="zeros",
-                                     dtype=cfg.dtype),
+                                     dtype=cfg.dtype, axes=hid),
                     "m": L.PSpec((batch, 4 * cfg.hidden), init="zeros",
-                                 dtype=f32),
-                    "nx": L.PSpec((batch,), init="zeros", dtype=f32),
-                    "nh": L.PSpec((batch,), init="zeros", dtype=f32)})
+                                 dtype=f32, axes=("batch", "lstm_gates")),
+                    "nx": L.PSpec((batch,), init="zeros", dtype=f32,
+                                  axes=("batch",)),
+                    "nh": L.PSpec((batch,), init="zeros", dtype=f32,
+                                  axes=("batch",))})
         return defs
 
     def init_cache(self, batch: int, max_len: int, device):

@@ -5,14 +5,15 @@ patterns and, for models that decode through packed kernels
 (``supports_packed_decode``, the LSTM's dual-ratio datapath), packs the
 surviving weights and pads their rows once, so serving runs the BRDS
 kernels rather than masked dense matmuls. The policy's temporal-delta and
-quant rules rewire the model there too.
+quant rules rewire the model there too. ``generate(draft=...)`` decodes by
+speculative rounds (``repro_torch.spec``).
 """
 from __future__ import annotations
 
 import torch
 
 from . import runtime
-from .sampling import SamplingConfig
+from .sampling import SamplingConfig, sample_dist
 from ..device import resolve_device
 
 
@@ -86,7 +87,8 @@ class ServeEngine:
                  temperature: float = 0.0, top_k: int = 0, eos_id: int = -1,
                  rng: torch.Generator | None = None,
                  sampling: SamplingConfig | None = None,
-                 return_state: bool = False, lengths=None):
+                 return_state: bool = False, lengths=None, draft=None,
+                 spec_k: int = 4):
         """Generate ``steps`` tokens for a lockstep batch of prompts.
 
         tokens (B, S) prompt ids. Returns (B, steps) int32 ids; finished
@@ -97,6 +99,14 @@ class ServeEngine:
         ``tokens`` is right-padded to a common width, the length-masked
         prefill keeps each sequence's padding out of its state, and decode
         runs with per-sequence positions.
+
+        ``draft`` (a ``spec.DraftModel``) switches generation to
+        speculative rounds: the draft proposes ``spec_k`` tokens, the
+        target verifies the block, and both roll back to the accepted
+        prefix. Greedy output is token for token that of ``draft=None``;
+        ``return_state=True`` then also gives the per-row ``rounds``,
+        ``drafted`` and ``accepted`` counters (acceptance rate = accepted
+        / drafted).
         """
         if sampling is None:
             sampling = SamplingConfig(temperature=temperature, top_k=top_k,
@@ -120,7 +130,35 @@ class ServeEngine:
             logits, cache = self.model.prefill(params, tokens,
                                                max_len=self.max_len)
             pos = tokens.shape[1]
+        if draft is not None:
+            return self._speculate(params, tokens, steps, logits, cache,
+                                   rng, sampling, lengths, draft, spec_k,
+                                   return_state)
         toks, state = runtime.decode_loop(self.model, params, cache, logits,
                                           pos, rng, steps, sampling,
                                           limit=self.max_len)
+        return (toks, state) if return_state else toks
+
+    def _speculate(self, params, tokens, steps, logits, cache, rng,
+                   sampling, lengths, draft, spec_k, return_state):
+        """The draft's prefill on the same prompt (ragged with ``length=``),
+        then ``spec_decode_loop`` from the target's prefill distribution."""
+        from ..spec import spec_decode_loop
+        if lengths is not None:
+            if not runtime.prefill_accepts_length(draft.model):
+                raise TypeError(
+                    f"{type(draft.model).__name__}.prefill has no "
+                    "length-masked path — ragged speculative serving needs "
+                    "the `length` prefill parameter")
+            _, dstate = draft.prefill(draft.params, tokens,
+                                      max_len=self.max_len, length=lengths)
+            pos = lengths
+        else:
+            _, dstate = draft.prefill(draft.params, tokens,
+                                      max_len=self.max_len)
+            pos = tokens.shape[1]
+        probs = sample_dist(logits[:, -1], sampling)
+        toks, state = spec_decode_loop(
+            self.model, draft, params, draft.params, cache, dstate, probs,
+            pos, rng, steps, spec_k, sampling, limit=self.max_len)
         return (toks, state) if return_state else toks

@@ -15,7 +15,8 @@ import dataclasses
 
 import torch
 
-__all__ = ["SamplingConfig", "sample", "sample_dist"]
+__all__ = ["SamplingConfig", "sample", "sample_dist", "sample_with_dist",
+           "sample_from_dist"]
 
 _NEG = -1e30
 
@@ -70,14 +71,18 @@ def _filtered(logits, cfg: SamplingConfig):
     return scaled
 
 
+def _gumbel_argmax(generator: torch.Generator | None, scores):
+    """argmax(scores + Gumbel noise): one categorical draw per row."""
+    u = torch.rand(scores.shape, generator=generator, device=scores.device)
+    gumbel = -torch.log(-torch.log(u))
+    return torch.argmax(scores + gumbel, dim=-1).to(torch.int32)
+
+
 def sample(generator: torch.Generator | None, logits, cfg: SamplingConfig):
     """logits (B, V) → next-token ids (B,) int32."""
     if cfg.temperature <= 0.0:
         return torch.argmax(logits.float(), dim=-1).to(torch.int32)
-    scores = _filtered(logits, cfg)
-    u = torch.rand(scores.shape, generator=generator, device=scores.device)
-    gumbel = -torch.log(-torch.log(u))
-    return torch.argmax(scores + gumbel, dim=-1).to(torch.int32)
+    return _gumbel_argmax(generator, _filtered(logits, cfg))
 
 
 def sample_dist(logits, cfg: SamplingConfig):
@@ -88,3 +93,23 @@ def sample_dist(logits, cfg: SamplingConfig):
         return torch.nn.functional.one_hot(
             torch.argmax(logits, dim=-1), logits.shape[-1]).float()
     return torch.softmax(_filtered(logits, cfg), dim=-1)
+
+
+def sample_with_dist(generator: torch.Generator | None, logits,
+                     cfg: SamplingConfig):
+    """``(sample(...), sample_dist(...))`` in one call: next-token ids (...,)
+    int32 and the distribution (..., V) they were drawn from. The ids are
+    what ``sample`` draws from the same generator state."""
+    return sample(generator, logits, cfg), sample_dist(logits, cfg)
+
+
+def sample_from_dist(generator: torch.Generator | None, dist,
+                     cfg: SamplingConfig):
+    """Draw ids (...,) int32 from an explicit distribution (..., V), a
+    ``sample_dist`` output or the speculative residual: the filtering has
+    already happened, so greedy is the argmax and temperature a Gumbel-max
+    draw over ``log(max(dist, 1e-30))``."""
+    if cfg.temperature <= 0.0:
+        return torch.argmax(dist, dim=-1).to(torch.int32)
+    return _gumbel_argmax(generator,
+                          torch.log(torch.clamp_min(dist.float(), 1e-30)))
