@@ -52,6 +52,20 @@
    after; and the baseline formats (bank-balanced, block, unstructured)
    at ratio 0.75: mask and byte accounting on the card equal to the CPU's,
    matvec and a mixed-format dual_matvec within tolerance.
+6. Attention kernels (run right after phase 2): ``decode_attention``
+   (B14) and ``flash_attention`` (B15) against their plain versions at
+   three shapes each, float32 and bf16: the qwen3-0.6b serve shape, an
+   odd one (D=64, MQA, a window, ragged lengths with 0, 1 and S) and a
+   long one (B14 at S=32768, B15 at Sk=4096 with Sq < Sk); timed at the
+   serve shape beside their plain versions and
+   ``scaled_dot_product_attention``.
+7. Transformer serve: full-width ``qwen3-0.6b`` in bf16 (seed-0 weights)
+   through ``ServeEngine``, greedy, B=8, prompt 512, gen 64, with the
+   launch counts read around one generate (28 B15 launches for the
+   prefill, 28 B14 launches a decode step); teacher-forced logits and
+   greedy tokens held against the plain path; the ``--brds`` path
+   (``transformer_policy(0.75, 0.5)``); and a packed ``lstm_ptb`` draft
+   speculating k=4, its tokens equal to target-only.
 
 Prints a ``{"kernels": [...]}`` line and, last, the device line. Exits
 non-zero on any failure, and without a card.
@@ -70,6 +84,7 @@ sys.path.insert(0, str(ROOT / "src"))
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory rate
 FP32_FLOPS = 67e12             # H100 SXM float32 outside the tensor cores
+BF16_FLOPS = 989e12            # H100 SXM bf16 on the tensor cores, dense
 INT8_OPS = 1979e12             # H100 SXM int8 peak (no int16/int32 entry)
 Z_TOL = 1e-4      # z and m sums of up to 8299 products: warp-tree vs
                   # sequential order
@@ -88,6 +103,19 @@ KERNELS = ("rb_dual_spmv", "lstm_gates", "fused_brds_lstm_step",
            "fused_brds_delta_lstm_scan")
 # the format-API phase's kernels; the rest launch on the serve paths
 FORMAT_KERNELS = ("rb_spmv", "rb_spmv_q8", "delta_rb_spmv")
+ATTN_KERNELS = ("decode_attention", "flash_attention")
+BF16_ULP = 2.0 ** -7   # bf16 outputs: within one ulp (2^-7 relative) of the
+                       # plain version, both rounding float32 values that
+                       # differ in the summation order only
+ATTN_TOL = 1e-5        # float32 outputs: sums of up to 32768 terms in
+                       # another order
+# the dense-transformer serve path: qwen3-0.6b at full width, bf16
+TSERVE = dict(arch="qwen3-0.6b", batch=8, prompt=512, gen=64, max_len=1024)
+# qwen3-0.6b's bf16 logits, kernels vs plain: attention outputs differ by
+# up to one bf16 ulp and 28 layers carry that through the residual stream;
+# 4 ulps of a logit in [4, 8) (measured 0.047 at max |logit| 4.9)
+TF_LOGIT_TOL = 0.125
+TF_MARGIN = 0.25       # greedy rows compared up to a top-2 margin below it
 
 
 def log(msg: str) -> None:
@@ -124,12 +152,15 @@ def time_ms(fn, flush, reps: int = 30) -> float:
     return statistics.median(s.elapsed_time(e) for s, e in pairs)
 
 
-def bound(nbytes: int, flops: int, int_ops: int = 0) -> tuple[float, str]:
+def bound(nbytes: int, flops: int, int_ops: int = 0,
+          bf16_flops: int = 0) -> tuple[float, str]:
     """Least time (ms) for the work: bytes over the memory rate vs the
     operations over the peak rate of their type (float32; integer at the
-    int8 rate), the larger of the two."""
+    int8 rate; bf16 operands at the tensor cores' rate), the larger of
+    the two."""
     tb = nbytes / HBM_BYTES_PER_S
-    tf = flops / FP32_FLOPS + int_ops / INT8_OPS
+    tf = (flops / FP32_FLOPS + int_ops / INT8_OPS
+          + bf16_flops / BF16_FLOPS)
     return max(tb, tf) * 1e3, "bytes" if tb >= tf else "operations"
 
 
@@ -175,6 +206,29 @@ def ptxas_serve_tier(out: str) -> list[str]:
                 rows.append(f"{base}<{','.join(_TYPES[c] for c in types)},"
                             f"{nb}>: {m.group(1)} registers, {spill} B "
                             "spill")
+            name = None
+    return rows
+
+
+def ptxas_attention(out: str) -> list[str]:
+    """Registers and spill bytes of the attention instantiations the
+    qwen3-0.6b serve path launches (bf16, head_dim 128; decode with two q
+    heads a block)."""
+    import re
+    want = {"decode_attention_kernelI13__nv_bfloat16Li128ELi2E": "decode",
+            "flash_attention_kernelI13__nv_bfloat16Li128E": "flash"}
+    rows, name, spill = [], None, 0
+    for ln in out.splitlines():
+        if "Compiling entry function" in ln:
+            name = next((v for k, v in want.items() if k in ln), None)
+            spill = 0
+        m = re.search(r"(\d+) bytes spill stores", ln)
+        if m and name:
+            spill = int(m.group(1))
+        m = re.search(r"Used (\d+) registers", ln)
+        if m and name:
+            rows.append(f"{name}<bf16,128>: {m.group(1)} registers, {spill} "
+                        "B spill")
             name = None
     return rows
 
@@ -1254,6 +1308,298 @@ def format_api(torch, device):
     return got
 
 
+def attn_case(torch, device, dtype, *, B, Hq, Hkv, Sq, Sk, D, seed):
+    """q, k, v in the model's (B, S, H, D) layout from one seeded generator
+    on the card, handed over as (B, H, S, D) views, as the model does."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    rand = lambda *shape: torch.randn(*shape, generator=g,
+                                      device=device).to(dtype)
+    q = rand(B, Sq, Hq, D).transpose(1, 2)
+    k = rand(B, Sk, Hkv, D).transpose(1, 2)
+    v = rand(B, Sk, Hkv, D).transpose(1, 2)
+    return q, k, v
+
+
+def check_attention(torch, device, flush):
+    """Phase 2b: B14 and B15 against their plain versions at three shapes
+    each, float32 (ATTN_TOL) and bf16 (one ulp, BF16_ULP relative): the
+    qwen3-0.6b serve shape; an odd one (D=64, MQA, a window, ragged
+    lengths with 0, 1 and S); a long one (B14 at S=32768, B15 at Sk=4096
+    with Sq < Sk). Then each kernel timed at the serve shape in bf16 with
+    L2 flushed, beside its plain version, its bound and
+    ``scaled_dot_product_attention`` (``enable_gqa=True``, a yardstick the
+    port never calls). Returns the two kernels' records."""
+    from repro_torch.kernels import ops
+    F = torch.nn.functional
+    rec = {n: dict(max_abs_err=0.0) for n in ATTN_KERNELS}
+    B, P, G = TSERVE["batch"], TSERVE["prompt"], TSERVE["gen"]
+    S = TSERVE["max_len"]
+
+    def held(name, got, want, tag, serve):
+        torch.cuda.synchronize()
+        d = (got.float() - want.float()).abs()
+        e = d.max().item()
+        if got.dtype == torch.float32:
+            ok, tol = e <= ATTN_TOL, f"{ATTN_TOL:.0e}"
+        else:
+            ok = bool((d <= BF16_ULP * want.float().abs() + 1e-6).all())
+            tol = "one bf16 ulp"
+        if not ok:
+            raise AssertionError(f"{name} {tag}: max |kernel - plain| = "
+                                 f"{e:.3e} > {tol}")
+        if serve and got.dtype == torch.bfloat16:
+            rec[name]["max_abs_err"] = e
+        log(f"  {name:16} {tag}: max|err| {e:.3e} (tol {tol})")
+
+    dec = [("serve", dict(B=B, Hq=16, Hkv=8, S=S, D=128), None,
+            [P + G // 2] * B),
+           ("odd", dict(B=5, Hq=8, Hkv=1, S=700, D=64), 100,
+            [0, 1, 700, 333, 64]),
+           ("long", dict(B=2, Hq=16, Hkv=8, S=32768, D=128), None,
+            [32768, 20001])]
+    for dtype in (torch.float32, torch.bfloat16):
+        for tag, sh, win, lens in dec:
+            q, k, v = attn_case(torch, device, dtype, B=sh["B"], Hq=sh["Hq"],
+                                Hkv=sh["Hkv"], Sq=1, Sk=sh["S"], D=sh["D"],
+                                seed=sh["S"])
+            q = q[:, :, 0]
+            n = torch.tensor(lens, dtype=torch.int32, device=device)
+            held("decode_attention",
+                 ops.decode_attention(q, k, v, n, window=win, backend="cuda"),
+                 ops.decode_attention(q, k, v, n, window=win, backend="ref"),
+                 f"{tag} {sh} window={win} lengths={lens} {dtype}",
+                 tag == "serve")
+    fla = [("serve", dict(B=B, Hq=16, Hkv=8, Sq=P, Sk=P, D=128), None),
+           ("odd", dict(B=3, Hq=8, Hkv=1, Sq=300, Sk=300, D=64), 100),
+           ("long", dict(B=1, Hq=16, Hkv=8, Sq=1024, Sk=4096, D=128), None)]
+    for dtype in (torch.float32, torch.bfloat16):
+        for tag, sh, win in fla:
+            q, k, v = attn_case(torch, device, dtype, **sh, seed=sh["Sk"])
+            held("flash_attention",
+                 ops.flash_attention(q, k, v, window=win, backend="cuda"),
+                 ops.flash_attention(q, k, v, window=win, backend="ref"),
+                 f"{tag} {sh} window={win} {dtype}", tag == "serve")
+
+    # times at the serve shapes, bf16: decode at the run's mean length
+    bf = torch.bfloat16
+    q, k, v = attn_case(torch, device, bf, B=B, Hq=16, Hkv=8, Sq=1, Sk=S,
+                        D=128, seed=1)
+    q = q[:, :, 0]
+    L = P + G // 2
+    n = torch.full((B,), L, dtype=torch.int32, device=device)
+    mask = (torch.arange(S, device=device) < L)[None, None, None, :]
+    live = B * 8 * L * 128 * 2              # K and V rows up to the length
+    # operations of both kernels: bf16 tensor-core products, Q·K^T once
+    # and P·V twice (p split into two bf16 terms keeps float32 accuracy),
+    # so 2 + 2 * 2 flops per live (q, k) pair and head dim
+    dec_run = (
+        lambda: ops.decode_attention(q, k, v, n, backend="cuda"),
+        lambda: ops.decode_attention(q, k, v, n, backend="ref"),
+        lambda: F.scaled_dot_product_attention(
+            q[:, :, None], k, v, attn_mask=mask, enable_gqa=True),
+        bound(nbytes(q) * 2 + live * 2, 0,
+              bf16_flops=6 * B * 16 * L * 128))
+    qf, kf, vf = attn_case(torch, device, bf, B=B, Hq=16, Hkv=8, Sq=P, Sk=P,
+                           D=128, seed=2)
+    pairs = B * 16 * P * (P + 1) // 2       # live (q, k) pairs, causal
+    fla_run = (
+        lambda: ops.flash_attention(qf, kf, vf, backend="cuda"),
+        lambda: ops.flash_attention(qf, kf, vf, backend="ref"),
+        lambda: F.scaled_dot_product_attention(qf, kf, vf, is_causal=True,
+                                               enable_gqa=True),
+        bound(nbytes(qf, kf, vf, qf), 0, bf16_flops=6 * 128 * pairs))
+    diff = (dec_run[2]()[:, :, 0].float() - dec_run[1]().float()).abs()
+    log(f"  scaled_dot_product_attention (B14's yardstick) vs plain: "
+        f"max|diff| {diff.max().item():.3e}")
+    for name, (kern, plain, lib, (bms, by)) in zip(ATTN_KERNELS,
+                                                   (dec_run, fla_run)):
+        r = rec[name]
+        r["ms"] = time_ms(kern, flush)
+        r["plain_ms"] = time_ms(plain, flush)
+        r["library_ms"] = time_ms(lib, flush)
+        r["bound_ms"], r["bound_by"] = bms, by
+        log(f"[time] {name:29} kernel {r['ms']:.4f} ms, plain "
+            f"{r['plain_ms']:.4f} ms, library {r['library_ms']:.4f} ms, "
+            f"bound {bms * 1e3:.2f} us ({by}; operations at the bf16 "
+            f"tensor-core rate) — median of 30, L2 flushed, bf16, serve "
+            f"shape")
+    return rec
+
+
+def tf_logits(torch, model, params, tokens, out, max_len):
+    """Logits of every generated position, teacher-forced through the
+    serve path's own ops: prefill on the prompt, then one decode step per
+    generated token but the last. (B, G, Vp) float32."""
+    logits, cache = model.prefill(params, tokens, max_len)
+    rows = [logits[:, 0]]
+    P = tokens.shape[1]
+    for t in range(out.shape[1] - 1):
+        logits, cache = model.decode_step(params, cache, out[:, t:t + 1],
+                                          P + t)
+        rows.append(logits[:, 0])
+    return torch.stack(rows, 1)
+
+
+def transformer_serve(torch, device):
+    """Phase 5: qwen3-0.6b at full width in bf16 (weights from a CPU
+    generator, seed 0) served greedily through ``ServeEngine``, B=8,
+    prompt 512, gen 64, max_len 1024, with the launch counts set to 0 just
+    before one generate and read just after: 28 B15 launches for the
+    prefill, 28 B14 launches per decode step. Teacher-forced logits of the
+    kernel path against the plain path within TF_LOGIT_TOL, each row's
+    greedy tokens equal up to its first top-2 margin below TF_MARGIN; the
+    ``--brds`` path (``transformer_policy(0.75, 0.5)``); then an
+    ``lstm_ptb`` draft (packed, seed 7, rebound to the padded vocabulary)
+    speculating k=4 with tokens equal to target-only. Returns the two
+    kernels' launch counts from the dense run."""
+    import dataclasses
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import ops
+    from repro_torch.models import LSTMModel, LSTM_CONFIGS, build_model
+    from repro_torch.serving import ServeEngine
+    from repro_torch.sparse import (lstm_policy, transformer_policy,
+                                    use_backend)
+    from repro_torch.spec import DraftModel
+    cfg = get_arch(TSERVE["arch"])
+    B, P, G, ML = (TSERVE[k] for k in ("batch", "prompt", "gen", "max_len"))
+    model = build_model(cfg)
+    t0 = time.perf_counter()
+    params = model.init(torch.Generator().manual_seed(0), device)
+    torch.cuda.synchronize()
+    # K and V, 2 bytes an element
+    kv_bytes = 4 * cfg.num_layers * B * ML * cfg.num_kv_heads * cfg.head_dim
+    log(f"[tserve] {cfg.name}: {cfg.num_layers} layers d={cfg.d_model} "
+        f"heads {cfg.num_heads}/{cfg.num_kv_heads}x{cfg.head_dim} "
+        f"ff={cfg.d_ff} V={cfg.vocab_size} (padded {model.vocab_padded}) "
+        f"{cfg.dtype}: {model.param_count() / 1e6:.1f}M params, init "
+        f"{time.perf_counter() - t0:.2f}s (CPU generator, seed 0); KV "
+        f"cache {kv_bytes / 1e9:.3f} GB")
+    tokens = torch.randint(0, cfg.vocab_size, (B, P),
+                           generator=torch.Generator().manual_seed(1)
+                           ).to(device)
+    eng = ServeEngine(model, max_len=ML, device=device)
+    eng.generate(params, tokens, 2)                 # warm the libraries
+    want = {"flash_attention": cfg.num_layers,
+            "decode_attention": cfg.num_layers * G}
+
+    def counted(tag, run):
+        for k in ops.LAUNCHES:
+            ops.LAUNCHES[k] = 0
+        out = run()
+        torch.cuda.synchronize()
+        got = {k: n for k, n in ops.LAUNCHES.items() if n}
+        log(f"[tserve] {tag}: launches {got}")
+        return out, got
+
+    out, got = counted("dense greedy", lambda: eng.generate(params, tokens,
+                                                           G))
+    if got != want:
+        raise AssertionError(f"dense serve launched {got}, expected {want}: "
+                             "28 B15 per prefill, 28 B14 per decode step")
+    if out.shape != (B, G) or not bool(((out >= 0)
+                                        & (out < cfg.vocab_size)).all()):
+        raise AssertionError(f"bad tokens: shape {tuple(out.shape)}")
+    dts = timed_runs(torch, lambda: eng.generate(params, tokens, G))
+    med = statistics.median(dts)
+    log(f"[tserve] dense greedy B={B} prompt={P} gen={G}: median {med:.4f}s "
+        f"of {RUNS} runs ({B * G / med:.1f} tok/s, prefill included; range "
+        f"{B * G / max(dts):.1f}-{B * G / min(dts):.1f} tok/s)")
+    pre = timed_runs(torch, lambda: model.prefill(params, tokens, ML))
+    log(f"[tserve] prefill alone: median {statistics.median(pre) * 1e3:.2f} "
+        f"ms ({B * P / statistics.median(pre):.1f} prompt tok/s)")
+
+    # the plain path: teacher-forced logits and greedy tokens
+    lg_k = tf_logits(torch, model, params, tokens, out, ML)
+    with use_backend("ref"):
+        lg_r = tf_logits(torch, model, params, tokens, out, ML)
+        out_r = eng.generate(params, tokens, G)
+    if not bool(torch.isfinite(lg_k[..., :cfg.vocab_size]).all()):
+        raise AssertionError("non-finite logits on the kernel path")
+    if not torch.equal(lg_k.argmax(-1).to(out.dtype), out):
+        raise AssertionError("teacher-forced argmax differs from generate")
+    dl = (lg_k - lg_r)[..., :cfg.vocab_size].abs().max().item()
+    # bf16 logits tie often (a margin of 0 at the top), so each row is
+    # compared up to its own first small margin
+    top2 = lg_r.topk(2, dim=-1).values
+    margin = top2[..., 0] - top2[..., 1]                  # (B, G)
+    small = margin < TF_MARGIN
+    first = torch.where(small.any(1), small.float().argmax(1),
+                        torch.full((B,), G, device=device)).tolist()
+    same = [bool(torch.equal(out[b, :f], out_r[b, :f]))
+            for b, f in enumerate(first)]
+    log(f"[tserve] teacher-forced logits, kernels vs plain: max|diff| "
+        f"{dl:.3e} (tol {TF_LOGIT_TOL}; max|logit| "
+        f"{lg_r[..., :cfg.vocab_size].abs().max().item():.2f}); greedy "
+        f"tokens identical per row up to its first top-2 margin < "
+        f"{TF_MARGIN}: steps {first}; full match "
+        f"{bool(torch.equal(out, out_r))} ({int((out == out_r).sum())} of "
+        f"{B * G} tokens)")
+    if not dl <= TF_LOGIT_TOL:
+        raise AssertionError(f"teacher-forced logits differ by {dl:.3e}")
+    if not all(same):
+        raise AssertionError("greedy tokens differ before any small margin")
+    # every greedy token of the kernel path is the plain path's top token
+    # up to the logits' tolerance, at every step of every row
+    gap = (top2[..., 0] - lg_r.gather(-1, out.long()[..., None])[..., 0])
+    log(f"[tserve] kernel-path tokens under the plain path's teacher-forced "
+        f"logits: at most {gap.max().item():.3e} below the top logit (tol "
+        f"{2 * TF_LOGIT_TOL})")
+    if not gap.max().item() <= 2 * TF_LOGIT_TOL:
+        raise AssertionError("a kernel-path token is not a plain-path "
+                             "near-argmax")
+    del lg_k, lg_r
+
+    # --brds: prune (no packing) through transformer_policy
+    beng = ServeEngine(model, max_len=ML, device=device,
+                       sparsity=transformer_policy(0.75, 0.5))
+    t0 = time.perf_counter()
+    pruned, report = beng.prepare(params)
+    torch.cuda.synchronize()
+    log(f"[tserve] --brds prepare {time.perf_counter() - t0:.2f}s: "
+        f"sparsity {report['sparsity']:.4f} of {report['prunable_params']} "
+        "prunable weights")
+    bout, bgot = counted("brds greedy", lambda: beng.generate(pruned, tokens,
+                                                             G))
+    if bgot != want or not bool(((bout >= 0)
+                                 & (bout < cfg.vocab_size)).all()):
+        raise AssertionError(f"--brds serve launched {bgot}, tokens "
+                             f"{tuple(bout.shape)}")
+    dts = timed_runs(torch, lambda: beng.generate(pruned, tokens, G))
+    med = statistics.median(dts)
+    log(f"[tserve] brds greedy: median {med:.4f}s of {RUNS} runs "
+        f"({B * G / med:.1f} tok/s; range {B * G / max(dts):.1f}-"
+        f"{B * G / min(dts):.1f})")
+    del pruned
+
+    # speculation: a packed lstm_ptb draft over the padded vocabulary
+    dcfg = dataclasses.replace(LSTM_CONFIGS["lstm_ptb"],
+                               vocab_size=model.vocab_padded)
+    deng = ServeEngine(LSTMModel(dcfg), max_len=ML, device=device,
+                       sparsity=lstm_policy(0.75, 0.5))
+    dparams, _ = deng.prepare(deng.model.init(
+        torch.Generator().manual_seed(7), device))
+    draft = DraftModel(deng.model, dparams)
+    (sout, st), sgot = counted("spec k=4 lstm_ptb draft", lambda: eng.generate(
+        params, tokens, G, draft=draft, spec_k=SPEC_K, return_state=True))
+    rounds = int(st["rounds"].max())
+    swant = cfg.num_layers * (SPEC_K + 1) * rounds
+    if sgot.get("decode_attention") != swant or sgot.get(
+            "flash_attention") != cfg.num_layers:
+        raise AssertionError(f"spec launched {sgot}: expected {swant} B14 "
+                             f"({rounds} rounds of {SPEC_K + 1} verify "
+                             "steps) and one prefill's B15")
+    same_tokens(torch, "qwen3-0.6b spec (lstm_ptb draft) vs target-only "
+                "greedy", sout, out)
+    acc, drafted = int(st["accepted"].sum()), int(st["drafted"].sum())
+    dts = timed_runs(torch, lambda: eng.generate(
+        params, tokens, G, draft=draft, spec_k=SPEC_K), runs=1)
+    log(f"[tserve] spec k={SPEC_K}: acceptance {acc / max(drafted, 1):.4f} "
+        f"({acc}/{drafted}), {rounds} rounds, {dts[0]:.4f}s "
+        f"({B * G / dts[0]:.1f} tok/s), {dts[0] / rounds * 1e3:.3f} ms per "
+        "round")
+    return {k: got[k] for k in ATTN_KERNELS}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1272,14 +1618,17 @@ def main() -> int:
         f"{time.perf_counter() - t0:.1f}s (into {_build.BUILD})")
     for name, out in _build.BUILD_LOG.items():
         n = sum("Compiling entry function" in ln for ln in out.splitlines())
-        log(f"  {name}: {n} kernels; the B=8 serve tier: "
-            + "; ".join(ptxas_serve_tier(out)))
+        tier = (ptxas_attention(out) if name == "attention"
+                else ptxas_serve_tier(out))
+        log(f"  {name}: {n} kernels; the B=8 serve tier: " + "; ".join(tier))
 
     flush = torch.empty(256 << 20, dtype=torch.uint8, device=device)
     rec = check_kernels(torch, device, flush)
+    rec.update(check_attention(torch, device, flush))
     launches, first = serve(torch, device)
     launches.update(spec_serve(torch, device, first))
     launches.update(format_api(torch, device))
+    launches.update(transformer_serve(torch, device))
 
     src = {"rb_dual_spmv": ("rb_spmv.cu", "src/repro/kernels/rb_spmv.py:86"),
            "lstm_gates": ("lstm_gates.cu",
@@ -1304,7 +1653,11 @@ def main() -> int:
            "fused_brds_lstm_scan": ("fused_scan.cu",
                                     "src/repro/kernels/fused_step.py:415"),
            "fused_brds_delta_lstm_scan": (
-               "fused_scan.cu", "src/repro/kernels/fused_step.py:513")}
+               "fused_scan.cu", "src/repro/kernels/fused_step.py:513"),
+           "decode_attention": (
+               "attention.cu", "src/repro/kernels/decode_attention.py:57"),
+           "flash_attention": (
+               "attention.cu", "src/repro/kernels/flash_attention.py:80")}
     kernels = []
     for name, r in rec.items():
         kernels.append(dict(

@@ -36,9 +36,11 @@ LAUNCHES = {"rb_dual_spmv": 0, "lstm_gates": 0, "fused_brds_lstm_step": 0,
             "rb_dual_parts_q8": 0, "fused_brds_lstm_step_q8": 0,
             "fused_brds_delta_lstm_step_q8": 0, "rb_spmv": 0,
             "rb_spmv_q8": 0, "delta_rb_spmv": 0, "fused_brds_lstm_scan": 0,
-            "fused_brds_delta_lstm_scan": 0}
+            "fused_brds_delta_lstm_scan": 0, "decode_attention": 0,
+            "flash_attention": 0}
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_L = ctypes.c_longlong      # element strides
 # C signatures of the entry points, by source name
 SIGNATURES = {
     "rb_spmv": {"brds_rb_spmv": [_P, _P, _I, _I, _P, _I, _P, _I, _I, _P],
@@ -75,6 +77,13 @@ SIGNATURES = {
                                        _I, _P, _I, _P, _P, _P, _P, _P, _P,
                                        _P, _P, _P, _P, _F, _F, _I, _I, _P,
                                        _F, _F, _F, _P]},
+    "attention": {
+        "brds_decode_attention": [_P, _L, _L, _P, _L, _L, _L, _P, _L, _L, _L,
+                                  _P, _P, _P, _I, _I, _I, _I, _I, _I, _F,
+                                  _I, _I, _P],
+        "brds_flash_attention": [_P, _L, _L, _L, _P, _L, _L, _L, _P, _L, _L,
+                                 _L, _P, _L, _L, _L, _I, _I, _I, _I, _I, _I,
+                                 _I, _I, _F, _I, _P]},
 }
 
 _libs: dict[str, ctypes.CDLL] = {}

@@ -11,6 +11,10 @@ read only the logical rows, so only logical rows come out, and the bias
 and the partial-sum memory are fitted to them as the reference's ``_fit``
 does.
 
+The attention wrappers take q, k and v through strides, so the model
+hands over views of its (B, S, H, D) tensors and KV cache, copying
+nothing.
+
 The temporal-delta wrappers take the raw deltas and their fired masks from
 ``sparse.temporal.delta_threshold``; the quantized wrappers quantize the
 activations here (``_quant_act``), so a kernel and its plain version read
@@ -22,6 +26,7 @@ import torch
 
 from . import ref as _ref
 from ._build import LAUNCHES
+from .decode_attention import decode_attention as _decode_attn_kernel
 from .delta_rb_spmv import (delta_rb_dual_spmv as _delta_dual_kernel,
                             delta_rb_spmv as _delta_kernel)
 from .fused_step import (
@@ -32,6 +37,7 @@ from .fused_step import (
 from .fused_scan import (
     fused_brds_delta_lstm_scan as _delta_scan_kernel,
     fused_brds_lstm_scan as _scan_kernel)
+from .flash_attention import flash_attention as _flash_attn_kernel
 from .lstm_gates import lstm_gates as _lstm_gates_kernel
 from .rb_spmv import rb_dual_spmv as _rb_dual_kernel, rb_spmv as _rb_kernel
 from .rb_spmv_q8 import (rb_dual_parts_q8 as _rb_dual_parts_q8_kernel,
@@ -48,7 +54,8 @@ __all__ = ["LAUNCHES", "rb_spmv", "rb_dual_spmv", "lstm_gates",
            "delta_rb_dual_spmv_q8", "brds_lstm_step_q8",
            "brds_delta_lstm_step_q8", "fused_brds_lstm_step_q8",
            "fused_brds_delta_lstm_step_q8", "fused_brds_lstm_scan",
-           "fused_brds_delta_lstm_scan"]
+           "fused_brds_delta_lstm_scan", "flash_attention",
+           "decode_attention"]
 
 
 def _fit(vec, n):
@@ -389,3 +396,34 @@ def fused_brds_delta_lstm_scan(sx: RowBalancedSparse, xs,
                               h0, c0, x_ref0, h_ref0, _fit(m0, sx.rows),
                               _fit(bias, sx.rows), theta_x=theta_x,
                               theta_h=theta_h, pwl=pwl)
+
+
+# --------------------------------------------------------------- attention
+
+def _check_window(window):
+    if window is not None and window < 1:
+        raise ValueError(f"window must be None or >= 1, got {window}")
+
+
+def flash_attention(q, k, v, *, causal: bool = True,
+                    window: int | None = None, backend: str | None = None):
+    """Blocked causal / windowed GQA attention forward (B15). q (B, Hq, Sq,
+    D), k/v (B, Hkv, Sk, D); q rows right-aligned to the kv end; a row with
+    no live key gives 0. Returns (B, Hq, Sq, D) in q.dtype."""
+    _check_window(window)
+    if _backend.resolve(backend, q) == "ref":
+        return _ref.flash_attention_ref(q, k, v, causal=causal, window=window)
+    return _flash_attn_kernel(q, k, v, causal=causal, window=window)
+
+
+def decode_attention(q, k, v, lengths, *, window: int | None = None,
+                     backend: str | None = None):
+    """Single-query GQA attention over a KV cache (B14). q (B, Hq, D), k/v
+    (B, Hkv, S, D), lengths (B,) valid rows (the last ``window`` of them
+    with a window); a row with length 0 gives 0. Returns (B, Hq, D) in
+    q.dtype."""
+    _check_window(window)
+    if _backend.resolve(backend, q) == "ref":
+        return _ref.decode_attention_window_ref(q, k, v, lengths,
+                                                window=window)
+    return _decode_attn_kernel(q, k, v, lengths.to(torch.int32), window=window)

@@ -142,3 +142,106 @@ def lstm_cell_ref(zf, zi, zg, zo, c_prev, *, pwl: bool = False):
     c = f * c_prev.float() + i * g
     h = o * th(c)
     return c.to(c_prev.dtype), h.to(c_prev.dtype)
+
+
+# ---------------------------------------------------------------- attention
+
+NEG = -1e30     # the reference's mask value
+
+
+def mha_ref(q, k, v, *, causal: bool = True, scale: float | None = None,
+            window: int | None = None) -> torch.Tensor:
+    """Reference attention, copied from ``repro/kernels/ref.py::mha_ref``.
+    q (B, Hq, Sq, D); k, v (B, Hkv, Sk, D), Hq a multiple of Hkv; q rows
+    right-aligned to the kv end; window: keys in [qpos-window+1, qpos]."""
+    B, Hq, Sq, D = q.shape
+    Hkv, Sk = k.shape[1], k.shape[2]
+    group = Hq // Hkv
+    scale = scale if scale is not None else D ** -0.5
+    qf = q.float() * scale
+    kf = k.float().repeat_interleave(group, dim=1)
+    vf = v.float().repeat_interleave(group, dim=1)
+    s = torch.einsum("bhqd,bhkd->bhqk", qf, kf)
+    qpos = torch.arange(Sq, device=q.device)[:, None] + (Sk - Sq)
+    kpos = torch.arange(Sk, device=q.device)[None, :]
+    mask = torch.ones((Sq, Sk), dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= qpos >= kpos
+    if window is not None:
+        mask &= kpos > qpos - window
+    s = torch.where(mask[None, None], s, NEG)
+    p = torch.softmax(s, dim=-1)
+    return torch.einsum("bhqk,bhkd->bhqd", p, vf).to(q.dtype)
+
+
+def decode_attention_ref(q, k, v, lengths) -> torch.Tensor:
+    """Single-token decode attention, copied from
+    ``repro/kernels/ref.py::decode_attention_ref``. q (B, Hq, D); k, v
+    (B, Hkv, S, D); lengths (B,). A length-0 row gets the mean of V (its
+    softmax is uniform over -1e30)."""
+    B, Hq, D = q.shape
+    Hkv, S = k.shape[1], k.shape[2]
+    group = Hq // Hkv
+    kf = k.float().repeat_interleave(group, dim=1)
+    vf = v.float().repeat_interleave(group, dim=1)
+    s = torch.einsum("bhd,bhkd->bhk", q.float() * D ** -0.5, kf)
+    mask = (torch.arange(S, device=q.device)[None, None, :]
+            < lengths.to(q.device)[:, None, None])
+    s = torch.where(mask, s, NEG)
+    p = torch.softmax(s, dim=-1)
+    return torch.einsum("bhk,bhkd->bhd", p, vf).to(q.dtype)
+
+
+def _grouped_softmax_av(qf, k, v, mask):
+    """The online-softmax kernels' function on grouped heads: qf (B, Hkv,
+    G, Sq, D) scaled float32, k/v (B, Hkv, Sk, D), mask broadcast to
+    (..., Sq, Sk). Masked scores weigh exactly 0 (``p = s > NEG/2 ?
+    exp(s - m) : 0``) and out = acc / max(l, 1e-30), so a row with no live
+    key gives 0."""
+    s = torch.einsum("bhgqd,bhkd->bhgqk", qf, k.float())
+    s = torch.where(mask, s, NEG)
+    m = s.amax(-1, keepdim=True)
+    p = torch.where(s > NEG / 2, torch.exp(s - m), 0.0)
+    acc = torch.einsum("bhgqk,bhkd->bhgqd", p, v.float())
+    return acc / p.sum(-1, keepdim=True).clamp_min(1e-30)
+
+
+def flash_attention_ref(q, k, v, *, causal: bool = True,
+                        window: int | None = None) -> torch.Tensor:
+    """What ``flash_attention`` computes (B15): blocked causal / windowed
+    GQA attention forward. q (B, Hq, Sq, D), k/v (B, Hkv, Sk, D); q rows
+    right-aligned to the kv end (q row i sits at Sk - Sq + i); fp32 math,
+    output in q.dtype. Equals ``mha_ref`` except on rows with no live key,
+    which give 0 here."""
+    B, Hq, Sq, D = q.shape
+    Hkv, Sk = k.shape[1], k.shape[2]
+    qf = q.float().reshape(B, Hkv, Hq // Hkv, Sq, D) * D ** -0.5
+    qpos = torch.arange(Sq, device=q.device)[:, None] + (Sk - Sq)
+    kpos = torch.arange(Sk, device=q.device)[None, :]
+    mask = torch.ones((Sq, Sk), dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= qpos >= kpos
+    if window is not None:
+        mask &= kpos > qpos - window
+    out = _grouped_softmax_av(qf, k, v, mask)
+    return out.reshape(B, Hq, Sq, D).to(q.dtype)
+
+
+def decode_attention_window_ref(q, k, v, lengths, *,
+                                window: int | None = None) -> torch.Tensor:
+    """What ``decode_attention`` computes (B14): one query per sequence
+    against its first ``lengths[b]`` cache rows (the last ``window`` of
+    them when a window is given: ``kpos > length - 1 - window``). q (B, Hq,
+    D), k/v (B, Hkv, S, D), lengths (B,) int; fp32 math, output in q.dtype.
+    Equals ``decode_attention_ref`` for lengths ≥ 1; a length-0 row gives
+    0, as the Pallas kernel does."""
+    B, Hq, D = q.shape
+    Hkv, S = k.shape[1], k.shape[2]
+    qf = q.float().reshape(B, Hkv, Hq // Hkv, 1, D) * D ** -0.5
+    n = lengths.to(q.device).reshape(B, 1, 1, 1, 1)
+    kpos = torch.arange(S, device=q.device)
+    mask = kpos < n
+    if window is not None:
+        mask = mask & (kpos > n - 1 - window)
+    out = _grouped_softmax_av(qf, k, v, mask)
+    return out.reshape(B, Hq, D).to(q.dtype)

@@ -1,5 +1,6 @@
 """Lockstep serving driver for the paper's LSTMs, dense or BRDS-packed,
-with temporal-delta and quantized variants:
+with temporal-delta and quantized variants, and for the dense transformers
+of the model zoo, dense or BRDS-pruned:
 
   python -m repro_torch.launch.serve --arch lstm_ptb --brds
   python -m repro_torch.launch.serve --arch lstm_ptb --brds --delta 0
@@ -10,11 +11,21 @@ with temporal-delta and quantized variants:
       --device cpu
   python -m repro_torch.launch.serve --arch lstm_ptb --brds \\
       --draft lstm_imdb --draft-brds --spec-k 4
+  python -m repro_torch.launch.serve --arch qwen3-0.6b [--brds]
+  python -m repro_torch.launch.serve --arch qwen3-0.6b --smoke --device cpu
+  python -m repro_torch.launch.serve --arch qwen3-0.6b --draft lstm_ptb \\
+      --draft-brds --spec-k 4
 
 Runs on the card unless ``--device cpu`` is given, at the configuration's
-full width unless ``--smoke`` narrows it to 128. Prints the generation
-rate (median and range of ``RUNS`` timed runs after one warm-up run), the
-device it ran on and, after a ``--delta`` run, the fired-column occupancy.
+full width unless ``--smoke`` narrows it (an LSTM to widths of 128, a
+transformer to ``configs.smoke_config``). ``--arch`` takes the LSTM
+language models and the zoo's config names; a config the port cannot serve
+yet errors out with the reason. A transformer's ``--brds`` prunes it with
+``transformer_policy(--spar-a, --spar-b)`` (MLP at A, attention at B);
+``--delta`` and ``--quant`` are LSTM-only (``--no-fused`` then chains an
+LSTM draft). Prints the generation rate (median and range of ``RUNS``
+timed runs after one warm-up run), the device it ran on and, after a
+``--delta`` run, the fired-column occupancy.
 ``--draft ARCH`` decodes by speculative rounds with an LSTM draft of that
 configuration (``--draft-brds`` / ``--draft-delta`` / ``--draft-quant``
 serve it packed, temporal-delta or quantized) and prints its acceptance.
@@ -33,9 +44,10 @@ RUNS = 5   # timed generate runs: host-clock rates spread between runs
 
 def _build_draft(args, vocab: int, max_len: int, device: torch.device):
     """The ``--draft`` DraftModel: an LSTM from ``LSTM_CONFIGS`` rebound to
-    the target's vocabulary as a language model (a classifier's head is
-    replaced by a vocabulary head), with weights from seed 7, prepared
-    (prune, pack, delta, quant) by its own ServeEngine."""
+    ``vocab``, the width of the target's logits (a transformer's padded
+    vocabulary), as a language model (a classifier's head is replaced by a
+    vocabulary head), with weights from seed 7, prepared (prune, pack,
+    delta, quant) by its own ServeEngine."""
     from repro_torch.models import LSTMModel, LSTM_CONFIGS
     from repro_torch.serving import ServeEngine
     from repro_torch.sparse import DeltaGateConfig, QuantConfig, lstm_policy
@@ -69,6 +81,62 @@ def _build_draft(args, vocab: int, max_len: int, device: torch.device):
         print("draft BRDS:", report)
     return DraftModel(deng.model, dparams)
 
+
+def _lstm_target(args, device):
+    """(model, params, sparsity) for an LSTM ``--arch``."""
+    from repro_torch.models import LSTMModel, LSTM_CONFIGS
+    from repro_torch.sparse import DeltaGateConfig, QuantConfig, lstm_policy
+    cfg = LSTM_CONFIGS[args.arch]
+    if args.smoke:
+        cfg = dataclasses.replace(cfg, input_size=min(cfg.input_size, 128),
+                                  hidden=min(cfg.hidden, 128))
+    model = LSTMModel(cfg, fused=args.fused)
+    params = model.init(torch.Generator().manual_seed(args.seed), device)
+    sparsity = None
+    if args.brds or args.delta is not None:
+        delta = None
+        if args.delta is not None:
+            delta = DeltaGateConfig(
+                theta_x=args.delta,
+                theta_h=(args.delta_h if args.delta_h is not None
+                         else args.delta),
+                cap_x=args.occupancy, cap_h=args.occupancy)
+        quant = QuantConfig(args.quant) if args.quant else None
+        # ratio 0 compiles to an empty weight plan: --delta without --brds
+        # serves dense weights with temporal skipping only
+        sparsity = lstm_policy(args.spar_a if args.brds else 0.0,
+                               args.spar_b if args.brds else 0.0,
+                               delta=delta, quant=quant)
+    return model, params, sparsity
+
+
+def _transformer_target(ap, args, device):
+    """(model, params, sparsity) for a zoo ``--arch``; errors out with the
+    reason for what the port cannot serve yet."""
+    from repro_torch.configs import get_arch, smoke_config
+    from repro_torch.models import build_model
+    from repro_torch.sparse import transformer_policy
+    if args.delta is not None:
+        ap.error("--delta is LSTM-only (temporal sparsity rides the "
+                 "recurrent decode cache)")
+    if args.quant is not None:
+        ap.error("--quant is LSTM-only (quantization rides the packed LSTM "
+                 "decode path)")
+    cfg = smoke_config(args.arch) if args.smoke else get_arch(args.arch)
+    try:
+        model = build_model(cfg)
+    except NotImplementedError as e:
+        ap.error(str(e))
+    t0 = time.perf_counter()
+    params = model.init(torch.Generator().manual_seed(args.seed), device)
+    _sync(device)
+    print(f"init {time.perf_counter() - t0:.2f}s ({cfg.dtype} weights from "
+          f"a CPU generator, seed {args.seed})")
+    sparsity = (transformer_policy(args.spar_a, args.spar_b) if args.brds
+                else None)
+    return model, params, sparsity
+
+
 def _sync(device: torch.device) -> None:
     if device.type == "cuda":
         torch.cuda.synchronize(device)
@@ -99,18 +167,19 @@ def _profile(run, device: torch.device) -> None:
 
 
 def main(argv=None):
+    from repro_torch.configs import ARCH_NAMES
     from repro_torch.device import resolve_device
-    from repro_torch.models import LSTMModel, LSTM_CONFIGS
+    from repro_torch.models import LSTM_CONFIGS
     from repro_torch.serving import ServeEngine, SamplingConfig
-    from repro_torch.sparse import (DeltaGateConfig, QuantConfig,
-                                    lstm_policy, occupancy_report,
-                                    set_default_backend)
+    from repro_torch.sparse import occupancy_report, set_default_backend
 
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="lstm_ptb", choices=sorted(
-        k for k, c in LSTM_CONFIGS.items() if c.vocab_size))
+        k for k, c in LSTM_CONFIGS.items() if c.vocab_size) + ARCH_NAMES)
     ap.add_argument("--smoke", action="store_true",
-                    help="narrow input and hidden widths to 128")
+                    help="LSTM: narrow input and hidden widths to 128; "
+                         "transformer: its smoke config (few layers, narrow "
+                         "widths, float32)")
     ap.add_argument("--device", default=None,
                     help="torch device (default: cuda; raises without a "
                          "card unless 'cpu' is given)")
@@ -119,14 +188,17 @@ def main(argv=None):
     ap.add_argument("--prompt-len", type=int, default=64)
     ap.add_argument("--gen", type=int, default=32)
     ap.add_argument("--brds", action="store_true",
-                    help="row-balanced prune and pack the LSTM weights")
+                    help="row-balanced prune (and, for an LSTM, pack) the "
+                         "weights")
     ap.add_argument("--spar-a", type=float, default=0.75,
-                    help="sparsity of the input weights W_x")
+                    help="sparsity of family A: the LSTM's input weights "
+                         "W_x, a transformer's MLP")
     ap.add_argument("--spar-b", type=float, default=0.5,
-                    help="sparsity of the recurrent weights W_h")
+                    help="sparsity of family B: the LSTM's recurrent "
+                         "weights W_h, a transformer's attention")
     ap.add_argument("--backend", default="auto",
                     choices=("auto", "ref", "cuda"),
-                    help="kernel backend for packed decode")
+                    help="kernel backend (packed LSTM decode, attention)")
     ap.add_argument("--delta", type=float, default=None, metavar="THETA",
                     help="serve with temporal-delta sparsity at threshold "
                          "THETA (0 = exact; composes with --brds)")
@@ -183,29 +255,13 @@ def main(argv=None):
 
     device = resolve_device(args.device)
     set_default_backend(args.backend)
-    cfg = LSTM_CONFIGS[args.arch]
-    if args.smoke:
-        cfg = dataclasses.replace(cfg, input_size=min(cfg.input_size, 128),
-                                  hidden=min(cfg.hidden, 128))
-    model = LSTMModel(cfg, fused=args.fused)
-    params = model.init(torch.Generator().manual_seed(args.seed), device)
+    if args.arch in LSTM_CONFIGS:
+        model, params, sparsity = _lstm_target(args, device)
+    else:
+        model, params, sparsity = _transformer_target(ap, args, device)
+    cfg = model.cfg
     print(f"arch={cfg.name} params={model.param_count() / 1e6:.1f}M "
           f"device={device}")
-    sparsity = None
-    if args.brds or args.delta is not None:
-        delta = None
-        if args.delta is not None:
-            delta = DeltaGateConfig(
-                theta_x=args.delta,
-                theta_h=(args.delta_h if args.delta_h is not None
-                         else args.delta),
-                cap_x=args.occupancy, cap_h=args.occupancy)
-        quant = QuantConfig(args.quant) if args.quant else None
-        # ratio 0 compiles to an empty weight plan: --delta without --brds
-        # serves dense weights with temporal skipping only
-        sparsity = lstm_policy(args.spar_a if args.brds else 0.0,
-                               args.spar_b if args.brds else 0.0,
-                               delta=delta, quant=quant)
     eng = ServeEngine(model, max_len=args.prompt_len + args.gen,
                       sparsity=sparsity, device=device)
     calib = None
@@ -226,8 +282,9 @@ def main(argv=None):
                               top_p=args.top_p, eos_id=args.eos_id)
     draft = None
     if args.draft is not None:
-        draft = _build_draft(args, cfg.vocab_size, args.prompt_len + args.gen,
-                             device)
+        # the draft's vocabulary is the width of the target's logits
+        vocab = getattr(model, "vocab_padded", cfg.vocab_size)
+        draft = _build_draft(args, vocab, args.prompt_len + args.gen, device)
         print(f"draft={args.draft} spec_k={args.spec_k}")
 
     def run():

@@ -1,0 +1,128 @@
+"""Attention: GQA / MQA / MHA with qk-norm, RoPE and a KV cache.
+
+The port of ``repro/models/attention.py`` for one device. Prefill attention
+goes through ``ops.flash_attention`` (B15) and decode attention through
+``ops.decode_attention`` (B14); both read GQA in place (q head h reads kv
+head h // G), so the reference's tensor-parallel helpers
+(``prepare_heads``, ``expand_cache_heads``, ``pad_q_heads``) have no
+counterpart: with one device the model axis has size 1, and the cache is
+never copied per head.
+
+The KV cache is updated in place: ``kv_cache_update`` writes the new rows
+into the cache's buffers and returns the same dict. A step's positions
+past its length are dead, so a rewind needs no copy (``spec.verify``).
+"""
+from __future__ import annotations
+
+import torch
+
+from .layers import PSpec, apply_rope, pmm, rmsnorm
+from ..kernels import ops as K
+
+CACHE_AXES = ("batch", "cache_seq", "kv_heads", "head_dim")
+
+
+def attn_defs(d_model: int, num_heads: int, num_kv_heads: int, head_dim: int,
+              qk_norm: bool, dtype) -> dict:
+    d = {
+        "wq": PSpec((d_model, num_heads, head_dim), dtype=dtype,
+                    axes=("embed", "heads", "head_dim")),
+        "wk": PSpec((d_model, num_kv_heads, head_dim), dtype=dtype,
+                    axes=("embed", "kv_heads", "head_dim")),
+        "wv": PSpec((d_model, num_kv_heads, head_dim), dtype=dtype,
+                    axes=("embed", "kv_heads", "head_dim")),
+        "wo": PSpec((num_heads, head_dim, d_model), dtype=dtype,
+                    axes=("heads", "head_dim", "embed")),
+    }
+    if qk_norm:
+        for name in ("q_norm", "k_norm"):
+            d[name] = PSpec((head_dim,), init="zeros", dtype=torch.float32,
+                            axes=("head_dim",))
+    return d
+
+
+def qkv_project(p: dict, x, rot, *, qk_norm: bool):
+    """x (B, S, d) → q (B, S, Hq, Dh), k/v (B, S, Hkv, Dh); qk-norm, then
+    RoPE by ``rot`` (the positions' ``layers.rope_tables``, one pair for
+    every layer; None: no RoPE)."""
+    q, k, v = pmm(x, p["wq"]), pmm(x, p["wk"]), pmm(x, p["wv"])
+    if qk_norm:
+        q = rmsnorm(q, p["q_norm"])
+        k = rmsnorm(k, p["k_norm"])
+    if rot is not None:
+        q, k = apply_rope(q, *rot), apply_rope(k, *rot)
+    return q, k, v
+
+
+def out_project(p: dict, o):
+    """o (B, S, Hq, Dh) → (B, S, d)."""
+    wo = p["wo"]
+    return pmm(o.reshape(*o.shape[:2], -1), wo.reshape(-1, wo.shape[-1]))
+
+
+def prefill_attention(q, k, v, *, window: int | None = None):
+    """Causal attention of a prompt over its own keys: q (B, S, Hq, Dh),
+    k/v (B, S, Hkv, Dh) → (B, S, Hq, Dh), through ``ops.flash_attention``
+    on head-major views."""
+    o = K.flash_attention(q.transpose(1, 2), k.transpose(1, 2),
+                          v.transpose(1, 2), causal=True, window=window)
+    return o.transpose(1, 2)
+
+
+def decode_attention(q, cache: dict, lengths, *, window: int | None = None):
+    """One query per sequence over the cache's first ``lengths`` rows:
+    q (B, 1, Hq, Dh), lengths (B,) → (B, 1, Hq, Dh), through
+    ``ops.decode_attention`` on head-major views of the cache."""
+    o = K.decode_attention(q[:, 0], cache["k"].transpose(1, 2),
+                           cache["v"].transpose(1, 2), lengths,
+                           window=window)
+    return o[:, None]
+
+
+# ----------------------------------------------------------------- caches
+
+def kv_cache_defs(batch: int, max_len: int, num_kv_heads: int, head_dim: int,
+                  dtype, quant: bool = False) -> dict:
+    """KV cache declarations, (B, max_len, Hkv, Dh) each."""
+    if quant:
+        raise NotImplementedError(
+            "the int8 KV cache (kv_quant=True) is not ported yet: a later "
+            "part of the model zoo (queue A item 13)")
+    shape = (batch, max_len, num_kv_heads, head_dim)
+    return {"k": PSpec(shape, init="zeros", dtype=dtype, axes=CACHE_AXES),
+            "v": PSpec(shape, init="zeros", dtype=dtype, axes=CACHE_AXES)}
+
+
+def kv_cache_update(cache: dict, k_new, v_new, pos) -> dict:
+    """Write k/v (B, S_new, Hkv, Dh) into the cache at ``pos``, in place.
+
+    ``pos`` is an int or a 0-d tensor (every sequence at the same position:
+    a slice write whose start clamps so the rows fit, as
+    ``dynamic_update_slice`` does) or a (B,) tensor of per-sequence
+    positions (a per-row scatter, S_new = 1; a row whose position lies
+    past the cache is left as it is, as a dropped scatter). Tensor
+    positions are never read back to the host."""
+    S_new, S_max = k_new.shape[1], cache["k"].shape[1]
+    if isinstance(pos, int):
+        start = min(max(pos, 0), S_max - S_new)
+        for name, new in (("k", k_new), ("v", v_new)):
+            cache[name][:, start:start + S_new] = new
+        return cache
+    pos = pos.to(device=k_new.device, dtype=torch.long)
+    if pos.ndim == 1:
+        if S_new != 1:
+            raise ValueError(f"per-sequence positions write one row, got "
+                             f"{S_new}")
+        rows = torch.arange(k_new.shape[0], device=k_new.device)
+        idx = pos.clamp(0, S_max - 1)
+        keep = (pos < S_max)[:, None, None]
+        for name, new in (("k", k_new), ("v", v_new)):
+            buf = cache[name]
+            buf[rows, idx] = torch.where(keep, new[:, 0].to(buf.dtype),
+                                         buf[rows, idx])
+        return cache
+    idx = pos.clamp(0, S_max - S_new) + torch.arange(S_new,
+                                                     device=k_new.device)
+    for name, new in (("k", k_new), ("v", v_new)):
+        cache[name].index_copy_(1, idx, new.to(cache[name].dtype))
+    return cache

@@ -1,7 +1,10 @@
-"""Parameter declarations and the layers the LSTM needs.
+"""Parameter declarations and the layers of the LSTM and the transformer.
 
 Params are nested dicts / lists of tensors. Structure is declared once as a
 tree of ``PSpec`` (shape + init); ``init_params`` turns it into tensors.
+The norms, RoPE, MLP and head follow ``repro/models/layers.py`` op for op:
+norms and RoPE compute in float32 and cast back, and the head's product is
+taken in the weights' dtype before the cast to float32.
 """
 from __future__ import annotations
 
@@ -62,3 +65,132 @@ def count_params(defs) -> int:
 
 def embed_apply(p: dict, tokens: torch.Tensor) -> torch.Tensor:
     return p["table"][tokens]
+
+
+# ------------------------------------------------------------------ norms
+
+def rmsnorm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-6):
+    xf = x.float()
+    var = (xf * xf).mean(-1, keepdim=True)
+    return (xf * torch.rsqrt(var + eps) * (1.0 + w.float())).to(x.dtype)
+
+
+def layernorm(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
+              eps: float = 1e-5):
+    xf = x.float()
+    mu = xf.mean(-1, keepdim=True)
+    var = xf.var(-1, keepdim=True, unbiased=False)
+    y = (xf - mu) * torch.rsqrt(var + eps) * (1.0 + w.float()) + b.float()
+    return y.to(x.dtype)
+
+
+def norm_defs(kind: str, dim: int) -> dict:
+    w = PSpec((dim,), init="zeros", dtype=torch.float32, axes=("embed",))
+    if kind == "rmsnorm":
+        return {"w": w}
+    return {"w": w, "b": w}
+
+
+def apply_norm(kind: str, p: dict, x: torch.Tensor) -> torch.Tensor:
+    if kind == "rmsnorm":
+        return rmsnorm(x, p["w"])
+    return layernorm(x, p["w"], p["b"])
+
+
+# ------------------------------------------------------------------ RoPE
+
+def rope_freqs(half: int, theta: float, device=None) -> torch.Tensor:
+    """theta ** (-arange(half) / half) in float32. The power is taken in
+    float64 and rounded once: the correctly rounded table, which is what
+    XLA's float32 pow gives (PyTorch's float32 pow misses the last bit on a
+    few entries, an error that grows with the position)."""
+    expo = -torch.arange(0, half, dtype=torch.float32, device=device) / half
+    return (theta ** expo.double()).float()
+
+
+def rope_tables(positions: torch.Tensor, half: int, theta: float):
+    """(cos, sin) of positions (..., S) times the frequency table, float32,
+    shaped (..., S, 1, half) to broadcast over heads. One pair serves q
+    and k of every layer at these positions."""
+    ang = positions[..., None].float() * rope_freqs(half, theta,
+                                                    positions.device)
+    return torch.cos(ang)[..., None, :], torch.sin(ang)[..., None, :]
+
+
+def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor):
+    """Half rotation of x (..., S, H, D) by ``rope_tables``' (cos, sin), in
+    float32, cast back to x's dtype."""
+    half = x.shape[-1] // 2
+    x1, x2 = x[..., :half].float(), x[..., half:].float()
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return out.to(x.dtype)
+
+
+def rope(x: torch.Tensor, positions: torch.Tensor, theta: float = 10000.0):
+    """Half rotation. x (..., S, H, D); positions (..., S), broadcast
+    against x's leading dims."""
+    return apply_rope(x, *rope_tables(positions, x.shape[-1] // 2, theta))
+
+
+# ------------------------------------------------------------ projections
+
+def pmm(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """y = x @ w over the last dim of x; w (K, N) or (K, *N) flattened. A
+    plain large product: ``torch.matmul``."""
+    y = torch.matmul(x, w.reshape(w.shape[0], -1))
+    return y.reshape(*x.shape[:-1], *w.shape[1:])
+
+
+# ------------------------------------------------------------------ MLP
+
+def mlp_defs(d_model: int, d_ff: int, activation: str, dtype) -> dict:
+    up = PSpec((d_model, d_ff), dtype=dtype, axes=("embed", "mlp"))
+    down = PSpec((d_ff, d_model), dtype=dtype, axes=("mlp", "embed"))
+    if activation in ("silu_glu", "gelu_glu"):
+        return {"w_gate": up, "w_up": up, "w_down": down}
+    return {"w_up": up, "w_down": down}
+
+
+def _act(activation: str, x: torch.Tensor) -> torch.Tensor:
+    F = torch.nn.functional
+    if activation.startswith("silu"):
+        return F.silu(x)
+    if activation.startswith("gelu"):
+        return F.gelu(x, approximate="tanh")    # jax.nn.gelu's default
+    if activation == "sq_relu":
+        r = F.relu(x)
+        return r * r
+    if activation == "relu":
+        return F.relu(x)
+    raise ValueError(activation)
+
+
+def mlp_apply(p: dict, x: torch.Tensor, activation: str) -> torch.Tensor:
+    """x (..., d_model). BRDS masks are applied to the params beforehand."""
+    if activation.endswith("_glu"):
+        h = _act(activation, pmm(x, p["w_gate"])) * pmm(x, p["w_up"])
+    else:
+        h = _act(activation, pmm(x, p["w_up"]))
+    return pmm(h, p["w_down"])
+
+
+# ------------------------------------------------------------ embed, head
+
+def pad_vocab(v: int, mult: int = 256) -> int:
+    return ((v + mult - 1) // mult) * mult
+
+
+def embed_defs(vocab_padded: int, d_model: int, dtype) -> dict:
+    return {"table": PSpec((vocab_padded, d_model), scale=1.0, dtype=dtype,
+                           axes=("vocab", "embed"))}
+
+
+def logits_apply(p_head: dict, x: torch.Tensor, real_vocab: int):
+    """x (..., d) @ head (d, Vp) → (..., Vp) float32, the pad columns at
+    -1e30."""
+    w = p_head["w"]
+    logits = torch.matmul(x, w).float()
+    if w.shape[-1] != real_vocab:
+        pad = torch.arange(w.shape[-1], device=x.device) >= real_vocab
+        logits = logits.masked_fill(pad, -1e30)
+    return logits

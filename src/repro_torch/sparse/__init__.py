@@ -12,14 +12,14 @@
              the policy's activation rule.
   backend  — "cuda" | "ref" | "auto", per call or process-wide.
 
-``transformer_policy`` and ``mask_grads`` wait for the model zoo and
-training (ROADMAP A13, A11)."""
+``mask_grads`` waits for training (ROADMAP A11)."""
 from .backend import (BACKENDS, get_default_backend, set_default_backend,
                       use_backend)
 from .formats import (SparseFormat, MaskedDense, register, get_format,
                       available_formats, dual_matvec)
 from .policy import (Rule, SparsityPolicy, SparsityPlan, lstm_policy,
-                     apply_masks, sparsity_report)
+                     transformer_policy, classify, apply_masks,
+                     sparsity_report)
 from .search import (BRDSResult, brds_search, plane_search,
                      execution_time_model)
 from .temporal import (DeltaGateConfig, cap_count, delta_threshold,
@@ -33,7 +33,8 @@ from ..quant import QuantConfig  # noqa: E402  (re-export: the policy rule)
 __all__ = ["BACKENDS", "get_default_backend", "set_default_backend",
            "use_backend", "SparseFormat", "MaskedDense", "register",
            "get_format", "available_formats", "dual_matvec", "Rule",
-           "SparsityPolicy", "SparsityPlan", "lstm_policy", "apply_masks",
+           "SparsityPolicy", "SparsityPlan", "lstm_policy",
+           "transformer_policy", "classify", "apply_masks",
            "sparsity_report", "BRDSResult", "brds_search", "plane_search",
            "execution_time_model", "DeltaGateConfig", "cap_count",
            "delta_threshold", "occupancy_report", "QuantConfig"]

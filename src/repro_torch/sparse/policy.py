@@ -31,7 +31,8 @@ import torch
 from .formats import SparseFormat, get_format
 
 __all__ = ["Rule", "SparsityPolicy", "SparsityPlan", "lstm_policy",
-           "apply_masks", "sparsity_report"]
+           "transformer_policy", "classify", "apply_masks",
+           "sparsity_report"]
 
 _LAYOUTS = ("out_in", "in_out", "out_trailing")
 
@@ -326,3 +327,37 @@ def lstm_policy(spar_x: float, spar_h: float, *,
     return SparsityPolicy.of(
         {r"w_x$": (fmt, spar_x), r"w_h$": (fmt, spar_h)}, layout="out_in",
         activation=delta, quant=quant)
+
+
+# (pattern, family, layout) — family A pruned at spar_a, B at spar_b. The
+# port's per-layer paths (``layers/3/attn/wq``) match these as the
+# reference's stacked ones (``blocks/0/attn/wq``) do.
+_TRANSFORMER_FAMILIES = (
+    (r"(mlp|moe)/w_(gate|up|down)$", "a", "in_out"),
+    (r"rwkv/w_cm[12]$", "a", "in_out"),
+    (r"(attn|xattn)/w[qkvo]$", "b", "in_out"),
+    (r"rec/(w_in_gelu|w_in_rec|w_gate_a|w_gate_x|w_out)$", "b", "in_out"),
+    (r"rwkv/w_[rkvgw]$", "b", "out_trailing"),
+    (r"rwkv/w_out$", "b", "in_out"),
+)
+
+
+def transformer_policy(spar_a: float, spar_b: float, *,
+                       fmt: str = "row_balanced") -> SparsityPolicy:
+    """Dual-ratio families for the transformer zoo: family A (feed-forward,
+    pruned harder) at ``spar_a``; family B (attention / recurrence mixers)
+    at ``spar_b``. A 3-D attention weight takes the reference's (d_in,
+    d_out) view: ``wq`` (d, H, Dh) under ``in_out`` is d_in = d·H, d_out =
+    Dh, so each of its Dh rows keeps the same count."""
+    rules = tuple(
+        Rule(pat, fmt, spar_a if fam == "a" else spar_b, layout)
+        for pat, fam, layout in _TRANSFORMER_FAMILIES)
+    return SparsityPolicy(rules=rules)
+
+
+def classify(path_str: str) -> str | None:
+    """Family of a transformer param path ('a' | 'b' | None)."""
+    for pat, fam, _ in _TRANSFORMER_FAMILIES:
+        if re.search(pat, path_str):
+            return fam
+    return None

@@ -1,0 +1,212 @@
+"""The port's attention kernels on the CPU: the plain versions of B14 and
+B15 (``kernels.ref``) and the ``ops`` CPU route against the reference's
+Pallas kernels (interpret mode) and against the functions the reference
+model calls (``full_attention``, ``blocked_attention``,
+``decode_attention_einsum``), on the same inputs made with numpy. The CUDA
+kernels themselves run only on the card (``chip_smoke.py``)."""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels import ref as jref
+from repro.kernels.decode_attention import decode_attention as pallas_decode
+from repro.kernels.flash_attention import flash_attention as pallas_flash
+from repro.models import attention as JA
+from repro_torch.kernels import decode_attention as tdecode
+from repro_torch.kernels import flash_attention as tflash
+from repro_torch.kernels import ops, ref
+
+# float32: the frameworks sum in other orders; bf16: the output rounds to
+# bf16 (as tests/test_kernels.py holds the Pallas kernels)
+TOL = {"float32": 2e-5, "bfloat16": 5e-2}
+J_DT = {"float32": jnp.float32, "bfloat16": jnp.bfloat16}
+T_DT = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+def _both(rng, shape, dtype):
+    x = rng.normal(size=shape).astype(np.float32)
+    return jnp.asarray(x, J_DT[dtype]), torch.from_numpy(x).to(T_DT[dtype])
+
+
+def _close(got, want, dtype):
+    np.testing.assert_allclose(got.float().numpy(),
+                               np.asarray(want, np.float32),
+                               atol=TOL[dtype], rtol=TOL[dtype])
+
+
+def _bshd(t):
+    """(B, H, S, D) torch → (B, S, H, D) jax float32."""
+    return jnp.asarray(t.float().transpose(1, 2).numpy())
+
+
+def _rep(jx, group):
+    return jnp.repeat(jx, group, axis=2)
+
+
+# (B, Hq, Hkv, Sq, Sk, D, window): tests/test_kernels.py's shapes, then
+# G = 2, Sq < Sk (a prefix in the cache) with and without a window
+FLASH_CASES = [
+    (1, 4, 4, 128, 128, 64, None),
+    (2, 8, 2, 256, 256, 64, None),
+    (1, 4, 1, 128, 128, 32, 48),
+    (2, 6, 2, 192, 192, 64, None),
+    (2, 4, 2, 64, 64, 32, 16),
+    (1, 4, 2, 64, 192, 32, None),
+    (2, 8, 2, 64, 256, 64, 100),
+]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("B,Hq,Hkv,Sq,Sk,D,win", FLASH_CASES)
+def test_flash_matches_pallas_and_model(B, Hq, Hkv, Sq, Sk, D, win, dtype):
+    rng = np.random.default_rng(Sq + Sk + D)
+    jq, q = _both(rng, (B, Hq, Sq, D), dtype)
+    jk, k = _both(rng, (B, Hkv, Sk, D), dtype)
+    jv, v = _both(rng, (B, Hkv, Sk, D), dtype)
+    plain = ref.flash_attention_ref(q, k, v, causal=True, window=win)
+    via_ops = ops.flash_attention(q, k, v, causal=True, window=win)
+    assert torch.equal(plain, via_ops) and plain.dtype == q.dtype
+    _close(plain, pallas_flash(jq, jk, jv, causal=True, window=win,
+                               block_q=64, block_kv=64), dtype)
+    _close(plain, jref.mha_ref(jq, jk, jv, causal=True, window=win), dtype)
+    _close(ref.mha_ref(q, k, v, causal=True, window=win),
+           jref.mha_ref(jq, jk, jv, causal=True, window=win), dtype)
+    if dtype == "float32":
+        # the functions the reference model calls, in its (B, S, H, D)
+        # layout with the kv heads repeated (prepare_heads)
+        G = Hq // Hkv
+        args = (_bshd(q), _rep(_bshd(k), G), _rep(_bshd(v), G))
+        kw = dict(causal=True, window=win, q_offset=Sk - Sq)
+        got = plain.transpose(1, 2)
+        _close(got, JA.full_attention(*args, **kw), dtype)
+        _close(got, JA.blocked_attention(*args, **kw, block_q=32,
+                                         block_kv=64), dtype)
+
+
+def test_flash_rows_without_keys_give_zero():
+    """Sq > Sk: causal q rows before the first key have no live key. The
+    Pallas kernel and the port's kernel function give 0 there;
+    ``mha_ref`` gives the mean of V (a uniform softmax over -1e30)."""
+    rng = np.random.default_rng(3)
+    jq, q = _both(rng, (1, 2, 96, 32), "float32")
+    jk, k = _both(rng, (1, 2, 64, 32), "float32")
+    jv, v = _both(rng, (1, 2, 64, 32), "float32")
+    plain = ref.flash_attention_ref(q, k, v)
+    _close(plain, pallas_flash(jq, jk, jv, block_q=32, block_kv=32),
+           "float32")
+    assert torch.all(plain[:, :, :32] == 0)
+    mean_v = v.mean(2, keepdim=True).expand(-1, -1, 32, -1)
+    torch.testing.assert_close(ref.mha_ref(q, k, v)[:, :, :32], mean_v)
+
+
+def _lengths(B, S, seed):
+    """Ragged valid lengths with 1 and S among them."""
+    n = np.random.default_rng(seed).integers(1, S + 1, B)
+    n[0] = 1
+    if B > 1:
+        n[-1] = S
+    return n.astype(np.int32)
+
+
+DECODE_CASES = [(2, 8, 2, 256, 64), (1, 4, 4, 512, 128), (3, 6, 2, 128, 64),
+                (4, 4, 2, 96, 32), (3, 8, 1, 200, 64)]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("B,Hq,Hkv,S,D", DECODE_CASES)
+def test_decode_matches_pallas_and_model(B, Hq, Hkv, S, D, dtype):
+    rng = np.random.default_rng(S + D)
+    jq, q = _both(rng, (B, Hq, D), dtype)
+    jk, k = _both(rng, (B, Hkv, S, D), dtype)
+    jv, v = _both(rng, (B, Hkv, S, D), dtype)
+    n = _lengths(B, S, S)
+    lengths = torch.from_numpy(n)
+    plain = ref.decode_attention_window_ref(q, k, v, lengths)
+    assert torch.equal(plain, ops.decode_attention(q, k, v, lengths))
+    jn = jnp.asarray(n)
+    bk = next(b for b in (32, 16, 8) if S % b == 0)   # Pallas: divisors
+    _close(plain, pallas_decode(jq, jk, jv, jn, block_kv=bk), dtype)
+    _close(plain, jref.decode_attention_ref(jq, jk, jv, jn), dtype)
+    _close(ref.decode_attention_ref(q, k, v, lengths),
+           jref.decode_attention_ref(jq, jk, jv, jn), dtype)
+    if dtype == "float32":
+        G = Hq // Hkv
+        got = JA.decode_attention_einsum(
+            jnp.asarray(q.numpy())[:, None], _rep(_bshd(k), G),
+            _rep(_bshd(v), G), jn)
+        _close(plain, np.asarray(got)[:, 0], dtype)
+
+
+@pytest.mark.parametrize("window", [1, 5, 64])
+@pytest.mark.parametrize("scalar", [True, False])
+def test_decode_window_matches_model(window, scalar):
+    """The window the Pallas kernel lacks and the model's function has:
+    ``kpos > length - 1 - window``, for a scalar and a (B,) length."""
+    B, Hq, Hkv, S, D = 3, 4, 2, 80, 32
+    rng = np.random.default_rng(window)
+    _, q = _both(rng, (B, Hq, D), "float32")
+    _, k = _both(rng, (B, Hkv, S, D), "float32")
+    _, v = _both(rng, (B, Hkv, S, D), "float32")
+    n = np.full(B, 57, np.int32) if scalar else _lengths(B, S, window)
+    plain = ops.decode_attention(q, k, v, torch.from_numpy(n), window=window)
+    length = jnp.int32(57) if scalar else jnp.asarray(n)
+    got = JA.decode_attention_einsum(
+        jnp.asarray(q.numpy())[:, None], _rep(_bshd(k), 2), _rep(_bshd(v), 2),
+        length, window=window)
+    _close(plain, np.asarray(got)[:, 0], "float32")
+
+
+def test_decode_strided_cache_view_and_zero_length():
+    """The model passes its (B, S_max, Hkv, D) cache as a (B, Hkv, S, D)
+    view: the plain version reads it as the contiguous copy. A length-0
+    row gives 0 (the Pallas kernel's l clamp); ``decode_attention_ref``
+    gives the mean of V there."""
+    rng = np.random.default_rng(7)
+    cache_k = torch.from_numpy(rng.normal(size=(2, 48, 2, 32)).astype(
+        np.float32))
+    cache_v = torch.from_numpy(rng.normal(size=(2, 48, 2, 32)).astype(
+        np.float32))
+    q = torch.from_numpy(rng.normal(size=(2, 1, 4, 32)).astype(np.float32))
+    lengths = torch.tensor([0, 30], dtype=torch.int32)
+    kv, vv = cache_k.transpose(1, 2), cache_v.transpose(1, 2)
+    assert not kv.is_contiguous()
+    got = ops.decode_attention(q[:, 0], kv, vv, lengths)
+    want = ops.decode_attention(q[:, 0].contiguous(), kv.contiguous(),
+                                vv.contiguous(), lengths)
+    assert torch.equal(got, want)
+    assert torch.all(got[0] == 0)
+    _close(got, pallas_decode(jnp.asarray(q[:, 0].numpy()),
+                              jnp.asarray(kv.contiguous().numpy()),
+                              jnp.asarray(vv.contiguous().numpy()),
+                              jnp.asarray(lengths.numpy()), block_kv=16),
+           "float32")
+    mean_v = vv[0].mean(1).repeat_interleave(2, dim=0)
+    torch.testing.assert_close(ref.decode_attention_ref(
+        q[:, 0], kv, vv, lengths)[0], mean_v)
+
+
+def test_cpu_tensors_never_reach_the_attention_kernels():
+    """On CPU tensors the plain versions run and no launch is counted; the
+    kernel wrappers and backend "cuda" refuse them before any build, and a
+    window below 1 is refused on both routes."""
+    q, k = torch.zeros(1, 2, 8, 32), torch.zeros(1, 1, 8, 32)
+    lengths = torch.ones(1, dtype=torch.int32)
+    before = dict(ops.LAUNCHES)
+    ops.flash_attention(q, k, k)
+    ops.decode_attention(q[:, :, 0], k, k, lengths)
+    assert ops.LAUNCHES == before
+    with pytest.raises(ValueError, match="CUDA"):
+        tflash.flash_attention(q, k, k)
+    with pytest.raises(ValueError, match="CUDA"):
+        tdecode.decode_attention(q[:, :, 0], k, k, lengths)
+    with pytest.raises(ValueError):
+        ops.flash_attention(q, k, k, backend="cuda")
+    with pytest.raises(ValueError):
+        ops.decode_attention(q[:, :, 0], k, k, lengths, backend="cuda")
+    for bad in (0, -3):
+        with pytest.raises(ValueError, match="window"):
+            ops.flash_attention(q, k, k, window=bad)
+        with pytest.raises(ValueError, match="window"):
+            ops.decode_attention(q[:, :, 0], k, k, lengths, window=bad)
+    assert ops.LAUNCHES == before
