@@ -25,6 +25,10 @@
    their single-step kernels (the delta one after T thresholds in
    PyTorch), with PWL off and on; they are timed beside those T launches
    and, for the float scan, one cuDNN LSTM call on the dense weights.
+   At B=64 (full width) every row-balanced kernel and both scans run once
+   more: bitwise equal to their four 16-row tiles (the kernels tile the
+   batch inside one launch; the scans take one launch a tile) and within
+   tolerance of the plain versions.
 3. Serve: full-width ``lstm_ptb`` (random weights from seed 0) pruned and
    packed by ``lstm_policy(0.75, 0.5)`` through ``ServeEngine``, greedy
    ``generate`` with B=8, prompt 32, gen 64, the launch counts set to 0
@@ -35,7 +39,8 @@
    chained. Each mode's teacher-forced logits and greedy tokens are held
    against the same run on the plain versions (``backend="ref"``), fused
    against chained tokens, and Θ=0 delta tokens against the packed float
-   ones.
+   ones. Then packed float fused at B=32 (two batch tiles a launch), whose
+   first 8 rows repeat the B=8 prompts and must give the B=8 tokens.
 4. Speculative serve: the same packed lstm_ptb target, greedy, B=8,
    prompt 32, gen 64, ``spec_k`` 4, with three drafts (the target's own
    packed params; ``lstm_imdb`` at its published width rebound to the
@@ -53,16 +58,18 @@
    at ratio 0.75: mask and byte accounting on the card equal to the CPU's,
    matvec and a mixed-format dual_matvec within tolerance.
 6. Attention kernels (run right after phase 2): ``decode_attention``
-   (B14) and ``flash_attention`` (B15) against their plain versions at
-   three shapes each, float32 and bf16: the qwen3-0.6b serve shape, an
-   odd one (D=64, MQA, a window, ragged lengths with 0, 1 and S) and a
-   long one (B14 at S=32768, B15 at Sk=4096 with Sq < Sk); timed at the
-   serve shape beside their plain versions and
+   (B14) and ``flash_attention`` (B15, bf16 on the tensor cores, float32
+   on the SIMT body) against their plain versions at four shapes each,
+   float32 and bf16: the qwen3-0.6b serve shape, an odd one (D=64, MQA, a
+   window, ragged lengths with 0, 1 and S), a long one (B14 at S=32768,
+   B15 at Sk=4096 with Sq < Sk) and head_dim 192 (nemotron-4-340b's);
+   timed at the serve shape beside their plain versions and
    ``scaled_dot_product_attention``.
 7. Transformer serve: full-width ``qwen3-0.6b`` in bf16 (seed-0 weights)
    through ``ServeEngine``, greedy, B=8, prompt 512, gen 64, with the
    launch counts read around one generate (28 B15 launches for the
-   prefill, 28 B14 launches a decode step); teacher-forced logits and
+   prefill, every one on the tensor-core body, 28 B14 launches a decode
+   step); teacher-forced logits and
    greedy tokens held against the plain path; the ``--brds`` path
    (``transformer_policy(0.75, 0.5)``); and a packed ``lstm_ptb`` draft
    speculating k=4, its tokens equal to target-only.
@@ -210,13 +217,15 @@ def ptxas_serve_tier(out: str) -> list[str]:
     return rows
 
 
-def ptxas_attention(out: str) -> list[str]:
+def ptxas_attention(out: str, flash_smem: int) -> list[str]:
     """Registers and spill bytes of the attention instantiations the
     qwen3-0.6b serve path launches (bf16, head_dim 128; decode with two q
-    heads a block)."""
+    heads a block; flash on the tensor cores with two consumer
+    warpgroups), and the flash block's dynamic shared memory."""
     import re
-    want = {"decode_attention_kernelI13__nv_bfloat16Li128ELi2E": "decode",
-            "flash_attention_kernelI13__nv_bfloat16Li128E": "flash"}
+    want = {"decode_attention_kernelI13__nv_bfloat16Li128ELi2E":
+            "decode<bf16,128>",
+            "flash_tc_kernelILi128ELi2E": "flash_tc<bf16,128,2 heads>"}
     rows, name, spill = [], None, 0
     for ln in out.splitlines():
         if "Compiling entry function" in ln:
@@ -227,8 +236,10 @@ def ptxas_attention(out: str) -> list[str]:
             spill = int(m.group(1))
         m = re.search(r"Used (\d+) registers", ln)
         if m and name:
-            rows.append(f"{name}<bf16,128>: {m.group(1)} registers, {spill} "
-                        "B spill")
+            smem = (f", {flash_smem} B dynamic shared memory"
+                    if name.startswith("flash") else "")
+            rows.append(f"{name}: {m.group(1)} registers, {spill} B spill"
+                        + smem)
             name = None
     return rows
 
@@ -344,6 +355,7 @@ def check_kernels(torch, device, flush):
         check_single(torch, ops, err, tag, cs)
         check_delta_q8(torch, ops, err, tag, cs)
         check_scans(torch, ops, err, tag, cs)
+    check_batch_tiles(torch, ops, err)
 
     # times at the serve path's shapes
     sx, sh, x, h, c, b, H = (full[k] for k in
@@ -581,6 +593,122 @@ def check_delta_q8(torch, ops, err, tag, cs):
                 log(f"  fused dq8 {spec:5} fired {share} pwl={pwl!s:5} "
                     f"max|c,h err| {e:.3e} (tol {CELL_TOL:.0e}), m' exactly "
                     "equal; bitwise equal to chained kernels")
+
+
+def check_batch_tiles(torch, ops, err):
+    """B=64 at full width: every row-balanced kernel and both scans once
+    on the whole batch and once on each 16-row tile, the tiles' outputs
+    concatenated bitwise equal to the whole's, and the whole within
+    tolerance of the plain version (the q8 sums exactly). Activation
+    codes use static scales, which do not depend on the batch."""
+    from repro_torch.kernels import rb_spmv_q8 as kq8
+    B, T = 64, 16
+    cs = make_case(torch, torch.device("cuda"), B=B, X=1500, H=1500,
+                   spar_x=0.75, spar_h=0.5, seed=5)
+    sx, sh, b, H = cs["sx"], cs["sh"], cs["bias"], cs["H"]
+    fx, fh = cs["fired"][0.5]
+    qsx, qsh = cs["q8"]["int8"]
+    qx, sax, qh, sah = q8_acts(cs, "int8")
+    z = ops.rb_dual_spmv(sx, cs["x"], sh, cs["h"], b, backend="ref")
+    rows = {"x": cs["x"], "h": cs["h"], "c": cs["c"], "dx": cs["dx"],
+            "dh": cs["dh"], "fx": fx, "fh": fh, "m": cs["m"], "qx": qx,
+            "qh": qh, "z": z, "x_ref": cs["x_ref"], "h_ref": cs["h_ref"]}
+    q8 = dict(act_scale_x=sax, act_scale_h=sah)
+    dq8 = dict(act_scale_x=2 * sax, act_scale_h=2 * sah)
+    # name: (run on batch rows r (a dict of the row-sliced tensors, xs at
+    # dim 1), the batch dim of each output, each output's tolerance
+    # against the plain version, as phase 2 holds them)
+    cases = {
+        "rb_dual_spmv": (lambda r, be: (ops.rb_dual_spmv(
+            sx, r["x"], sh, r["h"], b, backend=be),), (0,), Z_TOL),
+        "lstm_gates": (lambda r, be: ops.lstm_gates(
+            *(r["z"][:, i * H:(i + 1) * H] for i in range(4)), r["c"],
+            backend=be), (0, 0), CELL_TOL),
+        "fused_brds_lstm_step": (lambda r, be: ops.fused_brds_lstm_step(
+            sx, r["x"], sh, r["h"], b, r["c"], backend=be), (0, 0),
+            CELL_TOL),
+        "delta_rb_dual_spmv": (lambda r, be: (ops.delta_rb_dual_spmv(
+            sx, r["dx"], r["fx"], sh, r["dh"], r["fh"], r["m"],
+            backend=be),), (0,), Z_TOL),
+        "fused_brds_delta_lstm_step": (
+            lambda r, be: ops.fused_brds_delta_lstm_step(
+                sx, r["dx"], r["fx"], sh, r["dh"], r["fh"], r["m"], b,
+                r["c"], backend=be), (0, 0, 0), (CELL_TOL, CELL_TOL, Z_TOL)),
+        "rb_dual_parts_q8": (
+            lambda r, be: kq8.rb_dual_parts_q8(
+                qsx.values, qsx.deltas, qsx.scales * sax, r["qx"],
+                qsh.values, qsh.deltas, qsh.scales * sah, r["qh"], qsx.rows)
+            if be == "cuda" else (ref_q8(qsx, r["qx"], sax),
+                                  ref_q8(qsh, r["qh"], sah)), (0, 0), 0.0),
+        "fused_brds_lstm_step_q8": (lambda r, be: ops.fused_brds_lstm_step_q8(
+            qsx, r["x"], qsh, r["h"], b, r["c"], backend=be, **q8), (0, 0),
+            CELL_TOL),
+        "fused_brds_delta_lstm_step_q8": (
+            lambda r, be: ops.fused_brds_delta_lstm_step_q8(
+                qsx, r["dx"], r["fx"], qsh, r["dh"], r["fh"], r["m"], b,
+                r["c"], backend=be, **dq8), (0, 0, 0), (CELL_TOL, CELL_TOL,
+                                                         0.0)),
+        "rb_spmv": (lambda r, be: (ops.rb_spmv(sx, r["x"], backend=be),),
+                    (0,), Z_TOL),
+        "rb_spmv_q8": (lambda r, be: (ops.rb_spmv_q8(
+            qsx, r["x"], act_scale=sax, backend=be),), (0,), 0.0),
+        "delta_rb_spmv": (lambda r, be: (ops.delta_rb_spmv(
+            sx, r["dx"], r["fx"], backend=be),), (0,), Z_TOL),
+        "fused_brds_lstm_scan": (lambda r, be: ops.fused_brds_lstm_scan(
+            sx, r["xs"], sh, r["h"], b, r["c"], backend=be), (1, 0),
+            CELL_TOL),
+        "fused_brds_delta_lstm_scan": (
+            lambda r, be: ops.fused_brds_delta_lstm_scan(
+                sx, r["xs"], sh, r["h"], r["c"], r["x_ref"], r["h_ref"],
+                r["m"], b, theta_x=0.0, theta_h=0.0, backend=be),
+            (1, 0, 0, 0, 0), Z_TOL),
+    }
+
+    def rows_of(sl):
+        r = {k: v[sl] for k, v in rows.items()}
+        r["xs"] = cs["xs"][:, sl].contiguous()
+        return r
+
+    log(f"[kernels] B={B}: X={cs['X']} H={H}, the whole batch against its "
+        f"{B // T} tiles of {T} rows")
+    for name, (run, dims, tol) in cases.items():
+        tols = tol if isinstance(tol, tuple) else (tol,) * len(dims)
+        whole = run(rows_of(slice(None)), "cuda")
+        tiles = [run(rows_of(slice(t, t + T)), "cuda")
+                 for t in range(0, B, T)]
+        plain = run(rows_of(slice(None)), "ref")
+        torch.cuda.synchronize()
+        errs = []
+        for i, (d, tl) in enumerate(zip(dims, tols)):
+            cat = torch.cat([part[i] for part in tiles], d)
+            if not torch.equal(cat, whole[i]):
+                raise AssertionError(f"{name} at B={B}: output {i} is not "
+                                     f"bitwise its {B // T} tiles of {T}")
+            errs.append(err(name, whole[i], plain[i], tl,
+                            f"B={B} output {i}"))
+        log(f"  {name:29} B={B}: bitwise equal to its {T}-row tiles; "
+            f"max|err| vs plain {max(errs):.3e} (tol "
+            f"{', '.join(f'{t:.0e}' for t in tols)})")
+    # at Θ = 0.05 a delta within float noise of Θ fires on one side and
+    # not the other, so the plain version is no reference over 64 x 1500
+    # x 32 decisions; the scan must equal T x (thresholds → fused delta
+    # step), bitwise, as phase 2 holds it at B <= 12
+    got = ops.fused_brds_delta_lstm_scan(
+        sx, cs["xs"], sh, cs["h"], cs["c"], cs["x_ref"], cs["h_ref"],
+        cs["m"], b, theta_x=0.05, theta_h=0.05, backend="cuda")
+    want = delta_steps(torch, ops, cs, 0.05)
+    torch.cuda.synchronize()
+    if not all(torch.equal(g, w) for g, w in zip(got, want)):
+        raise AssertionError(f"delta scan at B={B}, Θ=0.05, is not bitwise "
+                             f"{cs['xs'].shape[0]} x (thresholds → fused "
+                             "delta step)")
+    log(f"  fused_brds_delta_lstm_scan    B={B} Θ=0.05: bitwise equal to "
+        f"{cs['xs'].shape[0]} x (thresholds → fused delta step)")
+
+
+def ref_q8(s, q, scale):
+    from repro_torch.kernels import ref
+    return ref.rb_spmv_q8_ref(s, q, scale)
 
 
 def delta_steps(torch, ops, cs, theta, pwl=False):
@@ -1029,6 +1157,24 @@ def serve(torch, device):
     same_tokens(torch, "float fused vs chained", out, out_c)
     float_first = check_plain(torch, "float", eng, packed, tokens, out)
     float_out = out
+    # B=32: the step kernel runs two 16-row tiles a launch; rows 0-7 take
+    # the B=8 prompts, so their tokens are the B=8 tokens (up to the first
+    # small top-2 margin: the head's dense matmul may sum in another order
+    # at another batch)
+    wide = torch.cat([tokens, torch.randint(
+        0, cfg.vocab_size, (32 - B, P),
+        generator=torch.Generator().manual_seed(5)).to(device)])
+    for k in ops.LAUNCHES:
+        ops.LAUNCHES[k] = 0
+    out32 = eng.generate(packed, wide, G)
+    torch.cuda.synchronize()
+    got = {k: n for k, n in ops.LAUNCHES.items() if n}
+    log(f"[serve] float fused B=32: launches {got}")
+    if got != {"fused_brds_lstm_step": want} or out32.shape != (32, G):
+        raise AssertionError(f"B=32 serve launched {got}, tokens "
+                             f"{tuple(out32.shape)}")
+    same_tokens(torch, "float fused B=32, rows 0-7, vs B=8", out32[:B],
+                float_out, upto=float_first)
 
     # temporal delta at Θ = 0: fused and chained; then Θ = 0.05
     eng, packed = prepared("delta0", delta=DeltaGateConfig())
@@ -1321,11 +1467,12 @@ def attn_case(torch, device, dtype, *, B, Hq, Hkv, Sq, Sk, D, seed):
 
 
 def check_attention(torch, device, flush):
-    """Phase 2b: B14 and B15 against their plain versions at three shapes
+    """Phase 2b: B14 and B15 against their plain versions at four shapes
     each, float32 (ATTN_TOL) and bf16 (one ulp, BF16_ULP relative): the
     qwen3-0.6b serve shape; an odd one (D=64, MQA, a window, ragged
     lengths with 0, 1 and S); a long one (B14 at S=32768, B15 at Sk=4096
-    with Sq < Sk). Then each kernel timed at the serve shape in bf16 with
+    with Sq < Sk); head_dim 192 (ragged, B15 with Sq < Sk). Then each
+    kernel timed at the serve shape in bf16 with
     L2 flushed, beside its plain version, its bound and
     ``scaled_dot_product_attention`` (``enable_gqa=True``, a yardstick the
     port never calls). Returns the two kernels' records."""
@@ -1356,7 +1503,9 @@ def check_attention(torch, device, flush):
            ("odd", dict(B=5, Hq=8, Hkv=1, S=700, D=64), 100,
             [0, 1, 700, 333, 64]),
            ("long", dict(B=2, Hq=16, Hkv=8, S=32768, D=128), None,
-            [32768, 20001])]
+            [32768, 20001]),
+           ("d192", dict(B=3, Hq=8, Hkv=2, S=600, D=192), None,
+            [0, 1, 600])]
     for dtype in (torch.float32, torch.bfloat16):
         for tag, sh, win, lens in dec:
             q, k, v = attn_case(torch, device, dtype, B=sh["B"], Hq=sh["Hq"],
@@ -1371,7 +1520,8 @@ def check_attention(torch, device, flush):
                  tag == "serve")
     fla = [("serve", dict(B=B, Hq=16, Hkv=8, Sq=P, Sk=P, D=128), None),
            ("odd", dict(B=3, Hq=8, Hkv=1, Sq=300, Sk=300, D=64), 100),
-           ("long", dict(B=1, Hq=16, Hkv=8, Sq=1024, Sk=4096, D=128), None)]
+           ("long", dict(B=1, Hq=16, Hkv=8, Sq=1024, Sk=4096, D=128), None),
+           ("d192", dict(B=2, Hq=8, Hkv=4, Sq=200, Sk=333, D=192), None)]
     for dtype in (torch.float32, torch.bfloat16):
         for tag, sh, win in fla:
             q, k, v = attn_case(torch, device, dtype, **sh, seed=sh["Sk"])
@@ -1389,9 +1539,10 @@ def check_attention(torch, device, flush):
     n = torch.full((B,), L, dtype=torch.int32, device=device)
     mask = (torch.arange(S, device=device) < L)[None, None, None, :]
     live = B * 8 * L * 128 * 2              # K and V rows up to the length
-    # operations of both kernels: bf16 tensor-core products, Q·K^T once
-    # and P·V twice (p split into two bf16 terms keeps float32 accuracy),
-    # so 2 + 2 * 2 flops per live (q, k) pair and head dim
+    # operations, at the bf16 tensor-core rate: B14 counts Q·K^T once and
+    # P·V twice, 2 + 2 * 2 flops per live (q, k) pair and head dim; B15
+    # does Q·K^T once and P·V three times (p split exactly into three bf16
+    # terms), 2 + 3 * 2
     dec_run = (
         lambda: ops.decode_attention(q, k, v, n, backend="cuda"),
         lambda: ops.decode_attention(q, k, v, n, backend="ref"),
@@ -1407,7 +1558,7 @@ def check_attention(torch, device, flush):
         lambda: ops.flash_attention(qf, kf, vf, backend="ref"),
         lambda: F.scaled_dot_product_attention(qf, kf, vf, is_causal=True,
                                                enable_gqa=True),
-        bound(nbytes(qf, kf, vf, qf), 0, bf16_flops=6 * 128 * pairs))
+        bound(nbytes(qf, kf, vf, qf), 0, bf16_flops=8 * 128 * pairs))
     diff = (dec_run[2]()[:, :, 0].float() - dec_run[1]().float()).abs()
     log(f"  scaled_dot_product_attention (B14's yardstick) vs plain: "
         f"max|diff| {diff.max().item():.3e}")
@@ -1454,6 +1605,7 @@ def transformer_serve(torch, device):
     kernels' launch counts from the dense run."""
     import dataclasses
     from repro_torch.configs import get_arch
+    from repro_torch.kernels import flash_attention as kfa
     from repro_torch.kernels import ops
     from repro_torch.models import LSTMModel, LSTM_CONFIGS, build_model
     from repro_torch.serving import ServeEngine
@@ -1485,10 +1637,12 @@ def transformer_serve(torch, device):
     def counted(tag, run):
         for k in ops.LAUNCHES:
             ops.LAUNCHES[k] = 0
+        for k in kfa.BODIES:
+            kfa.BODIES[k] = 0
         out = run()
         torch.cuda.synchronize()
         got = {k: n for k, n in ops.LAUNCHES.items() if n}
-        log(f"[tserve] {tag}: launches {got}")
+        log(f"[tserve] {tag}: launches {got}, B15 by body {kfa.BODIES}")
         return out, got
 
     out, got = counted("dense greedy", lambda: eng.generate(params, tokens,
@@ -1496,6 +1650,9 @@ def transformer_serve(torch, device):
     if got != want:
         raise AssertionError(f"dense serve launched {got}, expected {want}: "
                              "28 B15 per prefill, 28 B14 per decode step")
+    if kfa.BODIES != {"tensor_cores": cfg.num_layers, "simt": 0}:
+        raise AssertionError(f"the bf16 prefill ran B15 as {kfa.BODIES}: "
+                             "every launch must take the tensor cores")
     if out.shape != (B, G) or not bool(((out >= 0)
                                         & (out < cfg.vocab_size)).all()):
         raise AssertionError(f"bad tokens: shape {tuple(out.shape)}")
@@ -1618,8 +1775,9 @@ def main() -> int:
         f"{time.perf_counter() - t0:.1f}s (into {_build.BUILD})")
     for name, out in _build.BUILD_LOG.items():
         n = sum("Compiling entry function" in ln for ln in out.splitlines())
-        tier = (ptxas_attention(out) if name == "attention"
-                else ptxas_serve_tier(out))
+        tier = (ptxas_attention(out, _build.load(
+            "attention").brds_flash_attention_bf16_smem(128, 2))
+                if name == "attention" else ptxas_serve_tier(out))
         log(f"  {name}: {n} kernels; the B=8 serve tier: " + "; ".join(tier))
 
     flush = torch.empty(256 << 20, dtype=torch.uint8, device=device)

@@ -1,14 +1,16 @@
-// Attention for the dense-transformer serving path, fp32 math on fp32 or
-// bf16 operands (the Pallas bodies cast to float32 before both products;
-// so do these, and p stays float32 through P.V):
+// Attention for the dense-transformer serving path (the Pallas bodies cast
+// to float32 before both products; so do these, and p keeps float32
+// accuracy through P.V):
 //  - decode_attention (B14): one query per sequence against its KV cache,
 //    the G = Hq / Hkv q heads of a kv group sharing one K/V stream.
 //    Replaces src/repro/kernels/decode_attention.py::decode_attention.
 //  - flash_attention (B15): blocked causal / windowed GQA attention
 //    forward, q rows right-aligned to the kv end. Replaces
-//    src/repro/kernels/flash_attention.py::flash_attention.
+//    src/repro/kernels/flash_attention.py::flash_attention. bf16 operands
+//    run on the tensor cores (flash_tc_kernel); float32 operands keep a
+//    SIMT body (flash_attention_kernel).
 //
-// Both read q, k, v (and B15 writes o) through strides with a unit last
+// All read q, k, v (and B15 writes o) through strides with a unit last
 // dim, so the model's (B, S, H, D) cache and projections are read in place:
 // no head-major copy, and no GQA expansion of the cache. Masked scores
 // weigh exactly 0 (p = s > NEG/2 ? exp(s - m) : 0, so a fully dead tile
@@ -27,22 +29,68 @@
 // wrapper picks nsplit so the pairs fill the SMs (64 pairs at B=8 on
 // qwen3-0.6b would leave half of 132 SMs idle). Deterministic: no atomics.
 //
-// flash_attention. Bound: bytes at the bf16 serve shape (q, k, v read
-// once and o written once), just above the tensor cores' time for the
-// causal half of Q.K^T and a split-p P.V (6 B Hq Sq Sk D / 2 flops at the
-// bf16 rate). This SIMT kernel is held back by its float32 FMAs, which
-// alone take about 8x that bound. A block owns one
-// (b, q head, 64-row q tile); q heads of a group read kv head h / G. It
-// walks the 64-key tiles that the causal / window masks leave live (the
-// Pallas kernel's block skip) and masks the ragged edges itself, with no
-// padding to tile multiples. Q, the K and V tiles and P^T sit in shared
-// memory as float32; each of 256 threads owns a 4 x 4 block of S (rows
-// 4ty.., keys tx + 16j) and 4 rows x D/16 columns of the output. SIMT
-// fp32 FMA throughout: a tensor-core P.V would round p to bf16 (about
-// 2^-8 relative) unless p were split into two bf16 terms.
+// flash_attention, bf16 (flash_tc_kernel). Bound at the qwen3-0.6b serve
+// shape (B=8, 16 q / 8 kv heads of 128, causal S=512): q, k and v read
+// once and o written once are 50.3 MB, 15.02 us at 3.35 TB/s; the tensor
+// cores' work, Q.K^T once and P.V three times over the causal half (17.2
+// GFLOP), takes 17.4 us at 989 TFLOP/s, so the operations bind. The SIMT
+// body it replaces in bf16 (0.514 ms, 3% of the byte bound) was held back
+// by four things; what this design does about each:
+//  1. float32 FMAs on the SIMT units: both products are wgmma (bf16 in,
+//     float32 accumulators). S = Q K^T reads Q and K from shared memory,
+//     K-major (D is contiguous); scale multiplies the float32 accumulator.
+//     P.V reads P from registers (the S accumulator's fragments are the A
+//     operand's, so no shared-memory round trip) and V from shared
+//     memory, MN-major. p is split exactly into three bf16 terms (each
+//     the top 8 significant bits of what is left, split3), each its own
+//     wgmma into one float32 O, so P.V sees p's float32 value. Two rounded
+//     terms leave 2^-16 of p, which puts outputs near zero (after
+//     cancellation) past the one-bf16-ulp gate (tests/test_torch_attention
+//     .py emulates both).
+//  2. operands widened to float32 in shared memory (117.8 KB at D=128):
+//     Q, K and V stay bf16 in the 128-byte-swizzled layout wgmma reads
+//     (wgmma.cuh), 32 + 96 KB at D=128 with three stages.
+//  3. each K/V tile loaded once per q head: a block owns (b, kv head, 64
+//     positions) and WG consumer warpgroups, one per q head of the group
+//     (WG = 2 when G is even, else 1), so a K/V tile is read once per two
+//     q heads at G = 2.
+//  4. synchronous loads between two __syncthreads: a producer warpgroup
+//     fills a ring of NS stages (K and V tiles of BK keys) with 16-byte
+//     cp.async copies that arrive on an mbarrier when they land; consumers
+//     release a stage on a second mbarrier once their P.V has read it, so
+//     loads run up to NS tiles ahead of the tensor cores.
+// The two consumer warpgroups take turns at the tensor cores (named
+// barriers), so one's softmax and split run while the other's products
+// do. A warpgroup issues P.V of the previous tile, waits, then S of the
+// next: with both in flight at once (O, S and the three p terms, 144
+// registers a thread) ptxas serializes every wgmma at the 168 registers a
+// thread that three warps per SM sub-partition leave.
+// Key tiles: BK = 64, or 32 at D = 256, where O alone takes 128 registers
+// a thread; NS = 3 stages fit shared memory at every D (192 KB at D =
+// 192). At D = 192 and 256 with two consumer warpgroups ptxas still
+// serializes the products (O is 96 or 128 registers): right, slower, and
+// on no serve path yet. D = 32 is padded to one 64-column atom of zeros. Only the
+// diagonal, window-edge and ragged tiles are masked; tiles the masks leave
+// dead are never loaded (the Pallas kernel's block skip). Blocks run
+// heaviest first: the q tiles with the most live keys take the lowest
+// block indices, so the causal tail does not leave SMs idle. Ragged Sq
+// and Sk need no padding (copies past the end zero-fill). No atomics:
+// deterministic.
+//
+// flash_attention, float32 (flash_attention_kernel). Held to 1e-5 of the
+// plain version, which neither TF32 (10 mantissa bits) nor a bf16 split of
+// float32 Q, K and V can meet, so float32 stays on the SIMT units: a block
+// owns one (b, q head, 64-row q tile), Q, the K and V tiles and P^T sit in
+// shared memory as float32, each of 256 threads owns a 4 x 4 block of S and
+// 4 rows x D/16 columns of the output. No serve path on the card runs
+// attention in float32 at full width.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
+
+#include "wgmma.cuh"
 
 namespace {
 
@@ -63,34 +111,39 @@ __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
   return __float2bfloat16_rn(x);
 }
 
-// N consecutive elements at p (aligned to their size, or to 16 bytes when
-// larger) into float registers, in loads of up to 16 bytes.
+// N consecutive elements at p into float registers, in the widest loads
+// (16, 8, 4 bytes or one element) that divide the N elements' bytes: a
+// lane's row of E = D/32 elements starts at a multiple of its own size
+// (24 bytes for float32 at D=192, 12 for bf16), and the rows at 16 bytes.
 template <typename T, int N>
 __device__ __forceinline__ void load_row(const T* __restrict__ p,
                                          float (&out)[N]) {
   constexpr int kBytes = N * (int)sizeof(T);
-  if constexpr (kBytes >= 16) {
-    constexpr int kPer = 16 / (int)sizeof(T);
+  constexpr int kW = kBytes % 16 == 0 ? 16
+                     : kBytes % 8 == 0 ? 8
+                     : kBytes % 4 == 0 ? 4
+                                       : (int)sizeof(T);
+  constexpr int kPer = kW / (int)sizeof(T);
 #pragma unroll
-    for (int i = 0; i < kBytes / 16; ++i) {
+  for (int i = 0; i < kBytes / kW; ++i) {
+    if constexpr (kW == 16) {
       const uint4 u = __ldg(reinterpret_cast<const uint4*>(p) + i);
       const T* e = reinterpret_cast<const T*>(&u);
 #pragma unroll
       for (int j = 0; j < kPer; ++j) out[i * kPer + j] = to_f(e[j]);
+    } else if constexpr (kW == 8) {
+      const uint2 u = __ldg(reinterpret_cast<const uint2*>(p) + i);
+      const T* e = reinterpret_cast<const T*>(&u);
+#pragma unroll
+      for (int j = 0; j < kPer; ++j) out[i * kPer + j] = to_f(e[j]);
+    } else if constexpr (kW == 4) {
+      const unsigned u = __ldg(reinterpret_cast<const unsigned*>(p) + i);
+      const T* e = reinterpret_cast<const T*>(&u);
+#pragma unroll
+      for (int j = 0; j < kPer; ++j) out[i * kPer + j] = to_f(e[j]);
+    } else {
+      out[i] = to_f(__ldg(p + i));
     }
-  } else if constexpr (kBytes == 8) {
-    const uint2 u = __ldg(reinterpret_cast<const uint2*>(p));
-    const T* e = reinterpret_cast<const T*>(&u);
-#pragma unroll
-    for (int j = 0; j < N; ++j) out[j] = to_f(e[j]);
-  } else if constexpr (kBytes == 4) {
-    const unsigned u = __ldg(reinterpret_cast<const unsigned*>(p));
-    const T* e = reinterpret_cast<const T*>(&u);
-#pragma unroll
-    for (int j = 0; j < N; ++j) out[j] = to_f(e[j]);
-  } else {
-#pragma unroll
-    for (int j = 0; j < N; ++j) out[j] = to_f(p[j]);
   }
 }
 
@@ -288,7 +341,8 @@ int launch_decode(const void* q, long long sqb, long long sqh, const void* k,
 }
 
 // GM: q heads a block carries, the least power of two >= G up to the
-// register budget (GM * D <= 1024); larger groups take several blocks.
+// register budget: the largest power of two, at most 8, with GM * D <=
+// 1024 (4 at D = 192); larger groups take several blocks.
 template <typename T, int D>
 int dispatch_decode_g(int G, const void* q, long long sqb, long long sqh,
                       const void* k, long long skb, long long skh,
@@ -297,7 +351,10 @@ int dispatch_decode_g(int G, const void* q, long long sqb, long long sqh,
                       void* out, void* ws, int B, int Hq, int Hkv, int S,
                       int window, float scale, int nsplit,
                       cudaStream_t stream) {
-  constexpr int kMaxG = 1024 / D < 8 ? 1024 / D : 8;
+  constexpr int kMaxG = 1024 / D >= 8   ? 8
+                        : 1024 / D >= 4 ? 4
+                        : 1024 / D >= 2 ? 2
+                                        : 1;
   const int gm = G <= 1 ? 1 : G <= 2 ? 2 : G <= 4 ? 4 : 8;
 #define BRDS_DECODE(GMV)                                                     \
   return launch_decode<T, D, GMV>(q, sqb, sqh, k, skb, skh, sks, v, svb,    \
@@ -326,6 +383,7 @@ int dispatch_decode(int D, int G, const void* q, long long sqb,
   BRDS_DECODE_D(32);
   BRDS_DECODE_D(64);
   BRDS_DECODE_D(128);
+  BRDS_DECODE_D(192);
   BRDS_DECODE_D(256);
 #undef BRDS_DECODE_D
   return cudaErrorInvalidValue;
@@ -531,7 +589,6 @@ int launch_flash(const void* q, long long sqb, long long sqh, long long sqs,
   return cudaGetLastError();
 }
 
-template <typename T>
 int dispatch_flash(int D, const void* q, long long sqb, long long sqh,
                    long long sqs, const void* k, long long skb,
                    long long skh, long long sks, const void* v,
@@ -541,14 +598,401 @@ int dispatch_flash(int D, const void* q, long long sqb, long long sqh,
                    float scale, cudaStream_t stream) {
 #define BRDS_FLASH_D(DV)                                                    \
   if (D == DV)                                                              \
-  return launch_flash<T, DV>(q, sqb, sqh, sqs, k, skb, skh, sks, v, svb,   \
-                             svh, svs, o, sob, soh, sos, B, Hq, Hkv, Sq, Sk, \
-                             causal, window, scale, stream)
+  return launch_flash<float, DV>(q, sqb, sqh, sqs, k, skb, skh, sks, v,    \
+                                 svb, svh, svs, o, sob, soh, sos, B, Hq, Hkv, \
+                                 Sq, Sk, causal, window, scale, stream)
   BRDS_FLASH_D(32);
   BRDS_FLASH_D(64);
   BRDS_FLASH_D(128);
+  BRDS_FLASH_D(192);
   BRDS_FLASH_D(256);
 #undef BRDS_FLASH_D
+  return cudaErrorInvalidValue;
+}
+
+
+// ------------------------------------------- flash attention, tensor cores
+
+using bf16 = __nv_bfloat16;
+
+// Tile shapes of flash_tc_kernel for head dim D (see the note at the top)
+template <int D>
+struct TC {
+  static constexpr int DP = D < 64 ? 64 : D;   // columns in shared memory
+  static constexpr int BK = D > 192 ? 32 : 64;  // keys per tile
+  static constexpr int NS = 3;                  // ring stages
+  static constexpr int kQ = 64 * DP * 2;        // one q head's Q tile, bytes
+  static constexpr int kKV = BK * DP * 2;       // one K or V tile, bytes
+  static_assert(D % 8 == 0 && DP % 64 == 0, "16-byte chunks, 64-col atoms");
+};
+
+// dynamic shared memory of a block with WG consumer warpgroups: Q tiles,
+// NS K and V stages, the mbarriers, and slack to align the base to 1024
+template <int D, int WG>
+constexpr int tc_smem() {
+  using C = TC<D>;
+  return 1024 + WG * C::kQ + 2 * C::NS * C::kKV + (2 * C::NS + 1) * 8;
+}
+
+// p >= 0 as three bf16 terms that sum to it exactly: each term keeps the
+// top 8 significant bits of what is left (truncation), so p - p1 has at
+// most 16 significant bits, and p - p1 - p2 at most 8, a bf16 value.
+// Returns the terms' float32 bit patterns, whose low 16 bits are zero.
+__device__ __forceinline__ void split3(float p, uint32_t (&t)[3]) {
+  const uint32_t b = __float_as_uint(p);
+  t[0] = b & 0xffff0000u;
+  const float r1 = p - __uint_as_float(t[0]);
+  t[1] = __float_as_uint(r1) & 0xffff0000u;
+  t[2] = __float_as_uint(r1 - __uint_as_float(t[1]));
+}
+
+// the bf16 pair (lo, hi) of two such terms: their high halves
+__device__ __forceinline__ uint32_t pack_hi(uint32_t lo, uint32_t hi) {
+  return __byte_perm(lo, hi, 0x7632);
+}
+
+// Named barriers 1 and 2: the two consumer warpgroups take turns issuing
+// their products (warpgroup w waits at 1 + w, then lets the other go), so
+// one's softmax runs while the other's products hold the tensor cores.
+template <int WGI>
+__device__ __forceinline__ void turn_wait() {
+  asm volatile("bar.sync %0, 256;\n" ::"n"(1 + WGI) : "memory");
+}
+template <int WGI>
+__device__ __forceinline__ void turn_pass() {
+  asm volatile("bar.arrive %0, 256;\n" ::"n"(2 - WGI) : "memory");
+}
+
+// Scale, mask and the online softmax of one tile of scores in place: sc
+// becomes p = exp(s - m') (exactly 0 where masked), m and l move on, and
+// alpha is the factor O must take before p V is added. A row's keys live
+// on the 4 lanes of a quad. Masks only where the tile needs them (edge).
+template <int BK>
+__device__ __forceinline__ void softmax_tile(float (&sc)[BK / 2],
+                                             float (&m)[2], float (&l)[2],
+                                             float (&alpha)[2], float scale,
+                                             bool edge, int qpos, int kpos,
+                                             int Sk, int causal, int window) {
+#pragma unroll
+  for (int e = 0; e < BK / 2; ++e) {
+    float x = sc[e] * scale;
+    if (edge) {
+      const int qp = qpos + (e & 2 ? 8 : 0);
+      const int kp = kpos + 8 * (e / 4) + (e & 1);
+      bool live = kp < Sk;
+      if (causal) live = live && kp <= qp;
+      if (window > 0) live = live && kp > qp - window;
+      if (!live) x = kNeg;
+    }
+    sc[e] = x;
+  }
+  float mx[2] = {m[0], m[1]}, ps[2] = {0.f, 0.f};
+#pragma unroll
+  for (int e = 0; e < BK / 2; ++e)
+    mx[(e >> 1) & 1] = fmaxf(mx[(e >> 1) & 1], sc[e]);
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 1));
+    mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 2));
+    alpha[h] = __expf(m[h] - mx[h]);
+  }
+  // __expf: one multiply by log2(e) and the hardware exp2, branch-free;
+  // its 2^-22 relative error is far below the one-ulp gate
+#pragma unroll
+  for (int e = 0; e < BK / 2; ++e) {
+    const int h = (e >> 1) & 1;
+    const float p = __expf(sc[e] - mx[h]);
+    sc[e] = sc[e] > 0.5f * kNeg ? p : 0.f;
+    ps[h] += sc[e];
+  }
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    ps[h] += __shfl_xor_sync(0xffffffffu, ps[h], 1);
+    ps[h] += __shfl_xor_sync(0xffffffffu, ps[h], 2);
+    l[h] = l[h] * alpha[h] + ps[h];
+    m[h] = mx[h];
+  }
+}
+
+// One block: batch b, kv head kvh, q heads kvh * G + hg * WG + w for
+// consumer warpgroup w < WG, and 64 q positions. Warpgroups 0 .. WG - 1
+// are the consumers, warpgroup WG the producer; 168 registers a thread
+// (three warps share each SM sub-partition's register file).
+//
+// A consumer's iteration i takes its turn at the tensor cores, issues
+// O = alpha O + P V of tile i - 1, then S = Q K^T of tile i, passes the
+// turn, releases tile i - 1's stage and runs tile i's softmax and split
+// while the other warpgroup's products run.
+template <int D, int WG>
+__global__ void __launch_bounds__((WG + 1) * 128, 1)
+flash_tc_kernel(const bf16* __restrict__ q, long long sqb, long long sqh,
+                long long sqs, const bf16* __restrict__ k, long long skb,
+                long long skh, long long sks, const bf16* __restrict__ v,
+                long long svb, long long svh, long long svs,
+                bf16* __restrict__ o, long long sob, long long soh,
+                long long sos, int B, int Hq, int Hkv, int Sq, int Sk,
+                int causal, int window, float scale) {
+  using C = TC<D>;
+  constexpr int DP = C::DP, BK = C::BK, NS = C::NS;
+  constexpr int CH = DP / 8;   // 16-byte chunks a row
+  extern __shared__ __align__(1024) uint8_t smem_raw[];
+  uint8_t* sQ = smem_raw +
+                ((1024 - (hopper::smem_addr(smem_raw) & 1023)) & 1023);
+  uint8_t* sK = sQ + WG * C::kQ;
+  uint8_t* sV = sK + NS * C::kKV;
+  uint64_t* full = reinterpret_cast<uint64_t*>(sV + NS * C::kKV);
+  uint64_t* empty = full + NS;
+  uint64_t* qbar = empty + NS;
+
+  // heaviest first: block order runs over q tiles from the last (the most
+  // live keys under a causal mask) down
+  const int G = Hq / Hkv, ngrp = G / WG, nqt = (Sq + 63) / 64;
+  const int per_tile = ngrp * B * Hkv;
+  const int rank = blockIdx.x / per_tile, rest = blockIdx.x % per_tile;
+  const int qt = causal ? nqt - 1 - rank : rank;
+  const int hg = rest % ngrp, kvh = (rest / ngrp) % Hkv,
+            b = rest / ngrp / Hkv;
+  const int q0 = qt * 64, nq = min(64, Sq - q0);
+  const int off = Sk - Sq;                  // q rows right-aligned
+  const int q_lo = off + q0, q_hi = off + q0 + nq - 1;
+  int kt0 = 0, kt1 = (Sk + BK - 1) / BK;    // the live key tiles
+  if (window > 0) kt0 = max(0, q_lo - window + 1) / BK;
+  if (causal) kt1 = q_hi < 0 ? 0 : min(kt1, q_hi / BK + 1);
+  const int n = max(kt1 - kt0, 0);
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < NS; ++s) {
+      hopper::mbar_init(&full[s], 128);        // the producer's threads
+      hopper::mbar_init(&empty[s], WG * 4);    // the consumer warps
+    }
+    hopper::mbar_init(qbar, 128);
+    hopper::mbar_fence_init();
+  }
+  __syncthreads();
+
+  // the warpgroup, warp-uniform (a shuffle) so the compiler sees each role's
+  // branch as uniform
+  const int wgi = __shfl_sync(0xffffffffu, threadIdx.x / 128, 0);
+  if (wgi == WG) {
+    // ---- producer: Q once, then K and V tiles into the ring
+    const int pt = threadIdx.x - WG * 128;
+    const bf16* qb = q + b * sqb + (long long)(kvh * G + hg * WG) * sqh;
+    for (int i = pt; i < WG * 64 * CH; i += 128) {
+      const int w = i / (64 * CH), r = i / CH % 64, c = i % CH;
+      const bool ok = r < nq && c < D / 8;
+      hopper::cp_async16(
+          hopper::smem_addr(sQ + w * C::kQ) + hopper::swizzled(64, r, c),
+          ok ? qb + w * sqh + (q0 + r) * sqs + c * 8 : q, ok);
+    }
+    hopper::cp_async_arrive(qbar);
+    const bf16* kb = k + b * skb + kvh * skh;
+    const bf16* vb = v + b * svb + kvh * svh;
+    for (int i = 0; i < n; ++i) {
+      const int s = i % NS, k0 = (kt0 + i) * BK;
+      if (i >= NS) hopper::mbar_wait(&empty[s], ((i / NS) & 1) ^ 1);
+      const uint32_t ks = hopper::smem_addr(sK + s * C::kKV);
+      const uint32_t vs = hopper::smem_addr(sV + s * C::kKV);
+      for (int j = pt; j < BK * CH; j += 128) {
+        const int r = j / CH, c = j % CH, pos = k0 + r;
+        const bool ok = pos < Sk && c < D / 8;
+        const uint32_t at = hopper::swizzled(BK, r, c);
+        hopper::cp_async16(ks + at, ok ? kb + pos * sks + c * 8 : k, ok);
+        hopper::cp_async16(vs + at, ok ? vb + pos * svs + c * 8 : v, ok);
+      }
+      hopper::cp_async_arrive(&full[s]);
+    }
+    hopper::cp_async_wait_all();
+    return;
+  }
+
+  // ---- consumers: warpgroup wg owns q head kvh * G + hg * WG + wg; one
+  // instantiation per warpgroup, so every branch on wg is resolved at
+  // compile time (a runtime one made ptxas serialize the products)
+  auto consume = [&](auto wgc) {
+    constexpr int wg = decltype(wgc)::value;
+    const int t = threadIdx.x % 128;
+    const int lane = t % 32;
+    const int r0 = 16 * (t / 32) + lane / 4;   // rows r0 and r0 + 8
+    const int cq = 2 * (lane % 4);             // columns cq, cq + 1 of 8
+    float acc[DP / 2];
+#pragma unroll
+    for (int i = 0; i < DP / 2; ++i) acc[i] = 0.f;
+    float m[2] = {kNeg, kNeg}, l[2] = {0.f, 0.f}, alpha[2] = {1.f, 1.f};
+    float sc[BK / 2];
+    uint32_t pa[3][BK / 16][4];   // the previous tile's p, three bf16 terms
+    const uint32_t qa = hopper::smem_addr(sQ + wg * C::kQ);
+
+    auto ready = [&](int i) {   // tile i's stage has landed
+      hopper::mbar_wait(&full[i % NS], (i / NS) & 1);
+      hopper::fence_proxy_async();
+    };
+    auto issue_s = [&](int i) {   // S = Q K^T of tile i
+      const uint32_t ka = hopper::smem_addr(sK + (i % NS) * C::kKV);
+#pragma unroll
+      for (int kk = 0; kk < DP / 16; ++kk)
+        hopper::wgmma_ss(sc, hopper::desc_k(qa, 64, kk),
+                         hopper::desc_k(ka, BK, kk), kk > 0);
+      hopper::wgmma_commit();
+    };
+    auto issue_pv = [&](int i) {   // O += P V of tile i
+      const uint32_t va = hopper::smem_addr(sV + (i % NS) * C::kKV);
+#pragma unroll
+      for (int kk = 0; kk < BK / 16; ++kk)
+#pragma unroll
+        for (int t3 = 0; t3 < 3; ++t3)
+          hopper::wgmma_rs(acc, pa[t3][kk], hopper::desc_mn(va, BK, kk), 1);
+      hopper::wgmma_commit();
+    };
+    auto rescale = [&]() {
+#pragma unroll
+      for (int e = 0; e < DP / 2; ++e) acc[e] *= alpha[(e >> 1) & 1];
+    };
+    auto softmax = [&](int i) {
+      const int k0 = (kt0 + i) * BK;
+      const bool edge = (causal && k0 + BK - 1 > q_lo) ||
+                        (window > 0 && k0 <= q_hi - window) || k0 + BK > Sk;
+      softmax_tile<BK>(sc, m, l, alpha, scale, edge, q_lo + r0, k0 + cq, Sk,
+                       causal, window);
+    };
+    auto release = [&](int i) {   // tile i's stage is read
+      __syncwarp();
+      if (lane == 0) hopper::mbar_arrive(&empty[i % NS]);
+    };
+    auto split = [&]() {
+      // p in three bf16 terms, as the A operand of P V: 16-key slice kk is
+      // the S fragments of 8-column groups 2 kk and 2 kk + 1; f runs over
+      // (r0, 2kk), (r0 + 8, 2kk), (r0, 2kk + 1), (r0 + 8, 2kk + 1)
+#pragma unroll
+      for (int kk = 0; kk < BK / 16; ++kk)
+#pragma unroll
+        for (int f = 0; f < 4; ++f) {
+          const int e = 4 * (2 * kk + (f >> 1)) + 2 * (f & 1);
+          uint32_t x[3], y[3];
+          split3(sc[e], x);
+          split3(sc[e + 1], y);
+#pragma unroll
+          for (int t3 = 0; t3 < 3; ++t3) pa[t3][kk][f] = pack_hi(x[t3], y[t3]);
+        }
+    };
+    // warpgroup 1 skips its last pass so every turn barrier is balanced
+    auto pass = [&](int i) {
+      if (WG == 2 && !(wg == 1 && i == n - 1)) turn_pass<wg>();
+    };
+
+    if (n > 0) {
+      hopper::mbar_wait(qbar, 0);
+      if (WG == 2 && wg == 1) turn_pass<wg>();   // warpgroup 0 goes first
+      ready(0);
+      if (WG == 2) turn_wait<wg>();
+      hopper::wgmma_fence();
+      issue_s(0);
+      pass(0);
+      hopper::wgmma_wait();
+      hopper::fence_regs(sc);
+      softmax(0);
+      split();
+      for (int i = 1; i < n; ++i) {
+        ready(i);
+        if (WG == 2) turn_wait<wg>();
+        // P V of tile i - 1, then S of tile i: the S accumulators are not
+        // live while P V's are in flight (both in flight at once is more
+        // than ptxas keeps in 168 registers, and it serializes every wgmma)
+        rescale();   // by tile i - 1's alpha, before its P V is added
+        hopper::wgmma_fence();
+        issue_pv(i - 1);
+        hopper::wgmma_wait();
+        hopper::fence_regs(acc);
+        hopper::wgmma_fence();
+        issue_s(i);
+        pass(i);
+        hopper::wgmma_wait();
+        hopper::fence_regs(sc);
+        release(i - 1);
+        softmax(i);
+        split();
+      }
+      rescale();
+      hopper::wgmma_fence();
+      issue_pv(n - 1);
+      hopper::wgmma_wait();
+      hopper::fence_regs(acc);
+      release(n - 1);
+    }
+
+    // out = acc / max(l, 1e-30) through o's strides
+    bf16* ob = o + b * sob + (long long)(kvh * G + hg * WG + wg) * soh;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int r = r0 + 8 * h;
+      if (r >= nq) continue;
+      const float inv = 1.f / fmaxf(l[h], 1e-30f);
+      bf16* orow = ob + (q0 + r) * sos;
+#pragma unroll
+      for (int j = 0; j < DP / 8; ++j)
+        if (8 * j < D)
+          *reinterpret_cast<__nv_bfloat162*>(orow + 8 * j + cq) =
+              __floats2bfloat162_rn(acc[4 * j + 2 * h] * inv,
+                                    acc[4 * j + 2 * h + 1] * inv);
+    }
+  };
+  if constexpr (WG == 2) {
+    if (wgi == 0) consume(std::integral_constant<int, 0>{});
+    else consume(std::integral_constant<int, 1>{});
+  } else {
+    consume(std::integral_constant<int, 0>{});
+  }
+}
+
+template <int D, int WG>
+int launch_flash_tc(const void* q, long long sqb, long long sqh,
+                    long long sqs, const void* k, long long skb,
+                    long long skh, long long sks, const void* v,
+                    long long svb, long long svh, long long svs, void* o,
+                    long long sob, long long soh, long long sos, int B,
+                    int Hq, int Hkv, int Sq, int Sk, int causal, int window,
+                    float scale, cudaStream_t stream) {
+  constexpr int smem = tc_smem<D, WG>();
+  auto kern = flash_tc_kernel<D, WG>;
+  const cudaError_t e = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return e;
+  const long long blocks =
+      (long long)((Sq + 63) / 64) * (Hq / Hkv / WG) * B * Hkv;
+  if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
+  kern<<<(unsigned)blocks, (WG + 1) * 128, smem, stream>>>(
+      static_cast<const bf16*>(q), sqb, sqh, sqs, static_cast<const bf16*>(k),
+      skb, skh, sks, static_cast<const bf16*>(v), svb, svh, svs,
+      static_cast<bf16*>(o), sob, soh, sos, B, Hq, Hkv, Sq, Sk, causal,
+      window, scale);
+  return cudaGetLastError();
+}
+
+// two consumer warpgroups (two q heads) a block when the group size is
+// even, else one
+int dispatch_flash_tc(int D, const void* q, long long sqb, long long sqh,
+                      long long sqs, const void* k, long long skb,
+                      long long skh, long long sks, const void* v,
+                      long long svb, long long svh, long long svs, void* o,
+                      long long sob, long long soh, long long sos, int B,
+                      int Hq, int Hkv, int Sq, int Sk, int causal,
+                      int window, float scale, cudaStream_t stream) {
+  const bool pair = (Hq / Hkv) % 2 == 0;
+#define BRDS_FLASH_TC(DV)                                                    \
+  if (D == DV)                                                               \
+    return pair ? launch_flash_tc<DV, 2>(q, sqb, sqh, sqs, k, skb, skh, sks, \
+                                         v, svb, svh, svs, o, sob, soh, sos, \
+                                         B, Hq, Hkv, Sq, Sk, causal, window, \
+                                         scale, stream)                      \
+                : launch_flash_tc<DV, 1>(q, sqb, sqh, sqs, k, skb, skh, sks, \
+                                         v, svb, svh, svs, o, sob, soh, sos, \
+                                         B, Hq, Hkv, Sq, Sk, causal, window, \
+                                         scale, stream)
+  BRDS_FLASH_TC(32);
+  BRDS_FLASH_TC(64);
+  BRDS_FLASH_TC(128);
+  BRDS_FLASH_TC(192);
+  BRDS_FLASH_TC(256);
+#undef BRDS_FLASH_TC
   return cudaErrorInvalidValue;
 }
 
@@ -578,25 +1022,49 @@ extern "C" int brds_decode_attention(
   return cudaErrorInvalidValue;
 }
 
-// causal: 0 / 1. window <= 0: none. scale as for decode.
+// float32 operands (the SIMT body). causal: 0 / 1. window <= 0: none.
+// scale as for decode.
 extern "C" int brds_flash_attention(
     const void* q, long long sqb, long long sqh, long long sqs,
     const void* k, long long skb, long long skh, long long sks,
     const void* v, long long svb, long long svh, long long svs, void* o,
     long long sob, long long soh, long long sos, int B, int Hq, int Hkv,
-    int Sq, int Sk, int D, int causal, int window, float scale, int dtype,
+    int Sq, int Sk, int D, int causal, int window, float scale,
     void* stream) {
   if (B <= 0 || Hkv <= 0 || Hq % Hkv != 0 || Sq <= 0 || Sk <= 0)
     return cudaErrorInvalidValue;
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    return dispatch_flash<float>(D, q, sqb, sqh, sqs, k, skb, skh, sks, v,
-                                 svb, svh, svs, o, sob, soh, sos, B, Hq, Hkv,
-                                 Sq, Sk, causal, window, scale, st);
-  if (dtype == 1)
-    return dispatch_flash<__nv_bfloat16>(D, q, sqb, sqh, sqs, k, skb, skh,
-                                         sks, v, svb, svh, svs, o, sob, soh,
-                                         sos, B, Hq, Hkv, Sq, Sk, causal,
-                                         window, scale, st);
-  return cudaErrorInvalidValue;
+  return dispatch_flash(D, q, sqb, sqh, sqs, k, skb, skh, sks, v, svb, svh,
+                        svs, o, sob, soh, sos, B, Hq, Hkv, Sq, Sk, causal,
+                        window, scale, static_cast<cudaStream_t>(stream));
+}
+
+// bf16 operands (the tensor-core body); arguments as above
+extern "C" int brds_flash_attention_bf16(
+    const void* q, long long sqb, long long sqh, long long sqs,
+    const void* k, long long skb, long long skh, long long sks,
+    const void* v, long long svb, long long svh, long long svs, void* o,
+    long long sob, long long soh, long long sos, int B, int Hq, int Hkv,
+    int Sq, int Sk, int D, int causal, int window, float scale,
+    void* stream) {
+  if (B <= 0 || Hkv <= 0 || Hq % Hkv != 0 || Sq <= 0 || Sk <= 0)
+    return cudaErrorInvalidValue;
+  return dispatch_flash_tc(D, q, sqb, sqh, sqs, k, skb, skh, sks, v, svb,
+                           svh, svs, o, sob, soh, sos, B, Hq, Hkv, Sq, Sk,
+                           causal, window, scale,
+                           static_cast<cudaStream_t>(stream));
+}
+
+// dynamic shared memory (bytes) of the tensor-core body's block at head
+// dim D and group size G; 0 for an unsupported D
+extern "C" int brds_flash_attention_bf16_smem(int D, int G) {
+  const bool pair = G % 2 == 0;
+#define BRDS_FLASH_SMEM(DV) \
+  if (D == DV) return pair ? tc_smem<DV, 2>() : tc_smem<DV, 1>()
+  BRDS_FLASH_SMEM(32);
+  BRDS_FLASH_SMEM(64);
+  BRDS_FLASH_SMEM(128);
+  BRDS_FLASH_SMEM(192);
+  BRDS_FLASH_SMEM(256);
+#undef BRDS_FLASH_SMEM
+  return 0;
 }

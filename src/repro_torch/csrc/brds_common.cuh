@@ -24,8 +24,11 @@
 namespace brds {
 
 constexpr int kWarp = 32;
-// Per-batch accumulators live in registers: the batch is capped here and
-// the launchers return cudaErrorInvalidValue above it.
+// Per-batch accumulators live in registers, at most kMaxBatch of them: a
+// larger batch runs in tiles of kMaxBatch rows, one per blockIdx.y (each
+// batch row's sums are independent, so a tile's rows are bitwise what the
+// whole batch gives them). The scans, whose grid is sized to be
+// co-resident, take one tile a launch.
 constexpr int kMaxBatch = 16;
 constexpr int kSeg = 16;   // PWL segments; LUT rows: a_sig, b_sig, a_tanh, b_tanh
 
@@ -174,13 +177,32 @@ __device__ __forceinline__ void lstm_cell(float zf, float zi, float zg,
   *h_out = __fmul_rn(o, act_tanh(c, p));
 }
 
-// Host side: run `body` with the accumulator count NB for batch B.
+// The batch rows of this block's tile (blockIdx.y), and a batch-major
+// pointer (leading dim ld) moved to the tile's first row.
+__device__ __forceinline__ int tile_batch(int B) {
+  return min(B - static_cast<int>(blockIdx.y) * kMaxBatch, kMaxBatch);
+}
+template <typename T>
+__device__ __forceinline__ T* tile_rows(T* p, int ld) {
+  return p + static_cast<size_t>(blockIdx.y) * kMaxBatch * ld;
+}
+
+// Host side: batch tiles (gridDim.y) for batch B.
+inline int batch_tiles(int B) { return (B + kMaxBatch - 1) / kMaxBatch; }
+
+// Host side: run `body` with the accumulator count NB for batch B and
+// whether the batch runs in tiles (B > kMaxBatch, gridDim.y > 1). A batch
+// of at most kMaxBatch takes the untiled instantiation: moving the
+// pointers to a tile holds them in registers, which changes the kernels'
+// occupancy at the serve path's batch.
 template <typename F>
 cudaError_t by_batch(int B, F&& body) {
-  if (B <= 0 || B > kMaxBatch) return cudaErrorInvalidValue;
-  if (B <= 4) return body(std::integral_constant<int, 4>{});
-  if (B <= 8) return body(std::integral_constant<int, 8>{});
-  return body(std::integral_constant<int, kMaxBatch>{});
+  if (B <= 0 || batch_tiles(B) > 65535) return cudaErrorInvalidValue;
+  if (B <= 4) return body(std::integral_constant<int, 4>{}, std::false_type{});
+  if (B <= 8) return body(std::integral_constant<int, 8>{}, std::false_type{});
+  if (B <= kMaxBatch)
+    return body(std::integral_constant<int, kMaxBatch>{}, std::false_type{});
+  return body(std::integral_constant<int, kMaxBatch>{}, std::true_type{});
 }
 
 // Host side: run `body` with the delta index type of `bytes`.

@@ -24,7 +24,7 @@ namespace {
 constexpr int kThreads = 256;
 constexpr int kRowsPerBlock = kThreads / brds::kWarp;
 
-template <typename IX, int NB>
+template <typename IX, int NB, bool kTiled>
 __global__ void __launch_bounds__(kThreads)
 delta_rb_spmv_kernel(const float* __restrict__ vals,
                      const IX* __restrict__ ix, int K,
@@ -33,6 +33,12 @@ delta_rb_spmv_kernel(const float* __restrict__ vals,
                      float* __restrict__ y, int B, int R) {
   const int row = (blockIdx.x * blockDim.x + threadIdx.x) / brds::kWarp;
   if (row >= R) return;   // uniform across the warp
+  if constexpr (kTiled) {
+    d = brds::tile_rows(d, X);
+    f = brds::tile_rows(f, X);
+    y = brds::tile_rows(y, R);
+    B = brds::tile_batch(B);
+  }
   float acc[NB] = {};
   brds::row_dot<IX, NB>(vals + (size_t)row * K, ix + (size_t)row * K, K,
                         brds::DeltaAct{d, f, X}, B, acc);
@@ -42,7 +48,7 @@ delta_rb_spmv_kernel(const float* __restrict__ vals,
     if (b < B && b == lane) y[(size_t)b * R + row] = acc[b];
 }
 
-template <typename IX, typename IH, int NB>
+template <typename IX, typename IH, int NB, bool kTiled>
 __global__ void __launch_bounds__(kThreads)
 delta_rb_dual_spmv_kernel(const float* __restrict__ vx,
                           const IX* __restrict__ ix, int kx,
@@ -56,6 +62,15 @@ delta_rb_dual_spmv_kernel(const float* __restrict__ vx,
                           float* __restrict__ m_out, int B, int R) {
   const int row = (blockIdx.x * blockDim.x + threadIdx.x) / brds::kWarp;
   if (row >= R) return;   // uniform across the warp
+  if constexpr (kTiled) {
+    dx = brds::tile_rows(dx, X);
+    fx = brds::tile_rows(fx, X);
+    dh = brds::tile_rows(dh, H);
+    fh = brds::tile_rows(fh, H);
+    m = brds::tile_rows(m, R);
+    m_out = brds::tile_rows(m_out, R);
+    B = brds::tile_batch(B);
+  }
   float ax[NB] = {}, ah[NB] = {};
   brds::row_dot<IX, NB>(vx + (size_t)row * kx, ix + (size_t)row * kx, kx,
                         brds::DeltaAct{dx, fx, X}, B, ax);
@@ -77,12 +92,13 @@ extern "C" int brds_delta_rb_spmv(const void* vals, const void* ix,
                                   const void* f, int X, void* y, int B,
                                   int R, void* stream) {
   if (R <= 0) return cudaErrorInvalidValue;
-  const dim3 grid((R + kRowsPerBlock - 1) / kRowsPerBlock);
+  const dim3 grid((R + kRowsPerBlock - 1) / kRowsPerBlock,
+                  brds::batch_tiles(B));
   cudaError_t st = brds::by_delta(ix_bytes, [&](auto ixt) {
     using IX = decltype(ixt);
-    return brds::by_batch(B, [&](auto nb) {
+    return brds::by_batch(B, [&](auto nb, auto tiled) {
       constexpr int NB = decltype(nb)::value;
-      delta_rb_spmv_kernel<IX, NB>
+      delta_rb_spmv_kernel<IX, NB, decltype(tiled)::value>
           <<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
               static_cast<const float*>(vals), static_cast<const IX*>(ix), K,
               static_cast<const float*>(d), static_cast<const float*>(f), X,
@@ -100,14 +116,15 @@ extern "C" int brds_delta_rb_dual_spmv(
     int kh, const void* dh, const void* fh, int H, const void* m,
     void* m_out, int B, int R, void* stream) {
   if (R <= 0) return cudaErrorInvalidValue;
-  const dim3 grid((R + kRowsPerBlock - 1) / kRowsPerBlock);
+  const dim3 grid((R + kRowsPerBlock - 1) / kRowsPerBlock,
+                  brds::batch_tiles(B));
   cudaError_t st = brds::by_delta(ix_bytes, [&](auto ixt) {
     using IX = decltype(ixt);
     return brds::by_delta(ih_bytes, [&](auto iht) {
       using IH = decltype(iht);
-      return brds::by_batch(B, [&](auto nb) {
+      return brds::by_batch(B, [&](auto nb, auto tiled) {
         constexpr int NB = decltype(nb)::value;
-        delta_rb_dual_spmv_kernel<IX, IH, NB>
+        delta_rb_dual_spmv_kernel<IX, IH, NB, decltype(tiled)::value>
             <<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
                 static_cast<const float*>(vx), static_cast<const IX*>(ix),
                 kx, static_cast<const float*>(dx),

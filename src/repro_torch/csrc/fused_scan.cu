@@ -350,14 +350,15 @@ extern "C" int brds_fused_lstm_scan(const void* vx, const void* dx,
                                     void* hs, void* c_out, int T, int B,
                                     const void* lut, float lo, float hi,
                                     float hic, void* stream) {
-  if (H <= 0 || T <= 0) return cudaErrorInvalidValue;
+  // one batch tile a launch: the grid is sized to be co-resident
+  if (H <= 0 || T <= 0 || B > brds::kMaxBatch) return cudaErrorInvalidValue;
   const int ntiles = (H + kJT - 1) / kJT;
   const brds::Act act{static_cast<const float*>(lut), lo, hi, hic};
   return brds::by_delta(dx_bytes, [&](auto dxt) {
     using DX = decltype(dxt);
     return brds::by_delta(dh_bytes, [&](auto dht) {
       using DH = decltype(dht);
-      return brds::by_batch(B, [&](auto nb) {
+      return brds::by_batch(B, [&](auto nb, auto) {
         constexpr int NB = decltype(nb)::value;
         ScanArgs<DX, DH> a{
             static_cast<const float*>(vx), static_cast<const DX*>(dx), kx,
@@ -380,14 +381,14 @@ extern "C" int brds_fused_delta_lstm_scan(
     void* x_ref, void* h_ref, void* dxm, void* dhm, void* hs, void* c_out,
     void* m_out, float theta_x, float theta_h, int T, int B, const void* lut,
     float lo, float hi, float hic, void* stream) {
-  if (H <= 0 || T <= 0) return cudaErrorInvalidValue;
+  if (H <= 0 || T <= 0 || B > brds::kMaxBatch) return cudaErrorInvalidValue;
   const int ntiles = (H + kJT - 1) / kJT;
   const brds::Act act{static_cast<const float*>(lut), lo, hi, hic};
   return brds::by_delta(ix_bytes, [&](auto ixt) {
     using IX = decltype(ixt);
     return brds::by_delta(ih_bytes, [&](auto iht) {
       using IH = decltype(iht);
-      return brds::by_batch(B, [&](auto nb) {
+      return brds::by_batch(B, [&](auto nb, auto) {
         constexpr int NB = decltype(nb)::value;
         DeltaScanArgs<IX, IH> a{
             static_cast<const float*>(vx), static_cast<const IX*>(ix), kx,

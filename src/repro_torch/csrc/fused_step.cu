@@ -56,7 +56,7 @@ __device__ __forceinline__ void close_cells(const float (&zs)[kJT][4][NB],
   }
 }
 
-template <typename DX, typename DH, int NB>
+template <typename DX, typename DH, int NB, bool kTiled>
 __global__ void __launch_bounds__(kThreads)
 fused_step_kernel(const float* __restrict__ vx, const DX* __restrict__ dx,
                   int kx, const float* __restrict__ x, int X,
@@ -65,6 +65,14 @@ fused_step_kernel(const float* __restrict__ vx, const DX* __restrict__ dx,
                   const float* __restrict__ bias,
                   const float* __restrict__ c_prev, float* __restrict__ c_out,
                   float* __restrict__ h_out, int B, brds::Act act) {
+  if constexpr (kTiled) {
+    x = brds::tile_rows(x, X);
+    h = brds::tile_rows(h, H);
+    c_prev = brds::tile_rows(c_prev, H);
+    c_out = brds::tile_rows(c_out, H);
+    h_out = brds::tile_rows(h_out, H);
+    B = brds::tile_batch(B);
+  }
   __shared__ float zs[kJT][4][NB];
   const int warp = threadIdx.x / brds::kWarp;
   const int lane = threadIdx.x % brds::kWarp;
@@ -88,7 +96,7 @@ fused_step_kernel(const float* __restrict__ vx, const DX* __restrict__ dx,
   close_cells<NB>(zs, H, B, c_prev, c_out, h_out, act);
 }
 
-template <typename IX, typename IH, int NB>
+template <typename IX, typename IH, int NB, bool kTiled>
 __global__ void __launch_bounds__(kThreads)
 fused_delta_step_kernel(const float* __restrict__ vx,
                         const IX* __restrict__ ix, int kx,
@@ -103,6 +111,18 @@ fused_delta_step_kernel(const float* __restrict__ vx,
                         const float* __restrict__ c_prev,
                         float* __restrict__ c_out, float* __restrict__ h_out,
                         float* __restrict__ m_out, int B, brds::Act act) {
+  if constexpr (kTiled) {
+    dx = brds::tile_rows(dx, X);
+    fx = brds::tile_rows(fx, X);
+    dh = brds::tile_rows(dh, H);
+    fh = brds::tile_rows(fh, H);
+    m = brds::tile_rows(m, 4 * H);
+    m_out = brds::tile_rows(m_out, 4 * H);
+    c_prev = brds::tile_rows(c_prev, H);
+    c_out = brds::tile_rows(c_out, H);
+    h_out = brds::tile_rows(h_out, H);
+    B = brds::tile_batch(B);
+  }
   __shared__ float zs[kJT][4][NB];
   const int warp = threadIdx.x / brds::kWarp;
   const int lane = threadIdx.x % brds::kWarp;
@@ -130,7 +150,7 @@ fused_delta_step_kernel(const float* __restrict__ vx,
   close_cells<NB>(zs, H, B, c_prev, c_out, h_out, act);
 }
 
-template <typename CT, typename IX, typename IH, int NB>
+template <typename CT, typename IX, typename IH, int NB, bool kTiled>
 __global__ void __launch_bounds__(kThreads)
 fused_step_q8_kernel(const CT* __restrict__ vx, const IX* __restrict__ ix,
                      int kx, const float* __restrict__ comb_x,
@@ -142,6 +162,14 @@ fused_step_q8_kernel(const CT* __restrict__ vx, const IX* __restrict__ ix,
                      const float* __restrict__ c_prev,
                      float* __restrict__ c_out, float* __restrict__ h_out,
                      int B, brds::Act act) {
+  if constexpr (kTiled) {
+    qx = brds::tile_rows(qx, X);
+    qh = brds::tile_rows(qh, H);
+    c_prev = brds::tile_rows(c_prev, H);
+    c_out = brds::tile_rows(c_out, H);
+    h_out = brds::tile_rows(h_out, H);
+    B = brds::tile_batch(B);
+  }
   __shared__ float zs[kJT][4][NB];
   const int warp = threadIdx.x / brds::kWarp;
   const int lane = threadIdx.x % brds::kWarp;
@@ -166,7 +194,7 @@ fused_step_q8_kernel(const CT* __restrict__ vx, const IX* __restrict__ ix,
   close_cells<NB>(zs, H, B, c_prev, c_out, h_out, act);
 }
 
-template <typename CT, typename IX, typename IH, int NB>
+template <typename CT, typename IX, typename IH, int NB, bool kTiled>
 __global__ void __launch_bounds__(kThreads)
 fused_delta_step_q8_kernel(const CT* __restrict__ vx,
                            const IX* __restrict__ ix, int kx,
@@ -182,6 +210,16 @@ fused_delta_step_q8_kernel(const CT* __restrict__ vx,
                            float* __restrict__ c_out,
                            float* __restrict__ h_out,
                            float* __restrict__ m_out, int B, brds::Act act) {
+  if constexpr (kTiled) {
+    qx = brds::tile_rows(qx, X);
+    qh = brds::tile_rows(qh, H);
+    m = brds::tile_rows(m, 4 * H);
+    m_out = brds::tile_rows(m_out, 4 * H);
+    c_prev = brds::tile_rows(c_prev, H);
+    c_out = brds::tile_rows(c_out, H);
+    h_out = brds::tile_rows(h_out, H);
+    B = brds::tile_batch(B);
+  }
   __shared__ float zs[kJT][4][NB];
   const int warp = threadIdx.x / brds::kWarp;
   const int lane = threadIdx.x % brds::kWarp;
@@ -224,15 +262,15 @@ extern "C" int brds_fused_lstm_step(const void* vx, const void* dx,
                                     float lo, float hi, float hic,
                                     void* stream) {
   if (H <= 0) return cudaErrorInvalidValue;
-  const dim3 grid((H + kJT - 1) / kJT);
+  const dim3 grid((H + kJT - 1) / kJT, brds::batch_tiles(B));
   const brds::Act act{static_cast<const float*>(lut), lo, hi, hic};
   cudaError_t st = brds::by_delta(dx_bytes, [&](auto dxt) {
     using DX = decltype(dxt);
     return brds::by_delta(dh_bytes, [&](auto dht) {
       using DH = decltype(dht);
-      return brds::by_batch(B, [&](auto nb) {
+      return brds::by_batch(B, [&](auto nb, auto tiled) {
         constexpr int NB = decltype(nb)::value;
-        fused_step_kernel<DX, DH, NB>
+        fused_step_kernel<DX, DH, NB, decltype(tiled)::value>
             <<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
                 static_cast<const float*>(vx), static_cast<const DX*>(dx), kx,
                 static_cast<const float*>(x), X,
@@ -257,15 +295,15 @@ extern "C" int brds_fused_delta_lstm_step(
     void* m_out, int B, const void* lut, float lo, float hi, float hic,
     void* stream) {
   if (H <= 0) return cudaErrorInvalidValue;
-  const dim3 grid((H + kJT - 1) / kJT);
+  const dim3 grid((H + kJT - 1) / kJT, brds::batch_tiles(B));
   const brds::Act act{static_cast<const float*>(lut), lo, hi, hic};
   cudaError_t st = brds::by_delta(ix_bytes, [&](auto ixt) {
     using IX = decltype(ixt);
     return brds::by_delta(ih_bytes, [&](auto iht) {
       using IH = decltype(iht);
-      return brds::by_batch(B, [&](auto nb) {
+      return brds::by_batch(B, [&](auto nb, auto tiled) {
         constexpr int NB = decltype(nb)::value;
-        fused_delta_step_kernel<IX, IH, NB>
+        fused_delta_step_kernel<IX, IH, NB, decltype(tiled)::value>
             <<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
                 static_cast<const float*>(vx), static_cast<const IX*>(ix),
                 kx, static_cast<const float*>(dx),
@@ -293,7 +331,7 @@ extern "C" int brds_fused_lstm_step_q8(
     const void* bias, const void* c_prev, void* c_out, void* h_out, int B,
     const void* lut, float lo, float hi, float hic, void* stream) {
   if (H <= 0) return cudaErrorInvalidValue;
-  const dim3 grid((H + kJT - 1) / kJT);
+  const dim3 grid((H + kJT - 1) / kJT, brds::batch_tiles(B));
   const brds::Act act{static_cast<const float*>(lut), lo, hi, hic};
   cudaError_t st = brds::by_code(code_bytes, [&](auto ct) {
     using CT = decltype(ct);
@@ -301,9 +339,9 @@ extern "C" int brds_fused_lstm_step_q8(
       using IX = decltype(ixt);
       return brds::by_delta(ih_bytes, [&](auto iht) {
         using IH = decltype(iht);
-        return brds::by_batch(B, [&](auto nb) {
+        return brds::by_batch(B, [&](auto nb, auto tiled) {
           constexpr int NB = decltype(nb)::value;
-          fused_step_q8_kernel<CT, IX, IH, NB>
+          fused_step_q8_kernel<CT, IX, IH, NB, decltype(tiled)::value>
               <<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
                   static_cast<const CT*>(vx), static_cast<const IX*>(ix), kx,
                   static_cast<const float*>(comb_x),
@@ -332,7 +370,7 @@ extern "C" int brds_fused_delta_lstm_step_q8(
     void* h_out, void* m_out, int B, const void* lut, float lo, float hi,
     float hic, void* stream) {
   if (H <= 0) return cudaErrorInvalidValue;
-  const dim3 grid((H + kJT - 1) / kJT);
+  const dim3 grid((H + kJT - 1) / kJT, brds::batch_tiles(B));
   const brds::Act act{static_cast<const float*>(lut), lo, hi, hic};
   cudaError_t st = brds::by_code(code_bytes, [&](auto ct) {
     using CT = decltype(ct);
@@ -340,9 +378,9 @@ extern "C" int brds_fused_delta_lstm_step_q8(
       using IX = decltype(ixt);
       return brds::by_delta(ih_bytes, [&](auto iht) {
         using IH = decltype(iht);
-        return brds::by_batch(B, [&](auto nb) {
+        return brds::by_batch(B, [&](auto nb, auto tiled) {
           constexpr int NB = decltype(nb)::value;
-          fused_delta_step_q8_kernel<CT, IX, IH, NB>
+          fused_delta_step_q8_kernel<CT, IX, IH, NB, decltype(tiled)::value>
               <<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
                   static_cast<const CT*>(vx), static_cast<const IX*>(ix), kx,
                   static_cast<const float*>(comb_x),

@@ -21,13 +21,18 @@ namespace {
 constexpr int kThreads = 256;
 constexpr int kRowsPerBlock = kThreads / brds::kWarp;
 
-template <typename DT, int NB>
+template <typename DT, int NB, bool kTiled>
 __global__ void __launch_bounds__(kThreads)
 rb_spmv_kernel(const float* __restrict__ vals, const DT* __restrict__ deltas,
                int K, const float* __restrict__ x, int X,
                float* __restrict__ y, int B, int R) {
   const int row = (blockIdx.x * blockDim.x + threadIdx.x) / brds::kWarp;
   if (row >= R) return;   // uniform across the warp
+  if constexpr (kTiled) {
+    x = brds::tile_rows(x, X);
+    y = brds::tile_rows(y, R);
+    B = brds::tile_batch(B);
+  }
   float acc[NB] = {};
   brds::row_dot<DT, NB>(vals + (size_t)row * K, deltas + (size_t)row * K, K,
                         brds::F32Act{x, X}, B, acc);
@@ -37,7 +42,7 @@ rb_spmv_kernel(const float* __restrict__ vals, const DT* __restrict__ deltas,
     if (b < B && b == lane) y[(size_t)b * R + row] = acc[b];
 }
 
-template <typename DX, typename DH, int NB>
+template <typename DX, typename DH, int NB, bool kTiled>
 __global__ void __launch_bounds__(kThreads)
 rb_dual_spmv_kernel(const float* __restrict__ vx, const DX* __restrict__ dx,
                     int kx, const float* __restrict__ x, int X,
@@ -47,6 +52,12 @@ rb_dual_spmv_kernel(const float* __restrict__ vx, const DX* __restrict__ dx,
                     int B, int R) {
   const int row = (blockIdx.x * blockDim.x + threadIdx.x) / brds::kWarp;
   if (row >= R) return;   // uniform across the warp
+  if constexpr (kTiled) {
+    x = brds::tile_rows(x, X);
+    h = brds::tile_rows(h, H);
+    z = brds::tile_rows(z, R);
+    B = brds::tile_batch(B);
+  }
   float ax[NB] = {}, ah[NB] = {};
   brds::row_dot<DX, NB>(vx + (size_t)row * kx, dx + (size_t)row * kx, kx,
                         brds::F32Act{x, X}, B, ax);
@@ -65,12 +76,13 @@ extern "C" int brds_rb_spmv(const void* vals, const void* deltas,
                             int d_bytes, int K, const void* x, int X,
                             void* y, int B, int R, void* stream) {
   if (R <= 0) return cudaErrorInvalidValue;
-  const dim3 grid((R + kRowsPerBlock - 1) / kRowsPerBlock);
+  const dim3 grid((R + kRowsPerBlock - 1) / kRowsPerBlock,
+                  brds::batch_tiles(B));
   cudaError_t st = brds::by_delta(d_bytes, [&](auto dt) {
     using DT = decltype(dt);
-    return brds::by_batch(B, [&](auto nb) {
+    return brds::by_batch(B, [&](auto nb, auto tiled) {
       constexpr int NB = decltype(nb)::value;
-      rb_spmv_kernel<DT, NB>
+      rb_spmv_kernel<DT, NB, decltype(tiled)::value>
           <<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
               static_cast<const float*>(vals), static_cast<const DT*>(deltas),
               K, static_cast<const float*>(x), X, static_cast<float*>(y), B,
@@ -87,14 +99,15 @@ extern "C" int brds_rb_dual_spmv(const void* vx, const void* dx, int dx_bytes,
                                  const void* dh, int dh_bytes, int kh,
                                  const void* h, int H, const void* bias,
                                  void* z, int B, int R, void* stream) {
-  const dim3 grid((R + kRowsPerBlock - 1) / kRowsPerBlock);
+  const dim3 grid((R + kRowsPerBlock - 1) / kRowsPerBlock,
+                  brds::batch_tiles(B));
   cudaError_t st = brds::by_delta(dx_bytes, [&](auto dxt) {
     using DX = decltype(dxt);
     return brds::by_delta(dh_bytes, [&](auto dht) {
       using DH = decltype(dht);
-      return brds::by_batch(B, [&](auto nb) {
+      return brds::by_batch(B, [&](auto nb, auto tiled) {
         constexpr int NB = decltype(nb)::value;
-        rb_dual_spmv_kernel<DX, DH, NB>
+        rb_dual_spmv_kernel<DX, DH, NB, decltype(tiled)::value>
             <<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
                 static_cast<const float*>(vx), static_cast<const DX*>(dx), kx,
                 static_cast<const float*>(x), X,

@@ -25,7 +25,7 @@ namespace {
 constexpr int kThreads = 256;
 constexpr int kRowsPerBlock = kThreads / brds::kWarp;
 
-template <typename CT, typename IX, int NB>
+template <typename CT, typename IX, int NB, bool kTiled>
 __global__ void __launch_bounds__(kThreads)
 rb_spmv_q8_kernel(const CT* __restrict__ vals, const IX* __restrict__ ix,
                   int K, const float* __restrict__ comb,
@@ -33,6 +33,11 @@ rb_spmv_q8_kernel(const CT* __restrict__ vals, const IX* __restrict__ ix,
                   int B, int R) {
   const int row = (blockIdx.x * blockDim.x + threadIdx.x) / brds::kWarp;
   if (row >= R) return;   // uniform across the warp
+  if constexpr (kTiled) {
+    q = brds::tile_rows(q, X);
+    y = brds::tile_rows(y, R);
+    B = brds::tile_batch(B);
+  }
   uint32_t acc[NB] = {};
   brds::row_dot<IX, NB>(vals + (size_t)row * K, ix + (size_t)row * K, K,
                         brds::CodeAct<CT>{q, X}, B, acc);
@@ -43,7 +48,7 @@ rb_spmv_q8_kernel(const CT* __restrict__ vals, const IX* __restrict__ ix,
     if (b < B && b == lane) y[(size_t)b * R + row] = brds::dequant(acc[b], cs);
 }
 
-template <typename CT, typename IX, typename IH, int NB>
+template <typename CT, typename IX, typename IH, int NB, bool kTiled>
 __global__ void __launch_bounds__(kThreads)
 rb_dual_parts_q8_kernel(const CT* __restrict__ vx, const IX* __restrict__ ix,
                         int kx, const float* __restrict__ comb_x,
@@ -55,6 +60,13 @@ rb_dual_parts_q8_kernel(const CT* __restrict__ vx, const IX* __restrict__ ix,
                         int R) {
   const int row = (blockIdx.x * blockDim.x + threadIdx.x) / brds::kWarp;
   if (row >= R) return;   // uniform across the warp
+  if constexpr (kTiled) {
+    qx = brds::tile_rows(qx, X);
+    qh = brds::tile_rows(qh, H);
+    zx = brds::tile_rows(zx, R);
+    zh = brds::tile_rows(zh, R);
+    B = brds::tile_batch(B);
+  }
   uint32_t ax[NB] = {}, ah[NB] = {};
   brds::row_dot<IX, NB>(vx + (size_t)row * kx, ix + (size_t)row * kx, kx,
                         brds::CodeAct<CT>{qx, X}, B, ax);
@@ -78,14 +90,15 @@ extern "C" int brds_rb_spmv_q8(const void* vals, const void* ix, int ix_bytes,
                                int code_bytes, void* y, int B, int R,
                                void* stream) {
   if (R <= 0) return cudaErrorInvalidValue;
-  const dim3 grid((R + kRowsPerBlock - 1) / kRowsPerBlock);
+  const dim3 grid((R + kRowsPerBlock - 1) / kRowsPerBlock,
+                  brds::batch_tiles(B));
   cudaError_t st = brds::by_code(code_bytes, [&](auto ct) {
     using CT = decltype(ct);
     return brds::by_delta(ix_bytes, [&](auto ixt) {
       using IX = decltype(ixt);
-      return brds::by_batch(B, [&](auto nb) {
+      return brds::by_batch(B, [&](auto nb, auto tiled) {
         constexpr int NB = decltype(nb)::value;
-        rb_spmv_q8_kernel<CT, IX, NB>
+        rb_spmv_q8_kernel<CT, IX, NB, decltype(tiled)::value>
             <<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
                 static_cast<const CT*>(vals), static_cast<const IX*>(ix), K,
                 static_cast<const float*>(comb), static_cast<const CT*>(q), X,
@@ -104,16 +117,17 @@ extern "C" int brds_rb_dual_parts_q8(
     int kh, const void* comb_h, const void* qh, int H, int code_bytes,
     void* zx, void* zh, int B, int R, void* stream) {
   if (R <= 0) return cudaErrorInvalidValue;
-  const dim3 grid((R + kRowsPerBlock - 1) / kRowsPerBlock);
+  const dim3 grid((R + kRowsPerBlock - 1) / kRowsPerBlock,
+                  brds::batch_tiles(B));
   cudaError_t st = brds::by_code(code_bytes, [&](auto ct) {
     using CT = decltype(ct);
     return brds::by_delta(ix_bytes, [&](auto ixt) {
       using IX = decltype(ixt);
       return brds::by_delta(ih_bytes, [&](auto iht) {
         using IH = decltype(iht);
-        return brds::by_batch(B, [&](auto nb) {
+        return brds::by_batch(B, [&](auto nb, auto tiled) {
           constexpr int NB = decltype(nb)::value;
-          rb_dual_parts_q8_kernel<CT, IX, IH, NB>
+          rb_dual_parts_q8_kernel<CT, IX, IH, NB, decltype(tiled)::value>
               <<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
                   static_cast<const CT*>(vx), static_cast<const IX*>(ix), kx,
                   static_cast<const float*>(comb_x),

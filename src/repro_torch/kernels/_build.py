@@ -83,7 +83,11 @@ SIGNATURES = {
                                   _I, _I, _P],
         "brds_flash_attention": [_P, _L, _L, _L, _P, _L, _L, _L, _P, _L, _L,
                                  _L, _P, _L, _L, _L, _I, _I, _I, _I, _I, _I,
-                                 _I, _I, _F, _I, _P]},
+                                 _I, _I, _F, _P],
+        "brds_flash_attention_bf16": [_P, _L, _L, _L, _P, _L, _L, _L, _P, _L,
+                                      _L, _L, _P, _L, _L, _L, _I, _I, _I, _I,
+                                      _I, _I, _I, _I, _F, _P],
+        "brds_flash_attention_bf16_smem": [_I, _I]},
 }
 
 _libs: dict[str, ctypes.CDLL] = {}

@@ -6,9 +6,10 @@ online softmax in float32, key tiles that the masks leave dead skipped,
 ragged edges masked in the kernel (no padding to tile multiples). q, k
 and v are read and the output written through strides: the model passes
 its (B, S, H, D) projections as (B, H, S, D) views and gets the output
-back in that layout. Replaces
-``repro/kernels/flash_attention.py::flash_attention``; the function it
-computes is ``ref.flash_attention_ref``.
+back in that layout. bf16 operands run on the tensor cores (wgmma, p
+split into three bf16 terms for P.V); float32 operands on a SIMT body.
+Replaces ``repro/kernels/flash_attention.py::flash_attention``; the
+function it computes is ``ref.flash_attention_ref``.
 """
 from __future__ import annotations
 
@@ -17,7 +18,10 @@ import torch
 from . import _build
 
 DTYPES = (torch.float32, torch.bfloat16)
-HEAD_DIMS = (32, 64, 128, 256)
+HEAD_DIMS = (32, 64, 128, 192, 256)
+# launches by body: "tensor_cores" (bf16) and "simt" (float32); each adds
+# one beside ``LAUNCHES["flash_attention"]``
+BODIES = {"tensor_cores": 0, "simt": 0}
 
 
 def dtype_code(dtype: torch.dtype) -> int:
@@ -56,14 +60,17 @@ def flash_attention(q, k, v, *, causal: bool = True,
         raise ValueError(f"head_dim {D} not in {HEAD_DIMS}")
     o = torch.empty((B, Sq, Hq, D), dtype=q.dtype, device=dev)
     lib = _build.load("attention")
-    err = lib.brds_flash_attention(
-        q.data_ptr(), q.stride(0), q.stride(1), q.stride(2),
-        k.data_ptr(), k.stride(0), k.stride(1), k.stride(2),
-        v.data_ptr(), v.stride(0), v.stride(1), v.stride(2),
-        o.data_ptr(), o.stride(0), o.stride(2), o.stride(1),
-        B, Hq, Hkv, Sq, Sk, D, int(causal),
-        0 if window is None else int(window), float(D ** -0.5),
-        dtype_code(q.dtype), _build.stream(dev))
+    body = "tensor_cores" if q.dtype == torch.bfloat16 else "simt"
+    fn = (lib.brds_flash_attention_bf16 if body == "tensor_cores"
+          else lib.brds_flash_attention)
+    err = fn(q.data_ptr(), q.stride(0), q.stride(1), q.stride(2),
+             k.data_ptr(), k.stride(0), k.stride(1), k.stride(2),
+             v.data_ptr(), v.stride(0), v.stride(1), v.stride(2),
+             o.data_ptr(), o.stride(0), o.stride(2), o.stride(1),
+             B, Hq, Hkv, Sq, Sk, D, int(causal),
+             0 if window is None else int(window), float(D ** -0.5),
+             _build.stream(dev))
     _build.check(err, "flash_attention")
     _build.LAUNCHES["flash_attention"] += 1
+    BODIES[body] += 1
     return o.transpose(1, 2)

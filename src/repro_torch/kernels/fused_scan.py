@@ -6,7 +6,11 @@ owns its hidden-unit tiles for all T steps and keeps their c (and the
 delta scan's partial-sum memory m) in shared memory, and only h crosses
 blocks, through ``hs`` and one grid barrier per step (two for the delta
 scan, whose thresholds are shared by every row). Each step is bitwise
-equal to one launch of the single-step kernel of ``fused_step``. Replaces
+equal to one launch of the single-step kernel of ``fused_step``. A launch
+takes at most ``TILE`` batch rows (the co-resident grid cannot grow with
+the batch): a larger batch runs as one launch per tile of rows, which
+``batch_tiles`` concatenates, bitwise the whole batch's result since
+every row's sums are its own. Replaces
 ``repro/kernels/fused_step.py::fused_brds_lstm_scan`` and
 ``::fused_brds_delta_lstm_scan``.
 """
@@ -17,6 +21,21 @@ import torch
 from . import _build
 from .lstm_gates import act_args
 from .rb_spmv import check_batch, check_packed
+
+TILE = 16   # batch rows a scan launch takes (brds::kMaxBatch)
+
+
+def batch_tiles(fn, B: int, args, in_dims, out_dims):
+    """``fn(*args)`` over the batch in tiles of at most ``TILE`` rows, one
+    call each: every arg is cut at its batch dim (``in_dims``; None for
+    one shared by all rows) and the calls' outputs are concatenated at
+    ``out_dims``. A batch of at most ``TILE`` rows is one call, uncut."""
+    if B <= TILE:
+        return fn(*args)
+    parts = [fn(*(a if d is None else a.narrow(d, b0, min(TILE, B - b0))
+                  .contiguous() for a, d in zip(args, in_dims)))
+             for b0 in range(0, B, TILE)]
+    return tuple(torch.cat(p, d) for p, d in zip(zip(*parts), out_dims))
 
 
 def _check_scan(vals_x, deltas_x, xs, vals_h, deltas_h, h0, c0, bias):
@@ -49,9 +68,20 @@ def fused_brds_lstm_scan(vals_x, deltas_x, xs, vals_h, deltas_h, h0, bias,
     [f; i; g; o] (rows past 4H are not read), xs[t] (B, X), the previous
     h (h0 at t = 0), c and bias (4H,); all float32 on one card. Returns
     (hs (T, B, H), c_T (B, H))."""
-    dev = xs.device
     T, B, X, H = _check_scan(vals_x, deltas_x, xs, vals_h, deltas_h, h0, c0,
                              bias)
+
+    def tile(xs, h0, c0):
+        return _scan(vals_x, deltas_x, xs, vals_h, deltas_h, h0, bias, c0,
+                     pwl)
+    return batch_tiles(tile, B, (xs, h0, c0), (1, 0, 0), (1, 0))
+
+
+def _scan(vals_x, deltas_x, xs, vals_h, deltas_h, h0, bias, c0, pwl):
+    """One launch of the float scan over at most TILE batch rows."""
+    dev = xs.device
+    T, B, X = xs.shape
+    H = h0.shape[1]
     hs = torch.empty((T, B, H), dtype=torch.float32, device=dev)
     c_out = torch.empty_like(c0)
     lib = _build.load("fused_scan")
@@ -86,6 +116,20 @@ def fused_brds_delta_lstm_scan(vals_x, deltas_x, xs, vals_h, deltas_h, h0,
         _build.require(t, name, dtypes=(torch.float32,), ndim=2, device=dev)
         if t.shape != shape:
             raise ValueError(f"{name} {tuple(t.shape)} must be {shape}")
+
+    def tile(xs, h0, c0, x_ref0, h_ref0, m0):
+        return _delta_scan(vals_x, deltas_x, xs, vals_h, deltas_h, h0, c0,
+                           x_ref0, h_ref0, m0, bias, theta_x, theta_h, pwl)
+    return batch_tiles(tile, B, (xs, h0, c0, x_ref0, h_ref0, m0),
+                       (1, 0, 0, 0, 0, 0), (1, 0, 0, 0, 0))
+
+
+def _delta_scan(vals_x, deltas_x, xs, vals_h, deltas_h, h0, c0, x_ref0,
+                h_ref0, m0, bias, theta_x, theta_h, pwl):
+    """One launch of the delta scan over at most TILE batch rows."""
+    dev = xs.device
+    T, B, X = xs.shape
+    H = h0.shape[1]
     hs = torch.empty((T, B, H), dtype=torch.float32, device=dev)
     c_out = torch.empty_like(c0)
     m_out = torch.empty_like(m0)

@@ -12,7 +12,6 @@ import torch
 
 from . import _build
 
-MAX_BATCH = 16          # brds::kMaxBatch in csrc/brds_common.cuh
 DELTA_DTYPES = (torch.int8, torch.int16, torch.int32)
 
 
@@ -27,8 +26,10 @@ def check_packed(vals, deltas, name: str, device) -> None:
 
 
 def check_batch(B: int) -> None:
-    if not 0 < B <= MAX_BATCH:
-        raise ValueError(f"batch {B} outside the kernels' 1..{MAX_BATCH}")
+    """Any batch of at least one row: the kernels run a larger one in
+    tiles of 16 rows (``brds::kMaxBatch``) inside one launch."""
+    if B < 1:
+        raise ValueError(f"batch {B}: the kernels need at least one row")
 
 
 def check_rows(vals, rows: int, name: str) -> None:

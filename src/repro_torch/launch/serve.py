@@ -22,10 +22,12 @@ transformer to ``configs.smoke_config``). ``--arch`` takes the LSTM
 language models and the zoo's config names; a config the port cannot serve
 yet errors out with the reason. A transformer's ``--brds`` prunes it with
 ``transformer_policy(--spar-a, --spar-b)`` (MLP at A, attention at B);
-``--delta`` and ``--quant`` are LSTM-only (``--no-fused`` then chains an
-LSTM draft). Prints the generation rate (median and range of ``RUNS``
-timed runs after one warm-up run), the device it ran on and, after a
-``--delta`` run, the fired-column occupancy.
+``--delta`` and ``--quant`` are LSTM-only. A packed LSTM (an LSTM draft
+too) steps through the single-launch fused kernels (``--fused``, the
+default) or the chained ones (``--no-fused``). Prints the generation
+rate (median and range of ``RUNS`` timed runs after one warm-up run), the
+device it ran on and, after a ``--delta`` run, the fired-column
+occupancy.
 ``--draft ARCH`` decodes by speculative rounds with an LSTM draft of that
 configuration (``--draft-brds`` / ``--draft-delta`` / ``--draft-quant``
 serve it packed, temporal-delta or quantized) and prints its acceptance.
@@ -211,11 +213,14 @@ def main(argv=None):
                          "('int8' or 'qM.N', e.g. 'q1.11'); activation "
                          "scales are calibrated on a prompt-shaped batch; "
                          "composes with --delta")
+    ap.add_argument("--fused", dest="fused", action="store_true",
+                    default=True,
+                    help="LSTM: force single-launch fused decode kernels "
+                         "(the default, on every packed path)")
     ap.add_argument("--no-fused", dest="fused", action="store_false",
-                    help="chained per-kernel decode (gate kernel, then "
-                         "lstm_gates) instead of the fused single-launch "
-                         "step, on every packed path: float, --delta, "
-                         "--quant and both")
+                    help="LSTM: force the chained per-kernel decode path "
+                         "(gate kernel, then lstm_gates) on every packed "
+                         "path: float, --delta, --quant and both")
     ap.add_argument("--draft", default=None, metavar="ARCH",
                     choices=sorted(LSTM_CONFIGS),
                     help="speculative decoding: propose with this LSTM "

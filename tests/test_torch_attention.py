@@ -45,7 +45,8 @@ def _rep(jx, group):
 
 
 # (B, Hq, Hkv, Sq, Sk, D, window): tests/test_kernels.py's shapes, then
-# G = 2, Sq < Sk (a prefix in the cache) with and without a window
+# G = 2, Sq < Sk (a prefix in the cache) with and without a window, then
+# head_dim 192 (nemotron-4-340b's)
 FLASH_CASES = [
     (1, 4, 4, 128, 128, 64, None),
     (2, 8, 2, 256, 256, 64, None),
@@ -54,6 +55,8 @@ FLASH_CASES = [
     (2, 4, 2, 64, 64, 32, 16),
     (1, 4, 2, 64, 192, 32, None),
     (2, 8, 2, 64, 256, 64, 100),
+    (1, 4, 2, 64, 128, 192, None),
+    (1, 2, 1, 128, 128, 192, 40),
 ]
 
 
@@ -110,7 +113,8 @@ def _lengths(B, S, seed):
 
 
 DECODE_CASES = [(2, 8, 2, 256, 64), (1, 4, 4, 512, 128), (3, 6, 2, 128, 64),
-                (4, 4, 2, 96, 32), (3, 8, 1, 200, 64)]
+                (4, 4, 2, 96, 32), (3, 8, 1, 200, 64), (2, 4, 2, 96, 192),
+                (3, 10, 2, 64, 192)]
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
@@ -210,3 +214,115 @@ def test_cpu_tensors_never_reach_the_attention_kernels():
         with pytest.raises(ValueError, match="window"):
             ops.decode_attention(q[:, :, 0], k, k, lengths, window=bad)
     assert ops.LAUNCHES == before
+
+
+# ------------------------------------------- the tensor-core body's numbers
+
+def _split_terms(p, n):
+    """p as n bf16 terms the way csrc/attention.cu's split3 takes them
+    (each the top 8 significant bits of what is left), or rounded to
+    nearest (``n`` negative: -n rounded terms)."""
+    terms, rest = [], p
+    for _ in range(abs(n)):
+        if n > 0:
+            t = (rest.view(torch.int32) & -65536).view(torch.float32)
+        else:
+            t = rest.to(torch.bfloat16).float()
+        terms.append(t)
+        rest = rest - t
+    return terms
+
+
+def _tc_emulation(q, k, v, *, causal=True, window=None, terms=3):
+    """The bf16 tensor-core B15's arithmetic in plain PyTorch: S = Q K^T
+    from bf16 operands with float32 sums, the scale on the float32
+    accumulator, an online softmax over 64-key tiles (32 at D = 256) with
+    exp as exp2 of the float32 product by log2(e) (the kernel's
+    ``__expf``), masked scores weighing exactly 0, and P V as one bf16
+    product per term of p's split, summed into float32 O."""
+    B, Hq, Sq, D = q.shape
+    Hkv, Sk = k.shape[1], k.shape[2]
+    G, bk = Hq // Hkv, (32 if D > 192 else 64)
+    kf = k.float().repeat_interleave(G, 1).double()
+    vf = v.float().repeat_interleave(G, 1)
+    s = (q.float().double() @ kf.transpose(-1, -2)).float()
+    s = s * torch.tensor(D ** -0.5, dtype=torch.float32)
+    qpos = torch.arange(Sq)[:, None] + (Sk - Sq)
+    kpos = torch.arange(Sk)[None, :]
+    live = torch.ones(Sq, Sk, dtype=torch.bool)
+    if causal:
+        live &= kpos <= qpos
+    if window is not None:
+        live &= kpos > qpos - window
+    s = torch.where(live, s, torch.tensor(ref.NEG))
+    log2e = torch.tensor(1.4426950408889634, dtype=torch.float32)
+    exp = lambda x: torch.exp2((x * log2e).double()).float()
+    m = torch.full((B, Hq, Sq, 1), ref.NEG)
+    l = torch.zeros(B, Hq, Sq, 1)
+    o = torch.zeros(B, Hq, Sq, D)
+    for k0 in range(0, Sk, bk):
+        st = s[..., k0:k0 + bk]
+        mn = torch.maximum(m, st.amax(-1, keepdim=True))
+        p = torch.where(st > ref.NEG / 2, exp(st - mn), torch.tensor(0.0))
+        alpha = exp(m - mn)
+        l = l * alpha + p.sum(-1, keepdim=True)
+        pv = sum(t.double() @ vf[..., k0:k0 + bk, :].double()
+                 for t in _split_terms(p, terms))
+        o = o * alpha + pv.float()
+        m = mn
+    return (o / l.clamp_min(1e-30)).to(q.dtype)
+
+
+def test_split_into_three_terms_is_exact():
+    """Three truncated bf16 terms hold every float32 p in [0, 1] exactly
+    (above 2^-110, where the third term would leave the normal range; a p
+    that small adds nothing next to the row's maximum 1); two rounded
+    terms leave up to 2^-16 of p."""
+    g = torch.Generator().manual_seed(0)
+    p = torch.cat([torch.rand(100000, generator=g),
+                   torch.rand(1000, generator=g) * 2.0 ** -100,
+                   torch.tensor([0.0, 1.0, 0.5, 2.0 ** -110])])
+    t = _split_terms(p, 3)
+    assert all(torch.equal(x.to(torch.bfloat16).float(), x) for x in t)
+    assert torch.equal((t[0] + t[1]) + t[2], p)
+    t2 = _split_terms(p, -2)
+    rel = ((t2[0] + t2[1]) - p).abs() / p.clamp_min(1e-38)
+    assert 0 < float(rel.max()) <= 2.0 ** -16
+
+
+@pytest.mark.parametrize("B,Hq,Hkv,Sq,Sk,D,win", [
+    (2, 4, 2, 192, 192, 128, None),
+    (1, 8, 1, 96, 160, 64, 48),
+    (1, 4, 2, 130, 130, 192, None),
+    (1, 2, 1, 70, 70, 256, None),
+    (2, 4, 4, 100, 100, 32, None),
+])
+def test_tensor_core_arithmetic_meets_the_bf16_gate(B, Hq, Hkv, Sq, Sk, D,
+                                                     win):
+    """The kernel's arithmetic, emulated, within chip_smoke.py's bf16 gate
+    (one bf16 ulp, 2^-7 relative, plus 1e-6) of the plain version on bf16
+    inputs, at every shape; the emulation rounds p's terms exactly as the
+    kernel does."""
+    g = torch.Generator().manual_seed(Sq + D)
+    r = lambda *shape: torch.randn(*shape, generator=g).to(torch.bfloat16)
+    q, k, v = r(B, Hq, Sq, D), r(B, Hkv, Sk, D), r(B, Hkv, Sk, D)
+    want = ref.flash_attention_ref(q, k, v, causal=True, window=win).float()
+    got = _tc_emulation(q, k, v, causal=True, window=win).float()
+    assert bool(((got - want).abs() <= 2.0 ** -7 * want.abs() + 1e-6).all())
+
+
+if __name__ == "__main__":
+    # The emulation at the qwen3-0.6b serve shape (B=8, 16 q / 8 kv heads
+    # of 128, causal S=512, bf16 inputs from seed 0): outputs past the
+    # bf16 gate with p in three exact terms (the kernel's) and in two
+    # rounded ones. PYTHONPATH=src python tests/test_torch_attention.py
+    g = torch.Generator().manual_seed(0)
+    r = lambda *shape: torch.randn(*shape, generator=g).to(torch.bfloat16)
+    q, k, v = r(8, 16, 512, 128), r(8, 8, 512, 128), r(8, 8, 512, 128)
+    want = ref.flash_attention_ref(q, k, v).float()
+    tol = 2.0 ** -7 * want.abs() + 1e-6
+    for terms in (3, -2):
+        d = (_tc_emulation(q, k, v, terms=terms).float() - want).abs()
+        print(f"p in {abs(terms)} {'exact' if terms > 0 else 'rounded'} "
+              f"terms: {int((d > tol).sum())} of {d.numel()} outputs past "
+              f"the gate, worst |err| / tol {float((d / tol).max()):.3f}")

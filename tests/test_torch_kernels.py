@@ -283,3 +283,27 @@ def test_import_needs_no_compiler_and_loads_no_jax():
            "PATH": "/usr/bin:/bin"}
     subprocess.run([sys.executable, "-c", code], check=True, env=env,
                    timeout=120)
+
+
+@pytest.mark.parametrize("B", [1, 16, 17, 64, 1000])
+def test_kernel_wrappers_take_any_batch_of_at_least_one_row(B):
+    """The row-balanced kernels run a batch above 16 rows in 16-row tiles
+    inside one launch (the scans one launch a tile), so the wrappers'
+    batch check accepts any B >= 1; the plain route serves the same B."""
+    from repro_torch.core import pack_from_dense as tpack
+    from repro_torch.kernels.rb_spmv import check_batch
+    check_batch(B)
+    rng = np.random.default_rng(B)
+    s = tpack(torch.from_numpy(rng.normal(size=(32, 24)).astype(np.float32)),
+              0.5)
+    x = torch.from_numpy(rng.normal(size=(B, 24)).astype(np.float32))
+    y = ops.rb_spmv(s, x)
+    assert y.shape == (B, 32)
+    assert torch.equal(y[-1:], ops.rb_spmv(s, x[-1:]))
+
+
+@pytest.mark.parametrize("B", [0, -1])
+def test_kernel_wrappers_refuse_an_empty_batch(B):
+    from repro_torch.kernels.rb_spmv import check_batch
+    with pytest.raises(ValueError, match="at least one row"):
+        check_batch(B)

@@ -166,3 +166,37 @@ def test_scan_cpu_tensors_never_reach_a_kernel():
             sx.values, sx.deltas, t["xs"], sh.values, sh.deltas, t["h"],
             t["c"], t["xr"], t["hr"], t["m"], t["b"], theta_x=0.0,
             theta_h=0.0)
+
+
+@pytest.mark.parametrize("kind", ["float", "delta0.05"])
+def test_scan_batch_tiles_concatenate_to_the_whole_batch(kind):
+    """A batch above the 16 rows a scan launch takes runs as one call per
+    16-row tile (``fused_scan.batch_tiles``); with the plain scan standing
+    in for the kernel, the tiles' outputs concatenated are bitwise the
+    whole batch's, and a batch of at most 16 rows is one uncut call."""
+    _, t = _case(16, 40, 48, 33, True)
+    calls = []
+    if kind == "float":
+        def scan(xs, h, c):
+            calls.append(xs.shape[1])
+            return ops.fused_brds_lstm_scan(t["sx"], xs, t["sh"], h, t["b"],
+                                            c)
+        args, ins, outs = (t["xs"], t["h"], t["c"]), (1, 0, 0), (1, 0)
+    else:
+        def scan(xs, h, c, xr, hr, m):
+            calls.append(xs.shape[1])
+            return ops.fused_brds_delta_lstm_scan(
+                t["sx"], xs, t["sh"], h, c, xr, hr, m, t["b"],
+                theta_x=0.05, theta_h=0.05)
+        args = (t["xs"], t["h"], t["c"], t["xr"], t["hr"], t["m"])
+        ins, outs = (1, 0, 0, 0, 0, 0), (1, 0, 0, 0, 0)
+    got = tscan.batch_tiles(scan, 40, args, ins, outs)
+    assert calls == [16, 16, 8]
+    whole = scan(*args)
+    assert len(got) == len(whole)
+    for g, w in zip(got, whole):
+        assert torch.equal(g, w)
+    calls.clear()
+    small = tuple(a.narrow(d, 0, 16) for a, d in zip(args, ins))
+    tscan.batch_tiles(scan, 16, small, ins, outs)
+    assert calls == [16]

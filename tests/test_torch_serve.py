@@ -389,3 +389,27 @@ def test_full_width_config_shapes():
     assert keep_count(cfg.hidden, 0.5) == 750
     assert _delta_dtype(cfg.hidden, 750) == torch.int16
     assert 4 * cfg.hidden + (-4 * cfg.hidden) % 256 == 6144
+
+
+@pytest.mark.parametrize("flags,fused", [([], True), (["--fused"], True),
+                                         (["--no-fused"], False),
+                                         (["--no-fused", "--fused"], True)])
+def test_serve_cli_fused_flag_reaches_the_model(monkeypatch, capsys, flags,
+                                                fused):
+    """``--fused`` parses, as the reference's ``launch.serve`` has it, and
+    it and ``--no-fused`` reach ``LSTMModel(fused=...)``; fused is the
+    default."""
+    import repro_torch.models as tmodels
+    from repro_torch.launch import serve
+    seen = []
+
+    class Recording(tmodels.LSTMModel):
+        def __init__(self, cfg, **kw):
+            seen.append(kw.get("fused"))
+            super().__init__(cfg, **kw)
+
+    monkeypatch.setattr(tmodels, "LSTMModel", Recording)
+    serve.main(["--smoke", "--brds", "--device", "cpu", "--batch", "1",
+                "--prompt-len", "3", "--gen", "2", *flags])
+    assert seen == [fused]
+    assert "generated (1, 2)" in capsys.readouterr().out
