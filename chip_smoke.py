@@ -5,13 +5,18 @@
 
 1. Prints the card (``nvidia-smi``), the torch / CUDA versions, and builds
    every CUDA kernel from ``src/repro_torch/csrc`` (one nvcc per source, all
-   started together).
+   started together); for the redesigned float scan and fused q8 step at
+   the serve tier, prints ptxas's registers and spills, the local bytes,
+   shared memory, blocks an SM and waves at the launch's grid, and fails
+   on a spill, a local array or a second wave.
 2. Kernels: calls each kernel's wrapper at the serve path's full-width
    shapes (lstm_ptb, B=8, int16 deltas), at a small shape (B=3, int8
-   deltas, odd H: the fused kernels' partial last block) and at a wide one
-   (B=12: the 16-accumulator tier; int32 deltas for W_x), holds it against
-   its plain PyTorch version on the same inputs, holds each fused step
-   bitwise against its chained kernels, and times the kernel, the plain
+   deltas, odd H: the fused kernels' partial last block), at a wide one
+   (B=12: the 16-accumulator tier; int32 deltas for W_x; too wide for the
+   float scan and the q8 step to stage x in shared memory) and at a tall
+   one (B=12, H=4000: too wide for the float scan to stage h), holds it
+   against its plain PyTorch version on the same inputs, holds each fused
+   step bitwise against its chained kernels, and times the kernel, the plain
    version and the dense library call with L2 flushed. The float kernels
    (rb_dual_spmv, lstm_gates, fused step), the temporal-delta ones
    (delta_rb_dual_spmv, fused delta step, delta_rb_spmv) at a fired share
@@ -136,29 +141,6 @@ def card_line() -> str:
         check=True).stdout.strip().splitlines()[0]
 
 
-def time_ms(fn, flush, reps: int = 30) -> float:
-    """Median CUDA-event time of ``fn`` with L2 flushed before each run:
-    writing a buffer larger than the 50 MB L2 evicts the packed weights,
-    which would otherwise stay cached across reruns and beat the HBM bound
-    (the serve path reads them once per step, after the head's 60 MB). A
-    spin of about 1 ms on the card after the flush lets the host enqueue
-    ``fn`` before the card reaches the start event, so the time is the
-    card's alone and not the wrapper's host overhead."""
-    import torch
-    fn()
-    pairs = []
-    for _ in range(reps):
-        flush.zero_()
-        torch.cuda._sleep(2_000_000)
-        s, e = (torch.cuda.Event(enable_timing=True) for _ in range(2))
-        s.record()
-        fn()
-        e.record()
-        pairs.append((s, e))
-    torch.cuda.synchronize()
-    return statistics.median(s.elapsed_time(e) for s, e in pairs)
-
-
 def bound(nbytes: int, flops: int, int_ops: int = 0,
           bf16_flops: int = 0) -> tuple[float, str]:
     """Least time (ms) for the work: bytes over the memory rate vs the
@@ -244,6 +226,72 @@ def ptxas_attention(out: str, flash_smem: int) -> list[str]:
     return rows
 
 
+# the redesigned instantiations at the serve tier (B=8, lstm_ptb): mangled
+# name fragment -> what chip_smoke prints
+REDESIGNED = {"fused_scan_kernelILi8ELb1ELb1E":
+              "fused_scan_kernel<8, xs staged, h staged> (B12)",
+              "fused_step_q8_kernelIaLi8ELb0ELb1E":
+              "fused_step_q8_kernel<int8, 8, staged> (B8 int8)",
+              "fused_step_q8_kernelIsLi8ELb0ELb1E":
+              "fused_step_q8_kernel<int16, 8, staged> (B8 q1.11)"}
+
+
+def ptxas_redesigned(out: str) -> dict:
+    """From ``nvcc -Xptxas -v`` output: (registers, spill store bytes) of
+    each REDESIGNED instantiation found in it."""
+    import re
+    got, name, spill = {}, None, 0
+    for ln in out.splitlines():
+        if "Compiling entry function" in ln:
+            name = next((k for k in REDESIGNED if k in ln), None)
+            spill = 0
+        m = re.search(r"(\d+) bytes spill stores", ln)
+        if m and name:
+            spill = int(m.group(1))
+        m = re.search(r"Used (\d+) registers", ln)
+        if m and name:
+            got[name] = (int(m.group(1)), spill)
+            name = None
+    return got
+
+
+def occupancy(torch, device) -> None:
+    """Prints, for the redesigned B12 and B8 (int8, q1.11) instantiations
+    at the serve tier: ptxas's registers and spill bytes, the launch plan's
+    dynamic shared memory and grid, and the blocks an SM and waves the
+    runtime's occupancy calculator gives at that grid (beside the plain
+    ``plan.blocks_per_sm``). Fails unless each has no spill and no local
+    array and runs in one wave."""
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import fused_scan as kscan
+    from repro_torch.kernels import fused_step as kstep
+    from repro_torch.kernels import plan as P
+    ptx = {**ptxas_redesigned(_build.BUILD_LOG.get("fused_scan", "")),
+           **ptxas_redesigned(_build.BUILD_LOG.get("fused_step", ""))}
+    sms = _build.sm_count(device)
+    B, X, H, Kx, Kh = SERVE["batch"], 1500, 1500, 375, 750
+    sp = P.scan_plan(X=X, H=H, T=SERVE["prompt"], B=B, Kx=Kx, Kh=Kh, sms=sms)
+    rows = [("fused_scan_kernelILi8ELb1ELb1E", sp, P.SCAN_THREADS,
+             kscan.scan_info(sp, B, device))]
+    for key, cb in (("fused_step_q8_kernelIaLi8ELb0ELb1E", 1),
+                    ("fused_step_q8_kernelIsLi8ELb0ELb1E", 2)):
+        qp = P.q8_plan(X=X, H=H, B=B, Kx=Kx, Kh=Kh, code_bytes=cb, sms=sms)
+        rows.append((key, qp, P.Q8_THREADS, kstep.q8_info(qp, B, cb, device)))
+    for key, plan, threads, info in rows:
+        regs, spill = ptx.get(key, (None, None))
+        calc = P.blocks_per_sm(info["registers"], threads, plan.smem)
+        log(f"[occupancy] {REDESIGNED[key]}: ptxas {regs} registers, {spill} "
+            f"B spill; runtime {info['registers']} registers, "
+            f"{info['local_bytes']} B local; {plan.smem} B dynamic shared "
+            f"memory; {info['blocks_per_sm']} block(s) an SM (plan."
+            f"blocks_per_sm: {calc}), grid {plan.grid} blocks on {sms} "
+            f"SMs: {info['waves']} wave(s)")
+        if spill != 0 or info["local_bytes"] != 0 or info["waves"] != 1:
+            raise AssertionError(f"{REDESIGNED[key]}: spills, keeps an "
+                                 "array in local memory or takes more "
+                                 "than one wave")
+
+
 def cell(z, c, pwl=False):
     """The plain cell on z (B, 4H) grouped [f; i; g; o]."""
     from repro_torch.kernels.ref import lstm_cell_ref
@@ -298,6 +346,7 @@ def check_kernels(torch, device, flush):
     from repro_torch.core import unpack
     from repro_torch.kernels import ops, ref
     from repro_torch.kernels import rb_spmv_q8 as kq8
+    from repro_torch.kernels._build import time_ms
     rec = {n: dict(max_abs_err=0.0) for n in KERNELS}
 
     def err(name, a, b, tol, what):
@@ -314,7 +363,12 @@ def check_kernels(torch, device, flush):
                       spar_h=0.5, seed=2)
     wide = make_case(torch, device, B=12, X=33000, H=97, spar_x=0.75,
                      spar_h=0.5, seed=3)
-    for tag, cs in (("full", full), ("small", small), ("wide", wide)):
+    # a hidden state too wide for the float scan to stage at B > 8: its
+    # recurrence gathers h from global memory
+    tall = make_case(torch, device, B=12, X=64, H=4000, spar_x=0.75,
+                     spar_h=0.5, seed=4)
+    for tag, cs in (("full", full), ("small", small), ("wide", wide),
+                    ("tall", tall)):
         sx, sh, x, h, c, b, H = (cs[k] for k in
                                  ("sx", "sh", "x", "h", "c", "bias", "H"))
         log(f"[kernels] {tag}: B={cs['B']} X={cs['X']} H={H} R={sx.rows} "
@@ -356,6 +410,16 @@ def check_kernels(torch, device, flush):
         check_delta_q8(torch, ops, err, tag, cs)
         check_scans(torch, ops, err, tag, cs)
     check_batch_tiles(torch, ops, err)
+    # the fused q8 step (B8) at the other batch tiers, full width: B=1 and
+    # 16 in one tile, 64 in four (rows of 375 and 750 entries, neither a
+    # multiple of the 4 entries a lane loads)
+    for B in (1, 16, 64):
+        cs = make_case(torch, device, B=B, X=1500, H=1500, spar_x=0.75,
+                       spar_h=0.5, seed=6 + B)
+        check_q8(torch, ops, ref, kq8, err, f"full B={B}", cs)
+        if B == 16:
+            # the scans' largest one-tile batch
+            check_tile_scans(torch, ops, err, cs)
 
     # times at the serve path's shapes
     sx, sh, x, h, c, b, H = (full[k] for k in
@@ -689,21 +753,9 @@ def check_batch_tiles(torch, ops, err):
         log(f"  {name:29} B={B}: bitwise equal to its {T}-row tiles; "
             f"max|err| vs plain {max(errs):.3e} (tol "
             f"{', '.join(f'{t:.0e}' for t in tols)})")
-    # at Θ = 0.05 a delta within float noise of Θ fires on one side and
-    # not the other, so the plain version is no reference over 64 x 1500
-    # x 32 decisions; the scan must equal T x (thresholds → fused delta
-    # step), bitwise, as phase 2 holds it at B <= 12
-    got = ops.fused_brds_delta_lstm_scan(
-        sx, cs["xs"], sh, cs["h"], cs["c"], cs["x_ref"], cs["h_ref"],
-        cs["m"], b, theta_x=0.05, theta_h=0.05, backend="cuda")
-    want = delta_steps(torch, ops, cs, 0.05)
-    torch.cuda.synchronize()
-    if not all(torch.equal(g, w) for g, w in zip(got, want)):
-        raise AssertionError(f"delta scan at B={B}, Θ=0.05, is not bitwise "
-                             f"{cs['xs'].shape[0]} x (thresholds → fused "
-                             "delta step)")
-    log(f"  fused_brds_delta_lstm_scan    B={B} Θ=0.05: bitwise equal to "
-        f"{cs['xs'].shape[0]} x (thresholds → fused delta step)")
+    # at Θ = 0.05 a delta within float noise of Θ can fire on one side
+    # and not the other over 64 x 1500 x 32 decisions
+    check_delta_chain(torch, ops, err, f"B={B}", cs)
 
 
 def ref_q8(s, q, scale):
@@ -711,9 +763,12 @@ def ref_q8(s, q, scale):
     return ref.rb_spmv_q8_ref(s, q, scale)
 
 
-def delta_steps(torch, ops, cs, theta, pwl=False):
-    """T × (delta_threshold on x and on h → the fused delta step kernel):
-    what the delta scan must equal. Returns (hs, c, x_ref, h_ref, m)."""
+def delta_steps(torch, ops, cs, theta, pwl=False, backend="cuda",
+                decisions=None):
+    """T × (delta_threshold on x and on h → the fused delta step kernel, or
+    its plain version with ``backend="ref"``): what the delta scan must
+    equal. Each step's (|dx|, fx, |dh|, fh) goes to ``decisions`` when
+    given. Returns (hs, c, x_ref, h_ref, m)."""
     from repro_torch.sparse.temporal import delta_threshold
     sx, sh, b = cs["sx"], cs["sh"], cs["bias"]
     c, h, xr, hr, m = (cs[k] for k in ("c", "h", "x_ref", "h_ref", "m"))
@@ -721,11 +776,114 @@ def delta_steps(torch, ops, cs, theta, pwl=False):
     for x in cs["xs"]:
         dx, fx, xr = delta_threshold(x, xr, theta)
         dh, fh, hr = delta_threshold(h, hr, theta)
+        if decisions is not None:
+            decisions.append((dx.abs(), fx, dh.abs(), fh))
         c, h, m = ops.fused_brds_delta_lstm_step(sx, dx, fx, sh, dh, fh, m,
                                                  b, c, pwl=pwl,
-                                                 backend="cuda")
+                                                 backend=backend)
         hs.append(h)
     return torch.stack(hs), c, xr, hr, m
+
+
+def check_tile_scans(torch, ops, err, cs):
+    """Both scans at a batch of one full tile (B=16, full width): the
+    float scan bitwise equal to T fused-step launches and within
+    CELL_TOL of its plain version; the delta scan at Θ = 0 bitwise equal
+    to its chain and within Z_TOL of its plain version, and at Θ = 0.05
+    as ``check_delta_chain`` holds it."""
+    sx, sh, xs, h0, c0, b = (cs[k] for k in ("sx", "sh", "xs", "h", "c",
+                                             "bias"))
+    T, B = xs.shape[:2]
+    tag = f"B={B}"
+    got = ops.fused_brds_lstm_scan(sx, xs, sh, h0, b, c0, backend="cuda")
+    c, h, hs = c0, h0, []
+    for x in xs:
+        c, h = ops.fused_brds_lstm_step(sx, x, sh, h, b, c, backend="cuda")
+        hs.append(h)
+    plain = ops.fused_brds_lstm_scan(sx, xs, sh, h0, b, c0, backend="ref")
+    torch.cuda.synchronize()
+    name = "fused_brds_lstm_scan"
+    e = max(err(name, got[0], plain[0], CELL_TOL, f"{tag} hs"),
+            err(name, got[1], plain[1], CELL_TOL, f"{tag} c"))
+    if not (torch.equal(got[0], torch.stack(hs)) and torch.equal(got[1], c)):
+        raise AssertionError(f"scan is not bitwise equal to {T} fused steps "
+                             f"({tag})")
+    log(f"  {name:29} {tag}: bitwise equal to {T} fused-step launches; "
+        f"max|hs,c err| {e:.3e} (tol {CELL_TOL:.0e})")
+    args = (sx, xs, sh, h0, c0, cs["x_ref"], cs["h_ref"], cs["m"], b)
+    got = ops.fused_brds_delta_lstm_scan(*args, theta_x=0.0, theta_h=0.0,
+                                         backend="cuda")
+    want = delta_steps(torch, ops, cs, 0.0)
+    plain = ops.fused_brds_delta_lstm_scan(*args, theta_x=0.0, theta_h=0.0,
+                                           backend="ref")
+    torch.cuda.synchronize()
+    name = "fused_brds_delta_lstm_scan"
+    if not all(torch.equal(g, w) for g, w in zip(got, want)):
+        raise AssertionError(f"delta scan is not bitwise equal to {T} × "
+                             f"(thresholds → fused delta step) ({tag}, Θ=0)")
+    e = max(err(name, g, p_, Z_TOL, f"{tag} {what} Θ=0")
+            for g, p_, what in zip(got, plain, ("hs", "c", "x_ref", "h_ref",
+                                                "m")))
+    log(f"  {name:29} {tag} Θ=0: bitwise equal to {T} x (thresholds → "
+        f"fused delta step); max|err| vs plain {e:.3e} (tol {Z_TOL:.0e})")
+    check_delta_chain(torch, ops, err, tag, cs)
+
+
+def check_delta_chain(torch, ops, err, tag, cs, theta=0.05):
+    """The delta scan at Θ > 0, bitwise equal to T × (thresholds → fused
+    delta step). Against the plain version it is held to Z_TOL unless a
+    threshold decision flipped: the plain chain (T × (thresholds → plain
+    fused delta step)) first fires otherwise than the kernels' at some
+    step, the two agree within Z_TOL before it, and every decision that
+    differs there has |d| within Z_TOL of Θ (the float noise of z's order,
+    carried into h, tips it). A flip changes the trajectory from that
+    step on, so the plain version is no reference from there; a differing
+    decision away from Θ fails."""
+    args = (cs["sx"], cs["xs"], cs["sh"], cs["h"], cs["c"], cs["x_ref"],
+            cs["h_ref"], cs["m"], cs["bias"])
+    got = ops.fused_brds_delta_lstm_scan(*args, theta_x=theta,
+                                         theta_h=theta, backend="cuda")
+    kd, pd = [], []
+    want = delta_steps(torch, ops, cs, theta, decisions=kd)
+    plain = ops.fused_brds_delta_lstm_scan(*args, theta_x=theta,
+                                           theta_h=theta, backend="ref")
+    delta_steps(torch, ops, cs, theta, backend="ref", decisions=pd)
+    torch.cuda.synchronize()
+    T, B = cs["xs"].shape[:2]
+    name = "fused_brds_delta_lstm_scan"
+    if not all(torch.equal(g, w) for g, w in zip(got, want)):
+        raise AssertionError(f"delta scan at B={B}, Θ={theta}, is not "
+                             f"bitwise {T} x (thresholds → fused delta "
+                             "step)")
+    diff = max((g - p_).abs().max().item() for g, p_ in zip(got, plain))
+    flip = next((t for t, (k, p_) in enumerate(zip(kd, pd))
+                 if not (torch.equal(k[1], p_[1])
+                         and torch.equal(k[3], p_[3]))), None)
+    if flip is None:
+        e = max(err(name, g, p_, Z_TOL, f"{tag} {what} Θ={theta}")
+                for g, p_, what in zip(got, plain, ("hs", "c", "x_ref",
+                                                    "h_ref", "m")))
+        why = f"max|err| vs plain {e:.3e} (tol {Z_TOL:.0e}), no flip"
+    else:
+        near = 0.0
+        for a, f in ((0, 1), (2, 3)):
+            k, p_ = kd[flip], pd[flip]
+            at = k[f] != p_[f]
+            if at.any():
+                near = max(near, (k[a][at] - theta).abs().max().item())
+        if not near <= Z_TOL:
+            raise AssertionError(
+                f"delta scan at B={B}, Θ={theta}: the plain chain first "
+                f"fires otherwise at step {flip}, at |d| {near:.3e} from Θ "
+                f"(> {Z_TOL:.0e}): not a threshold flip")
+        if flip:
+            err(name, got[0][:flip], plain[0][:flip], Z_TOL,
+                f"{tag} hs before the flip at step {flip}, Θ={theta}")
+        why = (f"max|diff| vs plain {diff:.3e}: a threshold decision "
+               f"flips at step {flip} of {T}, |d| within {near:.3e} of Θ "
+               f"(≤ {Z_TOL:.0e}), and the trajectories part there")
+    log(f"  {name:29} B={B} Θ={theta}: bitwise equal to {T} x "
+        f"(thresholds → fused delta step); {why}")
 
 
 def check_scans(torch, ops, err, tag, cs):
@@ -1477,6 +1635,7 @@ def check_attention(torch, device, flush):
     ``scaled_dot_product_attention`` (``enable_gqa=True``, a yardstick the
     port never calls). Returns the two kernels' records."""
     from repro_torch.kernels import ops
+    from repro_torch.kernels._build import time_ms
     F = torch.nn.functional
     rec = {n: dict(max_abs_err=0.0) for n in ATTN_KERNELS}
     B, P, G = TSERVE["batch"], TSERVE["prompt"], TSERVE["gen"]
@@ -1779,6 +1938,8 @@ def main() -> int:
             "attention").brds_flash_attention_bf16_smem(128, 2))
                 if name == "attention" else ptxas_serve_tier(out))
         log(f"  {name}: {n} kernels; the B=8 serve tier: " + "; ".join(tier))
+
+    occupancy(torch, device)
 
     flush = torch.empty(256 << 20, dtype=torch.uint8, device=device)
     rec = check_kernels(torch, device, flush)

@@ -1,5 +1,6 @@
 // Device routines shared by the BRDS-LSTM kernels (rb_spmv.cu,
-// delta_rb_spmv.cu, rb_spmv_q8.cu, lstm_gates.cu, fused_step.cu).
+// delta_rb_spmv.cu, rb_spmv_q8.cu, lstm_gates.cu, fused_step.cu,
+// fused_scan.cu).
 //
 // Each fused step must be bitwise equal to its chained pair, so both use
 // the same row routine, the same per-row epilogue and the same cell
@@ -9,7 +10,16 @@
 //    32 partial sums. Float and integer addition commute, so every lane ends
 //    with the same total. What a packed entry is multiplied by is a policy
 //    (F32Act, DeltaAct, CodeAct): one routine serves the float, the
-//    temporal-delta and the quantized kernels.
+//    temporal-delta and the quantized kernels. The float scan
+//    (fused_scan.cu) keeps this order with its operands moved: columns
+//    decoded once, activations staged in shared memory.
+//  - row_dot_q8x4 is the integer-code row of the fused q8 step: each lane
+//    takes four consecutive entries (one load of codes, one of deltas),
+//    and __dp4a multiplies int8 codes four at a time. Integer sums are
+//    exact modulo 2^32 in any order, so this routine may split a row
+//    otherwise than row_dot and still equal its chained pair (rb_spmv_q8.cu,
+//    which keeps row_dot) bit for bit; float sums may not, which is why
+//    the float kernels keep row_dot's order.
 //  - the epilogues (delta_update, dequant) and lstm_cell round every
 //    product and sum on its own (__fmul_rn, __fadd_rn), so the compiler
 //    cannot contract a product into the following add in one kernel and
@@ -19,7 +29,9 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <mutex>
 #include <type_traits>
+#include <unordered_map>
 
 namespace brds {
 
@@ -118,6 +130,362 @@ __device__ __forceinline__ void row_dot(const typename Op::W* __restrict__ vals,
   }
 }
 
+// Staged activations. A kernel that gathers activations from shared memory
+// keeps each column's batch values together (a 4- to 32-byte vector) at a
+// permuted position: the lanes of a warp take entries about 2^shift
+// columns apart, and stage_pos moves bits [shift, shift + slot_bits) of the
+// column to the bottom, so the lanes of one phase of a shared load fall on
+// distinct slots of the 128-byte bank row instead of a few. A permutation
+// within each run of 2^(shift + slot_bits) columns, the identity at shift
+// 0; the staged arrays are padded to whole runs. kernels/plan.py picks
+// shift and slot_bits and sizes the arrays on the host.
+__device__ __forceinline__ int stage_pos(int c, int shift, int slot_bits) {
+  const int m = shift + slot_bits;
+  return ((c >> m) << m) | ((c & ((1 << shift) - 1)) << slot_bits) |
+         ((c >> shift) & ((1 << slot_bits) - 1));
+}
+
+// One column delta of a delta array of `bytes`-wide integers (1, 2 or 4).
+__device__ __forceinline__ int load_delta(const void* d, int bytes, size_t e) {
+  if (bytes == 1) return __ldg(static_cast<const int8_t*>(d) + e);
+  if (bytes == 2) return __ldg(static_cast<const int16_t*>(d) + e);
+  return __ldg(static_cast<const int32_t*>(d) + e);
+}
+
+// Four consecutive integer codes of one lane, entry i in byte (int8) or
+// half-word (int16) i, little-endian: the pairing __dp4a uses.
+template <typename CT>
+struct Codes4 {
+  static_assert(sizeof(CT) == 1 || sizeof(CT) == 2, "int8 or int16 codes");
+  uint32_t w[sizeof(CT)];
+  __device__ __forceinline__ int get(int i) const {
+    if constexpr (sizeof(CT) == 1)
+      return static_cast<int8_t>(w[0] >> (8 * i));
+    else
+      return i & 1 ? static_cast<int>(w[i >> 1]) >> 16
+                   : static_cast<int16_t>(w[i >> 1]);
+  }
+};
+
+template <typename CT>
+__device__ __forceinline__ Codes4<CT> load_codes4(const CT* p) {
+  Codes4<CT> c;
+  if constexpr (sizeof(CT) == 1) {
+    c.w[0] = __ldg(reinterpret_cast<const unsigned int*>(p));
+  } else {
+    const uint2 v = __ldg(reinterpret_cast<const uint2*>(p));
+    c.w[0] = v.x;
+    c.w[1] = v.y;
+  }
+  return c;
+}
+
+template <typename CT>
+__device__ __forceinline__ Codes4<CT> pack_codes4(const int (&q)[4]) {
+  Codes4<CT> c;
+  constexpr int bits = 8 * sizeof(CT);
+  constexpr uint32_t mask = (1u << bits) - 1;
+#pragma unroll
+  for (int i = 0; i < static_cast<int>(sizeof(CT)); ++i) c.w[i] = 0;
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+    c.w[i * bits / 32] |= (static_cast<uint32_t>(q[i]) & mask)
+                          << (bits * i % 32);
+  return c;
+}
+
+// Where row_dot_q8x4 finds a column's NB activation codes, as the words of
+// one vector (batch row b in byte / half-word b): staged in shared memory
+// at stage_pos, or gathered from global memory (B, ld) when the block's
+// activations do not fit in shared memory.
+template <typename CTp, int NB>
+struct StagedCodes {
+  using CT = CTp;
+  static constexpr int kWords = NB * static_cast<int>(sizeof(CT)) / 4;
+  const uint32_t* s;   // shared, kWords words a position
+  int shift, slot_bits;
+  __device__ __forceinline__ void fetch(int col,
+                                        uint32_t (&v)[kWords]) const {
+    const uint32_t* p = s + stage_pos(col, shift, slot_bits) * kWords;
+    if constexpr (kWords == 1) {
+      v[0] = *p;
+    } else if constexpr (kWords == 2) {
+      const uint2 t = *reinterpret_cast<const uint2*>(p);
+      v[0] = t.x;
+      v[1] = t.y;
+    } else {
+#pragma unroll
+      for (int i = 0; i < kWords; i += 4) {
+        const uint4 t = *reinterpret_cast<const uint4*>(p + i);
+        v[i] = t.x;
+        v[i + 1] = t.y;
+        v[i + 2] = t.z;
+        v[i + 3] = t.w;
+      }
+    }
+  }
+};
+
+template <typename CTp, int NB>
+struct GlobalCodes {
+  using CT = CTp;
+  static constexpr int kWords = NB * static_cast<int>(sizeof(CT)) / 4;
+  const CT* __restrict__ act;
+  int ld, B;
+  __device__ __forceinline__ void fetch(int col,
+                                        uint32_t (&v)[kWords]) const {
+    constexpr int per = 4 / sizeof(CT), bits = 8 * sizeof(CT);
+    constexpr uint32_t mask = (1u << bits) - 1;
+#pragma unroll
+    for (int i = 0; i < kWords; ++i) v[i] = 0;
+#pragma unroll
+    for (int b = 0; b < NB; ++b)
+      if (b < B)
+        v[b / per] |= (static_cast<uint32_t>(__ldg(act + b * ld + col)) & mask)
+                      << (bits * (b % per));
+  }
+};
+
+// o[j] = byte j of each of w0..w3, in that order: a 4x4 byte transpose.
+__device__ __forceinline__ void transpose4x4(uint32_t w0, uint32_t w1,
+                                             uint32_t w2, uint32_t w3,
+                                             uint32_t (&o)[4]) {
+  const uint32_t t0 = __byte_perm(w0, w1, 0x5140);   // w0.0 w1.0 w0.1 w1.1
+  const uint32_t t1 = __byte_perm(w0, w1, 0x7362);   // w0.2 w1.2 w0.3 w1.3
+  const uint32_t t2 = __byte_perm(w2, w3, 0x5140);
+  const uint32_t t3 = __byte_perm(w2, w3, 0x7362);
+  o[0] = __byte_perm(t0, t2, 0x5410);
+  o[1] = __byte_perm(t0, t2, 0x7632);
+  o[2] = __byte_perm(t1, t3, 0x5410);
+  o[3] = __byte_perm(t1, t3, 0x7632);
+}
+
+// acc[b] += sum_i w_i * a_i[b] for one lane's four entries, wrapping:
+// int8 with one __dp4a per batch row (the four entries' codes of row b
+// gathered into one word by transpose4x4), int16 with an IMAD per product.
+template <typename CT, int NB, int W>
+__device__ __forceinline__ void mac4(uint32_t (&acc)[NB], const Codes4<CT>& w,
+                                     const uint32_t (&a)[4][W]) {
+  if constexpr (sizeof(CT) == 1) {
+#pragma unroll
+    for (int g = 0; g < W; ++g) {
+      uint32_t o[4];
+      transpose4x4(a[0][g], a[1][g], a[2][g], a[3][g], o);
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        acc[4 * g + j] = static_cast<uint32_t>(
+            __dp4a(static_cast<int>(w.w[0]), static_cast<int>(o[j]),
+                   static_cast<int>(acc[4 * g + j])));
+    }
+  } else {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int wi = w.get(i);
+#pragma unroll
+      for (int b = 0; b < NB; ++b) {
+        const uint32_t word = a[i][b >> 1];
+        const int ab = b & 1 ? static_cast<int>(word) >> 16
+                             : static_cast<int16_t>(word);
+        acc[b] += static_cast<uint32_t>(wi * ab);
+      }
+    }
+  }
+}
+
+// Every lane ends with the warp's total of each acc[b] (xor butterfly).
+template <typename T, int N>
+__device__ __forceinline__ void warp_sum(T (&acc)[N]) {
+#pragma unroll
+  for (int b = 0; b < N; ++b) {
+    T s = acc[b];
+#pragma unroll
+    for (int o = kWarp / 2; o > 0; o >>= 1)
+      s += __shfl_xor_sync(0xffffffffu, s, o);
+    acc[b] = s;
+  }
+}
+
+// One lane's share of G chunks of a packed integer row (row_dot_q8x4's
+// unit of loading): the raw deltas of each chunk and its four codes. DT is
+// the delta type, or void for a width known only at run time (`dbytes`),
+// whose raw words take the widest (int32) form's four registers.
+template <typename DT>
+struct DeltaBytes {
+  static constexpr int value = sizeof(DT);
+};
+template <>
+struct DeltaBytes<void> {   // known at run time
+  static constexpr int value = 0;
+};
+template <typename DT>
+constexpr int kDeltaWords = DeltaBytes<DT>::value ? DeltaBytes<DT>::value : 4;
+
+template <typename CT, typename DT, int G>
+struct Q8Group {
+  uint32_t d[G][kDeltaWords<DT>];
+  Codes4<CT> w[G];
+};
+
+// The chunking of a packed integer row of K entries at element `off` of
+// the codes and the deltas: chunks of four consecutive elements counted
+// from the 4-aligned element at or before `off`; entries outside the row
+// (the head peeled off an unaligned row, the tail past K) count as code 0,
+// delta 0.
+__device__ __forceinline__ int q8x4_chunks(size_t off, int K) {
+  return (static_cast<int>(off & 3) + K + 3) >> 2;
+}
+
+// The raw words of four deltas at element `at` (a multiple of 4): one 4-,
+// 8- or 16-byte load.
+template <typename DT>
+__device__ __forceinline__ void load_deltas4(const void* deltas, int dbytes,
+                                             size_t at,
+                                             uint32_t (&d)[kDeltaWords<DT>]) {
+  const int w = DeltaBytes<DT>::value ? DeltaBytes<DT>::value : dbytes;
+  if (w == 1) {
+    d[0] = __ldg(reinterpret_cast<const unsigned int*>(
+        static_cast<const int8_t*>(deltas) + at));
+  } else if (w == 2) {
+    const uint2 v = __ldg(reinterpret_cast<const uint2*>(
+        static_cast<const int16_t*>(deltas) + at));
+    d[0] = v.x;
+    d[kDeltaWords<DT> > 1 ? 1 : 0] = v.y;
+  } else if constexpr (kDeltaWords<DT> == 4) {
+    const uint4 v = __ldg(reinterpret_cast<const uint4*>(
+        static_cast<const int32_t*>(deltas) + at));
+    d[0] = v.x;
+    d[1] = v.y;
+    d[2] = v.z;
+    d[3] = v.w;
+  }
+}
+
+// Loads chunks c0 + 32u + lane (u < G) of the row into g: one load of
+// four codes and one of four deltas a chunk inside the row; element by
+// element at the row's two ends.
+template <typename CT, typename DT, int G>
+__device__ __forceinline__ void q8x4_load(const CT* __restrict__ codes,
+                                          const void* __restrict__ deltas,
+                                          int dbytes, size_t off, int K,
+                                          int c0, Q8Group<CT, DT, G>& g) {
+  constexpr int DW = kDeltaWords<DT>;
+  const int lane = threadIdx.x & (kWarp - 1);
+  const int bits =
+      8 * (DeltaBytes<DT>::value ? DeltaBytes<DT>::value : dbytes);
+  const size_t a0 = off & ~static_cast<size_t>(3);
+  const int head = static_cast<int>(off - a0);
+#pragma unroll
+  for (int u = 0; u < G; ++u) {
+    const int c = c0 + u * kWarp + lane;
+    const int e = 4 * c - head;   // the chunk's first entry in the row
+    if (e >= 0 && e + 4 <= K) {
+      const size_t at = a0 + 4 * static_cast<size_t>(c);
+      load_deltas4<DT>(deltas, dbytes, at, g.d[u]);
+      g.w[u] = load_codes4(codes + at);
+    } else {
+      int q[4];
+#pragma unroll
+      for (int i = 0; i < DW; ++i) g.d[u][i] = 0;
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int k = e + i;
+        const bool live = k >= 0 && k < K;
+        const uint32_t dv =
+            live ? static_cast<uint32_t>(load_delta(deltas, bits / 8, off + k))
+                 : 0u;
+        q[i] = live ? static_cast<int>(__ldg(codes + off + k)) : 0;
+        // the raw layout a vector load of this width gives (indices known
+        // at compile time: a register array indexed at run time would
+        // live in local memory)
+        if (bits == 8)
+          g.d[u][0] |= (dv & 0xffu) << (8 * i);
+        else if (bits == 16)
+          g.d[u][(i >> 1) % DW] |= (dv & 0xffffu) << (16 * (i & 1));
+        else
+          g.d[u][i % DW] = dv;
+      }
+      g.w[u] = pack_codes4<CT>(q);
+    }
+  }
+}
+
+// The four deltas of a chunk from its raw words.
+template <typename DT>
+__device__ __forceinline__ void q8x4_deltas(
+    const uint32_t (&d)[kDeltaWords<DT>], int dbytes, int (&o)[4]) {
+  const int w = DeltaBytes<DT>::value ? DeltaBytes<DT>::value : dbytes;
+  if (w == 1) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) o[i] = static_cast<int8_t>(d[0] >> (8 * i));
+  } else if (w == 2) {
+    constexpr int k1 = kDeltaWords<DT> > 1 ? 1 : 0;
+    o[0] = static_cast<int16_t>(d[0]);
+    o[1] = static_cast<int>(d[0]) >> 16;
+    o[2] = static_cast<int16_t>(d[k1]);
+    o[3] = static_cast<int>(d[k1]) >> 16;
+  } else {
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      o[i] = static_cast<int>(d[i % kDeltaWords<DT>]);
+  }
+}
+
+// acc[b] += sum of code * act(b, col) over the chunks of g (chunks c0 +
+// 32u + lane, those below nchunks), for every batch row the policy holds.
+// A lane sums its four deltas in registers and the warp scans the 32
+// chunk sums, one scan per 128 entries; `carry` is the row's column before
+// chunk c0 (0 at the row's start). The products wrap modulo 2^32.
+template <int NB, typename DT, int G, typename Fetch>
+__device__ __forceinline__ void q8x4_consume(
+    const Q8Group<typename Fetch::CT, DT, G>& g, int dbytes, int c0,
+    int nchunks, int& carry, const Fetch& f, uint32_t (&acc)[NB]) {
+  const int lane = threadIdx.x & (kWarp - 1);
+#pragma unroll
+  for (int u = 0; u < G; ++u) {
+    if (c0 + u * kWarp >= nchunks) break;   // warp-uniform
+    int p[4];
+    q8x4_deltas<DT>(g.d[u], dbytes, p);
+#pragma unroll
+    for (int i = 1; i < 4; ++i) p[i] += p[i - 1];
+    int s = p[3];
+#pragma unroll
+    for (int o = 1; o < kWarp; o <<= 1) {
+      const int t = __shfl_up_sync(0xffffffffu, s, o);
+      if (lane >= o) s += t;
+    }
+    const int base = carry + s - p[3];
+    carry += __shfl_sync(0xffffffffu, s, kWarp - 1);
+    uint32_t a[4][Fetch::kWords];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) f.fetch(base + p[i], a[i]);
+    mac4<typename Fetch::CT, NB>(acc, g.w[u], a);
+  }
+}
+
+// The integer-code row routine of the fused q8 step: acc[b] += sum_k
+// codes[off + k] * act(b, col_k) over one packed row of K entries (col_k
+// the running sum of deltas), called by a whole warp. Lane l takes chunks
+// l, l+32, ... of four consecutive entries (q8x4_chunks): one load of four
+// codes and one of four deltas a chunk, G chunks loaded before any is
+// used, the sums in another order than row_dot's and, modulo 2^32, equal.
+// The fused q8 kernel also chains the loads of a warp's rows itself
+// (fused_step.cu, q8_rows_stream, for int16 deltas); this single-row form
+// serves any delta width.
+template <int NB, int G, typename Fetch>
+__device__ __forceinline__ void row_dot_q8x4(
+    const typename Fetch::CT* __restrict__ codes,
+    const void* __restrict__ deltas, int dbytes, size_t off, int K,
+    const Fetch& f, uint32_t (&acc)[NB]) {
+  const int nchunks = q8x4_chunks(off, K);
+  int carry = 0;
+  for (int c0 = 0; c0 < nchunks; c0 += G * kWarp) {
+    Q8Group<typename Fetch::CT, void, G> g;
+    q8x4_load(codes, deltas, dbytes, off, K, c0, g);
+    q8x4_consume<NB>(g, dbytes, c0, nchunks, carry, f, acc);
+  }
+  warp_sum(acc);
+}
+
 // The partial-sum memory update m' = (m + ax) + ah, the reference's order;
 // ax and ah are the two families' float partial sums (for integer codes,
 // after dequant: the raw accumulators are integer sums).
@@ -185,6 +553,44 @@ __device__ __forceinline__ int tile_batch(int B) {
 template <typename T>
 __device__ __forceinline__ T* tile_rows(T* p, int ld) {
   return p + static_cast<size_t>(blockIdx.y) * kMaxBatch * ld;
+}
+
+// Host side: let `kern` take up to the card's opt-in shared memory a block
+// (above the default 48 KB), set once per kernel.
+inline cudaError_t allow_smem(const void* kern) {
+  static std::mutex mu;
+  static std::unordered_map<const void*, cudaError_t> done;
+  std::lock_guard<std::mutex> lock(mu);
+  const auto it = done.find(kern);
+  if (it != done.end()) return it->second;
+  int dev = 0, optin = 0;
+  cudaFuncAttributes fa;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin,
+                               dev);
+  if (e == cudaSuccess) e = cudaFuncGetAttributes(&fa, kern);
+  if (e == cudaSuccess)
+    e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             optin - static_cast<int>(fa.sharedSizeBytes));
+  done[kern] = e;
+  return e;
+}
+
+// Host side: out[0..3] = registers a thread, local (spill) bytes a
+// thread, static shared bytes, and the blocks of `threads` an SM holds
+// with `smem` bytes of dynamic shared memory.
+inline cudaError_t kernel_info(const void* kern, int threads, int smem,
+                               int* out) {
+  cudaError_t e = allow_smem(kern);
+  cudaFuncAttributes fa;
+  if (e == cudaSuccess) e = cudaFuncGetAttributes(&fa, kern);
+  if (e != cudaSuccess) return e;
+  out[0] = fa.numRegs;
+  out[1] = static_cast<int>(fa.localSizeBytes);
+  out[2] = static_cast<int>(fa.sharedSizeBytes);
+  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(out + 3, kern, threads,
+                                                       smem);
 }
 
 // Host side: batch tiles (gridDim.y) for batch B.

@@ -17,17 +17,27 @@
 // The TPU kernels write each row block's z (or m, zx, zh) into VMEM
 // scratch and close the cell on the last step of their sequential grid
 // (pl.when(i == nblk - 1)). Blocks on a GPU run in no order, so here each
-// block owns kJT hidden units j and computes their four gate rows j, H+j,
-// 2H+j, 3H+j (one warp per row, the same brds::row_dot and per-row
-// epilogue as the chained kernel), keeps z in shared memory, and closes
-// the cell in-block with the same brds::lstm_cell as lstm_gates. Each step
-// is bitwise equal to its chained pair: rb_dual_spmv / delta_rb_dual_spmv /
-// rb_dual_parts_q8 (then m + zx + zh for the delta q8 step), then the bias
-// add in PyTorch, then lstm_gates.
+// block owns hidden units j and computes their four gate rows j, H+j,
+// 2H+j, 3H+j, keeps z in shared memory, and closes the cell in-block with
+// the same brds::lstm_cell as lstm_gates. Each step is bitwise equal to
+// its chained pair: rb_dual_spmv / delta_rb_dual_spmv / rb_dual_parts_q8
+// (then m + zx + zh for the delta q8 step), then the bias add in PyTorch,
+// then lstm_gates.
+//  - The float, delta and delta-q8 steps: kJT hidden units a block, one
+//    warp per row, the same brds::row_dot and per-row epilogue as the
+//    chained kernel.
+//  - The q8 step (fused_step_q8_kernel): one block an SM with `units`
+//    hidden units, activation codes staged in shared memory, four entries
+//    a lane (brds::row_dot_q8x4's arithmetic, __dp4a for int8 codes). Its
+//    integer sums may take another order than rb_dual_parts_q8's and stay
+//    exact, so the float epilogue sees the same values.
 //
 // Bound: bytes, as the chained gate kernels: the packed weights are read
 // once; z, c and h never round-trip through device memory between the two
-// stages.
+// stages. The row_dot kernels reach 7-20% of that bound: a lane gathers B
+// activations an entry from global memory; the q8 step gathers them from
+// shared memory and keeps a warp's next loads in flight (PERF.md has the
+// card's times).
 #include "brds_common.cuh"
 
 namespace {
@@ -150,48 +160,222 @@ fused_delta_step_kernel(const float* __restrict__ vx,
   close_cells<NB>(zs, H, B, c_prev, c_out, h_out, act);
 }
 
-template <typename CT, typename IX, typename IH, int NB, bool kTiled>
-__global__ void __launch_bounds__(kThreads)
-fused_step_q8_kernel(const CT* __restrict__ vx, const IX* __restrict__ ix,
-                     int kx, const float* __restrict__ comb_x,
-                     const CT* __restrict__ qx, int X,
-                     const CT* __restrict__ vh, const IH* __restrict__ ih,
-                     int kh, const float* __restrict__ comb_h,
-                     const CT* __restrict__ qh, int H,
-                     const float* __restrict__ bias,
-                     const float* __restrict__ c_prev,
-                     float* __restrict__ c_out, float* __restrict__ h_out,
-                     int B, brds::Act act) {
-  if constexpr (kTiled) {
-    qx = brds::tile_rows(qx, X);
-    qh = brds::tile_rows(qh, H);
-    c_prev = brds::tile_rows(c_prev, H);
-    c_out = brds::tile_rows(c_out, H);
-    h_out = brds::tile_rows(h_out, H);
-    B = brds::tile_batch(B);
-  }
-  __shared__ float zs[kJT][4][NB];
-  const int warp = threadIdx.x / brds::kWarp;
+// The fused q8 step's arguments (one struct: the kernel takes one of
+// every instantiation's parameters by value).
+template <typename CT>
+struct Q8Args {
+  const CT* vx;
+  const void* ix;     // Sx's deltas, ixb bytes each
+  int ixb, kx;
+  const float* comb_x;
+  const CT* qx;       // (B, X)
+  int X;
+  const CT* vh;
+  const void* ih;
+  int ihb, kh;
+  const float* comb_h;
+  const CT* qh;       // (B, H)
+  int H;
+  const float* bias;
+  const float* c_prev;
+  float* c_out;
+  float* h_out;
+  int B;
+  int units;          // hidden units a block
+  int shift_x, shift_h, slot_bits, xpad, hpad;   // the staged layout
+  brds::Act act;
+};
+
+constexpr int kQ8Threads = 512;
+constexpr int kQ8Warps = kQ8Threads / brds::kWarp;
+
+// Row i of a block's 4 * units gate rows: unit i / 4, gate i % 4.
+__device__ __forceinline__ int q8_row(int i, int H, int j0) {
+  return (i & 3) * H + j0 + (i >> 2);
+}
+
+// The per-row constants of z: the two families' combined dequant scales
+// and the bias.
+struct Q8Row {
+  float cx, ch, bb;
+};
+
+template <typename CT>
+__device__ __forceinline__ Q8Row q8_row_consts(const Q8Args<CT>& a, int row) {
+  return Q8Row{a.comb_x[row], a.comb_h[row], a.bias[row]};
+}
+
+// acc[lane] (0 for lanes past NB): batch row `lane`'s sum.
+template <int NB>
+__device__ __forceinline__ uint32_t lane_sum(const uint32_t (&acc)[NB]) {
   const int lane = threadIdx.x % brds::kWarp;
-  const int jl = warp / 4, gate = warp % 4;
-  const int j = blockIdx.x * kJT + jl;
-  if (j < H) {
-    const int row = gate * H + j;
-    uint32_t ax[NB] = {}, ah[NB] = {};
-    brds::row_dot<IX, NB>(vx + (size_t)row * kx, ix + (size_t)row * kx, kx,
-                          brds::CodeAct<CT>{qx, X}, B, ax);
-    brds::row_dot<IH, NB>(vh + (size_t)row * kh, ih + (size_t)row * kh, kh,
-                          brds::CodeAct<CT>{qh, H}, B, ah);
-    const float cx = comb_x[row], ch = comb_h[row], bb = bias[row];
+  uint32_t v = 0;
 #pragma unroll
-    for (int b = 0; b < NB; ++b)
-      if (b < B && b == lane)   // the chained zx + zh + bias
-        zs[jl][gate][b] = __fadd_rn(__fadd_rn(brds::dequant(ax[b], cx),
-                                              brds::dequant(ah[b], ch)),
-                                    bb);
+  for (int b = 0; b < NB; ++b)   // acc[lane], without a run-time index
+    if (b == lane) v = acc[b];
+  return v;
+}
+
+// z of gate row i from its two families' dequantized sums: lane b < B
+// writes the chained (zx + zh) + bias.
+__device__ __forceinline__ void q8_z(int i, int NB, int B, float zx,
+                                     float zh, float bb, float* zs) {
+  const int lane = threadIdx.x % brds::kWarp;
+  if (lane < B) zs[i * NB + lane] = __fadd_rn(__fadd_rn(zx, zh), bb);
+}
+
+// The warp's gate rows i = warp, warp + 16, ..., each family's row in
+// turn with brds::row_dot_q8x4: any delta widths.
+template <int NB, typename CT, typename Fetch>
+__device__ __forceinline__ void q8_rows(const Q8Args<CT>& a, int j0,
+                                        const Fetch& fx, const Fetch& fh,
+                                        float* zs) {
+  const int nrows = 4 * min(a.units, a.H - j0);
+  for (int i = threadIdx.x / brds::kWarp; i < nrows; i += kQ8Warps) {
+    const int row = q8_row(i, a.H, j0);
+    const Q8Row rc = q8_row_consts(a, row);
+    uint32_t ax[NB] = {}, ah[NB] = {};
+    brds::row_dot_q8x4<NB, 4>(a.vx, a.ix, a.ixb, (size_t)row * a.kx, a.kx,
+                              fx, ax);
+    brds::row_dot_q8x4<NB, 4>(a.vh, a.ih, a.ihb, (size_t)row * a.kh, a.kh,
+                              fh, ah);
+    q8_z(i, NB, a.B, brds::dequant(lane_sum(ax), rc.cx),
+         brds::dequant(lane_sum(ah), rc.ch), rc.bb, zs);
+  }
+}
+
+// The same rows when both families' deltas are of type DT (lstm_ptb's:
+// int16), as one stream of G-chunk groups: row i's Sx segment, its Sh
+// segment, then row i + 16's, ...; a group's loads are issued before the
+// group ahead of it is used, across segment and row boundaries, so a warp
+// always has loads in flight.
+template <int NB, typename DT, typename CT, typename Fetch>
+__device__ __forceinline__ void q8_rows_stream(const Q8Args<CT>& a, int j0,
+                                               const Fetch& fx,
+                                               const Fetch& fh, float* zs) {
+  constexpr int G = sizeof(CT) == 1 ? 8 : 4;   // chunks a lane loads at once
+  const int H = a.H;
+  const int nrows = 4 * min(a.units, H - j0);
+  int i = threadIdx.x / brds::kWarp;
+  if (i >= nrows) return;
+  auto off_of = [&](int i, int part) {
+    return (size_t)q8_row(i, H, j0) * (part ? a.kh : a.kx);
+  };
+  auto load = [&](int i, int part, int c0, brds::Q8Group<CT, DT, G>& g) {
+    if (part)
+      brds::q8x4_load(a.vh, a.ih, a.ihb, off_of(i, 1), a.kh, c0, g);
+    else
+      brds::q8x4_load(a.vx, a.ix, a.ixb, off_of(i, 0), a.kx, c0, g);
+  };
+  brds::Q8Group<CT, DT, G> cur, nxt;
+  int part = 0, c0 = 0, carry = 0;
+  load(i, part, c0, cur);
+  Q8Row rc = q8_row_consts(a, q8_row(i, H, j0)), rn = rc;
+  uint32_t acc[NB] = {};
+  float zx = 0.0f;
+  for (;;) {
+    const int nchunks =
+        brds::q8x4_chunks(off_of(i, part), part ? a.kh : a.kx);
+    // the group after this one
+    int i2 = i, part2 = part, c2 = c0 + G * brds::kWarp;
+    if (c2 >= nchunks) {
+      c2 = 0;
+      part2 = part ^ 1;
+      if (part) i2 += kQ8Warps;
+    }
+    const bool more = i2 < nrows;
+    if (more) {
+      load(i2, part2, c2, nxt);
+      if (i2 != i) rn = q8_row_consts(a, q8_row(i2, H, j0));
+    }
+    const Fetch f = part ? fh : fx;   // a copy: no address of either taken
+    brds::q8x4_consume<NB>(cur, 0, c0, nchunks, carry, f, acc);
+    if (c2 == 0) {   // the segment is complete
+      brds::warp_sum(acc);
+      const float dq = brds::dequant(lane_sum(acc), part ? rc.ch : rc.cx);
+      if (part) q8_z(i, NB, a.B, zx, dq, rc.bb, zs);
+      zx = dq;
+#pragma unroll
+      for (int b = 0; b < NB; ++b) acc[b] = 0;
+      carry = 0;
+    }
+    if (!more) break;
+    if (i2 != i) rc = rn;
+    cur = nxt;
+    i = i2;
+    part = part2;
+    c0 = c2;
+  }
+}
+
+template <typename CT, int NB, bool kTiled, bool kStaged>
+__global__ void __launch_bounds__(kQ8Threads, 1)
+fused_step_q8_kernel(Q8Args<CT> a) {
+  if constexpr (kTiled) {
+    a.qx = brds::tile_rows(a.qx, a.X);
+    a.qh = brds::tile_rows(a.qh, a.H);
+    a.c_prev = brds::tile_rows(a.c_prev, a.H);
+    a.c_out = brds::tile_rows(a.c_out, a.H);
+    a.h_out = brds::tile_rows(a.h_out, a.H);
+    a.B = brds::tile_batch(a.B);
+  }
+  using Staged = brds::StagedCodes<CT, NB>;
+  constexpr int kW = Staged::kWords;
+  extern __shared__ uint4 q8_smem[];
+  uint32_t* sx = reinterpret_cast<uint32_t*>(q8_smem);
+  uint32_t* sh = sx + (kStaged ? static_cast<size_t>(a.xpad) * kW : 0);
+  float* zs = reinterpret_cast<float*>(
+      sh + (kStaged ? static_cast<size_t>(a.hpad) * kW : 0));
+  const int H = a.H, B = a.B;
+  const int j0 = blockIdx.x * a.units;
+  if constexpr (kStaged) {
+    // column c's NB codes (zero past B) as one vector at stage_pos(c)
+    constexpr int per = 4 / sizeof(CT), bits = 8 * sizeof(CT);
+    constexpr uint32_t mask = (1u << bits) - 1;
+    const int n = a.X + H;
+#pragma unroll 3
+    for (int c = threadIdx.x; c < n; c += kQ8Threads) {
+      const bool isx = c < a.X;
+      const int col = isx ? c : c - a.X;
+      const CT* q = isx ? a.qx : a.qh;
+      const int ld = isx ? a.X : H;
+      uint32_t v[kW];
+#pragma unroll
+      for (int i = 0; i < kW; ++i) v[i] = 0;
+#pragma unroll
+      for (int b = 0; b < NB; ++b)
+        if (b < B)
+          v[b / per] |= (static_cast<uint32_t>(__ldg(q + b * ld + col)) & mask)
+                        << (bits * (b % per));
+      uint32_t* dst = (isx ? sx : sh) +
+                      brds::stage_pos(col, isx ? a.shift_x : a.shift_h,
+                                      a.slot_bits) * kW;
+#pragma unroll
+      for (int i = 0; i < kW; ++i) dst[i] = v[i];
+    }
+    __syncthreads();
+  }
+  if constexpr (kStaged) {
+    const Staged fx{sx, a.shift_x, a.slot_bits};
+    const Staged fh{sh, a.shift_h, a.slot_bits};
+    if (a.ixb == 2 && a.ihb == 2)
+      q8_rows_stream<NB, int16_t>(a, j0, fx, fh, zs);
+    else
+      q8_rows<NB>(a, j0, fx, fh, zs);
+  } else {
+    using Global = brds::GlobalCodes<CT, NB>;
+    q8_rows<NB>(a, j0, Global{a.qx, a.X, B}, Global{a.qh, H, B}, zs);
   }
   __syncthreads();
-  close_cells<NB>(zs, H, B, c_prev, c_out, h_out, act);
+  for (int t = threadIdx.x; t < a.units * B; t += kQ8Threads) {
+    const int jl = t / B, b = t % B, j = j0 + jl;
+    if (j < H) {
+      const size_t o = (size_t)b * H + j;
+      const float* z = zs + jl * 4 * NB + b;
+      brds::lstm_cell(z[0], z[NB], z[2 * NB], z[3 * NB], a.c_prev[o],
+                      a.act, a.c_out + o, a.h_out + o);
+    }
+  }
 }
 
 template <typename CT, typename IX, typename IH, int NB, bool kTiled>
@@ -324,42 +508,62 @@ extern "C" int brds_fused_delta_lstm_step(
   return cudaGetLastError();
 }
 
+// Runs `body(kern, CT{})` with the fused q8 kernel instantiation for the
+// code width, batch and staging (brds::by_batch's tiers).
+template <typename F>
+cudaError_t by_q8_kernel(int code_bytes, int B, int staged, F&& body) {
+  return brds::by_code(code_bytes, [&](auto ct) {
+    using CT = decltype(ct);
+    return brds::by_batch(B, [&](auto nb, auto tiled) {
+      constexpr int NB = decltype(nb)::value;
+      constexpr bool kT = decltype(tiled)::value;
+      void (*kern)(Q8Args<CT>) = fused_step_q8_kernel<CT, NB, kT, false>;
+      if (staged) kern = fused_step_q8_kernel<CT, NB, kT, true>;
+      return body(kern, CT{});
+    });
+  });
+}
+
 extern "C" int brds_fused_lstm_step_q8(
     const void* vx, const void* ix, int ix_bytes, int kx, const void* comb_x,
     const void* qx, int X, const void* vh, const void* ih, int ih_bytes,
     int kh, const void* comb_h, const void* qh, int H, int code_bytes,
     const void* bias, const void* c_prev, void* c_out, void* h_out, int B,
-    const void* lut, float lo, float hi, float hic, void* stream) {
-  if (H <= 0) return cudaErrorInvalidValue;
-  const dim3 grid((H + kJT - 1) / kJT, brds::batch_tiles(B));
+    int units, int staged, int shift_x, int shift_h, int slot_bits, int xpad,
+    int hpad, int smem, const void* lut, float lo, float hi, float hic,
+    void* stream) {
+  if (H <= 0 || units <= 0) return cudaErrorInvalidValue;
+  const dim3 grid((H + units - 1) / units, brds::batch_tiles(B));
   const brds::Act act{static_cast<const float*>(lut), lo, hi, hic};
-  cudaError_t st = brds::by_code(code_bytes, [&](auto ct) {
+  cudaError_t st = by_q8_kernel(code_bytes, B, staged, [&](auto kern,
+                                                           auto ct) {
     using CT = decltype(ct);
-    return brds::by_delta(ix_bytes, [&](auto ixt) {
-      using IX = decltype(ixt);
-      return brds::by_delta(ih_bytes, [&](auto iht) {
-        using IH = decltype(iht);
-        return brds::by_batch(B, [&](auto nb, auto tiled) {
-          constexpr int NB = decltype(nb)::value;
-          fused_step_q8_kernel<CT, IX, IH, NB, decltype(tiled)::value>
-              <<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-                  static_cast<const CT*>(vx), static_cast<const IX*>(ix), kx,
-                  static_cast<const float*>(comb_x),
-                  static_cast<const CT*>(qx), X, static_cast<const CT*>(vh),
-                  static_cast<const IH*>(ih), kh,
-                  static_cast<const float*>(comb_h),
-                  static_cast<const CT*>(qh), H,
-                  static_cast<const float*>(bias),
-                  static_cast<const float*>(c_prev),
-                  static_cast<float*>(c_out), static_cast<float*>(h_out), B,
-                  act);
-          return cudaSuccess;
-        });
-      });
-    });
+    cudaError_t e = brds::allow_smem(reinterpret_cast<const void*>(kern));
+    if (e != cudaSuccess) return e;
+    Q8Args<CT> a{static_cast<const CT*>(vx), ix, ix_bytes, kx,
+                 static_cast<const float*>(comb_x), static_cast<const CT*>(qx),
+                 X, static_cast<const CT*>(vh), ih, ih_bytes, kh,
+                 static_cast<const float*>(comb_h), static_cast<const CT*>(qh),
+                 H, static_cast<const float*>(bias),
+                 static_cast<const float*>(c_prev), static_cast<float*>(c_out),
+                 static_cast<float*>(h_out), B, units, shift_x, shift_h,
+                 slot_bits, xpad, hpad, act};
+    kern<<<grid, kQ8Threads, smem, static_cast<cudaStream_t>(stream)>>>(a);
+    return cudaSuccess;
   });
   if (st != cudaSuccess) return st;
   return cudaGetLastError();
+}
+
+// For the fused q8 instantiation of (code bytes, B, staged): out[0..3] =
+// registers a thread, local (spill) bytes a thread, static shared bytes,
+// and the blocks an SM holds with `smem` bytes of dynamic shared memory.
+extern "C" int brds_fused_lstm_step_q8_info(int code_bytes, int B,
+                                            int staged, int smem, int* out) {
+  return by_q8_kernel(code_bytes, B, staged, [&](auto kern, auto) {
+    return brds::kernel_info(reinterpret_cast<const void*>(kern), kQ8Threads,
+                             smem, out);
+  });
 }
 
 extern "C" int brds_fused_delta_lstm_step_q8(

@@ -16,6 +16,7 @@ import ctypes
 import hashlib
 import os
 import shutil
+import statistics
 import subprocess
 import tempfile
 import threading
@@ -56,7 +57,9 @@ SIGNATURES = {
                                        _P, _P, _I, _P, _F, _F, _F, _P],
         "brds_fused_lstm_step_q8": [_P, _P, _I, _I, _P, _P, _I, _P, _P, _I,
                                     _I, _P, _P, _I, _I, _P, _P, _P, _P, _I,
+                                    _I, _I, _I, _I, _I, _I, _I, _I,
                                     _P, _F, _F, _F, _P],
+        "brds_fused_lstm_step_q8_info": [_I, _I, _I, _I, _P],
         "brds_fused_delta_lstm_step_q8": [_P, _P, _I, _I, _P, _P, _I, _P, _P,
                                           _I, _I, _P, _P, _I, _I, _P, _P, _P,
                                           _P, _P, _P, _I, _P, _F, _F, _F,
@@ -71,8 +74,9 @@ SIGNATURES = {
                                   _P, _P, _I, _I, _P, _P, _I, _I, _P]},
     "fused_scan": {
         "brds_fused_lstm_scan": [_P, _P, _I, _I, _P, _I, _P, _P, _I, _I, _P,
-                                 _I, _P, _P, _P, _P, _I, _I, _P, _F, _F, _F,
-                                 _P],
+                                 _I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
+                                 _I, _I, _I, _I, _P, _F, _F, _F, _P],
+        "brds_fused_lstm_scan_info": [_I, _I, _I, _I, _P],
         "brds_fused_delta_lstm_scan": [_P, _P, _I, _I, _P, _I, _P, _P, _I,
                                        _I, _P, _I, _P, _P, _P, _P, _P, _P,
                                        _P, _P, _P, _P, _F, _F, _I, _I, _P,
@@ -177,6 +181,50 @@ def stream(device: torch.device) -> int:
     return torch.cuda.current_stream(device).cuda_stream
 
 
+def sm_count(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def kernel_info(source: str, entry: str, args, grid: int,
+                device: torch.device) -> dict:
+    """One kernel instantiation's registers and local (spill) bytes a
+    thread, static shared bytes and blocks an SM, from a ``*_info`` entry
+    point of ``csrc/<source>.cu`` (``args`` pick the instantiation and its
+    dynamic shared memory), and the waves a grid of ``grid`` blocks
+    takes."""
+    from .plan import waves
+    out = (ctypes.c_int * 4)()
+    check(getattr(load(source), entry)(*args, out), entry)
+    regs, local, static, per_sm = list(out)
+    return dict(registers=regs, local_bytes=local, static_smem=static,
+                blocks_per_sm=per_sm,
+                waves=waves(grid, per_sm, sm_count(device)) if per_sm
+                else None)
+
+
+def time_ms(fn, flush: torch.Tensor | None = None, reps: int = 30) -> float:
+    """Median CUDA-event time (ms) of ``fn`` over ``reps`` runs, after one
+    untimed run. With ``flush`` (a card buffer larger than the 50 MB L2),
+    it is zeroed before each run, which evicts the packed weights that
+    would otherwise stay cached across reruns. A spin of about 1 ms on the
+    card before each run lets the host enqueue ``fn`` before the card
+    reaches the start event, so the time is the card's alone and not the
+    wrapper's host overhead."""
+    fn()
+    pairs = []
+    for _ in range(reps):
+        if flush is not None:
+            flush.zero_()
+        torch.cuda._sleep(2_000_000)
+        s, e = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        s.record()
+        fn()
+        e.record()
+        pairs.append((s, e))
+    torch.cuda.synchronize()
+    return statistics.median(s.elapsed_time(e) for s, e in pairs)
+
+
 def require(t: torch.Tensor, name: str, *, dtypes, ndim: int,
             device: torch.device | None = None,
             contiguous: bool = True) -> None:
@@ -193,3 +241,11 @@ def require(t: torch.Tensor, name: str, *, dtypes, ndim: int,
         raise ValueError(f"{name} must be {ndim}-D, got {tuple(t.shape)}")
     if contiguous and not t.is_contiguous():
         raise ValueError(f"{name} must be contiguous")
+
+
+def require_aligned(t: torch.Tensor, name: str, align: int = 16) -> None:
+    """Raise unless ``t``'s data starts on an ``align``-byte boundary (the
+    kernels that load four packed entries at once)."""
+    if t.data_ptr() % align:
+        raise ValueError(f"{name} must start on a {align}-byte boundary "
+                         f"(a view at an offset? pass a copy)")

@@ -1,12 +1,16 @@
 """CUDA kernels: T BRDS-LSTM layer steps in one persistent launch
 (``csrc/fused_scan.cu``), float and temporal-delta.
 
-The grid is sized to be co-resident and launched cooperatively; each block
-owns its hidden-unit tiles for all T steps and keeps their c (and the
-delta scan's partial-sum memory m) in shared memory, and only h crosses
-blocks, through ``hs`` and one grid barrier per step (two for the delta
-scan, whose thresholds are shared by every row). Each step is bitwise
-equal to one launch of the single-step kernel of ``fused_step``. A launch
+The grid is co-resident and launched cooperatively; each block owns its
+hidden units for all T steps and keeps their c (and the delta scan's
+partial-sum memory m) in shared memory, and only h crosses blocks,
+through ``hs`` and one grid barrier per step (two for the delta scan,
+whose thresholds are shared by every row). The float scan runs one block
+an SM (``plan.scan_plan``): it decodes the packed columns once, computes
+the input projection Sx@xs[t] for every t before the recurrence, into a
+scratch, and stages xs and h in shared memory; the scratch
+(``scan_scratch``) is allocated here. Each step is bitwise equal to one
+launch of the single-step kernel of ``fused_step``. A launch
 takes at most ``TILE`` batch rows (the co-resident grid cannot grow with
 the batch): a larger batch runs as one launch per tile of rows, which
 ``batch_tiles`` concatenates, bitwise the whole batch's result since
@@ -20,6 +24,7 @@ import torch
 
 from . import _build
 from .lstm_gates import act_args
+from .plan import ScanPlan, scan_plan
 from .rb_spmv import check_batch, check_packed
 
 TILE = 16   # batch rows a scan launch takes (brds::kMaxBatch)
@@ -77,23 +82,65 @@ def fused_brds_lstm_scan(vals_x, deltas_x, xs, vals_h, deltas_h, h0, bias,
     return batch_tiles(tile, B, (xs, h0, c0), (1, 0, 0), (1, 0))
 
 
+def _col_dtype(nbytes: int) -> torch.dtype:
+    return torch.int16 if nbytes == 2 else torch.int32
+
+
+def scan_scratch(plan: ScanPlan, Kx: int, Kh: int, device):
+    """The device scratch of one float-scan launch: the hoisted input
+    projection ``ax`` (T, 4H, NB) float32; the decoded columns of Sx
+    (4H, Kx) and Sh (4H, Kh), int16 storage of uint16 columns, or int32
+    where that family's activations are not staged; and ``hx``, each
+    step's h in the staged layout for the next step (``plan.hx_shape``,
+    float32). Returns (ax, colx, colh, hx)."""
+    R = plan.ax_shape[1]
+    return (torch.empty(plan.ax_shape, dtype=torch.float32, device=device),
+            torch.empty((R, Kx), dtype=_col_dtype(plan.col_bytes[0]),
+                        device=device),
+            torch.empty((R, Kh), dtype=_col_dtype(plan.col_bytes[1]),
+                        device=device),
+            torch.empty(plan.hx_shape, dtype=torch.float32, device=device))
+
+
+def plan_for(vals_x, vals_h, xs, h0) -> ScanPlan:
+    """The launch plan of a tile of at most TILE rows on xs's card."""
+    T, B, X = xs.shape
+    return scan_plan(X=X, H=h0.shape[1], T=T, B=B, Kx=vals_x.shape[1],
+                     Kh=vals_h.shape[1], sms=_build.sm_count(xs.device))
+
+
 def _scan(vals_x, deltas_x, xs, vals_h, deltas_h, h0, bias, c0, pwl):
     """One launch of the float scan over at most TILE batch rows."""
     dev = xs.device
     T, B, X = xs.shape
     H = h0.shape[1]
+    Kx, Kh = vals_x.shape[1], vals_h.shape[1]
+    plan = plan_for(vals_x, vals_h, xs, h0)
+    ax, colx, colh, hx = scan_scratch(plan, Kx, Kh, dev)
     hs = torch.empty((T, B, H), dtype=torch.float32, device=dev)
     c_out = torch.empty_like(c0)
     lib = _build.load("fused_scan")
     err = lib.brds_fused_lstm_scan(
-        vals_x.data_ptr(), deltas_x.data_ptr(), deltas_x.element_size(),
-        vals_x.shape[1], xs.data_ptr(), X, vals_h.data_ptr(),
-        deltas_h.data_ptr(), deltas_h.element_size(), vals_h.shape[1],
-        h0.data_ptr(), H, bias.data_ptr(), c0.data_ptr(), hs.data_ptr(),
-        c_out.data_ptr(), T, B, *act_args(pwl, dev), _build.stream(dev))
+        vals_x.data_ptr(), deltas_x.data_ptr(), deltas_x.element_size(), Kx,
+        xs.data_ptr(), X, vals_h.data_ptr(), deltas_h.data_ptr(),
+        deltas_h.element_size(), Kh, h0.data_ptr(), H, bias.data_ptr(),
+        c0.data_ptr(), hs.data_ptr(), c_out.data_ptr(),
+        ax.data_ptr(), colx.data_ptr(), colh.data_ptr(), hx.data_ptr(), T,
+        B, plan.units,
+        int(plan.stage_x), int(plan.stage_h), plan.smem,
+        *act_args(pwl, dev), _build.stream(dev))
     _build.check(err, "fused_brds_lstm_scan")
     _build.LAUNCHES["fused_brds_lstm_scan"] += 1
     return hs, c_out
+
+
+def scan_info(plan: ScanPlan, B: int, device) -> dict:
+    """``_build.kernel_info`` of the float scan instantiation ``plan``
+    launches at batch B."""
+    return _build.kernel_info(
+        "fused_scan", "brds_fused_lstm_scan_info",
+        (B, int(plan.stage_x), int(plan.stage_h), plan.smem), plan.grid,
+        device)
 
 
 def fused_brds_delta_lstm_scan(vals_x, deltas_x, xs, vals_h, deltas_h, h0,

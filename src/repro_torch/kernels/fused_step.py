@@ -8,7 +8,10 @@ block owns a tile of hidden units and computes their four gate rows with
 the same row routine and epilogue as the chained gate kernel
 (``rb_dual_spmv``, ``delta_rb_dual_spmv``, ``rb_dual_parts_q8``), then
 closes the cell with the same cell function as ``lstm_gates``, so each
-step is bitwise equal to its chained pair. Replaces
+step is bitwise equal to its chained pair. The q8 step alone takes its
+rows otherwise (integer sums are exact in any order): one block an SM
+(``plan.q8_plan``), activation codes staged in shared memory, four entries
+a lane. Replaces
 ``repro/kernels/fused_step.py::fused_brds_lstm_step``,
 ``::fused_brds_delta_lstm_step``, ``::fused_brds_lstm_step_q8`` and
 ``::fused_brds_delta_lstm_step_q8``.
@@ -20,6 +23,7 @@ import torch
 from . import _build
 from .delta_rb_spmv import check_delta
 from .lstm_gates import act_args
+from .plan import Q8Plan, q8_plan
 from .rb_spmv import check_batch, check_packed
 from .rb_spmv_q8 import check_q8
 
@@ -110,17 +114,30 @@ def fused_brds_delta_lstm_step(vals_x, deltas_x, dx, fx, vals_h, deltas_h,
     return c_out, h_out, m_out
 
 
+def q8_plan_for(vals_x, vals_h, qx, qh) -> Q8Plan:
+    """The fused q8 step's launch plan on qx's card."""
+    return q8_plan(X=qx.shape[1], H=qh.shape[1], B=qx.shape[0],
+                   Kx=vals_x.shape[1], Kh=vals_h.shape[1],
+                   code_bytes=qx.element_size(),
+                   sms=_build.sm_count(qx.device))
+
+
 def fused_brds_lstm_step_q8(vals_x, deltas_x, comb_x, qx, vals_h, deltas_h,
                             comb_h, qh, bias, c_prev, *, pwl: bool = False):
     """One quantized BRDS-LSTM step: zx, zh = dq(Sx@qx), dq(Sh@qh), z =
     zx + zh + bias, then the cell, over the 4H gate rows of packed integer
     codes Sx, Sh (int8 or int16, as qx (B, X) and qh (B, H); rows past 4H
-    are not read); comb_* (≥ 4H,) float32 combined dequant scales; bias
-    (4H,) and c_prev (B, H) float32. Returns (c, h)."""
+    are not read; codes and deltas 16-byte aligned: the kernel loads four
+    entries at once); comb_* (≥ 4H,) float32 combined dequant scales;
+    bias (4H,) and c_prev (B, H) float32. Returns (c, h)."""
     dev = qx.device
     B, X, H = check_q8(vals_x, deltas_x, comb_x, qx, vals_h, deltas_h,
                        comb_h, qh, 4 * qh.shape[-1])
     _check_cell(bias, c_prev, dev, B, H)
+    for name, t in (("Sx codes", vals_x), ("Sx deltas", deltas_x),
+                    ("Sh codes", vals_h), ("Sh deltas", deltas_h)):
+        _build.require_aligned(t, name)
+    plan = q8_plan_for(vals_x, vals_h, qx, qh)
     c_out = torch.empty_like(c_prev)
     h_out = torch.empty_like(c_prev)
     lib = _build.load("fused_step")
@@ -130,11 +147,21 @@ def fused_brds_lstm_step_q8(vals_x, deltas_x, comb_x, qx, vals_h, deltas_h,
         vals_h.data_ptr(), deltas_h.data_ptr(), deltas_h.element_size(),
         vals_h.shape[1], comb_h.data_ptr(), qh.data_ptr(), H,
         vals_x.element_size(), bias.data_ptr(), c_prev.data_ptr(),
-        c_out.data_ptr(), h_out.data_ptr(), B, *act_args(pwl, dev),
-        _build.stream(dev))
+        c_out.data_ptr(), h_out.data_ptr(), B, plan.units, int(plan.staged),
+        plan.shift_x, plan.shift_h, plan.slot_bits, plan.xpad, plan.hpad,
+        plan.smem, *act_args(pwl, dev), _build.stream(dev))
     _build.check(err, "fused_brds_lstm_step_q8")
     _build.LAUNCHES["fused_brds_lstm_step_q8"] += 1
     return c_out, h_out
+
+
+def q8_info(plan: Q8Plan, B: int, code_bytes: int, device) -> dict:
+    """``_build.kernel_info`` of the fused q8 instantiation ``plan``
+    launches at batch B (every batch tile of its grid)."""
+    return _build.kernel_info(
+        "fused_step", "brds_fused_lstm_step_q8_info",
+        (code_bytes, B, int(plan.staged), plan.smem), plan.grid * plan.tiles,
+        device)
 
 
 def fused_brds_delta_lstm_step_q8(vals_x, deltas_x, comb_x, qdx, vals_h,

@@ -1,0 +1,163 @@
+"""Launch plans of the persistent float scan (``csrc/fused_scan.cu``,
+``fused_scan_kernel``) and the fused q8 step (``csrc/fused_step.cu``,
+``fused_step_q8_kernel``): grid, hidden units a block, the shared-memory
+layout of the staged activations and the scratch they need, from the
+card's limits in plain arithmetic, so the CPU tests hold it. Also the
+occupancy arithmetic (blocks an SM from registers, threads and shared
+memory) and the waves a grid takes.
+
+The wrappers pass the card's SM count; the other limits are Hopper's
+(H100: 65536 registers and 228 KB of shared memory an SM, 227 KB a
+block).
+"""
+from __future__ import annotations
+
+import math
+from dataclasses import dataclass
+from functools import lru_cache
+
+SMS = 132                   # H100 SXM
+REGS_PER_SM = 65536
+REG_UNIT = 256              # registers are allocated to a warp in 256s
+WARP_GRANULE = 4            # ... and warps by fours
+MAX_WARPS_PER_SM = 64
+MAX_BLOCKS_PER_SM = 32
+SMEM_PER_SM = 233472        # 228 KB
+SMEM_PER_BLOCK = 232448     # 227 KB, the opt-in limit of one block
+SMEM_RESERVED = 1024        # the runtime's own shared memory a block
+TILE = 16                   # batch rows a launch's tile (brds::kMaxBatch)
+
+SCAN_THREADS = 512          # fused_scan.cu kScanThreads
+SCAN_COLUMN = 128           # bytes a staged column takes (8 float4 pieces)
+Q8_THREADS = 512            # fused_step.cu kQ8Threads
+
+
+def blocks_per_sm(regs: int, threads: int, smem: int = 0) -> int:
+    """Blocks of ``threads`` an SM holds at ``regs`` registers a thread and
+    ``smem`` bytes of shared memory a block (the occupancy calculator's
+    arithmetic)."""
+    warps = -(-threads // 32)
+    by_warps = MAX_WARPS_PER_SM // warps
+    regs_warp = -(-regs * 32 // REG_UNIT) * REG_UNIT
+    warps_by_regs = (REGS_PER_SM // regs_warp) // WARP_GRANULE * WARP_GRANULE
+    by_regs = warps_by_regs // warps
+    by_smem = SMEM_PER_SM // (smem + SMEM_RESERVED)
+    return max(0, min(by_warps, by_regs, by_smem, MAX_BLOCKS_PER_SM))
+
+
+def waves(blocks: int, per_sm: int, sms: int = SMS) -> int:
+    """Waves a grid of ``blocks`` takes at ``per_sm`` blocks an SM."""
+    if per_sm < 1:
+        raise ValueError("no block of this kernel fits on an SM")
+    return -(-blocks // (per_sm * sms))
+
+
+def tier(B: int) -> int:
+    """The accumulator count a batch of B ≤ 16 rows runs at (by_batch)."""
+    if not 1 <= B:
+        raise ValueError(f"batch {B}: need at least one row")
+    return 4 if B <= 4 else 8 if B <= 8 else TILE
+
+
+def spacing_shift(ncols: int, K: int, per_lane: int = 1) -> int:
+    """log2 of the columns between neighbouring lanes' entries (each lane
+    taking ``per_lane`` consecutive entries of a row of K over ``ncols``),
+    rounded: the bits ``stage_pos`` moves to the bottom."""
+    if K <= 0 or ncols <= 0:
+        return 0
+    return max(0, min(10, round(math.log2(per_lane * ncols / K))))
+
+
+def stage_pos(c, shift: int, slot_bits: int):
+    """brds::stage_pos: column c's position in a staged array (numpy
+    arrays or ints)."""
+    m = shift + slot_bits
+    return (((c >> m) << m) | ((c & ((1 << shift) - 1)) << slot_bits)
+            | ((c >> shift) & ((1 << slot_bits) - 1)))
+
+
+def staged_cols(n: int, shift: int, slot_bits: int) -> int:
+    """n columns padded to whole runs of stage_pos's permutation."""
+    run = 1 << (shift + slot_bits)
+    return -(-n // run) * run
+
+
+@dataclass(frozen=True)
+class ScanPlan:
+    """One launch of the float scan over at most 16 batch rows."""
+    nb: int           # accumulators a lane (4, 8, 16)
+    units: int        # hidden units a block
+    grid: int         # blocks, one an SM
+    stage_x: bool     # xs staged in shared memory (else global gathers)
+    stage_h: bool     # h staged (else global gathers)
+    smem: int         # dynamic shared memory a block
+    ax_shape: tuple   # (T, 4H, nb) float32
+    hx_shape: tuple   # (2, nb / 4, H, 4) float32: h, staged layout
+    col_bytes: tuple  # decoded-column element size of Sx, Sh (2 or 4)
+
+
+@lru_cache(maxsize=256)
+def scan_plan(*, X: int, H: int, T: int, B: int, Kx: int, Kh: int,
+              sms: int = SMS, smem_limit: int = SMEM_PER_BLOCK) -> ScanPlan:
+    """The float scan's plan: ceil(H / sms) units a block (one block an
+    SM, all co-resident); xs (32 / NB steps a pass) and h staged when
+    their columns, one 128-byte bank row each (fused_scan.cu kPieces), fit
+    beside c and z; they share the space (the prologue ends before the
+    first h is staged). Kx and Kh do not change the plan."""
+    if B > TILE:
+        raise ValueError(f"a scan launch takes at most {TILE} batch rows")
+    nb = tier(B)
+    units = -(-H // sms)
+    grid = -(-H // units)
+    fixed = 5 * units * nb * 4          # c (units x NB) and z (4 units x NB)
+    room = smem_limit - fixed
+    stage_x = X * SCAN_COLUMN <= room
+    stage_h = H * SCAN_COLUMN <= room
+    staged = max(X if stage_x else 0, H if stage_h else 0)
+    return ScanPlan(nb=nb, units=units, grid=grid, stage_x=stage_x,
+                    stage_h=stage_h, smem=staged * SCAN_COLUMN + fixed,
+                    ax_shape=(T, 4 * H, nb), hx_shape=(2, nb // 4, H, 4),
+                    col_bytes=(2 if stage_x else 4, 2 if stage_h else 4))
+
+
+@dataclass(frozen=True)
+class Q8Plan:
+    """One launch of the fused q8 step (every batch tile of it)."""
+    nb: int
+    tiles: int        # batch tiles of 16 rows (gridDim.y)
+    units: int
+    grid: int         # blocks a tile (gridDim.x)
+    staged: bool      # qx, qh staged in shared memory (else global gathers)
+    slot_bits: int
+    shift_x: int
+    shift_h: int
+    xpad: int
+    hpad: int
+    smem: int
+
+
+@lru_cache(maxsize=256)
+def q8_plan(*, X: int, H: int, B: int, Kx: int, Kh: int, code_bytes: int,
+            sms: int = SMS, smem_limit: int = SMEM_PER_BLOCK) -> Q8Plan:
+    """The fused q8 step's plan: ceil(H / sms) units a block, so one block
+    an SM and one wave a batch tile; the tile's codes staged as
+    (xpad + hpad) vectors of NB codes when they fit beside z. A lane takes
+    four consecutive entries, so neighbouring lanes' entries lie about
+    4 x ncols / K columns apart."""
+    nb = tier(min(B, TILE))
+    tiles = -(-B // TILE)
+    units = -(-H // sms)
+    grid = -(-H // units)
+    vec = nb * code_bytes
+    slot_bits = int(math.log2(128 // min(vec, 32)))
+    shift_x = spacing_shift(X, Kx, 4)
+    shift_h = spacing_shift(H, Kh, 4)
+    xpad = staged_cols(X, shift_x, slot_bits)
+    hpad = staged_cols(H, shift_h, slot_bits)
+    zs = 4 * units * nb * 4
+    codes = (xpad + hpad) * vec
+    staged = codes + zs <= smem_limit
+    return Q8Plan(nb=nb, tiles=tiles, units=units, grid=grid, staged=staged,
+                  slot_bits=slot_bits, shift_x=shift_x, shift_h=shift_h,
+                  xpad=xpad, hpad=hpad,
+                  smem=(codes if staged else 0) + zs)

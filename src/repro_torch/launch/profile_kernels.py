@@ -1,0 +1,175 @@
+"""Phase profiles of the multi-token scan (``fused_brds_lstm_scan``) and
+the fused q8 step (``fused_brds_lstm_step_q8``) on the card, by variants
+that each skip one phase.
+
+    PYTHONPATH=src python -m repro_torch.launch.profile_kernels [--steps 32]
+        [--batch 8] [--width 1500]
+
+A profiler's counters (stall reasons, L2 hit rates) are not readable on
+every machine, so this times the public wrapper (CUDA events, median of
+30, L2 flushed before each run by a 256 MB write and a ~1 ms spin:
+``_build.time_ms``, as ``chip_smoke.py`` times) on lstm_ptb's shapes (X = H = ``--width``,
+``lstm_policy(0.75, 0.5)``, int16 deltas, random weights from seed 0)
+and on variants that hand the kernel an empty packed family (K = 0
+entries a row, so the kernel skips that product; the outputs are then
+wrong and unused):
+
+- ``full``: Sx@xs[t] and Sh@h every step;
+- ``no Sx``: the recurrent product alone;
+- ``no Sh``: the input projection alone;
+- ``neither``: the cell, h's exchange between blocks and the barriers;
+
+each at T = ``--steps`` and at T = 1, and the slope (T vs 1) per step.
+Beside them: the full scan with the L2 left warm, T launches of the
+single-step kernel. ``neither``'s slope bounds a step's fixed cost
+(barrier, exchange, cell) from above. The fused q8 step (int8 and q1.11
+codes of the same weights) takes the same four variants: ``neither`` is
+its activation staging, cells and launch; and the full step with its
+activation codes staged in the plan's permuted column order
+(``plan.stage_pos``) and in plain column order, alternated twice. Prints
+one line per variant and, last, a JSON object with every time.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import subprocess
+from dataclasses import replace
+
+import torch
+
+from ..core import pack_from_dense, pad_packed
+from ..kernels import fused_scan as kscan
+from ..kernels import fused_step as kstep
+from ..kernels._build import time_ms
+from ..kernels.plan import Q8Plan, staged_cols
+from ..quant import parse_scheme, quantize, quantize_packed
+
+
+def in_order(plan: Q8Plan, X: int, H: int) -> Q8Plan:
+    """``plan`` (of an X-wide input and an H-wide state) with the
+    activation codes staged in column order (``stage_pos`` at shift 0, the
+    identity) instead of its permutation."""
+    if not plan.staged:
+        return plan
+    vec = (plan.smem - 16 * plan.units * plan.nb) // (plan.xpad + plan.hpad)
+    xpad = staged_cols(X, 0, plan.slot_bits)
+    hpad = staged_cols(H, 0, plan.slot_bits)
+    return replace(plan, shift_x=0, shift_h=0, xpad=xpad, hpad=hpad,
+                   smem=(xpad + hpad) * vec + 16 * plan.units * plan.nb)
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--steps", type=int, default=32)
+    ap.add_argument("--batch", type=int, default=8)
+    ap.add_argument("--width", type=int, default=1500)
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        raise SystemExit("profile_kernels: no CUDA device")
+    dev = torch.device("cuda:0")
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
+    print(f"card: {card}", flush=True)
+    T, B, W = args.steps, args.batch, args.width
+    g = torch.Generator(device=dev).manual_seed(0)
+    rand = lambda *s, sc=1.0: torch.randn(*s, generator=g, device=dev) * sc
+    sx = pad_packed(pack_from_dense(rand(4 * W, W, sc=W ** -0.5), 0.75))
+    sh = pad_packed(pack_from_dense(rand(4 * W, W, sc=W ** -0.5), 0.5))
+    xs, h0, c0 = rand(T, B, W), rand(B, W), rand(B, W)
+    bias = rand(4 * W, sc=0.1)
+    flush = torch.empty(256 << 20, dtype=torch.uint8, device=dev)
+    fams = {"full": (sx, sh), "no Sx": (None, sh), "no Sh": (sx, None),
+            "neither": (None, None)}
+
+    def packed(s, like):
+        if s is not None:
+            return s.values, s.deltas
+        return like.values[:, :0].contiguous(), like.deltas[:, :0].contiguous()
+
+    def scan(fx, fh, steps):
+        vx, dx = packed(fx, sx)
+        vh, dh = packed(fh, sh)
+        return lambda: kscan.fused_brds_lstm_scan(vx, dx, xs[:steps], vh, dh,
+                                                  h0, bias, c0)
+
+    out = {}
+    print(f"scan X=H={W}, B={B}, Kx={sx.K}, Kh={sh.K}, deltas "
+          f"{sx.deltas.dtype}; CUDA events, median of 30, L2 flushed",
+          flush=True)
+    for name, (fx, fh) in fams.items():
+        tT = time_ms(scan(fx, fh, T), flush)
+        t1 = time_ms(scan(fx, fh, 1), flush)
+        out[name] = dict(ms=tT, ms_T1=t1, step_us=(tT - t1) / (T - 1) * 1e3)
+        print(f"  {name:8} T={T} {tT:.4f} ms, T=1 {t1:.4f} ms, "
+              f"{out[name]['step_us']:.2f} us a step", flush=True)
+    out["full, L2 warm"] = dict(ms=time_ms(scan(sx, sh, T)))
+    print(f"  full, L2 warm (no flush) {out['full, L2 warm']['ms']:.4f} ms",
+          flush=True)
+
+    def steps():
+        c, h = c0, h0
+        for x in xs:
+            c, h = kstep.fused_brds_lstm_step(sx.values, sx.deltas, x,
+                                              sh.values, sh.deltas, h, bias,
+                                              c)
+    out[f"{T} single steps"] = dict(ms=time_ms(steps, flush))
+    print(f"  {T} launches of the single-step kernel "
+          f"{out[f'{T} single steps']['ms']:.4f} ms", flush=True)
+    for spec in ("int8", "q1.11"):
+        scheme = parse_scheme(spec)
+        qs = [pad_packed(quantize_packed(s, spec)) for s in (sx, sh)]
+        acts = []
+        for v in (xs[0], h0):
+            sa = scheme.act_scale(float(v.abs().max()) / scheme.qmax)
+            acts += [quantize(v, sa, scheme), sa]
+        for name, (fx, fh) in fams.items():
+            fam = [(q.values, q.deltas) if keep else
+                   (q.values[:, :0].contiguous(), q.deltas[:, :0].contiguous())
+                   for q, keep in zip(qs, (fx is not None, fh is not None))]
+
+            def step(fam=fam):
+                kstep.fused_brds_lstm_step_q8(
+                    *fam[0], qs[0].scales * acts[1], acts[0], *fam[1],
+                    qs[1].scales * acts[3], acts[2], bias, c0)
+            key = f"q8 {spec} {name}"
+            out[key] = dict(ms=time_ms(step, flush))
+            print(f"  fused q8 step {spec:5} {name:8} {out[key]['ms']:.4f} ms",
+                  flush=True)
+        # the staged columns' order: the plan's stage_pos permutation
+        # against columns in order (shift 0), alternated twice; the two
+        # give the same bits (integer sums)
+        full = [(q.values, q.deltas) for q in qs]
+
+        def step_full():
+            return kstep.fused_brds_lstm_step_q8(
+                *full[0], qs[0].scales * acts[1], acts[0], *full[1],
+                qs[1].scales * acts[3], acts[2], bias, c0)
+
+        def ordered(*a):
+            return in_order(planned(*a), a[2].shape[1], a[3].shape[1])
+        planned, got = kstep.q8_plan_for, {}
+        for rep in (1, 2):
+            for order in ("permuted", "in order"):
+                kstep.q8_plan_for = planned if order == "permuted" else ordered
+                try:
+                    got[order] = step_full()
+                    key = f"q8 {spec} full, columns {order} #{rep}"
+                    out[key] = dict(ms=time_ms(step_full, flush))
+                finally:
+                    kstep.q8_plan_for = planned
+                print(f"  fused q8 step {spec:5} full, staged columns "
+                      f"{order:8} (run {rep}) {out[key]['ms']:.4f} ms",
+                      flush=True)
+        if not all(torch.equal(a, b) for a, b in zip(got["permuted"],
+                                                     got["in order"])):
+            raise SystemExit(f"q8 {spec}: the staging orders disagree")
+    print(json.dumps({"card": card, "T": T, "B": B, "width": W,
+                      "times": out}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

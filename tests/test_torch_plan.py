@@ -1,0 +1,240 @@
+"""The launch plans of the float scan and the fused q8 step
+(``kernels/plan.py``) on the CPU: the occupancy arithmetic (blocks an SM
+from registers, threads and shared memory; waves of a grid), each plan's
+fit on the card at lstm_ptb's serve shapes, the staged layout's
+addressing, the scan's scratch, and the alignment of the packed q8
+arrays. The kernels run only on the
+card, where ``chip_smoke.py`` prints the occupancy the runtime reports for
+the same plans."""
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.kernels import _build
+from repro_torch.kernels import fused_scan as kscan
+from repro_torch.kernels import plan as P
+
+# lstm_ptb: X = H = 1500, lstm_policy(0.75, 0.5): 375 and 750 entries a row
+PTB = dict(X=1500, H=1500, Kx=375, Kh=750)
+
+
+@pytest.mark.parametrize("regs,per_sm,waves", [(48, 5, 2), (40, 6, 1),
+                                               (32, 8, 1), (64, 4, 2)])
+def test_blocks_per_sm_and_waves_of_a_750_block_grid(regs, per_sm, waves):
+    """256 threads a block (the single-step kernels): 48 registers leave
+    room for 5 blocks an SM, 660 on 132 SMs, so 750 blocks (a 1500-wide
+    layer, two hidden units a block) take two waves; 40 registers give 6
+    blocks an SM and one wave."""
+    assert P.blocks_per_sm(regs, 256) == per_sm
+    assert P.waves(750, per_sm) == waves
+
+
+def test_blocks_per_sm_limits():
+    assert P.blocks_per_sm(32, 1024) == 2                    # warps
+    assert P.blocks_per_sm(128, 512) == 1                    # registers
+    assert P.blocks_per_sm(32, 128, smem=100 * 1024) == 2    # shared memory
+    assert P.blocks_per_sm(32, 512, smem=P.SMEM_PER_BLOCK) == 1
+    assert P.blocks_per_sm(255, 1024) == 0
+    with pytest.raises(ValueError):
+        P.waves(10, 0)
+
+
+@pytest.mark.parametrize("B", [1, 8, 16])
+def test_scan_plan_fits_the_card(B):
+    """At lstm_ptb's shapes the scan stages xs and h (a 128-byte bank row
+    a column), its shared memory fits one block an SM at up to 128
+    registers (its launch bounds), and its grid of ceil(H / units) blocks
+    is one wave, as a cooperative launch needs."""
+    p = P.scan_plan(T=32, B=B, **PTB)
+    assert p.stage_x and p.stage_h and p.col_bytes == (2, 2)
+    assert p.smem <= P.SMEM_PER_BLOCK
+    per_sm = P.blocks_per_sm(128, P.SCAN_THREADS, p.smem)
+    assert per_sm == 1 and P.waves(p.grid, per_sm) == 1
+    assert p.grid <= P.SMS and p.units * p.grid >= PTB["H"]
+    assert p.units * (p.grid - 1) < PTB["H"]
+    assert p.ax_shape == (32, 4 * PTB["H"], p.nb)
+    assert p.hx_shape == (2, p.nb // 4, PTB["H"], 4)
+    assert p.smem == 1500 * P.SCAN_COLUMN + 5 * p.units * p.nb * 4
+
+
+def test_scan_plan_gathers_what_does_not_fit():
+    """A 33000-wide input (chip_smoke's wide case) cannot be staged: the
+    prologue gathers xs from global memory with int32 columns; h, 97 wide,
+    is staged. A 4000-wide hidden state (chip_smoke's tall case) is
+    gathered in the recurrence."""
+    p = P.scan_plan(X=33000, H=97, T=32, B=12, Kx=8250, Kh=49)
+    assert not p.stage_x and p.stage_h and p.col_bytes == (4, 2)
+    assert p.smem == 97 * P.SCAN_COLUMN + 5 * p.units * p.nb * 4
+    p = P.scan_plan(X=64, H=4000, T=32, B=12, Kx=16, Kh=2000)
+    assert p.stage_x and not p.stage_h and p.col_bytes == (2, 4)
+    assert p.smem <= P.SMEM_PER_BLOCK
+    with pytest.raises(ValueError):
+        P.scan_plan(T=4, B=17, **PTB)
+
+
+@pytest.mark.parametrize("B,code_bytes,tiles", [(1, 1, 1), (8, 1, 1),
+                                                (8, 2, 1), (16, 1, 1),
+                                                (64, 1, 4)])
+def test_q8_plan_is_one_wave_a_batch_tile(B, code_bytes, tiles):
+    """The fused q8 step stages its tile's codes at every serve batch and
+    takes one block an SM, so a tile is one wave (the int8 form's two
+    waves at 48 registers are gone)."""
+    p = P.q8_plan(B=B, code_bytes=code_bytes, **PTB)
+    assert p.staged and p.tiles == tiles
+    per_sm = P.blocks_per_sm(128, P.Q8_THREADS, p.smem)
+    assert per_sm >= 1
+    assert P.waves(p.grid * p.tiles, per_sm) == tiles
+    assert p.smem == (p.xpad + p.hpad) * p.nb * code_bytes \
+        + 4 * p.units * p.nb * 4
+    # neighbouring lanes' entries lie 4 x ncols / K columns apart
+    assert (p.shift_x, p.shift_h) == (4, 3)
+
+
+def test_q8_plan_gathers_a_very_wide_input():
+    p = P.q8_plan(X=33000, H=97, B=12, Kx=8250, Kh=49, code_bytes=2)
+    assert not p.staged and p.smem == 4 * p.units * p.nb * 4
+
+
+def _unrotate(a, r):
+    """fused_scan.cu ``unrotate`` on a list of pieces: for each set bit s
+    of r, every cycle j, j + s, ... shifts by one in place."""
+    a, n, s = list(a), len(a), 1
+    while s < n:
+        if r & s:
+            for c in range(s):
+                last = c + n - s
+                t = a[last]
+                for m in range(last, c, -s):
+                    a[m] = a[m - s]
+                a[c] = t
+        s <<= 1
+    return a
+
+
+@pytest.mark.parametrize("nb", [4, 8, 16])
+def test_rotated_pieces_meet_no_bank_conflict_and_unrotate(nb):
+    """The scan's staged column is one 128-byte bank row of 8 float4
+    pieces (prologue: step tt's rows 4q..4q+3 in piece tt * NB/4 + q;
+    recurrence: h's NB/4 pieces repeated). A lane's j-th load takes piece
+    (j + lane) % 8, so the 8 lanes of a 16-byte load's phase meet 8
+    distinct slots; unrotate puts each lane's registers back in piece
+    order, and the recurrence's NB/4 loads reach every batch group."""
+    nq = nb // 4
+    for j in range(8):
+        assert sorted((j + lane) % 8 for lane in range(8)) == list(range(8))
+    for n in (1, 2, 4, 8):
+        for lane in range(32):
+            rot = lane & 7
+            # register slot j holds piece (j + rot) % n (n | 8)
+            regs = [(j + rot) % n for j in range(n)]
+            assert _unrotate(regs, rot) == list(range(n))
+    for lane in range(8):
+        groups = {((j + lane) % 8) % nq for j in range(nq)}
+        assert groups == set(range(nq))
+    # the prologue's pieces: 32 / NB steps of NB rows
+    pieces = [(p // nq, p % nq) for p in range(8)]
+    assert len(set(pieces)) == 8
+    assert max(tt for tt, _ in pieces) == 32 // nb - 1
+
+
+@pytest.mark.parametrize("kw,cols", [
+    (dict(T=5, B=3, **PTB), (torch.int16, torch.int16)),
+    (dict(X=33000, H=97, T=4, B=12, Kx=8250, Kh=49),
+     (torch.int32, torch.int16)),
+    (dict(X=64, H=4000, T=4, B=12, Kx=16, Kh=2000),
+     (torch.int16, torch.int32))])
+def test_scan_scratch_shape_checks(kw, cols):
+    """The scan's scratch, allocated by its wrapper from the plan: ax
+    (T, 4H, NB) float32, the decoded columns (4H, K) in uint16 storage
+    where that family is staged (int32 where it is gathered), hx in the
+    staged layout; all contiguous on the asked device."""
+    p = P.scan_plan(**kw)
+    ax, colx, colh, hx = kscan.scan_scratch(p, kw["Kx"], kw["Kh"], "cpu")
+    R = 4 * kw["H"]
+    assert ax.shape == (kw["T"], R, p.nb) and ax.dtype == torch.float32
+    assert colx.shape == (R, kw["Kx"]) and colx.dtype == cols[0]
+    assert colh.shape == (R, kw["Kh"]) and colh.dtype == cols[1]
+    assert [t.element_size() for t in (colx, colh)] == list(p.col_bytes)
+    assert hx.shape == p.hx_shape == (2, p.nb // 4, kw["H"], 4)
+    assert hx.dtype == torch.float32
+    assert all(t.is_contiguous() and t.device.type == "cpu"
+               for t in (ax, colx, colh, hx))
+
+
+def test_aligned_arrays_only():
+    """The fused q8 step loads four codes and four deltas at once, so its
+    wrapper refuses packed arrays that do not start on 16 bytes."""
+    t = torch.zeros(64, dtype=torch.int8)
+    _build.require_aligned(t, "codes")
+    with pytest.raises(ValueError, match="16-byte"):
+        _build.require_aligned(t[1:], "codes")
+
+
+@pytest.mark.parametrize("hidden", [64, 96])
+@pytest.mark.parametrize("spec", ["int8", "q1.11"])
+def test_packed_q8_arrays_start_aligned(hidden, spec):
+    """What the serve path hands the fused q8 step meets its wrapper's
+    16-byte check: ``LSTMModel.pack`` with a quant scheme (what
+    ``ServeEngine.prepare`` packs) gives codes and deltas that start their
+    own storage, contiguous, whether ``pad_packed`` appends rows (4H =
+    384) or passes the packed deltas through (4H = 256). A fresh
+    allocation starts on 512 bytes on the card (PyTorch's caching
+    allocator), on 64 on the CPU."""
+    from repro_torch.models import LSTMConfig, LSTMModel
+    cfg = LSTMConfig("t", input_size=48, hidden=hidden, num_layers=2,
+                     vocab_size=11)
+    model = LSTMModel(cfg)
+    params = model.init(torch.Generator().manual_seed(0), device="cpu")
+    pruned, masks = model.prune(params, 0.75, 0.5)
+    for layer in model.pack(pruned, masks, quant=spec):
+        for key in ("sx", "sh"):
+            s = layer[key]
+            assert s.values.dtype == (torch.int8 if spec == "int8"
+                                      else torch.int16)
+            for name, t in (("codes", s.values), ("deltas", s.deltas)):
+                assert t.storage_offset() == 0 and t.is_contiguous(), name
+                _build.require_aligned(t, f"{key} {name}")
+
+
+def _bank_load(ncols, K, per_lane, lanes, slot_bits, shift, rows=48):
+    """Mean over a warp's shared loads of the largest number of lanes of
+    one phase (``lanes`` lanes) on one slot of a bank row (2^slot_bits
+    slots), gathering the staged activations of random row-balanced rows
+    (K of ncols columns) at stage_pos(col, shift): the wavefronts a load
+    takes, 1 at best. Lane l takes entries l, l+32, ... (per_lane 1: the
+    float scan) or chunks of four consecutive entries (per_lane 4: the
+    fused q8 step, one load a chunk entry)."""
+    rng = np.random.default_rng(0)
+    loads = []
+    for _ in range(rows):
+        cols = np.sort(rng.choice(ncols, K, replace=False))
+        step = 32 * per_lane
+        for u in range(K // step):
+            block = cols[u * step:(u + 1) * step].reshape(32, per_lane)
+            for i in range(per_lane):
+                slot = P.stage_pos(block[:, i], shift, slot_bits) \
+                    % (1 << slot_bits)
+                for ph in range(0, 32, lanes):
+                    loads.append(np.bincount(slot[ph:ph + lanes]).max())
+    return float(np.mean(loads))
+
+
+def test_stage_pos_spreads_the_q8_steps_gathers():
+    """The q8 step's lanes take entries four apart, so neighbouring lanes'
+    columns lie about 4 x ncols / K apart and the plan's stage_pos shift
+    spreads them over the slots (int8 codes at B=8: 8-byte vectors, phases
+    of 16 lanes, 16 slots). The float scan's lanes take consecutive
+    entries of random columns: staged in column order, about two of a
+    phase's 8 lanes meet on a slot and no shift does better, which is why
+    the scan rotates the pieces of a 128-byte column instead (one lane a
+    slot, test above)."""
+    p = P.q8_plan(B=8, code_bytes=1, **PTB)
+    for K, ncols, shift in ((PTB["Kh"], PTB["H"], p.shift_h),
+                            (PTB["Kx"], PTB["X"], p.shift_x)):
+        ident = _bank_load(ncols, K, 4, 16, p.slot_bits, 0)
+        assert _bank_load(ncols, K, 4, 16, p.slot_bits, shift) < 0.8 * ident
+    for K in (PTB["Kh"], PTB["Kx"]):
+        ident = _bank_load(1500, K, 1, 8, 3, 0)
+        assert 1.9 < ident < 2.5
+        assert min(_bank_load(1500, K, 1, 8, 3, s) for s in (1, 2, 3)) \
+            > 0.97 * ident
