@@ -5,10 +5,12 @@
 
 1. Prints the card (``nvidia-smi``), the torch / CUDA versions, and builds
    every CUDA kernel from ``src/repro_torch/csrc`` (one nvcc per source, all
-   started together); for the redesigned float scan and fused q8 step at
-   the serve tier, prints ptxas's registers and spills, the local bytes,
-   shared memory, blocks an SM and waves at the launch's grid, and fails
-   on a spill, a local array or a second wave.
+   started together); for the redesigned float scan, fused q8 and
+   delta-q8 steps at the serve tier and decode attention at qwen3-0.6b's
+   decode shape, prints ptxas's registers and spills, the local bytes,
+   shared memory, blocks an SM and waves at the launch's grid (decode: its
+   cluster size too), and fails on a spill, a local array or (but for
+   decode) a second wave.
 2. Kernels: calls each kernel's wrapper at the serve path's full-width
    shapes (lstm_ptb, B=8, int16 deltas), at a small shape (B=3, int8
    deltas, odd H: the fused kernels' partial last block), at a wide one
@@ -22,7 +24,8 @@
    (delta_rb_dual_spmv, fused delta step, delta_rb_spmv) at a fired share
    of about 50% and at 100%, the quantized ones (rb_dual_parts_q8, fused
    q8 step, rb_spmv_q8) with int8 and with q1.11 (int16) codes, the fused
-   delta-q8 step on both code types and fired shares, and the
+   delta-q8 step on both code types and fired shares (and at B=1, 16 and
+   64, as the fused q8 step), and the
    single-family float rb_spmv; the q8 partial sums, rb_spmv_q8 and the
    fused delta-q8 step's m' must equal the plain version's exactly. The
    multi-token scans over T=32 steps (the serve prompt), float and
@@ -68,8 +71,9 @@
    float32 and bf16: the qwen3-0.6b serve shape, an odd one (D=64, MQA, a
    window, ragged lengths with 0, 1 and S), a long one (B14 at S=32768,
    B15 at Sk=4096 with Sq < Sk) and head_dim 192 (nemotron-4-340b's);
-   timed at the serve shape beside their plain versions and
-   ``scaled_dot_product_attention``.
+   B14 twice at the serve shape, bitwise equal, and one CUDA launch a call
+   (torch.profiler); timed at the serve shape beside their plain versions
+   and ``scaled_dot_product_attention``, B14 also at the long shape.
 7. Transformer serve: full-width ``qwen3-0.6b`` in bf16 (seed-0 weights)
    through ``ServeEngine``, greedy, B=8, prompt 512, gen 64, with the
    launch counts read around one generate (28 B15 launches for the
@@ -205,8 +209,8 @@ def ptxas_attention(out: str, flash_smem: int) -> list[str]:
     heads a block; flash on the tensor cores with two consumer
     warpgroups), and the flash block's dynamic shared memory."""
     import re
-    want = {"decode_attention_kernelI13__nv_bfloat16Li128ELi2E":
-            "decode<bf16,128>",
+    want = {"decode_cluster_kernelI13__nv_bfloat16Li128ELi2EE":
+            "decode_cluster<bf16,128,2 heads>",
             "flash_tc_kernelILi128ELi2E": "flash_tc<bf16,128,2 heads>"}
     rows, name, spill = [], None, 0
     for ln in out.splitlines():
@@ -226,14 +230,21 @@ def ptxas_attention(out: str, flash_smem: int) -> list[str]:
     return rows
 
 
-# the redesigned instantiations at the serve tier (B=8, lstm_ptb): mangled
-# name fragment -> what chip_smoke prints
+# the redesigned instantiations at the serve tier (B=8, lstm_ptb; B14 at
+# qwen3-0.6b's bf16 head_dim 128, two q heads a block): mangled name
+# fragment -> what chip_smoke prints
 REDESIGNED = {"fused_scan_kernelILi8ELb1ELb1E":
               "fused_scan_kernel<8, xs staged, h staged> (B12)",
-              "fused_step_q8_kernelIaLi8ELb0ELb1E":
+              "fused_step_q8_kernelIaLi8ELb0ELb1ELb0EE":
               "fused_step_q8_kernel<int8, 8, staged> (B8 int8)",
-              "fused_step_q8_kernelIsLi8ELb0ELb1E":
-              "fused_step_q8_kernel<int16, 8, staged> (B8 q1.11)"}
+              "fused_step_q8_kernelIsLi8ELb0ELb1ELb0EE":
+              "fused_step_q8_kernel<int16, 8, staged> (B8 q1.11)",
+              "fused_step_q8_kernelIaLi8ELb0ELb1ELb1EE":
+              "fused_step_q8_kernel<int8, 8, staged, delta> (B9 int8)",
+              "fused_step_q8_kernelIsLi8ELb0ELb1ELb1EE":
+              "fused_step_q8_kernel<int16, 8, staged, delta> (B9 q1.11)",
+              "decode_cluster_kernelI13__nv_bfloat16Li128ELi2EE":
+              "decode_cluster_kernel<bf16, 128, 2 heads> (B14)"}
 
 
 def ptxas_redesigned(out: str) -> dict:
@@ -256,37 +267,56 @@ def ptxas_redesigned(out: str) -> dict:
 
 
 def occupancy(torch, device) -> None:
-    """Prints, for the redesigned B12 and B8 (int8, q1.11) instantiations
-    at the serve tier: ptxas's registers and spill bytes, the launch plan's
-    dynamic shared memory and grid, and the blocks an SM and waves the
-    runtime's occupancy calculator gives at that grid (beside the plain
-    ``plan.blocks_per_sm``). Fails unless each has no spill and no local
-    array and runs in one wave."""
+    """Prints, for the redesigned B12, B8 and B9 (int8, q1.11)
+    instantiations at the serve tier and B14's at qwen3-0.6b's decode
+    shape: ptxas's registers and spill bytes, the launch plan's dynamic
+    shared memory and grid, and the blocks an SM and waves the runtime's
+    occupancy calculator gives at that grid (beside the plain
+    ``plan.blocks_per_sm``); for B14 also its cluster size. Fails unless
+    each has no spill and no local array, and unless B12, B8 and B9 run in
+    one wave."""
     from repro_torch.kernels import _build
+    from repro_torch.kernels import decode_attention as kdec
     from repro_torch.kernels import fused_scan as kscan
     from repro_torch.kernels import fused_step as kstep
     from repro_torch.kernels import plan as P
-    ptx = {**ptxas_redesigned(_build.BUILD_LOG.get("fused_scan", "")),
-           **ptxas_redesigned(_build.BUILD_LOG.get("fused_step", ""))}
+    ptx = {}
+    for src in ("fused_scan", "fused_step", "attention"):
+        ptx.update(ptxas_redesigned(_build.BUILD_LOG.get(src, "")))
     sms = _build.sm_count(device)
     B, X, H, Kx, Kh = SERVE["batch"], 1500, 1500, 375, 750
     sp = P.scan_plan(X=X, H=H, T=SERVE["prompt"], B=B, Kx=Kx, Kh=Kh, sms=sms)
     rows = [("fused_scan_kernelILi8ELb1ELb1E", sp, P.SCAN_THREADS,
              kscan.scan_info(sp, B, device))]
-    for key, cb in (("fused_step_q8_kernelIaLi8ELb0ELb1E", 1),
-                    ("fused_step_q8_kernelIsLi8ELb0ELb1E", 2)):
-        qp = P.q8_plan(X=X, H=H, B=B, Kx=Kx, Kh=Kh, code_bytes=cb, sms=sms)
-        rows.append((key, qp, P.Q8_THREADS, kstep.q8_info(qp, B, cb, device)))
+    for key, cb, delta in (("fused_step_q8_kernelIaLi8ELb0ELb1ELb0EE", 1, 0),
+                           ("fused_step_q8_kernelIsLi8ELb0ELb1ELb0EE", 2, 0),
+                           ("fused_step_q8_kernelIaLi8ELb0ELb1ELb1EE", 1, 1),
+                           ("fused_step_q8_kernelIsLi8ELb0ELb1ELb1EE", 2, 1)):
+        qp = P.q8_plan(X=X, H=H, B=B, Kx=Kx, Kh=Kh, code_bytes=cb,
+                       delta=bool(delta), sms=sms)
+        rows.append((key, qp, P.Q8_THREADS,
+                     kstep.q8_info(qp, B, cb, device, delta=bool(delta))))
+    # B14 at the qwen3-0.6b decode shape: B=8, 16 q / 8 kv heads of 128,
+    # bf16, a 1024-row cache
+    dp = P.decode_plan(B=TSERVE["batch"], Hkv=8, G=2, S=TSERVE["max_len"],
+                       D=128, elem_bytes=2, sms=sms)
+    dkey = "decode_cluster_kernelI13__nv_bfloat16Li128ELi2EE"
+    rows.append((dkey, dp, P.DEC_THREADS,
+                 kdec.decode_info(dp, 128, 2, torch.bfloat16, device)))
     for key, plan, threads, info in rows:
         regs, spill = ptx.get(key, (None, None))
         calc = P.blocks_per_sm(info["registers"], threads, plan.smem)
+        extra = (f"; clusters of {plan.splits} blocks, {plan.stages} ring "
+                 f"stages of {plan.stage_bytes} B, {info['heads']} q heads "
+                 "a block" if key == dkey else "")
         log(f"[occupancy] {REDESIGNED[key]}: ptxas {regs} registers, {spill} "
             f"B spill; runtime {info['registers']} registers, "
             f"{info['local_bytes']} B local; {plan.smem} B dynamic shared "
             f"memory; {info['blocks_per_sm']} block(s) an SM (plan."
             f"blocks_per_sm: {calc}), grid {plan.grid} blocks on {sms} "
-            f"SMs: {info['waves']} wave(s)")
-        if spill != 0 or info["local_bytes"] != 0 or info["waves"] != 1:
+            f"SMs: {info['waves']} wave(s){extra}")
+        if spill != 0 or info["local_bytes"] != 0 or (
+                key != dkey and info["waves"] != 1):
             raise AssertionError(f"{REDESIGNED[key]}: spills, keeps an "
                                  "array in local memory or takes more "
                                  "than one wave")
@@ -410,13 +440,14 @@ def check_kernels(torch, device, flush):
         check_delta_q8(torch, ops, err, tag, cs)
         check_scans(torch, ops, err, tag, cs)
     check_batch_tiles(torch, ops, err)
-    # the fused q8 step (B8) at the other batch tiers, full width: B=1 and
-    # 16 in one tile, 64 in four (rows of 375 and 750 entries, neither a
+    # the fused q8 and delta-q8 steps (B8, B9) at the other batch tiers,
+    # full width: B=1 and 16 in one tile, 64 in four (rows of 375 and 750 entries, neither a
     # multiple of the 4 entries a lane loads)
     for B in (1, 16, 64):
         cs = make_case(torch, device, B=B, X=1500, H=1500, spar_x=0.75,
                        spar_h=0.5, seed=6 + B)
         check_q8(torch, ops, ref, kq8, err, f"full B={B}", cs)
+        check_delta_q8(torch, ops, err, f"full B={B}", cs)
         if B == 16:
             # the scans' largest one-tile batch
             check_tile_scans(torch, ops, err, cs)
@@ -1696,6 +1727,7 @@ def check_attention(torch, device, flush):
     q = q[:, :, 0]
     L = P + G // 2
     n = torch.full((B,), L, dtype=torch.int32, device=device)
+    decode_one_launch(torch, ops, q, k, v, n)
     mask = (torch.arange(S, device=device) < L)[None, None, None, :]
     live = B * 8 * L * 128 * 2              # K and V rows up to the length
     # operations, at the bf16 tensor-core rate: B14 counts Q·K^T once and
@@ -1733,7 +1765,46 @@ def check_attention(torch, device, flush):
             f"bound {bms * 1e3:.2f} us ({by}; operations at the bf16 "
             f"tensor-core rate) — median of 30, L2 flushed, bf16, serve "
             f"shape")
+    # decode at the long shape (phase 6's: B=2, S=32768, lengths 32768 and
+    # 20001), beside its plain version and its bound
+    q, k, v = attn_case(torch, device, bf, B=2, Hq=16, Hkv=8, Sq=1, Sk=32768,
+                        D=128, seed=3)
+    q = q[:, :, 0]
+    lens = [32768, 20001]
+    n = torch.tensor(lens, dtype=torch.int32, device=device)
+    live = 8 * sum(lens) * 128 * 2
+    bms, by = bound(nbytes(q) * 2 + live * 2, 0,
+                    bf16_flops=6 * 16 * sum(lens) * 128)
+    log(f"[time] decode_attention long, lengths {lens}: kernel "
+        f"{time_ms(lambda: ops.decode_attention(q, k, v, n, backend='cuda'), flush):.4f}"
+        f" ms, plain {time_ms(lambda: ops.decode_attention(q, k, v, n, backend='ref'), flush):.4f}"
+        f" ms, bound {bms * 1e3:.2f} us ({by}) — median of 30, L2 flushed, "
+        "bf16")
     return rec
+
+
+def decode_one_launch(torch, ops, q, k, v, n) -> None:
+    """B14 is one CUDA launch a call and carries nothing between calls: two
+    calls are bitwise equal, and the profiler sees one kernel on the card
+    (no combine kernel, no workspace memset)."""
+    from torch.profiler import ProfilerActivity, profile
+    a = ops.decode_attention(q, k, v, n, backend="cuda")
+    b = ops.decode_attention(q, k, v, n, backend="cuda")
+    torch.cuda.synchronize()
+    if not torch.equal(a, b):
+        raise AssertionError("decode_attention: two calls differ")
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        ops.decode_attention(q, k, v, n, backend="cuda")
+        torch.cuda.synchronize()
+    got = {e.key: e.count for e in prof.key_averages()
+           if e.device_type == torch.autograd.DeviceType.CUDA
+           and not e.is_user_annotation}
+    if sum(got.values()) != 1 or "decode_cluster_kernel" not in next(
+            iter(got)):
+        raise AssertionError(f"decode_attention launched {got}: one "
+                             "decode_cluster_kernel expected")
+    log(f"  decode_attention serve: two calls bitwise equal; one launch a "
+        f"call ({next(iter(got))})")
 
 
 def tf_logits(torch, model, params, tokens, out, max_len):

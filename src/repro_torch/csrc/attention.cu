@@ -17,17 +17,36 @@
 // cannot poison l), and out = acc / max(l, 1e-30): a row with no live key
 // gives 0, as the Pallas kernels do.
 //
-// decode_attention. Bound: bytes (each live K and V row is read once and
-// used for 2G flops per element). A block owns a (b, kv head) pair, up to
-// GM of its q heads and one of `nsplit` slices of [lo, len): each warp
-// streams its own keys, four at a time, lane l holding elements
-// [l*D/32, (l+1)*D/32) of q, K, V and acc, with a running (m, l, acc) per
-// head in registers; the eight warps merge in shared memory in warp order.
-// Lengths are read on the card (no host read), and keys at or past
-// lengths[b] (or before len - window) are never loaded. With nsplit > 1 a
-// second launch merges the slices' (m, l, acc) in slice order; the
-// wrapper picks nsplit so the pairs fill the SMs (64 pairs at B=8 on
-// qwen3-0.6b would leave half of 132 SMs idle). Deterministic: no atomics.
+// decode_attention (decode_cluster_kernel). Bound: bytes (each live K and
+// V row is read once and used for 2G flops per element): at the
+// qwen3-0.6b serve shape (B=8, 8 kv heads of 128, bf16, ~544 live rows)
+// 17.8 MB, 5.3 us at 3.35 TB/s. The one-warp-a-stream kernel it replaces
+// (0.0274 ms) kept 8 bytes a lane in flight, used each load before the
+// next went out, waited for lengths[b] and then the slice bounds before
+// its first K byte, and merged the slices in a second launch through a
+// workspace. Here:
+//  - A block owns slice `split` of a (b, kv head) pair's live keys and GM
+//    of its q heads; its 16 half-warps are key streams (stream s takes
+//    keys s, s + 16, ...), lane l of a half-warp holds elements
+//    [l D/16, (l+1) D/16) of q, K, V and acc (16 bytes at bf16 D = 128).
+//  - As soon as lengths[b] is read, each thread issues cp.async copies of
+//    its own pieces of the slice's K and V rows into a ring of `stages`
+//    stages of kDecU keys a stream (about 32 KB in flight a block, one
+//    block an SM), then loads q. A thread reads back only the pieces it
+//    copied, so the ring needs no barrier; a slot is refilled after the
+//    thread has used it.
+//  - The nsplit slices of a pair are one thread-block cluster. Each block
+//    merges its two streams a warp and then its warps in order and stores
+//    its (m, l, acc) into rank 0's shared memory (distributed shared
+//    memory: stores, no remote loads); after one cluster.sync() rank 0
+//    merges the slices in rank (slice) order and writes the outputs. One
+//    launch, no workspace, no atomics: deterministic, and nothing to
+//    reset between calls. (Every rank reading every partial through
+//    distributed shared memory, between two cluster barriers, cost 2-5 us
+//    more at each doubling of the cluster, PERF.md.)
+// Keys at or past lengths[b] (or before len - window) are never copied;
+// the stale slots of a slice's last tile weigh exactly 0. kernels/plan.py
+// ::decode_plan picks nsplit, the stages and the shared memory.
 //
 // flash_attention, bf16 (flash_tc_kernel). Bound at the qwen3-0.6b serve
 // shape (B=8, 16 q / 8 kv heads of 128, causal S=512): q, k and v read
@@ -88,15 +107,18 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <cooperative_groups.h>
+
 #include <type_traits>
 
 #include "wgmma.cuh"
+
+namespace cg = cooperative_groups;
 
 namespace {
 
 constexpr float kNeg = -1e30f;
 constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
 
 __device__ __forceinline__ float to_f(float x) { return x; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 x) {
@@ -147,38 +169,191 @@ __device__ __forceinline__ void load_row(const T* __restrict__ p,
   }
 }
 
-__device__ __forceinline__ float warp_sum(float x) {
+// ------------------------------------------------------- decode attention
+
+constexpr int kDecThreads = 256;
+constexpr int kDecWarps = kDecThreads / 32;
+constexpr int kKeyLanes = 16;                      // a key's lanes: a half-warp
+constexpr int kStreams = kDecThreads / kKeyLanes;  // key streams a block
+constexpr int kDecU = 2;                           // keys a stream takes a stage
+constexpr int kMaxStages = 8;                      // cp_async_wait_pending's
+constexpr int kMaxCluster = 8;                     // the portable cluster size
+
+// One lane's share of a K or V row: E = D / 16 elements, copied in pieces
+// of kChunk bytes (16 where the share allows; 8 at bf16 D = 192, 4 at bf16
+// D = 32). kStage: a stage's bytes a block (16 streams x kDecU keys x K, V).
+template <typename T, int D>
+struct DecodeLane {
+  static constexpr int E = D / kKeyLanes;
+  static constexpr int kBytes = E * (int)sizeof(T);
+  static constexpr int kChunk = kBytes % 16 == 0 ? 16 : kBytes % 8 == 0 ? 8 : 4;
+  static constexpr int kChunks = kBytes / kChunk;
+  static constexpr int kPer = kChunk / (int)sizeof(T);   // elements a piece
+  static constexpr int kStage = kDecU * 2 * kBytes * kDecThreads;
+};
+
+// Dynamic shared memory of a block: the ring of `stages` stages, then
+// (m, l, acc) of GM heads for each warp, then one for each rank of the
+// cluster, which rank 0 gathers (kernels/plan.py::decode_plan computes the
+// same).
+template <typename T, int D, int GM>
+constexpr int decode_smem(int stages) {
+  return stages * DecodeLane<T, D>::kStage +
+         (int)sizeof(float) * (kDecWarps + kMaxCluster) * GM * (D + 2);
+}
+
+// N bytes (4, 8 or 16) from global `src` to shared `dst`, asynchronously
+template <int N>
+__device__ __forceinline__ void cp_async_n(uint32_t dst, const void* src) {
+  if constexpr (N == 16)
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst),
+                 "l"(src)
+                 : "memory");
+  else
+    asm volatile("cp.async.ca.shared.global [%0], [%1], %2;\n" ::"r"(dst),
+                 "l"(src), "n"(N)
+                 : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+// until at most n of this thread's cp.async groups are pending; n above 7
+// waits for 7 (sooner than asked, so as safe)
+__device__ __forceinline__ void cp_async_wait_pending(int n) {
+#define BRDS_WAIT(N) \
+  case N:            \
+    asm volatile("cp.async.wait_group " #N ";\n" ::: "memory"); break
+  switch (n) {
+    BRDS_WAIT(0); BRDS_WAIT(1); BRDS_WAIT(2); BRDS_WAIT(3);
+    BRDS_WAIT(4); BRDS_WAIT(5); BRDS_WAIT(6);
+    default: asm volatile("cp.async.wait_group 7;\n" ::: "memory");
+  }
+#undef BRDS_WAIT
+}
+
+// One piece of kChunk bytes in shared memory into float registers
+template <typename T, int N>
+__device__ __forceinline__ void smem_piece(const unsigned char* p,
+                                           float (&out)[N / sizeof(T)]) {
+  constexpr int n = N / (int)sizeof(T);
+  if constexpr (N == 16) {
+    const uint4 u = *reinterpret_cast<const uint4*>(p);
+    const T* e = reinterpret_cast<const T*>(&u);
 #pragma unroll
-  for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
+    for (int j = 0; j < n; ++j) out[j] = to_f(e[j]);
+  } else if constexpr (N == 8) {
+    const uint2 u = *reinterpret_cast<const uint2*>(p);
+    const T* e = reinterpret_cast<const T*>(&u);
+#pragma unroll
+    for (int j = 0; j < n; ++j) out[j] = to_f(e[j]);
+  } else {
+    const unsigned u = *reinterpret_cast<const unsigned*>(p);
+    const T* e = reinterpret_cast<const T*>(&u);
+#pragma unroll
+    for (int j = 0; j < n; ++j) out[j] = to_f(e[j]);
+  }
+}
+
+// A cluster barrier in two halves: arrive (relaxed: orders nothing) and
+// wait. Arriving at the start and waiting before the first store into
+// another block's shared memory guarantees that block has started.
+__device__ __forceinline__ void cluster_arrive_relaxed() {
+  asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ float half_warp_sum(float x) {
+#pragma unroll
+  for (int o = kKeyLanes / 2; o > 0; o >>= 1)
+    x += __shfl_xor_sync(0xffffffffu, x, o);
   return x;
 }
 
-// ------------------------------------------------------- decode attention
+template <typename T>
+struct DecodeArgs {
+  const T* q;
+  long long sqb, sqh;
+  const T* k;
+  long long skb, skh, sks;
+  const T* v;
+  long long svb, svh, svs;
+  const int* lengths;
+  T* out;
+  int S, Hq, Hkv, window, nsplit, stages, fixed_len;
+  float scale;
+};
 
+// Block (split, b * Hkv + kv head, q-head group): slice `split` of the
+// (b, kv head) pair's live keys, GM of its q heads. The nsplit blocks of a
+// pair are one cluster (rank = split).
 template <typename T, int D, int GM>
-__global__ void __launch_bounds__(kThreads)
-decode_attention_kernel(const T* __restrict__ q, long long sqb, long long sqh,
-                        const T* __restrict__ k, long long skb,
-                        long long skh, long long sks,
-                        const T* __restrict__ v, long long svb,
-                        long long svh, long long svs,
-                        const int* __restrict__ lengths, int S, int Hq,
-                        int Hkv, int window, float scale, int nsplit,
-                        T* __restrict__ out, float* __restrict__ ws) {
-  constexpr int E = D / 32;   // elements per lane
-  constexpr int U = 4;        // keys per warp and iteration
-  const int b = blockIdx.x / Hkv, kh = blockIdx.x % Hkv;
-  const int split = blockIdx.y;
-  const int G = Hq / Hkv;
+__global__ void __launch_bounds__(kDecThreads, 2)
+decode_cluster_kernel(const DecodeArgs<T> a) {
+  using L = DecodeLane<T, D>;
+  constexpr int E = L::E;
+  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
+  const int stream = tid / kKeyLanes, kl = tid % kKeyLanes;
+  const int split = blockIdx.x;
+  const int b = blockIdx.y / a.Hkv, kh = blockIdx.y % a.Hkv;
+  const int G = a.Hq / a.Hkv;
   const int g0 = blockIdx.z * GM;
   const int gn = min(GM, G - g0);
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
 
-  const int len = min(max(lengths[b], 0), S);
-  const int lo = window > 0 ? max(0, len - window) : 0;
-  const int chunk = (len - lo + nsplit - 1) / nsplit;
+  extern __shared__ __align__(16) unsigned char dec_smem[];
+  const uint32_t ring = hopper::smem_addr(dec_smem);
+  constexpr int kParts = kDecWarps + kMaxCluster;   // warps, then ranks
+  float* sm_m = reinterpret_cast<float*>(dec_smem + a.stages * L::kStage);
+  float* sm_l = sm_m + kParts * GM;     // [kParts][GM]
+  float* sm_acc = sm_l + kParts * GM;   // [kParts][GM][D]
+
+  if (a.nsplit > 1) cluster_arrive_relaxed();
+  // the slice: one read of lengths[b], then every copy the ring holds
+  const int len = min(max(a.fixed_len >= 0 ? a.fixed_len : a.lengths[b], 0),
+                      a.S);
+  const int lo = a.window > 0 ? max(0, len - a.window) : 0;
+  const int chunk = (len - lo + a.nsplit - 1) / a.nsplit;
   const int s0 = lo + split * chunk;
   const int s1 = min(len, s0 + chunk);
+  // stream s's keys: s0 + s + kStreams * i for i < keys(s); a warp's
+  // even stream has the most, and both of its streams run its tiles (the
+  // shuffles need the whole warp)
+  auto keys = [&](int s) {
+    return s1 - s0 > s ? (s1 - s0 - s + kStreams - 1) / kStreams : 0;
+  };
+  const int nk = keys(stream);
+  const int ntiles = (keys(stream & ~1) + kDecU - 1) / kDecU;
+  const T* kb = a.k + b * a.skb + kh * a.skh + kl * E;
+  const T* vb = a.v + b * a.svb + kh * a.svh + kl * E;
+  // piece c of key u (K or V) of ring slot `slot`, this thread's own:
+  // consecutive threads on consecutive pieces, and a thread reads only
+  // what it copied (no barrier between copy and use)
+  auto piece = [&](int slot, int u, int kv, int c) {
+    return ((((slot * kDecU + u) * 2 + kv) * L::kChunks + c) * kDecThreads +
+            tid) * L::kChunk;
+  };
+  auto issue = [&](int t) {   // tile t (kDecU keys) into slot t % stages
+    if (t < ntiles) {
+      const int slot = t % a.stages;
+#pragma unroll
+      for (int u = 0; u < kDecU; ++u) {
+        const int i = t * kDecU + u;
+        if (i < nk) {
+          const long long key = s0 + stream + kStreams * i;
+#pragma unroll
+          for (int c = 0; c < L::kChunks; ++c) {
+            cp_async_n<L::kChunk>(ring + piece(slot, u, 0, c),
+                                  kb + key * a.sks + c * L::kPer);
+            cp_async_n<L::kChunk>(ring + piece(slot, u, 1, c),
+                                  vb + key * a.svs + c * L::kPer);
+          }
+        }
+      }
+    }
+    cp_async_commit();   // one group a tile, empty past the last
+  };
+  for (int t = 0; t < a.stages; ++t) issue(t);
 
   float qr[GM][E], m[GM], l[GM], acc[GM][E];
 #pragma unroll
@@ -188,205 +363,246 @@ decode_attention_kernel(const T* __restrict__ q, long long sqb, long long sqh,
 #pragma unroll
     for (int e = 0; e < E; ++e) qr[g][e] = acc[g][e] = 0.f;
     if (g < gn) {
-      load_row<T, E>(q + b * sqb + (kh * G + g0 + g) * sqh + lane * E,
+      load_row<T, E>(a.q + b * a.sqb + (kh * G + g0 + g) * a.sqh + kl * E,
                      qr[g]);
 #pragma unroll
-      for (int e = 0; e < E; ++e) qr[g][e] *= scale;
+      for (int e = 0; e < E; ++e) qr[g][e] *= a.scale;
     }
   }
-  const T* kb = k + b * skb + kh * skh + lane * E;
-  const T* vb = v + b * svb + kh * svh + lane * E;
-  for (int base = s0 + warp * U; base < s1; base += kWarps * U) {
-    float kr[U][E], vr[U][E], sc[U][GM];
+
+  for (int t = 0; t < ntiles; ++t) {
+    // tile t's group is done once at most stages - 1 later ones pend
+    cp_async_wait_pending(a.stages - 1);
+    const int slot = t % a.stages;
+    float kr[kDecU][E], vr[kDecU][E], sc[kDecU][GM];
 #pragma unroll
-    for (int u = 0; u < U; ++u) {
-      if (base + u < s1) {
-        load_row<T, E>(kb + (base + u) * sks, kr[u]);
-        load_row<T, E>(vb + (base + u) * svs, vr[u]);
-      } else {
+    for (int u = 0; u < kDecU; ++u) {
+      const bool live = t * kDecU + u < nk;
 #pragma unroll
-        for (int e = 0; e < E; ++e) kr[u][e] = vr[u][e] = 0.f;
+      for (int c = 0; c < L::kChunks; ++c) {
+        float pk[L::kPer], pv[L::kPer];
+        smem_piece<T, L::kChunk>(dec_smem + piece(slot, u, 0, c), pk);
+        smem_piece<T, L::kChunk>(dec_smem + piece(slot, u, 1, c), pv);
+#pragma unroll
+        for (int j = 0; j < L::kPer; ++j) {
+          // a key past the slice was never copied: its bytes are stale
+          kr[u][c * L::kPer + j] = live ? pk[j] : 0.f;
+          vr[u][c * L::kPer + j] = live ? pv[j] : 0.f;
+        }
       }
-    }
-#pragma unroll
-    for (int u = 0; u < U; ++u)
 #pragma unroll
       for (int g = 0; g < GM; ++g) {
         float d = 0.f;
 #pragma unroll
         for (int e = 0; e < E; ++e) d = fmaf(qr[g][e], kr[u][e], d);
-        d = warp_sum(d);
-        sc[u][g] = base + u < s1 ? d : kNeg;
+        d = half_warp_sum(d);
+        sc[u][g] = live ? d : kNeg;
       }
+    }
 #pragma unroll
     for (int g = 0; g < GM; ++g) {
       float mx = m[g];
 #pragma unroll
-      for (int u = 0; u < U; ++u) mx = fmaxf(mx, sc[u][g]);
+      for (int u = 0; u < kDecU; ++u) mx = fmaxf(mx, sc[u][g]);
       const float alpha = expf(m[g] - mx);
-      float p[U], ps = 0.f;
+      float p[kDecU], ps = 0.f;
 #pragma unroll
-      for (int u = 0; u < U; ++u) {
+      for (int u = 0; u < kDecU; ++u) {
         p[u] = sc[u][g] > 0.5f * kNeg ? expf(sc[u][g] - mx) : 0.f;
         ps += p[u];
       }
       l[g] = l[g] * alpha + ps;
 #pragma unroll
       for (int e = 0; e < E; ++e) {
-        float a = acc[g][e] * alpha;
+        float x = acc[g][e] * alpha;
 #pragma unroll
-        for (int u = 0; u < U; ++u) a = fmaf(p[u], vr[u][e], a);
-        acc[g][e] = a;
+        for (int u = 0; u < kDecU; ++u) x = fmaf(p[u], vr[u][e], x);
+        acc[g][e] = x;
       }
       m[g] = mx;
     }
+    issue(t + a.stages);   // into the slot just read
   }
 
-  // merge the warps' (m, l, acc), in warp order
-  extern __shared__ float smem[];
-  float* sm_m = smem;                    // [kWarps][GM]
-  float* sm_l = sm_m + kWarps * GM;      // [kWarps][GM]
-  float* sm_acc = sm_l + kWarps * GM;    // [kWarps][GM][D]
+  // the warp's two streams (half 0's first), then the warps in order
+  const bool first = lane < kKeyLanes;
 #pragma unroll
   for (int g = 0; g < GM; ++g) {
-    if (lane == 0) {
-      sm_m[warp * GM + g] = m[g];
-      sm_l[warp * GM + g] = l[g];
-    }
+    const float mo = __shfl_xor_sync(0xffffffffu, m[g], kKeyLanes);
+    const float lo2 = __shfl_xor_sync(0xffffffffu, l[g], kKeyLanes);
+    const float M = fmaxf(m[g], mo);
+    const float cs = expf(m[g] - M), co = expf(mo - M);
+    const float ca = first ? cs : co, cb = first ? co : cs;
+    const float Lw = ca * (first ? l[g] : lo2) + cb * (first ? lo2 : l[g]);
 #pragma unroll
-    for (int e = 0; e < E; ++e)
-      sm_acc[(warp * GM + g) * D + lane * E + e] = acc[g][e];
+    for (int e = 0; e < E; ++e) {
+      const float ao = __shfl_xor_sync(0xffffffffu, acc[g][e], kKeyLanes);
+      const float A = ca * (first ? acc[g][e] : ao) +
+                      cb * (first ? ao : acc[g][e]);
+      if (first) sm_acc[(warp * GM + g) * D + kl * E + e] = A;
+    }
+    if (lane == 0) {
+      sm_m[warp * GM + g] = M;
+      sm_l[warp * GM + g] = Lw;
+    }
   }
   __syncthreads();
-  for (int i = threadIdx.x; i < gn * D; i += kThreads) {
+  // the block's partial, merged over its warps in order: written out when
+  // the pair has one slice, else stored into rank 0's shared memory at
+  // this rank's slot (distributed shared memory; a store, no round trip)
+  const size_t row0 = (size_t)b * a.Hq + kh * G + g0;   // (b, first q head)
+  cg::cluster_group cluster = cg::this_cluster();
+  float* gm_m = sm_m;
+  float* gm_l = sm_l;
+  float* gm_acc = sm_acc;
+  if (a.nsplit > 1) {
+    cluster_wait();   // every block of the cluster has started
+    gm_m = cluster.map_shared_rank(sm_m, 0);
+    gm_l = cluster.map_shared_rank(sm_l, 0);
+    gm_acc = cluster.map_shared_rank(sm_acc, 0);
+  }
+  const int slot = (kDecWarps + split) * GM;
+  for (int i = tid; i < gn * D; i += kDecThreads) {
     const int g = i / D, d = i % D;
     float M = kNeg;
-    for (int w = 0; w < kWarps; ++w) M = fmaxf(M, sm_m[w * GM + g]);
-    float L = 0.f, A = 0.f;
-    for (int w = 0; w < kWarps; ++w) {
+    for (int w = 0; w < kDecWarps; ++w) M = fmaxf(M, sm_m[w * GM + g]);
+    float Ls = 0.f, A = 0.f;
+    for (int w = 0; w < kDecWarps; ++w) {
       const float c = expf(sm_m[w * GM + g] - M);
-      L += c * sm_l[w * GM + g];
+      Ls += c * sm_l[w * GM + g];
       A += c * sm_acc[(w * GM + g) * D + d];
     }
-    const size_t row = (size_t)b * Hq + kh * G + g0 + g;   // (b, q head)
-    if (nsplit == 1) {
-      out[row * D + d] = from_f<T>(A / fmaxf(L, 1e-30f));
+    if (a.nsplit == 1) {
+      a.out[(row0 + g) * D + d] = from_f<T>(A / fmaxf(Ls, 1e-30f));
     } else {
-      const size_t r = row * nsplit + split;
-      float* ws_m = ws;
-      float* ws_l = ws + (size_t)gridDim.x * G * nsplit;
-      float* ws_acc = ws_l + (size_t)gridDim.x * G * nsplit;
+      gm_acc[(slot + g) * D + d] = A;
       if (d == 0) {
-        ws_m[r] = M;
-        ws_l[r] = L;
+        gm_m[slot + g] = M;
+        gm_l[slot + g] = Ls;
       }
-      ws_acc[r * D + d] = A;
     }
   }
-}
-
-// the slices' partial (m, l, acc) of one (b, q head) row, in slice order
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-decode_combine_kernel(const float* __restrict__ ws, int rows, int nsplit,
-                      int D, T* __restrict__ out) {
-  const size_t row = blockIdx.x;
-  const float* ws_m = ws + row * nsplit;
-  const float* ws_l = ws + (size_t)rows * nsplit + row * nsplit;
-  const float* ws_acc = ws + 2 * (size_t)rows * nsplit + row * nsplit * D;
-  float M = kNeg;
-  for (int s = 0; s < nsplit; ++s) M = fmaxf(M, ws_m[s]);
-  for (int d = threadIdx.x; d < D; d += blockDim.x) {
-    float L = 0.f, A = 0.f;
-    for (int s = 0; s < nsplit; ++s) {
-      const float c = expf(ws_m[s] - M);
-      L += c * ws_l[s];
-      A += c * ws_acc[s * D + d];
+  if (a.nsplit == 1) return;
+  // one cluster barrier (release / acquire): rank 0 then holds every
+  // slice's partial and merges them in rank (slice) order; the other ranks
+  // leave (nothing reads their shared memory)
+  cluster.sync();
+  if (split != 0) return;
+  for (int i = tid; i < gn * D; i += kDecThreads) {
+    const int g = i / D, d = i % D;
+    float M = kNeg;
+    for (int r = 0; r < a.nsplit; ++r)
+      M = fmaxf(M, sm_m[(kDecWarps + r) * GM + g]);
+    float Ls = 0.f, A = 0.f;
+    for (int r = 0; r < a.nsplit; ++r) {
+      const int p = (kDecWarps + r) * GM + g;
+      const float c = expf(sm_m[p] - M);
+      Ls += c * sm_l[p];
+      A += c * sm_acc[p * D + d];
     }
-    out[row * D + d] = from_f<T>(A / fmaxf(L, 1e-30f));
+    a.out[(row0 + g) * D + d] = from_f<T>(A / fmaxf(Ls, 1e-30f));
   }
-}
-
-template <typename T, int D, int GM>
-int launch_decode(const void* q, long long sqb, long long sqh, const void* k,
-                  long long skb, long long skh, long long sks, const void* v,
-                  long long svb, long long svh, long long svs,
-                  const void* lengths, void* out, void* ws, int B, int Hq,
-                  int Hkv, int S, int window, float scale, int nsplit,
-                  cudaStream_t stream) {
-  const int G = Hq / Hkv;
-  const dim3 grid(B * Hkv, nsplit, (G + GM - 1) / GM);
-  const size_t smem = sizeof(float) * kWarps * GM * (D + 2);
-  auto kern = decode_attention_kernel<T, D, GM>;
-  if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (e != cudaSuccess) return e;
-  }
-  kern<<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(q), sqb, sqh, static_cast<const T*>(k), skb, skh,
-      sks, static_cast<const T*>(v), svb, svh, svs,
-      static_cast<const int*>(lengths), S, Hq, Hkv, window, scale, nsplit,
-      static_cast<T*>(out),
-      static_cast<float*>(ws));
-  if (nsplit > 1) {
-    const cudaError_t e = cudaGetLastError();
-    if (e != cudaSuccess) return e;
-    decode_combine_kernel<T><<<B * Hq, D < kThreads ? D : kThreads, 0,
-                               stream>>>(static_cast<const float*>(ws),
-                                         B * Hq, nsplit, D,
-                                         static_cast<T*>(out));
-  }
-  return cudaGetLastError();
 }
 
 // GM: q heads a block carries, the least power of two >= G up to the
-// register budget: the largest power of two, at most 8, with GM * D <=
-// 1024 (4 at D = 192); larger groups take several blocks.
-template <typename T, int D>
-int dispatch_decode_g(int G, const void* q, long long sqb, long long sqh,
-                      const void* k, long long skb, long long skh,
-                      long long sks, const void* v, long long svb,
-                      long long svh, long long svs, const void* lengths,
-                      void* out, void* ws, int B, int Hq, int Hkv, int S,
-                      int window, float scale, int nsplit,
-                      cudaStream_t stream) {
-  constexpr int kMaxG = 1024 / D >= 8   ? 8
-                        : 1024 / D >= 4 ? 4
-                        : 1024 / D >= 2 ? 2
-                                        : 1;
-  const int gm = G <= 1 ? 1 : G <= 2 ? 2 : G <= 4 ? 4 : 8;
-#define BRDS_DECODE(GMV)                                                     \
-  return launch_decode<T, D, GMV>(q, sqb, sqh, k, skb, skh, sks, v, svb,    \
-                                  svh, svs, lengths, out, ws, B, Hq, Hkv, S, \
-                                  window, scale, nsplit, stream)
-  if (gm == 1 || kMaxG == 1) BRDS_DECODE(1);
-  if (gm == 2 || kMaxG == 2) BRDS_DECODE(2);
-  if (gm == 4 || kMaxG == 4) BRDS_DECODE(4);
-  BRDS_DECODE(kMaxG);
-#undef BRDS_DECODE
+// register budget: GM * D <= 512, at most 8 (D = 32, 64: 8; 128: 4; 192,
+// 256: 2); larger groups take several blocks (gridDim.z).
+template <int D>
+constexpr int decode_max_heads() {
+  return 512 / D >= 8 ? 8 : 512 / D >= 4 ? 4 : 512 / D >= 2 ? 2 : 1;
+}
+
+// Runs body(D, GM), both as std::integral_constant, for head dim D and
+// group size G.
+template <typename F>
+int by_decode(int D, int G, F&& body) {
+  auto heads = [&](auto dv) -> int {
+    constexpr int kMaxG = decode_max_heads<decltype(dv)::value>();
+    const int gm = G <= 1 ? 1 : G <= 2 ? 2 : G <= 4 ? 4 : 8;
+    // only GM <= kMaxG is instantiated
+    if (gm == 1 || kMaxG == 1)
+      return body(dv, std::integral_constant<int, 1>{});
+    if constexpr (kMaxG >= 2)
+      if (gm == 2 || kMaxG == 2)
+        return body(dv, std::integral_constant<int, 2>{});
+    if constexpr (kMaxG >= 4)
+      if (gm == 4 || kMaxG == 4)
+        return body(dv, std::integral_constant<int, 4>{});
+    if constexpr (kMaxG >= 8)
+      return body(dv, std::integral_constant<int, 8>{});
+    return cudaErrorInvalidValue;
+  };
+  switch (D) {
+    case 32: return heads(std::integral_constant<int, 32>{});
+    case 64: return heads(std::integral_constant<int, 64>{});
+    case 128: return heads(std::integral_constant<int, 128>{});
+    case 192: return heads(std::integral_constant<int, 192>{});
+    case 256: return heads(std::integral_constant<int, 256>{});
+  }
+  return cudaErrorInvalidValue;
+}
+
+// One launch: grid (nsplit, B * Hkv, ceil(G / GM)), clusters of nsplit
+// blocks along x (none when nsplit is 1).
+template <typename T, int D, int GM>
+int launch_decode(const DecodeArgs<T>& a, int B, int smem,
+                  cudaStream_t stream) {
+  auto kern = decode_cluster_kernel<T, D, GM>;
+  if (a.stages < 1 || a.stages > kMaxStages || a.nsplit < 1 ||
+      a.nsplit > kMaxCluster || smem < decode_smem<T, D, GM>(a.stages))
+    return cudaErrorInvalidValue;
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e != cudaSuccess) return e;
+  }
+  const int G = a.Hq / a.Hkv;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(a.nsplit, B * a.Hkv, (G + GM - 1) / GM);
+  cfg.blockDim = dim3(kDecThreads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = a.nsplit;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = a.nsplit > 1 ? 1 : 0;
+  const cudaError_t e = cudaLaunchKernelEx(&cfg, kern, a);
+  if (e != cudaSuccess) return e;
+  return cudaGetLastError();
 }
 
 template <typename T>
-int dispatch_decode(int D, int G, const void* q, long long sqb,
-                    long long sqh, const void* k, long long skb,
-                    long long skh, long long sks, const void* v,
-                    long long svb, long long svh, long long svs,
-                    const void* lengths, void* out, void* ws, int B, int Hq,
-                    int Hkv, int S, int window, float scale, int nsplit,
+int dispatch_decode(const DecodeArgs<T>& a, int B, int D, int smem,
                     cudaStream_t stream) {
-#define BRDS_DECODE_D(DV)                                                   \
-  if (D == DV)                                                              \
-  return dispatch_decode_g<T, DV>(G, q, sqb, sqh, k, skb, skh, sks, v, svb, \
-                                  svh, svs, lengths, out, ws, B, Hq, Hkv, S, \
-                                  window, scale, nsplit, stream)
-  BRDS_DECODE_D(32);
-  BRDS_DECODE_D(64);
-  BRDS_DECODE_D(128);
-  BRDS_DECODE_D(192);
-  BRDS_DECODE_D(256);
-#undef BRDS_DECODE_D
-  return cudaErrorInvalidValue;
+  return by_decode(D, a.Hq / a.Hkv, [&](auto dv, auto gv) {
+    return launch_decode<T, decltype(dv)::value, decltype(gv)::value>(
+        a, B, smem, stream);
+  });
+}
+
+// out[0..4]: registers a thread, local (spill) bytes a thread, static
+// shared bytes, blocks an SM with `smem` bytes of dynamic shared memory,
+// and the heads a block (GM) of the (T, D, G) instantiation.
+template <typename T>
+int decode_info(int D, int G, int smem, int* out) {
+  return by_decode(D, G, [&](auto dv, auto gv) -> int {
+    auto kern = decode_cluster_kernel<T, decltype(dv)::value,
+                                      decltype(gv)::value>;
+    cudaError_t e = cudaFuncSetAttribute(
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    cudaFuncAttributes fa;
+    if (e == cudaSuccess) e = cudaFuncGetAttributes(&fa, kern);
+    if (e != cudaSuccess) return e;
+    out[0] = fa.numRegs;
+    out[1] = static_cast<int>(fa.localSizeBytes);
+    out[2] = static_cast<int>(fa.sharedSizeBytes);
+    out[4] = decltype(gv)::value;
+    return cudaOccupancyMaxActiveBlocksPerMultiprocessor(out + 3, kern,
+                                                         kDecThreads, smem);
+  });
 }
 
 // -------------------------------------------------------- flash attention
@@ -998,27 +1214,50 @@ int dispatch_flash_tc(int D, const void* q, long long sqb, long long sqh,
 
 }  // namespace
 
-// dtype: 0 float32, 1 bfloat16. ws: nsplit > 1 only, B*Hq*nsplit*(D + 2)
-// floats. window <= 0: none. scale: D^-0.5 rounded to float32 by the
-// caller, as the plain versions round it.
+// dtype: 0 float32, 1 bfloat16. window <= 0: none. scale: D^-0.5 rounded
+// to float32 by the caller, as the plain versions round it. nsplit (at
+// most 8, the cluster), stages (at most 8) and smem (the dynamic shared
+// memory, at least the instantiation's need) come from
+// kernels/plan.py::decode_plan. fixed_len >= 0 is a diagnostic
+// (launch.profile_kernels): every row takes it and lengths is not read.
 extern "C" int brds_decode_attention(
     const void* q, long long sqb, long long sqh, const void* k,
     long long skb, long long skh, long long sks, const void* v,
     long long svb, long long svh, long long svs, const void* lengths,
-    void* out, void* ws, int B, int Hq, int Hkv, int S, int D, int window,
-    float scale, int nsplit, int dtype, void* stream) {
-  if (B <= 0 || Hkv <= 0 || Hq % Hkv != 0 || S <= 0 || nsplit <= 0)
+    void* out, int B, int Hq, int Hkv, int S, int D, int window, float scale,
+    int nsplit, int stages, int smem, int fixed_len, int dtype,
+    void* stream) {
+  if (B <= 0 || Hkv <= 0 || Hq % Hkv != 0 || S <= 0 ||
+      (long long)B * Hkv > 65535)
     return cudaErrorInvalidValue;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    return dispatch_decode<float>(D, Hq / Hkv, q, sqb, sqh, k, skb, skh, sks,
-                                  v, svb, svh, svs, lengths, out, ws, B, Hq,
-                                  Hkv, S, window, scale, nsplit, st);
-  if (dtype == 1)
-    return dispatch_decode<__nv_bfloat16>(D, Hq / Hkv, q, sqb, sqh, k, skb,
-                                          skh, sks, v, svb, svh, svs,
-                                          lengths, out, ws, B, Hq, Hkv, S,
-                                          window, scale, nsplit, st);
+  if (dtype == 0) {
+    const DecodeArgs<float> a{
+        static_cast<const float*>(q), sqb, sqh, static_cast<const float*>(k),
+        skb, skh, sks, static_cast<const float*>(v), svb, svh, svs,
+        static_cast<const int*>(lengths), static_cast<float*>(out), S, Hq,
+        Hkv, window, nsplit, stages, fixed_len, scale};
+    return dispatch_decode(a, B, D, smem, st);
+  }
+  if (dtype == 1) {
+    using T = __nv_bfloat16;
+    const DecodeArgs<T> a{
+        static_cast<const T*>(q), sqb, sqh, static_cast<const T*>(k), skb,
+        skh, sks, static_cast<const T*>(v), svb, svh, svs,
+        static_cast<const int*>(lengths), static_cast<T*>(out), S, Hq, Hkv,
+        window, nsplit, stages, fixed_len, scale};
+    return dispatch_decode(a, B, D, smem, st);
+  }
+  return cudaErrorInvalidValue;
+}
+
+// For the decode instantiation of (D, G, dtype): out[0..4] = registers a
+// thread, local (spill) bytes a thread, static shared bytes, blocks an SM
+// with `smem` bytes of dynamic shared memory, and q heads a block.
+extern "C" int brds_decode_attention_info(int D, int G, int dtype, int smem,
+                                          int* out) {
+  if (dtype == 0) return decode_info<float>(D, G, smem, out);
+  if (dtype == 1) return decode_info<__nv_bfloat16>(D, G, smem, out);
   return cudaErrorInvalidValue;
 }
 

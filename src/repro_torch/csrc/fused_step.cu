@@ -23,14 +23,17 @@
 // its chained pair: rb_dual_spmv / delta_rb_dual_spmv / rb_dual_parts_q8
 // (then m + zx + zh for the delta q8 step), then the bias add in PyTorch,
 // then lstm_gates.
-//  - The float, delta and delta-q8 steps: kJT hidden units a block, one
-//    warp per row, the same brds::row_dot and per-row epilogue as the
-//    chained kernel.
-//  - The q8 step (fused_step_q8_kernel): one block an SM with `units`
-//    hidden units, activation codes staged in shared memory, four entries
-//    a lane (brds::row_dot_q8x4's arithmetic, __dp4a for int8 codes). Its
+//  - The float and delta steps: kJT hidden units a block, one warp per
+//    row, the same brds::row_dot and per-row epilogue as the chained
+//    kernel.
+//  - The q8 and delta-q8 steps (fused_step_q8_kernel, the delta step a
+//    compile-time flag): one block an SM with `units` hidden units,
+//    activation codes staged in shared memory, four entries a lane
+//    (brds::row_dot_q8x4's arithmetic, __dp4a for int8 codes). Their
 //    integer sums may take another order than rb_dual_parts_q8's and stay
-//    exact, so the float epilogue sees the same values.
+//    exact, so the float epilogue sees the same values; the delta step
+//    keeps zx and zh apart in shared memory and makes m' and z in the
+//    epilogue, m read there only.
 //
 // Bound: bytes, as the chained gate kernels: the packed weights are read
 // once; z, c and h never round-trip through device memory between the two
@@ -180,6 +183,8 @@ struct Q8Args {
   const float* c_prev;
   float* c_out;
   float* h_out;
+  const float* m;     // (B, 4H): the delta step's partial-sum memory
+  float* m_out;       // ... and m' (null for the plain q8 step)
   int B;
   int units;          // hidden units a block
   int shift_x, shift_h, slot_bits, xpad, hpad;   // the staged layout
@@ -216,20 +221,34 @@ __device__ __forceinline__ uint32_t lane_sum(const uint32_t (&acc)[NB]) {
   return v;
 }
 
-// z of gate row i from its two families' dequantized sums: lane b < B
-// writes the chained (zx + zh) + bias.
-__device__ __forceinline__ void q8_z(int i, int NB, int B, float zx,
-                                     float zh, float bb, float* zs) {
-  const int lane = threadIdx.x % brds::kWarp;
-  if (lane < B) zs[i * NB + lane] = __fadd_rn(__fadd_rn(zx, zh), bb);
-}
+// What gate row i's two dequantized sums leave in shared memory, lane
+// b < B for batch row b: the q8 step's chained z = (zx + zh) + bias in zs;
+// the delta step's zx in zs and zh in zh_s (m' and z are made in the
+// epilogue, after every row's loads).
+template <bool kDelta>
+struct Q8Emit {
+  float* zs;
+  float* zh_s;
+  int NB, B;
+  __device__ __forceinline__ void operator()(int i, float zx, float zh,
+                                             float bb) const {
+    const int lane = threadIdx.x % brds::kWarp;
+    if (lane >= B) return;
+    if constexpr (kDelta) {
+      zs[i * NB + lane] = zx;
+      zh_s[i * NB + lane] = zh;
+    } else {
+      zs[i * NB + lane] = __fadd_rn(__fadd_rn(zx, zh), bb);
+    }
+  }
+};
 
 // The warp's gate rows i = warp, warp + 16, ..., each family's row in
 // turn with brds::row_dot_q8x4: any delta widths.
-template <int NB, typename CT, typename Fetch>
+template <int NB, typename CT, typename Fetch, typename Emit>
 __device__ __forceinline__ void q8_rows(const Q8Args<CT>& a, int j0,
                                         const Fetch& fx, const Fetch& fh,
-                                        float* zs) {
+                                        const Emit& emit) {
   const int nrows = 4 * min(a.units, a.H - j0);
   for (int i = threadIdx.x / brds::kWarp; i < nrows; i += kQ8Warps) {
     const int row = q8_row(i, a.H, j0);
@@ -239,8 +258,8 @@ __device__ __forceinline__ void q8_rows(const Q8Args<CT>& a, int j0,
                               fx, ax);
     brds::row_dot_q8x4<NB, 4>(a.vh, a.ih, a.ihb, (size_t)row * a.kh, a.kh,
                               fh, ah);
-    q8_z(i, NB, a.B, brds::dequant(lane_sum(ax), rc.cx),
-         brds::dequant(lane_sum(ah), rc.ch), rc.bb, zs);
+    emit(i, brds::dequant(lane_sum(ax), rc.cx),
+         brds::dequant(lane_sum(ah), rc.ch), rc.bb);
   }
 }
 
@@ -249,10 +268,11 @@ __device__ __forceinline__ void q8_rows(const Q8Args<CT>& a, int j0,
 // segment, then row i + 16's, ...; a group's loads are issued before the
 // group ahead of it is used, across segment and row boundaries, so a warp
 // always has loads in flight.
-template <int NB, typename DT, typename CT, typename Fetch>
+template <int NB, typename DT, typename CT, typename Fetch, typename Emit>
 __device__ __forceinline__ void q8_rows_stream(const Q8Args<CT>& a, int j0,
                                                const Fetch& fx,
-                                               const Fetch& fh, float* zs) {
+                                               const Fetch& fh,
+                                               const Emit& emit) {
   constexpr int G = sizeof(CT) == 1 ? 8 : 4;   // chunks a lane loads at once
   const int H = a.H;
   const int nrows = 4 * min(a.units, H - j0);
@@ -293,7 +313,7 @@ __device__ __forceinline__ void q8_rows_stream(const Q8Args<CT>& a, int j0,
     if (c2 == 0) {   // the segment is complete
       brds::warp_sum(acc);
       const float dq = brds::dequant(lane_sum(acc), part ? rc.ch : rc.cx);
-      if (part) q8_z(i, NB, a.B, zx, dq, rc.bb, zs);
+      if (part) emit(i, zx, dq, rc.bb);
       zx = dq;
 #pragma unroll
       for (int b = 0; b < NB; ++b) acc[b] = 0;
@@ -308,7 +328,10 @@ __device__ __forceinline__ void q8_rows_stream(const Q8Args<CT>& a, int j0,
   }
 }
 
-template <typename CT, int NB, bool kTiled, bool kStaged>
+// kDelta: the delta step (B9), whose codes are those of the masked deltas;
+// its epilogue makes m' = (m + zx) + zh and z = m' + bias per gate row and
+// batch row, as the chained rb_dual_parts_q8 -> m + zx + zh -> + bias.
+template <typename CT, int NB, bool kTiled, bool kStaged, bool kDelta>
 __global__ void __launch_bounds__(kQ8Threads, 1)
 fused_step_q8_kernel(Q8Args<CT> a) {
   if constexpr (kTiled) {
@@ -317,6 +340,10 @@ fused_step_q8_kernel(Q8Args<CT> a) {
     a.c_prev = brds::tile_rows(a.c_prev, a.H);
     a.c_out = brds::tile_rows(a.c_out, a.H);
     a.h_out = brds::tile_rows(a.h_out, a.H);
+    if constexpr (kDelta) {
+      a.m = brds::tile_rows(a.m, 4 * a.H);
+      a.m_out = brds::tile_rows(a.m_out, 4 * a.H);
+    }
     a.B = brds::tile_batch(a.B);
   }
   using Staged = brds::StagedCodes<CT, NB>;
@@ -355,16 +382,18 @@ fused_step_q8_kernel(Q8Args<CT> a) {
     }
     __syncthreads();
   }
+  float* zh_s = zs + 4 * a.units * NB;   // the delta step's zh
+  const Q8Emit<kDelta> emit{zs, zh_s, NB, B};
   if constexpr (kStaged) {
     const Staged fx{sx, a.shift_x, a.slot_bits};
     const Staged fh{sh, a.shift_h, a.slot_bits};
     if (a.ixb == 2 && a.ihb == 2)
-      q8_rows_stream<NB, int16_t>(a, j0, fx, fh, zs);
+      q8_rows_stream<NB, int16_t>(a, j0, fx, fh, emit);
     else
-      q8_rows<NB>(a, j0, fx, fh, zs);
+      q8_rows<NB>(a, j0, fx, fh, emit);
   } else {
     using Global = brds::GlobalCodes<CT, NB>;
-    q8_rows<NB>(a, j0, Global{a.qx, a.X, B}, Global{a.qh, H, B}, zs);
+    q8_rows<NB>(a, j0, Global{a.qx, a.X, B}, Global{a.qh, H, B}, emit);
   }
   __syncthreads();
   for (int t = threadIdx.x; t < a.units * B; t += kQ8Threads) {
@@ -372,66 +401,26 @@ fused_step_q8_kernel(Q8Args<CT> a) {
     if (j < H) {
       const size_t o = (size_t)b * H + j;
       const float* z = zs + jl * 4 * NB + b;
-      brds::lstm_cell(z[0], z[NB], z[2 * NB], z[3 * NB], a.c_prev[o],
-                      a.act, a.c_out + o, a.h_out + o);
+      if constexpr (kDelta) {
+        // m, the bias and m' touched only here, after every row's loads
+        const float* zh = zh_s + jl * 4 * NB + b;
+        float zd[4];
+#pragma unroll
+        for (int g = 0; g < 4; ++g) {
+          const int row = g * H + j;
+          const size_t mo = (size_t)b * 4 * H + row;
+          const float mn = brds::delta_update(a.m[mo], z[g * NB], zh[g * NB]);
+          a.m_out[mo] = mn;
+          zd[g] = __fadd_rn(mn, a.bias[row]);   // the chained m' + bias
+        }
+        brds::lstm_cell(zd[0], zd[1], zd[2], zd[3], a.c_prev[o], a.act,
+                        a.c_out + o, a.h_out + o);
+      } else {
+        brds::lstm_cell(z[0], z[NB], z[2 * NB], z[3 * NB], a.c_prev[o],
+                        a.act, a.c_out + o, a.h_out + o);
+      }
     }
   }
-}
-
-template <typename CT, typename IX, typename IH, int NB, bool kTiled>
-__global__ void __launch_bounds__(kThreads)
-fused_delta_step_q8_kernel(const CT* __restrict__ vx,
-                           const IX* __restrict__ ix, int kx,
-                           const float* __restrict__ comb_x,
-                           const CT* __restrict__ qx, int X,
-                           const CT* __restrict__ vh,
-                           const IH* __restrict__ ih, int kh,
-                           const float* __restrict__ comb_h,
-                           const CT* __restrict__ qh, int H,
-                           const float* __restrict__ m,
-                           const float* __restrict__ bias,
-                           const float* __restrict__ c_prev,
-                           float* __restrict__ c_out,
-                           float* __restrict__ h_out,
-                           float* __restrict__ m_out, int B, brds::Act act) {
-  if constexpr (kTiled) {
-    qx = brds::tile_rows(qx, X);
-    qh = brds::tile_rows(qh, H);
-    m = brds::tile_rows(m, 4 * H);
-    m_out = brds::tile_rows(m_out, 4 * H);
-    c_prev = brds::tile_rows(c_prev, H);
-    c_out = brds::tile_rows(c_out, H);
-    h_out = brds::tile_rows(h_out, H);
-    B = brds::tile_batch(B);
-  }
-  __shared__ float zs[kJT][4][NB];
-  const int warp = threadIdx.x / brds::kWarp;
-  const int lane = threadIdx.x % brds::kWarp;
-  const int jl = warp / 4, gate = warp % 4;
-  const int j = blockIdx.x * kJT + jl;
-  if (j < H) {
-    const int row = gate * H + j;
-    const int R = 4 * H;
-    uint32_t ax[NB] = {}, ah[NB] = {};
-    brds::row_dot<IX, NB>(vx + (size_t)row * kx, ix + (size_t)row * kx, kx,
-                          brds::CodeAct<CT>{qx, X}, B, ax);
-    brds::row_dot<IH, NB>(vh + (size_t)row * kh, ih + (size_t)row * kh, kh,
-                          brds::CodeAct<CT>{qh, H}, B, ah);
-    const float cx = comb_x[row], ch = comb_h[row], bb = bias[row];
-#pragma unroll
-    for (int b = 0; b < NB; ++b)
-      if (b < B && b == lane) {
-        const size_t o = (size_t)b * R + row;
-        // the integer sums are dequantized first; then the chained
-        // m + zx + zh, in that order, and m + bias
-        const float mn = brds::delta_update(m[o], brds::dequant(ax[b], cx),
-                                            brds::dequant(ah[b], ch));
-        m_out[o] = mn;
-        zs[jl][gate][b] = __fadd_rn(mn, bb);
-      }
-  }
-  __syncthreads();
-  close_cells<NB>(zs, H, B, c_prev, c_out, h_out, act);
 }
 
 }  // namespace
@@ -508,21 +497,70 @@ extern "C" int brds_fused_delta_lstm_step(
   return cudaGetLastError();
 }
 
+namespace {
+
 // Runs `body(kern, CT{})` with the fused q8 kernel instantiation for the
-// code width, batch and staging (brds::by_batch's tiers).
+// code width, batch, staging and step (delta or not; brds::by_batch's
+// tiers).
 template <typename F>
-cudaError_t by_q8_kernel(int code_bytes, int B, int staged, F&& body) {
+cudaError_t by_q8_kernel(int code_bytes, int B, int staged, int delta,
+                         F&& body) {
   return brds::by_code(code_bytes, [&](auto ct) {
     using CT = decltype(ct);
     return brds::by_batch(B, [&](auto nb, auto tiled) {
       constexpr int NB = decltype(nb)::value;
       constexpr bool kT = decltype(tiled)::value;
-      void (*kern)(Q8Args<CT>) = fused_step_q8_kernel<CT, NB, kT, false>;
-      if (staged) kern = fused_step_q8_kernel<CT, NB, kT, true>;
+      void (*kern)(Q8Args<CT>) =
+          delta ? (staged ? fused_step_q8_kernel<CT, NB, kT, true, true>
+                          : fused_step_q8_kernel<CT, NB, kT, false, true>)
+                : (staged ? fused_step_q8_kernel<CT, NB, kT, true, false>
+                          : fused_step_q8_kernel<CT, NB, kT, false, false>);
       return body(kern, CT{});
     });
   });
 }
+
+// One launch of the fused q8 kernel on kernels/plan.py::q8_plan's
+// arguments; the delta step when m is given (m_out then too).
+cudaError_t launch_q8(const void* vx, const void* ix, int ix_bytes, int kx,
+                      const void* comb_x, const void* qx, int X,
+                      const void* vh, const void* ih, int ih_bytes, int kh,
+                      const void* comb_h, const void* qh, int H,
+                      int code_bytes, const void* m, const void* bias,
+                      const void* c_prev, void* c_out, void* h_out,
+                      void* m_out, int B, int units, int staged, int shift_x,
+                      int shift_h, int slot_bits, int xpad, int hpad,
+                      int smem, const void* lut, float lo, float hi,
+                      float hic, void* stream) {
+  if (H <= 0 || units <= 0 || (m == nullptr) != (m_out == nullptr))
+    return cudaErrorInvalidValue;
+  const dim3 grid((H + units - 1) / units, brds::batch_tiles(B));
+  const brds::Act act{static_cast<const float*>(lut), lo, hi, hic};
+  cudaError_t st = by_q8_kernel(
+      code_bytes, B, staged, m != nullptr, [&](auto kern, auto ct) {
+        using CT = decltype(ct);
+        cudaError_t e = brds::allow_smem(reinterpret_cast<const void*>(kern));
+        if (e != cudaSuccess) return e;
+        Q8Args<CT> a{static_cast<const CT*>(vx), ix, ix_bytes, kx,
+                     static_cast<const float*>(comb_x),
+                     static_cast<const CT*>(qx), X,
+                     static_cast<const CT*>(vh), ih, ih_bytes, kh,
+                     static_cast<const float*>(comb_h),
+                     static_cast<const CT*>(qh), H,
+                     static_cast<const float*>(bias),
+                     static_cast<const float*>(c_prev),
+                     static_cast<float*>(c_out), static_cast<float*>(h_out),
+                     static_cast<const float*>(m), static_cast<float*>(m_out),
+                     B, units, shift_x, shift_h, slot_bits, xpad, hpad, act};
+        kern<<<grid, kQ8Threads, smem, static_cast<cudaStream_t>(stream)>>>(
+            a);
+        return cudaSuccess;
+      });
+  if (st != cudaSuccess) return st;
+  return cudaGetLastError();
+}
+
+}  // namespace
 
 extern "C" int brds_fused_lstm_step_q8(
     const void* vx, const void* ix, int ix_bytes, int kx, const void* comb_x,
@@ -532,76 +570,37 @@ extern "C" int brds_fused_lstm_step_q8(
     int units, int staged, int shift_x, int shift_h, int slot_bits, int xpad,
     int hpad, int smem, const void* lut, float lo, float hi, float hic,
     void* stream) {
-  if (H <= 0 || units <= 0) return cudaErrorInvalidValue;
-  const dim3 grid((H + units - 1) / units, brds::batch_tiles(B));
-  const brds::Act act{static_cast<const float*>(lut), lo, hi, hic};
-  cudaError_t st = by_q8_kernel(code_bytes, B, staged, [&](auto kern,
-                                                           auto ct) {
-    using CT = decltype(ct);
-    cudaError_t e = brds::allow_smem(reinterpret_cast<const void*>(kern));
-    if (e != cudaSuccess) return e;
-    Q8Args<CT> a{static_cast<const CT*>(vx), ix, ix_bytes, kx,
-                 static_cast<const float*>(comb_x), static_cast<const CT*>(qx),
-                 X, static_cast<const CT*>(vh), ih, ih_bytes, kh,
-                 static_cast<const float*>(comb_h), static_cast<const CT*>(qh),
-                 H, static_cast<const float*>(bias),
-                 static_cast<const float*>(c_prev), static_cast<float*>(c_out),
-                 static_cast<float*>(h_out), B, units, shift_x, shift_h,
-                 slot_bits, xpad, hpad, act};
-    kern<<<grid, kQ8Threads, smem, static_cast<cudaStream_t>(stream)>>>(a);
-    return cudaSuccess;
-  });
-  if (st != cudaSuccess) return st;
-  return cudaGetLastError();
+  return launch_q8(vx, ix, ix_bytes, kx, comb_x, qx, X, vh, ih, ih_bytes, kh,
+                   comb_h, qh, H, code_bytes, nullptr, bias, c_prev, c_out,
+                   h_out, nullptr, B, units, staged, shift_x, shift_h,
+                   slot_bits, xpad, hpad, smem, lut, lo, hi, hic, stream);
 }
 
-// For the fused q8 instantiation of (code bytes, B, staged): out[0..3] =
-// registers a thread, local (spill) bytes a thread, static shared bytes,
-// and the blocks an SM holds with `smem` bytes of dynamic shared memory.
-extern "C" int brds_fused_lstm_step_q8_info(int code_bytes, int B,
-                                            int staged, int smem, int* out) {
-  return by_q8_kernel(code_bytes, B, staged, [&](auto kern, auto) {
-    return brds::kernel_info(reinterpret_cast<const void*>(kern), kQ8Threads,
-                             smem, out);
-  });
-}
-
+// The same launch plan's arguments, plus m (B, 4H) and m_out.
 extern "C" int brds_fused_delta_lstm_step_q8(
     const void* vx, const void* ix, int ix_bytes, int kx, const void* comb_x,
     const void* qx, int X, const void* vh, const void* ih, int ih_bytes,
     int kh, const void* comb_h, const void* qh, int H, int code_bytes,
     const void* m, const void* bias, const void* c_prev, void* c_out,
-    void* h_out, void* m_out, int B, const void* lut, float lo, float hi,
-    float hic, void* stream) {
-  if (H <= 0) return cudaErrorInvalidValue;
-  const dim3 grid((H + kJT - 1) / kJT, brds::batch_tiles(B));
-  const brds::Act act{static_cast<const float*>(lut), lo, hi, hic};
-  cudaError_t st = brds::by_code(code_bytes, [&](auto ct) {
-    using CT = decltype(ct);
-    return brds::by_delta(ix_bytes, [&](auto ixt) {
-      using IX = decltype(ixt);
-      return brds::by_delta(ih_bytes, [&](auto iht) {
-        using IH = decltype(iht);
-        return brds::by_batch(B, [&](auto nb, auto tiled) {
-          constexpr int NB = decltype(nb)::value;
-          fused_delta_step_q8_kernel<CT, IX, IH, NB, decltype(tiled)::value>
-              <<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-                  static_cast<const CT*>(vx), static_cast<const IX*>(ix), kx,
-                  static_cast<const float*>(comb_x),
-                  static_cast<const CT*>(qx), X, static_cast<const CT*>(vh),
-                  static_cast<const IH*>(ih), kh,
-                  static_cast<const float*>(comb_h),
-                  static_cast<const CT*>(qh), H,
-                  static_cast<const float*>(m),
-                  static_cast<const float*>(bias),
-                  static_cast<const float*>(c_prev),
-                  static_cast<float*>(c_out), static_cast<float*>(h_out),
-                  static_cast<float*>(m_out), B, act);
-          return cudaSuccess;
-        });
-      });
-    });
+    void* h_out, void* m_out, int B, int units, int staged, int shift_x,
+    int shift_h, int slot_bits, int xpad, int hpad, int smem,
+    const void* lut, float lo, float hi, float hic, void* stream) {
+  if (m == nullptr) return cudaErrorInvalidValue;
+  return launch_q8(vx, ix, ix_bytes, kx, comb_x, qx, X, vh, ih, ih_bytes, kh,
+                   comb_h, qh, H, code_bytes, m, bias, c_prev, c_out, h_out,
+                   m_out, B, units, staged, shift_x, shift_h, slot_bits, xpad,
+                   hpad, smem, lut, lo, hi, hic, stream);
+}
+
+// For the fused q8 instantiation of (code bytes, B, staged, delta):
+// out[0..3] = registers a thread, local (spill) bytes a thread, static
+// shared bytes, and the blocks an SM holds with `smem` bytes of dynamic
+// shared memory.
+extern "C" int brds_fused_lstm_step_q8_info(int code_bytes, int B,
+                                            int staged, int delta, int smem,
+                                            int* out) {
+  return by_q8_kernel(code_bytes, B, staged, delta, [&](auto kern, auto) {
+    return brds::kernel_info(reinterpret_cast<const void*>(kern), kQ8Threads,
+                             smem, out);
   });
-  if (st != cudaSuccess) return st;
-  return cudaGetLastError();
 }

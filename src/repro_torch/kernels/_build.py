@@ -59,10 +59,11 @@ SIGNATURES = {
                                     _I, _P, _P, _I, _I, _P, _P, _P, _P, _I,
                                     _I, _I, _I, _I, _I, _I, _I, _I,
                                     _P, _F, _F, _F, _P],
-        "brds_fused_lstm_step_q8_info": [_I, _I, _I, _I, _P],
+        "brds_fused_lstm_step_q8_info": [_I, _I, _I, _I, _I, _P],
         "brds_fused_delta_lstm_step_q8": [_P, _P, _I, _I, _P, _P, _I, _P, _P,
                                           _I, _I, _P, _P, _I, _I, _P, _P, _P,
-                                          _P, _P, _P, _I, _P, _F, _F, _F,
+                                          _P, _P, _P, _I, _I, _I, _I, _I,
+                                          _I, _I, _I, _I, _P, _F, _F, _F,
                                           _P]},
     "delta_rb_spmv": {
         "brds_delta_rb_spmv": [_P, _P, _I, _I, _P, _P, _I, _P, _I, _I, _P],
@@ -83,8 +84,9 @@ SIGNATURES = {
                                        _F, _F, _F, _P]},
     "attention": {
         "brds_decode_attention": [_P, _L, _L, _P, _L, _L, _L, _P, _L, _L, _L,
-                                  _P, _P, _P, _I, _I, _I, _I, _I, _I, _F,
-                                  _I, _I, _P],
+                                  _P, _P, _I, _I, _I, _I, _I, _I, _F, _I,
+                                  _I, _I, _I, _I, _P],
+        "brds_decode_attention_info": [_I, _I, _I, _I, _P],
         "brds_flash_attention": [_P, _L, _L, _L, _P, _L, _L, _L, _P, _L, _L,
                                  _L, _P, _L, _L, _L, _I, _I, _I, _I, _I, _I,
                                  _I, _I, _F, _P],
@@ -202,11 +204,14 @@ def kernel_info(source: str, entry: str, args, grid: int,
                 else None)
 
 
-def time_ms(fn, flush: torch.Tensor | None = None, reps: int = 30) -> float:
+def time_ms(fn, flush: torch.Tensor | None = None, reps: int = 30,
+            clean: bool = False) -> float:
     """Median CUDA-event time (ms) of ``fn`` over ``reps`` runs, after one
     untimed run. With ``flush`` (a card buffer larger than the 50 MB L2),
     it is zeroed before each run, which evicts the packed weights that
-    would otherwise stay cached across reruns. A spin of about 1 ms on the
+    would otherwise stay cached across reruns, and leaves the L2 full of
+    dirty lines that ``fn``'s reads then write back; with ``clean`` it is
+    read instead, which leaves clean lines. A spin of about 1 ms on the
     card before each run lets the host enqueue ``fn`` before the card
     reaches the start event, so the time is the card's alone and not the
     wrapper's host overhead."""
@@ -214,7 +219,7 @@ def time_ms(fn, flush: torch.Tensor | None = None, reps: int = 30) -> float:
     pairs = []
     for _ in range(reps):
         if flush is not None:
-            flush.zero_()
+            flush.sum() if clean else flush.zero_()
         torch.cuda._sleep(2_000_000)
         s, e = (torch.cuda.Event(enable_timing=True) for _ in range(2))
         s.record()

@@ -5,30 +5,40 @@ One query per sequence against its first ``lengths[b]`` cache rows (the
 last ``window`` of them when a window is given), online softmax in
 float32. The cache is read where it lies, through strides: the model
 passes its (B, S_max, Hkv, D) buffers as (B, Hkv, S, D) views, so no
-head-major or GQA-expanded copy is made. Replaces
-``repro/kernels/decode_attention.py::decode_attention``; the function it
-computes is ``ref.decode_attention_window_ref``.
+head-major or GQA-expanded copy is made. One launch: the slices of a
+(b, kv head) pair run as one thread-block cluster and merge on chip
+(``plan.decode_plan`` sizes slices, clusters and the copy ring).
+Replaces ``repro/kernels/decode_attention.py::decode_attention``; the
+function it computes is ``ref.decode_attention_window_ref``.
 """
 from __future__ import annotations
+
+import ctypes
 
 import torch
 
 from . import _build
 from .flash_attention import DTYPES, HEAD_DIMS, check_strided, dtype_code
+from .plan import DecodePlan, decode_plan, waves
 
 
-def num_splits(B: int, Hkv: int, S: int, device: torch.device) -> int:
-    """Slices of the sequence per (b, kv head): enough blocks for two per
-    SM, at least 256 cache rows a slice."""
-    sms = torch.cuda.get_device_properties(device).multi_processor_count
-    want = -(-2 * sms // (B * Hkv))
-    return max(1, min(want, -(-S // 256)))
+def decode_plan_for(q, k) -> DecodePlan:
+    """The launch plan of q (B, Hq, D) against k (B, Hkv, S, D) on q's
+    card."""
+    B, Hq, D = q.shape
+    Hkv, S = k.shape[1], k.shape[2]
+    return decode_plan(B=B, Hkv=Hkv, G=Hq // Hkv, S=S, D=D,
+                       elem_bytes=q.element_size(),
+                       sms=_build.sm_count(q.device))
 
 
-def decode_attention(q, k, v, lengths, *, window: int | None = None):
+def decode_attention(q, k, v, lengths, *, window: int | None = None,
+                     fixed_length: int | None = None):
     """q (B, Hq, D), k/v (B, Hkv, S, D), any strides with a unit last dim;
     lengths (B,) int32 on the card. fp32 or bf16, q/k/v alike. Returns
-    (B, Hq, D) in q.dtype; a row with length 0 gives 0."""
+    (B, Hq, D) in q.dtype; a row with length 0 gives 0. ``fixed_length``
+    is a diagnostic (``launch.profile_kernels``): every row takes that
+    length and ``lengths`` is not read."""
     dev = q.device
     B, Hq, D = q.shape
     check_strided(q, "q", 3, dev)
@@ -45,19 +55,33 @@ def decode_attention(q, k, v, lengths, *, window: int | None = None):
                          "(B, Hkv, S, D) with Hkv dividing Hq, lengths (B,)")
     if D not in HEAD_DIMS:
         raise ValueError(f"head_dim {D} not in {HEAD_DIMS}")
+    plan = decode_plan_for(q, k)
     out = torch.empty((B, Hq, D), dtype=q.dtype, device=dev)
-    nsplit = num_splits(B, Hkv, S, dev)
-    ws = (torch.empty(B * Hq * nsplit * (D + 2), dtype=torch.float32,
-                      device=dev) if nsplit > 1 else None)
     lib = _build.load("attention")
     err = lib.brds_decode_attention(
         q.data_ptr(), q.stride(0), q.stride(1),
         k.data_ptr(), k.stride(0), k.stride(1), k.stride(2),
         v.data_ptr(), v.stride(0), v.stride(1), v.stride(2),
-        lengths.data_ptr(), out.data_ptr(),
-        None if ws is None else ws.data_ptr(), B, Hq, Hkv, S, D,
-        0 if window is None else int(window), float(D ** -0.5), nsplit,
+        lengths.data_ptr(), out.data_ptr(), B, Hq, Hkv, S, D,
+        0 if window is None else int(window), float(D ** -0.5), plan.splits,
+        plan.stages, plan.smem,
+        -1 if fixed_length is None else int(fixed_length),
         dtype_code(q.dtype), _build.stream(dev))
     _build.check(err, "decode_attention")
     _build.LAUNCHES["decode_attention"] += 1
     return out
+
+
+def decode_info(plan: DecodePlan, D: int, G: int, dtype: torch.dtype,
+                device) -> dict:
+    """The decode instantiation ``plan`` launches: registers and local
+    (spill) bytes a thread, static shared bytes, blocks an SM at the plan's
+    shared memory, q heads a block, and the waves of the plan's grid."""
+    out = (ctypes.c_int * 5)()
+    _build.check(_build.load("attention").brds_decode_attention_info(
+        D, G, dtype_code(dtype), plan.smem, out), "decode_attention_info")
+    regs, local, static, per_sm, heads = list(out)
+    return dict(registers=regs, local_bytes=local, static_smem=static,
+                blocks_per_sm=per_sm, heads=heads,
+                waves=waves(plan.grid, per_sm, _build.sm_count(device))
+                if per_sm else None)

@@ -1,10 +1,12 @@
 """Launch plans of the persistent float scan (``csrc/fused_scan.cu``,
-``fused_scan_kernel``) and the fused q8 step (``csrc/fused_step.cu``,
-``fused_step_q8_kernel``): grid, hidden units a block, the shared-memory
-layout of the staged activations and the scratch they need, from the
-card's limits in plain arithmetic, so the CPU tests hold it. Also the
-occupancy arithmetic (blocks an SM from registers, threads and shared
-memory) and the waves a grid takes.
+``fused_scan_kernel``), the fused q8 steps (``csrc/fused_step.cu``,
+``fused_step_q8_kernel``) and decode attention (``csrc/attention.cu``,
+``decode_cluster_kernel``): grid, hidden units a block, the shared-memory
+layout of the staged activations and the scratch they need, the slices,
+clusters and copy ring of decode attention, from the card's limits in
+plain arithmetic, so the CPU tests hold it. Also the occupancy arithmetic
+(blocks an SM from registers, threads and shared memory) and the waves a
+grid takes.
 
 The wrappers pass the card's SM count; the other limits are Hopper's
 (H100: 65536 registers and 228 KB of shared memory an SM, 227 KB a
@@ -30,6 +32,14 @@ TILE = 16                   # batch rows a launch's tile (brds::kMaxBatch)
 SCAN_THREADS = 512          # fused_scan.cu kScanThreads
 SCAN_COLUMN = 128           # bytes a staged column takes (8 float4 pieces)
 Q8_THREADS = 512            # fused_step.cu kQ8Threads
+DEC_THREADS = 256           # attention.cu kDecThreads
+DEC_STREAMS = 16            # ... kStreams: key streams (half-warps) a block
+DEC_KEYS = 2                # ... kDecU: keys a stream takes a stage
+DEC_MAX_STAGES = 8          # ... kMaxStages
+DEC_MAX_SPLITS = 8          # ... kMaxCluster: the portable cluster size
+DEC_MIN_KEYS = 64           # cache rows a slice at least
+DEC_RING = 32768            # bytes in flight a block at least (the ring)
+DEC_REGS = 128              # __launch_bounds__(256, 2): two blocks an SM
 
 
 def blocks_per_sm(regs: int, threads: int, smem: int = 0) -> int:
@@ -121,6 +131,67 @@ def scan_plan(*, X: int, H: int, T: int, B: int, Kx: int, Kh: int,
 
 
 @dataclass(frozen=True)
+class DecodePlan:
+    """One launch of decode attention: grid (splits, B * Hkv, groups),
+    clusters of ``splits`` blocks."""
+    heads: int        # q heads a block (GM)
+    groups: int       # blocks a kv group's q heads take (gridDim.z)
+    splits: int       # slices of a (b, kv head) pair: the cluster size
+    stages: int       # stages of the copy ring
+    stage_bytes: int  # a stage: DEC_STREAMS x DEC_KEYS keys' K and V rows
+    smem: int         # dynamic shared memory a block
+    per_sm: int       # blocks an SM at DEC_REGS registers
+    grid: int         # blocks
+
+
+def decode_heads(G: int, D: int) -> int:
+    """attention.cu by_decode's GM: the least power of two >= G, at most
+    8 and at most 512 / D (the register budget)."""
+    cap = 512 // D
+    cap = 8 if cap >= 8 else 4 if cap >= 4 else 2 if cap >= 2 else 1
+    return min(1 if G <= 1 else 2 if G <= 2 else 4 if G <= 4 else 8, cap)
+
+
+def decode_smem(D: int, elem_bytes: int, heads: int, stages: int) -> tuple:
+    """attention.cu decode_smem: (a stage's bytes, the block's dynamic
+    shared memory): the ring, then (m, l, acc) of each warp and of each
+    rank of a cluster (rank 0 gathers them)."""
+    stage = DEC_KEYS * 2 * (D // DEC_STREAMS * elem_bytes) * DEC_THREADS
+    merge = 4 * (DEC_THREADS // 32 + DEC_MAX_SPLITS) * heads * (D + 2)
+    return stage, stages * stage + merge
+
+
+@lru_cache(maxsize=256)
+def decode_plan(*, B: int, Hkv: int, G: int, S: int, D: int,
+                elem_bytes: int, sms: int = SMS) -> DecodePlan:
+    """Decode attention's plan for a (B, Hkv, S, D) cache and G q heads a
+    kv head: enough (pair, slice) blocks for one an SM, at most
+    DEC_MAX_SPLITS slices (one cluster) and at least DEC_MIN_KEYS of the
+    cache's S rows a slice; a ring of at least two stages and DEC_RING
+    bytes, no more stages than a slice of S / splits rows fills. The live
+    length is on the card and is not read here. (On the H100 at qwen3-0.6b's
+    decode shape, two slices and two stages beat one slice, four, eight,
+    and rings of four or six stages: PERF.md.)"""
+    gm = decode_heads(G, D)
+    groups = -(-G // gm)
+    pairs = B * Hkv * groups
+    splits = max(1, min(DEC_MAX_SPLITS, sms // pairs, S // DEC_MIN_KEYS))
+    rows = -(-S // splits)                  # a slice's rows at most
+    tiles = -(-rows // (DEC_STREAMS * DEC_KEYS))
+    stage = decode_smem(D, elem_bytes, gm, 0)[0]
+    stages = max(1, min(tiles, DEC_MAX_STAGES,
+                        max(2, -(-DEC_RING // stage))))
+    smem = decode_smem(D, elem_bytes, gm, stages)[1]
+    if smem > SMEM_PER_BLOCK:
+        raise ValueError(f"decode attention at D={D} needs {smem} bytes of "
+                         "shared memory a block")
+    return DecodePlan(heads=gm, groups=groups, splits=splits, stages=stages,
+                      stage_bytes=stage, smem=smem,
+                      per_sm=blocks_per_sm(DEC_REGS, DEC_THREADS, smem),
+                      grid=pairs * splits)
+
+
+@dataclass(frozen=True)
 class Q8Plan:
     """One launch of the fused q8 step (every batch tile of it)."""
     nb: int
@@ -138,9 +209,11 @@ class Q8Plan:
 
 @lru_cache(maxsize=256)
 def q8_plan(*, X: int, H: int, B: int, Kx: int, Kh: int, code_bytes: int,
-            sms: int = SMS, smem_limit: int = SMEM_PER_BLOCK) -> Q8Plan:
-    """The fused q8 step's plan: ceil(H / sms) units a block, so one block
-    an SM and one wave a batch tile; the tile's codes staged as
+            delta: bool = False, sms: int = SMS,
+            smem_limit: int = SMEM_PER_BLOCK) -> Q8Plan:
+    """The fused q8 step's plan (``delta``: the delta-q8 step's, which
+    keeps zx and zh apart, twice z's room): ceil(H / sms) units a block, so
+    one block an SM and one wave a batch tile; the tile's codes staged as
     (xpad + hpad) vectors of NB codes when they fit beside z. A lane takes
     four consecutive entries, so neighbouring lanes' entries lie about
     4 x ncols / K columns apart."""
@@ -154,7 +227,7 @@ def q8_plan(*, X: int, H: int, B: int, Kx: int, Kh: int, code_bytes: int,
     shift_h = spacing_shift(H, Kh, 4)
     xpad = staged_cols(X, shift_x, slot_bits)
     hpad = staged_cols(H, shift_h, slot_bits)
-    zs = 4 * units * nb * 4
+    zs = (2 if delta else 1) * 4 * units * nb * 4
     codes = (xpad + hpad) * vec
     staged = codes + zs <= smem_limit
     return Q8Plan(nb=nb, tiles=tiles, units=units, grid=grid, staged=staged,

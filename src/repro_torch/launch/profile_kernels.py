@@ -1,6 +1,8 @@
-"""Phase profiles of the multi-token scan (``fused_brds_lstm_scan``) and
-the fused q8 step (``fused_brds_lstm_step_q8``) on the card, by variants
-that each skip one phase.
+"""Phase profiles of the multi-token scan (``fused_brds_lstm_scan``), the
+fused q8 and delta-q8 steps (``fused_brds_lstm_step_q8``,
+``fused_brds_delta_lstm_step_q8``) and decode attention
+(``decode_attention``) on the card, by variants that each skip one
+phase.
 
     PYTHONPATH=src python -m repro_torch.launch.profile_kernels [--steps 32]
         [--batch 8] [--width 1500]
@@ -24,21 +26,29 @@ Beside them: the full scan with the L2 left warm, T launches of the
 single-step kernel. ``neither``'s slope bounds a step's fixed cost
 (barrier, exchange, cell) from above. The fused q8 step (int8 and q1.11
 codes of the same weights) takes the same four variants: ``neither`` is
-its activation staging, cells and launch; and the full step with its
+its activation staging, cells and launch (also after an L2 flush by a
+read); and the full step with its
 activation codes staged in the plan's permuted column order
-(``plan.stage_pos``) and in plain column order, alternated twice. Prints
-one line per variant and, last, a JSON object with every time.
+(``plan.stage_pos``) and in plain column order, alternated twice. The
+fused delta-q8 step on the same codes takes ``full`` and ``neither``.
+Decode attention at the qwen3-0.6b serve shape: the full call, one slice
+a pair, the length as a host constant, lengths of 1, the full call after
+an L2 flush by a read, and the launch plan's slices x ring stages, beside
+SDPA and an empty kernel (``profile_decode``). Prints one line per
+variant and, last, a JSON object with every time.
 """
 from __future__ import annotations
 
 import argparse
 import json
 import subprocess
+from contextlib import contextmanager, nullcontext
 from dataclasses import replace
 
 import torch
 
 from ..core import pack_from_dense, pad_packed
+from ..kernels import decode_attention as kdec
 from ..kernels import fused_scan as kscan
 from ..kernels import fused_step as kstep
 from ..kernels._build import time_ms
@@ -57,6 +67,93 @@ def in_order(plan: Q8Plan, X: int, H: int) -> Q8Plan:
     hpad = staged_cols(H, 0, plan.slot_bits)
     return replace(plan, shift_x=0, shift_h=0, xpad=xpad, hpad=hpad,
                    smem=(xpad + hpad) * vec + 16 * plan.units * plan.nb)
+
+
+@contextmanager
+def planned_as(splits: int, stages: int | None = None):
+    """decode_attention launched with ``splits`` slices a (b, kv head) pair
+    (the cluster size) and ``stages`` ring stages (default: the plan's)."""
+    planned = kdec.decode_plan_for
+
+    def plan_for(*a):
+        p = planned(*a)
+        st = p.stages if stages is None else stages
+        return replace(p, splits=splits, stages=st,
+                       smem=p.smem + (st - p.stages) * p.stage_bytes)
+    kdec.decode_plan_for = plan_for
+    try:
+        yield
+    finally:
+        kdec.decode_plan_for = planned
+
+
+def profile_decode(dev, flush) -> dict:
+    """decode_attention (B14) at the qwen3-0.6b serve shape (B=8, 16 q / 8
+    kv heads of 128, bf16, length 544 of a 1024-row cache, read through
+    the model's strides): the full call; its sequence in one slice a
+    (b, kv head) pair; every row's length given as a host constant (no
+    read of ``lengths`` before the first K load); lengths of 1 (the fixed
+    cost alone); and the full call after an L2 flush that reads instead of
+    writes (no dirty lines to write back). Then the plan's two choices,
+    slices (1, 2, 4, 8) x ring stages (2, 4, 6), each timed after a dirty
+    flush, after a read flush, with the L2 warm, at lengths of 1 (warm),
+    and as 28 calls on 28 layers' caches back to back (a decode step's
+    B14 launches, a call's share); beside them SDPA and an empty kernel
+    (``torch.zeros_like`` of q: the timing's floor)."""
+    B, Hq, Hkv, S, D, L = 8, 16, 8, 1024, 128, 544
+    g = torch.Generator(device=dev).manual_seed(1)
+    mk = lambda *s: torch.randn(*s, generator=g, device=dev).to(
+        torch.bfloat16)
+    q = mk(B, 1, Hq, D)[:, 0]
+    layers = [tuple(mk(B, S, Hkv, D).transpose(1, 2) for _ in range(2))
+              for _ in range(28)]
+    k, v = layers[0]
+    n = torch.full((B,), L, dtype=torch.int32, device=dev)
+    ones = torch.ones_like(n)
+    run = lambda lengths=n, **kw: (
+        lambda: kdec.decode_attention(q, k, v, lengths, **kw))
+    live = 2 * B * Hkv * L * D * 2
+    print(f"decode_attention B={B} heads {Hq}/{Hkv}x{D} bf16, length {L} "
+          f"of {S}: {live / 1e6:.1f} MB of live K and V, byte bound "
+          f"{live / 3.35e12 * 1e6:.2f} us; CUDA events, median of 30, L2 "
+          "flushed", flush=True)
+    out = {}
+    for name, fn in (("full", run()), ("host length", run(fixed_length=L)),
+                     ("lengths 1", run(ones))):
+        out[f"decode {name}"] = dict(ms=time_ms(fn, flush))
+    with planned_as(1):
+        out["decode one slice"] = dict(ms=time_ms(run(), flush))
+    out["decode full, clean flush"] = dict(ms=time_ms(run(), flush,
+                                                      clean=True))
+    for key, r in out.items():
+        print(f"  {key:22} {r['ms']:.4f} ms", flush=True)
+
+    def step():
+        for kk, vv in layers:
+            kdec.decode_attention(q, kk, vv, n)
+
+    F = torch.nn.functional
+    mask = (torch.arange(S, device=dev) < L)[None, None, None, :]
+    fns = {"sdpa": lambda: F.scaled_dot_product_attention(
+               q[:, :, None], k, v, attn_mask=mask, enable_gqa=True),
+           "empty kernel": lambda: torch.zeros_like(q)}
+    for splits in (1, 2, 4, 8):
+        for stages in (2, 4, 6):
+            fns[f"{splits} slices {stages} stages"] = (splits, stages)
+    for key, fn in fns.items():
+        with planned_as(*fn) if isinstance(fn, tuple) else nullcontext():
+            f = run() if isinstance(fn, tuple) else fn
+            r = dict(dirty=time_ms(f, flush),
+                     read_flush=time_ms(f, flush, clean=True),
+                     warm=time_ms(f))
+            if isinstance(fn, tuple):
+                r["length_1_warm"] = time_ms(run(ones))
+                r["28_layers_a_call"] = time_ms(step, flush, reps=10) / 28
+        out[f"decode {key}"] = r
+        print(f"  decode {key:20} " + ", ".join(
+            f"{name} {ms:.4f}" for name, ms in r.items()) + " ms",
+              flush=True)
+    return out
 
 
 def main(argv=None) -> int:
@@ -138,6 +235,11 @@ def main(argv=None) -> int:
             out[key] = dict(ms=time_ms(step, flush))
             print(f"  fused q8 step {spec:5} {name:8} {out[key]['ms']:.4f} ms",
                   flush=True)
+            if name == "neither":   # no dirty lines to write back
+                key = f"q8 {spec} neither, read flush"
+                out[key] = dict(ms=time_ms(step, flush, clean=True))
+                print(f"  fused q8 step {spec:5} neither, read flush "
+                      f"{out[key]['ms']:.4f} ms", flush=True)
         # the staged columns' order: the plan's stage_pos permutation
         # against columns in order (shift 0), alternated twice; the two
         # give the same bits (integer sums)
@@ -166,6 +268,24 @@ def main(argv=None) -> int:
         if not all(torch.equal(a, b) for a, b in zip(got["permuted"],
                                                      got["in order"])):
             raise SystemExit(f"q8 {spec}: the staging orders disagree")
+        # the fused delta-q8 step (B9) on the same codes taken as the codes
+        # of the masked deltas, with a partial-sum memory m: full and
+        # neither (its staging, m's update, the cells and the launch)
+        m = rand(B, 4 * W)
+        for name in ("full", "neither"):
+            fam = [(q.values, q.deltas) if name == "full" else
+                   (q.values[:, :0].contiguous(), q.deltas[:, :0].contiguous())
+                   for q in qs]
+
+            def dstep(fam=fam):
+                kstep.fused_brds_delta_lstm_step_q8(
+                    *fam[0], qs[0].scales * acts[1], acts[0], *fam[1],
+                    qs[1].scales * acts[3], acts[2], m, bias, c0)
+            key = f"delta q8 {spec} {name}"
+            out[key] = dict(ms=time_ms(dstep, flush))
+            print(f"  fused delta-q8 step {spec:5} {name:8} "
+                  f"{out[key]['ms']:.4f} ms", flush=True)
+    out.update(profile_decode(dev, flush))
     print(json.dumps({"card": card, "T": T, "B": B, "width": W,
                       "times": out}), flush=True)
     return 0

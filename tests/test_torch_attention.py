@@ -16,6 +16,7 @@ from repro.models import attention as JA
 from repro_torch.kernels import decode_attention as tdecode
 from repro_torch.kernels import flash_attention as tflash
 from repro_torch.kernels import ops, ref
+from repro_torch.kernels import plan as P
 
 # float32: the frameworks sum in other orders; bf16: the output rounds to
 # bf16 (as tests/test_kernels.py holds the Pallas kernels)
@@ -309,6 +310,171 @@ def test_tensor_core_arithmetic_meets_the_bf16_gate(B, Hq, Hkv, Sq, Sk, D,
     want = ref.flash_attention_ref(q, k, v, causal=True, window=win).float()
     got = _tc_emulation(q, k, v, causal=True, window=win).float()
     assert bool(((got - want).abs() <= 2.0 ** -7 * want.abs() + 1e-6).all())
+
+
+# ----------------------------------------- the cluster decode kernel's numbers
+
+F32 = np.float32
+
+
+def _fma(a, b, c):
+    """fmaf on float32 arrays: the exact product plus c, rounded once (the
+    float64 sum can round first, a tie a float32 kernel never meets here)."""
+    return (a.astype(np.float64) * b + c).astype(F32)
+
+
+def _merge(ms, ls, accs):
+    """Partials (m, l, acc) merged in the order given, as the kernel merges
+    warps and then ranks: M the max, each weighed by exp(m - M)."""
+    M = ms[0]
+    for m in ms[1:]:
+        M = np.maximum(M, m)
+    L, A = np.zeros_like(ls[0]), np.zeros_like(accs[0])
+    for m, l, a in zip(ms, ls, accs):
+        c = np.exp(m - M)
+        L = L + c * l
+        A = A + c[..., None] * a
+    return M, L, A
+
+
+def _decode_emulation(q, k, v, lengths, *, window=None, splits=None):
+    """csrc/attention.cu decode_cluster_kernel's arithmetic in numpy
+    float32, for one (b, kv head) pair at a time with its G q heads: the
+    slice bounds of ``plan.decode_plan``'s splits (or ``splits``); in each
+    slice 16 key streams (stream s takes keys s0 + s, s0 + s + 16, ...),
+    two keys a tile; a key's score as 16 lanes' fma chains over D / 16
+    elements each, summed by the half-warp's xor butterfly; the online
+    softmax per stream with masked scores weighing exactly 0; then each
+    warp's two streams merged (the even one first), the 8 warps in order,
+    and the slices in rank order; out = acc / max(l, 1e-30)."""
+    B, Hq, D = q.shape
+    Hkv, S = k.shape[1], k.shape[2]
+    G, E = Hq // Hkv, D // 16
+    ns = splits or P.decode_plan(B=B, Hkv=Hkv, G=G, S=S, D=D,
+                                 elem_bytes=q.element_size()).splits
+    qf = q.float().numpy() * F32(D ** -0.5)
+    kf, vf = k.float().numpy(), v.float().numpy()
+    neg = F32(ref.NEG)
+    out = np.zeros((B, Hq, D), F32)
+    for b in range(B):
+        n = min(max(int(lengths[b]), 0), S)
+        lo = max(0, n - window) if window else 0
+        chunk = -(-(n - lo) // ns)
+        for kh in range(Hkv):
+            qs = qf[b, kh * G:(kh + 1) * G].reshape(G, 16, E)
+            ranks = []
+            for r in range(ns):
+                s0 = lo + r * chunk
+                s1 = min(n, s0 + chunk)
+                streams = []
+                for st in range(16):
+                    m = np.full(G, neg, F32)
+                    l = np.zeros(G, F32)
+                    acc = np.zeros((G, D), F32)
+                    keys = list(range(s0 + st, s1, 16))
+                    for t in range(0, len(keys), 2):
+                        sc, vs = [], []
+                        for key in keys[t:t + 2]:
+                            kk = kf[b, kh, key].reshape(16, E)
+                            d = np.zeros((G, 16), F32)
+                            for e in range(E):
+                                d = _fma(qs[..., e], kk[None, :, e], d)
+                            for o in (8, 4, 2, 1):
+                                d = d + d[:, np.arange(16) ^ o]
+                            sc.append(d[:, 0])
+                            vs.append(vf[b, kh, key])
+                        mx = m
+                        for x in sc:
+                            mx = np.maximum(mx, x)
+                        alpha = np.exp(m - mx)
+                        p = [np.exp(x - mx) for x in sc]
+                        ps = F32(0) + sum(p[1:], p[0])
+                        l = _fma(l, alpha, ps)
+                        acc = acc * alpha[:, None]
+                        for pu, vu in zip(p, vs):
+                            acc = _fma(pu[:, None], vu[None, :], acc)
+                        m = mx
+                    streams.append((m, l, acc))
+                warps = [_merge(*zip(*streams[w:w + 2]))
+                         for w in range(0, 16, 2)]
+                ranks.append(_merge(*zip(*warps)))
+            _, L, A = _merge(*zip(*ranks))
+            out[b, kh * G:(kh + 1) * G] = A / np.maximum(L, F32(1e-30))[:,
+                                                                        None]
+    return torch.from_numpy(out).to(q.dtype)
+
+
+# (B, Hq, Hkv, S, D, window, lengths, splits): lengths 0, 1 and S; MQA
+# with a window; head_dim 192; the qwen3-0.6b grouping at a short cache;
+# one slice (no cluster) and eight (the largest cluster)
+DECODE_EMU = [(3, 4, 2, 96, 64, None, [0, 1, 96], None),
+              (2, 8, 1, 200, 128, 50, [1, 200], None),
+              (3, 4, 2, 144, 192, None, [144, 0, 77], None),
+              (2, 16, 8, 256, 128, None, [256, 137], None),
+              (2, 4, 2, 160, 64, 33, [160, 90], 1),
+              (2, 4, 2, 320, 64, None, [320, 41], 8)]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("B,Hq,Hkv,S,D,win,lens,splits", DECODE_EMU)
+def test_cluster_decode_arithmetic_meets_the_gates(B, Hq, Hkv, S, D, win,
+                                                  lens, splits, dtype):
+    """The cluster decode kernel's arithmetic, emulated, within
+    chip_smoke.py's gates of the plain version
+    (``decode_attention_window_ref``): 1e-5 in float32, one bf16 ulp
+    (2^-7 relative, plus 1e-6) in bf16; a length-0 row gives 0; and in
+    float32 within the test's tolerance of the Pallas kernel (interpret
+    mode; it has no window, so windowed cases meet the model's
+    ``decode_attention_einsum`` instead)."""
+    rng = np.random.default_rng(S + D)
+    jq, q = _both(rng, (B, Hq, D), dtype)
+    jk, k = _both(rng, (B, Hkv, S, D), dtype)
+    jv, v = _both(rng, (B, Hkv, S, D), dtype)
+    n = np.asarray(lens, np.int32)
+    lengths = torch.from_numpy(n)
+    got = _decode_emulation(q, k, v, n, window=win, splits=splits)
+    want = ref.decode_attention_window_ref(q, k, v, lengths, window=win)
+    assert got.dtype == want.dtype
+    d = (got.float() - want.float()).abs()
+    if dtype == "float32":
+        assert float(d.max()) <= 1e-5
+        if win is None:
+            bk = next(b for b in (32, 16, 8) if S % b == 0)
+            _close(got, pallas_decode(jq, jk, jv, jnp.asarray(n),
+                                      block_kv=bk), dtype)
+        else:
+            G = Hq // Hkv
+            ein = JA.decode_attention_einsum(
+                jnp.asarray(q.numpy())[:, None], _rep(_bshd(k), G),
+                _rep(_bshd(v), G), jnp.asarray(n), window=win)
+            rows = n > 0   # the model's function gives the mean of V at 0
+            _close(got[rows], np.asarray(ein)[:, 0][rows], dtype)
+    else:
+        assert bool((d <= 2.0 ** -7 * want.float().abs() + 1e-6).all())
+    assert bool((got[torch.from_numpy(n == 0)] == 0).all())
+
+
+def test_cluster_decode_slices_cover_the_live_keys_once():
+    """The slice and stream bounds the kernel computes cover [lo, len)
+    exactly once for every split count and length, with a window and
+    without; each warp's even stream has the most keys (both of its
+    streams run its tiles)."""
+    for S in (1, 15, 96, 1000):
+        for ns in (1, 2, 3, 4, 8):
+            for n in {0, 1, S // 2, S}:
+                for win in (None, 7):
+                    lo = max(0, n - win) if win else 0
+                    chunk = -(-(n - lo) // ns)
+                    seen = []
+                    for r in range(ns):
+                        s0 = lo + r * chunk
+                        s1 = min(n, s0 + chunk)
+                        nk = [len(range(s0 + st, s1, 16)) for st in range(16)]
+                        assert all(nk[2 * w] >= nk[2 * w + 1]
+                                   for w in range(8))
+                        for st in range(16):
+                            seen += range(s0 + st, s1, 16)
+                    assert sorted(seen) == list(range(lo, n))
 
 
 if __name__ == "__main__":

@@ -238,3 +238,63 @@ def test_stage_pos_spreads_the_q8_steps_gathers():
         assert 1.9 < ident < 2.5
         assert min(_bank_load(1500, K, 1, 8, 3, s) for s in (1, 2, 3)) \
             > 0.97 * ident
+
+
+# qwen3-0.6b's decode: B=8, 16 q / 8 kv heads of 128, bf16, max_len 1024
+DEC_SERVE = dict(B=8, Hkv=8, G=2, S=1024, D=128, elem_bytes=2)
+
+
+def test_decode_plan_at_the_serve_shape():
+    """Two slices a (b, kv head) pair, one cluster each; 128 blocks, one
+    wave at one an SM; a ring of two 16 KB stages (32 KB in flight a
+    block); the shared memory is the ring plus sixteen (m, l, acc) partials
+    of two heads (eight warps, eight cluster ranks)."""
+    p = P.decode_plan(**DEC_SERVE)
+    assert (p.heads, p.groups, p.splits, p.stages) == (2, 1, 2, 2)
+    assert p.stage_bytes == P.DEC_STREAMS * P.DEC_KEYS * 2 * 128 * 2
+    assert p.stages * p.stage_bytes == P.DEC_RING
+    assert p.smem == p.stages * p.stage_bytes + 4 * 16 * 2 * (128 + 2)
+    assert p.grid == 128 and p.per_sm >= 1
+    assert P.waves(p.grid, 1) == 1
+
+
+@pytest.mark.parametrize("D", [32, 64, 128, 192, 256])
+@pytest.mark.parametrize("elem_bytes", [2, 4])
+@pytest.mark.parametrize("B,Hkv,G,S", [(8, 8, 2, 1024), (2, 8, 2, 32768),
+                                       (5, 1, 8, 700), (3, 2, 4, 600),
+                                       (64, 8, 2, 4096), (1, 1, 1, 8),
+                                       (4, 2, 3, 96)])
+def test_decode_plan_fits_the_card(B, Hkv, G, S, D, elem_bytes):
+    """Every plan: 1-8 slices (the grid's x is the cluster, so clusters
+    divide it), at least DEC_MIN_KEYS cache rows a slice, heads a block a
+    power of two covering the group in ``groups`` blocks within the
+    register budget (heads * D <= 512, or one head), 1-8 ring stages of at
+    least DEC_RING bytes where a slice fills them, shared memory within a
+    block's limit and at least one block an SM."""
+    p = P.decode_plan(B=B, Hkv=Hkv, G=G, S=S, D=D, elem_bytes=elem_bytes)
+    assert 1 <= p.splits <= P.DEC_MAX_SPLITS
+    assert p.splits == 1 or S // p.splits >= P.DEC_MIN_KEYS
+    assert p.heads in (1, 2, 4, 8) and p.heads * p.groups >= G
+    assert p.heads * (p.groups - 1) < G
+    assert p.heads == 1 or p.heads * D <= 512
+    assert p.heads <= max(1, 1 << (G - 1).bit_length())
+    assert 1 <= p.stages <= P.DEC_MAX_STAGES
+    tiles = -(-(-(-S // p.splits)) // (P.DEC_STREAMS * P.DEC_KEYS))
+    assert (p.stages == min(tiles, P.DEC_MAX_STAGES)
+            or p.stages * p.stage_bytes >= P.DEC_RING)
+    assert p.smem <= P.SMEM_PER_BLOCK and p.per_sm >= 1
+    assert p.grid == B * Hkv * p.groups * p.splits
+    # enough blocks for one an SM where the pairs and S allow it
+    pairs = B * Hkv * p.groups
+    if p.splits < P.DEC_MAX_SPLITS and p.splits < S // P.DEC_MIN_KEYS:
+        assert pairs * (p.splits + 1) > P.SMS
+
+
+def test_decode_plan_long_cache_uses_the_largest_cluster():
+    """B=2 over a 32768-row cache (chip_smoke's long shape): 16 pairs take
+    eight slices each, 128 blocks on 132 SMs; a slice of 4096 rows passes
+    through the ring many times over."""
+    p = P.decode_plan(B=2, Hkv=8, G=2, S=32768, D=128, elem_bytes=2)
+    assert p.splits == 8 and p.grid == 128
+    assert P.waves(p.grid, p.per_sm) == 1
+    assert p.stages * P.DEC_STREAMS * P.DEC_KEYS < 32768 // 8

@@ -8,14 +8,18 @@ transpose that pairs the entries' activation codes with their weights, and
 ``__dp4a``'s wrapping int32 sums (IMADs for int16 codes). The columns must
 equal the JAX package's unpacked indices (``repro.core.packing``), and the
 sums, dequantized, the port's plain version (``kernels/ref.py::
-rb_spmv_q8_ref``) bit for bit. The kernel itself runs only on the card
-(``chip_smoke.py`` holds it exact against the same plain version)."""
+rb_spmv_q8_ref``) bit for bit; with the delta-q8 step's epilogue, m' and
+the cell the JAX package's fused delta-q8 step. The kernel itself runs only
+on the card (``chip_smoke.py`` holds it exact against the same plain
+version)."""
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
-from repro.core.packing import pack
+from repro.core.packing import pack, pack_from_dense, pad_packed
+from repro.kernels import ops as jops
+from repro.quant import formats as jqf
 from repro_torch.kernels import ref
 from repro_torch.kernels.plan import stage_pos, staged_cols
 from repro_torch.models import packed_from_numpy
@@ -229,3 +233,54 @@ def test_stage_pos_is_a_permutation_that_spreads_lanes(shift, slot_bits):
     lanes = 7 + (np.arange(1 << slot_bits) << shift)
     slots = stage_pos(lanes, shift, slot_bits) % (1 << slot_bits)
     assert len(set(slots.tolist())) == 1 << slot_bits
+
+
+def _cell(z, c, H):
+    """The exact cell on z (B, 4H) grouped [f; i; g; o], in float64."""
+    sig = lambda x: 1.0 / (1.0 + np.exp(-x))
+    zf, zi, zg, zo = (z[:, i * H:(i + 1) * H].astype(np.float64)
+                      for i in range(4))
+    cn = sig(zf) * c + sig(zi) * np.tanh(zg)
+    return cn, sig(zo) * np.tanh(cn)
+
+
+@pytest.mark.parametrize("spec", ["int8", "q1.11"])
+@pytest.mark.parametrize("B", [3, 8])
+def test_delta_q8_epilogue_matches_jax(spec, B):
+    """The fused delta-q8 step's lane model: the modelled int32 sums of the
+    masked deltas' codes (the JAX package's own codes and packing),
+    dequantized per row, then the epilogue's m' = (m + zx) + zh in float32
+    and z = m' + bias: m' equals the JAX fused_brds_delta_lstm_step_q8's
+    (Pallas, interpret mode) exactly, and the cell on z its c and h within
+    1e-5."""
+    X, H = 100, 96
+    R = 4 * H
+    rng = np.random.default_rng(B + len(spec))
+    arr = lambda *s, sc=1.0: (rng.normal(size=s) * sc).astype(np.float32)
+    jsx = pad_packed(jqf.quantize_packed(pack_from_dense(
+        jnp.asarray(arr(R, X, sc=X ** -0.5)), 0.75), spec))
+    jsh = pad_packed(jqf.quantize_packed(pack_from_dense(
+        jnp.asarray(arr(R, H, sc=H ** -0.5)), 0.5), spec))
+    dx, dh = arr(B, X, sc=0.5), arr(B, H, sc=0.3)
+    fx, fh = rng.random((B, X)) < 0.5, rng.random((B, H)) < 0.5
+    m, bias, c = arr(B, R), arr(R, sc=0.1), arr(B, H)
+    scales = (0.05, 0.04)
+    jc, jh, jm = jops.fused_brds_delta_lstm_step_q8(
+        jsx, jnp.asarray(dx), jnp.asarray(fx), jsh, jnp.asarray(dh),
+        jnp.asarray(fh), jnp.asarray(m), jnp.asarray(bias), jnp.asarray(c),
+        act_scale_x=scales[0], act_scale_h=scales[1], backend="pallas")
+    z = []
+    for s, d, f, sc in ((jsx, dx, fx, scales[0]), (jsh, dh, fh, scales[1])):
+        codes, act = jops._quant_act(
+            jnp.where(jnp.asarray(f), jnp.asarray(d), 0), s, sc)
+        K = s.values.shape[1]
+        sums = q8x4_sums(np.asarray(s.values)[:R].ravel(),
+                         np.asarray(s.deltas)[:R].ravel(), np.arange(R) * K,
+                         K, np.asarray(codes))
+        comb = np.asarray(s.scales)[:R] * np.float32(act)
+        z.append(sums.T.astype(np.float32) * comb[None, :])
+    mn = (m + z[0]) + z[1]
+    np.testing.assert_array_equal(mn, np.asarray(jm))
+    cn, hn = _cell(mn + bias[None, :], c, H)
+    np.testing.assert_allclose(cn, np.asarray(jc), atol=1e-5)
+    np.testing.assert_allclose(hn, np.asarray(jh), atol=1e-5)
