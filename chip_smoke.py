@@ -5,18 +5,20 @@
 
 1. Prints the card (``nvidia-smi``), the torch / CUDA versions, and builds
    every CUDA kernel from ``src/repro_torch/csrc`` (one nvcc per source, all
-   started together); for the redesigned float scan, fused q8 and
-   delta-q8 steps at the serve tier and decode attention at qwen3-0.6b's
-   decode shape, prints ptxas's registers and spills, the local bytes,
-   shared memory, blocks an SM and waves at the launch's grid (decode: its
-   cluster size too), and fails on a spill, a local array or (but for
-   decode) a second wave.
+   started together); for the redesigned float scan, fused q8, delta-q8
+   and float delta steps and delta dual SpMV at the serve tier and decode
+   attention at qwen3-0.6b's decode shape, prints ptxas's registers and
+   spills, the local bytes, shared memory, blocks an SM and waves at the
+   launch's grid (decode: its cluster size too), and fails on a spill, a
+   local array or (but for decode) a second wave.
 2. Kernels: calls each kernel's wrapper at the serve path's full-width
    shapes (lstm_ptb, B=8, int16 deltas), at a small shape (B=3, int8
    deltas, odd H: the fused kernels' partial last block), at a wide one
    (B=12: the 16-accumulator tier; int32 deltas for W_x; too wide for the
    float scan and the q8 step to stage x in shared memory) and at a tall
-   one (B=12, H=4000: too wide for the float scan to stage h), holds it
+   one (B=12, H=4000: too wide for the float scan and the float delta
+   pair to stage h; the delta pair once more at X=70000, past the 65535
+   columns its packed column scans take), holds it
    against its plain PyTorch version on the same inputs, holds each fused
    step bitwise against its chained kernels, and times the kernel, the plain
    version and the dense library call with L2 flushed. The float kernels
@@ -25,7 +27,7 @@
    of about 50% and at 100%, the quantized ones (rb_dual_parts_q8, fused
    q8 step, rb_spmv_q8) with int8 and with q1.11 (int16) codes, the fused
    delta-q8 step on both code types and fired shares (and at B=1, 16 and
-   64, as the fused q8 step), and the
+   64, as the fused q8 step and the float delta pair), and the
    single-family float rb_spmv; the q8 partial sums, rb_spmv_q8 and the
    fused delta-q8 step's m' must equal the plain version's exactly. The
    multi-token scans over T=32 steps (the serve prompt), float and
@@ -243,6 +245,10 @@ REDESIGNED = {"fused_scan_kernelILi8ELb1ELb1E":
               "fused_step_q8_kernel<int8, 8, staged, delta> (B9 int8)",
               "fused_step_q8_kernelIsLi8ELb0ELb1ELb1EE":
               "fused_step_q8_kernel<int16, 8, staged, delta> (B9 q1.11)",
+              "fused_delta_staged_kernelILi8ELb0EE":
+              "fused_delta_staged_kernel<8> (B5)",
+              "delta_dual_staged_kernelILi8ELb0EE":
+              "delta_dual_staged_kernel<8> (B4)",
               "decode_cluster_kernelI13__nv_bfloat16Li128ELi2EE":
               "decode_cluster_kernel<bf16, 128, 2 heads> (B14)"}
 
@@ -267,21 +273,22 @@ def ptxas_redesigned(out: str) -> dict:
 
 
 def occupancy(torch, device) -> None:
-    """Prints, for the redesigned B12, B8 and B9 (int8, q1.11)
-    instantiations at the serve tier and B14's at qwen3-0.6b's decode
-    shape: ptxas's registers and spill bytes, the launch plan's dynamic
-    shared memory and grid, and the blocks an SM and waves the runtime's
-    occupancy calculator gives at that grid (beside the plain
-    ``plan.blocks_per_sm``); for B14 also its cluster size. Fails unless
-    each has no spill and no local array, and unless B12, B8 and B9 run in
-    one wave."""
+    """Prints, for the redesigned B12, B8 and B9 (int8, q1.11), B5 and B4
+    instantiations at the serve tier (B=8, int16 deltas) and B14's at
+    qwen3-0.6b's decode shape: ptxas's registers and spill bytes, the
+    launch plan's dynamic shared memory and grid, and the blocks an SM and
+    waves the runtime's occupancy calculator gives at that grid (beside the
+    plain ``plan.blocks_per_sm``); for B14 also its cluster size. Fails
+    unless each has no spill and no local array, and unless all but B14
+    run in one wave."""
     from repro_torch.kernels import _build
     from repro_torch.kernels import decode_attention as kdec
+    from repro_torch.kernels import delta_rb_spmv as kdelta
     from repro_torch.kernels import fused_scan as kscan
     from repro_torch.kernels import fused_step as kstep
     from repro_torch.kernels import plan as P
     ptx = {}
-    for src in ("fused_scan", "fused_step", "attention"):
+    for src in ("fused_scan", "fused_step", "delta_rb_spmv", "attention"):
         ptx.update(ptxas_redesigned(_build.BUILD_LOG.get(src, "")))
     sms = _build.sm_count(device)
     B, X, H, Kx, Kh = SERVE["batch"], 1500, 1500, 375, 750
@@ -296,6 +303,12 @@ def occupancy(torch, device) -> None:
                        delta=bool(delta), sms=sms)
         rows.append((key, qp, P.Q8_THREADS,
                      kstep.q8_info(qp, B, cb, device, delta=bool(delta))))
+    for key, fused in (("fused_delta_staged_kernelILi8ELb0EE", True),
+                       ("delta_dual_staged_kernelILi8ELb0EE", False)):
+        lp = P.delta_plan(X=X, H=H, R=4 * H, B=B, Kx=Kx, Kh=Kh, fused=fused,
+                          sms=sms)
+        rows.append((key, lp, P.STREAM_THREADS,
+                     kdelta.delta_info(lp, B, device, fused=fused)))
     # B14 at the qwen3-0.6b decode shape: B=8, 16 q / 8 kv heads of 128,
     # bf16, a 1024-row cache
     dp = P.decode_plan(B=TSERVE["batch"], Hkv=8, G=2, S=TSERVE["max_len"],
@@ -440,14 +453,20 @@ def check_kernels(torch, device, flush):
         check_delta_q8(torch, ops, err, tag, cs)
         check_scans(torch, ops, err, tag, cs)
     check_batch_tiles(torch, ops, err)
-    # the fused q8 and delta-q8 steps (B8, B9) at the other batch tiers,
-    # full width: B=1 and 16 in one tile, 64 in four (rows of 375 and 750 entries, neither a
-    # multiple of the 4 entries a lane loads)
+    # past 65535 columns the float delta pair scans one chunk of column
+    # deltas a word (below, two): int32 deltas, x gathered
+    check_delta(torch, ops, err, "very wide", make_case(
+        torch, device, B=3, X=70000, H=64, spar_x=0.75, spar_h=0.5, seed=9))
+    # the fused q8 and delta-q8 steps (B8, B9) and the float delta pair
+    # (B4, B5) at the other batch tiers, full width: B=1 and 16 in one
+    # tile, 64 in four (rows of 375 and 750 entries, neither a multiple of
+    # the 4 entries a lane loads nor of the 32 a warp takes)
     for B in (1, 16, 64):
         cs = make_case(torch, device, B=B, X=1500, H=1500, spar_x=0.75,
                        spar_h=0.5, seed=6 + B)
         check_q8(torch, ops, ref, kq8, err, f"full B={B}", cs)
         check_delta_q8(torch, ops, err, f"full B={B}", cs)
+        check_delta(torch, ops, err, f"full B={B}", cs)
         if B == 16:
             # the scans' largest one-tile batch
             check_tile_scans(torch, ops, err, cs)

@@ -13,6 +13,9 @@
 //    temporal-delta and the quantized kernels. The float scan
 //    (fused_scan.cu) keeps this order with its operands moved: columns
 //    decoded once, activations staged in shared memory.
+//  - row_dot_stream keeps row_dot's order with the operands moved (the
+//    float delta steps): activations staged in shared memory, a warp's
+//    rows streamed with their next loads in flight.
 //  - row_dot_q8x4 is the integer-code row of the fused q8 step: each lane
 //    takes four consecutive entries (one load of codes, one of deltas),
 //    and __dp4a multiplies int8 codes four at a time. Integer sums are
@@ -305,6 +308,17 @@ __device__ __forceinline__ void warp_sum(T (&acc)[N]) {
   }
 }
 
+// acc[lane] (0 for lanes past NB): batch row `lane`'s sum after warp_sum.
+template <typename T, int NB>
+__device__ __forceinline__ T lane_value(const T (&acc)[NB]) {
+  const int lane = threadIdx.x & (kWarp - 1);
+  T v = 0;
+#pragma unroll
+  for (int b = 0; b < NB; ++b)   // acc[lane], without a run-time index
+    if (b == lane) v = acc[b];
+  return v;
+}
+
 // One lane's share of G chunks of a packed integer row (row_dot_q8x4's
 // unit of loading): the raw deltas of each chunk and its four codes. DT is
 // the delta type, or void for a width known only at run time (`dbytes`),
@@ -486,6 +500,344 @@ __device__ __forceinline__ void row_dot_q8x4(
   warp_sum(acc);
 }
 
+// ------------------------------------------- row_dot's order, streamed
+//
+// row_dot_stream is row_dot with its operands moved (the float delta
+// steps, B4 and B5, run on it): the activations a packed entry multiplies
+// come from shared memory, a column's NB floats staged once a block at
+// stage_pos, or, for a family too wide to stage, from global memory as
+// row_dot gathers them; a warp's rows are one stream of G-chunk groups
+// (32 entries a chunk) whose values and deltas are loaded before the group
+// ahead of them is used, across family and row boundaries, so a warp
+// always has loads in flight. The sums keep row_dot's order bit for bit:
+// lane l takes entries l, l+32, ... of a row in order, one fmaf a batch
+// row, then the xor butterfly, each family's sum apart. Columns are
+// integers, so a group's G column scans run interleaved.
+
+constexpr int kStreamThreads = 512;   // one block an SM (kernels/plan.py)
+
+// The chunks of a group: 8 up to 8 accumulators (4, 10 and 16 were slower
+// on the H100, 12 left no register spare: PERF.md), 4 at 16, whose
+// accumulators take the registers.
+template <int NB>
+constexpr int kStreamChunks = NB >= 16 ? 4 : 8;
+
+// Piece (j + r) % N of a lane's staged loads went to a[j * 4 .. j * 4 +
+// 3]; afterwards piece j is there (compile-time indices only: a register
+// array indexed at run time would live in local memory).
+template <int N>
+__device__ __forceinline__ void unrotate(float (&a)[4 * N], int r) {
+  // shift by s where bit s of r is set: a[j] takes a[j - s], each cycle
+  // j, j + s, ... moved in place through one temporary piece (a counted
+  // loop over k, so that it unrolls and every index is a constant)
+#pragma unroll
+  for (int k = 0; k < 3; ++k) {
+    const int s = 1 << k;
+    if (s >= N) break;
+    const bool on = r & s;
+#pragma unroll
+    for (int c = 0; c < s; ++c) {
+      const int last = c + N - s;
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const float t = a[last * 4 + i];
+#pragma unroll
+        for (int n = N / s - 1; n >= 1; --n) {
+          const int m = c + n * s;
+          a[m * 4 + i] = on ? a[(m - s) * 4 + i] : a[m * 4 + i];
+        }
+        a[c * 4 + i] = on ? t : a[c * 4 + i];
+      }
+    }
+  }
+}
+
+// A family's activations staged in shared memory: column c's NB floats as
+// NB/4 float4 pieces at stage_pos(c) * NB/4. A lane's j-th load of a
+// column takes piece (j + rot) % (NB/4), rot its lane index, so the lanes
+// of one phase of a 16-byte load spread over all eight 16-byte slots of a
+// bank row, not the 8 / (NB/4) that one piece of every column falls on
+// (random columns: about two lanes a slot, against three to five without
+// the rotation; tests/test_torch_plan.py). acc is kept in that rotated
+// order and `unrotate`d once a row.
+template <int NB>
+struct StagedF32 {
+  static constexpr int kNQ = NB / 4;
+  const float4* s;
+  int shift, slot_bits;
+  __device__ __forceinline__ void mac(float (&acc)[NB], float v, int col,
+                                      int rot) const {
+    const float4* p = s + stage_pos(col, shift, slot_bits) * kNQ;
+#pragma unroll
+    for (int j = 0; j < kNQ; ++j) {
+      const float4 t = p[(j + rot) & (kNQ - 1)];
+      acc[j * 4] = fmaf(v, t.x, acc[j * 4]);
+      acc[j * 4 + 1] = fmaf(v, t.y, acc[j * 4 + 1]);
+      acc[j * 4 + 2] = fmaf(v, t.z, acc[j * 4 + 2]);
+      acc[j * 4 + 3] = fmaf(v, t.w, acc[j * 4 + 3]);
+    }
+  }
+};
+
+// A family gathered from global memory by a row_dot policy (DeltaAct for
+// the masked deltas: __fmul_rn(d, f)), as row_dot gathers it.
+template <int NB, typename Op>
+struct Gathered {
+  Op op;
+  int B;
+  __device__ __forceinline__ void mac(float (&acc)[NB], float v, int col,
+                                      int) const {
+#pragma unroll
+    for (int b = 0; b < NB; ++b)
+      if (b < B) acc[b] = op.mac(acc[b], v, b, col);
+  }
+};
+
+// Stages columns [0, n) of a masked-delta family (B, n): column c's NB
+// products __fmul_rn(d[b, c], f[b, c]), DeltaAct's operand bit for bit
+// (zero past B), at stage_pos(c). Up to 8 batch rows a thread takes four
+// columns with one 16-byte load of d and one of f a row where the rows
+// allow it (n a multiple of 4, d and f 16-byte aligned), else one column
+// (16 rows of four columns would not leave the registers for it).
+template <int NB>
+__device__ __forceinline__ void stage_delta(float4* s,
+                                            const float* __restrict__ d,
+                                            const float* __restrict__ f,
+                                            int n, int B, int shift,
+                                            int slot_bits) {
+  constexpr int NQ = NB / 4;
+  const bool vec = NB <= 8 && (n & 3) == 0 &&
+                   ((reinterpret_cast<uintptr_t>(d) |
+                     reinterpret_cast<uintptr_t>(f)) & 15) == 0;
+  if (vec) {
+    const int n4 = n / 4;
+    const float4* d4 = reinterpret_cast<const float4*>(d);
+    const float4* f4 = reinterpret_cast<const float4*>(f);
+    for (int c4 = threadIdx.x; c4 < n4; c4 += blockDim.x) {
+      float v[4][NB];
+#pragma unroll
+      for (int b = 0; b < NB; ++b) {
+        float4 a = make_float4(0.0f, 0.0f, 0.0f, 0.0f), m = a;
+        if (b < B) {
+          a = __ldg(d4 + (size_t)b * n4 + c4);
+          m = __ldg(f4 + (size_t)b * n4 + c4);
+        }
+        v[0][b] = __fmul_rn(a.x, m.x);
+        v[1][b] = __fmul_rn(a.y, m.y);
+        v[2][b] = __fmul_rn(a.z, m.z);
+        v[3][b] = __fmul_rn(a.w, m.w);
+      }
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        float4* dst = s + (size_t)stage_pos(4 * c4 + i, shift, slot_bits) * NQ;
+#pragma unroll
+        for (int q = 0; q < NQ; ++q)
+          dst[q] = make_float4(v[i][4 * q], v[i][4 * q + 1], v[i][4 * q + 2],
+                               v[i][4 * q + 3]);
+      }
+    }
+    return;
+  }
+  for (int c = threadIdx.x; c < n; c += blockDim.x) {
+    float v[NB];
+#pragma unroll
+    for (int b = 0; b < NB; ++b)
+      v[b] = b < B ? __fmul_rn(__ldg(d + (size_t)b * n + c),
+                               __ldg(f + (size_t)b * n + c))
+                   : 0.0f;
+    float4* dst = s + (size_t)stage_pos(c, shift, slot_bits) * NQ;
+#pragma unroll
+    for (int q = 0; q < NQ; ++q)
+      dst[q] = make_float4(v[4 * q], v[4 * q + 1], v[4 * q + 2],
+                           v[4 * q + 3]);
+  }
+}
+
+// One packed float family of a row stream: values, deltas (dbytes wide),
+// entries a row, and whether its activations are fewer than 65536 columns
+// (f32_columns then scans two chunks in one word).
+struct F32Family {
+  const float* vals;
+  const void* deltas;
+  int dbytes, K, narrow;
+};
+
+// A lane's share of G chunks of a packed float row: entry 32 c + lane of
+// chunk c's value and delta (0 past K).
+template <int G>
+struct F32Group {
+  float v[G];
+  int d[G];
+};
+
+template <typename DT, int G>
+__device__ __forceinline__ void f32_load_t(const float* __restrict__ vals,
+                                           const DT* __restrict__ deltas,
+                                           int K, int c0, F32Group<G>& g) {
+  const int lane = threadIdx.x & (kWarp - 1);
+#pragma unroll
+  for (int u = 0; u < G; ++u) {
+    const int k = (c0 + u) * kWarp + lane;
+    const bool live = k < K;
+    g.v[u] = live ? __ldg(vals + k) : 0.0f;
+    g.d[u] = live ? static_cast<int>(__ldg(deltas + k)) : 0;
+  }
+}
+
+// Loads chunks c0 .. c0 + G - 1 of the row at element `off` of family f.
+template <int G>
+__device__ __forceinline__ void f32_load(const F32Family& f, size_t off,
+                                         int c0, F32Group<G>& g) {
+  const float* v = f.vals + off;
+  if (f.dbytes == 2)
+    f32_load_t(v, static_cast<const int16_t*>(f.deltas) + off, f.K, c0, g);
+  else if (f.dbytes == 1)
+    f32_load_t(v, static_cast<const int8_t*>(f.deltas) + off, f.K, c0, g);
+  else
+    f32_load_t(v, static_cast<const int32_t*>(f.deltas) + off, f.K, c0, g);
+}
+
+// The columns of a group's chunks: each chunk's inclusive warp scan of its
+// deltas (0 past K) plus the carry of the row's chunks before it. The G
+// scans are independent and interleave; for a narrow family (fewer than
+// 65536 columns) chunks 2q and 2q + 1 share one 32-bit word, 2q in the low
+// half: a chunk's partial sums are column differences below 65536 and, a
+// packing's deltas being non-negative, never carry across the halves.
+template <int G>
+__device__ __forceinline__ void f32_columns(const F32Group<G>& g, bool narrow,
+                                            int& carry, int (&col)[G]) {
+  static_assert(G % 2 == 0, "chunks scan in pairs");
+  const int lane = threadIdx.x & (kWarp - 1);
+  if (narrow) {
+    uint32_t s[G / 2];
+#pragma unroll
+    for (int q = 0; q < G / 2; ++q)
+      s[q] = static_cast<uint32_t>(g.d[2 * q]) |
+             static_cast<uint32_t>(g.d[2 * q + 1]) << 16;
+#pragma unroll
+    for (int t = 0; t < 5; ++t) {
+      const int o = 1 << t;
+#pragma unroll
+      for (int q = 0; q < G / 2; ++q) {
+        const uint32_t up = __shfl_up_sync(0xffffffffu, s[q], o);
+        if (lane >= o) s[q] += up;
+      }
+    }
+#pragma unroll
+    for (int q = 0; q < G / 2; ++q) {
+      const uint32_t tot = __shfl_sync(0xffffffffu, s[q], kWarp - 1);
+      col[2 * q] = carry + static_cast<int>(s[q] & 0xffffu);
+      carry += static_cast<int>(tot & 0xffffu);
+      col[2 * q + 1] = carry + static_cast<int>(s[q] >> 16);
+      carry += static_cast<int>(tot >> 16);
+    }
+  } else {
+#pragma unroll
+    for (int u = 0; u < G; ++u) col[u] = g.d[u];
+#pragma unroll
+    for (int t = 0; t < 5; ++t) {
+      const int o = 1 << t;
+#pragma unroll
+      for (int u = 0; u < G; ++u) {
+        const int up = __shfl_up_sync(0xffffffffu, col[u], o);
+        if (lane >= o) col[u] += up;
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < G; ++u) {
+      const int tot = __shfl_sync(0xffffffffu, col[u], kWarp - 1);
+      col[u] += carry;
+      carry += tot;
+    }
+  }
+}
+
+// acc[b] += the products of g's chunks (those below K) with the
+// activations `act` holds, in row_dot's order; `carry` is the row's column
+// before chunk c0 (0 at the row's start). A group past K adds nothing.
+template <int NB, int G, typename Act>
+__device__ __forceinline__ void f32_consume(const F32Group<G>& g, int c0,
+                                            int K, bool narrow, int& carry,
+                                            const Act& act, int rot,
+                                            float (&acc)[NB]) {
+  if (c0 * kWarp >= K) return;   // warp-uniform
+  const int lane = threadIdx.x & (kWarp - 1);
+  int col[G];
+  f32_columns(g, narrow, carry, col);
+#pragma unroll
+  for (int u = 0; u < G; ++u) {
+    const int k0 = (c0 + u) * kWarp;
+    if (k0 >= K) break;   // warp-uniform
+    if (k0 + lane < K) act.mac(acc, g.v[u], col[u], rot);
+  }
+}
+
+// Where a family's activations come from: staged (then `staged`) or
+// gathered from global memory (`gather`); a uniform branch a group.
+template <int NB, typename Gather>
+struct StreamActs {
+  StagedF32<NB> staged;
+  Gather gather;
+  int is_staged;
+};
+
+// A warp's rows i = first, first + step, ... < nrows (packed row
+// row_of(i) of both families): each row's Sx segment, then its Sh
+// segment, as one stream of G-chunk groups. `cur` holds the first group
+// (row `first`'s Sx chunks 0 .. G-1), loaded by the caller. After each row
+// emit(i, ax, ah), lane b holding batch row b's two sums.
+template <int NB, int G, typename Acts, typename RowOf, typename Emit>
+__device__ __forceinline__ void row_dot_stream(
+    const F32Family& fx, const F32Family& fh, const Acts& ax,
+    const Acts& ah, int first, int nrows, int step, const RowOf& row_of,
+    F32Group<G>& cur, const Emit& emit) {
+  int i = first;
+  if (i >= nrows) return;
+  const int rot = threadIdx.x & (NB / 4 - 1);
+  int part = 0, c0 = 0, carry = 0;
+  float acc[NB];
+#pragma unroll
+  for (int b = 0; b < NB; ++b) acc[b] = 0.0f;
+  float sx = 0.0f;
+  F32Group<G> nxt;
+  for (;;) {
+    const F32Family f = part ? fh : fx;   // copies: no address taken
+    const int nchunks = (f.K + kWarp - 1) / kWarp;
+    // the group after this one
+    int i2 = i, part2 = part, c2 = c0 + G;
+    if (c2 >= nchunks) {
+      c2 = 0;
+      part2 = part ^ 1;
+      if (part) i2 += step;
+    }
+    const bool more = i2 < nrows;
+    if (more) {
+      const F32Family f2 = part2 ? fh : fx;
+      f32_load(f2, (size_t)row_of(i2) * f2.K, c2, nxt);
+    }
+    const Acts a = part ? ah : ax;
+    if (a.is_staged)
+      f32_consume<NB>(cur, c0, f.K, f.narrow, carry, a.staged, rot, acc);
+    else
+      f32_consume<NB>(cur, c0, f.K, f.narrow, carry, a.gather, 0, acc);
+    if (c2 == 0) {   // the segment is complete
+      if (a.is_staged) unrotate<NB / 4>(acc, rot);
+      warp_sum(acc);
+      const float v = lane_value(acc);
+      if (part) emit(i, sx, v);
+      sx = v;
+#pragma unroll
+      for (int b = 0; b < NB; ++b) acc[b] = 0.0f;
+      carry = 0;
+    }
+    if (!more) break;
+    cur = nxt;
+    i = i2;
+    part = part2;
+    c0 = c2;
+  }
+}
+
 // The partial-sum memory update m' = (m + ax) + ah, the reference's order;
 // ax and ah are the two families' float partial sums (for integer codes,
 // after dequant: the raw accumulators are integer sums).
@@ -553,6 +905,85 @@ __device__ __forceinline__ int tile_batch(int B) {
 template <typename T>
 __device__ __forceinline__ T* tile_rows(T* p, int ld) {
   return p + static_cast<size_t>(blockIdx.y) * kMaxBatch * ld;
+}
+
+// A temporal-delta step's inputs: the two packed families, their raw
+// deltas d and 0/1 fired masks f (B, X) and (B, H), and the staged layout
+// of kernels/plan.py::delta_plan (which families are staged, stage_pos's
+// shifts and slot bits, the padded column counts).
+struct DeltaIn {
+  const float* vx;
+  const void* ix;
+  int ixb, kx;
+  const float* dx;
+  const float* fx;
+  int X;
+  const float* vh;
+  const void* ih;
+  int ihb, kh;
+  const float* dh;
+  const float* fh;
+  int H;
+  int B;
+  int stage_x, stage_h, shift_x, shift_h, slot_bits, xpad, hpad;
+};
+
+// The input pointers moved to the block's batch tile (blockIdx.y).
+__device__ __forceinline__ void tile_delta_in(DeltaIn& in) {
+  in.dx = tile_rows(in.dx, in.X);
+  in.fx = tile_rows(in.fx, in.X);
+  in.dh = tile_rows(in.dh, in.H);
+  in.fh = tile_rows(in.fh, in.H);
+  in.B = tile_batch(in.B);
+}
+
+// Float4s of dynamic shared memory the staged families take.
+__device__ __forceinline__ size_t staged_float4s(const DeltaIn& in, int NB) {
+  return ((in.stage_x ? (size_t)in.xpad : 0) +
+          (in.stage_h ? (size_t)in.hpad : 0)) * (NB / 4);
+}
+
+// The gate-stage sums of a delta step over a block's rows: issues each
+// warp's first loads, stages the masked deltas of each family the plan
+// stages, then runs the warps' rows (local row i < nrows at packed row
+// row_of(i), warp w taking w, w + 16, ...) through row_dot_stream and
+// leaves row i's sums Sx@(fx dx) in zx[i * NB + b] and Sh@(fh dh) in
+// zh[i * NB + b] for b < B. Ends with a barrier.
+template <int NB, typename RowOf>
+__device__ __forceinline__ void delta_rows_block(const DeltaIn& in,
+                                                 float4* smem, int nrows,
+                                                 const RowOf& row_of,
+                                                 float* zx, float* zh) {
+  constexpr int G = kStreamChunks<NB>;
+  const int warp = threadIdx.x / kWarp;
+  const int nwarps = blockDim.x / kWarp;
+  float4* sx = smem;
+  float4* sh = sx + (in.stage_x ? (size_t)in.xpad * (NB / 4) : 0);
+  const F32Family fx{in.vx, in.ix, in.ixb, in.kx, in.X < 65536};
+  const F32Family fh{in.vh, in.ih, in.ihb, in.kh, in.H < 65536};
+  F32Group<G> cur;
+  if (warp < nrows) f32_load(fx, (size_t)row_of(warp) * in.kx, 0, cur);
+  if (in.stage_x)
+    stage_delta<NB>(sx, in.dx, in.fx, in.X, in.B, in.shift_x, in.slot_bits);
+  if (in.stage_h)
+    stage_delta<NB>(sh, in.dh, in.fh, in.H, in.B, in.shift_h, in.slot_bits);
+  __syncthreads();
+  using Acts = StreamActs<NB, Gathered<NB, DeltaAct>>;
+  const Acts ax{StagedF32<NB>{sx, in.shift_x, in.slot_bits},
+                {DeltaAct{in.dx, in.fx, in.X}, in.B}, in.stage_x};
+  const Acts ah{StagedF32<NB>{sh, in.shift_h, in.slot_bits},
+                {DeltaAct{in.dh, in.fh, in.H}, in.B}, in.stage_h};
+  const int B = in.B;
+  row_dot_stream<NB, G>(
+      fx, fh, ax, ah, warp, nrows, nwarps, row_of, cur,
+      [&](int i, float a, float h) {
+        const int lane = threadIdx.x & (kWarp - 1);
+        if (lane < B) {
+          zx[i * NB + lane] = a;
+          zh[i * NB + lane] = h;
+        }
+      });
+  __syncthreads();
 }
 
 // Host side: let `kern` take up to the card's opt-in shared memory a block

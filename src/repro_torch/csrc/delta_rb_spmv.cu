@@ -8,15 +8,26 @@
 //    Replaces src/repro/kernels/delta_rb_spmv.py::delta_rb_dual_spmv.
 //
 // The Pallas kernels mask the deltas in VMEM and stream (block_rows, K)
-// tiles on the TPU's sequential grid. Here one warp owns one packed row,
-// as in rb_spmv.cu: brds::row_dot with the DeltaAct policy gathers d*f for
-// each entry, so an unfired column adds an exact zero, and the dual kernel
-// ends the row with brds::delta_update, m first, as the reference adds.
+// tiles on the TPU's sequential grid.
+//  - delta_rb_spmv: one warp owns one packed row, as in rb_spmv.cu:
+//    brds::row_dot with the DeltaAct policy gathers d*f for each entry, so
+//    an unfired column adds an exact zero.
+//  - delta_rb_dual_spmv (delta_dual_staged_kernel): one block an SM owns a
+//    contiguous range of `rows` rows (kernels/plan.py::delta_plan); it
+//    stages the masked deltas d*f of both families in shared memory once
+//    (the product DeltaAct forms, bit for bit; a family too wide to stage
+//    is gathered as DeltaAct gathers it) and streams its warps' rows with
+//    their loads in flight (brds::row_dot_stream: row_dot's order, so the
+//    sums are those of the fused delta step's routine, the same one);
+//    then m' = brds::delta_update(m, ax, ah), m first, as the reference
+//    adds, with m read there only.
 //
 // Bound: bytes. The packed values and deltas are read once and used for
-// all B batch rows; d and f (B x 1500 floats each at full width) stay in
-// the read-only cache; m is read and m' written once. Unfired columns save
-// no bytes here: every packed value is still read.
+// all B batch rows; d and f are read once a block from L2; m is read and
+// m' written once. Unfired columns save no bytes here: every packed value
+// is still read. What the staged design pays beyond the bytes: shared
+// loads of random columns meet about two lanes on a bank slot
+// (tests/test_torch_plan.py), and each block stages all of d*f.
 #include "brds_common.cuh"
 
 namespace {
@@ -48,41 +59,44 @@ delta_rb_spmv_kernel(const float* __restrict__ vals,
     if (b < B && b == lane) y[(size_t)b * R + row] = acc[b];
 }
 
-template <typename IX, typename IH, int NB, bool kTiled>
-__global__ void __launch_bounds__(kThreads)
-delta_rb_dual_spmv_kernel(const float* __restrict__ vx,
-                          const IX* __restrict__ ix, int kx,
-                          const float* __restrict__ dx,
-                          const float* __restrict__ fx, int X,
-                          const float* __restrict__ vh,
-                          const IH* __restrict__ ih, int kh,
-                          const float* __restrict__ dh,
-                          const float* __restrict__ fh, int H,
-                          const float* __restrict__ m,
-                          float* __restrict__ m_out, int B, int R) {
-  const int row = (blockIdx.x * blockDim.x + threadIdx.x) / brds::kWarp;
-  if (row >= R) return;   // uniform across the warp
+struct DeltaDualArgs {
+  brds::DeltaIn in;
+  const float* m;     // (B, R)
+  float* m_out;
+  int R, rows;        // rows of the output; rows a block
+};
+
+template <int NB, bool kTiled>
+__global__ void __launch_bounds__(brds::kStreamThreads, 1)
+delta_dual_staged_kernel(DeltaDualArgs a) {
+  const int R = a.R;
   if constexpr (kTiled) {
-    dx = brds::tile_rows(dx, X);
-    fx = brds::tile_rows(fx, X);
-    dh = brds::tile_rows(dh, H);
-    fh = brds::tile_rows(fh, H);
-    m = brds::tile_rows(m, R);
-    m_out = brds::tile_rows(m_out, R);
-    B = brds::tile_batch(B);
+    brds::tile_delta_in(a.in);
+    a.m = brds::tile_rows(a.m, R);
+    a.m_out = brds::tile_rows(a.m_out, R);
   }
-  float ax[NB] = {}, ah[NB] = {};
-  brds::row_dot<IX, NB>(vx + (size_t)row * kx, ix + (size_t)row * kx, kx,
-                        brds::DeltaAct{dx, fx, X}, B, ax);
-  brds::row_dot<IH, NB>(vh + (size_t)row * kh, ih + (size_t)row * kh, kh,
-                        brds::DeltaAct{dh, fh, H}, B, ah);
-  const int lane = threadIdx.x % brds::kWarp;
-#pragma unroll
-  for (int b = 0; b < NB; ++b)
-    if (b < B && b == lane) {
-      const size_t o = (size_t)b * R + row;
-      m_out[o] = brds::delta_update(m[o], ax[b], ah[b]);
-    }
+  extern __shared__ float4 delta_smem[];
+  float* zx = reinterpret_cast<float*>(delta_smem +
+                                       brds::staged_float4s(a.in, NB));
+  float* zh = zx + a.rows * NB;
+  const int B = a.in.B, r0 = blockIdx.x * a.rows;
+  const int nrows = min(a.rows, R - r0);
+  brds::delta_rows_block<NB>(a.in, delta_smem, nrows,
+                             [&](int i) { return r0 + i; }, zx, zh);
+  for (int t = threadIdx.x; t < nrows * B; t += brds::kStreamThreads) {
+    const int b = t / nrows, i = t % nrows;
+    const size_t o = (size_t)b * R + r0 + i;
+    a.m_out[o] = brds::delta_update(a.m[o], zx[i * NB + b], zh[i * NB + b]);
+  }
+}
+
+// Runs `body(kern)` with the dual delta instantiation for batch B.
+template <typename F>
+cudaError_t by_dual_kernel(int B, F&& body) {
+  return brds::by_batch(B, [&](auto nb, auto tiled) {
+    return body(delta_dual_staged_kernel<decltype(nb)::value,
+                                         decltype(tiled)::value>);
+  });
 }
 
 }  // namespace
@@ -110,34 +124,42 @@ extern "C" int brds_delta_rb_spmv(const void* vals, const void* ix,
   return cudaGetLastError();
 }
 
+// One launch on kernels/plan.py::delta_plan's arguments (rows a block,
+// the staged layout, the dynamic shared memory).
 extern "C" int brds_delta_rb_dual_spmv(
     const void* vx, const void* ix, int ix_bytes, int kx, const void* dx,
     const void* fx, int X, const void* vh, const void* ih, int ih_bytes,
     int kh, const void* dh, const void* fh, int H, const void* m,
-    void* m_out, int B, int R, void* stream) {
-  if (R <= 0) return cudaErrorInvalidValue;
-  const dim3 grid((R + kRowsPerBlock - 1) / kRowsPerBlock,
-                  brds::batch_tiles(B));
-  cudaError_t st = brds::by_delta(ix_bytes, [&](auto ixt) {
-    using IX = decltype(ixt);
-    return brds::by_delta(ih_bytes, [&](auto iht) {
-      using IH = decltype(iht);
-      return brds::by_batch(B, [&](auto nb, auto tiled) {
-        constexpr int NB = decltype(nb)::value;
-        delta_rb_dual_spmv_kernel<IX, IH, NB, decltype(tiled)::value>
-            <<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-                static_cast<const float*>(vx), static_cast<const IX*>(ix),
-                kx, static_cast<const float*>(dx),
-                static_cast<const float*>(fx), X,
-                static_cast<const float*>(vh), static_cast<const IH*>(ih),
-                kh, static_cast<const float*>(dh),
-                static_cast<const float*>(fh), H,
-                static_cast<const float*>(m), static_cast<float*>(m_out), B,
-                R);
-        return cudaSuccess;
-      });
-    });
+    void* m_out, int B, int R, int rows, int stage_x, int stage_h,
+    int shift_x, int shift_h, int slot_bits, int xpad, int hpad, int smem,
+    void* stream) {
+  if (R <= 0 || rows <= 0) return cudaErrorInvalidValue;
+  const dim3 grid((R + rows - 1) / rows, brds::batch_tiles(B));
+  DeltaDualArgs a{
+      brds::DeltaIn{static_cast<const float*>(vx), ix, ix_bytes, kx,
+                    static_cast<const float*>(dx),
+                    static_cast<const float*>(fx), X,
+                    static_cast<const float*>(vh), ih, ih_bytes, kh,
+                    static_cast<const float*>(dh),
+                    static_cast<const float*>(fh), H, B, stage_x, stage_h,
+                    shift_x, shift_h, slot_bits, xpad, hpad},
+      static_cast<const float*>(m), static_cast<float*>(m_out), R, rows};
+  cudaError_t st = by_dual_kernel(B, [&](auto kern) {
+    cudaError_t e = brds::allow_smem(reinterpret_cast<const void*>(kern));
+    if (e != cudaSuccess) return e;
+    kern<<<grid, brds::kStreamThreads, smem,
+           static_cast<cudaStream_t>(stream)>>>(a);
+    return cudaSuccess;
   });
   if (st != cudaSuccess) return st;
   return cudaGetLastError();
+}
+
+// For the dual delta instantiation of batch B: out[0..3] as
+// brds::kernel_info gives them, with `smem` bytes of dynamic shared memory.
+extern "C" int brds_delta_rb_dual_spmv_info(int B, int smem, int* out) {
+  return by_dual_kernel(B, [&](auto kern) {
+    return brds::kernel_info(reinterpret_cast<const void*>(kern),
+                             brds::kStreamThreads, smem, out);
+  });
 }

@@ -43,18 +43,19 @@
 //
 // fused_brds_delta_lstm_scan keeps the first design (not redesigned yet):
 // blocks sized to be co-resident (occupancy x SMs), each owning tiles of
-// kJT hidden units with one warp per gate row, as the single-step kernels
-// of fused_step.cu, and a threshold phase per step, one column per thread
-// over the whole grid, which writes the masked deltas to global scratch
-// and updates the references in place; a second grid barrier separates it
-// from the gate phase.
+// kJT hidden units with one warp per gate row, as the float single-step
+// kernel of fused_step.cu, and a threshold phase per step, one column per
+// thread over the whole grid, which writes the masked deltas to global
+// scratch and updates the references in place; a second grid barrier
+// separates it from the gate phase.
 //
 // Each step is bitwise equal to one launch of the single-step kernel
-// (fused_step_kernel, fused_delta_step_kernel): every (row, batch) sum
+// (fused_step_kernel, fused_delta_staged_kernel): every (row, batch) sum
 // keeps brds::row_dot's order (lane l takes entries l, l+32, ... in order
 // with fmaf, then the xor butterfly; ax and ah apart), z = (ax + ah) +
 // bias (or delta_update, then + bias), and the cell is brds::lstm_cell;
-// staging and hoisting change where the operands come from, not that
+// staging, streaming and hoisting (here, and in the delta step's
+// brds::row_dot_stream) change where the operands come from, not that
 // order. The masked delta is the same __fmul_rn(d, fired) that DeltaAct
 // forms, and the threshold the same float32 ops as
 // sparse/temporal.py::delta_threshold (d = v - ref, |d| > theta strictly,
@@ -240,7 +241,7 @@ fused_delta_scan_kernel(const DeltaScanArgs<IX, IH> a) {
         const float bb = a.bias[row];
         float* mrow = ms + ((k * kJT + jl) * 4 + gate) * NB;
 #pragma unroll
-        for (int b = 0; b < NB; ++b)   // fused_delta_step_kernel's m', z
+        for (int b = 0; b < NB; ++b)   // the fused delta step's m', z
           if (b < B && b == lane) {
             const float mn = brds::delta_update(mrow[b], ax[b], ah[b]);
             mrow[b] = mn;
@@ -401,7 +402,7 @@ __device__ __forceinline__ void decode_row(const void* deltas, int bytes,
 // a 16-byte shared load meet eight distinct bank slots whatever their
 // columns (the random columns of consecutive entries, staged in column
 // order, met about two lanes on a slot). The lane's registers then hold
-// the pieces rotated by its lane index, and `unrotate` puts them back
+// the pieces rotated by its lane index, and `brds::unrotate` puts them back
 // before the warp adds its partial sums.
 constexpr int kPieces = 8;
 
@@ -444,36 +445,6 @@ __device__ __forceinline__ void put_h(float4* planes, int c,
 #pragma unroll
     for (int q = 0; q < NQ; ++q)
       planes[(size_t)c * kPieces + r * NQ + q] = g[q];
-  }
-}
-
-// a[j * 4 + i] held piece (j + r) % N of the lane's registers; afterwards
-// piece j (compile-time indices only: a register array indexed at run
-// time would live in local memory).
-template <int N>
-__device__ __forceinline__ void unrotate(float (&a)[4 * N], int r) {
-  // shift by s where bit s of r is set: a[j] takes a[j - s], each cycle
-  // j, j + s, ... moved in place through one temporary piece (a counted
-  // loop over k, so that it unrolls and every index is a constant)
-#pragma unroll
-  for (int k = 0; k < 3; ++k) {
-    const int s = 1 << k;
-    if (s >= N) break;
-    const bool on = r & s;
-#pragma unroll
-    for (int c = 0; c < s; ++c) {
-      const int last = c + N - s;
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const float t = a[last * 4 + i];
-#pragma unroll
-        for (int n = N / s - 1; n >= 1; --n) {
-          const int m = c + n * s;
-          a[m * 4 + i] = on ? a[(m - s) * 4 + i] : a[m * 4 + i];
-        }
-        a[c * 4 + i] = on ? t : a[c * 4 + i];
-      }
-    }
   }
 }
 
@@ -573,7 +544,7 @@ fused_scan_kernel(const ScanArgs a) {
           }
         }
       }
-      if constexpr (kStageX) unrotate<kPieces>(acc, rot);
+      if constexpr (kStageX) brds::unrotate<kPieces>(acc, rot);
       butterfly<PT * NB>(acc);
 #pragma unroll
       for (int k = 0; k < PT * NB; ++k)
@@ -633,7 +604,7 @@ fused_scan_kernel(const ScanArgs a) {
           }
         }
       }
-      if constexpr (kStageH) unrotate<NQ>(acc, rot);
+      if constexpr (kStageH) brds::unrotate<NQ>(acc, rot);
       butterfly<NB>(acc);
 #pragma unroll
       for (int b = 0; b < NB; ++b)   // fused_step_kernel's z

@@ -23,9 +23,14 @@
 // its chained pair: rb_dual_spmv / delta_rb_dual_spmv / rb_dual_parts_q8
 // (then m + zx + zh for the delta q8 step), then the bias add in PyTorch,
 // then lstm_gates.
-//  - The float and delta steps: kJT hidden units a block, one warp per
-//    row, the same brds::row_dot and per-row epilogue as the chained
-//    kernel.
+//  - The float step: kJT hidden units a block, one warp per row, the
+//    same brds::row_dot and per-row epilogue as the chained kernel.
+//  - The delta step (fused_delta_staged_kernel): one block an SM with
+//    `units` hidden units, the masked deltas staged in shared memory once a
+//    block, the rows streamed with loads in flight by brds::row_dot_stream,
+//    the routine of the chained delta_rb_dual_spmv: row_dot's order, so m'
+//    is the chained value bit for bit; m' and z are made in the epilogue,
+//    m and the bias read there only.
 //  - The q8 and delta-q8 steps (fused_step_q8_kernel, the delta step a
 //    compile-time flag): one block an SM with `units` hidden units,
 //    activation codes staged in shared memory, four entries a lane
@@ -37,10 +42,10 @@
 //
 // Bound: bytes, as the chained gate kernels: the packed weights are read
 // once; z, c and h never round-trip through device memory between the two
-// stages. The row_dot kernels reach 7-20% of that bound: a lane gathers B
-// activations an entry from global memory; the q8 step gathers them from
-// shared memory and keeps a warp's next loads in flight (PERF.md has the
-// card's times).
+// stages. The row_dot float step reaches 20% of that bound: a lane gathers
+// B activations an entry from global memory; the delta, q8 and delta-q8
+// steps gather them from shared memory and keep a warp's next loads in
+// flight (PERF.md has the card's times).
 #include "brds_common.cuh"
 
 namespace {
@@ -109,60 +114,6 @@ fused_step_kernel(const float* __restrict__ vx, const DX* __restrict__ dx,
   close_cells<NB>(zs, H, B, c_prev, c_out, h_out, act);
 }
 
-template <typename IX, typename IH, int NB, bool kTiled>
-__global__ void __launch_bounds__(kThreads)
-fused_delta_step_kernel(const float* __restrict__ vx,
-                        const IX* __restrict__ ix, int kx,
-                        const float* __restrict__ dx,
-                        const float* __restrict__ fx, int X,
-                        const float* __restrict__ vh,
-                        const IH* __restrict__ ih, int kh,
-                        const float* __restrict__ dh,
-                        const float* __restrict__ fh, int H,
-                        const float* __restrict__ m,
-                        const float* __restrict__ bias,
-                        const float* __restrict__ c_prev,
-                        float* __restrict__ c_out, float* __restrict__ h_out,
-                        float* __restrict__ m_out, int B, brds::Act act) {
-  if constexpr (kTiled) {
-    dx = brds::tile_rows(dx, X);
-    fx = brds::tile_rows(fx, X);
-    dh = brds::tile_rows(dh, H);
-    fh = brds::tile_rows(fh, H);
-    m = brds::tile_rows(m, 4 * H);
-    m_out = brds::tile_rows(m_out, 4 * H);
-    c_prev = brds::tile_rows(c_prev, H);
-    c_out = brds::tile_rows(c_out, H);
-    h_out = brds::tile_rows(h_out, H);
-    B = brds::tile_batch(B);
-  }
-  __shared__ float zs[kJT][4][NB];
-  const int warp = threadIdx.x / brds::kWarp;
-  const int lane = threadIdx.x % brds::kWarp;
-  const int jl = warp / 4, gate = warp % 4;
-  const int j = blockIdx.x * kJT + jl;
-  if (j < H) {
-    const int row = gate * H + j;
-    const int R = 4 * H;
-    float ax[NB] = {}, ah[NB] = {};
-    brds::row_dot<IX, NB>(vx + (size_t)row * kx, ix + (size_t)row * kx, kx,
-                          brds::DeltaAct{dx, fx, X}, B, ax);
-    brds::row_dot<IH, NB>(vh + (size_t)row * kh, ih + (size_t)row * kh, kh,
-                          brds::DeltaAct{dh, fh, H}, B, ah);
-    const float bb = bias[row];
-#pragma unroll
-    for (int b = 0; b < NB; ++b)
-      if (b < B && b == lane) {
-        const size_t o = (size_t)b * R + row;
-        const float mn = brds::delta_update(m[o], ax[b], ah[b]);
-        m_out[o] = mn;
-        zs[jl][gate][b] = __fadd_rn(mn, bb);   // the chained m + bias
-      }
-  }
-  __syncthreads();
-  close_cells<NB>(zs, H, B, c_prev, c_out, h_out, act);
-}
-
 // The fused q8 step's arguments (one struct: the kernel takes one of
 // every instantiation's parameters by value).
 template <typename CT>
@@ -195,7 +146,7 @@ constexpr int kQ8Threads = 512;
 constexpr int kQ8Warps = kQ8Threads / brds::kWarp;
 
 // Row i of a block's 4 * units gate rows: unit i / 4, gate i % 4.
-__device__ __forceinline__ int q8_row(int i, int H, int j0) {
+__device__ __forceinline__ int gate_row(int i, int H, int j0) {
   return (i & 3) * H + j0 + (i >> 2);
 }
 
@@ -208,17 +159,6 @@ struct Q8Row {
 template <typename CT>
 __device__ __forceinline__ Q8Row q8_row_consts(const Q8Args<CT>& a, int row) {
   return Q8Row{a.comb_x[row], a.comb_h[row], a.bias[row]};
-}
-
-// acc[lane] (0 for lanes past NB): batch row `lane`'s sum.
-template <int NB>
-__device__ __forceinline__ uint32_t lane_sum(const uint32_t (&acc)[NB]) {
-  const int lane = threadIdx.x % brds::kWarp;
-  uint32_t v = 0;
-#pragma unroll
-  for (int b = 0; b < NB; ++b)   // acc[lane], without a run-time index
-    if (b == lane) v = acc[b];
-  return v;
 }
 
 // What gate row i's two dequantized sums leave in shared memory, lane
@@ -251,15 +191,15 @@ __device__ __forceinline__ void q8_rows(const Q8Args<CT>& a, int j0,
                                         const Emit& emit) {
   const int nrows = 4 * min(a.units, a.H - j0);
   for (int i = threadIdx.x / brds::kWarp; i < nrows; i += kQ8Warps) {
-    const int row = q8_row(i, a.H, j0);
+    const int row = gate_row(i, a.H, j0);
     const Q8Row rc = q8_row_consts(a, row);
     uint32_t ax[NB] = {}, ah[NB] = {};
     brds::row_dot_q8x4<NB, 4>(a.vx, a.ix, a.ixb, (size_t)row * a.kx, a.kx,
                               fx, ax);
     brds::row_dot_q8x4<NB, 4>(a.vh, a.ih, a.ihb, (size_t)row * a.kh, a.kh,
                               fh, ah);
-    emit(i, brds::dequant(lane_sum(ax), rc.cx),
-         brds::dequant(lane_sum(ah), rc.ch), rc.bb);
+    emit(i, brds::dequant(brds::lane_value(ax), rc.cx),
+         brds::dequant(brds::lane_value(ah), rc.ch), rc.bb);
   }
 }
 
@@ -279,7 +219,7 @@ __device__ __forceinline__ void q8_rows_stream(const Q8Args<CT>& a, int j0,
   int i = threadIdx.x / brds::kWarp;
   if (i >= nrows) return;
   auto off_of = [&](int i, int part) {
-    return (size_t)q8_row(i, H, j0) * (part ? a.kh : a.kx);
+    return (size_t)gate_row(i, H, j0) * (part ? a.kh : a.kx);
   };
   auto load = [&](int i, int part, int c0, brds::Q8Group<CT, DT, G>& g) {
     if (part)
@@ -290,7 +230,7 @@ __device__ __forceinline__ void q8_rows_stream(const Q8Args<CT>& a, int j0,
   brds::Q8Group<CT, DT, G> cur, nxt;
   int part = 0, c0 = 0, carry = 0;
   load(i, part, c0, cur);
-  Q8Row rc = q8_row_consts(a, q8_row(i, H, j0)), rn = rc;
+  Q8Row rc = q8_row_consts(a, gate_row(i, H, j0)), rn = rc;
   uint32_t acc[NB] = {};
   float zx = 0.0f;
   for (;;) {
@@ -306,13 +246,14 @@ __device__ __forceinline__ void q8_rows_stream(const Q8Args<CT>& a, int j0,
     const bool more = i2 < nrows;
     if (more) {
       load(i2, part2, c2, nxt);
-      if (i2 != i) rn = q8_row_consts(a, q8_row(i2, H, j0));
+      if (i2 != i) rn = q8_row_consts(a, gate_row(i2, H, j0));
     }
     const Fetch f = part ? fh : fx;   // a copy: no address of either taken
     brds::q8x4_consume<NB>(cur, 0, c0, nchunks, carry, f, acc);
     if (c2 == 0) {   // the segment is complete
       brds::warp_sum(acc);
-      const float dq = brds::dequant(lane_sum(acc), part ? rc.ch : rc.cx);
+      const float dq =
+          brds::dequant(brds::lane_value(acc), part ? rc.ch : rc.cx);
       if (part) emit(i, zx, dq, rc.bb);
       zx = dq;
 #pragma unroll
@@ -423,6 +364,71 @@ fused_step_q8_kernel(Q8Args<CT> a) {
   }
 }
 
+// The fused delta step (B5): one block an SM with `units` hidden units
+// (kernels/plan.py::delta_plan), the masked deltas staged in shared memory
+// and the gate rows streamed in row_dot's order (brds::delta_rows_block,
+// the chained delta_rb_dual_spmv's routine), then per (unit, batch row) m'
+// = delta_update(m, ax, ah), z = m' + bias and the cell; m and the bias
+// are read only there.
+struct DeltaStepArgs {
+  brds::DeltaIn in;
+  const float* m;     // (B, 4H)
+  const float* bias;
+  const float* c_prev;
+  float* c_out;
+  float* h_out;
+  float* m_out;
+  int units;          // hidden units a block
+  brds::Act act;
+};
+
+template <int NB, bool kTiled>
+__global__ void __launch_bounds__(brds::kStreamThreads, 1)
+fused_delta_staged_kernel(DeltaStepArgs a) {
+  const int H = a.in.H;
+  if constexpr (kTiled) {
+    brds::tile_delta_in(a.in);
+    a.m = brds::tile_rows(a.m, 4 * H);
+    a.m_out = brds::tile_rows(a.m_out, 4 * H);
+    a.c_prev = brds::tile_rows(a.c_prev, H);
+    a.c_out = brds::tile_rows(a.c_out, H);
+    a.h_out = brds::tile_rows(a.h_out, H);
+  }
+  extern __shared__ float4 delta_smem[];
+  float* zx = reinterpret_cast<float*>(delta_smem +
+                                       brds::staged_float4s(a.in, NB));
+  float* zh = zx + 4 * a.units * NB;
+  const int B = a.in.B, j0 = blockIdx.x * a.units;
+  brds::delta_rows_block<NB>(a.in, delta_smem, 4 * min(a.units, H - j0),
+                             [&](int i) { return gate_row(i, H, j0); }, zx,
+                             zh);
+  for (int t = threadIdx.x; t < a.units * B; t += brds::kStreamThreads) {
+    const int jl = t / B, b = t % B, j = j0 + jl;
+    if (j >= H) continue;
+    float z[4];
+#pragma unroll
+    for (int g = 0; g < 4; ++g) {   // gate_row(4 jl + g) = g H + j
+      const int row = g * H + j, i = (4 * jl + g) * NB + b;
+      const size_t mo = (size_t)b * 4 * H + row;
+      const float mn = brds::delta_update(a.m[mo], zx[i], zh[i]);
+      a.m_out[mo] = mn;
+      z[g] = __fadd_rn(mn, a.bias[row]);   // the chained m' + bias
+    }
+    const size_t o = (size_t)b * H + j;
+    brds::lstm_cell(z[0], z[1], z[2], z[3], a.c_prev[o], a.act, a.c_out + o,
+                    a.h_out + o);
+  }
+}
+
+// Runs `body(kern)` with the fused delta instantiation for batch B.
+template <typename F>
+cudaError_t by_delta_kernel(int B, F&& body) {
+  return brds::by_batch(B, [&](auto nb, auto tiled) {
+    return body(fused_delta_staged_kernel<decltype(nb)::value,
+                                          decltype(tiled)::value>);
+  });
+}
+
 }  // namespace
 
 extern "C" int brds_fused_lstm_step(const void* vx, const void* dx,
@@ -460,41 +466,48 @@ extern "C" int brds_fused_lstm_step(const void* vx, const void* dx,
   return cudaGetLastError();
 }
 
+// One launch on kernels/plan.py::delta_plan's arguments (units a block,
+// the staged layout, the dynamic shared memory).
 extern "C" int brds_fused_delta_lstm_step(
     const void* vx, const void* ix, int ix_bytes, int kx, const void* dx,
     const void* fx, int X, const void* vh, const void* ih, int ih_bytes,
     int kh, const void* dh, const void* fh, int H, const void* m,
     const void* bias, const void* c_prev, void* c_out, void* h_out,
-    void* m_out, int B, const void* lut, float lo, float hi, float hic,
-    void* stream) {
-  if (H <= 0) return cudaErrorInvalidValue;
-  const dim3 grid((H + kJT - 1) / kJT, brds::batch_tiles(B));
-  const brds::Act act{static_cast<const float*>(lut), lo, hi, hic};
-  cudaError_t st = brds::by_delta(ix_bytes, [&](auto ixt) {
-    using IX = decltype(ixt);
-    return brds::by_delta(ih_bytes, [&](auto iht) {
-      using IH = decltype(iht);
-      return brds::by_batch(B, [&](auto nb, auto tiled) {
-        constexpr int NB = decltype(nb)::value;
-        fused_delta_step_kernel<IX, IH, NB, decltype(tiled)::value>
-            <<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-                static_cast<const float*>(vx), static_cast<const IX*>(ix),
-                kx, static_cast<const float*>(dx),
-                static_cast<const float*>(fx), X,
-                static_cast<const float*>(vh), static_cast<const IH*>(ih),
-                kh, static_cast<const float*>(dh),
-                static_cast<const float*>(fh), H,
-                static_cast<const float*>(m),
-                static_cast<const float*>(bias),
-                static_cast<const float*>(c_prev), static_cast<float*>(c_out),
-                static_cast<float*>(h_out), static_cast<float*>(m_out), B,
-                act);
-        return cudaSuccess;
-      });
-    });
+    void* m_out, int B, int units, int stage_x, int stage_h, int shift_x,
+    int shift_h, int slot_bits, int xpad, int hpad, int smem,
+    const void* lut, float lo, float hi, float hic, void* stream) {
+  if (H <= 0 || units <= 0) return cudaErrorInvalidValue;
+  const dim3 grid((H + units - 1) / units, brds::batch_tiles(B));
+  DeltaStepArgs a{
+      brds::DeltaIn{static_cast<const float*>(vx), ix, ix_bytes, kx,
+                    static_cast<const float*>(dx),
+                    static_cast<const float*>(fx), X,
+                    static_cast<const float*>(vh), ih, ih_bytes, kh,
+                    static_cast<const float*>(dh),
+                    static_cast<const float*>(fh), H, B, stage_x, stage_h,
+                    shift_x, shift_h, slot_bits, xpad, hpad},
+      static_cast<const float*>(m), static_cast<const float*>(bias),
+      static_cast<const float*>(c_prev), static_cast<float*>(c_out),
+      static_cast<float*>(h_out), static_cast<float*>(m_out), units,
+      brds::Act{static_cast<const float*>(lut), lo, hi, hic}};
+  cudaError_t st = by_delta_kernel(B, [&](auto kern) {
+    cudaError_t e = brds::allow_smem(reinterpret_cast<const void*>(kern));
+    if (e != cudaSuccess) return e;
+    kern<<<grid, brds::kStreamThreads, smem,
+           static_cast<cudaStream_t>(stream)>>>(a);
+    return cudaSuccess;
   });
   if (st != cudaSuccess) return st;
   return cudaGetLastError();
+}
+
+// For the fused delta instantiation of batch B: out[0..3] as
+// brds::kernel_info gives them, with `smem` bytes of dynamic shared memory.
+extern "C" int brds_fused_delta_lstm_step_info(int B, int smem, int* out) {
+  return by_delta_kernel(B, [&](auto kern) {
+    return brds::kernel_info(reinterpret_cast<const void*>(kern),
+                             brds::kStreamThreads, smem, out);
+  });
 }
 
 namespace {

@@ -54,7 +54,9 @@ SIGNATURES = {
                                  _I, _P, _P, _P, _P, _I, _P, _F, _F, _F, _P],
         "brds_fused_delta_lstm_step": [_P, _P, _I, _I, _P, _P, _I, _P, _P,
                                        _I, _I, _P, _P, _I, _P, _P, _P, _P,
-                                       _P, _P, _I, _P, _F, _F, _F, _P],
+                                       _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                                       _I, _I, _I, _P, _F, _F, _F, _P],
+        "brds_fused_delta_lstm_step_info": [_I, _I, _P],
         "brds_fused_lstm_step_q8": [_P, _P, _I, _I, _P, _P, _I, _P, _P, _I,
                                     _I, _P, _P, _I, _I, _P, _P, _P, _P, _I,
                                     _I, _I, _I, _I, _I, _I, _I, _I,
@@ -68,7 +70,9 @@ SIGNATURES = {
     "delta_rb_spmv": {
         "brds_delta_rb_spmv": [_P, _P, _I, _I, _P, _P, _I, _P, _I, _I, _P],
         "brds_delta_rb_dual_spmv": [_P, _P, _I, _I, _P, _P, _I, _P, _P, _I,
-                                    _I, _P, _P, _I, _P, _P, _I, _I, _P]},
+                                    _I, _P, _P, _I, _P, _P, _I, _I, _I, _I,
+                                    _I, _I, _I, _I, _I, _I, _I, _P],
+        "brds_delta_rb_dual_spmv_info": [_I, _I, _P]},
     "rb_spmv_q8": {
         "brds_rb_spmv_q8": [_P, _P, _I, _I, _P, _P, _I, _I, _P, _I, _I, _P],
         "brds_rb_dual_parts_q8": [_P, _P, _I, _I, _P, _P, _I, _P, _P, _I, _I,

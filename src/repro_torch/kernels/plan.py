@@ -1,12 +1,14 @@
 """Launch plans of the persistent float scan (``csrc/fused_scan.cu``,
 ``fused_scan_kernel``), the fused q8 steps (``csrc/fused_step.cu``,
-``fused_step_q8_kernel``) and decode attention (``csrc/attention.cu``,
-``decode_cluster_kernel``): grid, hidden units a block, the shared-memory
-layout of the staged activations and the scratch they need, the slices,
-clusters and copy ring of decode attention, from the card's limits in
-plain arithmetic, so the CPU tests hold it. Also the occupancy arithmetic
-(blocks an SM from registers, threads and shared memory) and the waves a
-grid takes.
+``fused_step_q8_kernel``), the float temporal-delta steps
+(``fused_delta_staged_kernel``, ``csrc/delta_rb_spmv.cu``
+``delta_dual_staged_kernel``) and decode attention (``csrc/attention.cu``,
+``decode_cluster_kernel``): grid, hidden units or rows a block, the
+shared-memory layout of the staged activations and the scratch they need,
+the slices, clusters and copy ring of decode attention, from the card's
+limits in plain arithmetic, so the CPU tests hold it. Also the occupancy
+arithmetic (blocks an SM from registers, threads and shared memory) and
+the waves a grid takes.
 
 The wrappers pass the card's SM count; the other limits are Hopper's
 (H100: 65536 registers and 228 KB of shared memory an SM, 227 KB a
@@ -32,6 +34,7 @@ TILE = 16                   # batch rows a launch's tile (brds::kMaxBatch)
 SCAN_THREADS = 512          # fused_scan.cu kScanThreads
 SCAN_COLUMN = 128           # bytes a staged column takes (8 float4 pieces)
 Q8_THREADS = 512            # fused_step.cu kQ8Threads
+STREAM_THREADS = 512        # brds_common.cuh kStreamThreads (the delta steps)
 DEC_THREADS = 256           # attention.cu kDecThreads
 DEC_STREAMS = 16            # ... kStreams: key streams (half-warps) a block
 DEC_KEYS = 2                # ... kDecU: keys a stream takes a stage
@@ -234,3 +237,71 @@ def q8_plan(*, X: int, H: int, B: int, Kx: int, Kh: int, code_bytes: int,
                   slot_bits=slot_bits, shift_x=shift_x, shift_h=shift_h,
                   xpad=xpad, hpad=hpad,
                   smem=(codes if staged else 0) + zs)
+
+
+@dataclass(frozen=True)
+class DeltaPlan:
+    """One launch of a float temporal-delta step (every batch tile)."""
+    nb: int
+    tiles: int        # batch tiles of 16 rows (gridDim.y)
+    rows: int         # gate rows a block (the fused step: 4 x units)
+    grid: int         # blocks a tile (gridDim.x)
+    stage_x: bool     # dx * fx staged in shared memory (else gathered)
+    stage_h: bool     # dh * fh staged
+    slot_bits: int
+    shift_x: int
+    shift_h: int
+    xpad: int
+    hpad: int
+    smem: int
+
+    @property
+    def units(self) -> int:
+        """Hidden units a block of the fused step."""
+        return self.rows // 4
+
+
+@lru_cache(maxsize=256)
+def delta_plan(*, X: int, H: int, R: int, B: int, Kx: int, Kh: int,
+               fused: bool, sms: int = SMS,
+               smem_limit: int = SMEM_PER_BLOCK) -> DeltaPlan:
+    """The plan of the fused delta step (``fused``: R = 4H gate rows, a
+    block owns the four rows of ceil(H / sms) hidden units) or of the
+    delta dual SpMV (any R, a block owns 4 x ceil(R / 4 sms) contiguous
+    rows, the fused step's count at R = 4H): one block an SM, so one wave
+    a batch tile. A staged column is NB float32 (NB/4 16-byte pieces),
+    8 / (NB/4) columns a 128-byte bank row (``slot_bits``); lane l takes
+    entries l, l+32, ... of a row, so neighbouring lanes' columns lie
+    about ncols / K apart, the bits ``stage_pos`` moves down (``shift``;
+    0 at NB=4, where one piece a column and no shift spreads random
+    columns better than column order). Each family is staged if it fits
+    beside the sums (ax, ah: 2 x rows x NB float32), the one with more
+    entries a row first; the other is gathered from global memory."""
+    nb = tier(min(B, TILE))
+    tiles = -(-B // TILE)
+    if fused:
+        if R != 4 * H:
+            raise ValueError(f"the fused delta step has R = 4H rows, got "
+                             f"R={R}, H={H}")
+        rows = 4 * -(-H // sms)
+    else:
+        rows = 4 * -(-R // (4 * sms))
+    grid = -(-R // rows)
+    nq = nb // 4
+    slot_bits = int(math.log2(8 // nq))
+    shift_x = spacing_shift(X, Kx) if nb > 4 else 0
+    shift_h = spacing_shift(H, Kh) if nb > 4 else 0
+    xpad = staged_cols(X, shift_x, slot_bits)
+    hpad = staged_cols(H, shift_h, slot_bits)
+    vec = nb * 4
+    smem = 2 * rows * vec   # ax, ah
+    staged = set()
+    for fam, n, _ in sorted((("x", xpad, Kx), ("h", hpad, Kh)),
+                            key=lambda f: -f[2]):
+        if smem + n * vec <= smem_limit:
+            staged.add(fam)
+            smem += n * vec
+    return DeltaPlan(nb=nb, tiles=tiles, rows=rows, grid=grid,
+                     stage_x="x" in staged, stage_h="h" in staged,
+                     slot_bits=slot_bits, shift_x=shift_x, shift_h=shift_h,
+                     xpad=xpad, hpad=hpad, smem=smem)

@@ -1,8 +1,9 @@
 """Phase profiles of the multi-token scan (``fused_brds_lstm_scan``), the
 fused q8 and delta-q8 steps (``fused_brds_lstm_step_q8``,
-``fused_brds_delta_lstm_step_q8``) and decode attention
-(``decode_attention``) on the card, by variants that each skip one
-phase.
+``fused_brds_delta_lstm_step_q8``), the temporal-delta steps
+(``fused_brds_delta_lstm_step``, ``delta_rb_dual_spmv``) and decode
+attention (``decode_attention``) on the card, by variants that each skip
+one phase.
 
     PYTHONPATH=src python -m repro_torch.launch.profile_kernels [--steps 32]
         [--batch 8] [--width 1500]
@@ -31,6 +32,13 @@ read); and the full step with its
 activation codes staged in the plan's permuted column order
 (``plan.stage_pos``) and in plain column order, alternated twice. The
 fused delta-q8 step on the same codes takes ``full`` and ``neither``.
+The fused delta step and the delta dual SpMV on the float weights
+(``profile_delta``): ``full`` (every column fired), ``neither`` (both
+families empty: the launch, m's read and write, the cells, the staging),
+``none fired`` (every mask 0: the same bytes, no product that counts),
+``full`` with the L2 left warm, and three layouts of the same step that
+must give its bits: nothing staged, columns staged in order, and the
+staging's one-column-a-thread form.
 Decode attention at the qwen3-0.6b serve shape: the full call, one slice
 a pair, the length as a host constant, lengths of 1, the full call after
 an L2 flush by a read, and the launch plan's slices x ring stages, beside
@@ -49,10 +57,11 @@ import torch
 
 from ..core import pack_from_dense, pad_packed
 from ..kernels import decode_attention as kdec
+from ..kernels import delta_rb_spmv as kdelta
 from ..kernels import fused_scan as kscan
 from ..kernels import fused_step as kstep
 from ..kernels._build import time_ms
-from ..kernels.plan import Q8Plan, staged_cols
+from ..kernels.plan import DeltaPlan, Q8Plan, staged_cols
 from ..quant import parse_scheme, quantize, quantize_packed
 
 
@@ -153,6 +162,90 @@ def profile_decode(dev, flush) -> dict:
         print(f"  decode {key:20} " + ", ".join(
             f"{name} {ms:.4f}" for name, ms in r.items()) + " ms",
               flush=True)
+    return out
+
+
+@contextmanager
+def delta_planned_as(change):
+    """The float delta steps (B4, B5) launched on ``change(plan)`` instead
+    of their plan."""
+    planned = kdelta.delta_plan_for
+
+    def plan_for(*a, **k):
+        return change(planned(*a, **k))
+    kdelta.delta_plan_for = kstep.delta_plan_for = plan_for
+    try:
+        yield
+    finally:
+        kdelta.delta_plan_for = kstep.delta_plan_for = planned
+
+
+def _gathered(p: DeltaPlan) -> DeltaPlan:
+    return replace(p, stage_x=False, stage_h=False, smem=8 * p.rows * p.nb)
+
+
+def _in_order(p: DeltaPlan, X: int, H: int) -> DeltaPlan:
+    xpad, hpad = (staged_cols(n, 0, p.slot_bits) for n in (X, H))
+    return replace(p, shift_x=0, shift_h=0, xpad=xpad, hpad=hpad,
+                   smem=(xpad + hpad + 2 * p.rows) * p.nb * 4)
+
+
+def _misaligned(t: torch.Tensor) -> torch.Tensor:
+    """A contiguous copy of ``t`` that starts 4 bytes past a 16-byte
+    boundary (the staging then takes one column a thread)."""
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    out = buf[1:].view_as(t)
+    out.copy_(t)
+    return out
+
+
+def profile_delta(sx, sh, B: int, bias, c0, rand, flush) -> dict:
+    """The fused delta step (B5) and the delta dual SpMV (B4) on packed Sx,
+    Sh with random deltas: ``full`` (every mask 1, the Θ = 0 serve
+    path), ``neither`` (both families empty), ``none fired`` (every mask
+    0), ``full`` with the L2 warm (no flush between runs), and the full
+    step with nothing staged (both families gathered from global memory),
+    with the columns staged in order (shift 0) and with d and f misaligned
+    (the staging's one-column-a-thread form); the last three must give the
+    full step's bits."""
+    X, H = sx.ncols, sh.ncols
+    dx, dh, m = rand(B, X, sc=0.5), rand(B, H, sc=0.3), rand(B, 4 * H)
+    ones = (torch.ones_like(dx), torch.ones_like(dh))
+    zeros = (torch.zeros_like(dx), torch.zeros_like(dh))
+    empty = [(s.values[:, :0].contiguous(), s.deltas[:, :0].contiguous())
+             for s in (sx, sh)]
+    full = [(s.values, s.deltas) for s in (sx, sh)]
+    odd = tuple(_misaligned(t) for t in (dx, ones[0], dh, ones[1]))
+    # name: (families, (dx, fx, dh, fh), plan change, bitwise the full run)
+    variants = {
+        "full": (full, (dx, ones[0], dh, ones[1]), None, False),
+        "neither": (empty, (dx, ones[0], dh, ones[1]), None, False),
+        "none fired": (full, (dx, zeros[0], dh, zeros[1]), None, False),
+        "gathered": (full, (dx, ones[0], dh, ones[1]), _gathered, True),
+        "columns in order": (full, (dx, ones[0], dh, ones[1]),
+                             lambda p: _in_order(p, X, H), True),
+        "scalar staging": (full, odd, None, True)}
+    out = {}
+    for kname, kern, tail in (
+            ("fused delta step", kstep.fused_brds_delta_lstm_step,
+             (m, bias, c0)),
+            ("delta dual spmv", kdelta.delta_rb_dual_spmv, (m,))):
+        want = None
+        for name, (fam, acts, change, same) in variants.items():
+            def run(kern=kern, fam=fam, acts=acts, tail=tail):
+                return kern(*fam[0], *acts[:2], *fam[1], *acts[2:], *tail)
+            with delta_planned_as(change) if change else nullcontext():
+                got = run()
+                out[f"{kname} {name}"] = dict(ms=time_ms(run, flush))
+            if name == "full":
+                want = got
+                out[f"{kname} full, L2 warm"] = dict(ms=time_ms(run))
+            if same and not all(torch.equal(a, b) for a, b in zip(
+                    got if isinstance(got, tuple) else (got,),
+                    want if isinstance(want, tuple) else (want,))):
+                raise SystemExit(f"{kname} {name}: not the full step's bits")
+        for key in [k for k in out if k.startswith(kname)]:
+            print(f"  {key:32} {out[key]['ms']:.4f} ms", flush=True)
     return out
 
 
@@ -285,6 +378,9 @@ def main(argv=None) -> int:
             out[key] = dict(ms=time_ms(dstep, flush))
             print(f"  fused delta-q8 step {spec:5} {name:8} "
                   f"{out[key]['ms']:.4f} ms", flush=True)
+    print(f"delta steps X=H={W}, B={B}, Kx={sx.K}, Kh={sh.K}; CUDA events, "
+          "median of 30, L2 flushed", flush=True)
+    out.update(profile_delta(sx, sh, B, bias, c0, rand, flush))
     out.update(profile_decode(dev, flush))
     print(json.dumps({"card": card, "T": T, "B": B, "width": W,
                       "times": out}), flush=True)

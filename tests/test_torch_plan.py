@@ -196,26 +196,33 @@ def test_packed_q8_arrays_start_aligned(hidden, spec):
                 _build.require_aligned(t, f"{key} {name}")
 
 
-def _bank_load(ncols, K, per_lane, lanes, slot_bits, shift, rows=48):
+def _bank_load(ncols, K, per_lane, lanes, slot_bits, shift, rows=48,
+               pieces=1, rotate=False):
     """Mean over a warp's shared loads of the largest number of lanes of
     one phase (``lanes`` lanes) on one slot of a bank row (2^slot_bits
-    slots), gathering the staged activations of random row-balanced rows
-    (K of ncols columns) at stage_pos(col, shift): the wavefronts a load
-    takes, 1 at best. Lane l takes entries l, l+32, ... (per_lane 1: the
-    float scan) or chunks of four consecutive entries (per_lane 4: the
-    fused q8 step, one load a chunk entry)."""
+    slots of ``pieces`` load-wide pieces), gathering the staged
+    activations of random row-balanced rows (K of ncols columns) at
+    stage_pos(col, shift): the wavefronts a load takes, 1 at best. Lane l
+    takes entries l, l+32, ... (per_lane 1: the float scan and delta steps)
+    or chunks of four consecutive entries (per_lane 4: the fused q8 step,
+    one load a chunk entry). A column of several pieces (the delta steps'
+    NB floats, NB/4 16-byte pieces) takes one load a piece, lane l's j-th
+    load piece (j + l) % pieces when ``rotate``, else piece j."""
     rng = np.random.default_rng(0)
     loads = []
+    lane = np.arange(32)
     for _ in range(rows):
         cols = np.sort(rng.choice(ncols, K, replace=False))
         step = 32 * per_lane
         for u in range(K // step):
             block = cols[u * step:(u + 1) * step].reshape(32, per_lane)
             for i in range(per_lane):
-                slot = P.stage_pos(block[:, i], shift, slot_bits) \
-                    % (1 << slot_bits)
-                for ph in range(0, 32, lanes):
-                    loads.append(np.bincount(slot[ph:ph + lanes]).max())
+                pos = P.stage_pos(block[:, i], shift, slot_bits)
+                for j in range(pieces):
+                    piece = (j + lane * rotate) % pieces
+                    slot = (pos * pieces + piece) % (pieces << slot_bits)
+                    for ph in range(0, 32, lanes):
+                        loads.append(np.bincount(slot[ph:ph + lanes]).max())
     return float(np.mean(loads))
 
 
@@ -238,6 +245,81 @@ def test_stage_pos_spreads_the_q8_steps_gathers():
         assert 1.9 < ident < 2.5
         assert min(_bank_load(1500, K, 1, 8, 3, s) for s in (1, 2, 3)) \
             > 0.97 * ident
+
+
+@pytest.mark.parametrize("nb", [4, 8, 16])
+def test_delta_plan_stages_both_families_with_the_fitting_layout(nb):
+    """The float delta steps' staged layout (a column's NB float32 at
+    stage_pos, NB/4 16-byte pieces, 16-byte loads in phases of 8 lanes)
+    at lstm_ptb's rows: reading piece (j + lane) % (NB/4), with the plan's
+    shift, meets about two lanes a slot (random columns: no layout reaches
+    one) against three to five unrotated in column order; at NB=4 (one
+    piece) the plan keeps columns in order, which no shift beats."""
+    B = {4: 4, 8: 8, 16: 16}[nb]
+    p = P.delta_plan(B=B, R=4 * PTB["H"], fused=True, **PTB)
+    nq = nb // 4
+    assert p.nb == nb and (8 // nq) == 1 << p.slot_bits
+    for K, shift in ((PTB["Kx"], p.shift_x), (PTB["Kh"], p.shift_h)):
+        load = lambda s, rot: _bank_load(1500, K, 1, 8, p.slot_bits, s,
+                                         rows=16, pieces=nq, rotate=rot)
+        got = load(shift, True)
+        assert got < 2.5
+        if nb > 4:
+            assert got < 0.7 * load(0, False)
+            assert shift == P.spacing_shift(1500, K)
+        else:
+            assert shift == 0
+            assert got <= min(load(s, True) for s in (1, 2))
+
+
+@pytest.mark.parametrize("B,tiles", [(1, 1), (3, 1), (8, 1), (12, 1),
+                                     (16, 1), (64, 4)])
+@pytest.mark.parametrize("fused", [True, False])
+def test_delta_plan_is_one_wave_a_batch_tile(B, tiles, fused):
+    """The fused delta step (B5) and the delta dual SpMV (B4) at lstm_ptb's
+    shapes: both families staged at every batch tier (NB 4, 8, 16), within
+    227 KB, one block an SM at up to 128 registers (the kernels' launch
+    bounds), so a batch tile is one wave; 48 gate rows a block (12 hidden
+    units, 125 blocks) for both, B4 owning contiguous rows."""
+    p = P.delta_plan(B=B, R=4 * PTB["H"], fused=fused, **PTB)
+    assert p.stage_x and p.stage_h and p.tiles == tiles
+    assert p.nb == P.tier(min(B, P.TILE))
+    assert p.smem <= P.SMEM_PER_BLOCK
+    assert p.smem == (p.xpad + p.hpad) * p.nb * 4 + 2 * p.rows * p.nb * 4
+    per_sm = P.blocks_per_sm(128, P.STREAM_THREADS, p.smem)
+    assert per_sm >= 1 and P.waves(p.grid * p.tiles, per_sm) == tiles
+    assert (p.rows, p.units, p.grid) == (48, 12, 125)
+    assert p.xpad >= PTB["X"] and p.hpad >= PTB["H"]
+
+
+def test_delta_plan_gathers_the_family_that_does_not_fit():
+    """chip_smoke's tall shape (B=12, X=64, H=4000): 4000 columns of 64
+    bytes do not fit, so h is gathered from global memory and x staged;
+    the wide one (X=33000, H=97) gathers x and stages h. A family is never
+    staged past the block's limit, and the one with more entries a row
+    takes the room first."""
+    p = P.delta_plan(X=64, H=4000, R=16000, B=12, Kx=16, Kh=2000,
+                     fused=True)
+    assert p.stage_x and not p.stage_h and p.nb == 16
+    assert p.smem == p.xpad * 64 + 2 * p.rows * 64 <= P.SMEM_PER_BLOCK
+    p = P.delta_plan(X=33000, H=97, R=388, B=12, Kx=8250, Kh=49,
+                     fused=False)
+    assert not p.stage_x and p.stage_h
+    # room for one 1500-wide family at NB=16 but not two: Sh (750 a row)
+    p = P.delta_plan(B=16, R=6000, fused=True, smem_limit=120000, **PTB)
+    assert p.stage_h and not p.stage_x and p.smem <= 120000
+
+
+@pytest.mark.parametrize("R", [1, 4, 97, 388, 1000, 6000, 6001, 16000])
+def test_delta_dual_plan_rows_cover_any_R(R):
+    """B4 takes any R: 4 x ceil(R / 4 SMs) contiguous rows a block, at most
+    one block an SM, the last block partial."""
+    p = P.delta_plan(X=300, H=200, R=R, B=8, Kx=75, Kh=100, fused=False)
+    assert p.rows % 4 == 0 and p.grid <= P.SMS
+    assert p.rows * p.grid >= R > p.rows * (p.grid - 1)
+    with pytest.raises(ValueError):
+        P.delta_plan(X=300, H=200, R=R, B=8, Kx=75, Kh=100,
+                     fused=True)   # the fused step has R = 4H = 800
 
 
 # qwen3-0.6b's decode: B=8, 16 q / 8 kv heads of 128, bf16, max_len 1024
