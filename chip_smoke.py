@@ -5,30 +5,31 @@
 
 1. Prints the card (``nvidia-smi``), the torch / CUDA versions, and builds
    every CUDA kernel from ``src/repro_torch/csrc`` (one nvcc per source, all
-   started together); for the redesigned float scan, fused q8, delta-q8
-   and float delta steps and delta dual SpMV at the serve tier and decode
-   attention at qwen3-0.6b's decode shape, prints ptxas's registers and
-   spills, the local bytes, shared memory, blocks an SM and waves at the
-   launch's grid (decode: its cluster size too), and fails on a spill, a
-   local array or (but for decode) a second wave.
+   started together); for the redesigned float scan, fused q8, delta-q8,
+   float and float delta steps and float and delta dual SpMVs at the serve
+   tier and decode attention at qwen3-0.6b's decode shape, prints ptxas's
+   registers and spills, the local bytes, shared memory, blocks an SM and
+   waves at the launch's grid (decode: its cluster size too), and fails on
+   a spill, a local array or (but for decode) a second wave.
 2. Kernels: calls each kernel's wrapper at the serve path's full-width
    shapes (lstm_ptb, B=8, int16 deltas), at a small shape (B=3, int8
    deltas, odd H: the fused kernels' partial last block), at a wide one
    (B=12: the 16-accumulator tier; int32 deltas for W_x; too wide for the
    float scan and the q8 step to stage x in shared memory) and at a tall
-   one (B=12, H=4000: too wide for the float scan and the float delta
-   pair to stage h; the delta pair once more at X=70000, past the 65535
-   columns its packed column scans take), holds it
-   against its plain PyTorch version on the same inputs, holds each fused
-   step bitwise against its chained kernels, and times the kernel, the plain
-   version and the dense library call with L2 flushed. The float kernels
+   one (B=12, H=4000: too wide for the float scan and the staged float
+   kernels to stage h; the float and float delta pairs once more at
+   X=70000, past the 65535 columns their packed column scans take), holds
+   it against its plain PyTorch version on the same inputs, holds each
+   fused step bitwise against its chained kernels, and times the kernel,
+   the plain version and the dense library call with L2 flushed. The float kernels
    (rb_dual_spmv, lstm_gates, fused step), the temporal-delta ones
    (delta_rb_dual_spmv, fused delta step, delta_rb_spmv) at a fired share
    of about 50% and at 100%, the quantized ones (rb_dual_parts_q8, fused
    q8 step, rb_spmv_q8) with int8 and with q1.11 (int16) codes, the fused
    delta-q8 step on both code types and fired shares (and at B=1, 16 and
-   64, as the fused q8 step and the float delta pair), and the
-   single-family float rb_spmv; the q8 partial sums, rb_spmv_q8 and the
+   64, as the fused q8 step and the float and float delta pairs), and the
+   single-family float rb_spmv, whose two sums plus the bias must equal
+   rb_dual_spmv bit for bit; the q8 partial sums, rb_spmv_q8 and the
    fused delta-q8 step's m' must equal the plain version's exactly. The
    multi-token scans over T=32 steps (the serve prompt), float and
    temporal delta (Θ=0 and 0.05), must be bitwise equal to T launches of
@@ -245,8 +246,12 @@ REDESIGNED = {"fused_scan_kernelILi8ELb1ELb1E":
               "fused_step_q8_kernel<int8, 8, staged, delta> (B9 int8)",
               "fused_step_q8_kernelIsLi8ELb0ELb1ELb1EE":
               "fused_step_q8_kernel<int16, 8, staged, delta> (B9 q1.11)",
-              "fused_delta_staged_kernelILi8ELb0EE":
-              "fused_delta_staged_kernel<8> (B5)",
+              "fused_staged_kernelILi8ELb0ELb0EE":
+              "fused_staged_kernel<8> (B3)",
+              "rb_dual_staged_kernelILi8ELb0EE":
+              "rb_dual_staged_kernel<8> (B1)",
+              "fused_staged_kernelILi8ELb0ELb1EE":
+              "fused_staged_kernel<8, delta> (B5)",
               "delta_dual_staged_kernelILi8ELb0EE":
               "delta_dual_staged_kernel<8> (B4)",
               "decode_cluster_kernelI13__nv_bfloat16Li128ELi2EE":
@@ -273,8 +278,8 @@ def ptxas_redesigned(out: str) -> dict:
 
 
 def occupancy(torch, device) -> None:
-    """Prints, for the redesigned B12, B8 and B9 (int8, q1.11), B5 and B4
-    instantiations at the serve tier (B=8, int16 deltas) and B14's at
+    """Prints, for the redesigned B12, B8 and B9 (int8, q1.11), B3, B1, B5
+    and B4 instantiations at the serve tier (B=8, int16 deltas) and B14's at
     qwen3-0.6b's decode shape: ptxas's registers and spill bytes, the
     launch plan's dynamic shared memory and grid, and the blocks an SM and
     waves the runtime's occupancy calculator gives at that grid (beside the
@@ -283,12 +288,13 @@ def occupancy(torch, device) -> None:
     run in one wave."""
     from repro_torch.kernels import _build
     from repro_torch.kernels import decode_attention as kdec
-    from repro_torch.kernels import delta_rb_spmv as kdelta
     from repro_torch.kernels import fused_scan as kscan
     from repro_torch.kernels import fused_step as kstep
     from repro_torch.kernels import plan as P
+    from repro_torch.kernels import rb_spmv as krb
     ptx = {}
-    for src in ("fused_scan", "fused_step", "delta_rb_spmv", "attention"):
+    for src in ("fused_scan", "fused_step", "rb_spmv", "delta_rb_spmv",
+                "attention"):
         ptx.update(ptxas_redesigned(_build.BUILD_LOG.get(src, "")))
     sms = _build.sm_count(device)
     B, X, H, Kx, Kh = SERVE["batch"], 1500, 1500, 375, 750
@@ -303,12 +309,16 @@ def occupancy(torch, device) -> None:
                        delta=bool(delta), sms=sms)
         rows.append((key, qp, P.Q8_THREADS,
                      kstep.q8_info(qp, B, cb, device, delta=bool(delta))))
-    for key, fused in (("fused_delta_staged_kernelILi8ELb0EE", True),
-                       ("delta_dual_staged_kernelILi8ELb0EE", False)):
-        lp = P.delta_plan(X=X, H=H, R=4 * H, B=B, Kx=Kx, Kh=Kh, fused=fused,
-                          sms=sms)
+    for key, fused, delta in (
+            ("fused_staged_kernelILi8ELb0ELb0EE", True, False),
+            ("rb_dual_staged_kernelILi8ELb0EE", False, False),
+            ("fused_staged_kernelILi8ELb0ELb1EE", True, True),
+            ("delta_dual_staged_kernelILi8ELb0EE", False, True)):
+        lp = P.stream_plan(X=X, H=H, R=4 * H, B=B, Kx=Kx, Kh=Kh, fused=fused,
+                           sms=sms)
         rows.append((key, lp, P.STREAM_THREADS,
-                     kdelta.delta_info(lp, B, device, fused=fused)))
+                     krb.stream_info(lp, B, device, fused=fused,
+                                     delta=delta)))
     # B14 at the qwen3-0.6b decode shape: B=8, 16 q / 8 kv heads of 128,
     # bf16, a 1024-row cache
     dp = P.decode_plan(B=TSERVE["batch"], Hkv=8, G=2, S=TSERVE["max_len"],
@@ -412,58 +422,32 @@ def check_kernels(torch, device, flush):
                      spar_h=0.5, seed=4)
     for tag, cs in (("full", full), ("small", small), ("wide", wide),
                     ("tall", tall)):
-        sx, sh, x, h, c, b, H = (cs[k] for k in
-                                 ("sx", "sh", "x", "h", "c", "bias", "H"))
+        sx, sh, H = cs["sx"], cs["sh"], cs["H"]
         log(f"[kernels] {tag}: B={cs['B']} X={cs['X']} H={H} R={sx.rows} "
             f"padded to {sx.values.shape[0]}, Kx={sx.K} Kh={sh.K}, deltas "
             f"{sx.deltas.dtype}/{sh.deltas.dtype}")
-        z_k = ops.rb_dual_spmv(sx, x, sh, h, b, backend="cuda")
-        z_r = ops.rb_dual_spmv(sx, x, sh, h, b, backend="ref")
-        torch.cuda.synchronize()
-        e = err("rb_dual_spmv", z_k, z_r, Z_TOL, tag)
-        log(f"  rb_dual_spmv   max|z err| {e:.3e} (tol {Z_TOL:.0e}: sums "
-            f"of {sx.K + sh.K} products in warp-tree vs sequential order)")
-        zs = [z_r[:, i * H:(i + 1) * H] for i in range(4)]
-        for pwl in (False, True):
-            ck, hk = ops.lstm_gates(*zs, c, pwl=pwl, backend="cuda")
-            cr, hr = ops.lstm_gates(*zs, c, pwl=pwl, backend="ref")
-            e = max(err("lstm_gates", ck, cr, CELL_TOL, f"{tag} c"),
-                    err("lstm_gates", hk, hr, CELL_TOL, f"{tag} h"))
-            log(f"  lstm_gates     pwl={pwl!s:5} max|c,h err| {e:.3e} "
-                f"(tol {CELL_TOL:.0e}: same z, libm vs CUDA expf/tanhf)")
-            cf, hf = ops.fused_brds_lstm_step(sx, x, sh, h, b, c, pwl=pwl,
-                                              backend="cuda")
-            cc, hc = ops.brds_lstm_step(sx, x, sh, h, b, c, pwl=pwl,
-                                        backend="cuda")
-            cp, hp = ops.fused_brds_lstm_step(sx, x, sh, h, b, c, pwl=pwl,
-                                              backend="ref")
-            torch.cuda.synchronize()
-            e = max(err("fused_brds_lstm_step", cf, cp, CELL_TOL,
-                        f"{tag} c"),
-                    err("fused_brds_lstm_step", hf, hp, CELL_TOL,
-                        f"{tag} h"))
-            if not (torch.equal(cf, cc) and torch.equal(hf, hc)):
-                raise AssertionError(f"fused step is not bitwise equal to "
-                                     f"the chained kernels ({tag}, pwl={pwl})")
-            log(f"  fused step     pwl={pwl!s:5} max|c,h err| {e:.3e} "
-                f"(tol {CELL_TOL:.0e}); bitwise equal to chained kernels")
+        check_float(torch, ops, err, tag, cs)
         check_delta(torch, ops, err, tag, cs)
         check_q8(torch, ops, ref, kq8, err, tag, cs)
         check_single(torch, ops, err, tag, cs)
         check_delta_q8(torch, ops, err, tag, cs)
         check_scans(torch, ops, err, tag, cs)
     check_batch_tiles(torch, ops, err)
-    # past 65535 columns the float delta pair scans one chunk of column
+    # past 65535 columns the staged float kernels scan one chunk of column
     # deltas a word (below, two): int32 deltas, x gathered
-    check_delta(torch, ops, err, "very wide", make_case(
-        torch, device, B=3, X=70000, H=64, spar_x=0.75, spar_h=0.5, seed=9))
-    # the fused q8 and delta-q8 steps (B8, B9) and the float delta pair
-    # (B4, B5) at the other batch tiers, full width: B=1 and 16 in one
-    # tile, 64 in four (rows of 375 and 750 entries, neither a multiple of
-    # the 4 entries a lane loads nor of the 32 a warp takes)
+    very_wide = make_case(torch, device, B=3, X=70000, H=64, spar_x=0.75,
+                          spar_h=0.5, seed=9)
+    check_float(torch, ops, err, "very wide", very_wide)
+    check_delta(torch, ops, err, "very wide", very_wide)
+    # the fused q8 and delta-q8 steps (B8, B9) and the float and float
+    # delta pairs (B1, B3, B4, B5) at the other batch tiers, full width:
+    # B=1 and 16 in one tile, 64 in four (rows of 375 and 750 entries,
+    # neither a multiple of the 4 entries a lane loads nor of the 32 a warp
+    # takes)
     for B in (1, 16, 64):
         cs = make_case(torch, device, B=B, X=1500, H=1500, spar_x=0.75,
                        spar_h=0.5, seed=6 + B)
+        check_float(torch, ops, err, f"full B={B}", cs)
         check_q8(torch, ops, ref, kq8, err, f"full B={B}", cs)
         check_delta_q8(torch, ops, err, f"full B={B}", cs)
         check_delta(torch, ops, err, f"full B={B}", cs)
@@ -546,6 +530,42 @@ def check_kernels(torch, device, flush):
             f"{time_ms(lib, flush):.4f} ms, bound {bms * 1e3:.2f} us "
             f"({by}) — median of 30, L2 flushed")
     return rec
+
+
+def check_float(torch, ops, err, tag, cs):
+    """rb_dual_spmv and lstm_gates against their plain versions, and the
+    fused step against its plain version and bitwise equal to
+    rb_dual_spmv -> lstm_gates, PWL off and on."""
+    sx, sh, x, h, c, b, H = (cs[k] for k in
+                             ("sx", "sh", "x", "h", "c", "bias", "H"))
+    z_k = ops.rb_dual_spmv(sx, x, sh, h, b, backend="cuda")
+    z_r = ops.rb_dual_spmv(sx, x, sh, h, b, backend="ref")
+    torch.cuda.synchronize()
+    e = err("rb_dual_spmv", z_k, z_r, Z_TOL, tag)
+    log(f"  rb_dual_spmv   max|z err| {e:.3e} (tol {Z_TOL:.0e}: sums "
+        f"of {sx.K + sh.K} products in warp-tree vs sequential order)")
+    zs = [z_r[:, i * H:(i + 1) * H] for i in range(4)]
+    for pwl in (False, True):
+        ck, hk = ops.lstm_gates(*zs, c, pwl=pwl, backend="cuda")
+        cr, hr = ops.lstm_gates(*zs, c, pwl=pwl, backend="ref")
+        e = max(err("lstm_gates", ck, cr, CELL_TOL, f"{tag} c"),
+                err("lstm_gates", hk, hr, CELL_TOL, f"{tag} h"))
+        log(f"  lstm_gates     pwl={pwl!s:5} max|c,h err| {e:.3e} "
+            f"(tol {CELL_TOL:.0e}: same z, libm vs CUDA expf/tanhf)")
+        cf, hf = ops.fused_brds_lstm_step(sx, x, sh, h, b, c, pwl=pwl,
+                                          backend="cuda")
+        cc, hc = ops.brds_lstm_step(sx, x, sh, h, b, c, pwl=pwl,
+                                    backend="cuda")
+        cp, hp = ops.fused_brds_lstm_step(sx, x, sh, h, b, c, pwl=pwl,
+                                          backend="ref")
+        torch.cuda.synchronize()
+        e = max(err("fused_brds_lstm_step", cf, cp, CELL_TOL, f"{tag} c"),
+                err("fused_brds_lstm_step", hf, hp, CELL_TOL, f"{tag} h"))
+        if not (torch.equal(cf, cc) and torch.equal(hf, hc)):
+            raise AssertionError(f"fused step is not bitwise equal to the "
+                                 f"chained kernels ({tag}, pwl={pwl})")
+        log(f"  fused step     pwl={pwl!s:5} max|c,h err| {e:.3e} "
+            f"(tol {CELL_TOL:.0e}); bitwise equal to chained kernels")
 
 
 def check_delta(torch, ops, err, tag, cs):
@@ -631,8 +651,8 @@ def check_single(torch, ops, err, tag, cs):
     families: rb_spmv and delta_rb_spmv (fired about 50% and 100%, the
     mask given as bool once) within Z_TOL, rb_spmv_q8 exactly equal with a
     static and a dynamic activation scale; and rb_spmv(Sx, x) + rb_spmv(Sh,
-    h) + bias against rb_dual_spmv (reported: one row routine, so 0 is
-    expected)."""
+    h) + bias bitwise equal to rb_dual_spmv (row_dot's order in both, and
+    the same adds)."""
     sx, sh, x, h, b, dx, dh = (cs[k] for k in ("sx", "sh", "x", "h", "bias",
                                                "dx", "dh"))
     ys = []
@@ -642,10 +662,13 @@ def check_single(torch, ops, err, tag, cs):
                 f"{tag} {fam}")
         ys.append(y)
         log(f"  rb_spmv        {fam} max|y err| {e:.3e} (tol {Z_TOL:.0e})")
-    d = (ys[0] + ys[1] + b[:sx.rows]) - ops.rb_dual_spmv(sx, x, sh, h, b,
-                                                        backend="cuda")
+    z = ops.rb_dual_spmv(sx, x, sh, h, b, backend="cuda")
+    d = (ys[0] + ys[1] + b[:sx.rows]) - z
     log(f"  rb_spmv(Sx, x) + rb_spmv(Sh, h) + bias vs rb_dual_spmv: "
-        f"max|diff| {d.abs().max().item():.3e}")
+        f"max|diff| {d.abs().max().item():.3e} (must be 0: bitwise)")
+    if not torch.equal(ys[0] + ys[1] + b[:sx.rows], z):
+        raise AssertionError(f"rb_spmv(Sx, x) + rb_spmv(Sh, h) + bias is not "
+                             f"bitwise rb_dual_spmv ({tag})")
     for share, (fx, fh) in cs["fired"].items():
         for fam, s, dv, f in (("Sx", sx, dx, fx.bool()), ("Sh", sh, dh, fh)):
             y = ops.delta_rb_spmv(s, dv, f, backend="cuda")

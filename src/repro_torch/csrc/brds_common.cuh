@@ -9,13 +9,16 @@
 //    warp takes entries l, l+32, ... and a butterfly over the warp adds the
 //    32 partial sums. Float and integer addition commute, so every lane ends
 //    with the same total. What a packed entry is multiplied by is a policy
-//    (F32Act, DeltaAct, CodeAct): one routine serves the float, the
-//    temporal-delta and the quantized kernels. The float scan
+//    (F32Act, DeltaAct, CodeAct): one routine serves the single-family
+//    kernels (rb_spmv, delta_rb_spmv, rb_spmv_q8), the chained q8 pair
+//    (rb_dual_parts_q8) and the delta scan. The float scan
 //    (fused_scan.cu) keeps this order with its operands moved: columns
 //    decoded once, activations staged in shared memory.
 //  - row_dot_stream keeps row_dot's order with the operands moved (the
-//    float delta steps): activations staged in shared memory, a warp's
-//    rows streamed with their next loads in flight.
+//    float steps and dual SpMV, fused_step.cu and rb_spmv.cu, and their
+//    delta forms, fused_step.cu and delta_rb_spmv.cu: stream_rows_block):
+//    x and h, or the masked deltas, staged in shared memory, a warp's rows
+//    streamed with their next loads in flight.
 //  - row_dot_q8x4 is the integer-code row of the fused q8 step: each lane
 //    takes four consecutive entries (one load of codes, one of deltas),
 //    and __dp4a multiplies int8 codes four at a time. Integer sums are
@@ -46,6 +49,16 @@ constexpr int kWarp = 32;
 // co-resident, take one tile a launch.
 constexpr int kMaxBatch = 16;
 constexpr int kSeg = 16;   // PWL segments; LUT rows: a_sig, b_sig, a_tanh, b_tanh
+
+// The batch rows of this block's tile (blockIdx.y), and a batch-major
+// pointer (leading dim ld) moved to the tile's first row.
+__device__ __forceinline__ int tile_batch(int B) {
+  return min(B - static_cast<int>(blockIdx.y) * kMaxBatch, kMaxBatch);
+}
+template <typename T>
+__device__ __forceinline__ T* tile_rows(T* p, int ld) {
+  return p + static_cast<size_t>(blockIdx.y) * kMaxBatch * ld;
+}
 
 // Gather/multiply policies of row_dot: the packed value type W, the
 // accumulator Acc, and mac(acc, v, b, col), which adds the product of one
@@ -502,11 +515,12 @@ __device__ __forceinline__ void row_dot_q8x4(
 
 // ------------------------------------------- row_dot's order, streamed
 //
-// row_dot_stream is row_dot with its operands moved (the float delta
-// steps, B4 and B5, run on it): the activations a packed entry multiplies
-// come from shared memory, a column's NB floats staged once a block at
+// row_dot_stream is row_dot with its operands moved (the float steps and
+// dual SpMV, B3 and B1, and their delta forms, B5 and B4, run on it): the
+// operand a packed entry multiplies (x or h, or the masked deltas) comes
+// from shared memory, a column's NB floats staged once a block at
 // stage_pos, or, for a family too wide to stage, from global memory as
-// row_dot gathers them; a warp's rows are one stream of G-chunk groups
+// row_dot gathers it; a warp's rows are one stream of G-chunk groups
 // (32 entries a chunk) whose values and deltas are loaded before the group
 // ahead of them is used, across family and row boundaries, so a warp
 // always has loads in flight. The sums keep row_dot's order bit for bit:
@@ -579,8 +593,8 @@ struct StagedF32 {
   }
 };
 
-// A family gathered from global memory by a row_dot policy (DeltaAct for
-// the masked deltas: __fmul_rn(d, f)), as row_dot gathers it.
+// A family gathered from global memory by a row_dot policy (F32Act for x
+// and h, DeltaAct for the masked deltas), as row_dot gathers it.
 template <int NB, typename Op>
 struct Gathered {
   Op op;
@@ -593,39 +607,81 @@ struct Gathered {
   }
 };
 
-// Stages columns [0, n) of a masked-delta family (B, n): column c's NB
-// products __fmul_rn(d[b, c], f[b, c]), DeltaAct's operand bit for bit
-// (zero past B), at stage_pos(c). Up to 8 batch rows a thread takes four
-// columns with one 16-byte load of d and one of f a row where the rows
-// allow it (n a multiple of 4, d and f 16-byte aligned), else one column
-// (16 rows of four columns would not leave the registers for it).
-template <int NB>
-__device__ __forceinline__ void stage_delta(float4* s,
-                                            const float* __restrict__ d,
-                                            const float* __restrict__ f,
-                                            int n, int B, int shift,
-                                            int slot_bits) {
+// The operand of a streamed family's entries, as a policy over its (B, n)
+// arrays: the activations themselves (F32Src, x or h: the float steps) or
+// the masked deltas (DeltaSrc, __fmul_rn(d, f): the float delta steps).
+// Each gives the row_dot policy that gathers it (Gather, `gather(ld)`),
+// element i (`at`), elements 4 i4 .. 4 i4 + 3 (`at4`, 16-byte loads, when
+// `aligned`; zeros when not `live`), and moves itself to the block's batch
+// tile (`tile`).
+struct F32Src {
+  using Gather = F32Act;
+  const float* a;
+  __device__ __forceinline__ F32Act gather(int ld) const { return {a, ld}; }
+  __device__ __forceinline__ bool aligned() const {
+    return (reinterpret_cast<uintptr_t>(a) & 15) == 0;
+  }
+  __device__ __forceinline__ float at(size_t i) const { return __ldg(a + i); }
+  __device__ __forceinline__ float4 at4(bool live, size_t i4) const {
+    return live ? __ldg(reinterpret_cast<const float4*>(a) + i4)
+                : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+  }
+  __device__ __forceinline__ void tile(int ld) { a = tile_rows(a, ld); }
+};
+
+struct DeltaSrc {
+  using Gather = DeltaAct;
+  const float* d;
+  const float* f;
+  __device__ __forceinline__ DeltaAct gather(int ld) const {
+    return {d, f, ld};
+  }
+  __device__ __forceinline__ bool aligned() const {
+    return ((reinterpret_cast<uintptr_t>(d) |
+             reinterpret_cast<uintptr_t>(f)) & 15) == 0;
+  }
+  __device__ __forceinline__ float at(size_t i) const {
+    return __fmul_rn(__ldg(d + i), __ldg(f + i));
+  }
+  // the loads under the branch, the products after it (zeros when not
+  // live): forming them inside it compiled to a slower staging on the H100
+  __device__ __forceinline__ float4 at4(bool live, size_t i4) const {
+    float4 a = make_float4(0.0f, 0.0f, 0.0f, 0.0f), m = a;
+    if (live) {
+      a = __ldg(reinterpret_cast<const float4*>(d) + i4);
+      m = __ldg(reinterpret_cast<const float4*>(f) + i4);
+    }
+    return make_float4(__fmul_rn(a.x, m.x), __fmul_rn(a.y, m.y),
+                       __fmul_rn(a.z, m.z), __fmul_rn(a.w, m.w));
+  }
+  __device__ __forceinline__ void tile(int ld) {
+    d = tile_rows(d, ld);
+    f = tile_rows(f, ld);
+  }
+};
+
+// Stages columns [0, n) of a family's operand (B, n): column c's NB values,
+// the gather policy's operand bit for bit (zero past B), at stage_pos(c).
+// Up to 8 batch rows a thread takes four columns with one 16-byte load a
+// row (of each array the operand reads) where the rows allow it (n a
+// multiple of 4, the arrays 16-byte aligned), else one column (16 rows of
+// four columns would not leave the registers for it).
+template <int NB, typename Src>
+__device__ __forceinline__ void stage_family(float4* s, const Src& src,
+                                             int n, int B, int shift,
+                                             int slot_bits) {
   constexpr int NQ = NB / 4;
-  const bool vec = NB <= 8 && (n & 3) == 0 &&
-                   ((reinterpret_cast<uintptr_t>(d) |
-                     reinterpret_cast<uintptr_t>(f)) & 15) == 0;
-  if (vec) {
+  if (NB <= 8 && (n & 3) == 0 && src.aligned()) {
     const int n4 = n / 4;
-    const float4* d4 = reinterpret_cast<const float4*>(d);
-    const float4* f4 = reinterpret_cast<const float4*>(f);
     for (int c4 = threadIdx.x; c4 < n4; c4 += blockDim.x) {
       float v[4][NB];
 #pragma unroll
       for (int b = 0; b < NB; ++b) {
-        float4 a = make_float4(0.0f, 0.0f, 0.0f, 0.0f), m = a;
-        if (b < B) {
-          a = __ldg(d4 + (size_t)b * n4 + c4);
-          m = __ldg(f4 + (size_t)b * n4 + c4);
-        }
-        v[0][b] = __fmul_rn(a.x, m.x);
-        v[1][b] = __fmul_rn(a.y, m.y);
-        v[2][b] = __fmul_rn(a.z, m.z);
-        v[3][b] = __fmul_rn(a.w, m.w);
+        const float4 a = src.at4(b < B, (size_t)b * n4 + c4);
+        v[0][b] = a.x;
+        v[1][b] = a.y;
+        v[2][b] = a.z;
+        v[3][b] = a.w;
       }
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
@@ -642,9 +698,7 @@ __device__ __forceinline__ void stage_delta(float4* s,
     float v[NB];
 #pragma unroll
     for (int b = 0; b < NB; ++b)
-      v[b] = b < B ? __fmul_rn(__ldg(d + (size_t)b * n + c),
-                               __ldg(f + (size_t)b * n + c))
-                   : 0.0f;
+      v[b] = b < B ? src.at((size_t)b * n + c) : 0.0f;
     float4* dst = s + (size_t)stage_pos(c, shift, slot_bits) * NQ;
 #pragma unroll
     for (int q = 0; q < NQ; ++q)
@@ -897,63 +951,53 @@ __device__ __forceinline__ void lstm_cell(float zf, float zi, float zg,
   *h_out = __fmul_rn(o, act_tanh(c, p));
 }
 
-// The batch rows of this block's tile (blockIdx.y), and a batch-major
-// pointer (leading dim ld) moved to the tile's first row.
-__device__ __forceinline__ int tile_batch(int B) {
-  return min(B - static_cast<int>(blockIdx.y) * kMaxBatch, kMaxBatch);
-}
-template <typename T>
-__device__ __forceinline__ T* tile_rows(T* p, int ld) {
-  return p + static_cast<size_t>(blockIdx.y) * kMaxBatch * ld;
-}
-
-// A temporal-delta step's inputs: the two packed families, their raw
-// deltas d and 0/1 fired masks f (B, X) and (B, H), and the staged layout
-// of kernels/plan.py::delta_plan (which families are staged, stage_pos's
-// shifts and slot bits, the padded column counts).
-struct DeltaIn {
+// A staged float kernel's inputs: the two packed families, the operand of
+// each (Src: x (B, X) and h (B, H), or the masked deltas), and the staged
+// layout of kernels/plan.py::stream_plan (which families are staged,
+// stage_pos's shifts and slot bits, the padded column counts).
+template <typename Src>
+struct StreamIn {
   const float* vx;
   const void* ix;
   int ixb, kx;
-  const float* dx;
-  const float* fx;
+  Src ax;
   int X;
   const float* vh;
   const void* ih;
   int ihb, kh;
-  const float* dh;
-  const float* fh;
+  Src ah;
   int H;
   int B;
   int stage_x, stage_h, shift_x, shift_h, slot_bits, xpad, hpad;
 };
 
-// The input pointers moved to the block's batch tile (blockIdx.y).
-__device__ __forceinline__ void tile_delta_in(DeltaIn& in) {
-  in.dx = tile_rows(in.dx, in.X);
-  in.fx = tile_rows(in.fx, in.X);
-  in.dh = tile_rows(in.dh, in.H);
-  in.fh = tile_rows(in.fh, in.H);
+// The operands moved to the block's batch tile (blockIdx.y).
+template <typename Src>
+__device__ __forceinline__ void tile_stream_in(StreamIn<Src>& in) {
+  in.ax.tile(in.X);
+  in.ah.tile(in.H);
   in.B = tile_batch(in.B);
 }
 
 // Float4s of dynamic shared memory the staged families take.
-__device__ __forceinline__ size_t staged_float4s(const DeltaIn& in, int NB) {
+template <typename Src>
+__device__ __forceinline__ size_t staged_float4s(const StreamIn<Src>& in,
+                                                 int NB) {
   return ((in.stage_x ? (size_t)in.xpad : 0) +
           (in.stage_h ? (size_t)in.hpad : 0)) * (NB / 4);
 }
 
-// The gate-stage sums of a delta step over a block's rows: issues each
-// warp's first loads, stages the masked deltas of each family the plan
+// The gate-stage sums of a staged float kernel over a block's rows: issues
+// each warp's first loads, stages the operand of each family the plan
 // stages, then runs the warps' rows (local row i < nrows at packed row
 // row_of(i), warp w taking w, w + 16, ...) through row_dot_stream and
-// leaves row i's sums Sx@(fx dx) in zx[i * NB + b] and Sh@(fh dh) in
-// zh[i * NB + b] for b < B. Ends with a barrier.
-template <int NB, typename RowOf>
-__device__ __forceinline__ void delta_rows_block(const DeltaIn& in,
-                                                 float4* smem, int nrows,
-                                                 const RowOf& row_of,
-                                                 float* zx, float* zh) {
+// leaves row i's sums Sx@ax in zx[i * NB + b] and Sh@ah in zh[i * NB + b]
+// for b < B. Ends with a barrier.
+template <int NB, typename Src, typename RowOf>
+__device__ __forceinline__ void stream_rows_block(const StreamIn<Src>& in,
+                                                  float4* smem, int nrows,
+                                                  const RowOf& row_of,
+                                                  float* zx, float* zh) {
   constexpr int G = kStreamChunks<NB>;
   const int warp = threadIdx.x / kWarp;
   const int nwarps = blockDim.x / kWarp;
@@ -964,15 +1008,15 @@ __device__ __forceinline__ void delta_rows_block(const DeltaIn& in,
   F32Group<G> cur;
   if (warp < nrows) f32_load(fx, (size_t)row_of(warp) * in.kx, 0, cur);
   if (in.stage_x)
-    stage_delta<NB>(sx, in.dx, in.fx, in.X, in.B, in.shift_x, in.slot_bits);
+    stage_family<NB>(sx, in.ax, in.X, in.B, in.shift_x, in.slot_bits);
   if (in.stage_h)
-    stage_delta<NB>(sh, in.dh, in.fh, in.H, in.B, in.shift_h, in.slot_bits);
+    stage_family<NB>(sh, in.ah, in.H, in.B, in.shift_h, in.slot_bits);
   __syncthreads();
-  using Acts = StreamActs<NB, Gathered<NB, DeltaAct>>;
+  using Acts = StreamActs<NB, Gathered<NB, typename Src::Gather>>;
   const Acts ax{StagedF32<NB>{sx, in.shift_x, in.slot_bits},
-                {DeltaAct{in.dx, in.fx, in.X}, in.B}, in.stage_x};
+                {in.ax.gather(in.X), in.B}, in.stage_x};
   const Acts ah{StagedF32<NB>{sh, in.shift_h, in.slot_bits},
-                {DeltaAct{in.dh, in.fh, in.H}, in.B}, in.stage_h};
+                {in.ah.gather(in.H), in.B}, in.stage_h};
   const int B = in.B;
   row_dot_stream<NB, G>(
       fx, fh, ax, ah, warp, nrows, nwarps, row_of, cur,

@@ -13,12 +13,13 @@
 //    brds::row_dot with the DeltaAct policy gathers d*f for each entry, so
 //    an unfired column adds an exact zero.
 //  - delta_rb_dual_spmv (delta_dual_staged_kernel): one block an SM owns a
-//    contiguous range of `rows` rows (kernels/plan.py::delta_plan); it
+//    contiguous range of `rows` rows (kernels/plan.py::stream_plan); it
 //    stages the masked deltas d*f of both families in shared memory once
 //    (the product DeltaAct forms, bit for bit; a family too wide to stage
 //    is gathered as DeltaAct gathers it) and streams its warps' rows with
-//    their loads in flight (brds::row_dot_stream: row_dot's order, so the
-//    sums are those of the fused delta step's routine, the same one);
+//    their loads in flight (brds::stream_rows_block, rb_dual_spmv's
+//    routine with the masked deltas as the operand: row_dot's order, so
+//    the sums are those of the fused delta step's routine, the same one);
 //    then m' = brds::delta_update(m, ax, ah), m first, as the reference
 //    adds, with m read there only.
 //
@@ -60,7 +61,7 @@ delta_rb_spmv_kernel(const float* __restrict__ vals,
 }
 
 struct DeltaDualArgs {
-  brds::DeltaIn in;
+  brds::StreamIn<brds::DeltaSrc> in;
   const float* m;     // (B, R)
   float* m_out;
   int R, rows;        // rows of the output; rows a block
@@ -71,7 +72,7 @@ __global__ void __launch_bounds__(brds::kStreamThreads, 1)
 delta_dual_staged_kernel(DeltaDualArgs a) {
   const int R = a.R;
   if constexpr (kTiled) {
-    brds::tile_delta_in(a.in);
+    brds::tile_stream_in(a.in);
     a.m = brds::tile_rows(a.m, R);
     a.m_out = brds::tile_rows(a.m_out, R);
   }
@@ -81,8 +82,8 @@ delta_dual_staged_kernel(DeltaDualArgs a) {
   float* zh = zx + a.rows * NB;
   const int B = a.in.B, r0 = blockIdx.x * a.rows;
   const int nrows = min(a.rows, R - r0);
-  brds::delta_rows_block<NB>(a.in, delta_smem, nrows,
-                             [&](int i) { return r0 + i; }, zx, zh);
+  brds::stream_rows_block<NB>(a.in, delta_smem, nrows,
+                              [&](int i) { return r0 + i; }, zx, zh);
   for (int t = threadIdx.x; t < nrows * B; t += brds::kStreamThreads) {
     const int b = t / nrows, i = t % nrows;
     const size_t o = (size_t)b * R + r0 + i;
@@ -124,7 +125,7 @@ extern "C" int brds_delta_rb_spmv(const void* vals, const void* ix,
   return cudaGetLastError();
 }
 
-// One launch on kernels/plan.py::delta_plan's arguments (rows a block,
+// One launch on kernels/plan.py::stream_plan's arguments (rows a block,
 // the staged layout, the dynamic shared memory).
 extern "C" int brds_delta_rb_dual_spmv(
     const void* vx, const void* ix, int ix_bytes, int kx, const void* dx,
@@ -136,13 +137,11 @@ extern "C" int brds_delta_rb_dual_spmv(
   if (R <= 0 || rows <= 0) return cudaErrorInvalidValue;
   const dim3 grid((R + rows - 1) / rows, brds::batch_tiles(B));
   DeltaDualArgs a{
-      brds::DeltaIn{static_cast<const float*>(vx), ix, ix_bytes, kx,
-                    static_cast<const float*>(dx),
-                    static_cast<const float*>(fx), X,
-                    static_cast<const float*>(vh), ih, ih_bytes, kh,
-                    static_cast<const float*>(dh),
-                    static_cast<const float*>(fh), H, B, stage_x, stage_h,
-                    shift_x, shift_h, slot_bits, xpad, hpad},
+      {static_cast<const float*>(vx), ix, ix_bytes, kx,
+       {static_cast<const float*>(dx), static_cast<const float*>(fx)}, X,
+       static_cast<const float*>(vh), ih, ih_bytes, kh,
+       {static_cast<const float*>(dh), static_cast<const float*>(fh)}, H, B,
+       stage_x, stage_h, shift_x, shift_h, slot_bits, xpad, hpad},
       static_cast<const float*>(m), static_cast<float*>(m_out), R, rows};
   cudaError_t st = by_dual_kernel(B, [&](auto kern) {
     cudaError_t e = brds::allow_smem(reinterpret_cast<const void*>(kern));

@@ -43,18 +43,18 @@
 //
 // fused_brds_delta_lstm_scan keeps the first design (not redesigned yet):
 // blocks sized to be co-resident (occupancy x SMs), each owning tiles of
-// kJT hidden units with one warp per gate row, as the float single-step
-// kernel of fused_step.cu, and a threshold phase per step, one column per
-// thread over the whole grid, which writes the masked deltas to global
-// scratch and updates the references in place; a second grid barrier
-// separates it from the gate phase.
+// kJT hidden units with one warp per gate row (the first single-step
+// design, since replaced in fused_step.cu), and a threshold phase per
+// step, one column per thread over the whole grid, which writes the
+// masked deltas to global scratch and updates the references in place; a
+// second grid barrier separates it from the gate phase.
 //
 // Each step is bitwise equal to one launch of the single-step kernel
-// (fused_step_kernel, fused_delta_staged_kernel): every (row, batch) sum
-// keeps brds::row_dot's order (lane l takes entries l, l+32, ... in order
+// (fused_step.cu fused_staged_kernel, float or delta): every (row, batch)
+// sum keeps brds::row_dot's order (lane l takes entries l, l+32, ... in order
 // with fmaf, then the xor butterfly; ax and ah apart), z = (ax + ah) +
 // bias (or delta_update, then + bias), and the cell is brds::lstm_cell;
-// staging, streaming and hoisting (here, and in the delta step's
+// staging, streaming and hoisting (here, and in the step kernels'
 // brds::row_dot_stream) change where the operands come from, not that
 // order. The masked delta is the same __fmul_rn(d, fired) that DeltaAct
 // forms, and the threshold the same float32 ops as

@@ -21,16 +21,18 @@
 // 2H+j, 3H+j, keeps z in shared memory, and closes the cell in-block with
 // the same brds::lstm_cell as lstm_gates. Each step is bitwise equal to
 // its chained pair: rb_dual_spmv / delta_rb_dual_spmv / rb_dual_parts_q8
-// (then m + zx + zh for the delta q8 step), then the bias add in PyTorch,
-// then lstm_gates.
-//  - The float step: kJT hidden units a block, one warp per row, the
-//    same brds::row_dot and per-row epilogue as the chained kernel.
-//  - The delta step (fused_delta_staged_kernel): one block an SM with
-//    `units` hidden units, the masked deltas staged in shared memory once a
-//    block, the rows streamed with loads in flight by brds::row_dot_stream,
-//    the routine of the chained delta_rb_dual_spmv: row_dot's order, so m'
-//    is the chained value bit for bit; m' and z are made in the epilogue,
-//    m and the bias read there only.
+// (then m + zx + zh for the delta q8 step), then the bias add in PyTorch
+// (the float step's bias is added inside rb_dual_spmv), then lstm_gates.
+//  - The float and delta steps (fused_staged_kernel, the delta step a
+//    compile-time flag): one block an SM with `units` hidden units
+//    (kernels/plan.py::stream_plan), x and h (the delta step: the masked
+//    deltas) staged in shared memory once a block, the rows streamed with
+//    loads in flight by brds::row_dot_stream, the routine of the chained
+//    rb_dual_spmv and delta_rb_dual_spmv: row_dot's order, so z (m') is
+//    the chained value bit for bit; z = (zx + zh) + bias (the delta step:
+//    m', then z = m' + bias) is made in the epilogue, c_prev, the bias
+//    and m read there only. B12 (fused_scan.cu) keeps the same order, so
+//    it equals T launches of the float step.
 //  - The q8 and delta-q8 steps (fused_step_q8_kernel, the delta step a
 //    compile-time flag): one block an SM with `units` hidden units,
 //    activation codes staged in shared memory, four entries a lane
@@ -42,77 +44,14 @@
 //
 // Bound: bytes, as the chained gate kernels: the packed weights are read
 // once; z, c and h never round-trip through device memory between the two
-// stages. The row_dot float step reaches 20% of that bound: a lane gathers
-// B activations an entry from global memory; the delta, q8 and delta-q8
-// steps gather them from shared memory and keep a warp's next loads in
-// flight (PERF.md has the card's times).
+// stages. What the staged designs pay beyond the bytes: each block stages
+// all of x and h (or d*f, or the codes) before its first product, and
+// shared loads of random columns meet about two lanes on a bank slot
+// (tests/test_torch_plan.py); a warp's next loads stay in flight
+// (PERF.md has the card's times).
 #include "brds_common.cuh"
 
 namespace {
-
-constexpr int kJT = 2;                            // hidden units per block
-constexpr int kThreads = kJT * 4 * brds::kWarp;   // one warp per gate row
-
-// Closes the cells of the block's kJT hidden units from the gate values
-// the warps left in zs: thread t < kJT * B takes (unit t / B, batch t % B).
-template <int NB>
-__device__ __forceinline__ void close_cells(const float (&zs)[kJT][4][NB],
-                                            int H, int B,
-                                            const float* __restrict__ c_prev,
-                                            float* __restrict__ c_out,
-                                            float* __restrict__ h_out,
-                                            const brds::Act& act) {
-  const int t = threadIdx.x;
-  if (t < kJT * B) {
-    const int jl = t / B, b = t % B;
-    const int j = blockIdx.x * kJT + jl;
-    if (j < H) {
-      const size_t o = (size_t)b * H + j;
-      brds::lstm_cell(zs[jl][0][b], zs[jl][1][b], zs[jl][2][b], zs[jl][3][b],
-                      c_prev[o], act, c_out + o, h_out + o);
-    }
-  }
-}
-
-template <typename DX, typename DH, int NB, bool kTiled>
-__global__ void __launch_bounds__(kThreads)
-fused_step_kernel(const float* __restrict__ vx, const DX* __restrict__ dx,
-                  int kx, const float* __restrict__ x, int X,
-                  const float* __restrict__ vh, const DH* __restrict__ dh,
-                  int kh, const float* __restrict__ h, int H,
-                  const float* __restrict__ bias,
-                  const float* __restrict__ c_prev, float* __restrict__ c_out,
-                  float* __restrict__ h_out, int B, brds::Act act) {
-  if constexpr (kTiled) {
-    x = brds::tile_rows(x, X);
-    h = brds::tile_rows(h, H);
-    c_prev = brds::tile_rows(c_prev, H);
-    c_out = brds::tile_rows(c_out, H);
-    h_out = brds::tile_rows(h_out, H);
-    B = brds::tile_batch(B);
-  }
-  __shared__ float zs[kJT][4][NB];
-  const int warp = threadIdx.x / brds::kWarp;
-  const int lane = threadIdx.x % brds::kWarp;
-  const int jl = warp / 4, gate = warp % 4;
-  const int j = blockIdx.x * kJT + jl;
-  if (j < H) {
-    const int row = gate * H + j;
-    float ax[NB] = {}, ah[NB] = {};
-    brds::row_dot<DX, NB>(vx + (size_t)row * kx, dx + (size_t)row * kx, kx,
-                          brds::F32Act{x, X}, B, ax);
-    brds::row_dot<DH, NB>(vh + (size_t)row * kh, dh + (size_t)row * kh, kh,
-                          brds::F32Act{h, H}, B, ah);
-    const float bb = bias[row];
-    // z would round through x's dtype here, as the chained path stores it;
-    // x is float32, so that is the identity
-#pragma unroll
-    for (int b = 0; b < NB; ++b)
-      if (b < B && b == lane) zs[jl][gate][b] = ax[b] + ah[b] + bb;
-  }
-  __syncthreads();
-  close_cells<NB>(zs, H, B, c_prev, c_out, h_out, act);
-}
 
 // The fused q8 step's arguments (one struct: the kernel takes one of
 // every instantiation's parameters by value).
@@ -364,44 +303,49 @@ fused_step_q8_kernel(Q8Args<CT> a) {
   }
 }
 
-// The fused delta step (B5): one block an SM with `units` hidden units
-// (kernels/plan.py::delta_plan), the masked deltas staged in shared memory
-// and the gate rows streamed in row_dot's order (brds::delta_rows_block,
-// the chained delta_rb_dual_spmv's routine), then per (unit, batch row) m'
-// = delta_update(m, ax, ah), z = m' + bias and the cell; m and the bias
-// are read only there.
-struct DeltaStepArgs {
-  brds::DeltaIn in;
-  const float* m;     // (B, 4H)
+// The float step (B3) and, kDelta, the fused delta step (B5): one block
+// an SM with `units` hidden units (kernels/plan.py::stream_plan), x and h
+// (the masked deltas) staged in shared memory and the gate rows streamed
+// in row_dot's order (brds::stream_rows_block, the routine of the chained
+// rb_dual_spmv and delta_rb_dual_spmv), then per (unit, batch row) z =
+// (ax + ah) + bias (the delta step: m' = delta_update(m, ax, ah), z = m' +
+// bias) and the cell; c_prev, the bias and m are read only there.
+template <bool kDelta>
+struct StepArgs {
+  brds::StreamIn<std::conditional_t<kDelta, brds::DeltaSrc, brds::F32Src>>
+      in;
+  const float* m;     // (B, 4H): the delta step's partial-sum memory
   const float* bias;
   const float* c_prev;
   float* c_out;
   float* h_out;
-  float* m_out;
+  float* m_out;       // ... and m' (null for the float step)
   int units;          // hidden units a block
   brds::Act act;
 };
 
-template <int NB, bool kTiled>
+template <int NB, bool kTiled, bool kDelta>
 __global__ void __launch_bounds__(brds::kStreamThreads, 1)
-fused_delta_staged_kernel(DeltaStepArgs a) {
+fused_staged_kernel(StepArgs<kDelta> a) {
   const int H = a.in.H;
   if constexpr (kTiled) {
-    brds::tile_delta_in(a.in);
-    a.m = brds::tile_rows(a.m, 4 * H);
-    a.m_out = brds::tile_rows(a.m_out, 4 * H);
+    brds::tile_stream_in(a.in);
+    if constexpr (kDelta) {
+      a.m = brds::tile_rows(a.m, 4 * H);
+      a.m_out = brds::tile_rows(a.m_out, 4 * H);
+    }
     a.c_prev = brds::tile_rows(a.c_prev, H);
     a.c_out = brds::tile_rows(a.c_out, H);
     a.h_out = brds::tile_rows(a.h_out, H);
   }
-  extern __shared__ float4 delta_smem[];
-  float* zx = reinterpret_cast<float*>(delta_smem +
+  extern __shared__ float4 stream_smem[];
+  float* zx = reinterpret_cast<float*>(stream_smem +
                                        brds::staged_float4s(a.in, NB));
   float* zh = zx + 4 * a.units * NB;
   const int B = a.in.B, j0 = blockIdx.x * a.units;
-  brds::delta_rows_block<NB>(a.in, delta_smem, 4 * min(a.units, H - j0),
-                             [&](int i) { return gate_row(i, H, j0); }, zx,
-                             zh);
+  brds::stream_rows_block<NB>(a.in, stream_smem, 4 * min(a.units, H - j0),
+                              [&](int i) { return gate_row(i, H, j0); }, zx,
+                              zh);
   for (int t = threadIdx.x; t < a.units * B; t += brds::kStreamThreads) {
     const int jl = t / B, b = t % B, j = j0 + jl;
     if (j >= H) continue;
@@ -409,10 +353,16 @@ fused_delta_staged_kernel(DeltaStepArgs a) {
 #pragma unroll
     for (int g = 0; g < 4; ++g) {   // gate_row(4 jl + g) = g H + j
       const int row = g * H + j, i = (4 * jl + g) * NB + b;
-      const size_t mo = (size_t)b * 4 * H + row;
-      const float mn = brds::delta_update(a.m[mo], zx[i], zh[i]);
-      a.m_out[mo] = mn;
-      z[g] = __fadd_rn(mn, a.bias[row]);   // the chained m' + bias
+      if constexpr (kDelta) {
+        const size_t mo = (size_t)b * 4 * H + row;
+        const float mn = brds::delta_update(a.m[mo], zx[i], zh[i]);
+        a.m_out[mo] = mn;
+        z[g] = __fadd_rn(mn, a.bias[row]);   // the chained m' + bias
+      } else {
+        // rb_dual_spmv's z (and rb_spmv's two sums plus the bias); z
+        // would round through x's dtype here, the identity for float32
+        z[g] = __fadd_rn(__fadd_rn(zx[i], zh[i]), a.bias[row]);
+      }
     }
     const size_t o = (size_t)b * H + j;
     brds::lstm_cell(z[0], z[1], z[2], z[3], a.c_prev[o], a.act, a.c_out + o,
@@ -420,77 +370,24 @@ fused_delta_staged_kernel(DeltaStepArgs a) {
   }
 }
 
-// Runs `body(kern)` with the fused delta instantiation for batch B.
-template <typename F>
-cudaError_t by_delta_kernel(int B, F&& body) {
+// Runs `body(kern)` with the float (kDelta: delta) step's instantiation for
+// batch B.
+template <bool kDelta, typename F>
+cudaError_t by_staged_kernel(int B, F&& body) {
   return brds::by_batch(B, [&](auto nb, auto tiled) {
-    return body(fused_delta_staged_kernel<decltype(nb)::value,
-                                          decltype(tiled)::value>);
+    return body(fused_staged_kernel<decltype(nb)::value,
+                                    decltype(tiled)::value, kDelta>);
   });
 }
 
-}  // namespace
-
-extern "C" int brds_fused_lstm_step(const void* vx, const void* dx,
-                                    int dx_bytes, int kx, const void* x,
-                                    int X, const void* vh, const void* dh,
-                                    int dh_bytes, int kh, const void* h,
-                                    int H, const void* bias,
-                                    const void* c_prev, void* c_out,
-                                    void* h_out, int B, const void* lut,
-                                    float lo, float hi, float hic,
-                                    void* stream) {
-  if (H <= 0) return cudaErrorInvalidValue;
-  const dim3 grid((H + kJT - 1) / kJT, brds::batch_tiles(B));
-  const brds::Act act{static_cast<const float*>(lut), lo, hi, hic};
-  cudaError_t st = brds::by_delta(dx_bytes, [&](auto dxt) {
-    using DX = decltype(dxt);
-    return brds::by_delta(dh_bytes, [&](auto dht) {
-      using DH = decltype(dht);
-      return brds::by_batch(B, [&](auto nb, auto tiled) {
-        constexpr int NB = decltype(nb)::value;
-        fused_step_kernel<DX, DH, NB, decltype(tiled)::value>
-            <<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-                static_cast<const float*>(vx), static_cast<const DX*>(dx), kx,
-                static_cast<const float*>(x), X,
-                static_cast<const float*>(vh), static_cast<const DH*>(dh), kh,
-                static_cast<const float*>(h), H,
-                static_cast<const float*>(bias),
-                static_cast<const float*>(c_prev), static_cast<float*>(c_out),
-                static_cast<float*>(h_out), B, act);
-        return cudaSuccess;
-      });
-    });
-  });
-  if (st != cudaSuccess) return st;
-  return cudaGetLastError();
-}
-
-// One launch on kernels/plan.py::delta_plan's arguments (units a block,
+// One launch on kernels/plan.py::stream_plan's arguments (units a block,
 // the staged layout, the dynamic shared memory).
-extern "C" int brds_fused_delta_lstm_step(
-    const void* vx, const void* ix, int ix_bytes, int kx, const void* dx,
-    const void* fx, int X, const void* vh, const void* ih, int ih_bytes,
-    int kh, const void* dh, const void* fh, int H, const void* m,
-    const void* bias, const void* c_prev, void* c_out, void* h_out,
-    void* m_out, int B, int units, int stage_x, int stage_h, int shift_x,
-    int shift_h, int slot_bits, int xpad, int hpad, int smem,
-    const void* lut, float lo, float hi, float hic, void* stream) {
-  if (H <= 0 || units <= 0) return cudaErrorInvalidValue;
-  const dim3 grid((H + units - 1) / units, brds::batch_tiles(B));
-  DeltaStepArgs a{
-      brds::DeltaIn{static_cast<const float*>(vx), ix, ix_bytes, kx,
-                    static_cast<const float*>(dx),
-                    static_cast<const float*>(fx), X,
-                    static_cast<const float*>(vh), ih, ih_bytes, kh,
-                    static_cast<const float*>(dh),
-                    static_cast<const float*>(fh), H, B, stage_x, stage_h,
-                    shift_x, shift_h, slot_bits, xpad, hpad},
-      static_cast<const float*>(m), static_cast<const float*>(bias),
-      static_cast<const float*>(c_prev), static_cast<float*>(c_out),
-      static_cast<float*>(h_out), static_cast<float*>(m_out), units,
-      brds::Act{static_cast<const float*>(lut), lo, hi, hic}};
-  cudaError_t st = by_delta_kernel(B, [&](auto kern) {
+template <bool kDelta>
+cudaError_t launch_staged(const StepArgs<kDelta>& a, int smem, void* stream) {
+  if (a.in.H <= 0 || a.units <= 0) return cudaErrorInvalidValue;
+  const dim3 grid((a.in.H + a.units - 1) / a.units,
+                  brds::batch_tiles(a.in.B));
+  cudaError_t st = by_staged_kernel<kDelta>(a.in.B, [&](auto kern) {
     cudaError_t e = brds::allow_smem(reinterpret_cast<const void*>(kern));
     if (e != cudaSuccess) return e;
     kern<<<grid, brds::kStreamThreads, smem,
@@ -501,13 +398,67 @@ extern "C" int brds_fused_delta_lstm_step(
   return cudaGetLastError();
 }
 
-// For the fused delta instantiation of batch B: out[0..3] as
-// brds::kernel_info gives them, with `smem` bytes of dynamic shared memory.
-extern "C" int brds_fused_delta_lstm_step_info(int B, int smem, int* out) {
-  return by_delta_kernel(B, [&](auto kern) {
+// For the float (kDelta: delta) step's instantiation of batch B:
+// out[0..3] as brds::kernel_info gives them, with `smem` bytes of dynamic
+// shared memory.
+template <bool kDelta>
+cudaError_t staged_info(int B, int smem, int* out) {
+  return by_staged_kernel<kDelta>(B, [&](auto kern) {
     return brds::kernel_info(reinterpret_cast<const void*>(kern),
                              brds::kStreamThreads, smem, out);
   });
+}
+
+}  // namespace
+
+extern "C" int brds_fused_lstm_step(
+    const void* vx, const void* ix, int ix_bytes, int kx, const void* x,
+    int X, const void* vh, const void* ih, int ih_bytes, int kh,
+    const void* h, int H, const void* bias, const void* c_prev, void* c_out,
+    void* h_out, int B, int units, int stage_x, int stage_h, int shift_x,
+    int shift_h, int slot_bits, int xpad, int hpad, int smem,
+    const void* lut, float lo, float hi, float hic, void* stream) {
+  const StepArgs<false> a{
+      {static_cast<const float*>(vx), ix, ix_bytes, kx,
+       {static_cast<const float*>(x)}, X, static_cast<const float*>(vh), ih,
+       ih_bytes, kh, {static_cast<const float*>(h)}, H, B, stage_x, stage_h,
+       shift_x, shift_h, slot_bits, xpad, hpad},
+      nullptr, static_cast<const float*>(bias),
+      static_cast<const float*>(c_prev), static_cast<float*>(c_out),
+      static_cast<float*>(h_out), nullptr, units,
+      brds::Act{static_cast<const float*>(lut), lo, hi, hic}};
+  return launch_staged(a, smem, stream);
+}
+
+extern "C" int brds_fused_lstm_step_info(int B, int smem, int* out) {
+  return staged_info<false>(B, smem, out);
+}
+
+// The same launch plan's arguments, with the deltas and masks in the place
+// of x and h, plus m (B, 4H) and m_out.
+extern "C" int brds_fused_delta_lstm_step(
+    const void* vx, const void* ix, int ix_bytes, int kx, const void* dx,
+    const void* fx, int X, const void* vh, const void* ih, int ih_bytes,
+    int kh, const void* dh, const void* fh, int H, const void* m,
+    const void* bias, const void* c_prev, void* c_out, void* h_out,
+    void* m_out, int B, int units, int stage_x, int stage_h, int shift_x,
+    int shift_h, int slot_bits, int xpad, int hpad, int smem,
+    const void* lut, float lo, float hi, float hic, void* stream) {
+  const StepArgs<true> a{
+      {static_cast<const float*>(vx), ix, ix_bytes, kx,
+       {static_cast<const float*>(dx), static_cast<const float*>(fx)}, X,
+       static_cast<const float*>(vh), ih, ih_bytes, kh,
+       {static_cast<const float*>(dh), static_cast<const float*>(fh)}, H, B,
+       stage_x, stage_h, shift_x, shift_h, slot_bits, xpad, hpad},
+      static_cast<const float*>(m), static_cast<const float*>(bias),
+      static_cast<const float*>(c_prev), static_cast<float*>(c_out),
+      static_cast<float*>(h_out), static_cast<float*>(m_out), units,
+      brds::Act{static_cast<const float*>(lut), lo, hi, hic}};
+  return launch_staged(a, smem, stream);
+}
+
+extern "C" int brds_fused_delta_lstm_step_info(int B, int smem, int* out) {
+  return staged_info<true>(B, smem, out);
 }
 
 namespace {

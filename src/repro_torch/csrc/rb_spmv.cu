@@ -5,15 +5,27 @@
 //    Replaces src/repro/kernels/rb_spmv.py::rb_dual_spmv.
 //
 // The Pallas kernels stream (block_rows, K) tiles through VMEM on the TPU's
-// sequential grid. Here one warp owns one packed row (brds::row_dot): it
-// rebuilds the columns with an int32 warp scan of the deltas and gathers x
-// and h through the read-only cache, which holds them (B x 1500 floats at
-// full width). Both kernels share that routine, so rb_spmv(Sx, x) +
-// rb_spmv(Sh, h) + bias, added in that order, equals rb_dual_spmv.
+// sequential grid.
+//  - rb_spmv: one warp owns one packed row (brds::row_dot): it rebuilds the
+//    columns with an int32 warp scan of the deltas and gathers x through
+//    the read-only cache, which holds it (B x 1500 floats at full width).
+//  - rb_dual_spmv (rb_dual_staged_kernel): one block an SM owns a
+//    contiguous range of `rows` rows (kernels/plan.py::stream_plan); it
+//    stages x and h in shared memory once (a column's NB floats at
+//    stage_pos; a family too wide to stage is gathered as row_dot gathers
+//    it) and streams its warps' rows with their loads in flight
+//    (brds::stream_rows_block, the fused float step's routine: row_dot's
+//    order, so the sums are rb_spmv's bit for bit); then z = (ax + ah) +
+//    bias, with the bias read there only. So rb_spmv(Sx, x) + rb_spmv(Sh,
+//    h) + bias, added in that order, equals rb_dual_spmv, and the fused
+//    step equals rb_dual_spmv -> lstm_gates.
 //
 // Bound: bytes. Each packed value (4 B) and delta (1-4 B) is read once and
 // used for all B batch rows, so at B <= 16 the weight stream dominates and
-// the least time is (values + deltas) / memory rate.
+// the least time is (values + deltas) / memory rate. What the staged
+// design pays beyond the bytes: each block stages all of x and h before
+// its first product, and shared loads of random columns meet about two
+// lanes on a bank slot (tests/test_torch_plan.py).
 #include "brds_common.cuh"
 
 namespace {
@@ -42,32 +54,43 @@ rb_spmv_kernel(const float* __restrict__ vals, const DT* __restrict__ deltas,
     if (b < B && b == lane) y[(size_t)b * R + row] = acc[b];
 }
 
-template <typename DX, typename DH, int NB, bool kTiled>
-__global__ void __launch_bounds__(kThreads)
-rb_dual_spmv_kernel(const float* __restrict__ vx, const DX* __restrict__ dx,
-                    int kx, const float* __restrict__ x, int X,
-                    const float* __restrict__ vh, const DH* __restrict__ dh,
-                    int kh, const float* __restrict__ h, int H,
-                    const float* __restrict__ bias, float* __restrict__ z,
-                    int B, int R) {
-  const int row = (blockIdx.x * blockDim.x + threadIdx.x) / brds::kWarp;
-  if (row >= R) return;   // uniform across the warp
+struct DualArgs {
+  brds::StreamIn<brds::F32Src> in;
+  const float* bias;  // (R,)
+  float* z;           // (B, R)
+  int R, rows;        // rows of the output; rows a block
+};
+
+template <int NB, bool kTiled>
+__global__ void __launch_bounds__(brds::kStreamThreads, 1)
+rb_dual_staged_kernel(DualArgs a) {
+  const int R = a.R;
   if constexpr (kTiled) {
-    x = brds::tile_rows(x, X);
-    h = brds::tile_rows(h, H);
-    z = brds::tile_rows(z, R);
-    B = brds::tile_batch(B);
+    brds::tile_stream_in(a.in);
+    a.z = brds::tile_rows(a.z, R);
   }
-  float ax[NB] = {}, ah[NB] = {};
-  brds::row_dot<DX, NB>(vx + (size_t)row * kx, dx + (size_t)row * kx, kx,
-                        brds::F32Act{x, X}, B, ax);
-  brds::row_dot<DH, NB>(vh + (size_t)row * kh, dh + (size_t)row * kh, kh,
-                        brds::F32Act{h, H}, B, ah);
-  const int lane = threadIdx.x % brds::kWarp;
-  const float bb = bias[row];
-#pragma unroll
-  for (int b = 0; b < NB; ++b)
-    if (b < B && b == lane) z[(size_t)b * R + row] = ax[b] + ah[b] + bb;
+  extern __shared__ float4 stream_smem[];
+  float* zx = reinterpret_cast<float*>(stream_smem +
+                                       brds::staged_float4s(a.in, NB));
+  float* zh = zx + a.rows * NB;
+  const int B = a.in.B, r0 = blockIdx.x * a.rows;
+  const int nrows = min(a.rows, R - r0);
+  brds::stream_rows_block<NB>(a.in, stream_smem, nrows,
+                              [&](int i) { return r0 + i; }, zx, zh);
+  for (int t = threadIdx.x; t < nrows * B; t += brds::kStreamThreads) {
+    const int b = t / nrows, i = t % nrows;
+    a.z[(size_t)b * R + r0 + i] = __fadd_rn(
+        __fadd_rn(zx[i * NB + b], zh[i * NB + b]), a.bias[r0 + i]);
+  }
+}
+
+// Runs `body(kern)` with the dual float instantiation for batch B.
+template <typename F>
+cudaError_t by_dual_kernel(int B, F&& body) {
+  return brds::by_batch(B, [&](auto nb, auto tiled) {
+    return body(rb_dual_staged_kernel<decltype(nb)::value,
+                                      decltype(tiled)::value>);
+  });
 }
 
 }  // namespace
@@ -94,31 +117,38 @@ extern "C" int brds_rb_spmv(const void* vals, const void* deltas,
   return cudaGetLastError();
 }
 
-extern "C" int brds_rb_dual_spmv(const void* vx, const void* dx, int dx_bytes,
-                                 int kx, const void* x, int X, const void* vh,
-                                 const void* dh, int dh_bytes, int kh,
-                                 const void* h, int H, const void* bias,
-                                 void* z, int B, int R, void* stream) {
-  const dim3 grid((R + kRowsPerBlock - 1) / kRowsPerBlock,
-                  brds::batch_tiles(B));
-  cudaError_t st = brds::by_delta(dx_bytes, [&](auto dxt) {
-    using DX = decltype(dxt);
-    return brds::by_delta(dh_bytes, [&](auto dht) {
-      using DH = decltype(dht);
-      return brds::by_batch(B, [&](auto nb, auto tiled) {
-        constexpr int NB = decltype(nb)::value;
-        rb_dual_spmv_kernel<DX, DH, NB, decltype(tiled)::value>
-            <<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-                static_cast<const float*>(vx), static_cast<const DX*>(dx), kx,
-                static_cast<const float*>(x), X,
-                static_cast<const float*>(vh), static_cast<const DH*>(dh), kh,
-                static_cast<const float*>(h), H,
-                static_cast<const float*>(bias), static_cast<float*>(z), B,
-                R);
-        return cudaSuccess;
-      });
-    });
+// One launch on kernels/plan.py::stream_plan's arguments (rows a block,
+// the staged layout, the dynamic shared memory).
+extern "C" int brds_rb_dual_spmv(
+    const void* vx, const void* ix, int ix_bytes, int kx, const void* x,
+    int X, const void* vh, const void* ih, int ih_bytes, int kh,
+    const void* h, int H, const void* bias, void* z, int B, int R, int rows,
+    int stage_x, int stage_h, int shift_x, int shift_h, int slot_bits,
+    int xpad, int hpad, int smem, void* stream) {
+  if (R <= 0 || rows <= 0) return cudaErrorInvalidValue;
+  const dim3 grid((R + rows - 1) / rows, brds::batch_tiles(B));
+  const DualArgs a{
+      {static_cast<const float*>(vx), ix, ix_bytes, kx,
+       {static_cast<const float*>(x)}, X, static_cast<const float*>(vh), ih,
+       ih_bytes, kh, {static_cast<const float*>(h)}, H, B, stage_x, stage_h,
+       shift_x, shift_h, slot_bits, xpad, hpad},
+      static_cast<const float*>(bias), static_cast<float*>(z), R, rows};
+  cudaError_t st = by_dual_kernel(B, [&](auto kern) {
+    cudaError_t e = brds::allow_smem(reinterpret_cast<const void*>(kern));
+    if (e != cudaSuccess) return e;
+    kern<<<grid, brds::kStreamThreads, smem,
+           static_cast<cudaStream_t>(stream)>>>(a);
+    return cudaSuccess;
   });
   if (st != cudaSuccess) return st;
   return cudaGetLastError();
+}
+
+// For the dual float instantiation of batch B: out[0..3] as
+// brds::kernel_info gives them, with `smem` bytes of dynamic shared memory.
+extern "C" int brds_rb_dual_spmv_info(int B, int smem, int* out) {
+  return by_dual_kernel(B, [&](auto kern) {
+    return brds::kernel_info(reinterpret_cast<const void*>(kern),
+                             brds::kStreamThreads, smem, out);
+  });
 }

@@ -13,6 +13,7 @@ without ``nvcc``.
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -46,12 +47,16 @@ _L = ctypes.c_longlong      # element strides
 SIGNATURES = {
     "rb_spmv": {"brds_rb_spmv": [_P, _P, _I, _I, _P, _I, _P, _I, _I, _P],
                 "brds_rb_dual_spmv": [_P, _P, _I, _I, _P, _I, _P, _P, _I, _I,
-                                      _P, _I, _P, _P, _I, _I, _P]},
+                                      _P, _I, _P, _P, _I, _I, _I, _I, _I, _I,
+                                      _I, _I, _I, _I, _I, _P],
+                "brds_rb_dual_spmv_info": [_I, _I, _P]},
     "lstm_gates": {"brds_lstm_gates": [_P, _P, _P, _P, _I, _P, _P, _P, _I, _I,
                                        _P, _F, _F, _F, _P]},
     "fused_step": {
         "brds_fused_lstm_step": [_P, _P, _I, _I, _P, _I, _P, _P, _I, _I, _P,
-                                 _I, _P, _P, _P, _P, _I, _P, _F, _F, _F, _P],
+                                 _I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                                 _I, _I, _I, _I, _P, _F, _F, _F, _P],
+        "brds_fused_lstm_step_info": [_I, _I, _P],
         "brds_fused_delta_lstm_step": [_P, _P, _I, _I, _P, _P, _I, _P, _P,
                                        _I, _I, _P, _P, _I, _P, _P, _P, _P,
                                        _P, _P, _I, _I, _I, _I, _I, _I, _I,
@@ -187,7 +192,9 @@ def stream(device: torch.device) -> int:
     return torch.cuda.current_stream(device).cuda_stream
 
 
+@functools.lru_cache(maxsize=None)
 def sm_count(device: torch.device) -> int:
+    """The card's SMs (cached: the launch plans ask at every launch)."""
     return torch.cuda.get_device_properties(device).multi_processor_count
 
 

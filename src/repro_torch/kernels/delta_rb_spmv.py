@@ -4,7 +4,7 @@ The Spartus composition on the BRDS Gate-module MxV: the partial-sum memory
 advances by the products of fired columns only, m' = m + Sx@(fx·dx) +
 Sh@(fh·dh), over the same row-balanced packing as ``rb_dual_spmv``; the
 single-family form y = S@(f·d) sits behind ``ops.delta_rb_spmv``. The
-dual kernel runs one block an SM on ``plan.delta_plan``: the masked
+dual kernel runs one block an SM on ``plan.stream_plan``: the masked
 deltas staged in shared memory once a block, each row's sums in
 ``row_dot``'s order (the fused delta step's routine, so the two stay
 bitwise a chain). Thresholding happens in PyTorch before the launch
@@ -18,8 +18,8 @@ from __future__ import annotations
 import torch
 
 from . import _build
-from .plan import DeltaPlan, delta_plan
-from .rb_spmv import check_batch, check_packed, check_rows
+from .rb_spmv import (check_batch, check_packed, check_rows, stream_args,
+                      stream_plan_for)
 
 
 def check_delta(d, f, name: str, device) -> None:
@@ -54,32 +54,6 @@ def delta_rb_spmv(vals, deltas, d, f, rows: int):
     return y
 
 
-def delta_plan_for(vals_x, vals_h, dx, dh, R: int,
-                   fused: bool = False) -> DeltaPlan:
-    """The launch plan of the delta dual SpMV (``fused``: the fused delta
-    step) over R rows on dx's card."""
-    return delta_plan(X=dx.shape[1], H=dh.shape[1], R=R, B=dx.shape[0],
-                      Kx=vals_x.shape[1], Kh=vals_h.shape[1], fused=fused,
-                      sms=_build.sm_count(dx.device))
-
-
-def plan_args(plan: DeltaPlan) -> tuple:
-    """The staged layout's launch arguments (after rows or units)."""
-    return (int(plan.stage_x), int(plan.stage_h), plan.shift_x,
-            plan.shift_h, plan.slot_bits, plan.xpad, plan.hpad, plan.smem)
-
-
-def delta_info(plan: DeltaPlan, B: int, device, fused: bool = False) -> dict:
-    """``_build.kernel_info`` of the delta dual SpMV (``fused``: the fused
-    delta step) instantiation ``plan`` launches at batch B (every batch
-    tile of its grid)."""
-    source, entry = (("fused_step", "brds_fused_delta_lstm_step_info")
-                     if fused else
-                     ("delta_rb_spmv", "brds_delta_rb_dual_spmv_info"))
-    return _build.kernel_info(source, entry, (B, plan.smem),
-                              plan.grid * plan.tiles, device)
-
-
 def delta_rb_dual_spmv(vals_x, deltas_x, dx, fx, vals_h, deltas_h, dh, fh,
                        m):
     """m' = m + Sx @ (fx·dx) + Sh @ (fh·dh) over the first R = m.shape[1]
@@ -103,7 +77,7 @@ def delta_rb_dual_spmv(vals_x, deltas_x, dx, fx, vals_h, deltas_h, dh, fh,
         raise ValueError(f"shape mismatch: Sx {tuple(vals_x.shape)}, Sh "
                          f"{tuple(vals_h.shape)}, m {tuple(m.shape)}, dx "
                          f"{tuple(dx.shape)}, dh {tuple(dh.shape)}")
-    plan = delta_plan_for(vals_x, vals_h, dx, dh, R)
+    plan = stream_plan_for(vals_x, vals_h, dx, dh, R)
     m_out = torch.empty_like(m)
     lib = _build.load("delta_rb_spmv")
     err = lib.brds_delta_rb_dual_spmv(
@@ -111,7 +85,7 @@ def delta_rb_dual_spmv(vals_x, deltas_x, dx, fx, vals_h, deltas_h, dh, fh,
         vals_x.shape[1], dx.data_ptr(), fx.data_ptr(), X, vals_h.data_ptr(),
         deltas_h.data_ptr(), deltas_h.element_size(), vals_h.shape[1],
         dh.data_ptr(), fh.data_ptr(), H, m.data_ptr(), m_out.data_ptr(), B,
-        R, plan.rows, *plan_args(plan), _build.stream(dev))
+        R, plan.rows, *stream_args(plan), _build.stream(dev))
     _build.check(err, "delta_rb_dual_spmv")
     _build.LAUNCHES["delta_rb_dual_spmv"] += 1
     return m_out

@@ -8,10 +8,11 @@ block owns a tile of hidden units and computes their four gate rows with
 the same row routine and epilogue as the chained gate kernel
 (``rb_dual_spmv``, ``delta_rb_dual_spmv``, ``rb_dual_parts_q8``), then
 closes the cell with the same cell function as ``lstm_gates``, so each
-step is bitwise equal to its chained pair. The delta step runs the
-chained ``delta_rb_dual_spmv``'s kernel design (one block an SM,
-``plan.delta_plan``, the masked deltas staged in shared memory, the rows
-streamed in ``row_dot``'s order) and makes m' and z in the epilogue. The
+step is bitwise equal to its chained pair. The float and delta steps run
+their chained dual SpMV's kernel design (one block an SM,
+``plan.stream_plan``, x and h or the masked deltas staged in shared
+memory, the rows streamed in ``row_dot``'s order) and make z (and m') in
+the epilogue. The
 q8 and delta-q8 steps take their rows otherwise (integer sums are exact
 in any order): one block an SM (``plan.q8_plan``), activation codes
 staged in shared memory, four entries a lane; the delta-q8 step makes m'
@@ -25,10 +26,10 @@ from __future__ import annotations
 import torch
 
 from . import _build
-from .delta_rb_spmv import check_delta, delta_plan_for, plan_args
+from .delta_rb_spmv import check_delta
 from .lstm_gates import act_args
 from .plan import Q8Plan, q8_plan
-from .rb_spmv import check_batch, check_packed
+from .rb_spmv import check_batch, check_packed, stream_args, stream_plan_for
 from .rb_spmv_q8 import check_q8
 
 
@@ -66,6 +67,7 @@ def fused_brds_lstm_step(vals_x, deltas_x, x, vals_h, deltas_h, h, bias,
                          f"{tuple(vals_h.shape)}, bias {tuple(bias.shape)}, "
                          f"x {tuple(x.shape)}, h {tuple(h.shape)}, c_prev "
                          f"{tuple(c_prev.shape)}")
+    plan = stream_plan_for(vals_x, vals_h, x, h, 4 * H, fused=True)
     c_out = torch.empty_like(c_prev)
     h_out = torch.empty_like(c_prev)
     lib = _build.load("fused_step")
@@ -74,7 +76,8 @@ def fused_brds_lstm_step(vals_x, deltas_x, x, vals_h, deltas_h, h, bias,
         x.data_ptr(), X, vals_h.data_ptr(), deltas_h.data_ptr(),
         deltas_h.element_size(), Kh, h.data_ptr(), H, bias.data_ptr(),
         c_prev.data_ptr(), c_out.data_ptr(), h_out.data_ptr(), B,
-        *act_args(pwl, dev), _build.stream(dev))
+        plan.units, *stream_args(plan), *act_args(pwl, dev),
+        _build.stream(dev))
     _build.check(err, "fused_brds_lstm_step")
     _build.LAUNCHES["fused_brds_lstm_step"] += 1
     return c_out, h_out
@@ -102,7 +105,7 @@ def fused_brds_delta_lstm_step(vals_x, deltas_x, dx, fx, vals_h, deltas_h,
         raise ValueError(f"shape mismatch: Sx {tuple(vals_x.shape)}, Sh "
                          f"{tuple(vals_h.shape)}, m {tuple(m.shape)}, dx "
                          f"{tuple(dx.shape)}, dh {tuple(dh.shape)}")
-    plan = delta_plan_for(vals_x, vals_h, dx, dh, 4 * H, fused=True)
+    plan = stream_plan_for(vals_x, vals_h, dx, dh, 4 * H, fused=True)
     c_out = torch.empty_like(c_prev)
     h_out = torch.empty_like(c_prev)
     m_out = torch.empty_like(m)
@@ -113,7 +116,7 @@ def fused_brds_delta_lstm_step(vals_x, deltas_x, dx, fx, vals_h, deltas_h,
         deltas_h.data_ptr(), deltas_h.element_size(), vals_h.shape[1],
         dh.data_ptr(), fh.data_ptr(), H, m.data_ptr(), bias.data_ptr(),
         c_prev.data_ptr(), c_out.data_ptr(), h_out.data_ptr(),
-        m_out.data_ptr(), B, plan.units, *plan_args(plan),
+        m_out.data_ptr(), B, plan.units, *stream_args(plan),
         *act_args(pwl, dev), _build.stream(dev))
     _build.check(err, "fused_brds_delta_lstm_step")
     _build.LAUNCHES["fused_brds_delta_lstm_step"] += 1

@@ -1,7 +1,8 @@
 """Launch plans of the persistent float scan (``csrc/fused_scan.cu``,
 ``fused_scan_kernel``), the fused q8 steps (``csrc/fused_step.cu``,
-``fused_step_q8_kernel``), the float temporal-delta steps
-(``fused_delta_staged_kernel``, ``csrc/delta_rb_spmv.cu``
+``fused_step_q8_kernel``), the staged float kernels (the float and
+temporal-delta steps, ``fused_staged_kernel``; the dual SpMVs,
+``csrc/rb_spmv.cu`` ``rb_dual_staged_kernel`` and ``csrc/delta_rb_spmv.cu``
 ``delta_dual_staged_kernel``) and decode attention (``csrc/attention.cu``,
 ``decode_cluster_kernel``): grid, hidden units or rows a block, the
 shared-memory layout of the staged activations and the scratch they need,
@@ -34,7 +35,7 @@ TILE = 16                   # batch rows a launch's tile (brds::kMaxBatch)
 SCAN_THREADS = 512          # fused_scan.cu kScanThreads
 SCAN_COLUMN = 128           # bytes a staged column takes (8 float4 pieces)
 Q8_THREADS = 512            # fused_step.cu kQ8Threads
-STREAM_THREADS = 512        # brds_common.cuh kStreamThreads (the delta steps)
+STREAM_THREADS = 512        # brds_common.cuh kStreamThreads (staged float)
 DEC_THREADS = 256           # attention.cu kDecThreads
 DEC_STREAMS = 16            # ... kStreams: key streams (half-warps) a block
 DEC_KEYS = 2                # ... kDecU: keys a stream takes a stage
@@ -240,14 +241,15 @@ def q8_plan(*, X: int, H: int, B: int, Kx: int, Kh: int, code_bytes: int,
 
 
 @dataclass(frozen=True)
-class DeltaPlan:
-    """One launch of a float temporal-delta step (every batch tile)."""
+class StreamPlan:
+    """One launch of a staged float kernel (every batch tile): the float
+    step (B3) or dual SpMV (B1), or their temporal-delta forms (B5, B4)."""
     nb: int
     tiles: int        # batch tiles of 16 rows (gridDim.y)
     rows: int         # gate rows a block (the fused step: 4 x units)
     grid: int         # blocks a tile (gridDim.x)
-    stage_x: bool     # dx * fx staged in shared memory (else gathered)
-    stage_h: bool     # dh * fh staged
+    stage_x: bool     # x (or dx * fx) staged in shared memory, else gathered
+    stage_h: bool     # h (or dh * fh) staged
     slot_bits: int
     shift_x: int
     shift_h: int
@@ -262,14 +264,17 @@ class DeltaPlan:
 
 
 @lru_cache(maxsize=256)
-def delta_plan(*, X: int, H: int, R: int, B: int, Kx: int, Kh: int,
-               fused: bool, sms: int = SMS,
-               smem_limit: int = SMEM_PER_BLOCK) -> DeltaPlan:
-    """The plan of the fused delta step (``fused``: R = 4H gate rows, a
-    block owns the four rows of ceil(H / sms) hidden units) or of the
-    delta dual SpMV (any R, a block owns 4 x ceil(R / 4 sms) contiguous
-    rows, the fused step's count at R = 4H): one block an SM, so one wave
-    a batch tile. A staged column is NB float32 (NB/4 16-byte pieces),
+def stream_plan(*, X: int, H: int, R: int, B: int, Kx: int, Kh: int,
+                fused: bool, sms: int = SMS,
+                smem_limit: int = SMEM_PER_BLOCK) -> StreamPlan:
+    """The plan of the staged float kernels, whose operands are x and h
+    (the float step B3 and dual SpMV B1) or the masked deltas d·f (their
+    temporal-delta forms B5 and B4), both NB float32 a column: a fused
+    step (``fused``: R = 4H gate rows, a block owns the four rows of
+    ceil(H / sms) hidden units) or a dual SpMV (any R, a block owns
+    4 x ceil(R / 4 sms) contiguous rows, the fused step's count at R = 4H):
+    one block an SM, so one wave a batch tile. The layout depends only on
+    the shapes. A staged column is NB float32 (NB/4 16-byte pieces),
     8 / (NB/4) columns a 128-byte bank row (``slot_bits``); lane l takes
     entries l, l+32, ... of a row, so neighbouring lanes' columns lie
     about ncols / K apart, the bits ``stage_pos`` moves down (``shift``;
@@ -277,11 +282,13 @@ def delta_plan(*, X: int, H: int, R: int, B: int, Kx: int, Kh: int,
     columns better than column order). Each family is staged if it fits
     beside the sums (ax, ah: 2 x rows x NB float32), the one with more
     entries a row first; the other is gathered from global memory."""
+    if R < 1:
+        raise ValueError(f"R={R}: a launch needs at least one row")
     nb = tier(min(B, TILE))
     tiles = -(-B // TILE)
     if fused:
         if R != 4 * H:
-            raise ValueError(f"the fused delta step has R = 4H rows, got "
+            raise ValueError(f"a fused step has R = 4H rows, got "
                              f"R={R}, H={H}")
         rows = 4 * -(-H // sms)
     else:
@@ -301,7 +308,7 @@ def delta_plan(*, X: int, H: int, R: int, B: int, Kx: int, Kh: int,
         if smem + n * vec <= smem_limit:
             staged.add(fam)
             smem += n * vec
-    return DeltaPlan(nb=nb, tiles=tiles, rows=rows, grid=grid,
-                     stage_x="x" in staged, stage_h="h" in staged,
-                     slot_bits=slot_bits, shift_x=shift_x, shift_h=shift_h,
-                     xpad=xpad, hpad=hpad, smem=smem)
+    return StreamPlan(nb=nb, tiles=tiles, rows=rows, grid=grid,
+                      stage_x="x" in staged, stage_h="h" in staged,
+                      slot_bits=slot_bits, shift_x=shift_x, shift_h=shift_h,
+                      xpad=xpad, hpad=hpad, smem=smem)

@@ -3,14 +3,20 @@
 The BRDS accelerator's Gate-module MxV: z = Sx@x + Sh@h + bias, with both
 packed families consumed by the warp that owns a row (the Large/Small
 mult-array lockstep), and its single-family form y = S@x behind the
-format API. Replaces ``repro/kernels/rb_spmv.py::rb_dual_spmv`` and
-``::rb_spmv``.
+format API. The dual kernel runs one block an SM on ``plan.stream_plan``:
+x and h staged in shared memory once a block, each row's sums in
+``row_dot``'s order (the fused float step's routine, so the two stay
+bitwise a chain, and the single-family kernel's sums). Also the launch
+helpers of the four staged float kernels (the float and delta steps and
+dual SpMVs): plan, arguments and occupancy. Replaces
+``repro/kernels/rb_spmv.py::rb_dual_spmv`` and ``::rb_spmv``.
 """
 from __future__ import annotations
 
 import torch
 
 from . import _build
+from .plan import StreamPlan, stream_plan
 
 DELTA_DTYPES = (torch.int8, torch.int16, torch.int32)
 
@@ -59,6 +65,41 @@ def rb_spmv(vals, deltas, x, rows: int):
     return y
 
 
+def stream_plan_for(vals_x, vals_h, ax, ah, R: int,
+                    fused: bool = False) -> StreamPlan:
+    """The launch plan of a staged float kernel over R rows on ax's card:
+    a dual SpMV or (``fused``) a fused step, whose operands ax (B, X) and
+    ah (B, H) are x and h or the deltas dx and dh."""
+    return stream_plan(X=ax.shape[1], H=ah.shape[1], R=R, B=ax.shape[0],
+                       Kx=vals_x.shape[1], Kh=vals_h.shape[1], fused=fused,
+                       sms=_build.sm_count(ax.device))
+
+
+def stream_args(plan: StreamPlan) -> tuple:
+    """The staged layout's launch arguments (after rows or units)."""
+    return (int(plan.stage_x), int(plan.stage_h), plan.shift_x,
+            plan.shift_h, plan.slot_bits, plan.xpad, plan.hpad, plan.smem)
+
+
+# (fused, delta) -> the source and info entry of that staged kernel
+_STREAM_INFO = {
+    (False, False): ("rb_spmv", "brds_rb_dual_spmv_info"),
+    (True, False): ("fused_step", "brds_fused_lstm_step_info"),
+    (False, True): ("delta_rb_spmv", "brds_delta_rb_dual_spmv_info"),
+    (True, True): ("fused_step", "brds_fused_delta_lstm_step_info")}
+
+
+def stream_info(plan: StreamPlan, B: int, device, *, fused: bool = False,
+                delta: bool = False) -> dict:
+    """``_build.kernel_info`` of the staged float kernel (a dual SpMV or,
+    ``fused``, a fused step; ``delta``: its temporal-delta form)
+    instantiation ``plan`` launches at batch B (every batch tile of its
+    grid)."""
+    source, entry = _STREAM_INFO[fused, delta]
+    return _build.kernel_info(source, entry, (B, plan.smem),
+                              plan.grid * plan.tiles, device)
+
+
 def rb_dual_spmv(vals_x, deltas_x, x, vals_h, deltas_h, h, bias):
     """z = Sx @ x + Sh @ h + bias over the first R = len(bias) rows of
     packed Sx (≥ R, Kx) and Sh (≥ R, Kh); rows past R (``pad_packed``'s
@@ -81,13 +122,15 @@ def rb_dual_spmv(vals_x, deltas_x, x, vals_h, deltas_h, h, bias):
         raise ValueError(f"shape mismatch: Sx {tuple(vals_x.shape)}, Sh "
                          f"{tuple(vals_h.shape)}, bias {tuple(bias.shape)}, "
                          f"x {tuple(x.shape)}, h {tuple(h.shape)}")
+    plan = stream_plan_for(vals_x, vals_h, x, h, R)
     z = torch.empty((B, R), dtype=x.dtype, device=dev)
     lib = _build.load("rb_spmv")
     err = lib.brds_rb_dual_spmv(
         vals_x.data_ptr(), deltas_x.data_ptr(), deltas_x.element_size(), Kx,
         x.data_ptr(), X, vals_h.data_ptr(), deltas_h.data_ptr(),
         deltas_h.element_size(), Kh, h.data_ptr(), H, bias.data_ptr(),
-        z.data_ptr(), B, R, _build.stream(dev))
+        z.data_ptr(), B, R, plan.rows, *stream_args(plan),
+        _build.stream(dev))
     _build.check(err, "rb_dual_spmv")
     _build.LAUNCHES["rb_dual_spmv"] += 1
     return z

@@ -1,8 +1,8 @@
 """Phase profiles of the multi-token scan (``fused_brds_lstm_scan``), the
 fused q8 and delta-q8 steps (``fused_brds_lstm_step_q8``,
 ``fused_brds_delta_lstm_step_q8``), the temporal-delta steps
-(``fused_brds_delta_lstm_step``, ``delta_rb_dual_spmv``) and decode
-attention (``decode_attention``) on the card, by variants that each skip
+(``fused_brds_delta_lstm_step``, ``delta_rb_dual_spmv``), the float steps
+(``fused_brds_lstm_step``, ``rb_dual_spmv``) and decode attention (``decode_attention``) on the card, by variants that each skip
 one phase.
 
     PYTHONPATH=src python -m repro_torch.launch.profile_kernels [--steps 32]
@@ -38,7 +38,10 @@ families empty: the launch, m's read and write, the cells, the staging),
 ``none fired`` (every mask 0: the same bytes, no product that counts),
 ``full`` with the L2 left warm, and three layouts of the same step that
 must give its bits: nothing staged, columns staged in order, and the
-staging's one-column-a-thread form.
+staging's one-column-a-thread form. The float step and dual SpMV
+(``profile_float``): ``full``, ``neither``, ``full`` with the L2 warm,
+the same three layouts and x alone misaligned (the staging's column form
+for x only), bitwise the full run; and the float step at B=32.
 Decode attention at the qwen3-0.6b serve shape: the full call, one slice
 a pair, the length as a host constant, lengths of 1, the full call after
 an L2 flush by a read, and the launch plan's slices x ring stages, beside
@@ -60,8 +63,9 @@ from ..kernels import decode_attention as kdec
 from ..kernels import delta_rb_spmv as kdelta
 from ..kernels import fused_scan as kscan
 from ..kernels import fused_step as kstep
+from ..kernels import rb_spmv as krb
 from ..kernels._build import time_ms
-from ..kernels.plan import DeltaPlan, Q8Plan, staged_cols
+from ..kernels.plan import Q8Plan, StreamPlan, staged_cols
 from ..quant import parse_scheme, quantize, quantize_packed
 
 
@@ -166,25 +170,28 @@ def profile_decode(dev, flush) -> dict:
 
 
 @contextmanager
-def delta_planned_as(change):
-    """The float delta steps (B4, B5) launched on ``change(plan)`` instead
-    of their plan."""
-    planned = kdelta.delta_plan_for
+def stream_planned_as(change):
+    """The staged float kernels (B1, B3, B4, B5) launched on
+    ``change(plan)`` instead of their plan."""
+    planned = krb.stream_plan_for
 
     def plan_for(*a, **k):
         return change(planned(*a, **k))
-    kdelta.delta_plan_for = kstep.delta_plan_for = plan_for
+    mods = (krb, kdelta, kstep)
+    for mod in mods:
+        mod.stream_plan_for = plan_for
     try:
         yield
     finally:
-        kdelta.delta_plan_for = kstep.delta_plan_for = planned
+        for mod in mods:
+            mod.stream_plan_for = planned
 
 
-def _gathered(p: DeltaPlan) -> DeltaPlan:
+def _gathered(p: StreamPlan) -> StreamPlan:
     return replace(p, stage_x=False, stage_h=False, smem=8 * p.rows * p.nb)
 
 
-def _in_order(p: DeltaPlan, X: int, H: int) -> DeltaPlan:
+def _in_order(p: StreamPlan, X: int, H: int) -> StreamPlan:
     xpad, hpad = (staged_cols(n, 0, p.slot_bits) for n in (X, H))
     return replace(p, shift_x=0, shift_h=0, xpad=xpad, hpad=hpad,
                    smem=(xpad + hpad + 2 * p.rows) * p.nb * 4)
@@ -197,6 +204,43 @@ def _misaligned(t: torch.Tensor) -> torch.Tensor:
     out = buf[1:].view_as(t)
     out.copy_(t)
     return out
+
+
+def _outputs(r) -> tuple:
+    return r if isinstance(r, tuple) else (r,)
+
+
+def _profile_staged(kernels: dict, variants: dict, flush) -> dict:
+    """Times each staged float kernel (name -> call(families, operands))
+    on each variant (name -> (families, operands, plan change, whether it
+    must give the full run's bits)), and the full run with the L2 warm."""
+    out = {}
+    for kname, call in kernels.items():
+        times, want = {}, None
+        for name, (fam, acts, change, same) in variants.items():
+            def run(call=call, fam=fam, acts=acts):
+                return call(fam, acts)
+            with stream_planned_as(change) if change else nullcontext():
+                got = run()
+                times[f"{kname} {name}"] = dict(ms=time_ms(run, flush))
+            if name == "full":
+                want = got
+                times[f"{kname} full, L2 warm"] = dict(ms=time_ms(run))
+            if same and not all(torch.equal(a, b) for a, b in zip(
+                    _outputs(got), _outputs(want))):
+                raise SystemExit(f"{kname} {name}: not the full run's bits")
+        for key, r in times.items():
+            print(f"  {key:32} {r['ms']:.4f} ms", flush=True)
+        out.update(times)
+    return out
+
+
+def _families(sx, sh):
+    """Both packed families as (values, deltas), and both emptied (K = 0
+    entries a row: the kernel skips their products)."""
+    full = [(s.values, s.deltas) for s in (sx, sh)]
+    empty = [(v[:, :0].contiguous(), d[:, :0].contiguous()) for v, d in full]
+    return full, empty
 
 
 def profile_delta(sx, sh, B: int, bias, c0, rand, flush) -> dict:
@@ -212,40 +256,57 @@ def profile_delta(sx, sh, B: int, bias, c0, rand, flush) -> dict:
     dx, dh, m = rand(B, X, sc=0.5), rand(B, H, sc=0.3), rand(B, 4 * H)
     ones = (torch.ones_like(dx), torch.ones_like(dh))
     zeros = (torch.zeros_like(dx), torch.zeros_like(dh))
-    empty = [(s.values[:, :0].contiguous(), s.deltas[:, :0].contiguous())
-             for s in (sx, sh)]
-    full = [(s.values, s.deltas) for s in (sx, sh)]
-    odd = tuple(_misaligned(t) for t in (dx, ones[0], dh, ones[1]))
-    # name: (families, (dx, fx, dh, fh), plan change, bitwise the full run)
+    full, empty = _families(sx, sh)
+    fired = (dx, ones[0], dh, ones[1])
+    odd = tuple(_misaligned(t) for t in fired)
     variants = {
-        "full": (full, (dx, ones[0], dh, ones[1]), None, False),
-        "neither": (empty, (dx, ones[0], dh, ones[1]), None, False),
+        "full": (full, fired, None, False),
+        "neither": (empty, fired, None, False),
         "none fired": (full, (dx, zeros[0], dh, zeros[1]), None, False),
-        "gathered": (full, (dx, ones[0], dh, ones[1]), _gathered, True),
-        "columns in order": (full, (dx, ones[0], dh, ones[1]),
-                             lambda p: _in_order(p, X, H), True),
+        "gathered": (full, fired, _gathered, True),
+        "columns in order": (full, fired, lambda p: _in_order(p, X, H),
+                             True),
         "scalar staging": (full, odd, None, True)}
-    out = {}
-    for kname, kern, tail in (
-            ("fused delta step", kstep.fused_brds_delta_lstm_step,
-             (m, bias, c0)),
-            ("delta dual spmv", kdelta.delta_rb_dual_spmv, (m,))):
-        want = None
-        for name, (fam, acts, change, same) in variants.items():
-            def run(kern=kern, fam=fam, acts=acts, tail=tail):
-                return kern(*fam[0], *acts[:2], *fam[1], *acts[2:], *tail)
-            with delta_planned_as(change) if change else nullcontext():
-                got = run()
-                out[f"{kname} {name}"] = dict(ms=time_ms(run, flush))
-            if name == "full":
-                want = got
-                out[f"{kname} full, L2 warm"] = dict(ms=time_ms(run))
-            if same and not all(torch.equal(a, b) for a, b in zip(
-                    got if isinstance(got, tuple) else (got,),
-                    want if isinstance(want, tuple) else (want,))):
-                raise SystemExit(f"{kname} {name}: not the full step's bits")
-        for key in [k for k in out if k.startswith(kname)]:
-            print(f"  {key:32} {out[key]['ms']:.4f} ms", flush=True)
+    kernels = {
+        "fused delta step": lambda fam, a: kstep.fused_brds_delta_lstm_step(
+            *fam[0], *a[:2], *fam[1], *a[2:], m, bias, c0),
+        "delta dual spmv": lambda fam, a: kdelta.delta_rb_dual_spmv(
+            *fam[0], *a[:2], *fam[1], *a[2:], m)}
+    return _profile_staged(kernels, variants, flush)
+
+
+def profile_float(sx, sh, x, h, bias, c0, rand, flush) -> dict:
+    """The float step (B3) and the dual SpMV (B1) on packed Sx, Sh at x,
+    h: ``full``, ``neither`` (both families empty: the launch, the
+    staging, the epilogue and cells), ``full`` with the L2 warm, and the
+    full run with nothing staged, with the columns staged in order, with
+    x and h misaligned (the staging's one-column-a-thread form) and with x
+    alone misaligned (an embedding row handed in as a slice); the last
+    four must give the full run's bits. Then the float step at B=32 (two
+    16-row tiles a launch)."""
+    X, H = sx.ncols, sh.ncols
+    full, empty = _families(sx, sh)
+    acts = (x, h)
+    variants = {
+        "full": (full, acts, None, False),
+        "neither": (empty, acts, None, False),
+        "gathered": (full, acts, _gathered, True),
+        "columns in order": (full, acts, lambda p: _in_order(p, X, H), True),
+        "scalar staging": (full, (_misaligned(x), _misaligned(h)), None,
+                           True),
+        "x misaligned": (full, (_misaligned(x), h), None, True)}
+    kernels = {
+        "fused step": lambda fam, a: kstep.fused_brds_lstm_step(
+            *fam[0], a[0], *fam[1], a[1], bias, c0),
+        "dual spmv": lambda fam, a: krb.rb_dual_spmv(
+            *fam[0], a[0], *fam[1], a[1], bias)}
+    out = _profile_staged(kernels, variants, flush)
+    x32, h32, c32 = rand(32, X), rand(32, H), rand(32, H)
+    out["fused step B=32"] = dict(ms=time_ms(
+        lambda: kstep.fused_brds_lstm_step(*full[0], x32, *full[1], h32,
+                                           bias, c32), flush))
+    print(f"  {'fused step B=32':32} {out['fused step B=32']['ms']:.4f} ms",
+          flush=True)
     return out
 
 
@@ -381,6 +442,9 @@ def main(argv=None) -> int:
     print(f"delta steps X=H={W}, B={B}, Kx={sx.K}, Kh={sh.K}; CUDA events, "
           "median of 30, L2 flushed", flush=True)
     out.update(profile_delta(sx, sh, B, bias, c0, rand, flush))
+    print(f"float steps X=H={W}, B={B}, Kx={sx.K}, Kh={sh.K}; CUDA events, "
+          "median of 30, L2 flushed", flush=True)
+    out.update(profile_float(sx, sh, xs[0], h0, bias, c0, rand, flush))
     out.update(profile_decode(dev, flush))
     print(json.dumps({"card": card, "T": T, "B": B, "width": W,
                       "times": out}), flush=True)

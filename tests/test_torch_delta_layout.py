@@ -1,5 +1,5 @@
 """The arithmetic of the float delta steps' row routine
-(``csrc/brds_common.cuh``: ``delta_rows_block``, ``row_dot_stream``,
+(``csrc/brds_common.cuh``: ``stream_rows_block``, ``row_dot_stream``,
 ``f32_consume``; B4 ``delta_rb_dual_spmv`` and B5
 ``fused_brds_delta_lstm_step``), modelled in numpy on the CPU: a warp's
 rows streamed as groups of G chunks of 32 entries across family and row
@@ -23,7 +23,7 @@ import torch
 from repro.core.packing import pack, pack_from_dense, pad_packed
 from repro.kernels import ops as jops
 from repro_torch.kernels import ops
-from repro_torch.kernels.plan import delta_plan, stage_pos
+from repro_torch.kernels.plan import stage_pos, stream_plan
 from repro_torch.models import packed_from_numpy
 
 from test_torch_plan import _unrotate
@@ -212,7 +212,7 @@ def test_staged_positions_hold_each_columns_masked_delta_bits(B):
     d[0, :4] = (-0.0, -1.5, np.inf, -np.inf)
     f = (rng.random((B, X)) < 0.5).astype(np.float32)
     f[0, :4] = 0.0
-    p = delta_plan(X=X, H=X, R=4 * X, B=B, Kx=75, Kh=150, fused=True)
+    p = stream_plan(X=X, H=X, R=4 * X, B=B, Kx=75, Kh=150, fused=True)
     pos = stage_pos(np.arange(X), p.shift_x, p.slot_bits)
     assert len(set(pos.tolist())) == X and pos.max() < p.xpad
     with np.errstate(invalid="ignore"):   # inf * 0
@@ -243,16 +243,19 @@ def _fma32(acc, v, a):
     return (v.astype(np.float64) * a + acc).astype(np.float32)
 
 
-def row_sums(vals, deltas, K, S, shift, slot_bits, nb, G):
+def row_sums(vals, deltas, K, S, shift, slot_bits, nb, G, rotate=True,
+             narrow=True):
     """The (rows, NB) sums row_dot_stream leaves for one family: lane l's
     accumulators over its entries in order (staged activations read in
-    rotated pieces, unrotated at the row's end), then the xor butterfly."""
+    rotated pieces, unrotated at the row's end; ``rotate=False``: a
+    gathered family, read in batch order from S in column order), then the
+    xor butterfly."""
     rows = vals.shape[0]
     nq = nb // 4
-    entry, live, col = decode(deltas, K, G)
+    entry, live, col = decode(deltas, K, G, narrow)
     v = np.zeros((rows,) + entry.shape[1:], np.float32)
     v.reshape(rows, -1)[:, :K] = vals
-    rot = np.arange(WARP) & (nq - 1)
+    rot = (np.arange(WARP) & (nq - 1)) * rotate
     acc = np.zeros((rows, WARP, nb), np.float32)   # rotated order
     for c in range(entry.shape[1]):
         on = live[0, c]
@@ -292,7 +295,7 @@ def model_m(sx, sh, a, fused: bool):
     H = a["dh"].shape[1]
     R = 4 * H
     Kx, Kh = sx.values.shape[1], sh.values.shape[1]
-    p = delta_plan(X=X, H=H, R=R, B=B, Kx=Kx, Kh=Kh, fused=fused)
+    p = stream_plan(X=X, H=H, R=R, B=B, Kx=Kx, Kh=Kh, fused=fused)
     G = chunks_of(p.nb)
     sums = []
     for s, K, d, f, shift, npad in (

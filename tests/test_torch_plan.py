@@ -1,5 +1,5 @@
-"""The launch plans of the float scan and the fused q8 step
-(``kernels/plan.py``) on the CPU: the occupancy arithmetic (blocks an SM
+"""The launch plans of the float scan, the fused q8 step and the staged
+float kernels (``kernels/plan.py``) on the CPU: the occupancy arithmetic (blocks an SM
 from registers, threads and shared memory; waves of a grid), each plan's
 fit on the card at lstm_ptb's serve shapes, the staged layout's
 addressing, the scan's scratch, and the alignment of the packed q8
@@ -256,7 +256,7 @@ def test_delta_plan_stages_both_families_with_the_fitting_layout(nb):
     one) against three to five unrotated in column order; at NB=4 (one
     piece) the plan keeps columns in order, which no shift beats."""
     B = {4: 4, 8: 8, 16: 16}[nb]
-    p = P.delta_plan(B=B, R=4 * PTB["H"], fused=True, **PTB)
+    p = P.stream_plan(B=B, R=4 * PTB["H"], fused=True, **PTB)
     nq = nb // 4
     assert p.nb == nb and (8 // nq) == 1 << p.slot_bits
     for K, shift in ((PTB["Kx"], p.shift_x), (PTB["Kh"], p.shift_h)):
@@ -281,7 +281,7 @@ def test_delta_plan_is_one_wave_a_batch_tile(B, tiles, fused):
     227 KB, one block an SM at up to 128 registers (the kernels' launch
     bounds), so a batch tile is one wave; 48 gate rows a block (12 hidden
     units, 125 blocks) for both, B4 owning contiguous rows."""
-    p = P.delta_plan(B=B, R=4 * PTB["H"], fused=fused, **PTB)
+    p = P.stream_plan(B=B, R=4 * PTB["H"], fused=fused, **PTB)
     assert p.stage_x and p.stage_h and p.tiles == tiles
     assert p.nb == P.tier(min(B, P.TILE))
     assert p.smem <= P.SMEM_PER_BLOCK
@@ -298,15 +298,15 @@ def test_delta_plan_gathers_the_family_that_does_not_fit():
     the wide one (X=33000, H=97) gathers x and stages h. A family is never
     staged past the block's limit, and the one with more entries a row
     takes the room first."""
-    p = P.delta_plan(X=64, H=4000, R=16000, B=12, Kx=16, Kh=2000,
+    p = P.stream_plan(X=64, H=4000, R=16000, B=12, Kx=16, Kh=2000,
                      fused=True)
     assert p.stage_x and not p.stage_h and p.nb == 16
     assert p.smem == p.xpad * 64 + 2 * p.rows * 64 <= P.SMEM_PER_BLOCK
-    p = P.delta_plan(X=33000, H=97, R=388, B=12, Kx=8250, Kh=49,
+    p = P.stream_plan(X=33000, H=97, R=388, B=12, Kx=8250, Kh=49,
                      fused=False)
     assert not p.stage_x and p.stage_h
     # room for one 1500-wide family at NB=16 but not two: Sh (750 a row)
-    p = P.delta_plan(B=16, R=6000, fused=True, smem_limit=120000, **PTB)
+    p = P.stream_plan(B=16, R=6000, fused=True, smem_limit=120000, **PTB)
     assert p.stage_h and not p.stage_x and p.smem <= 120000
 
 
@@ -314,12 +314,85 @@ def test_delta_plan_gathers_the_family_that_does_not_fit():
 def test_delta_dual_plan_rows_cover_any_R(R):
     """B4 takes any R: 4 x ceil(R / 4 SMs) contiguous rows a block, at most
     one block an SM, the last block partial."""
-    p = P.delta_plan(X=300, H=200, R=R, B=8, Kx=75, Kh=100, fused=False)
+    p = P.stream_plan(X=300, H=200, R=R, B=8, Kx=75, Kh=100, fused=False)
     assert p.rows % 4 == 0 and p.grid <= P.SMS
     assert p.rows * p.grid >= R > p.rows * (p.grid - 1)
     with pytest.raises(ValueError):
-        P.delta_plan(X=300, H=200, R=R, B=8, Kx=75, Kh=100,
+        P.stream_plan(X=300, H=200, R=R, B=8, Kx=75, Kh=100,
                      fused=True)   # the fused step has R = 4H = 800
+
+
+@pytest.mark.parametrize("nb", [4, 8, 16])
+@pytest.mark.parametrize("fused", [True, False])
+def test_float_plan_stages_x_and_h_at_lstm_ptb(nb, fused):
+    """The float step (B3) and dual SpMV (B1) stage x and h as they are, a
+    column's NB float32, as the delta pair stages d·f: at lstm_ptb both
+    families fit at every tier, about 96 KB at NB=8 and 192 KB at NB=16,
+    plus the sums (ax, ah: 2 x 48 rows x NB), within 227 KB."""
+    p = P.stream_plan(B=nb, R=4 * PTB["H"], fused=fused, **PTB)
+    assert p.nb == nb and p.stage_x and p.stage_h
+    staged = (p.xpad + p.hpad) * nb * 4
+    assert staged == {4: 3008 * 16, 8: 3008 * 32, 16: 3004 * 64}[nb]
+    assert p.smem == staged + 2 * p.rows * nb * 4 <= P.SMEM_PER_BLOCK
+    assert (p.rows, p.grid) == (48, 125)
+
+
+@pytest.mark.parametrize("B", [1, 3, 8, 12, 16, 32, 64])
+@pytest.mark.parametrize("fused", [True, False])
+def test_float_plan_is_one_wave_a_batch_tile(B, fused):
+    """B3 and B1 at lstm_ptb: one 512-thread block an SM at up to 128
+    registers (their launch bounds), 125 blocks a 16-row tile, so one wave
+    a tile (B=32: two tiles, 250 blocks in two waves)."""
+    p = P.stream_plan(B=B, R=4 * PTB["H"], fused=fused, **PTB)
+    tiles = -(-B // P.TILE)
+    per_sm = P.blocks_per_sm(128, P.STREAM_THREADS, p.smem)
+    assert p.tiles == tiles and per_sm == 1
+    assert P.waves(p.grid * p.tiles, per_sm) == tiles
+    if fused:
+        assert p.units * p.grid >= PTB["H"] > p.units * (p.grid - 1)
+
+
+@pytest.mark.parametrize("R", [1, 5, 388, 1500, 6000, 6001, 16000])
+def test_float_dual_plan_rows_cover_any_R(R):
+    """B1 serves the format API's dual matvec, any R over lstm_ptb's
+    families: 4 x ceil(R / 4 SMs) contiguous rows a block, at most one
+    block an SM, every row owned once."""
+    p = P.stream_plan(B=8, R=R, fused=False, **PTB)
+    assert p.rows % 4 == 0 and p.grid <= P.SMS
+    assert p.rows * p.grid >= R > p.rows * (p.grid - 1)
+    with pytest.raises(ValueError):
+        P.stream_plan(B=8, R=0, fused=False, **PTB)
+
+
+def test_float_plan_gathers_the_family_that_does_not_fit():
+    """chip_smoke's float shapes: the tall one (B=12, X=64, H=4000) stages
+    x and gathers h (4000 columns of 64 bytes do not fit), the very wide
+    one (B=3, X=70000, H=64) gathers x and stages h, for the fused step
+    and the dual SpMV alike."""
+    for fused in (True, False):
+        p = P.stream_plan(X=64, H=4000, R=16000, B=12, Kx=16, Kh=2000,
+                          fused=fused)
+        assert p.stage_x and not p.stage_h
+        p = P.stream_plan(X=70000, H=64, R=256, B=3, Kx=17500, Kh=32,
+                          fused=fused)
+        assert not p.stage_x and p.stage_h and p.smem <= P.SMEM_PER_BLOCK
+
+
+def test_stream_plan_for_reads_the_operands_and_is_cached(monkeypatch):
+    """The wrappers' plan: X, H and B from the operands (x and h, or the
+    deltas), Kx and Kh from the packed values, the card's SMs; the same
+    object at every launch of a shape (an lru_cache lookup: no host time
+    to speak of in a host-bound decode loop)."""
+    from repro_torch.kernels import rb_spmv as krb
+    monkeypatch.setattr(_build, "sm_count", lambda device: 132)
+    vx, vh = torch.zeros(6000, 375), torch.zeros(6000, 750)
+    x, h = torch.zeros(8, 1500), torch.zeros(8, 1500)
+    p = krb.stream_plan_for(vx, vh, x, h, 6000, fused=True)
+    assert p == P.stream_plan(X=1500, H=1500, R=6000, B=8, Kx=375, Kh=750,
+                              fused=True)
+    assert krb.stream_plan_for(vx, vh, x, h, 6000, fused=True) is p
+    assert krb.stream_args(p) == (1, 1, p.shift_x, p.shift_h, p.slot_bits,
+                                  p.xpad, p.hpad, p.smem)
 
 
 # qwen3-0.6b's decode: B=8, 16 q / 8 kv heads of 128, bf16, max_len 1024
