@@ -6,8 +6,9 @@
 1. Prints the card (``nvidia-smi``), the torch / CUDA versions, and builds
    every CUDA kernel from ``src/repro_torch/csrc`` (one nvcc per source, all
    started together); for the redesigned float scan, fused q8, delta-q8,
-   float and float delta steps and float and delta dual SpMVs at the serve
-   tier and decode attention at qwen3-0.6b's decode shape, prints ptxas's
+   float and float delta steps, float, delta and q8 dual SpMVs and
+   single-family float SpMV at the serve tier and decode attention at
+   qwen3-0.6b's decode shape, prints ptxas's
    registers and spills, the local bytes, shared memory, blocks an SM and
    waves at the launch's grid (decode: its cluster size too), and fails on
    a spill, a local array or (but for decode) a second wave.
@@ -17,8 +18,9 @@
    (B=12: the 16-accumulator tier; int32 deltas for W_x; too wide for the
    float scan and the q8 step to stage x in shared memory) and at a tall
    one (B=12, H=4000: too wide for the float scan and the staged float
-   kernels to stage h; the float and float delta pairs once more at
-   X=70000, past the 65535 columns their packed column scans take), holds
+   kernels to stage h; the float, float delta and q8 pairs and the
+   single-family kernels once more at X=70000, past the 65535 columns the
+   float kernels' packed column scans take), holds
    it against its plain PyTorch version on the same inputs, holds each
    fused step bitwise against its chained kernels, and times the kernel,
    the plain version and the dense library call with L2 flushed. The float kernels
@@ -254,6 +256,12 @@ REDESIGNED = {"fused_scan_kernelILi8ELb1ELb1E":
               "fused_staged_kernel<8, delta> (B5)",
               "delta_dual_staged_kernelILi8ELb0EE":
               "delta_dual_staged_kernel<8> (B4)",
+              "rb_dual_parts_staged_kernelIaLi8ELb0ELb1EE":
+              "rb_dual_parts_staged_kernel<int8, 8, staged> (B7 int8)",
+              "rb_dual_parts_staged_kernelIsLi8ELb0ELb1EE":
+              "rb_dual_parts_staged_kernel<int16, 8, staged> (B7 q1.11)",
+              "rb_spmv_staged_kernelILi8ELb0EE":
+              "rb_spmv_staged_kernel<8> (B11)",
               "decode_cluster_kernelI13__nv_bfloat16Li128ELi2EE":
               "decode_cluster_kernel<bf16, 128, 2 heads> (B14)"}
 
@@ -278,8 +286,9 @@ def ptxas_redesigned(out: str) -> dict:
 
 
 def occupancy(torch, device) -> None:
-    """Prints, for the redesigned B12, B8 and B9 (int8, q1.11), B3, B1, B5
-    and B4 instantiations at the serve tier (B=8, int16 deltas) and B14's at
+    """Prints, for the redesigned B12, B8, B9 and B7 (int8, q1.11), B3,
+    B1, B5, B4 and B11 instantiations at the serve tier (B=8, int16
+    deltas) and B14's at
     qwen3-0.6b's decode shape: ptxas's registers and spill bytes, the
     launch plan's dynamic shared memory and grid, and the blocks an SM and
     waves the runtime's occupancy calculator gives at that grid (beside the
@@ -289,12 +298,12 @@ def occupancy(torch, device) -> None:
     from repro_torch.kernels import _build
     from repro_torch.kernels import decode_attention as kdec
     from repro_torch.kernels import fused_scan as kscan
-    from repro_torch.kernels import fused_step as kstep
     from repro_torch.kernels import plan as P
     from repro_torch.kernels import rb_spmv as krb
+    from repro_torch.kernels import rb_spmv_q8 as kq8
     ptx = {}
     for src in ("fused_scan", "fused_step", "rb_spmv", "delta_rb_spmv",
-                "attention"):
+                "rb_spmv_q8", "attention"):
         ptx.update(ptxas_redesigned(_build.BUILD_LOG.get(src, "")))
     sms = _build.sm_count(device)
     B, X, H, Kx, Kh = SERVE["batch"], 1500, 1500, 375, 750
@@ -308,7 +317,13 @@ def occupancy(torch, device) -> None:
         qp = P.q8_plan(X=X, H=H, B=B, Kx=Kx, Kh=Kh, code_bytes=cb,
                        delta=bool(delta), sms=sms)
         rows.append((key, qp, P.Q8_THREADS,
-                     kstep.q8_info(qp, B, cb, device, delta=bool(delta))))
+                     kq8.q8_info(qp, B, cb, device, delta=bool(delta))))
+    for key, cb in (("rb_dual_parts_staged_kernelIaLi8ELb0ELb1EE", 1),
+                    ("rb_dual_parts_staged_kernelIsLi8ELb0ELb1EE", 2)):
+        qp = P.q8_plan(X=X, H=H, B=B, Kx=Kx, Kh=Kh, code_bytes=cb, R=4 * H,
+                       sms=sms)
+        rows.append((key, qp, P.Q8_THREADS,
+                     kq8.q8_info(qp, B, cb, device, fused=False)))
     for key, fused, delta in (
             ("fused_staged_kernelILi8ELb0ELb0EE", True, False),
             ("rb_dual_staged_kernelILi8ELb0EE", False, False),
@@ -319,6 +334,9 @@ def occupancy(torch, device) -> None:
         rows.append((key, lp, P.STREAM_THREADS,
                      krb.stream_info(lp, B, device, fused=fused,
                                      delta=delta)))
+    lp = P.stream_plan(X=X, R=4 * H, B=B, Kx=Kx, sms=sms)
+    rows.append(("rb_spmv_staged_kernelILi8ELb0EE", lp, P.STREAM_THREADS,
+                 krb.stream_info(lp, B, device)))
     # B14 at the qwen3-0.6b decode shape: B=8, 16 q / 8 kv heads of 128,
     # bf16, a 1024-row cache
     dp = P.decode_plan(B=TSERVE["batch"], Hkv=8, G=2, S=TSERVE["max_len"],
@@ -434,11 +452,14 @@ def check_kernels(torch, device, flush):
         check_scans(torch, ops, err, tag, cs)
     check_batch_tiles(torch, ops, err)
     # past 65535 columns the staged float kernels scan one chunk of column
-    # deltas a word (below, two): int32 deltas, x gathered
+    # deltas a word (below, two): int32 deltas, x gathered (B11 too), and
+    # B7 gathers its codes
     very_wide = make_case(torch, device, B=3, X=70000, H=64, spar_x=0.75,
                           spar_h=0.5, seed=9)
     check_float(torch, ops, err, "very wide", very_wide)
     check_delta(torch, ops, err, "very wide", very_wide)
+    check_q8(torch, ops, ref, kq8, err, "very wide", very_wide)
+    check_single(torch, ops, err, "very wide", very_wide)
     # the fused q8 and delta-q8 steps (B8, B9) and the float and float
     # delta pairs (B1, B3, B4, B5) at the other batch tiers, full width:
     # B=1 and 16 in one tile, 64 in four (rows of 375 and 750 entries,

@@ -10,22 +10,25 @@
 //    32 partial sums. Float and integer addition commute, so every lane ends
 //    with the same total. What a packed entry is multiplied by is a policy
 //    (F32Act, DeltaAct, CodeAct): one routine serves the single-family
-//    kernels (rb_spmv, delta_rb_spmv, rb_spmv_q8), the chained q8 pair
-//    (rb_dual_parts_q8) and the delta scan. The float scan
-//    (fused_scan.cu) keeps this order with its operands moved: columns
-//    decoded once, activations staged in shared memory.
+//    kernels not yet redesigned (delta_rb_spmv, rb_spmv_q8) and the delta
+//    scan. The float scan (fused_scan.cu) keeps this order with its
+//    operands moved: columns decoded once, activations staged in shared
+//    memory.
 //  - row_dot_stream keeps row_dot's order with the operands moved (the
-//    float steps and dual SpMV, fused_step.cu and rb_spmv.cu, and their
-//    delta forms, fused_step.cu and delta_rb_spmv.cu: stream_rows_block):
-//    x and h, or the masked deltas, staged in shared memory, a warp's rows
-//    streamed with their next loads in flight.
-//  - row_dot_q8x4 is the integer-code row of the fused q8 step: each lane
-//    takes four consecutive entries (one load of codes, one of deltas),
-//    and __dp4a multiplies int8 codes four at a time. Integer sums are
-//    exact modulo 2^32 in any order, so this routine may split a row
-//    otherwise than row_dot and still equal its chained pair (rb_spmv_q8.cu,
-//    which keeps row_dot) bit for bit; float sums may not, which is why
-//    the float kernels keep row_dot's order.
+//    float steps and dual SpMV, fused_step.cu and rb_spmv.cu, their delta
+//    forms, fused_step.cu and delta_rb_spmv.cu, and in its single-family
+//    form rb_spmv: stream_rows_block): x and h, or the masked deltas,
+//    staged in shared memory, a warp's rows streamed with their next loads
+//    in flight.
+//  - row_dot_q8x4 is the integer-code row of the staged q8 kernels (the
+//    fused q8 and delta-q8 steps and their chained gate kernel
+//    rb_dual_parts_q8: q8_rows_block): each lane takes four consecutive
+//    entries (one load of codes, one of deltas), and __dp4a multiplies
+//    int8 codes four at a time. Integer sums are exact modulo 2^32 in any
+//    order, so this routine may split a row otherwise than row_dot and
+//    still equal the plain version (and rb_spmv_q8, which keeps row_dot)
+//    bit for bit; float sums may not, which is why the float kernels keep
+//    row_dot's order.
 //  - the epilogues (delta_update, dequant) and lstm_cell round every
 //    product and sum on its own (__fmul_rn, __fadd_rn), so the compiler
 //    cannot contract a product into the following add in one kernel and
@@ -495,9 +498,9 @@ __device__ __forceinline__ void q8x4_consume(
 // l, l+32, ... of four consecutive entries (q8x4_chunks): one load of four
 // codes and one of four deltas a chunk, G chunks loaded before any is
 // used, the sums in another order than row_dot's and, modulo 2^32, equal.
-// The fused q8 kernel also chains the loads of a warp's rows itself
-// (fused_step.cu, q8_rows_stream, for int16 deltas); this single-row form
-// serves any delta width.
+// The staged q8 kernels also chain the loads of a warp's rows
+// (q8_rows_stream, for int16 deltas); this single-row form serves any
+// delta width.
 template <int NB, int G, typename Fetch>
 __device__ __forceinline__ void row_dot_q8x4(
     const typename Fetch::CT* __restrict__ codes,
@@ -513,10 +516,249 @@ __device__ __forceinline__ void row_dot_q8x4(
   warp_sum(acc);
 }
 
+// The partial-sum memory update m' = (m + ax) + ah, the reference's order;
+// ax and ah are the two families' float partial sums (for integer codes,
+// after dequant: the raw accumulators are integer sums).
+__device__ __forceinline__ float delta_update(float m, float ax, float ah) {
+  return __fadd_rn(__fadd_rn(m, ax), ah);
+}
+
+// One dequant multiply per row: the int32 sum times the combined
+// (row x activation) scale.
+__device__ __forceinline__ float dequant(uint32_t acc, float comb) {
+  return __fmul_rn(__int2float_rn(static_cast<int>(acc)), comb);
+}
+
+// ------------------------------------------- the staged q8 rows
+//
+// The block-level routine of the staged q8 kernels: the fused q8 and
+// delta-q8 steps (fused_step.cu, B8 and B9) and their chained gate
+// kernel, the dual SpMV rb_dual_parts_q8 (rb_spmv_q8.cu, B7). A block
+// stages its tile's activation codes (qx, then qh) in shared memory once,
+// or gathers them from global memory when they do not fit, then runs its
+// rows with row_dot_q8x4's arithmetic (four entries a lane, __dp4a for
+// int8 codes); integer sums are exact in any order, so every kernel on it
+// equals rb_spmv_q8's plain version bit for bit. What a row's two
+// dequantized sums become is the emit policy's: zx and zh apart in shared
+// memory (B7, B9: Q8Apart) or z = (zx + zh) + bias (B8).
+
+constexpr int kQ8Threads = 512;   // one block an SM (kernels/plan.py)
+constexpr int kQ8Warps = kQ8Threads / kWarp;
+
+// A staged q8 kernel's inputs: the two packed code families with their
+// combined (row x activation) dequant scales, the activation codes qx
+// (B, X) and qh (B, H), and the staged layout of kernels/plan.py::q8_plan
+// (stage_pos's shifts and slot bits, the padded column counts).
+template <typename CT>
+struct Q8In {
+  const CT* vx;
+  const void* ix;     // Sx's deltas, ixb bytes each
+  int ixb, kx;
+  const float* comb_x;
+  const CT* qx;       // (B, X)
+  int X;
+  const CT* vh;
+  const void* ih;
+  int ihb, kh;
+  const float* comb_h;
+  const CT* qh;       // (B, H)
+  int H;
+  int B;
+  int shift_x, shift_h, slot_bits, xpad, hpad;
+};
+
+// The activation codes moved to the block's batch tile (blockIdx.y).
+template <typename CT>
+__device__ __forceinline__ void tile_q8_in(Q8In<CT>& in) {
+  in.qx = tile_rows(in.qx, in.X);
+  in.qh = tile_rows(in.qh, in.H);
+  in.B = tile_batch(in.B);
+}
+
+// 32-bit words of dynamic shared memory the staged codes take (none when
+// they are gathered).
+template <int NB, bool kStaged, typename CT>
+__device__ __forceinline__ size_t q8_staged_words(const Q8In<CT>& in) {
+  return kStaged ? (size_t)(in.xpad + in.hpad) * StagedCodes<CT, NB>::kWords
+                 : 0;
+}
+
+// A row's constants: the two families' combined dequant scales and the
+// emit policy's own (Emit::Row, read by Emit::consts), loaded while the
+// row's first loads are in flight.
+template <typename Emit>
+struct Q8Consts {
+  float cx, ch;
+  typename Emit::Row e;
+};
+
+template <typename CT, typename Emit>
+__device__ __forceinline__ Q8Consts<Emit> q8_consts(const Q8In<CT>& in,
+                                                    const Emit& emit,
+                                                    int row) {
+  return {in.comb_x[row], in.comb_h[row], emit.consts(row)};
+}
+
+// The emit policy of B7 and B9: local row i's zx and zh, lane b < B for
+// batch row b, apart in shared memory (i * NB + b).
+struct Q8Apart {
+  struct Row {};
+  float* zx;
+  float* zh;
+  int NB, B;
+  __device__ __forceinline__ Row consts(int) const { return {}; }
+  __device__ __forceinline__ void operator()(int i, float x, float h,
+                                             Row) const {
+    const int lane = threadIdx.x & (kWarp - 1);
+    if (lane >= B) return;
+    zx[i * NB + lane] = x;
+    zh[i * NB + lane] = h;
+  }
+};
+
+// The warp's rows i = warp, warp + 16, ... < nrows (packed row row_of(i)
+// of both families), each family's row in turn with row_dot_q8x4: any
+// delta widths.
+template <int NB, typename CT, typename Fetch, typename RowOf, typename Emit>
+__device__ __forceinline__ void q8_rows(const Q8In<CT>& in, int nrows,
+                                        const RowOf& row_of, const Fetch& fx,
+                                        const Fetch& fh, const Emit& emit) {
+  for (int i = threadIdx.x / kWarp; i < nrows; i += kQ8Warps) {
+    const int row = row_of(i);
+    const Q8Consts<Emit> rc = q8_consts(in, emit, row);
+    uint32_t ax[NB] = {}, ah[NB] = {};
+    row_dot_q8x4<NB, 4>(in.vx, in.ix, in.ixb, (size_t)row * in.kx, in.kx, fx,
+                        ax);
+    row_dot_q8x4<NB, 4>(in.vh, in.ih, in.ihb, (size_t)row * in.kh, in.kh, fh,
+                        ah);
+    emit(i, dequant(lane_value(ax), rc.cx), dequant(lane_value(ah), rc.ch),
+         rc.e);
+  }
+}
+
+// The same rows when both families' deltas are of type DT (lstm_ptb's:
+// int16), as one stream of G-chunk groups: row i's Sx segment, its Sh
+// segment, then row i + 16's, ...; a group's loads are issued before the
+// group ahead of it is used, across segment and row boundaries, so a warp
+// always has loads in flight.
+template <int NB, typename DT, typename CT, typename Fetch, typename RowOf,
+          typename Emit>
+__device__ __forceinline__ void q8_rows_stream(const Q8In<CT>& in, int nrows,
+                                               const RowOf& row_of,
+                                               const Fetch& fx,
+                                               const Fetch& fh,
+                                               const Emit& emit) {
+  constexpr int G = sizeof(CT) == 1 ? 8 : 4;   // chunks a lane loads at once
+  int i = threadIdx.x / kWarp;
+  if (i >= nrows) return;
+  auto off_of = [&](int i, int part) {
+    return (size_t)row_of(i) * (part ? in.kh : in.kx);
+  };
+  auto load = [&](int i, int part, int c0, Q8Group<CT, DT, G>& g) {
+    if (part)
+      q8x4_load(in.vh, in.ih, in.ihb, off_of(i, 1), in.kh, c0, g);
+    else
+      q8x4_load(in.vx, in.ix, in.ixb, off_of(i, 0), in.kx, c0, g);
+  };
+  Q8Group<CT, DT, G> cur, nxt;
+  int part = 0, c0 = 0, carry = 0;
+  load(i, part, c0, cur);
+  Q8Consts<Emit> rc = q8_consts(in, emit, row_of(i)), rn = rc;
+  uint32_t acc[NB] = {};
+  float zx = 0.0f;
+  for (;;) {
+    const int nchunks = q8x4_chunks(off_of(i, part), part ? in.kh : in.kx);
+    // the group after this one
+    int i2 = i, part2 = part, c2 = c0 + G * kWarp;
+    if (c2 >= nchunks) {
+      c2 = 0;
+      part2 = part ^ 1;
+      if (part) i2 += kQ8Warps;
+    }
+    const bool more = i2 < nrows;
+    if (more) {
+      load(i2, part2, c2, nxt);
+      if (i2 != i) rn = q8_consts(in, emit, row_of(i2));
+    }
+    const Fetch f = part ? fh : fx;   // a copy: no address of either taken
+    q8x4_consume<NB>(cur, 0, c0, nchunks, carry, f, acc);
+    if (c2 == 0) {   // the segment is complete
+      warp_sum(acc);
+      const float dq = dequant(lane_value(acc), part ? rc.ch : rc.cx);
+      if (part) emit(i, zx, dq, rc.e);
+      zx = dq;
+#pragma unroll
+      for (int b = 0; b < NB; ++b) acc[b] = 0;
+      carry = 0;
+    }
+    if (!more) break;
+    if (i2 != i) rc = rn;
+    cur = nxt;
+    i = i2;
+    part = part2;
+    c0 = c2;
+  }
+}
+
+// The block's rows (local row i < nrows at packed row row_of(i), warp w
+// taking w, w + 16, ...; kQ8Threads threads): stages the tile's codes
+// (kStaged: column c's NB codes, zero past B, as one vector at
+// stage_pos(c), qx's then qh's, in the kWords words a position after
+// `smem`), then streams the rows when both families' deltas are int16,
+// else takes them a row at a time; emit(i, zx, zh, row constants) after
+// each row. Does not end with a barrier.
+template <int NB, bool kStaged, typename CT, typename RowOf, typename Emit>
+__device__ __forceinline__ void q8_rows_block(const Q8In<CT>& in,
+                                              uint32_t* smem, int nrows,
+                                              const RowOf& row_of,
+                                              const Emit& emit) {
+  using Staged = StagedCodes<CT, NB>;
+  constexpr int kW = Staged::kWords;
+  if constexpr (kStaged) {
+    uint32_t* sx = smem;
+    uint32_t* sh = sx + (size_t)in.xpad * kW;
+    constexpr int per = 4 / sizeof(CT), bits = 8 * sizeof(CT);
+    constexpr uint32_t mask = (1u << bits) - 1;
+    const int n = in.X + in.H, B = in.B;
+#pragma unroll 3
+    for (int c = threadIdx.x; c < n; c += kQ8Threads) {
+      const bool isx = c < in.X;
+      const int col = isx ? c : c - in.X;
+      const CT* q = isx ? in.qx : in.qh;
+      const int ld = isx ? in.X : in.H;
+      uint32_t v[kW];
+#pragma unroll
+      for (int i = 0; i < kW; ++i) v[i] = 0;
+#pragma unroll
+      for (int b = 0; b < NB; ++b)
+        if (b < B)
+          v[b / per] |= (static_cast<uint32_t>(__ldg(q + b * ld + col)) & mask)
+                        << (bits * (b % per));
+      uint32_t* dst = (isx ? sx : sh) +
+                      stage_pos(col, isx ? in.shift_x : in.shift_h,
+                                in.slot_bits) * kW;
+#pragma unroll
+      for (int i = 0; i < kW; ++i) dst[i] = v[i];
+    }
+    __syncthreads();
+    const Staged fx{sx, in.shift_x, in.slot_bits};
+    const Staged fh{sh, in.shift_h, in.slot_bits};
+    if (in.ixb == 2 && in.ihb == 2)
+      q8_rows_stream<NB, int16_t>(in, nrows, row_of, fx, fh, emit);
+    else
+      q8_rows<NB>(in, nrows, row_of, fx, fh, emit);
+  } else {
+    using Global = GlobalCodes<CT, NB>;
+    q8_rows<NB>(in, nrows, row_of, Global{in.qx, in.X, in.B},
+                Global{in.qh, in.H, in.B}, emit);
+  }
+}
+
 // ------------------------------------------- row_dot's order, streamed
 //
 // row_dot_stream is row_dot with its operands moved (the float steps and
-// dual SpMV, B3 and B1, and their delta forms, B5 and B4, run on it): the
+// dual SpMV, B3 and B1, their delta forms, B5 and B4, and the single-family
+// SpMV B11 run on it): the
 // operand a packed entry multiplies (x or h, or the masked deltas) comes
 // from shared memory, a column's NB floats staged once a block at
 // stage_pos, or, for a family too wide to stage, from global memory as
@@ -837,10 +1079,11 @@ struct StreamActs {
 
 // A warp's rows i = first, first + step, ... < nrows (packed row
 // row_of(i) of both families): each row's Sx segment, then its Sh
-// segment, as one stream of G-chunk groups. `cur` holds the first group
-// (row `first`'s Sx chunks 0 .. G-1), loaded by the caller. After each row
-// emit(i, ax, ah), lane b holding batch row b's two sums.
-template <int NB, int G, typename Acts, typename RowOf, typename Emit>
+// segment, as one stream of G-chunk groups (NF = 1: the Sx segments
+// alone; fh and ah are not read). `cur` holds the first group (row
+// `first`'s Sx chunks 0 .. G-1), loaded by the caller. After each row
+// emit(i, ax, ah), lane b holding batch row b's two sums (NF = 1: ah 0).
+template <int NB, int G, int NF, typename Acts, typename RowOf, typename Emit>
 __device__ __forceinline__ void row_dot_stream(
     const F32Family& fx, const F32Family& fh, const Acts& ax,
     const Acts& ah, int first, int nrows, int step, const RowOf& row_of,
@@ -861,8 +1104,8 @@ __device__ __forceinline__ void row_dot_stream(
     int i2 = i, part2 = part, c2 = c0 + G;
     if (c2 >= nchunks) {
       c2 = 0;
-      part2 = part ^ 1;
-      if (part) i2 += step;
+      part2 = NF == 2 ? part ^ 1 : 0;
+      if (NF == 1 || part) i2 += step;
     }
     const bool more = i2 < nrows;
     if (more) {
@@ -878,7 +1121,10 @@ __device__ __forceinline__ void row_dot_stream(
       if (a.is_staged) unrotate<NB / 4>(acc, rot);
       warp_sum(acc);
       const float v = lane_value(acc);
-      if (part) emit(i, sx, v);
+      if constexpr (NF == 1)
+        emit(i, v, 0.0f);
+      else if (part)
+        emit(i, sx, v);
       sx = v;
 #pragma unroll
       for (int b = 0; b < NB; ++b) acc[b] = 0.0f;
@@ -890,19 +1136,6 @@ __device__ __forceinline__ void row_dot_stream(
     part = part2;
     c0 = c2;
   }
-}
-
-// The partial-sum memory update m' = (m + ax) + ah, the reference's order;
-// ax and ah are the two families' float partial sums (for integer codes,
-// after dequant: the raw accumulators are integer sums).
-__device__ __forceinline__ float delta_update(float m, float ax, float ah) {
-  return __fadd_rn(__fadd_rn(m, ax), ah);
-}
-
-// One dequant multiply per row: the int32 sum times the combined
-// (row x activation) scale.
-__device__ __forceinline__ float dequant(uint32_t acc, float comb) {
-  return __fmul_rn(__int2float_rn(static_cast<int>(acc)), comb);
 }
 
 // Activation parameters of the cell: exact sigmoid/tanh, or the paper's
@@ -971,11 +1204,12 @@ struct StreamIn {
   int stage_x, stage_h, shift_x, shift_h, slot_bits, xpad, hpad;
 };
 
-// The operands moved to the block's batch tile (blockIdx.y).
-template <typename Src>
+// The operands moved to the block's batch tile (blockIdx.y); NF = 1: x
+// alone.
+template <int NF = 2, typename Src>
 __device__ __forceinline__ void tile_stream_in(StreamIn<Src>& in) {
   in.ax.tile(in.X);
-  in.ah.tile(in.H);
+  if constexpr (NF == 2) in.ah.tile(in.H);
   in.B = tile_batch(in.B);
 }
 
@@ -992,8 +1226,9 @@ __device__ __forceinline__ size_t staged_float4s(const StreamIn<Src>& in,
 // stages, then runs the warps' rows (local row i < nrows at packed row
 // row_of(i), warp w taking w, w + 16, ...) through row_dot_stream and
 // leaves row i's sums Sx@ax in zx[i * NB + b] and Sh@ah in zh[i * NB + b]
-// for b < B. Ends with a barrier.
-template <int NB, typename Src, typename RowOf>
+// for b < B. NF = 1: the single-family form (B11 rb_spmv), Sx@ax alone
+// (in's h family is not read, zh not written). Ends with a barrier.
+template <int NB, int NF = 2, typename Src, typename RowOf>
 __device__ __forceinline__ void stream_rows_block(const StreamIn<Src>& in,
                                                   float4* smem, int nrows,
                                                   const RowOf& row_of,
@@ -1009,7 +1244,7 @@ __device__ __forceinline__ void stream_rows_block(const StreamIn<Src>& in,
   if (warp < nrows) f32_load(fx, (size_t)row_of(warp) * in.kx, 0, cur);
   if (in.stage_x)
     stage_family<NB>(sx, in.ax, in.X, in.B, in.shift_x, in.slot_bits);
-  if (in.stage_h)
+  if (NF == 2 && in.stage_h)
     stage_family<NB>(sh, in.ah, in.H, in.B, in.shift_h, in.slot_bits);
   __syncthreads();
   using Acts = StreamActs<NB, Gathered<NB, typename Src::Gather>>;
@@ -1018,13 +1253,13 @@ __device__ __forceinline__ void stream_rows_block(const StreamIn<Src>& in,
   const Acts ah{StagedF32<NB>{sh, in.shift_h, in.slot_bits},
                 {in.ah.gather(in.H), in.B}, in.stage_h};
   const int B = in.B;
-  row_dot_stream<NB, G>(
+  row_dot_stream<NB, G, NF>(
       fx, fh, ax, ah, warp, nrows, nwarps, row_of, cur,
       [&](int i, float a, float h) {
         const int lane = threadIdx.x & (kWarp - 1);
         if (lane < B) {
           zx[i * NB + lane] = a;
-          zh[i * NB + lane] = h;
+          if constexpr (NF == 2) zh[i * NB + lane] = h;
         }
       });
   __syncthreads();

@@ -34,13 +34,15 @@
 //    and m read there only. B12 (fused_scan.cu) keeps the same order, so
 //    it equals T launches of the float step.
 //  - The q8 and delta-q8 steps (fused_step_q8_kernel, the delta step a
-//    compile-time flag): one block an SM with `units` hidden units,
-//    activation codes staged in shared memory, four entries a lane
-//    (brds::row_dot_q8x4's arithmetic, __dp4a for int8 codes). Their
-//    integer sums may take another order than rb_dual_parts_q8's and stay
-//    exact, so the float epilogue sees the same values; the delta step
-//    keeps zx and zh apart in shared memory and makes m' and z in the
-//    epilogue, m read there only.
+//    compile-time flag): one block an SM with `units` hidden units
+//    (kernels/plan.py::q8_plan), the gate rows run by brds::q8_rows_block,
+//    the routine of the chained rb_dual_parts_q8: activation codes staged
+//    in shared memory, four entries a lane (brds::row_dot_q8x4's
+//    arithmetic, __dp4a for int8 codes), a warp's rows streamed with
+//    their loads in flight. Integer sums are exact in any order, so the
+//    float epilogue sees the chained values; the q8 step makes z = (zx +
+//    zh) + bias as each row ends, the delta step keeps zx and zh apart in
+//    shared memory and makes m' and z in the epilogue, m read there only.
 //
 // Bound: bytes, as the chained gate kernels: the packed weights are read
 // once; z, c and h never round-trip through device memory between the two
@@ -54,229 +56,76 @@
 namespace {
 
 // The fused q8 step's arguments (one struct: the kernel takes one of
-// every instantiation's parameters by value).
+// every instantiation's parameters by value): the staged q8 routine's
+// inputs, then the cell's and the delta step's.
 template <typename CT>
 struct Q8Args {
-  const CT* vx;
-  const void* ix;     // Sx's deltas, ixb bytes each
-  int ixb, kx;
-  const float* comb_x;
-  const CT* qx;       // (B, X)
-  int X;
-  const CT* vh;
-  const void* ih;
-  int ihb, kh;
-  const float* comb_h;
-  const CT* qh;       // (B, H)
-  int H;
+  brds::Q8In<CT> in;
   const float* bias;
   const float* c_prev;
   float* c_out;
   float* h_out;
   const float* m;     // (B, 4H): the delta step's partial-sum memory
   float* m_out;       // ... and m' (null for the plain q8 step)
-  int B;
   int units;          // hidden units a block
-  int shift_x, shift_h, slot_bits, xpad, hpad;   // the staged layout
   brds::Act act;
 };
-
-constexpr int kQ8Threads = 512;
-constexpr int kQ8Warps = kQ8Threads / brds::kWarp;
 
 // Row i of a block's 4 * units gate rows: unit i / 4, gate i % 4.
 __device__ __forceinline__ int gate_row(int i, int H, int j0) {
   return (i & 3) * H + j0 + (i >> 2);
 }
 
-// The per-row constants of z: the two families' combined dequant scales
-// and the bias.
-struct Q8Row {
-  float cx, ch, bb;
-};
-
-template <typename CT>
-__device__ __forceinline__ Q8Row q8_row_consts(const Q8Args<CT>& a, int row) {
-  return Q8Row{a.comb_x[row], a.comb_h[row], a.bias[row]};
-}
-
-// What gate row i's two dequantized sums leave in shared memory, lane
-// b < B for batch row b: the q8 step's chained z = (zx + zh) + bias in zs;
-// the delta step's zx in zs and zh in zh_s (m' and z are made in the
-// epilogue, after every row's loads).
-template <bool kDelta>
-struct Q8Emit {
+// The q8 step's emit policy: gate row i's chained z = (zx + zh) + bias in
+// zs, lane b < B for batch row b; the bias is the row's constant.
+struct Q8Sum {
+  using Row = float;
   float* zs;
-  float* zh_s;
+  const float* bias;
   int NB, B;
+  __device__ __forceinline__ float consts(int row) const { return bias[row]; }
   __device__ __forceinline__ void operator()(int i, float zx, float zh,
                                              float bb) const {
     const int lane = threadIdx.x % brds::kWarp;
-    if (lane >= B) return;
-    if constexpr (kDelta) {
-      zs[i * NB + lane] = zx;
-      zh_s[i * NB + lane] = zh;
-    } else {
-      zs[i * NB + lane] = __fadd_rn(__fadd_rn(zx, zh), bb);
-    }
+    if (lane < B) zs[i * NB + lane] = __fadd_rn(__fadd_rn(zx, zh), bb);
   }
 };
 
-// The warp's gate rows i = warp, warp + 16, ..., each family's row in
-// turn with brds::row_dot_q8x4: any delta widths.
-template <int NB, typename CT, typename Fetch, typename Emit>
-__device__ __forceinline__ void q8_rows(const Q8Args<CT>& a, int j0,
-                                        const Fetch& fx, const Fetch& fh,
-                                        const Emit& emit) {
-  const int nrows = 4 * min(a.units, a.H - j0);
-  for (int i = threadIdx.x / brds::kWarp; i < nrows; i += kQ8Warps) {
-    const int row = gate_row(i, a.H, j0);
-    const Q8Row rc = q8_row_consts(a, row);
-    uint32_t ax[NB] = {}, ah[NB] = {};
-    brds::row_dot_q8x4<NB, 4>(a.vx, a.ix, a.ixb, (size_t)row * a.kx, a.kx,
-                              fx, ax);
-    brds::row_dot_q8x4<NB, 4>(a.vh, a.ih, a.ihb, (size_t)row * a.kh, a.kh,
-                              fh, ah);
-    emit(i, brds::dequant(brds::lane_value(ax), rc.cx),
-         brds::dequant(brds::lane_value(ah), rc.ch), rc.bb);
-  }
-}
-
-// The same rows when both families' deltas are of type DT (lstm_ptb's:
-// int16), as one stream of G-chunk groups: row i's Sx segment, its Sh
-// segment, then row i + 16's, ...; a group's loads are issued before the
-// group ahead of it is used, across segment and row boundaries, so a warp
-// always has loads in flight.
-template <int NB, typename DT, typename CT, typename Fetch, typename Emit>
-__device__ __forceinline__ void q8_rows_stream(const Q8Args<CT>& a, int j0,
-                                               const Fetch& fx,
-                                               const Fetch& fh,
-                                               const Emit& emit) {
-  constexpr int G = sizeof(CT) == 1 ? 8 : 4;   // chunks a lane loads at once
-  const int H = a.H;
-  const int nrows = 4 * min(a.units, H - j0);
-  int i = threadIdx.x / brds::kWarp;
-  if (i >= nrows) return;
-  auto off_of = [&](int i, int part) {
-    return (size_t)gate_row(i, H, j0) * (part ? a.kh : a.kx);
-  };
-  auto load = [&](int i, int part, int c0, brds::Q8Group<CT, DT, G>& g) {
-    if (part)
-      brds::q8x4_load(a.vh, a.ih, a.ihb, off_of(i, 1), a.kh, c0, g);
-    else
-      brds::q8x4_load(a.vx, a.ix, a.ixb, off_of(i, 0), a.kx, c0, g);
-  };
-  brds::Q8Group<CT, DT, G> cur, nxt;
-  int part = 0, c0 = 0, carry = 0;
-  load(i, part, c0, cur);
-  Q8Row rc = q8_row_consts(a, gate_row(i, H, j0)), rn = rc;
-  uint32_t acc[NB] = {};
-  float zx = 0.0f;
-  for (;;) {
-    const int nchunks =
-        brds::q8x4_chunks(off_of(i, part), part ? a.kh : a.kx);
-    // the group after this one
-    int i2 = i, part2 = part, c2 = c0 + G * brds::kWarp;
-    if (c2 >= nchunks) {
-      c2 = 0;
-      part2 = part ^ 1;
-      if (part) i2 += kQ8Warps;
-    }
-    const bool more = i2 < nrows;
-    if (more) {
-      load(i2, part2, c2, nxt);
-      if (i2 != i) rn = q8_row_consts(a, gate_row(i2, H, j0));
-    }
-    const Fetch f = part ? fh : fx;   // a copy: no address of either taken
-    brds::q8x4_consume<NB>(cur, 0, c0, nchunks, carry, f, acc);
-    if (c2 == 0) {   // the segment is complete
-      brds::warp_sum(acc);
-      const float dq =
-          brds::dequant(brds::lane_value(acc), part ? rc.ch : rc.cx);
-      if (part) emit(i, zx, dq, rc.bb);
-      zx = dq;
-#pragma unroll
-      for (int b = 0; b < NB; ++b) acc[b] = 0;
-      carry = 0;
-    }
-    if (!more) break;
-    if (i2 != i) rc = rn;
-    cur = nxt;
-    i = i2;
-    part = part2;
-    c0 = c2;
-  }
-}
-
 // kDelta: the delta step (B9), whose codes are those of the masked deltas;
-// its epilogue makes m' = (m + zx) + zh and z = m' + bias per gate row and
-// batch row, as the chained rb_dual_parts_q8 -> m + zx + zh -> + bias.
+// its rows leave zx and zh apart (brds::Q8Apart) and its epilogue makes
+// m' = (m + zx) + zh and z = m' + bias per gate row and batch row, as the
+// chained rb_dual_parts_q8 -> m + zx + zh -> + bias.
 template <typename CT, int NB, bool kTiled, bool kStaged, bool kDelta>
-__global__ void __launch_bounds__(kQ8Threads, 1)
+__global__ void __launch_bounds__(brds::kQ8Threads, 1)
 fused_step_q8_kernel(Q8Args<CT> a) {
+  const int H = a.in.H;
   if constexpr (kTiled) {
-    a.qx = brds::tile_rows(a.qx, a.X);
-    a.qh = brds::tile_rows(a.qh, a.H);
-    a.c_prev = brds::tile_rows(a.c_prev, a.H);
-    a.c_out = brds::tile_rows(a.c_out, a.H);
-    a.h_out = brds::tile_rows(a.h_out, a.H);
+    brds::tile_q8_in(a.in);
+    a.c_prev = brds::tile_rows(a.c_prev, H);
+    a.c_out = brds::tile_rows(a.c_out, H);
+    a.h_out = brds::tile_rows(a.h_out, H);
     if constexpr (kDelta) {
-      a.m = brds::tile_rows(a.m, 4 * a.H);
-      a.m_out = brds::tile_rows(a.m_out, 4 * a.H);
+      a.m = brds::tile_rows(a.m, 4 * H);
+      a.m_out = brds::tile_rows(a.m_out, 4 * H);
     }
-    a.B = brds::tile_batch(a.B);
   }
-  using Staged = brds::StagedCodes<CT, NB>;
-  constexpr int kW = Staged::kWords;
   extern __shared__ uint4 q8_smem[];
-  uint32_t* sx = reinterpret_cast<uint32_t*>(q8_smem);
-  uint32_t* sh = sx + (kStaged ? static_cast<size_t>(a.xpad) * kW : 0);
+  uint32_t* codes = reinterpret_cast<uint32_t*>(q8_smem);
   float* zs = reinterpret_cast<float*>(
-      sh + (kStaged ? static_cast<size_t>(a.hpad) * kW : 0));
-  const int H = a.H, B = a.B;
-  const int j0 = blockIdx.x * a.units;
-  if constexpr (kStaged) {
-    // column c's NB codes (zero past B) as one vector at stage_pos(c)
-    constexpr int per = 4 / sizeof(CT), bits = 8 * sizeof(CT);
-    constexpr uint32_t mask = (1u << bits) - 1;
-    const int n = a.X + H;
-#pragma unroll 3
-    for (int c = threadIdx.x; c < n; c += kQ8Threads) {
-      const bool isx = c < a.X;
-      const int col = isx ? c : c - a.X;
-      const CT* q = isx ? a.qx : a.qh;
-      const int ld = isx ? a.X : H;
-      uint32_t v[kW];
-#pragma unroll
-      for (int i = 0; i < kW; ++i) v[i] = 0;
-#pragma unroll
-      for (int b = 0; b < NB; ++b)
-        if (b < B)
-          v[b / per] |= (static_cast<uint32_t>(__ldg(q + b * ld + col)) & mask)
-                        << (bits * (b % per));
-      uint32_t* dst = (isx ? sx : sh) +
-                      brds::stage_pos(col, isx ? a.shift_x : a.shift_h,
-                                      a.slot_bits) * kW;
-#pragma unroll
-      for (int i = 0; i < kW; ++i) dst[i] = v[i];
-    }
-    __syncthreads();
-  }
+      codes + brds::q8_staged_words<NB, kStaged>(a.in));
   float* zh_s = zs + 4 * a.units * NB;   // the delta step's zh
-  const Q8Emit<kDelta> emit{zs, zh_s, NB, B};
-  if constexpr (kStaged) {
-    const Staged fx{sx, a.shift_x, a.slot_bits};
-    const Staged fh{sh, a.shift_h, a.slot_bits};
-    if (a.ixb == 2 && a.ihb == 2)
-      q8_rows_stream<NB, int16_t>(a, j0, fx, fh, emit);
-    else
-      q8_rows<NB>(a, j0, fx, fh, emit);
-  } else {
-    using Global = brds::GlobalCodes<CT, NB>;
-    q8_rows<NB>(a, j0, Global{a.qx, a.X, B}, Global{a.qh, H, B}, emit);
-  }
+  const int B = a.in.B;
+  const int j0 = blockIdx.x * a.units;
+  const int nrows = 4 * min(a.units, H - j0);
+  const auto row_of = [&](int i) { return gate_row(i, H, j0); };
+  if constexpr (kDelta)
+    brds::q8_rows_block<NB, kStaged>(a.in, codes, nrows, row_of,
+                                     brds::Q8Apart{zs, zh_s, NB, B});
+  else
+    brds::q8_rows_block<NB, kStaged>(a.in, codes, nrows, row_of,
+                                     Q8Sum{zs, a.bias, NB, B});
   __syncthreads();
-  for (int t = threadIdx.x; t < a.units * B; t += kQ8Threads) {
+  for (int t = threadIdx.x; t < a.units * B; t += brds::kQ8Threads) {
     const int jl = t / B, b = t % B, j = j0 + jl;
     if (j < H) {
       const size_t o = (size_t)b * H + j;
@@ -505,19 +354,18 @@ cudaError_t launch_q8(const void* vx, const void* ix, int ix_bytes, int kx,
         using CT = decltype(ct);
         cudaError_t e = brds::allow_smem(reinterpret_cast<const void*>(kern));
         if (e != cudaSuccess) return e;
-        Q8Args<CT> a{static_cast<const CT*>(vx), ix, ix_bytes, kx,
-                     static_cast<const float*>(comb_x),
-                     static_cast<const CT*>(qx), X,
-                     static_cast<const CT*>(vh), ih, ih_bytes, kh,
-                     static_cast<const float*>(comb_h),
-                     static_cast<const CT*>(qh), H,
-                     static_cast<const float*>(bias),
-                     static_cast<const float*>(c_prev),
-                     static_cast<float*>(c_out), static_cast<float*>(h_out),
-                     static_cast<const float*>(m), static_cast<float*>(m_out),
-                     B, units, shift_x, shift_h, slot_bits, xpad, hpad, act};
-        kern<<<grid, kQ8Threads, smem, static_cast<cudaStream_t>(stream)>>>(
-            a);
+        const Q8Args<CT> a{
+            {static_cast<const CT*>(vx), ix, ix_bytes, kx,
+             static_cast<const float*>(comb_x), static_cast<const CT*>(qx), X,
+             static_cast<const CT*>(vh), ih, ih_bytes, kh,
+             static_cast<const float*>(comb_h), static_cast<const CT*>(qh), H,
+             B, shift_x, shift_h, slot_bits, xpad, hpad},
+            static_cast<const float*>(bias),
+            static_cast<const float*>(c_prev), static_cast<float*>(c_out),
+            static_cast<float*>(h_out), static_cast<const float*>(m),
+            static_cast<float*>(m_out), units, act};
+        kern<<<grid, brds::kQ8Threads, smem,
+               static_cast<cudaStream_t>(stream)>>>(a);
         return cudaSuccess;
       });
   if (st != cudaSuccess) return st;
@@ -564,7 +412,7 @@ extern "C" int brds_fused_lstm_step_q8_info(int code_bytes, int B,
                                             int staged, int delta, int smem,
                                             int* out) {
   return by_q8_kernel(code_bytes, B, staged, delta, [&](auto kern, auto) {
-    return brds::kernel_info(reinterpret_cast<const void*>(kern), kQ8Threads,
-                             smem, out);
+    return brds::kernel_info(reinterpret_cast<const void*>(kern),
+                             brds::kQ8Threads, smem, out);
   });
 }

@@ -5,53 +5,68 @@
 //    Replaces src/repro/kernels/rb_spmv.py::rb_dual_spmv.
 //
 // The Pallas kernels stream (block_rows, K) tiles through VMEM on the TPU's
-// sequential grid.
-//  - rb_spmv: one warp owns one packed row (brds::row_dot): it rebuilds the
-//    columns with an int32 warp scan of the deltas and gathers x through
-//    the read-only cache, which holds it (B x 1500 floats at full width).
-//  - rb_dual_spmv (rb_dual_staged_kernel): one block an SM owns a
-//    contiguous range of `rows` rows (kernels/plan.py::stream_plan); it
-//    stages x and h in shared memory once (a column's NB floats at
-//    stage_pos; a family too wide to stage is gathered as row_dot gathers
-//    it) and streams its warps' rows with their loads in flight
-//    (brds::stream_rows_block, the fused float step's routine: row_dot's
-//    order, so the sums are rb_spmv's bit for bit); then z = (ax + ah) +
-//    bias, with the bias read there only. So rb_spmv(Sx, x) + rb_spmv(Sh,
-//    h) + bias, added in that order, equals rb_dual_spmv, and the fused
-//    step equals rb_dual_spmv -> lstm_gates.
+// sequential grid. Here one block an SM owns a contiguous range of `rows`
+// rows (kernels/plan.py::stream_plan); it stages its operands in shared
+// memory once (a column's NB floats at stage_pos; a family too wide to
+// stage is gathered as row_dot gathers it) and streams its warps' rows
+// with their loads in flight (brds::stream_rows_block, the fused float
+// step's routine, in row_dot's order: lane l takes entries l, l+32, ...,
+// one fmaf a batch row, then the xor butterfly).
+//  - rb_spmv (rb_spmv_staged_kernel): the routine's single-family form, x
+//    alone, y written through shared memory so each batch row's outputs
+//    leave coalesced.
+//  - rb_dual_spmv (rb_dual_staged_kernel): x and h, then z = (ax + ah) +
+//    bias, with the bias read there only. The two kernels' sums are the
+//    same bits, so rb_spmv(Sx, x) + rb_spmv(Sh, h) + bias, added in that
+//    order, equals rb_dual_spmv, and the fused step equals rb_dual_spmv
+//    -> lstm_gates.
 //
 // Bound: bytes. Each packed value (4 B) and delta (1-4 B) is read once and
 // used for all B batch rows, so at B <= 16 the weight stream dominates and
 // the least time is (values + deltas) / memory rate. What the staged
-// design pays beyond the bytes: each block stages all of x and h before
-// its first product, and shared loads of random columns meet about two
-// lanes on a bank slot (tests/test_torch_plan.py).
+// design pays beyond the bytes: each block stages all of its operands
+// before its first product, and shared loads of random columns meet about
+// two lanes on a bank slot (tests/test_torch_plan.py).
 #include "brds_common.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kRowsPerBlock = kThreads / brds::kWarp;
+// rb_spmv's arguments: x's family alone in `in` (its h family unused).
+struct SingleArgs {
+  brds::StreamIn<brds::F32Src> in;
+  float* y;           // (B, R)
+  int R, rows;        // rows of the output; rows a block
+};
 
-template <typename DT, int NB, bool kTiled>
-__global__ void __launch_bounds__(kThreads)
-rb_spmv_kernel(const float* __restrict__ vals, const DT* __restrict__ deltas,
-               int K, const float* __restrict__ x, int X,
-               float* __restrict__ y, int B, int R) {
-  const int row = (blockIdx.x * blockDim.x + threadIdx.x) / brds::kWarp;
-  if (row >= R) return;   // uniform across the warp
+template <int NB, bool kTiled>
+__global__ void __launch_bounds__(brds::kStreamThreads, 1)
+rb_spmv_staged_kernel(SingleArgs a) {
+  const int R = a.R;
   if constexpr (kTiled) {
-    x = brds::tile_rows(x, X);
-    y = brds::tile_rows(y, R);
-    B = brds::tile_batch(B);
+    brds::tile_stream_in<1>(a.in);
+    a.y = brds::tile_rows(a.y, R);
   }
-  float acc[NB] = {};
-  brds::row_dot<DT, NB>(vals + (size_t)row * K, deltas + (size_t)row * K, K,
-                        brds::F32Act{x, X}, B, acc);
-  const int lane = threadIdx.x % brds::kWarp;
-#pragma unroll
-  for (int b = 0; b < NB; ++b)
-    if (b < B && b == lane) y[(size_t)b * R + row] = acc[b];
+  extern __shared__ float4 stream_smem[];
+  float* ys = reinterpret_cast<float*>(stream_smem +
+                                       brds::staged_float4s(a.in, NB));
+  const int B = a.in.B, r0 = blockIdx.x * a.rows;
+  const int nrows = min(a.rows, R - r0);
+  brds::stream_rows_block<NB, 1>(a.in, stream_smem, nrows,
+                                 [&](int i) { return r0 + i; }, ys,
+                                 nullptr);
+  for (int t = threadIdx.x; t < nrows * B; t += brds::kStreamThreads) {
+    const int b = t / nrows, i = t % nrows;
+    a.y[(size_t)b * R + r0 + i] = ys[i * NB + b];
+  }
+}
+
+// Runs `body(kern)` with the single-family float instantiation for batch B.
+template <typename F>
+cudaError_t by_single_kernel(int B, F&& body) {
+  return brds::by_batch(B, [&](auto nb, auto tiled) {
+    return body(rb_spmv_staged_kernel<decltype(nb)::value,
+                                      decltype(tiled)::value>);
+  });
 }
 
 struct DualArgs {
@@ -95,26 +110,38 @@ cudaError_t by_dual_kernel(int B, F&& body) {
 
 }  // namespace
 
+// One launch on kernels/plan.py::stream_plan's single-family arguments
+// (rows a block, x's staged layout, the dynamic shared memory).
 extern "C" int brds_rb_spmv(const void* vals, const void* deltas,
                             int d_bytes, int K, const void* x, int X,
-                            void* y, int B, int R, void* stream) {
-  if (R <= 0) return cudaErrorInvalidValue;
-  const dim3 grid((R + kRowsPerBlock - 1) / kRowsPerBlock,
-                  brds::batch_tiles(B));
-  cudaError_t st = brds::by_delta(d_bytes, [&](auto dt) {
-    using DT = decltype(dt);
-    return brds::by_batch(B, [&](auto nb, auto tiled) {
-      constexpr int NB = decltype(nb)::value;
-      rb_spmv_kernel<DT, NB, decltype(tiled)::value>
-          <<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-              static_cast<const float*>(vals), static_cast<const DT*>(deltas),
-              K, static_cast<const float*>(x), X, static_cast<float*>(y), B,
-              R);
-      return cudaSuccess;
-    });
+                            void* y, int B, int R, int rows, int stage_x,
+                            int shift_x, int slot_bits, int xpad, int smem,
+                            void* stream) {
+  if (R <= 0 || rows <= 0) return cudaErrorInvalidValue;
+  const dim3 grid((R + rows - 1) / rows, brds::batch_tiles(B));
+  const SingleArgs a{
+      {static_cast<const float*>(vals), deltas, d_bytes, K,
+       {static_cast<const float*>(x)}, X, nullptr, nullptr, 0, 0, {nullptr},
+       0, B, stage_x, 0, shift_x, 0, slot_bits, xpad, 0},
+      static_cast<float*>(y), R, rows};
+  cudaError_t st = by_single_kernel(B, [&](auto kern) {
+    cudaError_t e = brds::allow_smem(reinterpret_cast<const void*>(kern));
+    if (e != cudaSuccess) return e;
+    kern<<<grid, brds::kStreamThreads, smem,
+           static_cast<cudaStream_t>(stream)>>>(a);
+    return cudaSuccess;
   });
   if (st != cudaSuccess) return st;
   return cudaGetLastError();
+}
+
+// For the single-family float instantiation of batch B: out[0..3] as
+// brds::kernel_info gives them, with `smem` bytes of dynamic shared memory.
+extern "C" int brds_rb_spmv_info(int B, int smem, int* out) {
+  return by_single_kernel(B, [&](auto kern) {
+    return brds::kernel_info(reinterpret_cast<const void*>(kern),
+                             brds::kStreamThreads, smem, out);
+  });
 }
 
 // One launch on kernels/plan.py::stream_plan's arguments (rows a block,

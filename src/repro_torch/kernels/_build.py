@@ -45,7 +45,9 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _L = ctypes.c_longlong      # element strides
 # C signatures of the entry points, by source name
 SIGNATURES = {
-    "rb_spmv": {"brds_rb_spmv": [_P, _P, _I, _I, _P, _I, _P, _I, _I, _P],
+    "rb_spmv": {"brds_rb_spmv": [_P, _P, _I, _I, _P, _I, _P, _I, _I, _I, _I,
+                                 _I, _I, _I, _I, _P],
+                "brds_rb_spmv_info": [_I, _I, _P],
                 "brds_rb_dual_spmv": [_P, _P, _I, _I, _P, _I, _P, _P, _I, _I,
                                       _P, _I, _P, _P, _I, _I, _I, _I, _I, _I,
                                       _I, _I, _I, _I, _I, _P],
@@ -81,7 +83,9 @@ SIGNATURES = {
     "rb_spmv_q8": {
         "brds_rb_spmv_q8": [_P, _P, _I, _I, _P, _P, _I, _I, _P, _I, _I, _P],
         "brds_rb_dual_parts_q8": [_P, _P, _I, _I, _P, _P, _I, _P, _P, _I, _I,
-                                  _P, _P, _I, _I, _P, _P, _I, _I, _P]},
+                                  _P, _P, _I, _I, _P, _P, _I, _I, _I, _I, _I,
+                                  _I, _I, _I, _I, _I, _P],
+        "brds_rb_dual_parts_q8_info": [_I, _I, _I, _I, _P]},
     "fused_scan": {
         "brds_fused_lstm_scan": [_P, _P, _I, _I, _P, _I, _P, _P, _I, _I, _P,
                                  _I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,

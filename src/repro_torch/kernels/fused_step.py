@@ -8,15 +8,13 @@ block owns a tile of hidden units and computes their four gate rows with
 the same row routine and epilogue as the chained gate kernel
 (``rb_dual_spmv``, ``delta_rb_dual_spmv``, ``rb_dual_parts_q8``), then
 closes the cell with the same cell function as ``lstm_gates``, so each
-step is bitwise equal to its chained pair. The float and delta steps run
-their chained dual SpMV's kernel design (one block an SM,
-``plan.stream_plan``, x and h or the masked deltas staged in shared
-memory, the rows streamed in ``row_dot``'s order) and make z (and m') in
-the epilogue. The
-q8 and delta-q8 steps take their rows otherwise (integer sums are exact
-in any order): one block an SM (``plan.q8_plan``), activation codes
-staged in shared memory, four entries a lane; the delta-q8 step makes m'
-and z in the epilogue. Replaces
+step is bitwise equal to its chained pair. Each runs its chained gate
+kernel's design, one block an SM: the float and delta steps
+``plan.stream_plan``'s (x and h or the masked deltas staged in shared
+memory, the rows streamed in ``row_dot``'s order), the q8 and delta-q8
+steps ``plan.q8_plan``'s (activation codes staged in shared memory, four
+entries a lane; integer sums are exact in any order), and make z (and m')
+in the epilogue. Replaces
 ``repro/kernels/fused_step.py::fused_brds_lstm_step``,
 ``::fused_brds_delta_lstm_step``, ``::fused_brds_lstm_step_q8`` and
 ``::fused_brds_delta_lstm_step_q8``.
@@ -28,9 +26,8 @@ import torch
 from . import _build
 from .delta_rb_spmv import check_delta
 from .lstm_gates import act_args
-from .plan import Q8Plan, q8_plan
 from .rb_spmv import check_batch, check_packed, stream_args, stream_plan_for
-from .rb_spmv_q8 import check_q8
+from .rb_spmv_q8 import check_aligned, check_q8, q8_args, q8_plan_for
 
 
 def _check_cell(bias, c_prev, dev, B: int, H: int) -> None:
@@ -123,26 +120,6 @@ def fused_brds_delta_lstm_step(vals_x, deltas_x, dx, fx, vals_h, deltas_h,
     return c_out, h_out, m_out
 
 
-def q8_plan_for(vals_x, vals_h, qx, qh, delta: bool = False) -> Q8Plan:
-    """The fused q8 (``delta``: delta-q8) step's launch plan on qx's
-    card."""
-    return q8_plan(X=qx.shape[1], H=qh.shape[1], B=qx.shape[0],
-                   Kx=vals_x.shape[1], Kh=vals_h.shape[1],
-                   code_bytes=qx.element_size(), delta=delta,
-                   sms=_build.sm_count(qx.device))
-
-
-def _check_aligned(vals_x, deltas_x, vals_h, deltas_h) -> None:
-    for name, t in (("Sx codes", vals_x), ("Sx deltas", deltas_x),
-                    ("Sh codes", vals_h), ("Sh deltas", deltas_h)):
-        _build.require_aligned(t, name)
-
-
-def _plan_args(plan: Q8Plan) -> tuple:
-    return (plan.units, int(plan.staged), plan.shift_x, plan.shift_h,
-            plan.slot_bits, plan.xpad, plan.hpad, plan.smem)
-
-
 def fused_brds_lstm_step_q8(vals_x, deltas_x, comb_x, qx, vals_h, deltas_h,
                             comb_h, qh, bias, c_prev, *, pwl: bool = False):
     """One quantized BRDS-LSTM step: zx, zh = dq(Sx@qx), dq(Sh@qh), z =
@@ -155,7 +132,7 @@ def fused_brds_lstm_step_q8(vals_x, deltas_x, comb_x, qx, vals_h, deltas_h,
     B, X, H = check_q8(vals_x, deltas_x, comb_x, qx, vals_h, deltas_h,
                        comb_h, qh, 4 * qh.shape[-1])
     _check_cell(bias, c_prev, dev, B, H)
-    _check_aligned(vals_x, deltas_x, vals_h, deltas_h)
+    check_aligned(vals_x, deltas_x, vals_h, deltas_h)
     plan = q8_plan_for(vals_x, vals_h, qx, qh)
     c_out = torch.empty_like(c_prev)
     h_out = torch.empty_like(c_prev)
@@ -166,22 +143,11 @@ def fused_brds_lstm_step_q8(vals_x, deltas_x, comb_x, qx, vals_h, deltas_h,
         vals_h.data_ptr(), deltas_h.data_ptr(), deltas_h.element_size(),
         vals_h.shape[1], comb_h.data_ptr(), qh.data_ptr(), H,
         vals_x.element_size(), bias.data_ptr(), c_prev.data_ptr(),
-        c_out.data_ptr(), h_out.data_ptr(), B, *_plan_args(plan),
+        c_out.data_ptr(), h_out.data_ptr(), B, plan.units, *q8_args(plan),
         *act_args(pwl, dev), _build.stream(dev))
     _build.check(err, "fused_brds_lstm_step_q8")
     _build.LAUNCHES["fused_brds_lstm_step_q8"] += 1
     return c_out, h_out
-
-
-def q8_info(plan: Q8Plan, B: int, code_bytes: int, device,
-            delta: bool = False) -> dict:
-    """``_build.kernel_info`` of the fused q8 (``delta``: delta-q8)
-    instantiation ``plan`` launches at batch B (every batch tile of its
-    grid)."""
-    return _build.kernel_info(
-        "fused_step", "brds_fused_lstm_step_q8_info",
-        (code_bytes, B, int(plan.staged), int(delta), plan.smem),
-        plan.grid * plan.tiles, device)
 
 
 def fused_brds_delta_lstm_step_q8(vals_x, deltas_x, comb_x, qdx, vals_h,
@@ -201,7 +167,7 @@ def fused_brds_delta_lstm_step_q8(vals_x, deltas_x, comb_x, qdx, vals_h,
     _build.require(m, "m", dtypes=(torch.float32,), ndim=2, device=dev)
     if m.shape != (B, 4 * H):
         raise ValueError(f"m {tuple(m.shape)} must be ({B}, {4 * H})")
-    _check_aligned(vals_x, deltas_x, vals_h, deltas_h)
+    check_aligned(vals_x, deltas_x, vals_h, deltas_h)
     plan = q8_plan_for(vals_x, vals_h, qdx, qdh, delta=True)
     c_out = torch.empty_like(c_prev)
     h_out = torch.empty_like(c_prev)
@@ -214,7 +180,7 @@ def fused_brds_delta_lstm_step_q8(vals_x, deltas_x, comb_x, qdx, vals_h,
         vals_h.shape[1], comb_h.data_ptr(), qdh.data_ptr(), H,
         vals_x.element_size(), m.data_ptr(), bias.data_ptr(),
         c_prev.data_ptr(), c_out.data_ptr(), h_out.data_ptr(),
-        m_out.data_ptr(), B, *_plan_args(plan), *act_args(pwl, dev),
+        m_out.data_ptr(), B, plan.units, *q8_args(plan), *act_args(pwl, dev),
         _build.stream(dev))
     _build.check(err, "fused_brds_delta_lstm_step_q8")
     _build.LAUNCHES["fused_brds_delta_lstm_step_q8"] += 1

@@ -1,15 +1,17 @@
 """Launch plans of the persistent float scan (``csrc/fused_scan.cu``,
-``fused_scan_kernel``), the fused q8 steps (``csrc/fused_step.cu``,
-``fused_step_q8_kernel``), the staged float kernels (the float and
-temporal-delta steps, ``fused_staged_kernel``; the dual SpMVs,
-``csrc/rb_spmv.cu`` ``rb_dual_staged_kernel`` and ``csrc/delta_rb_spmv.cu``
-``delta_dual_staged_kernel``) and decode attention (``csrc/attention.cu``,
-``decode_cluster_kernel``): grid, hidden units or rows a block, the
-shared-memory layout of the staged activations and the scratch they need,
-the slices, clusters and copy ring of decode attention, from the card's
-limits in plain arithmetic, so the CPU tests hold it. Also the occupancy
-arithmetic (blocks an SM from registers, threads and shared memory) and
-the waves a grid takes.
+``fused_scan_kernel``), the staged q8 kernels (the fused q8 steps,
+``csrc/fused_step.cu`` ``fused_step_q8_kernel``; the dual SpMV,
+``csrc/rb_spmv_q8.cu`` ``rb_dual_parts_staged_kernel``), the staged float
+kernels (the float and temporal-delta steps, ``fused_staged_kernel``; the
+dual SpMVs, ``csrc/rb_spmv.cu`` ``rb_dual_staged_kernel`` and
+``csrc/delta_rb_spmv.cu`` ``delta_dual_staged_kernel``; the single-family
+SpMV, ``rb_spmv_staged_kernel``) and decode attention
+(``csrc/attention.cu``, ``decode_cluster_kernel``): grid, hidden units or
+rows a block, the shared-memory layout of the staged activations and the
+scratch they need, the slices, clusters and copy ring of decode
+attention, from the card's limits in plain arithmetic, so the CPU tests
+hold it. Also the occupancy arithmetic (blocks an SM from registers,
+threads and shared memory) and the waves a grid takes.
 
 The wrappers pass the card's SM count; the other limits are Hopper's
 (H100: 65536 registers and 228 KB of shared memory an SM, 227 KB a
@@ -34,7 +36,7 @@ TILE = 16                   # batch rows a launch's tile (brds::kMaxBatch)
 
 SCAN_THREADS = 512          # fused_scan.cu kScanThreads
 SCAN_COLUMN = 128           # bytes a staged column takes (8 float4 pieces)
-Q8_THREADS = 512            # fused_step.cu kQ8Threads
+Q8_THREADS = 512            # brds_common.cuh kQ8Threads (staged q8)
 STREAM_THREADS = 512        # brds_common.cuh kStreamThreads (staged float)
 DEC_THREADS = 256           # attention.cu kDecThreads
 DEC_STREAMS = 16            # ... kStreams: key streams (half-warps) a block
@@ -197,10 +199,11 @@ def decode_plan(*, B: int, Hkv: int, G: int, S: int, D: int,
 
 @dataclass(frozen=True)
 class Q8Plan:
-    """One launch of the fused q8 step (every batch tile of it)."""
+    """One launch of a staged q8 kernel (every batch tile of it): the
+    fused q8 or delta-q8 step (B8, B9) or the dual SpMV (B7)."""
     nb: int
     tiles: int        # batch tiles of 16 rows (gridDim.y)
-    units: int
+    rows: int         # rows a block (the fused steps: 4 x units)
     grid: int         # blocks a tile (gridDim.x)
     staged: bool      # qx, qh staged in shared memory (else global gathers)
     slot_bits: int
@@ -210,31 +213,48 @@ class Q8Plan:
     hpad: int
     smem: int
 
+    @property
+    def units(self) -> int:
+        """Hidden units a block of a fused step."""
+        return self.rows // 4
+
 
 @lru_cache(maxsize=256)
 def q8_plan(*, X: int, H: int, B: int, Kx: int, Kh: int, code_bytes: int,
-            delta: bool = False, sms: int = SMS,
+            delta: bool = False, R: int | None = None, sms: int = SMS,
             smem_limit: int = SMEM_PER_BLOCK) -> Q8Plan:
-    """The fused q8 step's plan (``delta``: the delta-q8 step's, which
-    keeps zx and zh apart, twice z's room): ceil(H / sms) units a block, so
-    one block an SM and one wave a batch tile; the tile's codes staged as
-    (xpad + hpad) vectors of NB codes when they fit beside z. A lane takes
-    four consecutive entries, so neighbouring lanes' entries lie about
-    4 x ncols / K columns apart."""
+    """The plan of the staged q8 kernels: the fused q8 step (``delta``:
+    the delta-q8 step's, which keeps zx and zh apart, twice z's room), a
+    block owning the four gate rows of ceil(H / sms) hidden units, or,
+    given ``R``, the dual SpMV rb_dual_parts_q8 over any R rows, a block
+    owning 4 x ceil(R / 4 sms) contiguous rows and keeping zx and zh apart
+    (the fused step's count and room at R = 4H). One block an SM, so one
+    wave a batch tile; the tile's codes staged as (xpad + hpad) vectors of
+    NB codes when they fit beside the sums. A lane takes four consecutive
+    entries, so neighbouring lanes' entries lie about 4 x ncols / K
+    columns apart."""
     nb = tier(min(B, TILE))
     tiles = -(-B // TILE)
-    units = -(-H // sms)
-    grid = -(-H // units)
+    if R is None:
+        rows = 4 * -(-H // sms)
+        grid = -(-H // (rows // 4))
+        sums = (2 if delta else 1) * rows
+    else:
+        if R < 1:
+            raise ValueError(f"R={R}: a launch needs at least one row")
+        rows = 4 * -(-R // (4 * sms))
+        grid = -(-R // rows)
+        sums = 2 * rows
     vec = nb * code_bytes
     slot_bits = int(math.log2(128 // min(vec, 32)))
     shift_x = spacing_shift(X, Kx, 4)
     shift_h = spacing_shift(H, Kh, 4)
     xpad = staged_cols(X, shift_x, slot_bits)
     hpad = staged_cols(H, shift_h, slot_bits)
-    zs = (2 if delta else 1) * 4 * units * nb * 4
+    zs = sums * nb * 4
     codes = (xpad + hpad) * vec
     staged = codes + zs <= smem_limit
-    return Q8Plan(nb=nb, tiles=tiles, units=units, grid=grid, staged=staged,
+    return Q8Plan(nb=nb, tiles=tiles, rows=rows, grid=grid, staged=staged,
                   slot_bits=slot_bits, shift_x=shift_x, shift_h=shift_h,
                   xpad=xpad, hpad=hpad,
                   smem=(codes if staged else 0) + zs)
@@ -243,7 +263,8 @@ def q8_plan(*, X: int, H: int, B: int, Kx: int, Kh: int, code_bytes: int,
 @dataclass(frozen=True)
 class StreamPlan:
     """One launch of a staged float kernel (every batch tile): the float
-    step (B3) or dual SpMV (B1), or their temporal-delta forms (B5, B4)."""
+    step (B3) or dual SpMV (B1), their temporal-delta forms (B5, B4), or
+    the single-family SpMV (B11, ``families`` 1: x alone)."""
     nb: int
     tiles: int        # batch tiles of 16 rows (gridDim.y)
     rows: int         # gate rows a block (the fused step: 4 x units)
@@ -256,6 +277,7 @@ class StreamPlan:
     xpad: int
     hpad: int
     smem: int
+    families: int     # packed families a row: 2 (x and h) or 1 (x)
 
     @property
     def units(self) -> int:
@@ -264,30 +286,32 @@ class StreamPlan:
 
 
 @lru_cache(maxsize=256)
-def stream_plan(*, X: int, H: int, R: int, B: int, Kx: int, Kh: int,
-                fused: bool, sms: int = SMS,
+def stream_plan(*, X: int, R: int, B: int, Kx: int, H: int | None = None,
+                Kh: int = 0, fused: bool = False, sms: int = SMS,
                 smem_limit: int = SMEM_PER_BLOCK) -> StreamPlan:
     """The plan of the staged float kernels, whose operands are x and h
     (the float step B3 and dual SpMV B1) or the masked deltas d·f (their
     temporal-delta forms B5 and B4), both NB float32 a column: a fused
     step (``fused``: R = 4H gate rows, a block owns the four rows of
     ceil(H / sms) hidden units) or a dual SpMV (any R, a block owns
-    4 x ceil(R / 4 sms) contiguous rows, the fused step's count at R = 4H):
-    one block an SM, so one wave a batch tile. The layout depends only on
-    the shapes. A staged column is NB float32 (NB/4 16-byte pieces),
-    8 / (NB/4) columns a 128-byte bank row (``slot_bits``); lane l takes
-    entries l, l+32, ... of a row, so neighbouring lanes' columns lie
-    about ncols / K apart, the bits ``stage_pos`` moves down (``shift``;
-    0 at NB=4, where one piece a column and no shift spreads random
-    columns better than column order). Each family is staged if it fits
-    beside the sums (ax, ah: 2 x rows x NB float32), the one with more
-    entries a row first; the other is gathered from global memory."""
+    4 x ceil(R / 4 sms) contiguous rows, the fused step's count at R = 4H);
+    without H, the single-family SpMV (B11: x alone, Kx entries a row, the
+    dual SpMV's rows a block). One block an SM, so one wave a batch tile.
+    The layout depends only on the shapes. A staged column is NB float32
+    (NB/4 16-byte pieces), 8 / (NB/4) columns a 128-byte bank row
+    (``slot_bits``); lane l takes entries l, l+32, ... of a row, so
+    neighbouring lanes' columns lie about ncols / K apart, the bits
+    ``stage_pos`` moves down (``shift``; 0 at NB=4, where one piece a
+    column and no shift spreads random columns better than column order).
+    Each family is staged if it fits beside the sums (rows x NB float32 a
+    family), the one with more entries a row first; the other is gathered
+    from global memory."""
     if R < 1:
         raise ValueError(f"R={R}: a launch needs at least one row")
     nb = tier(min(B, TILE))
     tiles = -(-B // TILE)
     if fused:
-        if R != 4 * H:
+        if H is None or R != 4 * H:
             raise ValueError(f"a fused step has R = 4H rows, got "
                              f"R={R}, H={H}")
         rows = 4 * -(-H // sms)
@@ -296,19 +320,18 @@ def stream_plan(*, X: int, H: int, R: int, B: int, Kx: int, Kh: int,
     grid = -(-R // rows)
     nq = nb // 4
     slot_bits = int(math.log2(8 // nq))
-    shift_x = spacing_shift(X, Kx) if nb > 4 else 0
-    shift_h = spacing_shift(H, Kh) if nb > 4 else 0
-    xpad = staged_cols(X, shift_x, slot_bits)
-    hpad = staged_cols(H, shift_h, slot_bits)
+    fams = [("x", X, Kx)] + ([] if H is None else [("h", H, Kh)])
+    shift = {f: spacing_shift(n, K) if nb > 4 else 0 for f, n, K in fams}
+    pad = {f: staged_cols(n, shift[f], slot_bits) for f, n, _ in fams}
     vec = nb * 4
-    smem = 2 * rows * vec   # ax, ah
+    smem = len(fams) * rows * vec   # ax (and ah)
     staged = set()
-    for fam, n, _ in sorted((("x", xpad, Kx), ("h", hpad, Kh)),
-                            key=lambda f: -f[2]):
-        if smem + n * vec <= smem_limit:
+    for fam, _, K in sorted(fams, key=lambda f: -f[2]):
+        if smem + pad[fam] * vec <= smem_limit:
             staged.add(fam)
-            smem += n * vec
+            smem += pad[fam] * vec
     return StreamPlan(nb=nb, tiles=tiles, rows=rows, grid=grid,
                       stage_x="x" in staged, stage_h="h" in staged,
-                      slot_bits=slot_bits, shift_x=shift_x, shift_h=shift_h,
-                      xpad=xpad, hpad=hpad, smem=smem)
+                      slot_bits=slot_bits, shift_x=shift["x"],
+                      shift_h=shift.get("h", 0), xpad=pad["x"],
+                      hpad=pad.get("h", 0), smem=smem, families=len(fams))

@@ -3,12 +3,13 @@
 The BRDS accelerator's Gate-module MxV: z = Sx@x + Sh@h + bias, with both
 packed families consumed by the warp that owns a row (the Large/Small
 mult-array lockstep), and its single-family form y = S@x behind the
-format API. The dual kernel runs one block an SM on ``plan.stream_plan``:
-x and h staged in shared memory once a block, each row's sums in
-``row_dot``'s order (the fused float step's routine, so the two stay
-bitwise a chain, and the single-family kernel's sums). Also the launch
-helpers of the four staged float kernels (the float and delta steps and
-dual SpMVs): plan, arguments and occupancy. Replaces
+format API. Both run one block an SM on ``plan.stream_plan``: the
+operands staged in shared memory once a block, each row's sums in
+``row_dot``'s order (the fused float step's routine, so the fused step and
+the dual SpMV stay bitwise a chain, and the two single-family sums plus
+the bias are the dual SpMV's z). Also the launch helpers of the five
+staged float kernels (the float and delta steps and dual SpMVs, and the
+single-family SpMV): plan, arguments and occupancy. Replaces
 ``repro/kernels/rb_spmv.py::rb_dual_spmv`` and ``::rb_spmv``.
 """
 from __future__ import annotations
@@ -54,15 +55,24 @@ def rb_spmv(vals, deltas, x, rows: int):
     check_rows(vals, rows, "S")
     B, X = x.shape
     check_batch(B)
+    plan = single_plan_for(vals, x, rows)
     y = torch.empty((B, rows), dtype=x.dtype, device=dev)
     lib = _build.load("rb_spmv")
     err = lib.brds_rb_spmv(vals.data_ptr(), deltas.data_ptr(),
                            deltas.element_size(), vals.shape[1],
-                           x.data_ptr(), X, y.data_ptr(), B, rows,
-                           _build.stream(dev))
+                           x.data_ptr(), X, y.data_ptr(), B, rows, plan.rows,
+                           int(plan.stage_x), plan.shift_x, plan.slot_bits,
+                           plan.xpad, plan.smem, _build.stream(dev))
     _build.check(err, "rb_spmv")
     _build.LAUNCHES["rb_spmv"] += 1
     return y
+
+
+def single_plan_for(vals, x, R: int) -> StreamPlan:
+    """The launch plan of the single-family SpMV over R rows of packed
+    ``vals`` at x (B, X) on x's card."""
+    return stream_plan(X=x.shape[1], R=R, B=x.shape[0], Kx=vals.shape[1],
+                       sms=_build.sm_count(x.device))
 
 
 def stream_plan_for(vals_x, vals_h, ax, ah, R: int,
@@ -81,21 +91,23 @@ def stream_args(plan: StreamPlan) -> tuple:
             plan.shift_h, plan.slot_bits, plan.xpad, plan.hpad, plan.smem)
 
 
-# (fused, delta) -> the source and info entry of that staged kernel
+# (families, fused, delta) -> the source and info entry of that staged
+# kernel
 _STREAM_INFO = {
-    (False, False): ("rb_spmv", "brds_rb_dual_spmv_info"),
-    (True, False): ("fused_step", "brds_fused_lstm_step_info"),
-    (False, True): ("delta_rb_spmv", "brds_delta_rb_dual_spmv_info"),
-    (True, True): ("fused_step", "brds_fused_delta_lstm_step_info")}
+    (1, False, False): ("rb_spmv", "brds_rb_spmv_info"),
+    (2, False, False): ("rb_spmv", "brds_rb_dual_spmv_info"),
+    (2, True, False): ("fused_step", "brds_fused_lstm_step_info"),
+    (2, False, True): ("delta_rb_spmv", "brds_delta_rb_dual_spmv_info"),
+    (2, True, True): ("fused_step", "brds_fused_delta_lstm_step_info")}
 
 
 def stream_info(plan: StreamPlan, B: int, device, *, fused: bool = False,
                 delta: bool = False) -> dict:
-    """``_build.kernel_info`` of the staged float kernel (a dual SpMV or,
-    ``fused``, a fused step; ``delta``: its temporal-delta form)
-    instantiation ``plan`` launches at batch B (every batch tile of its
-    grid)."""
-    source, entry = _STREAM_INFO[fused, delta]
+    """``_build.kernel_info`` of the staged float kernel (a dual SpMV, the
+    single-family SpMV for a one-family plan, or, ``fused``, a fused step;
+    ``delta``: its temporal-delta form) instantiation ``plan`` launches at
+    batch B (every batch tile of its grid)."""
+    source, entry = _STREAM_INFO[plan.families, fused, delta]
     return _build.kernel_info(source, entry, (B, plan.smem),
                               plan.grid * plan.tiles, device)
 

@@ -4,10 +4,14 @@ The fixed-point Gate-module MxV: integer weight codes times integer
 activation codes, int32 accumulation, one dequant multiply per row by the
 combined (row × activation) scale. The dual form returns the two
 families' partial sums (zx, zh) apart, so the adds that follow happen in
-PyTorch in the reference's order; the single-family form serves the
-``row_balanced_q8`` format's matvec. The wrappers quantize the activations
-before the launch, so a kernel and its plain version read the same codes
-and agree bit for bit. Replaces
+PyTorch in the reference's order; it runs one block an SM on
+``plan.q8_plan`` with the fused q8 steps' row routine (codes staged in
+shared memory, four entries a lane). The single-family form serves the
+``row_balanced_q8`` format's matvec. The wrappers quantize the
+activations before the launch, so a kernel and its plain version read the
+same codes and agree bit for bit. Also the launch helpers of the staged q8
+kernels (the dual SpMV and the fused q8 and delta-q8 steps): plan,
+arguments and occupancy. Replaces
 ``repro/kernels/rb_spmv_q8.py::rb_dual_parts_q8`` and ``::rb_spmv_q8``.
 """
 from __future__ import annotations
@@ -15,6 +19,7 @@ from __future__ import annotations
 import torch
 
 from . import _build
+from .plan import Q8Plan, q8_plan
 from .rb_spmv import check_batch
 
 CODE_DTYPES = (torch.int8, torch.int16)
@@ -77,15 +82,58 @@ def rb_spmv_q8(vals, deltas, comb, q, rows: int):
     return y
 
 
+def check_aligned(vals_x, deltas_x, vals_h, deltas_h) -> None:
+    """The staged q8 kernels load four codes and four deltas at once: the
+    packed arrays must start on 16 bytes."""
+    for name, t in (("Sx codes", vals_x), ("Sx deltas", deltas_x),
+                    ("Sh codes", vals_h), ("Sh deltas", deltas_h)):
+        _build.require_aligned(t, name)
+
+
+def q8_plan_for(vals_x, vals_h, qx, qh, delta: bool = False,
+                R: int | None = None) -> Q8Plan:
+    """The launch plan of a staged q8 kernel on qx's card: the fused q8
+    (``delta``: delta-q8) step, or, given R, the dual SpMV over R rows."""
+    return q8_plan(X=qx.shape[1], H=qh.shape[1], B=qx.shape[0],
+                   Kx=vals_x.shape[1], Kh=vals_h.shape[1],
+                   code_bytes=qx.element_size(), delta=delta, R=R,
+                   sms=_build.sm_count(qx.device))
+
+
+def q8_args(plan: Q8Plan) -> tuple:
+    """The staged layout's launch arguments (after rows or units)."""
+    return (int(plan.staged), plan.shift_x, plan.shift_h, plan.slot_bits,
+            plan.xpad, plan.hpad, plan.smem)
+
+
+def q8_info(plan: Q8Plan, B: int, code_bytes: int, device, *,
+            fused: bool = True, delta: bool = False) -> dict:
+    """``_build.kernel_info`` of the staged q8 instantiation ``plan``
+    launches at batch B (every batch tile of its grid): the fused q8
+    (``delta``: delta-q8) step, or (not ``fused``) the dual SpMV."""
+    if fused:
+        source, entry = "fused_step", "brds_fused_lstm_step_q8_info"
+        args = (code_bytes, B, int(plan.staged), int(delta), plan.smem)
+    else:
+        source, entry = "rb_spmv_q8", "brds_rb_dual_parts_q8_info"
+        args = (code_bytes, B, int(plan.staged), plan.smem)
+    return _build.kernel_info(source, entry, args, plan.grid * plan.tiles,
+                              device)
+
+
 def rb_dual_parts_q8(vals_x, deltas_x, comb_x, qx, vals_h, deltas_h, comb_h,
                      qh, rows: int):
     """(zx, zh) = (dq(Sx @ qx), dq(Sh @ qh)) over the first ``rows`` rows
     of packed integer codes Sx (≥ rows, Kx), Sh (≥ rows, Kh) (int8 or int16,
-    the same for both, as are qx (B, X) and qh (B, H)); comb_* (≥ rows,)
-    float32 combined dequant scales. Returns two (B, rows) float32."""
+    the same for both, as are qx (B, X) and qh (B, H); codes and deltas
+    16-byte aligned: the kernel loads four entries at once); comb_*
+    (≥ rows,) float32 combined dequant scales. Returns two (B, rows)
+    float32."""
     dev = qx.device
     B, X, H = check_q8(vals_x, deltas_x, comb_x, qx, vals_h, deltas_h,
                        comb_h, qh, rows)
+    check_aligned(vals_x, deltas_x, vals_h, deltas_h)
+    plan = q8_plan_for(vals_x, vals_h, qx, qh, R=rows)
     zx = torch.empty((B, rows), dtype=torch.float32, device=dev)
     zh = torch.empty_like(zx)
     lib = _build.load("rb_spmv_q8")
@@ -95,7 +143,7 @@ def rb_dual_parts_q8(vals_x, deltas_x, comb_x, qx, vals_h, deltas_h, comb_h,
         vals_h.data_ptr(), deltas_h.data_ptr(), deltas_h.element_size(),
         vals_h.shape[1], comb_h.data_ptr(), qh.data_ptr(), H,
         vals_x.element_size(), zx.data_ptr(), zh.data_ptr(), B, rows,
-        _build.stream(dev))
+        plan.rows, *q8_args(plan), _build.stream(dev))
     _build.check(err, "rb_dual_parts_q8")
     _build.LAUNCHES["rb_dual_parts_q8"] += 1
     return zx, zh

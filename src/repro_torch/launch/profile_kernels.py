@@ -1,9 +1,11 @@
 """Phase profiles of the multi-token scan (``fused_brds_lstm_scan``), the
 fused q8 and delta-q8 steps (``fused_brds_lstm_step_q8``,
-``fused_brds_delta_lstm_step_q8``), the temporal-delta steps
+``fused_brds_delta_lstm_step_q8``) and their dual SpMV
+(``rb_dual_parts_q8``), the temporal-delta steps
 (``fused_brds_delta_lstm_step``, ``delta_rb_dual_spmv``), the float steps
-(``fused_brds_lstm_step``, ``rb_dual_spmv``) and decode attention (``decode_attention``) on the card, by variants that each skip
-one phase.
+(``fused_brds_lstm_step``, ``rb_dual_spmv``), the single-family float SpMV
+(``rb_spmv``) and decode attention (``decode_attention``) on the card, by
+variants that each skip one phase.
 
     PYTHONPATH=src python -m repro_torch.launch.profile_kernels [--steps 32]
         [--batch 8] [--width 1500]
@@ -31,7 +33,9 @@ its activation staging, cells and launch (also after an L2 flush by a
 read); and the full step with its
 activation codes staged in the plan's permuted column order
 (``plan.stage_pos``) and in plain column order, alternated twice. The
-fused delta-q8 step on the same codes takes ``full`` and ``neither``.
+fused delta-q8 step on the same codes takes ``full`` and ``neither``,
+and the dual SpMV ``full``, ``neither``, ``full`` with the L2 warm and the
+columns staged in order, bitwise the full run (``profile_dual_q8``).
 The fused delta step and the delta dual SpMV on the float weights
 (``profile_delta``): ``full`` (every column fired), ``neither`` (both
 families empty: the launch, m's read and write, the cells, the staging),
@@ -41,7 +45,10 @@ must give its bits: nothing staged, columns staged in order, and the
 staging's one-column-a-thread form. The float step and dual SpMV
 (``profile_float``): ``full``, ``neither``, ``full`` with the L2 warm,
 the same three layouts and x alone misaligned (the staging's column form
-for x only), bitwise the full run; and the float step at B=32.
+for x only), bitwise the full run; and the float step at B=32. The
+single-family SpMV on W_x and on W_h (``profile_single``): ``full``,
+``neither`` (K = 0), ``full`` with the L2 warm, nothing staged and the
+columns in order, the last two bitwise the full run.
 Decode attention at the qwen3-0.6b serve shape: the full call, one slice
 a pair, the length as a host constant, lengths of 1, the full call after
 an L2 flush by a read, and the launch plan's slices x ring stages, beside
@@ -64,22 +71,25 @@ from ..kernels import delta_rb_spmv as kdelta
 from ..kernels import fused_scan as kscan
 from ..kernels import fused_step as kstep
 from ..kernels import rb_spmv as krb
+from ..kernels import rb_spmv_q8 as kq8
 from ..kernels._build import time_ms
 from ..kernels.plan import Q8Plan, StreamPlan, staged_cols
 from ..quant import parse_scheme, quantize, quantize_packed
 
 
-def in_order(plan: Q8Plan, X: int, H: int) -> Q8Plan:
-    """``plan`` (of an X-wide input and an H-wide state) with the
-    activation codes staged in column order (``stage_pos`` at shift 0, the
-    identity) instead of its permutation."""
+def in_order(plan: Q8Plan, X: int, H: int, code_bytes: int) -> Q8Plan:
+    """``plan`` (of an X-wide input and an H-wide state, codes of
+    ``code_bytes``) with the activation codes staged in column order
+    (``stage_pos`` at shift 0, the identity) instead of its
+    permutation."""
     if not plan.staged:
         return plan
-    vec = (plan.smem - 16 * plan.units * plan.nb) // (plan.xpad + plan.hpad)
+    vec = plan.nb * code_bytes
+    sums = plan.smem - (plan.xpad + plan.hpad) * vec
     xpad = staged_cols(X, 0, plan.slot_bits)
     hpad = staged_cols(H, 0, plan.slot_bits)
     return replace(plan, shift_x=0, shift_h=0, xpad=xpad, hpad=hpad,
-                   smem=(xpad + hpad) * vec + 16 * plan.units * plan.nb)
+                   smem=(xpad + hpad) * vec + sums)
 
 
 @contextmanager
@@ -170,31 +180,45 @@ def profile_decode(dev, flush) -> dict:
 
 
 @contextmanager
-def stream_planned_as(change):
-    """The staged float kernels (B1, B3, B4, B5) launched on
-    ``change(plan)`` instead of their plan."""
-    planned = krb.stream_plan_for
-
-    def plan_for(*a, **k):
-        return change(planned(*a, **k))
-    mods = (krb, kdelta, kstep)
-    for mod in mods:
-        mod.stream_plan_for = plan_for
+def _planned_as(change, planners):
+    """Each (module, name) of ``planners`` returning ``change(plan)``
+    instead of its plan."""
+    saved = [(mod, name, getattr(mod, name)) for mod, name in planners]
+    for mod, name, planned in saved:
+        setattr(mod, name, lambda *a, planned=planned, **k:
+                change(planned(*a, **k)))
     try:
         yield
     finally:
-        for mod in mods:
-            mod.stream_plan_for = planned
+        for mod, name, planned in saved:
+            setattr(mod, name, planned)
+
+
+def stream_planned_as(change):
+    """The staged float kernels (B1, B3, B4, B5, B11) launched on
+    ``change(plan)`` instead of their plan."""
+    return _planned_as(change, ((krb, "stream_plan_for"),
+                                (krb, "single_plan_for"),
+                                (kdelta, "stream_plan_for"),
+                                (kstep, "stream_plan_for")))
+
+
+def q8_planned_as(change):
+    """The staged q8 kernels (B7, B8, B9) launched on ``change(plan)``
+    instead of their plan."""
+    return _planned_as(change, ((kq8, "q8_plan_for"),
+                                (kstep, "q8_plan_for")))
 
 
 def _gathered(p: StreamPlan) -> StreamPlan:
-    return replace(p, stage_x=False, stage_h=False, smem=8 * p.rows * p.nb)
+    return replace(p, stage_x=False, stage_h=False,
+                   smem=4 * p.families * p.rows * p.nb)
 
 
 def _in_order(p: StreamPlan, X: int, H: int) -> StreamPlan:
     xpad, hpad = (staged_cols(n, 0, p.slot_bits) for n in (X, H))
     return replace(p, shift_x=0, shift_h=0, xpad=xpad, hpad=hpad,
-                   smem=(xpad + hpad + 2 * p.rows) * p.nb * 4)
+                   smem=(xpad + hpad + p.families * p.rows) * p.nb * 4)
 
 
 def _misaligned(t: torch.Tensor) -> torch.Tensor:
@@ -210,17 +234,19 @@ def _outputs(r) -> tuple:
     return r if isinstance(r, tuple) else (r,)
 
 
-def _profile_staged(kernels: dict, variants: dict, flush) -> dict:
-    """Times each staged float kernel (name -> call(families, operands))
-    on each variant (name -> (families, operands, plan change, whether it
-    must give the full run's bits)), and the full run with the L2 warm."""
+def _profile_staged(kernels: dict, variants: dict, flush,
+                    planned_as=stream_planned_as) -> dict:
+    """Times each staged kernel (name -> call(families, operands)) on each
+    variant (name -> (families, operands, plan change, whether it must
+    give the full run's bits)), and the full run with the L2 warm; a plan
+    change goes through ``planned_as``."""
     out = {}
     for kname, call in kernels.items():
         times, want = {}, None
         for name, (fam, acts, change, same) in variants.items():
             def run(call=call, fam=fam, acts=acts):
                 return call(fam, acts)
-            with stream_planned_as(change) if change else nullcontext():
+            with planned_as(change) if change else nullcontext():
                 got = run()
                 times[f"{kname} {name}"] = dict(ms=time_ms(run, flush))
             if name == "full":
@@ -307,6 +333,51 @@ def profile_float(sx, sh, x, h, bias, c0, rand, flush) -> dict:
                                            bias, c32), flush))
     print(f"  {'fused step B=32':32} {out['fused step B=32']['ms']:.4f} ms",
           flush=True)
+    return out
+
+
+def profile_dual_q8(qs, acts, flush) -> dict:
+    """The dual SpMV rb_dual_parts_q8 (B7) on the q8 codes ``qs`` of Sx,
+    Sh and the activation codes and scales ``acts`` (qx, sx, qh, sh):
+    ``full``, ``neither`` (both families empty: the launch, the staging,
+    the writes of zx and zh), ``full`` with the L2 warm, and the full run
+    with the staged columns in order (shift 0), which must give its
+    bits."""
+    qx, sax, qh, sah = acts
+    X, H, cb = qx.shape[1], qh.shape[1], qx.element_size()
+    full, empty = _families(*qs)
+    comb = (qs[0].scales * sax, qs[1].scales * sah)
+    variants = {
+        "full": (full, None, None, False),
+        "neither": (empty, None, None, False),
+        "columns in order": (full, None, lambda p: in_order(p, X, H, cb),
+                             True)}
+    kernels = {f"dual q8 {qs[0].scheme.name}": lambda fam, _:
+               kq8.rb_dual_parts_q8(*fam[0], comb[0], qx, *fam[1], comb[1],
+                                    qh, qs[0].rows)}
+    return _profile_staged(kernels, variants, flush, q8_planned_as)
+
+
+def profile_single(sx, sh, x, h, flush) -> dict:
+    """The single-family SpMV rb_spmv (B11) on W_x at x and on W_h at h:
+    ``full``, ``neither`` (K = 0: the launch, the staging, the writes of
+    y), ``full`` with the L2 warm, and the full run with nothing staged
+    and with the columns staged in order, both of which must give its
+    bits."""
+    out = {}
+    for fam, s, v in (("W_x", sx, x), ("W_h", sh, h)):
+        n = v.shape[1]
+        full = (s.values, s.deltas)
+        empty = tuple(t[:, :0].contiguous() for t in full)
+        variants = {
+            "full": (full, v, None, False),
+            "neither": (empty, v, None, False),
+            "gathered": (full, v, _gathered, True),
+            "columns in order": (full, v, lambda p, n=n: _in_order(p, n, 0),
+                                 True)}
+        kernels = {f"rb_spmv {fam}": lambda f, a, R=s.rows:
+                   krb.rb_spmv(*f, a, R)}
+        out.update(_profile_staged(kernels, variants, flush))
     return out
 
 
@@ -404,18 +475,15 @@ def main(argv=None) -> int:
                 *full[0], qs[0].scales * acts[1], acts[0], *full[1],
                 qs[1].scales * acts[3], acts[2], bias, c0)
 
-        def ordered(*a):
-            return in_order(planned(*a), a[2].shape[1], a[3].shape[1])
-        planned, got = kstep.q8_plan_for, {}
+        got = {}
         for rep in (1, 2):
             for order in ("permuted", "in order"):
-                kstep.q8_plan_for = planned if order == "permuted" else ordered
-                try:
+                with (nullcontext() if order == "permuted" else
+                      q8_planned_as(lambda p: in_order(
+                          p, W, W, qs[0].values.element_size()))):
                     got[order] = step_full()
                     key = f"q8 {spec} full, columns {order} #{rep}"
                     out[key] = dict(ms=time_ms(step_full, flush))
-                finally:
-                    kstep.q8_plan_for = planned
                 print(f"  fused q8 step {spec:5} full, staged columns "
                       f"{order:8} (run {rep}) {out[key]['ms']:.4f} ms",
                       flush=True)
@@ -439,12 +507,16 @@ def main(argv=None) -> int:
             out[key] = dict(ms=time_ms(dstep, flush))
             print(f"  fused delta-q8 step {spec:5} {name:8} "
                   f"{out[key]['ms']:.4f} ms", flush=True)
+        out.update(profile_dual_q8(qs, acts, flush))
     print(f"delta steps X=H={W}, B={B}, Kx={sx.K}, Kh={sh.K}; CUDA events, "
           "median of 30, L2 flushed", flush=True)
     out.update(profile_delta(sx, sh, B, bias, c0, rand, flush))
     print(f"float steps X=H={W}, B={B}, Kx={sx.K}, Kh={sh.K}; CUDA events, "
           "median of 30, L2 flushed", flush=True)
     out.update(profile_float(sx, sh, xs[0], h0, bias, c0, rand, flush))
+    print(f"single-family SpMV X=H={W}, B={B}, Kx={sx.K}, Kh={sh.K}; CUDA "
+          "events, median of 30, L2 flushed", flush=True)
+    out.update(profile_single(sx, sh, xs[0], h0, flush))
     out.update(profile_decode(dev, flush))
     print(json.dumps({"card": card, "T": T, "B": B, "width": W,
                       "times": out}), flush=True)

@@ -1,20 +1,23 @@
 """The arithmetic of the staged float kernels on x and h (B3
-``fused_brds_lstm_step`` and B1 ``rb_dual_spmv``: ``csrc/brds_common.cuh``
-``stream_rows_block`` with the ``F32Src`` operand, ``stage_family``,
-``row_dot_stream``), modelled in numpy on the CPU with the float delta
-steps' model (``test_torch_delta_layout``): x and h staged as they are, a
-column's NB floats at ``stage_pos`` (a family too wide to stage gathered
-in batch order), a warp's rows streamed as groups of G chunks of 32
-entries, each chunk's columns by a warp scan of its deltas, a lane's
-staged loads in NB/4 16-byte pieces rotated by its lane index and put
-back once a row, and row_dot's sums (lane l: entries l, l+32, ... in
-order, one fma a batch row, then the xor butterfly), ax and ah apart, then
-z = (ax + ah) + bias. The columns must be the JAX packing's, each staged
-position the bits of its column of x or h, and z and, through the cell,
-(c, h) the JAX package's ``rb_dual_spmv`` and ``fused_brds_lstm_step``
-(Pallas in interpret mode, and its plain reference) within their
-tolerance. The kernels themselves run only on the card (``chip_smoke.py``
-holds B3 bitwise against B1 -> lstm_gates and B12 against B3)."""
+``fused_brds_lstm_step``, B1 ``rb_dual_spmv`` and the single-family B11
+``rb_spmv``: ``csrc/brds_common.cuh`` ``stream_rows_block`` with the
+``F32Src`` operand, ``stage_family``, ``row_dot_stream``), modelled in
+numpy on the CPU with the float delta steps' model
+(``test_torch_delta_layout``): x and h staged as they are, a column's NB
+floats at ``stage_pos`` (a family too wide to stage gathered in batch
+order), a warp's rows streamed as groups of G chunks of 32 entries, each
+chunk's columns by a warp scan of its deltas, a lane's staged loads in
+NB/4 16-byte pieces rotated by its lane index and put back once a row, and
+row_dot's sums (lane l: entries l, l+32, ... in order, one fma a batch
+row, then the xor butterfly), ax and ah apart, then z = (ax + ah) + bias;
+B11 the same stream over x alone. The columns must be the JAX packing's,
+each staged position the bits of its column of x or h, and z and, through
+the cell, (c, h) the JAX package's ``rb_dual_spmv`` and
+``fused_brds_lstm_step``, and y its ``rb_spmv`` (Pallas in interpret mode,
+and its plain reference) within their tolerance. The kernels themselves
+run only on the card (``chip_smoke.py`` holds B3 bitwise against B1 ->
+lstm_gates, B12 against B3, and B11's two sums plus the bias against
+B1)."""
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -238,6 +241,56 @@ def test_modelled_sums_match_jax(B, X, H, jbackend):
                                atol=CELL_ATOL)
     np.testing.assert_allclose(hn, np.asarray(jh)[:, units], rtol=0,
                                atol=CELL_ATOL)
+
+
+def model_y(s, v, rows):
+    """The modelled single-family kernel (B11 rb_spmv) y = S@v over packed
+    rows ``rows`` of s (B, len(rows)) at the single-family plan's layout:
+    v staged or gathered as the plan says, one stream of Sx segments."""
+    B, n = v.shape
+    vals, deltas = np.asarray(s.values), np.asarray(s.deltas)
+    K = vals.shape[1]
+    p = stream_plan(X=n, R=s.rows, B=B, Kx=K)
+    assert p.families == 1 and not p.stage_h
+    if p.stage_x:
+        S, layout = stage_f32(v, p.nb, p.shift_x, p.slot_bits, p.xpad), (
+            p.shift_x, p.slot_bits)
+    else:
+        S, layout = stage_f32(v, p.nb, 0, 0, n), (0, 0)
+    y = row_sums(vals[rows], deltas[rows], K, S, *layout, p.nb,
+                 chunks_of(p.nb), rotate=p.stage_x, narrow=n < 65536)
+    return y[:, :B].T, p
+
+
+@pytest.mark.parametrize("jbackend", ["pallas", "ref"])
+@pytest.mark.parametrize("B,X,H", SHAPES)
+def test_modelled_single_family_sums_match_jax(B, X, H, jbackend):
+    """The modelled B11 on W_x at x and on W_h at h against the JAX
+    package's rb_spmv (Pallas, interpret mode, and its plain reference)
+    and the port's plain version; and the two modelled sums plus the bias,
+    added in that order, equal the modelled B1's z bit for bit (one
+    routine, row_dot's order, whichever family is staged). At the tall
+    shape one hidden unit in 101 is modelled, W_h is gathered."""
+    sx, sh, a = _case(B + X + H, B, X, H)
+    units = np.arange(0, H, 101 if H > 1000 else 1)
+    rows = np.concatenate([g * H + units for g in range(4)])
+    ys = []
+    for s, v in ((sx, a["x"]), (sh, a["h"])):
+        y, p = model_y(s, v, rows)
+        if H == 4000:
+            assert p.stage_x == (v.shape[1] == 64)
+        want = np.asarray(jops.rb_spmv(s, jnp.asarray(v), backend=jbackend))
+        np.testing.assert_allclose(y, want[:, rows], rtol=0, atol=ATOL)
+        ts = packed_from_numpy(s.values, s.deltas, s.ncols, s.pad,
+                               s.block_rows)
+        plain = ops.rb_spmv(ts, torch.from_numpy(v), backend="ref")
+        np.testing.assert_allclose(y, plain.numpy()[:, rows], rtol=0,
+                                   atol=ATOL)
+        ys.append(y)
+    z1, _ = model_z(sx, sh, a, False, units)
+    np.testing.assert_array_equal(
+        ((ys[0] + ys[1]) + a["b"][None, rows]).view(np.uint32),
+        z1.view(np.uint32))
 
 
 def test_wide_input_is_gathered_and_scanned_a_chunk_a_word():

@@ -1,11 +1,12 @@
-"""The launch plans of the float scan, the fused q8 step and the staged
-float kernels (``kernels/plan.py``) on the CPU: the occupancy arithmetic (blocks an SM
-from registers, threads and shared memory; waves of a grid), each plan's
-fit on the card at lstm_ptb's serve shapes, the staged layout's
-addressing, the scan's scratch, and the alignment of the packed q8
-arrays. The kernels run only on the
-card, where ``chip_smoke.py`` prints the occupancy the runtime reports for
-the same plans."""
+"""The launch plans of the float scan, the staged q8 kernels (the fused
+q8 steps and the q8 dual SpMV) and the staged float kernels (the steps,
+the dual SpMVs and the single-family SpMV; ``kernels/plan.py``) on the
+CPU: the occupancy arithmetic (blocks an SM from registers, threads and
+shared memory; waves of a grid), each plan's fit on the card at
+lstm_ptb's serve shapes, the staged layout's addressing, the scan's
+scratch, and the alignment of the packed q8 arrays. The kernels run only
+on the card, where ``chip_smoke.py`` prints the occupancy the runtime
+reports for the same plans."""
 import numpy as np
 import pytest
 import torch
@@ -93,6 +94,78 @@ def test_q8_plan_is_one_wave_a_batch_tile(B, code_bytes, tiles):
 def test_q8_plan_gathers_a_very_wide_input():
     p = P.q8_plan(X=33000, H=97, B=12, Kx=8250, Kh=49, code_bytes=2)
     assert not p.staged and p.smem == 4 * p.units * p.nb * 4
+
+
+# the fused q8 steps' plans at lstm_ptb before the dual SpMV shared
+# q8_plan: (code bytes, delta step, B) -> (nb, tiles, units, grid, staged,
+# slot_bits, shift_x, shift_h, xpad, hpad, smem)
+FUSED_Q8 = {
+    (1, False, 1): (4, 1, 12, 125, True, 5, 4, 3, 1536, 1536, 13056),
+    (1, False, 8): (8, 1, 12, 125, True, 4, 4, 3, 1536, 1536, 26112),
+    (1, False, 16): (16, 1, 12, 125, True, 3, 4, 3, 1536, 1536, 52224),
+    (1, False, 64): (16, 4, 12, 125, True, 3, 4, 3, 1536, 1536, 52224),
+    (1, True, 8): (8, 1, 12, 125, True, 4, 4, 3, 1536, 1536, 27648),
+    (1, True, 64): (16, 4, 12, 125, True, 3, 4, 3, 1536, 1536, 55296),
+    (2, False, 8): (8, 1, 12, 125, True, 3, 4, 3, 1536, 1536, 50688),
+    (2, False, 16): (16, 1, 12, 125, True, 2, 4, 3, 1536, 1504, 100352),
+    (2, True, 1): (4, 1, 12, 125, True, 4, 4, 3, 1536, 1536, 26112),
+    (2, True, 8): (8, 1, 12, 125, True, 3, 4, 3, 1536, 1536, 52224),
+    (2, True, 16): (16, 1, 12, 125, True, 2, 4, 3, 1536, 1504, 103424)}
+
+
+@pytest.mark.parametrize("key", list(FUSED_Q8))
+def test_q8_plan_of_the_fused_steps_is_unchanged(key):
+    """B8's and B9's plans at lstm_ptb are what they were before B7 took a
+    form of the same plan: the same units, grid, staged layout and
+    shared memory."""
+    cb, delta, B = key
+    p = P.q8_plan(B=B, code_bytes=cb, delta=delta, **PTB)
+    assert (p.nb, p.tiles, p.units, p.grid, p.staged, p.slot_bits,
+            p.shift_x, p.shift_h, p.xpad, p.hpad, p.smem) == FUSED_Q8[key]
+    assert p.rows == 4 * p.units
+
+
+@pytest.mark.parametrize("B", [1, 3, 8, 12, 16, 32, 64])
+@pytest.mark.parametrize("code_bytes", [1, 2])
+def test_q8_dual_plan_is_one_wave_a_batch_tile(B, code_bytes):
+    """B7 at lstm_ptb (R = 6000): its tile's int8 or q1.11 codes staged at
+    every batch tier beside zx and zh (2 x 48 rows x NB float32), one
+    512-thread block an SM at up to 128 registers (its launch bounds), 125
+    blocks of 48 contiguous rows, so one wave a 16-row tile; at R = 4H the
+    delta-q8 step's plan, which keeps zx and zh apart too."""
+    p = P.q8_plan(B=B, code_bytes=code_bytes, R=6000, **PTB)
+    tiles = -(-B // P.TILE)
+    assert p.staged and p.tiles == tiles and p.nb == P.tier(min(B, P.TILE))
+    assert (p.rows, p.grid) == (48, 125)
+    assert (p.shift_x, p.shift_h) == (4, 3)
+    assert p.smem == (p.xpad + p.hpad) * p.nb * code_bytes \
+        + 2 * p.rows * p.nb * 4 <= P.SMEM_PER_BLOCK
+    per_sm = P.blocks_per_sm(128, P.Q8_THREADS, p.smem)
+    assert per_sm >= 1 and P.waves(p.grid * p.tiles, per_sm) == tiles
+    assert p == P.q8_plan(B=B, code_bytes=code_bytes, delta=True, **PTB)
+
+
+@pytest.mark.parametrize("R", [1, 5, 388, 6000, 6001, 16000])
+def test_q8_dual_plan_rows_cover_any_R(R):
+    """B7 takes any R (the format API's row_balanced_q8 dual matvec):
+    4 x ceil(R / 4 SMs) contiguous rows a block, at most one block an SM,
+    every row owned once, the last block partial."""
+    p = P.q8_plan(B=8, code_bytes=1, R=R, **PTB)
+    assert p.rows % 4 == 0 and p.grid <= P.SMS
+    assert p.rows * p.grid >= R > p.rows * (p.grid - 1)
+    with pytest.raises(ValueError):
+        P.q8_plan(B=8, code_bytes=1, R=0, **PTB)
+
+
+@pytest.mark.parametrize("X,B,code_bytes", [(33000, 12, 1), (33000, 12, 2),
+                                            (70000, 3, 1), (70000, 3, 2)])
+def test_q8_dual_plan_gathers_codes_too_wide_to_stage(X, B, code_bytes):
+    """chip_smoke's wide (X=33000, B=12) and very wide (X=70000, B=3)
+    shapes: the codes do not fit beside the sums, so B7 gathers them from
+    global memory and its shared memory holds zx and zh alone."""
+    p = P.q8_plan(X=X, H=97, B=B, Kx=X // 4, Kh=49, code_bytes=code_bytes,
+                  R=388)
+    assert not p.staged and p.smem == 2 * p.rows * p.nb * 4
 
 
 def _unrotate(a, r):
@@ -378,6 +451,62 @@ def test_float_plan_gathers_the_family_that_does_not_fit():
         assert not p.stage_x and p.stage_h and p.smem <= P.SMEM_PER_BLOCK
 
 
+@pytest.mark.parametrize("nb", [4, 8, 16])
+def test_single_plan_stages_x_beside_its_sums(nb):
+    """B11 (rb_spmv, one family) at lstm_ptb's W_h and W_x: x staged as the
+    dual SpMV stages it (the same shift and padding), beside one family's
+    sums (48 rows x NB float32), no h family; 125 blocks of 48 rows."""
+    for K in (PTB["Kx"], PTB["Kh"]):
+        p = P.stream_plan(X=1500, R=6000, B=nb, Kx=K)
+        d = P.stream_plan(X=1500, H=1500, R=6000, B=nb, Kx=K, Kh=K,
+                          fused=False)
+        assert p.families == 1 and p.stage_x and not p.stage_h
+        assert (p.shift_x, p.xpad, p.slot_bits) == (d.shift_x, d.xpad,
+                                                    d.slot_bits)
+        assert p.hpad == 0 and p.shift_h == 0
+        assert p.smem == (p.xpad + p.rows) * nb * 4
+        assert (p.rows, p.grid) == (48, 125)
+
+
+@pytest.mark.parametrize("B", [1, 3, 8, 12, 16, 32, 64])
+def test_single_plan_is_one_wave_a_batch_tile(B):
+    """B11 at lstm_ptb: one 512-thread block an SM at up to 128 registers,
+    125 blocks a 16-row tile, one wave a tile."""
+    p = P.stream_plan(X=1500, R=6000, B=B, Kx=750)
+    tiles = -(-B // P.TILE)
+    per_sm = P.blocks_per_sm(128, P.STREAM_THREADS, p.smem)
+    assert p.tiles == tiles and per_sm == 1 and p.stage_x
+    assert P.waves(p.grid * p.tiles, per_sm) == tiles
+
+
+@pytest.mark.parametrize("R", [1, 5, 388, 1500, 6000, 6001, 16000])
+def test_single_plan_rows_cover_any_R(R):
+    """B11 takes any R (the format API's matvec): 4 x ceil(R / 4 SMs)
+    contiguous rows a block, every row owned once."""
+    p = P.stream_plan(X=1500, R=R, B=8, Kx=375)
+    assert p.rows % 4 == 0 and p.grid <= P.SMS
+    assert p.rows * p.grid >= R > p.rows * (p.grid - 1)
+    with pytest.raises(ValueError):
+        P.stream_plan(X=1500, R=0, B=8, Kx=375)
+    with pytest.raises(ValueError):
+        P.stream_plan(X=1500, R=R, B=8, Kx=375, fused=True)
+
+
+@pytest.mark.parametrize("X,K,B,staged", [(70000, 17500, 3, False),
+                                          (33000, 8250, 12, False),
+                                          (4000, 2000, 12, False),
+                                          (4000, 2000, 8, True),
+                                          (64, 16, 12, True)])
+def test_single_plan_gathers_an_input_too_wide_to_stage(X, K, B, staged):
+    """chip_smoke's single-family shapes: x of 70000 or 33000 columns, or
+    the tall shape's h (4000 columns of 64 bytes at NB=16), does not fit
+    beside the sums and is gathered; 4000 columns at NB=8 and the tall
+    shape's 64-wide x are staged."""
+    p = P.stream_plan(X=X, R=4 * 97, B=B, Kx=K)
+    assert p.stage_x == staged and p.smem <= P.SMEM_PER_BLOCK
+    assert p.smem == ((p.xpad if staged else 0) + p.rows) * p.nb * 4
+
+
 def test_stream_plan_for_reads_the_operands_and_is_cached(monkeypatch):
     """The wrappers' plan: X, H and B from the operands (x and h, or the
     deltas), Kx and Kh from the packed values, the card's SMs; the same
@@ -393,6 +522,28 @@ def test_stream_plan_for_reads_the_operands_and_is_cached(monkeypatch):
     assert krb.stream_plan_for(vx, vh, x, h, 6000, fused=True) is p
     assert krb.stream_args(p) == (1, 1, p.shift_x, p.shift_h, p.slot_bits,
                                   p.xpad, p.hpad, p.smem)
+    s = krb.single_plan_for(vh, x, 6000)
+    assert s == P.stream_plan(X=1500, R=6000, B=8, Kx=750)
+    assert krb.single_plan_for(vh, x, 6000) is s
+
+
+def test_q8_plan_for_reads_the_operands_and_is_cached(monkeypatch):
+    """The staged q8 wrappers' plan: X, H and B from the activation codes,
+    Kx and Kh from the packed codes, the code width from qx; the fused
+    steps' (no R) or the dual SpMV's (R), the same object at every launch
+    of a shape."""
+    from repro_torch.kernels import rb_spmv_q8 as kq8
+    monkeypatch.setattr(_build, "sm_count", lambda device: 132)
+    vx = torch.zeros(6000, 375, dtype=torch.int16)
+    vh = torch.zeros(6000, 750, dtype=torch.int16)
+    qx = qh = torch.zeros(8, 1500, dtype=torch.int16)
+    fused = kq8.q8_plan_for(vx, vh, qx, qh, delta=True)
+    dual = kq8.q8_plan_for(vx, vh, qx, qh, R=6000)
+    assert fused == P.q8_plan(B=8, code_bytes=2, delta=True, **PTB)
+    assert dual == P.q8_plan(B=8, code_bytes=2, R=6000, **PTB)
+    assert kq8.q8_plan_for(vx, vh, qx, qh, R=6000) is dual
+    assert kq8.q8_args(dual) == (1, 4, 3, dual.slot_bits, dual.xpad,
+                                 dual.hpad, dual.smem)
 
 
 # qwen3-0.6b's decode: B=8, 16 q / 8 kv heads of 128, bf16, max_len 1024

@@ -1,17 +1,21 @@
-"""The index and sum arithmetic of the fused q8 step's row routine
-(``csrc/brds_common.cuh::row_dot_q8x4``), modelled in numpy on the CPU:
-four consecutive entries a lane counted from the 4-aligned element at or
-before a row's start (the head of an unaligned row and the tail past K
-count as code 0, delta 0), the in-register prefix of a lane's four
+"""The index and sum arithmetic of the staged q8 kernels' row routine
+(``csrc/brds_common.cuh``: ``row_dot_q8x4``, ``q8_rows_stream``,
+``q8_rows_block``; B8, B9 and B7 ``rb_dual_parts_q8``), modelled in numpy on
+the CPU: four consecutive entries a lane counted from the 4-aligned element
+at or before a row's start (the head of an unaligned row and the tail past
+K count as code 0, delta 0), the in-register prefix of a lane's four
 deltas, the warp's shuffle scan of the 32 chunk sums, the 4x4 byte
 transpose that pairs the entries' activation codes with their weights, and
-``__dp4a``'s wrapping int32 sums (IMADs for int16 codes). The columns must
-equal the JAX package's unpacked indices (``repro.core.packing``), and the
-sums, dequantized, the port's plain version (``kernels/ref.py::
-rb_spmv_q8_ref``) bit for bit; with the delta-q8 step's epilogue, m' and
-the cell the JAX package's fused delta-q8 step. The kernel itself runs only
-on the card (``chip_smoke.py`` holds it exact against the same plain
-version)."""
+``__dp4a``'s wrapping int32 sums (IMADs for int16 codes); and B7's block:
+contiguous rows a block, warp w taking rows w, w+16, ..., each row's Sx
+then Sh segment one stream of chunk groups, zx and zh dequantized apart and
+written out coalesced. The columns must equal the JAX package's unpacked
+indices (``repro.core.packing``), and the sums, dequantized, the port's
+plain version (``kernels/ref.py::rb_spmv_q8_ref``) and the JAX
+``rb_dual_parts_q8`` bit for bit; with the delta-q8 step's epilogue, m' and
+the cell the JAX package's fused delta-q8 step. The kernels themselves run
+only on the card (``chip_smoke.py`` holds them exact against the same
+plain version)."""
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -19,9 +23,10 @@ import torch
 
 from repro.core.packing import pack, pack_from_dense, pad_packed
 from repro.kernels import ops as jops
+from repro.kernels import ref as jref
 from repro.quant import formats as jqf
 from repro_torch.kernels import ref
-from repro_torch.kernels.plan import stage_pos, staged_cols
+from repro_torch.kernels.plan import q8_plan, stage_pos, staged_cols
 from repro_torch.models import packed_from_numpy
 from repro_torch.quant import quantize_packed
 
@@ -95,17 +100,21 @@ def dp4a(a, b, c):
     return (c.astype(np.int64) + (_sbytes(a) * _sbytes(b)).sum(-1)) & M32
 
 
-def q8x4_sums(codes, deltas, offs, K, q):
-    """The int32 sums (rows, B) row_dot_q8x4 leaves in every lane: codes
-    and deltas flat, q (B, ncols) activation codes of the same type."""
-    B = q.shape[0]
+def q8x4_lanes(codes, deltas, offs, K, q, shift=0, slot_bits=0):
+    """Each lane's wrapping int32 sums (rows, windows, 32 lanes, NB) over
+    the windows of 32 chunks of rows starting at ``offs`` (codes and
+    deltas flat, q (B, ncols) activation codes of the same type), its
+    activation codes fetched from the staged vectors: column c's NB codes
+    (zero past B) at stage_pos(c, shift, slot_bits)."""
+    B, n = q.shape
     nb = 4 if B <= 4 else 8 if B <= 8 else 16
     e, live, col = layout(deltas, offs, K)
     at = np.asarray(offs)[:, None, None, None] + np.clip(e, 0, max(K - 1, 0))
     w = np.where(live, codes[np.minimum(at, codes.size - 1)], 0)
     w = w.astype(np.int64)
-    qq = np.zeros((nb, q.shape[1]), np.int64)
-    qq[:B] = q
+    qq = np.zeros((nb, staged_cols(n, shift, slot_bits)), np.int64)
+    qq[:B, stage_pos(np.arange(n), shift, slot_bits)] = q
+    col = stage_pos(col, shift, slot_bits)
     acc = np.zeros(w.shape[:3] + (nb,), np.int64)   # (rows, windows, lane)
     if codes.dtype == np.int8:
         # the staged vector of a column: word g holds rows 4g..4g+3
@@ -122,12 +131,24 @@ def q8x4_sums(codes, deltas, offs, K, q):
     else:
         for i in range(4):
             acc = (acc + w[..., i, None] * qq.T[col[..., i]]) & M32
-    lanes = acc.sum(axis=1) & M32                    # a lane's windows
-    for o in (16, 8, 4, 2, 1):                        # the xor butterfly
-        lanes = (lanes + lanes[:, np.arange(WARP) ^ o]) & M32
-    assert (lanes == lanes[:, :1]).all()             # every lane, one total
-    s = lanes[:, 0, :B]
+    return acc
+
+
+def warp_total(lanes, B):
+    """The xor butterfly over lanes (..., 32, NB): every lane's total, as
+    int32, of batch rows b < B."""
+    for o in (16, 8, 4, 2, 1):
+        lanes = (lanes + lanes[..., np.arange(WARP) ^ o, :]) & M32
+    assert (lanes == lanes[..., :1, :]).all()        # every lane, one total
+    s = lanes[..., 0, :B]
     return (s - (1 << 32) * (s >= 1 << 31)).astype(np.int32)
+
+
+def q8x4_sums(codes, deltas, offs, K, q):
+    """The int32 sums (rows, B) row_dot_q8x4 leaves in every lane: codes
+    and deltas flat, q (B, ncols) activation codes of the same type."""
+    lanes = q8x4_lanes(codes, deltas, offs, K, q).sum(axis=1) & M32
+    return warp_total(lanes, q.shape[0])
 
 
 # (K, ncols): K not a multiple of 4, one entry, a whole chunk, one past
@@ -284,3 +305,173 @@ def test_delta_q8_epilogue_matches_jax(spec, B):
     cn, hn = _cell(mn + bias[None, :], c, H)
     np.testing.assert_allclose(cn, np.asarray(jc), atol=1e-5)
     np.testing.assert_allclose(hn, np.asarray(jh), atol=1e-5)
+
+
+def q8_stream_order(nrows, nchunks, G, warp=0, nwarps=16):
+    """q8_rows_stream's control flow for one warp: the (row, family, first
+    chunk) of each group of G x 32 chunks it consumes, in order, and the
+    group it loads before consuming it (None at the end); nchunks(i,
+    part) is row i's chunk count in family part (q8x4_chunks: its head
+    peel counted)."""
+    i, part, c0 = warp, 0, 0
+    out = []
+    if i >= nrows:
+        return out
+    while True:
+        i2, part2, c2 = i, part, c0 + G * WARP
+        if c2 >= nchunks(i, part):
+            c2, part2 = 0, part ^ 1
+            if part:
+                i2 += nwarps
+        more = i2 < nrows
+        out.append(((i, part, c0), (i2, part2, c2) if more else None))
+        if not more:
+            return out
+        i, part, c0 = i2, part2, c2
+
+
+def q8_rows_order(nrows, nchunks, warp=0, nwarps=16):
+    """q8_rows' order for one warp (deltas not both int16): row i's Sx row
+    through row_dot_q8x4 (groups of 4 x 32 chunks), then its Sh row, then
+    row i + 16's."""
+    return [(i, part, c0) for i in range(warp, nrows, nwarps)
+            for part in (0, 1)
+            for c0 in range(0, nchunks(i, part), 4 * WARP)]
+
+
+def chunks_of_row(K, r0):
+    """nchunks(i, part) of a block whose local row i is packed row r0 + i
+    of families with K[part] entries a row (element offset row * K)."""
+    return lambda i, part: (((r0 + i) * K[part]) % 4 + K[part] + 3) >> 2
+
+
+@pytest.mark.parametrize("K", [(375, 750), (5, 3), (1, 1), (0, 0),
+                               (600, 7)])
+def test_q8_stream_visits_every_group_once(K):
+    """A warp's q8 stream (rows w, w + 16, ...; each row's Sx segment, then
+    its Sh segment) consumes every group of G x 32 chunks of its rows once,
+    in row, family, chunk order, and each group's loads are those the step
+    before issued, across segment and row boundaries; a row's chunk count
+    follows its head peel (odd K: rows start at every offset mod 4), and
+    an empty family still takes one (empty) group, so every row is
+    emitted."""
+    for G in (4, 8):
+        for r0, nrows in ((0, 48), (48 * 7, 48), (5952, 48), (0, 5)):
+            nch = chunks_of_row(K, r0)
+            for warp in range(16):
+                got = q8_stream_order(nrows, nch, G, warp)
+                want = [(i, part, c0) for i in range(warp, nrows, 16)
+                        for part in (0, 1)
+                        for c0 in range(0, max(1, nch(i, part)), G * WARP)]
+                assert [g for g, _ in got] == want
+                assert [n for _, n in got[:-1]] == want[1:]
+                assert not got or got[-1][1] is None
+
+
+def model_dual_parts(sx, sh, qx, qh, cx, cy, R):
+    """B7's kernel, modelled: the plan's blocks of contiguous rows (block
+    k owns rows k x rows ..), warp w of a block taking its local rows w,
+    w + 16, ...; the tile's codes staged at the plan's layout; the rows a
+    stream of chunk groups (both families with int16 deltas: G = 8 for int8
+    codes, 4 for int16) or a row at a time (row_dot_q8x4, G = 4); each
+    segment's lanes summed over its groups, the xor butterfly, zx and zh
+    dequantized apart into the block's shared arrays (local row i, batch
+    row b) and written out batch row by batch row. sx, sh: (values,
+    deltas) numpy arrays (≥ R rows); cx, cy: combined scales."""
+    B, X = qx.shape
+    H = qh.shape[1]
+    fam = [(np.asarray(v), np.asarray(d)) for v, d in (sx, sh)]
+    K = (fam[0][0].shape[1], fam[1][0].shape[1])
+    code_bytes = fam[0][0].dtype.itemsize
+    p = q8_plan(X=X, H=H, B=B, Kx=K[0], Kh=K[1], code_bytes=code_bytes, R=R)
+    stream = all(d.dtype == np.int16 for _, d in fam)
+    G = (8 if code_bytes == 1 else 4) if stream else 4
+    lanes = []
+    for (v, d), q, k, shift in ((fam[0], qx, K[0], p.shift_x),
+                                (fam[1], qh, K[1], p.shift_h)):
+        layout_ = (shift, p.slot_bits) if p.staged else (0, 0)
+        lanes.append(q8x4_lanes(v[:R].ravel(), d[:R].ravel(),
+                                np.arange(R) * k, k, q, *layout_))
+    comb = (np.asarray(cx, np.float32), np.asarray(cy, np.float32))
+    zx, zh = (np.zeros((B, R), np.float32) for _ in range(2))
+    for r0 in range(0, R, p.rows):
+        nrows = min(p.rows, R - r0)
+        nch = chunks_of_row(K, r0)
+        smem = np.zeros((2, nrows, p.nb), np.float32)
+        for warp in range(16):
+            order = ([g for g, _ in q8_stream_order(nrows, nch, G, warp)]
+                     if stream else q8_rows_order(nrows, nch, warp))
+            segs = {}
+            for i, part, c0 in order:
+                w0 = c0 // WARP   # a group: windows w0 .. w0 + G - 1
+                acc = segs.get((i, part), np.zeros((WARP, p.nb), np.int64))
+                segs[(i, part)] = (acc + lanes[part][r0 + i, w0:w0 + G]
+                                   .sum(0)) & M32
+            for i in range(warp, nrows, 16):
+                for part in (0, 1):
+                    acc = segs.get((i, part), np.zeros((WARP, p.nb),
+                                                       np.int64))
+                    tot = warp_total(acc, p.nb)
+                    smem[part, i] = tot.astype(np.float32) \
+                        * comb[part][r0 + i]
+        for t in range(nrows * B):
+            b, i = t // nrows, t % nrows
+            zx[b, r0 + i] = smem[0, i, b]
+            zh[b, r0 + i] = smem[1, i, b]
+    return zx, zh, p
+
+
+# (B, X, H): NB = 4, 8, 16; int8 deltas (X, H ≤ 128: rows a row at a
+# time), int16 (the stream) and a mix (int8 for Sx, int16 for Sh);
+# lstm_ptb's families (6000 rows of 375 and 750 entries over 1500)
+DUAL = [(1, 100, 96), (3, 100, 300), (8, 300, 160), (16, 200, 130),
+        (8, 1500, 1500)]
+
+
+@pytest.mark.parametrize("jbackend", ["pallas", "ref"])
+@pytest.mark.parametrize("spec", ["int8", "q1.11"])
+@pytest.mark.parametrize("B,X,H", DUAL)
+def test_modelled_dual_parts_equal_jax(B, X, H, spec, jbackend):
+    """The modelled B7 on the JAX package's own packing and codes equals
+    the JAX rb_dual_parts_q8 (Pallas, interpret mode, or its plain
+    reference rb_spmv_q8_ref a family) and the port's rb_spmv_q8_ref bit
+    for bit: zx and zh apart, every row of every block, every batch row."""
+    R = 4 * H
+    rng = np.random.default_rng(B * 7 + X + H + len(spec))
+    arr = lambda *s, sc=1.0: (rng.normal(size=s) * sc).astype(np.float32)
+    if X == 1500:   # lstm_ptb: row-balanced masks without the prune
+        fx_, fh_ = _packed(rng, R, X, 375), _packed(rng, R, H, 750)
+    else:
+        fx_ = pack_from_dense(jnp.asarray(arr(R, X, sc=X ** -0.5)), 0.75)
+        fh_ = pack_from_dense(jnp.asarray(arr(R, H, sc=H ** -0.5)), 0.5)
+    jsx, jsh = (pad_packed(jqf.quantize_packed(f, spec)) for f in (fx_, fh_))
+    x, h = arr(B, X), arr(B, H)
+    qx, sax = jops._quant_act(jnp.asarray(x), jsx, 0.05 if spec == "int8"
+                              else None)
+    qh, sah = jops._quant_act(jnp.asarray(h), jsh, 0.04 if spec == "int8"
+                              else None)
+    if jbackend == "pallas":
+        want = jops._dual_parts_q8(jsx, qx, sax, jsh, qh, sah, 256)
+    else:
+        want = (jref.rb_spmv_q8_ref(jsx, qx, sax),
+                jref.rb_spmv_q8_ref(jsh, qh, sah))
+    comb = [np.asarray(s.scales)[:R] * np.float32(a)
+            for s, a in ((jsx, sax), (jsh, sah))]
+    zx, zh, p = model_dual_parts((jsx.values, jsx.deltas),
+                                 (jsh.values, jsh.deltas), np.asarray(qx),
+                                 np.asarray(qh), *comb, R)
+    assert p.staged
+    for got, w in zip((zx, zh), want):
+        np.testing.assert_array_equal(got.view(np.uint32),
+                                      np.asarray(w).view(np.uint32))
+    tsx, tsh = (quantize_packed(packed_from_numpy(
+        f.values, f.deltas, f.ncols, f.pad, f.block_rows), spec)
+        for f in (fx_, fh_))
+    for ts, js in ((tsx, jsx), (tsh, jsh)):
+        np.testing.assert_array_equal(ts.values.numpy(),
+                                      np.asarray(js.values)[:ts.rows])
+    for ts, q, a, got in ((tsx, qx, sax, zx), (tsh, qh, sah, zh)):
+        plain = ref.rb_spmv_q8_ref(ts, torch.from_numpy(np.asarray(q)),
+                                   torch.tensor(np.float32(a)))
+        np.testing.assert_array_equal(got.view(np.uint32),
+                                      plain.numpy().view(np.uint32))
