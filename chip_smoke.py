@@ -5,10 +5,10 @@
 
 1. Prints the card (``nvidia-smi``), the torch / CUDA versions, and builds
    every CUDA kernel from ``src/repro_torch/csrc`` (one nvcc per source, all
-   started together); for the redesigned float scan, fused q8, delta-q8,
-   float and float delta steps, float, delta and q8 dual SpMVs and
-   single-family float SpMV at the serve tier and decode attention at
-   qwen3-0.6b's decode shape, prints ptxas's
+   started together); for the redesigned float and delta scans, fused
+   q8, delta-q8, float and float delta steps, float, delta and q8 dual
+   SpMVs and single-family float and delta SpMVs at the serve tier and
+   decode attention at qwen3-0.6b's decode shape, prints ptxas's
    registers and spills, the local bytes, shared memory, blocks an SM and
    waves at the launch's grid (decode: its cluster size too), and fails on
    a spill, a local array or (but for decode) a second wave.
@@ -31,7 +31,8 @@
    delta-q8 step on both code types and fired shares (and at B=1, 16 and
    64, as the fused q8 step and the float and float delta pairs), and the
    single-family float rb_spmv, whose two sums plus the bias must equal
-   rb_dual_spmv bit for bit; the q8 partial sums, rb_spmv_q8 and the
+   rb_dual_spmv bit for bit, as m + delta_rb_spmv(Sx) + delta_rb_spmv(Sh)
+   must equal delta_rb_dual_spmv; the q8 partial sums, rb_spmv_q8 and the
    fused delta-q8 step's m' must equal the plain version's exactly. The
    multi-token scans over T=32 steps (the serve prompt), float and
    temporal delta (Θ=0 and 0.05), must be bitwise equal to T launches of
@@ -238,8 +239,10 @@ def ptxas_attention(out: str, flash_smem: int) -> list[str]:
 # the redesigned instantiations at the serve tier (B=8, lstm_ptb; B14 at
 # qwen3-0.6b's bf16 head_dim 128, two q heads a block): mangled name
 # fragment -> what chip_smoke prints
-REDESIGNED = {"fused_scan_kernelILi8ELb1ELb1E":
+REDESIGNED = {"fused_scan_kernelILi8ELb1ELb1ELb0EE":
               "fused_scan_kernel<8, xs staged, h staged> (B12)",
+              "fused_scan_kernelILi8ELb1ELb1ELb1EE":
+              "fused_scan_kernel<8, dxm staged, dh staged, delta> (B13)",
               "fused_step_q8_kernelIaLi8ELb0ELb1ELb0EE":
               "fused_step_q8_kernel<int8, 8, staged> (B8 int8)",
               "fused_step_q8_kernelIsLi8ELb0ELb1ELb0EE":
@@ -262,6 +265,8 @@ REDESIGNED = {"fused_scan_kernelILi8ELb1ELb1E":
               "rb_dual_parts_staged_kernel<int16, 8, staged> (B7 q1.11)",
               "rb_spmv_staged_kernelILi8ELb0EE":
               "rb_spmv_staged_kernel<8> (B11)",
+              "delta_spmv_staged_kernelILi8ELb0EE":
+              "delta_spmv_staged_kernel<8> (B6)",
               "decode_cluster_kernelI13__nv_bfloat16Li128ELi2EE":
               "decode_cluster_kernel<bf16, 128, 2 heads> (B14)"}
 
@@ -286,9 +291,9 @@ def ptxas_redesigned(out: str) -> dict:
 
 
 def occupancy(torch, device) -> None:
-    """Prints, for the redesigned B12, B8, B9 and B7 (int8, q1.11), B3,
-    B1, B5, B4 and B11 instantiations at the serve tier (B=8, int16
-    deltas) and B14's at
+    """Prints, for the redesigned B12, B13, B8, B9 and B7 (int8, q1.11),
+    B3, B1, B5, B4, B11 and B6 instantiations at the serve tier (B=8,
+    int16 deltas) and B14's at
     qwen3-0.6b's decode shape: ptxas's registers and spill bytes, the
     launch plan's dynamic shared memory and grid, and the blocks an SM and
     waves the runtime's occupancy calculator gives at that grid (beside the
@@ -307,9 +312,12 @@ def occupancy(torch, device) -> None:
         ptx.update(ptxas_redesigned(_build.BUILD_LOG.get(src, "")))
     sms = _build.sm_count(device)
     B, X, H, Kx, Kh = SERVE["batch"], 1500, 1500, 375, 750
-    sp = P.scan_plan(X=X, H=H, T=SERVE["prompt"], B=B, Kx=Kx, Kh=Kh, sms=sms)
-    rows = [("fused_scan_kernelILi8ELb1ELb1E", sp, P.SCAN_THREADS,
-             kscan.scan_info(sp, B, device))]
+    rows = []
+    for key, delta in (("fused_scan_kernelILi8ELb1ELb1ELb0EE", False),
+                       ("fused_scan_kernelILi8ELb1ELb1ELb1EE", True)):
+        sp = P.scan_plan(X=X, H=H, T=SERVE["prompt"], B=B, Kx=Kx, Kh=Kh,
+                         delta=delta, sms=sms)
+        rows.append((key, sp, P.SCAN_THREADS, kscan.scan_info(sp, B, device)))
     for key, cb, delta in (("fused_step_q8_kernelIaLi8ELb0ELb1ELb0EE", 1, 0),
                            ("fused_step_q8_kernelIsLi8ELb0ELb1ELb0EE", 2, 0),
                            ("fused_step_q8_kernelIaLi8ELb0ELb1ELb1EE", 1, 1),
@@ -335,8 +343,10 @@ def occupancy(torch, device) -> None:
                      krb.stream_info(lp, B, device, fused=fused,
                                      delta=delta)))
     lp = P.stream_plan(X=X, R=4 * H, B=B, Kx=Kx, sms=sms)
-    rows.append(("rb_spmv_staged_kernelILi8ELb0EE", lp, P.STREAM_THREADS,
-                 krb.stream_info(lp, B, device)))
+    for key, delta in (("rb_spmv_staged_kernelILi8ELb0EE", False),
+                       ("delta_spmv_staged_kernelILi8ELb0EE", True)):
+        rows.append((key, lp, P.STREAM_THREADS,
+                     krb.stream_info(lp, B, device, delta=delta)))
     # B14 at the qwen3-0.6b decode shape: B=8, 16 q / 8 kv heads of 128,
     # bf16, a 1024-row cache
     dp = P.decode_plan(B=TSERVE["batch"], Hkv=8, G=2, S=TSERVE["max_len"],
@@ -672,8 +682,9 @@ def check_single(torch, ops, err, tag, cs):
     families: rb_spmv and delta_rb_spmv (fired about 50% and 100%, the
     mask given as bool once) within Z_TOL, rb_spmv_q8 exactly equal with a
     static and a dynamic activation scale; and rb_spmv(Sx, x) + rb_spmv(Sh,
-    h) + bias bitwise equal to rb_dual_spmv (row_dot's order in both, and
-    the same adds)."""
+    h) + bias bitwise equal to rb_dual_spmv, (m + delta_rb_spmv(Sx, dx,
+    fx)) + delta_rb_spmv(Sh, dh, fh) bitwise equal to delta_rb_dual_spmv
+    (row_dot's order in all four, and the same adds)."""
     sx, sh, x, h, b, dx, dh = (cs[k] for k in ("sx", "sh", "x", "h", "bias",
                                                "dx", "dh"))
     ys = []
@@ -690,14 +701,27 @@ def check_single(torch, ops, err, tag, cs):
     if not torch.equal(ys[0] + ys[1] + b[:sx.rows], z):
         raise AssertionError(f"rb_spmv(Sx, x) + rb_spmv(Sh, h) + bias is not "
                              f"bitwise rb_dual_spmv ({tag})")
+    m = cs["m"]
     for share, (fx, fh) in cs["fired"].items():
+        ys = []
         for fam, s, dv, f in (("Sx", sx, dx, fx.bool()), ("Sh", sh, dh, fh)):
             y = ops.delta_rb_spmv(s, dv, f, backend="cuda")
             e = err("delta_rb_spmv", y,
                     ops.delta_rb_spmv(s, dv, f, backend="ref"), Z_TOL,
                     f"{tag} {fam} {share}")
+            ys.append(y)
             log(f"  delta_rb_spmv  {fam} fired {float(f.float().mean()):.2f} "
                 f"max|y err| {e:.3e} (tol {Z_TOL:.0e})")
+        dual = ops.delta_rb_dual_spmv(sx, dx, fx, sh, dh, fh, m,
+                                      backend="cuda")
+        chain = (m + ys[0]) + ys[1]
+        log(f"  (m + delta_rb_spmv(Sx)) + delta_rb_spmv(Sh) vs "
+            f"delta_rb_dual_spmv, fired {share}: max|diff| "
+            f"{(chain - dual).abs().max().item():.3e} (must be 0: bitwise)")
+        if not torch.equal(chain, dual):
+            raise AssertionError(f"(m + delta_rb_spmv(Sx)) + delta_rb_spmv("
+                                 f"Sh) is not bitwise delta_rb_dual_spmv "
+                                 f"({tag}, fired {share})")
     for spec in SCHEMES:
         qsx, qsh = cs["q8"][spec]
         _, sax, _, sah = q8_acts(cs, spec)

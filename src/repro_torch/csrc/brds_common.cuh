@@ -9,17 +9,17 @@
 //    warp takes entries l, l+32, ... and a butterfly over the warp adds the
 //    32 partial sums. Float and integer addition commute, so every lane ends
 //    with the same total. What a packed entry is multiplied by is a policy
-//    (F32Act, DeltaAct, CodeAct): one routine serves the single-family
-//    kernels not yet redesigned (delta_rb_spmv, rb_spmv_q8) and the delta
-//    scan. The float scan (fused_scan.cu) keeps this order with its
-//    operands moved: columns decoded once, activations staged in shared
-//    memory.
+//    (F32Act, DeltaAct, CodeAct): it serves the one single-family kernel
+//    not yet redesigned (rb_spmv_q8), and its policies gather the families
+//    too wide to stage. The scans (fused_scan.cu) keep this order with
+//    their operands moved: columns decoded once, activations or masked
+//    deltas staged in shared memory.
 //  - row_dot_stream keeps row_dot's order with the operands moved (the
 //    float steps and dual SpMV, fused_step.cu and rb_spmv.cu, their delta
 //    forms, fused_step.cu and delta_rb_spmv.cu, and in its single-family
-//    form rb_spmv: stream_rows_block): x and h, or the masked deltas,
-//    staged in shared memory, a warp's rows streamed with their next loads
-//    in flight.
+//    form rb_spmv and delta_rb_spmv: stream_rows_block,
+//    single_rows_block): x and h, or the masked deltas, staged in shared
+//    memory, a warp's rows streamed with their next loads in flight.
 //  - row_dot_q8x4 is the integer-code row of the staged q8 kernels (the
 //    fused q8 and delta-q8 steps and their chained gate kernel
 //    rb_dual_parts_q8: q8_rows_block): each lane takes four consecutive
@@ -758,7 +758,7 @@ __device__ __forceinline__ void q8_rows_block(const Q8In<CT>& in,
 //
 // row_dot_stream is row_dot with its operands moved (the float steps and
 // dual SpMV, B3 and B1, their delta forms, B5 and B4, and the single-family
-// SpMV B11 run on it): the
+// SpMVs B11 and B6 run on it): the
 // operand a packed entry multiplies (x or h, or the masked deltas) comes
 // from shared memory, a column's NB floats staged once a block at
 // stage_pos, or, for a family too wide to stage, from global memory as
@@ -1226,7 +1226,7 @@ __device__ __forceinline__ size_t staged_float4s(const StreamIn<Src>& in,
 // stages, then runs the warps' rows (local row i < nrows at packed row
 // row_of(i), warp w taking w, w + 16, ...) through row_dot_stream and
 // leaves row i's sums Sx@ax in zx[i * NB + b] and Sh@ah in zh[i * NB + b]
-// for b < B. NF = 1: the single-family form (B11 rb_spmv), Sx@ax alone
+// for b < B. NF = 1: the single-family form (B11 and B6), Sx@ax alone
 // (in's h family is not read, zh not written). Ends with a barrier.
 template <int NB, int NF = 2, typename Src, typename RowOf>
 __device__ __forceinline__ void stream_rows_block(const StreamIn<Src>& in,
@@ -1263,6 +1263,39 @@ __device__ __forceinline__ void stream_rows_block(const StreamIn<Src>& in,
         }
       });
   __syncthreads();
+}
+
+// The single-family SpMV y = S@operand over a block's contiguous rows:
+// B11 rb_spmv (F32Src: x) and B6 delta_rb_spmv (DeltaSrc: d·f), the
+// operand's family alone in `in` (its h family unused).
+template <typename Src>
+struct SingleArgs {
+  StreamIn<Src> in;
+  float* y;           // (B, R)
+  int R, rows;        // rows of the output; rows a block
+};
+
+// A single-family kernel's body: stream_rows_block's NF = 1 form over the
+// block's rows r0 .. r0 + rows - 1, then y written through shared memory
+// (after the staged operand in `smem`) so that each batch row's outputs
+// leave coalesced.
+template <int NB, bool kTiled, typename Src>
+__device__ __forceinline__ void single_rows_block(SingleArgs<Src> a,
+                                                  float4* smem) {
+  const int R = a.R;
+  if constexpr (kTiled) {
+    tile_stream_in<1>(a.in);
+    a.y = tile_rows(a.y, R);
+  }
+  float* ys = reinterpret_cast<float*>(smem + staged_float4s(a.in, NB));
+  const int B = a.in.B, r0 = blockIdx.x * a.rows;
+  const int nrows = min(a.rows, R - r0);
+  stream_rows_block<NB, 1>(a.in, smem, nrows, [&](int i) { return r0 + i; },
+                           ys, nullptr);
+  for (int t = threadIdx.x; t < nrows * B; t += kStreamThreads) {
+    const int b = t / nrows, i = t % nrows;
+    a.y[(size_t)b * R + r0 + i] = ys[i * NB + b];
+  }
 }
 
 // Host side: let `kern` take up to the card's opt-in shared memory a block

@@ -9,9 +9,15 @@
 //
 // The Pallas kernels mask the deltas in VMEM and stream (block_rows, K)
 // tiles on the TPU's sequential grid.
-//  - delta_rb_spmv: one warp owns one packed row, as in rb_spmv.cu:
-//    brds::row_dot with the DeltaAct policy gathers d*f for each entry, so
-//    an unfired column adds an exact zero.
+//  - delta_rb_spmv (delta_spmv_staged_kernel): rb_spmv.cu's single-family
+//    kernel (brds::single_rows_block) with the masked deltas as the
+//    operand: one block an SM owns a contiguous range of rows
+//    (kernels/plan.py::stream_plan without H), stages d*f once (DeltaSrc,
+//    16-byte loads of d and f where they allow it; gathered by DeltaAct
+//    when too wide), streams its warps' rows in row_dot's order, and writes
+//    y through shared memory, coalesced. An unfired column adds an exact
+//    zero product; its sums are the dual kernel's family sums bit for bit,
+//    so delta_update(m, y(Sx), y(Sh)) is delta_rb_dual_spmv.
 //  - delta_rb_dual_spmv (delta_dual_staged_kernel): one block an SM owns a
 //    contiguous range of `rows` rows (kernels/plan.py::stream_plan); it
 //    stages the masked deltas d*f of both families in shared memory once
@@ -33,31 +39,20 @@
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kRowsPerBlock = kThreads / brds::kWarp;
+template <int NB, bool kTiled>
+__global__ void __launch_bounds__(brds::kStreamThreads, 1)
+delta_spmv_staged_kernel(brds::SingleArgs<brds::DeltaSrc> a) {
+  extern __shared__ float4 stream_smem[];
+  brds::single_rows_block<NB, kTiled>(a, stream_smem);
+}
 
-template <typename IX, int NB, bool kTiled>
-__global__ void __launch_bounds__(kThreads)
-delta_rb_spmv_kernel(const float* __restrict__ vals,
-                     const IX* __restrict__ ix, int K,
-                     const float* __restrict__ d,
-                     const float* __restrict__ f, int X,
-                     float* __restrict__ y, int B, int R) {
-  const int row = (blockIdx.x * blockDim.x + threadIdx.x) / brds::kWarp;
-  if (row >= R) return;   // uniform across the warp
-  if constexpr (kTiled) {
-    d = brds::tile_rows(d, X);
-    f = brds::tile_rows(f, X);
-    y = brds::tile_rows(y, R);
-    B = brds::tile_batch(B);
-  }
-  float acc[NB] = {};
-  brds::row_dot<IX, NB>(vals + (size_t)row * K, ix + (size_t)row * K, K,
-                        brds::DeltaAct{d, f, X}, B, acc);
-  const int lane = threadIdx.x % brds::kWarp;
-#pragma unroll
-  for (int b = 0; b < NB; ++b)
-    if (b < B && b == lane) y[(size_t)b * R + row] = acc[b];
+// Runs `body(kern)` with the single-family delta instantiation for batch B.
+template <typename F>
+cudaError_t by_single_kernel(int B, F&& body) {
+  return brds::by_batch(B, [&](auto nb, auto tiled) {
+    return body(delta_spmv_staged_kernel<decltype(nb)::value,
+                                         decltype(tiled)::value>);
+  });
 }
 
 struct DeltaDualArgs {
@@ -102,27 +97,40 @@ cudaError_t by_dual_kernel(int B, F&& body) {
 
 }  // namespace
 
-extern "C" int brds_delta_rb_spmv(const void* vals, const void* ix,
-                                  int ix_bytes, int K, const void* d,
-                                  const void* f, int X, void* y, int B,
-                                  int R, void* stream) {
-  if (R <= 0) return cudaErrorInvalidValue;
-  const dim3 grid((R + kRowsPerBlock - 1) / kRowsPerBlock,
-                  brds::batch_tiles(B));
-  cudaError_t st = brds::by_delta(ix_bytes, [&](auto ixt) {
-    using IX = decltype(ixt);
-    return brds::by_batch(B, [&](auto nb, auto tiled) {
-      constexpr int NB = decltype(nb)::value;
-      delta_rb_spmv_kernel<IX, NB, decltype(tiled)::value>
-          <<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-              static_cast<const float*>(vals), static_cast<const IX*>(ix), K,
-              static_cast<const float*>(d), static_cast<const float*>(f), X,
-              static_cast<float*>(y), B, R);
-      return cudaSuccess;
-    });
+// One launch on kernels/plan.py::stream_plan's single-family arguments
+// (rows a block, d*f's staged layout, the dynamic shared memory).
+extern "C" int brds_delta_rb_spmv(const void* vals, const void* deltas,
+                                  int d_bytes, int K, const void* d,
+                                  const void* f, int X, void* y, int B, int R,
+                                  int rows, int stage_x, int shift_x,
+                                  int slot_bits, int xpad, int smem,
+                                  void* stream) {
+  if (R <= 0 || rows <= 0) return cudaErrorInvalidValue;
+  const dim3 grid((R + rows - 1) / rows, brds::batch_tiles(B));
+  const brds::SingleArgs<brds::DeltaSrc> a{
+      {static_cast<const float*>(vals), deltas, d_bytes, K,
+       {static_cast<const float*>(d), static_cast<const float*>(f)}, X,
+       nullptr, nullptr, 0, 0, {nullptr, nullptr}, 0, B, stage_x, 0, shift_x,
+       0, slot_bits, xpad, 0},
+      static_cast<float*>(y), R, rows};
+  cudaError_t st = by_single_kernel(B, [&](auto kern) {
+    cudaError_t e = brds::allow_smem(reinterpret_cast<const void*>(kern));
+    if (e != cudaSuccess) return e;
+    kern<<<grid, brds::kStreamThreads, smem,
+           static_cast<cudaStream_t>(stream)>>>(a);
+    return cudaSuccess;
   });
   if (st != cudaSuccess) return st;
   return cudaGetLastError();
+}
+
+// For the single-family delta instantiation of batch B: out[0..3] as
+// brds::kernel_info gives them, with `smem` bytes of dynamic shared memory.
+extern "C" int brds_delta_rb_spmv_info(int B, int smem, int* out) {
+  return by_single_kernel(B, [&](auto kern) {
+    return brds::kernel_info(reinterpret_cast<const void*>(kern),
+                             brds::kStreamThreads, smem, out);
+  });
 }
 
 // One launch on kernels/plan.py::stream_plan's arguments (rows a block,

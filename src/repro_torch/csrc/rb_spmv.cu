@@ -14,7 +14,7 @@
 // one fmaf a batch row, then the xor butterfly).
 //  - rb_spmv (rb_spmv_staged_kernel): the routine's single-family form, x
 //    alone, y written through shared memory so each batch row's outputs
-//    leave coalesced.
+//    leave coalesced (brds::single_rows_block, B6's body too).
 //  - rb_dual_spmv (rb_dual_staged_kernel): x and h, then z = (ax + ah) +
 //    bias, with the bias read there only. The two kernels' sums are the
 //    same bits, so rb_spmv(Sx, x) + rb_spmv(Sh, h) + bias, added in that
@@ -31,33 +31,11 @@
 
 namespace {
 
-// rb_spmv's arguments: x's family alone in `in` (its h family unused).
-struct SingleArgs {
-  brds::StreamIn<brds::F32Src> in;
-  float* y;           // (B, R)
-  int R, rows;        // rows of the output; rows a block
-};
-
 template <int NB, bool kTiled>
 __global__ void __launch_bounds__(brds::kStreamThreads, 1)
-rb_spmv_staged_kernel(SingleArgs a) {
-  const int R = a.R;
-  if constexpr (kTiled) {
-    brds::tile_stream_in<1>(a.in);
-    a.y = brds::tile_rows(a.y, R);
-  }
+rb_spmv_staged_kernel(brds::SingleArgs<brds::F32Src> a) {
   extern __shared__ float4 stream_smem[];
-  float* ys = reinterpret_cast<float*>(stream_smem +
-                                       brds::staged_float4s(a.in, NB));
-  const int B = a.in.B, r0 = blockIdx.x * a.rows;
-  const int nrows = min(a.rows, R - r0);
-  brds::stream_rows_block<NB, 1>(a.in, stream_smem, nrows,
-                                 [&](int i) { return r0 + i; }, ys,
-                                 nullptr);
-  for (int t = threadIdx.x; t < nrows * B; t += brds::kStreamThreads) {
-    const int b = t / nrows, i = t % nrows;
-    a.y[(size_t)b * R + r0 + i] = ys[i * NB + b];
-  }
+  brds::single_rows_block<NB, kTiled>(a, stream_smem);
 }
 
 // Runs `body(kern)` with the single-family float instantiation for batch B.
@@ -119,7 +97,7 @@ extern "C" int brds_rb_spmv(const void* vals, const void* deltas,
                             void* stream) {
   if (R <= 0 || rows <= 0) return cudaErrorInvalidValue;
   const dim3 grid((R + rows - 1) / rows, brds::batch_tiles(B));
-  const SingleArgs a{
+  const brds::SingleArgs<brds::F32Src> a{
       {static_cast<const float*>(vals), deltas, d_bytes, K,
        {static_cast<const float*>(x)}, X, nullptr, nullptr, 0, 0, {nullptr},
        0, B, stage_x, 0, shift_x, 0, slot_bits, xpad, 0},

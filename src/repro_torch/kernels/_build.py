@@ -75,7 +75,9 @@ SIGNATURES = {
                                           _I, _I, _I, _I, _P, _F, _F, _F,
                                           _P]},
     "delta_rb_spmv": {
-        "brds_delta_rb_spmv": [_P, _P, _I, _I, _P, _P, _I, _P, _I, _I, _P],
+        "brds_delta_rb_spmv": [_P, _P, _I, _I, _P, _P, _I, _P, _I, _I, _I,
+                               _I, _I, _I, _I, _I, _P],
+        "brds_delta_rb_spmv_info": [_I, _I, _P],
         "brds_delta_rb_dual_spmv": [_P, _P, _I, _I, _P, _P, _I, _P, _P, _I,
                                     _I, _P, _P, _I, _P, _P, _I, _I, _I, _I,
                                     _I, _I, _I, _I, _I, _I, _I, _P],
@@ -90,10 +92,11 @@ SIGNATURES = {
         "brds_fused_lstm_scan": [_P, _P, _I, _I, _P, _I, _P, _P, _I, _I, _P,
                                  _I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
                                  _I, _I, _I, _I, _P, _F, _F, _F, _P],
-        "brds_fused_lstm_scan_info": [_I, _I, _I, _I, _P],
+        "brds_fused_lstm_scan_info": [_I, _I, _I, _I, _I, _P],
         "brds_fused_delta_lstm_scan": [_P, _P, _I, _I, _P, _I, _P, _P, _I,
                                        _I, _P, _I, _P, _P, _P, _P, _P, _P,
-                                       _P, _P, _P, _P, _F, _F, _I, _I, _P,
+                                       _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                                       _F, _F, _I, _I, _I, _I, _I, _I, _P,
                                        _F, _F, _F, _P]},
     "attention": {
         "brds_decode_attention": [_P, _L, _L, _P, _L, _L, _L, _P, _L, _L, _L,

@@ -3,11 +3,13 @@
 The Spartus composition on the BRDS Gate-module MxV: the partial-sum memory
 advances by the products of fired columns only, m' = m + Sx@(fx·dx) +
 Sh@(fh·dh), over the same row-balanced packing as ``rb_dual_spmv``; the
-single-family form y = S@(f·d) sits behind ``ops.delta_rb_spmv``. The
-dual kernel runs one block an SM on ``plan.stream_plan``: the masked
-deltas staged in shared memory once a block, each row's sums in
-``row_dot``'s order (the fused delta step's routine, so the two stay
-bitwise a chain). Thresholding happens in PyTorch before the launch
+single-family form y = S@(f·d) sits behind ``ops.delta_rb_spmv``. Both
+run one block an SM on ``plan.stream_plan`` (the single-family form
+without H, as ``rb_spmv``): the masked deltas staged in shared memory
+once a block, each row's sums in ``row_dot``'s order (the fused delta
+step's routine, so the dual kernel and the step stay bitwise a chain, and
+m + y(Sx) + y(Sh), added in that order, is the dual kernel's m').
+Thresholding happens in PyTorch before the launch
 (``sparse.temporal.delta_threshold``), so a kernel and its plain version
 read the same deltas and masks. Replaces
 ``repro/kernels/delta_rb_spmv.py::delta_rb_dual_spmv`` and
@@ -18,8 +20,8 @@ from __future__ import annotations
 import torch
 
 from . import _build
-from .rb_spmv import (check_batch, check_packed, check_rows, stream_args,
-                      stream_plan_for)
+from .rb_spmv import (check_batch, check_packed, check_rows,
+                      single_plan_for, stream_args, stream_plan_for)
 
 
 def check_delta(d, f, name: str, device) -> None:
@@ -43,12 +45,15 @@ def delta_rb_spmv(vals, deltas, d, f, rows: int):
     check_rows(vals, rows, "S")
     B, X = d.shape
     check_batch(B)
+    plan = single_plan_for(vals, d, rows)
     y = torch.empty((B, rows), dtype=d.dtype, device=dev)
     lib = _build.load("delta_rb_spmv")
     err = lib.brds_delta_rb_spmv(vals.data_ptr(), deltas.data_ptr(),
                                  deltas.element_size(), vals.shape[1],
                                  d.data_ptr(), f.data_ptr(), X, y.data_ptr(),
-                                 B, rows, _build.stream(dev))
+                                 B, rows, plan.rows, int(plan.stage_x),
+                                 plan.shift_x, plan.slot_bits, plan.xpad,
+                                 plan.smem, _build.stream(dev))
     _build.check(err, "delta_rb_spmv")
     _build.LAUNCHES["delta_rb_spmv"] += 1
     return y

@@ -1,20 +1,21 @@
 """CUDA kernels: T BRDS-LSTM layer steps in one persistent launch
 (``csrc/fused_scan.cu``), float and temporal-delta.
 
-The grid is co-resident and launched cooperatively; each block owns its
-hidden units for all T steps and keeps their c (and the delta scan's
-partial-sum memory m) in shared memory, and only h crosses blocks,
-through ``hs`` and one grid barrier per step (two for the delta scan,
-whose thresholds are shared by every row). The float scan runs one block
-an SM (``plan.scan_plan``): it decodes the packed columns once, computes
-the input projection Sx@xs[t] for every t before the recurrence, into a
-scratch, and stages xs and h in shared memory; the scratch
-(``scan_scratch``) is allocated here. Each step is bitwise equal to one
-launch of the single-step kernel of ``fused_step``. A launch
-takes at most ``TILE`` batch rows (the co-resident grid cannot grow with
-the batch): a larger batch runs as one launch per tile of rows, which
-``batch_tiles`` concatenates, bitwise the whole batch's result since
-every row's sums are its own. Replaces
+Both scans are one kernel, launched cooperatively on a co-resident grid
+of one block an SM (``plan.scan_plan``): each block owns its hidden units
+for all T steps and keeps their c (and the delta scan's partial-sum memory
+m and h reference) in shared memory, and only h (the delta scan: its
+masked delta) crosses blocks, through one grid barrier a step. A block
+decodes the packed columns once, computes the input projection Sx@xs[t]
+(the delta scan: Sx@(fx·dx)[t], every step's x thresholds taken up front
+in one grid-wide pass) for every t before the recurrence, into a scratch,
+and stages xs and h in shared memory; the scratch (``scan_scratch``) is
+allocated here. Each step is bitwise equal to one launch of the
+single-step kernel of ``fused_step`` (the delta scan: after the
+thresholds in PyTorch). A launch takes at most ``TILE`` batch rows (the
+co-resident grid cannot grow with the batch): a larger batch runs as one
+launch per tile of rows, which ``batch_tiles`` concatenates, bitwise the
+whole batch's result since every row's sums are its own. Replaces
 ``repro/kernels/fused_step.py::fused_brds_lstm_scan`` and
 ``::fused_brds_delta_lstm_scan``.
 """
@@ -87,12 +88,13 @@ def _col_dtype(nbytes: int) -> torch.dtype:
 
 
 def scan_scratch(plan: ScanPlan, Kx: int, Kh: int, device):
-    """The device scratch of one float-scan launch: the hoisted input
-    projection ``ax`` (T, 4H, NB) float32; the decoded columns of Sx
-    (4H, Kx) and Sh (4H, Kh), int16 storage of uint16 columns, or int32
-    where that family's activations are not staged; and ``hx``, each
-    step's h in the staged layout for the next step (``plan.hx_shape``,
-    float32). Returns (ax, colx, colh, hx)."""
+    """The device scratch of one scan launch: the hoisted input projection
+    ``ax`` (T, 4H, NB) float32; the decoded columns of Sx (4H, Kx) and Sh
+    (4H, Kh), int16 storage of uint16 columns, or int32 where that
+    family's activations are not staged; and ``hx``, each step's h (the
+    delta scan: its masked delta) in the staged layout for the next step
+    (``plan.hx_shape``, float32). Returns (ax, colx, colh, hx); the delta
+    scan also takes ``plan.dxm_shape``'s float32 masked x deltas."""
     R = plan.ax_shape[1]
     return (torch.empty(plan.ax_shape, dtype=torch.float32, device=device),
             torch.empty((R, Kx), dtype=_col_dtype(plan.col_bytes[0]),
@@ -102,11 +104,13 @@ def scan_scratch(plan: ScanPlan, Kx: int, Kh: int, device):
             torch.empty(plan.hx_shape, dtype=torch.float32, device=device))
 
 
-def plan_for(vals_x, vals_h, xs, h0) -> ScanPlan:
-    """The launch plan of a tile of at most TILE rows on xs's card."""
+def plan_for(vals_x, vals_h, xs, h0, delta: bool = False) -> ScanPlan:
+    """The launch plan of a tile of at most TILE rows on xs's card (the
+    delta scan's with ``delta``)."""
     T, B, X = xs.shape
     return scan_plan(X=X, H=h0.shape[1], T=T, B=B, Kx=vals_x.shape[1],
-                     Kh=vals_h.shape[1], sms=_build.sm_count(xs.device))
+                     Kh=vals_h.shape[1], delta=delta,
+                     sms=_build.sm_count(xs.device))
 
 
 def _scan(vals_x, deltas_x, xs, vals_h, deltas_h, h0, bias, c0, pwl):
@@ -135,12 +139,12 @@ def _scan(vals_x, deltas_x, xs, vals_h, deltas_h, h0, bias, c0, pwl):
 
 
 def scan_info(plan: ScanPlan, B: int, device) -> dict:
-    """``_build.kernel_info`` of the float scan instantiation ``plan``
-    launches at batch B."""
+    """``_build.kernel_info`` of the scan instantiation ``plan`` (float or
+    delta) launches at batch B."""
     return _build.kernel_info(
         "fused_scan", "brds_fused_lstm_scan_info",
-        (B, int(plan.stage_x), int(plan.stage_h), plan.smem), plan.grid,
-        device)
+        (B, int(plan.stage_x), int(plan.stage_h), int(plan.delta),
+         plan.smem), plan.grid, device)
 
 
 def fused_brds_delta_lstm_scan(vals_x, deltas_x, xs, vals_h, deltas_h, h0,
@@ -177,20 +181,24 @@ def _delta_scan(vals_x, deltas_x, xs, vals_h, deltas_h, h0, c0, x_ref0,
     dev = xs.device
     T, B, X = xs.shape
     H = h0.shape[1]
+    Kx, Kh = vals_x.shape[1], vals_h.shape[1]
+    plan = plan_for(vals_x, vals_h, xs, h0, delta=True)
+    ax, colx, colh, hx = scan_scratch(plan, Kx, Kh, dev)
+    dxm = torch.empty(plan.dxm_shape, dtype=torch.float32, device=dev)
     hs = torch.empty((T, B, H), dtype=torch.float32, device=dev)
-    c_out = torch.empty_like(c0)
-    m_out = torch.empty_like(m0)
-    x_ref, h_ref = x_ref0.clone(), h_ref0.clone()   # updated in place
-    dxm, dhm = torch.empty_like(x_ref0), torch.empty_like(h_ref0)
+    c_out, h_ref = torch.empty_like(c0), torch.empty_like(h_ref0)
+    m_out, x_ref = torch.empty_like(m0), torch.empty_like(x_ref0)
     lib = _build.load("fused_scan")
     err = lib.brds_fused_delta_lstm_scan(
-        vals_x.data_ptr(), deltas_x.data_ptr(), deltas_x.element_size(),
-        vals_x.shape[1], xs.data_ptr(), X, vals_h.data_ptr(),
-        deltas_h.data_ptr(), deltas_h.element_size(), vals_h.shape[1],
-        h0.data_ptr(), H, bias.data_ptr(), c0.data_ptr(), m0.data_ptr(),
-        x_ref.data_ptr(), h_ref.data_ptr(), dxm.data_ptr(), dhm.data_ptr(),
-        hs.data_ptr(), c_out.data_ptr(), m_out.data_ptr(), float(theta_x),
-        float(theta_h), T, B, *act_args(pwl, dev), _build.stream(dev))
+        vals_x.data_ptr(), deltas_x.data_ptr(), deltas_x.element_size(), Kx,
+        xs.data_ptr(), X, vals_h.data_ptr(), deltas_h.data_ptr(),
+        deltas_h.element_size(), Kh, h0.data_ptr(), H, bias.data_ptr(),
+        c0.data_ptr(), m0.data_ptr(), x_ref0.data_ptr(), h_ref0.data_ptr(),
+        hs.data_ptr(), c_out.data_ptr(), m_out.data_ptr(), x_ref.data_ptr(),
+        h_ref.data_ptr(), ax.data_ptr(), colx.data_ptr(), colh.data_ptr(),
+        hx.data_ptr(), dxm.data_ptr(), float(theta_x), float(theta_h), T, B,
+        plan.units, int(plan.stage_x), int(plan.stage_h), plan.smem,
+        *act_args(pwl, dev), _build.stream(dev))
     _build.check(err, "fused_brds_delta_lstm_scan")
     _build.LAUNCHES["fused_brds_delta_lstm_scan"] += 1
     return hs, c_out, x_ref, h_ref, m_out

@@ -1,17 +1,18 @@
-"""Launch plans of the persistent float scan (``csrc/fused_scan.cu``,
-``fused_scan_kernel``), the staged q8 kernels (the fused q8 steps,
-``csrc/fused_step.cu`` ``fused_step_q8_kernel``; the dual SpMV,
-``csrc/rb_spmv_q8.cu`` ``rb_dual_parts_staged_kernel``), the staged float
-kernels (the float and temporal-delta steps, ``fused_staged_kernel``; the
-dual SpMVs, ``csrc/rb_spmv.cu`` ``rb_dual_staged_kernel`` and
-``csrc/delta_rb_spmv.cu`` ``delta_dual_staged_kernel``; the single-family
-SpMV, ``rb_spmv_staged_kernel``) and decode attention
-(``csrc/attention.cu``, ``decode_cluster_kernel``): grid, hidden units or
-rows a block, the shared-memory layout of the staged activations and the
-scratch they need, the slices, clusters and copy ring of decode
-attention, from the card's limits in plain arithmetic, so the CPU tests
-hold it. Also the occupancy arithmetic (blocks an SM from registers,
-threads and shared memory) and the waves a grid takes.
+"""Launch plans of the persistent scans, float and temporal delta
+(``csrc/fused_scan.cu``, ``fused_scan_kernel``), the staged q8 kernels
+(the fused q8 steps, ``csrc/fused_step.cu`` ``fused_step_q8_kernel``; the
+dual SpMV, ``csrc/rb_spmv_q8.cu`` ``rb_dual_parts_staged_kernel``), the
+staged float kernels (the float and temporal-delta steps,
+``fused_staged_kernel``; the dual SpMVs, ``csrc/rb_spmv.cu``
+``rb_dual_staged_kernel`` and ``csrc/delta_rb_spmv.cu``
+``delta_dual_staged_kernel``; the single-family SpMVs,
+``rb_spmv_staged_kernel`` and ``delta_spmv_staged_kernel``) and decode
+attention (``csrc/attention.cu``, ``decode_cluster_kernel``): grid,
+hidden units or rows a block, the shared-memory layout of the staged
+activations and the scratch they need, the slices, clusters and copy ring
+of decode attention, from the card's limits in plain arithmetic, so the
+CPU tests hold it. Also the occupancy arithmetic (blocks an SM from
+registers, threads and shared memory) and the waves a grid takes.
 
 The wrappers pass the card's SM count; the other limits are Hopper's
 (H100: 65536 registers and 228 KB of shared memory an SM, 227 KB a
@@ -100,32 +101,40 @@ def staged_cols(n: int, shift: int, slot_bits: int) -> int:
 
 @dataclass(frozen=True)
 class ScanPlan:
-    """One launch of the float scan over at most 16 batch rows."""
+    """One launch of the float or the delta scan over at most 16 batch
+    rows."""
     nb: int           # accumulators a lane (4, 8, 16)
     units: int        # hidden units a block
     grid: int         # blocks, one an SM
-    stage_x: bool     # xs staged in shared memory (else global gathers)
-    stage_h: bool     # h staged (else global gathers)
+    stage_x: bool     # xs (dxm) staged in shared memory (else gathered)
+    stage_h: bool     # h (its masked delta) staged (else gathered)
     smem: int         # dynamic shared memory a block
     ax_shape: tuple   # (T, 4H, nb) float32
     hx_shape: tuple   # (2, nb / 4, H, 4) float32: h, staged layout
     col_bytes: tuple  # decoded-column element size of Sx, Sh (2 or 4)
+    delta: bool       # the delta scan's plan
+    dxm_shape: tuple  # the delta scan's (T, B, X) float32; () for the float
 
 
 @lru_cache(maxsize=256)
 def scan_plan(*, X: int, H: int, T: int, B: int, Kx: int, Kh: int,
-              sms: int = SMS, smem_limit: int = SMEM_PER_BLOCK) -> ScanPlan:
-    """The float scan's plan: ceil(H / sms) units a block (one block an
-    SM, all co-resident); xs (32 / NB steps a pass) and h staged when
-    their columns, one 128-byte bank row each (fused_scan.cu kPieces), fit
-    beside c and z; they share the space (the prologue ends before the
-    first h is staged). Kx and Kh do not change the plan."""
+              delta: bool = False, sms: int = SMS,
+              smem_limit: int = SMEM_PER_BLOCK) -> ScanPlan:
+    """The scans' plan: ceil(H / sms) units a block (one block an SM, all
+    co-resident); xs (32 / NB steps a pass) and h staged when their
+    columns, one 128-byte bank row each (fused_scan.cu kPieces), fit
+    beside c and z (``delta``: also m, 4 units x NB, and the h reference,
+    units x NB); they share the space (the prologue ends before the first
+    h is staged). The delta scan stages the masked deltas in their place
+    and writes every step's masked x delta to a (T, B, X) scratch first.
+    Kx and Kh do not change the plan."""
     if B > TILE:
         raise ValueError(f"a scan launch takes at most {TILE} batch rows")
     nb = tier(B)
     units = -(-H // sms)
     grid = -(-H // units)
-    fixed = 5 * units * nb * 4          # c (units x NB) and z (4 units x NB)
+    # c (units x NB) and z (4 units x NB); m and h_ref as many again
+    fixed = (10 if delta else 5) * units * nb * 4
     room = smem_limit - fixed
     stage_x = X * SCAN_COLUMN <= room
     stage_h = H * SCAN_COLUMN <= room
@@ -133,7 +142,8 @@ def scan_plan(*, X: int, H: int, T: int, B: int, Kx: int, Kh: int,
     return ScanPlan(nb=nb, units=units, grid=grid, stage_x=stage_x,
                     stage_h=stage_h, smem=staged * SCAN_COLUMN + fixed,
                     ax_shape=(T, 4 * H, nb), hx_shape=(2, nb // 4, H, 4),
-                    col_bytes=(2 if stage_x else 4, 2 if stage_h else 4))
+                    col_bytes=(2 if stage_x else 4, 2 if stage_h else 4),
+                    delta=delta, dxm_shape=(T, B, X) if delta else ())
 
 
 @dataclass(frozen=True)
@@ -264,7 +274,8 @@ def q8_plan(*, X: int, H: int, B: int, Kx: int, Kh: int, code_bytes: int,
 class StreamPlan:
     """One launch of a staged float kernel (every batch tile): the float
     step (B3) or dual SpMV (B1), their temporal-delta forms (B5, B4), or
-    the single-family SpMV (B11, ``families`` 1: x alone)."""
+    the single-family SpMV (B11, or B6 on d·f; ``families`` 1: x
+    alone)."""
     nb: int
     tiles: int        # batch tiles of 16 rows (gridDim.y)
     rows: int         # gate rows a block (the fused step: 4 x units)
@@ -295,13 +306,13 @@ def stream_plan(*, X: int, R: int, B: int, Kx: int, H: int | None = None,
     step (``fused``: R = 4H gate rows, a block owns the four rows of
     ceil(H / sms) hidden units) or a dual SpMV (any R, a block owns
     4 x ceil(R / 4 sms) contiguous rows, the fused step's count at R = 4H);
-    without H, the single-family SpMV (B11: x alone, Kx entries a row, the
-    dual SpMV's rows a block). One block an SM, so one wave a batch tile.
-    The layout depends only on the shapes. A staged column is NB float32
-    (NB/4 16-byte pieces), 8 / (NB/4) columns a 128-byte bank row
-    (``slot_bits``); lane l takes entries l, l+32, ... of a row, so
-    neighbouring lanes' columns lie about ncols / K apart, the bits
-    ``stage_pos`` moves down (``shift``; 0 at NB=4, where one piece a
+    without H, the single-family SpMV (B11, or B6 on d·f: x alone, Kx
+    entries a row, the dual SpMV's rows a block). One block an SM, so one
+    wave a batch tile. The layout depends only on the shapes. A staged
+    column is NB float32 (NB/4 16-byte pieces), 8 / (NB/4) columns a
+    128-byte bank row (``slot_bits``); lane l takes entries l, l+32, ...
+    of a row, so neighbouring lanes' columns lie about ncols / K apart,
+    the bits ``stage_pos`` moves down (``shift``; 0 at NB=4, where one piece a
     column and no shift spreads random columns better than column order).
     Each family is staged if it fits beside the sums (rows x NB float32 a
     family), the one with more entries a row first; the other is gathered

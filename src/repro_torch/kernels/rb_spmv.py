@@ -9,7 +9,8 @@ operands staged in shared memory once a block, each row's sums in
 the dual SpMV stay bitwise a chain, and the two single-family sums plus
 the bias are the dual SpMV's z). Also the launch helpers of the five
 staged float kernels (the float and delta steps and dual SpMVs, and the
-single-family SpMV): plan, arguments and occupancy. Replaces
+single-family SpMV, and its delta form B6): plan, arguments and
+occupancy. Replaces
 ``repro/kernels/rb_spmv.py::rb_dual_spmv`` and ``::rb_spmv``.
 """
 from __future__ import annotations
@@ -69,8 +70,8 @@ def rb_spmv(vals, deltas, x, rows: int):
 
 
 def single_plan_for(vals, x, R: int) -> StreamPlan:
-    """The launch plan of the single-family SpMV over R rows of packed
-    ``vals`` at x (B, X) on x's card."""
+    """The launch plan of a single-family SpMV over R rows of packed
+    ``vals`` at x (B, X) on x's card (B6: at the deltas d)."""
     return stream_plan(X=x.shape[1], R=R, B=x.shape[0], Kx=vals.shape[1],
                        sms=_build.sm_count(x.device))
 
@@ -97,13 +98,14 @@ _STREAM_INFO = {
     (1, False, False): ("rb_spmv", "brds_rb_spmv_info"),
     (2, False, False): ("rb_spmv", "brds_rb_dual_spmv_info"),
     (2, True, False): ("fused_step", "brds_fused_lstm_step_info"),
+    (1, False, True): ("delta_rb_spmv", "brds_delta_rb_spmv_info"),
     (2, False, True): ("delta_rb_spmv", "brds_delta_rb_dual_spmv_info"),
     (2, True, True): ("fused_step", "brds_fused_delta_lstm_step_info")}
 
 
 def stream_info(plan: StreamPlan, B: int, device, *, fused: bool = False,
                 delta: bool = False) -> dict:
-    """``_build.kernel_info`` of the staged float kernel (a dual SpMV, the
+    """``_build.kernel_info`` of the staged float kernel (a dual SpMV, a
     single-family SpMV for a one-family plan, or, ``fused``, a fused step;
     ``delta``: its temporal-delta form) instantiation ``plan`` launches at
     batch B (every batch tile of its grid)."""

@@ -1,11 +1,12 @@
-"""Phase profiles of the multi-token scan (``fused_brds_lstm_scan``), the
-fused q8 and delta-q8 steps (``fused_brds_lstm_step_q8``,
-``fused_brds_delta_lstm_step_q8``) and their dual SpMV
+"""Phase profiles of the multi-token scans (``fused_brds_lstm_scan``,
+``fused_brds_delta_lstm_scan``), the fused q8 and delta-q8 steps
+(``fused_brds_lstm_step_q8``, ``fused_brds_delta_lstm_step_q8``) and their
+dual SpMV
 (``rb_dual_parts_q8``), the temporal-delta steps
 (``fused_brds_delta_lstm_step``, ``delta_rb_dual_spmv``), the float steps
-(``fused_brds_lstm_step``, ``rb_dual_spmv``), the single-family float SpMV
-(``rb_spmv``) and decode attention (``decode_attention``) on the card, by
-variants that each skip one phase.
+(``fused_brds_lstm_step``, ``rb_dual_spmv``), the single-family float and
+delta SpMVs (``rb_spmv``, ``delta_rb_spmv``) and decode attention
+(``decode_attention``) on the card, by variants that each skip one phase.
 
     PYTHONPATH=src python -m repro_torch.launch.profile_kernels [--steps 32]
         [--batch 8] [--width 1500]
@@ -27,8 +28,12 @@ wrong and unused):
 each at T = ``--steps`` and at T = 1, and the slope (T vs 1) per step.
 Beside them: the full scan with the L2 left warm, T launches of the
 single-step kernel. ``neither``'s slope bounds a step's fixed cost
-(barrier, exchange, cell) from above. The fused q8 step (int8 and q1.11
-codes of the same weights) takes the same four variants: ``neither`` is
+(barrier, exchange, cell) from above. The delta scan (Θ = 0: every column
+fires) takes the same variants and the warm run; its ``neither`` still
+runs the threshold pass over every step's x (and h0), so ``neither``
+against the float scan's gives that pass and m's share. The fused q8
+step (int8 and q1.11 codes of the same weights) takes the same four
+variants: ``neither`` is
 its activation staging, cells and launch (also after an L2 flush by a
 read); and the full step with its
 activation codes staged in the plan's permuted column order
@@ -46,9 +51,10 @@ staging's one-column-a-thread form. The float step and dual SpMV
 (``profile_float``): ``full``, ``neither``, ``full`` with the L2 warm,
 the same three layouts and x alone misaligned (the staging's column form
 for x only), bitwise the full run; and the float step at B=32. The
-single-family SpMV on W_x and on W_h (``profile_single``): ``full``,
-``neither`` (K = 0), ``full`` with the L2 warm, nothing staged and the
-columns in order, the last two bitwise the full run.
+single-family SpMVs on W_x and on W_h (``profile_single``), the float
+one and the delta one (every column fired): ``full``, ``neither`` (K =
+0), ``full`` with the L2 warm, nothing staged and the columns in order,
+the last two bitwise the full run.
 Decode attention at the qwen3-0.6b serve shape: the full call, one slice
 a pair, the length as a host constant, lengths of 1, the full call after
 an L2 flush by a read, and the launch plan's slices x ring stages, beside
@@ -195,11 +201,12 @@ def _planned_as(change, planners):
 
 
 def stream_planned_as(change):
-    """The staged float kernels (B1, B3, B4, B5, B11) launched on
+    """The staged float kernels (B1, B3, B4, B5, B11, B6) launched on
     ``change(plan)`` instead of their plan."""
     return _planned_as(change, ((krb, "stream_plan_for"),
                                 (krb, "single_plan_for"),
                                 (kdelta, "stream_plan_for"),
+                                (kdelta, "single_plan_for"),
                                 (kstep, "stream_plan_for")))
 
 
@@ -358,14 +365,15 @@ def profile_dual_q8(qs, acts, flush) -> dict:
     return _profile_staged(kernels, variants, flush, q8_planned_as)
 
 
-def profile_single(sx, sh, x, h, flush) -> dict:
-    """The single-family SpMV rb_spmv (B11) on W_x at x and on W_h at h:
-    ``full``, ``neither`` (K = 0: the launch, the staging, the writes of
-    y), ``full`` with the L2 warm, and the full run with nothing staged
-    and with the columns staged in order, both of which must give its
-    bits."""
+def profile_single(sx, sh, x, h, flush, masks=None) -> dict:
+    """The single-family SpMV rb_spmv (B11) on W_x at x and on W_h at h,
+    or, given ``masks`` (fx, fh), delta_rb_spmv (B6) with x and h as the
+    deltas: ``full``, ``neither`` (K = 0: the launch, the staging, the
+    writes of y), ``full`` with the L2 warm, and the full run with nothing
+    staged and with the columns staged in order, both of which must give
+    its bits."""
     out = {}
-    for fam, s, v in (("W_x", sx, x), ("W_h", sh, h)):
+    for i, (fam, s, v) in enumerate((("W_x", sx, x), ("W_h", sh, h))):
         n = v.shape[1]
         full = (s.values, s.deltas)
         empty = tuple(t[:, :0].contiguous() for t in full)
@@ -375,9 +383,73 @@ def profile_single(sx, sh, x, h, flush) -> dict:
             "gathered": (full, v, _gathered, True),
             "columns in order": (full, v, lambda p, n=n: _in_order(p, n, 0),
                                  True)}
-        kernels = {f"rb_spmv {fam}": lambda f, a, R=s.rows:
-                   krb.rb_spmv(*f, a, R)}
+        if masks is None:
+            kernels = {f"rb_spmv {fam}": lambda f, a, R=s.rows:
+                       krb.rb_spmv(*f, a, R)}
+        else:
+            kernels = {f"delta_rb_spmv {fam}": lambda f, a, R=s.rows,
+                       m=masks[i]: kdelta.delta_rb_spmv(*f, a, m, R)}
         out.update(_profile_staged(kernels, variants, flush))
+    return out
+
+
+def profile_scans(sx, sh, xs, h0, c0, bias, rand, flush) -> dict:
+    """The float scan (B12) and the delta scan (B13, Θ = 0, random
+    references and m) with both packed families, with one of them empty
+    (K = 0 entries a row) or both, each at T = len(xs) and at T = 1, the
+    slope a step; the full scans with the L2 warm; and T launches of the
+    float single-step kernel."""
+    T, B, W = xs.shape
+    fams = {"full": (sx, sh), "no Sx": (None, sh), "no Sh": (sx, None),
+            "neither": (None, None)}
+    refs = (rand(B, W), rand(B, W), rand(B, 4 * W))   # x_ref0, h_ref0, m0
+
+    def packed(s, like):
+        if s is not None:
+            return s.values, s.deltas
+        return like.values[:, :0].contiguous(), like.deltas[:, :0].contiguous()
+
+    def scan(kind, fx, fh, steps):
+        vx, dx = packed(fx, sx)
+        vh, dh = packed(fh, sh)
+        if kind == "scan":
+            return lambda: kscan.fused_brds_lstm_scan(
+                vx, dx, xs[:steps], vh, dh, h0, bias, c0)
+        return lambda: kscan.fused_brds_delta_lstm_scan(
+            vx, dx, xs[:steps], vh, dh, h0, c0, *refs, bias, theta_x=0.0,
+            theta_h=0.0)
+
+    out = {}
+    for kind in ("scan", "delta scan"):
+        print(f"{kind} X=H={W}, B={B}, Kx={sx.K}, Kh={sh.K}, deltas "
+              f"{sx.deltas.dtype}; CUDA events, median of 30, L2 flushed",
+              flush=True)
+        pre = "" if kind == "scan" else "delta "
+        for name, (fx, fh) in fams.items():
+            tT = time_ms(scan(kind, fx, fh, T), flush)
+            t1 = time_ms(scan(kind, fx, fh, 1), flush)
+            out[pre + name] = dict(ms=tT, ms_T1=t1,
+                                   step_us=(tT - t1) / (T - 1) * 1e3)
+            print(f"  {name:8} T={T} {tT:.4f} ms, T=1 {t1:.4f} ms, "
+                  f"{out[pre + name]['step_us']:.2f} us a step", flush=True)
+        key = pre + "full, L2 warm"
+        out[key] = dict(ms=time_ms(scan(kind, sx, sh, T)))
+        print(f"  full, L2 warm (no flush) {out[key]['ms']:.4f} ms",
+              flush=True)
+    d, f = out["delta neither"], out["neither"]
+    print(f"  delta neither - neither: T={T} {d['ms'] - f['ms']:.4f} ms, T=1 "
+          f"{d['ms_T1'] - f['ms_T1']:.4f} ms (the threshold pass, m)",
+          flush=True)
+
+    def steps():
+        c, h = c0, h0
+        for x in xs:
+            c, h = kstep.fused_brds_lstm_step(sx.values, sx.deltas, x,
+                                              sh.values, sh.deltas, h, bias,
+                                              c)
+    out[f"{T} single steps"] = dict(ms=time_ms(steps, flush))
+    print(f"  {T} launches of the single-step kernel "
+          f"{out[f'{T} single steps']['ms']:.4f} ms", flush=True)
     return out
 
 
@@ -403,43 +475,9 @@ def main(argv=None) -> int:
     xs, h0, c0 = rand(T, B, W), rand(B, W), rand(B, W)
     bias = rand(4 * W, sc=0.1)
     flush = torch.empty(256 << 20, dtype=torch.uint8, device=dev)
+    out = profile_scans(sx, sh, xs, h0, c0, bias, rand, flush)
     fams = {"full": (sx, sh), "no Sx": (None, sh), "no Sh": (sx, None),
             "neither": (None, None)}
-
-    def packed(s, like):
-        if s is not None:
-            return s.values, s.deltas
-        return like.values[:, :0].contiguous(), like.deltas[:, :0].contiguous()
-
-    def scan(fx, fh, steps):
-        vx, dx = packed(fx, sx)
-        vh, dh = packed(fh, sh)
-        return lambda: kscan.fused_brds_lstm_scan(vx, dx, xs[:steps], vh, dh,
-                                                  h0, bias, c0)
-
-    out = {}
-    print(f"scan X=H={W}, B={B}, Kx={sx.K}, Kh={sh.K}, deltas "
-          f"{sx.deltas.dtype}; CUDA events, median of 30, L2 flushed",
-          flush=True)
-    for name, (fx, fh) in fams.items():
-        tT = time_ms(scan(fx, fh, T), flush)
-        t1 = time_ms(scan(fx, fh, 1), flush)
-        out[name] = dict(ms=tT, ms_T1=t1, step_us=(tT - t1) / (T - 1) * 1e3)
-        print(f"  {name:8} T={T} {tT:.4f} ms, T=1 {t1:.4f} ms, "
-              f"{out[name]['step_us']:.2f} us a step", flush=True)
-    out["full, L2 warm"] = dict(ms=time_ms(scan(sx, sh, T)))
-    print(f"  full, L2 warm (no flush) {out['full, L2 warm']['ms']:.4f} ms",
-          flush=True)
-
-    def steps():
-        c, h = c0, h0
-        for x in xs:
-            c, h = kstep.fused_brds_lstm_step(sx.values, sx.deltas, x,
-                                              sh.values, sh.deltas, h, bias,
-                                              c)
-    out[f"{T} single steps"] = dict(ms=time_ms(steps, flush))
-    print(f"  {T} launches of the single-step kernel "
-          f"{out[f'{T} single steps']['ms']:.4f} ms", flush=True)
     for spec in ("int8", "q1.11"):
         scheme = parse_scheme(spec)
         qs = [pad_packed(quantize_packed(s, spec)) for s in (sx, sh)]
@@ -517,6 +555,8 @@ def main(argv=None) -> int:
     print(f"single-family SpMV X=H={W}, B={B}, Kx={sx.K}, Kh={sh.K}; CUDA "
           "events, median of 30, L2 flushed", flush=True)
     out.update(profile_single(sx, sh, xs[0], h0, flush))
+    masks = tuple(torch.ones_like(v) for v in (xs[0], h0))
+    out.update(profile_single(sx, sh, xs[0], h0, flush, masks))
     out.update(profile_decode(dev, flush))
     print(json.dumps({"card": card, "T": T, "B": B, "width": W,
                       "times": out}), flush=True)

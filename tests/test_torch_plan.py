@@ -546,6 +546,120 @@ def test_q8_plan_for_reads_the_operands_and_is_cached(monkeypatch):
                                  dual.hpad, dual.smem)
 
 
+@pytest.mark.parametrize("B,nb", [(4, 4), (8, 8), (16, 16)])
+def test_delta_scan_plan_fits_the_card(B, nb):
+    """The delta scan (B13) at lstm_ptb: the float scan's grid (125 blocks
+    of 12 units, one an SM, one wave, as a cooperative launch needs), xs's
+    masked deltas and h's staged, beside c, z and also m (4 units x NB) and
+    the h reference (units x NB): 192,000 + 10 x 12 x NB x 4 bytes; the
+    float scan's plan unchanged."""
+    p = P.scan_plan(T=32, B=B, delta=True, **PTB)
+    f = P.scan_plan(T=32, B=B, **PTB)
+    assert p.nb == nb and p.delta and not f.delta
+    assert (p.units, p.grid) == (f.units, f.grid) == (12, 125)
+    assert p.stage_x and p.stage_h and p.col_bytes == (2, 2)
+    assert p.smem == 1500 * P.SCAN_COLUMN + 10 * 12 * nb * 4
+    assert f.smem == 1500 * P.SCAN_COLUMN + 5 * 12 * nb * 4
+    assert p.smem <= P.SMEM_PER_BLOCK
+    per_sm = P.blocks_per_sm(128, P.SCAN_THREADS, p.smem)
+    assert per_sm == 1 and P.waves(p.grid, per_sm) == 1
+    assert p.dxm_shape == (32, B, 1500) and f.dxm_shape == ()
+    assert p.ax_shape == f.ax_shape and p.hx_shape == f.hx_shape
+
+
+@pytest.mark.parametrize("kw,staged", [
+    (dict(X=33000, H=97, T=32, B=12, Kx=8250, Kh=49), (False, True)),
+    (dict(X=64, H=4000, T=32, B=12, Kx=16, Kh=2000), (True, False)),
+    (dict(X=100, H=97, T=32, B=3, Kx=25, Kh=49), (True, True))])
+def test_delta_scan_plan_gathers_what_does_not_fit(kw, staged):
+    """chip_smoke's wide shape gathers dxm in the projection (int32
+    columns), its tall shape gathers h's masked deltas from the planes in
+    the recurrence; the small shape stages both; every plan's shared
+    memory fits one block."""
+    p = P.scan_plan(delta=True, **kw)
+    assert (p.stage_x, p.stage_h) == staged
+    assert p.col_bytes == tuple(2 if s else 4 for s in staged)
+    assert p.smem <= P.SMEM_PER_BLOCK
+    assert p.smem == (max(kw["X"] if staged[0] else 0,
+                          kw["H"] if staged[1] else 0) * P.SCAN_COLUMN
+                      + 10 * p.units * p.nb * 4)
+    assert p.dxm_shape == (kw["T"], kw["B"], kw["X"])
+    with pytest.raises(ValueError):
+        P.scan_plan(T=4, B=17, delta=True, **PTB)
+
+
+@pytest.mark.parametrize("kw", [dict(T=5, B=3, **PTB),
+                                dict(X=64, H=4000, T=4, B=12, Kx=16,
+                                     Kh=2000)])
+def test_delta_scan_scratch_shapes(kw):
+    """The delta scan's scratch: the float scan's ax, decoded columns and
+    planes (h's masked deltas, read at every step whether h is staged or
+    gathered), and dxm (T, B, X) float32, every step's masked x delta."""
+    p = P.scan_plan(delta=True, **kw)
+    ax, colx, colh, hx = kscan.scan_scratch(p, kw["Kx"], kw["Kh"], "cpu")
+    R = 4 * kw["H"]
+    assert ax.shape == (kw["T"], R, p.nb)
+    assert colx.shape == (R, kw["Kx"]) and colh.shape == (R, kw["Kh"])
+    assert hx.shape == (2, p.nb // 4, kw["H"], 4)
+    dxm = torch.empty(p.dxm_shape, dtype=torch.float32)
+    assert dxm.numel() == kw["T"] * kw["B"] * kw["X"]
+
+
+def test_delta_scan_plan_for_reads_the_operands(monkeypatch):
+    """The delta scan's wrapper plans from the operands with ``delta``:
+    the same cached object at every launch of a shape."""
+    monkeypatch.setattr(_build, "sm_count", lambda device: 132)
+    vx, vh = torch.zeros(6000, 375), torch.zeros(6000, 750)
+    xs, h0 = torch.zeros(32, 8, 1500), torch.zeros(8, 1500)
+    p = kscan.plan_for(vx, vh, xs, h0, delta=True)
+    assert p == P.scan_plan(T=32, B=8, delta=True, **PTB)
+    assert kscan.plan_for(vx, vh, xs, h0, delta=True) is p
+    assert kscan.plan_for(vx, vh, xs, h0) == P.scan_plan(T=32, B=8, **PTB)
+
+
+@pytest.mark.parametrize("B", [1, 3, 8, 12, 16, 32, 64])
+def test_delta_single_plan_is_one_wave_a_batch_tile(B):
+    """B6 (delta_rb_spmv) plans as B11 does, d·f staged in x's place:
+    125 blocks of 48 rows a 16-row tile at lstm_ptb, one 512-thread block
+    an SM at up to 128 registers, one wave a tile; its occupancy comes from
+    delta_rb_spmv.cu's own info entry."""
+    from repro_torch.kernels import rb_spmv as krb
+    p = P.stream_plan(X=1500, R=6000, B=B, Kx=375)
+    per_sm = P.blocks_per_sm(128, P.STREAM_THREADS, p.smem)
+    assert p.families == 1 and p.stage_x and (p.rows, p.grid) == (48, 125)
+    assert per_sm == 1 and P.waves(p.grid * p.tiles, per_sm) == p.tiles
+    assert p.tiles == -(-B // P.TILE)
+    source, entry = krb._STREAM_INFO[1, False, True]
+    assert (source, entry) == ("delta_rb_spmv", "brds_delta_rb_spmv_info")
+    assert _build.SIGNATURES[source][entry] == _build.SIGNATURES[
+        "rb_spmv"]["brds_rb_spmv_info"]
+
+
+@pytest.mark.parametrize("R", [1, 5, 388, 6000, 6001, 16000])
+def test_delta_single_plan_rows_cover_any_R(R, monkeypatch):
+    """B6's wrapper plans from the deltas d (B, X) and the packed values:
+    4 x ceil(R / 4 SMs) contiguous rows a block, every row owned once."""
+    from repro_torch.kernels import delta_rb_spmv as kdelta
+    monkeypatch.setattr(_build, "sm_count", lambda device: 132)
+    vals, d = torch.zeros(max(R, 1), 375), torch.zeros(8, 1500)
+    p = kdelta.single_plan_for(vals, d, R)
+    assert p == P.stream_plan(X=1500, R=R, B=8, Kx=375)
+    assert p.rows % 4 == 0 and p.rows * p.grid >= R > p.rows * (p.grid - 1)
+
+
+@pytest.mark.parametrize("X,K,B,staged", [(70000, 17500, 3, False),
+                                          (33000, 8250, 12, False),
+                                          (4000, 2000, 12, False),
+                                          (1500, 750, 16, True)])
+def test_delta_single_plan_gathers_deltas_too_wide_to_stage(X, K, B, staged):
+    """chip_smoke's single-family shapes for B6: d·f of 70000 or 33000
+    columns, or 4000 at NB=16, does not fit beside the sums and is gathered
+    (DeltaAct's products); lstm_ptb's 1500 columns at NB=16 are staged."""
+    p = P.stream_plan(X=X, R=4 * 97, B=B, Kx=K)
+    assert p.stage_x == staged and p.smem <= P.SMEM_PER_BLOCK
+    assert p.smem == ((p.xpad if staged else 0) + p.rows) * p.nb * 4
+
+
 # qwen3-0.6b's decode: B=8, 16 q / 8 kv heads of 128, bf16, max_len 1024
 DEC_SERVE = dict(B=8, Hkv=8, G=2, S=1024, D=128, elem_bytes=2)
 
