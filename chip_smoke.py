@@ -7,11 +7,13 @@
    every CUDA kernel from ``src/repro_torch/csrc`` (one nvcc per source, all
    started together); for the redesigned float and delta scans, fused
    q8, delta-q8, float and float delta steps, float, delta and q8 dual
-   SpMVs and single-family float and delta SpMVs at the serve tier and
-   decode attention at qwen3-0.6b's decode shape, prints ptxas's
-   registers and spills, the local bytes, shared memory, blocks an SM and
-   waves at the launch's grid (decode: its cluster size too), and fails on
-   a spill, a local array or (but for decode) a second wave.
+   SpMVs, single-family float, delta and q8 SpMVs and the LSTM cell at
+   the serve tier and decode attention at qwen3-0.6b's decode shape,
+   prints ptxas's registers and spills, the local bytes, shared memory,
+   blocks an SM and waves at the launch's grid (decode: its cluster size
+   too; the cell: whether its block fits on an SM beside the float dual
+   SpMV's, which it follows as a programmatic dependent), and fails on a
+   spill, a local array or (but for decode) a second wave.
 2. Kernels: calls each kernel's wrapper at the serve path's full-width
    shapes (lstm_ptb, B=8, int16 deltas), at a small shape (B=3, int8
    deltas, odd H: the fused kernels' partial last block), at a wide one
@@ -27,7 +29,8 @@
    (rb_dual_spmv, lstm_gates, fused step), the temporal-delta ones
    (delta_rb_dual_spmv, fused delta step, delta_rb_spmv) at a fired share
    of about 50% and at 100%, the quantized ones (rb_dual_parts_q8, fused
-   q8 step, rb_spmv_q8) with int8 and with q1.11 (int16) codes, the fused
+   q8 step, rb_spmv_q8: staged, and gathered at the wide shapes) with int8
+   and with q1.11 (int16) codes, the fused
    delta-q8 step on both code types and fired shares (and at B=1, 16 and
    64, as the fused q8 step and the float and float delta pairs), and the
    single-family float rb_spmv, whose two sums plus the bias must equal
@@ -39,6 +42,9 @@
    their single-step kernels (the delta one after T thresholds in
    PyTorch), with PWL off and on; they are timed beside those T launches
    and, for the float scan, one cuDNN LSTM call on the dense weights.
+   The chained float step's pair, rb_dual_spmv then lstm_gates, is timed
+   in one event window with lstm_gates launched as a programmatic
+   dependent and plainly, alternated, the two bitwise equal.
    At B=64 (full width) every row-balanced kernel and both scans run once
    more: bitwise equal to their four 16-row tiles (the kernels tile the
    batch inside one launch; the scans take one launch a tile) and within
@@ -263,6 +269,11 @@ REDESIGNED = {"fused_scan_kernelILi8ELb1ELb1ELb0EE":
               "rb_dual_parts_staged_kernel<int8, 8, staged> (B7 int8)",
               "rb_dual_parts_staged_kernelIsLi8ELb0ELb1EE":
               "rb_dual_parts_staged_kernel<int16, 8, staged> (B7 q1.11)",
+              "rb_spmv_q8_staged_kernelIaLi8ELb0ELb1EE":
+              "rb_spmv_q8_staged_kernel<int8, 8, staged> (B10 int8)",
+              "rb_spmv_q8_staged_kernelIsLi8ELb0ELb1EE":
+              "rb_spmv_q8_staged_kernel<int16, 8, staged> (B10 q1.11)",
+              "lstm_gates_kernel": "lstm_gates_kernel (B2)",
               "rb_spmv_staged_kernelILi8ELb0EE":
               "rb_spmv_staged_kernel<8> (B11)",
               "delta_spmv_staged_kernelILi8ELb0EE":
@@ -291,24 +302,26 @@ def ptxas_redesigned(out: str) -> dict:
 
 
 def occupancy(torch, device) -> None:
-    """Prints, for the redesigned B12, B13, B8, B9 and B7 (int8, q1.11),
-    B3, B1, B5, B4, B11 and B6 instantiations at the serve tier (B=8,
-    int16 deltas) and B14's at
+    """Prints, for the redesigned B12, B13, B8, B9, B7 and B10 (int8,
+    q1.11), B3, B1, B5, B4, B11, B6 and B2 instantiations at the serve
+    tier (B=8, int16 deltas) and B14's at
     qwen3-0.6b's decode shape: ptxas's registers and spill bytes, the
     launch plan's dynamic shared memory and grid, and the blocks an SM and
     waves the runtime's occupancy calculator gives at that grid (beside the
-    plain ``plan.blocks_per_sm``); for B14 also its cluster size. Fails
-    unless each has no spill and no local array, and unless all but B14
-    run in one wave."""
+    plain ``plan.blocks_per_sm``); for B14 also its cluster size; and
+    whether a B2 block fits on an SM beside a B1 block (B2 is launched as
+    B1's programmatic dependent). Fails unless each has no spill and no
+    local array, and unless all but B14 run in one wave."""
     from repro_torch.kernels import _build
     from repro_torch.kernels import decode_attention as kdec
     from repro_torch.kernels import fused_scan as kscan
+    from repro_torch.kernels.lstm_gates import gates_info
     from repro_torch.kernels import plan as P
     from repro_torch.kernels import rb_spmv as krb
     from repro_torch.kernels import rb_spmv_q8 as kq8
     ptx = {}
     for src in ("fused_scan", "fused_step", "rb_spmv", "delta_rb_spmv",
-                "rb_spmv_q8", "attention"):
+                "rb_spmv_q8", "lstm_gates", "attention"):
         ptx.update(ptxas_redesigned(_build.BUILD_LOG.get(src, "")))
     sms = _build.sm_count(device)
     B, X, H, Kx, Kh = SERVE["batch"], 1500, 1500, 375, 750
@@ -332,6 +345,14 @@ def occupancy(torch, device) -> None:
                        sms=sms)
         rows.append((key, qp, P.Q8_THREADS,
                      kq8.q8_info(qp, B, cb, device, fused=False)))
+    for key, cb in (("rb_spmv_q8_staged_kernelIaLi8ELb0ELb1EE", 1),
+                    ("rb_spmv_q8_staged_kernelIsLi8ELb0ELb1EE", 2)):
+        qp = P.q8_plan(X=X, B=B, Kx=Kh, code_bytes=cb, R=4 * H, sms=sms)
+        rows.append((key, qp, P.Q8_THREADS,
+                     kq8.q8_info(qp, B, cb, device, fused=False)))
+    gp = P.gates_plan(B=B, H=H, sms=sms)
+    rows.append(("lstm_gates_kernel", gp, P.GATES_THREADS,
+                 gates_info(gp, device)))
     for key, fused, delta in (
             ("fused_staged_kernelILi8ELb0ELb0EE", True, False),
             ("rb_dual_staged_kernelILi8ELb0EE", False, False),
@@ -371,6 +392,19 @@ def occupancy(torch, device) -> None:
             raise AssertionError(f"{REDESIGNED[key]}: spills, keeps an "
                                  "array in local memory or takes more "
                                  "than one wave")
+    # B2 beside B1: registers, warps and shared memory of one block each
+    info = {key: (plan, threads, got) for key, plan, threads, got in rows}
+    b1, b2 = (info[k] for k in ("rb_dual_staged_kernelILi8ELb0EE",
+                                "lstm_gates_kernel"))
+    fits = P.fits_beside(
+        *((got["registers"], threads, plan.smem + got["static_smem"])
+          for plan, threads, got in (b1, b2)))
+    log(f"[occupancy] lstm_gates (B2, {b2[2]['registers']} registers x "
+        f"{b2[1]} threads) beside rb_dual_spmv (B1, {b1[2]['registers']} "
+        f"registers x {b1[1]} threads, {b1[0].smem} B shared): a B2 block "
+        + ("fits on an SM beside a B1 block" if fits else
+           "does not fit beside a B1 block; B2's blocks start as B1's "
+           "blocks leave"))
 
 
 def cell(z, c, pwl=False):
@@ -555,12 +589,34 @@ def check_kernels(torch, device, flush):
                                                   spec="q1.11").items()}
     extra.update({f"{n} W_h": v for n, v in single_runs(
         torch, ops, full, "W_h").items()})
+    for fam in ("W_x", "W_h"):
+        extra[f"rb_spmv_q8 q1.11 {fam}"] = single_runs(
+            torch, ops, full, fam, "q1.11")["rb_spmv_q8"]
     for name, (kern, plain, lib, (bms, by)) in extra.items():
         log(f"[time] {name:35} kernel {time_ms(kern, flush):.4f} ms, "
             f"plain {time_ms(plain, flush):.4f} ms, library "
             f"{time_ms(lib, flush):.4f} ms, bound {bms * 1e3:.2f} us "
             f"({by}) — median of 30, L2 flushed")
+    gates_pair(full, flush)
     return rec
+
+
+def gates_pair(cs, flush) -> None:
+    """The chained float step's pair, rb_dual_spmv (B1) then lstm_gates
+    (B2) on its z, in one event window after an L2 flush: B2 launched as
+    B1's programmatic dependent (the serve loop's launch) against a plain
+    launch, alternated twice and bitwise equal
+    (``profile_kernels.profile_pair``)."""
+    from repro_torch.launch.profile_kernels import profile_pair
+    log("[time] rb_dual_spmv -> lstm_gates pair (the chained float step's "
+        "kernels), lstm_gates launched as a programmatic dependent (pdl) "
+        "and plainly, alternated; median of 30, L2 flushed:")
+    t = profile_pair(cs["sx"], cs["sh"], cs["x"], cs["h"], cs["bias"],
+                     cs["c"], flush)
+    pdl = statistics.median(t[f"pair pdl #{r}"] for r in (1, 2))
+    plain = statistics.median(t[f"pair plain #{r}"] for r in (1, 2))
+    log(f"[time] pair: pdl {pdl:.4f} ms, plain {plain:.4f} ms, pdl - plain "
+        f"{(pdl - plain) * 1e3:+.2f} us; the two give the same c and h bits")
 
 
 def check_float(torch, ops, err, tag, cs):
@@ -685,6 +741,7 @@ def check_single(torch, ops, err, tag, cs):
     h) + bias bitwise equal to rb_dual_spmv, (m + delta_rb_spmv(Sx, dx,
     fx)) + delta_rb_spmv(Sh, dh, fh) bitwise equal to delta_rb_dual_spmv
     (row_dot's order in all four, and the same adds)."""
+    from repro_torch.kernels import rb_spmv_q8 as kq8
     sx, sh, x, h, b, dx, dh = (cs[k] for k in ("sx", "sh", "x", "h", "bias",
                                                "dx", "dh"))
     ys = []
@@ -724,8 +781,10 @@ def check_single(torch, ops, err, tag, cs):
                                  f"({tag}, fired {share})")
     for spec in SCHEMES:
         qsx, qsh = cs["q8"][spec]
-        _, sax, _, sah = q8_acts(cs, spec)
-        for fam, q, v, sa in (("Sx", qsx, x, sax), ("Sh", qsh, h, sah)):
+        qx, sax, qh, sah = q8_acts(cs, spec)
+        how = []
+        for fam, q, v, qv, sa in (("Sx", qsx, x, qx, sax),
+                                  ("Sh", qsh, h, qh, sah)):
             for scale in (sa, None):
                 y = ops.rb_spmv_q8(q, v, act_scale=scale, backend="cuda")
                 yr = ops.rb_spmv_q8(q, v, act_scale=scale, backend="ref")
@@ -734,8 +793,11 @@ def check_single(torch, ops, err, tag, cs):
                 if not torch.equal(y, yr):
                     raise AssertionError(f"rb_spmv_q8 differs from its plain "
                                          f"version ({tag}, {spec}, {fam})")
-        log(f"  rb_spmv_q8 {spec:5} Sx, Sh, static and dynamic act scale: "
-            "exactly equal to the plain version")
+            p = kq8.single_q8_plan_for(q.values, qv, q.rows)
+            how.append(f"{fam} {q.deltas.dtype} deltas, codes "
+                       + ("staged" if p.staged else "gathered"))
+        log(f"  rb_spmv_q8 {spec:5} ({'; '.join(how)}), static and dynamic "
+            "act scale: exactly equal to the plain version")
 
 
 def check_delta_q8(torch, ops, err, tag, cs):
@@ -1227,12 +1289,12 @@ def q8_runs(torch, cs, spec="int8"):
     }
 
 
-def single_runs(torch, ops, cs, fam):
+def single_runs(torch, ops, cs, fam, spec="int8"):
     """Timing entries of the single-family kernels on one packed family
     (``fam`` "W_x" or "W_h") at the serve shapes: rb_spmv, rb_spmv_q8 on
-    int8 codes quantized beforehand, and delta_rb_spmv with every column
-    fired; the library call is one dense torch.mm on the unpacked (for q8,
-    dequantized) weights."""
+    ``spec`` codes quantized beforehand, and delta_rb_spmv with every
+    column fired; the library call is one dense torch.mm on the unpacked
+    (for q8, dequantized) weights."""
     from repro_torch.core import unpack
     from repro_torch.kernels import ref
     from repro_torch.kernels import rb_spmv_q8 as kq8
@@ -1243,8 +1305,8 @@ def single_runs(torch, ops, cs, fam):
     v = (cs["x"], cs["h"])[i]
     d = (cs["dx"], cs["dh"])[i]
     f = cs["fired"][1.0][i]
-    q = cs["q8"]["int8"][i]
-    qv, sa = q8_acts(cs, "int8")[2 * i:2 * i + 2]
+    q = cs["q8"][spec][i]
+    qv, sa = q8_acts(cs, spec)[2 * i:2 * i + 2]
     comb = q.scales * sa
     wT = unpack(s).T.contiguous()
     qwT = unpack(dequantize_packed(q)).T.contiguous()

@@ -5,30 +5,28 @@
 // Each fused step must be bitwise equal to its chained pair, so both use
 // the same row routine, the same per-row epilogue and the same cell
 // function:
-//  - row_dot fixes the reduction order of a packed row: lane l of the owning
-//    warp takes entries l, l+32, ... and a butterfly over the warp adds the
-//    32 partial sums. Float and integer addition commute, so every lane ends
-//    with the same total. What a packed entry is multiplied by is a policy
-//    (F32Act, DeltaAct, CodeAct): it serves the one single-family kernel
-//    not yet redesigned (rb_spmv_q8), and its policies gather the families
-//    too wide to stage. The scans (fused_scan.cu) keep this order with
-//    their operands moved: columns decoded once, activations or masked
-//    deltas staged in shared memory.
-//  - row_dot_stream keeps row_dot's order with the operands moved (the
-//    float steps and dual SpMV, fused_step.cu and rb_spmv.cu, their delta
-//    forms, fused_step.cu and delta_rb_spmv.cu, and in its single-family
-//    form rb_spmv and delta_rb_spmv: stream_rows_block,
+//  - the float kernels' sums keep one order, called row_dot's order
+//    throughout: lane l of the warp that owns a packed row takes entries
+//    l, l+32, ... in order, one fmaf a batch row, and a butterfly over the
+//    warp adds the 32 partial sums. Float addition commutes, so every lane
+//    ends with the same total. row_dot_stream keeps it with the operands
+//    moved (the float steps and dual SpMV, fused_step.cu and rb_spmv.cu,
+//    their delta forms, fused_step.cu and delta_rb_spmv.cu, and in its
+//    single-family form rb_spmv and delta_rb_spmv: stream_rows_block,
 //    single_rows_block): x and h, or the masked deltas, staged in shared
-//    memory, a warp's rows streamed with their next loads in flight.
+//    memory, a warp's rows streamed with their next loads in flight; a
+//    family too wide to stage is gathered from global memory by a gather
+//    policy (F32Act, DeltaAct). The scans (fused_scan.cu) keep the same
+//    order with columns decoded once and their operands staged.
 //  - row_dot_q8x4 is the integer-code row of the staged q8 kernels (the
-//    fused q8 and delta-q8 steps and their chained gate kernel
-//    rb_dual_parts_q8: q8_rows_block): each lane takes four consecutive
-//    entries (one load of codes, one of deltas), and __dp4a multiplies
-//    int8 codes four at a time. Integer sums are exact modulo 2^32 in any
-//    order, so this routine may split a row otherwise than row_dot and
-//    still equal the plain version (and rb_spmv_q8, which keeps row_dot)
-//    bit for bit; float sums may not, which is why the float kernels keep
-//    row_dot's order.
+//    fused q8 and delta-q8 steps, their chained gate kernel
+//    rb_dual_parts_q8 and, in its single-family form, rb_spmv_q8:
+//    q8_rows_block): each lane takes four consecutive entries (one load of
+//    codes, one of deltas), and __dp4a multiplies int8 codes four at a
+//    time. Integer sums are exact modulo 2^32 in any order, so this
+//    routine may split a row otherwise than row_dot's order and still
+//    equal the plain version bit for bit; float sums may not, which is why
+//    the float kernels keep that order.
 //  - the epilogues (delta_update, dequant) and lstm_cell round every
 //    product and sum on its own (__fmul_rn, __fadd_rn), so the compiler
 //    cannot contract a product into the following add in one kernel and
@@ -63,14 +61,12 @@ __device__ __forceinline__ T* tile_rows(T* p, int ld) {
   return p + static_cast<size_t>(blockIdx.y) * kMaxBatch * ld;
 }
 
-// Gather/multiply policies of row_dot: the packed value type W, the
-// accumulator Acc, and mac(acc, v, b, col), which adds the product of one
-// packed value with batch row b's activation at column col.
+// Gather policies of a float family too wide to stage: mac(acc, v, b,
+// col) adds the product of one packed value with batch row b's operand at
+// column col, read from global memory.
 
 // z += v * x[b, col]
 struct F32Act {
-  using W = float;
-  using Acc = float;
   const float* __restrict__ act;
   int ld;
   __device__ __forceinline__ float mac(float acc, float v, int b,
@@ -82,8 +78,6 @@ struct F32Act {
 // m += v * (d[b, col] * f[b, col]): a raw activation delta times its 0/1
 // fired mask, so an unfired column adds an exact zero product.
 struct DeltaAct {
-  using W = float;
-  using Acc = float;
   const float* __restrict__ d;
   const float* __restrict__ f;
   int ld;
@@ -94,59 +88,19 @@ struct DeltaAct {
   }
 };
 
-// acc += code * q[b, col] in 32-bit two's complement: the sum wraps as the
-// plain version's int32 sum does (signed overflow is undefined in C++, so
-// the accumulator is unsigned and cast back by dequant).
-template <typename CT>
-struct CodeAct {
-  using W = CT;
-  using Acc = uint32_t;
-  const CT* __restrict__ act;
-  int ld;
-  __device__ __forceinline__ uint32_t mac(uint32_t acc, CT v, int b,
-                                          int col) const {
-    const int p = static_cast<int>(v) * static_cast<int>(__ldg(act + b * ld + col));
-    return acc + static_cast<uint32_t>(p);
-  }
-};
-
-// acc[b] += sum_k op(vals[k], b, col[k]) for b < B, where col is the int32
-// inclusive running sum of deltas. Called by a whole warp, which owns the
-// row. Each value is loaded once and used for all B batch rows: the packed
-// weights are the bytes that bound the kernels.
-template <typename DT, int NB, typename Op>
-__device__ __forceinline__ void row_dot(const typename Op::W* __restrict__ vals,
-                                        const DT* __restrict__ deltas, int K,
-                                        const Op& op, int B,
-                                        typename Op::Acc (&acc)[NB]) {
-  const int lane = threadIdx.x & (kWarp - 1);
-  int carry = 0;
-  for (int k0 = 0; k0 < K; k0 += kWarp) {
-    const int k = k0 + lane;
-    const bool live = k < K;
-    int d = live ? static_cast<int>(deltas[k]) : 0;
-#pragma unroll
-    for (int off = 1; off < kWarp; off <<= 1) {
-      const int t = __shfl_up_sync(0xffffffffu, d, off);
-      if (lane >= off) d += t;
-    }
-    const int col = carry + d;
-    carry = __shfl_sync(0xffffffffu, col, kWarp - 1);
-    if (live) {
-      const typename Op::W v = __ldg(vals + k);
-#pragma unroll
-      for (int b = 0; b < NB; ++b)
-        if (b < B) acc[b] = op.mac(acc[b], v, b, col);
-    }
-  }
-#pragma unroll
-  for (int b = 0; b < NB; ++b) {
-    typename Op::Acc s = acc[b];
-#pragma unroll
-    for (int off = kWarp / 2; off > 0; off >>= 1)
-      s += __shfl_xor_sync(0xffffffffu, s, off);
-    acc[b] = s;
-  }
+// Programmatic dependent launch (Hopper). A kernel launched with the
+// programmatic-stream-serialization attribute may start while the kernel
+// before it in the stream still runs: it waits in wait_for_producer until
+// that kernel has completed and its memory is visible (at once after a
+// plain launch), so it reads nothing global before the wait. The kernel
+// before it lets its dependents' blocks launch once each of its own blocks
+// has called trigger_dependents or exited (the first call of a block
+// counts).
+__device__ __forceinline__ void wait_for_producer() {
+  asm volatile("griddepcontrol.wait;" ::: "memory");
+}
+__device__ __forceinline__ void trigger_dependents() {
+  asm volatile("griddepcontrol.launch_dependents;" ::: "memory");
 }
 
 // Staged activations. A kernel that gathers activations from shared memory
@@ -532,15 +486,17 @@ __device__ __forceinline__ float dequant(uint32_t acc, float comb) {
 // ------------------------------------------- the staged q8 rows
 //
 // The block-level routine of the staged q8 kernels: the fused q8 and
-// delta-q8 steps (fused_step.cu, B8 and B9) and their chained gate
-// kernel, the dual SpMV rb_dual_parts_q8 (rb_spmv_q8.cu, B7). A block
+// delta-q8 steps (fused_step.cu, B8 and B9), their chained gate kernel,
+// the dual SpMV rb_dual_parts_q8 (rb_spmv_q8.cu, B7), and, with one
+// family (NF = 1), the single-family SpMV rb_spmv_q8 (B10). A block
 // stages its tile's activation codes (qx, then qh) in shared memory once,
 // or gathers them from global memory when they do not fit, then runs its
 // rows with row_dot_q8x4's arithmetic (four entries a lane, __dp4a for
 // int8 codes); integer sums are exact in any order, so every kernel on it
-// equals rb_spmv_q8's plain version bit for bit. What a row's two
-// dequantized sums become is the emit policy's: zx and zh apart in shared
-// memory (B7, B9: Q8Apart) or z = (zx + zh) + bias (B8).
+// equals rb_spmv_q8's plain version bit for bit. What a row's dequantized
+// sums become is the emit policy's: zx and zh apart in shared memory (B7,
+// B9: Q8Apart), z = (zx + zh) + bias (B8), or the one family's sum (B10:
+// Q8One).
 
 constexpr int kQ8Threads = 512;   // one block an SM (kernels/plan.py)
 constexpr int kQ8Warps = kQ8Threads / kWarp;
@@ -548,7 +504,8 @@ constexpr int kQ8Warps = kQ8Threads / kWarp;
 // A staged q8 kernel's inputs: the two packed code families with their
 // combined (row x activation) dequant scales, the activation codes qx
 // (B, X) and qh (B, H), and the staged layout of kernels/plan.py::q8_plan
-// (stage_pos's shifts and slot bits, the padded column counts).
+// (stage_pos's shifts and slot bits, the padded column counts). The
+// single-family form reads the Sx family and qx alone (hpad 0).
 template <typename CT>
 struct Q8In {
   const CT* vx;
@@ -567,11 +524,12 @@ struct Q8In {
   int shift_x, shift_h, slot_bits, xpad, hpad;
 };
 
-// The activation codes moved to the block's batch tile (blockIdx.y).
-template <typename CT>
+// The activation codes moved to the block's batch tile (blockIdx.y); NF =
+// 1: qx alone.
+template <int NF = 2, typename CT>
 __device__ __forceinline__ void tile_q8_in(Q8In<CT>& in) {
   in.qx = tile_rows(in.qx, in.X);
-  in.qh = tile_rows(in.qh, in.H);
+  if constexpr (NF == 2) in.qh = tile_rows(in.qh, in.H);
   in.B = tile_batch(in.B);
 }
 
@@ -583,20 +541,20 @@ __device__ __forceinline__ size_t q8_staged_words(const Q8In<CT>& in) {
                  : 0;
 }
 
-// A row's constants: the two families' combined dequant scales and the
-// emit policy's own (Emit::Row, read by Emit::consts), loaded while the
-// row's first loads are in flight.
+// A row's constants: the families' combined dequant scales (NF = 1: cx
+// alone, ch 0) and the emit policy's own (Emit::Row, read by
+// Emit::consts), loaded while the row's first loads are in flight.
 template <typename Emit>
 struct Q8Consts {
   float cx, ch;
   typename Emit::Row e;
 };
 
-template <typename CT, typename Emit>
+template <int NF, typename CT, typename Emit>
 __device__ __forceinline__ Q8Consts<Emit> q8_consts(const Q8In<CT>& in,
                                                     const Emit& emit,
                                                     int row) {
-  return {in.comb_x[row], in.comb_h[row], emit.consts(row)};
+  return {in.comb_x[row], NF == 2 ? in.comb_h[row] : 0.0f, emit.consts(row)};
 }
 
 // The emit policy of B7 and B9: local row i's zx and zh, lane b < B for
@@ -616,33 +574,49 @@ struct Q8Apart {
   }
 };
 
+// The emit policy of B10 (one family): local row i's sum, lane b < B for
+// batch row b, in shared memory (i * NB + b).
+struct Q8One {
+  struct Row {};
+  float* y;
+  int NB, B;
+  __device__ __forceinline__ Row consts(int) const { return {}; }
+  __device__ __forceinline__ void operator()(int i, float x, float,
+                                             Row) const {
+    const int lane = threadIdx.x & (kWarp - 1);
+    if (lane < B) y[i * NB + lane] = x;
+  }
+};
+
 // The warp's rows i = warp, warp + 16, ... < nrows (packed row row_of(i)
-// of both families), each family's row in turn with row_dot_q8x4: any
-// delta widths.
-template <int NB, typename CT, typename Fetch, typename RowOf, typename Emit>
+// of each family), each family's row in turn with row_dot_q8x4: any
+// delta widths. NF = 1: the Sx rows alone, emitted with zh 0.
+template <int NB, int NF, typename CT, typename Fetch, typename RowOf,
+          typename Emit>
 __device__ __forceinline__ void q8_rows(const Q8In<CT>& in, int nrows,
                                         const RowOf& row_of, const Fetch& fx,
                                         const Fetch& fh, const Emit& emit) {
   for (int i = threadIdx.x / kWarp; i < nrows; i += kQ8Warps) {
     const int row = row_of(i);
-    const Q8Consts<Emit> rc = q8_consts(in, emit, row);
+    const Q8Consts<Emit> rc = q8_consts<NF>(in, emit, row);
     uint32_t ax[NB] = {}, ah[NB] = {};
     row_dot_q8x4<NB, 4>(in.vx, in.ix, in.ixb, (size_t)row * in.kx, in.kx, fx,
                         ax);
-    row_dot_q8x4<NB, 4>(in.vh, in.ih, in.ihb, (size_t)row * in.kh, in.kh, fh,
-                        ah);
-    emit(i, dequant(lane_value(ax), rc.cx), dequant(lane_value(ah), rc.ch),
-         rc.e);
+    if constexpr (NF == 2)
+      row_dot_q8x4<NB, 4>(in.vh, in.ih, in.ihb, (size_t)row * in.kh, in.kh,
+                          fh, ah);
+    emit(i, dequant(lane_value(ax), rc.cx),
+         NF == 2 ? dequant(lane_value(ah), rc.ch) : 0.0f, rc.e);
   }
 }
 
-// The same rows when both families' deltas are of type DT (lstm_ptb's:
+// The same rows when each family's deltas are of type DT (lstm_ptb's:
 // int16), as one stream of G-chunk groups: row i's Sx segment, its Sh
-// segment, then row i + 16's, ...; a group's loads are issued before the
-// group ahead of it is used, across segment and row boundaries, so a warp
-// always has loads in flight.
-template <int NB, typename DT, typename CT, typename Fetch, typename RowOf,
-          typename Emit>
+// segment (NF = 2), then row i + 16's, ...; a group's loads are issued
+// before the group ahead of it is used, across segment and row
+// boundaries, so a warp always has loads in flight.
+template <int NB, int NF, typename DT, typename CT, typename Fetch,
+          typename RowOf, typename Emit>
 __device__ __forceinline__ void q8_rows_stream(const Q8In<CT>& in, int nrows,
                                                const RowOf& row_of,
                                                const Fetch& fx,
@@ -663,7 +637,7 @@ __device__ __forceinline__ void q8_rows_stream(const Q8In<CT>& in, int nrows,
   Q8Group<CT, DT, G> cur, nxt;
   int part = 0, c0 = 0, carry = 0;
   load(i, part, c0, cur);
-  Q8Consts<Emit> rc = q8_consts(in, emit, row_of(i)), rn = rc;
+  Q8Consts<Emit> rc = q8_consts<NF>(in, emit, row_of(i)), rn = rc;
   uint32_t acc[NB] = {};
   float zx = 0.0f;
   for (;;) {
@@ -672,20 +646,23 @@ __device__ __forceinline__ void q8_rows_stream(const Q8In<CT>& in, int nrows,
     int i2 = i, part2 = part, c2 = c0 + G * kWarp;
     if (c2 >= nchunks) {
       c2 = 0;
-      part2 = part ^ 1;
-      if (part) i2 += kQ8Warps;
+      part2 = NF == 2 ? part ^ 1 : 0;
+      if (NF == 1 || part) i2 += kQ8Warps;
     }
     const bool more = i2 < nrows;
     if (more) {
       load(i2, part2, c2, nxt);
-      if (i2 != i) rn = q8_consts(in, emit, row_of(i2));
+      if (i2 != i) rn = q8_consts<NF>(in, emit, row_of(i2));
     }
     const Fetch f = part ? fh : fx;   // a copy: no address of either taken
     q8x4_consume<NB>(cur, 0, c0, nchunks, carry, f, acc);
     if (c2 == 0) {   // the segment is complete
       warp_sum(acc);
       const float dq = dequant(lane_value(acc), part ? rc.ch : rc.cx);
-      if (part) emit(i, zx, dq, rc.e);
+      if constexpr (NF == 1)
+        emit(i, dq, 0.0f, rc.e);
+      else if (part)
+        emit(i, zx, dq, rc.e);
       zx = dq;
 #pragma unroll
       for (int b = 0; b < NB; ++b) acc[b] = 0;
@@ -700,69 +677,148 @@ __device__ __forceinline__ void q8_rows_stream(const Q8In<CT>& in, int nrows,
   }
 }
 
+// Stores column `col`'s staged vector (kW words) at its stage_pos.
+template <int kW>
+__device__ __forceinline__ void put_codes(uint32_t* s, int col, int shift,
+                                          int slot_bits,
+                                          const uint32_t (&v)[kW]) {
+  uint32_t* dst = s + stage_pos(col, shift, slot_bits) * kW;
+  if constexpr (kW == 1) {
+    dst[0] = v[0];
+  } else if constexpr (kW == 2) {
+    *reinterpret_cast<uint2*>(dst) = make_uint2(v[0], v[1]);
+  } else {
+#pragma unroll
+    for (int i = 0; i < kW; i += 4)
+      *reinterpret_cast<uint4*>(dst + i) =
+          make_uint4(v[i], v[i + 1], v[i + 2], v[i + 3]);
+  }
+}
+
+// Stages the tile's activation codes (qx's X columns, then, NF = 2, qh's
+// H): column c's NB codes, zero past B, as one vector at stage_pos(c).
+// Where the widths are multiples of 4 and the arrays start on
+// 4 x sizeof(CT) bytes, a thread takes four columns with one load of
+// four codes a batch row and turns the rows' words into the columns'
+// vectors with byte permutes (transpose4x4 for int8); else one column
+// with one load a batch row.
+template <int NB, int NF, typename CT>
+__device__ __forceinline__ void stage_codes(const Q8In<CT>& in, uint32_t* sx,
+                                            uint32_t* sh) {
+  constexpr int kW = StagedCodes<CT, NB>::kWords;
+  constexpr int per = 4 / sizeof(CT), bits = 8 * sizeof(CT);
+  constexpr uint32_t mask = (1u << bits) - 1;
+  constexpr uintptr_t align = 4 * sizeof(CT) - 1;
+  const int B = in.B;
+  const bool four = (in.X & 3) == 0 &&
+                    (reinterpret_cast<uintptr_t>(in.qx) & align) == 0 &&
+                    (NF == 1 || ((in.H & 3) == 0 &&
+                                 (reinterpret_cast<uintptr_t>(in.qh) &
+                                  align) == 0));
+  if (four) {
+    const int nx4 = in.X / 4, n4 = nx4 + (NF == 2 ? in.H / 4 : 0);
+    for (int c4 = threadIdx.x; c4 < n4; c4 += kQ8Threads) {
+      const bool isx = c4 < nx4;
+      const int col0 = 4 * (isx ? c4 : c4 - nx4);
+      const CT* q = isx ? in.qx : in.qh;
+      const int ld = isx ? in.X : in.H;
+      Codes4<CT> raw[NB];
+#pragma unroll
+      for (int b = 0; b < NB; ++b) {
+        if (b < B) {
+          raw[b] = load_codes4(q + (size_t)b * ld + col0);
+        } else {
+#pragma unroll
+          for (int w = 0; w < static_cast<int>(sizeof(CT)); ++w)
+            raw[b].w[w] = 0;
+        }
+      }
+      uint32_t v[4][kW];
+      if constexpr (sizeof(CT) == 1) {
+#pragma unroll
+        for (int g = 0; g < kW; ++g) {
+          uint32_t o[4];
+          transpose4x4(raw[4 * g].w[0], raw[4 * g + 1].w[0],
+                       raw[4 * g + 2].w[0], raw[4 * g + 3].w[0], o);
+#pragma unroll
+          for (int i = 0; i < 4; ++i) v[i][g] = o[i];
+        }
+      } else {
+#pragma unroll
+        for (int g = 0; g < kW; ++g)
+#pragma unroll
+          for (int i = 0; i < 4; ++i)
+            v[i][g] = __byte_perm(raw[2 * g].w[i >> 1],
+                                  raw[2 * g + 1].w[i >> 1],
+                                  i & 1 ? 0x7632 : 0x5410);
+      }
+      const int shift = isx ? in.shift_x : in.shift_h;
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        put_codes<kW>(isx ? sx : sh, col0 + i, shift, in.slot_bits, v[i]);
+    }
+    return;
+  }
+  const int n = in.X + (NF == 2 ? in.H : 0);
+#pragma unroll 3
+  for (int c = threadIdx.x; c < n; c += kQ8Threads) {
+    const bool isx = c < in.X;
+    const int col = isx ? c : c - in.X;
+    const CT* q = isx ? in.qx : in.qh;
+    const int ld = isx ? in.X : in.H;
+    uint32_t v[kW];
+#pragma unroll
+    for (int i = 0; i < kW; ++i) v[i] = 0;
+#pragma unroll
+    for (int b = 0; b < NB; ++b)
+      if (b < B)
+        v[b / per] |= (static_cast<uint32_t>(__ldg(q + b * ld + col)) & mask)
+                      << (bits * (b % per));
+    put_codes<kW>(isx ? sx : sh, col, isx ? in.shift_x : in.shift_h,
+                  in.slot_bits, v);
+  }
+}
+
 // The block's rows (local row i < nrows at packed row row_of(i), warp w
 // taking w, w + 16, ...; kQ8Threads threads): stages the tile's codes
-// (kStaged: column c's NB codes, zero past B, as one vector at
-// stage_pos(c), qx's then qh's, in the kWords words a position after
-// `smem`), then streams the rows when both families' deltas are int16,
-// else takes them a row at a time; emit(i, zx, zh, row constants) after
-// each row. Does not end with a barrier.
-template <int NB, bool kStaged, typename CT, typename RowOf, typename Emit>
+// (kStaged: stage_codes, in the kWords words a position after `smem`),
+// then streams the rows when every family's deltas are int16, else takes
+// them a row at a time; emit(i, zx, zh, row constants) after each row.
+// NF = 1: the Sx family and qx alone. Does not end with a barrier.
+template <int NB, bool kStaged, int NF = 2, typename CT, typename RowOf,
+          typename Emit>
 __device__ __forceinline__ void q8_rows_block(const Q8In<CT>& in,
                                               uint32_t* smem, int nrows,
                                               const RowOf& row_of,
                                               const Emit& emit) {
   using Staged = StagedCodes<CT, NB>;
-  constexpr int kW = Staged::kWords;
   if constexpr (kStaged) {
     uint32_t* sx = smem;
-    uint32_t* sh = sx + (size_t)in.xpad * kW;
-    constexpr int per = 4 / sizeof(CT), bits = 8 * sizeof(CT);
-    constexpr uint32_t mask = (1u << bits) - 1;
-    const int n = in.X + in.H, B = in.B;
-#pragma unroll 3
-    for (int c = threadIdx.x; c < n; c += kQ8Threads) {
-      const bool isx = c < in.X;
-      const int col = isx ? c : c - in.X;
-      const CT* q = isx ? in.qx : in.qh;
-      const int ld = isx ? in.X : in.H;
-      uint32_t v[kW];
-#pragma unroll
-      for (int i = 0; i < kW; ++i) v[i] = 0;
-#pragma unroll
-      for (int b = 0; b < NB; ++b)
-        if (b < B)
-          v[b / per] |= (static_cast<uint32_t>(__ldg(q + b * ld + col)) & mask)
-                        << (bits * (b % per));
-      uint32_t* dst = (isx ? sx : sh) +
-                      stage_pos(col, isx ? in.shift_x : in.shift_h,
-                                in.slot_bits) * kW;
-#pragma unroll
-      for (int i = 0; i < kW; ++i) dst[i] = v[i];
-    }
+    uint32_t* sh = sx + (size_t)in.xpad * Staged::kWords;
+    stage_codes<NB, NF>(in, sx, sh);
     __syncthreads();
     const Staged fx{sx, in.shift_x, in.slot_bits};
     const Staged fh{sh, in.shift_h, in.slot_bits};
-    if (in.ixb == 2 && in.ihb == 2)
-      q8_rows_stream<NB, int16_t>(in, nrows, row_of, fx, fh, emit);
+    if (in.ixb == 2 && (NF == 1 || in.ihb == 2))
+      q8_rows_stream<NB, NF, int16_t>(in, nrows, row_of, fx, fh, emit);
     else
-      q8_rows<NB>(in, nrows, row_of, fx, fh, emit);
+      q8_rows<NB, NF>(in, nrows, row_of, fx, fh, emit);
   } else {
     using Global = GlobalCodes<CT, NB>;
-    q8_rows<NB>(in, nrows, row_of, Global{in.qx, in.X, in.B},
-                Global{in.qh, in.H, in.B}, emit);
+    q8_rows<NB, NF>(in, nrows, row_of, Global{in.qx, in.X, in.B},
+                    Global{in.qh, in.H, in.B}, emit);
   }
 }
 
 // ------------------------------------------- row_dot's order, streamed
 //
-// row_dot_stream is row_dot with its operands moved (the float steps and
-// dual SpMV, B3 and B1, their delta forms, B5 and B4, and the single-family
-// SpMVs B11 and B6 run on it): the
+// row_dot_stream is the float row routine (the float steps and dual SpMV,
+// B3 and B1, their delta forms, B5 and B4, and the single-family SpMVs B11
+// and B6 run on it): the
 // operand a packed entry multiplies (x or h, or the masked deltas) comes
 // from shared memory, a column's NB floats staged once a block at
-// stage_pos, or, for a family too wide to stage, from global memory as
-// row_dot gathers it; a warp's rows are one stream of G-chunk groups
+// stage_pos, or, for a family too wide to stage, from global memory
+// through a gather policy; a warp's rows are one stream of G-chunk groups
 // (32 entries a chunk) whose values and deltas are loaded before the group
 // ahead of them is used, across family and row boundaries, so a warp
 // always has loads in flight. The sums keep row_dot's order bit for bit:
@@ -835,8 +891,8 @@ struct StagedF32 {
   }
 };
 
-// A family gathered from global memory by a row_dot policy (F32Act for x
-// and h, DeltaAct for the masked deltas), as row_dot gathers it.
+// A family gathered from global memory by a gather policy (F32Act for x
+// and h, DeltaAct for the masked deltas), in row_dot's order.
 template <int NB, typename Op>
 struct Gathered {
   Op op;
@@ -852,7 +908,7 @@ struct Gathered {
 // The operand of a streamed family's entries, as a policy over its (B, n)
 // arrays: the activations themselves (F32Src, x or h: the float steps) or
 // the masked deltas (DeltaSrc, __fmul_rn(d, f): the float delta steps).
-// Each gives the row_dot policy that gathers it (Gather, `gather(ld)`),
+// Each gives the gather policy that reads it (Gather, `gather(ld)`),
 // element i (`at`), elements 4 i4 .. 4 i4 + 3 (`at4`, 16-byte loads, when
 // `aligned`; zeros when not `live`), and moves itself to the block's batch
 // tile (`tile`).
@@ -1352,17 +1408,6 @@ cudaError_t by_batch(int B, F&& body) {
   if (B <= kMaxBatch)
     return body(std::integral_constant<int, kMaxBatch>{}, std::false_type{});
   return body(std::integral_constant<int, kMaxBatch>{}, std::true_type{});
-}
-
-// Host side: run `body` with the delta index type of `bytes`.
-template <typename F>
-cudaError_t by_delta(int bytes, F&& body) {
-  switch (bytes) {
-    case 1: return body(int8_t{});
-    case 2: return body(int16_t{});
-    case 4: return body(int32_t{});
-    default: return cudaErrorInvalidValue;
-  }
 }
 
 // Host side: run `body` with the integer code type of `bytes` (int8 for

@@ -56,7 +56,7 @@
 //
 // Each step is bitwise equal to one launch of the single-step kernel
 // (fused_step.cu fused_staged_kernel, float or delta): every (row, batch)
-// sum keeps brds::row_dot's order (lane l takes entries l, l+32, ... in order
+// sum keeps row_dot's order (lane l takes entries l, l+32, ... in order
 // with fmaf, then the xor butterfly; ax and ah apart), z = (ax + ah) +
 // bias (or delta_update, then + bias), and the cell is brds::lstm_cell;
 // staging, streaming and hoisting (here, and in the step kernels'

@@ -8,7 +8,7 @@
 // sequential grid. Here one block an SM owns a contiguous range of `rows`
 // rows (kernels/plan.py::stream_plan); it stages its operands in shared
 // memory once (a column's NB floats at stage_pos; a family too wide to
-// stage is gathered as row_dot gathers it) and streams its warps' rows
+// stage is gathered from global memory) and streams its warps' rows
 // with their loads in flight (brds::stream_rows_block, the fused float
 // step's routine, in row_dot's order: lane l takes entries l, l+32, ...,
 // one fmaf a batch row, then the xor butterfly).
@@ -16,10 +16,14 @@
 //    alone, y written through shared memory so each batch row's outputs
 //    leave coalesced (brds::single_rows_block, B6's body too).
 //  - rb_dual_spmv (rb_dual_staged_kernel): x and h, then z = (ax + ah) +
-//    bias, with the bias read there only. The two kernels' sums are the
-//    same bits, so rb_spmv(Sx, x) + rb_spmv(Sh, h) + bias, added in that
-//    order, equals rb_dual_spmv, and the fused step equals rb_dual_spmv
-//    -> lstm_gates.
+//    bias, with the bias read there only. Once its rows are summed, a
+//    block lets the kernel after it in the stream launch early
+//    (brds::trigger_dependents): on the chained float step that is
+//    lstm_gates, a programmatic dependent launch, so the cell's launch
+//    latency hides behind this kernel's epilogue and tail. The two
+//    kernels' sums are the same bits, so rb_spmv(Sx, x) + rb_spmv(Sh, h)
+//    + bias, added in that order, equals rb_dual_spmv, and the fused step
+//    equals rb_dual_spmv -> lstm_gates.
 //
 // Bound: bytes. Each packed value (4 B) and delta (1-4 B) is read once and
 // used for all B batch rows, so at B <= 16 the weight stream dominates and
@@ -70,6 +74,9 @@ rb_dual_staged_kernel(DualArgs a) {
   const int nrows = min(a.rows, R - r0);
   brds::stream_rows_block<NB>(a.in, stream_smem, nrows,
                               [&](int i) { return r0 + i; }, zx, zh);
+  // every weight load of the block issued: the cell (lstm_gates, launched
+  // as a programmatic dependent) may start its blocks
+  brds::trigger_dependents();
   for (int t = threadIdx.x; t < nrows * B; t += brds::kStreamThreads) {
     const int b = t / nrows, i = t % nrows;
     a.z[(size_t)b * R + r0 + i] = __fadd_rn(

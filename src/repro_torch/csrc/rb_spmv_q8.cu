@@ -7,78 +7,52 @@
 //    src/repro/kernels/rb_spmv_q8.py::rb_dual_parts_q8.
 //
 // The Pallas kernels stream (block_rows, K) code tiles through VMEM on the
-// TPU's sequential grid.
-//  - rb_spmv_q8: one warp owns one packed row, as rb_spmv did before its
-//    redesign: brds::row_dot with the CodeAct policy accumulates code
-//    products in 32-bit two's complement (exact, and wrapping as the plain
-//    version's int32 sum does), dequantized once per row by brds::dequant
-//    with the combined (row x activation) scale.
-//  - rb_dual_parts_q8 (rb_dual_parts_staged_kernel): one block an SM owns
-//    a contiguous range of `rows` rows (kernels/plan.py::q8_plan); it
-//    stages the tile's activation codes in shared memory once (gathered
-//    from global memory when too wide) and runs its rows with the fused q8
-//    steps' routine, brds::q8_rows_block: four entries a lane, __dp4a for
-//    int8 codes, a warp's rows streamed with their loads in flight when
-//    both families have int16 deltas. Integer sums are exact in any order
-//    and each family is dequantized by the same brds::dequant, so zx and
-//    zh equal the plain version bit for bit; they are written apart, as
-//    the TPU kernel writes them (no dequant multiply can be contracted
-//    into an add), through shared memory, so each batch row's outputs
-//    leave coalesced.
+// TPU's sequential grid. Here one block an SM owns a contiguous range of
+// `rows` rows (kernels/plan.py::q8_plan); it stages the tile's activation
+// codes in shared memory once (gathered from global memory when too wide)
+// and runs its rows with the fused q8 steps' routine, brds::q8_rows_block:
+// four entries a lane, __dp4a for int8 codes, a warp's rows streamed with
+// their loads in flight when every family has int16 deltas, a row at a
+// time otherwise. Integer sums are exact in any order and each family is
+// dequantized by the same brds::dequant, so every output equals the plain
+// version bit for bit. The outputs go through shared memory, so each
+// batch row's leave coalesced.
+//  - rb_spmv_q8 (rb_spmv_q8_staged_kernel): the routine's single-family
+//    form (NF = 1), q's codes alone staged.
+//  - rb_dual_parts_q8 (rb_dual_parts_staged_kernel): both families, zx
+//    and zh written apart, as the TPU kernel writes them (no dequant
+//    multiply can be contracted into an add).
 //
 // Bound: bytes. Codes (1 B for int8, 2 B for qM.N) and deltas are read
 // once and used for all B batch rows. What the staged design pays beyond
-// the bytes: each block stages all of qx and qh before its first product,
-// and its shared loads of random columns meet on bank slots
-// (tests/test_torch_plan.py).
+// the bytes: each block stages all of its activation codes before its
+// first product, and its shared loads of random columns meet on bank
+// slots (tests/test_torch_plan.py).
 #include "brds_common.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kRowsPerBlock = kThreads / brds::kWarp;
-
-template <typename CT, typename IX, int NB, bool kTiled>
-__global__ void __launch_bounds__(kThreads)
-rb_spmv_q8_kernel(const CT* __restrict__ vals, const IX* __restrict__ ix,
-                  int K, const float* __restrict__ comb,
-                  const CT* __restrict__ q, int X, float* __restrict__ y,
-                  int B, int R) {
-  const int row = (blockIdx.x * blockDim.x + threadIdx.x) / brds::kWarp;
-  if (row >= R) return;   // uniform across the warp
-  if constexpr (kTiled) {
-    q = brds::tile_rows(q, X);
-    y = brds::tile_rows(y, R);
-    B = brds::tile_batch(B);
-  }
-  uint32_t acc[NB] = {};
-  brds::row_dot<IX, NB>(vals + (size_t)row * K, ix + (size_t)row * K, K,
-                        brds::CodeAct<CT>{q, X}, B, acc);
-  const int lane = threadIdx.x % brds::kWarp;
-  const float cs = comb[row];
-#pragma unroll
-  for (int b = 0; b < NB; ++b)
-    if (b < B && b == lane) y[(size_t)b * R + row] = brds::dequant(acc[b], cs);
-}
-
-// rb_dual_parts_q8's arguments: the staged q8 routine's inputs and the
-// outputs zx, zh (B, R).
+// A staged q8 SpMV's arguments: the staged q8 routine's inputs (the
+// single-family form: the Sx family and qx alone) and the outputs zx and,
+// for the dual form, zh (B, R).
 template <typename CT>
-struct DualQ8Args {
+struct Q8SpmvArgs {
   brds::Q8In<CT> in;
   float* zx;
-  float* zh;
+  float* zh;          // null in the single-family form
   int R, rows;        // rows of the output; rows a block
 };
 
-template <typename CT, int NB, bool kTiled, bool kStaged>
-__global__ void __launch_bounds__(brds::kQ8Threads, 1)
-rb_dual_parts_staged_kernel(DualQ8Args<CT> a) {
+// A staged q8 SpMV's body (NF families) over the block's rows r0 .. r0 +
+// rows - 1: q8_rows_block leaves each row's sums in shared memory (after
+// the staged codes), then they are written out batch row by batch row.
+template <int NF, typename CT, int NB, bool kTiled, bool kStaged>
+__device__ __forceinline__ void q8_spmv_block(Q8SpmvArgs<CT> a) {
   const int R = a.R;
   if constexpr (kTiled) {
-    brds::tile_q8_in(a.in);
+    brds::tile_q8_in<NF>(a.in);
     a.zx = brds::tile_rows(a.zx, R);
-    a.zh = brds::tile_rows(a.zh, R);
+    if constexpr (NF == 2) a.zh = brds::tile_rows(a.zh, R);
   }
   extern __shared__ uint4 q8_smem[];
   uint32_t* codes = reinterpret_cast<uint32_t*>(q8_smem);
@@ -87,59 +61,89 @@ rb_dual_parts_staged_kernel(DualQ8Args<CT> a) {
   float* zh = zx + a.rows * NB;
   const int B = a.in.B, r0 = blockIdx.x * a.rows;
   const int nrows = min(a.rows, R - r0);
-  brds::q8_rows_block<NB, kStaged>(a.in, codes, nrows,
-                                   [&](int i) { return r0 + i; },
-                                   brds::Q8Apart{zx, zh, NB, B});
+  auto row_of = [&](int i) { return r0 + i; };
+  if constexpr (NF == 2)
+    brds::q8_rows_block<NB, kStaged>(a.in, codes, nrows, row_of,
+                                     brds::Q8Apart{zx, zh, NB, B});
+  else
+    brds::q8_rows_block<NB, kStaged, 1>(a.in, codes, nrows, row_of,
+                                        brds::Q8One{zx, NB, B});
   __syncthreads();
   for (int t = threadIdx.x; t < nrows * B; t += brds::kQ8Threads) {
     const int b = t / nrows, i = t % nrows;
     const size_t o = (size_t)b * R + r0 + i;
     a.zx[o] = zx[i * NB + b];
-    a.zh[o] = zh[i * NB + b];
+    if constexpr (NF == 2) a.zh[o] = zh[i * NB + b];
   }
 }
 
-// Runs `body(kern, CT{})` with the dual q8 instantiation for the code
-// width, batch and staging (brds::by_batch's tiers).
-template <typename F>
-cudaError_t by_dual_q8_kernel(int code_bytes, int B, int staged, F&& body) {
+template <typename CT, int NB, bool kTiled, bool kStaged>
+__global__ void __launch_bounds__(brds::kQ8Threads, 1)
+rb_spmv_q8_staged_kernel(Q8SpmvArgs<CT> a) {
+  q8_spmv_block<1, CT, NB, kTiled, kStaged>(a);
+}
+
+template <typename CT, int NB, bool kTiled, bool kStaged>
+__global__ void __launch_bounds__(brds::kQ8Threads, 1)
+rb_dual_parts_staged_kernel(Q8SpmvArgs<CT> a) {
+  q8_spmv_block<2, CT, NB, kTiled, kStaged>(a);
+}
+
+// Runs `body(kern, CT{})` with the q8 SpMV instantiation of NF families
+// for the code width, batch and staging (brds::by_batch's tiers).
+template <int NF, typename F>
+cudaError_t by_q8_kernel(int code_bytes, int B, int staged, F&& body) {
   return brds::by_code(code_bytes, [&](auto ct) {
     using CT = decltype(ct);
     return brds::by_batch(B, [&](auto nb, auto tiled) {
       constexpr int NB = decltype(nb)::value;
       constexpr bool kT = decltype(tiled)::value;
-      void (*kern)(DualQ8Args<CT>) =
-          staged ? rb_dual_parts_staged_kernel<CT, NB, kT, true>
-                 : rb_dual_parts_staged_kernel<CT, NB, kT, false>;
+      void (*kern)(Q8SpmvArgs<CT>);
+      if constexpr (NF == 1)
+        kern = staged ? rb_spmv_q8_staged_kernel<CT, NB, kT, true>
+                      : rb_spmv_q8_staged_kernel<CT, NB, kT, false>;
+      else
+        kern = staged ? rb_dual_parts_staged_kernel<CT, NB, kT, true>
+                      : rb_dual_parts_staged_kernel<CT, NB, kT, false>;
       return body(kern, CT{});
     });
   });
 }
 
+// One launch of `kern` on q8_plan's grid and shared memory.
+template <typename CT>
+cudaError_t launch_q8(void (*kern)(Q8SpmvArgs<CT>), const Q8SpmvArgs<CT>& a,
+                      int smem, void* stream) {
+  cudaError_t e = brds::allow_smem(reinterpret_cast<const void*>(kern));
+  if (e != cudaSuccess) return e;
+  const dim3 grid((a.R + a.rows - 1) / a.rows, brds::batch_tiles(a.in.B));
+  kern<<<grid, brds::kQ8Threads, smem, static_cast<cudaStream_t>(stream)>>>(
+      a);
+  return cudaSuccess;
+}
+
 }  // namespace
 
+// One launch on kernels/plan.py::q8_plan's single-family arguments (rows a
+// block, q's staged layout, the dynamic shared memory).
 extern "C" int brds_rb_spmv_q8(const void* vals, const void* ix, int ix_bytes,
                                int K, const void* comb, const void* q, int X,
                                int code_bytes, void* y, int B, int R,
+                               int rows, int staged, int shift_x,
+                               int slot_bits, int xpad, int smem,
                                void* stream) {
-  if (R <= 0) return cudaErrorInvalidValue;
-  const dim3 grid((R + kRowsPerBlock - 1) / kRowsPerBlock,
-                  brds::batch_tiles(B));
-  cudaError_t st = brds::by_code(code_bytes, [&](auto ct) {
-    using CT = decltype(ct);
-    return brds::by_delta(ix_bytes, [&](auto ixt) {
-      using IX = decltype(ixt);
-      return brds::by_batch(B, [&](auto nb, auto tiled) {
-        constexpr int NB = decltype(nb)::value;
-        rb_spmv_q8_kernel<CT, IX, NB, decltype(tiled)::value>
-            <<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-                static_cast<const CT*>(vals), static_cast<const IX*>(ix), K,
-                static_cast<const float*>(comb), static_cast<const CT*>(q), X,
-                static_cast<float*>(y), B, R);
-        return cudaSuccess;
+  if (R <= 0 || rows <= 0) return cudaErrorInvalidValue;
+  cudaError_t st = by_q8_kernel<1>(
+      code_bytes, B, staged, [&](auto kern, auto ct) {
+        using CT = decltype(ct);
+        const Q8SpmvArgs<CT> a{
+            {static_cast<const CT*>(vals), ix, ix_bytes, K,
+             static_cast<const float*>(comb), static_cast<const CT*>(q), X,
+             nullptr, nullptr, 0, 0, nullptr, nullptr, 0, B, shift_x, 0,
+             slot_bits, xpad, 0},
+            static_cast<float*>(y), nullptr, R, rows};
+        return launch_q8(kern, a, smem, stream);
       });
-    });
-  });
   if (st != cudaSuccess) return st;
   return cudaGetLastError();
 }
@@ -153,33 +157,32 @@ extern "C" int brds_rb_dual_parts_q8(
     void* zx, void* zh, int B, int R, int rows, int staged, int shift_x,
     int shift_h, int slot_bits, int xpad, int hpad, int smem, void* stream) {
   if (R <= 0 || rows <= 0) return cudaErrorInvalidValue;
-  const dim3 grid((R + rows - 1) / rows, brds::batch_tiles(B));
-  cudaError_t st = by_dual_q8_kernel(
+  cudaError_t st = by_q8_kernel<2>(
       code_bytes, B, staged, [&](auto kern, auto ct) {
         using CT = decltype(ct);
-        cudaError_t e = brds::allow_smem(reinterpret_cast<const void*>(kern));
-        if (e != cudaSuccess) return e;
-        const DualQ8Args<CT> a{
+        const Q8SpmvArgs<CT> a{
             {static_cast<const CT*>(vx), ix, ix_bytes, kx,
              static_cast<const float*>(comb_x), static_cast<const CT*>(qx), X,
              static_cast<const CT*>(vh), ih, ih_bytes, kh,
              static_cast<const float*>(comb_h), static_cast<const CT*>(qh), H,
              B, shift_x, shift_h, slot_bits, xpad, hpad},
             static_cast<float*>(zx), static_cast<float*>(zh), R, rows};
-        kern<<<grid, brds::kQ8Threads, smem,
-               static_cast<cudaStream_t>(stream)>>>(a);
-        return cudaSuccess;
+        return launch_q8(kern, a, smem, stream);
       });
   if (st != cudaSuccess) return st;
   return cudaGetLastError();
 }
 
-// For the dual q8 instantiation of (code bytes, B, staged): out[0..3] as
-// brds::kernel_info gives them, with `smem` bytes of dynamic shared memory.
-extern "C" int brds_rb_dual_parts_q8_info(int code_bytes, int B, int staged,
-                                          int smem, int* out) {
-  return by_dual_q8_kernel(code_bytes, B, staged, [&](auto kern, auto) {
+// For the q8 SpMV instantiation of (families, code bytes, B, staged):
+// out[0..3] as brds::kernel_info gives them, with `smem` bytes of dynamic
+// shared memory.
+extern "C" int brds_rb_spmv_q8_info(int families, int code_bytes, int B,
+                                    int staged, int smem, int* out) {
+  auto info = [&](auto kern, auto) {
     return brds::kernel_info(reinterpret_cast<const void*>(kern),
                              brds::kQ8Threads, smem, out);
-  });
+  };
+  if (families == 1) return by_q8_kernel<1>(code_bytes, B, staged, info);
+  if (families == 2) return by_q8_kernel<2>(code_bytes, B, staged, info);
+  return cudaErrorInvalidValue;
 }

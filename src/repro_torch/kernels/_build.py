@@ -53,7 +53,8 @@ SIGNATURES = {
                                       _I, _I, _I, _I, _I, _P],
                 "brds_rb_dual_spmv_info": [_I, _I, _P]},
     "lstm_gates": {"brds_lstm_gates": [_P, _P, _P, _P, _I, _P, _P, _P, _I, _I,
-                                       _P, _F, _F, _F, _P]},
+                                       _I, _I, _P, _F, _F, _F, _P],
+                   "brds_lstm_gates_info": [_P]},
     "fused_step": {
         "brds_fused_lstm_step": [_P, _P, _I, _I, _P, _I, _P, _P, _I, _I, _P,
                                  _I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
@@ -83,11 +84,12 @@ SIGNATURES = {
                                     _I, _I, _I, _I, _I, _I, _I, _P],
         "brds_delta_rb_dual_spmv_info": [_I, _I, _P]},
     "rb_spmv_q8": {
-        "brds_rb_spmv_q8": [_P, _P, _I, _I, _P, _P, _I, _I, _P, _I, _I, _P],
+        "brds_rb_spmv_q8": [_P, _P, _I, _I, _P, _P, _I, _I, _P, _I, _I, _I,
+                            _I, _I, _I, _I, _I, _P],
         "brds_rb_dual_parts_q8": [_P, _P, _I, _I, _P, _P, _I, _P, _P, _I, _I,
                                   _P, _P, _I, _I, _P, _P, _I, _I, _I, _I, _I,
                                   _I, _I, _I, _I, _I, _P],
-        "brds_rb_dual_parts_q8_info": [_I, _I, _I, _I, _P]},
+        "brds_rb_spmv_q8_info": [_I, _I, _I, _I, _I, _P]},
     "fused_scan": {
         "brds_fused_lstm_scan": [_P, _P, _I, _I, _P, _I, _P, _P, _I, _I, _P,
                                  _I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,

@@ -3,7 +3,11 @@
 The paper's Function + Buffer modules: σ/tanh (exact, or the 16-segment
 piecewise-linear LUT of the fixed-point datapath study) and the cell update
 c = f·c_prev + i·g, h = o·tanh(c), with each cell product rounded on its
-own. Replaces ``repro/kernels/lstm_gates.py::lstm_gates``.
+own. A programmatic dependent launch: its blocks may start while the
+kernel before it in the stream still runs and wait on the card for that
+kernel's memory, so the launch latency hides behind the producer's tail
+(``plan.gates_plan``: one unit a thread, at most one wave). Replaces
+``repro/kernels/lstm_gates.py::lstm_gates``.
 """
 from __future__ import annotations
 
@@ -11,6 +15,7 @@ import numpy as np
 import torch
 
 from . import _build
+from .plan import GatesPlan, gates_plan
 from .ref import pwl_tables
 
 _T = pwl_tables()
@@ -32,12 +37,20 @@ def act_args(pwl: bool, device: torch.device) -> tuple:
     return lut, float(_T["lo"]), float(_T["hi"]), _HIC
 
 
-def lstm_gates(zf, zi, zg, zo, c_prev, *, pwl: bool = False):
+def gates_info(plan: GatesPlan, device) -> dict:
+    """``_build.kernel_info`` of the cell's kernel at ``plan``'s grid."""
+    return _build.kernel_info("lstm_gates", "brds_lstm_gates_info", (),
+                              plan.grid, device)
+
+
+def lstm_gates(zf, zi, zg, zo, c_prev, *, pwl: bool = False,
+               pdl: bool = True):
     """(c_t, h_t) from the four (B, H) gate preactivations and c_prev.
 
     The z inputs may be column slices of one (B, ldz) matrix (row stride
     ldz, unit column stride), as the chained step passes them; c_prev is
-    contiguous. All float32 on one card.
+    contiguous. All float32 on one card. ``pdl`` False launches the kernel
+    plainly, after the kernel before it has drained (a timing variant).
     """
     dev = c_prev.device
     _build.require(c_prev, "c_prev", dtypes=(torch.float32,), ndim=2)
@@ -53,11 +66,13 @@ def lstm_gates(zf, zi, zg, zo, c_prev, *, pwl: bool = False):
                              f"{tuple(z.shape)} strides {z.stride()}")
     c = torch.empty_like(c_prev)
     h = torch.empty_like(c_prev)
+    plan = gates_plan(B=B, H=H, sms=_build.sm_count(dev))
     lib = _build.load("lstm_gates")
     err = lib.brds_lstm_gates(zf.data_ptr(), zi.data_ptr(), zg.data_ptr(),
                               zo.data_ptr(), zf.stride(0), c_prev.data_ptr(),
-                              c.data_ptr(), h.data_ptr(), B, H,
-                              *act_args(pwl, dev), _build.stream(dev))
+                              c.data_ptr(), h.data_ptr(), B, H, plan.grid,
+                              int(pdl), *act_args(pwl, dev),
+                              _build.stream(dev))
     _build.check(err, "lstm_gates")
     _build.LAUNCHES["lstm_gates"] += 1
     return c, h

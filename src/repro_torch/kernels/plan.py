@@ -1,18 +1,21 @@
 """Launch plans of the persistent scans, float and temporal delta
 (``csrc/fused_scan.cu``, ``fused_scan_kernel``), the staged q8 kernels
 (the fused q8 steps, ``csrc/fused_step.cu`` ``fused_step_q8_kernel``; the
-dual SpMV, ``csrc/rb_spmv_q8.cu`` ``rb_dual_parts_staged_kernel``), the
+dual SpMV, ``csrc/rb_spmv_q8.cu`` ``rb_dual_parts_staged_kernel``; the
+single-family q8 SpMV, ``rb_spmv_q8_staged_kernel``), the
 staged float kernels (the float and temporal-delta steps,
 ``fused_staged_kernel``; the dual SpMVs, ``csrc/rb_spmv.cu``
 ``rb_dual_staged_kernel`` and ``csrc/delta_rb_spmv.cu``
 ``delta_dual_staged_kernel``; the single-family SpMVs,
-``rb_spmv_staged_kernel`` and ``delta_spmv_staged_kernel``) and decode
+``rb_spmv_staged_kernel`` and ``delta_spmv_staged_kernel``), the LSTM
+cell (``csrc/lstm_gates.cu``, ``lstm_gates_kernel``) and decode
 attention (``csrc/attention.cu``, ``decode_cluster_kernel``): grid,
 hidden units or rows a block, the shared-memory layout of the staged
 activations and the scratch they need, the slices, clusters and copy ring
 of decode attention, from the card's limits in plain arithmetic, so the
 CPU tests hold it. Also the occupancy arithmetic (blocks an SM from
-registers, threads and shared memory) and the waves a grid takes.
+registers, threads and shared memory; whether a block of one kernel fits
+beside another's) and the waves a grid takes.
 
 The wrappers pass the card's SM count; the other limits are Hopper's
 (H100: 65536 registers and 228 KB of shared memory an SM, 227 KB a
@@ -39,6 +42,7 @@ SCAN_THREADS = 512          # fused_scan.cu kScanThreads
 SCAN_COLUMN = 128           # bytes a staged column takes (8 float4 pieces)
 Q8_THREADS = 512            # brds_common.cuh kQ8Threads (staged q8)
 STREAM_THREADS = 512        # brds_common.cuh kStreamThreads (staged float)
+GATES_THREADS = 128         # lstm_gates.cu kThreads
 DEC_THREADS = 256           # attention.cu kDecThreads
 DEC_STREAMS = 16            # ... kStreams: key streams (half-warps) a block
 DEC_KEYS = 2                # ... kDecU: keys a stream takes a stage
@@ -60,6 +64,19 @@ def blocks_per_sm(regs: int, threads: int, smem: int = 0) -> int:
     by_regs = warps_by_regs // warps
     by_smem = SMEM_PER_SM // (smem + SMEM_RESERVED)
     return max(0, min(by_warps, by_regs, by_smem, MAX_BLOCKS_PER_SM))
+
+
+def fits_beside(a: tuple, b: tuple) -> bool:
+    """Whether one block of kernel ``b`` fits on an SM that holds one
+    block of kernel ``a``, each given as (registers a thread, threads,
+    shared bytes a block): their warps, registers (a warp's in 256s) and
+    shared memory (each block's plus the runtime's own) together."""
+    warps = [-(-threads // 32) for _, threads, _ in (a, b)]
+    regs = sum(-(-r * 32 // REG_UNIT) * REG_UNIT * w
+               for (r, _, _), w in zip((a, b), warps))
+    smem = sum(s + SMEM_RESERVED for _, _, s in (a, b))
+    return (sum(warps) <= MAX_WARPS_PER_SM and regs <= REGS_PER_SM
+            and smem <= SMEM_PER_SM)
 
 
 def waves(blocks: int, per_sm: int, sms: int = SMS) -> int:
@@ -210,7 +227,8 @@ def decode_plan(*, B: int, Hkv: int, G: int, S: int, D: int,
 @dataclass(frozen=True)
 class Q8Plan:
     """One launch of a staged q8 kernel (every batch tile of it): the
-    fused q8 or delta-q8 step (B8, B9) or the dual SpMV (B7)."""
+    fused q8 or delta-q8 step (B8, B9), the dual SpMV (B7) or the
+    single-family SpMV (B10; ``families`` 1: qx alone)."""
     nb: int
     tiles: int        # batch tiles of 16 rows (gridDim.y)
     rows: int         # rows a block (the fused steps: 4 x units)
@@ -222,6 +240,7 @@ class Q8Plan:
     xpad: int
     hpad: int
     smem: int
+    families: int     # packed families a row: 2 (x and h) or 1 (x)
 
     @property
     def units(self) -> int:
@@ -230,22 +249,28 @@ class Q8Plan:
 
 
 @lru_cache(maxsize=256)
-def q8_plan(*, X: int, H: int, B: int, Kx: int, Kh: int, code_bytes: int,
-            delta: bool = False, R: int | None = None, sms: int = SMS,
+def q8_plan(*, X: int, B: int, Kx: int, code_bytes: int,
+            H: int | None = None, Kh: int = 0, delta: bool = False,
+            R: int | None = None, sms: int = SMS,
             smem_limit: int = SMEM_PER_BLOCK) -> Q8Plan:
     """The plan of the staged q8 kernels: the fused q8 step (``delta``:
     the delta-q8 step's, which keeps zx and zh apart, twice z's room), a
     block owning the four gate rows of ceil(H / sms) hidden units, or,
     given ``R``, the dual SpMV rb_dual_parts_q8 over any R rows, a block
     owning 4 x ceil(R / 4 sms) contiguous rows and keeping zx and zh apart
-    (the fused step's count and room at R = 4H). One block an SM, so one
-    wave a batch tile; the tile's codes staged as (xpad + hpad) vectors of
-    NB codes when they fit beside the sums. A lane takes four consecutive
-    entries, so neighbouring lanes' entries lie about 4 x ncols / K
-    columns apart."""
+    (the fused step's count and room at R = 4H); without H, the
+    single-family SpMV rb_spmv_q8 (qx alone, Kx entries a row, the dual
+    SpMV's rows a block, one family's sums). One block an SM, so one wave
+    a batch tile; the tile's codes staged as (xpad + hpad) vectors of NB
+    codes when they fit beside the sums, else gathered from global
+    memory. A lane takes four consecutive entries, so neighbouring lanes'
+    entries lie about 4 x ncols / K columns apart."""
     nb = tier(min(B, TILE))
     tiles = -(-B // TILE)
+    families = 1 if H is None else 2
     if R is None:
+        if H is None:
+            raise ValueError("a single-family q8 SpMV needs R")
         rows = 4 * -(-H // sms)
         grid = -(-H // (rows // 4))
         sums = (2 if delta else 1) * rows
@@ -254,20 +279,20 @@ def q8_plan(*, X: int, H: int, B: int, Kx: int, Kh: int, code_bytes: int,
             raise ValueError(f"R={R}: a launch needs at least one row")
         rows = 4 * -(-R // (4 * sms))
         grid = -(-R // rows)
-        sums = 2 * rows
+        sums = families * rows
     vec = nb * code_bytes
     slot_bits = int(math.log2(128 // min(vec, 32)))
     shift_x = spacing_shift(X, Kx, 4)
-    shift_h = spacing_shift(H, Kh, 4)
+    shift_h = 0 if H is None else spacing_shift(H, Kh, 4)
     xpad = staged_cols(X, shift_x, slot_bits)
-    hpad = staged_cols(H, shift_h, slot_bits)
+    hpad = 0 if H is None else staged_cols(H, shift_h, slot_bits)
     zs = sums * nb * 4
     codes = (xpad + hpad) * vec
     staged = codes + zs <= smem_limit
     return Q8Plan(nb=nb, tiles=tiles, rows=rows, grid=grid, staged=staged,
                   slot_bits=slot_bits, shift_x=shift_x, shift_h=shift_h,
                   xpad=xpad, hpad=hpad,
-                  smem=(codes if staged else 0) + zs)
+                  smem=(codes if staged else 0) + zs, families=families)
 
 
 @dataclass(frozen=True)
@@ -346,3 +371,28 @@ def stream_plan(*, X: int, R: int, B: int, Kx: int, H: int | None = None,
                       slot_bits=slot_bits, shift_x=shift["x"],
                       shift_h=shift.get("h", 0), xpad=pad["x"],
                       hpad=pad.get("h", 0), smem=smem, families=len(fams))
+
+
+@dataclass(frozen=True)
+class GatesPlan:
+    """One launch of the LSTM cell (B2): one (b, j) unit a thread, the
+    B x H ``items`` strided over ``grid`` blocks of GATES_THREADS."""
+    items: int
+    grid: int
+
+    @property
+    def smem(self) -> int:
+        """Dynamic shared memory a block: none."""
+        return 0
+
+
+@lru_cache(maxsize=256)
+def gates_plan(*, B: int, H: int, sms: int = SMS) -> GatesPlan:
+    """The cell's plan: a block a GATES_THREADS units, at most one wave of
+    blocks (as many as the SMs hold by warps), striding beyond."""
+    if B < 1 or H < 1:
+        raise ValueError(f"B={B}, H={H}: the cell needs a unit")
+    items = B * H
+    wave = sms * (MAX_WARPS_PER_SM // (GATES_THREADS // 32))
+    return GatesPlan(items=items,
+                     grid=min(-(-items // GATES_THREADS), wave))

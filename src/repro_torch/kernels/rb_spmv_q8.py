@@ -2,17 +2,19 @@
 
 The fixed-point Gate-module MxV: integer weight codes times integer
 activation codes, int32 accumulation, one dequant multiply per row by the
-combined (row × activation) scale. The dual form returns the two
-families' partial sums (zx, zh) apart, so the adds that follow happen in
-PyTorch in the reference's order; it runs one block an SM on
-``plan.q8_plan`` with the fused q8 steps' row routine (codes staged in
-shared memory, four entries a lane). The single-family form serves the
+combined (row × activation) scale. Both forms run one block an SM on
+``plan.q8_plan`` with the fused q8 steps' row routine
+(``brds::q8_rows_block``: codes staged in shared memory, or gathered when
+too wide, four entries a lane, ``__dp4a`` for int8 codes): the dual form
+returns the two families' partial sums (zx, zh) apart, so the adds that
+follow happen in PyTorch in the reference's order; the single-family
+form (the routine with one family, qx's codes alone staged) serves the
 ``row_balanced_q8`` format's matvec. The wrappers quantize the
 activations before the launch, so a kernel and its plain version read the
 same codes and agree bit for bit. Also the launch helpers of the staged q8
-kernels (the dual SpMV and the fused q8 and delta-q8 steps): plan,
-arguments and occupancy. Replaces
-``repro/kernels/rb_spmv_q8.py::rb_dual_parts_q8`` and ``::rb_spmv_q8``.
+kernels (the SpMVs and the fused q8 and delta-q8 steps): plan, arguments
+and occupancy. Replaces ``repro/kernels/rb_spmv_q8.py::rb_dual_parts_q8``
+and ``::rb_spmv_q8``.
 """
 from __future__ import annotations
 
@@ -64,18 +66,24 @@ def check_q8(vals_x, deltas_x, comb_x, qx, vals_h, deltas_h, comb_h, qh,
 
 def rb_spmv_q8(vals, deltas, comb, q, rows: int):
     """y = dq(S @ q) over the first ``rows`` rows of packed integer codes
-    S (≥ rows, K) (int8 or int16, as the activation codes q (B, X));
+    S (≥ rows, K) (int8 or int16, as the activation codes q (B, X); codes
+    and deltas 16-byte aligned: the kernel loads four entries at once);
     comb (≥ rows,) float32 combined dequant scales. Returns (B, rows)
     float32."""
     dev = q.device
     _check_family("S", vals, deltas, comb, q, rows)
+    _build.require_aligned(vals, "S codes")
+    _build.require_aligned(deltas, "S deltas")
     B, X = q.shape
+    plan = single_q8_plan_for(vals, q, rows)
     y = torch.empty((B, rows), dtype=torch.float32, device=dev)
     lib = _build.load("rb_spmv_q8")
     err = lib.brds_rb_spmv_q8(vals.data_ptr(), deltas.data_ptr(),
                               deltas.element_size(), vals.shape[1],
                               comb.data_ptr(), q.data_ptr(), X,
                               vals.element_size(), y.data_ptr(), B, rows,
+                              plan.rows, int(plan.staged), plan.shift_x,
+                              plan.slot_bits, plan.xpad, plan.smem,
                               _build.stream(dev))
     _build.check(err, "rb_spmv_q8")
     _build.LAUNCHES["rb_spmv_q8"] += 1
@@ -100,6 +108,14 @@ def q8_plan_for(vals_x, vals_h, qx, qh, delta: bool = False,
                    sms=_build.sm_count(qx.device))
 
 
+def single_q8_plan_for(vals, q, R: int) -> Q8Plan:
+    """The launch plan of the single-family q8 SpMV over R rows of packed
+    codes ``vals`` at the activation codes q (B, X) on q's card."""
+    return q8_plan(X=q.shape[1], B=q.shape[0], Kx=vals.shape[1],
+                   code_bytes=q.element_size(), R=R,
+                   sms=_build.sm_count(q.device))
+
+
 def q8_args(plan: Q8Plan) -> tuple:
     """The staged layout's launch arguments (after rows or units)."""
     return (int(plan.staged), plan.shift_x, plan.shift_h, plan.slot_bits,
@@ -110,13 +126,14 @@ def q8_info(plan: Q8Plan, B: int, code_bytes: int, device, *,
             fused: bool = True, delta: bool = False) -> dict:
     """``_build.kernel_info`` of the staged q8 instantiation ``plan``
     launches at batch B (every batch tile of its grid): the fused q8
-    (``delta``: delta-q8) step, or (not ``fused``) the dual SpMV."""
+    (``delta``: delta-q8) step, or (not ``fused``) the q8 SpMV of the
+    plan's families (the dual SpMV, or the single-family one)."""
     if fused:
         source, entry = "fused_step", "brds_fused_lstm_step_q8_info"
         args = (code_bytes, B, int(plan.staged), int(delta), plan.smem)
     else:
-        source, entry = "rb_spmv_q8", "brds_rb_dual_parts_q8_info"
-        args = (code_bytes, B, int(plan.staged), plan.smem)
+        source, entry = "rb_spmv_q8", "brds_rb_spmv_q8_info"
+        args = (plan.families, code_bytes, B, int(plan.staged), plan.smem)
     return _build.kernel_info(source, entry, args, plan.grid * plan.tiles,
                               device)
 

@@ -4,9 +4,11 @@
 dual SpMV
 (``rb_dual_parts_q8``), the temporal-delta steps
 (``fused_brds_delta_lstm_step``, ``delta_rb_dual_spmv``), the float steps
-(``fused_brds_lstm_step``, ``rb_dual_spmv``), the single-family float and
-delta SpMVs (``rb_spmv``, ``delta_rb_spmv``) and decode attention
-(``decode_attention``) on the card, by variants that each skip one phase.
+(``fused_brds_lstm_step``, ``rb_dual_spmv``), the chained float step's
+pair (``rb_dual_spmv`` then ``lstm_gates``), the single-family float,
+delta and q8 SpMVs (``rb_spmv``, ``delta_rb_spmv``, ``rb_spmv_q8``) and
+decode attention (``decode_attention``) on the card, by variants that
+each skip one phase or change one launch.
 
     PYTHONPATH=src python -m repro_torch.launch.profile_kernels [--steps 32]
         [--batch 8] [--width 1500]
@@ -51,10 +53,15 @@ staging's one-column-a-thread form. The float step and dual SpMV
 (``profile_float``): ``full``, ``neither``, ``full`` with the L2 warm,
 the same three layouts and x alone misaligned (the staging's column form
 for x only), bitwise the full run; and the float step at B=32. The
-single-family SpMVs on W_x and on W_h (``profile_single``), the float
-one and the delta one (every column fired): ``full``, ``neither`` (K =
-0), ``full`` with the L2 warm, nothing staged and the columns in order,
-the last two bitwise the full run.
+chained pair (``profile_pair``): the dual SpMV then the cell on its z in
+one event window, the cell launched as a programmatic dependent (as the
+serve loop launches it) and plainly, alternated twice, the two bitwise;
+beside them each kernel alone, the cell both ways. The single-family
+SpMVs on W_x and on W_h (``profile_single``), the float one, the delta
+one (every column fired) and the q8 one on int8 and q1.11 codes
+(``profile_single_q8``): ``full``, ``neither`` (K = 0), ``full`` with the
+L2 warm, nothing staged and the columns in order, the last two bitwise
+the full run.
 Decode attention at the qwen3-0.6b serve shape: the full call, one slice
 a pair, the length as a host constant, lengths of 1, the full call after
 an L2 flush by a read, and the launch plan's slices x ring stages, beside
@@ -79,6 +86,7 @@ from ..kernels import fused_step as kstep
 from ..kernels import rb_spmv as krb
 from ..kernels import rb_spmv_q8 as kq8
 from ..kernels._build import time_ms
+from ..kernels.lstm_gates import lstm_gates as gates_kernel
 from ..kernels.plan import Q8Plan, StreamPlan, staged_cols
 from ..quant import parse_scheme, quantize, quantize_packed
 
@@ -211,9 +219,10 @@ def stream_planned_as(change):
 
 
 def q8_planned_as(change):
-    """The staged q8 kernels (B7, B8, B9) launched on ``change(plan)``
-    instead of their plan."""
+    """The staged q8 kernels (B7, B8, B9, B10) launched on
+    ``change(plan)`` instead of their plan."""
     return _planned_as(change, ((kq8, "q8_plan_for"),
+                                (kq8, "single_q8_plan_for"),
                                 (kstep, "q8_plan_for")))
 
 
@@ -363,6 +372,74 @@ def profile_dual_q8(qs, acts, flush) -> dict:
                kq8.rb_dual_parts_q8(*fam[0], comb[0], qx, *fam[1], comb[1],
                                     qh, qs[0].rows)}
     return _profile_staged(kernels, variants, flush, q8_planned_as)
+
+
+def profile_pair(sx, sh, x, h, bias, c0, flush) -> dict:
+    """The chained float step's kernels (B1 then B2) on packed Sx, Sh at x,
+    h: the pair in one event window (L2 flushed before it), B2 launched as
+    a programmatic dependent of B1 (``pdl``, the serve loop's launch) and
+    plainly (``plain``, after B1 has drained), alternated twice; the two
+    must give the same c and h bits. Beside them B1 alone and B2 alone on
+    B1's z, each way. Returns ms by name (median of 30)."""
+    H = h.shape[1]
+
+    def dual():
+        return krb.rb_dual_spmv(sx.values, sx.deltas, x, sh.values,
+                                sh.deltas, h, bias)
+
+    def cell(z, pdl):
+        return gates_kernel(*(z[:, i * H:(i + 1) * H] for i in range(4)), c0,
+                            pdl=pdl)
+
+    z = dual()
+    out, got = {}, {}
+    for rep in (1, 2):
+        for way, pdl in (("pdl", True), ("plain", False)):
+            def run(pdl=pdl):
+                return cell(dual(), pdl)
+            got[way] = run()
+            out[f"pair {way} #{rep}"] = time_ms(run, flush)
+    if not all(torch.equal(a, b) for a, b in zip(got["pdl"], got["plain"])):
+        raise SystemExit("pair: the programmatic launch changed the cell's "
+                         "bits")
+    out["dual spmv alone"] = time_ms(dual, flush)
+    for way, pdl in (("pdl", True), ("plain", False)):
+        out[f"cell alone {way}"] = time_ms(lambda pdl=pdl: cell(z, pdl), flush)
+    for key, ms in out.items():
+        print(f"  {key:32} {ms:.4f} ms", flush=True)
+    return out
+
+
+def _q8_gathered(p: Q8Plan) -> Q8Plan:
+    """A q8 SpMV's plan (B7, B10) with the codes gathered from global
+    memory: its shared memory holds the sums alone."""
+    return replace(p, staged=False, smem=4 * p.families * p.rows * p.nb)
+
+
+def profile_single_q8(qs, acts, flush) -> dict:
+    """The single-family q8 SpMV rb_spmv_q8 (B10) on the q8 codes ``qs``
+    of W_x at qx and of W_h at qh (``acts``: qx, sx, qh, sh): ``full``,
+    ``neither`` (K = 0: the launch, the staging, the writes of y), ``full``
+    with the L2 warm, and the full run with nothing staged and with the
+    staged columns in order, both of which must give its bits."""
+    out = {}
+    for fam, s, q, sa in (("W_x", qs[0], acts[0], acts[1]),
+                          ("W_h", qs[1], acts[2], acts[3])):
+        n, cb = q.shape[1], q.element_size()
+        full = (s.values, s.deltas)
+        empty = tuple(t[:, :0].contiguous() for t in full)
+        comb = s.scales * sa
+        variants = {
+            "full": (full, None, None, False),
+            "neither": (empty, None, None, False),
+            "gathered": (full, None, _q8_gathered, True),
+            "columns in order": (full, None,
+                                 lambda p, n=n, cb=cb: in_order(p, n, 0, cb),
+                                 True)}
+        kernels = {f"rb_spmv_q8 {s.scheme.name} {fam}": lambda f, _, q=q,
+                   comb=comb, R=s.rows: kq8.rb_spmv_q8(*f, comb, q, R)}
+        out.update(_profile_staged(kernels, variants, flush, q8_planned_as))
+    return out
 
 
 def profile_single(sx, sh, x, h, flush, masks=None) -> dict:
@@ -546,12 +623,16 @@ def main(argv=None) -> int:
             print(f"  fused delta-q8 step {spec:5} {name:8} "
                   f"{out[key]['ms']:.4f} ms", flush=True)
         out.update(profile_dual_q8(qs, acts, flush))
+        out.update(profile_single_q8(qs, acts, flush))
     print(f"delta steps X=H={W}, B={B}, Kx={sx.K}, Kh={sh.K}; CUDA events, "
           "median of 30, L2 flushed", flush=True)
     out.update(profile_delta(sx, sh, B, bias, c0, rand, flush))
     print(f"float steps X=H={W}, B={B}, Kx={sx.K}, Kh={sh.K}; CUDA events, "
           "median of 30, L2 flushed", flush=True)
     out.update(profile_float(sx, sh, xs[0], h0, bias, c0, rand, flush))
+    print("chained float pair (rb_dual_spmv then lstm_gates); CUDA events, "
+          "median of 30, L2 flushed", flush=True)
+    out.update(profile_pair(sx, sh, xs[0], h0, bias, c0, flush))
     print(f"single-family SpMV X=H={W}, B={B}, Kx={sx.K}, Kh={sh.K}; CUDA "
           "events, median of 30, L2 flushed", flush=True)
     out.update(profile_single(sx, sh, xs[0], h0, flush))

@@ -144,10 +144,27 @@ def _sync(device: torch.device) -> None:
         torch.cuda.synchronize(device)
 
 
+def _device_span(events) -> float:
+    """Seconds the device ran anything: the union of the device events'
+    intervals. Kernels overlap under a programmatic dependent launch (a
+    dependent's blocks start, and wait, while its producer runs), where a
+    sum of their times counts the overlap twice."""
+    spans = sorted((e.time_range.start, e.time_range.end) for e in events
+                   if e.device_type == torch.autograd.DeviceType.CUDA
+                   and not e.is_user_annotation)
+    total, end = 0.0, float("-inf")
+    for s, t in spans:
+        if t > end:
+            total += t - max(s, end)
+            end = t
+    return total / 1e6
+
+
 def _profile(run, device: torch.device) -> None:
-    """Run ``run`` under torch.profiler; print the device time by kernel and
+    """Run ``run`` under torch.profiler; print the device time by kernel,
     the device's busy share of the wall time (the profiler's own overhead
-    included, so the share reads low)."""
+    included, so the share reads low) and the device's span (the union of
+    its kernels' intervals)."""
     from torch.profiler import ProfilerActivity, profile
     acts = [ProfilerActivity.CPU]
     if device.type == "cuda":
@@ -165,7 +182,8 @@ def _profile(run, device: torch.device) -> None:
                if e.device_type == torch.autograd.DeviceType.CUDA
                and not e.is_user_annotation) / 1e6
     print(f"profile: wall {wall * 1e3:.3f} ms, device busy "
-          f"{busy * 1e3:.3f} ms ({busy / wall:.1%} of wall)")
+          f"{busy * 1e3:.3f} ms ({busy / wall:.1%} of wall), device span "
+          f"{_device_span(prof.events()) * 1e3:.3f} ms")
 
 
 def main(argv=None):

@@ -307,3 +307,84 @@ def test_kernel_wrappers_refuse_an_empty_batch(B):
     from repro_torch.kernels.rb_spmv import check_batch
     with pytest.raises(ValueError, match="at least one row"):
         check_batch(B)
+
+
+class _FakeLib:
+    """Stands in for a built library: records each entry point's
+    arguments, returns cudaSuccess."""
+
+    def __init__(self):
+        self.calls = []
+
+    def __getattr__(self, name):
+        return lambda *a: self.calls.append((name, a)) or 0
+
+
+def _as_if_on_a_card(monkeypatch, lib):
+    """The wrappers' device checks pass CPU tensors, the card has 132 SMs,
+    and the build is ``lib``: what a wrapper checks and hands the launch
+    shows without a card."""
+    real = tq8._build.require
+    monkeypatch.setattr(tq8._build, "require",
+                        lambda t, name, **kw: real(_CudaLike(t), name, **kw))
+    monkeypatch.setattr(tq8._build, "sm_count", lambda device: 132)
+    monkeypatch.setattr(tq8._build, "stream", lambda device: 0)
+    monkeypatch.setattr(tq8._build, "load", lambda name: lib)
+    monkeypatch.setattr(tq8._build, "LAUNCHES", dict(tq8._build.LAUNCHES))
+
+
+class _CudaLike:
+    """A CPU tensor that reports itself as a CUDA one to the checks."""
+
+    def __init__(self, t):
+        self._t = t
+
+    is_cuda = True
+
+    def __getattr__(self, name):
+        return getattr(self._t, name)
+
+
+@pytest.mark.parametrize("which", ["codes", "deltas"])
+def test_misaligned_rb_spmv_q8_operand_raises_before_a_launch(
+        monkeypatch, which):
+    """B10 loads four codes and four deltas at once: its wrapper refuses
+    packed arrays that do not start on 16 bytes before it builds or
+    launches anything, and launches the aligned ones on the single-family
+    q8 plan."""
+    lib = _FakeLib()
+    _as_if_on_a_card(monkeypatch, lib)
+    R, K, X, B = 64, 12, 48, 3
+    codes = torch.zeros(R * K + 16, dtype=torch.int8)
+    deltas = torch.ones(R * K + 16, dtype=torch.int16)
+    arrays = {"codes": codes[:R * K].view(R, K),
+              "deltas": deltas[:R * K].view(R, K)}
+    comb = torch.ones(R)
+    q = torch.zeros(B, X, dtype=torch.int8)
+    tq8.rb_spmv_q8(arrays["codes"], arrays["deltas"], comb, q, R)
+    (name, args), = lib.calls
+    plan = tq8.single_q8_plan_for(arrays["codes"], q, R)
+    assert name == "brds_rb_spmv_q8" and plan.families == 1
+    assert args[11:17] == (plan.rows, 1, plan.shift_x, plan.slot_bits,
+                           plan.xpad, plan.smem)
+    flat = {"codes": codes, "deltas": deltas}[which]
+    arrays[which] = flat[1:R * K + 1].view(R, K)
+    with pytest.raises(ValueError, match="16-byte"):
+        tq8.rb_spmv_q8(arrays["codes"], arrays["deltas"], comb, q, R)
+    assert len(lib.calls) == 1
+
+
+@pytest.mark.parametrize("pdl", [True, False])
+def test_lstm_gates_launch_arguments(monkeypatch, pdl):
+    """B2's wrapper hands the launch z's row stride, the cell plan's grid
+    (one unit a thread, at most one wave) and the programmatic launch
+    unless asked for a plain one."""
+    lib = _FakeLib()
+    _as_if_on_a_card(monkeypatch, lib)
+    B, H = 8, 1500
+    z, c = torch.zeros(B, 4 * H), torch.zeros(B, H)
+    tgates.lstm_gates(*(z[:, i * H:(i + 1) * H] for i in range(4)), c,
+                      pdl=pdl)
+    (name, args), = lib.calls
+    assert name == "brds_lstm_gates"
+    assert args[4] == 4 * H and args[8:12] == (B, H, 94, int(pdl))

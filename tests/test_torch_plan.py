@@ -1,10 +1,13 @@
 """The launch plans of the float scan, the staged q8 kernels (the fused
-q8 steps and the q8 dual SpMV) and the staged float kernels (the steps,
-the dual SpMVs and the single-family SpMV; ``kernels/plan.py``) on the
-CPU: the occupancy arithmetic (blocks an SM from registers, threads and
-shared memory; waves of a grid), each plan's fit on the card at
+q8 steps, the q8 dual SpMV and the single-family q8 SpMV), the staged
+float kernels (the steps, the dual SpMVs and the single-family SpMV) and
+the LSTM cell (``kernels/plan.py``) on the CPU: the occupancy arithmetic
+(blocks an SM from registers, threads and shared memory; whether one
+kernel's block fits beside another's; waves of a grid), each plan's fit on
+the card at
 lstm_ptb's serve shapes, the staged layout's addressing, the scan's
-scratch, and the alignment of the packed q8 arrays. The kernels run only
+scratch, the cell's index map, and the alignment of the packed q8
+arrays. The kernels run only
 on the card, where ``chip_smoke.py`` prints the occupancy the runtime
 reports for the same plans."""
 import numpy as np
@@ -718,3 +721,128 @@ def test_decode_plan_long_cache_uses_the_largest_cluster():
     assert p.splits == 8 and p.grid == 128
     assert P.waves(p.grid, p.per_sm) == 1
     assert p.stages * P.DEC_STREAMS * P.DEC_KEYS < 32768 // 8
+
+
+@pytest.mark.parametrize("B", [1, 3, 8, 12, 16, 32, 64])
+@pytest.mark.parametrize("code_bytes", [1, 2])
+def test_q8_single_plan_is_one_wave_a_batch_tile(B, code_bytes):
+    """B10 (rb_spmv_q8, one family) at lstm_ptb's W_x and W_h (R = 6000):
+    q's int8 or q1.11 codes staged as the dual SpMV stages qx (the same
+    shift and padding) beside one family's sums (48 rows x NB float32), no
+    h family; one 512-thread block an SM at up to 128 registers, 125
+    blocks of 48 contiguous rows, one wave a 16-row tile."""
+    for K in (PTB["Kx"], PTB["Kh"]):
+        p = P.q8_plan(X=1500, B=B, Kx=K, code_bytes=code_bytes, R=6000)
+        d = P.q8_plan(X=1500, H=1500, B=B, Kx=K, Kh=K,
+                      code_bytes=code_bytes, R=6000)
+        tiles = -(-B // P.TILE)
+        assert p.families == 1 and d.families == 2
+        assert p.staged and p.tiles == tiles and p.nb == d.nb
+        assert (p.rows, p.grid) == (d.rows, d.grid) == (48, 125)
+        assert (p.shift_x, p.xpad, p.slot_bits) == (d.shift_x, d.xpad,
+                                                    d.slot_bits)
+        assert p.hpad == 0 and p.shift_h == 0
+        assert p.smem == p.xpad * p.nb * code_bytes + p.rows * p.nb * 4
+        per_sm = P.blocks_per_sm(128, P.Q8_THREADS, p.smem)
+        assert per_sm >= 1 and P.waves(p.grid * p.tiles, per_sm) == tiles
+
+
+@pytest.mark.parametrize("R", [1, 5, 388, 1500, 6000, 6001, 16000])
+def test_q8_single_plan_rows_cover_any_R(R):
+    """B10 takes any R (the format API's row_balanced_q8 matvec):
+    4 x ceil(R / 4 SMs) contiguous rows a block, at most one block an SM,
+    every row owned once; without R there is no single-family plan."""
+    p = P.q8_plan(X=1500, B=8, Kx=375, code_bytes=1, R=R)
+    assert p.rows % 4 == 0 and p.grid <= P.SMS
+    assert p.rows * p.grid >= R > p.rows * (p.grid - 1)
+    with pytest.raises(ValueError):
+        P.q8_plan(X=1500, B=8, Kx=375, code_bytes=1, R=0)
+    with pytest.raises(ValueError):
+        P.q8_plan(X=1500, B=8, Kx=375, code_bytes=1)
+
+
+@pytest.mark.parametrize("X,B,code_bytes,staged", [
+    (33000, 12, 1, False), (33000, 12, 2, False), (70000, 3, 1, False),
+    (70000, 3, 2, False), (4000, 12, 2, True), (64, 12, 1, True)])
+def test_q8_single_plan_gathers_codes_too_wide_to_stage(X, B, code_bytes,
+                                                        staged):
+    """chip_smoke's single-family q8 shapes: q of 33000 or 70000 columns
+    does not fit beside the sums, so B10 gathers it from global memory
+    (GlobalCodes) and its shared memory holds the sums alone; the tall
+    shape's 4000-wide h at NB=16 in q1.11 (128 KB) and its 64-wide x are
+    staged."""
+    p = P.q8_plan(X=X, B=B, Kx=X // 4, code_bytes=code_bytes, R=4 * 97)
+    assert p.staged == staged and p.smem <= P.SMEM_PER_BLOCK
+    codes = p.xpad * p.nb * code_bytes if staged else 0
+    assert p.smem == codes + p.rows * p.nb * 4
+
+
+def test_single_q8_plan_for_reads_the_operands_and_is_cached(monkeypatch):
+    """B10's plan: X and B from the activation codes, K from the packed
+    codes, the code width from q; the same object at every launch of a
+    shape."""
+    from repro_torch.kernels import rb_spmv_q8 as kq8
+    monkeypatch.setattr(_build, "sm_count", lambda device: 132)
+    v = torch.zeros(6000, 750, dtype=torch.int8)
+    q = torch.zeros(8, 1500, dtype=torch.int8)
+    p = kq8.single_q8_plan_for(v, q, 6000)
+    assert p == P.q8_plan(X=1500, B=8, Kx=750, code_bytes=1, R=6000)
+    assert kq8.single_q8_plan_for(v, q, 6000) is p
+
+
+def _gates_units(plan, B, H, ldz, threads=P.GATES_THREADS):
+    """lstm_gates_kernel's index map, modelled: each thread of each block
+    takes items t = block x threads + thread, t + grid x threads, ... <
+    items, item t unit j of batch row b (b = t // H, j = t - b H), z read
+    at b x ldz + j. Returns the times each (b, j) is taken and the z
+    offsets read."""
+    seen = np.zeros((B, H), int)
+    zo = []
+    for blk in range(plan.grid):
+        for th in range(threads):
+            t = blk * threads + th
+            while t < plan.items:
+                b = t // H
+                j = t - b * H
+                seen[b, j] += 1
+                zo.append(b * ldz + j)
+                t += plan.grid * threads
+    return seen, np.asarray(zo)
+
+
+@pytest.mark.parametrize("H", [96, 97, 98, 99, 1500])
+@pytest.mark.parametrize("ldz", ["4H", "4H+1", "4H+4"])
+@pytest.mark.parametrize("B,sms", [(1, 132), (8, 132), (64, 1)])
+def test_gates_index_map_covers_each_unit_once(H, ldz, B, sms):
+    """B2's blocks (at most one wave: 16 of 128 threads an SM, striding
+    when the units outnumber them, as at B = 64 on one SM) take each
+    (b, j) exactly once, for H % 4 of 0-3 and a row stride of z that is
+    or is not a multiple of 4 (the chained step's (B, 4H) z, or a wider
+    one), and read z inside its B rows of ldz."""
+    ldz = {"4H": 4 * H, "4H+1": 4 * H + 1, "4H+4": 4 * H + 4}[ldz]
+    p = P.gates_plan(B=B, H=H, sms=sms)
+    assert p.items == B * H and p.smem == 0
+    assert 1 <= p.grid <= sms * 16
+    seen, zo = _gates_units(p, B, H, ldz)
+    assert (seen == 1).all()
+    assert zo.min() >= 0 and zo.max() < B * ldz
+    assert (zo % ldz < H).all()
+
+
+def test_gates_plan_at_the_serve_shape():
+    """lstm_ptb at B = 8: 12000 units in 94 blocks of 128, one wave."""
+    p = P.gates_plan(B=8, H=1500)
+    assert (p.items, p.grid) == (12000, 94)
+    assert P.waves(p.grid, P.blocks_per_sm(40, P.GATES_THREADS)) == 1
+
+
+@pytest.mark.parametrize("a,b,fits", [
+    ((128, 512, 0), (32, 128, 0), False),          # registers
+    ((96, 512, 100000), (32, 128, 0), True),
+    ((64, 1024, 0), (32, 128, 0), False),          # warps
+    ((64, 512, 200000), (32, 128, 40000), False),  # shared memory
+    ((80, 512, 49664), (40, 128, 0), True)])
+def test_fits_beside(a, b, fits):
+    """One block of b beside one of a on an SM: warps, registers (a warp's
+    in 256s) and shared memory (with the runtime's 1 KB a block) add."""
+    assert P.fits_beside(a, b) == fits

@@ -1,6 +1,7 @@
 """The index and sum arithmetic of the staged q8 kernels' row routine
 (``csrc/brds_common.cuh``: ``row_dot_q8x4``, ``q8_rows_stream``,
-``q8_rows_block``; B8, B9 and B7 ``rb_dual_parts_q8``), modelled in numpy on
+``q8_rows_block``; B8, B9, B7 ``rb_dual_parts_q8`` and, in the routine's
+single-family form, B10 ``rb_spmv_q8``), modelled in numpy on
 the CPU: four consecutive entries a lane counted from the 4-aligned element
 at or before a row's start (the head of an unaligned row and the tail past
 K count as code 0, delta 0), the in-register prefix of a lane's four
@@ -9,11 +10,14 @@ transpose that pairs the entries' activation codes with their weights, and
 ``__dp4a``'s wrapping int32 sums (IMADs for int16 codes); and B7's block:
 contiguous rows a block, warp w taking rows w, w+16, ..., each row's Sx
 then Sh segment one stream of chunk groups, zx and zh dequantized apart and
-written out coalesced. The columns must equal the JAX package's unpacked
-indices (``repro.core.packing``), and the sums, dequantized, the port's
-plain version (``kernels/ref.py::rb_spmv_q8_ref``) and the JAX
-``rb_dual_parts_q8`` bit for bit; with the delta-q8 step's epilogue, m' and
-the cell the JAX package's fused delta-q8 step. The kernels themselves run
+written out coalesced; and B10's block, the same with the Sx family and
+its codes alone; and the staging of the codes, four columns a thread
+(one load of four codes a batch row, byte transposes) or one. The
+columns must equal the JAX package's unpacked indices
+(``repro.core.packing``), and the sums, dequantized, the port's plain
+version (``kernels/ref.py::rb_spmv_q8_ref``) and the JAX
+``rb_dual_parts_q8`` and ``rb_spmv_q8`` bit for bit; with the delta-q8
+step's epilogue, m' and the cell the JAX package's fused delta-q8 step. The kernels themselves run
 only on the card (``chip_smoke.py`` holds them exact against the same
 plain version)."""
 import jax.numpy as jnp
@@ -307,12 +311,12 @@ def test_delta_q8_epilogue_matches_jax(spec, B):
     np.testing.assert_allclose(hn, np.asarray(jh), atol=1e-5)
 
 
-def q8_stream_order(nrows, nchunks, G, warp=0, nwarps=16):
+def q8_stream_order(nrows, nchunks, G, warp=0, nwarps=16, families=2):
     """q8_rows_stream's control flow for one warp: the (row, family, first
     chunk) of each group of G x 32 chunks it consumes, in order, and the
     group it loads before consuming it (None at the end); nchunks(i,
     part) is row i's chunk count in family part (q8x4_chunks: its head
-    peel counted)."""
+    peel counted). ``families`` 1 (NF = 1): the Sx segments alone."""
     i, part, c0 = warp, 0, 0
     out = []
     if i >= nrows:
@@ -320,8 +324,8 @@ def q8_stream_order(nrows, nchunks, G, warp=0, nwarps=16):
     while True:
         i2, part2, c2 = i, part, c0 + G * WARP
         if c2 >= nchunks(i, part):
-            c2, part2 = 0, part ^ 1
-            if part:
+            c2, part2 = 0, (part ^ 1 if families == 2 else 0)
+            if families == 1 or part:
                 i2 += nwarps
         more = i2 < nrows
         out.append(((i, part, c0), (i2, part2, c2) if more else None))
@@ -330,12 +334,12 @@ def q8_stream_order(nrows, nchunks, G, warp=0, nwarps=16):
         i, part, c0 = i2, part2, c2
 
 
-def q8_rows_order(nrows, nchunks, warp=0, nwarps=16):
-    """q8_rows' order for one warp (deltas not both int16): row i's Sx row
-    through row_dot_q8x4 (groups of 4 x 32 chunks), then its Sh row, then
-    row i + 16's."""
+def q8_rows_order(nrows, nchunks, warp=0, nwarps=16, families=2):
+    """q8_rows' order for one warp (deltas not all int16): row i's Sx row
+    through row_dot_q8x4 (groups of 4 x 32 chunks), then its Sh row
+    (``families`` 2), then row i + 16's."""
     return [(i, part, c0) for i in range(warp, nrows, nwarps)
-            for part in (0, 1)
+            for part in range(families)
             for c0 in range(0, nchunks(i, part), 4 * WARP)]
 
 
@@ -475,3 +479,201 @@ def test_modelled_dual_parts_equal_jax(B, X, H, spec, jbackend):
                                    torch.tensor(np.float32(a)))
         np.testing.assert_array_equal(got.view(np.uint32),
                                       plain.numpy().view(np.uint32))
+
+
+@pytest.mark.parametrize("K", [375, 750, 5, 3, 1, 0])
+def test_single_q8_stream_visits_every_group_once(K):
+    """B10's stream (NF = 1: rows w, w + 16, ..., the Sx segment alone)
+    consumes every group of G x 32 chunks of its rows once, in row then
+    chunk order, each group's loads those the step before issued, across
+    row boundaries; an empty row still takes one (empty) group, so every
+    row is emitted."""
+    for G in (4, 8):
+        for r0, nrows in ((0, 48), (48 * 7, 48), (5952, 48), (0, 5)):
+            nch = chunks_of_row((K,), r0)
+            for warp in range(16):
+                got = q8_stream_order(nrows, nch, G, warp, families=1)
+                want = [(i, 0, c0) for i in range(warp, nrows, 16)
+                        for c0 in range(0, max(1, nch(i, 0)), G * WARP)]
+                assert [g for g, _ in got] == want
+                assert [n for _, n in got[:-1]] == want[1:]
+                assert not got or got[-1][1] is None
+
+
+def model_single(s, q, comb, R):
+    """B10's kernel, modelled: q8_plan's single-family blocks of contiguous
+    rows, warp w of a block taking its local rows w, w + 16, ...; q's
+    codes staged at the plan's layout (or gathered: column order); the
+    rows a stream of chunk groups (int16 deltas: G = 8 for int8 codes, 4
+    for int16) or a row at a time (row_dot_q8x4, G = 4); each row's lanes
+    summed over its groups, the xor butterfly, the sum dequantized into
+    the block's shared array (local row i, batch row b) and written out
+    batch row by batch row. s: (values, deltas) numpy arrays (≥ R rows);
+    comb: combined scales."""
+    v, d = (np.asarray(t) for t in s)
+    B, X = q.shape
+    K = v.shape[1]
+    code_bytes = v.dtype.itemsize
+    p = q8_plan(X=X, B=B, Kx=K, code_bytes=code_bytes, R=R)
+    assert p.families == 1 and p.hpad == 0
+    stream = d.dtype == np.int16
+    G = (8 if code_bytes == 1 else 4) if stream else 4
+    layout_ = (p.shift_x, p.slot_bits) if p.staged else (0, 0)
+    lanes = q8x4_lanes(v[:R].ravel(), d[:R].ravel(), np.arange(R) * K, K,
+                       q, *layout_)
+    comb = np.asarray(comb, np.float32)
+    y = np.zeros((B, R), np.float32)
+    for r0 in range(0, R, p.rows):
+        nrows = min(p.rows, R - r0)
+        nch = chunks_of_row((K,), r0)
+        smem = np.zeros((nrows, p.nb), np.float32)
+        for warp in range(16):
+            order = ([g for g, _ in q8_stream_order(nrows, nch, G, warp,
+                                                    families=1)]
+                     if stream else q8_rows_order(nrows, nch, warp,
+                                                  families=1))
+            rows = {}
+            for i, _, c0 in order:
+                w0 = c0 // WARP
+                acc = rows.get(i, np.zeros((WARP, p.nb), np.int64))
+                rows[i] = (acc + lanes[r0 + i, w0:w0 + G].sum(0)) & M32
+            for i in range(warp, nrows, 16):
+                tot = warp_total(rows.get(i, np.zeros((WARP, p.nb),
+                                                      np.int64)), p.nb)
+                smem[i] = tot.astype(np.float32) * comb[r0 + i]
+        for t in range(nrows * B):
+            b, i = t // nrows, t % nrows
+            y[b, r0 + i] = smem[i, b]
+    return y, p
+
+
+# (B, ncols, ratio): B = 1-16 (NB = 4, 8, 16); int8 deltas (ncols ≤ 128:
+# rows a row at a time), int16 (the stream); lstm_ptb's W_x and W_h
+# (6000 gate rows of 375 and 750 entries over 1500 columns)
+SINGLE = [(1, 100, 0.75), (3, 120, 0.5), (12, 300, 0.75), (16, 130, 0.5),
+          (8, 1500, 0.75), (16, 1500, 0.5)]
+
+
+@pytest.mark.parametrize("jbackend", ["pallas", "ref"])
+@pytest.mark.parametrize("spec", ["int8", "q1.11"])
+@pytest.mark.parametrize("B,ncols,ratio", SINGLE)
+def test_modelled_single_q8_equals_jax(B, ncols, ratio, spec, jbackend):
+    """The modelled B10 on the JAX package's own packing and codes equals
+    the JAX rb_spmv_q8 (the Pallas kernel in interpret mode, or its plain
+    reference) and the port's rb_spmv_q8_ref bit for bit: every row of
+    every block, every batch row; int8 activations with a static scale,
+    q1.11 with the scheme's own."""
+    R = 4 * 1500 if ncols == 1500 else 4 * 97
+    rng = np.random.default_rng(B * 11 + ncols + len(spec))
+    K = int(round(ncols * (1 - ratio)))
+    if ncols == 1500:   # lstm_ptb: row-balanced masks without the prune
+        f = _packed(rng, R, ncols, K)
+    else:
+        w = (rng.normal(size=(R, ncols)) * ncols ** -0.5).astype(np.float32)
+        f = pack_from_dense(jnp.asarray(w), ratio)
+    js = pad_packed(jqf.quantize_packed(f, spec))
+    assert np.asarray(js.deltas).dtype == (np.int8 if ncols <= 128
+                                           else np.int16)
+    x = jnp.asarray(rng.normal(size=(B, ncols)).astype(np.float32))
+    scale = 0.05 if spec == "int8" else None
+    want = jops.rb_spmv_q8(js, x, act_scale=scale, backend=jbackend)
+    qx, sa = jops._quant_act(x, js, scale)
+    comb = np.asarray(js.scales)[:R] * np.float32(sa)
+    y, p = model_single((js.values, js.deltas), np.asarray(qx), comb, R)
+    assert p.staged
+    np.testing.assert_array_equal(y.view(np.uint32),
+                                  np.asarray(want).view(np.uint32))
+    ts = quantize_packed(packed_from_numpy(f.values, f.deltas, f.ncols,
+                                           f.pad, f.block_rows), spec)
+    plain = ref.rb_spmv_q8_ref(ts, torch.from_numpy(np.asarray(qx)),
+                               torch.tensor(np.float32(sa)))
+    np.testing.assert_array_equal(y.view(np.uint32),
+                                  plain.numpy().view(np.uint32))
+
+
+def test_modelled_single_q8_gathers_a_wide_input_exactly():
+    """X too wide to stage beside the sums (33000 columns at B = 12, int16
+    deltas): the modelled B10 gathers q in column order and still equals
+    rb_spmv_q8_ref bit for bit."""
+    rng = np.random.default_rng(5)
+    R, X, K, B = 20, 33000, 8250, 12
+    f = _packed(rng, R, X, K)
+    ts = quantize_packed(packed_from_numpy(f.values, f.deltas, f.ncols,
+                                           f.pad, f.block_rows), "int8")
+    q = rng.integers(-127, 128, size=(B, X)).astype(np.int8)
+    sa = np.float32(0.01)
+    comb = ts.scales.numpy() * sa
+    y, p = model_single((ts.values.numpy(), ts.deltas.numpy()), q, comb, R)
+    assert not p.staged
+    plain = ref.rb_spmv_q8_ref(ts, torch.from_numpy(q), torch.tensor(sa))
+    np.testing.assert_array_equal(y.view(np.uint32),
+                                  plain.numpy().view(np.uint32))
+
+
+def _u32(x):
+    return np.asarray(x, np.uint64) & M32
+
+
+def staged_words(q, nb, four):
+    """stage_codes, modelled: each column's staged vector (n, kW) uint32
+    words (batch row b in byte / half-word b % per of word b // per, zero
+    past B), four columns a thread (each batch row's four codes loaded as
+    one word per 4 bytes, then transpose4x4 for int8 or __byte_perm for
+    int16) or one column a thread; and how many times each column was
+    written."""
+    B, n = q.shape
+    cb = q.dtype.itemsize
+    per, bits, kW = 4 // cb, 8 * cb, nb * cb // 4
+    u = q.view(np.uint8 if cb == 1 else np.uint16).astype(np.uint64)
+    out = np.zeros((n, kW), np.uint64)
+    writes = np.zeros(n, int)
+    if not four:
+        for c in range(n):
+            for b in range(B):
+                out[c, b // per] |= u[b, c] << (bits * (b % per))
+            writes[c] += 1
+        return out, writes
+    for c4 in range(n // 4):
+        cols = u[:, 4 * c4:4 * c4 + 4]            # (B, 4)
+        raw = np.zeros((nb, cb), np.uint64)       # a row's words (Codes4)
+        for b in range(B):
+            for i in range(4):
+                raw[b, i // per] |= cols[b, i] << (bits * (i % per))
+        for g in range(kW):
+            if cb == 1:
+                o = transpose4x4(*(raw[4 * g + k, 0:1] for k in range(4)))
+                for i in range(4):
+                    out[4 * c4 + i, g] = o[i][0]
+            else:
+                for i in range(4):
+                    out[4 * c4 + i, g] = byte_perm(
+                        raw[2 * g, i >> 1:(i >> 1) + 1],
+                        raw[2 * g + 1, i >> 1:(i >> 1) + 1],
+                        0x7632 if i & 1 else 0x5410)[0]
+        writes[4 * c4:4 * c4 + 4] += 1
+    return _u32(out), writes
+
+
+@pytest.mark.parametrize("dtype", [np.int8, np.int16])
+@pytest.mark.parametrize("B", [1, 3, 8, 12, 16])
+@pytest.mark.parametrize("n", [1500, 64, 100])
+def test_staging_four_columns_a_thread_equals_one(dtype, B, n):
+    """The staged q8 kernels' codes staging: four columns a thread (widths
+    a multiple of 4) writes every column once, and each column's vector
+    the one-column form writes: batch row b's code in byte (int8) or
+    half-word (int16) b of the NB-row vector, zeros past B; so the rows
+    read the same codes whichever form staged them."""
+    rng = np.random.default_rng(B * 10 + n)
+    info = np.iinfo(dtype)
+    q = rng.integers(info.min, info.max + 1, size=(B, n)).astype(dtype)
+    nb = 4 if B <= 4 else 8 if B <= 8 else 16
+    one, w1 = staged_words(q, nb, four=False)
+    four, w4 = staged_words(q, nb, four=True)
+    assert (w1 == 1).all() and (w4 == 1).all()
+    np.testing.assert_array_equal(four, one)
+    per, bits = 4 // q.itemsize, 8 * q.itemsize
+    for b in range(nb):   # each batch row's codes read back from the words
+        field = (one[:, b // per] >> (bits * (b % per))) & ((1 << bits) - 1)
+        want = (q[b].view(np.uint8 if bits == 8 else np.uint16)
+                if b < B else np.zeros(n))
+        np.testing.assert_array_equal(field, want)

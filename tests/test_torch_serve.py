@@ -413,3 +413,22 @@ def test_serve_cli_fused_flag_reaches_the_model(monkeypatch, capsys, flags,
                 "--prompt-len", "3", "--gen", "2", *flags])
     assert seen == [fused]
     assert "generated (1, 2)" in capsys.readouterr().out
+
+
+def test_device_span_counts_overlapping_kernels_once():
+    """The profile's device span is the union of the device events'
+    intervals: a programmatic dependent that starts (and waits) while its
+    producer runs adds only what lies past the producer's end; host
+    events and user annotations add nothing."""
+    from types import SimpleNamespace as NS
+    from repro_torch.launch.serve import _device_span
+    cuda, cpu = torch.autograd.DeviceType.CUDA, torch.autograd.DeviceType.CPU
+
+    def ev(start, end, dev=cuda, note=False):
+        return NS(time_range=NS(start=start, end=end), device_type=dev,
+                  is_user_annotation=note)
+
+    events = [ev(0, 36), ev(30, 40), ev(50, 55), ev(52, 53), ev(0, 100, cpu),
+              ev(0, 100, note=True)]
+    assert _device_span(events) == pytest.approx(45e-6)
+    assert _device_span([]) == 0.0
