@@ -101,11 +101,14 @@ non-zero on any failure, and without a card.
 from __future__ import annotations
 
 import json
+import re
 import statistics
 import subprocess
 import sys
 import time
 from pathlib import Path
+
+import numpy as np
 
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
@@ -144,6 +147,32 @@ TSERVE = dict(arch="qwen3-0.6b", batch=8, prompt=512, gen=64, max_len=1024)
 # 4 ulps of a logit in [4, 8) (measured 0.047 at max |logit| 4.9)
 TF_LOGIT_TOL = 0.125
 TF_MARGIN = 0.25       # greedy rows compared up to a top-2 margin below it
+GRAPH_ROWS = []        # captured vs host loop, one row a serve path
+# the port's CUDA kernels by symbol, grouped with the wrappers that count
+# their launches (a template's float and delta forms share a symbol; B15
+# has a tensor-core body and a SIMT one)
+KERNEL_SYMBOLS = (
+    (("fused_staged_kernel",), ("fused_brds_lstm_step",
+                                "fused_brds_delta_lstm_step")),
+    (("fused_step_q8_kernel",), ("fused_brds_lstm_step_q8",
+                                 "fused_brds_delta_lstm_step_q8")),
+    (("fused_scan_kernel",), ("fused_brds_lstm_scan",
+                              "fused_brds_delta_lstm_scan")),
+    (("rb_dual_staged_kernel",), ("rb_dual_spmv",)),
+    (("delta_dual_staged_kernel",), ("delta_rb_dual_spmv",)),
+    (("rb_dual_parts_staged_kernel",), ("rb_dual_parts_q8",)),
+    (("lstm_gates_kernel",), ("lstm_gates",)),
+    (("rb_spmv_staged_kernel",), ("rb_spmv",)),
+    (("delta_spmv_staged_kernel",), ("delta_rb_spmv",)),
+    (("rb_spmv_q8_staged_kernel",), ("rb_spmv_q8",)),
+    (("decode_cluster_kernel",), ("decode_attention",)),
+    (("flash_attention_kernel", "flash_tc_kernel"), ("flash_attention",)),
+)
+# the scheduler at full width: the reference's steady-state slot count, a
+# closed-loop trace of 256 requests, prompts 8-64 and budgets 16-64 tokens
+SCHED = dict(slots=64, requests=256, prompt_short=(8, 32),
+             prompt_long=(33, 64), output_lens=(16, 64), max_len=128,
+             load_seed=0, compared=32)
 
 
 def log(msg: str) -> None:
@@ -155,6 +184,19 @@ def card_line() -> str:
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip().splitlines()[0]
+
+
+def versions_line() -> str:
+    """The CUDA driver's and the toolkit's versions: a programmatic
+    launch is recorded in a captured graph as a programmatic edge from
+    CUDA 12.3."""
+    from repro_torch.kernels import _build
+    drv = subprocess.run(
+        ["nvidia-smi", "--query-gpu=driver_version", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.split()[0]
+    nvcc = subprocess.run([_build._nvcc(), "--version"], capture_output=True,
+                          text=True, check=True).stdout.strip().splitlines()
+    return f"driver {drv}; nvcc {nvcc[-1]}"
 
 
 def bound(nbytes: int, flops: int, int_ops: int = 0,
@@ -1355,15 +1397,161 @@ def timed_runs(torch, run, runs: int = RUNS) -> list[float]:
     return out
 
 
-def run_path(torch, ops, tag, eng, packed, tokens, expect, runs=RUNS):
-    """One greedy generate with every launch count set to 0 just before it
-    and read just after (held against ``expect``: kernel → count, 0 for
-    the rest), then ``runs`` timed generates. Returns (tokens, state,
-    launch counts of the path's kernels)."""
-    B, P, G = SERVE["batch"], SERVE["prompt"], SERVE["gen"]
-    expect = {k: expect.get(k, 0) for k in ops.LAUNCHES}
+def device_busy(torch, run, host_ops=True):
+    """(device busy seconds, device span seconds) of one ``run`` under
+    torch.profiler: the sum of the card's kernel and copy intervals, and
+    their union (which a programmatic dependent's overlap does not
+    inflate). Also returns the device events. ``host_ops`` False records
+    the card's activity alone, which costs the host far less."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    acts = [ProfilerActivity.CUDA]
+    if host_ops:
+        acts.append(ProfilerActivity.CPU)
+    with profile(activities=acts) as prof:
+        run()
+        torch.cuda.synchronize()
+    ev = [e for e in prof.events()
+          if e.device_type == torch.autograd.DeviceType.CUDA
+          and not e.is_user_annotation]
+    spans = sorted((e.time_range.start, e.time_range.end) for e in ev)
+    busy = sum(t - s for s, t in spans) / 1e6
+    union, end = 0.0, float("-inf")
+    for s, t in spans:
+        if t > end:
+            union += t - max(s, end)
+            end = t
+    return busy, union / 1e6, ev
+
+
+def by_symbol(got, ev) -> tuple[dict, dict]:
+    """(the profiler's kernel records in ``ev``, the launches its wrappers
+    counted in ``got``), both per group of ``KERNEL_SYMBOLS`` that either
+    has."""
+    seen, counted = {}, {}
+    for syms, ks in KERNEL_SYMBOLS:
+        res = [re.compile(rf"(?<![A-Za-z_]){s}(?![a-z_])") for s in syms]
+        n = sum(1 for e in ev if any(r.search(e.name) for r in res))
+        c = sum(got.get(k, 0) for k in ks)
+        if n or c:
+            seen["/".join(ks)], counted["/".join(ks)] = n, c
+    return seen, counted
+
+
+def witnessed(torch, ops, tag, run, host_ops=True, tries=3):
+    """``run`` under the profiler with every launch count set to 0 just
+    before it and read just after: the counts (the captured loops' are
+    their capture's, added again at each replay) held to the kernel
+    records the profiler saw, by symbol. The profiler drops a record now
+    and then (1-2 of 96-11016 in a few of my chip runs), so a run that saw
+    fewer is profiled again, up to ``tries`` runs; one that saw more, or
+    no exact one, fails. Returns (device busy s, span s, the profiler's
+    counts, runs taken, its device events) of the exact run."""
+    runs = []
+    for i in range(tries):
+        counted = {}
+
+        def go():
+            zero_launches(ops)
+            run()
+            torch.cuda.synchronize()
+            counted.update(ops.LAUNCHES)
+
+        busy, span, ev = device_busy(torch, go, host_ops)
+        seen, want = by_symbol(counted, ev)
+        if seen == want:
+            return busy, span, seen, i + 1, ev
+        runs.append(seen)
+        if any(seen[k] > want[k] for k in want):
+            break
+    raise AssertionError(f"{tag}: the wrappers counted {want} launches, "
+                         f"the profiler saw {runs}")
+
+
+def host_loop(eng, packed, tokens, G):
+    """``generate``'s prefill, then the host loop the captured decode
+    graph replaced (``runtime.decode_loop_eager``)."""
+    from repro_torch.serving import SamplingConfig, runtime
+    logits, cache = eng.model.prefill(packed, tokens, eng.max_len)
+    return runtime.decode_loop_eager(eng.model, packed, cache, logits,
+                                     tokens.shape[1], None, G,
+                                     SamplingConfig(), limit=eng.max_len)
+
+
+def versus_host_loop(torch, tag, eng, packed, tokens, out, state, runs=3):
+    """The captured loop's tokens and final state (cache, logits, pos,
+    done, emitted) bitwise the host loop's from the same prompt; wall /
+    step (median of ``runs``) and device busy / step (one profiled run)
+    of both, over prompt + gen steps. Appends the row to GRAPH_ROWS."""
+    from repro_torch.kernels import ops
+    from repro_torch.serving import runtime
+    G = out.shape[1]
+    steps = tokens.shape[1] + G
+    h_out, h_state = host_loop(eng, packed, tokens, G)
+    same = bool(torch.equal(out, h_out)) and all(
+        torch.equal(a, b) for a, b in zip(runtime.leaves(state),
+                                          runtime.leaves(h_state)))
+    if not same:
+        raise AssertionError(f"{tag}: the captured decode loop differs from "
+                             "the host loop")
+    cap = lambda: eng.generate(packed, tokens, G)
+    host = lambda: host_loop(eng, packed, tokens, G)
+    # the decode loops alone, from one prefill (the LSTM's cache is not
+    # written in place, so every run starts from the same state)
+    from repro_torch.serving import SamplingConfig
+    logits, cache = eng.model.prefill(packed, tokens, eng.max_len)
+    args = (eng.model, packed, cache, logits, tokens.shape[1], None, G,
+            SamplingConfig())
+    decode = {"captured": lambda: runtime.decode_loop(
+                  *args, limit=eng.max_len, graphs=eng.graphs),
+              "host": lambda: runtime.decode_loop_eager(*args,
+                                                        limit=eng.max_len)}
+    row = {"path": tag, "batch": tokens.shape[0]}
+    seen, tries = {}, {}
+    for name, run in (("captured", cap), ("host", host)):
+        row[f"{name}_wall"] = statistics.median(
+            timed_runs(torch, run, runs)) / steps
+        row[f"{name}_decode"] = statistics.median(
+            timed_runs(torch, decode[name], runs)) / G
+        busy, span, seen[name], tries[name], _ = witnessed(
+            torch, ops, f"{tag} {name}", run)
+        row[f"{name}_busy"], row[f"{name}_span"] = busy / steps, span / steps
+    log(f"[graph] {tag} B={tokens.shape[0]}: the profiled generates' launch "
+        f"counts equal the profiler's kernels by symbol: captured "
+        f"{seen['captured']}, host loop {seen['host']} (profiled runs "
+        f"taken: {tries})")
+    log(f"[graph] {tag} B={tokens.shape[0]}: tokens and state bitwise the "
+        f"host loop; per step (of {steps}, prefill included): wall captured "
+        f"{row['captured_wall'] * 1e3:.4f} ms / host loop "
+        f"{row['host_wall'] * 1e3:.4f} ms, device busy captured "
+        f"{row['captured_busy'] * 1e3:.4f} ms (span "
+        f"{row['captured_span'] * 1e3:.4f}) / host loop "
+        f"{row['host_busy'] * 1e3:.4f} ms; busy share captured "
+        f"{row['captured_busy'] / row['captured_wall']:.1%} / host loop "
+        f"{row['host_busy'] / row['host_wall']:.1%}; the decode loop "
+        f"alone, wall / step (of {G}): captured "
+        f"{row['captured_decode'] * 1e3:.4f} ms / host loop "
+        f"{row['host_decode'] * 1e3:.4f} ms")
+    GRAPH_ROWS.append(row)
+    return row
+
+
+def zero_launches(ops) -> None:
     for k in ops.LAUNCHES:
         ops.LAUNCHES[k] = 0
+
+
+def run_path(torch, ops, tag, eng, packed, tokens, expect, runs=RUNS):
+    """One warm generate (it captures the decode graph), then one with
+    every launch count set to 0 just before it and read just after (held
+    against ``expect``: kernel → count, 0 for the rest: the prefill's
+    launches and the graph's replayed ones), then ``runs`` timed generates
+    and the host-loop comparison. Returns (tokens, state, launch counts of
+    the path's kernels)."""
+    B, P, G = SERVE["batch"], SERVE["prompt"], SERVE["gen"]
+    expect = {k: expect.get(k, 0) for k in ops.LAUNCHES}
+    eng.generate(packed, tokens, G)
+    zero_launches(ops)
     out, state = eng.generate(packed, tokens, G, return_state=True)
     torch.cuda.synchronize()
     got = dict(ops.LAUNCHES)
@@ -1383,7 +1571,90 @@ def run_path(torch, ops, tag, eng, packed, tokens, expect, runs=RUNS):
             f"{med:.4f}s of {runs} runs ({B * G / med:.1f} tok/s, prefill "
             f"included; range {min(dts):.4f}-{max(dts):.4f}s, "
             f"{B * G / max(dts):.1f}-{B * G / min(dts):.1f} tok/s)")
+    versus_host_loop(torch, tag, eng, packed, tokens, out, state,
+                     runs=3 if runs > 1 else 1)
     return out, state, {k: n for k, n in got.items() if n}
+
+
+def replay_check(torch, ops, eng, packed, tokens):
+    """One replay of the float chained decode graph under the profiler:
+    the launch counts it adds equal the kernels the profiler saw by name
+    (B1 ``rb_dual_staged_kernel``, B2 ``lstm_gates_kernel``), and how many
+    B2 launches started before their B1 ended (the programmatic edge kept
+    in the graph lets B2's blocks start early)."""
+    from repro_torch.serving import SamplingConfig, runtime
+    G = SERVE["gen"]
+    logits, cache = eng.model.prefill(packed, tokens, eng.max_len)
+    torch.cuda.synchronize()
+    _, _, seen, n, ev = witnessed(
+        torch, ops, "one replay", lambda: runtime.decode_loop(
+            eng.model, packed, cache, logits, tokens.shape[1], None, G,
+            SamplingConfig(), limit=eng.max_len, graphs=eng.graphs))
+    order = sorted((e.time_range.start, e.time_range.end, e.name)
+                   for e in ev if "rb_dual_staged_kernel" in e.name
+                   or "lstm_gates_kernel" in e.name)
+    early = sum(1 for a, b in zip(order, order[1:])
+                if "rb_dual" in a[2] and "lstm_gates" in b[2] and b[0] < a[1])
+    log(f"[graph] one replay of the float chained decode graph: launch "
+        f"counts equal the profiler's kernels by name, {seen} (profiled "
+        f"runs taken: {n}); B2 started before its B1 ended in {early} of "
+        f"{seen['lstm_gates']} steps")
+    if seen != {"rb_dual_spmv": G, "lstm_gates": G}:
+        raise AssertionError(f"one replay launched {seen}")
+    graph_pair(torch, eng, packed, tokens)
+    return early
+
+
+def graph_pair(torch, eng, packed, tokens, n=64, reps=10):
+    """The chained float step's pair, B1 then B2, ``n`` times in one CUDA
+    graph, B2 launched as B1's programmatic dependent in one graph and
+    plainly in the other: their replays timed alternately (CUDA events,
+    median of ``reps``), and the two graphs' c and h bitwise equal. The
+    difference a pair says whether the programmatic edge survived the
+    capture (outside a graph it shortens a pair by ~2.5 us, PERF.md §6)."""
+    import importlib
+    from repro_torch.kernels import ops
+    from repro_torch.models.layers import embed_apply
+    kg = importlib.import_module("repro_torch.kernels.lstm_gates")
+    lp = packed["layers"][0]
+    x = embed_apply(packed["embed"], tokens[:, 0]).contiguous()
+    H = eng.model.cfg.hidden
+    h = torch.zeros((tokens.shape[0], H), device=x.device)
+    c = torch.zeros_like(h)
+    out = {}
+
+    def body(pdl):
+        for _ in range(n):
+            z = ops.rb_dual_spmv(lp["w_x"], x, lp["w_h"], h, lp["b"])
+            out[pdl] = kg.lstm_gates(z[:, :H], z[:, H:2 * H],
+                                     z[:, 2 * H:3 * H], z[:, 3 * H:], c,
+                                     pdl=pdl)
+
+    graphs = {}
+    for pdl in (True, False):
+        body(pdl)
+        torch.cuda.synchronize()
+        graphs[pdl] = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graphs[pdl]):
+            body(pdl)
+    times = {True: [], False: []}
+    for _ in range(reps):
+        for pdl in (True, False):
+            s, e = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            torch.cuda._sleep(2_000_000)
+            s.record()
+            graphs[pdl].replay()
+            e.record()
+            torch.cuda.synchronize()
+            times[pdl].append(s.elapsed_time(e) / n)
+    same = all(torch.equal(a, b) for a, b in zip(out[True], out[False]))
+    t = {k: statistics.median(v) for k, v in times.items()}
+    log(f"[graph] {n} pairs B1 -> B2 in one graph: {t[True]:.4f} ms a pair "
+        f"with B2 a programmatic dependent, {t[False]:.4f} ms plain "
+        f"({(t[True] - t[False]) * 1e3:+.2f} us; median of {reps} replays "
+        f"each, alternated); c and h bitwise equal: {same}")
+    if not same:
+        raise AssertionError("the PDL and plain graphs differ")
 
 
 def check_plain(torch, tag, eng, packed, tokens, out):
@@ -1489,9 +1760,11 @@ def serve(torch, device):
     out, _, n = run_path(torch, ops, "float fused", eng, packed, tokens,
                          {"fused_brds_lstm_step": want})
     launches.update(n)
-    out_c, _, n = run_path(torch, ops, "float chained", chained(eng), packed,
+    ceng = chained(eng)
+    out_c, _, n = run_path(torch, ops, "float chained", ceng, packed,
                            tokens, {"rb_dual_spmv": want, "lstm_gates": want})
     launches.update(n)
+    replay_check(torch, ops, ceng, packed, tokens)
     same_tokens(torch, "float fused vs chained", out, out_c)
     float_first = check_plain(torch, "float", eng, packed, tokens, out)
     float_out = out
@@ -1502,9 +1775,9 @@ def serve(torch, device):
     wide = torch.cat([tokens, torch.randint(
         0, cfg.vocab_size, (32 - B, P),
         generator=torch.Generator().manual_seed(5)).to(device)])
-    for k in ops.LAUNCHES:
-        ops.LAUNCHES[k] = 0
-    out32 = eng.generate(packed, wide, G)
+    eng.generate(packed, wide, G)               # captures the B=32 graph
+    zero_launches(ops)
+    out32, st32 = eng.generate(packed, wide, G, return_state=True)
     torch.cuda.synchronize()
     got = {k: n for k, n in ops.LAUNCHES.items() if n}
     log(f"[serve] float fused B=32: launches {got}")
@@ -1513,6 +1786,7 @@ def serve(torch, device):
                              f"{tuple(out32.shape)}")
     same_tokens(torch, "float fused B=32, rows 0-7, vs B=8", out32[:B],
                 float_out, upto=float_first)
+    versus_host_loop(torch, "float fused", eng, packed, wide, out32, st32)
 
     # temporal delta at Θ = 0: fused and chained; then Θ = 0.05
     eng, packed = prepared("delta0", delta=DeltaGateConfig())
@@ -1622,25 +1896,31 @@ def spec_serve(torch, device, first):
                          "fused_brds_delta_lstm_step", 0)}
     launches = {}
     for tag, (draft, step, scans) in drafts.items():
-        for k in ops.LAUNCHES:
-            ops.LAUNCHES[k] = 0
+        # the first call captures the chunk of rounds
+        eng.generate(packed, tokens, G, draft=draft, spec_k=K)
+        zero_launches(ops)
         out, st = eng.generate(packed, tokens, G, draft=draft, spec_k=K,
                                return_state=True)
         torch.cuda.synchronize()
         got = {k: n for k, n in ops.LAUNCHES.items() if n}
         rounds = int(st["rounds"].max())
+        # the captured chunks run eng.spec_rounds rounds each, the rounds
+        # after every row is done changing nothing (one host read a chunk)
+        ran = st["chunks"] * eng.spec_rounds
         dl = draft.model.cfg.num_layers
         # target: prompt steps, then k+1 verify steps a round; draft: its
         # prompt (one scan a layer, or P steps) and k+1 proposal steps
-        want = {"fused_brds_lstm_step": (P + (K + 1) * rounds)
+        want = {"fused_brds_lstm_step": (P + (K + 1) * ran)
                 * cfg.num_layers}
-        want[step] = want.get(step, 0) + (K + 1) * rounds * dl
+        want[step] = want.get(step, 0) + (K + 1) * ran * dl
         if scans:
             want["fused_brds_lstm_scan"] = scans
         else:
             want[step] += P * dl
-        log(f"[spec] {tag} draft: launches {got} (expected {want}: {rounds} "
-            f"rounds of {K + 1} verify and {K + 1} draft steps, prefills)")
+        log(f"[spec] {tag} draft: launches {got} (expected {want}: "
+            f"{st['chunks']} chunks of {eng.spec_rounds} rounds, {rounds} "
+            f"of them active, of {K + 1} verify and {K + 1} draft steps, "
+            "prefills)")
         if got != want:
             raise AssertionError(f"spec {tag}: launched {got}, expected "
                                  f"{want}")
@@ -2010,6 +2290,17 @@ def transformer_serve(torch, device):
                            ).to(device)
     eng = ServeEngine(model, max_len=ML, device=device)
     eng.generate(params, tokens, 2)                 # warm the libraries
+    torch.cuda.synchronize()
+    mem0 = torch.cuda.memory_allocated(), torch.cuda.memory_reserved()
+    eng.generate(params, tokens, G)                 # captures the G graph
+    torch.cuda.synchronize()
+    mem1 = torch.cuda.memory_allocated(), torch.cuda.memory_reserved()
+    log(f"[tserve] capturing the {G}-step decode graph: allocated "
+        f"{(mem1[0] - mem0[0]) / 1e9:+.3f} GB, reserved "
+        f"{(mem1[1] - mem0[1]) / 1e9:+.3f} GB (the {G}-step graph's pool "
+        "and token buffer; the static KV cache is shared with the 2-step "
+        f"graph's); in all {mem1[0] / 1e9:.3f} GB allocated, "
+        f"{mem1[1] / 1e9:.3f} GB reserved")
     want = {"flash_attention": cfg.num_layers,
             "decode_attention": cfg.num_layers * G}
 
@@ -2043,6 +2334,52 @@ def transformer_serve(torch, device):
     pre = timed_runs(torch, lambda: model.prefill(params, tokens, ML))
     log(f"[tserve] prefill alone: median {statistics.median(pre) * 1e3:.2f} "
         f"ms ({B * P / statistics.median(pre):.1f} prompt tok/s)")
+    # the captured loop against the host loop it replaced
+    _, state = eng.generate(params, tokens, G, return_state=True)
+    from repro_torch.serving import runtime
+    h_out, h_state = host_loop(eng, params, tokens, G)
+    if not (torch.equal(out, h_out) and all(
+            torch.equal(a, b) for a, b in zip(runtime.leaves(state),
+                                              runtime.leaves(h_state)))):
+        raise AssertionError("qwen3-0.6b: the captured decode loop differs "
+                             "from the host loop")
+    del state, h_state
+    hts = timed_runs(torch, lambda: host_loop(eng, params, tokens, G), 2)
+    # the peak allocated during one call, from what is allocated before it
+    # (the engine's static KV cache and graph pools included)
+    peak = {}
+    for name, run in (("captured", lambda: eng.generate(params, tokens, G)),
+                      ("host loop", lambda: host_loop(eng, params, tokens,
+                                                      G))):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        before = torch.cuda.memory_allocated()
+        run()
+        torch.cuda.synchronize()
+        peak[name] = (before, torch.cuda.max_memory_allocated())
+    log("[tserve] peak allocated during one generate: " + "; ".join(
+        f"{k} {p / 1e9:.3f} GB ({(p - b) / 1e9:+.3f} GB over the "
+        f"{b / 1e9:.3f} GB allocated before it)" for k, (b, p) in
+        peak.items())
+        + f"; the KV cache is {kv_bytes / 1e9:.3f} GB")
+    busy, span, seen, n, _ = witnessed(torch, ops, "qwen3-0.6b captured",
+                                    lambda: eng.generate(params, tokens, G))
+    log(f"[graph] qwen3-0.6b: the profiled generate's launch counts equal "
+        f"the profiler's kernels by symbol: {seen} (profiled runs taken: "
+        f"{n})")
+    pm = statistics.median(pre)
+    row = {"path": "qwen3-0.6b dense", "batch": B,
+           "captured_wall": (med - pm) / G,
+           "host_wall": (statistics.median(hts) - pm) / G,
+           "captured_busy": busy / G, "captured_span": span / G}
+    GRAPH_ROWS.append(row)
+    log(f"[graph] qwen3-0.6b B={B} prompt={P} gen={G}: tokens and state "
+        f"(KV cache included) bitwise the host loop; wall / decode step "
+        f"(generate minus the prefill, over {G}): captured "
+        f"{row['captured_wall'] * 1e3:.3f} ms / host loop "
+        f"{row['host_wall'] * 1e3:.3f} ms; device busy / step, prefill "
+        f"included, captured {row['captured_busy'] * 1e3:.3f} ms (span "
+        f"{row['captured_span'] * 1e3:.3f})")
 
     # the plain path: teacher-forced logits and greedy tokens
     lg_k = tf_logits(torch, model, params, tokens, out, ML)
@@ -2094,6 +2431,7 @@ def transformer_serve(torch, device):
     log(f"[tserve] --brds prepare {time.perf_counter() - t0:.2f}s: "
         f"sparsity {report['sparsity']:.4f} of {report['prunable_params']} "
         "prunable weights")
+    beng.generate(pruned, tokens, G)                # captures its graph
     bout, bgot = counted("brds greedy", lambda: beng.generate(pruned, tokens,
                                                              G))
     if bgot != want or not bool(((bout >= 0)
@@ -2115,15 +2453,18 @@ def transformer_serve(torch, device):
     dparams, _ = deng.prepare(deng.model.init(
         torch.Generator().manual_seed(7), device))
     draft = DraftModel(deng.model, dparams)
+    eng.generate(params, tokens, G, draft=draft, spec_k=SPEC_K)  # captures
     (sout, st), sgot = counted("spec k=4 lstm_ptb draft", lambda: eng.generate(
         params, tokens, G, draft=draft, spec_k=SPEC_K, return_state=True))
     rounds = int(st["rounds"].max())
-    swant = cfg.num_layers * (SPEC_K + 1) * rounds
+    ran = st["chunks"] * eng.spec_rounds
+    swant = cfg.num_layers * (SPEC_K + 1) * ran
     if sgot.get("decode_attention") != swant or sgot.get(
             "flash_attention") != cfg.num_layers:
         raise AssertionError(f"spec launched {sgot}: expected {swant} B14 "
-                             f"({rounds} rounds of {SPEC_K + 1} verify "
-                             "steps) and one prefill's B15")
+                             f"({st['chunks']} chunks of {eng.spec_rounds} "
+                             f"rounds of {SPEC_K + 1} verify steps) and one "
+                             "prefill's B15")
     same_tokens(torch, "qwen3-0.6b spec (lstm_ptb draft) vs target-only "
                 "greedy", sout, out)
     acc, drafted = int(st["accepted"].sum()), int(st["drafted"].sum())
@@ -2134,6 +2475,186 @@ def transformer_serve(torch, device):
         f"({B * G / dts[0]:.1f} tok/s), {dts[0] / rounds * 1e3:.3f} ms per "
         "round")
     return {k: got[k] for k in ATTN_KERNELS}
+
+
+def scheduler_serve(torch, device):
+    """Phase 8: ``ContinuousBatchingEngine`` at lstm_ptb's full width,
+    packed float fused, 64 slots, over a closed-loop trace from
+    ``traffic.loadgen`` (seed 0, 256 requests, prompts 8-64 tokens, budgets
+    16-64), at dispatch depths 1 and 2 and with a self draft: every
+    request's tokens equal at both depths and with the draft, and the
+    first 32 requests' equal their ``ServeEngine`` B=1 greedy tokens (up
+    to a top-2 margin below MARGIN: the head's GEMM may sum in another
+    order at B=1 than at 64). Prints tok/s, TTFT and TPOT p50 / p99 from
+    ``traffic.summarize`` and the device's busy share of a profiled run.
+    Returns the rows for the record."""
+    from repro_torch.kernels import ops
+    from repro_torch.models import LSTMModel, LSTM_CONFIGS
+    from repro_torch.serving import ServeEngine
+    from repro_torch.serving.scheduler import ContinuousBatchingEngine
+    from repro_torch.sparse import lstm_policy
+    from repro_torch.spec import DraftModel
+    from repro_torch.traffic import LoadConfig, make_prompts, poisson_trace
+    from repro_torch.traffic import serve_trace
+    cfg = LSTM_CONFIGS["lstm_ptb"]
+    S, ML = SCHED["slots"], SCHED["max_len"]
+    eng = ServeEngine(LSTMModel(cfg), max_len=ML, device=device,
+                      sparsity=lstm_policy(0.75, 0.5))
+    packed, _ = eng.prepare(LSTMModel(cfg).init(
+        torch.Generator().manual_seed(0), device))
+    lc = LoadConfig(rate=1000.0, num_requests=SCHED["requests"],
+                    prompt_short=SCHED["prompt_short"],
+                    prompt_long=SCHED["prompt_long"],
+                    output_lens=SCHED["output_lens"],
+                    seed=SCHED["load_seed"])
+    trace = poisson_trace(lc)
+    prompts = make_prompts(trace, cfg.vocab_size, seed=SCHED["load_seed"])
+    warm = 32
+    L, step_k = cfg.num_layers, "fused_brds_lstm_step"
+
+    def run(depth, draft=None):
+        """One scheduler: warmed on the trace's first requests (the chunk
+        captured, the prefill widths warmed), then the whole trace with
+        every launch count set to 0 just before it and held exactly just
+        after: each prefill call's padded width x layers, and each chunk
+        the capture's launches; without a draft, the trace once more under
+        the profiler (the busy share), and one replay of the chunk graph
+        with its launch counts held to the kernels the profiler saw."""
+        sched = ContinuousBatchingEngine(eng.model, packed, slots=S,
+                                         max_len=ML, dispatch_depth=depth,
+                                         draft=draft, spec_k=SPEC_K,
+                                         device=device)
+        tokens, widths = {}, []
+        real_step, real_prefill = sched.step, sched._prefill
+
+        def step():
+            fins = real_step()
+            for f in fins:
+                tokens[f.uid] = f.tokens
+            return fins
+
+        def prefill(model, params, group, padded, lengths_v):
+            widths.append(group[0].prompt_len if padded is None
+                          else padded.shape[1])
+            return real_prefill(model, params, group, padded, lengths_v)
+
+        sched.step, sched._prefill = step, prefill
+        serve_trace(sched, trace[:warm], prompts[:warm], realtime=False)
+        # a chunk: `chunk` decode steps (a draft: `chunk` rounds of k + 1
+        # verify and k + 1 draft steps), one launch a layer each
+        per_chunk = sched.chunk * L * (1 if draft is None
+                                       else 2 * (SPEC_K + 1))
+        if sched._loop.graph.launches != {step_k: per_chunk}:
+            raise AssertionError(f"the scheduler's chunk graph holds "
+                                 f"{sched._loop.graph.launches}, expected "
+                                 f"{ {step_k: per_chunk} }")
+        widths.clear()
+        zero_launches(ops)
+        first, chunks0 = sched._next_uid, sched.steps_dispatched
+        recs, summ = serve_trace(sched, trace, prompts, realtime=False)
+        torch.cuda.synchronize()
+        got = {k: n for k, n in ops.LAUNCHES.items() if n}
+        chunks = sched.steps_dispatched - chunks0
+        want = {step_k: sum(widths) * L + chunks * per_chunk}
+        log(f"[sched] slots={S} depth={depth}"
+            + ("" if draft is None else ", self draft")
+            + f": launches {got}, expected {want}: {len(widths)} prefill "
+            f"calls of {sum(widths)} padded steps in all, x {L} layers, and "
+            f"{chunks} chunks of {per_chunk} (the chunk graph's capture)")
+        if got != want:
+            raise AssertionError(f"scheduler launched {got}, expected "
+                                 f"{want}")
+        toks = [tokens[first + i] for i in range(len(trace))]
+        prof = None
+        if draft is None:
+            zero_launches(ops)
+            t = time.perf_counter()
+            busy, span, ev = device_busy(torch, lambda: serve_trace(
+                sched, trace, prompts, realtime=False), host_ops=False)
+            wall = time.perf_counter() - t
+            n = sum(1 for e in ev if "fused_staged_kernel" in e.name)
+            log(f"[sched] depth={depth}, the trace again under the "
+                f"profiler: {len(ev)} device events, B3 {n} of the "
+                f"{ops.LAUNCHES[step_k]} counted")
+            prof = busy, span, wall
+            # one replay of the scheduler's chunk graph: its launch counts
+            # held to the profiler's kernels (the runs above lack a few
+            # records under the profiler, PERF.md §7)
+            _, _, seen, n, _ = witnessed(
+                torch, ops, f"scheduler depth {depth}, one chunk",
+                sched._loop.run)
+            if seen != {f"{step_k}/fused_brds_delta_lstm_step": per_chunk}:
+                raise AssertionError(f"one chunk launched {seen}")
+            log(f"[sched] depth={depth}, one replay of the chunk graph "
+                f"under the profiler: launch counts equal its kernels by "
+                f"symbol {seen} (profiled runs taken: {n})")
+        return toks, summ, sched, got, prof
+
+    rows = []
+    results = {}
+    for depth in (1, 2):
+        toks, summ, sched, got, (busy, span, wall) = run(depth)
+        results[depth] = toks
+        # the profiler slows the host ~7x: the share is the profiled run's
+        # device time over the unprofiled run's wall (the same trace and
+        # tokens, so the same device work)
+        row = dict(slots=S, depth=depth, draft=None, summary=summ,
+                   busy_share=busy / summ["wall_s"])
+        rows.append(row)
+        log(f"[sched] slots={S} depth={depth}: {summ['completed']} of "
+            f"{summ['requests']} requests, {summ['tokens']} tokens in "
+            f"{summ['wall_s']:.3f}s: {summ['toks_per_s']} tok/s; TTFT p50 "
+            f"{summ['p50_ttft_ms']} / p99 {summ['p99_ttft_ms']} ms; TPOT "
+            f"p50 {summ['p50_tpot_ms']} / p99 {summ['p99_tpot_ms']} ms; "
+            f"launches {got}; the same "
+            f"run profiled on the card alone: device busy {busy:.3f}s (span "
+            f"{span:.3f}s; its wall {wall:.3f}s), {row['busy_share']:.1%} "
+            "of the unprofiled run's wall")
+        if summ["completed"] != len(trace):
+            raise AssertionError(f"scheduler completed {summ['completed']}")
+    for a, b in zip(results[1], results[2]):
+        if not np.array_equal(a, b):
+            raise AssertionError("dispatch depth 1 and 2 decode differently")
+    log(f"[sched] depths 1 and 2: all {len(trace)} requests' tokens equal")
+    # the first requests against B=1 lockstep greedy
+    checked = 0
+    for i in range(SCHED["compared"]):
+        p = torch.from_numpy(prompts[i]).to(device)
+        n = len(results[2][i])
+        want = eng.generate(packed, p, SCHED["output_lens"][1])[0, :n]
+        got = torch.from_numpy(results[2][i]).to(device)
+        if not torch.equal(got, want.to(got.dtype)):
+            seq = torch.cat([p, want[None].long()], 1)
+            lg = teacher_forced(torch, eng.model, packed, seq)[0,
+                                                              p.shape[1] - 1:]
+            top2 = lg.topk(2, dim=-1).values
+            bad = int((got != want).nonzero()[0])
+            margin = float(top2[bad, 0] - top2[bad, 1])
+            log(f"[sched] request {i}: differs from B=1 at token {bad}, "
+                f"top-2 margin {margin:.3e}")
+            if margin >= MARGIN:
+                raise AssertionError(f"request {i}: scheduler tokens differ "
+                                     "from B=1 greedy above the margin")
+        checked += 1
+    log(f"[sched] the first {checked} requests: tokens equal their B=1 "
+        "ServeEngine greedy tokens")
+    # a self draft: the same tokens
+    draft = DraftModel(eng.model, packed)
+    toks, summ, sched, got, _ = run(2, draft=draft)
+    for a, b in zip(results[2], toks):
+        if not np.array_equal(a, b):
+            raise AssertionError("the self draft changed a token")
+    st = sched.spec_stats()
+    rows.append(dict(slots=S, depth=2, draft="self", summary=summ,
+                     busy_share=None))
+    log(f"[sched] self draft, spec_k={SPEC_K}, depth 2: all {len(trace)} "
+        f"requests' tokens equal the draft-free run's; {summ['tokens']} "
+        f"tokens in {summ['wall_s']:.3f}s: {summ['toks_per_s']} tok/s; "
+        f"TTFT p50 {summ['p50_ttft_ms']} / p99 {summ['p99_ttft_ms']} ms; "
+        f"TPOT p50 {summ['p50_tpot_ms']} / p99 {summ['p99_tpot_ms']} ms; "
+        f"acceptance {st['acceptance_rate']:.4f} ({st['accepted']}/"
+        f"{st['drafted']}), {st['rounds']} rounds; launches {got}")
+    return rows
 
 
 def main() -> int:
@@ -2147,7 +2668,7 @@ def main() -> int:
     card = card_line()
     log(f"card: {card}")
     log(f"torch {torch.__version__} cuda {torch.version.cuda} "
-        f"python {sys.version.split()[0]}")
+        f"python {sys.version.split()[0]}; {versions_line()}")
     t0 = time.perf_counter()
     _build.build_all()
     log(f"built {len(_build.SIGNATURES)} CUDA sources in "
@@ -2162,12 +2683,29 @@ def main() -> int:
     occupancy(torch, device)
 
     flush = torch.empty(256 << 20, dtype=torch.uint8, device=device)
+    t0 = time.perf_counter()
+
+    def phase(name):
+        nonlocal t0
+        log(f"[phase] {name}: {time.perf_counter() - t0:.1f}s")
+        t0 = time.perf_counter()
+
     rec = check_kernels(torch, device, flush)
+    phase("2 kernels")
     rec.update(check_attention(torch, device, flush))
+    phase("6 attention kernels")
+    del flush
     launches, first = serve(torch, device)
+    phase("3 serve, captured and host loops")
     launches.update(spec_serve(torch, device, first))
+    phase("4 speculative serve")
     launches.update(format_api(torch, device))
+    phase("5 format API")
     launches.update(transformer_serve(torch, device))
+    phase("7 transformer serve")
+    scheduler_serve(torch, device)
+    phase("8 scheduler")
+    log("[graph] rows: " + json.dumps(GRAPH_ROWS))
 
     src = {"rb_dual_spmv": ("rb_spmv.cu", "src/repro/kernels/rb_spmv.py:86"),
            "lstm_gates": ("lstm_gates.cu",

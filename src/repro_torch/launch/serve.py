@@ -15,6 +15,10 @@ of the model zoo, dense or BRDS-pruned:
   python -m repro_torch.launch.serve --arch qwen3-0.6b --smoke --device cpu
   python -m repro_torch.launch.serve --arch qwen3-0.6b --draft lstm_ptb \\
       --draft-brds --spec-k 4
+  python -m repro_torch.launch.serve --arch lstm_ptb --brds --continuous \\
+      --slots 4
+  python -m repro_torch.launch.serve --arch lstm_ptb --brds --traffic \\
+      --rate 16 --requests 64 --slots 8 --deadline 2.0
 
 Runs on the card unless ``--device cpu`` is given, at the configuration's
 full width unless ``--smoke`` narrows it (an LSTM to widths of 128, a
@@ -31,6 +35,13 @@ occupancy.
 ``--draft ARCH`` decodes by speculative rounds with an LSTM draft of that
 configuration (``--draft-brds`` / ``--draft-delta`` / ``--draft-quant``
 serve it packed, temporal-delta or quantized) and prints its acceptance.
+``--continuous`` serves ``--batch`` ragged requests through the
+continuous-batching scheduler (``--slots``, ``--dispatch-depth``);
+``--traffic`` drives the scheduler with a seeded Poisson trace
+(``--rate``, ``--requests``, ``--deadline``, ``--load-seed``) and prints
+the latency figures (TTFT / TPOT percentiles, goodput, drops). ``--trace
+FILE`` writes a Chrome trace of the engine and scheduler spans;
+``--profile`` prints the device's busy share of any of these runs.
 """
 from __future__ import annotations
 
@@ -186,12 +197,10 @@ def _profile(run, device: torch.device) -> None:
           f"{_device_span(prof.events()) * 1e3:.3f} ms")
 
 
-def main(argv=None):
+def parser() -> argparse.ArgumentParser:
+    """The CLI's argument parser."""
     from repro_torch.configs import ARCH_NAMES
-    from repro_torch.device import resolve_device
     from repro_torch.models import LSTM_CONFIGS
-    from repro_torch.serving import ServeEngine, SamplingConfig
-    from repro_torch.sparse import occupancy_report, set_default_backend
 
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="lstm_ptb", choices=sorted(
@@ -260,9 +269,49 @@ def main(argv=None):
     ap.add_argument("--top-k", type=int, default=0)
     ap.add_argument("--top-p", type=float, default=0.0)
     ap.add_argument("--eos-id", type=int, default=-1)
+    ap.add_argument("--continuous", action="store_true",
+                    help="serve a ragged request stream through the "
+                         "continuous-batching scheduler instead of one "
+                         "lockstep batch")
+    ap.add_argument("--slots", type=int, default=4)
+    ap.add_argument("--traffic", action="store_true",
+                    help="drive the scheduler with a seeded Poisson arrival "
+                         "trace (repro_torch.traffic.loadgen) and report "
+                         "the latency curve: TTFT/TPOT percentiles, "
+                         "goodput, drops. Composes with --brds/--delta/"
+                         "--quant; uses --slots and --dispatch-depth")
+    ap.add_argument("--rate", type=float, default=8.0,
+                    help="--traffic: offered load, requests/second")
+    ap.add_argument("--requests", type=int, default=64,
+                    help="--traffic: total requests in the trace")
+    ap.add_argument("--deadline", type=float, default=None, metavar="SEC",
+                    help="--traffic: per-request TTLT deadline; queued "
+                         "requests expire and in-slot requests are evicted "
+                         "past it (overload shedding)")
+    ap.add_argument("--dispatch-depth", type=int, default=2,
+                    help="decode chunks kept in flight ahead of the host "
+                         "(1 = synchronous harvest-before-dispatch)")
+    ap.add_argument("--load-seed", type=int, default=0,
+                    help="--traffic: arrival-trace RNG seed (the schedule "
+                         "is fully deterministic given the seed)")
+    ap.add_argument("--trace", default=None, metavar="FILE",
+                    help="record a Chrome-trace (Perfetto-loadable JSON) of "
+                         "engine/scheduler spans to FILE "
+                         "(repro_torch.obs.trace)")
     ap.add_argument("--profile", action="store_true",
-                    help="generate once more under torch.profiler and print "
+                    help="run once more under torch.profiler (the generate, "
+                         "or the --continuous / --traffic run) and print "
                          "the device time by kernel and the busy share")
+    return ap
+
+
+def main(argv=None):
+    from repro_torch.device import resolve_device
+    from repro_torch.models import LSTM_CONFIGS
+    from repro_torch.serving import ServeEngine, SamplingConfig
+    from repro_torch.sparse import set_default_backend
+
+    ap = parser()
     args = ap.parse_args(argv)
     if args.delta is None and (args.delta_h is not None
                                or args.occupancy is not None):
@@ -278,6 +327,9 @@ def main(argv=None):
 
     device = resolve_device(args.device)
     set_default_backend(args.backend)
+    if args.trace:
+        from repro_torch.obs import trace as obs_trace
+        obs_trace.enable()
     if args.arch in LSTM_CONFIGS:
         model, params, sparsity = _lstm_target(args, device)
     else:
@@ -310,13 +362,27 @@ def main(argv=None):
         draft = _build_draft(args, vocab, args.prompt_len + args.gen, device)
         print(f"draft={args.draft} spec_k={args.spec_k}")
 
+    if args.continuous or args.traffic:
+        _serve_scheduled(args, eng.model, params, sampling, draft, device)
+    else:
+        _serve_lockstep(args, eng, params, tokens, sampling, draft, device)
+    if args.trace:
+        obs_trace.save(args.trace)
+        print(f"trace: {len(obs_trace.get_tracer().events)} spans to "
+              f"{args.trace}")
+
+
+def _serve_lockstep(args, eng, params, tokens, sampling, draft, device):
+    """One lockstep batch: ``RUNS`` timed generates after a warm-up."""
+    from repro_torch.sparse import occupancy_report
+
     def run():
         return eng.generate(
             params, tokens, args.gen, sampling=sampling,
             rng=torch.Generator(device).manual_seed(args.seed + 2),
             return_state=True, draft=draft, spec_k=args.spec_k)
 
-    run()   # builds the kernels at their first launch, warms the libraries
+    run()   # builds the kernels, captures the decode graph, warms libraries
     dts = []
     for _ in range(RUNS):
         _sync(device)
@@ -347,6 +413,91 @@ def main(argv=None):
             line += f", effective-ops reduction {occ['ops_reduction']:.2f}x"
         print(line)
     print("sample ids:", out[0, :16].tolist())
+    if args.profile:
+        _profile(run, device)
+
+
+def _scheduler(args, model, params, sampling, draft, device):
+    from repro_torch.serving.scheduler import ContinuousBatchingEngine
+    return ContinuousBatchingEngine(
+        model, params, slots=args.slots,
+        max_len=args.prompt_len + args.gen, sampling=sampling,
+        dispatch_depth=args.dispatch_depth, draft=draft,
+        spec_k=args.spec_k, device=device)
+
+
+def _serve_scheduled(args, model, params, sampling, draft, device):
+    """``--continuous``: ``--batch`` ragged requests through the
+    scheduler; ``--traffic``: a seeded Poisson trace through it. One
+    scheduler serves a warm-up first (it captures the chunk and warms the
+    prefill widths: the whole batch, or the trace's first ``--slots``
+    requests), then the measured run (and, under ``--profile``, the
+    profiled one)."""
+    import numpy as np
+    vocab = model.cfg.vocab_size
+    sched = _scheduler(args, model, params, sampling, draft, device)
+    if args.traffic:
+        from repro_torch.traffic import (LoadConfig, make_prompts,
+                                         poisson_trace, serve_trace)
+        short_hi = max(5, args.prompt_len // 4)
+        long_hi = max(short_hi + 1, args.prompt_len)
+        lc = LoadConfig(rate=args.rate, num_requests=args.requests,
+                        prompt_short=(4, short_hi),
+                        prompt_long=(short_hi, long_hi),
+                        output_lens=(4, args.gen), deadline=args.deadline,
+                        seed=args.load_seed)
+        trace = poisson_trace(lc)
+        prompts = make_prompts(trace, vocab, seed=args.load_seed)
+        print(f"traffic: {args.requests} requests at {args.rate:.1f} req/s, "
+              f"slots={args.slots} depth={args.dispatch_depth}"
+              + (f" deadline={args.deadline}s" if args.deadline else ""))
+        warm = min(len(trace), args.slots)
+        serve_trace(sched, trace[:warm], prompts[:warm], realtime=False)
+
+        def run():
+            return serve_trace(sched, trace, prompts,
+                               offered_rps=args.rate)[1]
+    else:
+        g = np.random.default_rng(args.seed + 1)
+        lens = [max(4, args.prompt_len - 3 * i) for i in range(args.batch)]
+        prompts = [g.integers(0, vocab, (1, n)) for n in lens]
+
+        def run():
+            for p in prompts:
+                sched.submit(p, args.gen)
+            t0 = time.perf_counter()
+            results = sched.run()
+            _sync(device)
+            return results, time.perf_counter() - t0
+
+        run()
+    first = sched.steps_dispatched
+    out = run()
+    chunks = sched.steps_dispatched - first
+    if args.traffic:
+        s = out
+        print(f"completed={s['completed']} expired={s['expired']} "
+              f"rejected={s['rejected']} ({s['tokens']} tokens, "
+              f"{s['wall_s']:.2f}s wall, {chunks} chunk dispatches)")
+        ms = lambda v: "n/a" if v is None else f"{v:.2f}"
+        print(f"TTFT ms: p50={ms(s['p50_ttft_ms'])} "
+              f"p90={ms(s['p90_ttft_ms'])} p99={ms(s['p99_ttft_ms'])}")
+        print(f"TPOT ms: p50={ms(s['p50_tpot_ms'])} "
+              f"p99={ms(s['p99_tpot_ms'])}")
+        print(f"goodput: {s['goodput_tps']:.1f} tok/s "
+              f"(total {s['toks_per_s']:.1f} tok/s)")
+    else:
+        results, dt = out
+        total = sum(len(v) for v in results.values())
+        print(f"served {len(results)} ragged requests ({total} tokens) in "
+              f"{dt:.2f}s ({total / dt:.1f} tok/s, {chunks} chunk "
+              "dispatches)")
+        print("sample ids:", results[min(results)][:16].tolist())
+    if draft is not None:
+        st = sched.spec_stats()
+        print(f"spec: acceptance={st['acceptance_rate']:.1%} "
+              f"({st['accepted']}/{st['drafted']} drafted over "
+              f"{st['rounds']} rounds)")
     if args.profile:
         _profile(run, device)
 

@@ -145,8 +145,12 @@ class TransformerLM:
         return L.init_params(self.cache_defs(batch, max_len), None,
                              torch.device(device))
 
-    def prefill(self, params, tokens, max_len: int, extra=None):
+    def prefill(self, params, tokens, max_len: int, extra=None, cache=None):
         """Process a full prompt and build the cache (keys written at 0).
+        ``cache``: a cache of ``cache_defs(B, max_len)``'s shapes to build
+        in, in place (zeroed first, so it ends as a new one would), rather
+        than a new one: the engine's static decode cache, so no second
+        copy of the KV cache is made.
         Returns (logits at the last position (B, 1, Vp), cache)."""
         if extra is not None:
             raise _unported("prefill's extra (VLM patch embeddings)")
@@ -154,7 +158,12 @@ class TransformerLM:
         if S > max_len:
             raise ValueError(f"prompt of {S} tokens exceeds max_len "
                              f"{max_len}")
-        cache = self.init_cache(B, max_len, tokens.device)
+        if cache is None:
+            cache = self.init_cache(B, max_len, tokens.device)
+        else:
+            for layer in cache["layers"]:
+                for leaf in layer.values():
+                    leaf.zero_()
         positions = torch.arange(S, device=tokens.device)[None]
         x = self._run(params, tokens, positions, cache)
         logits = L.logits_apply(params["head"], x[:, -1:],

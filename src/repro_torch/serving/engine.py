@@ -1,5 +1,11 @@
 """Serving engine: prefill + on-device lockstep batched decode.
 
+``generate`` prefills eagerly and decodes through ``runtime.decode_loop``:
+on the card one CUDA graph of every decode step, captured at the first
+call of a shape and replayed after it (``spec.spec_decode_loop``'s chunks
+of rounds with a draft). The ``engine.*`` spans (``obs.trace``) chart
+prepare, prefill and the decode call's host time.
+
 ``sparsity=`` is the BRDS seam: ``prepare(params)`` prunes to the policy's
 patterns and, for models that decode through packed kernels
 (``supports_packed_decode``, the LSTM's dual-ratio datapath), packs the
@@ -15,14 +21,17 @@ import torch
 from . import runtime
 from .sampling import SamplingConfig, sample_dist
 from ..device import resolve_device
+from ..obs import trace as obs_trace
 
 
 class ServeEngine:
     def __init__(self, model, *, max_len: int = 2048, sparsity=None,
-                 device=None):
+                 device=None, spec_rounds: int | None = None):
         """``sparsity``: a SparsityPolicy (or compiled SparsityPlan) applied
         by ``prepare``. ``device`` defaults to ``cuda`` and raises without
-        a card unless ``device="cpu"`` is given."""
+        a card unless ``device="cpu"`` is given. ``spec_rounds``: the
+        speculative rounds one captured chunk holds, one host read each
+        (``spec.ROUNDS_PER_CHUNK``, 4, when None)."""
         if not runtime.conforms(model):
             raise TypeError(
                 f"{type(model).__name__} does not implement the serving "
@@ -31,7 +40,13 @@ class ServeEngine:
         self.max_len = max_len
         self.sparsity = sparsity
         self.device = resolve_device(device)
+        if spec_rounds is None:
+            from ..spec import ROUNDS_PER_CHUNK as spec_rounds
+        self.spec_rounds = spec_rounds
+        # the captured decode and spec graphs of this engine's calls
+        self.graphs = runtime.GraphCache()
 
+    @obs_trace.traced("engine.prepare")
     def prepare(self, params, calib=None):
         """Prune params to the engine's policy and, when the model decodes
         through packed kernels (``supports_packed_decode``), pack the
@@ -122,21 +137,30 @@ class ServeEngine:
                     "`length` prefill parameter")
             lengths = torch.as_tensor(lengths, dtype=torch.int32,
                                       device=self.device)
-            logits, cache = self.model.prefill(params, tokens,
-                                               max_len=self.max_len,
-                                               length=lengths)
             pos = lengths
         else:
-            logits, cache = self.model.prefill(params, tokens,
-                                               max_len=self.max_len)
             pos = tokens.shape[1]
+        kw = {} if lengths is None else {"length": lengths}
+        if runtime.prefill_accepts_cache(self.model):
+            # built in the decode graphs' static cache: no second copy
+            kw["cache"] = self.graphs.static_cache(
+                self.model, tokens.shape[0], self.max_len, self.device)
+        with obs_trace.span("engine.prefill", batch=tokens.shape[0],
+                            width=tokens.shape[1],
+                            ragged=lengths is not None):
+            logits, cache = self.model.prefill(params, tokens,
+                                               max_len=self.max_len, **kw)
         if draft is not None:
             return self._speculate(params, tokens, steps, logits, cache,
                                    rng, sampling, lengths, draft, spec_k,
                                    return_state)
-        toks, state = runtime.decode_loop(self.model, params, cache, logits,
-                                          pos, rng, steps, sampling,
-                                          limit=self.max_len)
+        # the span covers the capture (first call) or the replay's enqueue
+        with obs_trace.span("engine.decode_loop", steps=steps):
+            toks, state = runtime.decode_loop(self.model, params, cache,
+                                              logits, pos, rng, steps,
+                                              sampling, limit=self.max_len,
+                                              graphs=self.graphs,
+                                              clone_state=return_state)
         return (toks, state) if return_state else toks
 
     def _speculate(self, params, tokens, steps, logits, cache, rng,
@@ -158,7 +182,10 @@ class ServeEngine:
                                       max_len=self.max_len)
             pos = tokens.shape[1]
         probs = sample_dist(logits[:, -1], sampling)
-        toks, state = spec_decode_loop(
-            self.model, draft, params, draft.params, cache, dstate, probs,
-            pos, rng, steps, spec_k, sampling, limit=self.max_len)
+        with obs_trace.span("engine.spec_loop", steps=steps, k=spec_k):
+            toks, state = spec_decode_loop(
+                self.model, draft, params, draft.params, cache, dstate,
+                probs, pos, rng, steps, spec_k, sampling,
+                limit=self.max_len, rounds_per_chunk=self.spec_rounds,
+                graphs=self.graphs, clone_state=return_state)
         return (toks, state) if return_state else toks

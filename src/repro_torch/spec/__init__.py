@@ -9,7 +9,8 @@ position rewind).
 - draft   — DraftModel adapter: proposal chain and state checkpoints
 - verify  — k-token target verify and cache rollback
 - accept  — greedy exact-match and rejection-sampling acceptance rules
-- loop    — the speculate → verify → accept round loop
+- loop    — the speculate → verify → accept round, and chunks of rounds
+            captured as one CUDA graph
 
 Greedy speculative decode is lossless: token for token the target-only
 greedy decode.
@@ -17,9 +18,10 @@ greedy decode.
 from .accept import (accept_length, greedy_accept, rejection_accept,
                      residual_dist)
 from .draft import DraftModel
-from .loop import spec_decode_loop
+from .loop import ROUNDS_PER_CHUNK, spec_decode_loop, spec_round
 from .verify import cache_leaf_flags, rollback, state_leaves, verify_chain
 
-__all__ = ["DraftModel", "spec_decode_loop", "verify_chain", "rollback",
+__all__ = ["DraftModel", "spec_decode_loop", "spec_round",
+           "ROUNDS_PER_CHUNK", "verify_chain", "rollback",
            "state_leaves", "cache_leaf_flags", "greedy_accept",
            "rejection_accept", "residual_dist", "accept_length"]

@@ -24,31 +24,9 @@ from __future__ import annotations
 
 import torch
 
+from ..serving.runtime import leaves, unflatten
+
 __all__ = ["cache_leaf_flags", "state_leaves", "verify_chain", "rollback"]
-
-
-def leaves(tree) -> list:
-    """The leaves of a tree of dicts and lists, dict keys sorted."""
-    if isinstance(tree, dict):
-        return [x for k in sorted(tree) for x in leaves(tree[k])]
-    if isinstance(tree, (list, tuple)):
-        return [x for v in tree for x in leaves(v)]
-    return [tree]
-
-
-def unflatten(template, flat: list):
-    """``template``'s structure with its leaves replaced, in ``leaves``
-    order, by ``flat``."""
-    it = iter(flat)
-
-    def build(t):
-        if isinstance(t, dict):
-            out = {k: build(t[k]) for k in sorted(t)}
-            return {k: out[k] for k in t}
-        if isinstance(t, (list, tuple)):
-            return type(t)(build(v) for v in t)
-        return next(it)
-    return build(template)
 
 
 def cache_leaf_flags(model):
