@@ -94,6 +94,19 @@
    greedy tokens held against the plain path; the ``--brds`` path
    (``transformer_policy(0.75, 0.5)``); and a packed ``lstm_ptb`` draft
    speculating k=4, its tokens equal to target-only.
+8. Scheduler: ``ContinuousBatchingEngine`` at lstm_ptb's full width, 64
+   slots, over a closed-loop trace of 256 requests (``scheduler_serve``).
+9. Training (``training``): full-width lstm_ptb on ZipfInduction(10000),
+   B=16, T=35: one dense step on the card against the CPU's, 20 dense
+   and 20 masked AdamW steps (pruned entries exactly 0 throughout, no
+   kernel launched), the four deployments of the retrained model through
+   ``pipeline.run_point`` (each ``score`` launching T × layers of B3, B5,
+   B8 or B9, served nll bitwise the manual one, near the plain
+   versions'), ``launch.pipeline --smoke --gate 5``, and ``launch.train``
+   on qwen3-0.6b at full width in bf16 with a checkpoint every 2 steps
+   and a failure injected at 3 (resumed, no kernel launched: its
+   training forward never reaches B15), its gradients and a profiled
+   step.
 
 Prints a ``{"kernels": [...]}`` line and, last, the device line. Exits
 non-zero on any failure, and without a card.
@@ -173,6 +186,28 @@ KERNEL_SYMBOLS = (
 SCHED = dict(slots=64, requests=256, prompt_short=(8, 32),
              prompt_long=(33, 64), output_lens=(16, 64), max_len=128,
              load_seed=0, compared=32)
+
+# phase 9, training: lstm_ptb at full width on ZipfInduction(V=10000),
+# B=16, T=35 (the PTB-large BPTT length), 20 AdamW steps dense then 20
+# masked at lstm_policy(0.75, 0.5)
+TRAIN = dict(batch=16, seq=35, steps=20, lr=1e-3, retrain_lr=5e-4)
+# one dense step on the card vs the CPU from the same weights and batch:
+# float32 sums in another order through 35 recurrent steps and the head
+STEP_LOSS_RTOL = 1e-5
+# each leaf's max |Δg| over its max |g| (H100 80GB HBM3, 700 W: 9.49e-7)
+STEP_GRAD_RTOL = 1e-5
+# params after it: AdamW's update is lr·m̂/(√v̂ + 1e-8), and where |g| is
+# near eps a last-bit difference moves it by a part of lr (on an H100 80GB
+# HBM3: 2.02e-5 = 0.02 lr, on 1.2e-5 of the entries beyond 1e-6)
+STEP_PARAM_ATOL = TRAIN["lr"] / 10
+STEP_PARAM_SHARE = 1e-3     # of entries allowed beyond 1e-6
+# the four deployments' nll, kernels vs plain versions: the head over
+# logits within LOGIT_TOL (Θ=0.05 may flip a threshold decision)
+NLL_RTOL = 1e-4
+# qwen3-0.6b through launch.train at full width, bf16
+TTRAIN = ["--arch", "qwen3-0.6b", "--brds", "--batch", "4", "--seq", "256",
+          "--steps", "6", "--save-every", "2", "--inject-failure-at", "3"]
+ATTN_LEAVES = ("wq", "wk", "wv", "wo", "q_norm", "k_norm")
 
 
 def log(msg: str) -> None:
@@ -2657,6 +2692,349 @@ def scheduler_serve(torch, device):
     return rows
 
 
+def lstm_steps(torch, step_fn, params, opt, loader, device, steps,
+               masks=None):
+    """``steps`` train steps; returns (params, opt state, losses, ms per
+    step). With ``masks``, after every step each pruned entry of the
+    params and of the optimizer's moments (the masked gradients' sums: a
+    nonzero gradient would make them nonzero) must be exactly 0."""
+    losses, ms = [], []
+    for step in range(steps):
+        raw = loader.batch(step)
+        batch = {"inputs": torch.as_tensor(raw["tokens"], device=device),
+                 "labels": torch.as_tensor(raw["labels"], device=device)}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, opt, met = step_fn(params, opt, batch, step)
+        losses.append(float(met["loss"]))
+        ms.append((time.perf_counter() - t0) * 1e3)
+        for path, m in (masks or {}).items():
+            _, i, key = path.split("/")
+            for name, tree in (("param", params), ("m", opt["m"]),
+                               ("v", opt["v"])):
+                w = tree["layers"][int(i)][key]
+                if bool(w[~m].any()):
+                    raise AssertionError(f"step {step}: a pruned entry of "
+                                         f"{path} ({name}) is not 0")
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"a loss is not finite: {losses}")
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"the loss did not fall: {losses}")
+    return params, opt, losses, ms
+
+
+def top_kernels(ev, n: int = 6) -> str:
+    """The ``n`` device ops of a profiled run that took the most time,
+    with their share of its busy time and their count."""
+    tot, cnt = {}, {}
+    for e in ev:
+        d = e.time_range.end - e.time_range.start
+        tot[e.name] = tot.get(e.name, 0) + d
+        cnt[e.name] = cnt.get(e.name, 0) + 1
+    busy = sum(tot.values()) or 1
+    top = sorted(tot, key=tot.get, reverse=True)[:n]
+    return "; ".join(f"{k[:60]} {tot[k] / busy:.1%} x{cnt[k]}" for k in top)
+
+
+def grads_of(torch, loss_fn, params, batch):
+    """{path: gradient or None} of every leaf, through autograd with
+    unused leaves allowed (so a leaf the loss does not reach shows)."""
+    from repro_torch.training.tree import leaves_with_keys, unflatten
+    keyed = leaves_with_keys(params)
+    flat = [t.detach().requires_grad_(True) for _, t in keyed]
+    loss = loss_fn(unflatten(params, flat), batch)
+    grads = torch.autograd.grad(loss, flat, allow_unused=True)
+    return loss.detach(), {k: g for (k, _), g in zip(keyed, grads)}
+
+
+def training(torch, device):
+    """Phase 9: training and the accuracy loop on the card.
+
+    (a) lstm_ptb at full width (seed-0 weights) on ZipfInduction(10000),
+        B=16, T=35: one dense step on the card against the same step on
+        the CPU (loss, every gradient leaf, params); every leaf gets a
+        gradient; 20 AdamW steps dense, then ``lstm_policy(0.75, 0.5)``
+        and 20 masked steps, the loss lower at the end of each phase than
+        at its start and every pruned entry (and its moments) exactly 0
+        after every masked step; no kernel of the fifteen launched; ms a
+        step and the busy share of one profiled step.
+    (b) The four deployments of the retrained model (fp32 / int8 × Θ 0 /
+        0.05) through ``pipeline.run_point``: served nll bitwise the
+        manual one, each within NLL_RTOL of the same deployment on the
+        plain versions, and each ``score`` launching exactly T × layers of
+        its fused step kernel (B3, B5, B8, B9) and nothing else; tok/s.
+    (c) ``launch.pipeline --smoke --gate 5``: the gate holds at (0.75,
+        0.5), parity bitwise at all 8 points, the BENCH schema.
+    (d) ``launch.train --arch qwen3-0.6b`` at full width (bf16) with
+        ``--brds``, batch 4, seq 256, 6 steps, a checkpoint every 2 and a
+        failure injected at 3: it resumes from step 2, every loss finite,
+        none of the fifteen kernels launched (its training forward never
+        reaches B15); then every attention weight's gradient is there and
+        finite, and ms a step, the busy share and the peak memory."""
+    import importlib.util
+    import shutil
+    import types
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import ops
+    from repro_torch.launch import pipeline as pl
+    from repro_torch.launch import train as launch_train
+    from repro_torch.models import LSTMModel, LSTM_CONFIGS, build_model
+    from repro_torch.sparse import (get_default_backend, lstm_policy,
+                                    transformer_policy, use_backend)
+    from repro_torch.training import (OptConfig, ShardedLoader,
+                                      ZipfInduction, init_state,
+                                      make_train_step)
+    from repro_torch.training.tree import leaves
+    rows = {}
+    cfg = LSTM_CONFIGS["lstm_ptb"]
+    B, T, N = TRAIN["batch"], TRAIN["seq"], TRAIN["steps"]
+    model = LSTMModel(cfg)
+    cpu_params = model.init(torch.Generator().manual_seed(0), "cpu")
+    params = model.init(torch.Generator().manual_seed(0), device)
+    corpus = ZipfInduction(vocab_size=cfg.vocab_size)
+    loader = ShardedLoader(corpus, B, T)
+    arch = types.SimpleNamespace(grad_accum=1)
+    oc = OptConfig(lr=TRAIN["lr"], warmup_steps=1, total_steps=N)
+
+    # (a) one dense step, card vs CPU, and every leaf's gradient
+    raw = loader.batch(3)
+    batch = {k: torch.as_tensor(raw[s]) for k, s in
+             (("inputs", "tokens"), ("labels", "labels"))}
+    gbatch = {k: v.to(device) for k, v in batch.items()}
+    loss_c, g_c = grads_of(torch, model.loss, cpu_params, batch)
+    loss_g, g_g = grads_of(torch, model.loss, params, gbatch)
+    missing = [k for k, g in g_g.items() if g is None]
+    if missing:
+        raise AssertionError(f"leaves without a gradient: {missing}")
+    gerr = max(float((g_g[k].cpu() - g_c[k]).abs().max())
+               / max(float(g_c[k].abs().max()), 1e-30) for k in g_c)
+    lerr = abs(float(loss_g) - float(loss_c)) / abs(float(loss_c))
+    step_fn = make_train_step(model, arch, oc)
+    p_c, _, m_c = step_fn(cpu_params, init_state(oc, cpu_params), batch, 3)
+    p_g, _, m_g = step_fn(params, init_state(oc, params), gbatch, 3)
+    diffs = [(a.cpu() - b).abs() for a, b in zip(leaves(p_g), leaves(p_c))]
+    perr = max(float(d.max()) for d in diffs)
+    beyond = sum(int((d > 1e-6).sum()) for d in diffs) / sum(
+        d.numel() for d in diffs)
+    log(f"[train] lstm_ptb one dense step, card vs CPU (B={B}, T={T}): loss "
+        f"{float(loss_g):.6f} vs {float(loss_c):.6f} (rel {lerr:.2e}, gate "
+        f"{STEP_LOSS_RTOL}); gradients: every one of {len(g_g)} leaves "
+        f"present, max |Δg| / max |g| {gerr:.2e} (gate {STEP_GRAD_RTOL}); "
+        f"grad norm {float(m_g['grad_norm']):.6f} vs "
+        f"{float(m_c['grad_norm']):.6f}; params after the step max |Δ| "
+        f"{perr:.2e} (gate {STEP_PARAM_ATOL:.0e}), {beyond:.2e} of entries "
+        f"beyond 1e-6 (gate {STEP_PARAM_SHARE:.0e})")
+    if lerr > STEP_LOSS_RTOL or gerr > STEP_GRAD_RTOL \
+            or perr > STEP_PARAM_ATOL or beyond > STEP_PARAM_SHARE:
+        raise AssertionError("the card's dense step differs from the CPU's")
+    del cpu_params, p_c, p_g, g_c, g_g
+
+    # (a) 20 dense steps, then 20 masked at (0.75, 0.5)
+    zero_launches(ops)
+    params, opt, dense_losses, ms = lstm_steps(
+        torch, step_fn, params, init_state(oc, params), loader, device,
+        N)
+    pruned, masks = lstm_policy(0.75, 0.5).compile(params).prune(params)
+    roc = OptConfig(lr=TRAIN["retrain_lr"], warmup_steps=1, total_steps=N)
+    retrain_fn = make_train_step(model, arch, roc, masks)
+    retrained, ropt, re_losses, rms = lstm_steps(
+        torch, retrain_fn, pruned, init_state(roc, pruned), loader,
+        device, N, masks=masks)
+    torch.cuda.synchronize()
+    if any(ops.LAUNCHES.values()):
+        raise AssertionError(f"training launched kernels: {ops.LAUNCHES}")
+    busy, span, ev = device_busy(torch, lambda: retrain_fn(
+        retrained, ropt, gbatch, N))
+    wall = statistics.median(rms[1:])
+    log(f"[train] lstm_ptb dense: loss {dense_losses[0]:.4f} -> "
+        f"{dense_losses[-1]:.4f} over {N} AdamW steps (lr {TRAIN['lr']}); "
+        f"masked retrain at (0.75, 0.5): {re_losses[0]:.4f} -> "
+        f"{re_losses[-1]:.4f} (lr {TRAIN['retrain_lr']}), every pruned "
+        f"entry and its moments exactly 0 after all {N} steps; no kernel "
+        f"launched")
+    log(f"[train] lstm_ptb ms a step: dense median "
+        f"{statistics.median(ms[1:]):.2f} (range {min(ms[1:]):.2f}-"
+        f"{max(ms[1:]):.2f}), masked {wall:.2f}; one profiled masked "
+        f"step: device busy {busy * 1e3:.2f} ms (span {span * 1e3:.2f}), "
+        f"busy share {busy * 1e3 / wall:.1%} of the median wall; "
+        f"{len(ev)} device ops, the most time: {top_kernels(ev)}")
+    rows["lstm_ptb"] = dict(ms=wall, busy_ms=busy * 1e3)
+    del opt, ropt
+
+    # (b) the four deployments through run_point, each score counted
+    pcfg = pl.PipelineConfig(corpus="zipf", vocab=cfg.vocab_size,
+                             embed=cfg.input_size, hidden=cfg.hidden,
+                             batch=B, seq_len=T, eval_batches=2,
+                             eval_batch=B, eval_seq=T, gen_batch=8,
+                             gen_prompt=32, gen_steps=64, device="cuda")
+    _, lcfg = pl.build_task(pcfg)
+    eval_set = corpus.eval_batches(2, B, T)
+    calib = pl._as_model_batch(corpus.batch(1 << 41, B, T), device)["inputs"]
+    gen_raw = corpus.batch(1 << 42, 8, T)
+    kernel_of = {(False, False): "fused_brds_lstm_step",
+                 (True, False): "fused_brds_delta_lstm_step",
+                 (False, True): "fused_brds_lstm_step_q8",
+                 (True, True): "fused_brds_delta_lstm_step_q8"}
+    orig_score = LSTMModel.score
+    scores = []
+
+    def counted_score(self, params_, inputs, labels=None):
+        zero_launches(ops)
+        out = orig_score(self, params_, inputs, labels)
+        torch.cuda.synchronize()
+        got = {k: n for k, n in ops.LAUNCHES.items() if n}
+        want = {}
+        if self.is_packed(params_) and get_default_backend() != "ref":
+            name = kernel_of[(self.delta is not None,
+                              self.is_quantized(params_))]
+            want = {name: inputs.shape[1] * self.cfg.num_layers}
+        if got != want:
+            raise AssertionError(f"score launched {got}, expected {want}")
+        scores.append(got)
+        return out
+
+    LSTMModel.score = counted_score
+    try:
+        for scheme in (None, "int8"):
+            for theta in (0.0, 0.05):
+                tag = f"{scheme or 'fp32'} theta={theta}"
+                n0 = len(scores)
+                point = pl.run_point(LSTMModel(lcfg), lcfg, retrained, pcfg,
+                                     0.75, 0.5, scheme, theta, eval_set,
+                                     calib, gen_raw)
+                n1 = len(scores)
+                policy = pl._policy_at(pcfg, 0.75, 0.5, scheme, theta)
+                with use_backend("ref"):
+                    pm, pp, _ = pl.prepare_manual(
+                        LSTMModel(lcfg), policy, retrained,
+                        calib=calib if scheme else None)
+                    plain = pl.evaluate(pm, pp, eval_set)
+                nll = point["metrics"]["nll"]
+                rel = abs(nll - plain["nll"]) / plain["nll"]
+                log(f"[train] deployment {tag}: served nll {nll:.6f} "
+                    f"bitwise the manual route's; plain versions "
+                    f"{plain['nll']:.6f} (rel {rel:.2e}, gate {NLL_RTOL}); "
+                    f"ppl {point['metrics']['ppl']:.3f}; "
+                    f"{point['weight_bytes']} weight bytes; score launches "
+                    f"{scores[n0:n1]} (T x layers = {T}); "
+                    f"{point['toks_per_s']:.1f} tok/s (generate B=8, "
+                    f"prompt 32, gen 64)")
+                if rel > NLL_RTOL:
+                    raise AssertionError(f"{tag}: kernel and plain nll "
+                                         "differ")
+                if n1 - n0 != 2 * len(eval_set) or \
+                        any(not c for c in scores[n0:n1]):
+                    raise AssertionError(f"{tag}: unexpected score calls "
+                                         f"{scores[n0:n1]}")
+                rows[f"deploy {tag}"] = dict(
+                    nll=nll, ppl=point["metrics"]["ppl"],
+                    toks_per_s=point["toks_per_s"])
+
+        # (c) the smoke pipeline through its CLI on the card
+        out_dir = ROOT / "build" / "pipeline_smoke"
+        t0 = time.perf_counter()
+        rc = pl.main(["--smoke", "--gate", "5", "--out", str(out_dir)])
+        wall = time.perf_counter() - t0
+    finally:
+        LSTMModel.score = orig_score
+    payload = json.loads((out_dir / "BENCH_pipeline.json").read_text())
+    spec = importlib.util.spec_from_file_location(
+        "check_bench_schema", ROOT / "scripts" / "check_bench_schema.py")
+    checker = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(checker)
+    checker.check_pipeline("BENCH_pipeline.json", payload)
+    parity = payload["rows"][-1]
+    if rc != 0 or payload["gate"]["ppl_delta_pct"] > 5.0 or \
+            parity["bitwise"] != 1 or parity["points"] != 8:
+        raise AssertionError(f"pipeline smoke: rc {rc}, gate "
+                             f"{payload['gate']}, parity {parity}")
+    for r in payload["rows"]:
+        log("[pipeline] " + json.dumps(r))
+    log(f"[pipeline] --smoke --gate 5 on the card: exit {rc}, wall "
+        f"{wall:.1f}s (payload wall_time_s {payload['wall_time_s']}), gate "
+        f"{payload['gate']['ppl_delta_pct']:+.2f}% at (0.75, 0.5), parity "
+        f"bitwise at {parity['points']} points, {len(scores)} score calls "
+        f"counted")
+    rows["pipeline"] = dict(wall_s=wall, gate=payload["gate"],
+                            ppl={r["name"]: r["ppl"] for r in payload["rows"]
+                                 if "ppl" in r})
+    del retrained, params, pruned
+
+    # (d) launch.train at qwen3-0.6b's full width
+    ck = ROOT / "build" / "train_ckpt"
+    shutil.rmtree(ck, ignore_errors=True)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    zero_launches(ops)
+    t0 = time.perf_counter()
+    out = launch_train.main(TTRAIN + ["--ckpt-dir", str(ck)])
+    wall = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    ck_bytes = sum(f.stat().st_size for f in ck.rglob("*") if f.is_file())
+    shutil.rmtree(ck, ignore_errors=True)
+    losses = out["losses"]
+    log(f"[train] launch.train {' '.join(TTRAIN)}: resumed from "
+        f"{out['resumed_from']}, losses "
+        f"{[round(losses[k], 4) for k in sorted(losses)]}, ms a step "
+        f"{[round(out['step_ms'][k], 1) for k in sorted(out['step_ms'])]}; "
+        f"{wall:.1f}s in all; peak memory {peak / 1e9:.2f} GB over the "
+        f"{base / 1e9:.2f} GB allocated before; checkpoints on disk at the "
+        f"end {ck_bytes / 1e9:.2f} GB; kernel launches "
+        f"{ {k: n for k, n in ops.LAUNCHES.items() if n} }")
+    if out["resumed_from"] != [2] or out["final_step"] != 6 or \
+            sorted(losses) != list(range(6)) or \
+            not all(np.isfinite(v) for v in losses.values()):
+        raise AssertionError(f"launch.train: {out}")
+    if any(ops.LAUNCHES.values()):
+        raise AssertionError("qwen3-0.6b training launched a kernel (its "
+                             f"forward reached B15?): {ops.LAUNCHES}")
+
+    # every attention weight's gradient, and a profiled step
+    tcfg = get_arch("qwen3-0.6b")
+    tmodel = build_model(tcfg)
+    tparams = tmodel.init(torch.Generator().manual_seed(0), device)
+    tparams, tmasks = transformer_policy(0.75, 0.5).compile(tparams).prune(
+        tparams)
+    traw = ZipfInduction(vocab_size=tcfg.vocab_size).batch(0, 4, 256)
+    tbatch = {k: torch.as_tensor(v, device=device) for k, v in traw.items()}
+    tloss, tg = grads_of(torch, tmodel.loss, tparams, tbatch)
+    bad = [k for k, g in tg.items() if g is None or not bool(
+        torch.isfinite(g).all())]
+    attn = [k for k in tg if any(f"['{n}']" in k for n in ATTN_LEAVES)]
+    dead = [k for k in attn if not bool(tg[k].any())]
+    log(f"[train] qwen3-0.6b gradients: {len(tg)} leaves, every one "
+        f"present and finite: {not bad}; {len(attn)} attention leaves "
+        f"(wq wk wv wo q_norm k_norm x {tcfg.num_layers} layers), nonzero: "
+        f"{len(attn) - len(dead)}; loss {float(tloss):.4f}")
+    if bad or dead or len(attn) != len(ATTN_LEAVES) * tcfg.num_layers:
+        raise AssertionError(f"qwen3-0.6b gradients: missing or not finite "
+                             f"{bad}, all zero {dead}")
+    del tg
+    toc = OptConfig(lr=3e-4, warmup_steps=1, total_steps=6)
+    tstep = make_train_step(tmodel, tcfg, toc, tmasks)
+    topt = init_state(toc, tparams)
+    tms = []
+    for i in range(4):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        tparams, topt, _ = tstep(tparams, topt, tbatch, i)
+        torch.cuda.synchronize()
+        tms.append((time.perf_counter() - t0) * 1e3)
+    busy, span, ev = device_busy(torch, lambda: tstep(tparams, topt, tbatch,
+                                                      4))
+    twall = statistics.median(tms[1:])
+    log(f"[train] qwen3-0.6b masked train step (B=4, S=256, bf16): "
+        f"{twall:.2f} ms (runs {[round(t, 2) for t in tms]}); one profiled "
+        f"step: busy {busy * 1e3:.2f} ms (span {span * 1e3:.2f}), busy share "
+        f"{busy * 1e3 / twall:.1%}; {len(ev)} device ops, the most time: "
+        f"{top_kernels(ev)}")
+    rows["qwen3-0.6b"] = dict(ms=twall, busy_ms=busy * 1e3,
+                              peak_gb=peak / 1e9, cli_ms=out["step_ms"])
+    return rows
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2705,6 +3083,8 @@ def main() -> int:
     phase("7 transformer serve")
     scheduler_serve(torch, device)
     phase("8 scheduler")
+    training(torch, device)
+    phase("9 training")
     log("[graph] rows: " + json.dumps(GRAPH_ROWS))
 
     src = {"rb_dual_spmv": ("rb_spmv.cu", "src/repro/kernels/rb_spmv.py:86"),

@@ -250,6 +250,19 @@ def time_ms(fn, flush: torch.Tensor | None = None, reps: int = 30,
     return statistics.median(s.elapsed_time(e) for s, e in pairs)
 
 
+def refuse_autograd(kernel: str, *tensors) -> None:
+    """Raise when grad mode is on and an operand requires grad: the
+    kernels have no backward, and an output they allocate carries no
+    autograd history, so a gradient through one would be lost without a
+    word. Checked first, wherever the operands lie."""
+    if torch.is_grad_enabled() and any(
+            isinstance(t, torch.Tensor) and t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"{kernel}: the CUDA kernel has no backward, and an operand "
+            "requires grad; call it under torch.no_grad() on detached "
+            "tensors, or train through the plain PyTorch path")
+
+
 def require(t: torch.Tensor, name: str, *, dtypes, ndim: int,
             device: torch.device | None = None,
             contiguous: bool = True) -> None:

@@ -39,6 +39,7 @@ def decode_attention(q, k, v, lengths, *, window: int | None = None,
     (B, Hq, D) in q.dtype; a row with length 0 gives 0. ``fixed_length``
     is a diagnostic (``launch.profile_kernels``): every row takes that
     length and ``lengths`` is not read."""
+    _build.refuse_autograd("decode_attention", q, k, v, lengths)
     dev = q.device
     B, Hq, D = q.shape
     check_strided(q, "q", 3, dev)

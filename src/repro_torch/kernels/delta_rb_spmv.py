@@ -39,6 +39,7 @@ def delta_rb_spmv(vals, deltas, d, f, rows: int):
     """y = S @ (f·d) over the first ``rows`` rows of packed S (≥ rows, K);
     d, f (B, X) float32 on one card, the mask exactly 0 or 1. Returns
     (B, rows) float32."""
+    _build.refuse_autograd("delta_rb_spmv", vals, deltas, d, f)
     dev = d.device
     check_delta(d, f, "", dev)
     check_packed(vals, deltas, "S", dev)
@@ -68,6 +69,8 @@ def delta_rb_dual_spmv(vals_x, deltas_x, dx, fx, vals_h, deltas_h, dh, fh,
     dx, fx (B, X); dh, fh (B, H); m (B, R); all float32 on one card, the
     masks exactly 0 or 1. Returns m' (B, R) float32.
     """
+    _build.refuse_autograd("delta_rb_dual_spmv", vals_x, deltas_x, dx, fx,
+                           vals_h, deltas_h, dh, fh, m)
     dev = m.device
     _build.require(m, "m", dtypes=(torch.float32,), ndim=2)
     B, R = m.shape

@@ -46,6 +46,7 @@ def flash_attention(q, k, v, *, causal: bool = True,
     """q (B, Hq, Sq, D), k/v (B, Hkv, Sk, D), any strides with a unit last
     dim; fp32 or bf16, q/k/v alike. Returns (B, Hq, Sq, D) in q.dtype: a
     view of a (B, Sq, Hq, D) buffer. A row with no live key gives 0."""
+    _build.refuse_autograd("flash_attention", q, k, v)
     dev = q.device
     check_strided(q, "q", 4, dev)
     check_strided(k, "k", 4, dev, q.dtype)

@@ -74,6 +74,8 @@ def fused_brds_lstm_scan(vals_x, deltas_x, xs, vals_h, deltas_h, h0, bias,
     [f; i; g; o] (rows past 4H are not read), xs[t] (B, X), the previous
     h (h0 at t = 0), c and bias (4H,); all float32 on one card. Returns
     (hs (T, B, H), c_T (B, H))."""
+    _build.refuse_autograd("fused_brds_lstm_scan", vals_x, deltas_x, xs,
+                           vals_h, deltas_h, h0, bias, c0)
     T, B, X, H = _check_scan(vals_x, deltas_x, xs, vals_h, deltas_h, h0, c0,
                              bias)
 
@@ -158,6 +160,8 @@ def fused_brds_delta_lstm_scan(vals_x, deltas_x, xs, vals_h, deltas_h, h0,
     (T, B, X); h0, c0, h_ref0 (B, H); x_ref0 (B, X); m0 (B, 4H); bias
     (4H,); all float32 on one card. Returns (hs, c_T, x_ref_T, h_ref_T,
     m_T)."""
+    _build.refuse_autograd("fused_brds_delta_lstm_scan", vals_x, deltas_x, xs,
+                           vals_h, deltas_h, h0, c0, x_ref0, h_ref0, m0, bias)
     dev = xs.device
     T, B, X, H = _check_scan(vals_x, deltas_x, xs, vals_h, deltas_h, h0, c0,
                              bias)

@@ -46,6 +46,8 @@ def fused_brds_lstm_step(vals_x, deltas_x, x, vals_h, deltas_h, h, bias,
     Sh (≥ 4H, Kh) over the 4H gate rows grouped [f; i; g; o] (rows past 4H,
     ``pad_packed``'s zero rows, are not read), x (B, X), h and c_prev
     (B, H), bias (4H,), all float32 on one card."""
+    _build.refuse_autograd("fused_brds_lstm_step", vals_x, deltas_x, x, vals_h,
+                           deltas_h, h, bias, c_prev)
     dev = x.device
     _build.require(x, "x", dtypes=(torch.float32,), ndim=2)
     for name, t in (("h", h), ("c_prev", c_prev)):
@@ -87,6 +89,8 @@ def fused_brds_delta_lstm_step(vals_x, deltas_x, dx, fx, vals_h, deltas_h,
     (rows past 4H are not read). dx, fx (B, X); dh, fh, c_prev (B, H);
     m (B, 4H); bias (4H,); all float32 on one card, the masks exactly 0 or
     1. Returns (c, h, m')."""
+    _build.refuse_autograd("fused_brds_delta_lstm_step", vals_x, deltas_x, dx,
+                           fx, vals_h, deltas_h, dh, fh, m, bias, c_prev)
     dev = m.device
     _build.require(m, "m", dtypes=(torch.float32,), ndim=2)
     check_delta(dx, fx, "x", dev)
@@ -128,6 +132,8 @@ def fused_brds_lstm_step_q8(vals_x, deltas_x, comb_x, qx, vals_h, deltas_h,
     are not read; codes and deltas 16-byte aligned: the kernel loads four
     entries at once); comb_* (≥ 4H,) float32 combined dequant scales;
     bias (4H,) and c_prev (B, H) float32. Returns (c, h)."""
+    _build.refuse_autograd("fused_brds_lstm_step_q8", vals_x, deltas_x, comb_x,
+                           qx, vals_h, deltas_h, comb_h, qh, bias, c_prev)
     dev = qx.device
     B, X, H = check_q8(vals_x, deltas_x, comb_x, qx, vals_h, deltas_h,
                        comb_h, qh, 4 * qh.shape[-1])
@@ -160,6 +166,9 @@ def fused_brds_delta_lstm_step_q8(vals_x, deltas_x, comb_x, qdx, vals_h,
     4H are not read; codes and deltas 16-byte aligned); comb_* (≥ 4H,)
     float32 combined dequant scales; m (B, 4H), bias (4H,) and c_prev
     (B, H) float32. Returns (c, h, m')."""
+    _build.refuse_autograd("fused_brds_delta_lstm_step_q8", vals_x, deltas_x,
+                           comb_x, qdx, vals_h, deltas_h, comb_h, qdh, m, bias,
+                           c_prev)
     dev = qdx.device
     B, X, H = check_q8(vals_x, deltas_x, comb_x, qdx, vals_h, deltas_h,
                        comb_h, qdh, 4 * qdh.shape[-1])

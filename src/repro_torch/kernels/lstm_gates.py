@@ -52,6 +52,7 @@ def lstm_gates(zf, zi, zg, zo, c_prev, *, pwl: bool = False,
     contiguous. All float32 on one card. ``pdl`` False launches the kernel
     plainly, after the kernel before it has drained (a timing variant).
     """
+    _build.refuse_autograd("lstm_gates", zf, zi, zg, zo, c_prev)
     dev = c_prev.device
     _build.require(c_prev, "c_prev", dtypes=(torch.float32,), ndim=2)
     B, H = c_prev.shape

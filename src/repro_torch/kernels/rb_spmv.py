@@ -50,6 +50,7 @@ def rb_spmv(vals, deltas, x, rows: int):
     """y = S @ x over the first ``rows`` rows of packed S (≥ rows, K);
     rows past them (``pad_packed``'s zero rows) are not read. x (B, X)
     float32 on one card. Returns (B, rows) float32."""
+    _build.refuse_autograd("rb_spmv", vals, deltas, x)
     dev = x.device
     _build.require(x, "x", dtypes=(torch.float32,), ndim=2)
     check_packed(vals, deltas, "S", dev)
@@ -122,6 +123,8 @@ def rb_dual_spmv(vals_x, deltas_x, x, vals_h, deltas_h, h, bias):
     x (B, X), h (B, H), bias (R,), all float32 on one card. Returns (B, R)
     float32.
     """
+    _build.refuse_autograd("rb_dual_spmv", vals_x, deltas_x, x, vals_h,
+                           deltas_h, h, bias)
     dev = x.device
     _build.require(x, "x", dtypes=(torch.float32,), ndim=2)
     _build.require(h, "h", dtypes=(torch.float32,), ndim=2, device=dev)

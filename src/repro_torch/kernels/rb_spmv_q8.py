@@ -70,6 +70,7 @@ def rb_spmv_q8(vals, deltas, comb, q, rows: int):
     and deltas 16-byte aligned: the kernel loads four entries at once);
     comb (≥ rows,) float32 combined dequant scales. Returns (B, rows)
     float32."""
+    _build.refuse_autograd("rb_spmv_q8", vals, deltas, comb, q)
     dev = q.device
     _check_family("S", vals, deltas, comb, q, rows)
     _build.require_aligned(vals, "S codes")
@@ -146,6 +147,8 @@ def rb_dual_parts_q8(vals_x, deltas_x, comb_x, qx, vals_h, deltas_h, comb_h,
     16-byte aligned: the kernel loads four entries at once); comb_*
     (≥ rows,) float32 combined dequant scales. Returns two (B, rows)
     float32."""
+    _build.refuse_autograd("rb_dual_parts_q8", vals_x, deltas_x, comb_x, qx,
+                           vals_h, deltas_h, comb_h, qh)
     dev = qx.device
     B, X, H = check_q8(vals_x, deltas_x, comb_x, qx, vals_h, deltas_h,
                        comb_h, qh, rows)

@@ -11,6 +11,11 @@ never copied per head.
 The KV cache is updated in place: ``kv_cache_update`` writes the new rows
 into the cache's buffers and returns the same dict. A step's positions
 past its length are dead, so a rewind needs no copy (``spec.verify``).
+
+Training takes the reference's train-mode attention in plain PyTorch
+(``train_attention``: B15's plain version, the full masked softmax, up to
+max(block_q, 1024) rows, ``blocked_attention``'s online softmax beyond), so autograd sees every op:
+B15 has no backward, and its output carries no autograd history.
 """
 from __future__ import annotations
 
@@ -18,6 +23,7 @@ import torch
 
 from .layers import PSpec, apply_rope, pmm, rmsnorm
 from ..kernels import ops as K
+from ..kernels.ref import mha_ref
 
 CACHE_AXES = ("batch", "cache_seq", "kv_heads", "head_dim")
 
@@ -79,6 +85,61 @@ def decode_attention(q, cache: dict, lengths, *, window: int | None = None):
     return o[:, None]
 
 
+# --------------------------------------------------------------- training
+
+_NEG = -1e30
+
+
+def blocked_attention(q, k, v, *, block_q: int = 512, block_kv: int = 1024):
+    """Causal online-softmax attention over q and kv blocks, the
+    reference's memory-safe form, MHA layout (B, S, H, D). Sq and Sk must
+    be multiples of their blocks (a block is cut to the sequence)."""
+    B, Sq, H, D = q.shape
+    Sk = k.shape[1]
+    bq, bk = min(block_q, Sq), min(block_kv, Sk)
+    if Sq % bq or Sk % bk:
+        raise ValueError(f"Sq={Sq} and Sk={Sk} must be multiples of their "
+                         f"blocks {bq} and {bk}")
+    dev = q.device
+    outs = []
+    for iq in range(Sq // bq):
+        qf = q[:, iq * bq:(iq + 1) * bq].float() * D ** -0.5
+        qpos = iq * bq + torch.arange(bq, device=dev)
+        m = torch.full((B, H, bq), _NEG, dtype=torch.float32, device=dev)
+        l = torch.zeros((B, H, bq), dtype=torch.float32, device=dev)
+        acc = torch.zeros((B, H, bq, D), dtype=torch.float32, device=dev)
+        for ik in range(Sk // bk):
+            kb = k[:, ik * bk:(ik + 1) * bk].float()
+            vb = v[:, ik * bk:(ik + 1) * bk].float()
+            s = torch.einsum("bqhd,bkhd->bhqk", qf, kb)
+            kpos = ik * bk + torch.arange(bk, device=dev)
+            s = torch.where((qpos[:, None] >= kpos)[None, None], s, _NEG)
+            m_new = torch.maximum(m, s.amax(dim=-1))
+            p = torch.where(s > _NEG / 2, torch.exp(s - m_new[..., None]),
+                            0.0)
+            alpha = torch.exp(m - m_new)
+            l = alpha * l + p.sum(dim=-1)
+            acc = acc * alpha[..., None] + torch.einsum("bhqk,bkhd->bhqd",
+                                                        p, vb)
+            m = m_new
+        out = acc / torch.clamp(l, min=1e-30)[..., None]
+        outs.append(out.transpose(1, 2).to(q.dtype))
+    return torch.cat(outs, dim=1)
+
+
+def train_attention(q, k, v, *, block_q: int, block_kv: int):
+    """Causal self-attention for training, as the reference's "train"
+    mode takes it: q (B, S, Hq, Dh), k/v (B, S, Hkv, Dh) → (B, S, Hq, Dh);
+    the full masked softmax (B15's plain version, ``ref.mha_ref``) up to
+    max(block_q, 1024) rows, the blocked online softmax beyond."""
+    if q.shape[1] <= max(block_q, 1024):
+        return mha_ref(q.transpose(1, 2), k.transpose(1, 2),
+                       v.transpose(1, 2)).transpose(1, 2)
+    G = q.shape[2] // k.shape[2]        # GQA: q head h reads kv head h // G
+    k, v = k.repeat_interleave(G, dim=2), v.repeat_interleave(G, dim=2)
+    return blocked_attention(q, k, v, block_q=block_q, block_kv=block_kv)
+
+
 # ----------------------------------------------------------------- caches
 
 def kv_cache_defs(batch: int, max_len: int, num_kv_heads: int, head_dim: int,
@@ -87,7 +148,7 @@ def kv_cache_defs(batch: int, max_len: int, num_kv_heads: int, head_dim: int,
     if quant:
         raise NotImplementedError(
             "the int8 KV cache (kv_quant=True) is not ported yet: a later "
-            "part of the model zoo (queue A item 13)")
+            "part of the model zoo (queue A item 6)")
     shape = (batch, max_len, num_kv_heads, head_dim)
     return {"k": PSpec(shape, init="zeros", dtype=dtype, axes=CACHE_AXES),
             "v": PSpec(shape, init="zeros", dtype=dtype, axes=CACHE_AXES)}

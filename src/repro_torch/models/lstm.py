@@ -8,6 +8,10 @@ chained rb_dual_spmv → lstm_gates pair with ``fused=False``. Quantized
 packings (``RowBalancedSparseQ8``) step through the q8 kernels, and a
 ``delta`` rule through the temporal-delta ones.
 
+Training (``features`` / ``forward`` / ``loss``) runs the dense layers in
+plain PyTorch under autograd; the kernels have no backward and refuse an
+operand that requires grad.
+
 Sharded decode (``mesh``) is not ported yet.
 """
 from __future__ import annotations
@@ -18,6 +22,8 @@ import numpy as np
 import torch
 
 from . import layers as L
+from ..core import sparsity as S
+from ..core.metrics import cross_entropy
 from ..core.packing import RowBalancedSparse, pad_packed
 from ..device import resolve_device
 from ..kernels import ops as K
@@ -25,6 +31,7 @@ from ..kernels.ref import lstm_cell_ref
 from ..quant import (QuantPlan, RowBalancedSparseQ8, parse_scheme,
                      quantize_packed)
 from ..sparse import MaskedDense, get_format, lstm_policy
+from ..sparse import mask_grads as _sparse_mask_grads
 from ..sparse.temporal import delta_threshold
 
 _PACKED = (RowBalancedSparse, RowBalancedSparseQ8)
@@ -144,6 +151,16 @@ class LSTMModel:
         (pruned_params, masks) with masks {path: bool mask}."""
         return lstm_policy(spar_x, spar_h).compile(params).prune(params)
 
+    def mask_grads(self, grads, masks):
+        """Freeze pruned weights: zero their gradients. Accepts the plan's
+        {path: mask} dict or the legacy per-layer list of dicts."""
+        if isinstance(masks, dict):
+            return _sparse_mask_grads(grads, masks)
+        return {**grads, "layers": [
+            {**g, "w_x": S.apply_mask(g["w_x"], m["w_x"]),
+             "w_h": S.apply_mask(g["w_h"], m["w_h"])}
+            for g, m in zip(grads["layers"], masks)]}
+
     def pack(self, params, masks: dict | None = None, quant=None):
         """Pack pruned layers into per-layer ``{"sx", "sh", "b"}`` with the
         rows padded once to the kernel block (``pad_packed``). ``masks``
@@ -217,6 +234,90 @@ class LSTMModel:
             c, h = self._cell(z, c, pwl=self.cfg.pwl_activations)
             hs.append(h)
         return torch.stack(hs, 1), (c, h)
+
+    def features(self, params, inputs):
+        """inputs: tokens (B, T) ids for a language model, else features
+        (B, T, X). Returns the last layer's hidden states (B, T, H)."""
+        cfg = self.cfg
+        if cfg.vocab_size:
+            x = L.embed_apply(params["embed"], inputs)
+        else:
+            x = inputs.to(cfg.dtype)
+        B = x.shape[0]
+        for lp in params["layers"]:
+            c0 = torch.zeros((B, cfg.hidden), dtype=cfg.dtype,
+                             device=x.device)
+            x, _ = self._scan_layer(lp, x, c0, torch.zeros_like(c0))
+        return x
+
+    def forward(self, params, inputs):
+        """Logits, float32: (B, T, V) for a language model, (B, T, C) for
+        a framewise classifier, (B, C) at the last step otherwise."""
+        cfg = self.cfg
+        hs = self.features(params, inputs)
+        logits = torch.matmul(hs, params["head"]["w"]).float()
+        return logits if cfg.vocab_size or cfg.framewise else logits[:, -1]
+
+    def loss(self, params, batch):
+        """Mean cross-entropy of ``batch`` ({"inputs", "labels"}): next-
+        token for a language model, per step for a framewise classifier,
+        the last step's for a sequence classifier."""
+        cfg = self.cfg
+        logits = self.forward(params, batch["inputs"])
+        if cfg.vocab_size:
+            return cross_entropy(logits[:, :-1], batch["labels"][:, 1:])
+        if cfg.framewise:
+            return cross_entropy(logits, batch["labels"])
+        onehot = torch.nn.functional.one_hot(
+            batch["labels"].long(), logits.shape[-1]).float()
+        logp = torch.log_softmax(logits, dim=-1)
+        return -torch.mean(torch.sum(onehot * logp, dim=-1))
+
+    def sparse_step(self, packed, x_t, state, *, backend: str | None = None):
+        """One inference time step on the packed BRDS path, chained (the
+        dual-ratio SpMV is the accelerator's Gate module, ``lstm_gates``
+        its Function). x_t (B, X); state: list of (c, h) per layer.
+        ``packed`` is ``pack``'s per-layer list or a ``SparsityPlan.pack``'d
+        tree; quantized packings run the q8 datapath. Returns (h_last,
+        new_state)."""
+        new_state = []
+        inp = x_t
+        for i, (lp, (c, h)) in enumerate(zip(self._packed_layers(packed),
+                                             state)):
+            if isinstance(lp["sx"], RowBalancedSparseQ8):
+                ax, ah = self._act_scales(i)
+                c, h = K.brds_lstm_step_q8(
+                    lp["sx"], inp, lp["sh"], h, lp["b"], c,
+                    act_scale_x=ax, act_scale_h=ah,
+                    pwl=self.cfg.pwl_activations, backend=backend)
+            else:
+                c, h = K.brds_lstm_step(lp["sx"], inp, lp["sh"], h, lp["b"],
+                                        c, pwl=self.cfg.pwl_activations,
+                                        backend=backend)
+            new_state.append((c, h))
+            inp = h
+        return inp, new_state
+
+    def dense_step(self, params, x_t, state):
+        """Dense reference step (the contract of ``sparse_step``)."""
+        new_state = []
+        inp = x_t
+        for lp, (c, h) in zip(params["layers"], state):
+            z = (inp @ lp["w_x"].T + h @ lp["w_h"].T
+                 + lp["b"][None, :]).float()
+            c, h = self._cell(z, c, pwl=self.cfg.pwl_activations)
+            new_state.append((c, h))
+            inp = h
+        return inp, new_state
+
+    @staticmethod
+    def _packed_layers(packed):
+        """The per-layer [{"sx", "sh", "b"}] list, from that list or from a
+        ``SparsityPlan.pack``'d tree."""
+        if isinstance(packed, dict) and "layers" in packed:
+            return [{"sx": lp["w_x"], "sh": lp["w_h"], "b": lp["b"]}
+                    for lp in packed["layers"]]
+        return packed
 
     def init_state(self, batch: int, device):
         cfg = self.cfg

@@ -7,10 +7,14 @@ over periods; here the params hold a per-layer list and a loop runs it, in
 the reference's layer order. Prefill attention runs through
 ``ops.flash_attention`` (B15) and decode attention through
 ``ops.decode_attention`` (B14). The KV cache is updated in place
-(``attention.kv_cache_update``).
+(``attention.kv_cache_update``). The training forward (``forward`` /
+``loss``) takes the reference's train-mode attention in plain PyTorch
+(``attention.train_attention``), never B15, so every weight gets its
+gradient; with ``cfg.remat`` each layer is recomputed in the backward
+(``torch.utils.checkpoint``), as the reference remats each period.
 
 Not ported yet (each raises ``NotImplementedError``, later parts of the
-model zoo, queue A item 13): local attention (``attn_local``), RG-LRU
+model zoo, queue A item 6): local attention (``attn_local``), RG-LRU
 (``rec``) and RWKV6 (``rwkv``) blocks, mixture-of-experts MLPs, VLM patch
 embeddings (``num_patches``, prefill's ``extra``), the encoder-decoder,
 the int8 KV cache and tensor-parallel head padding (``pad_heads_to``).
@@ -18,16 +22,18 @@ the int8 KV cache and tensor-parallel head padding (``pad_heads_to``).
 from __future__ import annotations
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from . import attention as A
 from . import layers as L
+from ..core.metrics import cross_entropy
 from ..device import resolve_device
 
 
 def _unported(what: str):
     return NotImplementedError(
         f"{what} is not ported yet: a later part of the model zoo (queue A "
-        "item 13); the port serves dense attention transformers")
+        "item 6); the port serves dense attention transformers")
 
 
 def check_supported(cfg) -> None:
@@ -93,8 +99,9 @@ class TransformerLM:
         return L.count_params(self.param_defs())
 
     # ------------------------------------------------------------- blocks
-    def _block(self, p, x, rot, cache, pos, lengths):
-        """One layer, RoPE by ``rot`` (the positions' tables). ``lengths``
+    def _block(self, p, x, rot, cache, pos, lengths, train=False):
+        """One layer, RoPE by ``rot`` (the positions' tables). ``train``:
+        the training forward's attention (plain PyTorch). Else ``lengths``
         None: attention over x's own keys, which are also written into
         ``cache`` at 0 when one is given (prefill); else x is one token per
         sequence, written at ``pos`` and attending to ``lengths`` rows
@@ -102,7 +109,10 @@ class TransformerLM:
         cfg = self.cfg
         h = L.apply_norm(cfg.norm, p["norm1"], x)
         q, k, v = A.qkv_project(p["attn"], h, rot, qk_norm=cfg.qk_norm)
-        if lengths is not None:
+        if train:
+            o = A.train_attention(q, k, v, block_q=cfg.block_q,
+                                  block_kv=cfg.block_kv)
+        elif lengths is not None:
             A.kv_cache_update(cache, k, v, pos)
             o = A.decode_attention(q, cache, lengths)
         else:
@@ -114,21 +124,36 @@ class TransformerLM:
         return x + L.mlp_apply(p["mlp"], h, cfg.activation)
 
     def _run(self, params, tokens, positions, cache=None, pos=None,
-             lengths=None):
+             lengths=None, train=False):
         x = L.embed_apply(params["embed"], tokens)
         rot = L.rope_tables(positions, self.cfg.head_dim // 2,
                             self.cfg.rope_theta)
+        remat = train and self.cfg.remat and torch.is_grad_enabled()
         for i, p in enumerate(params["layers"]):
             c = None if cache is None else cache["layers"][i]
-            x = self._block(p, x, rot, c, pos, lengths)
+            if remat:
+                x = checkpoint(self._block, p, x, rot, c, pos, lengths, True,
+                               use_reentrant=False)
+            else:
+                x = self._block(p, x, rot, c, pos, lengths, train)
         return L.apply_norm(self.cfg.norm, params["final_norm"], x)
 
     def forward(self, params, tokens):
-        """tokens (B, S) → logits (B, S, Vp) float32 (the pad columns at
-        -1e30), with attention over the whole sequence (B15)."""
+        """The training forward: tokens (B, S) → logits (B, S, Vp) float32
+        (the pad columns at -1e30), causal attention over the whole
+        sequence in plain PyTorch (``attention.train_attention``)."""
         positions = torch.arange(tokens.shape[1], device=tokens.device)[None]
-        x = self._run(params, tokens, positions)
+        x = self._run(params, tokens, positions, train=True)
         return L.logits_apply(params["head"], x, self.cfg.vocab_size)
+
+    def loss(self, params, batch):
+        """Next-token cross-entropy of ``batch`` ({"tokens", "labels"},
+        optional "mask" over positions 1..S-1). The reference adds
+        ``aux_loss_coef`` times the MoE's load-balancing term, which is 0
+        for the dense families the port builds."""
+        logits = self.forward(params, batch["tokens"])
+        return cross_entropy(logits[:, :-1], batch["labels"][:, 1:],
+                             batch.get("mask"))
 
     # ------------------------------------------------------------- serving
     def cache_defs(self, batch: int, max_len: int) -> dict:

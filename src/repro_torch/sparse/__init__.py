@@ -12,13 +12,14 @@
              the policy's activation rule.
   backend  — "cuda" | "ref" | "auto", per call or process-wide.
 
-``mask_grads`` waits for training (ROADMAP A11)."""
+``apply_masks`` / ``mask_grads`` (and the plan's methods of those names)
+hold the masks through masked retraining (``repro_torch.training``)."""
 from .backend import (BACKENDS, get_default_backend, set_default_backend,
                       use_backend)
 from .formats import (SparseFormat, MaskedDense, register, get_format,
                       available_formats, dual_matvec)
 from .policy import (Rule, SparsityPolicy, SparsityPlan, lstm_policy,
-                     transformer_policy, classify, apply_masks,
+                     transformer_policy, classify, apply_masks, mask_grads,
                      sparsity_report)
 from .search import (BRDSResult, brds_search, plane_search,
                      execution_time_model)
@@ -35,6 +36,6 @@ __all__ = ["BACKENDS", "get_default_backend", "set_default_backend",
            "get_format", "available_formats", "dual_matvec", "Rule",
            "SparsityPolicy", "SparsityPlan", "lstm_policy",
            "transformer_policy", "classify", "apply_masks",
-           "sparsity_report", "BRDSResult", "brds_search", "plane_search",
-           "execution_time_model", "DeltaGateConfig", "cap_count",
-           "delta_threshold", "occupancy_report", "QuantConfig"]
+           "mask_grads", "sparsity_report", "BRDSResult", "brds_search",
+           "plane_search", "execution_time_model", "DeltaGateConfig",
+           "cap_count", "delta_threshold", "occupancy_report", "QuantConfig"]

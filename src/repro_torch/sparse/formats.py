@@ -19,7 +19,7 @@ kernels), ``bank_balanced`` (BBS [9]), ``block`` and ``unstructured`` (the
 Fig.-2 baselines, stored masked-dense with analytic packed-size
 accounting; their matvec is a dense product). ``quant.formats`` adds
 ``row_balanced_q8``. The dry-run stand-ins (``abstract_pack`` /
-``abstract_stack``) wait for the model zoo (ROADMAP A13).
+``abstract_stack``) wait for the model zoo (ROADMAP queue A item 6).
 """
 from __future__ import annotations
 
@@ -38,7 +38,7 @@ __all__ = ["SparseFormat", "MaskedDense", "RowBalancedFormat", "register",
 def _no_dry_run(what: str):
     raise NotImplementedError(
         f"{what} builds dry-run stand-ins, which are not ported yet "
-        "(ROADMAP A13, the model zoo's dry run)")
+        "(ROADMAP queue A item 6, the model zoo's dry run)")
 
 
 # ------------------------------------------------------------- generic rep

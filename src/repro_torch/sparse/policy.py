@@ -31,7 +31,7 @@ import torch
 from .formats import SparseFormat, get_format
 
 __all__ = ["Rule", "SparsityPolicy", "SparsityPlan", "lstm_policy",
-           "transformer_policy", "classify", "apply_masks",
+           "transformer_policy", "classify", "apply_masks", "mask_grads",
            "sparsity_report"]
 
 _LAYOUTS = ("out_in", "in_out", "out_trailing")
@@ -239,6 +239,12 @@ class SparsityPlan:
         masks = self.masks(params)
         return apply_masks(params, masks), masks
 
+    def apply_masks(self, params, masks):
+        return apply_masks(params, masks)
+
+    def mask_grads(self, grads, masks):
+        return mask_grads(grads, masks)
+
     def pack(self, params, masks: dict | None = None):
         """Replace every matched leaf with its packed-format rep.
 
@@ -300,6 +306,11 @@ def apply_masks(params, masks: dict):
         params, lambda ps, leaf: (torch.where(masks[ps], leaf,
                                               torch.zeros_like(leaf))
                                   if ps in masks else leaf))
+
+
+def mask_grads(grads, masks: dict):
+    """Freeze pruned weights by zeroing their gradients."""
+    return apply_masks(grads, masks)
 
 
 def sparsity_report(masks: dict) -> dict:

@@ -436,7 +436,7 @@ def test_unsupported_configs_raise():
             build_model(cfg)
             built.append(name)
         except NotImplementedError as e:
-            assert "queue A item 13" in str(e)
+            assert "queue A item 6" in str(e)
     assert sorted(built) == ["llama3.2-3b", "minitron-8b", "nemotron-4-340b",
                              "qwen3-0.6b"]
     model = build_model(smoke_config("qwen3-0.6b"))
