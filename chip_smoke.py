@@ -13,7 +13,10 @@
    blocks an SM and waves at the launch's grid (decode: its cluster size
    too; the cell: whether its block fits on an SM beside the float dual
    SpMV's, which it follows as a programmatic dependent), and fails on a
-   spill, a local array or (but for decode) a second wave.
+   spill, a local array or (but for decode) a second wave; and the same
+   for B15's tensor-core body and B14 at recurrentgemma-9b's local
+   attention (head_dim 256, 16 q heads on one kv head), failing also on
+   shared memory past a block's 227 KB.
 2. Kernels: calls each kernel's wrapper at the serve path's full-width
    shapes (lstm_ptb, B=8, int16 deltas), at a small shape (B=3, int8
    deltas, odd H: the fused kernels' partial last block), at a wide one
@@ -85,7 +88,10 @@
    B15 at Sk=4096 with Sq < Sk) and head_dim 192 (nemotron-4-340b's);
    B14 twice at the serve shape, bitwise equal, and one CUDA launch a call
    (torch.profiler); timed at the serve shape beside their plain versions
-   and ``scaled_dot_product_attention``, B14 also at the long shape.
+   and ``scaled_dot_product_attention``, B14 also at the long shape; both
+   at recurrentgemma-9b's shape (B15: B=4, causal S=2560, window 2048; B14
+   at lengths 2560 and ragged ones below and above 2048) held and timed
+   the same way.
 7. Transformer serve: full-width ``qwen3-0.6b`` in bf16 (seed-0 weights)
    through ``ServeEngine``, greedy, B=8, prompt 512, gen 64, with the
    launch counts read around one generate (28 B15 launches for the
@@ -107,6 +113,10 @@
    and a failure injected at 3 (resumed, no kernel launched: its
    training forward never reaches B15), its gradients and a profiled
    step.
+10. Recurrent families (``recurrent_serve``): recurrentgemma-9b and
+   rwkv6-7b at full width in bf16 through ``ServeEngine``, the scheduler
+   and a speculating lstm_ptb draft, and ``launch.serve --scorecard
+   --metrics`` (its docstring gives the gates).
 
 Prints a ``{"kernels": [...]}`` line and, last, the device line. Exits
 non-zero on any failure, and without a card.
@@ -114,6 +124,7 @@ non-zero on any failure, and without a card.
 from __future__ import annotations
 
 import json
+import math
 import re
 import statistics
 import subprocess
@@ -126,10 +137,12 @@ import numpy as np
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
-HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory rate
-FP32_FLOPS = 67e12             # H100 SXM float32 outside the tensor cores
-BF16_FLOPS = 989e12            # H100 SXM bf16 on the tensor cores, dense
-INT8_OPS = 1979e12             # H100 SXM int8 peak (no int16/int32 entry)
+from repro_torch import hw  # noqa: E402  (the card's constants)
+
+HBM_BYTES_PER_S = hw.HBM_BW       # H100 SXM device memory rate
+FP32_FLOPS = hw.PEAK_FP32_FLOPS   # float32 outside the tensor cores
+BF16_FLOPS = hw.PEAK_BF16_FLOPS   # bf16 on the tensor cores, dense
+INT8_OPS = hw.PEAK_INT8_OPS       # int8 peak (no int16/int32 entry)
 Z_TOL = 1e-4      # z and m sums of up to 8299 products: warp-tree vs
                   # sequential order
 CELL_TOL = 1e-5   # c, h: the cell's inputs differ by at most z's rounding
@@ -160,7 +173,20 @@ TSERVE = dict(arch="qwen3-0.6b", batch=8, prompt=512, gen=64, max_len=1024)
 # 4 ulps of a logit in [4, 8) (measured 0.047 at max |logit| 4.9)
 TF_LOGIT_TOL = 0.125
 TF_MARGIN = 0.25       # greedy rows compared up to a top-2 margin below it
+# phase 10, the recurrent families at full width in bf16: recurrentgemma-9b
+# (38 layers, 12 of them local attention: window 2048, 16 q heads on one
+# kv head of 256) with a prompt past the window; rwkv6-7b (32 RWKV6
+# layers, no attention)
+RSERVE = {"recurrentgemma-9b": dict(batch=4, prompt=2560, gen=64, heads=16,
+                                    kv_heads=1, window=2048),
+          "rwkv6-7b": dict(batch=8, prompt=512, gen=64)}
+RRUNS = 2         # timed generate and prefill runs per recurrent model
+# recurrentgemma-9b under the scheduler: 8 slots, 16 requests, prompts
+# 8-64 tokens, budgets 16-32, four compared with lockstep B=1
+RSCHED = dict(slots=8, requests=16, prompt=(8, 64), budget=(16, 32),
+              max_len=96, compared=4)
 GRAPH_ROWS = []        # captured vs host loop, one row a serve path
+D256_TIMES = {}        # B14 / B15 at recurrentgemma-9b's shape (phase 6)
 # the port's CUDA kernels by symbol, grouped with the wrappers that count
 # their launches (a template's float and delta forms share a symbol; B15
 # has a tensor-core body and a SIMT one)
@@ -482,6 +508,77 @@ def occupancy(torch, device) -> None:
         + ("fits on an SM beside a B1 block" if fits else
            "does not fit beside a B1 block; B2's blocks start as B1's "
            "blocks leave"))
+
+
+def ptxas_entry(out: str, frag: str):
+    """(registers, spill store bytes, stack frame bytes) of the first
+    instantiation in ``nvcc -Xptxas -v`` output whose mangled name holds
+    ``frag``, or None when none was built."""
+    import re
+    name, spill, stack = False, 0, 0
+    for ln in out.splitlines():
+        if "Compiling entry function" in ln:
+            name, spill, stack = frag in ln, 0, 0
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores",
+                      ln)
+        if m and name:
+            stack, spill = int(m.group(1)), int(m.group(2))
+        m = re.search(r"Used (\d+) registers", ln)
+        if m and name:
+            return int(m.group(1)), spill, stack
+    return None
+
+
+def occupancy_d256(torch, device) -> None:
+    """Phase 1 at recurrentgemma-9b's local attention (bf16, head_dim 256,
+    16 q heads on one kv head, window 2048): B15's tensor-core body (one
+    consumer warpgroup a block at D=256, ``plan.flash_warpgroups``) and
+    B14 (one q head a block, ``plan.decode_heads``): ptxas's registers,
+    spills and stack frame, the dynamic shared memory (B15's from the
+    library, held to ``plan.flash_smem``; B14's plan at the decode shape,
+    B=4 over a 2624-row cache) against the 227 KB a block may take, and
+    B14's runtime registers, local bytes and blocks an SM. Fails on a
+    spill, a stack frame, shared memory past the limit, or a two-warpgroup
+    D=256 body in the build."""
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import decode_attention as kdec
+    from repro_torch.kernels import plan as P
+    out = _build.BUILD_LOG.get("attention", "")
+    R = RSERVE["recurrentgemma-9b"]
+    G = R["heads"] // R["kv_heads"]
+    if ptxas_entry(out, "flash_tc_kernelILi256ELi2E") is not None:
+        raise AssertionError("the two-warpgroup D=256 flash body was built: "
+                             "it spills")
+    smem = _build.load("attention").brds_flash_attention_bf16_smem(256, G)
+    dp = P.decode_plan(B=R["batch"], Hkv=R["kv_heads"], G=G,
+                       S=R["prompt"] + R["gen"], D=256, elem_bytes=2,
+                       sms=_build.sm_count(device))
+    info = kdec.decode_info(dp, 256, G, torch.bfloat16, device)
+    rows = (("flash_tc_kernelILi256ELi1E",
+             f"flash_tc<bf16, 256, {P.flash_warpgroups(G, 256)} warpgroup> "
+             "(B15)", smem, ""),
+            ("decode_cluster_kernelI13__nv_bfloat16Li256ELi1EE",
+             f"decode_cluster<bf16, 256, {dp.heads} head> (B14)", dp.smem,
+             f"; runtime {info['registers']} registers, "
+             f"{info['local_bytes']} B local, {info['blocks_per_sm']} "
+             f"block(s) an SM, grid {dp.grid} ({dp.groups} head groups x "
+             f"{dp.splits} slices x {R['batch']} rows): {info['waves']} "
+             "wave(s)"))
+    for frag, name, sm, extra in rows:
+        got = ptxas_entry(out, frag)
+        if got is None:
+            raise AssertionError(f"{name}: not in the build log")
+        regs, spill, stack = got
+        log(f"[occupancy] {name} at recurrentgemma-9b's shape: ptxas {regs} "
+            f"registers, {spill} B spill, {stack} B stack frame; {sm} B "
+            f"dynamic shared memory (limit {P.SMEM_PER_BLOCK}){extra}")
+        if spill or stack or sm > P.SMEM_PER_BLOCK:
+            raise AssertionError(f"{name}: spills, keeps a stack frame or "
+                                 "takes more shared memory than a block may")
+    if smem != P.flash_smem(G, 256) or info["local_bytes"] or \
+            info["heads"] != 1:
+        raise AssertionError(f"B15's shared memory {smem} != plan's "
+                             f"{P.flash_smem(G, 256)}, or B14 {info}")
 
 
 def cell(z, c, pwl=False):
@@ -1419,6 +1516,17 @@ def teacher_forced(torch, model, params, seq):
     return torch.stack(out, 1)
 
 
+def timed_call(torch, times: list, run):
+    """``run()``'s result; its host-clock seconds, synchronized, appended
+    to ``times``."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = run()
+    torch.cuda.synchronize()
+    times.append(time.perf_counter() - t0)
+    return out
+
+
 def timed_runs(torch, run, runs: int = RUNS) -> list[float]:
     """Host-clock seconds of ``runs`` calls of ``run``, each ended by a
     synchronize."""
@@ -2119,6 +2227,25 @@ def attn_case(torch, device, dtype, *, B, Hq, Hkv, Sq, Sk, D, seed):
     return q, k, v
 
 
+def attn_held(torch, name, got, want, tag) -> float:
+    """An attention kernel's output held to its plain version's: float32
+    within ATTN_TOL, bf16 within one ulp (BF16_ULP relative) of each
+    output. Returns the largest |kernel - plain|."""
+    torch.cuda.synchronize()
+    d = (got.float() - want.float()).abs()
+    e = d.max().item()
+    if got.dtype == torch.float32:
+        ok, tol = e <= ATTN_TOL, f"{ATTN_TOL:.0e}"
+    else:
+        ok = bool((d <= BF16_ULP * want.float().abs() + 1e-6).all())
+        tol = "one bf16 ulp"
+    if not ok:
+        raise AssertionError(f"{name} {tag}: max |kernel - plain| = "
+                             f"{e:.3e} > {tol}")
+    log(f"  {name:16} {tag}: max|err| {e:.3e} (tol {tol})")
+    return e
+
+
 def check_attention(torch, device, flush):
     """Phase 2b: B14 and B15 against their plain versions at four shapes
     each, float32 (ATTN_TOL) and bf16 (one ulp, BF16_ULP relative): the
@@ -2137,20 +2264,9 @@ def check_attention(torch, device, flush):
     S = TSERVE["max_len"]
 
     def held(name, got, want, tag, serve):
-        torch.cuda.synchronize()
-        d = (got.float() - want.float()).abs()
-        e = d.max().item()
-        if got.dtype == torch.float32:
-            ok, tol = e <= ATTN_TOL, f"{ATTN_TOL:.0e}"
-        else:
-            ok = bool((d <= BF16_ULP * want.float().abs() + 1e-6).all())
-            tol = "one bf16 ulp"
-        if not ok:
-            raise AssertionError(f"{name} {tag}: max |kernel - plain| = "
-                                 f"{e:.3e} > {tol}")
+        e = attn_held(torch, name, got, want, tag)
         if serve and got.dtype == torch.bfloat16:
             rec[name]["max_abs_err"] = e
-        log(f"  {name:16} {tag}: max|err| {e:.3e} (tol {tol})")
 
     dec = [("serve", dict(B=B, Hq=16, Hkv=8, S=S, D=128), None,
             [P + G // 2] * B),
@@ -2247,6 +2363,82 @@ def check_attention(torch, device, flush):
     return rec
 
 
+def check_attention_d256(torch, device, flush) -> None:
+    """Phase 6 at recurrentgemma-9b's local attention: B15 at B=4, 16 q /
+    1 kv heads of 256, causal, Sq = Sk = 2560, window 2048, and B14 over
+    a 2624-row cache at lengths 2560 and ragged ones below and above 2048
+    (0 and 1 among them), float32 (ATTN_TOL) and bf16 (one ulp) against
+    their plain versions; then both timed in bf16 with L2 flushed beside
+    the plain versions, ``scaled_dot_product_attention`` (``enable_gqa``,
+    the window as a boolean mask) and the bound."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels._build import time_ms
+    F = torch.nn.functional
+    R = RSERVE["recurrentgemma-9b"]
+    B, P, G, W = R["batch"], R["prompt"], R["gen"], R["window"]
+    Hq, Hkv, D, S = R["heads"], R["kv_heads"], 256, P + G
+    ragged = ([1, 2047, 2049, 2560], [0, 2048, 100, 2624])
+    for dtype in (torch.float32, torch.bfloat16):
+        q, k, v = attn_case(torch, device, dtype, B=B, Hq=Hq, Hkv=Hkv, Sq=P,
+                            Sk=P, D=D, seed=4)
+        attn_held(torch, "flash_attention",
+                  ops.flash_attention(q, k, v, window=W, backend="cuda"),
+                  ops.flash_attention(q, k, v, window=W, backend="ref"),
+                  f"recurrentgemma-9b B={B} {Hq}/{Hkv}x{D} S={P} "
+                  f"window={W} {dtype}")
+        del q, k, v
+        q, k, v = attn_case(torch, device, dtype, B=B, Hq=Hq, Hkv=Hkv, Sq=1,
+                            Sk=S, D=D, seed=5)
+        q = q[:, :, 0]
+        for lens in ([P] * B, *ragged):
+            n = torch.tensor(lens, dtype=torch.int32, device=device)
+            attn_held(torch, "decode_attention",
+                      ops.decode_attention(q, k, v, n, window=W,
+                                           backend="cuda"),
+                      ops.decode_attention(q, k, v, n, window=W,
+                                           backend="ref"),
+                      f"recurrentgemma-9b B={B} {Hq}/{Hkv}x{D} cache {S} "
+                      f"lengths={lens} window={W} {dtype}")
+        del q, k, v
+    bf = torch.bfloat16
+    q, k, v = attn_case(torch, device, bf, B=B, Hq=Hq, Hkv=Hkv, Sq=P, Sk=P,
+                        D=D, seed=6)
+    i = torch.arange(P, device=device)
+    band = (i[None, :] <= i[:, None]) & (i[None, :] > i[:, None] - W)
+    pairs = B * Hq * int(band.sum())        # live (q, k) pairs
+    fla = (lambda: ops.flash_attention(q, k, v, window=W, backend="cuda"),
+           lambda: ops.flash_attention(q, k, v, window=W, backend="ref"),
+           lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=band,
+                                                  enable_gqa=True),
+           bound(nbytes(q, k, v, q), 0, bf16_flops=8 * D * pairs))
+    qd, kd, vd = attn_case(torch, device, bf, B=B, Hq=Hq, Hkv=Hkv, Sq=1,
+                           Sk=S, D=D, seed=7)
+    qd = qd[:, :, 0]
+    n = torch.full((B,), P, dtype=torch.int32, device=device)
+    kpos = torch.arange(S, device=device)
+    live = (kpos < P) & (kpos > P - 1 - W)
+    rows = int(live.sum())
+    dec = (lambda: ops.decode_attention(qd, kd, vd, n, window=W,
+                                        backend="cuda"),
+           lambda: ops.decode_attention(qd, kd, vd, n, window=W,
+                                        backend="ref"),
+           lambda: F.scaled_dot_product_attention(
+               qd[:, :, None], kd, vd, attn_mask=live[None, None, None],
+               enable_gqa=True),
+           bound(nbytes(qd) * 2 + B * Hkv * rows * D * 2 * 2, 0,
+                 bf16_flops=6 * B * Hq * rows * D))
+    for name, (kern, plain, lib, (bms, by)) in (("flash_attention", fla),
+                                                ("decode_attention", dec)):
+        ms, pms, lms = (time_ms(f, flush) for f in (kern, plain, lib))
+        D256_TIMES[name] = dict(ms=ms, plain_ms=pms, library_ms=lms,
+                                bound_ms=bms, bound_by=by)
+        at = f"S={P}" if name == "flash_attention" else f"length {P}"
+        log(f"[time] {name:29} recurrentgemma-9b (D=256, {Hq}/{Hkv} heads, "
+            f"window {W}, {at}): kernel {ms:.4f} ms, plain "
+            f"{pms:.4f} ms, library (SDPA) {lms:.4f} ms, bound "
+            f"{bms * 1e3:.2f} us ({by}) — median of 30, L2 flushed, bf16")
+
+
 def decode_one_launch(torch, ops, q, k, v, n) -> None:
     """B14 is one CUDA launch a call and carries nothing between calls: two
     calls are bitwise equal, and the profiler sees one kernel on the card
@@ -2283,6 +2475,59 @@ def tf_logits(torch, model, params, tokens, out, max_len):
                                           P + t)
         rows.append(logits[:, 0])
     return torch.stack(rows, 1)
+
+
+def hold_to_plain(torch, tag, eng, params, tokens, out) -> None:
+    """The kernel path's generate ``out`` held to the plain path
+    (``backend="ref"``): teacher-forced logits of every generated position
+    within TF_LOGIT_TOL, each row's greedy tokens equal to the plain
+    generate's up to its first top-2 margin below TF_MARGIN, and every
+    kernel-path token within 2 TF_LOGIT_TOL of the plain path's top
+    logit."""
+    from repro_torch.sparse import use_backend
+    model, ML, V = eng.model, eng.max_len, eng.model.cfg.vocab_size
+    B, G = out.shape
+    lg_k = tf_logits(torch, model, params, tokens, out, ML)
+    with use_backend("ref"):
+        lg_r = tf_logits(torch, model, params, tokens, out, ML)
+        out_r = eng.generate(params, tokens, G)
+    if not bool(torch.isfinite(lg_k[..., :V]).all()):
+        raise AssertionError(f"{tag}: non-finite logits on the kernel path")
+    if not torch.equal(lg_k.argmax(-1).to(out.dtype), out):
+        raise AssertionError(f"{tag}: teacher-forced argmax differs from "
+                             "generate")
+    dl = (lg_k - lg_r)[..., :V].abs().max().item()
+    # bf16 logits tie often (a margin of 0 at the top), so each row is
+    # compared up to its own first small margin
+    top2 = lg_r.topk(2, dim=-1).values
+    margin = top2[..., 0] - top2[..., 1]                  # (B, G)
+    small = margin < TF_MARGIN
+    first = torch.where(small.any(1), small.float().argmax(1),
+                        torch.full((B,), G, device=out.device)).tolist()
+    same = [bool(torch.equal(out[b, :f], out_r[b, :f]))
+            for b, f in enumerate(first)]
+    log(f"[{tag}] teacher-forced logits, kernels vs plain: max|diff| "
+        f"{dl:.3e} (tol {TF_LOGIT_TOL}; max|logit| "
+        f"{lg_r[..., :V].abs().max().item():.2f}); greedy "
+        f"tokens identical per row up to its first top-2 margin < "
+        f"{TF_MARGIN}: steps {first}; full match "
+        f"{bool(torch.equal(out, out_r))} ({int((out == out_r).sum())} of "
+        f"{B * G} tokens)")
+    if not dl <= TF_LOGIT_TOL:
+        raise AssertionError(f"{tag}: teacher-forced logits differ by "
+                             f"{dl:.3e}")
+    if not all(same):
+        raise AssertionError(f"{tag}: greedy tokens differ before any small "
+                             "margin")
+    # every greedy token of the kernel path is the plain path's top token
+    # up to the logits' tolerance, at every step of every row
+    gap = (top2[..., 0] - lg_r.gather(-1, out.long()[..., None])[..., 0])
+    log(f"[{tag}] kernel-path tokens under the plain path's teacher-forced "
+        f"logits: at most {gap.max().item():.3e} below the top logit (tol "
+        f"{2 * TF_LOGIT_TOL})")
+    if not gap.max().item() <= 2 * TF_LOGIT_TOL:
+        raise AssertionError(f"{tag}: a kernel-path token is not a "
+                             "plain-path near-argmax")
 
 
 def transformer_serve(torch, device):
@@ -2417,45 +2662,13 @@ def transformer_serve(torch, device):
         f"{row['captured_span'] * 1e3:.3f})")
 
     # the plain path: teacher-forced logits and greedy tokens
-    lg_k = tf_logits(torch, model, params, tokens, out, ML)
+    hold_to_plain(torch, "tserve", eng, params, tokens, out)
     with use_backend("ref"):
-        lg_r = tf_logits(torch, model, params, tokens, out, ML)
-        out_r = eng.generate(params, tokens, G)
-    if not bool(torch.isfinite(lg_k[..., :cfg.vocab_size]).all()):
-        raise AssertionError("non-finite logits on the kernel path")
-    if not torch.equal(lg_k.argmax(-1).to(out.dtype), out):
-        raise AssertionError("teacher-forced argmax differs from generate")
-    dl = (lg_k - lg_r)[..., :cfg.vocab_size].abs().max().item()
-    # bf16 logits tie often (a margin of 0 at the top), so each row is
-    # compared up to its own first small margin
-    top2 = lg_r.topk(2, dim=-1).values
-    margin = top2[..., 0] - top2[..., 1]                  # (B, G)
-    small = margin < TF_MARGIN
-    first = torch.where(small.any(1), small.float().argmax(1),
-                        torch.full((B,), G, device=device)).tolist()
-    same = [bool(torch.equal(out[b, :f], out_r[b, :f]))
-            for b, f in enumerate(first)]
-    log(f"[tserve] teacher-forced logits, kernels vs plain: max|diff| "
-        f"{dl:.3e} (tol {TF_LOGIT_TOL}; max|logit| "
-        f"{lg_r[..., :cfg.vocab_size].abs().max().item():.2f}); greedy "
-        f"tokens identical per row up to its first top-2 margin < "
-        f"{TF_MARGIN}: steps {first}; full match "
-        f"{bool(torch.equal(out, out_r))} ({int((out == out_r).sum())} of "
-        f"{B * G} tokens)")
-    if not dl <= TF_LOGIT_TOL:
-        raise AssertionError(f"teacher-forced logits differ by {dl:.3e}")
-    if not all(same):
-        raise AssertionError("greedy tokens differ before any small margin")
-    # every greedy token of the kernel path is the plain path's top token
-    # up to the logits' tolerance, at every step of every row
-    gap = (top2[..., 0] - lg_r.gather(-1, out.long()[..., None])[..., 0])
-    log(f"[tserve] kernel-path tokens under the plain path's teacher-forced "
-        f"logits: at most {gap.max().item():.3e} below the top logit (tol "
-        f"{2 * TF_LOGIT_TOL})")
-    if not gap.max().item() <= 2 * TF_LOGIT_TOL:
-        raise AssertionError("a kernel-path token is not a plain-path "
-                             "near-argmax")
-    del lg_k, lg_r
+        lr, _ = model.prefill(params, tokens, ML)
+    log(f"[tserve] the plain path's prefill logits move "
+        f"{one_ulp_spread(torch, model, params, tokens, ML, lr):.3e} when "
+        "half the embedding's entries move one bf16 ulp")
+    del lr
 
     # --brds: prune (no packing) through transformer_policy
     beng = ServeEngine(model, max_len=ML, device=device,
@@ -3035,6 +3248,429 @@ def training(torch, device):
     return rows
 
 
+def recurrent_serve(torch, device) -> None:
+    """Phase 10: the recurrent families at full width in bf16 through
+    ``ServeEngine``, greedy, one after the other (each model freed before
+    the next). Weights come from a seeded CUDA generator (seed 0): ~18 B
+    normal draws on the CPU would take minutes, and the plain path they
+    are held to uses the same weights.
+
+    With these random weights both models are chaotic in bf16: one bf16
+    ulp on half the embedding's entries moves the plain path's own
+    logits by as much as the logits themselves (``one_ulp_spread``,
+    printed), where it moves qwen3-0.6b's by ~0.05. Kernels that round
+    otherwise than the plain versions (B14 / B15: within one ulp) cannot
+    keep 38 such layers' tokens; so recurrentgemma-9b's attention is held
+    launch by launch on the model's own inputs, and the end-to-end gates
+    on the same configuration cut to one period at full width.
+
+    - recurrentgemma-9b, B=4, prompt 2560 (past the window of 2048), gen
+      64: the launch counts set to 0 just before one generate and read
+      just after, exactly 12 B15 launches for the prefill (every one on
+      the tensor-core body) and 12 B14 launches a decode step; every one
+      of the 768 launches of its teacher-forced run within one bf16 ulp
+      of its plain version on the same inputs (``held_calls``); the
+      scheduler: 8 slots, 16 requests (prompts 8-64, budgets 16-32), each
+      prefill's 12 B15 and each chunk graph's 8 x 12 B14 launches held
+      exactly. Then one period (rec, rec, attn_local; the full model's
+      first three layers and embedding) at full width: 1 B15 a prefill
+      and 1 B14 a step, teacher-forced logits and greedy tokens held to
+      the plain path at qwen3-0.6b's bf16 gates (``hold_to_plain``), and
+      the scheduler again, four requests' tokens equal to lockstep B=1
+      up to a top-2 margin below TF_MARGIN (a GEMM may sum in another
+      order at B=1 than at 8).
+    - rwkv6-7b, B=8, prompt 512, gen 64: no attention kernel launches,
+      so the kernel path is the plain path (``hold_to_plain``: equal);
+      then a packed lstm_ptb draft rebound to its 65536-token vocabulary
+      speculating k=4 (its prompt primed by B12, one launch; each round
+      k+1 B3 launches), its tokens equal to target-only.
+
+    Each full model's captured decode loop is held bitwise to the host
+    loop; each prints the wall a decode step, the prefill's ms, the
+    device's busy share of one profiled generate and the peak memory of
+    one generate. Last, ``launch.serve --arch lstm_ptb --brds
+    --scorecard --metrics`` on the card."""
+    import dataclasses
+    import gc
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import flash_attention as kfa
+    from repro_torch.kernels import ops
+    from repro_torch.models import LSTMModel, LSTM_CONFIGS, build_model
+    from repro_torch.serving import ServeEngine, runtime
+    from repro_torch.sparse import lstm_policy, use_backend
+    from repro_torch.spec import DraftModel
+    for arch in ("recurrentgemma-9b", "rwkv6-7b"):
+        t_arch = time.perf_counter()
+        laps, t_lap = {}, [t_arch]
+
+        def lap(name):
+            now = time.perf_counter()
+            laps[name] = round(now - t_lap[0], 1)
+            t_lap[0] = now
+        R = RSERVE[arch]
+        cfg = get_arch(arch)
+        B, P, G = R["batch"], R["prompt"], R["gen"]
+        ML = P + G
+        model = build_model(cfg)
+        t0 = time.perf_counter()
+        params = model.init(torch.Generator(device).manual_seed(0), device)
+        torch.cuda.synchronize()
+        n_attn = sum(k.startswith("attn") for k in model.kinds)
+        cache_bytes = sum(math.prod(d.shape) * d.dtype.itemsize
+                          for d in runtime.leaves(model.cache_defs(B, ML)))
+        log(f"[rserve] {arch}: {cfg.num_layers} layers {model.kinds[:3]}... "
+            f"d={cfg.d_model} ff={cfg.d_ff} V={cfg.vocab_size} {cfg.dtype}: "
+            f"{model.param_count() / 1e9:.3f} B params "
+            f"({model.param_count() * 2 / 1e9:.2f} GB), init "
+            f"{time.perf_counter() - t0:.2f}s (CUDA generator, seed 0); "
+            f"{n_attn} attention layers; decode cache at B={B}, "
+            f"max_len {ML}: {cache_bytes / 1e6:.1f} MB")
+        tokens = torch.randint(0, cfg.vocab_size, (B, P),
+                               generator=torch.Generator().manual_seed(1)
+                               ).to(device)
+        lap("init")
+        eng = ServeEngine(model, max_len=ML, device=device)
+        eng.generate(params, tokens, 2)             # warm the libraries
+        eng.generate(params, tokens, G)             # captures the G graph
+        torch.cuda.synchronize()
+        zero_launches(ops)
+        for k in kfa.BODIES:
+            kfa.BODIES[k] = 0
+        out = eng.generate(params, tokens, G)
+        torch.cuda.synchronize()
+        got = {k: n for k, n in ops.LAUNCHES.items() if n}
+        want = ({"flash_attention": n_attn, "decode_attention": n_attn * G}
+                if n_attn else {})
+        log(f"[rserve] {arch} greedy B={B} prompt={P} gen={G}: launches "
+            f"{got}, expected {want}; B15 by body {kfa.BODIES}")
+        if got != want or kfa.BODIES["simt"] or \
+                kfa.BODIES["tensor_cores"] != n_attn:
+            raise AssertionError(f"{arch} launched {got} ({kfa.BODIES}), "
+                                 f"expected {want}, every B15 on the "
+                                 "tensor cores")
+        if out.shape != (B, G) or not bool(((out >= 0)
+                                            & (out < cfg.vocab_size)).all()):
+            raise AssertionError(f"{arch}: bad tokens {tuple(out.shape)}")
+        lap("captures and the counted generate")
+        dts = timed_runs(torch, lambda: eng.generate(params, tokens, G),
+                         RRUNS)
+        pre = timed_runs(torch, lambda: model.prefill(params, tokens, ML),
+                         RRUNS)
+        med, pm = statistics.median(dts), statistics.median(pre)
+        # the captured loop against the host loop it replaced (timed);
+        # the peak allocated during the captured generate
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        before = torch.cuda.memory_allocated()
+        _, state = eng.generate(params, tokens, G, return_state=True)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated()
+        hts = []
+        h_out, h_state = timed_call(torch, hts, lambda: host_loop(
+            eng, params, tokens, G))
+        if not (torch.equal(out, h_out) and all(
+                torch.equal(a, b) for a, b in zip(runtime.leaves(state),
+                                                  runtime.leaves(h_state)))):
+            raise AssertionError(f"{arch}: the captured decode loop differs "
+                                 "from the host loop")
+        del state, h_state
+        lap("timed runs, host loop")
+        busy, span, seen, n, ev = witnessed(
+            torch, ops, f"{arch} captured",
+            lambda: eng.generate(params, tokens, G), host_ops=False)
+        row = {"path": f"{arch} dense", "batch": B,
+               "captured_wall": (med - pm) / G,
+               "host_wall": (statistics.median(hts) - pm) / G,
+               "captured_busy": busy / G, "captured_span": span / G}
+        GRAPH_ROWS.append(row)
+        log(f"[rserve] {arch}: generate median {med:.4f}s of {RRUNS} "
+            f"({B * G / med:.1f} tok/s, prefill included); prefill "
+            f"{pm * 1e3:.2f} ms ({B * P / pm:.1f} prompt tok/s); wall / "
+            f"decode step (generate minus prefill, over {G}) captured "
+            f"{row['captured_wall'] * 1e3:.3f} ms, host loop "
+            f"{row['host_wall'] * 1e3:.3f} ms; the profiled generate: "
+            f"device busy {busy * 1e3:.2f} ms (span {span * 1e3:.2f}), "
+            f"{busy / med:.1%} of the unprofiled generate's wall; launch "
+            f"counts equal the profiler's kernels by symbol {seen} (runs "
+            f"{n}); peak allocated during one generate "
+            f"{peak / 1e9:.3f} GB ({(peak - before) / 1e9:+.3f} GB over the "
+            f"{before / 1e9:.3f} GB before it); tokens and state bitwise "
+            f"the host loop; the most device time: {top_kernels(ev)}")
+        del ev
+        # how far one bf16 ulp moves the plain path's own logits (a model
+        # whose logits it decorrelates cannot be held to the plain path's
+        # tokens by kernels that round otherwise)
+        lap("profiled generate")
+        with use_backend("ref"):
+            lr, _ = model.prefill(params, tokens, ML)
+        gap = "none launched"
+        if n_attn:
+            lk, _ = model.prefill(params, tokens, ML)
+            gap = f"{(lk - lr)[..., :cfg.vocab_size].abs().max().item():.3e}"
+            del lk
+        spread = one_ulp_spread(torch, model, params, tokens, ML, lr)
+        log(f"[rserve] {arch} prefill logits: kernels vs plain {gap}; "
+            f"the plain path itself moves {spread:.3e} when half the "
+            f"embedding's entries move one bf16 ulp (max|logit| "
+            f"{lr[..., :cfg.vocab_size].abs().max().item():.2f})")
+        del lr
+        lap("one-ulp spread")
+        if arch == "recurrentgemma-9b":
+            # the full model decorrelates under one ulp: every B14 / B15
+            # launch of its teacher-forced run held to its plain version on
+            # the model's own inputs, the end-to-end gates on one period
+            calls, err, scale = held_calls(torch, lambda: tf_logits(
+                torch, model, params, tokens, out, ML))
+            log(f"[rserve] {arch}: all {calls} B14 / B15 launches of the "
+                f"teacher-forced run (prefill + {G - 1} steps) within one "
+                f"bf16 ulp of their largest output of their plain versions "
+                f"on the same inputs (max |err| {err:.3e}, max |output| "
+                f"{scale:.3e})")
+            if calls != n_attn * G:
+                raise AssertionError(f"{calls} attention calls held, "
+                                     f"expected {n_attn * G}")
+            lap("held launches")
+            recurrent_scheduler(torch, device, model, params, compare=False)
+            lap("scheduler")
+            del eng, params, model, out
+            gc.collect()
+            torch.cuda.empty_cache()
+            model = build_model(cfg.with_(num_layers=len(cfg.block_pattern)))
+            params = model.init(torch.Generator(device).manual_seed(0),
+                                device)
+            eng = ServeEngine(model, max_len=ML, device=device)
+            eng.generate(params, tokens, G)         # captures the G graph
+            zero_launches(ops)
+            out = eng.generate(params, tokens, G)
+            torch.cuda.synchronize()
+            got = {k: n for k, n in ops.LAUNCHES.items() if n}
+            log(f"[rserve] {arch} cut to one period ({model.kinds}) at full "
+                f"width: launches {got}")
+            if got != {"flash_attention": 1, "decode_attention": G}:
+                raise AssertionError(f"the one-period model launched {got}")
+            hold_to_plain(torch, "rserve", eng, params, tokens, out)
+            recurrent_scheduler(torch, device, model, params, compare=True)
+            lap("one period: serve, plain path, scheduler")
+        else:
+            hold_to_plain(torch, "rserve", eng, params, tokens, out)
+            lap("plain path")
+            dcfg = dataclasses.replace(LSTM_CONFIGS["lstm_ptb"],
+                                       vocab_size=model.vocab_padded)
+            deng = ServeEngine(LSTMModel(dcfg), max_len=ML, device=device,
+                               sparsity=lstm_policy(0.75, 0.5))
+            dparams, _ = deng.prepare(deng.model.init(
+                torch.Generator().manual_seed(7), device))
+            draft = DraftModel(deng.model, dparams, scan_prefill=True)
+            eng.generate(params, tokens, G, draft=draft, spec_k=SPEC_K)
+            zero_launches(ops)
+            sdt = []
+            sout, st = timed_call(torch, sdt, lambda: eng.generate(
+                params, tokens, G, draft=draft, spec_k=SPEC_K,
+                return_state=True))
+            sgot = {k: v for k, v in ops.LAUNCHES.items() if v}
+            ran = st["chunks"] * eng.spec_rounds
+            swant = {"fused_brds_lstm_scan": dcfg.num_layers,
+                     "fused_brds_lstm_step": dcfg.num_layers * (SPEC_K + 1)
+                     * ran}
+            if sgot != swant:
+                raise AssertionError(f"{arch} spec launched {sgot}, "
+                                     f"expected {swant}")
+            same_tokens(torch, f"{arch} spec (lstm_ptb draft, V="
+                        f"{dcfg.vocab_size}) vs target-only greedy", sout,
+                        out)
+            acc, drafted = int(st["accepted"].sum()), int(st["drafted"].sum())
+            sdt = sdt[0]
+            log(f"[rserve] {arch} spec k={SPEC_K}: launches {sgot}; "
+                f"acceptance {acc / max(drafted, 1):.4f} ({acc}/{drafted}), "
+                f"{int(st['rounds'].max())} rounds, {sdt:.4f}s "
+                f"({B * G / sdt:.1f} tok/s)")
+            del deng, dparams, draft, st
+            lap("spec")
+        del eng, params, model, out
+        gc.collect()
+        torch.cuda.empty_cache()
+        log(f"[rserve] {arch}: {time.perf_counter() - t_arch:.1f}s; by part "
+            f"{laps}")
+    # observability: the serve CLI's scorecard and metrics on the card
+    import contextlib
+    import io
+    from repro_torch.launch import serve as serve_cli
+    mpath = ROOT / "build" / "chip_smoke_metrics.json"
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        serve_cli.main(["--arch", "lstm_ptb", "--brds", "--batch", "8",
+                        "--prompt-len", "32", "--gen", "64", "--scorecard",
+                        "--metrics", str(mpath)])
+    text = buf.getvalue()
+    for ln in text.splitlines():
+        log(f"[obs] {ln}")
+    js = json.loads(mpath.read_text())
+    mpath.unlink()
+    if ("effective GOPS" not in text or "3.35 TB/s" not in text
+            or js["dev_tokens"]["value"] != 8 * 64):
+        raise AssertionError("launch.serve --scorecard --metrics: no "
+                             "scorecard or wrong counters")
+
+
+def one_ulp_spread(torch, model, params, tokens, ML, logits) -> float:
+    """The largest change of the plain path's prefill ``logits`` when half
+    the embedding's entries (chosen by a seeded generator) move one bf16
+    ulp up in magnitude."""
+    from repro_torch.sparse import use_backend
+    emb = params["embed"]["table"]
+    g = torch.Generator(emb.device).manual_seed(3)
+    bump = (torch.rand(emb.shape, generator=g, device=emb.device)
+            < 0.5).to(torch.int16)
+    moved = (emb.view(torch.int16) + bump).view(emb.dtype)
+    del bump
+    with use_backend("ref"):
+        b, _ = model.prefill(dict(params, embed={"table": moved}), tokens,
+                             ML)
+    return (logits - b)[..., :model.cfg.vocab_size].abs().max().item()
+
+
+def held_calls(torch, run) -> tuple[int, float, float]:
+    """``run`` with every B15 / B14 call the model makes (the default
+    backend, on the card: the kernels) also computed by its plain version
+    on the same inputs and held to it within one bf16 ulp of the call's
+    largest output. (Random weights give this model scores in the
+    thousands: its softmax is near one-hot, float32 rounding of a score
+    in another order moves p by ~1e-3 relative, and an output near
+    cancellation moves by more than one ulp of itself; a wrong key or
+    mask moves it by the size of V.) The first B15 call is also computed
+    in float64, and both sides' distances from it are printed. Returns
+    (the calls held, the largest |kernel - plain|, the largest output)."""
+    from repro_torch.kernels import ops
+    real = {n: getattr(ops, n) for n in ATTN_KERNELS}
+    seen = dict(calls=0, err=0.0, scale=0.0)
+
+    def holding(name):
+        def call(*a, backend=None, **kw):
+            got = real[name](*a, backend=backend, **kw)
+            if backend is None:
+                want = real[name](*a, backend="ref", **kw).float()
+                if name == "flash_attention" and not seen["calls"]:
+                    exact = flash_f64(torch, *a, **kw)
+                    log(f"  the model's first B15 call, (B, Hq, S, D) "
+                        f"{tuple(a[0].shape)}: |kernel - float64| "
+                        f"{(got.double() - exact).abs().max().item():.3e}, "
+                        f"|plain - float64| "
+                        f"{(want.double() - exact).abs().max().item():.3e}, "
+                        f"max |float64| {exact.abs().max().item():.3e}")
+                    del exact
+                d = (got.float() - want).abs().max().item()
+                scale = want.abs().max().item()
+                if not d <= BF16_ULP * scale:
+                    raise AssertionError(f"{name} in the model: max |kernel "
+                                         f"- plain| {d:.3e} past one bf16 ulp "
+                                         f"of its largest output {scale:.3e}")
+                seen["calls"] += 1
+                seen["err"] = max(seen["err"], d)
+                seen["scale"] = max(seen["scale"], scale)
+            return got
+        return call
+
+    for n in ATTN_KERNELS:
+        setattr(ops, n, holding(n))
+    try:
+        run()
+    finally:
+        for n, f in real.items():
+            setattr(ops, n, f)
+    return seen["calls"], seen["err"], seen["scale"]
+
+
+def flash_f64(torch, q, k, v, *, causal=True, window=None):
+    """B15's function in float64 (the plain version's masks): q (B, Hq,
+    Sq, D), k/v (B, Hkv, Sk, D), q rows right-aligned to the kv end."""
+    B, Hq, Sq, D = q.shape
+    Hkv, Sk = k.shape[1], k.shape[2]
+    qd = q.double().reshape(B, Hkv, Hq // Hkv, Sq, D) * D ** -0.5
+    s = torch.einsum("bhgqd,bhkd->bhgqk", qd, k.double())
+    qpos = torch.arange(Sq, device=q.device)[:, None] + (Sk - Sq)
+    kpos = torch.arange(Sk, device=q.device)[None]
+    live = torch.ones((Sq, Sk), dtype=torch.bool, device=q.device)
+    if causal:
+        live &= qpos >= kpos
+    if window is not None:
+        live &= kpos > qpos - window
+    p = torch.softmax(s.masked_fill(~live, float("-inf")), -1)
+    return torch.einsum("bhgqk,bhkd->bhgqd", p, v.double()).reshape(
+        B, Hq, Sq, D)
+
+
+def recurrent_scheduler(torch, device, model, params, *, compare) -> None:
+    """recurrentgemma-9b under ``ContinuousBatchingEngine``: RSCHED's
+    slots and requests (exact-length prefill: the model is not
+    length-aware), warmed on the first requests, then all of them with
+    the launch counts set to 0 just before and held just after: a
+    prefill call's B15 a layer, and each chunk its graph's capture (8
+    steps x B14 a layer). ``compare``: the first four requests' tokens
+    equal their ServeEngine B=1 greedy tokens up to a top-2 margin below
+    TF_MARGIN."""
+    from repro_torch.kernels import ops
+    from repro_torch.serving import ServeEngine
+    from repro_torch.serving.scheduler import ContinuousBatchingEngine
+    C = RSCHED
+    V, ML = model.cfg.vocab_size, C["max_len"]
+    n_attn = sum(k.startswith("attn") for k in model.kinds)
+    g = np.random.default_rng(0)
+    reqs = [(g.integers(0, V, (1, int(g.integers(C["prompt"][0],
+                                                 C["prompt"][1] + 1)))),
+             int(g.integers(C["budget"][0], C["budget"][1] + 1)))
+            for _ in range(C["requests"])]
+    sched = ContinuousBatchingEngine(model, params, slots=C["slots"],
+                                     max_len=ML, device=device)
+    for p, b in reqs[:C["slots"]]:                 # warm: capture the chunk
+        sched.submit(p, b)
+    sched.run()
+    per_chunk = sched.chunk * n_attn
+    if sched._loop.graph.launches != {"decode_attention": per_chunk}:
+        raise AssertionError(f"the chunk graph holds "
+                             f"{sched._loop.graph.launches}")
+    zero_launches(ops)
+    chunks0, t0 = sched.steps_dispatched, time.perf_counter()
+    uids = [sched.submit(p, b) for p, b in reqs]
+    res = sched.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    chunks = sched.steps_dispatched - chunks0
+    got = {k: v for k, v in ops.LAUNCHES.items() if v}
+    want = {"flash_attention": n_attn * len(reqs),
+            "decode_attention": chunks * per_chunk}
+    toks = sum(len(res[u]) for u in uids)
+    log(f"[rsched] {model.cfg.name} ({model.cfg.num_layers} layers), "
+        f"{C['slots']} slots, {len(reqs)} "
+        f"requests (prompts {C['prompt']}, budgets {C['budget']}): "
+        f"{toks} tokens in {wall:.3f}s ({toks / wall:.1f} tok/s), "
+        f"{chunks} chunks; launches {got}, expected {want}")
+    if got != want or any(len(res[u]) != b for u, (_, b) in zip(uids, reqs)):
+        raise AssertionError(f"scheduler launched {got} or cut a request")
+    if not compare:
+        return
+    eng = ServeEngine(model, max_len=ML, device=device)
+    for i in range(C["compared"]):
+        p, b = reqs[i]
+        pt = torch.from_numpy(p).to(device)
+        want_t = eng.generate(params, pt, b)[0]
+        got_t = torch.from_numpy(res[uids[i]]).to(device)
+        if torch.equal(got_t, want_t.to(got_t.dtype)):
+            continue
+        seq = torch.cat([pt, want_t[None].long()], 1)
+        with torch.no_grad():
+            lg = model.forward(params, seq)[0, p.shape[1] - 1:-1, :V]
+        top2 = lg.topk(2, dim=-1).values
+        bad = int((got_t != want_t.to(got_t.dtype)).nonzero()[0])
+        margin = float(top2[bad, 0] - top2[bad, 1])
+        log(f"[rsched] request {i}: differs from B=1 at token {bad}, top-2 "
+            f"margin {margin:.3e}")
+        if margin >= TF_MARGIN:
+            raise AssertionError(f"request {i}: scheduler tokens differ "
+                                 "from B=1 greedy above the margin")
+    log(f"[rsched] the first {C['compared']} requests: tokens equal their "
+        "B=1 ServeEngine greedy tokens (up to a small margin)")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3059,6 +3695,7 @@ def main() -> int:
         log(f"  {name}: {n} kernels; the B=8 serve tier: " + "; ".join(tier))
 
     occupancy(torch, device)
+    occupancy_d256(torch, device)
 
     flush = torch.empty(256 << 20, dtype=torch.uint8, device=device)
     t0 = time.perf_counter()
@@ -3071,6 +3708,7 @@ def main() -> int:
     rec = check_kernels(torch, device, flush)
     phase("2 kernels")
     rec.update(check_attention(torch, device, flush))
+    check_attention_d256(torch, device, flush)
     phase("6 attention kernels")
     del flush
     launches, first = serve(torch, device)
@@ -3085,6 +3723,8 @@ def main() -> int:
     phase("8 scheduler")
     training(torch, device)
     phase("9 training")
+    recurrent_serve(torch, device)
+    phase("10 recurrent families")
     log("[graph] rows: " + json.dumps(GRAPH_ROWS))
 
     src = {"rb_dual_spmv": ("rb_spmv.cu", "src/repro/kernels/rb_spmv.py:86"),

@@ -86,9 +86,12 @@
 // thread that three warps per SM sub-partition leave.
 // Key tiles: BK = 64, or 32 at D = 256, where O alone takes 128 registers
 // a thread; NS = 3 stages fit shared memory at every D (192 KB at D =
-// 192). At D = 192 and 256 with two consumer warpgroups ptxas still
-// serializes the products (O is 96 or 128 registers): right, slower, and
-// on no serve path yet. D = 32 is padded to one 64-column atom of zeros. Only the
+// 192). At D = 192 with two consumer warpgroups ptxas still serializes
+// the products (O is 96 registers): right, slower, and on no serve path
+// yet. At D = 256 (recurrentgemma-9b's local attention) two warpgroups
+// spill, so a block has one (tc_pairs): 196 registers, no spill, 129 KB
+// of shared memory, and each K/V tile is loaded once per q head (from L2
+// after the first). D = 32 is padded to one 64-column atom of zeros. Only the
 // diagonal, window-edge and ragged tiles are masked; tiles the masks leave
 // dead are never loaded (the Pallas kernel's block skip). Blocks run
 // heaviest first: the q tiles with the most live keys take the lowest
@@ -505,11 +508,13 @@ decode_cluster_kernel(const DecodeArgs<T> a) {
 }
 
 // GM: q heads a block carries, the least power of two >= G up to the
-// register budget: GM * D <= 512, at most 8 (D = 32, 64: 8; 128: 4; 192,
-// 256: 2); larger groups take several blocks (gridDim.z).
+// register budget: GM * D <= 512, at most 8 (D = 32, 64: 8; 128: 4; 192:
+// 2), and one head at D = 256 (two spill under the 128-register bound
+// of two blocks an SM); larger groups take several blocks (gridDim.z).
 template <int D>
 constexpr int decode_max_heads() {
-  return 512 / D >= 8 ? 8 : 512 / D >= 4 ? 4 : 512 / D >= 2 ? 2 : 1;
+  return D >= 256 ? 1
+                  : 512 / D >= 8 ? 8 : 512 / D >= 4 ? 4 : 512 / D >= 2 ? 2 : 1;
 }
 
 // Runs body(D, GM), both as std::integral_constant, for head dim D and
@@ -1184,7 +1189,19 @@ int launch_flash_tc(const void* q, long long sqb, long long sqh,
 }
 
 // two consumer warpgroups (two q heads) a block when the group size is
-// even, else one
+// even, else one; one at D = 256, where two keep O (128 registers a
+// thread), S and the p terms in flight within 168 registers only by
+// spilling: one warpgroup has 255
+template <int D>
+constexpr bool tc_pairs() { return D < 256; }
+
+template <int D, typename... A>
+int launch_flash_tc_d(bool pair, A... args) {
+  if constexpr (tc_pairs<D>())
+    if (pair) return launch_flash_tc<D, 2>(args...);
+  return launch_flash_tc<D, 1>(args...);
+}
+
 int dispatch_flash_tc(int D, const void* q, long long sqb, long long sqh,
                       long long sqs, const void* k, long long skb,
                       long long skh, long long sks, const void* v,
@@ -1195,14 +1212,9 @@ int dispatch_flash_tc(int D, const void* q, long long sqb, long long sqh,
   const bool pair = (Hq / Hkv) % 2 == 0;
 #define BRDS_FLASH_TC(DV)                                                    \
   if (D == DV)                                                               \
-    return pair ? launch_flash_tc<DV, 2>(q, sqb, sqh, sqs, k, skb, skh, sks, \
-                                         v, svb, svh, svs, o, sob, soh, sos, \
-                                         B, Hq, Hkv, Sq, Sk, causal, window, \
-                                         scale, stream)                      \
-                : launch_flash_tc<DV, 1>(q, sqb, sqh, sqs, k, skb, skh, sks, \
-                                         v, svb, svh, svs, o, sob, soh, sos, \
-                                         B, Hq, Hkv, Sq, Sk, causal, window, \
-                                         scale, stream)
+    return launch_flash_tc_d<DV>(pair, q, sqb, sqh, sqs, k, skb, skh, sks,  \
+                                 v, svb, svh, svs, o, sob, soh, sos, B, Hq, \
+                                 Hkv, Sq, Sk, causal, window, scale, stream)
   BRDS_FLASH_TC(32);
   BRDS_FLASH_TC(64);
   BRDS_FLASH_TC(128);
@@ -1298,7 +1310,7 @@ extern "C" int brds_flash_attention_bf16(
 extern "C" int brds_flash_attention_bf16_smem(int D, int G) {
   const bool pair = G % 2 == 0;
 #define BRDS_FLASH_SMEM(DV) \
-  if (D == DV) return pair ? tc_smem<DV, 2>() : tc_smem<DV, 1>()
+  if (D == DV) return pair && tc_pairs<DV>() ? tc_smem<DV, 2>() : tc_smem<DV, 1>()
   BRDS_FLASH_SMEM(32);
   BRDS_FLASH_SMEM(64);
   BRDS_FLASH_SMEM(128);

@@ -27,14 +27,16 @@ import math
 from dataclasses import dataclass
 from functools import lru_cache
 
-SMS = 132                   # H100 SXM
+from .. import hw
+
+SMS = hw.SMS                # H100 SXM
 REGS_PER_SM = 65536
 REG_UNIT = 256              # registers are allocated to a warp in 256s
 WARP_GRANULE = 4            # ... and warps by fours
 MAX_WARPS_PER_SM = 64
 MAX_BLOCKS_PER_SM = 32
 SMEM_PER_SM = 233472        # 228 KB
-SMEM_PER_BLOCK = 232448     # 227 KB, the opt-in limit of one block
+SMEM_PER_BLOCK = hw.SMEM_PER_BLOCK  # 227 KB, the opt-in limit of a block
 SMEM_RESERVED = 1024        # the runtime's own shared memory a block
 TILE = 16                   # batch rows a launch's tile (brds::kMaxBatch)
 
@@ -179,10 +181,29 @@ class DecodePlan:
 
 def decode_heads(G: int, D: int) -> int:
     """attention.cu by_decode's GM: the least power of two >= G, at most
-    8 and at most 512 / D (the register budget)."""
-    cap = 512 // D
+    8 and at most 512 / D (the register budget), one at D = 256 (two
+    spill)."""
+    cap = 1 if D >= 256 else 512 // D
     cap = 8 if cap >= 8 else 4 if cap >= 4 else 2 if cap >= 2 else 1
     return min(1 if G <= 1 else 2 if G <= 2 else 4 if G <= 4 else 8, cap)
+
+
+def flash_warpgroups(G: int, D: int) -> int:
+    """attention.cu dispatch_flash_tc's consumer warpgroups a block of
+    B15's tensor-core body (q heads a block): two when the group size G is
+    even, else one, and one at D = 256, where two spill (tc_pairs)."""
+    return 2 if G % 2 == 0 and D < 256 else 1
+
+
+def flash_smem(G: int, D: int) -> int:
+    """attention.cu tc_smem: the tensor-core body's dynamic shared memory
+    at head dim D and group size G: the warpgroups' 64-row Q tiles, three
+    K and V stages of 64 keys (32 at D = 256), the mbarriers and slack to
+    align the base to 1024 bytes (columns padded to a 64-column atom)."""
+    dp = max(D, 64)
+    bk = 32 if D > 192 else 64
+    return (1024 + flash_warpgroups(G, D) * 64 * dp * 2 + 2 * 3 * bk * dp * 2
+            + (2 * 3 + 1) * 8)
 
 
 def decode_smem(D: int, elem_bytes: int, heads: int, stages: int) -> tuple:

@@ -78,6 +78,7 @@ from dataclasses import replace
 
 import torch
 
+from .. import hw
 from ..core import pack_from_dense, pad_packed
 from ..kernels import decode_attention as kdec
 from ..kernels import delta_rb_spmv as kdelta
@@ -152,7 +153,7 @@ def profile_decode(dev, flush) -> dict:
     live = 2 * B * Hkv * L * D * 2
     print(f"decode_attention B={B} heads {Hq}/{Hkv}x{D} bf16, length {L} "
           f"of {S}: {live / 1e6:.1f} MB of live K and V, byte bound "
-          f"{live / 3.35e12 * 1e6:.2f} us; CUDA events, median of 30, L2 "
+          f"{live / hw.HBM_BW * 1e6:.2f} us; CUDA events, median of 30, L2 "
           "flushed", flush=True)
     out = {}
     for name, fn in (("full", run()), ("host length", run(fixed_length=L)),

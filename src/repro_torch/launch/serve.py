@@ -19,14 +19,21 @@ of the model zoo, dense or BRDS-pruned:
       --slots 4
   python -m repro_torch.launch.serve --arch lstm_ptb --brds --traffic \\
       --rate 16 --requests 64 --slots 8 --deadline 2.0
+  python -m repro_torch.launch.serve --arch recurrentgemma-9b
+  python -m repro_torch.launch.serve --arch rwkv6-7b --draft lstm_ptb \\
+      --draft-brds
+  python -m repro_torch.launch.serve --arch lstm_ptb --brds --scorecard \\
+      --metrics metrics.json
 
 Runs on the card unless ``--device cpu`` is given, at the configuration's
 full width unless ``--smoke`` narrows it (an LSTM to widths of 128, a
 transformer to ``configs.smoke_config``). ``--arch`` takes the LSTM
 language models and the zoo's config names; a config the port cannot serve
-yet errors out with the reason. A transformer's ``--brds`` prunes it with
-``transformer_policy(--spar-a, --spar-b)`` (MLP at A, attention at B);
-``--delta`` and ``--quant`` are LSTM-only. A packed LSTM (an LSTM draft
+yet errors out with the reason (the default is ``qwen3-0.6b``, as the
+reference's). A zoo model's ``--brds`` prunes it with
+``transformer_policy(--spar-a, --spar-b)`` (MLP and RWKV6's channel mix at
+A; attention, RG-LRU and RWKV6's time mix at B); ``--delta``, ``--quant``
+and ``--scorecard`` are LSTM-only. A packed LSTM (an LSTM draft
 too) steps through the single-launch fused kernels (``--fused``, the
 default) or the chained ones (``--no-fused``). Prints the generation
 rate (median and range of ``RUNS`` timed runs after one warm-up run), the
@@ -42,6 +49,12 @@ continuous-batching scheduler (``--slots``, ``--dispatch-depth``);
 the latency figures (TTFT / TPOT percentiles, goodput, drops). ``--trace
 FILE`` writes a Chrome trace of the engine and scheduler spans;
 ``--profile`` prints the device's busy share of any of these runs.
+``--metrics FILE`` dumps a metrics snapshot (Prometheus text, or JSON
+for a ``.json`` FILE: the run's on-device counters, its rate, spec
+acceptance and, under ``--traffic``, the request records), and
+``--scorecard`` prints the effective-GOPS scorecard of the timed run
+against the card's decode roofline (``obs.scorecard``); the counters ride
+the decode only when one of the two asks for them.
 """
 from __future__ import annotations
 
@@ -135,6 +148,10 @@ def _transformer_target(ap, args, device):
     if args.quant is not None:
         ap.error("--quant is LSTM-only (quantization rides the packed LSTM "
                  "decode path)")
+    if args.scorecard:
+        ap.error(f"--scorecard is LSTM-only (its MAC/byte ledger covers the "
+                 f"recurrent cell — repro_torch.obs.scorecard), not "
+                 f"{args.arch}")
     cfg = smoke_config(args.arch) if args.smoke else get_arch(args.arch)
     try:
         model = build_model(cfg)
@@ -203,7 +220,7 @@ def parser() -> argparse.ArgumentParser:
     from repro_torch.models import LSTM_CONFIGS
 
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", default="lstm_ptb", choices=sorted(
+    ap.add_argument("--arch", default="qwen3-0.6b", choices=sorted(
         k for k, c in LSTM_CONFIGS.items() if c.vocab_size) + ARCH_NAMES)
     ap.add_argument("--smoke", action="store_true",
                     help="LSTM: narrow input and hidden widths to 128; "
@@ -298,6 +315,14 @@ def parser() -> argparse.ArgumentParser:
                     help="record a Chrome-trace (Perfetto-loadable JSON) of "
                          "engine/scheduler spans to FILE "
                          "(repro_torch.obs.trace)")
+    ap.add_argument("--metrics", default=None, metavar="FILE",
+                    help="dump a metrics snapshot to FILE — Prometheus "
+                         "text, or JSON when FILE ends in .json "
+                         "(repro_torch.obs.metrics)")
+    ap.add_argument("--scorecard", action="store_true",
+                    help="LSTM only: print the effective-GOPS scorecard — "
+                         "harvested on-device counters against the decode "
+                         "roofline (repro_torch.obs.scorecard)")
     ap.add_argument("--profile", action="store_true",
                     help="run once more under torch.profiler (the generate, "
                          "or the --continuous / --traffic run) and print "
@@ -392,15 +417,17 @@ def _serve_lockstep(args, eng, params, tokens, sampling, draft, device):
         dts.append(time.perf_counter() - t0)
     dt = statistics.median(dts)
     toks = args.batch * args.gen
-    name = (torch.cuda.get_device_name(device) if device.type == "cuda"
-            else "cpu")
+    name = _device_name(device)
     print(f"generated {tuple(out.shape)} in {dt:.4f}s, median of "
           f"{len(dts)} runs ({toks / dt:.1f} tok/s, prefill included; "
           f"range {toks / max(dts):.1f}-{toks / min(dts):.1f} tok/s) "
           f"on {name}")
+    spec = None
     if draft is not None:
         drafted, accepted, rounds = (int(state[k].sum()) for k in
                                      ("drafted", "accepted", "rounds"))
+        spec = dict(rounds=rounds, drafted=drafted, accepted=accepted,
+                    acceptance_rate=accepted / max(drafted, 1))
         print(f"spec: acceptance={accepted / max(drafted, 1):.1%} "
               f"({accepted}/{drafted} drafted over {rounds} rounds)")
     if args.delta is not None:
@@ -412,9 +439,61 @@ def _serve_lockstep(args, eng, params, tokens, sampling, draft, device):
         if "ops_reduction" in occ:
             line += f", effective-ops reduction {occ['ops_reduction']:.2f}x"
         print(line)
+    counters = None
+    if _want_counters(args):
+        from repro_torch.obs import counters as obs_counters
+        counters = obs_counters.from_state(eng.model, state, steps=args.gen)
+    _obs_outputs(args, params, counters, dt, batch=args.batch, device=name,
+                 step_sum=(float(args.batch * (args.prompt_len + args.gen))
+                           if args.delta is not None else None),
+                 spec=spec, extra_gauges={"serve_toks_per_s": toks / dt})
     print("sample ids:", out[0, :16].tolist())
     if args.profile:
         _profile(run, device)
+
+
+def _device_name(device: torch.device) -> str:
+    return (torch.cuda.get_device_name(device) if device.type == "cuda"
+            else "cpu")
+
+
+def _want_counters(args) -> bool:
+    """Counters ride the decode only when an obs output asks for them."""
+    return args.scorecard or args.metrics is not None
+
+
+def _obs_outputs(args, params, counters, wall_s, *, batch, device,
+                 step_sum=None, records=None, summary=None, spec=None,
+                 extra_gauges=None):
+    """``--scorecard`` and ``--metrics`` outputs, shared by the lockstep,
+    ``--continuous`` and ``--traffic`` paths (``repro_torch.obs``)."""
+    if args.scorecard and counters is not None:
+        from repro_torch.obs import scorecard as obs_scorecard
+        card = obs_scorecard.build(params, counters, wall_s, batch=batch,
+                                   step_sum=step_sum)
+        print(obs_scorecard.render(card, device))
+    if args.metrics:
+        from repro_torch.obs import MetricsRegistry
+        reg = MetricsRegistry()
+        if records is not None:
+            reg.absorb_traffic(records, summary)
+        reg.absorb_spec(spec)
+        reg.absorb_counters(counters)
+        for name, val in (extra_gauges or {}).items():
+            reg.gauge(name).set(val)
+        reg.dump(args.metrics)
+        print(f"metrics -> {args.metrics}")
+
+
+def _run_counters(before: dict | None, after: dict | None) -> dict | None:
+    """A scheduler's counters over one run: the counter slots (steps,
+    tokens, spec rounds) less their values ``before`` it, the gauges
+    (fired columns) as they stand ``after`` it."""
+    if after is None:
+        return None
+    from repro_torch.obs import counters as obs_counters
+    return {k: v - before[k] if k in obs_counters.BASE_COUNTERS else v
+            for k, v in after.items()}
 
 
 def _scheduler(args, model, params, sampling, draft, device):
@@ -423,7 +502,7 @@ def _scheduler(args, model, params, sampling, draft, device):
         model, params, slots=args.slots,
         max_len=args.prompt_len + args.gen, sampling=sampling,
         dispatch_depth=args.dispatch_depth, draft=draft,
-        spec_k=args.spec_k, device=device)
+        spec_k=args.spec_k, device=device, counters=_want_counters(args))
 
 
 def _serve_scheduled(args, model, params, sampling, draft, device):
@@ -456,7 +535,7 @@ def _serve_scheduled(args, model, params, sampling, draft, device):
 
         def run():
             return serve_trace(sched, trace, prompts,
-                               offered_rps=args.rate)[1]
+                               offered_rps=args.rate)
     else:
         g = np.random.default_rng(args.seed + 1)
         lens = [max(4, args.prompt_len - 3 * i) for i in range(args.batch)]
@@ -472,10 +551,12 @@ def _serve_scheduled(args, model, params, sampling, draft, device):
 
         run()
     first = sched.steps_dispatched
+    before = sched.counters()
     out = run()
     chunks = sched.steps_dispatched - first
+    counters = _run_counters(before, sched.counters())
     if args.traffic:
-        s = out
+        records, s = out
         print(f"completed={s['completed']} expired={s['expired']} "
               f"rejected={s['rejected']} ({s['tokens']} tokens, "
               f"{s['wall_s']:.2f}s wall, {chunks} chunk dispatches)")
@@ -493,11 +574,23 @@ def _serve_scheduled(args, model, params, sampling, draft, device):
               f"{dt:.2f}s ({total / dt:.1f} tok/s, {chunks} chunk "
               "dispatches)")
         print("sample ids:", results[min(results)][:16].tolist())
+    spec = None
     if draft is not None:
-        st = sched.spec_stats()
+        spec = st = sched.spec_stats()
         print(f"spec: acceptance={st['acceptance_rate']:.1%} "
               f"({st['accepted']}/{st['drafted']} drafted over "
               f"{st['rounds']} rounds)")
+    step_sum = (float(np.sum(sched.slot_steps)) if args.delta is not None
+                else None)
+    if args.traffic:
+        _obs_outputs(args, params, counters, s["wall_s"], batch=args.slots,
+                     device=_device_name(device), step_sum=step_sum,
+                     records=records, summary=s, spec=spec)
+    else:
+        _obs_outputs(args, params, counters, dt, batch=args.slots,
+                     device=_device_name(device), step_sum=step_sum,
+                     spec=spec, extra_gauges={"serve_toks_per_s":
+                                              total / dt})
     if args.profile:
         _profile(run, device)
 

@@ -12,6 +12,7 @@ The KV cache is updated in place: ``kv_cache_update`` writes the new rows
 into the cache's buffers and returns the same dict. A step's positions
 past its length are dead, so a rewind needs no copy (``spec.verify``).
 
+Local attention (``attn_local``) passes its window to each of these.
 Training takes the reference's train-mode attention in plain PyTorch
 (``train_attention``: B15's plain version, the full masked softmax, up to
 max(block_q, 1024) rows, ``blocked_attention``'s online softmax beyond), so autograd sees every op:
@@ -90,10 +91,12 @@ def decode_attention(q, cache: dict, lengths, *, window: int | None = None):
 _NEG = -1e30
 
 
-def blocked_attention(q, k, v, *, block_q: int = 512, block_kv: int = 1024):
+def blocked_attention(q, k, v, *, window: int | None = None,
+                      block_q: int = 512, block_kv: int = 1024):
     """Causal online-softmax attention over q and kv blocks, the
-    reference's memory-safe form, MHA layout (B, S, H, D). Sq and Sk must
-    be multiples of their blocks (a block is cut to the sequence)."""
+    reference's memory-safe form, MHA layout (B, S, H, D); ``window``:
+    keys in (qpos - window, qpos]. Sq and Sk must be multiples of their
+    blocks (a block is cut to the sequence)."""
     B, Sq, H, D = q.shape
     Sk = k.shape[1]
     bq, bk = min(block_q, Sq), min(block_kv, Sk)
@@ -113,7 +116,10 @@ def blocked_attention(q, k, v, *, block_q: int = 512, block_kv: int = 1024):
             vb = v[:, ik * bk:(ik + 1) * bk].float()
             s = torch.einsum("bqhd,bkhd->bhqk", qf, kb)
             kpos = ik * bk + torch.arange(bk, device=dev)
-            s = torch.where((qpos[:, None] >= kpos)[None, None], s, _NEG)
+            mask = qpos[:, None] >= kpos
+            if window is not None:
+                mask = mask & (kpos > qpos[:, None] - window)
+            s = torch.where(mask[None, None], s, _NEG)
             m_new = torch.maximum(m, s.amax(dim=-1))
             p = torch.where(s > _NEG / 2, torch.exp(s - m_new[..., None]),
                             0.0)
@@ -127,17 +133,20 @@ def blocked_attention(q, k, v, *, block_q: int = 512, block_kv: int = 1024):
     return torch.cat(outs, dim=1)
 
 
-def train_attention(q, k, v, *, block_q: int, block_kv: int):
+def train_attention(q, k, v, *, block_q: int, block_kv: int,
+                    window: int | None = None):
     """Causal self-attention for training, as the reference's "train"
     mode takes it: q (B, S, Hq, Dh), k/v (B, S, Hkv, Dh) → (B, S, Hq, Dh);
     the full masked softmax (B15's plain version, ``ref.mha_ref``) up to
-    max(block_q, 1024) rows, the blocked online softmax beyond."""
+    max(block_q, 1024) rows, the blocked online softmax beyond; ``window``
+    (local attention): keys in (qpos - window, qpos]."""
     if q.shape[1] <= max(block_q, 1024):
         return mha_ref(q.transpose(1, 2), k.transpose(1, 2),
-                       v.transpose(1, 2)).transpose(1, 2)
+                       v.transpose(1, 2), window=window).transpose(1, 2)
     G = q.shape[2] // k.shape[2]        # GQA: q head h reads kv head h // G
     k, v = k.repeat_interleave(G, dim=2), v.repeat_interleave(G, dim=2)
-    return blocked_attention(q, k, v, block_q=block_q, block_kv=block_kv)
+    return blocked_attention(q, k, v, window=window, block_q=block_q,
+                             block_kv=block_kv)
 
 
 # ----------------------------------------------------------------- caches

@@ -20,7 +20,7 @@ class PSpec:
     axes (the reference's names: ``"batch"``, ``"lstm_hidden"``, ...),
     one per dimension, or is empty when nothing reads them."""
     shape: tuple
-    init: str = "normal"             # normal | zeros
+    init: str = "normal"             # normal | zeros | ones
     scale: float | None = None       # stddev override (default 1/sqrt(fan_in))
     dtype: torch.dtype = torch.float32
     axes: tuple = ()
@@ -38,10 +38,11 @@ def _default_scale(shape) -> float:
 
 
 def init_params(defs, generator: torch.Generator, device: torch.device):
-    """Tensors for a PSpec tree. Normal draws come from ``generator`` (a CPU
-    generator) in tree order — dict keys sorted, lists in order — and are
-    then moved to ``device``, so a seed gives the same weights on every
-    device."""
+    """Tensors for a PSpec tree. Normal draws come from ``generator`` in
+    tree order — dict keys sorted, lists in order — on the generator's own
+    device, and are then moved to ``device``: a seeded CPU generator gives
+    the same weights on every device; a seeded CUDA generator gives other
+    weights, made on the card (the fast way to billions of them)."""
     if isinstance(defs, dict):
         return {k: init_params(defs[k], generator, device)
                 for k in sorted(defs)}
@@ -50,8 +51,11 @@ def init_params(defs, generator: torch.Generator, device: torch.device):
     d = defs
     if d.init == "zeros":
         return torch.zeros(d.shape, dtype=d.dtype, device=device)
+    if d.init == "ones":
+        return torch.ones(d.shape, dtype=d.dtype, device=device)
     s = d.scale if d.scale is not None else _default_scale(d.shape)
-    a = torch.randn(d.shape, generator=generator, dtype=torch.float32) * s
+    a = torch.randn(d.shape, generator=generator, dtype=torch.float32,
+                    device=generator.device) * s
     return a.to(device=device, dtype=d.dtype)
 
 

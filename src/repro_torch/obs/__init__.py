@@ -7,18 +7,25 @@
   emitted tokens, spec acceptance, delta fired-column gauges) that the
   scheduler's captured chunk updates in place and that the host reads at
   the chunk's existing harvest: no extra device→host transfer.
+- ``metrics``: counter/gauge/histogram registry with Prometheus-text and
+  JSON dumps, absorbing traffic records, spec stats and device counters.
+- ``scorecard``: achieved vs. roofline-bound effective GOPS and
+  bytes/token, joining harvested counters with the card's constants
+  (``repro_torch.hw``).
 
-The reference's ``metrics``, ``scorecard`` and ``collectives`` are not
-ported yet (``ROADMAP.md`` A3 and A7).
+The reference's ``collectives`` (per-step collective inventory of a mesh)
+is not ported yet (``ROADMAP.md`` A7).
 """
 import importlib
 
-__all__ = ["counters", "trace", "enable_tracing", "span", "traced"]
+__all__ = ["counters", "metrics", "scorecard", "trace", "MetricsRegistry",
+           "enable_tracing", "span", "traced"]
 
-_LAZY = {"enable_tracing": ("trace", "enable"),
+_LAZY = {"MetricsRegistry": ("metrics", "MetricsRegistry"),
+         "enable_tracing": ("trace", "enable"),
          "span": ("trace", "span"),
          "traced": ("trace", "traced")}
-_SUBMODULES = ("counters", "trace")
+_SUBMODULES = ("counters", "metrics", "scorecard", "trace")
 
 
 def __getattr__(name):

@@ -25,6 +25,7 @@ import collections
 import gc
 import inspect
 import weakref
+from typing import Any, Protocol, runtime_checkable
 
 import torch
 
@@ -32,14 +33,61 @@ from .sampling import SamplingConfig, sample
 from ..kernels import _build
 from ..sparse.backend import get_default_backend
 
-__all__ = ["conforms", "decode_loop", "decode_loop_eager", "decode_body",
-           "CapturedLoop", "CountedGraph", "GraphCache",
+__all__ = ["DecodeStep", "conforms", "decode_loop", "decode_loop_eager",
+           "decode_body", "CapturedLoop", "CountedGraph", "GraphCache",
            "prefill_accepts_length", "prefill_accepts_cache", "leaves",
            "unflatten", "assign", "clone_tree"]
 
 
+@runtime_checkable
+class DecodeStep(Protocol):
+    """The decode contract every servable model family implements (the
+    reference's ``repro.serving.runtime.DecodeStep``).
+
+    Methods
+    -------
+    cache_defs(batch, max_len)
+        Decode-cache declaration as a ``PSpec`` tree (KV cache, recurrent
+        state, the LSTM's (c, h) and its temporal-delta state): whatever
+        the family keeps per sequence. Its logical axis names drive the
+        scheduler's slot joins and the speculative rollback.
+    init_cache(batch, max_len, device)
+        A zeroed cache of ``cache_defs``' shapes on ``device``.
+    prefill(params, tokens, max_len, extra=None)
+        Process a full prompt. Returns (last logits (B, 1, V), cache). A
+        family may also take ``length`` ((B,) true prompt lengths: the
+        padding after them must not perturb the state) and ``cache`` (a
+        cache to build in, in place).
+    decode_step(params, cache, tokens, pos)
+        Advance one token. ``tokens`` (B, 1); ``pos`` a scalar (lockstep)
+        or (B,) int32 positions (continuous batching). Returns (logits
+        (B, 1, V), cache).
+
+    Rewind contract: ``pos`` is the source of truth for a sequence's
+    length. Positional leaves (a ``cache_seq`` axis: KV caches) at
+    positions ≥ ``pos`` are dead, never read and freely overwritten, so a
+    caller may rewind by re-issuing a smaller ``pos``. Non-positional
+    leaves (recurrent state: the LSTM's (c, h) and delta references,
+    RG-LRU's h and conv, RWKV6's S, x_tm and x_cm) fold every token in,
+    so a rewinder checkpoints and restores them
+    (``spec.verify.rollback``).
+    """
+
+    def cache_defs(self, batch: int, max_len: int) -> Any: ...
+
+    def init_cache(self, batch: int, max_len: int, device) -> Any: ...
+
+    def prefill(self, params, tokens, max_len: int, extra=None): ...
+
+    def decode_step(self, params, cache, tokens, pos): ...
+
+
 def conforms(model) -> bool:
-    """Whether ``model`` implements the serving contract."""
+    """Whether ``model`` implements the ``DecodeStep`` serving contract:
+    each of its methods is callable on it. Looked up with ``getattr``, so
+    a proxy that delegates through ``__getattr__`` conforms too (an
+    ``isinstance`` check against the protocol reads attributes
+    statically)."""
     return all(callable(getattr(model, m, None))
                for m in ("cache_defs", "init_cache", "prefill", "decode_step"))
 

@@ -36,7 +36,7 @@ from __future__ import annotations
 
 import dataclasses
 import time
-from typing import Callable
+from typing import Any, Callable
 
 import numpy as np
 import torch
@@ -49,7 +49,21 @@ from ..obs import trace as obs_trace
 from ..traffic import (AdmissionQueue, DispatchQueue, QueuedRequest,
                        SlotInfo, SlotPool)
 
-__all__ = ["Finished", "TokenEvent", "ContinuousBatchingEngine"]
+__all__ = ["Request", "Finished", "TokenEvent", "ContinuousBatchingEngine"]
+
+
+@dataclasses.dataclass
+class Request:
+    """One request as a caller describes it (``submit`` takes its
+    fields): ``prompt`` (1, S) int tokens, ``max_new`` tokens at most,
+    ``extra`` family-specific conditioning, an absolute ``deadline`` on
+    the engine's clock, and a ``priority`` (higher first)."""
+    uid: int
+    prompt: Any
+    max_new: int
+    extra: Any = None
+    deadline: float | None = None
+    priority: int = 0
 
 
 @dataclasses.dataclass

@@ -846,3 +846,31 @@ def test_fits_beside(a, b, fits):
     """One block of b beside one of a on an SM: warps, registers (a warp's
     in 256s) and shared memory (with the runtime's 1 KB a block) add."""
     assert P.fits_beside(a, b) == fits
+
+
+@pytest.mark.parametrize("D", [32, 64, 128, 192, 256])
+@pytest.mark.parametrize("G", [1, 2, 3, 8, 16])
+def test_flash_tc_block_fits_and_spills_nowhere(D, G):
+    """B15's tensor-core block (``attention.cu`` tc_smem): two consumer
+    warpgroups for an even group, one for an odd one, and one at head_dim
+    256 whatever the group (two spill there); Q tiles of 64 rows, three
+    K / V stages of 64 keys (32 at D=256), columns padded to a 64-column
+    atom; within a block's shared memory at every head dim."""
+    wg = P.flash_warpgroups(G, D)
+    assert wg == (2 if G % 2 == 0 and D < 256 else 1)
+    dp, bk = max(D, 64), (32 if D == 256 else 64)
+    assert P.flash_smem(G, D) == (1024 + wg * 64 * dp * 2
+                                  + 2 * 3 * bk * dp * 2 + 7 * 8)
+    assert P.flash_smem(G, D) <= P.SMEM_PER_BLOCK
+
+
+def test_decode_plan_at_recurrentgemma_local_attention():
+    """recurrentgemma-9b's decode: B=4, 16 q heads on one kv head of 256,
+    bf16, a 2624-row cache. One q head a block (two spill at D=256), so
+    16 head groups x 2 slices x 4 rows: 128 blocks, one wave at two an
+    SM; a ring of two 32 KB stages."""
+    assert P.decode_heads(16, 256) == 1 and P.decode_heads(16, 128) == 4
+    p = P.decode_plan(B=4, Hkv=1, G=16, S=2624, D=256, elem_bytes=2)
+    assert (p.heads, p.groups, p.splits, p.stages) == (1, 16, 2, 2)
+    assert p.grid == 128 and p.smem <= P.SMEM_PER_BLOCK
+    assert P.waves(p.grid, p.per_sm) == 1

@@ -3,10 +3,12 @@ reference's scheduler on the same weights (the counterparts of
 ``tests/test_serving.py``'s continuous-batching tests and of
 ``tests/test_spec.py``'s scheduler test): ragged prompts through shared
 slots give every request its lockstep batch=1 tokens and the reference
-scheduler's, for the LSTM (dense and packed) and the transformer; budgets
-cap at the cache; a reused slot starts fresh; a draft changes no token.
-Plus the serve CLI's ``--continuous`` and ``--traffic`` runs and the
-entry point's device default. The hybrid family is not ported yet."""
+scheduler's, for the LSTM (dense and packed), the transformer and the
+RG-LRU + local-attention hybrid (recurrentgemma-9b's smoke config, its
+prompts past the window of 32); budgets cap at the cache; a reused slot
+starts fresh; a draft changes no token. Plus the serve CLI's
+``--continuous`` and ``--traffic`` runs and the entry point's device
+default."""
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -57,6 +59,23 @@ def transformer():
                     cfg, jax.tree.map(np.asarray, jparams), "cpu"))
 
 
+@pytest.fixture(scope="module")
+def hybrid():
+    name = "recurrentgemma-9b"
+    jcfg, cfg = j_smoke(name), smoke_config(name)
+    jmodel = j_build(jcfg)
+    jparams = jmodel.init(jax.random.key(0))
+    return dict(cfg=cfg, model=build_model(cfg), jmodel=jmodel,
+                jparams=jparams, params=transformer_params_from_numpy(
+                    cfg, jax.tree.map(np.asarray, jparams), "cpu"))
+
+
+# the hybrid's float32 logits, port vs reference (tests/test_torch_
+# recurrent.py): its requests' greedy tokens are compared where every
+# step's top-2 margin is at least 10x that
+HYBRID_ATOL = 1e-3
+
+
 def _packed_both(lstm):
     plan = jlstm_policy(0.6, 0.4, backend="ref").compile(lstm["jparams"])
     jpacked, _ = plan.pack(*plan.prune(lstm["jparams"]))
@@ -82,19 +101,27 @@ def _run_both(net, params, jparams, prompts, budgets, *, jdraft=None,
             {i: np.asarray(want[u]) for i, u in enumerate(juids)}, sched)
 
 
-@pytest.mark.parametrize("family", ["lstm", "transformer"])
-def test_continuous_batching_matches_lockstep(family, lstm, transformer):
+@pytest.mark.parametrize("family", ["lstm", "transformer", "hybrid"])
+def test_continuous_batching_matches_lockstep(family, request):
     """Ragged prompts through 2 shared slots: each request's lockstep
     batch=1 tokens and the reference scheduler's; slots admit from the
-    queue and evict on completion."""
-    net = lstm if family == "lstm" else transformer
+    queue and evict on completion. The hybrid's prompts run past its
+    window (32), so its local attention and RG-LRU state both carry."""
+    net = request.getfixturevalue(family)
+    if family == "hybrid":      # many tiny ops: faster on one thread
+        threads = torch.get_num_threads()
+        torch.set_num_threads(1)
+        request.addfinalizer(lambda: torch.set_num_threads(threads))
     vocab = net["cfg"].vocab_size
-    rng = np.random.default_rng(10)
+    rng = np.random.default_rng(30 if family == "hybrid" else 10)
     shapes = [(5, 6), (9, 3), (3, 7), (7, 5)]
+    if family == "hybrid":
+        shapes = [(37, 6), (9, 3), (40, 7), (7, 5)]
     prompts = [rng.integers(0, vocab, (1, n)) for n, _ in shapes]
     budgets = [g for _, g in shapes]
+    max_len = 48 if family == "hybrid" else 24
     sched = ContinuousBatchingEngine(net["model"], net["params"], slots=2,
-                                     max_len=24, chunk=4, **CPU)
+                                     max_len=max_len, chunk=4, **CPU)
     uids = [sched.submit(p, g) for p, g in zip(prompts, budgets)]
     assert sched.pending == 4           # nothing admitted before step()
     fin = sched.step()                  # admits 2, decodes one chunk
@@ -103,14 +130,19 @@ def test_continuous_batching_matches_lockstep(family, lstm, transformer):
     results = {f.uid: f.tokens for f in fin}
     results.update(sched.run())
     assert sched.pending == 0 and not sched.active_slots
-    eng = ServeEngine(net["model"], max_len=24, **CPU)
+    eng = ServeEngine(net["model"], max_len=max_len, **CPU)
     with j_use_backend("ref"):
-        jsched = JSched(net["jmodel"], net["jparams"], slots=2, max_len=24,
-                        chunk=4)
+        jsched = JSched(net["jmodel"], net["jparams"], slots=2,
+                        max_len=max_len, chunk=4)
         juids = [jsched.submit(jnp.asarray(p), g)
                  for p, g in zip(prompts, budgets)]
         want = jsched.run()
     for uid, juid, p, g in zip(uids, juids, prompts, budgets):
+        if family == "hybrid":
+            seq = torch.from_numpy(np.concatenate([p[0], results[uid]]))
+            top2 = net["model"].forward(net["params"], seq[None].long())[
+                0, p.shape[1] - 1:-1, :vocab].topk(2).values
+            assert float((top2[:, 0] - top2[:, 1]).min()) > 10 * HYBRID_ATOL
         np.testing.assert_array_equal(results[uid], np.asarray(want[juid]))
         np.testing.assert_array_equal(
             results[uid], eng.generate(net["params"], torch.from_numpy(p),
@@ -238,7 +270,8 @@ def test_scheduler_entry_point_and_mesh(lstm):
 def test_cli_scheduled_runs(argv, capsys, tmp_path):
     from repro_torch.launch import serve
     trace = tmp_path / "trace.json"
-    serve.main(["--smoke", "--brds", "--device", "cpu", "--gen", "6",
+    serve.main(["--arch", "lstm_ptb",
+                "--smoke", "--brds", "--device", "cpu", "--gen", "6",
                 "--prompt-len", "12", "--trace", str(trace), *argv])
     out = capsys.readouterr().out
     if "--traffic" in argv:
@@ -268,7 +301,8 @@ def test_cli_scheduled_builds_one_scheduler(mode, capsys, monkeypatch):
         return built[-1]
 
     monkeypatch.setattr(serve, "_scheduler", scheduler)
-    serve.main(["--smoke", "--brds", "--device", "cpu", "--gen", "6",
+    serve.main(["--arch", "lstm_ptb",
+                "--smoke", "--brds", "--device", "cpu", "--gen", "6",
                 "--prompt-len", "12", "--slots", "2", "--rate", "500",
                 "--profile", *mode])
     out = capsys.readouterr().out
@@ -282,10 +316,10 @@ def test_cli_flag_defaults_match_reference():
     """The scheduler flags parse with the reference's defaults."""
     from repro_torch.launch import serve
     args = serve.parser().parse_args([])
-    assert (args.continuous, args.traffic, args.slots, args.rate,
+    assert (args.arch, args.continuous, args.traffic, args.slots, args.rate,
             args.requests, args.deadline, args.dispatch_depth,
             args.load_seed, args.trace, args.spec_k) == \
-        (False, False, 4, 8.0, 64, None, 2, 0, None, 4)
+        ("qwen3-0.6b", False, False, 4, 8.0, 64, None, 2, 0, None, 4)
 
 
 @needs_card

@@ -290,7 +290,7 @@ def test_entry_points_default_to_the_card():
         ServeEngine(model)
     from repro_torch.launch import serve
     with pytest.raises(RuntimeError, match="CUDA"):
-        serve.main(["--smoke"])
+        serve.main(["--arch", "lstm_ptb", "--smoke"])
     assert model.init(device="cpu")["embed"]["table"].device.type == "cpu"
 
 
@@ -335,16 +335,19 @@ def test_serve_cli_delta_quant_fused_needs_the_card_by_default():
         pytest.skip("a CUDA device is present: the default is valid here")
     from repro_torch.launch import serve
     with pytest.raises(RuntimeError, match="CUDA"):
-        serve.main(["--smoke", "--brds", "--delta", "0", "--quant", "int8"])
+        serve.main(["--arch", "lstm_ptb",
+                    "--smoke", "--brds", "--delta", "0", "--quant", "int8"])
 
 
 def test_serve_cli_on_cpu(capsys):
     from repro_torch.launch import serve
-    serve.main(["--smoke", "--brds", "--device", "cpu", "--batch", "2",
+    serve.main(["--arch", "lstm_ptb",
+                "--smoke", "--brds", "--device", "cpu", "--batch", "2",
                 "--prompt-len", "4", "--gen", "3"])
     out = capsys.readouterr().out
     assert "arch=lstm_ptb" in out and "tok/s" in out and "BRDS:" in out
-    serve.main(["--smoke", "--brds", "--no-fused", "--device", "cpu",
+    serve.main(["--arch", "lstm_ptb",
+                "--smoke", "--brds", "--no-fused", "--device", "cpu",
                 "--batch", "1", "--prompt-len", "3", "--gen", "2",
                 "--temperature", "0.8", "--top-k", "5", "--profile"])
     out = capsys.readouterr().out
@@ -362,7 +365,8 @@ def test_serve_cli_on_cpu(capsys):
 ])
 def test_serve_cli_delta_and_quant_on_cpu(capsys, extra, expect):
     from repro_torch.launch import serve
-    serve.main(["--smoke", "--brds", "--device", "cpu", "--batch", "2",
+    serve.main(["--arch", "lstm_ptb",
+                "--smoke", "--brds", "--device", "cpu", "--batch", "2",
                 "--prompt-len", "4", "--gen", "3", *extra])
     out = capsys.readouterr().out
     assert "generated (2, 3)" in out and expect in out
@@ -374,7 +378,7 @@ def test_serve_cli_delta_and_quant_on_cpu(capsys, extra, expect):
 def test_serve_cli_rejects_bad_flag_combinations(argv):
     from repro_torch.launch import serve
     with pytest.raises(SystemExit):
-        serve.main(["--smoke", "--device", "cpu", *argv])
+        serve.main(["--arch", "lstm_ptb", "--smoke", "--device", "cpu", *argv])
 
 
 def test_full_width_config_shapes():
@@ -409,7 +413,8 @@ def test_serve_cli_fused_flag_reaches_the_model(monkeypatch, capsys, flags,
             super().__init__(cfg, **kw)
 
     monkeypatch.setattr(tmodels, "LSTMModel", Recording)
-    serve.main(["--smoke", "--brds", "--device", "cpu", "--batch", "1",
+    serve.main(["--arch", "lstm_ptb",
+                "--smoke", "--brds", "--device", "cpu", "--batch", "1",
                 "--prompt-len", "3", "--gen", "2", *flags])
     assert seen == [fused]
     assert "generated (1, 2)" in capsys.readouterr().out

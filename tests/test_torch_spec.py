@@ -532,7 +532,8 @@ def test_serve_cli_with_a_draft_on_cpu(capsys):
                                     "--spec-k", "2"]])
 def test_serve_cli_draft_variants_on_cpu(capsys, extra):
     from repro_torch.launch import serve
-    serve.main(["--smoke", "--brds", "--device", "cpu", "--batch", "2",
+    serve.main(["--arch", "lstm_ptb",
+                "--smoke", "--brds", "--device", "cpu", "--batch", "2",
                 "--prompt-len", "4", "--gen", "3", "--draft", "lstm_ptb",
                 *extra])
     assert "spec: acceptance=" in capsys.readouterr().out
@@ -545,7 +546,7 @@ def test_serve_cli_draft_variants_on_cpu(capsys, extra):
 def test_serve_cli_rejects_bad_draft_flags(argv):
     from repro_torch.launch import serve
     with pytest.raises(SystemExit):
-        serve.main(["--smoke", "--device", "cpu", *argv])
+        serve.main(["--arch", "lstm_ptb", "--smoke", "--device", "cpu", *argv])
 
 
 def test_spec_import_loads_no_jax():

@@ -425,8 +425,9 @@ def test_spec_with_a_padded_target_vocabulary():
 
 
 def test_unsupported_configs_raise():
-    """Every config name is known; the dense attention members build, the
-    rest raise NotImplementedError naming what is missing."""
+    """Every config name is known; the dense attention members, the
+    RG-LRU hybrid and RWKV6 build, the rest raise NotImplementedError
+    naming what is missing."""
     assert len(ARCH_NAMES) == 10
     built = []
     for name in ARCH_NAMES:
@@ -438,7 +439,7 @@ def test_unsupported_configs_raise():
         except NotImplementedError as e:
             assert "queue A item 6" in str(e)
     assert sorted(built) == ["llama3.2-3b", "minitron-8b", "nemotron-4-340b",
-                             "qwen3-0.6b"]
+                             "qwen3-0.6b", "recurrentgemma-9b", "rwkv6-7b"]
     model = build_model(smoke_config("qwen3-0.6b"))
     with pytest.raises(NotImplementedError):
         model.prefill(None, torch.zeros((1, 2), dtype=torch.long), 4,
@@ -473,7 +474,7 @@ def test_serve_cli_on_cpu(capsys):
 
 
 @pytest.mark.parametrize("argv,reason", [
-    (["--arch", "rwkv6-7b"], "rwkv"),
+    (["--arch", "rwkv6-7b", "--scorecard"], "rwkv"),
     (["--arch", "granite-moe-1b-a400m"], "mixture-of-experts"),
     (["--arch", "qwen3-0.6b", "--delta", "0"], "LSTM-only"),
     (["--arch", "qwen3-0.6b", "--brds", "--quant", "int8"], "LSTM-only"),
