@@ -16,7 +16,9 @@
    spill, a local array or (but for decode) a second wave; and the same
    for B15's tensor-core body and B14 at recurrentgemma-9b's local
    attention (head_dim 256, 16 q heads on one kv head), failing also on
-   shared memory past a block's 227 KB.
+   shared memory past a block's 227 KB, and at the bodies the rest of the
+   zoo launches (``occupancy_zoo``: head_dim 64 and 128, one or two
+   warpgroups, one, two or four q heads a block).
 2. Kernels: calls each kernel's wrapper at the serve path's full-width
    shapes (lstm_ptb, B=8, int16 deltas), at a small shape (B=3, int8
    deltas, odd H: the fused kernels' partial last block), at a wide one
@@ -91,7 +93,10 @@
    and ``scaled_dot_product_attention``, B14 also at the long shape; both
    at recurrentgemma-9b's shape (B15: B=4, causal S=2560, window 2048; B14
    at lengths 2560 and ragged ones below and above 2048) held and timed
-   the same way.
+   the same way; and both at the rest of the zoo's shapes
+   (``check_attention_zoo``: B15 without a causal mask at seamless-m4t's
+   encoder and cross-attention, groups of 7 and 16, B14 over a
+   fixed-length cross memory), held and timed beside SDPA.
 7. Transformer serve: full-width ``qwen3-0.6b`` in bf16 (seed-0 weights)
    through ``ServeEngine``, greedy, B=8, prompt 512, gen 64, with the
    launch counts read around one generate (28 B15 launches for the
@@ -117,6 +122,12 @@
    rwkv6-7b at full width in bf16 through ``ServeEngine``, the scheduler
    and a speculating lstm_ptb draft, and ``launch.serve --scorecard
    --metrics`` (its docstring gives the gates).
+11. The rest of the zoo (``zoo_serve``): granite-moe-1b-a400m,
+   qwen3-moe-235b-a22b (4 of 94 layers), seamless-m4t-medium (frames of
+   3072 rows), llava-next-34b (12 of 60 layers, 2880 patches) and
+   llama3.2-3b with the int8 KV cache, at full width in bf16 through
+   ``ServeEngine``, granite-moe also under the scheduler and with a
+   speculating lstm_ptb draft (its docstring gives the gates).
 
 Prints a ``{"kernels": [...]}`` line and, last, the device line. Exits
 non-zero on any failure, and without a card.
@@ -166,6 +177,8 @@ BF16_ULP = 2.0 ** -7   # bf16 outputs: within one ulp (2^-7 relative) of the
                        # differ in the summation order only
 ATTN_TOL = 1e-5        # float32 outputs: sums of up to 32768 terms in
                        # another order
+ATTN_FLOPS = 4         # the attention function's flops per live (q, k)
+                       # pair and head dim: Q·K^T and P·V, 2 each
 # the dense-transformer serve path: qwen3-0.6b at full width, bf16
 TSERVE = dict(arch="qwen3-0.6b", batch=8, prompt=512, gen=64, max_len=1024)
 # qwen3-0.6b's bf16 logits, kernels vs plain: attention outputs differ by
@@ -185,6 +198,43 @@ RRUNS = 2         # timed generate and prefill runs per recurrent model
 # 8-64 tokens, budgets 16-32, four compared with lockstep B=1
 RSCHED = dict(slots=8, requests=16, prompt=(8, 64), budget=(16, 32),
               max_len=96, compared=4)
+# phase 11, the rest of the zoo at full width in bf16: B, prompt, gen and,
+# where cut, the layers kept (zoo_serve's docstring says why)
+ZSERVE = {"granite-moe-1b-a400m": dict(batch=8, prompt=512, gen=64,
+                                       scheduler=True, draft=True),
+          # qk-normed: gated on its own weights (fan_in=False)
+          "qwen3-moe-235b-a22b": dict(batch=4, prompt=512, gen=32,
+                                      layers=4, fan_in=False),
+          "seamless-m4t-medium": dict(batch=4, prompt=64, gen=64,
+                                      frames=3072),
+          # 2880 patch embeddings, then 64 text tokens
+          "llava-next-34b": dict(batch=2, prompt=2944, gen=32, layers=12),
+          "llama3.2-3b": dict(batch=8, prompt=512, gen=64, kv_quant=True)}
+ZBUSY_GEN = 8          # decode steps of the generate whose busy share is read
+ZRUNS = 3              # timed runs a phase 11 figure, the median reported
+INT8_GATE = 0.08       # the reference's int8-cache gate (tests/test_archs.py)
+# phase 6 at the zoo's shapes: B15 (causal or not) and B14 (at a length)
+ZATTN = {
+    "flash": [
+        ("seamless-m4t encoder", dict(B=4, Hq=16, Hkv=16, Sq=3072, Sk=3072,
+                                      D=64, causal=False)),
+        ("seamless-m4t cross", dict(B=4, Hq=16, Hkv=16, Sq=64, Sk=3072,
+                                    D=64, causal=False)),
+        ("granite-moe", dict(B=8, Hq=16, Hkv=8, Sq=512, Sk=512, D=64,
+                             causal=True)),
+        ("qwen3-moe", dict(B=4, Hq=64, Hkv=4, Sq=512, Sk=512, D=128,
+                           causal=True)),
+        ("llava G=7", dict(B=2, Hq=56, Hkv=8, Sq=2944, Sk=2944, D=128,
+                           causal=True))],
+    "decode": [
+        ("seamless-m4t self", dict(B=4, Hq=16, Hkv=16, S=128, D=64,
+                                   length=96)),
+        ("seamless-m4t cross", dict(B=4, Hq=16, Hkv=16, S=3072, D=64,
+                                    length=3072)),
+        ("granite-moe", dict(B=8, Hq=16, Hkv=8, S=576, D=64, length=544)),
+        ("qwen3-moe", dict(B=4, Hq=64, Hkv=4, S=544, D=128, length=528)),
+        ("llava G=7", dict(B=2, Hq=56, Hkv=8, S=2976, D=128, length=2960))]}
+ZOO_TIMES = []         # B14 / B15 at the zoo's shapes (phase 6)
 GRAPH_ROWS = []        # captured vs host loop, one row a serve path
 D256_TIMES = {}        # B14 / B15 at recurrentgemma-9b's shape (phase 6)
 # the port's CUDA kernels by symbol, grouped with the wrappers that count
@@ -1611,11 +1661,13 @@ def witnessed(torch, ops, tag, run, host_ops=True, tries=3):
                          f"the profiler saw {runs}")
 
 
-def host_loop(eng, packed, tokens, G):
-    """``generate``'s prefill, then the host loop the captured decode
-    graph replaced (``runtime.decode_loop_eager``)."""
+def host_loop(eng, packed, tokens, G, extra=None):
+    """``generate``'s prefill (with the family's conditioning ``extra``),
+    then the host loop the captured decode graph replaced
+    (``runtime.decode_loop_eager``)."""
     from repro_torch.serving import SamplingConfig, runtime
-    logits, cache = eng.model.prefill(packed, tokens, eng.max_len)
+    kw = {} if extra is None else {"extra": extra}
+    logits, cache = eng.model.prefill(packed, tokens, eng.max_len, **kw)
     return runtime.decode_loop_eager(eng.model, packed, cache, logits,
                                      tokens.shape[1], None, G,
                                      SamplingConfig(), limit=eng.max_len)
@@ -2227,18 +2279,31 @@ def attn_case(torch, device, dtype, *, B, Hq, Hkv, Sq, Sk, D, seed):
     return q, k, v
 
 
-def attn_held(torch, name, got, want, tag) -> float:
+def attn_held(torch, name, got, want, tag, mag=None, n_keys=0) -> float:
     """An attention kernel's output held to its plain version's: float32
     within ATTN_TOL, bf16 within one ulp (BF16_ULP relative) of each
-    output. Returns the largest |kernel - plain|."""
+    output plus a floor for outputs near 0, where both round float32 sums
+    of up to ``n_keys`` terms taken in another order: 1e-6, or where
+    ``mag`` (each output's sum of |p v|, the plain version over |v|) is
+    given, the larger of 1e-6 and the float32 eps times mag times
+    sqrt(n_keys), that sum's own rounding. Returns the largest
+    |kernel - plain|."""
     torch.cuda.synchronize()
     d = (got.float() - want.float()).abs()
     e = d.max().item()
     if got.dtype == torch.float32:
         ok, tol = e <= ATTN_TOL, f"{ATTN_TOL:.0e}"
     else:
-        ok = bool((d <= BF16_ULP * want.float().abs() + 1e-6).all())
-        tol = "one bf16 ulp"
+        ulp = BF16_ULP * want.float().abs()
+        floor, say = 1e-6, "1e-6"
+        if mag is not None:
+            floor = (torch.finfo(torch.float32).eps * math.sqrt(n_keys)
+                     * mag.float()).clamp(min=1e-6)
+            say = (f"max(1e-6, eps32 |p v| sqrt({n_keys})) <= "
+                   f"{floor.max().item():.2e}")
+        ok = bool((d <= ulp + floor).all())
+        tol = (f"one bf16 ulp + {say}; past one ulp: "
+               f"{int((d > ulp).sum())} of {d.numel()}")
     if not ok:
         raise AssertionError(f"{name} {tag}: max |kernel - plain| = "
                              f"{e:.3e} > {tol}")
@@ -2310,17 +2375,17 @@ def check_attention(torch, device, flush):
     decode_one_launch(torch, ops, q, k, v, n)
     mask = (torch.arange(S, device=device) < L)[None, None, None, :]
     live = B * 8 * L * 128 * 2              # K and V rows up to the length
-    # operations, at the bf16 tensor-core rate: B14 counts Q·K^T once and
-    # P·V twice, 2 + 2 * 2 flops per live (q, k) pair and head dim; B15
-    # does Q·K^T once and P·V three times (p split exactly into three bf16
-    # terms), 2 + 3 * 2
+    # operations, at the bf16 tensor-core rate: the function's own,
+    # ATTN_FLOPS per live (q, k) pair and head dim (B14's second P·V term
+    # and B15's three, p split exactly into bf16 terms, are costs of the
+    # kernels' design, not of the work)
     dec_run = (
         lambda: ops.decode_attention(q, k, v, n, backend="cuda"),
         lambda: ops.decode_attention(q, k, v, n, backend="ref"),
         lambda: F.scaled_dot_product_attention(
             q[:, :, None], k, v, attn_mask=mask, enable_gqa=True),
         bound(nbytes(q) * 2 + live * 2, 0,
-              bf16_flops=6 * B * 16 * L * 128))
+              bf16_flops=ATTN_FLOPS * B * 16 * L * 128))
     qf, kf, vf = attn_case(torch, device, bf, B=B, Hq=16, Hkv=8, Sq=P, Sk=P,
                            D=128, seed=2)
     pairs = B * 16 * P * (P + 1) // 2       # live (q, k) pairs, causal
@@ -2329,7 +2394,7 @@ def check_attention(torch, device, flush):
         lambda: ops.flash_attention(qf, kf, vf, backend="ref"),
         lambda: F.scaled_dot_product_attention(qf, kf, vf, is_causal=True,
                                                enable_gqa=True),
-        bound(nbytes(qf, kf, vf, qf), 0, bf16_flops=8 * 128 * pairs))
+        bound(nbytes(qf, kf, vf, qf), 0, bf16_flops=ATTN_FLOPS * 128 * pairs))
     diff = (dec_run[2]()[:, :, 0].float() - dec_run[1]().float()).abs()
     log(f"  scaled_dot_product_attention (B14's yardstick) vs plain: "
         f"max|diff| {diff.max().item():.3e}")
@@ -2354,7 +2419,7 @@ def check_attention(torch, device, flush):
     n = torch.tensor(lens, dtype=torch.int32, device=device)
     live = 8 * sum(lens) * 128 * 2
     bms, by = bound(nbytes(q) * 2 + live * 2, 0,
-                    bf16_flops=6 * 16 * sum(lens) * 128)
+                    bf16_flops=ATTN_FLOPS * 16 * sum(lens) * 128)
     log(f"[time] decode_attention long, lengths {lens}: kernel "
         f"{time_ms(lambda: ops.decode_attention(q, k, v, n, backend='cuda'), flush):.4f}"
         f" ms, plain {time_ms(lambda: ops.decode_attention(q, k, v, n, backend='ref'), flush):.4f}"
@@ -2410,7 +2475,7 @@ def check_attention_d256(torch, device, flush) -> None:
            lambda: ops.flash_attention(q, k, v, window=W, backend="ref"),
            lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=band,
                                                   enable_gqa=True),
-           bound(nbytes(q, k, v, q), 0, bf16_flops=8 * D * pairs))
+           bound(nbytes(q, k, v, q), 0, bf16_flops=ATTN_FLOPS * D * pairs))
     qd, kd, vd = attn_case(torch, device, bf, B=B, Hq=Hq, Hkv=Hkv, Sq=1,
                            Sk=S, D=D, seed=7)
     qd = qd[:, :, 0]
@@ -2426,7 +2491,7 @@ def check_attention_d256(torch, device, flush) -> None:
                qd[:, :, None], kd, vd, attn_mask=live[None, None, None],
                enable_gqa=True),
            bound(nbytes(qd) * 2 + B * Hkv * rows * D * 2 * 2, 0,
-                 bf16_flops=6 * B * Hq * rows * D))
+                 bf16_flops=ATTN_FLOPS * B * Hq * rows * D))
     for name, (kern, plain, lib, (bms, by)) in (("flash_attention", fla),
                                                 ("decode_attention", dec)):
         ms, pms, lms = (time_ms(f, flush) for f in (kern, plain, lib))
@@ -2463,11 +2528,12 @@ def decode_one_launch(torch, ops, q, k, v, n) -> None:
         f"call ({next(iter(got))})")
 
 
-def tf_logits(torch, model, params, tokens, out, max_len):
+def tf_logits(torch, model, params, tokens, out, max_len, extra=None):
     """Logits of every generated position, teacher-forced through the
-    serve path's own ops: prefill on the prompt, then one decode step per
-    generated token but the last. (B, G, Vp) float32."""
-    logits, cache = model.prefill(params, tokens, max_len)
+    serve path's own ops: prefill on the prompt (with ``extra``), then one
+    decode step per generated token but the last. (B, G, Vp) float32."""
+    kw = {} if extra is None else {"extra": extra}
+    logits, cache = model.prefill(params, tokens, max_len, **kw)
     rows = [logits[:, 0]]
     P = tokens.shape[1]
     for t in range(out.shape[1] - 1):
@@ -2477,7 +2543,7 @@ def tf_logits(torch, model, params, tokens, out, max_len):
     return torch.stack(rows, 1)
 
 
-def hold_to_plain(torch, tag, eng, params, tokens, out) -> None:
+def hold_to_plain(torch, tag, eng, params, tokens, out, extra=None) -> None:
     """The kernel path's generate ``out`` held to the plain path
     (``backend="ref"``): teacher-forced logits of every generated position
     within TF_LOGIT_TOL, each row's greedy tokens equal to the plain
@@ -2487,10 +2553,10 @@ def hold_to_plain(torch, tag, eng, params, tokens, out) -> None:
     from repro_torch.sparse import use_backend
     model, ML, V = eng.model, eng.max_len, eng.model.cfg.vocab_size
     B, G = out.shape
-    lg_k = tf_logits(torch, model, params, tokens, out, ML)
+    lg_k = tf_logits(torch, model, params, tokens, out, ML, extra)
     with use_backend("ref"):
-        lg_r = tf_logits(torch, model, params, tokens, out, ML)
-        out_r = eng.generate(params, tokens, G)
+        lg_r = tf_logits(torch, model, params, tokens, out, ML, extra)
+        out_r = eng.generate(params, tokens, G, extra=extra)
     if not bool(torch.isfinite(lg_k[..., :V]).all()):
         raise AssertionError(f"{tag}: non-finite logits on the kernel path")
     if not torch.equal(lg_k.argmax(-1).to(out.dtype), out):
@@ -3430,7 +3496,7 @@ def recurrent_serve(torch, device) -> None:
                 raise AssertionError(f"{calls} attention calls held, "
                                      f"expected {n_attn * G}")
             lap("held launches")
-            recurrent_scheduler(torch, device, model, params, compare=False)
+            zoo_scheduler(torch, device, model, params, compare=False)
             lap("scheduler")
             del eng, params, model, out
             gc.collect()
@@ -3449,7 +3515,7 @@ def recurrent_serve(torch, device) -> None:
             if got != {"flash_attention": 1, "decode_attention": G}:
                 raise AssertionError(f"the one-period model launched {got}")
             hold_to_plain(torch, "rserve", eng, params, tokens, out)
-            recurrent_scheduler(torch, device, model, params, compare=True)
+            zoo_scheduler(torch, device, model, params, compare=True)
             lap("one period: serve, plain path, scheduler")
         else:
             hold_to_plain(torch, "rserve", eng, params, tokens, out)
@@ -3512,10 +3578,11 @@ def recurrent_serve(torch, device) -> None:
                              "scorecard or wrong counters")
 
 
-def one_ulp_spread(torch, model, params, tokens, ML, logits) -> float:
-    """The largest change of the plain path's prefill ``logits`` when half
-    the embedding's entries (chosen by a seeded generator) move one bf16
-    ulp up in magnitude."""
+def one_ulp_spread(torch, model, params, tokens, ML, logits,
+                   extra=None) -> float:
+    """The largest change of the plain path's prefill ``logits`` (with
+    ``extra``) when half the embedding's entries (chosen by a seeded
+    generator) move one bf16 ulp up in magnitude."""
     from repro_torch.sparse import use_backend
     emb = params["embed"]["table"]
     g = torch.Generator(emb.device).manual_seed(3)
@@ -3523,9 +3590,10 @@ def one_ulp_spread(torch, model, params, tokens, ML, logits) -> float:
             < 0.5).to(torch.int16)
     moved = (emb.view(torch.int16) + bump).view(emb.dtype)
     del bump
+    kw = {} if extra is None else {"extra": extra}
     with use_backend("ref"):
         b, _ = model.prefill(dict(params, embed={"table": moved}), tokens,
-                             ML)
+                             ML, **kw)
     return (logits - b)[..., :model.cfg.vocab_size].abs().max().item()
 
 
@@ -3599,10 +3667,11 @@ def flash_f64(torch, q, k, v, *, causal=True, window=None):
         B, Hq, Sq, D)
 
 
-def recurrent_scheduler(torch, device, model, params, *, compare) -> None:
-    """recurrentgemma-9b under ``ContinuousBatchingEngine``: RSCHED's
-    slots and requests (exact-length prefill: the model is not
-    length-aware), warmed on the first requests, then all of them with
+def zoo_scheduler(torch, device, model, params, *, compare) -> None:
+    """A zoo model (recurrentgemma-9b, granite-moe-1b-a400m) under
+    ``ContinuousBatchingEngine``: RSCHED's slots and requests
+    (exact-length prefill: the model is not length-aware), warmed on the
+    first requests, then all of them with
     the launch counts set to 0 just before and held just after: a
     prefill call's B15 a layer, and each chunk its graph's capture (8
     steps x B14 a layer). ``compare``: the first four requests' tokens
@@ -3658,7 +3727,7 @@ def recurrent_scheduler(torch, device, model, params, *, compare) -> None:
             continue
         seq = torch.cat([pt, want_t[None].long()], 1)
         with torch.no_grad():
-            lg = model.forward(params, seq)[0, p.shape[1] - 1:-1, :V]
+            lg = model.forward(params, seq)[0][0, p.shape[1] - 1:-1, :V]
         top2 = lg.topk(2, dim=-1).values
         bad = int((got_t != want_t.to(got_t.dtype)).nonzero()[0])
         margin = float(top2[bad, 0] - top2[bad, 1])
@@ -3669,6 +3738,494 @@ def recurrent_scheduler(torch, device, model, params, *, compare) -> None:
                                  "from B=1 greedy above the margin")
     log(f"[rsched] the first {C['compared']} requests: tokens equal their "
         "B=1 ServeEngine greedy tokens (up to a small margin)")
+
+
+def occupancy_zoo(torch, device) -> None:
+    """Phase 1 at the bodies the rest of the zoo launches (bf16): B15's
+    tensor-core body with one consumer warpgroup at D=64 (seamless-m4t,
+    G=1) and D=128 (llava, G=7), two at D=64 (granite-moe, G=2) and D=128
+    (qwen3-moe, G=16); B14 with one q head a block at D=64 (seamless),
+    two (granite) and four at D=128 (llava's G=7 in two blocks of four
+    slots, one idle; qwen3-moe's G=16 in four): ptxas's registers, spills
+    and stack frame, the dynamic shared memory against the 227 KB a block
+    may take, and B14's runtime registers, local bytes, blocks an SM and
+    grid at the zoo's decode shapes. Fails on a spill, a stack frame, a
+    local array or shared memory past the limit."""
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import decode_attention as kdec
+    from repro_torch.kernels import plan as P
+    out = _build.BUILD_LOG.get("attention", "")
+    lib = _build.load("attention")
+    sms = _build.sm_count(device)
+    rows = []
+    for D, G, who in ((64, 1, "seamless-m4t-medium"),
+                      (64, 2, "granite-moe-1b-a400m"),
+                      (128, 7, "llava-next-34b"),
+                      (128, 16, "qwen3-moe-235b-a22b")):
+        wg = P.flash_warpgroups(G, D)
+        smem = lib.brds_flash_attention_bf16_smem(D, G)
+        if smem != P.flash_smem(G, D):
+            raise AssertionError(f"B15's shared memory at D={D}, G={G}: "
+                                 f"{smem} != plan's {P.flash_smem(G, D)}")
+        rows.append((f"flash_tc_kernelILi{D}ELi{wg}E",
+                     f"flash_tc<bf16, {D}, {wg} warpgroup(s)> (B15, {who}, "
+                     f"G={G})", smem, ""))
+    for D, G, B, Hkv, S, who in ((64, 1, 4, 16, 128, "seamless-m4t-medium "
+                                  "self"),
+                                 (64, 1, 4, 16, 3072, "seamless-m4t-medium "
+                                  "cross"),
+                                 (64, 2, 8, 8, 576, "granite-moe-1b-a400m"),
+                                 (128, 7, 2, 8, 2976, "llava-next-34b"),
+                                 (128, 16, 4, 4, 544, "qwen3-moe-235b-a22b")):
+        dp = P.decode_plan(B=B, Hkv=Hkv, G=G, S=S, D=D, elem_bytes=2,
+                           sms=sms)
+        info = kdec.decode_info(dp, D, G, torch.bfloat16, device)
+        if info["local_bytes"]:
+            raise AssertionError(f"B14 at {who}: {info}")
+        rows.append((f"decode_cluster_kernelI13__nv_bfloat16Li{D}ELi"
+                     f"{dp.heads}EE",
+                     f"decode_cluster<bf16, {D}, {dp.heads} head(s)> (B14, "
+                     f"{who}, G={G})", dp.smem,
+                     f"; runtime {info['registers']} registers, "
+                     f"{info['local_bytes']} B local, "
+                     f"{info['blocks_per_sm']} block(s) an SM, grid "
+                     f"{dp.grid} ({dp.groups} head group(s) x {dp.splits} "
+                     f"slices x {B * Hkv} (row, kv head) pairs, {S} cache "
+                     f"rows): {info['waves']} wave(s)"))
+    for frag, name, sm, extra in rows:
+        got = ptxas_entry(out, frag)
+        if got is None:
+            raise AssertionError(f"{name}: not in the build log")
+        regs, spill, stack = got
+        log(f"[occupancy] {name}: ptxas {regs} registers, {spill} B spill, "
+            f"{stack} B stack frame; {sm} B dynamic shared memory (limit "
+            f"{P.SMEM_PER_BLOCK}){extra}")
+        if spill or stack or sm > P.SMEM_PER_BLOCK:
+            raise AssertionError(f"{name}: spills, keeps a stack frame or "
+                                 "takes more shared memory than a block may")
+
+
+def live_pairs(Sq: int, Sk: int, causal: bool) -> int:
+    """Live (q, k) pairs of one head: every one without a causal mask;
+    with it, q row i (right-aligned, at Sk - Sq + i) sees keys 0..its
+    position."""
+    if not causal:
+        return Sq * Sk
+    off = Sk - Sq
+    return sum(min(Sk, off + i + 1) for i in range(Sq) if off + i >= 0)
+
+
+def check_attention_zoo(torch, device, flush) -> None:
+    """Phase 6 at the shapes the rest of the zoo gives B14 and B15 (ZATTN):
+    B15 without a causal mask at seamless-m4t's encoder (B=4, 16 heads of
+    64, Sq = Sk = 3072) and cross-attention (Sq = 64 over Sk = 3072); B15
+    causal at llava's group of 7 (56 q / 8 kv heads of 128, S = 2944),
+    qwen3-moe's group of 16 (64 / 4 of 128, S = 512) and granite-moe's
+    (16 / 8 of 64, S = 512); B14 at the same groups over their decode
+    caches and over seamless's fixed-length cross memory (every row at
+    3072). Each in float32 (ATTN_TOL) and bf16 (one ulp, its floor scaled
+    to each output's sum of |p v|: ``attn_held``) against its plain
+    version; then each bf16 one timed with L2 flushed beside its plain
+    version, ``scaled_dot_product_attention`` (``enable_gqa``) and its
+    bound (ZOO_TIMES)."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels._build import time_ms
+    F = torch.nn.functional
+    bf = torch.bfloat16
+    for tag, sh in ZATTN["flash"]:
+        for dtype in (torch.float32, bf):
+            q, k, v = attn_case(torch, device, dtype, B=sh["B"],
+                                Hq=sh["Hq"], Hkv=sh["Hkv"], Sq=sh["Sq"],
+                                Sk=sh["Sk"], D=sh["D"], seed=sh["Sk"] + 1)
+            c = sh["causal"]
+            e = attn_held(torch, "flash_attention",
+                          ops.flash_attention(q, k, v, causal=c,
+                                              backend="cuda"),
+                          ops.flash_attention(q, k, v, causal=c,
+                                              backend="ref"),
+                          f"{tag} {sh} {dtype}",
+                          mag=ops.flash_attention(q, k, v.abs(), causal=c,
+                                                  backend="ref"),
+                          n_keys=sh["Sk"])
+            if dtype != bf:
+                del q, k, v
+                continue
+            pairs = sh["B"] * sh["Hq"] * live_pairs(sh["Sq"], sh["Sk"], c)
+            run = (lambda: ops.flash_attention(q, k, v, causal=c,
+                                               backend="cuda"),
+                   lambda: ops.flash_attention(q, k, v, causal=c,
+                                               backend="ref"),
+                   lambda: F.scaled_dot_product_attention(
+                       q, k, v, is_causal=c, enable_gqa=True),
+                   bound(nbytes(q, k, v, q), 0,
+                         bf16_flops=ATTN_FLOPS * sh["D"] * pairs))
+            zoo_time(torch, flush, time_ms, "flash_attention", tag, sh, run,
+                     e)
+            del q, k, v
+    for tag, sh in ZATTN["decode"]:
+        for dtype in (torch.float32, bf):
+            q, k, v = attn_case(torch, device, dtype, B=sh["B"],
+                                Hq=sh["Hq"], Hkv=sh["Hkv"], Sq=1, Sk=sh["S"],
+                                D=sh["D"], seed=sh["S"] + 2)
+            q = q[:, :, 0]
+            L = sh["length"]
+            n = torch.full((sh["B"],), L, dtype=torch.int32, device=device)
+            e = attn_held(torch, "decode_attention",
+                          ops.decode_attention(q, k, v, n, backend="cuda"),
+                          ops.decode_attention(q, k, v, n, backend="ref"),
+                          f"{tag} {sh} {dtype}",
+                          mag=ops.decode_attention(q, k, v.abs(), n,
+                                                   backend="ref"),
+                          n_keys=L)
+            if dtype != bf:
+                del q, k, v
+                continue
+            mask = (torch.arange(sh["S"], device=device)
+                    < L)[None, None, None, :]
+            live = sh["B"] * sh["Hkv"] * L * sh["D"] * 2
+            run = (lambda: ops.decode_attention(q, k, v, n, backend="cuda"),
+                   lambda: ops.decode_attention(q, k, v, n, backend="ref"),
+                   lambda: F.scaled_dot_product_attention(
+                       q[:, :, None], k, v, attn_mask=mask, enable_gqa=True),
+                   bound(nbytes(q) * 2 + live * 2, 0,
+                         bf16_flops=ATTN_FLOPS * sh["B"] * sh["Hq"] * L
+                         * sh["D"]))
+            zoo_time(torch, flush, time_ms, "decode_attention", tag, sh, run,
+                     e)
+            del q, k, v
+
+
+def zoo_time(torch, flush, time_ms, name, tag, sh, run, err) -> None:
+    kern, plain, lib, (bms, by) = run
+    ms, pms, lms = (time_ms(f, flush) for f in (kern, plain, lib))
+    ZOO_TIMES.append(dict(name=name, shape=tag, ms=ms, plain_ms=pms,
+                          library_ms=lms, bound_ms=bms, bound_by=by,
+                          max_abs_err=err))
+    log(f"[time] {name:16} {tag} {sh}: kernel {ms:.4f} ms, plain "
+        f"{pms:.4f} ms, library (SDPA) {lms:.4f} ms, bound {bms * 1e3:.2f} "
+        f"us ({by}) — median of 30, L2 flushed, bf16")
+
+
+def int8_rel(torch, cfg, params, tokens, ML) -> float:
+    """max |bf16-cache logits - int8-cache logits| / max |bf16-cache
+    logits| of the first decode step (the prefill's greedy token) after
+    the same prompt's prefill, ``cfg`` with and without ``kv_quant`` on
+    the same params (the prefill logits equal: it attends the unquantized
+    k and v)."""
+    from repro_torch.models import build_model
+    V = cfg.vocab_size
+    logits = []
+    for q in (False, True):
+        m = build_model(cfg.with_(kv_quant=q))
+        lp, c = m.prefill(params, tokens, ML)
+        t = lp[:, :, :V].argmax(-1)
+        lg, _ = m.decode_step(params, c, t, tokens.shape[1])
+        logits.append((lp, lg[..., :V].float()))
+        del c
+    if not torch.equal(logits[0][0], logits[1][0]):
+        raise AssertionError("the int8 cache's prefill logits differ from "
+                             "the bf16 cache's")
+    (_, lb), (_, lq) = logits
+    return ((lb - lq).abs().max() / lb.abs().max()).item()
+
+
+def fan_in_qk(params):
+    """``params`` with every attention's ``wq`` and ``wk`` (cross-attention's
+    too) rescaled to the standard fan-in scale, a standard deviation of
+    1/sqrt(d_model): the reference's init takes the head count as the
+    fan-in of these (d, heads, head_dim) weights (``layers._default_scale``:
+    the second-to-last dim), which gives full-width q and k entries of std
+    ~8-20 and attention scores of std ~64-221, a one-hot softmax."""
+    def fix(a):
+        d = a["wq"].shape[0]
+        return dict(a, wq=a["wq"] * math.sqrt(a["wq"].shape[1] / d),
+                    wk=a["wk"] * math.sqrt(a["wk"].shape[1] / d))
+    out = dict(params)
+    for key in ("layers", "enc_blocks", "dec_blocks"):
+        if key in params:
+            out[key] = [dict(blk, **{n: fix(blk[n]) for n in ("attn", "xattn")
+                                     if n in blk}) for blk in params[key]]
+    return out
+
+
+def expected_launches(model, G: int) -> dict:
+    """B15 a prefill and B14 over a G-step decode of ``model``: one each a
+    decoder attention layer; an encoder-decoder's encoder layers add a
+    B15 each, its cross-attention a B15 and a B14 each a decoder layer."""
+    if hasattr(model, "kinds"):
+        n = sum(k.startswith("attn") for k in model.kinds)
+        return {"flash_attention": n, "decode_attention": n * G}
+    return {"flash_attention": model.n_enc + 2 * model.n_dec,
+            "decode_attention": 2 * model.n_dec * G}
+
+
+def zoo_serve(torch, device) -> None:
+    """Phase 11: the rest of the zoo at full width in bf16 through
+    ``ServeEngine``, greedy, each model freed before the next; weights from
+    a seeded CUDA generator (seed 0), prompts from a CPU generator (seed
+    1), frames and patches from one (seed 2). Cuts (ZSERVE): qwen3-moe-
+    235b-a22b to 4 of its 94 layers (the whole model is 470 GB of bf16
+    weights; 4 layers at full width are 22.4 GB), llava-next-34b to 12 of
+    60 (70.5 GB of weights leave too little of 80 GB for the plain path's
+    comparison); granite-moe-1b-a400m, seamless-m4t-medium and
+    llama3.2-3b (the int8 KV cache) at full depth.
+
+    For each: the launch counts set to 0 just before one generate and read
+    just after (B15 a prefill and B14 a step, ``expected_launches``, every
+    B15 on the tensor-core body); the captured decode loop bitwise the
+    host loop; the wall a decode step, the prefill, the busy share of a
+    ZBUSY_GEN-step generate and the peak memory of one generate; every
+    B14 / B15 launch of a teacher-forced run within one bf16 ulp of its
+    largest output of its plain version on the model's own inputs
+    (``held_calls``); and the plain path's own one-ulp spread (printed).
+
+    The reference's init takes the head count as the fan-in of the
+    (d, heads, head_dim) q and k projections: at full width their
+    attention scores have a standard deviation of ~64 (seamless-m4t,
+    granite-moe) to ~221 (llama3.2-3b), the softmax is one-hot, and one
+    bf16 ulp on half the embedding moves the plain path's own logits by
+    as much as the logits themselves at full depth (printed). Kernels
+    that round otherwise than the plain versions cannot keep such a
+    model's tokens, so the end-to-end logit and token gates
+    (``hold_to_plain``: logits within TF_LOGIT_TOL, tokens up to a top-2
+    margin below TF_MARGIN) run at full depth on the same model with
+    ``wq`` and ``wk`` at the standard fan-in scale (``fan_in_qk``: scores
+    of std ~1, as a trained model's), where that spread is 0.03-0.06
+    (printed); qwen3-moe, whose qk-norm keeps its scores near std 1, on
+    its own weights (``fan_in=False``). granite-moe (``scheduler``,
+    ``draft``) also under the scheduler on those weights (RSCHED, its
+    launches held, four requests equal to B=1 up to a small margin) and
+    as the target of a packed lstm_ptb draft rebound to its vocabulary
+    (k=4; its prompt primed by B12), tokens equal to target-only.
+    llama3.2-3b with ``kv_quant``: the int8-cache decode step's logits
+    within INT8_GATE (relative) of the bf16 cache's on the same prompt,
+    the gate at the fan-in scale; printed beside it, the same at the
+    reference's init and both on the plain path (``use_backend("ref")``),
+    which shows whether a reading past the gate belongs to the init or
+    to the kernels."""
+    import gc
+    for arch, R in ZSERVE.items():
+        t0 = time.perf_counter()
+        zoo_one(torch, device, arch, R)
+        gc.collect()
+        torch.cuda.empty_cache()
+        log(f"[zserve] {arch}: {time.perf_counter() - t0:.1f}s")
+
+
+def zoo_one(torch, device, arch, R) -> None:
+    import dataclasses
+    import gc
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import flash_attention as kfa
+    from repro_torch.kernels import ops
+    from repro_torch.models import LSTMModel, LSTM_CONFIGS, build_model
+    from repro_torch.serving import ServeEngine, runtime
+    from repro_torch.sparse import lstm_policy, use_backend
+    from repro_torch.spec import DraftModel
+    laps, t_lap = {}, [time.perf_counter()]
+
+    def lap(name):
+        now = time.perf_counter()
+        laps[name] = round(now - t_lap[0], 1)
+        t_lap[0] = now
+    full = get_arch(arch)
+    cfg = full.with_(num_layers=R.get("layers", full.num_layers),
+                     kv_quant=R.get("kv_quant", False))
+    B, P, G = R["batch"], R["prompt"], R["gen"]
+    ML = P + G
+    model = build_model(cfg)
+    t0 = time.perf_counter()
+    params = model.init(torch.Generator(device).manual_seed(0), device)
+    torch.cuda.synchronize()
+    V, d = cfg.vocab_size, cfg.d_model
+    tokens = torch.randint(0, V, (B, P), generator=torch.Generator()
+                           .manual_seed(1)).to(device)
+    rows = R.get("frames") if cfg.encdec else cfg.num_patches
+    extra = None
+    if rows:
+        extra = torch.randn((B, rows, d), generator=torch.Generator()
+                            .manual_seed(2)).to(device, cfg.torch_dtype)
+    cache_bytes = sum(math.prod(x.shape) * x.dtype.itemsize
+                      for x in runtime.leaves(model.cache_defs(B, ML)))
+    log(f"[zserve] {arch}: {cfg.num_layers} of {full.num_layers} layers"
+        + (f" (+{model.n_enc} encoder)" if cfg.encdec else "")
+        + f", d={d} heads {cfg.num_heads}/{cfg.num_kv_heads}x{cfg.head_dim}"
+        + (f" (q stored as {cfg.pad_heads_to})" if cfg.pad_heads_to else "")
+        + (f", {cfg.num_experts} experts top-{cfg.experts_per_token} of "
+           f"ff {cfg.d_ff}" if cfg.moe else f", ff {cfg.d_ff}")
+        + f", V={V} {cfg.dtype}"
+        + (", int8 KV cache" if cfg.kv_quant else "")
+        + f": {model.param_count() / 1e9:.3f} B params "
+        f"({model.param_count() * 2 / 1e9:.2f} GB), init "
+        f"{time.perf_counter() - t0:.2f}s (CUDA generator, seed 0); B={B}, "
+        f"prompt {P}" + (f" ({rows} {'frames' if cfg.encdec else 'patches'}"
+                         ")" if rows else "")
+        + f", gen {G}; decode cache {cache_bytes / 1e6:.1f} MB")
+    eng = ServeEngine(model, max_len=ML, device=device)
+
+    def gen(n=G, e=eng, p=params, **kw):
+        return e.generate(p, tokens, n, extra=extra, **kw)
+    gen(2)                                  # warm the libraries
+    gen(G)                                  # captures the G graph
+    torch.cuda.synchronize()
+    zero_launches(ops)
+    for k in kfa.BODIES:
+        kfa.BODIES[k] = 0
+    out = gen()
+    torch.cuda.synchronize()
+    got = {k: n for k, n in ops.LAUNCHES.items() if n}
+    want = expected_launches(model, G)
+    log(f"[zserve] {arch} greedy: launches {got}, expected {want}; B15 by "
+        f"body {kfa.BODIES}")
+    if got != want or kfa.BODIES != {"tensor_cores":
+                                     want["flash_attention"], "simt": 0}:
+        raise AssertionError(f"{arch} launched {got} ({kfa.BODIES}), "
+                             f"expected {want}, every B15 on the tensor "
+                             "cores")
+    if out.shape != (B, G) or not bool(((out >= 0) & (out < V)).all()):
+        raise AssertionError(f"{arch}: bad tokens {tuple(out.shape)}")
+    lap("captures, counted generate")
+    kw = {} if extra is None else {"extra": extra}
+    dts = timed_runs(torch, gen, ZRUNS)
+    pre = timed_runs(torch, lambda: model.prefill(params, tokens, ML, **kw),
+                     ZRUNS)
+    med, pm = statistics.median(dts), statistics.median(pre)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    _, state = gen(return_state=True)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    hts = []
+    h_out, h_state = timed_call(torch, hts, lambda: host_loop(
+        eng, params, tokens, G, extra))
+    if not (torch.equal(out, h_out) and all(
+            torch.equal(a, b) for a, b in zip(runtime.leaves(state),
+                                              runtime.leaves(h_state)))):
+        raise AssertionError(f"{arch}: the captured decode loop differs "
+                             "from the host loop")
+    del state, h_state, h_out
+    lap("timed runs, host loop")
+    gen(ZBUSY_GEN)                          # captures its graph
+    bw = statistics.median(timed_runs(torch, lambda: gen(ZBUSY_GEN), ZRUNS))
+    busy, span, _ = device_busy(torch, lambda: gen(ZBUSY_GEN),
+                                host_ops=False)
+    row = {"path": f"{arch}", "batch": B, "prefill_ms": pm * 1e3,
+           "captured_wall": (med - pm) / G,
+           "host_wall": (hts[0] - pm) / G, "busy_share": busy / bw}
+    GRAPH_ROWS.append(row)
+    log(f"[zserve] {arch}: generate median {med:.4f}s of {ZRUNS} "
+        f"({B * G / med:.1f} tok/s, prefill included); prefill "
+        f"{pm * 1e3:.2f} ms ({B * P / pm:.1f} prompt tok/s); wall / decode "
+        f"step (generate minus prefill, over {G}) captured "
+        f"{row['captured_wall'] * 1e3:.3f} ms, host loop "
+        f"{row['host_wall'] * 1e3:.3f} ms; a {ZBUSY_GEN}-step generate "
+        f"(prefill included): wall {bw * 1e3:.2f} ms, device busy "
+        f"{busy * 1e3:.2f} ms (span {span * 1e3:.2f}) = {busy / bw:.1%}; "
+        f"peak allocated during one generate {peak / 1e9:.3f} GB "
+        f"({(peak - before) / 1e9:+.3f} GB over the {before / 1e9:.3f} GB "
+        "before it); tokens and state bitwise the host loop")
+    lap("busy share")
+    calls, err, scale = held_calls(torch, lambda: tf_logits(
+        torch, model, params, tokens, out, ML, extra))
+    hwant = want["flash_attention"] + want["decode_attention"] // G * (G - 1)
+    log(f"[zserve] {arch}: all {calls} B14 / B15 launches of the "
+        f"teacher-forced run (prefill + {G - 1} steps) within one bf16 ulp "
+        f"of their largest output of their plain versions on the same "
+        f"inputs (max |err| {err:.3e}, max |output| {scale:.3e})")
+    if calls != hwant:
+        raise AssertionError(f"{calls} attention calls held, expected "
+                             f"{hwant}")
+    lap("held launches")
+    with use_backend("ref"):
+        lr, _ = model.prefill(params, tokens, ML, **kw)
+    lk, _ = model.prefill(params, tokens, ML, **kw)
+    gap = (lk - lr)[..., :V].abs().max().item()
+    spread = one_ulp_spread(torch, model, params, tokens, ML, lr, extra)
+    log(f"[zserve] {arch} ({cfg.num_layers} layers) prefill logits: kernels "
+        f"vs plain {gap:.3e}; the plain path itself moves {spread:.3e} when "
+        "half the embedding's entries move one bf16 ulp (max|logit| "
+        f"{lr[..., :V].abs().max().item():.2f})")
+    del lr, lk
+    lap("one-ulp spread")
+    # the end-to-end gates, on the same model with q and k at the standard
+    # fan-in scale (fan_in_qk), where one ulp does not decorrelate it, or
+    # on its own weights where R says fan_in=False
+    fparams = params
+    if R.get("fan_in", True):
+        fparams = fan_in_qk(params)
+        with use_backend("ref"):
+            lr, _ = model.prefill(fparams, tokens, ML, **kw)
+        fspread = one_ulp_spread(torch, model, fparams, tokens, ML, lr,
+                                 extra)
+        log(f"[zserve] {arch} with q and k at the fan-in scale: the plain "
+            f"path's one-ulp spread {fspread:.3e} (max|logit| "
+            f"{lr[..., :V].abs().max().item():.2f})")
+        del lr
+    fout = gen(p=fparams)
+    hold_to_plain(torch, "zserve", eng, fparams, tokens, fout, extra)
+    lap("end-to-end gates")
+    if cfg.kv_quant:
+        # the same weights with the cache in bf16: the first decode step's
+        # logits from the same prompt's prefill, at the reference's init
+        # (printed) and at the fan-in scale (the gate), each on the kernel
+        # path and on the plain path (printed)
+        rel = int8_rel(torch, cfg, params, tokens, ML)
+        frel = int8_rel(torch, cfg, fparams, tokens, ML)
+        with use_backend("ref"):
+            prel = int8_rel(torch, cfg, params, tokens, ML)
+            pfrel = int8_rel(torch, cfg, fparams, tokens, ML)
+        bcache = sum(math.prod(x.shape) * x.dtype.itemsize
+                     for x in runtime.leaves(build_model(cfg.with_(
+                         kv_quant=False)).cache_defs(B, ML)))
+        log(f"[zserve] {arch} int8 KV cache ({cache_bytes / 1e6:.1f} MB "
+            f"against {bcache / 1e6:.1f} MB in bf16): the first decode "
+            f"step's logits {frel:.4f} of max|logit| from the bf16 cache's "
+            f"(gate {INT8_GATE}); {rel:.4f} at the reference's init; the "
+            f"plain path (use_backend('ref')) reads {pfrel:.4f} and "
+            f"{prel:.4f}")
+        if not 0 < frel < INT8_GATE:
+            raise AssertionError(f"int8 KV decode {frel:.4f} from bf16")
+        lap("int8 vs bf16 cache")
+    if R.get("scheduler"):
+        zoo_scheduler(torch, device, model, fparams, compare=True)
+        lap("scheduler")
+    del fparams, fout
+    if R.get("draft"):
+        dcfg = dataclasses.replace(LSTM_CONFIGS["lstm_ptb"],
+                                   vocab_size=model.vocab_padded)
+        deng = ServeEngine(LSTMModel(dcfg), max_len=ML, device=device,
+                           sparsity=lstm_policy(0.75, 0.5))
+        dparams, _ = deng.prepare(deng.model.init(
+            torch.Generator().manual_seed(7), device))
+        draft = DraftModel(deng.model, dparams, scan_prefill=True)
+        gen(draft=draft, spec_k=SPEC_K)     # captures the spec chunks
+        zero_launches(ops)
+        sdt = []
+        sout, st = timed_call(torch, sdt, lambda: gen(
+            draft=draft, spec_k=SPEC_K, return_state=True))
+        sgot = {k: v for k, v in ops.LAUNCHES.items() if v}
+        ran = st["chunks"] * eng.spec_rounds
+        swant = {"fused_brds_lstm_scan": dcfg.num_layers,
+                 "fused_brds_lstm_step": dcfg.num_layers * (SPEC_K + 1) * ran,
+                 "flash_attention": want["flash_attention"],
+                 "decode_attention": want["decode_attention"] // G
+                 * (SPEC_K + 1) * ran}
+        if sgot != swant:
+            raise AssertionError(f"{arch} spec launched {sgot}, expected "
+                                 f"{swant}")
+        same_tokens(torch, f"{arch} spec (lstm_ptb draft, V="
+                    f"{dcfg.vocab_size}) vs target-only greedy", sout, out)
+        acc, drafted = int(st["accepted"].sum()), int(st["drafted"].sum())
+        log(f"[zserve] {arch} spec k={SPEC_K}: launches {sgot}; acceptance "
+            f"{acc / max(drafted, 1):.4f} ({acc}/{drafted}), "
+            f"{int(st['rounds'].max())} rounds, {sdt[0]:.4f}s "
+            f"({B * G / sdt[0]:.1f} tok/s)")
+        del deng, dparams, draft, st, sout
+        lap("spec")
+    del eng, params, model, out
+    gc.collect()
+    log(f"[zserve] {arch} by part {laps}")
 
 
 def main() -> int:
@@ -3696,6 +4253,7 @@ def main() -> int:
 
     occupancy(torch, device)
     occupancy_d256(torch, device)
+    occupancy_zoo(torch, device)
 
     flush = torch.empty(256 << 20, dtype=torch.uint8, device=device)
     t0 = time.perf_counter()
@@ -3709,6 +4267,7 @@ def main() -> int:
     phase("2 kernels")
     rec.update(check_attention(torch, device, flush))
     check_attention_d256(torch, device, flush)
+    check_attention_zoo(torch, device, flush)
     phase("6 attention kernels")
     del flush
     launches, first = serve(torch, device)
@@ -3725,6 +4284,8 @@ def main() -> int:
     phase("9 training")
     recurrent_serve(torch, device)
     phase("10 recurrent families")
+    zoo_serve(torch, device)
+    phase("11 the rest of the zoo")
     log("[graph] rows: " + json.dumps(GRAPH_ROWS))
 
     src = {"rb_dual_spmv": ("rb_spmv.cu", "src/repro/kernels/rb_spmv.py:86"),

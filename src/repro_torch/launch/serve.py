@@ -1,6 +1,6 @@
 """Lockstep serving driver for the paper's LSTMs, dense or BRDS-packed,
-with temporal-delta and quantized variants, and for the dense transformers
-of the model zoo, dense or BRDS-pruned:
+with temporal-delta and quantized variants, and for every model of the
+zoo, dense or BRDS-pruned:
 
   python -m repro_torch.launch.serve --arch lstm_ptb --brds
   python -m repro_torch.launch.serve --arch lstm_ptb --brds --delta 0
@@ -24,16 +24,27 @@ of the model zoo, dense or BRDS-pruned:
       --draft-brds
   python -m repro_torch.launch.serve --arch lstm_ptb --brds --scorecard \\
       --metrics metrics.json
+  python -m repro_torch.launch.serve --arch granite-moe-1b-a400m \\
+      --draft lstm_ptb --draft-brds
+  python -m repro_torch.launch.serve --arch seamless-m4t-medium --smoke \\
+      --device cpu
+  python -m repro_torch.launch.serve --arch llava-next-34b --smoke \\
+      --device cpu
 
 Runs on the card unless ``--device cpu`` is given, at the configuration's
 full width unless ``--smoke`` narrows it (an LSTM to widths of 128, a
 transformer to ``configs.smoke_config``). ``--arch`` takes the LSTM
-language models and the zoo's config names; a config the port cannot serve
-yet errors out with the reason (the default is ``qwen3-0.6b``, as the
-reference's). A zoo model's ``--brds`` prunes it with
-``transformer_policy(--spar-a, --spar-b)`` (MLP and RWKV6's channel mix at
-A; attention, RG-LRU and RWKV6's time mix at B); ``--delta``, ``--quant``
-and ``--scorecard`` are LSTM-only. A packed LSTM (an LSTM draft
+language models and the zoo's config names (the default is
+``qwen3-0.6b``, as the reference's). The encoder-decoder's prompts come
+with frame embeddings of (batch, 32, d) and a VLM's with patch embeddings
+of (batch, num_patches, d), drawn from the run's generator, as the
+reference's ``extra_fn`` draws them (under ``--continuous`` the frames
+have the config's ``enc_len`` rows, which the scheduler's slots hold;
+``--traffic`` submits no conditioning and refuses the encoder-decoder). A
+zoo model's ``--brds`` prunes it with ``transformer_policy(--spar-a,
+--spar-b)`` (MLP, experts and RWKV6's channel mix at A; attention, RG-LRU
+and RWKV6's time mix at B); ``--delta``, ``--quant`` and ``--scorecard``
+are LSTM-only. A packed LSTM (an LSTM draft
 too) steps through the single-launch fused kernels (``--fused``, the
 default) or the chained ones (``--no-fused``). Prints the generation
 rate (median and range of ``RUNS`` timed runs after one warm-up run), the
@@ -137,8 +148,9 @@ def _lstm_target(args, device):
 
 
 def _transformer_target(ap, args, device):
-    """(model, params, sparsity) for a zoo ``--arch``; errors out with the
-    reason for what the port cannot serve yet."""
+    """(model, params, sparsity, extra_fn) for a zoo ``--arch``;
+    ``extra_fn(gen, batch, frames=32)`` draws the family's conditioning
+    (None for a text-only model)."""
     from repro_torch.configs import get_arch, smoke_config
     from repro_torch.models import build_model
     from repro_torch.sparse import transformer_policy
@@ -153,10 +165,10 @@ def _transformer_target(ap, args, device):
                  f"recurrent cell — repro_torch.obs.scorecard), not "
                  f"{args.arch}")
     cfg = smoke_config(args.arch) if args.smoke else get_arch(args.arch)
-    try:
-        model = build_model(cfg)
-    except NotImplementedError as e:
-        ap.error(str(e))
+    if args.traffic and cfg.encdec:
+        ap.error(f"--traffic submits prompts without frames, which "
+                 f"{args.arch} (an encoder-decoder) needs")
+    model = build_model(cfg)
     t0 = time.perf_counter()
     params = model.init(torch.Generator().manual_seed(args.seed), device)
     _sync(device)
@@ -164,7 +176,20 @@ def _transformer_target(ap, args, device):
           f"a CPU generator, seed {args.seed})")
     sparsity = (transformer_policy(args.spar_a, args.spar_b) if args.brds
                 else None)
-    return model, params, sparsity
+
+    def extra_fn(gen, batch, frames=32):
+        rows = frames if cfg.encdec else cfg.num_patches
+        if not rows:
+            return None
+        return torch.randn((batch, rows, cfg.d_model), generator=gen).to(
+            device=device, dtype=cfg.torch_dtype)
+
+    return model, params, sparsity, extra_fn
+
+
+def _no_extra(gen, batch, frames=32):
+    """An LSTM's prompts take no conditioning."""
+    return None
 
 
 def _sync(device: torch.device) -> None:
@@ -355,10 +380,12 @@ def main(argv=None):
     if args.trace:
         from repro_torch.obs import trace as obs_trace
         obs_trace.enable()
+    extra_fn = _no_extra
     if args.arch in LSTM_CONFIGS:
         model, params, sparsity = _lstm_target(args, device)
     else:
-        model, params, sparsity = _transformer_target(ap, args, device)
+        model, params, sparsity, extra_fn = _transformer_target(ap, args,
+                                                                device)
     cfg = model.cfg
     print(f"arch={cfg.name} params={model.param_count() / 1e6:.1f}M "
           f"device={device}")
@@ -388,22 +415,27 @@ def main(argv=None):
         print(f"draft={args.draft} spec_k={args.spec_k}")
 
     if args.continuous or args.traffic:
-        _serve_scheduled(args, eng.model, params, sampling, draft, device)
+        # the scheduler's slots hold cross memories of enc_len rows
+        _serve_scheduled(args, eng.model, params, sampling, draft, device,
+                         lambda batch: extra_fn(gen, batch, getattr(
+                             cfg, "enc_len", 32)))
     else:
-        _serve_lockstep(args, eng, params, tokens, sampling, draft, device)
+        _serve_lockstep(args, eng, params, tokens, sampling, draft, device,
+                        extra_fn(gen, args.batch))
     if args.trace:
         obs_trace.save(args.trace)
         print(f"trace: {len(obs_trace.get_tracer().events)} spans to "
               f"{args.trace}")
 
 
-def _serve_lockstep(args, eng, params, tokens, sampling, draft, device):
+def _serve_lockstep(args, eng, params, tokens, sampling, draft, device,
+                    extra=None):
     """One lockstep batch: ``RUNS`` timed generates after a warm-up."""
     from repro_torch.sparse import occupancy_report
 
     def run():
         return eng.generate(
-            params, tokens, args.gen, sampling=sampling,
+            params, tokens, args.gen, extra=extra, sampling=sampling,
             rng=torch.Generator(device).manual_seed(args.seed + 2),
             return_state=True, draft=draft, spec_k=args.spec_k)
 
@@ -505,9 +537,11 @@ def _scheduler(args, model, params, sampling, draft, device):
         spec_k=args.spec_k, device=device, counters=_want_counters(args))
 
 
-def _serve_scheduled(args, model, params, sampling, draft, device):
+def _serve_scheduled(args, model, params, sampling, draft, device,
+                     extra_fn):
     """``--continuous``: ``--batch`` ragged requests through the
-    scheduler; ``--traffic``: a seeded Poisson trace through it. One
+    scheduler, each with ``extra_fn(1)``'s conditioning; ``--traffic``: a
+    seeded Poisson trace through it (no conditioning). One
     scheduler serves a warm-up first (it captures the chunk and warms the
     prefill widths: the whole batch, or the trace's first ``--slots``
     requests), then the measured run (and, under ``--profile``, the
@@ -540,10 +574,11 @@ def _serve_scheduled(args, model, params, sampling, draft, device):
         g = np.random.default_rng(args.seed + 1)
         lens = [max(4, args.prompt_len - 3 * i) for i in range(args.batch)]
         prompts = [g.integers(0, vocab, (1, n)) for n in lens]
+        extras = [extra_fn(1) for _ in prompts]
 
         def run():
-            for p in prompts:
-                sched.submit(p, args.gen)
+            for p, e in zip(prompts, extras):
+                sched.submit(p, args.gen, extra=e)
             t0 = time.perf_counter()
             results = sched.run()
             _sync(device)

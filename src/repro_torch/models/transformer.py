@@ -1,7 +1,8 @@
 """Decoder-only LM: the port of ``repro/models/transformer.py::
 TransformerLM`` for the dense GQA transformers (qwen3, llama3.2,
-minitron, nemotron), the RG-LRU + local-attention hybrid (recurrentgemma)
-and attention-free RWKV6, with a dense MLP.
+minitron, nemotron), the mixture-of-experts ones (granite-moe, qwen3-moe),
+the VLM backbone (llava: patch embeddings and padded q heads), the RG-LRU
++ local-attention hybrid (recurrentgemma) and attention-free RWKV6.
 
 The reference stacks the layers of each block-pattern position and scans
 over periods; here the params hold a per-layer list and a loop runs it, in
@@ -11,11 +12,21 @@ Block kinds:
 - ``attn`` / ``attn_local``: prefill attention through
   ``ops.flash_attention`` (B15) and decode attention through
   ``ops.decode_attention`` (B14), ``attn_local`` with ``cfg.window``; the
-  KV cache is updated in place (``attention.kv_cache_update``);
+  KV cache (bf16, or int8 codes and scales with ``cfg.kv_quant``) is
+  updated in place (``attention.kv_cache_update``); with
+  ``cfg.pad_heads_to`` the q and output projections hold that many heads,
+  attention runs on the ``num_heads`` real ones and the dummy heads'
+  outputs are 0, as the reference masks them;
 - ``rec``: the RG-LRU mixer (``recurrent.rglru_apply`` / ``rglru_step``);
 - ``rwkv``: RWKV6's time mix and its own channel-mix FFN in place of the
   MLP (``recurrent.rwkv_time_mix`` / ``rwkv_time_mix_step`` /
   ``rwkv_channel_mix``).
+
+The FFN after a mixer is a dense MLP or, with ``cfg.moe``, the
+mixture of experts (``moe.moe_apply``), whose load-balancing terms
+``forward`` sums over the layers. With ``cfg.num_patches`` the first
+positions of a prompt take rms-normed patch embeddings (``forward``'s
+``patch_embeds``, ``prefill``'s ``extra``).
 
 A prefill writes the recurrent state into the cache's leaves in place (the
 engine's static decode cache); a decode step returns new state tensors
@@ -27,11 +38,6 @@ checkpoints (``spec.verify``). The training forward (``forward`` /
 so every weight gets its gradient; with ``cfg.remat`` each layer is
 recomputed in the backward (``torch.utils.checkpoint``), as the reference
 remats each period.
-
-Not ported yet (each raises ``NotImplementedError``, later parts of the
-model zoo, queue A item 6): mixture-of-experts MLPs, VLM patch embeddings
-(``num_patches``, prefill's ``extra``), the encoder-decoder, the int8 KV
-cache and tensor-parallel head padding (``pad_heads_to``).
 """
 from __future__ import annotations
 
@@ -40,6 +46,7 @@ from torch.utils.checkpoint import checkpoint
 
 from . import attention as A
 from . import layers as L
+from . import moe as M
 from . import recurrent as R
 from ..core.metrics import cross_entropy
 from ..device import resolve_device
@@ -47,35 +54,17 @@ from ..device import resolve_device
 KINDS = ("attn", "attn_local", "rec", "rwkv")
 
 
-def _unported(what: str):
-    return NotImplementedError(
-        f"{what} is not ported yet: a later part of the model zoo (queue A "
-        "item 6); the port serves dense attention transformers, the RG-LRU "
-        "hybrid and RWKV6")
-
-
 def check_supported(cfg) -> None:
-    """Raise ``NotImplementedError`` for what the port cannot serve yet."""
-    if cfg.encdec:
-        raise _unported(f"{cfg.name}: the encoder-decoder (EncDecLM)")
+    """Raise ``ValueError`` for a block kind the model does not know."""
     kinds = sorted(set(cfg.block_pattern) - set(KINDS))
     if kinds:
-        raise _unported(f"{cfg.name}: block kinds {kinds}")
-    if cfg.moe:
-        raise _unported(f"{cfg.name}: the mixture-of-experts MLP")
-    if cfg.num_patches:
-        raise _unported(f"{cfg.name}: VLM patch embeddings")
-    if cfg.kv_quant:
-        raise _unported(f"{cfg.name}: the int8 KV cache (kv_quant)")
-    if cfg.pad_heads_to:
-        raise _unported(f"{cfg.name}: tensor-parallel head padding "
-                        "(pad_heads_to)")
+        raise ValueError(f"{cfg.name}: unknown block kinds {kinds}")
 
 
 class TransformerLM:
-    """A decoder-only LM of attention, RG-LRU and RWKV6 blocks behind the
-    serving contract (``cache_defs`` / ``init_cache`` / ``prefill`` /
-    ``decode_step``)."""
+    """A decoder-only LM of attention, RG-LRU and RWKV6 blocks (dense or
+    mixture-of-experts FFNs) behind the serving contract (``cache_defs`` /
+    ``init_cache`` / ``prefill`` / ``decode_step``)."""
 
     def __init__(self, cfg):
         check_supported(cfg)
@@ -85,6 +74,8 @@ class TransformerLM:
         self.kinds = tuple(cfg.block_pattern[i % P]
                            for i in range(cfg.num_layers))
         self.has_attention = any(k.startswith("attn") for k in self.kinds)
+        # q heads stored: the real ones, then dummy ones (pad_heads_to)
+        self.h_eff = cfg.pad_heads_to or cfg.num_heads
 
     # ------------------------------------------------------------- params
     def _block_defs(self, kind: str) -> dict:
@@ -93,7 +84,7 @@ class TransformerLM:
         d = {"norm1": L.norm_defs(cfg.norm, cfg.d_model),
              "norm2": L.norm_defs(cfg.norm, cfg.d_model)}
         if kind in ("attn", "attn_local"):
-            d["attn"] = A.attn_defs(cfg.d_model, cfg.num_heads,
+            d["attn"] = A.attn_defs(cfg.d_model, self.h_eff,
                                     cfg.num_kv_heads, cfg.head_dim,
                                     cfg.qk_norm, dt)
         elif kind == "rec":
@@ -102,20 +93,28 @@ class TransformerLM:
         else:
             d["rwkv"] = R.rwkv_defs(cfg.d_model, cfg.num_heads, cfg.head_dim,
                                     cfg.d_ff, dt)
-        if kind != "rwkv":      # rwkv carries its own channel-mix FFN
+        if kind == "rwkv":      # rwkv carries its own channel-mix FFN
+            return d
+        if cfg.moe:
+            d["moe"] = M.moe_defs(cfg.d_model, cfg.d_ff, cfg.num_experts,
+                                  cfg.activation, dt)
+        else:
             d["mlp"] = L.mlp_defs(cfg.d_model, cfg.d_ff, cfg.activation, dt)
         return d
 
     def param_defs(self) -> dict:
         cfg = self.cfg
         dt = cfg.torch_dtype
-        return {
+        defs = {
             "embed": L.embed_defs(self.vocab_padded, cfg.d_model, dt),
             "final_norm": L.norm_defs(cfg.norm, cfg.d_model),
             "head": {"w": L.PSpec((cfg.d_model, self.vocab_padded), dtype=dt,
                                   axes=("embed", "vocab"))},
             "layers": [self._block_defs(k) for k in self.kinds],
         }
+        if cfg.num_patches:
+            defs["patch_norm"] = L.norm_defs("rmsnorm", cfg.d_model)
+        return defs
 
     def init(self, generator: torch.Generator | None = None, device=None):
         """Random params from ``generator`` (seed 0 on the CPU when None;
@@ -141,6 +140,30 @@ class TransformerLM:
                 "x_tm": torch.zeros((B, d), dtype=x.dtype, device=x.device),
                 "x_cm": torch.zeros((B, d), dtype=x.dtype, device=x.device)}
 
+    def _attention(self, kind, p, h, rot, cache, pos, lengths, train):
+        """The attention mixer of ``_block``: (B, S, h_eff, Dh) outputs,
+        the dummy heads' 0."""
+        cfg = self.cfg
+        window = cfg.window if kind == "attn_local" else None
+        H = cfg.num_heads
+        q, k, v = A.qkv_project(p, h, rot, qk_norm=cfg.qk_norm)
+        q = q[:, :, :H]                  # the real heads attend
+        if train:
+            o = A.train_attention(q, k, v, block_q=cfg.block_q,
+                                  block_kv=cfg.block_kv, window=window)
+        elif lengths is not None:
+            A.kv_cache_update(cache, k, v, pos)
+            o = A.decode_attention(q, A.dequantize_cache(cache, h.dtype),
+                                   lengths, window=window)
+        else:
+            o = A.prefill_attention(q, k, v, window=window)
+            if cache is not None:
+                A.kv_cache_update(cache, k, v, 0)
+        if self.h_eff != H:
+            o = torch.cat([o, o.new_zeros(*o.shape[:2], self.h_eff - H,
+                                          o.shape[3])], dim=2)
+        return o
+
     def _block(self, kind, p, x, rot, cache, pos, lengths, train=False):
         """One layer of ``kind``, RoPE by ``rot`` (the positions' tables).
         ``train``: the training forward (plain PyTorch attention). Else
@@ -148,25 +171,16 @@ class TransformerLM:
         (also written into ``cache`` at 0 when one is given) and the
         recurrences from a zero state; else x is one token per sequence:
         attention written at ``pos`` over ``lengths`` rows, the
-        recurrences stepped from ``cache``. Returns (x, state): the
-        recurrent block's new state (None for attention and in training)."""
+        recurrences stepped from ``cache``. Returns (x, state, aux): the
+        recurrent block's new state (None for attention and in training)
+        and the MoE's load-balancing term (None without experts)."""
         cfg = self.cfg
         h = L.apply_norm(cfg.norm, p["norm1"], x)
         decode = lengths is not None and not train
-        state = None
+        state = aux = None
         if kind in ("attn", "attn_local"):
-            window = cfg.window if kind == "attn_local" else None
-            q, k, v = A.qkv_project(p["attn"], h, rot, qk_norm=cfg.qk_norm)
-            if train:
-                o = A.train_attention(q, k, v, block_q=cfg.block_q,
-                                      block_kv=cfg.block_kv, window=window)
-            elif decode:
-                A.kv_cache_update(cache, k, v, pos)
-                o = A.decode_attention(q, cache, lengths, window=window)
-            else:
-                o = A.prefill_attention(q, k, v, window=window)
-                if cache is not None:
-                    A.kv_cache_update(cache, k, v, 0)
+            o = self._attention(kind, p["attn"], h, rot, cache, pos,
+                                lengths, train)
             x = x + A.out_project(p["attn"], o)
         elif kind == "rec":
             if decode:
@@ -185,52 +199,82 @@ class TransformerLM:
             h = L.apply_norm(cfg.norm, p["norm2"], x)
             y, x_cm = R.rwkv_channel_mix(p["rwkv"], h, st["x_cm"])
             state = dict(mix, x_cm=x_cm)
-            return x + y, (None if train else state)
+            return x + y, (None if train else state), None
         h = L.apply_norm(cfg.norm, p["norm2"], x)
-        x = x + L.mlp_apply(p["mlp"], h, cfg.activation)
-        return x, (None if train else state)
+        if cfg.moe:
+            y, aux = M.moe_apply(p["moe"], h, num_experts=cfg.num_experts,
+                                 top_k=cfg.experts_per_token,
+                                 capacity_factor=cfg.capacity_factor,
+                                 activation=cfg.activation,
+                                 group_size=cfg.moe_group)
+        else:
+            y = L.mlp_apply(p["mlp"], h, cfg.activation)
+        return x + y, (None if train else state), aux
 
     def _train_block(self, kind, p, x, rot):
-        return self._block(kind, p, x, rot, None, None, None, True)[0]
+        x, _, aux = self._block(kind, p, x, rot, None, None, None, True)
+        return x, aux
+
+    def _embed_inputs(self, params, tokens, patch_embeds):
+        """Token embeddings, the first P positions replaced by the rms-normed
+        patch embeddings (B, P, d) where the config takes patches."""
+        x = L.embed_apply(params["embed"], tokens)
+        if self.cfg.num_patches and patch_embeds is not None:
+            if patch_embeds.shape[1] > x.shape[1]:
+                raise ValueError(f"{patch_embeds.shape[1]} patch embeddings "
+                                 f"for a prompt of {x.shape[1]} positions")
+            pe = L.rmsnorm(patch_embeds.to(x.dtype), params["patch_norm"]["w"])
+            x = torch.cat([pe, x[:, pe.shape[1]:]], dim=1)
+        return x
 
     def _run(self, params, tokens, positions, cache=None, pos=None,
-             lengths=None, train=False):
-        """Embed, the layers, the final norm. Returns (x, states): the
-        recurrent blocks' new states, one entry a layer (None for an
-        attention layer)."""
-        x = L.embed_apply(params["embed"], tokens)
+             lengths=None, train=False, patches=None):
+        """Embed (``patches`` over the first positions), the layers, the
+        final norm. Returns (x, states, aux): the recurrent blocks' new
+        states, one entry a layer (None for an attention layer), and the
+        MoE layers' summed load-balancing terms (0.0 without experts)."""
+        x = self._embed_inputs(params, tokens, patches)
         rot = (L.rope_tables(positions, self.cfg.head_dim // 2,
                              self.cfg.rope_theta)
                if self.has_attention else None)
         remat = train and self.cfg.remat and torch.is_grad_enabled()
-        states = []
+        states, aux_total = [], 0.0
         for i, (kind, p) in enumerate(zip(self.kinds, params["layers"])):
             c = None if cache is None else cache["layers"][i]
             if remat:
-                x = checkpoint(self._train_block, kind, p, x, rot,
-                               use_reentrant=False)
-                st = None
+                (x, aux), st = checkpoint(self._train_block, kind, p, x, rot,
+                                          use_reentrant=False), None
             else:
-                x, st = self._block(kind, p, x, rot, c, pos, lengths, train)
+                x, st, aux = self._block(kind, p, x, rot, c, pos, lengths,
+                                         train)
+            if aux is not None:
+                aux_total = aux_total + aux
             states.append(st)
-        return L.apply_norm(self.cfg.norm, params["final_norm"], x), states
+        return (L.apply_norm(self.cfg.norm, params["final_norm"], x), states,
+                aux_total)
 
-    def forward(self, params, tokens):
-        """The training forward: tokens (B, S) → logits (B, S, Vp) float32
-        (the pad columns at -1e30), causal attention over the whole
-        sequence in plain PyTorch (``attention.train_attention``)."""
+    def forward(self, params, tokens, patch_embeds=None):
+        """The training forward: tokens (B, S) (and, for a VLM, patch
+        embeddings (B, P, d) over the first P positions) → (logits (B, S,
+        Vp) float32, the pad columns at -1e30; aux, the MoE layers' summed
+        load-balancing terms, a float32 scalar, 0.0 without experts), causal
+        attention over the whole sequence in plain PyTorch
+        (``attention.train_attention``)."""
         positions = torch.arange(tokens.shape[1], device=tokens.device)[None]
-        x, _ = self._run(params, tokens, positions, train=True)
-        return L.logits_apply(params["head"], x, self.cfg.vocab_size)
+        x, _, aux = self._run(params, tokens, positions, train=True,
+                              patches=patch_embeds)
+        return L.logits_apply(params["head"], x, self.cfg.vocab_size), aux
 
     def loss(self, params, batch):
         """Next-token cross-entropy of ``batch`` ({"tokens", "labels"},
-        optional "mask" over positions 1..S-1). The reference adds
-        ``aux_loss_coef`` times the MoE's load-balancing term, which is 0
-        for the families the port builds."""
-        logits = self.forward(params, batch["tokens"])
-        return cross_entropy(logits[:, :-1], batch["labels"][:, 1:],
-                             batch.get("mask"))
+        optional "mask" over positions 1..S-1 and "patch_embeds") plus
+        ``aux_loss_coef`` times the MoE's load-balancing term, as the
+        reference's."""
+        logits, aux = self.forward(params, batch["tokens"],
+                                   batch.get("patch_embeds"))
+        ce = cross_entropy(logits[:, :-1], batch["labels"][:, 1:],
+                           batch.get("mask"))
+        return ce + self.cfg.aux_loss_coef * aux if self.cfg.moe else ce
 
     # ------------------------------------------------------------- serving
     def _cache_defs_block(self, kind, batch: int, max_len: int) -> dict:
@@ -247,9 +291,11 @@ class TransformerLM:
 
     def cache_defs(self, batch: int, max_len: int) -> dict:
         """One entry a layer: an attention layer's (k, v) pair, (B,
-        max_len, Hkv, Dh) each, with a ``cache_seq`` axis (positional,
-        ``spec.verify``); an RG-LRU layer's ``h`` and ``conv``, an RWKV6
-        layer's ``S``, ``x_tm`` and ``x_cm`` (recurrent state)."""
+        max_len, Hkv, Dh) each (int8, with float32 ``k_scale`` / ``v_scale``
+        of (B, max_len, Hkv, 1), under ``cfg.kv_quant``), with a
+        ``cache_seq`` axis (positional, ``spec.verify``); an RG-LRU
+        layer's ``h`` and ``conv``, an RWKV6 layer's ``S``, ``x_tm`` and
+        ``x_cm`` (recurrent state)."""
         return {"layers": [self._cache_defs_block(k, batch, max_len)
                            for k in self.kinds]}
 
@@ -263,9 +309,9 @@ class TransformerLM:
         ``cache_defs(B, max_len)``'s shapes to build in, in place (zeroed
         first, so it ends as a new one would), rather than a new one: the
         engine's static decode cache, so no second copy of the KV cache is
-        made. Returns (logits at the last position (B, 1, Vp), cache)."""
-        if extra is not None:
-            raise _unported("prefill's extra (VLM patch embeddings)")
+        made. ``extra``: a VLM's patch embeddings (B, P, d), which take the
+        prompt's first P positions. Returns (logits at the last position
+        (B, 1, Vp), cache)."""
         B, S = tokens.shape
         if S > max_len:
             raise ValueError(f"prompt of {S} tokens exceeds max_len "
@@ -277,7 +323,8 @@ class TransformerLM:
                 for leaf in layer.values():
                     leaf.zero_()
         positions = torch.arange(S, device=tokens.device)[None]
-        x, states = self._run(params, tokens, positions, cache)
+        x, states, _ = self._run(params, tokens, positions, cache,
+                                 patches=extra)
         for layer, st in zip(cache["layers"], states):
             for name, v in (st or {}).items():
                 layer[name].copy_(v)
@@ -296,8 +343,8 @@ class TransformerLM:
         positions = p.reshape(-1, 1) if p.ndim == 1 else p.reshape(1, 1)
         lengths = (p + 1).expand(tokens.shape[0]).contiguous()
         # an int position is written by a slice, a tensor one on the card
-        x, states = self._run(params, tokens, positions, cache,
-                              pos if isinstance(pos, int) else p, lengths)
+        x, states, _ = self._run(params, tokens, positions, cache,
+                                 pos if isinstance(pos, int) else p, lengths)
         layers = [layer if st is None else st
                   for layer, st in zip(cache["layers"], states)]
         return (L.logits_apply(params["head"], x, self.cfg.vocab_size),

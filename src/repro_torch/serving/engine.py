@@ -98,7 +98,7 @@ class ServeEngine:
             packed = self.model.pad_packed_params(packed)
         return packed, {**report, **pack_report}
 
-    def generate(self, params, tokens, steps: int, *,
+    def generate(self, params, tokens, steps: int, *, extra=None,
                  temperature: float = 0.0, top_k: int = 0, eos_id: int = -1,
                  rng: torch.Generator | None = None,
                  sampling: SamplingConfig | None = None,
@@ -106,8 +106,10 @@ class ServeEngine:
                  spec_k: int = 4):
         """Generate ``steps`` tokens for a lockstep batch of prompts.
 
-        tokens (B, S) prompt ids. Returns (B, steps) int32 ids; finished
-        sequences (per-sequence EOS) pad with ``sampling.pad_id``.
+        tokens (B, S) prompt ids; ``extra`` the family's conditioning for
+        the prefill (an encoder-decoder's frame embeddings, a VLM's patch
+        embeddings). Returns (B, steps) int32 ids; finished sequences
+        (per-sequence EOS) pad with ``sampling.pad_id``.
         ``return_state=True`` also returns the decode loop's final state.
 
         ``lengths`` ((B,) ints) serves a ragged batch in one lockstep call:
@@ -141,6 +143,8 @@ class ServeEngine:
         else:
             pos = tokens.shape[1]
         kw = {} if lengths is None else {"length": lengths}
+        if extra is not None:
+            kw["extra"] = torch.as_tensor(extra, device=self.device)
         if runtime.prefill_accepts_cache(self.model):
             # built in the decode graphs' static cache: no second copy
             kw["cache"] = self.graphs.static_cache(

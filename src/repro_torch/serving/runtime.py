@@ -64,9 +64,11 @@ class DecodeStep(Protocol):
         (B, 1, V), cache).
 
     Rewind contract: ``pos`` is the source of truth for a sequence's
-    length. Positional leaves (a ``cache_seq`` axis: KV caches) at
-    positions ≥ ``pos`` are dead, never read and freely overwritten, so a
-    caller may rewind by re-issuing a smaller ``pos``. Non-positional
+    length. Positional leaves (a ``cache_seq`` axis: KV caches and an int8
+    cache's scales) at positions ≥ ``pos`` are dead, never read and freely
+    overwritten, so a caller may rewind by re-issuing a smaller ``pos``
+    (an encoder-decoder's cross memory is positional too, and decode only
+    reads it). Non-positional
     leaves (recurrent state: the LSTM's (c, h) and delta references,
     RG-LRU's h and conv, RWKV6's S, x_tm and x_cm) fold every token in,
     so a rewinder checkpoints and restores them

@@ -29,8 +29,11 @@ vectors freeze finished slots whenever the host notices).
 Prefill runs eagerly, once per power-of-two length bucket rather than per
 distinct prompt length when the model's prefill takes ``length=``: prompts
 are right-padded to the bucket and masked out of the state (exact);
-models without it (the transformer) prefill at exact length. Same-bucket
-requests prefill together in one call (``prefill_batch``).
+models without it (the transformer zoo, mixture-of-experts included)
+prefill at exact length. Same-bucket requests prefill together in one call
+(``prefill_batch``). A request's ``extra`` reaches its prefill (an
+encoder-decoder's frames, which must have the config's ``enc_len`` rows:
+the slots' cross memory has that many).
 """
 from __future__ import annotations
 
@@ -273,6 +276,13 @@ class ContinuousBatchingEngine:
         def upd(tree, pre, axes):
             for leaf, p, ax in zip(runtime.leaves(tree),
                                    runtime.leaves(pre), axes):
+                if p.shape[:ax] + p.shape[ax + 1:] != \
+                        leaf.shape[:ax] + leaf.shape[ax + 1:]:
+                    # an encoder-decoder's cross memory: its frames must
+                    # have the cache_defs' enc_len rows
+                    raise ValueError(
+                        f"a prefilled cache leaf of shape {tuple(p.shape)} "
+                        f"cannot join the slots' {tuple(leaf.shape)}")
                 leaf.index_copy_(ax, slots_v, p.to(leaf.dtype))
 
         upd(c["cache"], pre_cache, self._batch_axes)

@@ -10,8 +10,9 @@ k=1 is exactly one decode step.
 Rollback after partial acceptance splits the decode cache by leaf kind,
 read off the logical axes of ``cache_defs``:
 
-- *positional* leaves (a ``cache_seq`` axis: KV caches) roll back by
-  position rewind alone, the rejected tail left dead in the buffers;
+- *positional* leaves (a ``cache_seq`` axis: KV caches, an int8 cache's
+  ``k_scale`` / ``v_scale``, an encoder-decoder's cross memory) roll back
+  by position rewind alone, the rejected tail left dead in the buffers;
 - *state* leaves (everything else: the LSTM's (c, h) and the delta
   reference state) are O(1) per step, so the chain checkpoints them per
   verified token and ``rollback`` restores each row's checkpoint at its

@@ -88,6 +88,68 @@ def test_flash_matches_pallas_and_model(B, Hq, Hkv, Sq, Sk, D, win, dtype):
                                          block_kv=64), dtype)
 
 
+# (B, Hq, Hkv, Sq, Sk, D, causal): an encoder's bidirectional self
+# attention (Sq = Sk), cross-attention over a longer memory (Sq < Sk) and
+# a shorter one (Sq > Sk), all keys live; then llava's odd group of 7
+# (its 56 real q heads over 8 kv heads, here 14 over 2) causal and not,
+# and qwen3-moe's group of 16
+GROUP_CASES = [
+    (2, 4, 4, 64, 64, 64, False),
+    (2, 4, 4, 32, 128, 64, False),
+    (1, 4, 4, 96, 64, 32, False),
+    (2, 14, 2, 64, 64, 32, True),
+    (1, 14, 2, 64, 128, 32, False),
+    (1, 16, 1, 64, 64, 32, True),
+]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("B,Hq,Hkv,Sq,Sk,D,causal", GROUP_CASES)
+def test_flash_noncausal_and_odd_groups_match_pallas(B, Hq, Hkv, Sq, Sk, D,
+                                                     causal, dtype):
+    """B15's plain version without a causal mask (every key live, Sq and
+    Sk apart) and at groups of 7 and 16: q head h reads kv head h // G, as
+    the Pallas kernel in interpret mode, ``mha_ref`` and the reference
+    model's ``full_attention`` (kv heads repeated, ``prepare_heads``)
+    read it."""
+    rng = np.random.default_rng(Sq + 3 * Sk + Hq)
+    jq, q = _both(rng, (B, Hq, Sq, D), dtype)
+    jk, k = _both(rng, (B, Hkv, Sk, D), dtype)
+    jv, v = _both(rng, (B, Hkv, Sk, D), dtype)
+    plain = ref.flash_attention_ref(q, k, v, causal=causal)
+    assert torch.equal(plain, ops.flash_attention(q, k, v, causal=causal))
+    _close(plain, pallas_flash(jq, jk, jv, causal=causal, block_q=32,
+                               block_kv=32), dtype)
+    _close(plain, jref.mha_ref(jq, jk, jv, causal=causal), dtype)
+    if dtype == "float32":
+        G = Hq // Hkv
+        got = JA.full_attention(_bshd(q), _rep(_bshd(k), G),
+                                _rep(_bshd(v), G), causal=causal,
+                                q_offset=Sk - Sq)
+        _close(plain.transpose(1, 2), got, dtype)
+
+
+@pytest.mark.parametrize("Hq,Hkv", [(14, 2), (16, 1)])
+def test_decode_odd_groups_match_pallas(Hq, Hkv):
+    """B14's plain version at groups of 7 (llava) and 16 (qwen3-moe), and
+    over a fixed-length memory (every row at its full length, as the
+    decoder's cross-attention reads the encoder's memory), against the
+    Pallas kernel in interpret mode and the model's einsum."""
+    B, S, D = 3, 96, 32
+    rng = np.random.default_rng(Hq)
+    jq, q = _both(rng, (B, Hq, D), "float32")
+    jk, k = _both(rng, (B, Hkv, S, D), "float32")
+    jv, v = _both(rng, (B, Hkv, S, D), "float32")
+    for n in (_lengths(B, S, Hq), np.full(B, S, np.int32)):
+        plain = ops.decode_attention(q, k, v, torch.from_numpy(n))
+        jn = jnp.asarray(n)
+        _close(plain, pallas_decode(jq, jk, jv, jn, block_kv=32), "float32")
+        got = JA.decode_attention_einsum(
+            jnp.asarray(q.numpy())[:, None], _rep(_bshd(k), Hq // Hkv),
+            _rep(_bshd(v), Hq // Hkv), jn)
+        _close(plain, np.asarray(got)[:, 0], "float32")
+
+
 def test_flash_rows_without_keys_give_zero():
     """Sq > Sk: causal q rows before the first key have no live key. The
     Pallas kernel and the port's kernel function give 0 there;

@@ -140,7 +140,7 @@ def test_continuous_batching_matches_lockstep(family, request):
     for uid, juid, p, g in zip(uids, juids, prompts, budgets):
         if family == "hybrid":
             seq = torch.from_numpy(np.concatenate([p[0], results[uid]]))
-            top2 = net["model"].forward(net["params"], seq[None].long())[
+            top2 = net["model"].forward(net["params"], seq[None].long())[0][
                 0, p.shape[1] - 1:-1, :vocab].topk(2).values
             assert float((top2[:, 0] - top2[:, 1]).min()) > 10 * HYBRID_ATOL
         np.testing.assert_array_equal(results[uid], np.asarray(want[juid]))

@@ -142,8 +142,9 @@ def test_forward_logits_match(net):
     cfg = net["cfg"]
     prompt = _prompt(cfg, 2, 24, seed=5)
     jl, _ = net["jmodel"].forward(net["jparams"], jnp.asarray(prompt))
-    _close(net["model"].forward(net["params"], torch.as_tensor(prompt)), jl,
-           ATOL[cfg.name])
+    logits, aux = net["model"].forward(net["params"], torch.as_tensor(prompt))
+    _close(logits, jl, ATOL[cfg.name])
+    assert aux == 0.0
 
 
 def test_last_bit_sensitivity(net):
@@ -245,7 +246,7 @@ def test_greedy_generate_matches(net):
     got, state = eng.generate(net["params"], torch.as_tensor(prompt), steps,
                               return_state=True)
     seq = torch.cat([torch.as_tensor(prompt), got.long()], 1)
-    logits = net["model"].forward(net["params"], seq)[:, 7:-1]
+    logits = net["model"].forward(net["params"], seq)[0][:, 7:-1]
     assert float(_margins(logits).min()) > 10 * ATOL[cfg.name]
     np.testing.assert_array_equal(got.numpy(), want)
     assert int(state["pos"]) == 8 + steps
@@ -425,27 +426,25 @@ def test_spec_with_a_padded_target_vocabulary():
 
 
 def test_unsupported_configs_raise():
-    """Every config name is known; the dense attention members, the
-    RG-LRU hybrid and RWKV6 build, the rest raise NotImplementedError
-    naming what is missing."""
+    """Every config name is known and every one builds (the
+    encoder-decoder as ``EncDecLM``); an unknown block kind raises
+    naming it; the int8 KV cache declares int8 codes and float32 scales,
+    all positional; a KV-cache model cannot draft."""
+    from repro_torch.models import EncDecLM, TransformerLM
     assert len(ARCH_NAMES) == 10
-    built = []
     for name in ARCH_NAMES:
         cfg = smoke_config(name)
         assert get_arch(name).name == name
-        try:
-            build_model(cfg)
-            built.append(name)
-        except NotImplementedError as e:
-            assert "queue A item 6" in str(e)
-    assert sorted(built) == ["llama3.2-3b", "minitron-8b", "nemotron-4-340b",
-                             "qwen3-0.6b", "recurrentgemma-9b", "rwkv6-7b"]
-    model = build_model(smoke_config("qwen3-0.6b"))
-    with pytest.raises(NotImplementedError):
-        model.prefill(None, torch.zeros((1, 2), dtype=torch.long), 4,
-                      extra=torch.zeros(1))
-    with pytest.raises(NotImplementedError, match="int8 KV"):
-        build_model(smoke_config("qwen3-0.6b").with_(kv_quant=True))
+        model = build_model(cfg)
+        assert isinstance(model, EncDecLM if cfg.encdec else TransformerLM)
+    with pytest.raises(ValueError, match="unknown block kinds"):
+        build_model(smoke_config("qwen3-0.6b").with_(block_pattern=("ssm",)))
+    model = build_model(smoke_config("qwen3-0.6b").with_(kv_quant=True))
+    layer = model.cache_defs(2, 8)["layers"][0]
+    assert {k: d.dtype for k, d in layer.items()} == {
+        "k": torch.int8, "v": torch.int8, "k_scale": torch.float32,
+        "v_scale": torch.float32}
+    assert layer["k_scale"].shape == (2, 8, 2, 1)
     from repro_torch.spec.verify import cache_leaf_flags
     positional, batch_axes = cache_leaf_flags(model)
     assert all(positional) and set(batch_axes) == {0}
@@ -475,7 +474,7 @@ def test_serve_cli_on_cpu(capsys):
 
 @pytest.mark.parametrize("argv,reason", [
     (["--arch", "rwkv6-7b", "--scorecard"], "rwkv"),
-    (["--arch", "granite-moe-1b-a400m"], "mixture-of-experts"),
+    (["--arch", "granite-moe-1b-a400m", "--scorecard"], "LSTM-only"),
     (["--arch", "qwen3-0.6b", "--delta", "0"], "LSTM-only"),
     (["--arch", "qwen3-0.6b", "--brds", "--quant", "int8"], "LSTM-only"),
 ])
