@@ -128,12 +128,28 @@
    llama3.2-3b with the int8 KV cache, at full width in bf16 through
    ``ServeEngine``, granite-moe also under the scheduler and with a
    speculating lstm_ptb draft (its docstring gives the gates).
+12. Sharded decode (``dist_serve``): full-width ``lstm_ptb`` through
+   ``ServeEngine(mesh=)`` on (data, model) meshes of 2 ranks (1, 2) and
+   4 ranks (2, 2), every rank a spawned process on this one card under
+   gloo (NCCL refuses two ranks on one card; each all-gather is staged
+   through host memory), B=8, prompt 32, gen 64, on the packed float, Θ=0
+   and Θ=0.05 delta, calibrated int8 and Θ=0 delta + int8 paths: every
+   rank's tokens and logits bitwise the single-device chained path's on
+   the card for its data group's rows (or the finding printed and held to
+   LOGIT_TOL with tokens equal), its launch counts around one generate
+   exactly (prompt + gen) x layers of the path's dual SpMV (B1, B4 or B7)
+   and of B2, a decode step's collectives exactly one all-gather of the
+   rank's h slice a layer, and its wall a step (gloo host-staged); then
+   B1, B4, B7 and B2 alone on each shard's rows at 2 and 4 shards, held
+   to the unsharded launch's rows and timed with L2 flushed beside it
+   (max / min over the shards printed).
 
 Prints a ``{"kernels": [...]}`` line and, last, the device line. Exits
 non-zero on any failure, and without a card.
 """
 from __future__ import annotations
 
+import faulthandler
 import json
 import math
 import re
@@ -142,6 +158,7 @@ import subprocess
 import sys
 import time
 from pathlib import Path
+from typing import NamedTuple
 
 import numpy as np
 
@@ -284,6 +301,13 @@ NLL_RTOL = 1e-4
 TTRAIN = ["--arch", "qwen3-0.6b", "--brds", "--batch", "4", "--seq", "256",
           "--steps", "6", "--save-every", "2", "--inject-failure-at", "3"]
 ATTN_LEAVES = ("wq", "wk", "wv", "wo", "q_norm", "k_norm")
+# phase 12, sharded decode: (data, model) meshes of 2 then 4 ranks on the
+# one card under gloo (NCCL refuses two ranks on one card); the shard
+# kernels timed at the model-axis counts 2 (the 4-rank mesh's rows, B/2)
+# and 4 (375 units a shard, an odd count)
+DMESHES = ((1, 2), (2, 2))
+DSHARDS = (2, 4)
+DRUNS = 3         # timed generates a rank and path, the median reported
 
 
 def log(msg: str) -> None:
@@ -1590,6 +1614,44 @@ def timed_runs(torch, run, runs: int = RUNS) -> list[float]:
     return out
 
 
+class Span(NamedTuple):
+    start: float            # µs
+    end: float
+
+
+class DeviceEvent(NamedTuple):
+    """A kernel, copy or set the profiler saw on the card: the ``name`` and
+    ``time_range`` of its ``prof.events()`` record."""
+    name: str
+    time_range: Span
+
+
+def device_events(torch, prof) -> list[DeviceEvent]:
+    """The card's records of a finished ``prof``, read from the profiler's
+    raw results with ``prof.events()``'s names (demangled) and filters
+    (hidden events and user annotations dropped). ``prof.events()`` itself
+    builds a Python event tree of every record first, ~60 µs a record:
+    tens of seconds for one generate of a full-depth plain model."""
+    res = prof.profiler.kineto_results
+    t0 = res.trace_start_ns()
+    names: dict[str, str] = {}
+    out = []
+    for e in res.events():
+        if e.device_type() != torch.autograd.DeviceType.CUDA or \
+                e.is_user_annotation() or \
+                getattr(e, "is_hidden_event", lambda: False)():
+            continue
+        raw = e.name()
+        name = names.get(raw)
+        if name is None:
+            name = names[raw] = torch._C._demangle(raw) if len(raw) > 1 \
+                else raw
+        start = e.start_ns() - t0
+        out.append(DeviceEvent(name, Span(start / 1e3,
+                                          (start + e.duration_ns()) / 1e3)))
+    return out
+
+
 def device_busy(torch, run, host_ops=True):
     """(device busy seconds, device span seconds) of one ``run`` under
     torch.profiler: the sum of the card's kernel and copy intervals, and
@@ -1604,9 +1666,7 @@ def device_busy(torch, run, host_ops=True):
     with profile(activities=acts) as prof:
         run()
         torch.cuda.synchronize()
-    ev = [e for e in prof.events()
-          if e.device_type == torch.autograd.DeviceType.CUDA
-          and not e.is_user_annotation]
+    ev = device_events(torch, prof)
     spans = sorted((e.time_range.start, e.time_range.end) for e in ev)
     busy = sum(t - s for s, t in spans) / 1e6
     union, end = 0.0, float("-inf")
@@ -4228,7 +4288,283 @@ def zoo_one(torch, device, arch, R) -> None:
     log(f"[zserve] {arch} by part {laps}")
 
 
+def serve_inputs(torch, cfg, device):
+    """Phase 3's full-width inputs: seed-0 weights, the B=8 prompt (seed
+    1) and the calibration batch (seed 3)."""
+    from repro_torch.models import LSTMModel
+    B, P = SERVE["batch"], SERVE["prompt"]
+    params = LSTMModel(cfg).init(torch.Generator().manual_seed(0), device)
+    draw = lambda shape, seed: torch.randint(
+        0, cfg.vocab_size, shape,
+        generator=torch.Generator().manual_seed(seed)).to(device)
+    return params, draw((B, P), 1), draw((B, min(P, 32)), 3)
+
+
+def dist_paths() -> dict:
+    """Phase 12's packed paths: tag → (policy rules, the dual-SpMV kernel
+    its chained step launches before lstm_gates)."""
+    from repro_torch.sparse import DeltaGateConfig, QuantConfig
+    return {"float": ({}, "rb_dual_spmv"),
+            "delta0": (dict(delta=DeltaGateConfig()), "delta_rb_dual_spmv"),
+            "delta0.05": (dict(delta=DeltaGateConfig(theta_x=0.05,
+                                                     theta_h=0.05)),
+                          "delta_rb_dual_spmv"),
+            "int8": (dict(quant=QuantConfig("int8")), "rb_dual_parts_q8"),
+            "delta0+int8": (dict(delta=DeltaGateConfig(),
+                                 quant=QuantConfig("int8")),
+                            "rb_dual_parts_q8")}
+
+
+def dist_rank(mesh, spawned: float) -> dict:
+    """Phase 12 on one rank: full-width lstm_ptb through
+    ``ServeEngine(mesh=)`` on every path of ``dist_paths``: ``DRUNS``
+    timed generates, the first with the launch counts set to 0 just before
+    and read just after (the median discards its first-call costs), and
+    the collective inventory of one decode step. Returns the tokens,
+    logits, counts, inventory, the median wall a step and where the rank's
+    time went (``spawned``: the parent's clock when it started the
+    ranks)."""
+    faulthandler.enable(all_threads=True)
+    import torch
+    import torch.distributed as dist
+    from repro_torch.dist.collective_ops import batch_rows
+    from repro_torch.kernels import ops
+    from repro_torch.models import LSTMModel, LSTM_CONFIGS
+    from repro_torch.obs import collectives
+    from repro_torch.serving import ServeEngine
+    from repro_torch.sparse import lstm_policy
+    device = torch.device("cuda", torch.cuda.current_device())
+    cfg = LSTM_CONFIGS["lstm_ptb"]
+    B, P, G = SERVE["batch"], SERVE["prompt"], SERVE["gen"]
+    laps = {"start": time.time() - spawned}
+    t0 = time.perf_counter()
+    params, tokens, calib = serve_inputs(torch, cfg, device)
+    laps["weights"] = time.perf_counter() - t0
+    rows = batch_rows(mesh, B)
+    out = {"rank": dist.get_rank(), "rows": (rows.start, rows.stop),
+           "laps": laps}
+    for tag, (rules, _) in dist_paths().items():
+        t0 = time.perf_counter()
+        eng = ServeEngine(LSTMModel(cfg), max_len=P + G,
+                          sparsity=lstm_policy(0.75, 0.5, **rules),
+                          device=device, mesh=mesh)
+        packed, _ = eng.prepare(params,
+                                calib=calib if "quant" in rules else None)
+        if not eng._dist or eng.model._use_fused:
+            raise AssertionError(f"{tag}: the engine did not take the "
+                                 "sharded chained path")
+        torch.cuda.synchronize()
+        laps[f"{tag} prepare"] = time.perf_counter() - t0
+        walls = []
+        for i in range(DRUNS):
+            torch.cuda.synchronize()
+            dist.barrier()
+            if i == 0:
+                zero_launches(ops)
+            t0 = time.perf_counter()
+            toks, st = eng.generate(packed, tokens, G, return_state=True)
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+            if i == 0:
+                launches = {k: n for k, n in ops.LAUNCHES.items() if n}
+                keep = (toks.cpu().numpy(), st["logits"].float().cpu().numpy())
+        laps[f"{tag} generates"] = sum(walls)
+        inv = collectives.summarize_inventory(
+            collectives.decode_step_inventory(
+                eng.model, packed, st["cache"],
+                toks[rows, -1:].long(), P + G))
+        out[tag] = dict(toks=keep[0], logits=keep[1], launches=launches,
+                        inventory=inv,
+                        step_ms=statistics.median(walls) / (P + G) * 1e3)
+        del eng, packed, st
+    return out
+
+
+def shard_times(torch, device, flush) -> None:
+    """B1, B4, B7 and B2 alone on each shard's gate-aligned rows, held
+    against the same rows of the unsharded launch (bitwise, or the finding
+    printed and held to Z_TOL / CELL_TOL), and timed beside it with L2
+    flushed: at a model axis of 2 (the 4-rank mesh's shard, its data
+    group's B/2 rows) and 4 (375 hidden units a shard), B=8."""
+    from repro_torch.dist.partition import gate_row_permutation
+    from repro_torch.dist.partition import permute_packed_rows as rows_of
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import rb_spmv_q8 as kq8
+    from repro_torch.kernels._build import time_ms
+    for n in DSHARDS:
+        B = SERVE["batch"] // (2 if n == 2 else 1)
+        cs = make_case(torch, device, B=B, X=1500, H=1500, spar_x=0.75,
+                       spar_h=0.5, seed=1)
+        H = cs["H"]
+        (qx, sax, qh, sah), (fx, fh) = q8_acts(cs, "int8"), cs["fired"][1.0]
+        qsx, qsh = cs["q8"]["int8"]
+        perm = gate_row_permutation(H, n)
+
+        def block(j):
+            return perm[j * 4 * H // n:(j + 1) * 4 * H // n]
+
+        def kernels(j):
+            """(name → launch) of shard j's rows (None: unsharded)."""
+            sx, sh, b, m, c = (cs[k] for k in ("sx", "sh", "bias", "m", "c"))
+            qx8, qh8 = qsx, qsh
+            if j is not None:
+                blk = torch.as_tensor(block(j), device=device)
+                sx, sh = rows_of(sx, block(j)), rows_of(sh, block(j))
+                qx8, qh8 = rows_of(qsx, block(j)), rows_of(qsh, block(j))
+                b, m = b[blk], m[:, blk]
+                c = c[:, j * H // n:(j + 1) * H // n].contiguous()
+            z = ops.rb_dual_spmv(sx, cs["x"], sh, cs["h"], b, backend="cuda")
+            h4 = z.shape[1] // 4
+            zs = [z[:, i * h4:(i + 1) * h4] for i in range(4)]
+            return {
+                "rb_dual_spmv": lambda: ops.rb_dual_spmv(
+                    sx, cs["x"], sh, cs["h"], b, backend="cuda"),
+                "delta_rb_dual_spmv": lambda: ops.delta_rb_dual_spmv(
+                    sx, cs["dx"], fx, sh, cs["dh"], fh, m, backend="cuda"),
+                # these two return (zx, zh) and (c, h): concatenated only
+                # to compare, outside the timed call
+                "rb_dual_parts_q8": lambda: kq8.rb_dual_parts_q8(
+                    qx8.values, qx8.deltas, qx8.scales * sax, qx, qh8.values,
+                    qh8.deltas, qh8.scales * sah, qh, qx8.rows),
+                "lstm_gates": lambda: ops.lstm_gates(*zs, c,
+                                                     backend="cuda")}
+
+        def out(run):
+            got = run()
+            return torch.cat(got, 1) if isinstance(got, tuple) else got
+
+        full = kernels(None)
+        shards = [kernels(j) for j in range(n)]
+        for name, run in full.items():
+            whole = out(run)
+            tol = CELL_TOL if name == "lstm_gates" else Z_TOL
+            diffs = []
+            for j, ks in enumerate(shards):
+                got = out(ks[name])
+                blk = torch.as_tensor(block(j), device=device)
+                if name == "lstm_gates":        # (c, h) of the shard's units
+                    cols = torch.cat([torch.arange(j * H // n,
+                                                   (j + 1) * H // n) + k * H
+                                      for k in range(2)]).to(device)
+                elif name == "rb_dual_parts_q8":    # (zx, zh) of its rows
+                    cols = torch.cat([blk, blk + 4 * H])
+                else:
+                    cols = blk
+                diffs.append((got - whole[:, cols]).abs().max().item())
+            worst = max(diffs)
+            if worst > tol:
+                raise AssertionError(f"{name} at {n} shards: shard rows "
+                                     f"differ from the unsharded launch's "
+                                     f"by {worst:.3e} > {tol:.0e}")
+            ms = [time_ms(ks[name], flush) for ks in shards]
+            log(f"[dist] {name:19} B={B} {n} shards ({4 * H // n} rows, "
+                f"{H // n} units each): "
+                + ("bitwise the unsharded launch's rows" if worst == 0 else
+                   f"FINDING: not bitwise the unsharded launch's rows, max "
+                   f"|diff| {worst:.3e} (held to {tol:.0e})")
+                + f"; shard ms {', '.join(f'{t:.4f}' for t in ms)} (max / "
+                f"min {max(ms) / min(ms):.3f}), unsharded "
+                f"{time_ms(run, flush):.4f} ms — median of 30, L2 flushed")
+
+
+def dist_serve(torch, device) -> None:
+    """Phase 12: sharded decode over ``DMESHES`` (``dist_rank`` on spawned
+    gloo ranks, all on this card), every rank's tokens and logits held
+    against the single-device chained path on the card (bitwise, or the
+    finding printed and held to LOGIT_TOL and the margins), its launch
+    counts to (prompt + gen) x layers of the path's dual SpMV and of
+    lstm_gates, and its inventory to one all-gather of the rank's h slice
+    a layer a step; then the shard kernel times (``shard_times``)."""
+    from repro_torch.launch.mesh import run_ranks
+    from repro_torch.models import LSTMModel, LSTM_CONFIGS
+    from repro_torch.serving import ServeEngine
+    from repro_torch.sparse import lstm_policy
+    cfg = LSTM_CONFIGS["lstm_ptb"]
+    B, P, G = SERVE["batch"], SERVE["prompt"], SERVE["gen"]
+    want = (P + G) * cfg.num_layers
+    torch.cuda.empty_cache()
+    log("[dist] gloo on this one card: NCCL refuses two ranks on one card, "
+        "so every all-gather is staged through host memory (walls below are "
+        "gloo host-staged, not a measure of NCCL)")
+    runs = {}
+    for mesh in DMESHES:
+        t0 = time.perf_counter()
+        runs[mesh] = run_ranks(dist_rank, *mesh, device="cuda",
+                               backend="gloo", args=(time.time(),),
+                               threads=2, timeout=300)
+        log(f"[dist] mesh data={mesh[0]} model={mesh[1]}: "
+            f"{mesh[0] * mesh[1]} ranks in {time.perf_counter() - t0:.1f}s; "
+            "rank 0's seconds: " + ", ".join(
+                f"{k} {v:.2f}" for k, v in runs[mesh][0]["laps"].items()))
+    params, tokens, calib = serve_inputs(torch, cfg, device)
+    for tag, (rules, b1) in dist_paths().items():
+        eng = ServeEngine(LSTMModel(cfg, fused=False), max_len=P + G,
+                          sparsity=lstm_policy(0.75, 0.5, **rules),
+                          device=device)
+        packed, _ = eng.prepare(params,
+                                calib=calib if "quant" in rules else None)
+        ref = {}
+        for d in sorted({m[0] for m in DMESHES}):
+            per = B // d
+            for r in range(d):
+                t, st = eng.generate(packed, tokens[r * per:(r + 1) * per], G,
+                                     return_state=True)
+                ref[(d, r * per)] = (t.cpu(), st["logits"].float().cpu())
+        for (d, m), ranks in runs.items():
+            per = B // d
+            bitwise = True
+            for rk in ranks:
+                got = rk[tag]
+                lo, hi = rk["rows"]
+                wt, wl = ref[(d, lo)]
+                gt = torch.as_tensor(got["toks"])
+                gl = torch.as_tensor(got["logits"])
+                if gt.shape != (B, G):
+                    raise AssertionError(f"[dist] {tag}: tokens "
+                                         f"{tuple(gt.shape)}")
+                if not (torch.equal(gt[lo:hi], wt)
+                        and torch.equal(gl[lo:hi], wl)):
+                    # the finding: held to the serve gates instead
+                    bitwise = False
+                    e = (gl[lo:hi] - wl).abs().max().item()
+                    log(f"[dist] FINDING {tag} mesh {d},{m} rank "
+                        f"{rk['rank']}: not bitwise the single-device "
+                        f"chained path; max |last logit diff| {e:.3e} "
+                        f"(held to {LOGIT_TOL:.0e}, tokens equal)")
+                    if not e <= LOGIT_TOL:
+                        raise AssertionError(f"{tag}: logits {e:.3e} > "
+                                             f"{LOGIT_TOL:.0e}")
+                    same_tokens(torch, f"{tag} mesh {d},{m}", gt[lo:hi], wt)
+                exp = {b1: want, "lstm_gates": want}
+                if got["launches"] != exp:
+                    raise AssertionError(f"{tag} mesh {d},{m} rank "
+                                         f"{rk['rank']} launched "
+                                         f"{got['launches']}, expected {exp}")
+                inv = got["inventory"]
+                wire = cfg.num_layers * per * (cfg.hidden // m) * 4
+                if inv["counts"] != {"all-gather": cfg.num_layers} or \
+                        inv["wire_bytes"] != wire:
+                    raise AssertionError(f"{tag} mesh {d},{m}: a decode "
+                                         f"step's collectives {inv}, "
+                                         f"expected {cfg.num_layers} "
+                                         f"all-gather of {wire} bytes")
+            log(f"[dist] {tag} mesh data={d} model={m}: tokens and logits "
+                + ("bitwise" if bitwise else "held to the gates")
+                + " the single-device chained path's on every rank; "
+                f"launches a rank {ranks[0][tag]['launches']}; a decode "
+                f"step's collectives {ranks[0][tag]['inventory']}; wall a "
+                "step (gloo host-staged) "
+                + ", ".join(f"rank {rk['rank']} {rk[tag]['step_ms']:.3f} ms"
+                            for rk in ranks))
+        del eng, packed
+    flush = torch.empty(256 << 20, dtype=torch.uint8, device=device)
+    shard_times(torch, device, flush)
+    del flush
+
+
 def main() -> int:
+    # a fault in native code prints every thread's Python stack to stderr
+    faulthandler.enable(all_threads=True)
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -4261,6 +4597,8 @@ def main() -> int:
     def phase(name):
         nonlocal t0
         log(f"[phase] {name}: {time.perf_counter() - t0:.1f}s")
+        # also on stderr, so the end of stderr alone says how far a run got
+        print(f"[phase] {name} done", file=sys.stderr, flush=True)
         t0 = time.perf_counter()
 
     rec = check_kernels(torch, device, flush)
@@ -4286,6 +4624,8 @@ def main() -> int:
     phase("10 recurrent families")
     zoo_serve(torch, device)
     phase("11 the rest of the zoo")
+    dist_serve(torch, device)
+    phase("12 sharded decode")
     log("[graph] rows: " + json.dumps(GRAPH_ROWS))
 
     src = {"rb_dual_spmv": ("rb_spmv.cu", "src/repro/kernels/rb_spmv.py:86"),

@@ -125,6 +125,19 @@ def pwl_tanh_ref(x, tables=None):
     return _pwl(x, "tanh", -1.0, tables)
 
 
+def _sigmoid(v):
+    """σ(v) as the kernels' cell computes it, 1 / (1 + exp(-v)). On the
+    CPU ``torch.sigmoid``'s vector body and scalar tail round differently,
+    so its bits depend on where an element falls in a row, and a rank's
+    slice of H/n units would differ from the same units of the whole
+    cell; this form rounds alike everywhere. Under autograd,
+    ``torch.sigmoid`` and its own backward."""
+    v = v.float()
+    if v.requires_grad:
+        return torch.sigmoid(v)
+    return 1.0 / (1.0 + torch.exp(-v))
+
+
 def lstm_cell_ref(zf, zi, zg, zo, c_prev, *, pwl: bool = False):
     """Paper eq. (1)-(2) elementwise part, from gate preactivations.
 
@@ -136,7 +149,7 @@ def lstm_cell_ref(zf, zi, zg, zo, c_prev, *, pwl: bool = False):
     if pwl:
         sig, th = pwl_sigmoid_ref, pwl_tanh_ref
     else:
-        sig = lambda v: torch.sigmoid(v.float())
+        sig = _sigmoid
         th = lambda v: torch.tanh(v.float())
     f, i, g, o = sig(zf), sig(zi), th(zg), sig(zo)
     c = f * c_prev.float() + i * g

@@ -22,7 +22,8 @@ which on the card launches the fused step kernels: B3 for fp32, B5 at
 Θ > 0, B8 for int8, B9 for int8 at Θ > 0. It emits ``BENCH_pipeline.json``
 quality × compression records over a (Spar_x, Spar_h) × {fp32, quant} ×
 {Θ=0, Θ>0} grid (schema: ``scripts/check_bench_schema.py``). ``--mesh``
-(sharded training) waits for ROADMAP queue A item 7 and raises.
+(sharded training) comes in slice 19 (ROADMAP queue A item 7, the training
+half) and raises.
 
   PYTHONPATH=src python -m repro_torch.launch.pipeline --smoke --gate 5
   PYTHONPATH=src python -m repro_torch.launch.pipeline --smoke --device cpu
@@ -52,8 +53,9 @@ class PipelineError(AssertionError):
 
 def _no_mesh():
     return NotImplementedError(
-        "pipeline mesh= (sharded dense training and masked retraining) is "
-        "not ported yet (ROADMAP queue A item 7); train on one device")
+        "pipeline mesh= (sharded dense training and masked retraining) "
+        "comes in slice 19 (ROADMAP queue A item 7, the training half); "
+        "train on one device")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -66,7 +68,7 @@ class PipelineConfig:
     {Θ=0, ``theta``}. ``device`` (default ``cuda``; raises without a card
     unless ``"cpu"`` is given) holds the params, batches and kernels;
     ``backend`` is the kernel backend ("auto" | "cuda" | "ref"). ``mesh``
-    raises (ROADMAP queue A item 7)."""
+    raises (slice 19: ROADMAP queue A item 7, the training half)."""
 
     corpus: str = "char"            # char | frame | zipf
     embed: int = 32                 # LM embedding width / frame input dim
@@ -467,7 +469,8 @@ def main(argv=None) -> int:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--mesh", default=None, metavar="DATA,MODEL",
                     help="shard both training phases over a (data, model) "
-                         "mesh: not ported yet (ROADMAP queue A item 7)")
+                         "mesh: comes in slice 19 (ROADMAP queue A item 7, "
+                         "the training half)")
     ap.add_argument("--device", default=None,
                     help="torch device (default: cuda; raises without a "
                          "card unless 'cpu' is given)")

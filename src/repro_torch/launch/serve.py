@@ -30,6 +30,10 @@ zoo, dense or BRDS-pruned:
       --device cpu
   python -m repro_torch.launch.serve --arch llava-next-34b --smoke \\
       --device cpu
+  python -m repro_torch.launch.serve --arch lstm_ptb --brds --smoke \\
+      --mesh 2,2 --device cpu
+  python -m repro_torch.launch.serve --arch lstm_ptb --brds --mesh 1,2 \\
+      --dist-backend gloo
 
 Runs on the card unless ``--device cpu`` is given, at the configuration's
 full width unless ``--smoke`` narrows it (an LSTM to widths of 128, a
@@ -66,12 +70,25 @@ acceptance and, under ``--traffic``, the request records), and
 ``--scorecard`` prints the effective-GOPS scorecard of the timed run
 against the card's decode roofline (``obs.scorecard``); the counters ride
 the decode only when one of the two asks for them.
+``--mesh DATA,MODEL`` serves a packed LSTM (``--brds``) sharded over
+DATA × MODEL ranks (``repro_torch.dist``): the gate rows split over MODEL,
+the batch (or the scheduler's slots) over DATA where it divides. The CLI
+spawns the ranks itself (``launch.mesh.run_ranks``) unless it already
+runs under ``torchrun``; rank 0 prints. ``--dist-backend`` picks NCCL (one
+card a rank, the default on the card) or gloo (any number of ranks, on
+the CPU or sharing cards; collectives staged through host memory). It
+composes with ``--delta``, ``--quant``, ``--continuous`` and
+``--traffic``, implies ``--no-fused`` (sharded decode chains), and refuses
+``--draft``, ``--scorecard`` and ``--metrics``.
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
+import os
 import statistics
+import sys
 import time
 
 import torch
@@ -352,15 +369,86 @@ def parser() -> argparse.ArgumentParser:
                     help="run once more under torch.profiler (the generate, "
                          "or the --continuous / --traffic run) and print "
                          "the device time by kernel and the busy share")
+    ap.add_argument("--mesh", default=None, metavar="DATA,MODEL",
+                    help="serve a packed LSTM (--brds) sharded over a "
+                         "(data, model) mesh of DATA x MODEL ranks, e.g. "
+                         "'2,2' (repro_torch.dist); the CLI spawns the "
+                         "ranks unless it runs under torchrun")
+    ap.add_argument("--dist-backend", default=None, choices=("nccl", "gloo"),
+                    help="--mesh: the process group's backend (default: "
+                         "nccl on the card, one card a rank; gloo on the "
+                         "CPU, and on the card when asked: ranks may share "
+                         "a card, collectives staged through host memory)")
     return ap
 
 
-def main(argv=None):
+def _mesh_shape(ap, args) -> tuple[int, int]:
+    """``--mesh``'s (data, model), after the checks it needs."""
+    from repro_torch.models import LSTM_CONFIGS
+    try:
+        d, m = (int(v) for v in args.mesh.split(","))
+    except ValueError:
+        ap.error(f"--mesh wants 'DATA,MODEL' ints, got {args.mesh!r}")
+    if d < 1 or m < 1:
+        ap.error(f"--mesh {args.mesh}: sizes must be positive")
+    if args.arch not in LSTM_CONFIGS:
+        ap.error(f"--mesh serves the packed LSTM; {args.arch}'s sharded "
+                 "decode (split-KV) comes in slice 19 (ROADMAP.md, queue A "
+                 "item 7)")
+    if not args.brds:
+        ap.error("--mesh on an LSTM requires --brds (sharded decode "
+                 "row-shards the packed gate rows — repro_torch.dist)")
+    if args.draft is not None:
+        ap.error("--draft does not compose with --mesh")
+    if args.scorecard or args.metrics is not None:
+        ap.error("--scorecard / --metrics read counters that are not "
+                 "reduced over a mesh's ranks: serve them without --mesh")
+    return d, m
+
+
+def _serve_rank(mesh, argv):
+    """One rank of a ``--mesh`` run: the CLI over ``mesh``; only rank 0
+    prints."""
+    import torch.distributed as dist
+    if dist.get_rank() == 0:
+        return main(argv, mesh=mesh)
+    with open(os.devnull, "w") as sink, contextlib.redirect_stdout(sink):
+        main(argv, mesh=mesh)
+
+
+def _launch_mesh(ap, args, argv, data: int, model: int) -> None:
+    """Run the CLI on ``data × model`` ranks: in this process under
+    torchrun (its environment names the rank), else spawned."""
+    import torch.distributed as dist
+    from repro_torch.device import resolve_device
+    from repro_torch.launch import mesh as M
+    device = resolve_device(args.device)
+    try:
+        backend = M.backend_for(device, data * model, args.dist_backend)
+    except ValueError as e:
+        ap.error(f"--mesh {args.mesh}: {e}")
+    if "RANK" in os.environ and "WORLD_SIZE" in os.environ:
+        dist.init_process_group(backend)
+        try:
+            _serve_rank(M.make_mesh((data, model), device=device,
+                                    backend=backend), argv)
+        finally:
+            dist.destroy_process_group()
+        return
+    threads = max(1, (os.cpu_count() or 1) // (data * model))
+    M.run_ranks(_serve_rank, data, model, device=device, backend=backend,
+                args=(argv,), threads=threads)
+
+
+def main(argv=None, mesh=None):
+    """The CLI on ``argv`` (``sys.argv[1:]`` when None); ``mesh``: this
+    rank's mesh, inside a ``--mesh`` run."""
     from repro_torch.device import resolve_device
     from repro_torch.models import LSTM_CONFIGS
     from repro_torch.serving import ServeEngine, SamplingConfig
     from repro_torch.sparse import set_default_backend
 
+    argv = sys.argv[1:] if argv is None else list(argv)
     ap = parser()
     args = ap.parse_args(argv)
     if args.delta is None and (args.delta_h is not None
@@ -374,8 +462,25 @@ def main(argv=None):
         ap.error("--draft-brds/--draft-delta/--draft-quant require --draft")
     if args.draft_quant and not args.draft_brds:
         ap.error("--draft-quant requires --draft-brds")
+    if args.mesh is None and args.dist_backend is not None:
+        ap.error("--dist-backend requires --mesh")
+    if args.mesh is not None:
+        data, model_size = _mesh_shape(ap, args)
+        if mesh is None:
+            return _launch_mesh(ap, args, argv, data, model_size)
 
     device = resolve_device(args.device)
+    lead = True      # the rank that saves the trace
+    if mesh is not None:
+        import torch.distributed as dist
+        from repro_torch.launch.mesh import rank_device
+        device = rank_device(device, dist.get_rank())
+        lead = dist.get_rank() == 0
+        staged = dist.get_backend() == "gloo" and device.type == "cuda"
+        print(f"mesh: data={data} model={model_size} over "
+              f"{data * model_size} ranks, {dist.get_backend()}"
+              + (" (collectives staged through host memory)" if staged
+                 else ""))
     set_default_backend(args.backend)
     if args.trace:
         from repro_torch.obs import trace as obs_trace
@@ -390,7 +495,7 @@ def main(argv=None):
     print(f"arch={cfg.name} params={model.param_count() / 1e6:.1f}M "
           f"device={device}")
     eng = ServeEngine(model, max_len=args.prompt_len + args.gen,
-                      sparsity=sparsity, device=device)
+                      sparsity=sparsity, device=device, mesh=mesh)
     calib = None
     if args.quant:
         # activation scales from a prompt-shaped batch through the dense
@@ -422,7 +527,7 @@ def main(argv=None):
     else:
         _serve_lockstep(args, eng, params, tokens, sampling, draft, device,
                         extra_fn(gen, args.batch))
-    if args.trace:
+    if args.trace and lead:
         obs_trace.save(args.trace)
         print(f"trace: {len(obs_trace.get_tracer().events)} spans to "
               f"{args.trace}")
@@ -528,13 +633,14 @@ def _run_counters(before: dict | None, after: dict | None) -> dict | None:
             for k, v in after.items()}
 
 
-def _scheduler(args, model, params, sampling, draft, device):
+def _scheduler(args, model, params, sampling, draft, device, clock=None):
     from repro_torch.serving.scheduler import ContinuousBatchingEngine
     return ContinuousBatchingEngine(
         model, params, slots=args.slots,
         max_len=args.prompt_len + args.gen, sampling=sampling,
         dispatch_depth=args.dispatch_depth, draft=draft,
-        spec_k=args.spec_k, device=device, counters=_want_counters(args))
+        spec_k=args.spec_k, device=device, counters=_want_counters(args),
+        clock=clock)
 
 
 def _serve_scheduled(args, model, params, sampling, draft, device,
@@ -548,7 +654,13 @@ def _serve_scheduled(args, model, params, sampling, draft, device,
     profiled one)."""
     import numpy as np
     vocab = model.cfg.vocab_size
-    sched = _scheduler(args, model, params, sampling, draft, device)
+    clock = time.perf_counter
+    if getattr(model, "mesh", None) is not None:
+        # every rank's admissions and arrivals read rank 0's clock
+        from repro_torch.launch.mesh import synced_clock
+        clock = synced_clock()
+    sched = _scheduler(args, model, params, sampling, draft, device,
+                       clock=clock)
     if args.traffic:
         from repro_torch.traffic import (LoadConfig, make_prompts,
                                          poisson_trace, serve_trace)
@@ -565,10 +677,11 @@ def _serve_scheduled(args, model, params, sampling, draft, device,
               f"slots={args.slots} depth={args.dispatch_depth}"
               + (f" deadline={args.deadline}s" if args.deadline else ""))
         warm = min(len(trace), args.slots)
-        serve_trace(sched, trace[:warm], prompts[:warm], realtime=False)
+        serve_trace(sched, trace[:warm], prompts[:warm], realtime=False,
+                    clock=clock)
 
         def run():
-            return serve_trace(sched, trace, prompts,
+            return serve_trace(sched, trace, prompts, clock=clock,
                                offered_rps=args.rate)
     else:
         g = np.random.default_rng(args.seed + 1)

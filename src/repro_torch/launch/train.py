@@ -12,8 +12,8 @@ Features: gradient accumulation (``cfg.grad_accum``), BRDS masked sparse
 training (``--brds``), checkpoint / restart (auto-resume from the newest
 valid checkpoint in ``--ckpt-dir``), fault injection (``--inject-failure-at``: restore the
 newest checkpoint and replay from its step) and straggler monitoring.
-``--mesh pod|multipod`` (the sharded train step) waits for ROADMAP queue A
-item 7 and raises. Without ``--ckpt-dir`` the checkpoints go to a fresh
+``--mesh pod|multipod`` (the sharded train step) comes in slice 19 (ROADMAP
+queue A item 7, the training half) and raises. Without ``--ckpt-dir`` the checkpoints go to a fresh
 temporary directory that the run removes at its end, so a run resumes only
 from a directory it is given.
 """
@@ -61,8 +61,9 @@ def main(argv=None) -> dict:
     args = parser().parse_args(argv)
     if args.mesh != "host":
         raise NotImplementedError(
-            f"--mesh {args.mesh} (the sharded train step) is not ported yet "
-            "(ROADMAP queue A item 7); train on one device")
+            f"--mesh {args.mesh} (the sharded train step) comes in slice "
+            "19 (ROADMAP queue A item 7, the training half); train on one "
+            "device")
     if args.ckpt_dir is not None:
         return _train(args, args.ckpt_dir)
     ckpt_dir = tempfile.mkdtemp(prefix="repro_torch_ckpt_")

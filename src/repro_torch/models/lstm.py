@@ -12,7 +12,10 @@ Training (``features`` / ``forward`` / ``loss``) runs the dense layers in
 plain PyTorch under autograd; the kernels have no backward and refuse an
 operand that requires grad.
 
-Sharded decode (``mesh``) is not ported yet.
+Under a ``mesh`` packed decode is sharded over the mesh's ranks
+(``repro_torch.dist``): each rank steps its gate-aligned block of the
+packed rows through the chained kernels and all-gathers h, one collective
+a layer-step.
 """
 from __future__ import annotations
 
@@ -77,39 +80,68 @@ class LSTMModel:
 
     With both ``delta`` and ``quant``, packed params step through the
     quantized temporal-delta kernels, fused or chained as ``fused`` says.
-    ``mesh`` raises: sharded decode is not ported.
+
+    ``mesh`` (a DeviceMesh with a ``model`` axis, or None) switches packed
+    decode to the sharded path (``repro_torch.dist``): params must be
+    ``partition_lstm_params``' gate-aligned row blocks, the cache holds
+    this rank's slice of c (and of the delta path's m) beside the
+    replicated h, and each layer-step's one collective is the all-gather
+    of h. The batch the model is given is the rank's own rows (the engine
+    splits a batch over ``data``). Sharded decode always chains (``fused``
+    is ignored): the all-gather needs the boundary between the dual SpMV
+    and the cell. Composes with ``delta`` and ``quant``.
     """
 
     supports_packed_decode = True
 
     def __init__(self, cfg: LSTMConfig, delta=None, quant=None, mesh=None,
                  fused: bool = True):
-        if mesh is not None:
-            raise NotImplementedError("LSTMModel(mesh=...) is not ported "
-                                      "yet")
         _full_fp32_matmuls()
         self.cfg = cfg
         self.delta = delta
         self.quant = quant
+        self.mesh = mesh
         self.fused = fused
+
+    def _copy(self, **kw) -> "LSTMModel":
+        args = dict(delta=self.delta, quant=self.quant, mesh=self.mesh,
+                    fused=self.fused)
+        return LSTMModel(self.cfg, **{**args, **kw})
 
     def with_delta(self, delta) -> "LSTMModel":
         """Copy of this model serving through the temporal-delta path
         (``delta``: a DeltaGateConfig, or None to disable)."""
-        return LSTMModel(self.cfg, delta=delta, quant=self.quant,
-                         fused=self.fused)
+        return self._copy(delta=delta)
 
     def with_quant(self, quant) -> "LSTMModel":
         """Copy of this model carrying a quantization plan (``quant``: a
         QuantPlan, or None to disable)."""
-        return LSTMModel(self.cfg, delta=self.delta, quant=quant,
-                         fused=self.fused)
+        return self._copy(quant=quant)
+
+    def with_mesh(self, mesh) -> "LSTMModel":
+        """Copy of this model decoding through the sharded packed path
+        (``mesh``: a DeviceMesh with a ``model`` axis, served
+        ``repro_torch.dist.partition_lstm_params``' layout, or None)."""
+        return self._copy(mesh=mesh)
 
     def with_fused(self, fused: bool) -> "LSTMModel":
         """Copy of this model with the fused (True) or chained (False)
         packed step."""
-        return LSTMModel(self.cfg, delta=self.delta, quant=self.quant,
-                         fused=fused)
+        return self._copy(fused=fused)
+
+    @property
+    def _use_fused(self) -> bool:
+        """The fused single-launch kernels on this step? Sharded decode
+        needs the chained kernels' boundary for its collective."""
+        return self.fused and self.mesh is None
+
+    @property
+    def _shards(self) -> int:
+        """Ranks on the mesh's ``model`` axis (1 without a mesh)."""
+        if self.mesh is None:
+            return 1
+        from ..dist.partition import model_axis_size
+        return model_axis_size(self.mesh)
 
     # ------------------------------------------------------------- params
     def param_defs(self) -> dict:
@@ -163,7 +195,8 @@ class LSTMModel:
 
     def pack(self, params, masks: dict | None = None, quant=None):
         """Pack pruned layers into per-layer ``{"sx", "sh", "b"}`` with the
-        rows padded once to the kernel block (``pad_packed``). ``masks``
+        rows padded once to the kernel block (``pad_packed``; not under a
+        mesh, whose partition re-splits the rows). ``masks``
         from ``prune`` keeps surviving weights that are exactly zero; with
         None the survivors are re-selected per row by magnitude. ``quant``
         (a scheme name such as ``"int8"`` / ``"q1.11"``, a QuantScheme or a
@@ -180,8 +213,8 @@ class LSTMModel:
                 if m is None:
                     m = _survivor_mask(lp[key])
                 s = fmt.pack(lp[key], m)
-                entry[out] = pad_packed(quantize_packed(s, scheme)
-                                        if scheme else s)
+                s = quantize_packed(s, scheme) if scheme else s
+                entry[out] = s if self.mesh is not None else pad_packed(s)
             packed.append(entry)
         return packed
 
@@ -320,11 +353,12 @@ class LSTMModel:
         return packed
 
     def init_state(self, batch: int, device):
+        """Zero (c, h) per layer; under a mesh c is this rank's (B, H/n)
+        slice and h the replicated (B, H)."""
         cfg = self.cfg
-        return [(torch.zeros((batch, cfg.hidden), dtype=cfg.dtype,
-                             device=device),
-                 torch.zeros((batch, cfg.hidden), dtype=cfg.dtype,
-                             device=device))
+        zeros = lambda n: torch.zeros((batch, n), dtype=cfg.dtype,
+                                      device=device)
+        return [(zeros(cfg.hidden // self._shards), zeros(cfg.hidden))
                 for _ in range(cfg.num_layers)]
 
     def cache_defs(self, batch: int, max_len: int) -> dict:
@@ -335,12 +369,22 @@ class LSTMModel:
         memory ``m`` (B, 4H) and the cumulative fired-column counters
         ``nx`` / ``nh`` (B,) that ``occupancy_report`` reduces. Each leaf
         names its logical axes (``"batch"`` first): none is positional, so
-        the cache is pure recurrent state (``spec.verify``)."""
+        the cache is pure recurrent state (``spec.verify``).
+
+        Under a mesh the declaration is this rank's: ``batch`` is the rows
+        the rank steps (the engine splits a batch over ``data``), ``c``
+        (axis ``lstm_hidden_shard``) is its (B, H/n) slice and ``m`` its
+        (B, 4H/n) gate rows; h, the reference states and the counters are
+        replicated (``serving.engine.cache_shardings`` gives the
+        placements over the whole batch)."""
         cfg = self.cfg
+        n = self._shards
         hid = ("batch", "lstm_hidden")
+        c_axes = ("batch", "lstm_hidden_shard") if self.mesh is not None \
+            else hid
         defs = {"layers": [
-            {"c": L.PSpec((batch, cfg.hidden), init="zeros", dtype=cfg.dtype,
-                          axes=hid),
+            {"c": L.PSpec((batch, cfg.hidden // n), init="zeros",
+                          dtype=cfg.dtype, axes=c_axes),
              "h": L.PSpec((batch, cfg.hidden), init="zeros", dtype=cfg.dtype,
                           axes=hid)}
             for _ in range(cfg.num_layers)]}
@@ -353,7 +397,7 @@ class LSTMModel:
                                      dtype=cfg.dtype, axes=("batch", "embed")),
                     "h_ref": L.PSpec((batch, cfg.hidden), init="zeros",
                                      dtype=cfg.dtype, axes=hid),
-                    "m": L.PSpec((batch, 4 * cfg.hidden), init="zeros",
+                    "m": L.PSpec((batch, 4 * cfg.hidden // n), init="zeros",
                                  dtype=f32, axes=("batch", "lstm_gates")),
                     "nx": L.PSpec((batch,), init="zeros", dtype=f32,
                                   axes=("batch",)),
@@ -370,11 +414,18 @@ class LSTMModel:
         state/new_state: list of (c, h); returns (h_last, new_state) in
         cfg.dtype."""
         cfg = self.cfg
-        packed = self.is_packed(params)
+        packed = self._check_mesh_params(params)
         quantized = packed and self.is_quantized(params)
-        step = K.fused_brds_lstm_step if self.fused else K.brds_lstm_step
-        step_q8 = (K.fused_brds_lstm_step_q8 if self.fused
-                   else K.brds_lstm_step_q8)
+        if packed and self.mesh is not None:
+            from ..dist import collective_ops as C
+            scales = ([self._act_scales(i) for i in range(cfg.num_layers)]
+                      if quantized else None)
+            return C.dist_lstm_step(self.mesh, params["layers"], x_t, state,
+                                    pwl=cfg.pwl_activations, dtype=cfg.dtype,
+                                    act_scales=scales)
+        fused = self._use_fused
+        step = K.fused_brds_lstm_step if fused else K.brds_lstm_step
+        step_q8 = K.fused_brds_lstm_step_q8 if fused else K.brds_lstm_step_q8
         new_state = []
         inp = x_t
         for i, (lp, (c, h)) in enumerate(zip(params["layers"], state)):
@@ -406,9 +457,19 @@ class LSTMModel:
         Returns (h_last, new_state)."""
         cfg = self.cfg
         d = self.delta
-        packed = self.is_packed(params)
+        packed = self._check_mesh_params(params)
         quantized = packed and self.is_quantized(params)
         pwl = cfg.pwl_activations
+        if packed and self.mesh is not None:
+            from ..dist import collective_ops as C
+            # the delta path's doubled scales, as in the loop below
+            scales = ([tuple(None if s is None else 2.0 * s
+                             for s in self._act_scales(i))
+                       for i in range(cfg.num_layers)] if quantized else None)
+            return C.dist_delta_lstm_step(self.mesh, params["layers"], x_t,
+                                          state, d, pwl=pwl, dtype=cfg.dtype,
+                                          act_scales=scales)
+        fused = self._use_fused
         new_state = []
         inp = x_t
         for i, (lp, st) in enumerate(zip(params["layers"], state)):
@@ -423,13 +484,13 @@ class LSTMModel:
                 # this path doubles them (fixed point ignores them).
                 ax, ah = (None if s is None else 2.0 * s
                           for s in self._act_scales(i))
-                step_q8 = (K.fused_brds_delta_lstm_step_q8 if self.fused
+                step_q8 = (K.fused_brds_delta_lstm_step_q8 if fused
                            else K.brds_delta_lstm_step_q8)
                 c, h, m = step_q8(
                     lp["w_x"], dx, fx, lp["w_h"], dh, fh, st["m"], lp["b"],
                     st["c"], act_scale_x=ax, act_scale_h=ah, pwl=pwl)
             elif packed:
-                step = (K.fused_brds_delta_lstm_step if self.fused
+                step = (K.fused_brds_delta_lstm_step if fused
                         else K.brds_delta_lstm_step)
                 c, h, m = step(lp["w_x"], dx, fx, lp["w_h"], dh, fh,
                                st["m"], lp["b"], st["c"], pwl=pwl)
@@ -447,6 +508,18 @@ class LSTMModel:
                 "nh": st["nh"] + fh.sum(1, dtype=torch.float32)})
             inp = new_state[-1]["h"]
         return inp, new_state
+
+    def _check_mesh_params(self, params) -> bool:
+        """Whether ``params`` is packed; under a mesh it must be (the
+        cache holds this rank's slice of c, which only the sharded packed
+        step advances)."""
+        packed = self.is_packed(params)
+        if self.mesh is not None and not packed:
+            raise ValueError("LSTMModel(mesh=...) steps partitioned packed "
+                             "params only (repro_torch.dist."
+                             "partition_lstm_params); serve dense params "
+                             "without a mesh")
+        return packed
 
     def _head_logits(self, params, h):
         """h (B, H) → logits (B, 1, V or C) float32."""

@@ -12,20 +12,19 @@
 - ``scorecard``: achieved vs. roofline-bound effective GOPS and
   bytes/token, joining harvested counters with the card's constants
   (``repro_torch.hw``).
-
-The reference's ``collectives`` (per-step collective inventory of a mesh)
-is not ported yet (``ROADMAP.md`` A7).
+- ``collectives``: the per-step collective inventory of sharded serving
+  (a step run once under torch.profiler, its c10d collectives counted).
 """
 import importlib
 
-__all__ = ["counters", "metrics", "scorecard", "trace", "MetricsRegistry",
-           "enable_tracing", "span", "traced"]
+__all__ = ["collectives", "counters", "metrics", "scorecard", "trace",
+           "MetricsRegistry", "enable_tracing", "span", "traced"]
 
 _LAZY = {"MetricsRegistry": ("metrics", "MetricsRegistry"),
          "enable_tracing": ("trace", "enable"),
          "span": ("trace", "span"),
          "traced": ("trace", "traced")}
-_SUBMODULES = ("counters", "metrics", "scorecard", "trace")
+_SUBMODULES = ("collectives", "counters", "metrics", "scorecard", "trace")
 
 
 def __getattr__(name):

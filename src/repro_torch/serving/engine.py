@@ -13,6 +13,15 @@ surviving weights and pads their rows once, so serving runs the BRDS
 kernels rather than masked dense matmuls. The policy's temporal-delta and
 quant rules rewire the model there too. ``generate(draft=...)`` decodes by
 speculative rounds (``repro_torch.spec``).
+
+``mesh=`` (a (data, model) DeviceMesh, ``launch.mesh``) serves the packed
+LSTM sharded (``repro_torch.dist``): every rank runs this engine on the
+same inputs; ``prepare`` hands each rank its gate-aligned block of the
+packed rows, and ``generate`` decodes the rank's data group's rows and
+all-gathers the tokens over ``data`` at the end. Under a mesh the decode
+loop is the host loop (``runtime.decode_loop_eager``), by choice: a
+step's all-gather runs on the host under gloo, which a CUDA graph cannot
+capture.
 """
 from __future__ import annotations
 
@@ -24,14 +33,32 @@ from ..device import resolve_device
 from ..obs import trace as obs_trace
 
 
+def cache_shardings(mesh, model, batch: int, max_len: int):
+    """The DTensor placements (one a mesh dim) of each leaf of the decode
+    cache of ``batch`` rows over ``mesh``, resolved from the leaves'
+    logical axes over the whole cache's shapes (the reference's
+    ``cache_shardings``). Under a mesh the LSTM's c shards over ``model``
+    (``lstm_hidden_shard``) and m with its gate rows, h stays replicated,
+    and the batch splits over ``data`` where it divides."""
+    from ..sharding import placements
+    whole = (model.with_mesh(None) if getattr(model, "mesh", None)
+             is not None else model)
+    shapes = runtime.leaves(whole.cache_defs(batch, max_len))
+    defs = model.cache_defs(batch, max_len)
+    return runtime.unflatten(defs, [
+        placements(mesh, d.axes, w.shape)
+        for d, w in zip(runtime.leaves(defs), shapes)])
+
+
 class ServeEngine:
     def __init__(self, model, *, max_len: int = 2048, sparsity=None,
-                 device=None, spec_rounds: int | None = None):
+                 device=None, spec_rounds: int | None = None, mesh=None):
         """``sparsity``: a SparsityPolicy (or compiled SparsityPlan) applied
         by ``prepare``. ``device`` defaults to ``cuda`` and raises without
         a card unless ``device="cpu"`` is given. ``spec_rounds``: the
         speculative rounds one captured chunk holds, one host read each
-        (``spec.ROUNDS_PER_CHUNK``, 4, when None)."""
+        (``spec.ROUNDS_PER_CHUNK``, 4, when None). ``mesh``: a (data,
+        model) DeviceMesh to serve the packed LSTM sharded over."""
         if not runtime.conforms(model):
             raise TypeError(
                 f"{type(model).__name__} does not implement the serving "
@@ -40,6 +67,10 @@ class ServeEngine:
         self.max_len = max_len
         self.sparsity = sparsity
         self.device = resolve_device(device)
+        self.mesh = mesh
+        # set by prepare when it partitions the packed params over the
+        # mesh (and rewires the model to the sharded step)
+        self._dist = False
         if spec_rounds is None:
             from ..spec import ROUNDS_PER_CHUNK as spec_rounds
         self.spec_rounds = spec_rounds
@@ -94,9 +125,26 @@ class ServeEngine:
         if not getattr(self.model, "supports_packed_decode", False):
             return pruned, report
         packed, pack_report = plan.pack(pruned, masks)
-        if hasattr(self.model, "pad_packed_params"):
+        packed = self._maybe_partition(packed)
+        if not self._dist and hasattr(self.model, "pad_packed_params"):
+            # sharded decode re-splits the rows: no padding there
             packed = self.model.pad_packed_params(packed)
         return packed, {**report, **pack_report}
+
+    def _maybe_partition(self, packed):
+        """Each rank's gate-aligned block of the packed rows
+        (``dist.partition_lstm_params``), the model rewired to the sharded
+        step. As it is without a mesh, a ``model`` axis or packed
+        leaves."""
+        from .. import dist
+        if (self.mesh is None or not dist.supports_dist(self.model,
+                                                        self.mesh)
+                or not dist.is_partitionable(packed)):
+            return packed
+        packed = dist.partition_lstm_params(packed, self.mesh)
+        self.model = self.model.with_mesh(self.mesh)
+        self._dist = True
+        return packed
 
     def generate(self, params, tokens, steps: int, *, extra=None,
                  temperature: float = 0.0, top_k: int = 0, eos_id: int = -1,
@@ -131,6 +179,12 @@ class ServeEngine:
         if rng is None:
             rng = torch.Generator(device=self.device).manual_seed(0)
         tokens = torch.as_tensor(tokens, device=self.device)
+        mesh = getattr(self.model, "mesh", None)
+        B = tokens.shape[0]
+        rows = slice(0, B)
+        if mesh is not None:
+            rows = self._shard_rows(mesh, params, B, draft)
+            tokens = tokens[rows]
         if lengths is not None:
             if not runtime.prefill_accepts_length(self.model):
                 raise TypeError(
@@ -138,13 +192,13 @@ class ServeEngine:
                     "length-masked path — ragged lockstep serving needs the "
                     "`length` prefill parameter")
             lengths = torch.as_tensor(lengths, dtype=torch.int32,
-                                      device=self.device)
+                                      device=self.device)[rows]
             pos = lengths
         else:
             pos = tokens.shape[1]
         kw = {} if lengths is None else {"length": lengths}
         if extra is not None:
-            kw["extra"] = torch.as_tensor(extra, device=self.device)
+            kw["extra"] = torch.as_tensor(extra, device=self.device)[rows]
         if runtime.prefill_accepts_cache(self.model):
             # built in the decode graphs' static cache: no second copy
             kw["cache"] = self.graphs.static_cache(
@@ -160,12 +214,46 @@ class ServeEngine:
                                    return_state)
         # the span covers the capture (first call) or the replay's enqueue
         with obs_trace.span("engine.decode_loop", steps=steps):
-            toks, state = runtime.decode_loop(self.model, params, cache,
-                                              logits, pos, rng, steps,
-                                              sampling, limit=self.max_len,
-                                              graphs=self.graphs,
-                                              clone_state=return_state)
+            if mesh is None:
+                toks, state = runtime.decode_loop(
+                    self.model, params, cache, logits, pos, rng, steps,
+                    sampling, limit=self.max_len, graphs=self.graphs,
+                    clone_state=return_state)
+            else:
+                # the host loop, by choice: gloo's all-gathers run on the
+                # host, where a CUDA graph cannot hold them
+                toks, state = runtime.decode_loop_eager(
+                    self.model, params, cache, logits, pos, rng, steps,
+                    sampling, limit=self.max_len)
+        if tokens.shape[0] != B:
+            toks, state = self._gather_rows(mesh, toks, state)
         return (toks, state) if return_state else toks
+
+    @staticmethod
+    def _shard_rows(mesh, params, batch: int, draft) -> slice:
+        """This rank's rows of a sharded ``generate``'s batch: its data
+        group's block where ``data`` divides the batch, else every row.
+        Every rank of a ``model`` group decodes them alike (and draws alike
+        from a generator in the same state)."""
+        from ..dist import check_partitioned
+        from ..dist.collective_ops import batch_rows
+        if draft is not None:
+            raise ValueError("speculative decoding does not compose with "
+                             "sharded serving (mesh)")
+        # unpartitioned packed params would decode garbage silently
+        check_partitioned(params, mesh)
+        return batch_rows(mesh, batch)
+
+    @staticmethod
+    def _gather_rows(mesh, toks, state):
+        """The data groups' tokens and per-row state leaves all-gathered
+        over ``data``: the whole batch's, as one device would return them.
+        The cache stays this rank's shard."""
+        from ..dist.collective_ops import gather_axis
+        state = {k: (v if k == "cache" or v.ndim == 0
+                     else gather_axis(v, mesh, "data", 0))
+                 for k, v in state.items()}
+        return gather_axis(toks, mesh, "data", 0), state
 
     def _speculate(self, params, tokens, steps, logits, cache, rng,
                    sampling, lengths, draft, spec_k, return_state):

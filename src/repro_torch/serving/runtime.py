@@ -15,7 +15,11 @@ batch, steps, sampling, limit, position kind) and replayed after that,
 the reference's one dispatch a generate; on the CPU the same body,
 eagerly.
 ``decode_loop_eager`` is the host loop it replaced, kept to compare
-against: one Python iteration, and the model's launches, a step.
+against: one Python iteration, and the model's launches, a step. It is
+also the sharded (mesh) path's loop: under gloo a step's all-gather of h
+runs on the host, which a CUDA graph cannot capture, so ``ServeEngine``
+and the scheduler choose the host loop from their mesh
+(``CapturedLoop(capture=False)``) rather than from a failed capture.
 
 A capture that fails raises; nothing falls back to the host loop.
 """
@@ -252,20 +256,23 @@ class CapturedLoop:
     would draw from the same state; the warm-up's draws are undone.
     The loop keeps whatever ``keep`` holds alive as long as it lives (the
     objects its graph reads through addresses: params, shared buffers).
+    ``capture=False`` runs ``fn`` eagerly on the card too (the sharded
+    path, whose collectives run on the host).
     """
 
     def __init__(self, fn, carry: dict, *, warmup=None, generator=None,
-                 keep=()):
+                 keep=(), capture: bool = True):
         self.fn = fn
         self.carry = carry
         self.warmup = warmup
         self.generator = generator
         self.keep = keep
+        self.capture = capture
         self.device = leaves(carry)[0].device
         self.graph: CountedGraph | None = None
 
     def run(self) -> None:
-        if self.device.type != "cuda":
+        if self.device.type != "cuda" or not self.capture:
             self.fn(self.carry)
             return
         if self.graph is None:

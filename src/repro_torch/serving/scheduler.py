@@ -34,6 +34,15 @@ prefill at exact length. Same-bucket requests prefill together in one call
 (``prefill_batch``). A request's ``extra`` reaches its prefill (an
 encoder-decoder's frames, which must have the config's ``enc_len`` rows:
 the slots' cross memory has that many).
+
+Under a ``mesh`` (the packed LSTM sharded over ``repro_torch.dist``) every
+rank runs this scheduler: the same admissions, prefills and harvests, from
+a clock whose readings rank 0 broadcasts (``launch.mesh.synced_clock``).
+The slots split over ``data`` where it divides them, each rank decoding its
+block; prefills run on every rank (a batch-1 prefill stays replicated) and
+each rank joins the rows whose slots it holds; a chunk's tokens are
+all-gathered over ``data`` at its harvest. The chunk runs eagerly: a
+step's all-gather runs on the host under gloo.
 """
 from __future__ import annotations
 
@@ -99,8 +108,11 @@ class ContinuousBatchingEngine:
     ``params`` may be dense, pruned or packed: the model's decode_step
     dispatches (the BRDS LSTM runs its fused or chained kernels on packed
     params). ``device`` defaults to ``cuda`` and raises without a card
-    unless ``device="cpu"`` is given; ``mesh`` raises (sharded serving is
-    not ported yet: ROADMAP.md, queue A, item 7).
+    unless ``device="cpu"`` is given. ``mesh`` (a (data, model)
+    DeviceMesh) serves sharded: ``params`` must then be
+    ``repro_torch.dist.partition_lstm_params``' layout (a ``ServeEngine``
+    with the mesh prepares it), and ``draft`` and ``counters`` are
+    refused.
 
     Traffic controls (all keyword-only):
 
@@ -147,10 +159,34 @@ class ContinuousBatchingEngine:
             raise TypeError(
                 f"{type(model).__name__} does not implement the serving "
                 "contract (cache_defs / init_cache / prefill / decode_step)")
+        if mesh is not None and getattr(model, "mesh", None) is None:
+            if not hasattr(model, "with_mesh"):
+                raise TypeError(f"{type(model).__name__} has no sharded "
+                                "decode path (with_mesh)")
+            model = model.with_mesh(mesh)
+        mesh = getattr(model, "mesh", None)
         if mesh is not None:
-            raise NotImplementedError(
-                "ContinuousBatchingEngine(mesh=...): sharded serving is not "
-                "ported yet (ROADMAP.md, queue A, item 7)")
+            # the permuted layout is invisible in the tree structure: packed
+            # params that were not partitioned would decode garbage silently
+            from ..dist import check_partitioned
+            check_partitioned(params, mesh)
+            if draft is not None:
+                raise ValueError("speculative decoding does not compose "
+                                 "with sharded serving (mesh)")
+            if counters:
+                raise ValueError("counters=True is not reduced over a mesh's "
+                                 "ranks: serve without counters under a "
+                                 "mesh")
+            if clock is None:
+                from ..launch.mesh import synced_clock
+                clock = synced_clock()
+        self.mesh = mesh
+        # this rank's slots: its data group's block where data divides them
+        self._rows = slice(0, slots)
+        if mesh is not None:
+            from ..dist.collective_ops import batch_rows
+            self._rows = batch_rows(mesh, slots)
+        self._local = self._rows.stop - self._rows.start
         self.model = model
         self.params = params
         self.slots = slots
@@ -212,7 +248,7 @@ class ContinuousBatchingEngine:
         return None if self._carry is None else self._carry["cache"]
 
     def _build_carry(self, width: int) -> None:
-        S, dev = self.slots, self.device
+        S, dev = self._local, self.device
         z = lambda dt: torch.zeros((S,), dtype=dt, device=dev)
         c = dict(cache=self.model.init_cache(S, self.max_len, dev),
                  pos=z(torch.int32), done=torch.ones((S,), dtype=torch.bool,
@@ -235,7 +271,8 @@ class ContinuousBatchingEngine:
         self._carry = c
         gen = self._gen if self.sampling.temperature > 0.0 else None
         self._loop = runtime.CapturedLoop(self._chunk_fn, c, generator=gen,
-                                          keep=(self.params,))
+                                          keep=(self.params,),
+                                          capture=self.mesh is None)
 
     def _chunk_fn(self, c: dict) -> None:
         """One decode chunk over the static state, in place: ``chunk``
@@ -409,8 +446,12 @@ class ContinuousBatchingEngine:
                                      padded, lengths_v)
         if self._carry is None:
             self._build_carry(lp.shape[-1])
-        self._join(pre_cache, lp, pre_d, self._to_device(slots, torch.long),
-                   lengths_v, self._to_device(budgets))
+        if self.mesh is None:
+            self._join(pre_cache, lp, pre_d,
+                       self._to_device(slots, torch.long), lengths_v,
+                       self._to_device(budgets))
+        else:
+            self._join_local(pre_cache, lp, slots, lengths, budgets)
         for r, slot, budget in zip(group, slots, budgets):
             info = SlotInfo(r.uid, r.prompt_len, budget, r.deadline,
                             r.priority, admitted_at=now, extra=r.extra)
@@ -418,6 +459,23 @@ class ContinuousBatchingEngine:
             self._live[r.uid] = info
             self._collected[r.uid] = []
             self.slot_steps[slot] = r.prompt_len    # join reset the cache
+
+    def _join_local(self, pre_cache, pre_logits, slots, lengths,
+                    budgets) -> None:
+        """``_join`` of the prefilled rows whose slots this rank holds."""
+        lo, hi = self._rows.start, self._rows.stop
+        mine = [i for i, s in enumerate(slots) if lo <= s < hi]
+        if not mine:
+            return
+        idx = self._to_device(mine, torch.long)
+        pre_cache = runtime.unflatten(pre_cache, [
+            leaf.index_select(ax, idx) for leaf, ax in
+            zip(runtime.leaves(pre_cache), self._batch_axes)])
+        self._join(pre_cache, pre_logits.index_select(0, idx), None,
+                   self._to_device([slots[i] - lo for i in mine],
+                                   torch.long),
+                   self._to_device([lengths[i] for i in mine]),
+                   self._to_device([budgets[i] for i in mine]))
 
     # ------------------------------------------------------------- decode
     def _snapshot(self, t: torch.Tensor) -> torch.Tensor:
@@ -458,7 +516,11 @@ class ContinuousBatchingEngine:
         with obs_trace.span("sched.harvest", seq=inflight.seq):
             if inflight.event is not None:
                 inflight.event.synchronize()        # the one host sync
-            toks_np = inflight.tokens.numpy()
+            toks = inflight.tokens
+            if self._local != self.slots:
+                from ..dist.collective_ops import gather_axis
+                toks = gather_axis(toks, self.mesh, "data", 0)
+            toks_np = toks.numpy()
             if inflight.counters is not None:
                 self._counters_host = obs_counters.harvest(
                     self._counter_names, inflight.counters)
@@ -492,6 +554,8 @@ class ContinuousBatchingEngine:
                 # device so chunks dispatched from here on skip it
                 evictions.append(info.slot)
                 events.append(self._finish(uid, "expired"))
+        lo, hi = self._rows.start, self._rows.stop
+        evictions = [s - lo for s in evictions if lo <= s < hi]
         if evictions:
             with obs_trace.span("sched.evict", slots=len(evictions)):
                 self._carry["done"].index_fill_(

@@ -1,7 +1,7 @@
 """Training substrate: optimizers, data, checkpointing, fault tolerance,
 masked (BRDS) retraining and the train step, on one device. Gradient
-compression and the sharded train step wait for the mesh (ROADMAP queue A
-item 7)."""
+compression and the sharded train step come in slice 19 (ROADMAP queue A
+item 7, the training half)."""
 from .optim import OptConfig, init_state, apply_update, lr_at
 from .data import ZipfInduction, CharCorpus, FrameCorpus, ShardedLoader
 from .checkpoint import CheckpointManager

@@ -13,7 +13,7 @@ A bfloat16 leaf is stored as its raw 2-byte words (numpy's ``V2``), as
 the reference's are. Restore picks the newest committed step whose
 checksum validates, so a half-written checkpoint is skipped, and puts the
 arrays on one explicit device; re-sharding onto a mesh (``shardings=``)
-waits for ROADMAP queue A item 7.
+comes in slice 19 (ROADMAP queue A item 7, the training half).
 """
 from __future__ import annotations
 
@@ -154,8 +154,9 @@ class CheckpointManager:
         Returns (tree, meta)."""
         if shardings is not None:
             raise NotImplementedError(
-                "restore(shardings=...) re-shards onto a mesh, which is not "
-                "ported yet (ROADMAP queue A item 7); pass device=")
+                "restore(shardings=...) re-shards onto a mesh, which comes "
+                "in slice 19 (ROADMAP queue A item 7, the training half); "
+                "pass device=")
         if step is not None:
             meta, arrays = self._read(step)
         else:

@@ -8,7 +8,8 @@ detection, the port of ``repro/training/fault.py``.
   2. ``StragglerMonitor`` keeps an EMA of the step time and flags outliers
      (> threshold × EMA); ``on_straggler`` is the hook a deployment uses.
   3. ``elastic_restore`` (re-sharding a checkpoint onto another mesh)
-     waits for the mesh (ROADMAP queue A item 7) and raises.
+     comes in slice 19 (ROADMAP queue A item 7, the training half) and
+     raises.
 """
 from __future__ import annotations
 
@@ -92,6 +93,6 @@ def elastic_restore(ckpt: CheckpointManager, template, new_shardings):
     ported (one device); ``ckpt.restore(template, device=...)`` restores
     onto one."""
     raise NotImplementedError(
-        "elastic_restore re-shards onto a mesh, which is not ported yet "
-        "(ROADMAP queue A item 7); use CheckpointManager.restore(template, "
-        "device=...)")
+        "elastic_restore re-shards onto a mesh, which comes in slice 19 "
+        "(ROADMAP queue A item 7, the training half); use "
+        "CheckpointManager.restore(template, device=...)")

@@ -4,8 +4,8 @@ on one device.
 The port of ``repro/training/train_loop.py::make_train_step``: autograd
 takes the place of ``jax.value_and_grad`` and a Python loop over the
 microbatches the place of ``lax.scan``. The sharded forms (ZeRO-1 state,
-NamedShardings, ``jit_train_step``) wait for the mesh (ROADMAP queue A
-item 7) and raise.
+NamedShardings, ``jit_train_step``) come in slice 19 (ROADMAP queue A
+item 7, the training half) and raise.
 """
 from __future__ import annotations
 
@@ -21,8 +21,9 @@ __all__ = ["make_train_step", "param_shardings", "zero1_shardings",
 
 def _unported(what: str):
     return NotImplementedError(
-        f"{what} is not ported yet: sharded training waits for the mesh "
-        "(ROADMAP queue A item 7); make_train_step trains on one device")
+        f"{what} is not ported yet: sharded training comes in slice 19 "
+        "(ROADMAP queue A item 7, the training half; the mesh itself is "
+        "launch.mesh); make_train_step trains on one device")
 
 
 def param_shardings(*args, **kwargs):

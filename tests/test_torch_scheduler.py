@@ -9,6 +9,8 @@ prompts past the window of 32); budgets cap at the cache; a reused slot
 starts fresh; a draft changes no token. Plus the serve CLI's
 ``--continuous`` and ``--traffic`` runs and the entry point's device
 default."""
+import types
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -248,14 +250,18 @@ def test_greedy_spec_lossless_through_scheduler(lstm):
 
 
 def test_scheduler_entry_point_and_mesh(lstm):
-    """The device defaults to the card (raising without one), and the
-    sharded path is refused by name."""
+    """The device defaults to the card (raising without one), and under a
+    mesh packed params that were not partitioned are refused by name
+    (sharded serving itself: ``tests/test_torch_dist.py``)."""
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="device='cpu'"):
             ContinuousBatchingEngine(lstm["model"], lstm["params"])
-    with pytest.raises(NotImplementedError, match="item 7"):
-        ContinuousBatchingEngine(lstm["model"], lstm["params"], mesh=object(),
-                                 **CPU)
+    mesh = types.SimpleNamespace(axis_names=("data", "model"),
+                                 devices=np.empty((1, 2)))
+    packed, _ = ServeEngine(lstm["model"], sparsity=lstm_policy(0.75, 0.5),
+                            **CPU).prepare(lstm["params"])
+    with pytest.raises(ValueError, match="not dist-partitioned"):
+        ContinuousBatchingEngine(lstm["model"], packed, mesh=mesh, **CPU)
     with pytest.raises(TypeError):
         ContinuousBatchingEngine(object(), lstm["params"], **CPU)
 

@@ -207,15 +207,14 @@ def test_roofline_analytic_functions_match_reference():
 
 def test_serving_exports_cover_the_references():
     """``repro_torch.serving`` exports every public name of the
-    reference's ``repro.serving`` but ``cache_shardings`` (sharded serving,
-    ROADMAP.md A7); ``Request`` has the reference's fields and every model
-    the port builds conforms to ``DecodeStep``."""
+    reference's ``repro.serving`` (``cache_shardings`` since sharded
+    serving); ``Request`` has the reference's fields and every model the
+    port builds conforms to ``DecodeStep``."""
     import dataclasses
     from repro_torch.models import LSTMModel
     from repro_torch.serving import (ContinuousBatchingEngine, DecodeStep,
                                      Finished, Request, TokenEvent)
-    assert set(j_serving.__all__) - set(serving.__all__) == \
-        {"cache_shardings"}
+    assert set(j_serving.__all__) <= set(serving.__all__)
     assert all(hasattr(serving, n) for n in serving.__all__)
     assert [f.name for f in dataclasses.fields(Request)] == \
         [f.name for f in dataclasses.fields(j_serving.Request)]

@@ -295,15 +295,24 @@ def test_entry_points_default_to_the_card():
 
 
 def test_unported_model_options_raise():
-    """Sharded decode is not ported: ``mesh=`` raises. Fused delta + quant
-    is ported (kernel B9): every way of building it constructs a fused
-    model, and it serves the same tokens and cache as the chained path."""
+    """Sharded decode is ported (``tests/test_torch_dist.py``): ``mesh=``
+    turns the fused path off, and a meshed model refuses dense params.
+    Fused delta + quant is ported (kernel B9): every way of building it
+    constructs a fused model, and it serves the same tokens and cache as
+    the chained path."""
+    import types
     from repro_torch.quant import QuantConfig, default_plan
     from repro_torch.sparse import DeltaGateConfig
     cfg = LSTMConfig("t", input_size=8, hidden=8, vocab_size=11)
     plan, delta = default_plan(QuantConfig("int8"), 1), DeltaGateConfig()
-    with pytest.raises(NotImplementedError):
-        LSTMModel(cfg, mesh=object())
+    mesh = types.SimpleNamespace(mesh_dim_names=("data", "model"),
+                                 shape=(1, 2))
+    meshed = LSTMModel(cfg, delta=delta, mesh=mesh)
+    assert meshed.mesh is mesh and not meshed._use_fused
+    assert meshed.with_quant(plan).mesh is mesh
+    assert meshed.with_mesh(None)._use_fused
+    with pytest.raises(ValueError, match="partitioned packed params"):
+        meshed.prefill(meshed.init(device="cpu"), torch.tensor([[1, 2]]), 8)
     for model in (LSTMModel(cfg, delta=delta, quant=plan),
                   LSTMModel(cfg, quant=plan).with_delta(delta),
                   LSTMModel(cfg, fused=False, delta=delta,
