@@ -96,7 +96,11 @@
    the same way; and both at the rest of the zoo's shapes
    (``check_attention_zoo``: B15 without a causal mask at seamless-m4t's
    encoder and cross-attention, groups of 7 and 16, B14 over a
-   fixed-length cross memory), held and timed beside SDPA.
+   fixed-length cross memory), held and timed beside SDPA; B14's ``lse=``
+   output (``check_decode_lse``) at qwen3-0.6b's and the zoo's decode
+   shapes: ``o`` bitwise the launch without it, ``lse`` within LSE_ATOL of
+   the plain version's, a row with no live key 0 / -inf, timed with and
+   without it.
 7. Transformer serve: full-width ``qwen3-0.6b`` in bf16 (seed-0 weights)
    through ``ServeEngine``, greedy, B=8, prompt 512, gen 64, with the
    launch counts read around one generate (28 B15 launches for the
@@ -114,18 +118,20 @@
    ``pipeline.run_point`` (each ``score`` launching T × layers of B3, B5,
    B8 or B9, served nll bitwise the manual one, near the plain
    versions'), ``launch.pipeline --smoke --gate 5``, and ``launch.train``
-   on qwen3-0.6b at full width in bf16 with a checkpoint every 2 steps
-   and a failure injected at 3 (resumed, no kernel launched: its
-   training forward never reaches B15), its gradients and a profiled
-   step.
-10. Recurrent families (``recurrent_serve``): recurrentgemma-9b and
-   rwkv6-7b at full width in bf16 through ``ServeEngine``, the scheduler
+   on qwen3-0.6b at full width in bf16 cut to TTRAIN_LAYERS layers, with
+   a checkpoint every 2 steps and a failure injected at 3 (resumed, no
+   kernel launched: its training forward never reaches B15), and the
+   whole model's gradients and a profiled step.
+10. Recurrent families (``recurrent_serve``): recurrentgemma-9b (6 of 38
+   layers) and rwkv6-7b (6 of 32) at full width in bf16 through
+   ``ServeEngine``, the scheduler
    and a speculating lstm_ptb draft, and ``launch.serve --scorecard
    --metrics`` (its docstring gives the gates).
-11. The rest of the zoo (``zoo_serve``): granite-moe-1b-a400m,
-   qwen3-moe-235b-a22b (4 of 94 layers), seamless-m4t-medium (frames of
-   3072 rows), llava-next-34b (12 of 60 layers, 2880 patches) and
-   llama3.2-3b with the int8 KV cache, at full width in bf16 through
+11. The rest of the zoo (``zoo_serve``): granite-moe-1b-a400m (6 of 24
+   layers), qwen3-moe-235b-a22b (4 of 94), seamless-m4t-medium (frames of
+   3072 rows), llava-next-34b (6 of 60 layers, 2880 patches) and
+   llama3.2-3b with the int8 KV cache (6 of 28), at full width in bf16
+   through
    ``ServeEngine``, granite-moe also under the scheduler and with a
    speculating lstm_ptb draft (its docstring gives the gates).
 12. Sharded decode (``dist_serve``): full-width ``lstm_ptb`` through
@@ -143,9 +149,22 @@
    B1, B4, B7 and B2 alone on each shard's rows at 2 and 4 shards, held
    to the unsharded launch's rows and timed with L2 flushed beside it
    (max / min over the shards printed).
+13. Sharded training and split-KV decode (``sharded_phase``): meshes
+   (2, 2) then (1, 2) of gloo ranks on this card. Full-width lstm_ptb,
+   B=16, T=35, through ``training.jit_train_step`` and
+   ``pipeline.train_lstm(mesh=)``: the first step's loss and gradients
+   held to this card's one-device step, replicated pieces and losses
+   bitwise across ranks, masked steps keeping pruned entries and their
+   moments exactly 0, ``compression.tree_compressed_psum`` on card
+   tensors bitwise their host copies', the (2, 2) checkpoint restored
+   onto (1, 2) bitwise (``elastic_restore``); qwen3-0.6b split-KV in
+   bf16, B=8, prompt 512, gen 64: 28 B14 launches a decode step a rank,
+   every one with ``lse``, tokens and teacher-forced logits held to the
+   single-card path (``sharded_phase``'s docstring gives the gates).
 
 Prints a ``{"kernels": [...]}`` line and, last, the device line. Exits
-non-zero on any failure, and without a card.
+non-zero on any failure, and without a card. Each phase's end and seconds
+go to stderr too.
 """
 from __future__ import annotations
 
@@ -194,6 +213,8 @@ BF16_ULP = 2.0 ** -7   # bf16 outputs: within one ulp (2^-7 relative) of the
                        # differ in the summation order only
 ATTN_TOL = 1e-5        # float32 outputs: sums of up to 32768 terms in
                        # another order
+LSE_ATOL = 1e-5        # B14's log-sum-exp against the plain version's: one
+                       # logf of float32 sums taken in another order
 ATTN_FLOPS = 4         # the attention function's flops per live (q, k)
                        # pair and head dim: Q·K^T and P·V, 2 each
 # the dense-transformer serve path: qwen3-0.6b at full width, bf16
@@ -207,9 +228,12 @@ TF_MARGIN = 0.25       # greedy rows compared up to a top-2 margin below it
 # (38 layers, 12 of them local attention: window 2048, 16 q heads on one
 # kv head of 256) with a prompt past the window; rwkv6-7b (32 RWKV6
 # layers, no attention)
+# layers: the depth kept (PR 29 cut both, widths whole, to give phase 13
+# room in the time limit: 2 of recurrentgemma's 12 periods, 6 of rwkv6's
+# 32 layers)
 RSERVE = {"recurrentgemma-9b": dict(batch=4, prompt=2560, gen=64, heads=16,
-                                    kv_heads=1, window=2048),
-          "rwkv6-7b": dict(batch=8, prompt=512, gen=64)}
+                                    kv_heads=1, window=2048, layers=6),
+          "rwkv6-7b": dict(batch=8, prompt=512, gen=64, layers=6)}
 RRUNS = 2         # timed generate and prefill runs per recurrent model
 # recurrentgemma-9b under the scheduler: 8 slots, 16 requests, prompts
 # 8-64 tokens, budgets 16-32, four compared with lockstep B=1
@@ -218,15 +242,16 @@ RSCHED = dict(slots=8, requests=16, prompt=(8, 64), budget=(16, 32),
 # phase 11, the rest of the zoo at full width in bf16: B, prompt, gen and,
 # where cut, the layers kept (zoo_serve's docstring says why)
 ZSERVE = {"granite-moe-1b-a400m": dict(batch=8, prompt=512, gen=64,
-                                       scheduler=True, draft=True),
+                                       scheduler=True, draft=True, layers=6),
           # qk-normed: gated on its own weights (fan_in=False)
           "qwen3-moe-235b-a22b": dict(batch=4, prompt=512, gen=32,
                                       layers=4, fan_in=False),
           "seamless-m4t-medium": dict(batch=4, prompt=64, gen=64,
                                       frames=3072),
           # 2880 patch embeddings, then 64 text tokens
-          "llava-next-34b": dict(batch=2, prompt=2944, gen=32, layers=12),
-          "llama3.2-3b": dict(batch=8, prompt=512, gen=64, kv_quant=True)}
+          "llava-next-34b": dict(batch=2, prompt=2944, gen=32, layers=6),
+          "llama3.2-3b": dict(batch=8, prompt=512, gen=64, kv_quant=True,
+                              layers=6)}
 ZBUSY_GEN = 8          # decode steps of the generate whose busy share is read
 ZRUNS = 3              # timed runs a phase 11 figure, the median reported
 INT8_GATE = 0.08       # the reference's int8-cache gate (tests/test_archs.py)
@@ -297,9 +322,12 @@ STEP_PARAM_SHARE = 1e-3     # of entries allowed beyond 1e-6
 # the four deployments' nll, kernels vs plain versions: the head over
 # logits within LOGIT_TOL (Θ=0.05 may flip a threshold decision)
 NLL_RTOL = 1e-4
-# qwen3-0.6b through launch.train at full width, bf16
+# qwen3-0.6b through launch.train at full width, bf16, cut to TTRAIN_LAYERS
+# of its 28 layers (PR 29: its checkpoints, 7.5 GB each at full depth, took
+# ~75 s of the time limit): checkpoints at steps 2 and 4, a failure at 3
 TTRAIN = ["--arch", "qwen3-0.6b", "--brds", "--batch", "4", "--seq", "256",
-          "--steps", "6", "--save-every", "2", "--inject-failure-at", "3"]
+          "--steps", "4", "--save-every", "2", "--inject-failure-at", "3"]
+TTRAIN_LAYERS = 4
 ATTN_LEAVES = ("wq", "wk", "wv", "wo", "q_norm", "k_norm")
 # phase 12, sharded decode: (data, model) meshes of 2 then 4 ranks on the
 # one card under gloo (NCCL refuses two ranks on one card); the shard
@@ -308,6 +336,15 @@ ATTN_LEAVES = ("wq", "wk", "wv", "wo", "q_norm", "k_norm")
 DMESHES = ((1, 2), (2, 2))
 DSHARDS = (2, 4)
 DRUNS = 3         # timed generates a rank and path, the median reported
+# phase 13: sharded training (lstm_ptb, TRAIN's B and T) and split-KV
+# decode (qwen3-0.6b in bf16) on meshes (2, 2) then (1, 2) of this card
+SHARD13 = dict(steps=3, masked=3, ckpt_step=7)
+# a rank's params and optimizer state held plus what its step allocates
+# above them, over one card's: the model axis splits the weights and their
+# work (lstm_ptb's: ~0.5 at (1, 2), ~0.45 at (2, 2), estimated)
+SHARD13_MEM = 0.65
+SPLIT = dict(arch="qwen3-0.6b", batch=8, prompt=512, gen=64, tf=8,
+             tf_steps=(0, 3, 7))
 
 
 def log(msg: str) -> None:
@@ -2564,6 +2601,66 @@ def check_attention_d256(torch, device, flush) -> None:
             f"{bms * 1e3:.2f} us ({by}) — median of 30, L2 flushed, bf16")
 
 
+def check_decode_lse(torch, device, flush) -> None:
+    """Phase 6, B14's ``lse=`` output (the split-KV combine's weights), at
+    qwen3-0.6b's decode shape (B=8, 16 / 8 heads of 128, 1024 rows) and
+    the zoo's (``ZATTN["decode"]``), float32 and bf16, with ragged lengths
+    that include 0: ``o`` bitwise the launch without ``lse``, ``lse``
+    within LSE_ATOL of the plain version's, a row with no live key 0 and
+    -inf; then the serve shape timed with and without it (L2 flushed)."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels._build import time_ms
+    shapes = [("qwen3-0.6b", dict(B=8, Hq=16, Hkv=8, S=TSERVE["max_len"],
+                                  D=128, length=TSERVE["prompt"]))]
+    shapes += [(t, sh) for t, sh in ZATTN["decode"]]
+    worst = 0.0
+    for dtype in (torch.float32, torch.bfloat16):
+        for tag, sh in shapes:
+            q, k, v = attn_case(torch, device, dtype, B=sh["B"], Hq=sh["Hq"],
+                                Hkv=sh["Hkv"], Sq=1, Sk=sh["S"], D=sh["D"],
+                                seed=sh["S"] + 7)
+            q = q[:, :, 0]
+            lens = [0] + [max(1, sh["length"] * (i + 1) // sh["B"])
+                          for i in range(1, sh["B"])]
+            n = torch.tensor(lens, dtype=torch.int32, device=device)
+            lse = torch.empty(sh["B"], sh["Hq"], device=device)
+            o = ops.decode_attention(q, k, v, n, lse=lse, backend="cuda")
+            o0 = ops.decode_attention(q, k, v, n, backend="cuda")
+            want = torch.empty_like(lse)
+            ops.decode_attention(q, k, v, n, lse=want, backend="ref")
+            torch.cuda.synchronize()
+            if not torch.equal(o, o0):
+                raise AssertionError(f"decode_attention {tag} {dtype}: o "
+                                     "with lse differs from o without")
+            dead = n == 0
+            if not (torch.isneginf(lse[dead]).all()
+                    and not o[dead].any()):
+                raise AssertionError(f"decode_attention {tag}: a row with "
+                                     "no live key is not 0 / -inf")
+            e = (lse[~dead] - want[~dead]).abs().max().item()
+            if not e <= LSE_ATOL or not torch.isfinite(lse[~dead]).all():
+                raise AssertionError(f"decode_attention {tag} {dtype}: lse "
+                                     f"{e:.3e} from the plain version's "
+                                     f"(> {LSE_ATOL:.0e})")
+            worst = max(worst, e)
+            log(f"  decode_attention lse {tag} {sh} lengths {lens[:3]}... "
+                f"{dtype}: o bitwise without lse; max |lse - plain| "
+                f"{e:.3e} (tol {LSE_ATOL:.0e}); the length-0 row 0 / -inf")
+    B, S, L = 8, TSERVE["max_len"], TSERVE["prompt"] + TSERVE["gen"] // 2
+    q, k, v = attn_case(torch, device, torch.bfloat16, B=B, Hq=16, Hkv=8,
+                        Sq=1, Sk=S, D=128, seed=1)
+    q = q[:, :, 0]
+    n = torch.full((B,), L, dtype=torch.int32, device=device)
+    lse = torch.empty(B, 16, device=device)
+    plain = time_ms(lambda: ops.decode_attention(q, k, v, n,
+                                                 backend="cuda"), flush)
+    with_lse = time_ms(lambda: ops.decode_attention(q, k, v, n, lse=lse,
+                                                    backend="cuda"), flush)
+    log(f"[time] decode_attention serve shape, bf16, length {L}: without "
+        f"lse {plain:.4f} ms, with lse {with_lse:.4f} ms — median of 30, L2 "
+        f"flushed (max |lse - plain| {worst:.3e} over every shape)")
+
+
 def decode_one_launch(torch, ops, q, k, v, n) -> None:
     """B14 is one CUDA launch a call and carries nothing between calls: two
     calls are bitwise equal, and the profiler sees one kernel on the card
@@ -3306,15 +3403,23 @@ def training(torch, device):
     torch.cuda.reset_peak_memory_stats()
     base = torch.cuda.memory_allocated()
     zero_launches(ops)
+    import repro_torch.configs as configs
+    whole_arch = configs.get_arch
+    configs.get_arch = lambda name: whole_arch(name).with_(
+        num_layers=TTRAIN_LAYERS)
     t0 = time.perf_counter()
-    out = launch_train.main(TTRAIN + ["--ckpt-dir", str(ck)])
+    try:
+        out = launch_train.main(TTRAIN + ["--ckpt-dir", str(ck)])
+    finally:
+        configs.get_arch = whole_arch
     wall = time.perf_counter() - t0
     torch.cuda.synchronize()
     peak = torch.cuda.max_memory_allocated() - base
     ck_bytes = sum(f.stat().st_size for f in ck.rglob("*") if f.is_file())
     shutil.rmtree(ck, ignore_errors=True)
     losses = out["losses"]
-    log(f"[train] launch.train {' '.join(TTRAIN)}: resumed from "
+    log(f"[train] launch.train {' '.join(TTRAIN)} ({TTRAIN_LAYERS} of 28 "
+        f"layers): resumed from "
         f"{out['resumed_from']}, losses "
         f"{[round(losses[k], 4) for k in sorted(losses)]}, ms a step "
         f"{[round(out['step_ms'][k], 1) for k in sorted(out['step_ms'])]}; "
@@ -3322,8 +3427,8 @@ def training(torch, device):
         f"{base / 1e9:.2f} GB allocated before; checkpoints on disk at the "
         f"end {ck_bytes / 1e9:.2f} GB; kernel launches "
         f"{ {k: n for k, n in ops.LAUNCHES.items() if n} }")
-    if out["resumed_from"] != [2] or out["final_step"] != 6 or \
-            sorted(losses) != list(range(6)) or \
+    if out["resumed_from"] != [2] or out["final_step"] != 4 or \
+            sorted(losses) != list(range(4)) or \
             not all(np.isfinite(v) for v in losses.values()):
         raise AssertionError(f"launch.train: {out}")
     if any(ops.LAUNCHES.values()):
@@ -3386,20 +3491,22 @@ def recurrent_serve(torch, device) -> None:
     logits by as much as the logits themselves (``one_ulp_spread``,
     printed), where it moves qwen3-0.6b's by ~0.05. Kernels that round
     otherwise than the plain versions (B14 / B15: within one ulp) cannot
-    keep 38 such layers' tokens; so recurrentgemma-9b's attention is held
+    keep such layers' tokens; so recurrentgemma-9b's attention is held
     launch by launch on the model's own inputs, and the end-to-end gates
-    on the same configuration cut to one period at full width.
+    on the same configuration cut to one period at full width. Both run
+    cut in depth (RSERVE's ``layers``; widths whole).
 
-    - recurrentgemma-9b, B=4, prompt 2560 (past the window of 2048), gen
-      64: the launch counts set to 0 just before one generate and read
-      just after, exactly 12 B15 launches for the prefill (every one on
-      the tensor-core body) and 12 B14 launches a decode step; every one
-      of the 768 launches of its teacher-forced run within one bf16 ulp
-      of its plain version on the same inputs (``held_calls``); the
-      scheduler: 8 slots, 16 requests (prompts 8-64, budgets 16-32), each
-      prefill's 12 B15 and each chunk graph's 8 x 12 B14 launches held
-      exactly. Then one period (rec, rec, attn_local; the full model's
-      first three layers and embedding) at full width: 1 B15 a prefill
+    - recurrentgemma-9b (6 layers: 2 periods), B=4, prompt 2560 (past the
+      window of 2048), gen 64: the launch counts set to 0 just before one
+      generate and read just after, exactly one B15 launch an attention
+      layer for the prefill (every one on the tensor-core body) and one
+      B14 launch an attention layer a decode step; every launch of its
+      teacher-forced run within one bf16 ulp of its plain version on the
+      same inputs (``held_calls``); the scheduler: 8 slots, 16 requests
+      (prompts 8-64, budgets 16-32), each prefill's B15 and each chunk
+      graph's 8 B14 launches an attention layer held exactly. Then one
+      period (rec, rec, attn_local; the full model's first three layers
+      and embedding) at full width: 1 B15 a prefill
       and 1 B14 a step, teacher-forced logits and greedy tokens held to
       the plain path at qwen3-0.6b's bf16 gates (``hold_to_plain``), and
       the scheduler again, four requests' tokens equal to lockstep B=1
@@ -3434,7 +3541,8 @@ def recurrent_serve(torch, device) -> None:
             laps[name] = round(now - t_lap[0], 1)
             t_lap[0] = now
         R = RSERVE[arch]
-        cfg = get_arch(arch)
+        full = get_arch(arch)
+        cfg = full.with_(num_layers=R.get("layers", full.num_layers))
         B, P, G = R["batch"], R["prompt"], R["gen"]
         ML = P + G
         model = build_model(cfg)
@@ -3444,7 +3552,8 @@ def recurrent_serve(torch, device) -> None:
         n_attn = sum(k.startswith("attn") for k in model.kinds)
         cache_bytes = sum(math.prod(d.shape) * d.dtype.itemsize
                           for d in runtime.leaves(model.cache_defs(B, ML)))
-        log(f"[rserve] {arch}: {cfg.num_layers} layers {model.kinds[:3]}... "
+        log(f"[rserve] {arch}: {cfg.num_layers} of {full.num_layers} layers "
+            f"{model.kinds[:3]}... "
             f"d={cfg.d_model} ff={cfg.d_ff} V={cfg.vocab_size} {cfg.dtype}: "
             f"{model.param_count() / 1e9:.3f} B params "
             f"({model.param_count() * 2 / 1e9:.2f} GB), init "
@@ -4025,10 +4134,11 @@ def zoo_serve(torch, device) -> None:
     a seeded CUDA generator (seed 0), prompts from a CPU generator (seed
     1), frames and patches from one (seed 2). Cuts (ZSERVE): qwen3-moe-
     235b-a22b to 4 of its 94 layers (the whole model is 470 GB of bf16
-    weights; 4 layers at full width are 22.4 GB), llava-next-34b to 12 of
+    weights; 4 layers at full width are 22.4 GB), llava-next-34b to 6 of
     60 (70.5 GB of weights leave too little of 80 GB for the plain path's
-    comparison); granite-moe-1b-a400m, seamless-m4t-medium and
-    llama3.2-3b (the int8 KV cache) at full depth.
+    comparison), granite-moe-1b-a400m to 6 of 24 and llama3.2-3b (the
+    int8 KV cache) to 6 of 28 (to leave phase 13 room in the time limit);
+    seamless-m4t-medium at full depth.
 
     For each: the launch counts set to 0 just before one generate and read
     just after (B15 a prefill and B14 a step, ``expected_launches``, every
@@ -4562,6 +4672,446 @@ def dist_serve(torch, device) -> None:
     del flush
 
 
+def piece_of(full, placements, coords: dict, sizes: dict):
+    """The piece of ``full`` that the rank at mesh ``coords`` holds under
+    ``placements`` (DTensor's layout, the mesh dims in order)."""
+    out = full
+    for axis, pl in zip(sizes, placements):
+        if pl.is_shard():
+            n = out.shape[pl.dim] // sizes[axis]
+            out = out.narrow(pl.dim, coords[axis] * n, n)
+    return out
+
+
+def digest(t) -> str:
+    """sha256 of a tensor's bytes (its local piece for a DTensor)."""
+    import hashlib
+    t = t.to_local() if hasattr(t, "to_local") else t
+    return hashlib.sha256(t.detach().reshape(-1).contiguous().cpu()
+                          .view(-1).numpy().view(np.uint8)).hexdigest()
+
+
+def split_inputs(torch, device):
+    """Phase 13's qwen3-0.6b: the config, seed-0 weights from a CUDA
+    generator on this card (the same in every rank) and the prompt."""
+    from repro_torch.configs import get_arch
+    from repro_torch.models import build_model
+    cfg = get_arch(SPLIT["arch"])
+    model = build_model(cfg)
+    params = model.init(torch.Generator(device).manual_seed(0), device)
+    tokens = torch.randint(0, cfg.vocab_size, (SPLIT["batch"],
+                                               SPLIT["prompt"]),
+                           generator=torch.Generator().manual_seed(1)
+                           ).to(device)
+    return cfg, model, params, tokens
+
+
+def lstm13_inputs(torch, device):
+    """Phase 13's lstm_ptb: the model, seed-0 weights, the corpus and its
+    first batch (B=16, T=35), on ``device``."""
+    from repro_torch.launch import pipeline as pl
+    from repro_torch.models import LSTMModel, LSTM_CONFIGS
+    from repro_torch.training.data import ZipfInduction
+    cfg = LSTM_CONFIGS["lstm_ptb"]
+    model = LSTMModel(cfg)
+    params = model.init(torch.Generator().manual_seed(0), device)
+    corpus = ZipfInduction(vocab_size=cfg.vocab_size)
+    batch = pl._as_model_batch(corpus.batch(0, TRAIN["batch"],
+                                            TRAIN["seq"]), device)
+    pcfg = pl.PipelineConfig(batch=TRAIN["batch"], seq_len=TRAIN["seq"],
+                             device=str(device))
+    return model, params, corpus, batch, pcfg
+
+
+def step_memory(torch, step_fn, p, o, batch, step):
+    """(bytes of the params and optimizer state held: a rank's pieces;
+    the peak a step allocates above what was live before it; the step's
+    (params, state)) on this card."""
+    from repro_torch.training.tree import leaves
+    held = sum((x.to_local() if hasattr(x, "to_local") else x).nbytes
+               for x in leaves((p, o)))
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    p, o, _ = step_fn(p, o, batch, step)
+    torch.cuda.synchronize()
+    return held, torch.cuda.max_memory_allocated() - base, (p, o)
+
+
+def shard13_rank(mesh, spawned: float, ckpt_dir: str, single_toks) -> dict:
+    """Phase 13 on one rank (see ``sharded_phase``): the sharded train
+    step against this card's one-device step, ``train_lstm(mesh=)``,
+    masked steps, compression card vs CPU, the checkpoint written on
+    (2, 2) or restored onto (1, 2), and qwen3-0.6b's split-KV decode."""
+    faulthandler.enable(all_threads=True)
+    import types
+    import torch
+    import torch.distributed as dist
+    from torch.utils.flop_counter import FlopCounterMode
+    from repro_torch.dist.collective_ops import shard_local
+    from repro_torch.launch import pipeline as pl
+    from repro_torch.sparse import lstm_policy
+    from repro_torch.training import (CheckpointManager, OptConfig,
+                                      compression, elastic_restore,
+                                      init_state, jit_train_step)
+    from repro_torch.training.train_loop import (opt_shardings,
+                                                 param_shardings,
+                                                 value_and_grad)
+    from repro_torch.training.tree import leaves
+    device = torch.device("cuda", torch.cuda.current_device())
+    shape = tuple(mesh.shape)
+    names = tuple(mesh.mesh_dim_names)
+    laps = {"start": time.time() - spawned}
+    t_lap = [time.perf_counter()]
+
+    def lap(name):
+        torch.cuda.synchronize()
+        now = time.perf_counter()
+        laps[name] = round(now - t_lap[0], 2)
+        t_lap[0] = now
+    out = {"rank": dist.get_rank(), "laps": laps,
+           "coords": {a: mesh.get_local_rank(a) for a in names}}
+    model, params, corpus, batch, pcfg = lstm13_inputs(torch, device)
+    arch = types.SimpleNamespace(grad_accum=1, zero1=True)
+    oc = OptConfig(lr=TRAIN["lr"], warmup_steps=1, total_steps=10)
+    step = jit_train_step(mesh, model, arch, oc, batch)
+    p_sh = param_shardings(mesh, model)
+    o_sh = opt_shardings(mesh, oc, p_sh, model.param_defs())
+    lap("init")
+    with FlopCounterMode(display=False) as fl:
+        loss, grads = step.grads(params, batch)
+    lap("sharded grads")
+    with FlopCounterMode(display=False) as fl1:
+        loss1, grads1 = value_and_grad(model.loss, params, batch)
+    rel = max((g.to_local().float() - shard_local(w, mesh, sh.placements)
+               .float()).abs().max().item() / max(w.abs().max().item(),
+                                                   1e-30)
+              for g, w, sh in zip(leaves(grads), leaves(grads1),
+                                  leaves(p_sh)))
+    del grads1
+    lap("one-device grads")
+    p, o = params, init_state(oc, params)
+    walls = []
+    for i in range(2):
+        torch.cuda.synchronize()
+        dist.barrier()
+        t0 = time.perf_counter()
+        p, o, met = step(p, o, batch, 1 + i)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    held, peak, (p, o) = step_memory(torch, step, p, o, batch, 3)
+    out["train"] = dict(loss=float(loss), loss1=float(loss1), grad_rel=rel,
+                        step_s=walls, step_loss=float(met["loss"]),
+                        pieces=[digest(x) for x in leaves(p)],
+                        flops=(fl.get_total_flops(), fl1.get_total_flops()),
+                        mem=(held, peak))
+    del p, o, grads
+    lap("two dense steps")
+    losses = []
+    pl.train_lstm(model, corpus, pcfg, steps=SHARD13["steps"],
+                  lr=TRAIN["lr"], params=params, mesh=mesh, losses=losses)
+    out["train"]["train_lstm_losses"] = losses
+    lap("train_lstm(mesh=)")
+    pruned, masks = lstm_policy(0.75, 0.5).compile(params).prune(params)
+    mstep = jit_train_step(mesh, model, arch, oc, batch, masks)
+    pm, om = pruned, init_state(oc, pruned)
+    for i in range(SHARD13["masked"]):
+        pm, om, _ = mstep(pm, om, batch, 1 + i)
+    from repro_torch.sparse.policy import _map_with_path
+    paths = leaves(_map_with_path(model.param_defs(), lambda ps, _: ps))
+    nonzero = 0
+    for ps, x, m, v, psh, osh in zip(paths, leaves(pm), leaves(om["m"]),
+                                     leaves(om["v"]), leaves(p_sh),
+                                     leaves(o_sh["m"])):
+        if ps not in masks:
+            continue
+        mp = shard_local(masks[ps], mesh, psh.placements)
+        mo = shard_local(masks[ps], mesh, osh.placements)
+        nonzero += (int(x.to_local()[~mp].count_nonzero())
+                    + int(m.to_local()[~mo].count_nonzero())
+                    + int(v.to_local()[~mo].count_nonzero()))
+    out["masked"] = dict(nonzero=nonzero)
+    lap("masked steps")
+    # compression: the local gradient pieces over the axis of 2 ranks, on
+    # the card and their host copies
+    axis = "data" if dict(zip(names, shape))["data"] > 1 else "model"
+    gl = {str(i): x.to_local().contiguous() for i, x in
+          enumerate(leaves(step.grads(params, batch)[1]))}
+    res = compression.init_residuals(gl)
+    m_card, r_card = compression.tree_compressed_psum(gl, axis, res,
+                                                      mesh=mesh)
+    m_host, r_host = compression.tree_compressed_psum(
+        {k: v.cpu() for k, v in gl.items()}, axis,
+        {k: v.cpu() for k, v in res.items()}, mesh=mesh)
+    out["compression"] = dict(
+        axis=axis, bitwise=all(torch.equal(m_card[k].cpu(), m_host[k])
+                               and torch.equal(r_card[k].cpu(), r_host[k])
+                               for k in gl),
+        wire=(compression.wire_bytes(gl, True),
+              compression.wire_bytes(gl, False)))
+    del gl, res, m_card, r_card, m_host, r_host
+    lap("compression")
+    ckpt = CheckpointManager(ckpt_dir, async_save=False)
+    if shape == (2, 2):
+        ckpt.save(SHARD13["ckpt_step"], (pm, om))
+        out["saved"] = [digest(x) for x in leaves((pm, om))]
+        lap("checkpoint save")
+    else:
+        (rp, ro), meta = elastic_restore(ckpt, (params, init_state(
+            oc, params)), (p_sh, o_sh))
+        out["restored"] = dict(step=meta["step"],
+                               pieces=[digest(x) for x in leaves((rp, ro))])
+        del rp, ro
+        lap("elastic restore")
+    del pm, om, params, pruned, step, mstep
+    torch.cuda.empty_cache()
+    out["split"] = split13(torch, device, mesh, single_toks, lap)
+    out["placements"] = {"p": [tuple(sh.placements) for sh in leaves(p_sh)],
+                         "o": [tuple(sh.placements) for sh in
+                               leaves((p_sh, o_sh))]}
+    return out
+
+
+def split13(torch, device, mesh, single_toks, lap) -> dict:
+    """qwen3-0.6b split-KV on this rank: one greedy generate with the
+    launch counts set to 0 just before and read just after (B14 with
+    ``lse`` counted apart), then the single-card tokens teacher-forced
+    through the split-KV model for SPLIT["tf"] steps (its logits kept at
+    SPLIT["tf_steps"]; the prefill and the decode steps timed apart)."""
+    from repro_torch.dist.collective_ops import batch_rows
+    from repro_torch.kernels import decode_attention as kda
+    from repro_torch.kernels import ops
+    from repro_torch.serving import ServeEngine
+    cfg, model, params, tokens = split_inputs(torch, device)
+    B, P, G = SPLIT["batch"], SPLIT["prompt"], SPLIT["gen"]
+    eng = ServeEngine(model, max_len=P + G, device=device, mesh=mesh)
+    p, _ = eng.prepare(params)
+    del params
+    torch.cuda.empty_cache()
+    lap("split prepare")
+    zero_launches(ops)
+    kda.LSE_LAUNCHES[0] = 0
+    t0 = time.perf_counter()
+    toks, st = eng.generate(p, tokens, G, return_state=True)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {k: n for k, n in ops.LAUNCHES.items() if n}
+    lse = kda.LSE_LAUNCHES[0]
+    lap("split generate")
+    rows = batch_rows(mesh, B)
+    want = torch.as_tensor(single_toks).to(device)[rows]
+    t0 = time.perf_counter()
+    logits, cache = eng.model.prefill(p, tokens[rows], P + G)
+    torch.cuda.synchronize()
+    pre = time.perf_counter() - t0
+    keep = {0: logits[:, 0].float().cpu().numpy()}
+    t0 = time.perf_counter()
+    for t in range(SPLIT["tf"] - 1):
+        logits, cache = eng.model.decode_step(p, cache, want[:, t:t + 1],
+                                              P + t)
+        if t + 1 in SPLIT["tf_steps"]:
+            keep[t + 1] = logits[:, 0].float().cpu().numpy()
+    torch.cuda.synchronize()
+    step = (time.perf_counter() - t0) / (SPLIT["tf"] - 1)
+    lap("split teacher-forced")
+    return dict(toks=toks.cpu().numpy(), launches=launches, lse=lse,
+                wall=wall, prefill=pre, step=step,
+                rows=(rows.start, rows.stop), tf=keep)
+
+
+def sharded_phase(torch, device) -> None:
+    """Phase 13: sharded training and split-KV decode on (data, model)
+    meshes (2, 2) then (1, 2), every rank a spawned process on this card
+    under gloo (each collective staged through host memory).
+
+    Training, full-width lstm_ptb on ZipfInduction(10000), B=16, T=35:
+    the sharded (tensor-parallel) step's loss and gradients held to this
+    card's one-device step (STEP_LOSS_RTOL, STEP_GRAD_RTOL of each leaf's
+    max), every rank's loss bitwise and every replicated piece bitwise
+    across the ranks that share it; a rank's FLOPs 1 / (data · model) of
+    one device's (within 1%), its held pieces plus a step's peak at most
+    SHARD13_MEM of one card's; ``train_lstm(mesh=)`` for
+    SHARD13["steps"] dense steps, each loss held to the one-device
+    ``train_lstm``'s (STEP_LOSS_RTOL); masked steps with every pruned entry and its moments exactly 0;
+    ``tree_compressed_psum`` of the gradient pieces on card tensors
+    bitwise that of their host copies; the (2, 2) ranks' checkpoint
+    (full arrays, written once) restored onto (1, 2) by
+    ``elastic_restore``, every piece bitwise the checkpoint's.
+
+    Split-KV decode, qwen3-0.6b at full width in bf16, B=8, prompt 512,
+    gen 64: per rank 28 B15 launches (its prefill) and 28 B14 launches a
+    decode step, every one with ``lse``; greedy tokens equal to the
+    single-card path's up to each row's first top-2 margin below
+    TF_MARGIN; the single-card tokens teacher-forced through the split-KV
+    model for SPLIT["tf"] steps within TF_LOGIT_TOL of the single-card
+    teacher-forced logits."""
+    import shutil
+    import types
+    from repro_torch.launch.mesh import run_ranks
+    from repro_torch.launch import pipeline as pl
+    from repro_torch.serving import ServeEngine
+    from repro_torch.training import (CheckpointManager, OptConfig,
+                                      init_state, make_train_step)
+    from repro_torch.training.tree import leaves
+    torch.cuda.empty_cache()
+    B, P, G = SPLIT["batch"], SPLIT["prompt"], SPLIT["gen"]
+    # the single-card references, before any rank holds the card
+    cfg, model, params, tokens = split_inputs(torch, device)
+    eng = ServeEngine(model, max_len=P + G, device=device)
+    out1, st1 = eng.generate(params, tokens, G, return_state=True)
+    tf1 = tf_logits(torch, model, params, tokens, out1, P + G)
+    top2 = tf1[..., :cfg.vocab_size].topk(2, dim=-1).values
+    small = (top2[..., 0] - top2[..., 1]) < TF_MARGIN
+    first = torch.where(small.any(1), small.float().argmax(1),
+                        torch.full((B,), G, device=device)).tolist()
+    tf1 = {t: tf1[:, t].float().cpu() for t in SPLIT["tf_steps"]}
+    single = out1.cpu().numpy()
+    del eng, params, st1
+    torch.cuda.empty_cache()
+    lmodel, lparams, corpus, batch, pcfg = lstm13_inputs(torch, device)
+    want_losses = []
+    pl.train_lstm(lmodel, corpus, pcfg, steps=SHARD13["steps"],
+                  lr=TRAIN["lr"], params=lparams, losses=want_losses)
+    oc = OptConfig(lr=TRAIN["lr"], warmup_steps=1, total_steps=10)
+    one = make_train_step(lmodel, types.SimpleNamespace(grad_accum=1), oc)
+    p, o, _ = one(lparams, init_state(oc, lparams), batch, 1)
+    mem1 = sum(step_memory(torch, one, p, o, batch, 2)[:2])
+    del lparams, p, o
+    torch.cuda.empty_cache()
+    ck = ROOT / "build" / "ckpt13"
+    shutil.rmtree(ck, ignore_errors=True)
+    runs = {}
+    try:
+        for mesh in ((2, 2), (1, 2)):
+            t0 = time.perf_counter()
+            runs[mesh] = run_ranks(shard13_rank, *mesh, device="cuda",
+                                   backend="gloo",
+                                   args=(time.time(), str(ck), single),
+                                   threads=2, timeout=600)
+            log(f"[shard] mesh data={mesh[0]} model={mesh[1]}: "
+                f"{mesh[0] * mesh[1]} ranks in "
+                f"{time.perf_counter() - t0:.1f}s; rank 0's seconds: "
+                + json.dumps(runs[mesh][0]["laps"]))
+        whole, meta = CheckpointManager(str(ck), async_save=False).restore(
+            _ckpt_template(torch, lmodel))
+    finally:
+        shutil.rmtree(ck, ignore_errors=True)
+    if meta["step"] != SHARD13["ckpt_step"]:
+        raise AssertionError(f"checkpoint step {meta['step']}")
+    for mesh, ranks in runs.items():
+        sizes = dict(zip(("data", "model"), mesh))
+        tr = [rk["train"] for rk in ranks]
+        t = tr[0]
+        rel = abs(t["loss"] - t["loss1"]) / abs(t["loss1"])
+        log(f"[shard] {mesh}: lstm_ptb sharded grads vs one-device: loss "
+            f"{t['loss']:.6f} vs {t['loss1']:.6f} (rel {rel:.2e}, gate "
+            f"{STEP_LOSS_RTOL:.0e}); max |dg| / max |g| over the ranks' "
+            f"pieces {max(x['grad_rel'] for x in tr):.2e} (gate "
+            f"{STEP_GRAD_RTOL:.0e}); a sharded AdamW step "
+            f"{[round(x, 3) for x in t['step_s']]} s (gloo host-staged)")
+        if not rel <= STEP_LOSS_RTOL or \
+                not max(x["grad_rel"] for x in tr) <= STEP_GRAD_RTOL:
+            raise AssertionError(f"{mesh}: sharded step off the one-device "
+                                 "step")
+        if len({x["loss"] for x in tr}) != 1 or \
+                len({x["step_loss"] for x in tr}) != 1:
+            raise AssertionError(f"{mesh}: ranks' losses differ")
+        share = [x["flops"][0] / x["flops"][1] for x in tr]
+        mem = [sum(x["mem"]) / mem1 for x in tr]
+        log(f"[shard] {mesh}: a rank's FLOPs of its loss and gradient over "
+            f"one device's {min(share):.4f}-{max(share):.4f} (1 / "
+            f"{mesh[0] * mesh[1]} = {1 / (mesh[0] * mesh[1]):.4f}); held "
+            f"pieces + a step's peak above them "
+            f"{max(sum(x['mem']) for x in tr) / 2**20:.1f} MiB a rank (held {tr[0]['mem'][0] / 2**20:.1f}, step "
+            f"{tr[0]['mem'][1] / 2**20:.1f}) against one card's "
+            f"{mem1 / 2**20:.1f}: {max(mem):.3f} (gate {SHARD13_MEM})")
+        if any(abs(x * mesh[0] * mesh[1] - 1) > 0.01 for x in share):
+            raise AssertionError(f"{mesh}: a rank's FLOPs {share} are not "
+                                 "its share of one device's")
+        if not max(mem) <= SHARD13_MEM:
+            raise AssertionError(f"{mesh}: a rank holds {max(mem):.3f} of "
+                                 "one card's memory")
+        # ranks at the same model coordinate hold the same param pieces
+        by_model = {}
+        for rk in ranks:
+            by_model.setdefault(rk["coords"]["model"], []).append(
+                rk["train"]["pieces"])
+        if any(len({tuple(p) for p in ps}) != 1 for ps in by_model.values()):
+            raise AssertionError(f"{mesh}: replicated pieces differ")
+        got_l = t["train_lstm_losses"]
+        dl = max(abs(a - b) / abs(b) for a, b in zip(got_l, want_losses))
+        log(f"[shard] {mesh}: train_lstm(mesh=) losses {got_l} vs one "
+            f"device {want_losses} (max rel {dl:.2e}); masked steps: "
+            f"{sum(rk['masked']['nonzero'] for rk in ranks)} nonzero pruned "
+            f"entries in params and moments; compression over "
+            f"{ranks[0]['compression']['axis']}: card bitwise host "
+            f"{all(rk['compression']['bitwise'] for rk in ranks)}, wire "
+            f"bytes int8 / fp32 {ranks[0]['compression']['wire']}")
+        if not dl <= STEP_LOSS_RTOL or len(got_l) != SHARD13["steps"]:
+            raise AssertionError(f"{mesh}: train_lstm(mesh=) losses")
+        if any(rk["masked"]["nonzero"] for rk in ranks):
+            raise AssertionError(f"{mesh}: a pruned entry moved")
+        if not all(rk["compression"]["bitwise"] for rk in ranks):
+            raise AssertionError(f"{mesh}: compression card != host")
+        key = "saved" if mesh == (2, 2) else "restored"
+        for rk in ranks:
+            got = rk[key] if key == "saved" else rk[key]["pieces"]
+            want = [digest(piece_of(w, pl_, rk["coords"], sizes))
+                    for w, pl_ in zip(leaves(whole), rk["placements"]["o"])]
+            if got != want:
+                raise AssertionError(f"{mesh}: checkpoint pieces not "
+                                     f"bitwise ({key})")
+        log(f"[shard] {mesh}: checkpoint pieces {key} bitwise the whole "
+            "arrays on disk" + (f" (step {ranks[0]['restored']['step']})"
+                                if key == "restored" else ""))
+        split_gates(torch, mesh, ranks, single, tf1, first, cfg)
+
+
+def _ckpt_template(torch, model):
+    """(params, AdamW state) of lstm_ptb on the CPU: the checkpoint's
+    structure and dtypes."""
+    from repro_torch.training import OptConfig, init_state
+    params = model.init(torch.Generator().manual_seed(0), "cpu")
+    return params, init_state(OptConfig(), params)
+
+
+def split_gates(torch, mesh, ranks, single, tf1, first, cfg) -> None:
+    """Phase 13's split-KV gates on every rank (``sharded_phase``)."""
+    B, P, G = SPLIT["batch"], SPLIT["prompt"], SPLIT["gen"]
+    L = cfg.num_layers
+    want = {"flash_attention": L, "decode_attention": L * G}
+    for rk in ranks:
+        sp = rk["split"]
+        if sp["launches"] != want or sp["lse"] != L * G:
+            raise AssertionError(f"{mesh} rank {rk['rank']}: launches "
+                                 f"{sp['launches']}, with lse {sp['lse']}; "
+                                 f"expected {want}, all B14 with lse")
+        toks = sp["toks"]
+        same = [bool(np.array_equal(toks[b, :first[b]], single[b, :first[b]]))
+                for b in range(B)]
+        lo, hi = sp["rows"]
+        dl = max(float(np.abs(sp["tf"][t] - tf1[t][lo:hi].numpy())
+                       [..., :cfg.vocab_size].max())
+                 for t in SPLIT["tf_steps"])
+        if not all(same) or not dl <= TF_LOGIT_TOL:
+            raise AssertionError(f"{mesh} rank {rk['rank']}: tokens equal "
+                                 f"up to small margins {same}; teacher-"
+                                 f"forced logits {dl:.3e}")
+        rk["split_dl"] = dl
+    sp = ranks[0]["split"]
+    same = int((sp["toks"] == single).sum())
+    log(f"[shard] {mesh}: qwen3-0.6b split-KV ({cfg.dtype}, B={B}, prompt "
+        f"{P}, gen {G}): launches a rank {sp['launches']}, B14 with lse "
+        f"{sp['lse']} = {L} a decode step; teacher-forced logits vs single "
+        f"card max |diff| {max(rk['split_dl'] for rk in ranks):.3e} (tol "
+        f"{TF_LOGIT_TOL}); greedy tokens equal per row up to its first top-2 "
+        f"margin < {TF_MARGIN} (steps {first}), {same} of {B * G} equal; "
+        f"generate {sp['wall']:.2f} s; teacher-forced: prefill "
+        f"(tensor-parallel, B15 on the rank's heads) {sp['prefill']:.2f} s, "
+        f"a decode step {sp['step'] * 1e3:.1f} ms (gloo host-staged) on "
+        "rank 0")
+
+
 def main() -> int:
     # a fault in native code prints every thread's Python stack to stderr
     faulthandler.enable(all_threads=True)
@@ -4596,9 +5146,11 @@ def main() -> int:
 
     def phase(name):
         nonlocal t0
-        log(f"[phase] {name}: {time.perf_counter() - t0:.1f}s")
+        took = time.perf_counter() - t0
+        log(f"[phase] {name}: {took:.1f}s")
         # also on stderr, so the end of stderr alone says how far a run got
-        print(f"[phase] {name} done", file=sys.stderr, flush=True)
+        print(f"[phase] {name} done in {took:.1f}s", file=sys.stderr,
+              flush=True)
         t0 = time.perf_counter()
 
     rec = check_kernels(torch, device, flush)
@@ -4606,6 +5158,7 @@ def main() -> int:
     rec.update(check_attention(torch, device, flush))
     check_attention_d256(torch, device, flush)
     check_attention_zoo(torch, device, flush)
+    check_decode_lse(torch, device, flush)
     phase("6 attention kernels")
     del flush
     launches, first = serve(torch, device)
@@ -4626,6 +5179,8 @@ def main() -> int:
     phase("11 the rest of the zoo")
     dist_serve(torch, device)
     phase("12 sharded decode")
+    sharded_phase(torch, device)
+    phase("13 sharded training and split-KV decode")
     log("[graph] rows: " + json.dumps(GRAPH_ROWS))
 
     src = {"rb_dual_spmv": ("rb_spmv.cu", "src/repro/kernels/rb_spmv.py:86"),

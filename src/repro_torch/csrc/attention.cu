@@ -284,9 +284,15 @@ struct DecodeArgs {
   long long svb, svh, svs;
   const int* lengths;
   T* out;
+  float* lse;   // (B, Hq) log-sum-exp of the scaled scores, or null
   int S, Hq, Hkv, window, nsplit, stages, fixed_len;
   float scale;
 };
+
+// m + log(l), the row's log-sum-exp; -inf where no key was live (l = 0)
+__device__ __forceinline__ float row_lse(float m, float l) {
+  return l > 0.f ? m + logf(l) : -INFINITY;
+}
 
 // Block (split, b * Hkv + kv head, q-head group): slice `split` of the
 // (b, kv head) pair's live keys, GM of its q heads. The nsplit blocks of a
@@ -477,6 +483,7 @@ decode_cluster_kernel(const DecodeArgs<T> a) {
     }
     if (a.nsplit == 1) {
       a.out[(row0 + g) * D + d] = from_f<T>(A / fmaxf(Ls, 1e-30f));
+      if (a.lse != nullptr && d == 0) a.lse[row0 + g] = row_lse(M, Ls);
     } else {
       gm_acc[(slot + g) * D + d] = A;
       if (d == 0) {
@@ -504,6 +511,7 @@ decode_cluster_kernel(const DecodeArgs<T> a) {
       A += c * sm_acc[p * D + d];
     }
     a.out[(row0 + g) * D + d] = from_f<T>(A / fmaxf(Ls, 1e-30f));
+    if (a.lse != nullptr && d == 0) a.lse[row0 + g] = row_lse(M, Ls);
   }
 }
 
@@ -1232,12 +1240,13 @@ int dispatch_flash_tc(int D, const void* q, long long sqb, long long sqh,
 // memory, at least the instantiation's need) come from
 // kernels/plan.py::decode_plan. fixed_len >= 0 is a diagnostic
 // (launch.profile_kernels): every row takes it and lengths is not read.
+// lse: null, or (B, Hq) float32 that takes each row's log-sum-exp.
 extern "C" int brds_decode_attention(
     const void* q, long long sqb, long long sqh, const void* k,
     long long skb, long long skh, long long sks, const void* v,
     long long svb, long long svh, long long svs, const void* lengths,
     void* out, int B, int Hq, int Hkv, int S, int D, int window, float scale,
-    int nsplit, int stages, int smem, int fixed_len, int dtype,
+    int nsplit, int stages, int smem, int fixed_len, void* lse, int dtype,
     void* stream) {
   if (B <= 0 || Hkv <= 0 || Hq % Hkv != 0 || S <= 0 ||
       (long long)B * Hkv > 65535)
@@ -1247,8 +1256,9 @@ extern "C" int brds_decode_attention(
     const DecodeArgs<float> a{
         static_cast<const float*>(q), sqb, sqh, static_cast<const float*>(k),
         skb, skh, sks, static_cast<const float*>(v), svb, svh, svs,
-        static_cast<const int*>(lengths), static_cast<float*>(out), S, Hq,
-        Hkv, window, nsplit, stages, fixed_len, scale};
+        static_cast<const int*>(lengths), static_cast<float*>(out),
+        static_cast<float*>(lse), S, Hq, Hkv, window, nsplit, stages,
+        fixed_len, scale};
     return dispatch_decode(a, B, D, smem, st);
   }
   if (dtype == 1) {
@@ -1256,8 +1266,9 @@ extern "C" int brds_decode_attention(
     const DecodeArgs<T> a{
         static_cast<const T*>(q), sqb, sqh, static_cast<const T*>(k), skb,
         skh, sks, static_cast<const T*>(v), svb, svh, svs,
-        static_cast<const int*>(lengths), static_cast<T*>(out), S, Hq, Hkv,
-        window, nsplit, stages, fixed_len, scale};
+        static_cast<const int*>(lengths), static_cast<T*>(out),
+        static_cast<float*>(lse), S, Hq, Hkv, window, nsplit, stages,
+        fixed_len, scale};
     return dispatch_decode(a, B, D, smem, st);
   }
   return cudaErrorInvalidValue;

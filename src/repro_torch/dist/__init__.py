@@ -4,7 +4,7 @@ Row balance as device load balance: every row of a packed
 ``RowBalancedSparse`` holds exactly NZ survivors, so sharding the 4H gate
 rows across a mesh's ``model`` axis yields equal shards by construction.
 The mesh is a DeviceMesh over ``(data, model)`` ranks, one process a rank
-(``launch.mesh``). Two modules:
+(``launch.mesh``). Four modules:
 
   partition      — the partitioning contract: gate-aligned row
                    permutation, each rank's block of the packed values,
@@ -13,12 +13,24 @@ The mesh is a DeviceMesh over ``(data, model)`` ranks, one process a rank
                    replicated embed and head.
   collective_ops — sharded kernel wrappers and the sharded LSTM decode
                    steps; a step's only collective is the all-gather of h
-                   over ``model``, one a layer.
+                   over ``model``, one a layer. Also the staged
+                   collectives (all-gather, all-reduce, broadcast) and
+                   the DTensor pieces the sharded train step uses.
+  tensor_parallel — Megatron's local forms over ``model`` (column- and
+                   row-parallel products, the vocab-parallel embedding,
+                   the gathered head, the LSTM's gate rows), their
+                   collectives autograd Functions: the sharded train
+                   step's forward and backward, and the transformers'
+                   prefill and decode under a mesh.
+  splitkv        — the dense GQA transformers' split-KV attention: the
+                   KV cache's sequence over ``model``, B14's partials
+                   combined by their log-sum-exps.
 
 Serving wires it together: ``ServeEngine(..., mesh=mesh)`` partitions at
 ``prepare`` and decodes model-parallel, the batch split over ``data``;
 ``ContinuousBatchingEngine(..., mesh=mesh)`` splits its slots over
-``data``. ``launch.serve --mesh D,M`` drives it end to end.
+``data``; a dense GQA transformer under ``ServeEngine(mesh=)`` decodes
+split-KV. ``launch.serve --mesh D,M`` drives it end to end.
 """
 from .partition import (check_partitioned, gate_row_permutation,
                         is_partitionable, model_axis_size, data_axis_size,

@@ -37,9 +37,12 @@ from ..quant import RowBalancedSparseQ8
 from ..sharding import mesh_axes
 from ..sparse.temporal import delta_threshold
 from .partition import (axis_rank, data_axis_size, local_leaf,
-                        model_axis_size, permute_packed_rows)
+                        model_axis_size, permute_packed_rows, to_dtensor)
 
-__all__ = ["batch_axis", "gather_axis", "gather_hidden",
+__all__ = ["batch_axis", "gather_axis", "gather_hidden", "all_reduce",
+           "all_reduce_axis",
+           "broadcast_axis", "shard_local", "to_dtensor", "distribute",
+           "full_tensor",
            "sharded_rb_dual_spmv", "sharded_delta_rb_dual_spmv",
            "sharded_rb_dual_spmv_q8", "dist_lstm_step",
            "dist_delta_lstm_step"]
@@ -80,6 +83,108 @@ def gather_axis(t: torch.Tensor, mesh, axis: str, dim: int) -> torch.Tensor:
     parts = [torch.empty_like(src) for _ in range(dist.get_world_size(group))]
     dist.all_gather(parts, src, group=group)
     return torch.cat(parts, dim=dim).to(home)
+
+
+def _staged(t: torch.Tensor, group) -> torch.Tensor:
+    """A private copy of ``t`` where ``group``'s backend takes it: host
+    memory under gloo, the card under NCCL."""
+    backend = dist.get_backend(group)
+    if backend == "gloo" and t.is_cuda:
+        return t.detach().cpu()
+    if backend == "nccl" and not t.is_cuda:
+        return t.detach().to(torch.device("cuda",
+                                          torch.cuda.current_device()))
+    return t.detach().clone()
+
+
+_OPS = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX,
+        "min": dist.ReduceOp.MIN}
+
+
+def all_reduce(t: torch.Tensor, group=None, op: str = "sum"):
+    """``t`` all-reduced (``op``: sum, max or min) over ``group`` (the
+    default group when None), staged where the backend needs: a new
+    tensor on ``t``'s device, alike on every rank of the group."""
+    buf = _staged(t, group)
+    dist.all_reduce(buf, op=_OPS[op], group=group)
+    return buf.to(t.device)
+
+
+def all_reduce_axis(t: torch.Tensor, mesh, axes, op: str = "sum"):
+    """``t`` all-reduced (``op``: sum, max or min) over the mesh's ``axes``
+    (a name or a tuple of names, reduced one after the other; each
+    all-reduce leaves every rank of its group the same value). A new
+    tensor on ``t``'s device; ``t`` itself is not written."""
+    axes = (axes,) if isinstance(axes, str) else tuple(axes)
+    sizes = mesh_axes(mesh)
+    out = t
+    for axis in axes:
+        if sizes.get(axis, 1) == 1:
+            continue
+        out = all_reduce(out, mesh.get_group(axis), op)
+    return out if out is not t else t.detach().clone()
+
+
+def broadcast_axis(t: torch.Tensor, mesh, axes) -> torch.Tensor:
+    """``t`` as the rank at coordinate 0 of each of the mesh's ``axes``
+    holds it (a new tensor on ``t``'s device): what makes a value that
+    every rank computed alike bitwise alike where the device's sums are
+    not deterministic."""
+    axes = (axes,) if isinstance(axes, str) else tuple(axes)
+    sizes = mesh_axes(mesh)
+    out = t
+    for axis in axes:
+        if sizes.get(axis, 1) == 1:
+            continue
+        group = mesh.get_group(axis)
+        buf = _staged(out, group)
+        dist.broadcast(buf, src=dist.get_global_rank(group, 0), group=group)
+        out = buf
+    return out.to(t.device) if out is not t else t
+
+
+def shard_local(full: torch.Tensor, mesh, placements) -> torch.Tensor:
+    """This rank's piece of ``full`` under ``placements`` (one a mesh dim):
+    each ``Shard(d)`` keeps the rank's contiguous block of dim d, the mesh
+    dims taken in order (DTensor's layout). A copy, so ``full`` may go."""
+    names = list(mesh_axes(mesh))
+    out = full
+    for i, pl in enumerate(placements):
+        if not pl.is_shard():
+            continue
+        n = mesh.size(i)
+        size = out.shape[pl.dim]
+        if size % n:
+            raise ValueError(f"dim {pl.dim} of {tuple(full.shape)} does not "
+                             f"split over {n} ranks of {names[i]!r}")
+        r = mesh.get_local_rank(names[i])
+        out = out.narrow(pl.dim, r * (size // n), size // n)
+    return out.clone() if out is not full else full
+
+
+def distribute(full: torch.Tensor, sharding):
+    """``full`` laid out by ``sharding`` (a ``sharding.NamedSharding``):
+    a DTensor holding this rank's piece. Every rank passes the same
+    ``full``; no collective runs."""
+    return to_dtensor(shard_local(full, sharding.mesh, sharding.placements),
+                      sharding.mesh, sharding.placements, full.shape)
+
+
+def full_tensor(t):
+    """The whole of a DTensor, its pieces all-gathered over each sharded
+    mesh dim (the last first) through ``gather_axis``, so staged as the
+    backend needs; a plain tensor as it is."""
+    from torch.distributed.tensor import DTensor
+    if not isinstance(t, DTensor):
+        return t
+    mesh = t.device_mesh
+    names = list(mesh_axes(mesh))
+    out = t.to_local()
+    for i in reversed(range(len(names))):
+        pl = t.placements[i]
+        if pl.is_shard():
+            out = gather_axis(out, mesh, names[i], pl.dim)
+    return out
 
 
 def gather_hidden(h_loc: torch.Tensor, mesh, axis: str = "model"):

@@ -41,7 +41,7 @@ from ..sharding import DEFAULT_RULES, mesh_axes, placements
 __all__ = ["model_axis_size", "data_axis_size", "gate_row_permutation",
            "permute_packed_rows", "partition_lstm_params",
            "is_partitionable", "supports_dist", "check_partitioned",
-           "local_leaf"]
+           "local_leaf", "to_dtensor"]
 
 PACKED_TYPES = (RowBalancedSparse, RowBalancedSparseQ8)
 
@@ -140,16 +140,24 @@ def check_partitioned(params, mesh) -> None:
             "silently")
 
 
+def to_dtensor(local: torch.Tensor, mesh, placements, shape):
+    """``local`` (this rank's piece) as a DTensor of global ``shape``
+    placed by ``placements``; no collective runs."""
+    from torch.distributed.tensor import DTensor
+    shape = tuple(shape)
+    stride = tuple(int(np.prod(shape[i + 1:], dtype=np.int64))
+                   for i in range(len(shape)))
+    return DTensor.from_local(local, mesh, tuple(placements),
+                              run_check=False, shape=torch.Size(shape),
+                              stride=stride)
+
+
 def _as_dtensor(local: torch.Tensor, mesh, logical, global_rows: int):
     """``local`` (this rank's rows) as a DTensor placed by the rule table
     over a (global_rows, ...) tensor."""
-    from torch.distributed.tensor import DTensor
     shape = (global_rows,) + tuple(local.shape[1:])
-    stride = tuple(int(np.prod(shape[i + 1:], dtype=np.int64))
-                   for i in range(len(shape)))
-    return DTensor.from_local(
-        local, mesh, placements(mesh, logical, shape, DEFAULT_RULES),
-        run_check=False, shape=torch.Size(shape), stride=stride)
+    return to_dtensor(local, mesh, placements(mesh, logical, shape,
+                                              DEFAULT_RULES), shape)
 
 
 def local_leaf(leaf):

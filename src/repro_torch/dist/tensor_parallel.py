@@ -1,0 +1,249 @@
+"""Tensor parallelism over a mesh's ``model`` axis: Megatron's local forms,
+their collectives under autograd.
+
+A param is a DTensor laid out by ``training.param_shardings`` (the rule
+table): a form reads the placement of its weight on ``model``
+(``split_dim``) and computes on the rank's piece (``local``). A weight the
+table leaves whole (a dim ``model`` does not divide, a plain tensor, a mesh
+of one ``model`` rank) takes the one-device math, so one set of forms
+serves every layout. Activations between the forms are replicated over
+``model``: every rank of a ``model`` group holds the same residual stream.
+
+The collectives, each an autograd Function whose backward is its
+transpose:
+
+* ``copy`` (Megatron's f): the identity, the gradient all-reduced: in
+  front of a product on the rank's piece of a weight, whose input gradient
+  is the rank's part of the whole one;
+* ``reduce`` (Megatron's g): the all-reduce of partial products, the
+  gradient passed through;
+* ``gather``: the all-gather of the rank's columns, the rank's slice of
+  the gradient.
+
+The forms: ``row`` (a product on the rank's input rows, reduced),
+``embed`` (the vocab-parallel lookup: ids outside the rank's slice read
+0, the rows reduced), ``logits`` (the head's columns, gathered), ``mlp``
+(the column- then row-parallel pair, the hidden dim split between them),
+``qkv`` (the projections on the rank's heads, qk-norm and RoPE),
+``kv_for_q`` (the kv heads the rank's q heads read) and ``lstm_scan`` (an
+LSTM layer on the rank's gate rows, the gate preactivations gathered each
+step). The training forward, the
+prefill and the split-KV decode step of ``TransformerLM`` and the LSTM's
+training forward run through them.
+
+Every collective goes through ``collective_ops`` (staged through host
+memory where gloo carries card tensors); the partial sums reduce in
+float32 and cast back.
+"""
+from __future__ import annotations
+
+import torch
+
+from ..sharding import mesh_axes
+from .collective_ops import all_reduce_axis, gather_axis
+
+__all__ = ["TensorParallel", "local"]
+
+
+def local(w):
+    """The rank's piece of a DTensor (differentiable), or ``w`` itself."""
+    from torch.distributed.tensor import DTensor
+    return w.to_local() if isinstance(w, DTensor) else w
+
+
+def _reduce_model(t: torch.Tensor, mesh) -> torch.Tensor:
+    return all_reduce_axis(t.float(), mesh, "model").to(t.dtype)
+
+
+class _Copy(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh):
+        ctx.mesh = mesh
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _reduce_model(g, ctx.mesh), None
+
+
+class _Reduce(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh):
+        return _reduce_model(x, mesh)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class _Gather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, dim, rank):
+        ctx.dim, ctx.rank, ctx.size = dim, rank, x.shape[dim]
+        return gather_axis(x, mesh, "model", dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.narrow(ctx.dim, ctx.rank * ctx.size, ctx.size), None, None, \
+            None
+
+
+class TensorParallel:
+    """The local forms over ``mesh``'s ``model`` axis (None, or a mesh
+    without one: every form is the one-device math)."""
+
+    def __init__(self, mesh=None):
+        sizes = mesh_axes(mesh) if mesh is not None else {}
+        self.mesh = mesh
+        self.n = sizes.get("model", 1)
+        self._axis = list(sizes).index("model") if self.n > 1 else None
+        self.rank = (mesh.get_local_rank("model") if self.n > 1 else 0)
+
+    # ------------------------------------------------------------ layout
+    def split_dim(self, w) -> int | None:
+        """The dim of ``w`` split over ``model``, or None (whole)."""
+        from torch.distributed.tensor import DTensor
+        if self._axis is None or not isinstance(w, DTensor):
+            return None
+        pl = w.placements[self._axis]
+        return pl.dim if pl.is_shard() else None
+
+    def rank_slice(self, x, dim: int, whole: int):
+        """The rank's block of ``x``'s dim ``dim`` (of ``whole`` entries,
+        split evenly over ``model``)."""
+        per = whole // self.n
+        return x.narrow(dim, self.rank * per, per)
+
+    # ------------------------------------------------------- collectives
+    def copy(self, x):
+        return x if self._axis is None else _Copy.apply(x, self.mesh)
+
+    def reduce(self, x):
+        return x if self._axis is None else _Reduce.apply(x, self.mesh)
+
+    def gather(self, x, dim: int):
+        if self._axis is None:
+            return x
+        return _Gather.apply(x, self.mesh, dim % x.ndim, self.rank)
+
+    # ------------------------------------------------------------- forms
+    def row(self, h, w, flat_in: int = 1):
+        """h @ w over h's last ``flat_in`` dims flattened; with w's input
+        rows split, h is the rank's piece of them and the partial products
+        are reduced."""
+        from ..models.layers import pmm
+        wl = local(w)
+        y = pmm(h.reshape(*h.shape[:h.ndim - flat_in], -1),
+                wl.reshape(-1, wl.shape[-1]))
+        return self.reduce(y) if self.split_dim(w) == 0 else y
+
+    def norm(self, kind: str, p: dict, x):
+        from ..models.layers import apply_norm
+        return apply_norm(kind, {k: local(v) for k, v in p.items()}, x)
+
+    def embed(self, table, tokens):
+        """The rows of ``tokens``: on a vocab-split table each rank looks
+        up the ids of its slice, the others read 0, and the rows are
+        reduced (one rank holds each id: the sum is exact)."""
+        tl = local(table)
+        if self.split_dim(table) != 0:
+            return tl[tokens]
+        loc = tokens - self.rank * tl.shape[0]
+        live = (loc >= 0) & (loc < tl.shape[0])
+        rows = tl[loc.clamp(0, tl.shape[0] - 1)]
+        return self.reduce(torch.where(live[..., None], rows,
+                                       torch.zeros_like(rows)))
+
+    def logits(self, p_head: dict, x, real_vocab: int):
+        """``layers.logits_apply``: x @ head float32, the pad columns at
+        -1e30; a vocab-split head's columns gathered over ``model``."""
+        from ..models.layers import logits_apply
+        w = p_head["w"]
+        if self.split_dim(w) != 1:
+            return logits_apply({"w": local(w)}, x, real_vocab)
+        y = self.gather(torch.matmul(self.copy(x), local(w)).float(), -1)
+        if w.shape[-1] != real_vocab:
+            pad = torch.arange(w.shape[-1], device=x.device) >= real_vocab
+            y = y.masked_fill(pad, -1e30)
+        return y
+
+    def mlp(self, p: dict, x, activation: str):
+        """``layers.mlp_apply``; with the hidden dim split, Megatron's
+        pair: the up (and gate) products on the rank's hidden columns, the
+        down product on its rows, reduced."""
+        from ..models.layers import _act, mlp_apply, pmm
+        if self.split_dim(p["w_down"]) != 0:
+            return mlp_apply({k: local(v) for k, v in p.items()}, x,
+                             activation)
+        xc = self.copy(x)
+        if activation.endswith("_glu"):
+            h = _act(activation, pmm(xc, local(p["w_gate"]))) * pmm(
+                xc, local(p["w_up"]))
+        else:
+            h = _act(activation, pmm(xc, local(p["w_up"])))
+        return self.reduce(pmm(h, local(p["w_down"])))
+
+    def qkv(self, p: dict, x, rot, *, qk_norm: bool):
+        """``attention.qkv_project`` on the rank's q heads (all of them
+        when ``wq`` is whole); k and v on the rank's kv heads when ``wk`` /
+        ``wv`` are split, else whole (each rank computes them alike, and
+        ``copy`` sums the gradients of the heads the ranks read). The
+        replicated qk-norm weights scale the rank's heads: their gradients
+        are summed too."""
+        from ..models.attention import qkv_project
+        from ..models.layers import apply_rope, pmm, rmsnorm
+        if self.split_dim(p["wq"]) is None:
+            return qkv_project({k: local(v) for k, v in p.items()}, x, rot,
+                               qk_norm=qk_norm)
+        kv_split = self.split_dim(p["wk"]) == 1
+        xc = self.copy(x)
+        xk = xc if kv_split else x
+        q = pmm(xc, local(p["wq"]))
+        k, v = pmm(xk, local(p["wk"])), pmm(xk, local(p["wv"]))
+        if qk_norm:
+            q = rmsnorm(q, self.copy(local(p["q_norm"])))
+            kn = local(p["k_norm"])
+            k = rmsnorm(k, self.copy(kn) if kv_split else kn)
+        if rot is not None:
+            q, k = apply_rope(q, *rot), apply_rope(k, *rot)
+        if not kv_split:
+            k, v = self.copy(k), self.copy(v)
+        return q, k, v
+
+    def kv_for_q(self, q, k, v, num_heads: int, num_kv_heads: int):
+        """The kv heads the rank's q heads (``q``'s, of ``num_heads``)
+        read: k / v as they are when q is whole or their heads split with
+        q's; else (k / v whole) the rank's block of kv heads, or each q
+        head's own kv head where the block is not a plain GQA group."""
+        hq = q.shape[2]
+        if hq == num_heads or k.shape[2] < num_kv_heads:
+            return k, v
+        G = num_heads // num_kv_heads        # q heads a kv head
+        idx = torch.arange(self.rank * hq, (self.rank + 1) * hq) // G
+        kv0, kv1 = int(idx[0]), int(idx[-1]) + 1
+        if hq % (kv1 - kv0) == 0 and torch.equal(
+                idx - kv0, torch.arange(kv1 - kv0).repeat_interleave(
+                    hq // (kv1 - kv0))):
+            return k[:, :, kv0:kv1], v[:, :, kv0:kv1]
+        idx = idx.to(k.device)
+        return k.index_select(2, idx), v.index_select(2, idx)
+
+    def lstm_scan(self, lp: dict, xs, c0, h0, cell):
+        """An LSTM layer over xs (B, T, X): with the gate rows split, each
+        step's preactivations z on the rank's rows, gathered (B, 4H) over
+        ``model``; ``cell(z, c) → (c, h)`` on every rank alike. Returns
+        (hs (B, T, H), (c_T, h_T))."""
+        split = self.split_dim(lp["w_x"]) == 0
+        wx, wh, b = (local(lp[k]) for k in ("w_x", "w_h", "b"))
+        if split:
+            xs = self.copy(xs)
+        c, h = c0, h0
+        hs = []
+        for t in range(xs.shape[1]):
+            hin = self.copy(h) if split else h
+            z = (xs[:, t] @ wx.T + hin @ wh.T + b[None, :]).float()
+            if split:
+                z = self.gather(z, -1)
+            c, h = cell(z, c)
+            hs.append(h)
+        return torch.stack(hs, 1), (c, h)

@@ -8,6 +8,9 @@ passes its (B, S_max, Hkv, D) buffers as (B, Hkv, S, D) views, so no
 head-major or GQA-expanded copy is made. One launch: the slices of a
 (b, kv head) pair run as one thread-block cluster and merge on chip
 (``plan.decode_plan`` sizes slices, clusters and the copy ring).
+With ``lse=`` the merge also stores each row's log-sum-exp (m + log l of
+the scaled scores; -inf where no key is live), which a split-KV decode
+weighs the ranks' partial outputs by; without it nothing more is stored.
 Replaces ``repro/kernels/decode_attention.py::decode_attention``; the
 function it computes is ``ref.decode_attention_window_ref``.
 """
@@ -33,10 +36,13 @@ def decode_plan_for(q, k) -> DecodePlan:
 
 
 def decode_attention(q, k, v, lengths, *, window: int | None = None,
-                     fixed_length: int | None = None):
+                     fixed_length: int | None = None,
+                     lse: torch.Tensor | None = None):
     """q (B, Hq, D), k/v (B, Hkv, S, D), any strides with a unit last dim;
     lengths (B,) int32 on the card. fp32 or bf16, q/k/v alike. Returns
-    (B, Hq, D) in q.dtype; a row with length 0 gives 0. ``fixed_length``
+    (B, Hq, D) in q.dtype; a row with length 0 gives 0. ``lse``: a
+    contiguous (B, Hq) float32 tensor on the card that takes each row's
+    log-sum-exp (-inf for a row with no live key). ``fixed_length``
     is a diagnostic (``launch.profile_kernels``): every row takes that
     length and ``lengths`` is not read."""
     _build.refuse_autograd("decode_attention", q, k, v, lengths)
@@ -56,6 +62,12 @@ def decode_attention(q, k, v, lengths, *, window: int | None = None,
                          "(B, Hkv, S, D) with Hkv dividing Hq, lengths (B,)")
     if D not in HEAD_DIMS:
         raise ValueError(f"head_dim {D} not in {HEAD_DIMS}")
+    if lse is not None:
+        _build.require(lse, "lse", dtypes=(torch.float32,), ndim=2,
+                       device=dev)
+        if lse.shape != (B, Hq) or not lse.is_contiguous():
+            raise ValueError(f"lse {tuple(lse.shape)}: want a contiguous "
+                             f"({B}, {Hq})")
     plan = decode_plan_for(q, k)
     out = torch.empty((B, Hq, D), dtype=q.dtype, device=dev)
     lib = _build.load("attention")
@@ -67,10 +79,17 @@ def decode_attention(q, k, v, lengths, *, window: int | None = None,
         0 if window is None else int(window), float(D ** -0.5), plan.splits,
         plan.stages, plan.smem,
         -1 if fixed_length is None else int(fixed_length),
+        None if lse is None else lse.data_ptr(),
         dtype_code(q.dtype), _build.stream(dev))
     _build.check(err, "decode_attention")
     _build.LAUNCHES["decode_attention"] += 1
+    if lse is not None:
+        LSE_LAUNCHES[0] += 1
     return out
+
+
+# launches that stored lse (a part of LAUNCHES["decode_attention"])
+LSE_LAUNCHES = [0]
 
 
 def decode_info(plan: DecodePlan, D: int, G: int, dtype: torch.dtype,

@@ -417,13 +417,22 @@ def flash_attention(q, k, v, *, causal: bool = True,
 
 
 def decode_attention(q, k, v, lengths, *, window: int | None = None,
+                     lse: torch.Tensor | None = None,
                      backend: str | None = None):
     """Single-query GQA attention over a KV cache (B14). q (B, Hq, D), k/v
     (B, Hkv, S, D), lengths (B,) valid rows (the last ``window`` of them
     with a window); a row with length 0 gives 0. Returns (B, Hq, D) in
-    q.dtype."""
+    q.dtype. ``lse``: a (B, Hq) float32 tensor on q's device that takes
+    each row's log-sum-exp (-inf for a row with no live key), for a
+    split-KV combine."""
     _check_window(window)
+    if lse is not None and (lse.dtype != torch.float32
+                            or tuple(lse.shape) != tuple(q.shape[:2])
+                            or not lse.is_contiguous()):
+        raise ValueError(f"lse: a contiguous float32 {tuple(q.shape[:2])} "
+                         f"tensor, got {lse.dtype} {tuple(lse.shape)}")
     if _backend.resolve(backend, q) == "ref":
         return _ref.decode_attention_window_ref(q, k, v, lengths,
-                                                window=window)
-    return _decode_attn_kernel(q, k, v, lengths.to(torch.int32), window=window)
+                                                window=window, lse=lse)
+    return _decode_attn_kernel(q, k, v, lengths.to(torch.int32),
+                               window=window, lse=lse)

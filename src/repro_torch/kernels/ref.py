@@ -205,18 +205,23 @@ def decode_attention_ref(q, k, v, lengths) -> torch.Tensor:
     return torch.einsum("bhk,bhkd->bhd", p, vf).to(q.dtype)
 
 
-def _grouped_softmax_av(qf, k, v, mask):
+def _grouped_softmax_av(qf, k, v, mask, lse: bool = False):
     """The online-softmax kernels' function on grouped heads: qf (B, Hkv,
     G, Sq, D) scaled float32, k/v (B, Hkv, Sk, D), mask broadcast to
     (..., Sq, Sk). Masked scores weigh exactly 0 (``p = s > NEG/2 ?
     exp(s - m) : 0``) and out = acc / max(l, 1e-30), so a row with no live
-    key gives 0."""
+    key gives 0. ``lse``: also the rows' log-sum-exp m + log(l), -inf
+    where no key is live."""
     s = torch.einsum("bhgqd,bhkd->bhgqk", qf, k.float())
     s = torch.where(mask, s, NEG)
     m = s.amax(-1, keepdim=True)
     p = torch.where(s > NEG / 2, torch.exp(s - m), 0.0)
     acc = torch.einsum("bhgqk,bhkd->bhgqd", p, v.float())
-    return acc / p.sum(-1, keepdim=True).clamp_min(1e-30)
+    l = p.sum(-1, keepdim=True)
+    out = acc / l.clamp_min(1e-30)
+    if lse:
+        return out, (m + torch.log(l))[..., 0]
+    return out
 
 
 def flash_attention_ref(q, k, v, *, causal: bool = True,
@@ -241,13 +246,17 @@ def flash_attention_ref(q, k, v, *, causal: bool = True,
 
 
 def decode_attention_window_ref(q, k, v, lengths, *,
-                                window: int | None = None) -> torch.Tensor:
+                                window: int | None = None,
+                                lse: torch.Tensor | None = None
+                                ) -> torch.Tensor:
     """What ``decode_attention`` computes (B14): one query per sequence
     against its first ``lengths[b]`` cache rows (the last ``window`` of
     them when a window is given: ``kpos > length - 1 - window``). q (B, Hq,
     D), k/v (B, Hkv, S, D), lengths (B,) int; fp32 math, output in q.dtype.
     Equals ``decode_attention_ref`` for lengths ≥ 1; a length-0 row gives
-    0, as the Pallas kernel does."""
+    0, as the Pallas kernel does. ``lse`` (B, Hq) float32, when given,
+    takes each row's log-sum-exp of its scaled scores (m + log l; -inf for
+    a row with no live key): what a split-KV combine weighs partials by."""
     B, Hq, D = q.shape
     Hkv, S = k.shape[1], k.shape[2]
     qf = q.float().reshape(B, Hkv, Hq // Hkv, 1, D) * D ** -0.5
@@ -256,5 +265,9 @@ def decode_attention_window_ref(q, k, v, lengths, *,
     mask = kpos < n
     if window is not None:
         mask = mask & (kpos > n - 1 - window)
-    out = _grouped_softmax_av(qf, k, v, mask)
+    if lse is None:
+        out = _grouped_softmax_av(qf, k, v, mask)
+    else:
+        out, rows = _grouped_softmax_av(qf, k, v, mask, lse=True)
+        lse.copy_(rows.reshape(B, Hq))
     return out.reshape(B, Hq, D).to(q.dtype)

@@ -16,8 +16,9 @@ NCCL refuses two ranks on one card, so ranks that would share one under
 NCCL raise here. Under gloo, collectives of card tensors are staged
 through host memory (``dist.collective_ops``).
 
-``make_production_mesh`` (the reference's 16 × 16 pod) comes with sharded
-training in slice 19.
+``make_production_mesh`` builds the reference's 16 × 16 pod (2 × 16 × 16
+over two pods) over a group of exactly that many ranks, as ``torchrun``
+starts them, one card a rank under NCCL.
 """
 from __future__ import annotations
 
@@ -98,11 +99,26 @@ def make_host_mesh(data: int = 1, model: int = 1):
     return make_mesh((data, model), AXES, device="cpu", backend="gloo")
 
 
-def make_production_mesh(*, multi_pod: bool = False):
-    """The reference's 16 × 16 pod (2 × 16 × 16 multi-pod): not ported."""
-    raise NotImplementedError(
-        "make_production_mesh comes with sharded training in slice 19 "
-        "(ROADMAP.md, queue A item 7, the training half)")
+def make_production_mesh(*, multi_pod: bool = False, device="cuda",
+                         backend: str | None = None):
+    """The reference's production mesh: 16 × 16 = 256 ranks, axes (data,
+    model); two pods, 2 × 16 × 16 = 512, axes (pod, data, model). Over the
+    initialized process group, which must hold exactly that many ranks
+    (``torchrun --nproc-per-node ... --nnodes ...``); raises ValueError
+    naming the ranks it needs otherwise."""
+    shape = (2, 16, 16) if multi_pod else (16, 16)
+    axes = ("pod", "data", "model") if multi_pod else AXES
+    need = math.prod(shape)
+    have = dist.get_world_size() if dist.is_initialized() else 1
+    if have != need:
+        raise ValueError(
+            f"the {'multi-pod' if multi_pod else 'pod'} mesh "
+            f"{dict(zip(axes, shape))} needs {need} ranks, the process group "
+            f"has {have}" + ("" if dist.is_initialized() else
+                             " (none is initialized: start the ranks with "
+                             "torchrun)"))
+    return make_mesh(shape, axes, device=device,
+                     backend=backend or dist.get_backend())
 
 
 def _rank_entry(rank, fn, shape, device, backend, args, workdir, threads,

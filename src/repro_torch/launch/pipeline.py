@@ -21,13 +21,21 @@ deployment is scored through the serving step path (``LSTMModel.score``),
 which on the card launches the fused step kernels: B3 for fp32, B5 at
 Θ > 0, B8 for int8, B9 for int8 at Θ > 0. It emits ``BENCH_pipeline.json``
 quality × compression records over a (Spar_x, Spar_h) × {fp32, quant} ×
-{Θ=0, Θ>0} grid (schema: ``scripts/check_bench_schema.py``). ``--mesh``
-(sharded training) comes in slice 19 (ROADMAP queue A item 7, the training
-half) and raises.
+{Θ=0, Θ>0} grid (schema: ``scripts/check_bench_schema.py``).
+
+``--mesh D,M`` (``PipelineConfig.mesh``) trains both phases, dense and
+masked retrain, sharded over a (data, model) mesh through
+``training.jit_train_step``: on ``launch.mesh.run_ranks``' spawned ranks,
+or on the ``torchrun`` group when there is one. Every rank runs the whole
+pipeline; the trained params are gathered whole, and prune, pack and serve
+run as without a mesh (rank 0 prints and writes). On one card the ranks
+share it under gloo.
 
   PYTHONPATH=src python -m repro_torch.launch.pipeline --smoke --gate 5
   PYTHONPATH=src python -m repro_torch.launch.pipeline --smoke --device cpu
   PYTHONPATH=src python -m repro_torch.launch.pipeline --corpus frame --smoke
+  PYTHONPATH=src python -m repro_torch.launch.pipeline --smoke --mesh 1,2 \
+      --device cpu
 """
 from __future__ import annotations
 
@@ -51,13 +59,6 @@ class PipelineError(AssertionError):
     """A pipeline invariant (serving parity, quality gate) failed."""
 
 
-def _no_mesh():
-    return NotImplementedError(
-        "pipeline mesh= (sharded dense training and masked retraining) "
-        "comes in slice 19 (ROADMAP queue A item 7, the training half); "
-        "train on one device")
-
-
 @dataclasses.dataclass(frozen=True)
 class PipelineConfig:
     """One end-to-end accuracy-loop run.
@@ -68,7 +69,7 @@ class PipelineConfig:
     {Θ=0, ``theta``}. ``device`` (default ``cuda``; raises without a card
     unless ``"cpu"`` is given) holds the params, batches and kernels;
     ``backend`` is the kernel backend ("auto" | "cuda" | "ref"). ``mesh``
-    raises (slice 19: ROADMAP queue A item 7, the training half)."""
+    (data, model): both training phases sharded over that many ranks."""
 
     corpus: str = "char"            # char | frame | zipf
     embed: int = 32                 # LM embedding width / frame input dim
@@ -139,20 +140,50 @@ def _as_model_batch(raw: dict, device="cpu") -> dict:
 
 # ----------------------------------------------------------------- training
 
+def _backend_for_ranks(device, ranks: int) -> str | None:
+    """gloo where the ranks outnumber the cards (or on the CPU), else the
+    default (NCCL on the card)."""
+    device = torch.device(device)
+    if device.type == "cuda" and ranks <= torch.cuda.device_count():
+        return None
+    return "gloo"
+
+
+def _group_mesh(shape, device):
+    """A (data, model) DeviceMesh of ``shape`` on ``device`` over the
+    initialized process group (torchrun's, or a spawned run's), else
+    None."""
+    import torch.distributed as dist
+    if not dist.is_initialized():
+        return None
+    from .mesh import make_mesh
+    return make_mesh(tuple(shape), device=device, backend=dist.get_backend())
+
+
 def train_lstm(model, corpus, cfg: PipelineConfig, *, steps: int, lr: float,
-               params=None, masks=None, mesh=None, log: Callable = None):
+               params=None, masks=None, mesh=None, log: Callable = None,
+               losses: list | None = None):
     """Train (or masked-retrain) the LSTM for ``steps`` on ``corpus``.
 
     ``masks`` switches on BRDS retraining — gradients of pruned weights
     are zeroed and the masks re-applied after every update, exactly the
     paper's retrain phase. ``params`` None: a seeded init on the config's
-    device (the batches go where the params lie). Returns (params,
-    final_loss)."""
+    device (the batches go where the params lie). ``mesh`` routes the step
+    through ``jit_train_step``: a DeviceMesh of this rank, or (data,
+    model) over the initialized process group; the params come back
+    whole. ``losses``: a list that takes every step's loss. Returns
+    (params, final_loss)."""
     from ..device import resolve_device
     from ..training import OptConfig, init_state, make_train_step
     from ..training.data import ShardedLoader
-    if mesh is not None:
-        raise _no_mesh()
+    if isinstance(mesh, (tuple, list)):
+        shape = tuple(mesh)
+        mesh = _group_mesh(shape, _device_of(params) if params is not None
+                           else resolve_device(cfg.device))
+        if mesh is None:
+            raise ValueError(f"train_lstm(mesh={shape}) runs on initialized "
+                             "ranks (run_pipeline spawns them, or torchrun "
+                             "starts them); pass a DeviceMesh or start them")
     if params is None:
         params = model.init(torch.Generator().manual_seed(cfg.seed),
                             device=resolve_device(cfg.device))
@@ -162,14 +193,26 @@ def train_lstm(model, corpus, cfg: PipelineConfig, *, steps: int, lr: float,
     opt_state = init_state(oc, params)
     # the train-step factory only reads grad_accum off the arch config
     arch = types.SimpleNamespace(grad_accum=1, zero1=True)
-    step_fn = make_train_step(model, arch, oc, masks)
     loader = ShardedLoader(corpus, cfg.batch, cfg.seq_len)
+    if mesh is None:
+        step_fn = make_train_step(model, arch, oc, masks)
+    else:
+        from ..training import jit_train_step
+        step_fn = jit_train_step(mesh, model, arch, oc,
+                                 _as_model_batch(loader.batch(0)), masks)
     metrics = {"loss": float("nan")}
     for step in range(steps):
         batch = _as_model_batch(loader.batch(step), device)
         params, opt_state, metrics = step_fn(params, opt_state, batch, step)
+        if losses is not None:
+            losses.append(float(metrics["loss"]))
         if log is not None and (step % 100 == 0 or step == steps - 1):
             log(f"  step {step:4d} loss {float(metrics['loss']):.4f}")
+    if mesh is not None:
+        # whole params for prune, pack and serve
+        from ..dist.collective_ops import full_tensor
+        from ..training.tree import tree_map
+        params = tree_map(full_tensor, params)
     return params, float(metrics["loss"])
 
 
@@ -317,13 +360,21 @@ def run_pipeline(cfg: PipelineConfig, *, smoke: bool = False,
     """The full arc. Returns the BENCH_pipeline payload:
     {'benchmark', 'smoke', 'wall_time_s', 'rows', 'gate'} — rows in the
     ``benchmarks/common.py`` record shape (name + us_per_call + derived
-    fields), gate the primary-point quality summary the CLI enforces."""
+    fields), gate the primary-point quality summary the CLI enforces.
+    With ``cfg.mesh`` and no initialized process group, the whole run goes
+    to spawned ranks (rank 0 logs; its payload is returned)."""
+    import torch.distributed as dist
     from ..device import resolve_device
     from ..models import LSTMModel
     from ..obs import trace as obs_trace
     from ..sparse import use_backend
-    if cfg.mesh is not None:
-        raise _no_mesh()
+    if cfg.mesh is not None and not dist.is_initialized():
+        from .mesh import run_ranks
+        home = resolve_device(cfg.device)
+        d, m = cfg.mesh
+        return run_ranks(_pipeline_rank, d, m, device=home,
+                         backend=_backend_for_ranks(home, d * m),
+                         args=(cfg, smoke))[0]
     t_all = time.time()
     device = resolve_device(cfg.device)
     corpus, lcfg = build_task(cfg)
@@ -336,12 +387,17 @@ def run_pipeline(cfg: PipelineConfig, *, smoke: bool = False,
     gen_raw = corpus.batch(1 << 42, max(cfg.gen_batch, 1), cfg.eval_seq)
 
     with use_backend(cfg.backend):
+        if cfg.mesh is not None:
+            log(f"mesh: data={cfg.mesh[0]} model={cfg.mesh[1]} over "
+                f"{cfg.mesh[0] * cfg.mesh[1]} ranks, {dist.get_backend()} "
+                "(sharded dense train + masked retrain)")
         log(f"[1/4] train dense: corpus={cfg.corpus} H={cfg.hidden} "
             f"L={cfg.num_layers} steps={cfg.train_steps}")
         with obs_trace.span("pipeline.train_dense", steps=cfg.train_steps):
             dense_params, loss = train_lstm(model, corpus, cfg,
                                             steps=cfg.train_steps,
-                                            lr=cfg.lr, log=log)
+                                            lr=cfg.lr, mesh=cfg.mesh,
+                                            log=log)
         dense = evaluate(model, dense_params, eval_set)
         log(f"      dense eval: ppl {dense['ppl']:.4f}"
             + (f" acc {dense['acc']:.3f}" if "acc" in dense else ""))
@@ -365,7 +421,8 @@ def run_pipeline(cfg: PipelineConfig, *, smoke: bool = False,
                 retrained, _ = train_lstm(model, corpus, cfg,
                                           steps=cfg.retrain_steps,
                                           lr=cfg.retrain_lr, params=pruned,
-                                          masks=masks, log=log)
+                                          masks=masks, mesh=cfg.mesh,
+                                          log=log)
             for scheme in (None, cfg.quant):
                 for theta in (0.0, cfg.theta):
                     with obs_trace.span("pipeline.run_point", spar_x=spar_x,
@@ -411,6 +468,15 @@ def run_pipeline(cfg: PipelineConfig, *, smoke: bool = False,
     log(f"[4/4] done in {payload['wall_time_s']:.1f}s — {parity_points} "
         "grid points, serving parity bitwise at every one")
     return payload
+
+
+def _pipeline_rank(mesh, cfg: PipelineConfig, smoke: bool):
+    """One spawned rank of a ``cfg.mesh`` run: the whole pipeline; rank 0
+    prints."""
+    import torch.distributed as dist
+    return run_pipeline(cfg, smoke=smoke,
+                        log=print if dist.get_rank() == 0
+                        else (lambda *a, **k: None))
 
 
 def write_bench(payload: dict, out_dir: str | None = None) -> str:
@@ -469,8 +535,9 @@ def main(argv=None) -> int:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--mesh", default=None, metavar="DATA,MODEL",
                     help="shard both training phases over a (data, model) "
-                         "mesh: comes in slice 19 (ROADMAP queue A item 7, "
-                         "the training half)")
+                         "mesh of DATA x MODEL ranks (spawned, or the "
+                         "torchrun group; on one card they share it under "
+                         "gloo)")
     ap.add_argument("--device", default=None,
                     help="torch device (default: cuda; raises without a "
                          "card unless 'cpu' is given)")
@@ -481,8 +548,6 @@ def main(argv=None) -> int:
                     help="record a Chrome-trace of the pipeline phases "
                          "(repro_torch.obs spans) to FILE")
     args = ap.parse_args(argv)
-    if args.mesh is not None:
-        raise _no_mesh()
 
     overrides: dict[str, Any] = {"corpus": args.corpus, "seed": args.seed,
                                  "backend": args.backend,
@@ -502,11 +567,37 @@ def main(argv=None) -> int:
             overrides[key] = val
     if args.grid is not None:
         overrides["spar_grid"] = _parse_grid(args.grid)
+    if args.mesh is not None:
+        try:
+            d, m = (int(v) for v in args.mesh.split(","))
+        except ValueError:
+            ap.error(f"--mesh wants 'DATA,MODEL' ints, got {args.mesh!r}")
+        if d < 1 or m < 1:
+            ap.error(f"--mesh {args.mesh}: sizes must be positive")
+        overrides["mesh"] = (d, m)
     cfg = PipelineConfig(**overrides)
+    import torch.distributed as dist
+    if (cfg.mesh is not None and not dist.is_initialized()
+            and "RANK" in os.environ and "WORLD_SIZE" in os.environ):
+        # under torchrun: this process is one rank of the mesh
+        from ..device import resolve_device
+        dev = resolve_device(cfg.device)
+        dist.init_process_group(_backend_for_ranks(
+            dev, cfg.mesh[0] * cfg.mesh[1]) or "nccl")
+        if dev.type == "cuda":
+            torch.cuda.set_device(dist.get_rank()
+                                  % torch.cuda.device_count())
+    lead = not dist.is_initialized() or dist.get_rank() == 0
 
     if args.trace:
         from ..obs import trace as obs_trace
         obs_trace.enable()
+    if not lead:
+        # another torchrun rank: the same run, silent, nothing written
+        import contextlib
+        with open(os.devnull, "w") as sink, contextlib.redirect_stdout(sink):
+            run_pipeline(cfg, smoke=args.smoke)
+        return 0
     payload = run_pipeline(cfg, smoke=args.smoke)
     if args.trace:
         obs_trace.save(args.trace)

@@ -72,7 +72,15 @@ against the card's decode roofline (``obs.scorecard``); the counters ride
 the decode only when one of the two asks for them.
 ``--mesh DATA,MODEL`` serves a packed LSTM (``--brds``) sharded over
 DATA × MODEL ranks (``repro_torch.dist``): the gate rows split over MODEL,
-the batch (or the scheduler's slots) over DATA where it divides. The CLI
+the batch (or the scheduler's slots) over DATA where it divides. A dense
+GQA transformer (qwen3, llama3.2, minitron, nemotron; ``--brds`` or not)
+runs tensor-parallel and decodes split-KV (``dist.tensor_parallel``,
+``dist.splitkv``): its projections, MLP and vocabulary over MODEL, its KV
+cache over MODEL along the sequence, lockstep only (the other families
+and ``--continuous`` / ``--traffic`` refuse it: ROADMAP queue A item 9).
+Each rank draws the params whole before it keeps its pieces, so a model
+whose whole params do not fit one card (nemotron-4-340b) stops with its
+size (a sharded init is item 9 too). The CLI
 spawns the ranks itself (``launch.mesh.run_ranks``) unless it already
 runs under ``torchrun``; rank 0 prints. ``--dist-backend`` picks NCCL (one
 card a rank, the default on the card) or gloo (any number of ranks, on
@@ -186,6 +194,16 @@ def _transformer_target(ap, args, device):
         ap.error(f"--traffic submits prompts without frames, which "
                  f"{args.arch} (an encoder-decoder) needs")
     model = build_model(cfg)
+    if device.type == "cuda":
+        from repro_torch.models.layers import param_bytes
+        need = param_bytes(model.param_defs())
+        free = torch.cuda.mem_get_info(device)[0]
+        if need > free:
+            raise SystemExit(
+                f"{args.arch}: its whole params ({need / 2**30:.1f} GiB) are "
+                f"drawn on each rank before it keeps its pieces, and the "
+                f"card has {free / 2**30:.1f} GiB free: a sharded init is "
+                "ROADMAP.md queue A item 9")
     t0 = time.perf_counter()
     params = model.init(torch.Generator().manual_seed(args.seed), device)
     _sync(device)
@@ -370,10 +388,11 @@ def parser() -> argparse.ArgumentParser:
                          "or the --continuous / --traffic run) and print "
                          "the device time by kernel and the busy share")
     ap.add_argument("--mesh", default=None, metavar="DATA,MODEL",
-                    help="serve a packed LSTM (--brds) sharded over a "
-                         "(data, model) mesh of DATA x MODEL ranks, e.g. "
-                         "'2,2' (repro_torch.dist); the CLI spawns the "
-                         "ranks unless it runs under torchrun")
+                    help="serve a packed LSTM (--brds) or a dense GQA "
+                         "transformer (split-KV) sharded over a (data, "
+                         "model) mesh of DATA x MODEL ranks, e.g. '2,2' "
+                         "(repro_torch.dist); the CLI spawns the ranks "
+                         "unless it runs under torchrun")
     ap.add_argument("--dist-backend", default=None, choices=("nccl", "gloo"),
                     help="--mesh: the process group's backend (default: "
                          "nccl on the card, one card a rank; gloo on the "
@@ -392,10 +411,23 @@ def _mesh_shape(ap, args) -> tuple[int, int]:
     if d < 1 or m < 1:
         ap.error(f"--mesh {args.mesh}: sizes must be positive")
     if args.arch not in LSTM_CONFIGS:
-        ap.error(f"--mesh serves the packed LSTM; {args.arch}'s sharded "
-                 "decode (split-KV) comes in slice 19 (ROADMAP.md, queue A "
-                 "item 7)")
-    if not args.brds:
+        from repro_torch.configs import get_arch, smoke_config
+        from repro_torch.dist.splitkv import splitkv_reason
+        cfg = smoke_config(args.arch) if args.smoke else get_arch(args.arch)
+        why = splitkv_reason(cfg)
+        if why is not None:
+            ap.error(f"--mesh serves the packed LSTM and the dense GQA "
+                     f"transformers (split-KV); {args.arch} is {why}, whose "
+                     "sharded decode is ROADMAP.md queue A item 9")
+        if args.continuous or args.traffic:
+            ap.error(f"--continuous / --traffic with --mesh serve the packed "
+                     f"LSTM; {args.arch} under the scheduler sharded is "
+                     "ROADMAP.md queue A item 9")
+        if (args.prompt_len + args.gen) % m:
+            ap.error(f"--mesh {args.mesh}: the cache of --prompt-len + --gen "
+                     f"= {args.prompt_len + args.gen} positions must split "
+                     f"over the {m} ranks of the model axis (split-KV)")
+    elif not args.brds:
         ap.error("--mesh on an LSTM requires --brds (sharded decode "
                  "row-shards the packed gate rows — repro_torch.dist)")
     if args.draft is not None:

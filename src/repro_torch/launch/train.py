@@ -12,10 +12,16 @@ Features: gradient accumulation (``cfg.grad_accum``), BRDS masked sparse
 training (``--brds``), checkpoint / restart (auto-resume from the newest
 valid checkpoint in ``--ckpt-dir``), fault injection (``--inject-failure-at``: restore the
 newest checkpoint and replay from its step) and straggler monitoring.
-``--mesh pod|multipod`` (the sharded train step) comes in slice 19 (ROADMAP
-queue A item 7, the training half) and raises. Without ``--ckpt-dir`` the checkpoints go to a fresh
+``--mesh pod|multipod`` trains through the sharded step
+(``training.jit_train_step``) on ``launch.mesh.make_production_mesh``: run
+it under ``torchrun`` with 256 (512) ranks, one card each; a run over
+another number of ranks stops with the number it needs. ``_train(args,
+ckpt_dir, mesh)`` is the same body over any mesh (a test drives it on a
+small host mesh). Without ``--ckpt-dir`` the checkpoints go to a fresh
 temporary directory that the run removes at its end, so a run resumes only
-from a directory it is given.
+from a directory it is given; a mesh whose ranks run on more than one host
+needs ``--ckpt-dir`` on a filesystem every host sees (rank 0 writes, every
+rank restores), and the ranks check that they resumed the same step.
 """
 from __future__ import annotations
 
@@ -59,32 +65,93 @@ def main(argv=None) -> dict:
     "resumed_from": [steps restored], "stragglers": n, "final_step": n,
     "ckpt_dir": path} (the last run of a replayed step wins)."""
     args = parser().parse_args(argv)
-    if args.mesh != "host":
-        raise NotImplementedError(
-            f"--mesh {args.mesh} (the sharded train step) comes in slice "
-            "19 (ROADMAP queue A item 7, the training half); train on one "
-            "device")
+    mesh = None if args.mesh == "host" else _production_mesh(args)
     if args.ckpt_dir is not None:
-        return _train(args, args.ckpt_dir)
-    ckpt_dir = tempfile.mkdtemp(prefix="repro_torch_ckpt_")
+        return _train(args, args.ckpt_dir, mesh)
+    ckpt_dir = _shared_tempdir(mesh)
     try:
-        return _train(args, ckpt_dir)
+        return _train(args, ckpt_dir, mesh)
     finally:
-        shutil.rmtree(ckpt_dir, ignore_errors=True)
+        if mesh is None or _rank() == 0:
+            shutil.rmtree(ckpt_dir, ignore_errors=True)
 
 
-def _resume(ckpt, params, opt_state):
+def _rank() -> int:
+    import torch.distributed as dist
+    return dist.get_rank() if dist.is_initialized() else 0
+
+
+def _production_mesh(args):
+    """``--mesh pod|multipod``: the production mesh over the torchrun
+    group (joined here when the environment names one)."""
+    import os
+    import torch.distributed as dist
+    from repro_torch.device import resolve_device
+    from repro_torch.launch.mesh import make_production_mesh
+    device = resolve_device(args.device)
+    if (not dist.is_initialized() and "RANK" in os.environ
+            and "WORLD_SIZE" in os.environ):
+        dist.init_process_group("nccl" if device.type == "cuda" else "gloo")
+    return make_production_mesh(multi_pod=args.mesh == "multipod",
+                                device=device)
+
+
+def _shared_tempdir(mesh) -> str:
+    """A fresh temporary directory, rank 0's for every rank of a mesh
+    whose ranks share one host; a mesh over several hosts raises (rank 0's
+    directory is not on the others': ``--ckpt-dir`` names a shared one)."""
+    if mesh is None:
+        return tempfile.mkdtemp(prefix="repro_torch_ckpt_")
+    import socket
+    import torch.distributed as dist
+    hosts = [None] * dist.get_world_size()
+    dist.all_gather_object(hosts, socket.gethostname())
+    if len(set(hosts)) > 1:
+        raise ValueError(
+            f"--mesh over ranks on {len(set(hosts))} hosts: pass --ckpt-dir "
+            "on a filesystem every host sees (rank 0 writes the "
+            "checkpoints, every rank restores them)")
+    box = [tempfile.mkdtemp(prefix="repro_torch_ckpt_")
+           if dist.get_rank() == 0 else None]
+    dist.broadcast_object_list(box, src=0)
+    return box[0]
+
+
+def _agreed_step(mesh, step):
+    """``step`` (a resumed step, or None), checked alike on every rank of
+    ``mesh``: ranks that restored different steps (a checkpoint directory
+    that not every rank sees) would fall out of step, so that raises."""
+    if mesh is None:
+        return step
+    import torch
+    from repro_torch.dist.collective_ops import all_reduce
+    v = torch.tensor([-1 if step is None else step], dtype=torch.int64)
+    lo, hi = int(all_reduce(v, op="min")), int(all_reduce(v, op="max"))
+    if lo != hi:
+        raise RuntimeError(
+            f"the ranks resumed from different steps ({lo} to {hi}; -1: no "
+            "checkpoint): every rank must see the same --ckpt-dir")
+    return step
+
+
+def _resume(ckpt, params, opt_state, shardings=None):
     """(params, opt_state, step) of the newest valid checkpoint, or the
-    arguments and None where there is none. Holds no reference to the
-    restored state, so a replaced one is freed at its caller's next step."""
+    arguments and None where there is none; laid out by ``shardings``
+    ((param, optimizer) shardings) under a mesh. Holds no reference to
+    the restored state, so a replaced one is freed at its caller's next
+    step."""
     try:
-        (params, opt_state), meta = ckpt.restore((params, opt_state))
+        (params, opt_state), meta = ckpt.restore((params, opt_state),
+                                                 shardings=shardings)
     except FileNotFoundError:
         return params, opt_state, None
     return params, opt_state, meta["step"]
 
 
-def _train(args, ckpt_dir: str) -> dict:
+def _train(args, ckpt_dir: str, mesh=None) -> dict:
+    """The training run, on one device or, with ``mesh`` (a DeviceMesh
+    over initialized ranks), through ``jit_train_step`` on it: every rank
+    runs this body on the same global batches."""
 
     import torch
 
@@ -95,34 +162,63 @@ def _train(args, ckpt_dir: str) -> dict:
     from repro_torch.training import (CheckpointManager, OptConfig,
                                       ShardedLoader, StragglerMonitor,
                                       ZipfInduction, init_state,
-                                      make_train_step)
+                                      jit_train_step, make_train_step)
+    from repro_torch.training.train_loop import (init_sharded,
+                                                 opt_shardings,
+                                                 param_shardings,
+                                                 prune_sharded,
+                                                 tensor_parallel_model)
 
     device = resolve_device(args.device)
+    if mesh is not None and device.type == "cuda":
+        device = torch.device("cuda", torch.cuda.current_device())
     cfg = smoke_config(args.arch) if args.smoke else get_arch(args.arch)
     model = build_model(cfg)
     print(f"arch={cfg.name} params={model.param_count()/1e6:.1f}M "
           f"layers={cfg.num_layers}")
 
-    params = model.init(torch.Generator().manual_seed(0), device=device)
     oc = OptConfig(lr=args.lr, total_steps=args.steps,
                    warmup_steps=max(args.steps // 20, 1))
-    opt_state = init_state(oc, params)
+    gen = torch.Generator().manual_seed(0)
+    if mesh is not None:     # a family without tensor-parallel forms stops
+        tensor_parallel_model(mesh, model)
+    if mesh is None:
+        params = model.init(gen, device=device)
+        opt_state = init_state(oc, params)
+    else:       # each rank draws its pieces: no whole copy of the model
+        params, opt_state = init_sharded(mesh, model, oc, gen, device,
+                                         zero1=getattr(cfg, "zero1", True))
 
     masks = None
     if args.brds:
         plan = transformer_policy(args.spar_a, args.spar_b).compile(params)
-        params, masks = plan.prune(params)
-        print("BRDS:", plan.summary(masks))
-    step_fn = make_train_step(model, cfg, oc, masks)
-
+        if mesh is None:
+            params, masks = plan.prune(params)
+            print("BRDS:", plan.summary(masks))
+        else:
+            params, masks, report = prune_sharded(plan, params)
+            print("BRDS:", report)
     ds = ZipfInduction(vocab_size=cfg.vocab_size)
     loader = ShardedLoader(ds, args.batch, args.seq)
+    shardings = None
+    if mesh is None:
+        step_fn = make_train_step(model, cfg, oc, masks)
+    else:
+        batch_abs = {k: torch.as_tensor(v)
+                     for k, v in loader.batch(0).items()}
+        step_fn = jit_train_step(mesh, model, cfg, oc, batch_abs, masks)
+        p_sh = param_shardings(mesh, model)
+        shardings = (p_sh, opt_shardings(mesh, oc, p_sh, model.param_defs(),
+                                         zero1=getattr(cfg, "zero1", True)))
+        print(f"mesh: {dict(zip(mesh.mesh_dim_names, mesh.shape))}")
+
     ckpt = CheckpointManager(ckpt_dir, keep=2)
     mon = StragglerMonitor()
     out = {"losses": {}, "step_ms": {}, "resumed_from": [],
            "ckpt_dir": ckpt_dir}
 
-    params, opt_state, resumed = _resume(ckpt, params, opt_state)
+    params, opt_state, resumed = _resume(ckpt, params, opt_state, shardings)
+    resumed = _agreed_step(mesh, resumed)
     step = resumed or 0
     if resumed is not None:
         out["resumed_from"].append(step)
@@ -136,7 +232,9 @@ def _train(args, ckpt_dir: str) -> dict:
             print(f"!! injecting failure at step {step}; restarting from "
                   f"checkpoint")
             ckpt.wait()                        # an async save in flight
-            params, opt_state, resumed = _resume(ckpt, params, opt_state)
+            params, opt_state, resumed = _resume(ckpt, params, opt_state,
+                                                 shardings)
+            resumed = _agreed_step(mesh, resumed)
             if resumed is not None:
                 step = resumed
                 out["resumed_from"].append(step)

@@ -88,6 +88,10 @@ class EncDecLM:
             generator = torch.Generator().manual_seed(0)
         return L.init_params(self.param_defs(), generator, device)
 
+    def param_axes(self):
+        """Each param's logical axes (``()`` where a leaf names none)."""
+        return L.param_axes(self.param_defs())
+
     def param_count(self) -> int:
         return L.count_params(self.param_defs())
 

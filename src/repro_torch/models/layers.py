@@ -37,26 +37,58 @@ def _default_scale(shape) -> float:
     return 1.0 / math.sqrt(max(fan_in, 1))
 
 
-def init_params(defs, generator: torch.Generator, device: torch.device):
+def init_params(defs, generator: torch.Generator, device: torch.device,
+                shardings=None):
     """Tensors for a PSpec tree. Normal draws come from ``generator`` in
     tree order — dict keys sorted, lists in order — on the generator's own
     device, and are then moved to ``device``: a seeded CPU generator gives
     the same weights on every device; a seeded CUDA generator gives other
-    weights, made on the card (the fast way to billions of them)."""
+    weights, made on the card (the fast way to billions of them).
+    ``shardings`` (a matching tree of ``sharding.NamedSharding``s): each
+    leaf, drawn whole as without them, is kept as this rank's piece (a
+    DTensor) before the next is drawn, so no rank holds more than one
+    whole leaf."""
     if isinstance(defs, dict):
-        return {k: init_params(defs[k], generator, device)
+        return {k: init_params(defs[k], generator, device,
+                               None if shardings is None else shardings[k])
                 for k in sorted(defs)}
     if isinstance(defs, (list, tuple)):
-        return type(defs)(init_params(d, generator, device) for d in defs)
+        return type(defs)(init_params(d, generator, device,
+                                      None if shardings is None else sh)
+                          for d, sh in zip(defs, shardings or [None] *
+                                           len(defs)))
     d = defs
     if d.init == "zeros":
-        return torch.zeros(d.shape, dtype=d.dtype, device=device)
-    if d.init == "ones":
-        return torch.ones(d.shape, dtype=d.dtype, device=device)
-    s = d.scale if d.scale is not None else _default_scale(d.shape)
-    a = torch.randn(d.shape, generator=generator, dtype=torch.float32,
-                    device=generator.device) * s
-    return a.to(device=device, dtype=d.dtype)
+        a = torch.zeros(d.shape, dtype=d.dtype, device=device)
+    elif d.init == "ones":
+        a = torch.ones(d.shape, dtype=d.dtype, device=device)
+    else:
+        s = d.scale if d.scale is not None else _default_scale(d.shape)
+        a = (torch.randn(d.shape, generator=generator, dtype=torch.float32,
+                         device=generator.device) * s).to(device=device,
+                                                          dtype=d.dtype)
+    if shardings is None:
+        return a
+    from ..dist.collective_ops import distribute
+    return distribute(a, shardings)
+
+
+def param_axes(defs):
+    """The tree of each PSpec's logical axes (``()`` where it names none)."""
+    if isinstance(defs, dict):
+        return {k: param_axes(v) for k, v in defs.items()}
+    if isinstance(defs, (list, tuple)):
+        return type(defs)(param_axes(v) for v in defs)
+    return tuple(defs.axes)
+
+
+def param_shapes(defs):
+    """The tree of each PSpec's shape."""
+    if isinstance(defs, dict):
+        return {k: param_shapes(v) for k, v in defs.items()}
+    if isinstance(defs, (list, tuple)):
+        return type(defs)(param_shapes(v) for v in defs)
+    return tuple(defs.shape)
 
 
 def count_params(defs) -> int:
@@ -65,6 +97,15 @@ def count_params(defs) -> int:
     if isinstance(defs, (list, tuple)):
         return sum(count_params(v) for v in defs)
     return math.prod(defs.shape)
+
+
+def param_bytes(defs) -> int:
+    """The bytes of every param of ``defs`` in its dtype."""
+    if isinstance(defs, dict):
+        return sum(param_bytes(v) for v in defs.values())
+    if isinstance(defs, (list, tuple)):
+        return sum(param_bytes(v) for v in defs)
+    return math.prod(defs.shape) * defs.dtype.itemsize
 
 
 def embed_apply(p: dict, tokens: torch.Tensor) -> torch.Tensor:

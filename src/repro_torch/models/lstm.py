@@ -10,7 +10,10 @@ packings (``RowBalancedSparseQ8``) step through the q8 kernels, and a
 
 Training (``features`` / ``forward`` / ``loss``) runs the dense layers in
 plain PyTorch under autograd; the kernels have no backward and refuse an
-operand that requires grad.
+operand that requires grad. Under a ``mesh``, on params laid out by
+``training.param_shardings`` (DTensors), it runs tensor-parallel
+(``dist.tensor_parallel``): each rank's gate rows, vocabulary slice of the
+embedding and head columns, the gate preactivations gathered each step.
 
 Under a ``mesh`` packed decode is sharded over the mesh's ranks
 (``repro_torch.dist``): each rank steps its gate-aligned block of the
@@ -20,6 +23,7 @@ a layer-step.
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import numpy as np
 import torch
@@ -29,6 +33,7 @@ from ..core import sparsity as S
 from ..core.metrics import cross_entropy
 from ..core.packing import RowBalancedSparse, pad_packed
 from ..device import resolve_device
+from ..dist.tensor_parallel import TensorParallel
 from ..kernels import ops as K
 from ..kernels.ref import lstm_cell_ref
 from ..quant import (QuantPlan, RowBalancedSparseQ8, parse_scheme,
@@ -151,19 +156,27 @@ class LSTMModel:
         for i in range(cfg.num_layers):
             x_in = cfg.input_size if i == 0 else cfg.hidden
             defs["layers"].append({
-                "w_x": L.PSpec((4 * cfg.hidden, x_in), dtype=dt),
-                "w_h": L.PSpec((4 * cfg.hidden, cfg.hidden), dtype=dt),
-                "b": L.PSpec((4 * cfg.hidden,), init="zeros", dtype=dt),
+                "w_x": L.PSpec((4 * cfg.hidden, x_in), dtype=dt,
+                               axes=("lstm_gates", "embed")),
+                "w_h": L.PSpec((4 * cfg.hidden, cfg.hidden), dtype=dt,
+                               axes=("lstm_gates", "lstm_hidden")),
+                "b": L.PSpec((4 * cfg.hidden,), init="zeros", dtype=dt,
+                             axes=("lstm_gates",)),
             })
         if cfg.vocab_size:
             defs["embed"] = {"table": L.PSpec((cfg.vocab_size, cfg.input_size),
-                                              scale=1.0, dtype=dt)}
+                                              scale=1.0, dtype=dt,
+                                              axes=("vocab", "embed"))}
             defs["head"] = {"w": L.PSpec((cfg.hidden, cfg.vocab_size),
-                                         dtype=dt)}
+                                         dtype=dt, axes=("embed", "vocab"))}
         if cfg.num_classes:
             defs["head"] = {"w": L.PSpec((cfg.hidden, cfg.num_classes),
-                                         dtype=dt)}
+                                         dtype=dt, axes=("embed", None))}
         return defs
+
+    def param_axes(self):
+        """Each param's logical axes (the sharding rules' names)."""
+        return L.param_axes(self.param_defs())
 
     def init(self, generator: torch.Generator | None = None, device=None):
         """Random params from ``generator`` (a seeded CPU generator; seed 0
@@ -259,21 +272,16 @@ class LSTMModel:
     def _scan_layer(self, lp, xs, c0, h0):
         """Dense layer over a sequence: xs (B, T, X_in) → (hs (B, T, H),
         (c_T, h_T))."""
-        c, h = c0, h0
-        hs = []
-        for t in range(xs.shape[1]):
-            z = (xs[:, t] @ lp["w_x"].T + h @ lp["w_h"].T
-                 + lp["b"][None, :]).float()
-            c, h = self._cell(z, c, pwl=self.cfg.pwl_activations)
-            hs.append(h)
-        return torch.stack(hs, 1), (c, h)
+        cell = functools.partial(self._cell, pwl=self.cfg.pwl_activations)
+        return TensorParallel(self.mesh).lstm_scan(lp, xs, c0, h0, cell)
 
     def features(self, params, inputs):
         """inputs: tokens (B, T) ids for a language model, else features
         (B, T, X). Returns the last layer's hidden states (B, T, H)."""
         cfg = self.cfg
         if cfg.vocab_size:
-            x = L.embed_apply(params["embed"], inputs)
+            x = TensorParallel(self.mesh).embed(params["embed"]["table"],
+                                                inputs)
         else:
             x = inputs.to(cfg.dtype)
         B = x.shape[0]
@@ -288,7 +296,9 @@ class LSTMModel:
         a framewise classifier, (B, C) at the last step otherwise."""
         cfg = self.cfg
         hs = self.features(params, inputs)
-        logits = torch.matmul(hs, params["head"]["w"]).float()
+        head = params["head"]
+        logits = TensorParallel(self.mesh).logits(head, hs,
+                                                  head["w"].shape[-1])
         return logits if cfg.vocab_size or cfg.framewise else logits[:, -1]
 
     def loss(self, params, batch):

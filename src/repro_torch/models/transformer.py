@@ -38,8 +38,16 @@ checkpoints (``spec.verify``). The training forward (``forward`` /
 so every weight gets its gradient; with ``cfg.remat`` each layer is
 recomputed in the backward (``torch.utils.checkpoint``), as the reference
 remats each period.
+
+The projections, the MLP, the embedding and the head go through
+``dist.tensor_parallel``'s forms (``self.tp``): the one-device math
+without a mesh; under one (``with_mesh``, the dense GQA transformers) the
+tensor-parallel forms on each rank's pieces of the params, which the
+training forward, the prefill and the split-KV decode step share.
 """
 from __future__ import annotations
+
+import copy
 
 import torch
 from torch.utils.checkpoint import checkpoint
@@ -50,6 +58,7 @@ from . import moe as M
 from . import recurrent as R
 from ..core.metrics import cross_entropy
 from ..device import resolve_device
+from ..dist.tensor_parallel import TensorParallel
 
 KINDS = ("attn", "attn_local", "rec", "rwkv")
 
@@ -76,6 +85,32 @@ class TransformerLM:
         self.has_attention = any(k.startswith("attn") for k in self.kinds)
         # q heads stored: the real ones, then dummy ones (pad_heads_to)
         self.h_eff = cfg.pad_heads_to or cfg.num_heads
+        # a (data, model) DeviceMesh: tensor-parallel forward, split-KV
+        # sharded decode (with_mesh)
+        self.mesh = None
+        self.tp = TensorParallel(None)
+
+    def with_mesh(self, mesh) -> "TransformerLM":
+        """Copy of this model over ``mesh`` (a DeviceMesh with a ``model``
+        axis), or, with None, on one device. Its params are DTensors laid
+        out by ``training.param_shardings``
+        (``dist.splitkv.partition_transformer_params``): the training
+        forward, the prefill and the decode step run tensor-parallel on
+        each rank's pieces (``dist.tensor_parallel``); its cache is the
+        rank's segment of ``cache_seq``, decoded split-KV
+        (``dist.splitkv``)."""
+        if mesh is not None:
+            from ..dist.splitkv import tp_reason
+            why = tp_reason(self.cfg)
+            if why is not None:
+                raise NotImplementedError(
+                    f"{self.cfg.name}: the tensor-parallel forward and the "
+                    f"split-KV decode serve the dense GQA transformers, not "
+                    f"{why} (ROADMAP queue A item 9)")
+        other = copy.copy(self)
+        other.mesh = mesh
+        other.tp = TensorParallel(mesh)
+        return other
 
     # ------------------------------------------------------------- params
     def _block_defs(self, kind: str) -> dict:
@@ -116,6 +151,11 @@ class TransformerLM:
             defs["patch_norm"] = L.norm_defs("rmsnorm", cfg.d_model)
         return defs
 
+    def param_axes(self):
+        """Each param's logical axes (the sharding rules' names; ``()``
+        where a leaf names none)."""
+        return L.param_axes(self.param_defs())
+
     def init(self, generator: torch.Generator | None = None, device=None):
         """Random params from ``generator`` (seed 0 on the CPU when None;
         ``layers.init_params`` draws on the generator's device) on
@@ -142,12 +182,16 @@ class TransformerLM:
 
     def _attention(self, kind, p, h, rot, cache, pos, lengths, train):
         """The attention mixer of ``_block``: (B, S, h_eff, Dh) outputs,
-        the dummy heads' 0."""
+        the dummy heads' 0; under a mesh, the rank's heads' outputs."""
         cfg = self.cfg
         window = cfg.window if kind == "attn_local" else None
         H = cfg.num_heads
-        q, k, v = A.qkv_project(p, h, rot, qk_norm=cfg.qk_norm)
+        q, k, v = self.tp.qkv(p, h, rot, qk_norm=cfg.qk_norm)
+        if self.mesh is not None and not train:
+            from ..dist import splitkv
+            return splitkv.attend(self, q, k, v, cache, pos, lengths)
         q = q[:, :, :H]                  # the real heads attend
+        k, v = self.tp.kv_for_q(q, k, v, H, cfg.num_kv_heads)
         if train:
             o = A.train_attention(q, k, v, block_q=cfg.block_q,
                                   block_kv=cfg.block_kv, window=window)
@@ -174,14 +218,14 @@ class TransformerLM:
         recurrences stepped from ``cache``. Returns (x, state, aux): the
         recurrent block's new state (None for attention and in training)
         and the MoE's load-balancing term (None without experts)."""
-        cfg = self.cfg
-        h = L.apply_norm(cfg.norm, p["norm1"], x)
+        cfg, tp = self.cfg, self.tp
+        h = tp.norm(cfg.norm, p["norm1"], x)
         decode = lengths is not None and not train
         state = aux = None
         if kind in ("attn", "attn_local"):
             o = self._attention(kind, p["attn"], h, rot, cache, pos,
                                 lengths, train)
-            x = x + A.out_project(p["attn"], o)
+            x = x + tp.row(o, p["attn"]["wo"], flat_in=2)
         elif kind == "rec":
             if decode:
                 y, state = R.rglru_step(p["rec"], h, cache)
@@ -200,7 +244,7 @@ class TransformerLM:
             y, x_cm = R.rwkv_channel_mix(p["rwkv"], h, st["x_cm"])
             state = dict(mix, x_cm=x_cm)
             return x + y, (None if train else state), None
-        h = L.apply_norm(cfg.norm, p["norm2"], x)
+        h = tp.norm(cfg.norm, p["norm2"], x)
         if cfg.moe:
             y, aux = M.moe_apply(p["moe"], h, num_experts=cfg.num_experts,
                                  top_k=cfg.experts_per_token,
@@ -208,7 +252,7 @@ class TransformerLM:
                                  activation=cfg.activation,
                                  group_size=cfg.moe_group)
         else:
-            y = L.mlp_apply(p["mlp"], h, cfg.activation)
+            y = tp.mlp(p["mlp"], h, cfg.activation)
         return x + y, (None if train else state), aux
 
     def _train_block(self, kind, p, x, rot):
@@ -218,7 +262,7 @@ class TransformerLM:
     def _embed_inputs(self, params, tokens, patch_embeds):
         """Token embeddings, the first P positions replaced by the rms-normed
         patch embeddings (B, P, d) where the config takes patches."""
-        x = L.embed_apply(params["embed"], tokens)
+        x = self.tp.embed(params["embed"]["table"], tokens)
         if self.cfg.num_patches and patch_embeds is not None:
             if patch_embeds.shape[1] > x.shape[1]:
                 raise ValueError(f"{patch_embeds.shape[1]} patch embeddings "
@@ -250,7 +294,7 @@ class TransformerLM:
             if aux is not None:
                 aux_total = aux_total + aux
             states.append(st)
-        return (L.apply_norm(self.cfg.norm, params["final_norm"], x), states,
+        return (self.tp.norm(self.cfg.norm, params["final_norm"], x), states,
                 aux_total)
 
     def forward(self, params, tokens, patch_embeds=None):
@@ -263,7 +307,7 @@ class TransformerLM:
         positions = torch.arange(tokens.shape[1], device=tokens.device)[None]
         x, _, aux = self._run(params, tokens, positions, train=True,
                               patches=patch_embeds)
-        return L.logits_apply(params["head"], x, self.cfg.vocab_size), aux
+        return self.tp.logits(params["head"], x, self.cfg.vocab_size), aux
 
     def loss(self, params, batch):
         """Next-token cross-entropy of ``batch`` ({"tokens", "labels"},
@@ -296,6 +340,15 @@ class TransformerLM:
         ``cache_seq`` axis (positional, ``spec.verify``); an RG-LRU
         layer's ``h`` and ``conv``, an RWKV6 layer's ``S``, ``x_tm`` and
         ``x_cm`` (recurrent state)."""
+        if self.mesh is not None:      # the rank's segment of cache_seq
+            from ..dist.splitkv import cache_segment, splitkv_reason
+            why = splitkv_reason(self.cfg)
+            if why is not None:
+                raise NotImplementedError(
+                    f"{self.cfg.name}: the split-KV decode does not hold "
+                    f"{why} (ROADMAP queue A item 9)")
+            s0, s1 = cache_segment(self.mesh, max_len)
+            max_len = s1 - s0
         return {"layers": [self._cache_defs_block(k, batch, max_len)
                            for k in self.kinds]}
 
@@ -311,7 +364,9 @@ class TransformerLM:
         engine's static decode cache, so no second copy of the KV cache is
         made. ``extra``: a VLM's patch embeddings (B, P, d), which take the
         prompt's first P positions. Returns (logits at the last position
-        (B, 1, Vp), cache)."""
+        (B, 1, Vp), cache). Under a mesh (``with_mesh``): tensor-parallel,
+        each rank attending on its heads and keeping its segment of the
+        keys (``dist.splitkv``)."""
         B, S = tokens.shape
         if S > max_len:
             raise ValueError(f"prompt of {S} tokens exceeds max_len "
@@ -328,7 +383,7 @@ class TransformerLM:
         for layer, st in zip(cache["layers"], states):
             for name, v in (st or {}).items():
                 layer[name].copy_(v)
-        logits = L.logits_apply(params["head"], x[:, -1:],
+        logits = self.tp.logits(params["head"], x[:, -1:],
                                 self.cfg.vocab_size)
         return logits, cache
 
@@ -338,7 +393,8 @@ class TransformerLM:
         positions. The KV cache is written in place at ``pos`` and read up
         to ``pos + 1``. Returns (logits (B, 1, Vp), cache): a new tree
         holding the same KV buffers and each recurrent layer's new state
-        tensors."""
+        tensors. Under a mesh: tensor-parallel, attention split-KV over
+        the ranks' cache segments (``dist.splitkv``)."""
         p = torch.as_tensor(pos, dtype=torch.int32, device=tokens.device)
         positions = p.reshape(-1, 1) if p.ndim == 1 else p.reshape(1, 1)
         lengths = (p + 1).expand(tokens.shape[0]).contiguous()
@@ -347,5 +403,5 @@ class TransformerLM:
                                  pos if isinstance(pos, int) else p, lengths)
         layers = [layer if st is None else st
                   for layer, st in zip(cache["layers"], states)]
-        return (L.logits_apply(params["head"], x, self.cfg.vocab_size),
+        return (self.tp.logits(params["head"], x, self.cfg.vocab_size),
                 {"layers": layers})

@@ -15,10 +15,11 @@ quant rules rewire the model there too. ``generate(draft=...)`` decodes by
 speculative rounds (``repro_torch.spec``).
 
 ``mesh=`` (a (data, model) DeviceMesh, ``launch.mesh``) serves the packed
-LSTM sharded (``repro_torch.dist``): every rank runs this engine on the
-same inputs; ``prepare`` hands each rank its gate-aligned block of the
-packed rows, and ``generate`` decodes the rank's data group's rows and
-all-gathers the tokens over ``data`` at the end. Under a mesh the decode
+LSTM sharded (``repro_torch.dist``) and the dense GQA transformers split-KV
+(``dist.splitkv``): every rank runs this engine on the same inputs;
+``prepare`` hands each rank its gate-aligned block of the packed rows, or
+its pieces of the transformer's params, and ``generate`` decodes the rank's
+data group's rows and all-gathers the tokens over ``data`` at the end. Under a mesh the decode
 loop is the host loop (``runtime.decode_loop_eager``), by choice: a
 step's all-gather runs on the host under gloo, which a CUDA graph cannot
 capture.
@@ -93,7 +94,7 @@ class ServeEngine:
         when None), rewires the model through ``with_quant``, and packing
         emits RowBalancedSparseQ8 for the q8 kernels."""
         if self.sparsity is None:
-            return params, None
+            return self._maybe_partition(params), None
         plan = (self.sparsity.compile(params)
                 if hasattr(self.sparsity, "compile") else self.sparsity)
         act = getattr(plan, "activation", None)
@@ -123,7 +124,7 @@ class ServeEngine:
         pruned, masks = plan.prune(params)
         report = plan.summary(masks)
         if not getattr(self.model, "supports_packed_decode", False):
-            return pruned, report
+            return self._maybe_partition(pruned), report
         packed, pack_report = plan.pack(pruned, masks)
         packed = self._maybe_partition(packed)
         if not self._dist and hasattr(self.model, "pad_packed_params"):
@@ -133,12 +134,20 @@ class ServeEngine:
 
     def _maybe_partition(self, packed):
         """Each rank's gate-aligned block of the packed rows
-        (``dist.partition_lstm_params``), the model rewired to the sharded
-        step. As it is without a mesh, a ``model`` axis or packed
-        leaves."""
+        (``dist.partition_lstm_params``), or its pieces of a dense GQA
+        transformer's params (``dist.splitkv``), the model rewired to the
+        sharded step. As it is without a mesh, a ``model`` axis or
+        partitionable params."""
         from .. import dist
-        if (self.mesh is None or not dist.supports_dist(self.model,
+        if self.mesh is None:
+            return packed
+        from ..dist import splitkv
+        if splitkv.supports_splitkv(self.model, self.mesh):
+            self.model = self.model.with_mesh(self.mesh)
+            self._dist = True
+            return splitkv.partition_transformer_params(packed, self.model,
                                                         self.mesh)
+        if (not dist.supports_dist(self.model, self.mesh)
                 or not dist.is_partitionable(packed)):
             return packed
         packed = dist.partition_lstm_params(packed, self.mesh)
@@ -183,7 +192,7 @@ class ServeEngine:
         B = tokens.shape[0]
         rows = slice(0, B)
         if mesh is not None:
-            rows = self._shard_rows(mesh, params, B, draft)
+            rows = self._shard_rows(mesh, self.model, params, B, draft)
             tokens = tokens[rows]
         if lengths is not None:
             if not runtime.prefill_accepts_length(self.model):
@@ -230,7 +239,7 @@ class ServeEngine:
         return (toks, state) if return_state else toks
 
     @staticmethod
-    def _shard_rows(mesh, params, batch: int, draft) -> slice:
+    def _shard_rows(mesh, model, params, batch: int, draft) -> slice:
         """This rank's rows of a sharded ``generate``'s batch: its data
         group's block where ``data`` divides the batch, else every row.
         Every rank of a ``model`` group decodes them alike (and draws alike
@@ -242,6 +251,9 @@ class ServeEngine:
                              "sharded serving (mesh)")
         # unpartitioned packed params would decode garbage silently
         check_partitioned(params, mesh)
+        if hasattr(model, "kinds"):       # a split-KV transformer
+            from ..dist.splitkv import check_splitkv_partitioned
+            check_splitkv_partitioned(params)
         return batch_rows(mesh, batch)
 
     @staticmethod

@@ -16,17 +16,23 @@ lays packed rows out with. A mesh is a ``torch.distributed`` DeviceMesh
 (``mesh_dim_names`` and ``shape``) or anything with the reference mesh's
 ``axis_names`` and ``devices.shape``.
 
-``spec_tree`` and ``constrain`` serve the GSPMD-style training shardings,
-which come with the training half of the sharded port (ROADMAP.md, queue A
-item 7, slice 19).
+``named_sharding`` pairs a mesh with those placements (the counterpart of
+the reference's ``NamedSharding``: what the training shardings, a
+checkpoint's ``restore(shardings=)`` and ``dist.shard_local`` read), and
+``spec_tree`` maps it over matching trees of logical axes and shapes.
+``constrain`` redistributes a DTensor to the placements its logical axes
+resolve to; on a plain tensor it is the identity, as the reference's is a
+no-op outside a mesh.
 """
 from __future__ import annotations
 
+import dataclasses
 import math
 from typing import Sequence
 
 __all__ = ["DEFAULT_RULES", "dp_rules", "rules_for", "use_rules",
            "active_rules", "mesh_axes", "resolve_spec", "placements",
+           "spec_placements", "NamedSharding", "named_sharding",
            "spec_tree", "constrain", "Axes"]
 
 # logical name -> candidate physical axes, priority ordered. Each candidate
@@ -143,14 +149,13 @@ def resolve_spec(mesh, logical: Sequence[str | None], shape: Sequence[int],
     return tuple(out)
 
 
-def placements(mesh, logical: Sequence[str | None], shape: Sequence[int],
-               rules: dict | None = None) -> tuple:
-    """The DTensor placements, one a mesh dim, that ``resolve_spec``
-    implies: ``Shard(d)`` where tensor dim d resolved to that mesh axis,
-    ``Replicate()`` elsewhere (the counterpart of the reference's
-    ``named_sharding``)."""
+def spec_placements(mesh, spec: Sequence) -> tuple:
+    """The DTensor placements, one a mesh dim, of partition entries
+    ``spec`` (``resolve_spec``'s form): ``Shard(d)`` on every mesh axis
+    that tensor dim d names, ``Replicate()`` elsewhere. A dim named by
+    several axes is split by them in mesh order, as the reference's joint
+    axes are."""
     from torch.distributed.tensor import Replicate, Shard
-    spec = resolve_spec(mesh, logical, shape, rules)
     owner = {}
     for d, entry in enumerate(spec):
         for ax in ((entry,) if isinstance(entry, str) else entry or ()):
@@ -159,22 +164,60 @@ def placements(mesh, logical: Sequence[str | None], shape: Sequence[int],
                  for ax in mesh_axes(mesh))
 
 
+def placements(mesh, logical: Sequence[str | None], shape: Sequence[int],
+               rules: dict | None = None) -> tuple:
+    """The DTensor placements, one a mesh dim, that ``resolve_spec``
+    implies: ``Shard(d)`` where tensor dim d resolved to that mesh axis,
+    ``Replicate()`` elsewhere."""
+    return spec_placements(mesh, resolve_spec(mesh, logical, shape, rules))
+
+
+@dataclasses.dataclass(frozen=True)
+class NamedSharding:
+    """A mesh and the DTensor placements of a tensor over it, one a mesh
+    dim (the reference's ``NamedSharding``); ``spec`` keeps the partition
+    entries they came from."""
+    mesh: object
+    placements: tuple
+    spec: tuple = ()
+
+
+def named_sharding(mesh, logical: Sequence[str | None], shape: Sequence[int],
+                   rules: dict | None = None) -> NamedSharding:
+    spec = resolve_spec(mesh, logical, shape, rules)
+    return NamedSharding(mesh, spec_placements(mesh, spec), spec)
+
+
+def _is_axes(x) -> bool:
+    return isinstance(x, tuple) and all(isinstance(e, (str, type(None)))
+                                        for e in x)
+
+
 def spec_tree(mesh, logical_tree, shape_tree, rules: dict | None = None):
-    """The reference's tree of NamedShardings: the GSPMD-style training
-    shardings, not ported yet."""
-    raise NotImplementedError(
-        "sharding.spec_tree serves the GSPMD-style parameter, optimizer and "
-        "batch shardings of sharded training, which come in slice 19 "
-        "(ROADMAP.md, queue A item 7, the training half)")
+    """``named_sharding`` over matching trees (dicts and lists) of logical
+    axis tuples and shapes: a tree of ``NamedSharding``."""
+    if _is_axes(logical_tree):
+        return named_sharding(mesh, logical_tree, tuple(shape_tree), rules)
+    if isinstance(logical_tree, dict):
+        return {k: spec_tree(mesh, v, shape_tree[k], rules)
+                for k, v in logical_tree.items()}
+    return type(logical_tree)(spec_tree(mesh, v, s, rules)
+                              for v, s in zip(logical_tree, shape_tree))
 
 
 def constrain(x, *logical, rules: dict | None = None):
-    """The reference's with_sharding_constraint by logical axes: not
-    ported yet."""
-    raise NotImplementedError(
-        "sharding.constrain (a sharding constraint inside a traced step) "
-        "serves sharded training and the transformers' split-KV decode, "
-        "which come in slice 19 (ROADMAP.md, queue A item 7)")
+    """Redistribute the DTensor ``x`` to the placements its ``logical``
+    axes resolve to over its own mesh (the reference's
+    with_sharding_constraint by logical axes). The identity on a plain
+    tensor: outside a mesh there is nothing to constrain."""
+    from torch.distributed.tensor import DTensor
+    if not isinstance(x, DTensor):
+        return x
+    mesh = x.device_mesh
+    want = placements(mesh, logical, x.shape, rules)
+    if tuple(x.placements) == want:
+        return x
+    return x.redistribute(mesh, want)
 
 
 class Axes(tuple):

@@ -12,8 +12,16 @@ packages (optimizer state included):
 A bfloat16 leaf is stored as its raw 2-byte words (numpy's ``V2``), as
 the reference's are. Restore picks the newest committed step whose
 checksum validates, so a half-written checkpoint is skipped, and puts the
-arrays on one explicit device; re-sharding onto a mesh (``shardings=``)
-comes in slice 19 (ROADMAP queue A item 7, the training half).
+arrays on one explicit device or, with ``shardings=``, lays each out on a
+mesh.
+
+Under a mesh (any leaf a DTensor) a save writes the full logical arrays
+once: every rank gathers each leaf whole (``dist.collective_ops.
+full_tensor``, a collective, so every rank calls ``save``), rank 0 writes
+and commits, and the others wait for it at a barrier. ``restore(
+shardings=)`` reads the whole arrays on every rank and keeps each rank's
+piece of them (``dist.collective_ops.distribute``), so a run written on
+one mesh resumes on another (``fault.elastic_restore``).
 """
 from __future__ import annotations
 
@@ -51,8 +59,15 @@ def _to_tensor(a: np.ndarray, like: torch.Tensor,
     return t.to(device=device, dtype=like.dtype)
 
 
+def _is_dtensor(x) -> bool:
+    from torch.distributed.tensor import DTensor
+    return isinstance(x, DTensor)
+
+
 def _flatten(tree) -> dict[str, np.ndarray]:
-    return {key: _to_numpy(leaf) for key, leaf in leaves_with_keys(tree)}
+    from ..dist.collective_ops import full_tensor
+    return {key: _to_numpy(full_tensor(leaf) if _is_dtensor(leaf) else leaf)
+            for key, leaf in leaves_with_keys(tree)}
 
 
 def _checksum(arrays: dict[str, np.ndarray]) -> str:
@@ -75,12 +90,21 @@ class CheckpointManager:
     # ------------------------------------------------------------- save
     def save(self, step: int, tree, extra: dict | None = None):
         """Copy ``tree``'s leaves to host arrays now, write them (in a
-        thread with ``async_save``) and commit by a rename."""
+        thread with ``async_save``) and commit by a rename. A tree of
+        DTensors is gathered whole on every rank (all must call), written
+        by rank 0 alone, and the call returns on every rank once it is
+        committed."""
+        sharded = any(_is_dtensor(x) for _, x in leaves_with_keys(tree))
         arrays = _flatten(tree)
         meta = {"step": int(step), "checksum": _checksum(arrays),
                 "extra": extra or {}}
         self.wait()
-        if self.async_save:
+        if sharded:
+            import torch.distributed as dist
+            if dist.get_rank() == 0:
+                self._write(step, arrays, meta)
+            dist.barrier()
+        elif self.async_save:
             self._thread = threading.Thread(
                 target=self._write, args=(step, arrays, meta), daemon=True)
             self._thread.start()
@@ -150,13 +174,11 @@ class CheckpointManager:
                 device=None) -> tuple[Any, dict]:
         """Restore into the structure and dtypes of ``template`` (a tree of
         tensors), on ``device`` (default: where each template leaf lies).
-        With ``step=None``, the newest step that validates, read once.
-        Returns (tree, meta)."""
-        if shardings is not None:
-            raise NotImplementedError(
-                "restore(shardings=...) re-shards onto a mesh, which comes "
-                "in slice 19 (ROADMAP queue A item 7, the training half); "
-                "pass device=")
+        ``shardings``: a matching tree of ``sharding.NamedSharding`` (None
+        leaves stay whole): each leaf becomes a DTensor of this rank's
+        piece on its mesh (on the mesh's device), whatever mesh wrote the
+        checkpoint. With ``step=None``, the newest step that validates,
+        read once. Returns (tree, meta)."""
         if step is not None:
             meta, arrays = self._read(step)
         else:
@@ -165,13 +187,33 @@ class CheckpointManager:
             if loaded is None:
                 raise FileNotFoundError(f"no valid checkpoint in {self.dir}")
             meta, arrays = loaded
+        pairs = leaves_with_keys(template)
+        shards = ([None] * len(pairs) if shardings is None else
+                  [sh for _, sh in leaves_with_keys(shardings)])
         flat = []
-        for key, leaf in leaves_with_keys(template):
+        for (key, leaf), sh in zip(pairs, shards):
             a = arrays.pop(key)
-            if isinstance(leaf, torch.Tensor):
-                a = _to_tensor(a, leaf,
-                               leaf.device if device is None else device)
+            if sh is not None and not hasattr(sh, "placements"):
+                raise TypeError(f"{key}: a sharding is a sharding."
+                                f"NamedSharding (a mesh and placements), got "
+                                f"{type(sh).__name__}")
+            if sh is not None:
+                from ..dist.collective_ops import distribute
+                t = _to_tensor(a, leaf, _mesh_device(sh.mesh))
+                a = distribute(t, sh)
+            elif isinstance(leaf, torch.Tensor):
+                a = _to_tensor(a, leaf, (leaf.to_local().device
+                                         if _is_dtensor(leaf) else
+                                         leaf.device)
+                               if device is None else device)
             elif hasattr(leaf, "dtype"):
                 a = a.astype(leaf.dtype)
             flat.append(a)
         return unflatten(template, flat), meta
+
+
+def _mesh_device(mesh) -> torch.device:
+    """This rank's device on ``mesh``: its card, or the CPU."""
+    if mesh.device_type == "cuda":
+        return torch.device("cuda", torch.cuda.current_device())
+    return torch.device(mesh.device_type)

@@ -7,9 +7,9 @@ detection, the port of ``repro/training/fault.py``.
      step), so the replay sees the same batches.
   2. ``StragglerMonitor`` keeps an EMA of the step time and flags outliers
      (> threshold × EMA); ``on_straggler`` is the hook a deployment uses.
-  3. ``elastic_restore`` (re-sharding a checkpoint onto another mesh)
-     comes in slice 19 (ROADMAP queue A item 7, the training half) and
-     raises.
+  3. ``elastic_restore`` restores the newest checkpoint re-sharded onto
+     a new mesh (scale up or down): a checkpoint holds whole arrays, so
+     any mesh reads it.
 """
 from __future__ import annotations
 
@@ -89,10 +89,7 @@ class ResilientLoop:
 
 
 def elastic_restore(ckpt: CheckpointManager, template, new_shardings):
-    """Restore the latest checkpoint re-sharded onto a new mesh: not
-    ported (one device); ``ckpt.restore(template, device=...)`` restores
-    onto one."""
-    raise NotImplementedError(
-        "elastic_restore re-shards onto a mesh, which comes in slice 19 "
-        "(ROADMAP queue A item 7, the training half); use "
-        "CheckpointManager.restore(template, device=...)")
+    """Restore the latest checkpoint re-sharded onto a new mesh (elastic
+    scale up / down): ``new_shardings`` a tree of ``NamedSharding`` over
+    it, matching ``template``. Returns (state, meta)."""
+    return ckpt.restore(template, shardings=new_shardings)

@@ -67,9 +67,11 @@ def global_norm(tree) -> torch.Tensor:
     return torch.sqrt(total)
 
 
-def clip_by_global_norm(tree, max_norm):
-    """→ (tree scaled to a global norm ≤ max_norm in float32, the norm)."""
-    n = global_norm(tree)
+def clip_by_global_norm(tree, max_norm, norm=None):
+    """→ (tree scaled to a global norm ≤ max_norm in float32, the norm).
+    ``norm``: the global norm, when ``tree`` is one rank's piece of the
+    gradients (the sharded step computes it over the whole)."""
+    n = global_norm(tree) if norm is None else norm
     scale = torch.clamp(max_norm / torch.clamp(n, min=1e-9), max=1.0)
     return tree_map(lambda g: g.float() * scale, tree), n
 
@@ -87,19 +89,23 @@ def init_state(cfg: OptConfig, params):
     raise ValueError(cfg.name)
 
 
-def apply_update(cfg: OptConfig, params, grads, state, step=None):
+def apply_update(cfg: OptConfig, params, grads, state, step=None,
+                 norm=None):
     """Returns (new_params, new_state, metrics); gradients cast to
     float32. ``step`` (default: the state's count) sets the learning rate
-    and AdamW's bias correction. Runs without autograd."""
+    and AdamW's bias correction. ``norm``: the gradients' global norm,
+    given when params, grads and state are one rank's pieces (every entry
+    is updated on its own, so a piece's update is the whole's). Runs
+    without autograd."""
     with torch.no_grad():
-        return _apply_update(cfg, params, grads, state, step)
+        return _apply_update(cfg, params, grads, state, step, norm)
 
 
-def _apply_update(cfg, params, grads, state, step):
+def _apply_update(cfg, params, grads, state, step, norm=None):
     step = state["count"] if step is None else step
     dev = leaves(params)[0].device
     lr = lr_at(cfg, step).to(dev)
-    grads, gnorm = clip_by_global_norm(grads, cfg.grad_clip)
+    grads, gnorm = clip_by_global_norm(grads, cfg.grad_clip, norm)
     b1, b2 = cfg.betas
     wd = cfg.weight_decay
     count = state["count"] + 1

@@ -147,11 +147,21 @@ def test_resilient_loop_straggler_hook(tmp_path):
 
 
 def test_resharding_restore_raises(tmp_path):
+    """Re-sharding restores are ported (``tests/test_torch_sharded_train.
+    py`` restores a (2, 2) checkpoint on (1, 2) and one device): a
+    sharding tree of None leaves restores whole tensors, as no sharding
+    does, and a leaf that is not a NamedSharding raises by name."""
     ckpt = CheckpointManager(str(tmp_path), async_save=False)
     ckpt.save(1, _state(1.0))
-    with pytest.raises(NotImplementedError, match="item 7"):
+    plain, meta = ckpt.restore(_state(0.0))
+    got, meta2 = elastic_restore(ckpt, _state(0.0),
+                                 {"w": None, "step_count": None})
+    assert meta2 == meta
+    for a, b in zip(leaves(got), leaves(plain)):
+        assert torch.equal(a, b)
+    with pytest.raises(TypeError, match="NamedSharding"):
         ckpt.restore(_state(0.0), shardings=object())
-    with pytest.raises(NotImplementedError, match="item 7"):
+    with pytest.raises(TypeError, match="NamedSharding"):
         elastic_restore(ckpt, _state(0.0), object())
 
 

@@ -217,8 +217,9 @@ def test_sharded_cache_declaration(shape, delta):
 
 def test_mesh_backends_and_unported():
     """The backend is explicit: gloo on the CPU, NCCL refused there and
-    refused for more ranks than cards; what waits for slice 19 raises
-    by name."""
+    refused for more ranks than cards; the production meshes name the
+    ranks they need; ``constrain`` is the identity on a plain tensor;
+    ``spec_tree`` maps over trees; the HLO readers raise by name."""
     assert M.backend_for("cpu", 4) == "gloo"
     assert M.backend_for("cpu", 4, "gloo") == "gloo"
     with pytest.raises(ValueError, match="gloo"):
@@ -231,10 +232,19 @@ def test_mesh_backends_and_unported():
     assert M.rank_device("cpu", 3) == torch.device("cpu")
     with pytest.raises(RuntimeError, match="initialized process group"):
         M.make_host_mesh(1, 2)
-    for fn in (M.make_production_mesh, lambda: T.spec_tree(None, None, None),
-               lambda: T.constrain(torch.zeros(1), "batch")):
-        with pytest.raises(NotImplementedError, match="slice 19"):
-            fn()
+    with pytest.raises(ValueError, match="needs 256 ranks"):
+        M.make_production_mesh()
+    with pytest.raises(ValueError, match="needs 512 ranks"):
+        M.make_production_mesh(multi_pod=True)
+    x = torch.zeros(1)
+    assert T.constrain(x, "batch") is x
+    fake = types.SimpleNamespace(axis_names=("data", "model"),
+                                 devices=np.empty((2, 4)))
+    tree = T.spec_tree(fake, {"a": ("batch", "mlp"), "b": [("vocab",)]},
+                       {"a": (4, 8), "b": [(6,)]})
+    assert tree["a"].placements == (Shard(0), Shard(1))
+    assert tree["a"].spec == ("data", "model")
+    assert tree["b"][0].placements == (Replicate(), Replicate())
     with pytest.raises(NotImplementedError, match="HLO"):
         collectives.inventory_from_text("ENTRY e {}")
     with pytest.raises(NotImplementedError, match="dry run"):

@@ -97,8 +97,12 @@ def test_default_ckpt_dir_is_private(tmp_path, monkeypatch):
 
 
 def test_mesh_raises():
-    with pytest.raises(NotImplementedError, match="item 7"):
+    # the production meshes need 256 / 512 ranks (torchrun); the sharded
+    # body runs on a host mesh in tests/test_torch_sharded_train.py
+    with pytest.raises(ValueError, match="needs 256 ranks"):
         train.main(ARGS + ["--device", "cpu", "--mesh", "pod"])
+    with pytest.raises(ValueError, match="needs 512 ranks"):
+        train.main(ARGS + ["--device", "cpu", "--mesh", "multipod"])
 
 
 def _jax_params(cfg, params):

@@ -375,11 +375,27 @@ def test_masked_shims_warn():
 
 
 def test_sharded_train_step_raises():
-    for fn in (train_loop.jit_train_step, train_loop.param_shardings,
-               train_loop.zero1_shardings, train_loop.opt_shardings,
-               train_loop.batch_shardings):
-        with pytest.raises(NotImplementedError, match="item 7"):
-            fn(None)
+    """The shardings resolve on a mesh-shaped object (the reference's
+    ``axis_names`` / ``devices.shape``); the sharded step itself needs a
+    DeviceMesh of initialized ranks and raises on anything else (it runs
+    in tests/test_torch_sharded_train.py)."""
+    from torch.distributed.tensor import Replicate, Shard
+    mesh = types.SimpleNamespace(axis_names=("data", "model"),
+                                 devices=np.empty((2, 2)))
+    model = LSTMModel(LSTMConfig("t", **KW))
+    p_sh = train_loop.param_shardings(mesh, model)
+    assert p_sh["layers"][0]["w_x"].placements == (Replicate(), Shard(0))
+    assert p_sh["embed"]["table"].placements == (Replicate(), Shard(0))
+    assert p_sh["head"]["w"].placements == (Replicate(), Shard(1))
+    o_sh = train_loop.opt_shardings(mesh, OptConfig(), p_sh,
+                                    model.param_defs())
+    assert o_sh["m"]["layers"][0]["w_x"].placements == (Shard(1), Shard(0))
+    assert o_sh["count"].placements == (Replicate(), Replicate())
+    b_sh = train_loop.batch_shardings(mesh, {"inputs": torch.zeros(4, 3)})
+    assert b_sh["inputs"].placements == (Shard(0), Replicate())
+    with pytest.raises(TypeError, match="DeviceMesh"):
+        train_loop.jit_train_step(mesh, model, types.SimpleNamespace(
+            grad_accum=1), OptConfig(), {"inputs": torch.zeros(4, 3)})
 
 
 # ---------------------------------------------------------- transformer
