@@ -158,9 +158,24 @@
    moments exactly 0, ``compression.tree_compressed_psum`` on card
    tensors bitwise their host copies', the (2, 2) checkpoint restored
    onto (1, 2) bitwise (``elastic_restore``); qwen3-0.6b split-KV in
-   bf16, B=8, prompt 512, gen 64: 28 B14 launches a decode step a rank,
+   bf16, B=8, prompt 512, gen 16: 28 B14 launches a decode step a rank,
    every one with ``lse``, tokens and teacher-forced logits held to the
    single-card path (``sharded_phase``'s docstring gives the gates).
+   Rank 0 also measures, for phase 14, a train step's and a split-KV
+   decode step's aten FLOPs, collectives (torch.profiler), held bytes and
+   the peak each allocates above what was live.
+14. The production dry run (``dryrun_phase``): ``repro_torch.launch.
+   dryrun`` in processes of its own, each one rank of a fake group. (a)
+   Phase 13's two cells on its meshes (lstm_ptb's train step at B=16,
+   T=35; one qwen3-0.6b split-KV decode step, B=8, cache 528) held to
+   what phase 13 measured on gloo rank 0: aten FLOPs, held param and
+   moment (or cache) bytes and the collectives by kind and bytes exactly,
+   the trace's argument + temp bytes within DRY14_MEM of the card's
+   held + batch bytes + the step's peak above them. (b) qwen3-0.6b's
+   production grid, 4 shapes on pod16x16 and pod2x16x16: each cell's
+   status, GiB a rank, fits, bound and step_s printed. The two train_4k
+   traces (the grid's longest) start before phase 10 and run on the host
+   beside phases 10-13; the rest start at phase 14.
 
 Prints a ``{"kernels": [...]}`` line and, last, the device line. Exits
 non-zero on any failure, and without a card. Each phase's end and seconds
@@ -185,6 +200,8 @@ ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
 from repro_torch import hw  # noqa: E402  (the card's constants)
+# live (q, k) pairs of one head under B15's mask: the bound's work
+from repro_torch.kernels.ops import live_pairs  # noqa: E402
 
 HBM_BYTES_PER_S = hw.HBM_BW       # H100 SXM device memory rate
 FP32_FLOPS = hw.PEAK_FP32_FLOPS   # float32 outside the tensor cores
@@ -343,8 +360,26 @@ SHARD13 = dict(steps=3, masked=3, ckpt_step=7)
 # above them, over one card's: the model axis splits the weights and their
 # work (lstm_ptb's: ~0.5 at (1, 2), ~0.45 at (2, 2), estimated)
 SHARD13_MEM = 0.65
-SPLIT = dict(arch="qwen3-0.6b", batch=8, prompt=512, gen=64, tf=8,
+# gen 16 (it was 64): the split-KV generate was phase 13's largest part
+# (51.0 s at (2, 2) under gloo); widths, prompt, the teacher-forced steps
+# and every gate kept
+SPLIT = dict(arch="qwen3-0.6b", batch=8, prompt=512, gen=16, tf=8,
              tf_steps=(0, 3, 7))
+
+
+# phase 14, the production dry run: its records under build/dryrun14;
+# the trace's argument + temp bytes against the card's held + batch bytes
+# + the step's peak above them (cuBLAS's workspace and the allocator's
+# rounding are in the card's figure)
+DRY14_OUT = ROOT / "build" / "dryrun14"
+DRY14_MEM = 0.15
+DRY14_GATES = {
+    "train": ("lstm_ptb", "train_4k", "train_b16_s35",
+              ["--batch", "16", "--seq", "35"]),
+    "split": ("qwen3-0.6b", "decode_32k", "decode_b8_s528",
+              ["--batch", "8", "--seq", "528"])}   # P + G of SPLIT
+DRY14_GRID = "qwen3-0.6b"
+CHILDREN: list = []     # the dry-run processes, ended at exit
 
 
 def log(msg: str) -> None:
@@ -3974,16 +4009,6 @@ def occupancy_zoo(torch, device) -> None:
                                  "takes more shared memory than a block may")
 
 
-def live_pairs(Sq: int, Sk: int, causal: bool) -> int:
-    """Live (q, k) pairs of one head: every one without a causal mask;
-    with it, q row i (right-aligned, at Sk - Sq + i) sees keys 0..its
-    position."""
-    if not causal:
-        return Sq * Sk
-    off = Sk - Sq
-    return sum(min(Sk, off + i + 1) for i in range(Sq) if off + i >= 0)
-
-
 def check_attention_zoo(torch, device, flush) -> None:
     """Phase 6 at the shapes the rest of the zoo gives B14 and B15 (ZATTN):
     B15 without a causal mask at seamless-m4t's encoder (B=4, 16 heads of
@@ -4750,6 +4775,7 @@ def shard13_rank(mesh, spawned: float, ckpt_dir: str, single_toks) -> dict:
     from torch.utils.flop_counter import FlopCounterMode
     from repro_torch.dist.collective_ops import shard_local
     from repro_torch.launch import pipeline as pl
+    from repro_torch.obs.collectives import inventory
     from repro_torch.sparse import lstm_policy
     from repro_torch.training import (CheckpointManager, OptConfig,
                                       compression, elastic_restore,
@@ -4800,11 +4826,20 @@ def shard13_rank(mesh, spawned: float, ckpt_dir: str, single_toks) -> dict:
         torch.cuda.synchronize()
         walls.append(time.perf_counter() - t0)
     held, peak, (p, o) = step_memory(torch, step, p, o, batch, 3)
+    # phase 14's references: a whole step's aten FLOPs, and a second
+    # step's collectives under torch.profiler (apart: a dispatch mode
+    # under the profiler records each c10d op twice)
+    with FlopCounterMode(display=False) as fls:
+        p, o, _ = step(p, o, batch, 4)
+    inv = inventory(step, p, o, batch, 5)
+    dry = dict(flops=fls.get_total_flops(), held=held, peak=peak,
+               batch=sum(v.nbytes for v in batch.values()),
+               colls=[(it["kind"], it["bytes"]) for it in inv])
     out["train"] = dict(loss=float(loss), loss1=float(loss1), grad_rel=rel,
                         step_s=walls, step_loss=float(met["loss"]),
                         pieces=[digest(x) for x in leaves(p)],
                         flops=(fl.get_total_flops(), fl1.get_total_flops()),
-                        mem=(held, peak))
+                        mem=(held, peak), dry=dry)
     del p, o, grads
     lap("two dense steps")
     losses = []
@@ -4914,12 +4949,40 @@ def split13(torch, device, mesh, single_toks, lap) -> dict:
     torch.cuda.synchronize()
     step = (time.perf_counter() - t0) / (SPLIT["tf"] - 1)
     lap("split teacher-forced")
+    dry = split_step_measures(torch, eng.model, p, cache,
+                              want[:, SPLIT["tf"] - 1:SPLIT["tf"]],
+                              P + SPLIT["tf"] - 1)
+    lap("split step measured")
     return dict(toks=toks.cpu().numpy(), launches=launches, lse=lse,
                 wall=wall, prefill=pre, step=step,
-                rows=(rows.start, rows.stop), tf=keep)
+                rows=(rows.start, rows.stop), tf=keep, dry=dry)
 
 
-def sharded_phase(torch, device) -> None:
+def split_step_measures(torch, model, params, cache, tok, pos) -> dict:
+    """Phase 14's references for one split-KV decode step on this rank:
+    the bytes of its param pieces and cache segment, the peak the step
+    allocates above what was live before it, its aten FLOPs, and (a
+    second step, under torch.profiler) its collectives."""
+    from torch.utils.flop_counter import FlopCounterMode
+    from repro_torch.obs.collectives import inventory
+    from repro_torch.training.tree import leaves
+    held = {"params": sum((x.to_local() if hasattr(x, "to_local") else x)
+                          .nbytes for x in leaves(params)),
+            "cache": sum(x.nbytes for x in leaves(cache))}
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    with FlopCounterMode(display=False) as fl:
+        _, cache = model.decode_step(params, cache, tok, pos)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    inv = inventory(model.decode_step, params, cache, tok, pos + 1)
+    return dict(held=held, peak=peak, flops=fl.get_total_flops(),
+                batch=tok.nbytes,
+                colls=[(it["kind"], it["bytes"]) for it in inv])
+
+
+def sharded_phase(torch, device) -> dict:
     """Phase 13: sharded training and split-KV decode on (data, model)
     meshes (2, 2) then (1, 2), every rank a spawned process on this card
     under gloo (each collective staged through host memory).
@@ -4939,12 +5002,15 @@ def sharded_phase(torch, device) -> None:
     ``elastic_restore``, every piece bitwise the checkpoint's.
 
     Split-KV decode, qwen3-0.6b at full width in bf16, B=8, prompt 512,
-    gen 64: per rank 28 B15 launches (its prefill) and 28 B14 launches a
+    gen 16: per rank 28 B15 launches (its prefill) and 28 B14 launches a
     decode step, every one with ``lse``; greedy tokens equal to the
     single-card path's up to each row's first top-2 margin below
     TF_MARGIN; the single-card tokens teacher-forced through the split-KV
     model for SPLIT["tf"] steps within TF_LOGIT_TOL of the single-card
-    teacher-forced logits."""
+    teacher-forced logits.
+
+    Returns rank 0's measures for phase 14, by mesh: a train step's and a
+    split-KV decode step's (``split_step_measures``)."""
     import shutil
     import types
     from repro_torch.launch.mesh import run_ranks
@@ -5065,6 +5131,9 @@ def sharded_phase(torch, device) -> None:
             "arrays on disk" + (f" (step {ranks[0]['restored']['step']})"
                                 if key == "restored" else ""))
         split_gates(torch, mesh, ranks, single, tf1, first, cfg)
+    return {mesh: {"train": ranks[0]["train"]["dry"],
+                   "split": ranks[0]["split"]["dry"]}
+            for mesh, ranks in runs.items()}
 
 
 def _ckpt_template(torch, model):
@@ -5110,6 +5179,150 @@ def split_gates(torch, mesh, ranks, single, tf1, first, cfg) -> None:
         f"(tensor-parallel, B15 on the rank's heads) {sp['prefill']:.2f} s, "
         f"a decode step {sp['step'] * 1e3:.1f} ms (gloo host-staged) on "
         "rank 0")
+
+
+def dryrun_cmd(*args) -> list:
+    return [sys.executable, "-m", "repro_torch.launch.dryrun", "--out",
+            str(DRY14_OUT), "--force", *args]
+
+
+def start_dryrun(cmds: list) -> list:
+    """Start each dry-run command as its own process (a fake group is a
+    process's own), one torch thread each; their output to files under
+    DRY14_OUT. Returns [(name, Popen, log path, start)]."""
+    import os
+    DRY14_OUT.mkdir(parents=True, exist_ok=True)
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"),
+               OMP_NUM_THREADS="1")
+    out = []
+    for name, cmd in cmds:
+        path = DRY14_OUT / f"{name}.log"
+        with open(path, "w") as f:
+            proc = subprocess.Popen(cmd, cwd=ROOT, env=env, stdout=f,
+                                    stderr=subprocess.STDOUT)
+        CHILDREN.append(proc)
+        out.append((name, proc, path, time.perf_counter()))
+    return out
+
+
+def stop_children() -> None:
+    """End every process this script started that still runs."""
+    for proc in CHILDREN:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+
+
+def finish_dryrun(procs: list, timeout: float = 600) -> None:
+    """Wait for the dry-run processes; any that fails (a cell in error)
+    fails the phase, its log printed."""
+    for name, proc, path, t0 in procs:
+        try:
+            rc = proc.wait(timeout=timeout)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait()
+            raise AssertionError(f"dry run {name}: over {timeout}s")
+        text = path.read_text()
+        log(f"[dryrun] {name}: exit {rc}, "
+            f"{time.perf_counter() - t0:.1f}s from its start; "
+            + " | ".join(ln for ln in text.splitlines()
+                         if ln.startswith(("[OK", "[N", "[ERR", "done"))))
+        if rc != 0:
+            raise AssertionError(f"dry run {name} failed:\n{text[-3000:]}")
+
+
+def dryrun_long():
+    """The grid's two train_4k traces (the longest: ~1 min of one host
+    core each on the card's host), started before phase 10 so they run
+    beside the card-bound phases."""
+    return start_dryrun([
+        (f"grid-train-{m}", dryrun_cmd("--arch", DRY14_GRID, "--shape",
+                                        "train_4k", "--mesh", m))
+        for m in ("single", "multi")])
+
+
+def _kinds(items) -> dict:
+    """{kind: (count, bytes)} of (kind, bytes) pairs."""
+    out: dict = {}
+    for kind, nbytes in items:
+        n, b = out.get(kind, (0, 0))
+        if nbytes is None:
+            raise AssertionError(f"a {kind} without its bytes")
+        out[kind] = (n + 1, b + nbytes)
+    return out
+
+
+def dryrun_phase(torch, measured: dict, long_procs: list) -> None:
+    """Phase 14 (the module docstring): the gate traces and the rest of
+    the grid as processes of their own, all at once; the gates against
+    phase 13's rank 0 (``measured``); the grid's records printed."""
+    procs = []
+    for mesh in measured:
+        for what, (arch, shape, _, extra) in DRY14_GATES.items():
+            procs.append((f"{what}-{mesh[0]}x{mesh[1]}", dryrun_cmd(
+                "--arch", arch, "--shape", shape, "--mesh-shape",
+                f"{mesh[0]},{mesh[1]}", *extra)))
+    procs.append(("grid-serve", dryrun_cmd(
+        "--arch", DRY14_GRID, "--shape", "prefill_32k,decode_32k,long_500k",
+        "--mesh", "both")))
+    finish_dryrun(start_dryrun(procs) + long_procs)
+    for mesh, m13 in measured.items():
+        tag = f"mesh{mesh[0]}x{mesh[1]}"
+        for what, (arch, _, shape, _) in DRY14_GATES.items():
+            rec = json.loads((DRY14_OUT / f"{arch}__{shape}__{tag}.json")
+                             .read_text())
+            if rec["status"] != "ok":
+                raise AssertionError(f"dry run {arch} {tag}: {rec}")
+            card = m13[what]
+            mem = rec["memory"]
+            held = mem["held"]
+            got_held = (held["params"] + held["moments"] + held["count"]
+                        if what == "train" else
+                        held["params"] + held["cache"])
+            want_held = (card["held"] if what == "train" else
+                         card["held"]["params"] + card["held"]["cache"])
+            colls = {}
+            for c in rec["collectives"].values():
+                n, b = colls.get(c["kind"], (0, 0))
+                colls[c["kind"]] = (n + c["count"], b + c["bytes"])
+            want_colls = _kinds(card["colls"])
+            dry_mem = mem["argument_bytes"] + mem["temp_bytes"]
+            card_mem = want_held + card["batch"] + card["peak"]
+            gap = (dry_mem - card_mem) / card_mem
+            log(f"[dryrun] {what} {arch} on {mesh}: aten FLOPs "
+                f"{rec['flops_per_chip']['aten']} traced vs "
+                f"{card['flops']} on gloo rank 0; held bytes "
+                f"{got_held} vs {want_held}; collectives {colls} vs "
+                f"{want_colls}; argument + temp {dry_mem / 2**20:.1f} MiB "
+                f"vs the card's held + batch + peak {card_mem / 2**20:.1f} "
+                f"MiB ({gap:+.2%}, gate {DRY14_MEM:.0%}); trace "
+                f"{rec['trace_s']}s on {rec['trace_device']}")
+            if rec["flops_per_chip"]["aten"] != card["flops"]:
+                raise AssertionError(f"{what} {mesh}: aten FLOPs differ")
+            if got_held != want_held:
+                raise AssertionError(f"{what} {mesh}: held bytes differ")
+            if colls != want_colls:
+                raise AssertionError(f"{what} {mesh}: collectives differ")
+            if not abs(gap) <= DRY14_MEM:
+                raise AssertionError(f"{what} {mesh}: memory {gap:+.2%}")
+    for shape in ("train_4k", "prefill_32k", "decode_32k", "long_500k"):
+        for tag in ("pod16x16", "pod2x16x16"):
+            rec = json.loads((DRY14_OUT / f"{DRY14_GRID}__{shape}__{tag}"
+                              f".json").read_text())
+            if rec["status"] == "ok":
+                r, m = rec["roofline"], rec["memory"]
+                log(f"[dryrun] grid {DRY14_GRID} {shape} {tag}: ok, "
+                    f"{m['peak_bytes'] / 2**30:.2f} GiB a rank, fits "
+                    f"{m['fits']}, bound {r['bound']}, step_s "
+                    f"{r['step_s']:.6f} (compute {r['compute_s']:.6f}, "
+                    f"memory {r['memory_s']:.6f}, collective "
+                    f"{r['collective_s']:.6f}); trace {rec['trace_s']}s")
+            elif rec["status"] in ("n/a", "not_ported"):
+                log(f"[dryrun] grid {DRY14_GRID} {shape} {tag}: "
+                    f"{rec['status']} ({rec['reason'][:80]})")
+            else:
+                raise AssertionError(f"dry run {shape} {tag}: {rec}")
 
 
 def main() -> int:
@@ -5173,14 +5386,17 @@ def main() -> int:
     phase("8 scheduler")
     training(torch, device)
     phase("9 training")
+    long_procs = dryrun_long()
     recurrent_serve(torch, device)
     phase("10 recurrent families")
     zoo_serve(torch, device)
     phase("11 the rest of the zoo")
     dist_serve(torch, device)
     phase("12 sharded decode")
-    sharded_phase(torch, device)
+    measured = sharded_phase(torch, device)
     phase("13 sharded training and split-KV decode")
+    dryrun_phase(torch, measured, long_procs)
+    phase("14 the production dry run")
     log("[graph] rows: " + json.dumps(GRAPH_ROWS))
 
     src = {"rb_dual_spmv": ("rb_spmv.cu", "src/repro/kernels/rb_spmv.py:86"),
@@ -5229,4 +5445,8 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    try:
+        code = main()
+    finally:
+        stop_children()
+    sys.exit(code)

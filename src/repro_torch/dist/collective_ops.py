@@ -25,8 +25,15 @@ the rank's own rows; the serving engine splits a batch over ``data``
 
 Under gloo, a collective of card tensors is staged through host memory
 (``gather_axis``); under NCCL, of host tensors through the card.
+
+Inside ``recording()`` every collective issued here is also recorded:
+its kind (the reference's names), the mesh axis, the global ranks of its
+group and this rank's payload bytes, the inventory ``launch.dryrun``
+reads off a traced step.
 """
 from __future__ import annotations
+
+import contextlib
 
 import numpy as np
 import torch
@@ -39,13 +46,38 @@ from ..sparse.temporal import delta_threshold
 from .partition import (axis_rank, data_axis_size, local_leaf,
                         model_axis_size, permute_packed_rows, to_dtensor)
 
-__all__ = ["batch_axis", "gather_axis", "gather_hidden", "all_reduce",
+__all__ = ["recording", "batch_axis", "gather_axis", "gather_hidden",
+           "all_reduce",
            "all_reduce_axis",
            "broadcast_axis", "shard_local", "to_dtensor", "distribute",
            "full_tensor",
            "sharded_rb_dual_spmv", "sharded_delta_rb_dual_spmv",
            "sharded_rb_dual_spmv_q8", "dist_lstm_step",
            "dist_delta_lstm_step"]
+
+
+_RECORDS: list | None = None
+
+
+@contextlib.contextmanager
+def recording():
+    """Record the collectives issued inside: yields a list that gains one
+    ``{"kind", "axis", "ranks", "bytes"}`` a collective, in issue order
+    (``bytes``: this rank's payload, the tensor it sends)."""
+    global _RECORDS
+    prev, _RECORDS = _RECORDS, []
+    try:
+        yield _RECORDS
+    finally:
+        _RECORDS = prev
+
+
+def _record(kind: str, t: torch.Tensor, group, axis) -> None:
+    if _RECORDS is not None:
+        ranks = (dist.get_process_group_ranks(group) if group is not None
+                 else list(range(dist.get_world_size())))
+        _RECORDS.append({"kind": kind, "axis": axis, "ranks": ranks,
+                         "bytes": t.numel() * t.element_size()})
 
 
 def batch_axis(mesh, batch: int):
@@ -81,6 +113,7 @@ def gather_axis(t: torch.Tensor, mesh, axis: str, dim: int) -> torch.Tensor:
     else:
         src = t.detach().contiguous()
     parts = [torch.empty_like(src) for _ in range(dist.get_world_size(group))]
+    _record("all-gather", src, group, axis)
     dist.all_gather(parts, src, group=group)
     return torch.cat(parts, dim=dim).to(home)
 
@@ -101,11 +134,13 @@ _OPS = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX,
         "min": dist.ReduceOp.MIN}
 
 
-def all_reduce(t: torch.Tensor, group=None, op: str = "sum"):
+def all_reduce(t: torch.Tensor, group=None, op: str = "sum", axis=None):
     """``t`` all-reduced (``op``: sum, max or min) over ``group`` (the
     default group when None), staged where the backend needs: a new
-    tensor on ``t``'s device, alike on every rank of the group."""
+    tensor on ``t``'s device, alike on every rank of the group.
+    ``axis``: the mesh axis ``group`` is, for ``recording``."""
     buf = _staged(t, group)
+    _record("all-reduce", buf, group, axis)
     dist.all_reduce(buf, op=_OPS[op], group=group)
     return buf.to(t.device)
 
@@ -121,7 +156,7 @@ def all_reduce_axis(t: torch.Tensor, mesh, axes, op: str = "sum"):
     for axis in axes:
         if sizes.get(axis, 1) == 1:
             continue
-        out = all_reduce(out, mesh.get_group(axis), op)
+        out = all_reduce(out, mesh.get_group(axis), op, axis)
     return out if out is not t else t.detach().clone()
 
 
@@ -138,6 +173,7 @@ def broadcast_axis(t: torch.Tensor, mesh, axes) -> torch.Tensor:
             continue
         group = mesh.get_group(axis)
         buf = _staged(out, group)
+        _record("broadcast", buf, group, axis)
         dist.broadcast(buf, src=dist.get_global_rank(group, 0), group=group)
         out = buf
     return out.to(t.device) if out is not t else t

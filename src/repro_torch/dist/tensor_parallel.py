@@ -219,13 +219,14 @@ class TensorParallel:
         if hq == num_heads or k.shape[2] < num_kv_heads:
             return k, v
         G = num_heads // num_kv_heads        # q heads a kv head
-        idx = torch.arange(self.rank * hq, (self.rank + 1) * hq) // G
-        kv0, kv1 = int(idx[0]), int(idx[-1]) + 1
-        if hq % (kv1 - kv0) == 0 and torch.equal(
-                idx - kv0, torch.arange(kv1 - kv0).repeat_interleave(
-                    hq // (kv1 - kv0))):
+        # the index map in Python ints: it is layout, not data (a trace on
+        # fake tensors reads no tensor's values)
+        idx = [h // G for h in range(self.rank * hq, (self.rank + 1) * hq)]
+        kv0, kv1 = idx[0], idx[-1] + 1
+        n = kv1 - kv0
+        if hq % n == 0 and idx == [kv0 + i // (hq // n) for i in range(hq)]:
             return k[:, :, kv0:kv1], v[:, :, kv0:kv1]
-        idx = idx.to(k.device)
+        idx = torch.tensor(idx, device=k.device)
         return k.index_select(2, idx), v.index_select(2, idx)
 
     def lstm_scan(self, lp: dict, xs, c0, h0, cell):

@@ -18,7 +18,11 @@ through host memory (``dist.collective_ops``).
 
 ``make_production_mesh`` builds the reference's 16 × 16 pod (2 × 16 × 16
 over two pods) over a group of exactly that many ranks, as ``torchrun``
-starts them, one card a rank under NCCL.
+starts them, one card a rank under NCCL; with ``backend="fake"`` over a
+group of that many ranks on torch's "fake" backend (``init_fake_group``),
+this process one rank of it, whose collectives return at once and move
+no data: ``launch.dryrun`` runs a production cell's step as one such
+rank on fake tensors, with no card and no other process.
 """
 from __future__ import annotations
 
@@ -33,7 +37,8 @@ import torch
 import torch.distributed as dist
 
 __all__ = ["backend_for", "rank_device", "make_mesh", "make_host_mesh",
-           "make_production_mesh", "run_ranks", "synced_clock"]
+           "make_production_mesh", "init_fake_group", "run_ranks",
+           "synced_clock"]
 
 AXES = ("data", "model")
 
@@ -41,10 +46,14 @@ AXES = ("data", "model")
 def backend_for(device, ranks: int, backend: str | None = None) -> str:
     """The process-group backend for ``ranks`` ranks on ``device``: gloo on
     the CPU; on the card NCCL unless ``backend`` asks for gloo. Raises
-    where NCCL would put two ranks on one card."""
+    where NCCL would put two ranks on one card. "fake" (``init_fake_group``)
+    is taken as asked, on any device."""
     device = torch.device(device)
-    if backend not in (None, "nccl", "gloo"):
-        raise ValueError(f"backend {backend!r}: 'nccl' or 'gloo'")
+    if backend not in (None, "nccl", "gloo", "fake"):
+        raise ValueError(f"backend {backend!r}: 'nccl' or 'gloo' (or "
+                         "'fake', a dry run's)")
+    if backend == "fake":
+        return backend
     if device.type == "cpu":
         if backend == "nccl":
             raise ValueError("NCCL needs cards: a CPU mesh runs on gloo")
@@ -88,7 +97,7 @@ def make_mesh(shape, axes=AXES, *, device="cpu", backend: str | None = None):
         raise ValueError(f"the process group runs {have}, the mesh asks for "
                          f"{want}")
     device = torch.device(device)
-    if device.type == "cuda":
+    if device.type == "cuda" and have != "fake":
         torch.cuda.set_device(rank_device(device, dist.get_rank()))
     return init_device_mesh(device.type, shape, mesh_dim_names=axes)
 
@@ -105,10 +114,13 @@ def make_production_mesh(*, multi_pod: bool = False, device="cuda",
     model); two pods, 2 × 16 × 16 = 512, axes (pod, data, model). Over the
     initialized process group, which must hold exactly that many ranks
     (``torchrun --nproc-per-node ... --nnodes ...``); raises ValueError
-    naming the ranks it needs otherwise."""
+    naming the ranks it needs otherwise. ``backend="fake"``: over a fake
+    group of that many ranks, this process rank 0 (``init_fake_group``)."""
     shape = (2, 16, 16) if multi_pod else (16, 16)
     axes = ("pod", "data", "model") if multi_pod else AXES
     need = math.prod(shape)
+    if backend == "fake":
+        init_fake_group(need)
     have = dist.get_world_size() if dist.is_initialized() else 1
     if have != need:
         raise ValueError(
@@ -119,6 +131,24 @@ def make_production_mesh(*, multi_pod: bool = False, device="cuda",
                              "torchrun)"))
     return make_mesh(shape, axes, device=device,
                      backend=backend or dist.get_backend())
+
+
+def init_fake_group(world: int, rank: int = 0) -> None:
+    """Initialize the default process group on torch's "fake" backend:
+    ``world`` ranks, this process rank ``rank``, every collective returning
+    at once and moving no data. A fake group of another size or rank is
+    replaced; a real one is refused (RuntimeError)."""
+    # registers the "fake" backend with torch.distributed
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+    if dist.is_initialized():
+        if dist.get_backend() != "fake":
+            raise RuntimeError(f"a {dist.get_backend()} process group is "
+                               "initialized: a fake one cannot replace it")
+        if (dist.get_world_size(), dist.get_rank()) == (world, rank):
+            return
+        dist.destroy_process_group()
+    dist.init_process_group("fake", store=FakeStore(), rank=rank,
+                            world_size=world)
 
 
 def _rank_entry(rank, fn, shape, device, backend, args, workdir, threads,

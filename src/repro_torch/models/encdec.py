@@ -92,6 +92,11 @@ class EncDecLM:
         """Each param's logical axes (``()`` where a leaf names none)."""
         return L.param_axes(self.param_defs())
 
+    def abstract_params(self, device="meta"):
+        """The params' stand-ins (``layers.abstract_params``): their shapes
+        and dtypes, no data."""
+        return L.abstract_params(self.param_defs(), device)
+
     def param_count(self) -> int:
         return L.count_params(self.param_defs())
 

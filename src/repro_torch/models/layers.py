@@ -73,6 +73,18 @@ def init_params(defs, generator: torch.Generator, device: torch.device,
     return distribute(a, shardings)
 
 
+def abstract_params(defs, device="meta"):
+    """Tensors of each PSpec's shape and dtype with no data: ``meta``
+    tensors by default (the torch form of the reference's
+    ``ShapeDtypeStruct``s); under a ``FakeTensorMode``, ``device="cuda"``
+    gives fake card tensors. Nothing is allocated or drawn."""
+    if isinstance(defs, dict):
+        return {k: abstract_params(v, device) for k, v in defs.items()}
+    if isinstance(defs, (list, tuple)):
+        return type(defs)(abstract_params(v, device) for v in defs)
+    return torch.empty(defs.shape, dtype=defs.dtype, device=device)
+
+
 def param_axes(defs):
     """The tree of each PSpec's logical axes (``()`` where it names none)."""
     if isinstance(defs, dict):

@@ -187,6 +187,11 @@ class LSTMModel:
             generator = torch.Generator().manual_seed(0)
         return L.init_params(self.param_defs(), generator, device)
 
+    def abstract_params(self, device="meta"):
+        """The params' stand-ins (``layers.abstract_params``): their shapes
+        and dtypes, no data."""
+        return L.abstract_params(self.param_defs(), device)
+
     def param_count(self) -> int:
         return L.count_params(self.param_defs())
 

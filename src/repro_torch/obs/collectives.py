@@ -8,8 +8,9 @@ that step issued, by kind, with the bytes each rank sent where the
 backend's own event carries them (``gloo:*`` / ``nccl:*``).
 
 The reference reads the collectives out of compiled HLO
-(``inventory_from_text``) and reports a dry-run cell's top contributors
-(``top``); neither has a counterpart here, as nothing compiles to HLO.
+(``inventory_from_text``), which has no counterpart here, as nothing
+compiles to HLO. ``top`` reports a dry-run cell's top contributors from
+the collectives its traced step stages (``launch.dryrun.build_cell``).
 """
 from __future__ import annotations
 
@@ -53,9 +54,10 @@ _ITEMSIZE = {"float": 4, "double": 8, "c10::Half": 2, "c10::BFloat16": 2,
 
 def _backend_bytes(event) -> int | None:
     """Bytes of the first input of a backend's collective event (a raw
-    profiler event: ``shapes()`` and ``dtypes()``), where recorded."""
+    profiler event: ``shapes()`` and ``dtypes()``), where recorded (a 0-d
+    tensor's shape is empty: one element)."""
     shapes, dtypes = event.shapes(), event.dtypes()
-    if not shapes or not shapes[0] or not dtypes:
+    if not shapes or not dtypes:
         return None
     itemsize = _ITEMSIZE.get(dtypes[0])
     return None if itemsize is None else math.prod(shapes[0]) * itemsize
@@ -121,8 +123,32 @@ def summarize_inventory(items: list[dict]) -> dict:
 
 
 def top(arch, shape, multi=False, n=10, overrides=None):
-    """The reference's report of a dry-run cell's top collectives: no
-    counterpart (the dry run is not ported)."""
-    raise NotImplementedError(
-        "top reports a launch.dryrun cell's collectives from compiled HLO; "
-        "the port has no dry run (ROADMAP.md, queue A item 6) and no HLO")
+    """Print the top collective contributors (bytes × multiplicity) of one
+    ``launch.dryrun`` cell, traced as rank 0 of its mesh; returns the
+    inventory records, the reference's keys: one a site (a kind over a
+    mesh axis at one payload), ``mult`` its count in the step, ``bytes``
+    its payload, ``wire_bytes`` bytes × mult, largest first."""
+    from .. import hw
+    from ..launch.dryrun import build_cell
+    tr = build_cell(arch, shape, multi, overrides)
+    sites: dict = {}
+    for r in tr["collectives"]:
+        key = (r["kind"], r["axis"], r["bytes"], len(r["ranks"]))
+        link = ("NVLink" if hw.link_bw(r["ranks"]) == hw.NVLINK_BW
+                else "InfiniBand")
+        it = sites.setdefault(key, {
+            "kind": r["kind"], "mult": 0, "bytes": r["bytes"],
+            "wire_bytes": 0,
+            "where": f"{r['kind']} over {r['axis']} "
+                     f"({len(r['ranks'])} ranks, {link})"})
+        it["mult"] += 1
+        it["wire_bytes"] += r["bytes"]
+    items = sorted(sites.values(), key=lambda it: -it["wire_bytes"])
+    total = sum(it["wire_bytes"] for it in items)
+    print(f"total payload×mult: {total:.3e} bytes/chip "
+          f"(~{total / hw.IB_BW * 1e3:.0f} ms at InfiniBand)")
+    for it in items[:n]:
+        print(f"{it['wire_bytes']:.2e}  mult={it['mult']:5.0f} "
+              f"size={it['bytes']:.2e} {it['kind']:13s} "
+              f"{it['where'][-90:]}")
+    return items

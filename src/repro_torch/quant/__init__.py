@@ -10,13 +10,15 @@
 """
 from .calibrate import QuantConfig, QuantPlan, calibrate_lstm, default_plan
 from .formats import (RowBalancedQ8Format, RowBalancedSparseQ8,
-                      dequantize_packed, packed_bytes_q, quantize_packed)
+                      abstract_quantize_packed, dequantize_packed,
+                      packed_bytes_q, quantize_packed)
 from .scheme import (QuantScheme, dequantize, parse_scheme, quantize,
                      row_scales)
 
 __all__ = [
     "QuantScheme", "parse_scheme", "quantize", "dequantize", "row_scales",
     "RowBalancedSparseQ8", "RowBalancedQ8Format", "quantize_packed",
-    "dequantize_packed", "packed_bytes_q", "QuantConfig", "QuantPlan",
+    "dequantize_packed", "abstract_quantize_packed", "packed_bytes_q",
+    "QuantConfig", "QuantPlan",
     "calibrate_lstm", "default_plan",
 ]

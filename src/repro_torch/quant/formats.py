@@ -18,11 +18,12 @@ import torch
 
 from ..core import packing as P
 from ..core import sparsity as S
-from ..sparse.formats import SparseFormat, register
+from ..sparse.formats import SparseFormat, abstract, register
 from .scheme import QuantScheme, parse_scheme, quantize, row_scales
 
 __all__ = ["RowBalancedSparseQ8", "quantize_packed", "dequantize_packed",
-           "packed_bytes_q", "RowBalancedQ8Format"]
+           "abstract_quantize_packed", "packed_bytes_q",
+           "RowBalancedQ8Format"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -131,6 +132,19 @@ def dequantize_packed(q: RowBalancedSparseQ8) -> P.RowBalancedSparse:
     return P.RowBalancedSparse(values=vals, deltas=q.deltas, ncols=q.ncols)
 
 
+def abstract_quantize_packed(rep: P.RowBalancedSparse,
+                             scheme) -> RowBalancedSparseQ8:
+    """Stand-in of ``quantize_packed`` (``meta`` tensors, for dry runs):
+    codes in the scheme's storage, the deltas as they are, one float32
+    scale a row."""
+    scheme = parse_scheme(scheme)
+    return RowBalancedSparseQ8(
+        values=abstract(rep.values.shape, scheme.storage),
+        deltas=rep.deltas,
+        scales=abstract(rep.values.shape[:-1], torch.float32),
+        ncols=rep.ncols, qmax=scheme.qmax, frac_bits=scheme.frac_bits)
+
+
 def packed_bytes_q(rows: int, ncols: int, ratio: float, scheme) -> int:
     """Packed storage of one quantized row-balanced matrix: codes + delta
     indices + one float32 scale per row."""
@@ -161,6 +175,15 @@ class RowBalancedQ8Format(SparseFormat):
 
     def unpack(self, packed):
         return P.unpack(dequantize_packed(packed))
+
+    def abstract_pack(self, rows, ncols, ratio, dtype,
+                      scheme: str | None = None, **opts):
+        k = S.keep_count(ncols, ratio)
+        rep = P.RowBalancedSparse(
+            values=abstract((rows, k), torch.float32),
+            deltas=abstract((rows, k), P._delta_dtype(ncols, k)),
+            ncols=ncols)
+        return abstract_quantize_packed(rep, scheme or self.default_scheme)
 
     def packed_bytes(self, rows, ncols, ratio, dtype,
                      scheme: str | None = None, **opts):

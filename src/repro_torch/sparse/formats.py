@@ -19,7 +19,8 @@ kernels), ``bank_balanced`` (BBS [9]), ``block`` and ``unstructured`` (the
 Fig.-2 baselines, stored masked-dense with analytic packed-size
 accounting; their matvec is a dense product). ``quant.formats`` adds
 ``row_balanced_q8``. The dry-run stand-ins (``abstract_pack`` /
-``abstract_stack``) wait for the model zoo (ROADMAP queue A item 6).
+``abstract_stack``) are ``meta`` tensors of the packed rep's shapes and
+dtypes: the torch form of the reference's ``ShapeDtypeStruct``s, no data.
 """
 from __future__ import annotations
 
@@ -32,13 +33,13 @@ from ..core import packing as P
 from ..core import sparsity as S
 
 __all__ = ["SparseFormat", "MaskedDense", "RowBalancedFormat", "register",
-           "get_format", "available_formats", "dual_matvec"]
+           "get_format", "available_formats", "dual_matvec", "abstract"]
 
 
-def _no_dry_run(what: str):
-    raise NotImplementedError(
-        f"{what} builds dry-run stand-ins, which are not ported yet "
-        "(ROADMAP queue A item 6, the model zoo's dry run)")
+def abstract(shape, dtype) -> torch.Tensor:
+    """A ``meta`` tensor of ``shape`` and ``dtype``: a dry run's stand-in
+    for a tensor (shape and dtype, no storage)."""
+    return torch.empty(tuple(shape), dtype=dtype, device="meta")
 
 
 # ------------------------------------------------------------- generic rep
@@ -104,7 +105,10 @@ class SparseFormat:
 
     def abstract_pack(self, rows: int, ncols: int, ratio: float, dtype,
                       **opts) -> Any:
-        _no_dry_run(f"{type(self).__name__}.abstract_pack")
+        """Stand-in of ``pack``'s output (``meta`` tensors, for dry runs):
+        the masked-dense values and their bool mask."""
+        return MaskedDense(values=abstract((rows, ncols), dtype),
+                           mask=abstract((rows, ncols), torch.bool))
 
     def stack(self, reps: list) -> Any:
         """Combine per-layer packed reps into one rep whose tensors lead
@@ -116,7 +120,13 @@ class SparseFormat:
             if isinstance(getattr(first, f.name), torch.Tensor)})
 
     def abstract_stack(self, rep: Any, L: int) -> Any:
-        _no_dry_run(f"{type(self).__name__}.abstract_stack")
+        """The stacked stand-in (a leading layer axis L on every tensor)
+        of one abstract rep."""
+        return dataclasses.replace(rep, **{
+            f.name: abstract((L, *getattr(rep, f.name).shape),
+                             getattr(rep, f.name).dtype)
+            for f in dataclasses.fields(rep)
+            if isinstance(getattr(rep, f.name), torch.Tensor)})
 
     # -- kernels --------------------------------------------------------
     def matvec(self, packed: Any, x: torch.Tensor, *,
@@ -201,6 +211,13 @@ class RowBalancedFormat(SparseFormat):
 
     def unpack(self, packed):
         return P.unpack(packed)
+
+    def abstract_pack(self, rows, ncols, ratio, dtype, **opts):
+        k = S.keep_count(ncols, ratio)
+        return P.RowBalancedSparse(
+            values=abstract((rows, k), dtype),
+            deltas=abstract((rows, k), P._delta_dtype(ncols, k)),
+            ncols=ncols)
 
     def matvec(self, packed, x, *, backend=None):
         from ..kernels import ops as K

@@ -85,7 +85,10 @@ class Rule:
 
 @dataclasses.dataclass(frozen=True)
 class _Site:
-    """One matched param leaf, normalized to the (rows=out, cols=in) view."""
+    """One matched param leaf, normalized to the (rows=out, cols=in) view.
+    ``L``: the leading layer axis of a stacked leaf (the reference's
+    scanned ``blocks/`` leaves), None for a per-layer one (the port's own
+    trees)."""
 
     path: str
     rule: Rule
@@ -94,26 +97,39 @@ class _Site:
     d_out: int
     shape: tuple
     dtype: Any
+    L: int | None = None
 
     def to_oi(self, leaf: torch.Tensor) -> torch.Tensor:
-        """leaf → (d_out, d_in) with rows = output units."""
+        """leaf → (d_out, d_in) with rows = output units; (L, d_out, d_in)
+        for a stacked leaf."""
+        lead = (self.L,) if self.L else ()
         if self.rule.layout == "out_in":
-            return leaf.reshape(self.d_out, self.d_in)
-        return leaf.reshape(self.d_in, self.d_out).T
+            return leaf.reshape(*lead, self.d_out, self.d_in)
+        return leaf.reshape(*lead, self.d_in, self.d_out).transpose(-1, -2)
 
     def from_oi(self, arr: torch.Tensor) -> torch.Tensor:
         if self.rule.layout == "out_in":
             return arr.reshape(self.shape)
-        return arr.T.reshape(self.shape)
+        return arr.transpose(-1, -2).reshape(self.shape)
 
 
 def _resolve_dims(layout: str, shape: tuple) -> tuple[int, int]:
-    """→ (d_in, d_out)."""
+    """→ (d_in, d_out) of an un-stacked (core) shape."""
     if layout == "out_in":
         return math.prod(shape[1:]), shape[0]
     if layout == "out_trailing":
         return shape[0], math.prod(shape[1:])
     return math.prod(shape[:-1]), shape[-1]
+
+
+def _is_stacked(ps: str, ndim: int) -> bool:
+    """A scanned leaf of the reference's layout, its first dim the layer
+    axis: the decoder's ``blocks/<pattern position>/...`` and the
+    encoder-decoder's ``enc_blocks/...`` / ``dec_blocks/...``. The port's
+    own trees hold one layer a leaf (``layers/<i>/...``,
+    ``enc_blocks/<i>/...``)."""
+    return ndim >= 3 and re.search(r"(?:^|/)blocks/|_blocks/(?!\d+/)",
+                                   ps) is not None
 
 
 # ---------------------------------------------------------------- policy
@@ -184,10 +200,13 @@ class SparsityPolicy:
             rule = self.match(ps)
             if rule is None or rule.ratio <= 0.0:
                 continue
-            d_in, d_out = _resolve_dims(rule.layout, tuple(leaf.shape))
+            shape = tuple(leaf.shape)
+            L = shape[0] if _is_stacked(ps, leaf.ndim) else None
+            d_in, d_out = _resolve_dims(rule.layout,
+                                        shape[1:] if L else shape)
             sites[ps] = _Site(path=ps, rule=rule, fmt=get_format(rule.format),
-                              d_in=d_in, d_out=d_out,
-                              shape=tuple(leaf.shape), dtype=leaf.dtype)
+                              d_in=d_in, d_out=d_out, shape=shape,
+                              dtype=leaf.dtype, L=L)
         return SparsityPlan(policy=self, sites=sites)
 
 
@@ -224,8 +243,11 @@ class SparsityPlan:
         return f"SparsityPlan(sites={len(self.sites)})"
 
     def _site_mask(self, site: _Site, leaf) -> torch.Tensor:
-        m = site.fmt.mask(site.to_oi(leaf), site.rule.ratio,
-                          **site.rule.options)
+        w = site.to_oi(leaf)
+        opts = site.rule.options
+        m = (torch.stack([site.fmt.mask(w[i], site.rule.ratio, **opts)
+                          for i in range(site.L)]) if site.L else
+             site.fmt.mask(w, site.rule.ratio, **opts))
         return site.from_oi(m)
 
     def masks(self, params) -> dict:
@@ -245,17 +267,22 @@ class SparsityPlan:
     def mask_grads(self, grads, masks):
         return mask_grads(grads, masks)
 
-    def pack(self, params, masks: dict | None = None):
+    def pack(self, params, masks: dict | None = None,
+             abstract: bool = False):
         """Replace every matched leaf with its packed-format rep.
 
         masks=None recomputes masks from the rule ratios. Pass the masks
         from ``prune`` to pack an exact pattern. A policy ``quant`` rule
         quantizes every row-balanced site on the way out (integer codes +
-        per-row scales, counted by ``packed_bytes_q``). Returns
-        (packed_params, report)."""
+        per-row scales, counted by ``packed_bytes_q``). ``abstract=True``
+        builds the formats' stand-ins (``meta`` tensors, for dry runs)
+        from the leaves' shapes and dtypes alone: ``params`` may be
+        ``meta`` tensors. A stacked site (``_Site.L``) packs each layer
+        and stacks them. Returns (packed_params, report)."""
         qscheme = None
         if self.quant is not None:
-            from ..quant import packed_bytes_q, parse_scheme, quantize_packed
+            from ..quant import (abstract_quantize_packed, packed_bytes_q,
+                                 parse_scheme, quantize_packed)
             qscheme = parse_scheme(getattr(self.quant, "scheme", self.quant))
         totals = dict(dense=0, packed=0)
 
@@ -269,19 +296,31 @@ class SparsityPlan:
                 totals["packed"] += nbytes
                 return leaf
             r, opts = site.rule.ratio, site.rule.options
+            L1 = site.L or 1
             quantized = qscheme is not None and site.fmt.name == "row_balanced"
             if quantized:
-                totals["packed"] += packed_bytes_q(site.d_out, site.d_in, r,
-                                                   qscheme)
+                totals["packed"] += L1 * packed_bytes_q(site.d_out,
+                                                        site.d_in, r, qscheme)
             else:
-                totals["packed"] += site.fmt.packed_bytes(
+                totals["packed"] += L1 * site.fmt.packed_bytes(
                     site.d_out, site.d_in, r, leaf.dtype, **opts)
+            if abstract:
+                rep = site.fmt.abstract_pack(site.d_out, site.d_in, r,
+                                             leaf.dtype, **opts)
+                if quantized:
+                    rep = abstract_quantize_packed(rep, qscheme)
+                return site.fmt.abstract_stack(rep, site.L) if site.L else rep
             if masks is not None and ps in masks:
                 m_oi = site.to_oi(masks[ps])
             else:
                 m_oi = site.to_oi(self._site_mask(site, leaf))
-            rep = site.fmt.pack(site.to_oi(leaf), m_oi, **opts)
-            return quantize_packed(rep, qscheme) if quantized else rep
+            w_oi = site.to_oi(leaf)
+            reps = [site.fmt.pack(w_oi[i] if site.L else w_oi,
+                                  m_oi[i] if site.L else m_oi, **opts)
+                    for i in range(L1)]
+            reps = [quantize_packed(rep, qscheme) if quantized else rep
+                    for rep in reps]
+            return site.fmt.stack(reps) if site.L else reps[0]
 
         packed = _map_with_path(params, one)
         return packed, dict(dense_bytes=totals["dense"],

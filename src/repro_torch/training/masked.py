@@ -40,14 +40,11 @@ def brds_pack_params(params, spar_a: float, spar_b: float,
                      abstract: bool = False):
     """Every prunable weight in its packed RowBalancedSparse form (rows =
     output units, cols = fan-in). Returns (new_params, report).
-    ``abstract=True`` (dry-run stand-ins) raises: the model zoo's dry run
-    is not ported (ROADMAP queue A item 6)."""
+    ``abstract=True``: the dry run's stand-ins (``meta`` tensors) from the
+    leaves' shapes and dtypes (``params`` may be ``meta`` tensors)."""
     _warn("brds_pack_params", "transformer_policy(...).compile(params).pack()")
-    if abstract:
-        raise NotImplementedError(
-            "brds_pack_params(abstract=True) builds dry-run stand-ins, which "
-            "are not ported yet (ROADMAP queue A item 6)")
-    return transformer_policy(spar_a, spar_b).compile(params).pack(params)
+    return transformer_policy(spar_a, spar_b).compile(params).pack(
+        params, abstract=abstract)
 
 
 def sparsity_report(params, masks) -> dict:

@@ -150,10 +150,29 @@ def test_format_pack_and_bytes_match_jax(name, shape, ratio):
     jst, tst = jf.stack([jp, jp]), tf.stack([tp, tp])
     _eq(tst.values, jst.values)
     assert tst.values.shape == (2,) + tuple(tp.values.shape)
-    with pytest.raises(NotImplementedError, match="A item 6"):
-        tf.abstract_pack(*shape, ratio, torch.float32, **opts)
-    with pytest.raises(NotImplementedError, match="A item 6"):
-        tf.abstract_stack(tp, 2)
+    ja = jf.abstract_pack(*shape, ratio, jnp.float32, **opts)
+    ta = tf.abstract_pack(*shape, ratio, torch.float32, **opts)
+    _same_abstract(ta, ja)
+    _same_abstract(tf.abstract_stack(ta, 2), jf.abstract_stack(ja, 2))
+
+
+def _same_abstract(got, want):
+    """A dry-run stand-in of the port (``meta`` tensors) against the
+    reference's (``ShapeDtypeStruct``s): the same rep type, and every
+    tensor field of the same shape and dtype."""
+    assert type(got).__name__ == type(want).__name__
+    fields = [f for f in ("values", "deltas", "scales", "mask")
+              if hasattr(want, f)]
+    assert fields == [f for f in ("values", "deltas", "scales", "mask")
+                      if hasattr(got, f)]
+    for f in fields:
+        g, w = getattr(got, f), getattr(want, f)
+        assert g.is_meta, f
+        assert tuple(g.shape) == tuple(w.shape), f
+        assert str(g.dtype).removeprefix("torch.") == np.dtype(
+            w.dtype).name, f
+    for f in ("ncols", "qmax", "frac_bits"):
+        assert getattr(got, f, None) == getattr(want, f, None), f
 
 
 def _pair(name, seed, B=3, rows=64, X=48, H=32):

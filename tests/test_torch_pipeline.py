@@ -8,6 +8,8 @@ the port's held to the BENCH schema."""
 import importlib.util
 import json
 import os
+import subprocess
+import sys
 
 import jax
 import numpy as np
@@ -51,14 +53,27 @@ def _schema_checker():
 @pytest.fixture(scope="module")
 def smoke_runs(tmp_path_factory):
     """One ``--smoke --gate 5`` run of each package (the port's through
-    its CLI on the CPU): (port payload, port exit code, JAX payload)."""
+    its CLI on the CPU, a process of its own on one torch thread, while
+    the reference's runs here): (port payload, port exit code, JAX
+    payload)."""
     out = tmp_path_factory.mktemp("bench")
-    rc = pl.main(["--smoke", "--gate", "5", "--device", "cpu",
-                  "--out", str(out)])
+    port = subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.pipeline", "--smoke",
+         "--gate", "5", "--device", "cpu", "--out", str(out)],
+        cwd=REPO, env=dict(os.environ, OMP_NUM_THREADS="1",
+                           PYTHONPATH=os.path.join(REPO, "src")),
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    try:
+        jpayload = jpl.run_pipeline(jpl.PipelineConfig(), smoke=True,
+                                    log=lambda *_: None)
+        text, _ = port.communicate(timeout=900)
+    finally:
+        if port.poll() is None:
+            port.kill()
+            port.wait()
+    assert (out / "BENCH_pipeline.json").exists(), text[-3000:]
     payload = json.loads((out / "BENCH_pipeline.json").read_text())
-    jpayload = jpl.run_pipeline(jpl.PipelineConfig(), smoke=True,
-                                log=lambda *_: None)
-    return payload, rc, jpayload
+    return payload, port.returncode, jpayload
 
 
 @pytest.fixture(scope="module")

@@ -147,8 +147,10 @@ def _train_rank(mesh, trees, batches, ckpt_dir, pipe_dir):
     from repro_torch.training import (CheckpointManager, OptConfig,
                                       elastic_restore, init_state,
                                       jit_train_step)
+    from repro_torch.obs.collectives import inventory
     from repro_torch.training.train_loop import (opt_shardings,
                                                  param_shardings)
+    from repro_torch.training.tree import leaves
     shape = tuple(mesh.shape)
     out = {"rank": dist.get_rank()}
     oc = OptConfig(**OPT)
@@ -159,7 +161,12 @@ def _train_rank(mesh, trees, batches, ckpt_dir, pipe_dir):
         step = jit_train_step(mesh, model, arch, oc, batch)
         with FlopCounterMode(display=False) as flops:
             loss, grads = step.grads(params, batch)
-        p1, o1, met = step(params, init_state(oc, params), batch, STEP)
+        # the step's aten FLOPs and, in a second step, its collectives as
+        # gloo ran them (the dry run's trace of the step is held to them;
+        # a dispatch mode under the profiler records each c10d op twice)
+        with FlopCounterMode(display=False) as step_flops:
+            p1, o1, met = step(params, init_state(oc, params), batch, STEP)
+        items = inventory(step, params, init_state(oc, params), batch, STEP)
         p_sh = param_shardings(mesh, model)
         o_sh = opt_shardings(mesh, oc, p_sh, model.param_defs())
         defs = model.param_defs()
@@ -171,7 +178,10 @@ def _train_rank(mesh, trees, batches, ckpt_dir, pipe_dir):
             m_shapes=_local_shapes(o1["m"]) == _expected_shapes(
                 mesh, o_sh["m"], defs),
             v_shapes=_local_shapes(o1["v"]) == _expected_shapes(
-                mesh, o_sh["v"], defs), flops=flops.get_total_flops())
+                mesh, o_sh["v"], defs), flops=flops.get_total_flops(),
+            step_flops=step_flops.get_total_flops(),
+            colls=[(it["kind"], it["bytes"]) for it in items],
+            held=sum(x.to_local().nbytes for x in leaves((p1, o1))))
         if name == "llama":
             mb = dict(batch, mask=torch.as_tensor(MASK))
             ml, mg = jit_train_step(mesh, model, arch, oc, mb).grads(params,
@@ -510,6 +520,34 @@ def test_tensor_parallel_flops(runs, mesh):
         for rk in runs["ranks"][mesh]:
             assert abs(rk[name]["flops"] - want) <= 0.01 * want, (
                 name, rk[name]["flops"], want)
+
+
+@pytest.mark.parametrize("mesh", MESHES, ids=lambda m: f"{m[0]}x{m[1]}")
+def test_dry_run_trace_matches_a_gloo_rank(runs, mesh):
+    """``launch.dryrun.trace_step``, the same step as rank 0 of a fake
+    group on fake tensors: its aten FLOPs, the param and moment bytes the
+    rank holds, and its collectives (kind and bytes, in issue order) equal
+    to what gloo rank 0 measured (FlopCounterMode, its pieces,
+    torch.profiler's gloo events)."""
+    import torch.distributed as dist
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch import dryrun
+    rank0 = runs["ranks"][mesh][0]
+    try:
+        fake = dryrun._mesh(False, mesh)
+        for name, model in _models().items():
+            S = T if name == "lstm" else 16
+            tr = dryrun.trace_step(fake, model.cfg, model,
+                                   ShapeConfig("t", S, B, "train"))
+            want = rank0[name]
+            assert tr["aten_flops"] == want["step_flops"], name
+            held = tr["held"]
+            assert held["params"] + held["moments"] + held["count"] == \
+                want["held"], name
+            assert [(r["kind"], r["bytes"]) for r in tr["collectives"]] == \
+                want["colls"], name
+    finally:
+        dist.destroy_process_group()
 
 
 @pytest.mark.parametrize("mesh", MESHES, ids=lambda m: f"{m[0]}x{m[1]}")

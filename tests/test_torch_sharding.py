@@ -219,7 +219,9 @@ def test_mesh_backends_and_unported():
     """The backend is explicit: gloo on the CPU, NCCL refused there and
     refused for more ranks than cards; the production meshes name the
     ranks they need; ``constrain`` is the identity on a plain tensor;
-    ``spec_tree`` maps over trees; the HLO readers raise by name."""
+    ``spec_tree`` maps over trees; the HLO reader raises by name, and
+    ``top`` reports a dry-run cell's collectives in the reference's
+    records."""
     assert M.backend_for("cpu", 4) == "gloo"
     assert M.backend_for("cpu", 4, "gloo") == "gloo"
     with pytest.raises(ValueError, match="gloo"):
@@ -247,8 +249,27 @@ def test_mesh_backends_and_unported():
     assert tree["b"][0].placements == (Replicate(), Replicate())
     with pytest.raises(NotImplementedError, match="HLO"):
         collectives.inventory_from_text("ENTRY e {}")
-    with pytest.raises(NotImplementedError, match="dry run"):
-        collectives.top("qwen3-0.6b", None)
+    # top: the reference's record keys (its HLO reader on one
+    # all-reduce), largest first, over the dry run's traced cell
+    from repro.obs import collectives as jcollectives
+    want = jcollectives.inventory_from_text(_ONE_ALL_REDUCE)
+    try:
+        items = collectives.top("qwen3-0.6b", "decode_32k", n=3)
+    finally:
+        torch.distributed.destroy_process_group()
+    assert items and all(it.keys() == want[0].keys() for it in items)
+    wire = [it["wire_bytes"] for it in items]
+    assert wire == sorted(wire, reverse=True)
+    assert all(it["wire_bytes"] == it["bytes"] * it["mult"] for it in items)
+
+
+_ONE_ALL_REDUCE = """HloModule m
+
+ENTRY %main (p: f32[8]) -> f32[8] {
+  %p = f32[8] parameter(0)
+  ROOT %ar = f32[8] all-reduce(f32[8] %p), replica_groups={{0,1}}
+}
+"""
 
 
 def test_inventory_counts_without_a_mesh():

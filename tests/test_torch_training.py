@@ -367,10 +367,15 @@ def test_masked_shims_warn():
     with pytest.warns(DeprecationWarning):
         packed, rep = masked.brds_pack_params(params, 0.75, 0.5)
     assert rep["packed_bytes"] < rep["dense_bytes"]
+    from repro.training import masked as jmasked
     with warnings.catch_warnings():
         warnings.simplefilter("ignore")
-        with pytest.raises(NotImplementedError, match="item 6"):
-            masked.brds_pack_params(params, 0.75, 0.5, abstract=True)
+        _, abs_rep = masked.brds_pack_params(
+            build_model(cfg).abstract_params(), 0.75, 0.5, abstract=True)
+        _, jrep = jmasked.brds_pack_params(
+            jbuild_model(jsmoke_config("qwen3-0.6b")).abstract_params(),
+            0.75, 0.5, abstract=True)
+    assert abs_rep == jrep == rep
     assert masked.sparsity_report(params, ms)["pruned"] > 0
 
 
