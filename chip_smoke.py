@@ -183,6 +183,7 @@ go to stderr too.
 """
 from __future__ import annotations
 
+import contextlib
 import faulthandler
 import json
 import math
@@ -380,6 +381,24 @@ DRY14_GATES = {
               ["--batch", "8", "--seq", "528"])}   # P + G of SPLIT
 DRY14_GRID = "qwen3-0.6b"
 CHILDREN: list = []     # the dry-run processes, ended at exit
+# phase 15: split-KV serving of the rest of the attention zoo on gloo ranks
+# of this card, bf16 at full width (depth cut where named): each arch on
+# (1, 2), granite-moe on (2, 2) too; gen ZGEN, teacher-forced logits kept
+# at ZTF_STEPS
+ZSPLIT = {"granite-moe-1b-a400m": dict(batch=8, prompt=512, hold_moe=True),
+          "seamless-m4t-medium": dict(batch=4, prompt=64, frames=3072),
+          # 2880 patch embeddings, then 64 text tokens
+          "llava-next-34b": dict(batch=2, prompt=2944, layers=6),
+          "llama3.2-3b": dict(batch=8, prompt=512, layers=6, kv_quant=True),
+          # qk-normed: gated on its own weights (fan_in=False)
+          "qwen3-moe-235b-a22b": dict(batch=4, prompt=512, layers=2,
+                                      fan_in=False)}
+ZSPLIT_MESHES = {(1, 2): tuple(ZSPLIT), (2, 2): ("granite-moe-1b-a400m",)}
+ZGEN = 8
+ZTF_STEPS = (0, 3, 7)
+# a rank's card memory right after the sharded init over the one-card
+# params at (1, 2): the model axis halves every split leaf (~0.5)
+ZSPLIT_MEM = 0.6
 
 
 def log(msg: str) -> None:
@@ -3811,7 +3830,9 @@ def held_calls(torch, run) -> tuple[int, float, float]:
     cancellation moves by more than one ulp of itself; a wrong key or
     mask moves it by the size of V.) The first B15 call is also computed
     in float64, and both sides' distances from it are printed. Returns
-    (the calls held, the largest |kernel - plain|, the largest output)."""
+    (the calls held, the largest |kernel - plain|, the largest output).
+    A B14 call with ``lse=`` also has its log-sum-exp held (``hold_lse``);
+    the plain version writes its own."""
     from repro_torch.kernels import ops
     real = {n: getattr(ops, n) for n in ATTN_KERNELS}
     seen = dict(calls=0, err=0.0, scale=0.0)
@@ -3820,7 +3841,13 @@ def held_calls(torch, run) -> tuple[int, float, float]:
         def call(*a, backend=None, **kw):
             got = real[name](*a, backend=backend, **kw)
             if backend is None:
-                want = real[name](*a, backend="ref", **kw).float()
+                kw_ref = dict(kw)
+                lse = kw.get("lse")
+                if lse is not None:     # the plain version's own lse
+                    kw_ref["lse"] = torch.empty_like(lse)
+                want = real[name](*a, backend="ref", **kw_ref).float()
+                if lse is not None:
+                    hold_lse(torch, lse, kw_ref["lse"])
                 if name == "flash_attention" and not seen["calls"]:
                     exact = flash_f64(torch, *a, **kw)
                     log(f"  the model's first B15 call, (B, Hq, S, D) "
@@ -3850,6 +3877,19 @@ def held_calls(torch, run) -> tuple[int, float, float]:
         for n, f in real.items():
             setattr(ops, n, f)
     return seen["calls"], seen["err"], seen["scale"]
+
+
+def hold_lse(torch, got, want) -> None:
+    """B14's log-sum-exp against its plain version's on the same inputs:
+    -inf exactly where a row has no live key, else within LSE_ATOL of
+    max(1, |lse|) (a logf of float32 sums in another order)."""
+    dead = torch.isneginf(want)
+    if not torch.equal(torch.isneginf(got), dead):
+        raise AssertionError("B14's lse: rows with no live key differ")
+    e = ((got - want).abs() / want.abs().clamp_min(1))[~dead]
+    if e.numel() and not e.max().item() <= LSE_ATOL:
+        raise AssertionError(f"B14's lse {e.max().item():.3e} of max(1, "
+                             f"|lse|) from the plain version's")
 
 
 def flash_f64(torch, q, k, v, *, causal=True, window=None):
@@ -5181,6 +5221,424 @@ def split_gates(torch, mesh, ranks, single, tf1, first, cfg) -> None:
         "rank 0")
 
 
+def zsplit_model(torch, arch, device):
+    """Phase 15's (cfg, model, tokens, extra) of ``arch`` (ZSPLIT): its
+    config at the depth kept, the prompt (CPU generator, seed 1) and the
+    frames or patches (seed 2), on ``device``."""
+    from repro_torch.configs import get_arch
+    from repro_torch.models import build_model
+    R = ZSPLIT[arch]
+    full = get_arch(arch)
+    cfg = full.with_(num_layers=R.get("layers", full.num_layers),
+                     kv_quant=R.get("kv_quant", False))
+    B, P = R["batch"], R["prompt"]
+    tokens = torch.randint(0, cfg.vocab_size, (B, P), generator=torch
+                           .Generator().manual_seed(1)).to(device)
+    rows = R.get("frames") if cfg.encdec else cfg.num_patches
+    extra = None
+    if rows:
+        extra = torch.randn((B, rows, cfg.d_model), generator=torch
+                            .Generator().manual_seed(2)).to(
+                                device, cfg.torch_dtype)
+    return cfg, build_model(cfg), tokens, extra
+
+
+class RouteLog:
+    """Records ``moe.route``'s expert ids (on the host) of every call
+    while on."""
+
+    def __init__(self):
+        from repro_torch.models import moe
+        self.moe, self.real, self.ids = moe, moe.route, []
+
+    def __enter__(self):
+        def route(*a, **kw):
+            out = self.real(*a, **kw)
+            self.ids.append(out[0].cpu().numpy())
+            return out
+        self.moe.route = route
+        return self.ids
+
+    def __exit__(self, *exc):
+        self.moe.route = self.real
+
+
+class SegmentLog:
+    """Records the split-KV writes into the first attention layer's int8
+    segment (``splitkv._keep_prompt`` / ``write_segment``), to replay
+    through the one-device ``kv_cache_update``."""
+
+    def __init__(self, layers: int):
+        from repro_torch.dist import splitkv
+        self.sk, self.layers, self.calls = splitkv, layers, []
+        self.real = (splitkv._keep_prompt, splitkv.write_segment)
+
+    def __enter__(self):
+        keep, write = self.real
+        n = [0]
+
+        def log_keep(cache, k, v, s0):
+            if n[0] % self.layers == 0:
+                self.calls.append(("prompt", k.clone(), v.clone(), None))
+            n[0] += 1
+            return keep(cache, k, v, s0)
+
+        def log_write(cache, k, v, pos_b, s0):
+            if n[0] % self.layers == 0:
+                self.calls.append(("step", k.clone(), v.clone(),
+                                   pos_b.clone()))
+            n[0] += 1
+            return write(cache, k, v, pos_b, s0)
+        self.sk._keep_prompt, self.sk.write_segment = log_keep, log_write
+        return self.calls
+
+    def __exit__(self, *exc):
+        self.sk._keep_prompt, self.sk.write_segment = self.real
+
+
+@contextlib.contextmanager
+def hold_moe(torch, net, params, ids):
+    """While on, each call of the split-KV model's expert-parallel MoE
+    (``TensorParallel.moe``) on its first MoE layer is also computed by
+    the one-device ``moe_apply`` on the layer's whole weights (gathered
+    once) and the same input: yields a list of (expert ids equal, aux
+    bitwise, max |out - one device's| over max |one device's|), one a
+    call. ``ids``: the ``RouteLog`` of the run, whose entry for the
+    one-device call is taken back out."""
+    from repro_torch.dist.collective_ops import full_tensor
+    from repro_torch.models.moe import moe_apply
+    first = params["layers"][0]["moe"]
+    whole = {k: full_tensor(v) for k, v in first.items()}
+    tp = net.tp
+    real = tp.moe
+    seen = []
+
+    def moe(pm, x, **kw):
+        y, aux = real(pm, x, **kw)
+        if pm is first:
+            y1, aux1 = moe_apply(whole, x, **kw)
+            one = ids.pop()
+            seen.append((bool(np.array_equal(ids[-1], one)),
+                         bool(torch.equal(aux, aux1)),
+                         ((y.float() - y1.float()).abs().max()
+                          / y1.float().abs().max()).item()))
+        return y, aux
+    tp.moe = moe
+    try:
+        yield seen
+    finally:
+        del tp.moe
+
+
+def int8_replay_bitwise(torch, cfg, calls, segment, s0, max_len) -> bool:
+    """The first layer's int8 segment (codes and scales) bitwise the same
+    writes through the one-device ``kv_cache_update`` into a whole cache
+    of ``max_len`` positions, at the segment's positions."""
+    from repro_torch.models import attention as A
+    from repro_torch.models.layers import init_params
+    whole = init_params(A.kv_cache_defs(
+        calls[0][1].shape[0], max_len, cfg.num_kv_heads, cfg.head_dim,
+        cfg.torch_dtype, quant=True), None, calls[0][1].device)
+    for kind, k, v, pos in calls:
+        A.kv_cache_update(whole, k, v, 0 if kind == "prompt" else pos)
+    seg = segment["k"].shape[1]
+    return all(torch.equal(leaf, whole[n][:, s0:s0 + seg])
+               for n, leaf in segment.items())
+
+
+def zsplit_single(torch, device) -> dict:
+    """Phase 15's single-card references of each arch, before any rank
+    holds the card: greedy tokens (gen ZGEN), each row's first top-2
+    margin below TF_MARGIN, the teacher-forced logits at ZTF_STEPS, the
+    MoE's expert ids of every call of that teacher-forced run, and the
+    one-card params' bytes."""
+    import gc
+    from repro_torch.models.layers import param_bytes
+    from repro_torch.serving import ServeEngine
+    refs = {}
+    for arch, R in ZSPLIT.items():
+        cfg, model, tokens, extra = zsplit_model(torch, arch, device)
+        B, P = tokens.shape
+        params = model.init(torch.Generator(device).manual_seed(0), device)
+        if R.get("fan_in", True):
+            params = fan_in_qk(params)
+        eng = ServeEngine(model, max_len=P + ZGEN, device=device)
+        out = eng.generate(params, tokens, ZGEN, extra=extra)
+        with RouteLog() as ids:
+            tf = tf_logits(torch, model, params, tokens, out, P + ZGEN,
+                           extra)
+        top2 = tf[..., :cfg.vocab_size].topk(2, dim=-1).values
+        small = (top2[..., 0] - top2[..., 1]) < TF_MARGIN
+        first = torch.where(small.any(1), small.float().argmax(1),
+                            torch.full((B,), ZGEN, device=device)).tolist()
+        refs[arch] = dict(
+            out=out.cpu(), first=first, ids=ids,
+            tf={t: tf[:, t, :cfg.vocab_size].float().cpu()
+                for t in ZTF_STEPS},
+            param_bytes=param_bytes(model.param_defs()))
+        del eng, params, out, tf
+        gc.collect()
+        if device.type == "cuda":
+            torch.cuda.empty_cache()
+    return refs
+
+
+def zsplit_rank(mesh, spawned: float, archs, refs, device_type: str) -> dict:
+    """Phase 15 on one rank: for each arch of ``archs``, the sharded init
+    (its card memory right after it), a greedy ``generate`` through
+    ``ServeEngine(mesh=)`` with the launch counts set to 0 just before and
+    read just after, then the single-card tokens teacher-forced through
+    the split-KV model with every B14 / B15 launch held to its plain
+    version on the rank's own inputs (``held_calls``), its MoE expert ids
+    and its first layer's int8 writes recorded (``RouteLog``,
+    ``SegmentLog``); its prefill and decode steps timed."""
+    faulthandler.enable(all_threads=True)
+    import gc
+    import torch
+    import torch.distributed as dist
+    from repro_torch.dist.collective_ops import batch_rows
+    from repro_torch.dist.splitkv import cache_segment
+    from repro_torch.kernels import decode_attention as kda
+    from repro_torch.kernels import ops
+    from repro_torch.models.layers import init_params
+    from repro_torch.serving import ServeEngine
+    from repro_torch.training.train_loop import param_shardings
+    cuda = device_type == "cuda"
+    device = (torch.device("cuda", torch.cuda.current_device()) if cuda
+              else torch.device(device_type))
+    sync = torch.cuda.synchronize if cuda else (lambda: None)
+    allocated = torch.cuda.memory_allocated if cuda else (lambda: 0)
+    out = {"rank": dist.get_rank(), "start": time.time() - spawned,
+           "coords": {a: mesh.get_local_rank(a)
+                      for a in mesh.mesh_dim_names}}
+    for arch in archs:
+        t_arch = time.perf_counter()
+        R, ref = ZSPLIT[arch], refs[arch]
+        cfg, model, tokens, extra = zsplit_model(torch, arch, device)
+        B, P = tokens.shape
+        ML = P + ZGEN
+        sync()
+        gc.collect()
+        if cuda:
+            torch.cuda.empty_cache()
+        base = allocated()
+        params = init_params(model.param_defs(),
+                             torch.Generator(device).manual_seed(0), device,
+                             shardings=param_shardings(mesh, model))
+        sync()
+        held = allocated() - base
+        if R.get("fan_in", True):
+            params = fan_in_qk(params)
+        eng = ServeEngine(model, max_len=ML, device=device, mesh=mesh)
+        p, _ = eng.prepare(params)
+        del params
+        zero_launches(ops)
+        kda.LSE_LAUNCHES[0] = 0
+        t0 = time.perf_counter()
+        toks = eng.generate(p, tokens, ZGEN, extra=extra)
+        sync()
+        wall = time.perf_counter() - t0
+        launches = {k: n for k, n in ops.LAUNCHES.items() if n}
+        lse = kda.LSE_LAUNCHES[0]
+        rows = batch_rows(mesh, B)
+        want = ref["out"].to(device)[rows]
+        kw = {} if extra is None else {"extra": extra[rows]}
+        net = eng.model
+        layers = sum(k.startswith("attn") for k in getattr(
+            net, "kinds", ())) or net.n_dec
+        rec = {}
+
+        def teacher_forced():
+            t0 = time.perf_counter()
+            logits, cache = net.prefill(p, tokens[rows], ML, **kw)
+            sync()
+            rec["prefill"] = time.perf_counter() - t0
+            kept = {0: logits[:, 0, :cfg.vocab_size].float().cpu()}
+            t0 = time.perf_counter()
+            for t in range(ZGEN - 1):
+                logits, cache = net.decode_step(p, cache, want[:, t:t + 1],
+                                                P + t)
+                if t + 1 in ZTF_STEPS:
+                    kept[t + 1] = logits[:, 0, :cfg.vocab_size].float().cpu()
+            sync()
+            rec["step"] = (time.perf_counter() - t0) / (ZGEN - 1)
+            rec["tf"], rec["cache"] = kept, cache
+        with RouteLog() as ids, SegmentLog(layers) as writes:
+            held_moe = (hold_moe(torch, net, p, ids) if R.get("hold_moe")
+                        else contextlib.nullcontext([]))
+            with held_moe as moe_seen:
+                calls, err, scale = held_calls(torch, teacher_forced)
+        s0 = cache_segment(mesh, ML)[0]
+        int8 = None
+        if cfg.kv_quant:
+            int8 = int8_replay_bitwise(torch, cfg, writes,
+                                       rec["cache"]["layers"][0], s0, ML)
+        lo, hi = rows.start, rows.stop
+        dl = max(float((rec["tf"][t] - ref["tf"][t][lo:hi]).abs().max())
+                 for t in ZTF_STEPS)
+        same_ids = sum(int((a == b[lo:hi]).sum())
+                       for a, b in zip(ids, ref["ids"]))
+        n_ids = sum(a.size for a in ids)
+        out[arch] = dict(
+            held=held, toks=toks.cpu().numpy(), launches=launches, lse=lse,
+            wall=wall, prefill=rec["prefill"], step=rec["step"],
+            calls=calls, err=err, scale=scale, dl=dl, rows=(lo, hi),
+            ids=[digest(torch.as_tensor(a)) for a in ids],
+            same_ids=same_ids, n_ids=n_ids, moe_held=moe_seen,
+            ref_ids=len(ids) == len(ref["ids"]), int8=int8,
+            seconds=time.perf_counter() - t_arch)
+        del eng, p, rec, writes
+        gc.collect()
+        if cuda:
+            torch.cuda.empty_cache()
+    return out
+
+
+def splitkv_zoo(torch, device) -> None:
+    """Phase 15: split-KV serving of the rest of the attention zoo, every
+    rank a spawned process on this card under gloo: ZSPLIT's five archs at
+    full width in bf16 on (1, 2), granite-moe on (2, 2) at the same time
+    (ZSPLIT_MESHES;
+    llava-next-34b cut to 6 layers, llama3.2-3b to 6 with the int8 cache,
+    qwen3-moe-235b-a22b to 2 with all 128 experts; granite-moe and
+    seamless-m4t at full depth).
+
+    Gates, each on every rank: the sharded init's card memory right after
+    it at most ZSPLIT_MEM of the one-card params' bytes (no rank holds
+    whole params); a generate's launches (set to 0 just before, read just
+    after) those of one card (``expected_launches``), every B14 with
+    ``lse``; every B14 / B15 launch of a teacher-forced run within one
+    bf16 ulp of its largest output of its plain version on the rank's own
+    inputs (``held_calls``); the single-card tokens teacher-forced through
+    the split-KV model within TF_LOGIT_TOL of the single-card logits at
+    ZTF_STEPS; greedy tokens equal to the single card's up to each row's
+    first top-2 margin below TF_MARGIN; the MoE's expert ids bitwise alike
+    on the ranks of a model group (each rank routes alike) and, on
+    granite-moe's first MoE layer (``hold_moe``), equal to the one-device
+    ``moe_apply``'s on the same input, its aux bitwise and its output
+    within two bf16 ulps of its largest; the int8
+    segment's codes and scales bitwise the one-device ``kv_cache_update``
+    of the same writes. Printed: the expert ids' agreement with the single
+    card's (bf16 sums over ranks move the router's input by ulps), the
+    wall a decode step a rank and the launches of one decode step. End-to-
+    end gates with ``wq`` / ``wk`` at the fan-in scale (``fan_in_qk``),
+    qwen3-moe on its own weights, as phase 11."""
+    import concurrent.futures
+    from repro_torch.launch.mesh import run_ranks
+    refs = zsplit_single(torch, device)
+
+    def spawn(mesh, archs):
+        t0 = time.perf_counter()
+        ranks = run_ranks(zsplit_rank, *mesh, device=device.type,
+                          backend="gloo",
+                          args=(time.time(), archs,
+                                {a: refs[a] for a in archs}, device.type),
+                          threads=2, timeout=600)
+        return ranks, time.perf_counter() - t0
+    # the meshes' ranks side by side: each mesh's start-up and host-staged
+    # collectives overlap the other's
+    with concurrent.futures.ThreadPoolExecutor(len(ZSPLIT_MESHES)) as pool:
+        futs = {m: pool.submit(spawn, m, a) for m, a in ZSPLIT_MESHES.items()}
+        done = {m: f.result() for m, f in futs.items()}
+    for mesh, archs in ZSPLIT_MESHES.items():
+        ranks, took = done[mesh]
+        log(f"[zsplit] mesh data={mesh[0]} model={mesh[1]}: "
+            f"{mesh[0] * mesh[1]} ranks in {took:.1f}s, beside the other "
+            f"mesh's (rank 0 reached the card after {ranks[0]['start']:.1f}"
+            "s)")
+        for arch in archs:
+            zsplit_gates(torch, arch, mesh, ranks, refs[arch])
+
+
+def zsplit_gates(torch, arch, mesh, ranks, ref) -> None:
+    """Phase 15's gates of ``arch`` on ``mesh`` (``splitkv_zoo``)."""
+    cfg, model, _, _ = zsplit_model(torch, arch, "cpu")
+    every = expected_launches(model, ZGEN)
+    step = {k: v // ZGEN for k, v in every.items() if k == "decode_attention"}
+    for rk in ranks:
+        want = every
+        r = rk[arch]
+        tag = f"{arch} {mesh} rank {rk['rank']}"
+        if cfg.pad_heads_to:
+            # a rank whose block of stored q heads holds no real head
+            # launches no B15
+            hq = model.h_eff // mesh[1]
+            if rk["coords"]["model"] * hq >= cfg.num_heads:
+                want = dict(want, flash_attention=0)
+        share = r["held"] / ref["param_bytes"]
+        if mesh == (1, 2) and not share <= ZSPLIT_MEM:
+            raise AssertionError(f"{tag}: holds {share:.3f} of the one-card "
+                                 f"params after the sharded init")
+        got = {k: n for k, n in want.items() if n}
+        if r["launches"] != got or r["lse"] != want["decode_attention"]:
+            raise AssertionError(f"{tag}: launches {r['launches']}, lse "
+                                 f"{r['lse']}; expected {want}")
+        hwant = (want["flash_attention"]
+                 + want["decode_attention"] // ZGEN * (ZGEN - 1))
+        if r["calls"] != hwant:
+            raise AssertionError(f"{tag}: {r['calls']} launches held, "
+                                 f"expected {hwant}")
+        lo, hi = r["rows"]
+        first = ref["first"][lo:hi]
+        single = ref["out"].numpy()[lo:hi]
+        same = [bool(np.array_equal(r["toks"][lo:hi][b, :f], single[b, :f]))
+                for b, f in enumerate(first)]
+        if not all(same) or not r["dl"] <= TF_LOGIT_TOL:
+            raise AssertionError(f"{tag}: tokens equal up to small margins "
+                                 f"{same}; teacher-forced logits "
+                                 f"{r['dl']:.3e}")
+        if cfg.moe and not r["ref_ids"]:
+            raise AssertionError(f"{tag}: MoE calls differ in number")
+        held = r["moe_held"]
+        if ZSPLIT[arch].get("hold_moe") and not (
+                len(held) == ZGEN and all(i and a and e <= 2 * BF16_ULP
+                                          for i, a, e in held)):
+            raise AssertionError(f"{tag}: the expert-parallel MoE off the "
+                                 f"one-device moe_apply: {held}")
+        if cfg.kv_quant and not r["int8"]:
+            raise AssertionError(f"{tag}: int8 segment not bitwise the "
+                                 "one-device cache update")
+    if cfg.moe:
+        by_rows = {}
+        for rk in ranks:
+            by_rows.setdefault(rk["coords"]["data"], []).append(
+                rk[arch]["ids"])
+        if any(len({tuple(x) for x in v}) != 1 for v in by_rows.values()):
+            raise AssertionError(f"{arch} {mesh}: the ranks of a model "
+                                 "group route differently")
+    r = ranks[0][arch]
+    agree = (f"; expert ids equal to the single card's at "
+             f"{sum(rk[arch]['same_ids'] for rk in ranks)} of "
+             f"{sum(rk[arch]['n_ids'] for rk in ranks)} (token, slot, "
+             f"layer) choices, alike on the ranks of a model group"
+             if cfg.moe else "")
+    int8 = ("; int8 segment codes and scales bitwise the one-device "
+            "cache update" if cfg.kv_quant else "")
+    if ZSPLIT[arch].get("hold_moe"):
+        worst = max(e for rk in ranks for _, _, e in rk[arch]["moe_held"])
+        agree += (f"; the first MoE layer's {len(r['moe_held'])} calls "
+                  "against the one-device moe_apply on the same input: "
+                  f"expert ids and aux exact, outputs within {worst:.3e} of "
+                  f"max |out| (gate {2 * BF16_ULP:.3e})")
+    held = max(rk[arch]["held"] for rk in ranks)
+    log(f"[zsplit] {arch} {mesh}: {cfg.num_layers} layers"
+        + (f" (+{model.n_enc} encoder)" if cfg.encdec else "")
+        + f"; init: rank memory {held / 2**30:.3f} GiB = "
+        f"{held / ref['param_bytes']:.3f} of the one-card params "
+        f"({ref['param_bytes'] / 2**30:.3f} GiB; gate {ZSPLIT_MEM} at "
+        "(1, 2)); "
+        f"launches a rank a generate {r['launches']}, a decode step {step}, "
+        f"all B14 with lse; {r['calls']} B14 / B15 launches held to plain "
+        f"(max |err| {max(rk[arch]['err'] for rk in ranks):.3e}, max |out| "
+        f"{max(rk[arch]['scale'] for rk in ranks):.3e}); teacher-forced "
+        f"logits vs single card {max(rk[arch]['dl'] for rk in ranks):.3e} "
+        f"(tol {TF_LOGIT_TOL}); greedy tokens equal up to first margins "
+        f"< {TF_MARGIN}" + agree + int8
+        + f"; rank 0: generate {r['wall']:.2f} s, prefill {r['prefill']:.2f}"
+        f" s, a decode step {r['step'] * 1e3:.1f} ms (gloo host-staged), "
+        f"{r['seconds']:.1f} s in all")
+
+
 def dryrun_cmd(*args) -> list:
     return [sys.executable, "-m", "repro_torch.launch.dryrun", "--out",
             str(DRY14_OUT), "--force", *args]
@@ -5397,6 +5855,8 @@ def main() -> int:
     phase("13 sharded training and split-KV decode")
     dryrun_phase(torch, measured, long_procs)
     phase("14 the production dry run")
+    splitkv_zoo(torch, device)
+    phase("15 split-KV zoo")
     log("[graph] rows: " + json.dumps(GRAPH_ROWS))
 
     src = {"rb_dual_spmv": ("rb_spmv.cu", "src/repro/kernels/rb_spmv.py:86"),

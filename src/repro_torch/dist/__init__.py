@@ -18,18 +18,19 @@ The mesh is a DeviceMesh over ``(data, model)`` ranks, one process a rank
                    the DTensor pieces the sharded train step uses.
   tensor_parallel — Megatron's local forms over ``model`` (column- and
                    row-parallel products, the vocab-parallel embedding,
-                   the gathered head, the LSTM's gate rows), their
-                   collectives autograd Functions: the sharded train
-                   step's forward and backward, and the transformers'
-                   prefill and decode under a mesh.
-  splitkv        — the dense GQA transformers' split-KV attention: the
-                   KV cache's sequence over ``model``, B14's partials
+                   the gathered head, the LSTM's gate rows, the experts
+                   on their ranks), their collectives autograd Functions:
+                   the sharded train step's forward and backward, and
+                   the attention models' prefill and decode under a mesh.
+  splitkv        — the attention models' split-KV attention: the KV cache
+                   (int8 too) and an encoder-decoder's cross memory split
+                   over ``model`` along the sequence, B14's partials
                    combined by their log-sum-exps.
 
 Serving wires it together: ``ServeEngine(..., mesh=mesh)`` partitions at
 ``prepare`` and decodes model-parallel, the batch split over ``data``;
 ``ContinuousBatchingEngine(..., mesh=mesh)`` splits its slots over
-``data``; a dense GQA transformer under ``ServeEngine(mesh=)`` decodes
+``data``; an attention model under ``ServeEngine(mesh=)`` decodes
 split-KV. ``launch.serve --mesh D,M`` drives it end to end.
 """
 from .partition import (check_partitioned, gate_row_permutation,

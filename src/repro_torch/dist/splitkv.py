@@ -1,35 +1,52 @@
-"""Split-KV sharded decode for the dense GQA transformers (qwen3, llama3.2,
-minitron, nemotron), the port of the reference's decode under
-``param_shardings`` / ``cache_shardings`` (``serving/engine.py``).
+"""Split-KV sharded decode of every attention family of the zoo: the dense
+GQA transformers (qwen3, llama3.2, minitron, nemotron), the mixture of
+experts (granite-moe, qwen3-moe), the encoder-decoder (seamless-m4t), the
+VLM (llava, its padded heads) and the int8 KV cache; the port of the
+reference's decode under ``param_shardings`` / ``cache_shardings``
+(``serving/engine.py``). The recurrent and local-attention blocks are
+refused (``tp_reason``: ROADMAP queue A item 9).
 
 The layout (``partition_transformer_params`` and the model's
 ``cache_defs`` under a mesh):
 
 * **Params** are DTensors laid out by the training rule table
   (``training.param_shardings``): ``wq`` / ``wk`` / ``wv`` / ``wo`` split
-  over ``model`` on their heads, the MLP on its hidden dim, the embedding
-  and the head on the vocabulary; the norms replicated. A dim the axis
-  does not divide stays whole (replicated).
+  over ``model`` on their heads (a VLM's ``pad_heads_to`` stored heads),
+  the MLP on its hidden dim, a mixture's experts on ``experts`` (the
+  router's columns too), the embedding and the head on the vocabulary;
+  the norms, a VLM's ``patch_norm`` and an encoder-decoder's
+  ``frame_proj`` replicated. A dim the axis does not divide stays whole.
 * **The KV cache** is split over ``model`` along ``cache_seq``: the rank at
   coordinate j holds positions ``[s0, s1) = [j·S/M, (j+1)·S/M)`` of every
-  layer, for the batch rows of its ``data`` group.
+  layer (an int8 cache's codes and scales alike), for the batch rows of
+  its ``data`` group; an encoder-decoder's cross memory the same way,
+  ``enc_len / M`` positions a rank, of which the frames the prefill
+  encoded are live.
 
-``TransformerLM`` under a mesh runs its one forward (``_run``) through
+The models under a mesh run their one forward through
 ``dist.tensor_parallel``'s forms: the embedding on the rank's vocabulary
 slice, reduced; q / k / v and the MLP's up products on the rank's heads
 and hidden columns; ``wo`` and the down product on its rows, reduced; the
-head's columns gathered. Its attention outside training is ``attend``:
+experts on their rank, the partial outputs reduced; the head's columns
+gathered. Attention outside training:
 
-* a prefill runs B15 on the rank's heads over the prompt, and the rank
-  keeps the keys and values of every kv head (gathered over ``model``
-  where split) at the positions of its segment;
-* a decode step gathers q / k / v over ``model`` in one message (q is
-  head-replicated; the new token's k / v go to the rank that owns its
-  position), runs B14 on the rank's own segment at the local length
-  ``clamp(len - s0, 0, s1 - s0)`` with its log-sum-exp (``lse=``), and
-  all-gathers (o, lse), B·Hq·(D+1) float32, over ``model``, combined with
-  weights ``exp(lse_r - max_r lse)`` (``combine``; a rank with no live key
-  weighs 0); the rank's heads of the result go on to ``wo``'s rows.
+* a prefill runs B15 on the rank's heads over the prompt (an encoder's
+  and the cross-attention's without a causal mask), and the rank keeps
+  the keys and values of every kv head (gathered over ``model`` where
+  split) at the positions of its segment, quantized there under
+  ``kv_quant``;
+* a decode step (``attend``) gathers q / k / v over ``model`` in one
+  message (q is head-replicated; the new token's k / v, its int8 codes
+  and scales, go to the rank that owns its position), runs B14 on the
+  rank's own segment (dequantized) at the local length ``clamp(len - s0,
+  0, s1 - s0)`` with its log-sum-exp (``lse=``), and all-gathers (o,
+  lse), B·Hq·(D+1) float32, over ``model``, combined with weights
+  ``exp(lse_r - max_r lse)`` (``combine``; a rank with no live key weighs
+  0); the rank's heads of the result go on to ``wo``'s rows. The cross
+  memory (``attend_memory``) is read the same way, every live row of the
+  rank's segment;
+* with ``pad_heads_to`` only the real heads attend, through the one-device
+  q → kv map by their global index; the dummy heads give 0.
 
 Every collective goes through ``collective_ops`` (staged through host
 memory where gloo carries card tensors).
@@ -42,48 +59,58 @@ from ..sharding import mesh_axes
 from .collective_ops import distribute, gather_axis
 from .partition import axis_rank, model_axis_size
 
-__all__ = ["supports_splitkv", "splitkv_reason", "tp_reason",
-           "partition_transformer_params", "check_splitkv_partitioned",
-           "cache_segment", "combine", "merge", "attend"]
+__all__ = ["supports_splitkv", "tp_reason",
+           "train_reason", "partition_transformer_params",
+           "check_splitkv_partitioned", "cache_segment", "combine", "merge",
+           "attend", "attend_memory", "write_segment", "whole_kv",
+           "prompt_attention"]
 
 
 def tp_reason(cfg) -> str | None:
-    """None when ``cfg`` runs tensor-parallel (``dist.tensor_parallel``),
-    else why not."""
+    """None when ``cfg`` serves tensor-parallel and decodes split-KV over a
+    mesh (``TransformerLM.with_mesh`` / ``EncDecLM.with_mesh``: every
+    attention family, the int8 KV cache too), else why not: the recurrent
+    and local-attention blocks (ROADMAP queue A item 9)."""
+    pattern = set(getattr(cfg, "block_pattern", ("attn",)))
+    if pattern != {"attn"}:
+        return f"blocks {sorted(pattern)} (recurrent / local)"
+    return None
+
+
+def train_reason(cfg) -> str | None:
+    """None when ``cfg`` trains tensor-parallel (``jit_train_step`` on
+    ``with_mesh``'s forms: the dense GQA transformers and the LSTM), else
+    why not (ROADMAP queue A item 11): the mixture of experts, the
+    encoder-decoder, the VLM and the recurrent blocks train data-parallel
+    only."""
     if getattr(cfg, "encdec", False):
         return "an encoder-decoder"
     if getattr(cfg, "moe", False):
         return "a mixture of experts"
-    if set(cfg.block_pattern) != {"attn"}:
-        return f"blocks {sorted(set(cfg.block_pattern))} (recurrent / local)"
     if getattr(cfg, "num_patches", 0) or getattr(cfg, "pad_heads_to", None):
         return "a VLM (patch embeddings, padded heads)"
-    return None
-
-
-def splitkv_reason(cfg) -> str | None:
-    """None when ``cfg`` decodes through the split-KV path, else why not."""
-    why = tp_reason(cfg)
-    if why is None and getattr(cfg, "kv_quant", False):
-        return "the int8 KV cache"
-    return why
+    return tp_reason(cfg)
 
 
 def supports_splitkv(model, mesh) -> bool:
-    """Whether ``model`` decodes split-KV over ``mesh``: a dense GQA
-    ``TransformerLM`` on a mesh with a ``model`` axis."""
-    return (hasattr(model, "with_mesh") and hasattr(model, "kinds")
-            and splitkv_reason(model.cfg) is None
+    """Whether ``model`` decodes split-KV over ``mesh``: a
+    ``TransformerLM`` of attention blocks or an ``EncDecLM`` on a mesh with
+    a ``model`` axis."""
+    return (hasattr(model, "with_mesh") and hasattr(model, "tp")
+            and tp_reason(model.cfg) is None
             and "model" in mesh_axes(mesh))
 
 
 def partition_transformer_params(params, model, mesh):
     """Each rank's piece of ``params`` (the same whole tensors on every
-    rank): DTensors laid out by ``training.param_shardings``."""
+    rank): DTensors laid out by ``training.param_shardings``. A leaf that
+    is already a DTensor (a sharded init's) is kept as it is."""
+    from torch.distributed.tensor import DTensor
     from ..training.train_loop import param_shardings
     from ..training.tree import leaves, unflatten
     sh = param_shardings(mesh, model)
-    return unflatten(params, [distribute(x, s) for x, s in
+    return unflatten(params, [x if isinstance(x, DTensor) else
+                              distribute(x, s) for x, s in
                               zip(leaves(params), leaves(sh))])
 
 
@@ -138,21 +165,57 @@ def merge(os_: torch.Tensor, ls: torch.Tensor) -> torch.Tensor:
 
 # ---------------------------------------------------------- attention
 
-def _write_segment(buf, new, pos_b, s0: int):
-    """Write new (B, 1, H, D) at each row's position into this rank's
-    segment ``buf`` (B, seg, H, D) where the position falls in it."""
-    seg = buf.shape[1]
+def write_segment(cache: dict, k, v, pos_b, s0: int) -> None:
+    """Write k / v (B, 1, Hkv, D) at each row's position into this rank's
+    segment ``cache`` ({"k", "v"} of (B, seg, Hkv, D); int8 codes with
+    their ``k_scale`` / ``v_scale``, ``attention.quantize_kv``'s, under
+    ``kv_quant``) where the position falls in it, as ``kv_cache_update``
+    writes the whole cache."""
+    from ..models.attention import quantize_kv
+    if "k_scale" in cache:
+        (kq, ks), (vq, vs) = quantize_kv(k), quantize_kv(v)
+        writes = (("k", kq), ("v", vq), ("k_scale", ks), ("v_scale", vs))
+    else:
+        writes = (("k", k), ("v", v))
+    seg = cache["k"].shape[1]
     loc = pos_b.to(torch.long) - s0
     keep = ((loc >= 0) & (loc < seg))[:, None, None]
-    rows = torch.arange(buf.shape[0], device=buf.device)
+    rows = torch.arange(k.shape[0], device=k.device)
     idx = loc.clamp(0, seg - 1)
-    buf[rows, idx] = torch.where(keep, new[:, 0].to(buf.dtype),
-                                 buf[rows, idx])
+    for name, new in writes:
+        buf = cache[name]
+        buf[rows, idx] = torch.where(keep, new[:, 0].to(buf.dtype),
+                                     buf[rows, idx])
+
+
+def _keep_prompt(cache: dict, k, v, s0: int) -> None:
+    """The prompt's keys and values (B, S, Hkv, D), every kv head, at the
+    positions of this rank's segment into ``cache`` (int8 codes and
+    scales under ``kv_quant``: ``quantize_kv`` of each row, as the whole
+    cache's)."""
+    from ..models.attention import quantize_kv
+    seg = cache["k"].shape[1]
+    n = min(max(k.shape[1] - s0, 0), seg)
+    for name, new in (("k", k), ("v", v)):
+        new = new[:, s0:s0 + n]
+        if "k_scale" in cache:
+            new, cache[f"{name}_scale"][:, :n] = quantize_kv(new)
+        cache[name][:, :n] = new
+
+
+def whole_kv(model, k, v):
+    """k / v of every kv head: the rank's pieces gathered over ``model``
+    where split."""
+    if k.shape[2] < model.cfg.num_kv_heads:
+        k = gather_axis(k, model.mesh, "model", 2)
+        v = gather_axis(v, model.mesh, "model", 2)
+    return k, v
 
 
 def _every_head(model, q, k, v):
-    """q, k, v of every head (B, 1, H, D), each rank's pieces gathered
-    over ``model``: in one message when all three are split."""
+    """q of every stored head and k / v of every kv head (B, 1, H, D),
+    each rank's pieces gathered over ``model``: in one message when all
+    three are split."""
     cfg, mesh = model.cfg, model.mesh
     if k.shape[2] < cfg.num_kv_heads:
         sizes = [t.shape[2] for t in (q, k, v)]
@@ -160,41 +223,100 @@ def _every_head(model, q, k, v):
                             "model", 2)                 # (B, 1, n, ., D)
         return tuple(t.reshape(t.shape[0], t.shape[1], -1, t.shape[-1])
                      for t in torch.split(whole, sizes, dim=3))
-    if q.shape[2] < cfg.num_heads:
+    if q.shape[2] < model.h_eff:
         q = gather_axis(q, mesh, "model", 2)
     return q, k, v
 
 
-def attend(model, q, k, v, cache, pos, lengths):
-    """``TransformerLM._attention`` under a mesh outside training: q on
-    the rank's heads, k / v on its kv heads or whole (``TensorParallel.
-    qkv``); ``cache`` the layer's segment. Returns the outputs of the
-    rank's heads (B, S, Hq/n, D) (every head's where q is whole). See the
-    module docstring."""
-    from ..kernels import ops as K
+def prompt_attention(model, q, k, v, causal: bool):
+    """B15 of the rank's stored q heads over the prompt's keys. With
+    ``pad_heads_to``, only the real heads attend, each through the
+    one-device q → kv map (global head g reads kv head g // (num_heads /
+    Hkv)), cut by their global index (a rank's block of stored heads can
+    hold real and dummy heads together); the dummy heads give 0."""
     from ..models import attention as A
+    from .tensor_parallel import kv_heads
     cfg, tp = model.cfg, model.tp
+    H, hq = cfg.num_heads, q.shape[2]
+    if model.h_eff == H:
+        return A.prefill_attention(q, *tp.kv_for_q(q, k, v, H,
+                                                   cfg.num_kv_heads),
+                                   causal=causal)
+    g0 = tp.rank * hq if hq < model.h_eff else 0
+    real = min(max(H - g0, 0), hq)
+    o = q.new_zeros(q.shape)
+    k, v = whole_kv(model, k, v)           # on every rank: a collective
+    if real:
+        G = H // cfg.num_kv_heads
+        o[:, :, :real] = A.prefill_attention(
+            q[:, :, :real], *kv_heads(k, v, [(g0 + i) // G
+                                             for i in range(real)]),
+            causal=causal)
+    return o
+
+
+def _segment_attention(model, q, kv: dict, length):
+    """B14 of every real head's query q (B, 1, H, D) over this rank's
+    segment ``kv`` (B, n, Hkv, D) at its local lengths, with its
+    log-sum-exp, merged over ``model`` (``combine``); the dummy heads of
+    ``pad_heads_to`` 0. A segment of no rows launches nothing and weighs
+    0. Returns (B, 1, h_eff, D) in q's dtype, alike on every rank."""
+    from ..kernels import ops as K
+    H = model.cfg.num_heads
+    qr = q[:, 0, :H]
+    B = q.shape[0]
+    if kv["k"].shape[1]:
+        lse = torch.empty(B, H, dtype=torch.float32, device=q.device)
+        o = K.decode_attention(qr, kv["k"].transpose(1, 2),
+                               kv["v"].transpose(1, 2),
+                               length.to(torch.int32), lse=lse)
+    else:
+        o = torch.zeros_like(qr)
+        lse = torch.full((B, H), float("-inf"), device=q.device)
+    o = combine(o, lse, model.mesh).to(q.dtype)
+    if model.h_eff != H:
+        o = torch.cat([o, o.new_zeros(B, model.h_eff - H, o.shape[-1])], 1)
+    return o[:, None]
+
+
+def _rank_heads(model, o, heads: int):
+    """The rank's block of ``heads`` stored heads of o (B, S, h_eff, D)
+    (all of them where its q is whole)."""
+    return o if heads == o.shape[2] else model.tp.rank_slice(o, 2, o.shape[2])
+
+
+def attend(model, q, k, v, cache, pos, lengths):
+    """The self-attention of ``TransformerLM._attention`` (and of
+    ``EncDecLM``'s decoder) under a mesh outside training: q on the rank's
+    stored heads, k / v on its kv heads or whole (``TensorParallel.qkv``);
+    ``cache`` the layer's segment (bf16, or int8 codes and scales). Returns
+    the outputs of the rank's heads (B, S, h_eff/n, D) (every head's where
+    q is whole). See the module docstring."""
+    from ..models import attention as A
     seg = cache["k"].shape[1]
-    s0 = tp.rank * seg
+    s0 = model.tp.rank * seg
     if lengths is None:                                 # the prompt
-        o = A.prefill_attention(q, *tp.kv_for_q(q, k, v, cfg.num_heads,
-                                                 cfg.num_kv_heads))
-        if k.shape[2] < cfg.num_kv_heads:
-            k = gather_axis(k, model.mesh, "model", 2)
-            v = gather_axis(v, model.mesh, "model", 2)
-        n = min(max(k.shape[1] - s0, 0), seg)
-        cache["k"][:, :n] = k[:, s0:s0 + n]
-        cache["v"][:, :n] = v[:, s0:s0 + n]
+        if model.h_eff != model.cfg.num_heads:
+            k, v = whole_kv(model, k, v)
+        o = prompt_attention(model, q, k, v, causal=True)
+        _keep_prompt(cache, *whole_kv(model, k, v), s0)
         return o
     heads = q.shape[2]
     q, k, v = _every_head(model, q, k, v)
-    pos_b = lengths - 1
-    _write_segment(cache["k"], k, pos_b, s0)
-    _write_segment(cache["v"], v, pos_b, s0)
-    loc = (lengths - s0).clamp(0, seg).to(torch.int32)
-    lse = torch.empty(q.shape[0], q.shape[2], dtype=torch.float32,
-                      device=q.device)
-    o = K.decode_attention(q[:, 0], cache["k"].transpose(1, 2),
-                           cache["v"].transpose(1, 2), loc, lse=lse)
-    o = combine(o, lse, model.mesh).to(q.dtype)[:, None]  # (B, 1, Hq, D)
-    return o if heads == q.shape[2] else tp.rank_slice(o, 2, q.shape[2])
+    write_segment(cache, k, v, lengths - 1, s0)
+    loc = (lengths - s0).clamp(0, seg)
+    o = _segment_attention(model, q, A.dequantize_cache(cache, q.dtype), loc)
+    return _rank_heads(model, o, heads)
+
+
+def attend_memory(model, q, mem: dict):
+    """Cross-attention of a decode step under a mesh: q (B, 1, Hq/n, D)
+    on the rank's heads over this rank's segment of the encoder's memory
+    ``mem`` ({"k", "v"} (B, n, Hkv, D), its n live positions, non-causal),
+    merged over ``model``. Returns the rank's heads' outputs."""
+    heads = q.shape[2]
+    if heads < model.h_eff:
+        q = gather_axis(q, model.mesh, "model", 2)
+    n = torch.full((q.shape[0],), mem["k"].shape[1], dtype=torch.int32,
+                   device=q.device)
+    return _rank_heads(model, _segment_attention(model, q, mem, n), heads)

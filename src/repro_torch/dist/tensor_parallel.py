@@ -25,11 +25,13 @@ The forms: ``row`` (a product on the rank's input rows, reduced),
 0, the rows reduced), ``logits`` (the head's columns, gathered), ``mlp``
 (the column- then row-parallel pair, the hidden dim split between them),
 ``qkv`` (the projections on the rank's heads, qk-norm and RoPE),
-``kv_for_q`` (the kv heads the rank's q heads read) and ``lstm_scan`` (an
-LSTM layer on the rank's gate rows, the gate preactivations gathered each
-step). The training forward, the
-prefill and the split-KV decode step of ``TransformerLM`` and the LSTM's
-training forward run through them.
+``kv_for_q`` (the kv heads the rank's q heads read), ``moe`` (expert
+parallelism: every rank routes alike, runs its own experts and the partial
+outputs are reduced) and ``lstm_scan`` (an LSTM layer on the rank's gate
+rows, the gate preactivations gathered each step). The training forward,
+the prefill and the split-KV decode step of ``TransformerLM`` and
+``EncDecLM`` and the LSTM's training forward run through them (``moe``
+serves only: a mixture of experts trains data-parallel).
 
 Every collective goes through ``collective_ops`` (staged through host
 memory where gloo carries card tensors); the partial sums reduce in
@@ -42,7 +44,7 @@ import torch
 from ..sharding import mesh_axes
 from .collective_ops import all_reduce_axis, gather_axis
 
-__all__ = ["TensorParallel", "local"]
+__all__ = ["TensorParallel", "local", "kv_heads"]
 
 
 def local(w):
@@ -88,6 +90,20 @@ class _Gather(torch.autograd.Function):
             None
 
 
+def kv_heads(k, v, idx: list):
+    """k / v (B, S, Hkv, D) at kv heads ``idx``, one a q head (Python ints:
+    the index map is layout, not data, and a trace on fake tensors reads no
+    tensor's values): a slice where ``idx`` is a plain GQA grouping of a
+    block of kv heads, else an ``index_select`` (each q head its own kv
+    head)."""
+    kv0, kv1 = idx[0], idx[-1] + 1
+    n, hq = kv1 - kv0, len(idx)
+    if hq % n == 0 and idx == [kv0 + i // (hq // n) for i in range(hq)]:
+        return k[:, :, kv0:kv1], v[:, :, kv0:kv1]
+    t = torch.tensor(idx, device=k.device)
+    return k.index_select(2, t), v.index_select(2, t)
+
+
 class TensorParallel:
     """The local forms over ``mesh``'s ``model`` axis (None, or a mesh
     without one: every form is the one-device math)."""
@@ -107,6 +123,12 @@ class TensorParallel:
             return None
         pl = w.placements[self._axis]
         return pl.dim if pl.is_shard() else None
+
+    def whole(self, w):
+        """``w``'s whole tensor: its pieces gathered over ``model`` where
+        split there."""
+        d = self.split_dim(w)
+        return local(w) if d is None else self.gather(local(w), d)
 
     def rank_slice(self, x, dim: int, whole: int):
         """The rank's block of ``x``'s dim ``dim`` (of ``whole`` entries,
@@ -219,15 +241,32 @@ class TensorParallel:
         if hq == num_heads or k.shape[2] < num_kv_heads:
             return k, v
         G = num_heads // num_kv_heads        # q heads a kv head
-        # the index map in Python ints: it is layout, not data (a trace on
-        # fake tensors reads no tensor's values)
-        idx = [h // G for h in range(self.rank * hq, (self.rank + 1) * hq)]
-        kv0, kv1 = idx[0], idx[-1] + 1
-        n = kv1 - kv0
-        if hq % n == 0 and idx == [kv0 + i // (hq // n) for i in range(hq)]:
-            return k[:, :, kv0:kv1], v[:, :, kv0:kv1]
-        idx = torch.tensor(idx, device=k.device)
-        return k.index_select(2, idx), v.index_select(2, idx)
+        return kv_heads(k, v, [h // G for h in range(self.rank * hq,
+                                                     (self.rank + 1) * hq)])
+
+    def moe(self, p: dict, x, **kw):
+        """``moe.moe_apply`` (``kw``: its keywords); with the experts split
+        over ``model``, expert parallelism: the router's float32 columns
+        gathered, so every rank routes alike (the one-device ids, ranks and
+        drop set), each rank's FFN run for its own experts on the pairs
+        routed to them, and the ranks' float32 partial outputs summed over
+        ``model`` before the cast. With the experts whole (a count
+        ``model`` does not divide), the one-device function on whole
+        weights. Returns (out in x's dtype, aux)."""
+        from ..models.moe import moe_apply
+        if self.split_dim(p["w_up"]) != 0:
+            # experts whole: a leaf the rule table split on another dim
+            # (an expert count ``model`` does not divide) is gathered
+            return moe_apply({k: self.whole(v) for k, v in p.items()}, x,
+                             **kw)
+        mine = {k: local(v) for k, v in p.items()}
+        if self.split_dim(p["router"]) == 1:
+            mine["router"] = self.gather(mine["router"], 1)
+        n = mine["w_up"].shape[0]
+        part, aux = moe_apply(mine, self.copy(x), **kw,
+                              expert_range=(self.rank * n,
+                                            (self.rank + 1) * n))
+        return self.reduce(part).to(x.dtype), aux
 
     def lstm_scan(self, lp: dict, xs, c0, h0, cell):
         """An LSTM layer over xs (B, T, X): with the gate rows split, each

@@ -3,7 +3,12 @@
 The backend (``repro_torch.sparse.backend``) resolves per call: "cuda"
 launches the hand-written kernel, "ref" runs the plain PyTorch version, and
 "auto" picks by where the operands lie. A CUDA tensor never falls back to
-the plain version.
+the plain version. The wrappers the reference gives ``use_kernel=``
+(``rb_spmv``, ``rb_dual_spmv``, ``lstm_gates``, ``flash_attention``,
+``decode_attention``) take it too, deprecated (``sparse.backend.
+from_use_kernel``: True → "auto", False → "ref"), and refuse the
+reference's Pallas tiling knobs by name: the port's launch plans are
+``kernels/plan.py``'s.
 
 A struct pre-padded by ``core.packing.pad_packed`` is consumed as it is
 (no per-call copy of the weight stream), as is an unpadded one: the kernels
@@ -97,6 +102,20 @@ def fakes_as_card():
         yield
     finally:
         _AS_CARD[0] = prev
+
+
+def _pick(backend, use_kernel, t, **tiling) -> str:
+    """``_resolve`` for the wrappers that take the reference's deprecated
+    ``use_kernel=`` (``sparse.backend.from_use_kernel``); its tiling knobs
+    (``block_rows=``, ``block_q=``, ``block_kv=``) are refused by name."""
+    for name, value in tiling.items():
+        if value is not None:
+            raise TypeError(
+                f"{name}= is the reference's Pallas tiling; the port's "
+                "kernels take their launch plans from kernels/plan.py")
+    if use_kernel is not None:
+        backend = _backend.from_use_kernel(use_kernel, stacklevel=4)
+    return _resolve(backend, t)
 
 
 def _is_fake(t) -> bool:
@@ -217,10 +236,11 @@ def _plus_bias(v, bias):
 
 # ---------------------------------------------------------------- float
 
-def rb_spmv(s: RowBalancedSparse, x, *, backend: str | None = None):
+def rb_spmv(s: RowBalancedSparse, x, *, backend: str | None = None,
+            use_kernel: bool | None = None, block_rows: int | None = None):
     """y = S@x — the packed row-balanced SpMV; x (B, ncols) → (B, rows)
-    in x.dtype."""
-    if _resolve(backend, x) == "ref":
+    in x.dtype. ``use_kernel=`` / ``block_rows=``: see ``_pick``."""
+    if _pick(backend, use_kernel, x, block_rows=block_rows) == "ref":
         return _ref.rb_spmv_ref(s, x)
     _check_cols(s, x)
     if _is_fake(x):
@@ -230,10 +250,12 @@ def rb_spmv(s: RowBalancedSparse, x, *, backend: str | None = None):
 
 
 def rb_dual_spmv(sx: RowBalancedSparse, x, sh: RowBalancedSparse, h, bias,
-                 *, backend: str | None = None):
+                 *, backend: str | None = None,
+                 use_kernel: bool | None = None,
+                 block_rows: int | None = None):
     """z = Sx@x + Sh@h + bias — the dual-ratio gate preactivation,
     (B, rows) in x.dtype."""
-    if _resolve(backend, x) == "ref":
+    if _pick(backend, use_kernel, x, block_rows=block_rows) == "ref":
         return _ref.rb_dual_spmv_ref(sx, x, sh, h, bias)
     _check_dual(sx, x, sh, h)
     if _is_fake(x):
@@ -245,9 +267,9 @@ def rb_dual_spmv(sx: RowBalancedSparse, x, sh: RowBalancedSparse, h, bias,
 
 
 def lstm_gates(zf, zi, zg, zo, c_prev, *, pwl: bool = False,
-               backend: str | None = None):
+               backend: str | None = None, use_kernel: bool | None = None):
     """(c, h) from the four gate preactivations and c_prev."""
-    if _resolve(backend, c_prev) == "ref":
+    if _pick(backend, use_kernel, c_prev) == "ref":
         return _ref.lstm_cell_ref(zf, zi, zg, zo, c_prev, pwl=pwl)
     if _is_fake(c_prev):
         return _faked("lstm_gates", (torch.empty_like(c_prev),
@@ -595,12 +617,15 @@ def _check_window(window):
 
 
 def flash_attention(q, k, v, *, causal: bool = True,
-                    window: int | None = None, backend: str | None = None):
+                    window: int | None = None, backend: str | None = None,
+                    use_kernel: bool | None = None,
+                    block_q: int | None = None, block_kv: int | None = None):
     """Blocked causal / windowed GQA attention forward (B15). q (B, Hq, Sq,
     D), k/v (B, Hkv, Sk, D); q rows right-aligned to the kv end; a row with
     no live key gives 0. Returns (B, Hq, Sq, D) in q.dtype."""
     _check_window(window)
-    if _resolve(backend, q) == "ref":
+    if _pick(backend, use_kernel, q, block_q=block_q,
+             block_kv=block_kv) == "ref":
         return _ref.flash_attention_ref(q, k, v, causal=causal, window=window)
     if _is_fake(q):
         B, Hq, Sq, D = q.shape
@@ -613,7 +638,9 @@ def flash_attention(q, k, v, *, causal: bool = True,
 
 def decode_attention(q, k, v, lengths, *, window: int | None = None,
                      lse: torch.Tensor | None = None,
-                     backend: str | None = None):
+                     backend: str | None = None,
+                     use_kernel: bool | None = None,
+                     block_kv: int | None = None):
     """Single-query GQA attention over a KV cache (B14). q (B, Hq, D), k/v
     (B, Hkv, S, D), lengths (B,) valid rows (the last ``window`` of them
     with a window); a row with length 0 gives 0. Returns (B, Hq, D) in
@@ -626,7 +653,7 @@ def decode_attention(q, k, v, lengths, *, window: int | None = None,
                             or not lse.is_contiguous()):
         raise ValueError(f"lse: a contiguous float32 {tuple(q.shape[:2])} "
                          f"tensor, got {lse.dtype} {tuple(lse.shape)}")
-    if _resolve(backend, q) == "ref":
+    if _pick(backend, use_kernel, q, block_kv=block_kv) == "ref":
         return _ref.decode_attention_window_ref(q, k, v, lengths,
                                                 window=window, lse=lse)
     if _is_fake(q):

@@ -258,7 +258,6 @@ def refusal(arch_name: str, shape_name: str, multi_pod: bool = False,
 def _refuse(mesh, arch, model, shape):
     """Raise ``NotPorted`` with the port's refusal of this cell's path;
     return the model the step runs (over the mesh)."""
-    from ..dist.splitkv import splitkv_reason
     from ..training.train_loop import tensor_parallel_model
     if shape.kind == "train":
         try:
@@ -271,15 +270,12 @@ def _refuse(mesh, arch, model, shape):
             f"{arch.name}: the dry run traces an LSTM's train step; its "
             "sharded decode serves packed rows (ServeEngine(mesh=)), which "
             "it does not build")
-    with_mesh = getattr(model, "with_mesh", None)
-    if with_mesh is None:
-        raise NotPorted(
-            f"{arch.name}: --mesh serves the packed LSTM and the dense GQA "
-            f"transformers (split-KV); {arch.name} is "
-            f"{splitkv_reason(arch)}, whose sharded decode is ROADMAP.md "
-            "queue A item 9")
+    if arch.layout == "dp":
+        # a mixture's prefill keeps the "dp" layout (cell_config): params
+        # whole, the batch over every rank, the one-device prefill
+        return model
     try:
-        net = with_mesh(mesh)
+        net = model.with_mesh(mesh)
         net.cache_defs(1, shape.seq_len)
     except NotImplementedError as e:
         raise NotPorted(str(e)) from None

@@ -72,15 +72,18 @@ against the card's decode roofline (``obs.scorecard``); the counters ride
 the decode only when one of the two asks for them.
 ``--mesh DATA,MODEL`` serves a packed LSTM (``--brds``) sharded over
 DATA × MODEL ranks (``repro_torch.dist``): the gate rows split over MODEL,
-the batch (or the scheduler's slots) over DATA where it divides. A dense
-GQA transformer (qwen3, llama3.2, minitron, nemotron; ``--brds`` or not)
-runs tensor-parallel and decodes split-KV (``dist.tensor_parallel``,
-``dist.splitkv``): its projections, MLP and vocabulary over MODEL, its KV
-cache over MODEL along the sequence, lockstep only (the other families
-and ``--continuous`` / ``--traffic`` refuse it: ROADMAP queue A item 9).
-Each rank draws the params whole before it keeps its pieces, so a model
-whose whole params do not fit one card (nemotron-4-340b) stops with its
-size (a sharded init is item 9 too). The CLI
+the batch (or the scheduler's slots) over DATA where it divides. An
+attention model of the zoo (the dense GQA transformers, granite-moe and
+qwen3-moe, seamless-m4t, llava, any of them with ``kv_quant``; ``--brds``
+or not) runs tensor-parallel and decodes split-KV
+(``dist.tensor_parallel``, ``dist.splitkv``): its projections, MLP,
+experts and vocabulary over MODEL, its KV cache (and an encoder-decoder's
+cross memory) over MODEL along the sequence, its frames or patches over
+DATA with the prompts, lockstep only (the recurrent families and
+``--continuous`` / ``--traffic`` refuse it: ROADMAP queue A item 9).
+Each rank draws every param as ``model.init`` draws it and keeps only its
+piece (``layers.init_params(shardings=)``), so no rank holds whole
+params. The CLI
 spawns the ranks itself (``launch.mesh.run_ranks``) unless it already
 runs under ``torchrun``; rank 0 prints. ``--dist-backend`` picks NCCL (one
 card a rank, the default on the card) or gloo (any number of ranks, on
@@ -94,6 +97,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import dataclasses
+import math
 import os
 import statistics
 import sys
@@ -172,10 +176,12 @@ def _lstm_target(args, device):
     return model, params, sparsity
 
 
-def _transformer_target(ap, args, device):
+def _transformer_target(ap, args, device, mesh=None):
     """(model, params, sparsity, extra_fn) for a zoo ``--arch``;
     ``extra_fn(gen, batch, frames=32)`` draws the family's conditioning
-    (None for a text-only model)."""
+    (None for a text-only model). Under ``mesh`` the params are this
+    rank's pieces (DTensors laid out by ``training.param_shardings``),
+    each drawn as ``model.init`` draws it and cut before the next."""
     from repro_torch.configs import get_arch, smoke_config
     from repro_torch.models import build_model
     from repro_torch.sparse import transformer_policy
@@ -194,21 +200,26 @@ def _transformer_target(ap, args, device):
         ap.error(f"--traffic submits prompts without frames, which "
                  f"{args.arch} (an encoder-decoder) needs")
     model = build_model(cfg)
+    shardings = None
+    if mesh is not None:
+        from repro_torch.training.train_loop import param_shardings
+        shardings = param_shardings(mesh, model)
     if device.type == "cuda":
-        from repro_torch.models.layers import param_bytes
-        need = param_bytes(model.param_defs())
+        need = rank_param_bytes(model, shardings)
         free = torch.cuda.mem_get_info(device)[0]
         if need > free:
             raise SystemExit(
-                f"{args.arch}: its whole params ({need / 2**30:.1f} GiB) are "
-                f"drawn on each rank before it keeps its pieces, and the "
-                f"card has {free / 2**30:.1f} GiB free: a sharded init is "
-                "ROADMAP.md queue A item 9")
+                f"{args.arch}: this rank's params ({need / 2**30:.1f} GiB) "
+                f"do not fit the {free / 2**30:.1f} GiB free on its card")
     t0 = time.perf_counter()
-    params = model.init(torch.Generator().manual_seed(args.seed), device)
+    from repro_torch.models.layers import init_params
+    params = init_params(model.param_defs(),
+                         torch.Generator().manual_seed(args.seed), device,
+                         shardings=shardings)
     _sync(device)
     print(f"init {time.perf_counter() - t0:.2f}s ({cfg.dtype} weights from "
-          f"a CPU generator, seed {args.seed})")
+          f"a CPU generator, seed {args.seed}"
+          + (", this rank's pieces" if mesh is not None else "") + ")")
     sparsity = (transformer_policy(args.spar_a, args.spar_b) if args.brds
                 else None)
 
@@ -220,6 +231,24 @@ def _transformer_target(ap, args, device):
             device=device, dtype=cfg.torch_dtype)
 
     return model, params, sparsity, extra_fn
+
+
+def rank_param_bytes(model, shardings=None) -> int:
+    """The bytes of ``model``'s params one rank holds: all of them, or
+    under ``shardings`` (``training.param_shardings``) its pieces."""
+    from repro_torch.models.layers import param_bytes
+    from repro_torch.training.tree import leaves
+    defs = model.param_defs()
+    if shardings is None:
+        return param_bytes(defs)
+    total = 0
+    for d, sh in zip(leaves(defs), leaves(shardings)):
+        n = math.prod(d.shape) * d.dtype.itemsize
+        for i, pl in enumerate(sh.placements):
+            if pl.is_shard():
+                n //= sh.mesh.size(i)
+        total += n
+    return total
 
 
 def _no_extra(gen, batch, frames=32):
@@ -388,8 +417,8 @@ def parser() -> argparse.ArgumentParser:
                          "or the --continuous / --traffic run) and print "
                          "the device time by kernel and the busy share")
     ap.add_argument("--mesh", default=None, metavar="DATA,MODEL",
-                    help="serve a packed LSTM (--brds) or a dense GQA "
-                         "transformer (split-KV) sharded over a (data, "
+                    help="serve a packed LSTM (--brds) or an attention "
+                         "model of the zoo (split-KV) sharded over a (data, "
                          "model) mesh of DATA x MODEL ranks, e.g. '2,2' "
                          "(repro_torch.dist); the CLI spawns the ranks "
                          "unless it runs under torchrun")
@@ -412,12 +441,12 @@ def _mesh_shape(ap, args) -> tuple[int, int]:
         ap.error(f"--mesh {args.mesh}: sizes must be positive")
     if args.arch not in LSTM_CONFIGS:
         from repro_torch.configs import get_arch, smoke_config
-        from repro_torch.dist.splitkv import splitkv_reason
+        from repro_torch.dist.splitkv import tp_reason
         cfg = smoke_config(args.arch) if args.smoke else get_arch(args.arch)
-        why = splitkv_reason(cfg)
+        why = tp_reason(cfg)
         if why is not None:
-            ap.error(f"--mesh serves the packed LSTM and the dense GQA "
-                     f"transformers (split-KV); {args.arch} is {why}, whose "
+            ap.error(f"--mesh serves the packed LSTM and the attention "
+                     f"models (split-KV); {args.arch} has {why}, whose "
                      "sharded decode is ROADMAP.md queue A item 9")
         if args.continuous or args.traffic:
             ap.error(f"--continuous / --traffic with --mesh serve the packed "
@@ -521,8 +550,8 @@ def main(argv=None, mesh=None):
     if args.arch in LSTM_CONFIGS:
         model, params, sparsity = _lstm_target(args, device)
     else:
-        model, params, sparsity, extra_fn = _transformer_target(ap, args,
-                                                                device)
+        model, params, sparsity, extra_fn = _transformer_target(
+            ap, args, device, mesh)
     cfg = model.cfg
     print(f"arch={cfg.name} params={model.param_count() / 1e6:.1f}M "
           f"device={device}")

@@ -18,8 +18,19 @@ cross memory's keys and values in the compute dtype, as the reference's
 prefill writes them, with as many rows as the prefill's frames. The
 training forward takes plain PyTorch attention (``train_attention``:
 the full masked softmax up to 4096 rows, the reference's threshold here).
+
+Under a mesh (``with_mesh``) the projections, the MLPs, the embedding and
+the head run through ``dist.tensor_parallel``'s forms on each rank's
+pieces of the params: the encoder on the rank's heads (B15 without a
+causal mask), the decoder's self cache and its cross memory each the
+rank's segment of ``cache_seq`` (``enc_len / model`` positions of the
+memory, the frames the prefill encoded live), both read by a decode step
+split-KV (``dist.splitkv``). It serves only: it trains data-parallel
+(ROADMAP queue A item 11).
 """
 from __future__ import annotations
+
+import copy
 
 import torch
 from torch.utils.checkpoint import checkpoint
@@ -28,6 +39,7 @@ from . import attention as A
 from . import layers as L
 from ..core.metrics import cross_entropy
 from ..device import resolve_device
+from ..dist.tensor_parallel import TensorParallel, local
 
 FULL_UPTO = 4096     # the reference's full-attention threshold (rows)
 
@@ -42,6 +54,22 @@ class EncDecLM:
         self.vocab_padded = L.pad_vocab(cfg.vocab_size)
         self.n_enc = cfg.enc_layers or cfg.num_layers
         self.n_dec = cfg.num_layers
+        self.h_eff = cfg.num_heads
+        # a (data, model) DeviceMesh: the tensor-parallel forward and the
+        # split-KV decode (with_mesh)
+        self.mesh = None
+        self.tp = TensorParallel(None)
+
+    def with_mesh(self, mesh) -> "EncDecLM":
+        """Copy of this model over ``mesh`` (a DeviceMesh with a ``model``
+        axis), or, with None, on one device: its params are DTensors laid
+        out by ``training.param_shardings``, its forward tensor-parallel
+        and its decode split-KV over its self cache and its cross memory
+        (see the module docstring)."""
+        other = copy.copy(self)
+        other.mesh = mesh
+        other.tp = TensorParallel(mesh)
+        return other
 
     # ------------------------------------------------------------- params
     def _enc_block_defs(self) -> dict:
@@ -107,42 +135,55 @@ class EncDecLM:
 
     def _attend(self, q, k, v, *, causal: bool, train: bool):
         """q (B, Sq, H, Dh) over k / v (B, Sk, Hkv, Dh): plain PyTorch in
-        training, B15 otherwise."""
+        training, B15 otherwise; under a mesh q on the rank's heads, k / v
+        on its kv heads or whole."""
         if train:
             return A.train_attention(q, k, v, block_q=self.cfg.block_q,
                                      block_kv=self.cfg.block_kv,
                                      causal=causal, full_upto=FULL_UPTO)
+        if self.mesh is not None:
+            from ..dist.splitkv import prompt_attention
+            return prompt_attention(self, q, k, v, causal)
         return A.prefill_attention(q, k, v, causal=causal)
 
     def _cross_q(self, p, h):
-        """Cross-attention queries: no RoPE."""
-        q = L.pmm(h, p["wq"])
-        return L.rmsnorm(q, p["q_norm"]) if self.cfg.qk_norm else q
+        """Cross-attention queries (the rank's heads under a mesh): no
+        RoPE."""
+        tp = self.tp
+        q = L.pmm(tp.copy(h), local(p["wq"]))
+        if not self.cfg.qk_norm:
+            return q
+        return L.rmsnorm(q, tp.copy(local(p["q_norm"])))
 
     def _cross_kv(self, p, enc_out):
-        """The cross-attention keys and values of the encoder's memory: no
-        RoPE."""
-        k, v = L.pmm(enc_out, p["wk"]), L.pmm(enc_out, p["wv"])
+        """The cross-attention keys and values of the encoder's memory (the
+        rank's kv heads where ``wk`` / ``wv`` are split): no RoPE."""
+        tp = self.tp
+        kv_split = tp.split_dim(p["wk"]) == 1
+        x = tp.copy(enc_out) if kv_split else enc_out
+        k, v = L.pmm(x, local(p["wk"])), L.pmm(x, local(p["wv"]))
         if self.cfg.qk_norm:
-            k = L.rmsnorm(k, p["k_norm"])
+            kn = local(p["k_norm"])
+            k = L.rmsnorm(k, tp.copy(kn) if kv_split else kn)
         return k, v
 
     # ------------------------------------------------------------ encoder
     def _enc_block(self, p, x, rot, train):
-        cfg = self.cfg
-        h = L.apply_norm(cfg.norm, p["norm1"], x)
-        q, k, v = A.qkv_project(p["attn"], h, rot, qk_norm=cfg.qk_norm)
-        x = x + A.out_project(p["attn"], self._attend(q, k, v, causal=False,
-                                                      train=train))
-        h = L.apply_norm(cfg.norm, p["norm2"], x)
-        return x + L.mlp_apply(p["mlp"], h, cfg.activation)
+        cfg, tp = self.cfg, self.tp
+        h = tp.norm(cfg.norm, p["norm1"], x)
+        q, k, v = tp.qkv(p["attn"], h, rot, qk_norm=cfg.qk_norm)
+        x = x + tp.row(self._attend(q, k, v, causal=False, train=train),
+                       p["attn"]["wo"], flat_in=2)
+        h = tp.norm(cfg.norm, p["norm2"], x)
+        return x + tp.mlp(p["mlp"], h, cfg.activation)
 
     def encode(self, params, frames, train: bool = False):
         """Frame embeddings (B, S_enc, d) → the encoder's memory (B, S_enc,
         d): ``frame_proj``, the bidirectional stack (B15 without a causal
         mask; plain PyTorch with ``train``), ``enc_norm``."""
         cfg = self.cfg
-        x = L.pmm(frames.to(cfg.torch_dtype), params["frame_proj"]["w"])
+        x = L.pmm(frames.to(cfg.torch_dtype),
+                  local(params["frame_proj"]["w"]))
         rot = self._rot(x.shape[1], x.device)
         remat = train and cfg.remat and torch.is_grad_enabled()
         for p in params["enc_blocks"]:
@@ -151,7 +192,7 @@ class EncDecLM:
                                use_reentrant=False)
             else:
                 x = self._enc_block(p, x, rot, train)
-        return L.apply_norm(cfg.norm, params["enc_norm"], x)
+        return self.tp.norm(cfg.norm, params["enc_norm"], x)
 
     # ------------------------------------------------------------ decoder
     def _dec_block(self, p, x, rot, enc_out, cache, pos, lengths, train):
@@ -160,11 +201,15 @@ class EncDecLM:
         0 when a cache is given; cross-attention over ``enc_out``, whose
         keys and values go to ``cache["cross"]``); else one token a
         sequence, written at ``pos``, over ``lengths`` self rows and every
-        row of the cross memory."""
-        cfg = self.cfg
-        h = L.apply_norm(cfg.norm, p["norm1"], x)
-        q, k, v = A.qkv_project(p["attn"], h, rot, qk_norm=cfg.qk_norm)
-        if lengths is not None:
+        row of the cross memory. Under a mesh both through
+        ``dist.splitkv`` on the rank's segments."""
+        cfg, tp = self.cfg, self.tp
+        h = tp.norm(cfg.norm, p["norm1"], x)
+        q, k, v = tp.qkv(p["attn"], h, rot, qk_norm=cfg.qk_norm)
+        if self.mesh is not None and not train:
+            from ..dist import splitkv
+            o = splitkv.attend(self, q, k, v, cache["self"], pos, lengths)
+        elif lengths is not None:
             A.kv_cache_update(cache["self"], k, v, pos)
             o = A.decode_attention(q, A.dequantize_cache(cache["self"],
                                                          h.dtype), lengths)
@@ -172,26 +217,48 @@ class EncDecLM:
             o = self._attend(q, k, v, causal=True, train=train)
             if cache is not None:
                 A.kv_cache_update(cache["self"], k, v, 0)
-        x = x + A.out_project(p["attn"], o)
-        h = L.apply_norm(cfg.norm, p["norm_x"], x)
+        x = x + tp.row(o, p["attn"]["wo"], flat_in=2)
+        h = tp.norm(cfg.norm, p["norm_x"], x)
         qx = self._cross_q(p["xattn"], h)
         if lengths is not None:
             mem = cache["cross"]
-            n = torch.full_like(lengths, mem["k"].shape[1])
-            ox = A.decode_attention(qx, mem, n)
+            if self.mesh is not None:
+                from ..dist.splitkv import attend_memory
+                ox = attend_memory(self, qx, mem)
+            else:
+                n = torch.full_like(lengths, mem["k"].shape[1])
+                ox = A.decode_attention(qx, mem, n)
         else:
             ck, cv = self._cross_kv(p["xattn"], enc_out)
             ox = self._attend(qx, ck, cv, causal=False, train=train)
             if cache is not None:
-                cache["cross"] = {"k": ck, "v": cv}
-        x = x + A.out_project(p["xattn"], ox)
-        h = L.apply_norm(cfg.norm, p["norm2"], x)
-        return x + L.mlp_apply(p["mlp"], h, cfg.activation)
+                cache["cross"] = self._memory(ck, cv)
+        x = x + tp.row(ox, p["xattn"]["wo"], flat_in=2)
+        h = tp.norm(cfg.norm, p["norm2"], x)
+        return x + tp.mlp(p["mlp"], h, cfg.activation)
+
+    def _memory(self, k, v) -> dict:
+        """The cross memory a decode step reads: the encoder memory's keys
+        and values (B, S_enc, Hkv, Dh); under a mesh, every kv head
+        (gathered over ``model`` where split) at the live positions of the
+        rank's segment of ``enc_len`` (``dist.splitkv.cache_segment``),
+        which may be none."""
+        if self.mesh is None:
+            return {"k": k, "v": v}
+        from ..dist.splitkv import whole_kv, cache_segment
+        if k.shape[1] > self.cfg.enc_len:
+            raise ValueError(f"{k.shape[1]} frames past the cross memory's "
+                             f"enc_len {self.cfg.enc_len}, which a mesh "
+                             "splits over its model axis")
+        s0, s1 = cache_segment(self.mesh, self.cfg.enc_len)
+        k, v = whole_kv(self, k, v)
+        n = min(max(k.shape[1] - s0, 0), s1 - s0)
+        return {"k": k[:, s0:s0 + n], "v": v[:, s0:s0 + n]}
 
     def _decode_stack(self, params, tokens, positions, enc_out, cache=None,
                       pos=None, lengths=None, train=False):
         """Embed, the decoder layers, the final norm."""
-        x = L.embed_apply(params["embed"], tokens)
+        x = self.tp.embed(params["embed"]["table"], tokens)
         rot = L.rope_tables(positions, self.cfg.head_dim // 2,
                             self.cfg.rope_theta)
         remat = train and self.cfg.remat and torch.is_grad_enabled()
@@ -203,7 +270,7 @@ class EncDecLM:
             else:
                 x = self._dec_block(p, x, rot, enc_out, c, pos, lengths,
                                     train)
-        return L.apply_norm(self.cfg.norm, params["final_norm"], x)
+        return self.tp.norm(self.cfg.norm, params["final_norm"], x)
 
     # ---------------------------------------------------------------- api
     def forward(self, params, tokens, frames):
@@ -213,7 +280,7 @@ class EncDecLM:
         enc_out = self.encode(params, frames, train=True)
         positions = torch.arange(tokens.shape[1], device=tokens.device)[None]
         x = self._decode_stack(params, tokens, positions, enc_out, train=True)
-        return L.logits_apply(params["head"], x, self.cfg.vocab_size), 0.0
+        return self.tp.logits(params["head"], x, self.cfg.vocab_size), 0.0
 
     def loss(self, params, batch):
         """Next-token cross-entropy of ``batch`` ({"tokens", "labels",
@@ -227,13 +294,20 @@ class EncDecLM:
         Hkv, Dh), and ``cross``, the encoder memory's keys and values (B,
         enc_len, Hkv, Dh) in the compute dtype, every leaf under the
         ``cache_seq`` axis (positional: a rewind leaves them). A prefill's
-        cross leaves hold as many rows as its frames."""
+        cross leaves hold as many rows as its frames. Under a mesh, the
+        rank's segments of ``max_len`` and of ``enc_len``."""
         cfg = self.cfg
         dt = cfg.torch_dtype
+        enc_len = cfg.enc_len
+        if self.mesh is not None:
+            from ..dist.splitkv import cache_segment
+            s0, s1 = cache_segment(self.mesh, max_len)
+            e0, e1 = cache_segment(self.mesh, enc_len)
+            max_len, enc_len = s1 - s0, e1 - e0
         blk = lambda: {
             "self": A.kv_cache_defs(batch, max_len, cfg.num_kv_heads,
                                     cfg.head_dim, dt, quant=cfg.kv_quant),
-            "cross": A.kv_cache_defs(batch, cfg.enc_len, cfg.num_kv_heads,
+            "cross": A.kv_cache_defs(batch, enc_len, cfg.num_kv_heads,
                                      cfg.head_dim, dt)}
         return {"dec": [blk() for _ in range(self.n_dec)]}
 
@@ -253,15 +327,14 @@ class EncDecLM:
             raise ValueError(f"prompt of {S} tokens exceeds max_len "
                              f"{max_len}")
         enc_out = self.encode(params, extra)
-        cfg = self.cfg
-        # the self caches; each layer's cross memory comes from enc_out
-        cache = {"dec": [{"self": L.init_params(A.kv_cache_defs(
-            B, max_len, cfg.num_kv_heads, cfg.head_dim, cfg.torch_dtype,
-            quant=cfg.kv_quant), None, tokens.device)}
-            for _ in range(self.n_dec)]}
+        # the self caches (the rank's segments under a mesh); each layer's
+        # cross memory comes from enc_out
+        cache = {"dec": [{"self": L.init_params(blk["self"], None,
+                                                tokens.device)}
+                         for blk in self.cache_defs(B, max_len)["dec"]]}
         positions = torch.arange(S, device=tokens.device)[None]
         x = self._decode_stack(params, tokens, positions, enc_out, cache)
-        logits = L.logits_apply(params["head"], x[:, -1:],
+        logits = self.tp.logits(params["head"], x[:, -1:],
                                 self.cfg.vocab_size)
         return logits, cache
 
@@ -275,4 +348,4 @@ class EncDecLM:
         lengths = (p + 1).expand(tokens.shape[0]).contiguous()
         x = self._decode_stack(params, tokens, positions, None, cache,
                                pos if isinstance(pos, int) else p, lengths)
-        return L.logits_apply(params["head"], x, self.cfg.vocab_size), cache
+        return self.tp.logits(params["head"], x, self.cfg.vocab_size), cache

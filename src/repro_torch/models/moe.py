@@ -100,9 +100,16 @@ def route(p: dict, xg: torch.Tensor, *, num_experts: int, top_k: int,
 
 def moe_apply(p: dict, x: torch.Tensor, *, num_experts: int, top_k: int,
               capacity_factor: float, activation: str,
-              group_size: int = 1024):
+              group_size: int = 1024, expert_range=None):
     """x (B, S, d) → (out (B, S, d) in x's dtype, aux loss, a float32
-    scalar). ``group_size`` is the config's ``moe_group``."""
+    scalar). ``group_size`` is the config's ``moe_group``.
+
+    ``expert_range`` (e0, e1): a rank's experts under expert parallelism
+    (``TensorParallel.moe``): ``p``'s FFN weights hold experts [e0, e1)
+    only (its router all E columns, so the routing is the one-device
+    one), the FFN runs on the pairs routed to them, and ``out`` is the
+    float32 partial sum of their gated outputs (the other experts' pairs
+    read 0), which the ranks sum before the cast."""
     B0, S0, d = x.shape
     G = routing_group(S0, group_size)
     xg = x.reshape(-1, G, d)
@@ -120,17 +127,23 @@ def moe_apply(p: dict, x: torch.Tensor, *, num_experts: int, top_k: int,
     token = (group * G + torch.arange(G * K, device=dev) // K)
     rows = torch.full((E * N * C + 1,), N * G, dtype=torch.long, device=dev)
     rows.scatter_(0, slot.reshape(-1), token.reshape(-1))
+    e0, e1 = (0, E) if expert_range is None else expert_range
+    lo, hi = e0 * N * C, e1 * N * C
     xz = torch.cat([xg.reshape(N * G, d), xg.new_zeros((1, d))])
-    buf = xz[rows[:-1]].reshape(E, N * C, d)
+    buf = xz[rows[lo:hi]].reshape(e1 - e0, N * C, d)
     if activation.endswith("_glu"):
         h = (_act(activation, torch.bmm(buf, p["w_gate"]))
              * torch.bmm(buf, p["w_up"]))
     else:
         h = _act(activation, torch.bmm(buf, p["w_up"]))
-    y = torch.bmm(h, p["w_down"]).reshape(E * N * C, d)
+    y = torch.bmm(h, p["w_down"]).reshape(hi - lo, d)
     yz = torch.cat([y, y.new_zeros((1, d))])
-    yk = yz[slot].reshape(N, G, K, d)
+    # a pair of another rank's experts (or dropped) reads the zero row
+    mine = torch.where((slot >= lo) & (slot < hi), slot - lo, hi - lo)
+    yk = yz[mine].reshape(N, G, K, d)
     # the gates in x's dtype, as the reference's combine mask holds them,
     # the products summed in float32 and rounded once
     out = (yk.float() * gates.to(x.dtype).float()[..., None]).sum(2)
+    if expert_range is not None:
+        return out.reshape(B0, S0, d), aux
     return out.to(x.dtype).reshape(B0, S0, d), aux

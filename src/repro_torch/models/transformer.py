@@ -39,11 +39,12 @@ so every weight gets its gradient; with ``cfg.remat`` each layer is
 recomputed in the backward (``torch.utils.checkpoint``), as the reference
 remats each period.
 
-The projections, the MLP, the embedding and the head go through
-``dist.tensor_parallel``'s forms (``self.tp``): the one-device math
-without a mesh; under one (``with_mesh``, the dense GQA transformers) the
-tensor-parallel forms on each rank's pieces of the params, which the
-training forward, the prefill and the split-KV decode step share.
+The projections, the MLP or the experts, the embedding and the head go
+through ``dist.tensor_parallel``'s forms (``self.tp``): the one-device
+math without a mesh; under one (``with_mesh``: every attention family,
+the int8 cache too) the tensor-parallel forms on each rank's pieces of
+the params, which the prefill and the split-KV decode step share, and
+the dense GQA transformers' training forward too.
 """
 from __future__ import annotations
 
@@ -96,16 +97,18 @@ class TransformerLM:
         out by ``training.param_shardings``
         (``dist.splitkv.partition_transformer_params``): the training
         forward, the prefill and the decode step run tensor-parallel on
-        each rank's pieces (``dist.tensor_parallel``); its cache is the
-        rank's segment of ``cache_seq``, decoded split-KV
-        (``dist.splitkv``)."""
+        each rank's pieces (``dist.tensor_parallel``: a mixture's experts
+        on their ranks); its cache is the rank's segment of ``cache_seq``
+        (int8 codes and scales under ``kv_quant``), decoded split-KV
+        (``dist.splitkv``). The recurrent and local-attention blocks are
+        refused (ROADMAP queue A item 9)."""
         if mesh is not None:
             from ..dist.splitkv import tp_reason
             why = tp_reason(self.cfg)
             if why is not None:
                 raise NotImplementedError(
                     f"{self.cfg.name}: the tensor-parallel forward and the "
-                    f"split-KV decode serve the dense GQA transformers, not "
+                    f"split-KV decode serve the attention families, not "
                     f"{why} (ROADMAP queue A item 9)")
         other = copy.copy(self)
         other.mesh = mesh
@@ -251,11 +254,11 @@ class TransformerLM:
             return x + y, (None if train else state), None
         h = tp.norm(cfg.norm, p["norm2"], x)
         if cfg.moe:
-            y, aux = M.moe_apply(p["moe"], h, num_experts=cfg.num_experts,
-                                 top_k=cfg.experts_per_token,
-                                 capacity_factor=cfg.capacity_factor,
-                                 activation=cfg.activation,
-                                 group_size=cfg.moe_group)
+            y, aux = tp.moe(p["moe"], h, num_experts=cfg.num_experts,
+                            top_k=cfg.experts_per_token,
+                            capacity_factor=cfg.capacity_factor,
+                            activation=cfg.activation,
+                            group_size=cfg.moe_group)
         else:
             y = tp.mlp(p["mlp"], h, cfg.activation)
         return x + y, (None if train else state), aux
@@ -272,7 +275,8 @@ class TransformerLM:
             if patch_embeds.shape[1] > x.shape[1]:
                 raise ValueError(f"{patch_embeds.shape[1]} patch embeddings "
                                  f"for a prompt of {x.shape[1]} positions")
-            pe = L.rmsnorm(patch_embeds.to(x.dtype), params["patch_norm"]["w"])
+            pe = self.tp.norm("rmsnorm", params["patch_norm"],
+                              patch_embeds.to(x.dtype))
             x = torch.cat([pe, x[:, pe.shape[1]:]], dim=1)
         return x
 
@@ -346,8 +350,8 @@ class TransformerLM:
         layer's ``h`` and ``conv``, an RWKV6 layer's ``S``, ``x_tm`` and
         ``x_cm`` (recurrent state)."""
         if self.mesh is not None:      # the rank's segment of cache_seq
-            from ..dist.splitkv import cache_segment, splitkv_reason
-            why = splitkv_reason(self.cfg)
+            from ..dist.splitkv import cache_segment, tp_reason
+            why = tp_reason(self.cfg)
             if why is not None:
                 raise NotImplementedError(
                     f"{self.cfg.name}: the split-KV decode does not hold "

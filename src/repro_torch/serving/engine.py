@@ -15,11 +15,13 @@ quant rules rewire the model there too. ``generate(draft=...)`` decodes by
 speculative rounds (``repro_torch.spec``).
 
 ``mesh=`` (a (data, model) DeviceMesh, ``launch.mesh``) serves the packed
-LSTM sharded (``repro_torch.dist``) and the dense GQA transformers split-KV
-(``dist.splitkv``): every rank runs this engine on the same inputs;
-``prepare`` hands each rank its gate-aligned block of the packed rows, or
-its pieces of the transformer's params, and ``generate`` decodes the rank's
-data group's rows and all-gathers the tokens over ``data`` at the end. Under a mesh the decode
+LSTM sharded (``repro_torch.dist``) and every attention family split-KV
+(``dist.splitkv``: the dense GQA transformers, the mixture of experts, the
+encoder-decoder, the VLM, the int8 KV cache): every rank runs this engine
+on the same inputs; ``prepare`` hands each rank its gate-aligned block of
+the packed rows, or its pieces of the model's params, and ``generate``
+decodes the rank's data group's rows (and their frames or patches) and
+all-gathers the tokens over ``data`` at the end. Under a mesh the decode
 loop is the host loop (``runtime.decode_loop_eager``), by choice: a
 step's all-gather runs on the host under gloo, which a CUDA graph cannot
 capture.
@@ -49,6 +51,12 @@ def cache_shardings(mesh, model, batch: int, max_len: int):
     return runtime.unflatten(defs, [
         placements(mesh, d.axes, w.shape)
         for d, w in zip(runtime.leaves(defs), shapes)])
+
+
+def _sharded(params) -> bool:
+    """Whether ``params`` are DTensor pieces (a sharded init's)."""
+    from torch.distributed.tensor import DTensor
+    return any(isinstance(x, DTensor) for x in runtime.leaves(params))
 
 
 class ServeEngine:
@@ -121,8 +129,13 @@ class ServeEngine:
             else:
                 qplan = default_plan(qcfg, len(params["layers"]))
             self.model = self.model.with_quant(qplan)
-        pruned, masks = plan.prune(params)
-        report = plan.summary(masks)
+        if _sharded(params):
+            # a sharded init's pieces: each mask from its whole leaf
+            from ..training.train_loop import prune_sharded
+            pruned, masks, report = prune_sharded(plan, params)
+        else:
+            pruned, masks = plan.prune(params)
+            report = plan.summary(masks)
         if not getattr(self.model, "supports_packed_decode", False):
             return self._maybe_partition(pruned), report
         packed, pack_report = plan.pack(pruned, masks)
@@ -134,8 +147,8 @@ class ServeEngine:
 
     def _maybe_partition(self, packed):
         """Each rank's gate-aligned block of the packed rows
-        (``dist.partition_lstm_params``), or its pieces of a dense GQA
-        transformer's params (``dist.splitkv``), the model rewired to the
+        (``dist.partition_lstm_params``), or its pieces of an attention
+        model's params (``dist.splitkv``), the model rewired to the
         sharded step. As it is without a mesh, a ``model`` axis or
         partitionable params."""
         from .. import dist
@@ -251,7 +264,7 @@ class ServeEngine:
                              "sharded serving (mesh)")
         # unpartitioned packed params would decode garbage silently
         check_partitioned(params, mesh)
-        if hasattr(model, "kinds"):       # a split-KV transformer
+        if hasattr(model, "tp"):          # a split-KV attention model
             from ..dist.splitkv import check_splitkv_partitioned
             check_splitkv_partitioned(params)
         return batch_rows(mesh, batch)

@@ -8,16 +8,20 @@
 
 The kernel never falls back to the plain version: a CUDA tensor under
 "auto" or "cuda" launches the kernel or raises. The process default is set
-with ``set_default_backend`` / ``use_backend``.
+with ``set_default_backend`` / ``use_backend``. ``from_use_kernel`` maps
+the reference's deprecated ``use_kernel=`` boolean: True to "auto" (the
+port's kernel cannot run on a CPU tensor, where the reference's Pallas
+kernel runs interpreted), False to "ref".
 """
 from __future__ import annotations
 
 import contextlib
+import warnings
 
 import torch
 
 __all__ = ["BACKENDS", "resolve", "set_default_backend",
-           "get_default_backend", "use_backend"]
+           "get_default_backend", "use_backend", "from_use_kernel"]
 
 BACKENDS = ("auto", "ref", "cuda")
 
@@ -59,3 +63,14 @@ def resolve(backend: str | None, tensor: torch.Tensor) -> str:
         raise ValueError(f"backend 'cuda' needs CUDA tensors, got one on "
                          f"{tensor.device}")
     return b
+
+
+def from_use_kernel(use_kernel: bool, *, stacklevel: int = 3) -> str:
+    """Adapter for the deprecated ``use_kernel=`` boolean: True → "auto"
+    (the kernel on a CUDA tensor, the plain version on a CPU one), False →
+    "ref", with the reference's ``DeprecationWarning``."""
+    warnings.warn(
+        "use_kernel= is deprecated; pass backend='cuda'|'ref'|'auto' "
+        "(see repro_torch.sparse.backend)", DeprecationWarning,
+        stacklevel=stacklevel)
+    return "auto" if use_kernel else "ref"

@@ -193,9 +193,11 @@ def value_and_grad(loss_fn, params, batch):
 
 def loss_and_grads(model, accum: int, params, batch):
     """(loss, grads) of ``model.loss`` on ``batch``, averaged over
-    ``accum`` microbatches (float32 sums, each divided by the count). The
-    grads keep the param dtype (bf16 for bf16 params), as the
-    reference's do; the optimizer promotes to float32 itself."""
+    ``accum`` microbatches (float32 sums, each divided by the count, added
+    into one set of accumulators in place, as the reference's scan carries
+    one). The grads keep the param dtype (bf16 for bf16 params) at
+    ``accum == 1``, as the reference's do; the optimizer promotes to
+    float32 itself."""
     if accum == 1:
         return value_and_grad(model.loss, params, batch)
 
@@ -207,7 +209,9 @@ def loss_and_grads(model, accum: int, params, batch):
     loss = torch.zeros((), dtype=torch.float32, device=grads[0].device)
     for i in range(accum):
         l, g = value_and_grad(model.loss, params, mb(i))
-        grads = [a + b.float() / accum for a, b in zip(grads, leaves(g))]
+        for a, b in zip(grads, leaves(g)):
+            a.add_(b.float() / accum)
+        del g
         loss = loss + l / accum
     return loss, unflatten(params, grads)
 
@@ -253,9 +257,10 @@ def tensor_parallel_model(mesh, model):
     the params' pieces (``with_mesh``); or (``model``, False) where it has
     no such forward and the rule table splits no param (the data-parallel
     step). Raises ``NotImplementedError`` otherwise."""
+    from ..dist.splitkv import train_reason
     p_flat = leaves(param_shardings(mesh, model))
     with_mesh = getattr(model, "with_mesh", None)
-    if with_mesh is not None:
+    if with_mesh is not None and train_reason(model.cfg) is None:
         try:
             return with_mesh(mesh), True
         except NotImplementedError:
@@ -381,18 +386,22 @@ def jit_train_step(mesh, model, arch_cfg, opt_cfg: optim.OptConfig,
         """(loss, gradient pieces in the params' layout, param pieces):
         the rank's rows through the tensor-parallel loss, each weighted by
         its share of the batch, the gradients summed over the batch axes
-        (in float32, a bf16 gradient too, then back in the param dtype)."""
+        in their own dtype (bf16 gradients in bf16, as the reference keeps
+        the param dtype there; float32 accumulators under ``accum > 1``),
+        each accumulator dropped as soon as its reduced copy exists."""
         with torch.no_grad():
             mine = unflatten(defs, [piece(x, sh) for x, sh in
                                     zip(leaves(params), p_flat)])
             rows = {k: piece(v, b_sh[k]) for k, v in batch.items()}
         loss, grads = loss_and_grads(_Net, accum, mine, rows)
+        grads = leaves(grads)
         with torch.no_grad():
             loss = broadcast_axis(all_reduce_axis(loss, mesh, batch_axes),
                                   mesh, rest)
             flat = []
-            for g, sh in zip(leaves(grads), p_flat):
-                g = all_reduce_axis(g.float(), mesh, batch_axes).to(g.dtype)
+            for i, sh in enumerate(p_flat):
+                g = all_reduce_axis(grads[i], mesh, batch_axes)
+                grads[i] = None
                 flat.append(broadcast_axis(g, mesh, replicated_on(sh)))
         return loss, flat, leaves(mine)
 

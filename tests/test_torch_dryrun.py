@@ -35,7 +35,9 @@ ROOT = Path(__file__).resolve().parents[1]
 MESHES = [False, True]
 # the families whose sharded step the port refuses, by ROADMAP item: 11
 # (tensor-parallel training: no forms in dist/tensor_parallel.py) where the
-# layout splits their params, 9 (sharded serving) for every serving cell
+# layout splits their params, 9 (sharded serving) for the recurrent
+# families' serving cells
+RECURRENT = {"recurrentgemma-9b", "rwkv6-7b"}
 NO_TP = {"llava-next-34b", "qwen3-moe-235b-a22b", "granite-moe-1b-a400m",
          "seamless-m4t-medium", "recurrentgemma-9b", "rwkv6-7b"}
 RECORD_KEYS = {"status", "memory", "flops_per_chip", "model_flops",
@@ -168,8 +170,9 @@ def _cells():
 
 def test_grid_statuses_match_reference_and_roadmap(tmp_path):
     """n/a where the reference's runnable is false (each written as a
-    record), not_ported exactly for the families items 9 and 11 name,
-    every other cell's path run by the port."""
+    record), not_ported exactly for the families items 9 and 11 name (the
+    recurrent ones' serving cells, the train cells whose params the rule
+    table splits), every other cell's path run by the port."""
     for arch, shape, multi in _cells():
         ok, reason = runnable(get_arch(arch), SHAPES[shape])
         assert (ok, reason) == jrunnable(jget_arch(arch), JSHAPES[shape])
@@ -187,16 +190,24 @@ def test_grid_statuses_match_reference_and_roadmap(tmp_path):
             splits = cfg.layout != "dp"
             assert (why is not None) == splits, (arch, shape, multi)
             assert why is None or "item 11" in why
-        else:
+        elif arch in RECURRENT:
             assert why is not None and "item 9" in why, (arch, shape, multi)
+        else:
+            assert why is None, (arch, shape, multi, why)
     assert not dist.is_initialized() or dist.get_backend() == "fake"
 
 
 def test_kv_quant_decode_is_not_ported():
-    """--kv-quant: the split-KV decode holds no int8 cache (item 9)."""
-    why = dryrun.refusal("qwen3-0.6b", "decode_32k", False,
+    """--kv-quant: the split-KV decode holds the int8 cache of every
+    attention family; the recurrent families' decode stays not_ported
+    (item 9)."""
+    for arch in ("qwen3-0.6b", "granite-moe-1b-a400m", "seamless-m4t-medium",
+                 "llava-next-34b"):
+        assert dryrun.refusal(arch, "decode_32k", False,
+                              {"kv_quant": True}) is None, arch
+    why = dryrun.refusal("recurrentgemma-9b", "decode_32k", False,
                          {"kv_quant": True})
-    assert why is not None and "int8 KV cache" in why and "item 9" in why
+    assert why is not None and "recurrent" in why and "item 9" in why
     assert dryrun.refusal("qwen3-0.6b", "train_4k", False,
                           {"kv_quant": True}) is None
 

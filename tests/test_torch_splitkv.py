@@ -17,7 +17,8 @@ with the qk-norm weights' gradients summed over the ranks) against the
 port's one-device ones. The plain B14's ``lse=`` and the split-KV
 ``merge`` on one
 process; ``launch.serve --arch qwen3-0.6b --mesh 1,2 --device cpu
---smoke`` end to end, and the families ``--mesh`` refuses.
+--smoke`` end to end, and what ``--mesh`` refuses (the rest of the
+attention zoo: ``tests/test_torch_splitkv_zoo.py``).
 
 Each mesh's ranks start once, all at the same time; the rank functions
 live here and import no JAX.
@@ -346,17 +347,20 @@ def test_serve_cli_mesh_transformer(runs):
 
 
 @pytest.mark.parametrize("argv,match", [
-    (["--arch", "granite-moe-1b-a400m"], "mixture of experts"),
+    (["--arch", "granite-moe-1b-a400m", "--traffic"], "scheduler sharded"),
     (["--arch", "recurrentgemma-9b"], "recurrent"),
-    (["--arch", "seamless-m4t-medium"], "encoder-decoder"),
-    (["--arch", "llava-next-34b"], "VLM"),
+    (["--arch", "seamless-m4t-medium", "--continuous"], "scheduler sharded"),
+    (["--arch", "llava-next-34b", "--prompt-len", "21", "--gen", "4"],
+     "must split"),
     (["--arch", "qwen3-0.6b", "--continuous"], "scheduler sharded"),
     (["--arch", "qwen3-0.6b", "--prompt-len", "15", "--gen", "4"],
      "must split"),
 ], ids=["moe", "recurrent", "encdec", "vlm", "continuous", "segments"])
 def test_serve_mesh_refusals(argv, match, capsys):
     """``--mesh`` refuses, before any rank starts, what split-KV does not
-    serve, naming ROADMAP queue A item 9 (or the cache's split)."""
+    serve, naming ROADMAP queue A item 9 (or the cache's split): the
+    recurrent families, and every attention family (the mixture of
+    experts, the encoder-decoder, the VLM too) under the scheduler."""
     from repro_torch.launch import serve
     with pytest.raises(SystemExit):
         serve.main(argv + ["--mesh", "1,2", "--smoke", "--device", "cpu"])
@@ -367,10 +371,13 @@ def test_serve_mesh_refusals(argv, match, capsys):
 
 
 def test_with_mesh_refuses_other_families():
+    """The recurrent families refuse a mesh, naming item 9; the attention
+    families take one (tests/test_torch_splitkv_zoo.py)."""
     from repro_torch.configs import smoke_config
     from repro_torch.models import build_model
     mesh = object()
-    with pytest.raises(NotImplementedError, match="item 9"):
-        build_model(smoke_config("granite-moe-1b-a400m")).with_mesh(mesh)
+    for arch in ("recurrentgemma-9b", "rwkv6-7b"):
+        with pytest.raises(NotImplementedError, match="item 9"):
+            build_model(smoke_config(arch)).with_mesh(mesh)
     model = build_model(smoke_config("qwen3-0.6b"))
     assert model.with_mesh(None).mesh is None and model.mesh is None
