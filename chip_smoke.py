@@ -177,6 +177,19 @@
    traces (the grid's longest) start before phase 10 and run on the host
    beside phases 10-13; the rest start at phase 14.
 
+15. Split-KV serving of the rest of the attention zoo (``splitkv_zoo``):
+   phase 11's models on gloo ranks of this card at (1, 2), granite-moe at
+   (2, 2) too (its docstring gives the gates).
+16. Sharded serving of the recurrent families and of the zoo under the
+   sharded scheduler (``sharded_recurrent``): B14's ``start=`` alone at
+   recurrentgemma-9b's rank-0 segment (a start inside the segment, at and
+   past the length, at 0), then three meshes of gloo ranks side by side:
+   recurrentgemma-9b cut to one period at full width on (1, 2), B=4,
+   prompt 2560, gen 8 (the window's edge inside rank 0's full segment);
+   rwkv6-7b on (1, 2), B=8, prompt 512, at the depth its one-ulp spread
+   picks; qwen3-0.6b (4 of 28 layers) under the sharded scheduler on (2,
+   2) at RSCHED (its docstring gives the gates).
+
 Prints a ``{"kernels": [...]}`` line and, last, the device line. Exits
 non-zero on any failure, and without a card. Each phase's end and seconds
 go to stderr too.
@@ -399,6 +412,25 @@ ZTF_STEPS = (0, 3, 7)
 # a rank's card memory right after the sharded init over the one-card
 # params at (1, 2): the model axis halves every split leaf (~0.5)
 ZSPLIT_MEM = 0.6
+# phase 16: sharded serving of the recurrent families and of the zoo under
+# the sharded scheduler, gloo ranks on this card, bf16 at full width, seed-0
+# weights, the three meshes side by side: (a) recurrentgemma-9b cut to one
+# period (rec, rec, attn_local), phase 10's B=4, prompt 2560 and window
+# 2048, gen RGEN, on (1, 2): a cache of 2568 positions, so rank 0's full
+# segment of 1284 holds every step's window edge (keys 513-520); (b)
+# rwkv6-7b at phase 10's B=8 and prompt 512 on (1, 2), at the deepest of
+# RWKV_DEPTHS whose one-ulp spread stays under a quarter of TF_LOGIT_TOL;
+# (c) qwen3-0.6b cut to SCHED16["layers"] of 28 under the sharded
+# scheduler at RSCHED on (2, 2)
+# (recurrentgemma with wq / wk at the fan-in scale, as phase 15 holds the
+# attention zoo: at the reference's init its scores reach the hundreds and
+# ulps of q / k that the ranks' reductions move flip its one-hot softmax)
+RSPLIT = {"recurrentgemma-9b": dict(batch=4, prompt=2560, layers=3,
+                                    mesh=(1, 2), fan_in=True),
+          "rwkv6-7b": dict(batch=8, prompt=512, mesh=(1, 2))}
+RGEN = 8
+RWKV_DEPTHS = (1, 2, 3, 4)
+SCHED16 = dict(arch="qwen3-0.6b", layers=4, mesh=(2, 2))
 
 
 def log(msg: str) -> None:
@@ -5639,6 +5671,455 @@ def zsplit_gates(torch, arch, mesh, ranks, ref) -> None:
         f"{r['seconds']:.1f} s in all")
 
 
+def check_decode_start(torch, device, flush) -> dict:
+    """Phase 16, B14's ``start=`` alone at recurrentgemma-9b's rank-0
+    segment (B=4, 16 q heads on one kv head of 256, bf16, the segment's
+    1284 rows all live): one row's first key inside the segment (513, the
+    window's edge), one at its length, one past it, one at 0; ``o``
+    within one bf16 ulp of the plain version's and ``lse`` within
+    LSE_ATOL, the rows from or past their length 0 / -inf, ``start=`` of
+    zeros bitwise the launch without it; timed with and without ``start``
+    (L2 flushed)."""
+    from repro_torch.kernels import decode_attention as kda
+    from repro_torch.kernels import ops
+    from repro_torch.kernels._build import time_ms
+    B, Hq, D, S = 4, 16, 256, 1284
+    q, k, v = attn_case(torch, device, torch.bfloat16, B=B, Hq=Hq, Hkv=1,
+                        Sq=1, Sk=S, D=D, seed=16)
+    q = q[:, :, 0]
+    n = torch.full((B,), S, dtype=torch.int32, device=device)
+    start = torch.tensor([513, S, S + 16, 0], dtype=torch.int32,
+                         device=device)
+    lse, want_lse = (torch.empty(B, Hq, device=device) for _ in range(2))
+    n0 = kda.START_LAUNCHES[0]
+    o = ops.decode_attention(q, k, v, n, start=start, lse=lse,
+                             backend="cuda")
+    want = ops.decode_attention(q, k, v, n, start=start, lse=want_lse,
+                                backend="ref")
+    err = attn_held(torch, "decode_attention", o, want,
+                    "start= (513, len, past len, 0) at D=256, 1284 rows",
+                    n_keys=S)
+    hold_lse(torch, lse, want_lse)
+    dead = start >= n
+    if not (torch.isneginf(lse[dead]).all() and not o[dead].any()):
+        raise AssertionError("decode_attention start >= len: not 0 / -inf")
+    zero = torch.zeros(B, dtype=torch.int32, device=device)
+    if not torch.equal(ops.decode_attention(q, k, v, n, start=zero,
+                                            backend="cuda"),
+                       ops.decode_attention(q, k, v, n, backend="cuda")):
+        raise AssertionError("decode_attention start=0 differs from the "
+                             "launch without start")
+    if kda.START_LAUNCHES[0] != n0 + 2:
+        raise AssertionError("START_LAUNCHES does not count start= launches")
+    edge = torch.full((B,), 513, dtype=torch.int32, device=device)
+    ms = time_ms(lambda: ops.decode_attention(q, k, v, n, start=edge,
+                                              lse=lse, backend="cuda"), flush)
+    ms0 = time_ms(lambda: ops.decode_attention(q, k, v, n, lse=lse,
+                                               backend="cuda"), flush)
+    plain = time_ms(lambda: ops.decode_attention(q, k, v, n, start=edge,
+                                                 lse=lse, backend="ref"),
+                    flush)
+    kv = k[:, :, 513:].repeat_interleave(Hq, 1), \
+        v[:, :, 513:].repeat_interleave(Hq, 1)
+    lib = time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+        q[:, :, None], *kv), flush)
+    live = B * (S - 513) * 2 * D * 2           # the live keys and values
+    bnd, by = bound(live + q.numel() * 2 * 2 + lse.numel() * 4, 0,
+                    bf16_flops=ATTN_FLOPS * B * Hq * (S - 513) * D)
+    log(f"[time] decode_attention start=513 of 1284 rows, B=4, 16/1 heads "
+        f"of 256, bf16, with lse: {ms:.4f} ms (without start, all 1284 "
+        f"rows: {ms0:.4f}); plain {plain:.4f}; SDPA over the live rows "
+        f"{lib:.4f}; bound {bnd * 1e3:.2f} us ({by}) — median of 30, L2 "
+        f"flushed; max |err| {err:.3e}")
+
+
+def rsplit_model(torch, arch, device, layers=None):
+    """Phase 16's (cfg, model, tokens) of ``arch`` (RSPLIT): its config at
+    ``layers`` (RSPLIT's, or the whole depth), the prompt (CPU generator,
+    seed 1) on ``device``."""
+    from repro_torch.configs import get_arch
+    from repro_torch.models import build_model
+    R = RSPLIT[arch]
+    full = get_arch(arch)
+    cfg = full.with_(num_layers=layers or R.get("layers", full.num_layers))
+    tokens = torch.randint(0, cfg.vocab_size, (R["batch"], R["prompt"]),
+                           generator=torch.Generator().manual_seed(1)
+                           ).to(device)
+    return cfg, build_model(cfg), tokens
+
+
+def sched16_requests(V: int) -> list:
+    """RSCHED's requests: [(prompt (1, S) ids, budget)], seed 0."""
+    g = np.random.default_rng(0)
+    return [(g.integers(0, V, (1, int(g.integers(RSCHED["prompt"][0],
+                                                 RSCHED["prompt"][1] + 1)))),
+             int(g.integers(RSCHED["budget"][0], RSCHED["budget"][1] + 1)))
+            for _ in range(RSCHED["requests"])]
+
+
+def first_margins(torch, tf, V: int, n: int) -> list:
+    """Each row's first generated position whose top-2 margin (of the
+    teacher-forced logits ``tf`` (B, G, Vp)) is below TF_MARGIN, else
+    ``n``."""
+    top2 = tf[..., :V].topk(2, dim=-1).values
+    small = (top2[..., 0] - top2[..., 1]) < TF_MARGIN
+    return torch.where(small.any(1), small.float().argmax(1),
+                       torch.full((tf.shape[0],), n,
+                                  device=tf.device)).tolist()
+
+
+def rsplit_single(torch, device) -> dict:
+    """Phase 16's single-card references, before any rank holds the card:
+    (a) and (b) greedy tokens (gen RGEN), each row's first top-2 margin
+    below TF_MARGIN, the teacher-forced logits of every generated
+    position and the params' bytes, rwkv6-7b at the depth its one-ulp
+    spreads pick (each printed); (c) the one-card scheduler's tokens of
+    RSCHED's requests and each request's first small margin."""
+    import gc
+    from repro_torch.models import build_model
+    from repro_torch.models.layers import param_bytes
+    from repro_torch.serving import ServeEngine
+    from repro_torch.serving.scheduler import ContinuousBatchingEngine
+    from repro_torch.sparse import use_backend
+    refs = {}
+    for arch in RSPLIT:
+        depth = None
+        if arch == "rwkv6-7b":
+            # the deepest depth whose spread stays under a quarter of the
+            # gate, else the least (its spread printed beside the gate)
+            spreads, tops = {}, {}
+            for d in RWKV_DEPTHS:
+                cfg, model, tokens = rsplit_model(torch, arch, device, d)
+                params = model.init(torch.Generator(device).manual_seed(0),
+                                    device)
+                ML = tokens.shape[1] + RGEN
+                with use_backend("ref"):
+                    lr, _ = model.prefill(params, tokens, ML)
+                spreads[d] = one_ulp_spread(torch, model, params, tokens,
+                                            ML, lr)
+                tops[d] = lr[..., :cfg.vocab_size].abs().max().item()
+                del params, lr
+                if spreads[d] >= TF_LOGIT_TOL / 4:
+                    break
+                depth = d
+            log(f"[rsplit] rwkv6-7b one-ulp spread of the prefill logits "
+                f"by depth {spreads} (max |logit| {tops}; a depth under "
+                f"{TF_LOGIT_TOL / 4} is kept): "
+                + (f"depth {depth}" if depth else
+                   f"none under it, the gates at depth {RWKV_DEPTHS[0]}, "
+                   f"whose spread is {spreads[RWKV_DEPTHS[0]]:.3e} of the "
+                   f"gate's {TF_LOGIT_TOL}"))
+            depth = depth or RWKV_DEPTHS[0]
+        cfg, model, tokens = rsplit_model(torch, arch, device, depth)
+        B, P = tokens.shape
+        params = model.init(torch.Generator(device).manual_seed(0), device)
+        if RSPLIT[arch].get("fan_in"):
+            params = fan_in_qk(params)
+        eng = ServeEngine(model, max_len=P + RGEN, device=device)
+        out = eng.generate(params, tokens, RGEN)
+        tf = tf_logits(torch, model, params, tokens, out, P + RGEN)
+        refs[arch] = dict(out=out.cpu(), layers=cfg.num_layers,
+                          first=first_margins(torch, tf, cfg.vocab_size,
+                                              RGEN),
+                          tf=tf[..., :cfg.vocab_size].float().cpu(),
+                          param_bytes=param_bytes(model.param_defs()))
+        del eng, params, out, tf
+        gc.collect()
+        torch.cuda.empty_cache()
+    from repro_torch.configs import get_arch
+    cfg = get_arch(SCHED16["arch"]).with_(num_layers=SCHED16["layers"])
+    model = build_model(cfg)
+    params = model.init(torch.Generator(device).manual_seed(0), device)
+    reqs = sched16_requests(cfg.vocab_size)
+    sched = ContinuousBatchingEngine(model, params, slots=RSCHED["slots"],
+                                     max_len=RSCHED["max_len"], device=device)
+    uids = [sched.submit(p, b) for p, b in reqs]
+    res = sched.run()
+    toks, first = [], []
+    for (p, b), u in zip(reqs, uids):
+        t = torch.as_tensor(res[u], device=device)
+        seq = torch.cat([torch.from_numpy(p).to(device), t[None].long()], 1)
+        with torch.no_grad():
+            lg = model.forward(params, seq)[0][:, p.shape[1] - 1:-1]
+        first.append(first_margins(torch, lg, cfg.vocab_size, len(t))[0])
+        toks.append(res[u])
+    refs["sched"] = dict(tokens=toks, first=first)
+    del sched, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return refs
+
+
+def rsplit_rank(mesh, spawned: float, what: str, ref: dict,
+                device_type: str) -> dict:
+    """Phase 16 on one rank (``sharded_recurrent``): for a recurrent
+    family, the sharded init (its card memory right after it), a greedy
+    ``generate`` through ``ServeEngine(mesh=)`` with the launch counts
+    (and B14's ``lse`` / ``start`` counts) set to 0 just before and read
+    just after, then the single-card tokens teacher-forced with every
+    B14 / B15 launch held to its plain version on the rank's own inputs
+    (``held_calls``), its prefill and decode steps timed (recurrentgemma
+    with ``fan_in_qk``, as the single card); for ``"sched"``,
+    qwen3-0.6b's requests through ``ContinuousBatchingEngine`` on the
+    rank's pieces, launches counted around the run, each request's first
+    and last token's time."""
+    faulthandler.enable(all_threads=True)
+    import gc
+    import torch
+    import torch.distributed as dist
+    from repro_torch.dist.collective_ops import batch_rows
+    from repro_torch.kernels import decode_attention as kda
+    from repro_torch.kernels import ops
+    from repro_torch.models.layers import init_params
+    from repro_torch.serving import ServeEngine
+    from repro_torch.training.train_loop import param_shardings
+    cuda = device_type == "cuda"
+    device = (torch.device("cuda", torch.cuda.current_device()) if cuda
+              else torch.device(device_type))
+    sync = torch.cuda.synchronize if cuda else (lambda: None)
+    allocated = torch.cuda.memory_allocated if cuda else (lambda: 0)
+    t_all = time.perf_counter()
+    out = {"rank": dist.get_rank(), "start": time.time() - spawned,
+           "coords": {a: mesh.get_local_rank(a)
+                      for a in mesh.mesh_dim_names}}
+    if what == "sched":
+        from repro_torch.configs import get_arch
+        from repro_torch.models import build_model
+        cfg = get_arch(SCHED16["arch"]).with_(num_layers=SCHED16["layers"])
+        model = build_model(cfg)
+    else:
+        cfg, model, tokens = rsplit_model(torch, what, device, ref["layers"])
+    sync()
+    base = allocated()
+    params = init_params(model.param_defs(),
+                         torch.Generator(device).manual_seed(0), device,
+                         shardings=param_shardings(mesh, model))
+    sync()
+    out["held"] = allocated() - base
+    if RSPLIT.get(what, {}).get("fan_in"):
+        params = fan_in_qk(params)
+    if what == "sched":
+        from repro_torch.serving.scheduler import ContinuousBatchingEngine
+        eng = ServeEngine(model, max_len=RSCHED["max_len"], device=device,
+                          mesh=mesh)
+        p, _ = eng.prepare(params)
+        del params
+        stamps = {}
+
+        def seen(uid, toks, first):
+            stamps.setdefault(uid, [time.perf_counter(), 0, 0])
+            stamps[uid][1] = time.perf_counter()
+            stamps[uid][2] += len(toks)
+        sched = ContinuousBatchingEngine(eng.model, p,
+                                         slots=RSCHED["slots"],
+                                         max_len=RSCHED["max_len"],
+                                         device=device, on_token=seen)
+        reqs = sched16_requests(cfg.vocab_size)
+        zero_launches(ops)
+        kda.LSE_LAUNCHES[0] = 0
+        sync()
+        t0 = time.perf_counter()
+        uids = [sched.submit(q, b) for q, b in reqs]
+        res = sched.run()
+        sync()
+        wall = time.perf_counter() - t0
+        out.update(tokens=[res[u].tolist() for u in uids],
+                   launches={k: n for k, n in ops.LAUNCHES.items() if n},
+                   lse=kda.LSE_LAUNCHES[0], chunks=sched.steps_dispatched,
+                   chunk=sched.chunk, wall=wall,
+                   ttft=[stamps[u][0] - t0 for u in uids],
+                   tpot=[(stamps[u][1] - stamps[u][0])
+                         / max(stamps[u][2] - 1, 1) for u in uids],
+                   seconds=time.perf_counter() - t_all)
+        return out
+    B, P = tokens.shape
+    ML = P + RGEN
+    eng = ServeEngine(model, max_len=ML, device=device, mesh=mesh)
+    p, _ = eng.prepare(params)
+    del params
+    zero_launches(ops)
+    kda.LSE_LAUNCHES[0] = kda.START_LAUNCHES[0] = 0
+    sync()
+    t0 = time.perf_counter()
+    toks = eng.generate(p, tokens, RGEN)
+    sync()
+    out.update(wall=time.perf_counter() - t0, toks=toks.cpu().numpy(),
+               launches={k: n for k, n in ops.LAUNCHES.items() if n},
+               lse=kda.LSE_LAUNCHES[0], start_n=kda.START_LAUNCHES[0])
+    rows = batch_rows(mesh, B)
+    want = ref["out"].to(device)[rows]
+    net = eng.model
+    rec = {}
+
+    def teacher_forced():
+        t0 = time.perf_counter()
+        logits, cache = net.prefill(p, tokens[rows], ML)
+        sync()
+        rec["prefill"] = time.perf_counter() - t0
+        kept = [logits[:, 0, :cfg.vocab_size].float().cpu()]
+        t0 = time.perf_counter()
+        for t in range(RGEN - 1):
+            logits, cache = net.decode_step(p, cache, want[:, t:t + 1], P + t)
+            kept.append(logits[:, 0, :cfg.vocab_size].float().cpu())
+        sync()
+        rec["step"] = (time.perf_counter() - t0) / (RGEN - 1)
+        rec["tf"] = torch.stack(kept, 1)
+    calls, err, scale = held_calls(torch, teacher_forced)
+    lo, hi = rows.start, rows.stop
+    out.update(calls=calls, err=err, scale=scale, rows=(lo, hi),
+               dl=float((rec["tf"] - ref["tf"][lo:hi]).abs().max()),
+               prefill=rec["prefill"], step=rec["step"],
+               seconds=time.perf_counter() - t_all)
+    del eng, p, rec
+    gc.collect()
+    if cuda:
+        torch.cuda.empty_cache()
+    return out
+
+
+def sharded_recurrent(torch, device, flush) -> dict:
+    """Phase 16: sharded serving of the recurrent families and of the zoo
+    under the sharded scheduler, every rank a spawned process on this card
+    under gloo, the three meshes side by side (RSPLIT, SCHED16): (a)
+    recurrentgemma-9b cut to one period at full width on (1, 2), the
+    window's edge inside rank 0's full segment (B14 ``start=``); (b)
+    rwkv6-7b on (1, 2) at the depth its one-ulp spread picks; (c)
+    qwen3-0.6b (SCHED16's layers) under ``ContinuousBatchingEngine`` on
+    (2, 2). First B14's ``start=`` alone (``check_decode_start``).
+
+    Gates, each on every rank: (a, b) the sharded init's card memory at
+    most ZSPLIT_MEM of the one-card params'; a generate's launches those
+    of one card (recurrentgemma: one B15 a prefill, one B14 a step, every
+    B14 with ``lse`` and ``start``; rwkv6: none); every B14 / B15 launch of
+    the teacher-forced run within one bf16 ulp of its plain version on the
+    rank's own inputs (``held_calls``); the teacher-forced logits of every
+    generated position within TF_LOGIT_TOL of the single card's; greedy
+    tokens equal up to each row's first top-2 margin below TF_MARGIN. (c)
+    each request's tokens equal to the one-card scheduler's up to its first
+    top-2 margin below TF_MARGIN, every rank's tokens alike, the launches
+    a B15 a layer a prefill and a B14 a layer a decode step, every B14
+    with ``lse``. Printed: tok/s, TTFT and TPOT (gloo, host-staged), the
+    wall a prefill and a decode step a rank."""
+    import concurrent.futures
+    from repro_torch.launch.mesh import run_ranks
+    check_decode_start(torch, device, flush)
+    refs = rsplit_single(torch, device)
+    jobs = {arch: R["mesh"] for arch, R in RSPLIT.items()}
+    jobs["sched"] = SCHED16["mesh"]
+
+    def spawn(what, mesh):
+        t0 = time.perf_counter()
+        ranks = run_ranks(rsplit_rank, *mesh, device=device.type,
+                          backend="gloo",
+                          args=(time.time(), what, refs[what], device.type),
+                          threads=1, timeout=600)
+        return ranks, time.perf_counter() - t0
+    with concurrent.futures.ThreadPoolExecutor(len(jobs)) as pool:
+        futs = {w: pool.submit(spawn, w, m) for w, m in jobs.items()}
+        done = {w: f.result() for w, f in futs.items()}
+    failed = []
+    for what, (ranks, took) in done.items():
+        log(f"[rsplit] {what} on mesh {jobs[what]}: {len(ranks)} ranks in "
+            f"{took:.1f}s, beside the other meshes' (rank 0 reached the "
+            f"card after {ranks[0]['start']:.1f}s)")
+        try:
+            if what == "sched":
+                sched16_gates(torch, ranks, refs["sched"])
+            else:
+                rsplit_gates(torch, what, jobs[what], ranks, refs[what])
+        except AssertionError as e:      # every mesh's gates are read
+            log(f"[rsplit] FAILED: {e}")
+            failed.append(str(e))
+    if failed:
+        raise AssertionError("phase 16: " + "; ".join(failed))
+
+
+def rsplit_gates(torch, arch, mesh, ranks, ref) -> None:
+    """Phase 16's gates of a recurrent family (``sharded_recurrent``)."""
+    cfg, model, _ = rsplit_model(torch, arch, "cpu", ref["layers"])
+    want = expected_launches(model, RGEN)
+    want = {k: n for k, n in want.items() if n}
+    n_b14 = want.get("decode_attention", 0)
+    for rk in ranks:
+        tag = f"{arch} {mesh} rank {rk['rank']}"
+        share = rk["held"] / ref["param_bytes"]
+        if not share <= ZSPLIT_MEM:
+            raise AssertionError(f"{tag}: holds {share:.3f} of the one-card "
+                                 "params after the sharded init")
+        if rk["launches"] != want or rk["lse"] != n_b14 or \
+                rk["start_n"] != n_b14:
+            raise AssertionError(f"{tag}: launches {rk['launches']}, lse "
+                                 f"{rk['lse']}, start {rk['start_n']}; "
+                                 f"expected {want}, all B14 with both")
+        hwant = want.get("flash_attention", 0) + n_b14 // RGEN * (RGEN - 1)
+        if rk["calls"] != hwant:
+            raise AssertionError(f"{tag}: {rk['calls']} launches held, "
+                                 f"expected {hwant}")
+        lo, hi = rk["rows"]
+        single = ref["out"].numpy()[lo:hi]
+        same = [bool(np.array_equal(rk["toks"][lo:hi][b, :f],
+                                    single[b, :f]))
+                for b, f in enumerate(ref["first"][lo:hi])]
+        if not all(same) or not rk["dl"] <= TF_LOGIT_TOL:
+            raise AssertionError(f"{tag}: tokens equal up to small margins "
+                                 f"{same}; teacher-forced logits "
+                                 f"{rk['dl']:.3e}")
+    r = ranks[0]
+    held = max(rk["held"] for rk in ranks)
+    log(f"[rsplit] {arch} {mesh}: {cfg.num_layers} layers {model.kinds} at "
+        f"full width; init: rank memory {held / 2**30:.3f} GiB = "
+        f"{held / ref['param_bytes']:.3f} of the one-card params "
+        f"({ref['param_bytes'] / 2**30:.3f} GiB; gate {ZSPLIT_MEM}); "
+        f"launches a rank a generate {r['launches']} (B14 with lse "
+        f"{r['lse']}, with start {r['start_n']}); {r['calls']} B14 / B15 "
+        f"launches held to plain (max |err| "
+        f"{max(rk['err'] for rk in ranks):.3e}, max |out| "
+        f"{max(rk['scale'] for rk in ranks):.3e}); teacher-forced logits of "
+        f"every generated position vs single card "
+        f"{max(rk['dl'] for rk in ranks):.3e} (tol {TF_LOGIT_TOL}); greedy "
+        f"tokens equal up to first margins < {TF_MARGIN} (first small "
+        f"margins {ref['first']}); rank 0 (gloo, host-staged): generate "
+        f"{r['wall']:.2f} s, prefill {r['prefill']:.2f} s, a decode step "
+        f"{r['step'] * 1e3:.1f} ms, {r['seconds']:.1f} s in all")
+
+
+def sched16_gates(torch, ranks, ref) -> None:
+    """Phase 16 (c)'s gates (``sharded_recurrent``)."""
+    n_req = RSCHED["requests"]
+    layers = SCHED16["layers"]
+    for rk in ranks:
+        tag = f"sched {SCHED16['mesh']} rank {rk['rank']}"
+        want = {"flash_attention": layers * n_req,
+                "decode_attention": layers * rk["chunks"] * rk["chunk"]}
+        if rk["launches"] != want or rk["lse"] != want["decode_attention"]:
+            raise AssertionError(f"{tag}: launches {rk['launches']}, lse "
+                                 f"{rk['lse']}; expected {want}")
+        for i, (got, single, f) in enumerate(zip(rk["tokens"], ref["tokens"],
+                                                 ref["first"])):
+            if len(got) != len(single) or got[:f] != list(single[:f]):
+                raise AssertionError(f"{tag}: request {i} differs from the "
+                                     f"one-card scheduler before its first "
+                                     f"small margin ({f})")
+        if rk["tokens"] != ranks[0]["tokens"]:
+            raise AssertionError(f"{tag}: tokens differ from rank 0's")
+    r = ranks[0]
+    toks = sum(len(t) for t in r["tokens"])
+    same = sum(list(a) == list(b) for a, b in zip(r["tokens"], ref["tokens"]))
+    ttft, tpot = sorted(r["ttft"]), sorted(r["tpot"])
+    log(f"[rsplit] {SCHED16['arch']} ({layers} of 28 layers, full width) "
+        f"under the sharded scheduler on {SCHED16['mesh']}: {RSCHED['slots']}"
+        f" slots, {n_req} requests (prompts {RSCHED['prompt']}, budgets "
+        f"{RSCHED['budget']}); {same} of {n_req} requests' tokens equal the "
+        f"one-card scheduler's, all up to their first top-2 margin < "
+        f"{TF_MARGIN}, every rank alike; launches a rank {r['launches']} "
+        f"over {r['chunks']} chunks, every B14 with lse; gloo, host-staged: "
+        f"{toks} tokens in {r['wall']:.2f} s ({toks / r['wall']:.1f} tok/s), "
+        f"TTFT p50 {ttft[len(ttft) // 2] * 1e3:.1f} ms p90 "
+        f"{ttft[int(len(ttft) * 0.9)] * 1e3:.1f} ms, TPOT p50 "
+        f"{tpot[len(tpot) // 2] * 1e3:.1f} ms; rank 0 "
+        f"{r['seconds']:.1f} s in all")
+
+
 def dryrun_cmd(*args) -> list:
     return [sys.executable, "-m", "repro_torch.launch.dryrun", "--out",
             str(DRY14_OUT), "--force", *args]
@@ -5857,6 +6338,10 @@ def main() -> int:
     phase("14 the production dry run")
     splitkv_zoo(torch, device)
     phase("15 split-KV zoo")
+    flush = torch.empty(256 << 20, dtype=torch.uint8, device=device)
+    sharded_recurrent(torch, device, flush)
+    del flush
+    phase("16 sharded recurrent families and the sharded scheduler")
     log("[graph] rows: " + json.dumps(GRAPH_ROWS))
 
     src = {"rb_dual_spmv": ("rb_spmv.cu", "src/repro/kernels/rb_spmv.py:86"),

@@ -283,6 +283,7 @@ struct DecodeArgs {
   const T* v;
   long long svb, svh, svs;
   const int* lengths;
+  const int* start;   // (B,) each row's first live key, or null
   T* out;
   float* lse;   // (B, Hq) log-sum-exp of the scaled scores, or null
   int S, Hq, Hkv, window, nsplit, stages, fixed_len;
@@ -321,7 +322,9 @@ decode_cluster_kernel(const DecodeArgs<T> a) {
   // the slice: one read of lengths[b], then every copy the ring holds
   const int len = min(max(a.fixed_len >= 0 ? a.fixed_len : a.lengths[b], 0),
                       a.S);
-  const int lo = a.window > 0 ? max(0, len - a.window) : 0;
+  int lo = a.window > 0 ? max(0, len - a.window) : 0;
+  // a split-KV segment's first key of the window: past len, no key
+  if (a.start != nullptr) lo = min(max(lo, a.start[b]), len);
   const int chunk = (len - lo + a.nsplit - 1) / a.nsplit;
   const int s0 = lo + split * chunk;
   const int s1 = min(len, s0 + chunk);
@@ -1241,11 +1244,13 @@ int dispatch_flash_tc(int D, const void* q, long long sqb, long long sqh,
 // kernels/plan.py::decode_plan. fixed_len >= 0 is a diagnostic
 // (launch.profile_kernels): every row takes it and lengths is not read.
 // lse: null, or (B, Hq) float32 that takes each row's log-sum-exp.
+// start: null, or (B,) int32, each row's first live key (keys before it
+// are not read; a row whose start is at or past its length reads none).
 extern "C" int brds_decode_attention(
     const void* q, long long sqb, long long sqh, const void* k,
     long long skb, long long skh, long long sks, const void* v,
     long long svb, long long svh, long long svs, const void* lengths,
-    void* out, int B, int Hq, int Hkv, int S, int D, int window, float scale,
+    const void* start, void* out, int B, int Hq, int Hkv, int S, int D, int window, float scale,
     int nsplit, int stages, int smem, int fixed_len, void* lse, int dtype,
     void* stream) {
   if (B <= 0 || Hkv <= 0 || Hq % Hkv != 0 || S <= 0 ||
@@ -1256,7 +1261,8 @@ extern "C" int brds_decode_attention(
     const DecodeArgs<float> a{
         static_cast<const float*>(q), sqb, sqh, static_cast<const float*>(k),
         skb, skh, sks, static_cast<const float*>(v), svb, svh, svs,
-        static_cast<const int*>(lengths), static_cast<float*>(out),
+        static_cast<const int*>(lengths), static_cast<const int*>(start),
+        static_cast<float*>(out),
         static_cast<float*>(lse), S, Hq, Hkv, window, nsplit, stages,
         fixed_len, scale};
     return dispatch_decode(a, B, D, smem, st);
@@ -1266,7 +1272,8 @@ extern "C" int brds_decode_attention(
     const DecodeArgs<T> a{
         static_cast<const T*>(q), sqb, sqh, static_cast<const T*>(k), skb,
         skh, sks, static_cast<const T*>(v), svb, svh, svs,
-        static_cast<const int*>(lengths), static_cast<T*>(out),
+        static_cast<const int*>(lengths), static_cast<const int*>(start),
+        static_cast<T*>(out),
         static_cast<float*>(lse), S, Hq, Hkv, window, nsplit, stages,
         fixed_len, scale};
     return dispatch_decode(a, B, D, smem, st);

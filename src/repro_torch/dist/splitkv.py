@@ -1,10 +1,10 @@
-"""Split-KV sharded decode of every attention family of the zoo: the dense
-GQA transformers (qwen3, llama3.2, minitron, nemotron), the mixture of
-experts (granite-moe, qwen3-moe), the encoder-decoder (seamless-m4t), the
-VLM (llava, its padded heads) and the int8 KV cache; the port of the
+"""Split-KV sharded decode of every family of the zoo: the dense GQA
+transformers (qwen3, llama3.2, minitron, nemotron), the mixture of experts
+(granite-moe, qwen3-moe), the encoder-decoder (seamless-m4t), the VLM
+(llava, its padded heads), the int8 KV cache, and the recurrent families
+(recurrentgemma's RG-LRU and windowed MQA, rwkv6); the port of the
 reference's decode under ``param_shardings`` / ``cache_shardings``
-(``serving/engine.py``). The recurrent and local-attention blocks are
-refused (``tp_reason``: ROADMAP queue A item 9).
+(``serving/engine.py``).
 
 The layout (``partition_transformer_params`` and the model's
 ``cache_defs`` under a mesh):
@@ -22,6 +22,9 @@ The layout (``partition_transformer_params`` and the model's
   its ``data`` group; an encoder-decoder's cross memory the same way,
   ``enc_len / M`` positions a rank, of which the frames the prefill
   encoded are live.
+* **The recurrent state** splits as the rule table splits it: an RG-LRU
+  layer's ``h`` and ``conv`` on the rank's ``d_rnn`` columns (``mlp``), an
+  RWKV6 layer's ``S`` on its heads; ``x_tm`` / ``x_cm`` stay whole.
 
 The models under a mesh run their one forward through
 ``dist.tensor_parallel``'s forms: the embedding on the rank's vocabulary
@@ -39,7 +42,10 @@ gathered. Attention outside training:
   message (q is head-replicated; the new token's k / v, its int8 codes
   and scales, go to the rank that owns its position), runs B14 on the
   rank's own segment (dequantized) at the local length ``clamp(len - s0,
-  0, s1 - s0)`` with its log-sum-exp (``lse=``), and all-gathers (o,
+  0, s1 - s0)`` with its log-sum-exp (``lse=``) (a local-attention
+  layer's keys from its first key of the window in the segment, B14's
+  ``start=``: ``segment_bounds``; a segment wholly before the window
+  weighs 0), and all-gathers (o,
   lse), B·Hq·(D+1) float32, over ``model``, combined with weights
   ``exp(lse_r - max_r lse)`` (``combine``; a rank with no live key weighs
   0); the rank's heads of the result go on to ``wo``'s rows. The cross
@@ -59,22 +65,11 @@ from ..sharding import mesh_axes
 from .collective_ops import distribute, gather_axis
 from .partition import axis_rank, model_axis_size
 
-__all__ = ["supports_splitkv", "tp_reason",
-           "train_reason", "partition_transformer_params",
-           "check_splitkv_partitioned", "cache_segment", "combine", "merge",
-           "attend", "attend_memory", "write_segment", "whole_kv",
+__all__ = ["supports_splitkv", "train_reason",
+           "partition_transformer_params", "check_splitkv_partitioned",
+           "cache_segment", "segment_bounds", "model_piece", "combine",
+           "merge", "attend", "attend_memory", "write_segment", "whole_kv",
            "prompt_attention"]
-
-
-def tp_reason(cfg) -> str | None:
-    """None when ``cfg`` serves tensor-parallel and decodes split-KV over a
-    mesh (``TransformerLM.with_mesh`` / ``EncDecLM.with_mesh``: every
-    attention family, the int8 KV cache too), else why not: the recurrent
-    and local-attention blocks (ROADMAP queue A item 9)."""
-    pattern = set(getattr(cfg, "block_pattern", ("attn",)))
-    if pattern != {"attn"}:
-        return f"blocks {sorted(pattern)} (recurrent / local)"
-    return None
 
 
 def train_reason(cfg) -> str | None:
@@ -89,15 +84,17 @@ def train_reason(cfg) -> str | None:
         return "a mixture of experts"
     if getattr(cfg, "num_patches", 0) or getattr(cfg, "pad_heads_to", None):
         return "a VLM (patch embeddings, padded heads)"
-    return tp_reason(cfg)
+    pattern = set(getattr(cfg, "block_pattern", ("attn",)))
+    if pattern != {"attn"}:
+        return f"blocks {sorted(pattern)} (recurrent / local)"
+    return None
 
 
 def supports_splitkv(model, mesh) -> bool:
-    """Whether ``model`` decodes split-KV over ``mesh``: a
-    ``TransformerLM`` of attention blocks or an ``EncDecLM`` on a mesh with
-    a ``model`` axis."""
+    """Whether ``model`` serves tensor-parallel and split-KV over
+    ``mesh``: a ``TransformerLM`` (every block kind) or an ``EncDecLM`` on
+    a mesh with a ``model`` axis."""
     return (hasattr(model, "with_mesh") and hasattr(model, "tp")
-            and tp_reason(model.cfg) is None
             and "model" in mesh_axes(mesh))
 
 
@@ -136,6 +133,34 @@ def cache_segment(mesh, max_len: int) -> tuple[int, int]:
     seg = max_len // n
     j = axis_rank(mesh, "model")
     return j * seg, (j + 1) * seg
+
+
+def segment_bounds(lengths, s0: int, seg: int, window: int | None):
+    """A segment's view of rows of ``lengths`` live positions: (its local
+    lengths ``clamp(len - s0, 0, seg)``, and with a ``window`` each row's
+    first live key in it, ``clamp(len - window - s0, 0, seg)``, else
+    None). Local keys [start, local length) are the window's keys in
+    [s0, s0 + seg); a segment wholly before the window has start = seg."""
+    loc = (lengths - s0).clamp(0, seg)
+    if window is None:
+        return loc, None
+    return loc, (lengths - window - s0).clamp(0, seg)
+
+
+def model_piece(mesh, d):
+    """The rank's piece of the cache leaf ``d`` (a ``PSpec``): the dims
+    its logical axes resolve to ``model`` (the rule table, over its
+    shape) cut to 1 / model. The batch dim stays as given (the caller
+    passes the rank's rows)."""
+    import dataclasses
+    from ..sharding import resolve_spec
+    n = model_axis_size(mesh)
+    shape = list(d.shape)
+    for i, entry in enumerate(resolve_spec(mesh, d.axes, d.shape)):
+        if entry == "model" or (isinstance(entry, tuple)
+                                and "model" in entry):
+            shape[i] //= n
+    return dataclasses.replace(d, shape=tuple(shape))
 
 
 def combine(o: torch.Tensor, lse: torch.Tensor, mesh) -> torch.Tensor:
@@ -228,8 +253,10 @@ def _every_head(model, q, k, v):
     return q, k, v
 
 
-def prompt_attention(model, q, k, v, causal: bool):
-    """B15 of the rank's stored q heads over the prompt's keys. With
+def prompt_attention(model, q, k, v, causal: bool,
+                     window: int | None = None):
+    """B15 of the rank's stored q heads over the prompt's keys (the last
+    ``window`` of them a query, for a local-attention layer). With
     ``pad_heads_to``, only the real heads attend, each through the
     one-device q → kv map (global head g reads kv head g // (num_heads /
     Hkv)), cut by their global index (a rank's block of stored heads can
@@ -241,7 +268,7 @@ def prompt_attention(model, q, k, v, causal: bool):
     if model.h_eff == H:
         return A.prefill_attention(q, *tp.kv_for_q(q, k, v, H,
                                                    cfg.num_kv_heads),
-                                   causal=causal)
+                                   causal=causal, window=window)
     g0 = tp.rank * hq if hq < model.h_eff else 0
     real = min(max(H - g0, 0), hq)
     o = q.new_zeros(q.shape)
@@ -251,16 +278,17 @@ def prompt_attention(model, q, k, v, causal: bool):
         o[:, :, :real] = A.prefill_attention(
             q[:, :, :real], *kv_heads(k, v, [(g0 + i) // G
                                              for i in range(real)]),
-            causal=causal)
+            causal=causal, window=window)
     return o
 
 
-def _segment_attention(model, q, kv: dict, length):
+def _segment_attention(model, q, kv: dict, length, start=None):
     """B14 of every real head's query q (B, 1, H, D) over this rank's
-    segment ``kv`` (B, n, Hkv, D) at its local lengths, with its
-    log-sum-exp, merged over ``model`` (``combine``); the dummy heads of
-    ``pad_heads_to`` 0. A segment of no rows launches nothing and weighs
-    0. Returns (B, 1, h_eff, D) in q's dtype, alike on every rank."""
+    segment ``kv`` (B, n, Hkv, D) at its local lengths (from ``start``,
+    each row's first live key, where given), with its log-sum-exp, merged
+    over ``model`` (``combine``); the dummy heads of ``pad_heads_to`` 0. A
+    segment of no rows launches nothing and weighs 0. Returns (B, 1,
+    h_eff, D) in q's dtype, alike on every rank."""
     from ..kernels import ops as K
     H = model.cfg.num_heads
     qr = q[:, 0, :H]
@@ -269,7 +297,8 @@ def _segment_attention(model, q, kv: dict, length):
         lse = torch.empty(B, H, dtype=torch.float32, device=q.device)
         o = K.decode_attention(qr, kv["k"].transpose(1, 2),
                                kv["v"].transpose(1, 2),
-                               length.to(torch.int32), lse=lse)
+                               length.to(torch.int32), lse=lse,
+                               start=start)
     else:
         o = torch.zeros_like(qr)
         lse = torch.full((B, H), float("-inf"), device=q.device)
@@ -285,27 +314,29 @@ def _rank_heads(model, o, heads: int):
     return o if heads == o.shape[2] else model.tp.rank_slice(o, 2, o.shape[2])
 
 
-def attend(model, q, k, v, cache, pos, lengths):
+def attend(model, q, k, v, cache, pos, lengths, window=None):
     """The self-attention of ``TransformerLM._attention`` (and of
     ``EncDecLM``'s decoder) under a mesh outside training: q on the rank's
     stored heads, k / v on its kv heads or whole (``TensorParallel.qkv``);
-    ``cache`` the layer's segment (bf16, or int8 codes and scales). Returns
-    the outputs of the rank's heads (B, S, h_eff/n, D) (every head's where
-    q is whole). See the module docstring."""
+    ``cache`` the layer's segment (bf16, or int8 codes and scales);
+    ``window``: a local-attention layer's. Returns the outputs of the
+    rank's heads (B, S, h_eff/n, D) (every head's where q is whole). See
+    the module docstring."""
     from ..models import attention as A
     seg = cache["k"].shape[1]
     s0 = model.tp.rank * seg
     if lengths is None:                                 # the prompt
         if model.h_eff != model.cfg.num_heads:
             k, v = whole_kv(model, k, v)
-        o = prompt_attention(model, q, k, v, causal=True)
+        o = prompt_attention(model, q, k, v, causal=True, window=window)
         _keep_prompt(cache, *whole_kv(model, k, v), s0)
         return o
     heads = q.shape[2]
     q, k, v = _every_head(model, q, k, v)
     write_segment(cache, k, v, lengths - 1, s0)
-    loc = (lengths - s0).clamp(0, seg)
-    o = _segment_attention(model, q, A.dequantize_cache(cache, q.dtype), loc)
+    loc, start = segment_bounds(lengths, s0, seg, window)
+    o = _segment_attention(model, q, A.dequantize_cache(cache, q.dtype), loc,
+                           start)
     return _rank_heads(model, o, heads)
 
 

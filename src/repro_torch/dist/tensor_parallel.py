@@ -27,11 +27,14 @@ The forms: ``row`` (a product on the rank's input rows, reduced),
 ``qkv`` (the projections on the rank's heads, qk-norm and RoPE),
 ``kv_for_q`` (the kv heads the rank's q heads read), ``moe`` (expert
 parallelism: every rank routes alike, runs its own experts and the partial
-outputs are reduced) and ``lstm_scan`` (an LSTM layer on the rank's gate
-rows, the gate preactivations gathered each step). The training forward,
-the prefill and the split-KV decode step of ``TransformerLM`` and
-``EncDecLM`` and the LSTM's training forward run through them (``moe``
-serves only: a mixture of experts trains data-parallel).
+outputs are reduced), ``lstm_scan`` (an LSTM layer on the rank's gate
+rows, the gate preactivations gathered each step) and the recurrent mixers
+on the rule table's split (``rglru``: the rank's ``d_rnn`` columns;
+``rwkv_time_mix``: its heads; ``rwkv_channel_mix``: Megatron's pair). The
+training forward, the prefill and the split-KV decode step of
+``TransformerLM`` and ``EncDecLM`` and the LSTM's training forward run
+through them (``moe`` and the recurrent forms serve only: those families
+train data-parallel).
 
 Every collective goes through ``collective_ops`` (staged through host
 memory where gloo carries card tensors); the partial sums reduce in
@@ -287,3 +290,54 @@ class TensorParallel:
             c, h = cell(z, c)
             hs.append(h)
         return torch.stack(hs, 1), (c, h)
+
+    def rglru(self, p: dict, x, state=None, *, step: bool = False):
+        """``recurrent.rglru_apply`` (``step``: ``rglru_step`` from
+        ``state``); with ``d_rnn`` split over ``model`` (the rule table's
+        ``mlp``), the rank's columns: ``w_in_gelu``, ``w_in_rec``, the
+        conv and ``lam`` on them, the recurrence and its state (``h``,
+        ``conv``) local; the two gates' partial products over the rank's
+        rows of ``w_gate_a`` / ``w_gate_x`` reduced in one float32 message,
+        each rank keeping its own columns; ``w_out`` row-parallel,
+        reduced."""
+        from ..models import recurrent as R
+        from ..models.layers import pmm
+        mine = {k: local(v) for k, v in p.items()}
+        fn = R.rglru_step if step else R.rglru_apply
+        if self.split_dim(p["w_in_rec"]) != 1:
+            return fn(mine, x, state)
+        d = p["w_gate_a"].shape[1]          # d_rnn, whole
+
+        def gate_pre(pl, xr):
+            both = self.reduce(torch.cat([pmm(xr, pl["w_gate_a"]),
+                                          pmm(xr, pl["w_gate_x"])], -1))
+            return tuple(self.rank_slice(g, -1, d)
+                         for g in torch.split(both, d, dim=-1))
+        return fn(mine, self.copy(x), state, gate_pre=gate_pre,
+                  reduce=self.reduce)
+
+    def rwkv_time_mix(self, p: dict, x, state, *, chunk: int,
+                      step: bool = False):
+        """``recurrent.rwkv_time_mix`` (``step``: ``rwkv_time_mix_step``);
+        with the heads split over ``model``, the rank's heads (``w_r``,
+        ``w_k``, ``w_v``, ``w_g``, ``w_w``, ``w0``, ``u``, ``gn``; ``S``
+        local), ``w_out`` row-parallel, reduced."""
+        from ..models import recurrent as R
+        mine = {k: local(v) for k, v in p.items()}
+        kw = {} if self.split_dim(p["w_r"]) != 1 else {"reduce": self.reduce}
+        if kw:
+            x = self.copy(x)
+        if step:
+            return R.rwkv_time_mix_step(mine, x, state, **kw)
+        return R.rwkv_time_mix(mine, x, state, chunk=chunk, **kw)
+
+    def rwkv_channel_mix(self, p: dict, x, state_x):
+        """``recurrent.rwkv_channel_mix``; with its hidden dim split,
+        Megatron's pair: ``w_cm1`` on the rank's columns, ``w_cm2`` on its
+        rows, reduced."""
+        from ..models import recurrent as R
+        mine = {k: local(v) for k, v in p.items()}
+        if self.split_dim(p["w_cm2"]) != 0:
+            return R.rwkv_channel_mix(mine, x, state_x)
+        return R.rwkv_channel_mix(mine, self.copy(x), state_x,
+                                  reduce=self.reduce)

@@ -102,8 +102,8 @@ SIGNATURES = {
                                        _F, _F, _F, _P]},
     "attention": {
         "brds_decode_attention": [_P, _L, _L, _P, _L, _L, _L, _P, _L, _L, _L,
-                                  _P, _P, _I, _I, _I, _I, _I, _I, _F, _I,
-                                  _I, _I, _I, _P, _I, _P],
+                                  _P, _P, _P, _I, _I, _I, _I, _I, _I, _F,
+                                  _I, _I, _I, _I, _P, _I, _P],
         "brds_decode_attention_info": [_I, _I, _I, _I, _P],
         "brds_flash_attention": [_P, _L, _L, _L, _P, _L, _L, _L, _P, _L, _L,
                                  _L, _P, _L, _L, _L, _I, _I, _I, _I, _I, _I,

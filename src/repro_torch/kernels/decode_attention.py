@@ -11,6 +11,9 @@ head-major or GQA-expanded copy is made. One launch: the slices of a
 With ``lse=`` the merge also stores each row's log-sum-exp (m + log l of
 the scaled scores; -inf where no key is live), which a split-KV decode
 weighs the ranks' partial outputs by; without it nothing more is stored.
+With ``start=`` each row's keys begin at its own first live key (a
+split-KV rank's first key of the window within its segment); without it
+every launch is what it was.
 Replaces ``repro/kernels/decode_attention.py::decode_attention``; the
 function it computes is ``ref.decode_attention_window_ref``.
 """
@@ -37,12 +40,16 @@ def decode_plan_for(q, k) -> DecodePlan:
 
 def decode_attention(q, k, v, lengths, *, window: int | None = None,
                      fixed_length: int | None = None,
-                     lse: torch.Tensor | None = None):
+                     lse: torch.Tensor | None = None,
+                     start: torch.Tensor | None = None):
     """q (B, Hq, D), k/v (B, Hkv, S, D), any strides with a unit last dim;
     lengths (B,) int32 on the card. fp32 or bf16, q/k/v alike. Returns
     (B, Hq, D) in q.dtype; a row with length 0 gives 0. ``lse``: a
     contiguous (B, Hq) float32 tensor on the card that takes each row's
-    log-sum-exp (-inf for a row with no live key). ``fixed_length``
+    log-sum-exp (-inf for a row with no live key). ``start``: (B,) int32
+    on the card, each row's first live key (the window's first too, where
+    later); a row whose start is at or past its length gives 0 (and lse
+    -inf). ``fixed_length``
     is a diagnostic (``launch.profile_kernels``): every row takes that
     length and ``lengths`` is not read."""
     _build.refuse_autograd("decode_attention", q, k, v, lengths)
@@ -62,6 +69,12 @@ def decode_attention(q, k, v, lengths, *, window: int | None = None,
                          "(B, Hkv, S, D) with Hkv dividing Hq, lengths (B,)")
     if D not in HEAD_DIMS:
         raise ValueError(f"head_dim {D} not in {HEAD_DIMS}")
+    if start is not None:
+        _build.require(start, "start", dtypes=(torch.int32,), ndim=1,
+                       device=dev)
+        if start.shape != (B,) or not start.is_contiguous():
+            raise ValueError(f"start {tuple(start.shape)}: want a "
+                             f"contiguous ({B},)")
     if lse is not None:
         _build.require(lse, "lse", dtypes=(torch.float32,), ndim=2,
                        device=dev)
@@ -75,7 +88,8 @@ def decode_attention(q, k, v, lengths, *, window: int | None = None,
         q.data_ptr(), q.stride(0), q.stride(1),
         k.data_ptr(), k.stride(0), k.stride(1), k.stride(2),
         v.data_ptr(), v.stride(0), v.stride(1), v.stride(2),
-        lengths.data_ptr(), out.data_ptr(), B, Hq, Hkv, S, D,
+        lengths.data_ptr(), None if start is None else start.data_ptr(),
+        out.data_ptr(), B, Hq, Hkv, S, D,
         0 if window is None else int(window), float(D ** -0.5), plan.splits,
         plan.stages, plan.smem,
         -1 if fixed_length is None else int(fixed_length),
@@ -85,11 +99,15 @@ def decode_attention(q, k, v, lengths, *, window: int | None = None,
     _build.LAUNCHES["decode_attention"] += 1
     if lse is not None:
         LSE_LAUNCHES[0] += 1
+    if start is not None:
+        START_LAUNCHES[0] += 1
     return out
 
 
-# launches that stored lse (a part of LAUNCHES["decode_attention"])
+# launches that stored lse / read start= (parts of
+# LAUNCHES["decode_attention"])
 LSE_LAUNCHES = [0]
+START_LAUNCHES = [0]
 
 
 def decode_info(plan: DecodePlan, D: int, G: int, dtype: torch.dtype,

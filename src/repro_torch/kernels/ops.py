@@ -638,6 +638,7 @@ def flash_attention(q, k, v, *, causal: bool = True,
 
 def decode_attention(q, k, v, lengths, *, window: int | None = None,
                      lse: torch.Tensor | None = None,
+                     start: torch.Tensor | None = None,
                      backend: str | None = None,
                      use_kernel: bool | None = None,
                      block_kv: int | None = None):
@@ -646,7 +647,9 @@ def decode_attention(q, k, v, lengths, *, window: int | None = None,
     with a window); a row with length 0 gives 0. Returns (B, Hq, D) in
     q.dtype. ``lse``: a (B, Hq) float32 tensor on q's device that takes
     each row's log-sum-exp (-inf for a row with no live key), for a
-    split-KV combine."""
+    split-KV combine. ``start``: a (B,) int tensor, each row's first live
+    key (a split-KV rank's first key of the window in its segment); a row
+    whose start is at or past its length has no live key."""
     _check_window(window)
     if lse is not None and (lse.dtype != torch.float32
                             or tuple(lse.shape) != tuple(q.shape[:2])
@@ -655,12 +658,15 @@ def decode_attention(q, k, v, lengths, *, window: int | None = None,
                          f"tensor, got {lse.dtype} {tuple(lse.shape)}")
     if _pick(backend, use_kernel, q, block_kv=block_kv) == "ref":
         return _ref.decode_attention_window_ref(q, k, v, lengths,
-                                                window=window, lse=lse)
+                                                window=window, lse=lse,
+                                                start=start)
     if _is_fake(q):
         B, Hq, D = q.shape
         keys = min(k.shape[2], window or k.shape[2])
         return _faked("decode_attention",
                       torch.empty((B, Hq, D), dtype=q.dtype, device=q.device),
                       **_attn_flops(q.dtype, 4 * B * Hq * keys * D))
+    if start is not None:
+        start = start.to(torch.int32).contiguous()
     return _decode_attn_kernel(q, k, v, lengths.to(torch.int32),
-                               window=window, lse=lse)
+                               window=window, lse=lse, start=start)

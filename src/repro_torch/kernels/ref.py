@@ -247,7 +247,8 @@ def flash_attention_ref(q, k, v, *, causal: bool = True,
 
 def decode_attention_window_ref(q, k, v, lengths, *,
                                 window: int | None = None,
-                                lse: torch.Tensor | None = None
+                                lse: torch.Tensor | None = None,
+                                start: torch.Tensor | None = None
                                 ) -> torch.Tensor:
     """What ``decode_attention`` computes (B14): one query per sequence
     against its first ``lengths[b]`` cache rows (the last ``window`` of
@@ -256,7 +257,9 @@ def decode_attention_window_ref(q, k, v, lengths, *,
     Equals ``decode_attention_ref`` for lengths ≥ 1; a length-0 row gives
     0, as the Pallas kernel does. ``lse`` (B, Hq) float32, when given,
     takes each row's log-sum-exp of its scaled scores (m + log l; -inf for
-    a row with no live key): what a split-KV combine weighs partials by."""
+    a row with no live key): what a split-KV combine weighs partials by.
+    ``start`` (B,) int, when given: each row's keys begin there too
+    (``kpos >= start``)."""
     B, Hq, D = q.shape
     Hkv, S = k.shape[1], k.shape[2]
     qf = q.float().reshape(B, Hkv, Hq // Hkv, 1, D) * D ** -0.5
@@ -265,6 +268,8 @@ def decode_attention_window_ref(q, k, v, lengths, *,
     mask = kpos < n
     if window is not None:
         mask = mask & (kpos > n - 1 - window)
+    if start is not None:
+        mask = mask & (kpos >= start.to(q.device).reshape(B, 1, 1, 1, 1))
     if lse is None:
         out = _grouped_softmax_av(qf, k, v, mask)
     else:

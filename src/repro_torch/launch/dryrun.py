@@ -14,7 +14,8 @@ The step is the port's own:
 * train: ``training.jit_train_step`` (tensor-parallel forms, ZeRO-1
   moments, the batch split over the batch axes) on the rank's pieces;
 * prefill / decode: ``TransformerLM.with_mesh`` (the tensor-parallel
-  prefill, the split-KV decode step over the rank's cache segment).
+  prefill, the split-KV decode step over the rank's cache segment and
+  recurrent state slices).
 
 What the trace reads, per cell (the reference's record, from the traced
 step where the reference reads the compiled one):
@@ -40,9 +41,9 @@ step where the reference reads the compiled one):
 * ``trace_s``.
 
 A cell whose path the port refuses (``jit_train_step`` naming ROADMAP
-queue A item 11, ``with_mesh`` / ``launch.serve --mesh`` naming item 9)
-is recorded ``not_ported`` with the refusal's words; a cell the
-reference's ``runnable`` rules out, ``n/a``. The reference's HLO half
+queue A item 11) is recorded ``not_ported`` with the refusal's words; a
+cell the reference's ``runnable`` rules out, ``n/a``. The reference's HLO
+half
 (``compile()``, its memory and cost analyses, ``--hlo-dir``,
 ``roofline.analyze_hlo``) has no counterpart.
 

@@ -72,15 +72,15 @@ against the card's decode roofline (``obs.scorecard``); the counters ride
 the decode only when one of the two asks for them.
 ``--mesh DATA,MODEL`` serves a packed LSTM (``--brds``) sharded over
 DATA × MODEL ranks (``repro_torch.dist``): the gate rows split over MODEL,
-the batch (or the scheduler's slots) over DATA where it divides. An
-attention model of the zoo (the dense GQA transformers, granite-moe and
-qwen3-moe, seamless-m4t, llava, any of them with ``kv_quant``; ``--brds``
-or not) runs tensor-parallel and decodes split-KV
-(``dist.tensor_parallel``, ``dist.splitkv``): its projections, MLP,
-experts and vocabulary over MODEL, its KV cache (and an encoder-decoder's
-cross memory) over MODEL along the sequence, its frames or patches over
-DATA with the prompts, lockstep only (the recurrent families and
-``--continuous`` / ``--traffic`` refuse it: ROADMAP queue A item 9).
+the batch (or the scheduler's slots) over DATA where it divides. Every
+model of the zoo (the dense GQA transformers, granite-moe and qwen3-moe,
+seamless-m4t, llava, recurrentgemma and rwkv6, any of them with
+``kv_quant``; ``--brds`` or not) runs tensor-parallel and decodes
+split-KV (``dist.tensor_parallel``, ``dist.splitkv``): its projections,
+MLP, experts, recurrent mixers (RG-LRU's ``d_rnn``, RWKV6's heads) and
+vocabulary over MODEL, its KV cache (and an encoder-decoder's cross
+memory) over MODEL along the sequence, its frames or patches over DATA
+with the prompts, lockstep or under the scheduler.
 Each rank draws every param as ``model.init`` draws it and keeps only its
 piece (``layers.init_params(shardings=)``), so no rank holds whole
 params. The CLI
@@ -417,11 +417,12 @@ def parser() -> argparse.ArgumentParser:
                          "or the --continuous / --traffic run) and print "
                          "the device time by kernel and the busy share")
     ap.add_argument("--mesh", default=None, metavar="DATA,MODEL",
-                    help="serve a packed LSTM (--brds) or an attention "
-                         "model of the zoo (split-KV) sharded over a (data, "
-                         "model) mesh of DATA x MODEL ranks, e.g. '2,2' "
-                         "(repro_torch.dist); the CLI spawns the ranks "
-                         "unless it runs under torchrun")
+                    help="serve a packed LSTM (--brds) or any model of "
+                         "the zoo (tensor-parallel, split-KV), lockstep or "
+                         "under the scheduler (--continuous / --traffic), "
+                         "sharded over a (data, model) mesh of DATA x MODEL "
+                         "ranks, e.g. '2,2' (repro_torch.dist); the CLI "
+                         "spawns the ranks unless it runs under torchrun")
     ap.add_argument("--dist-backend", default=None, choices=("nccl", "gloo"),
                     help="--mesh: the process group's backend (default: "
                          "nccl on the card, one card a rank; gloo on the "
@@ -440,18 +441,6 @@ def _mesh_shape(ap, args) -> tuple[int, int]:
     if d < 1 or m < 1:
         ap.error(f"--mesh {args.mesh}: sizes must be positive")
     if args.arch not in LSTM_CONFIGS:
-        from repro_torch.configs import get_arch, smoke_config
-        from repro_torch.dist.splitkv import tp_reason
-        cfg = smoke_config(args.arch) if args.smoke else get_arch(args.arch)
-        why = tp_reason(cfg)
-        if why is not None:
-            ap.error(f"--mesh serves the packed LSTM and the attention "
-                     f"models (split-KV); {args.arch} has {why}, whose "
-                     "sharded decode is ROADMAP.md queue A item 9")
-        if args.continuous or args.traffic:
-            ap.error(f"--continuous / --traffic with --mesh serve the packed "
-                     f"LSTM; {args.arch} under the scheduler sharded is "
-                     "ROADMAP.md queue A item 9")
         if (args.prompt_len + args.gen) % m:
             ap.error(f"--mesh {args.mesh}: the cache of --prompt-len + --gen "
                      f"= {args.prompt_len + args.gen} positions must split "

@@ -14,6 +14,12 @@ updates:
   the pairwise-decayed attention form, across chunks the carried (Dk, Dk)
   state, one Python iteration a chunk as the reference's ``lax.scan``.
 
+The functions take the product hooks a tensor-parallel rank needs
+(``dist.tensor_parallel``: ``gate_pre``, the gates' preactivations over
+every rank's rows; ``reduce``, a row-parallel product's partial sums), so a
+rank runs the same math on its slice of ``d_rnn`` or of the heads; left
+out, they are the one-device products.
+
 The state functions return new tensors and never write their inputs: the
 serving loop copies a step's state into its static buffers (``runtime.
 assign``), and the speculative verify chain keeps each step's state as a
@@ -126,22 +132,28 @@ def _causal_conv(x, w, b, state=None):
     return y, new_state
 
 
-def _rglru_gates(p, xr):
+def _gate_pre(p, xr):
+    """The gates' preactivations (xr @ w_gate_a, xr @ w_gate_x)."""
+    return torch.matmul(xr, p["w_gate_a"]), torch.matmul(xr, p["w_gate_x"])
+
+
+def _rglru_gates(p, xr, gate_pre=_gate_pre):
     """Gate computations shared by scan and step. xr (..., d_rnn) →
     (log_a, gx), float32."""
-    ga = torch.sigmoid(torch.matmul(xr, p["w_gate_a"]).float())
-    gx = torch.sigmoid(torch.matmul(xr, p["w_gate_x"]).float())
+    pa, px = gate_pre(p, xr)
+    ga = torch.sigmoid(pa.float())
+    gx = torch.sigmoid(px.float())
     log_a = -RG_C * F.softplus(p["lam"].float()) * ga  # (..., d_rnn) ≤ 0
     return log_a, gx
 
 
-def _rglru_inputs(p, x, conv_state):
+def _rglru_inputs(p, x, conv_state, gate_pre=_gate_pre):
     """The gelu branch, the conv'd recurrent input, its new conv state and
     the recurrence's (a, b), all from x (B, S, d_model)."""
     gelu_branch = F.gelu(torch.matmul(x, p["w_in_gelu"]), approximate="tanh")
     xr = torch.matmul(x, p["w_in_rec"])
     xr, new_conv = _causal_conv(xr, p["conv_w"], p["conv_b"], conv_state)
-    log_a, gx = _rglru_gates(p, xr)
+    log_a, gx = _rglru_gates(p, xr, gate_pre)
     a = torch.exp(log_a)
     beta = torch.sqrt(torch.clamp_min(1.0 - torch.exp(2.0 * log_a), 1e-9))
     b = beta * gx * xr.float()
@@ -154,27 +166,34 @@ def _combine(left, right):
     return al * ar, ar * bl + br
 
 
-def rglru_apply(p: dict, x, state=None):
+def _no_reduce(y):
+    return y
+
+
+def rglru_apply(p: dict, x, state=None, *, gate_pre=_gate_pre,
+                reduce=_no_reduce):
     """Full-sequence RG-LRU block. x (B, S, d_model); state: dict with
     'h' (B, d_rnn) and 'conv' (B, W-1, d_rnn) to chain from (None: zeros).
-    Returns (y (B, S, d_model), new_state)."""
+    Returns (y (B, S, d_model), new_state). ``gate_pre`` / ``reduce``: the
+    product hooks (module docstring)."""
     gelu_branch, conv_state, a, b = _rglru_inputs(
-        p, x, None if state is None else state["conv"])
+        p, x, None if state is None else state["conv"], gate_pre)
     # h_t = a_t h_{t-1} + b_t, a log-depth scan over the sequence
     a_sc, b_sc = associative_scan(_combine, (a, b), dim=1)
     h = b_sc
     if state is not None:
         h = h + a_sc * state["h"].float()[:, None, :]
     h = h.to(x.dtype)
-    y = torch.matmul(gelu_branch * h, p["w_out"])
+    y = reduce(torch.matmul(gelu_branch * h, p["w_out"]))
     return y, {"h": h[:, -1], "conv": conv_state}
 
 
-def rglru_step(p: dict, x, state):
+def rglru_step(p: dict, x, state, *, gate_pre=_gate_pre, reduce=_no_reduce):
     """Single-token decode. x (B, 1, d_model) → (y (B, 1, d), new_state)."""
-    gelu_branch, conv_state, a, b = _rglru_inputs(p, x, state["conv"])
+    gelu_branch, conv_state, a, b = _rglru_inputs(p, x, state["conv"],
+                                                  gate_pre)
     h = (a[:, 0] * state["h"].float() + b[:, 0]).to(x.dtype)
-    y = torch.matmul(gelu_branch[:, 0] * h, p["w_out"])[:, None]
+    y = reduce(torch.matmul(gelu_branch[:, 0] * h, p["w_out"]))[:, None]
     return y, {"h": h, "conv": conv_state}
 
 
@@ -290,9 +309,12 @@ def _chunk_step(S_prev, rb, kb, vb, lwb, u):
     return S_new, o
 
 
-def rwkv_time_mix(p: dict, x, state, *, chunk: int = 128):
+def rwkv_time_mix(p: dict, x, state, *, chunk: int = 128,
+                  reduce=_no_reduce):
     """Chunked-parallel RWKV6 time mix. x (B, S, d); state dict with 'S'
-    (B, H, Dk, Dk) and 'x_tm' (B, d). Returns (y, new_state)."""
+    (B, H, Dk, Dk) and 'x_tm' (B, d). Returns (y, new_state). The heads
+    are ``p["u"]``'s (a rank's, with ``reduce`` summing the output
+    projection's partial products)."""
     B, S, d = x.shape
     H, Dk = p["u"].shape
     L = _chunk_len(S, chunk)
@@ -312,11 +334,12 @@ def rwkv_time_mix(p: dict, x, state, *, chunk: int = 128):
         S_state, o = _chunk_step(S_state, rc[c], kc[c], vc[c], wc[c], u)
         outs.append(o)
     o = torch.stack(outs).permute(1, 0, 3, 2, 4).reshape(B, S, H, Dk)
-    return _rwkv_out(p, o, g), {"S": S_state, "x_tm": x[:, -1]}
+    return reduce(_rwkv_out(p, o, g)), {"S": S_state, "x_tm": x[:, -1]}
 
 
 def _rwkv_out(p, o, g):
-    """Per-head RMS group-norm, gate, output projection."""
+    """Per-head RMS group-norm, gate, output projection (of the heads
+    given: a rank's partial products)."""
     of = o.float()
     var = torch.mean(of * of, dim=-1, keepdim=True)
     of = of * torch.rsqrt(var + 1e-6) * (1.0 + p["gn"].float())
@@ -328,7 +351,7 @@ def _rwkv_out(p, o, g):
     return _proj(of.to(g.dtype).reshape(B, S, -1), w)
 
 
-def rwkv_time_mix_step(p: dict, x, state):
+def rwkv_time_mix_step(p: dict, x, state, *, reduce=_no_reduce):
     """Single-token decode. x (B, 1, d)."""
     x_shift = state["x_tm"][:, None, :].to(x.dtype)
     r, k, v, g, log_w = _rwkv_projections(p, x, x_shift)
@@ -341,19 +364,20 @@ def rwkv_time_mix_step(p: dict, x, state):
     kv = kb[..., :, None] * vb[..., None, :]  # (B, H, Dk, Dk)
     o = torch.einsum("bhd,bhde->bhe", rb, S_prev + u[None, :, :, None] * kv)
     S_new = w[..., None] * S_prev + kv
-    o = _rwkv_out(p, o[:, None], g)           # (B,1,H,Dk) → (B,1,d)
+    o = reduce(_rwkv_out(p, o[:, None], g))   # (B,1,H,Dk) → (B,1,d)
     return o, {"S": S_new, "x_tm": x[:, -1]}
 
 
-def rwkv_channel_mix(p: dict, x, state_x):
+def rwkv_channel_mix(p: dict, x, state_x, *, reduce=_no_reduce):
     """x (B, S, d); state_x (B, d), the last token of the previous
-    segment. Returns (y, the new state: x's last token)."""
+    segment. Returns (y, the new state: x's last token). ``reduce``: the
+    second product's partial sums over a rank's hidden rows."""
     x_shift = _token_shift(x, state_x)
     mu = p["mu_cm"].float()
     xf = x.float()
     mixed = (xf + mu * (x_shift.float() - xf)).to(x.dtype)
     h = F.relu(_proj(mixed, p["w_cm1"]))
-    y = _proj(h * h, p["w_cm2"])
+    y = reduce(_proj(h * h, p["w_cm2"]))
     return y, x[:, -1]
 
 

@@ -39,12 +39,13 @@ so every weight gets its gradient; with ``cfg.remat`` each layer is
 recomputed in the backward (``torch.utils.checkpoint``), as the reference
 remats each period.
 
-The projections, the MLP or the experts, the embedding and the head go
-through ``dist.tensor_parallel``'s forms (``self.tp``): the one-device
-math without a mesh; under one (``with_mesh``: every attention family,
-the int8 cache too) the tensor-parallel forms on each rank's pieces of
-the params, which the prefill and the split-KV decode step share, and
-the dense GQA transformers' training forward too.
+The projections, the MLP or the experts, the recurrent mixers, the
+embedding and the head go through ``dist.tensor_parallel``'s forms
+(``self.tp``): the one-device math without a mesh; under one
+(``with_mesh``: every block kind, the int8 cache too) the
+tensor-parallel forms on each rank's pieces of the params, which the
+prefill and the split-KV decode step share, and the dense GQA
+transformers' training forward too.
 """
 from __future__ import annotations
 
@@ -100,16 +101,9 @@ class TransformerLM:
         each rank's pieces (``dist.tensor_parallel``: a mixture's experts
         on their ranks); its cache is the rank's segment of ``cache_seq``
         (int8 codes and scales under ``kv_quant``), decoded split-KV
-        (``dist.splitkv``). The recurrent and local-attention blocks are
-        refused (ROADMAP queue A item 9)."""
-        if mesh is not None:
-            from ..dist.splitkv import tp_reason
-            why = tp_reason(self.cfg)
-            if why is not None:
-                raise NotImplementedError(
-                    f"{self.cfg.name}: the tensor-parallel forward and the "
-                    f"split-KV decode serve the attention families, not "
-                    f"{why} (ROADMAP queue A item 9)")
+        (``dist.splitkv``: a local-attention layer's from its first key of
+        the window); the recurrent blocks on the rank's ``d_rnn`` columns
+        or heads, their state the rank's slice."""
         other = copy.copy(self)
         other.mesh = mesh
         other.tp = TensorParallel(mesh)
@@ -178,11 +172,14 @@ class TransformerLM:
         return L.count_params(self.param_defs())
 
     # ------------------------------------------------------------- blocks
-    def _zero_state(self, kind, x):
-        """The rwkv mixer's and channel mix's state before a sequence."""
+    def _zero_state(self, p, x):
+        """The rwkv mixer's and channel mix's state before a sequence, on
+        the heads of ``p`` (the layer's params: a rank's under a mesh)."""
+        from ..dist.tensor_parallel import local
         cfg = self.cfg
         B, d = x.shape[0], x.shape[2]
-        return {"S": torch.zeros((B, cfg.num_heads, cfg.head_dim,
+        heads = local(p["u"]).shape[0]
+        return {"S": torch.zeros((B, heads, cfg.head_dim,
                                   cfg.head_dim), dtype=torch.float32,
                                  device=x.device),
                 "x_tm": torch.zeros((B, d), dtype=x.dtype, device=x.device),
@@ -197,7 +194,8 @@ class TransformerLM:
         q, k, v = self.tp.qkv(p, h, rot, qk_norm=cfg.qk_norm)
         if self.mesh is not None and not train:
             from ..dist import splitkv
-            return splitkv.attend(self, q, k, v, cache, pos, lengths)
+            return splitkv.attend(self, q, k, v, cache, pos, lengths,
+                                  window)
         q = q[:, :, :H]                  # the real heads attend
         k, v = self.tp.kv_for_q(q, k, v, H, cfg.num_kv_heads)
         if train:
@@ -235,21 +233,16 @@ class TransformerLM:
                                 lengths, train)
             x = x + tp.row(o, p["attn"]["wo"], flat_in=2)
         elif kind == "rec":
-            if decode:
-                y, state = R.rglru_step(p["rec"], h, cache)
-            else:
-                y, state = R.rglru_apply(p["rec"], h)
+            y, state = tp.rglru(p["rec"], h, cache if decode else None,
+                                step=decode)
             x = x + y
         else:
-            st = cache if decode else self._zero_state(kind, h)
-            if decode:
-                y, mix = R.rwkv_time_mix_step(p["rwkv"], h, st)
-            else:
-                y, mix = R.rwkv_time_mix(p["rwkv"], h, st,
-                                         chunk=cfg.rwkv_chunk)
+            st = cache if decode else self._zero_state(p["rwkv"], h)
+            y, mix = tp.rwkv_time_mix(p["rwkv"], h, st, chunk=cfg.rwkv_chunk,
+                                      step=decode)
             x = x + y
-            h = L.apply_norm(cfg.norm, p["norm2"], x)
-            y, x_cm = R.rwkv_channel_mix(p["rwkv"], h, st["x_cm"])
+            h = tp.norm(cfg.norm, p["norm2"], x)
+            y, x_cm = tp.rwkv_channel_mix(p["rwkv"], h, st["x_cm"])
             state = dict(mix, x_cm=x_cm)
             return x + y, (None if train else state), None
         h = tp.norm(cfg.norm, p["norm2"], x)
@@ -300,6 +293,10 @@ class TransformerLM:
             else:
                 x, st, aux = self._block(kind, p, x, rot, c, pos, lengths,
                                          train)
+                if lengths is None and st is not None:
+                    # a prompt's last-token states are views of the
+                    # layer's (B, S, ·) activations: copies free them
+                    st = {k: v.clone() for k, v in st.items()}
             if aux is not None:
                 aux_total = aux_total + aux
             states.append(st)
@@ -348,18 +345,24 @@ class TransformerLM:
         of (B, max_len, Hkv, 1), under ``cfg.kv_quant``), with a
         ``cache_seq`` axis (positional, ``spec.verify``); an RG-LRU
         layer's ``h`` and ``conv``, an RWKV6 layer's ``S``, ``x_tm`` and
-        ``x_cm`` (recurrent state)."""
-        if self.mesh is not None:      # the rank's segment of cache_seq
-            from ..dist.splitkv import cache_segment, tp_reason
-            why = tp_reason(self.cfg)
-            if why is not None:
-                raise NotImplementedError(
-                    f"{self.cfg.name}: the split-KV decode does not hold "
-                    f"{why} (ROADMAP queue A item 9)")
+        ``x_cm`` (recurrent state). Under a mesh the rank's pieces: an
+        attention layer's segment of ``cache_seq``
+        (``dist.splitkv.cache_segment``), a recurrent layer's state cut on
+        the dims the rule table splits over ``model`` (``model_piece``:
+        ``h`` and ``conv`` on ``d_rnn``, ``S`` on the heads)."""
+        if self.mesh is None:
+            return {"layers": [self._cache_defs_block(k, batch, max_len)
+                               for k in self.kinds]}
+        from ..dist.splitkv import cache_segment, model_piece
+        seg = max_len
+        if self.has_attention:
             s0, s1 = cache_segment(self.mesh, max_len)
-            max_len = s1 - s0
-        return {"layers": [self._cache_defs_block(k, batch, max_len)
-                           for k in self.kinds]}
+            seg = s1 - s0
+        return {"layers": [
+            self._cache_defs_block(k, batch, seg) if k.startswith("attn")
+            else {n: model_piece(self.mesh, d) for n, d in
+                  self._cache_defs_block(k, batch, max_len).items()}
+            for k in self.kinds]}
 
     def init_cache(self, batch: int, max_len: int, device):
         return L.init_params(self.cache_defs(batch, max_len), None,

@@ -15,9 +15,10 @@ quant rules rewire the model there too. ``generate(draft=...)`` decodes by
 speculative rounds (``repro_torch.spec``).
 
 ``mesh=`` (a (data, model) DeviceMesh, ``launch.mesh``) serves the packed
-LSTM sharded (``repro_torch.dist``) and every attention family split-KV
-(``dist.splitkv``: the dense GQA transformers, the mixture of experts, the
-encoder-decoder, the VLM, the int8 KV cache): every rank runs this engine
+LSTM sharded (``repro_torch.dist``) and every model of the zoo
+tensor-parallel and split-KV (``dist.splitkv``: the dense GQA
+transformers, the mixture of experts, the encoder-decoder, the VLM, the
+int8 KV cache, the recurrent families): every rank runs this engine
 on the same inputs; ``prepare`` hands each rank its gate-aligned block of
 the packed rows, or its pieces of the model's params, and ``generate``
 decodes the rank's data group's rows (and their frames or patches) and
@@ -41,8 +42,10 @@ def cache_shardings(mesh, model, batch: int, max_len: int):
     cache of ``batch`` rows over ``mesh``, resolved from the leaves'
     logical axes over the whole cache's shapes (the reference's
     ``cache_shardings``). Under a mesh the LSTM's c shards over ``model``
-    (``lstm_hidden_shard``) and m with its gate rows, h stays replicated,
-    and the batch splits over ``data`` where it divides."""
+    (``lstm_hidden_shard``) and m with its gate rows, h stays replicated;
+    a zoo model's KV cache over ``model`` on ``cache_seq``, RG-LRU's ``h``
+    / ``conv`` on ``d_rnn`` and RWKV6's ``S`` on its heads; the batch
+    splits over ``data`` where it divides."""
     from ..sharding import placements
     whole = (model.with_mesh(None) if getattr(model, "mesh", None)
              is not None else model)

@@ -35,14 +35,19 @@ prefill at exact length. Same-bucket requests prefill together in one call
 encoder-decoder's frames, which must have the config's ``enc_len`` rows:
 the slots' cross memory has that many).
 
-Under a ``mesh`` (the packed LSTM sharded over ``repro_torch.dist``) every
-rank runs this scheduler: the same admissions, prefills and harvests, from
-a clock whose readings rank 0 broadcasts (``launch.mesh.synced_clock``).
-The slots split over ``data`` where it divides them, each rank decoding its
-block; prefills run on every rank (a batch-1 prefill stays replicated) and
-each rank joins the rows whose slots it holds; a chunk's tokens are
-all-gathered over ``data`` at its harvest. The chunk runs eagerly: a
-step's all-gather runs on the host under gloo.
+Under a ``mesh`` (the packed LSTM sharded over ``repro_torch.dist``, or
+any model of the zoo tensor-parallel and split-KV over ``dist.splitkv``)
+every rank runs this scheduler: the same admissions, prefills and
+harvests, from a clock whose readings rank 0 broadcasts
+(``launch.mesh.synced_clock``). The slots split over ``data`` where it
+divides them, each rank decoding its block; prefills run on every rank
+(a batch-1 prefill stays replicated over ``data``; a zoo model's runs
+tensor-parallel on every rank of its ``model`` group, each keeping its
+segment of the prompt's keys, its slices of the recurrent state and of
+an encoder-decoder's cross memory) and each rank joins the rows whose
+slots it holds; a chunk's tokens are all-gathered over ``data`` at its
+harvest. The chunk runs eagerly: a step's collectives run on the host
+under gloo.
 """
 from __future__ import annotations
 
@@ -110,9 +115,10 @@ class ContinuousBatchingEngine:
     params). ``device`` defaults to ``cuda`` and raises without a card
     unless ``device="cpu"`` is given. ``mesh`` (a (data, model)
     DeviceMesh) serves sharded: ``params`` must then be
-    ``repro_torch.dist.partition_lstm_params``' layout (a ``ServeEngine``
-    with the mesh prepares it), and ``draft`` and ``counters`` are
-    refused.
+    ``repro_torch.dist.partition_lstm_params``' layout, or a zoo model's
+    pieces (``dist.splitkv.partition_transformer_params``; a
+    ``ServeEngine`` with the mesh prepares either), and ``draft`` and
+    ``counters`` are refused.
 
     Traffic controls (all keyword-only):
 
@@ -170,6 +176,9 @@ class ContinuousBatchingEngine:
             # params that were not partitioned would decode garbage silently
             from ..dist import check_partitioned
             check_partitioned(params, mesh)
+            if hasattr(model, "tp"):          # a split-KV zoo model
+                from ..dist.splitkv import check_splitkv_partitioned
+                check_splitkv_partitioned(params)
             if draft is not None:
                 raise ValueError("speculative decoding does not compose "
                                  "with sharded serving (mesh)")

@@ -10,9 +10,9 @@
   ``pod16x16``: ``ok`` and ``fits`` with every key of the record; a second
   run reads the JSON; ``--force`` traces again; ``--hlo-dir`` is refused.
 * The grid's statuses: ``n/a`` exactly where the reference's ``runnable``
-  is false, ``not_ported`` exactly for the families ROADMAP queue A items
-  9 (sharded serving) and 11 (tensor-parallel training) name, each
-  refusal naming its item.
+  is false, ``not_ported`` exactly for the train cells ROADMAP queue A
+  item 11 (tensor-parallel training) names, each refusal naming it; every
+  serving cell, the recurrent families' too, run by the port.
 
 Each test leaves no process group behind: the trace's fake group belongs
 to this process.
@@ -33,10 +33,9 @@ from repro_torch.launch import dryrun
 
 ROOT = Path(__file__).resolve().parents[1]
 MESHES = [False, True]
-# the families whose sharded step the port refuses, by ROADMAP item: 11
-# (tensor-parallel training: no forms in dist/tensor_parallel.py) where the
-# layout splits their params, 9 (sharded serving) for the recurrent
-# families' serving cells
+# the families whose sharded train step the port refuses, naming ROADMAP
+# item 11 (tensor-parallel training) where the layout splits their params;
+# the recurrent families' serving cells run (sharded serving, item 9)
 RECURRENT = {"recurrentgemma-9b", "rwkv6-7b"}
 NO_TP = {"llava-next-34b", "qwen3-moe-235b-a22b", "granite-moe-1b-a400m",
          "seamless-m4t-medium", "recurrentgemma-9b", "rwkv6-7b"}
@@ -170,9 +169,9 @@ def _cells():
 
 def test_grid_statuses_match_reference_and_roadmap(tmp_path):
     """n/a where the reference's runnable is false (each written as a
-    record), not_ported exactly for the families items 9 and 11 name (the
-    recurrent ones' serving cells, the train cells whose params the rule
-    table splits), every other cell's path run by the port."""
+    record), not_ported exactly for the train cells item 11 names (those
+    whose params the rule table splits), every other cell's path run by
+    the port: the recurrent families' serving cells too."""
     for arch, shape, multi in _cells():
         ok, reason = runnable(get_arch(arch), SHAPES[shape])
         assert (ok, reason) == jrunnable(jget_arch(arch), JSHAPES[shape])
@@ -191,7 +190,7 @@ def test_grid_statuses_match_reference_and_roadmap(tmp_path):
             assert (why is not None) == splits, (arch, shape, multi)
             assert why is None or "item 11" in why
         elif arch in RECURRENT:
-            assert why is not None and "item 9" in why, (arch, shape, multi)
+            assert why is None, (arch, shape, multi, why)
         else:
             assert why is None, (arch, shape, multi, why)
     assert not dist.is_initialized() or dist.get_backend() == "fake"
@@ -199,15 +198,17 @@ def test_grid_statuses_match_reference_and_roadmap(tmp_path):
 
 def test_kv_quant_decode_is_not_ported():
     """--kv-quant: the split-KV decode holds the int8 cache of every
-    attention family; the recurrent families' decode stays not_ported
-    (item 9)."""
+    family, the recurrent ones' too (recurrentgemma's local attention;
+    rwkv6 holds none), on both meshes and at long_500k."""
     for arch in ("qwen3-0.6b", "granite-moe-1b-a400m", "seamless-m4t-medium",
                  "llava-next-34b"):
         assert dryrun.refusal(arch, "decode_32k", False,
                               {"kv_quant": True}) is None, arch
-    why = dryrun.refusal("recurrentgemma-9b", "decode_32k", False,
-                         {"kv_quant": True})
-    assert why is not None and "recurrent" in why and "item 9" in why
+    for arch in sorted(RECURRENT):
+        for shape in ("decode_32k", "long_500k"):
+            for multi in MESHES:
+                assert dryrun.refusal(arch, shape, multi,
+                                      {"kv_quant": True}) is None, arch
     assert dryrun.refusal("qwen3-0.6b", "train_4k", False,
                           {"kv_quant": True}) is None
 

@@ -347,37 +347,67 @@ def test_serve_cli_mesh_transformer(runs):
 
 
 @pytest.mark.parametrize("argv,match", [
-    (["--arch", "granite-moe-1b-a400m", "--traffic"], "scheduler sharded"),
-    (["--arch", "recurrentgemma-9b"], "recurrent"),
-    (["--arch", "seamless-m4t-medium", "--continuous"], "scheduler sharded"),
+    (["--arch", "granite-moe-1b-a400m", "--traffic"], None),
+    (["--arch", "recurrentgemma-9b"], None),
+    (["--arch", "seamless-m4t-medium", "--continuous"], None),
     (["--arch", "llava-next-34b", "--prompt-len", "21", "--gen", "4"],
      "must split"),
-    (["--arch", "qwen3-0.6b", "--continuous"], "scheduler sharded"),
+    (["--arch", "qwen3-0.6b", "--continuous"], None),
     (["--arch", "qwen3-0.6b", "--prompt-len", "15", "--gen", "4"],
      "must split"),
 ], ids=["moe", "recurrent", "encdec", "vlm", "continuous", "segments"])
 def test_serve_mesh_refusals(argv, match, capsys):
-    """``--mesh`` refuses, before any rank starts, what split-KV does not
-    serve, naming ROADMAP queue A item 9 (or the cache's split): the
-    recurrent families, and every attention family (the mixture of
-    experts, the encoder-decoder, the VLM too) under the scheduler."""
+    """``--mesh`` refuses, before any rank starts, a cache whose positions
+    do not split over the model axis; it takes the recurrent families and
+    every family under the scheduler (``--continuous`` / ``--traffic``):
+    its checks give the mesh's (data, model) and name no refusal (the
+    runs themselves: tests/test_torch_splitkv_recurrent.py,
+    tests/test_torch_sched_mesh.py)."""
     from repro_torch.launch import serve
+    argv = argv + ["--mesh", "1,2", "--smoke", "--device", "cpu"]
+    if match is None:
+        ap = serve.parser()
+        assert serve._mesh_shape(ap, ap.parse_args(argv)) == (1, 2)
+        assert not capsys.readouterr().err
+        return
     with pytest.raises(SystemExit):
-        serve.main(argv + ["--mesh", "1,2", "--smoke", "--device", "cpu"])
-    err = capsys.readouterr().err
-    assert match in err
-    if match != "must split":
-        assert "item 9" in err
+        serve.main(argv)
+    assert match in capsys.readouterr().err
+
+
+class _Mesh:
+    """A (data, model) = (1, 2) mesh's layout, as rank ``rank`` reads it."""
+
+    def __init__(self, rank):
+        self.mesh_dim_names, self.shape, self.rank = ("data", "model"), \
+            (1, 2), rank
+
+    def get_local_rank(self, axis):
+        return self.rank if axis == "model" else 0
 
 
 def test_with_mesh_refuses_other_families():
-    """The recurrent families refuse a mesh, naming item 9; the attention
-    families take one (tests/test_torch_splitkv_zoo.py)."""
+    """Every family takes a mesh: the recurrent ones too, each rank's
+    cache its pieces (recurrentgemma's attention segment and ``d_rnn``
+    slice of ``h`` / ``conv``, rwkv6's heads of ``S``, ``x_tm`` / ``x_cm``
+    whole); None gives the one-device model back."""
     from repro_torch.configs import smoke_config
     from repro_torch.models import build_model
-    mesh = object()
     for arch in ("recurrentgemma-9b", "rwkv6-7b"):
-        with pytest.raises(NotImplementedError, match="item 9"):
-            build_model(smoke_config(arch)).with_mesh(mesh)
+        cfg = smoke_config(arch)
+        model = build_model(cfg)
+        for rank in (0, 1):
+            net = model.with_mesh(_Mesh(rank))
+            assert net.mesh is not None and net.tp.rank == rank
+            layers = net.cache_defs(4, 48)["layers"]
+            whole = model.cache_defs(4, 48)["layers"]
+            for kind, got, want in zip(model.kinds, layers, whole):
+                for name, d in got.items():
+                    shape = list(want[name].shape)
+                    if kind.startswith("attn"):
+                        shape[1] //= 2
+                    elif name in ("h", "conv", "S"):
+                        shape[-1 if name != "S" else 1] //= 2
+                    assert tuple(d.shape) == tuple(shape), (arch, name)
     model = build_model(smoke_config("qwen3-0.6b"))
     assert model.with_mesh(None).mesh is None and model.mesh is None

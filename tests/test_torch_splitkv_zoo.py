@@ -20,7 +20,7 @@ within one step); greedy
 dummy heads' outputs exactly 0; the first decode steps and a 12-frame
 memory leave segments with no live key. The sharded init's pieces, the
 expert-parallel MoE's aux, ``launch.serve --mesh`` on three families end
-to end and the refusals that remain.
+to end and what it no longer refuses.
 
 Each mesh's ranks start once, all at the same time, beside the CLI
 subprocesses; the rank functions live here and import no JAX.
@@ -618,9 +618,20 @@ def test_serve_cli_mesh_zoo(runs, arch):
 ], ids=["rglru", "rwkv", "moe-continuous", "encdec-continuous",
         "traffic"])
 def test_serve_mesh_zoo_refusals(argv, match, capsys):
-    """What ``--mesh`` still refuses names ROADMAP queue A item 9."""
+    """What ``--mesh`` refused until the recurrent families and the
+    scheduler were sharded it now takes: its checks give the mesh's (data,
+    model) and print nothing (``match``: the path each case opens; the
+    runs: tests/test_torch_splitkv_recurrent.py,
+    tests/test_torch_sched_mesh.py)."""
     from repro_torch.launch import serve
-    with pytest.raises(SystemExit):
-        serve.main(argv + ["--mesh", "1,2", "--smoke", "--device", "cpu"])
-    err = capsys.readouterr().err
-    assert match in err and "item 9" in err
+    argv = argv + ["--mesh", "1,2", "--smoke", "--device", "cpu"]
+    ap = serve.parser()
+    args = ap.parse_args(argv)
+    assert serve._mesh_shape(ap, args) == (1, 2)
+    assert not capsys.readouterr().err
+    from repro_torch.configs import smoke_config
+    cfg = smoke_config(args.arch)
+    if match == "recurrent":
+        assert set(cfg.block_pattern) & {"rec", "rwkv"}
+    else:
+        assert args.continuous or args.traffic
