@@ -227,7 +227,7 @@ CELL_TOL = 1e-5   # c, h: the cell's inputs differ by at most z's rounding
 LOGIT_TOL = 1e-3  # 96 recurrent steps of z-level differences through the head
 MARGIN = 1e-4     # greedy tokens may differ only below this top-2 margin
 SERVE = dict(batch=8, prompt=32, gen=64)
-RUNS = 5          # timed generate runs per path; median and range reported
+RUNS = 3          # timed generate runs per path; median and range reported
 SPEC_K = 4        # draft tokens proposed per speculative round
 SCHEMES = ("int8", "q1.11")
 KERNELS = ("rb_dual_spmv", "lstm_gates", "fused_brds_lstm_step",
@@ -284,7 +284,7 @@ ZSERVE = {"granite-moe-1b-a400m": dict(batch=8, prompt=512, gen=64,
           "llama3.2-3b": dict(batch=8, prompt=512, gen=64, kv_quant=True,
                               layers=6)}
 ZBUSY_GEN = 8          # decode steps of the generate whose busy share is read
-ZRUNS = 3              # timed runs a phase 11 figure, the median reported
+ZRUNS = 2              # timed runs a phase 11 figure, the median reported
 INT8_GATE = 0.08       # the reference's int8-cache gate (tests/test_archs.py)
 # phase 6 at the zoo's shapes: B15 (causal or not) and B14 (at a length)
 ZATTN = {
@@ -366,7 +366,7 @@ ATTN_LEAVES = ("wq", "wk", "wv", "wo", "q_norm", "k_norm")
 # and 4 (375 units a shard, an odd count)
 DMESHES = ((1, 2), (2, 2))
 DSHARDS = (2, 4)
-DRUNS = 3         # timed generates a rank and path, the median reported
+DRUNS = 2         # timed generates a rank and path, the median reported
 # phase 13: sharded training (lstm_ptb, TRAIN's B and T) and split-KV
 # decode (qwen3-0.6b in bf16) on meshes (2, 2) then (1, 2) of this card
 SHARD13 = dict(steps=3, masked=3, ckpt_step=7)
@@ -431,6 +431,49 @@ RSPLIT = {"recurrentgemma-9b": dict(batch=4, prompt=2560, layers=3,
 RGEN = 8
 RWKV_DEPTHS = (1, 2, 3, 4)
 SCHED16 = dict(arch="qwen3-0.6b", layers=4, mesh=(2, 2))
+# phase 17: tensor-parallel training of the zoo, one jit_train_step each on
+# (1, 2) gloo ranks of this card, bf16 at full width (depth cut where
+# named: recurrentgemma-9b to one period, rwkv6-7b to the one layer its
+# one-ulp spread takes, seamless-m4t-medium and llava-next-34b to 2,
+# qwen3-0.6b to 4 for the
+# vocab-parallel loss), the "tp" layout (the experts, the heads and the
+# vocabulary over model; the "dp" configs too), seed-0 weights with wq / wk
+# at the fan-in scale where phases 15-16 take them (qk-normed qwen3 on its
+# own). B and S cut so that the one-device step each rank runs first, then
+# the two ranks (each half the params, the gradients and the float32
+# moment, and its pieces of the one-device gradients) fit the card
+TP17 = {"granite-moe-1b-a400m": dict(batch=4, seq=512, fan_in=True),
+        "recurrentgemma-9b": dict(batch=2, seq=512, layers=3, fan_in=True),
+        "rwkv6-7b": dict(batch=2, seq=512, layers=1),
+        # 2 encoder and 2 decoder layers: the 12-layer random encoder's
+        # memory collapses toward one row, and the cross-attention's q / k
+        # gradients are then cancellation: their one-ulp spread 0.27 of
+        # their norm at full depth, 0.06 at 2 (bf16 on the CPU)
+        "seamless-m4t-medium": dict(batch=2, seq=256, frames=256,
+                                    layers=2, enc_layers=2, fan_in=True),
+        # 2880 patch embeddings, then 192 text tokens (the training
+        # forward's blocked attention takes multiples of its 1024-key block)
+        "llava-next-34b": dict(batch=1, seq=3072, layers=2, fan_in=True),
+        "qwen3-0.6b": dict(batch=4, seq=512, layers=4)}
+TP17_MESH = (1, 2)
+# the sharded loss and each gradient leaf (of its largest entry) against
+# this card's one-device step: within this many times the loss's and that
+# leaf's own one-ulp spread (the most two steps move it with half of every
+# param's entries one ulp up: the ranks' partial sums round at every
+# layer, as such a nudge moves each)
+TP17_SPREAD = 2.0
+TP17_NUDGES = (3, 4)        # the nudges' generator seeds
+# a leaf whose spread in norm reaches this (of its norm) is too chaotic for
+# its gate to mean anything, and its model fails: twice it stays below
+# 0.44, the smallest gap of a leaf's max that the serving forms' backward
+# left before it summed the ranks' shares (measured with the fault tests
+# of tests/test_torch_tp_train_zoo.py)
+TP17_MAX_SPREAD = 0.2
+TP17_MEM = ZSPLIT_MEM       # a rank's params and moments over one card's
+# SGD with momentum: one float32 moment. AdamW's functional update holds
+# the old and new moments at once (2 + 2 a param): recurrentgemma-9b's rank
+# would peak near 44 GB, two of them past the card
+TP17_OPT_KW = dict(name="sgdm", lr=1e-4, warmup_steps=1, total_steps=10)
 
 
 def log(msg: str) -> None:
@@ -4783,9 +4826,10 @@ def piece_of(full, placements, coords: dict, sizes: dict):
 def digest(t) -> str:
     """sha256 of a tensor's bytes (its local piece for a DTensor)."""
     import hashlib
+    import torch
     t = t.to_local() if hasattr(t, "to_local") else t
     return hashlib.sha256(t.detach().reshape(-1).contiguous().cpu()
-                          .view(-1).numpy().view(np.uint8)).hexdigest()
+                          .view(torch.uint8).numpy()).hexdigest()
 
 
 def split_inputs(torch, device):
@@ -6120,6 +6164,325 @@ def sched16_gates(torch, ranks, ref) -> None:
         f"{r['seconds']:.1f} s in all")
 
 
+def tp17_model(arch):
+    """Phase 17's (cfg, model) of ``arch`` (TP17): full width, the "tp"
+    layout, TP17's depth."""
+    from repro_torch.configs import get_arch
+    from repro_torch.models import build_model
+    full = get_arch(arch)
+    R = TP17[arch]
+    cfg = full.with_(layout="tp", num_layers=R.get("layers", full.num_layers),
+                     **{k: R[k] for k in ("enc_layers",) if k in R})
+    return cfg, build_model(cfg)
+
+
+def tp17_batch(torch, cfg, arch, device) -> dict:
+    """Phase 17's batch of ``arch``: tokens (the labels too) and an
+    encoder-decoder's frames or a VLM's patch embeddings, seed 1."""
+    R = TP17[arch]
+    g = np.random.default_rng(1)
+    toks = torch.as_tensor(g.integers(0, cfg.vocab_size,
+                                      (R["batch"], R["seq"]))).to(device)
+    out = {"tokens": toks, "labels": toks}
+    if cfg.encdec:
+        out["frames"] = torch.as_tensor(g.standard_normal(
+            (R["batch"], R["frames"], cfg.d_model), np.float32)).to(device)
+    if cfg.num_patches:
+        out["patch_embeds"] = torch.as_tensor(g.standard_normal(
+            (R["batch"], cfg.num_patches, cfg.d_model), np.float32)
+        ).to(device)
+    return out
+
+
+def tp17_params(torch, model, arch, device):
+    """Seed-0 weights from a generator on ``device`` (as ``init_sharded``
+    draws the ranks' pieces), wq / wk at the fan-in scale where TP17
+    asks."""
+    params = model.init(torch.Generator(device).manual_seed(0), device)
+    return fan_in_qk(params) if TP17[arch].get("fan_in") else params
+
+
+def diff_stats(a, b=None, chunk: int = 1 << 26) -> tuple[float, float]:
+    """(max |a - b|, the sum of (a - b)^2), of a alone without ``b``, in
+    float32, ``chunk`` entries at a time: a whole float32 copy of a 1
+    B-entry leaf would not fit beside phase 17's ranks. NaN for both
+    where an entry of a or b is not finite."""
+    a = a.reshape(-1)
+    b = None if b is None else b.reshape(-1)
+    most, sq = 0.0, 0.0
+    for i in range(0, a.numel(), chunk):
+        d = a[i:i + chunk].float()
+        if b is not None:
+            d = d - b[i:i + chunk].float()
+        if not bool(d.isfinite().all()):
+            return math.nan, math.nan
+        most = max(most, d.abs().max().item())
+        sq += d.square().sum().item()
+    return most, sq
+
+
+def tp17_gap(a, b) -> tuple[float, float]:
+    """(max |a - b| over b's largest entry, ||a - b|| over ||b||)."""
+    most, sq = diff_stats(a, b)
+    top, norm = diff_stats(b)
+    return most / max(top, 1e-30), math.sqrt(sq / max(norm, 1e-300))
+
+
+def ulp_up(torch, x, gen):
+    """``x`` with half its entries (drawn from ``gen``) one ulp up in
+    magnitude."""
+    bits = torch.int16 if x.element_size() == 2 else torch.int32
+    bump = (torch.rand(x.shape, generator=gen, device=x.device)
+            < 0.5).to(bits)
+    return (x.view(bits) + bump).view(x.dtype)
+
+
+def tp17_reference(torch, model, arch, device, sync) -> tuple:
+    """One model's one-device step on this rank's card: (loss, seconds for
+    ``value_and_grad`` of ``model.loss``, whole params, gradient leaves)."""
+    from repro_torch.training.train_loop import value_and_grad
+    from repro_torch.training.tree import leaves
+    batch = tp17_batch(torch, model.cfg, arch, device)
+    params = tp17_params(torch, model, arch, device)
+    sync()
+    t0 = time.perf_counter()
+    loss, grads = value_and_grad(model.loss, params, batch)
+    sync()
+    return float(loss), time.perf_counter() - t0, params, leaves(grads)
+
+
+def tp17_spreads(torch, model, arch, device, params, loss, grads) -> dict:
+    """The one-ulp spreads of a one-device step: the most the loss, and
+    each leaf's gradients (of the leaf's largest entry, and in norm of its
+    norm), move over TP17_NUDGES' steps, each with half of every param's
+    entries one ulp up."""
+    from repro_torch.training.train_loop import value_and_grad
+    from repro_torch.training.tree import leaves, unflatten
+    batch = tp17_batch(torch, model.cfg, arch, device)
+    moves, gaps = [], []
+    for seed in TP17_NUDGES:
+        gen = torch.Generator(device).manual_seed(seed)
+        moved = unflatten(params, [ulp_up(torch, x, gen)
+                                   for x in leaves(params)])
+        loss2, grads2 = value_and_grad(model.loss, moved, batch)
+        moves.append(abs(float(loss2) - loss))
+        gaps.append([tp17_gap(a, b) for a, b in zip(leaves(grads2), grads)])
+        del moved, grads2
+    # numpy's max: a NaN stays a NaN
+    most = np.max(np.array(gaps), axis=0)
+    return dict(spread_loss=float(np.max(moves)),
+                spreads=most[:, 0].tolist(), norm_spreads=most[:, 1].tolist())
+
+
+def tp17_held(model) -> int:
+    """One card's bytes of ``model``'s params and float32 moments under
+    TP17_OPT_KW's optimizer."""
+    from repro_torch.models.layers import param_bytes
+    from repro_torch.training.tree import leaves
+    n = sum(math.prod(d.shape) for d in leaves(model.param_defs()))
+    moments = 2 if TP17_OPT_KW["name"] == "adamw" else 1
+    return param_bytes(model.param_defs()) + 4 * moments * n
+
+
+def tp17_rank(mesh, spawned: float, device_type: str) -> dict:
+    """Phase 17 on one rank, for each TP17 model: its one-device step on
+    the whole params (rank 0's first and timed, then rank 0's one-ulp
+    spreads beside the other ranks' references), the rank's pieces of
+    those gradients kept; then the sharded init of the params and moments
+    (its card memory right after), ``step.grads`` (the loss and each
+    gradient piece's gap to the kept piece, of the whole leaf's largest
+    entry; a digest of each piece the ``model`` axis replicates), then one
+    full ``jit_train_step``, timed."""
+    faulthandler.enable(all_threads=True)
+    import gc
+    import types
+    import torch
+    import torch.distributed as dist
+    from repro_torch.dist.collective_ops import shard_local
+    from repro_torch.training import OptConfig, jit_train_step
+    from repro_torch.training.train_loop import (init_sharded,
+                                                 param_shardings)
+    from repro_torch.training.tree import leaves
+    oc = OptConfig(**TP17_OPT_KW)
+    cuda = device_type == "cuda"
+    device = (torch.device("cuda", torch.cuda.current_device()) if cuda
+              else torch.device(device_type))
+    sync = torch.cuda.synchronize if cuda else (lambda: None)
+    allocated = torch.cuda.memory_allocated if cuda else (lambda: 0)
+    peak = torch.cuda.max_memory_allocated if cuda else (lambda: 0)
+    free = torch.cuda.empty_cache if cuda else (lambda: None)
+    model_dim = list(mesh.mesh_dim_names).index("model")
+    first = dist.get_rank() == 0
+    out = {"rank": dist.get_rank(), "start": time.time() - spawned}
+    for arch in TP17:
+        cfg, model = tp17_model(arch)
+        p_sh = leaves(param_shardings(mesh, model))
+        t_ref = time.perf_counter()
+        if first:
+            loss1, wall, whole, ref = tp17_reference(torch, model, arch,
+                                                     device, sync)
+        dist.barrier()
+        if first:
+            spread = tp17_spreads(torch, model, arch, device, whole, loss1,
+                                  ref)
+        else:
+            loss1, wall, whole, ref = tp17_reference(torch, model, arch,
+                                                     device, sync)
+            spread = {}
+        del whole
+        top = [diff_stats(w)[0] for w in ref]
+        ref = [shard_local(w, mesh, sh.placements) for w, sh in zip(ref, p_sh)]
+        gc.collect()
+        free()
+        dist.barrier()
+        t_ref = time.perf_counter() - t_ref
+        batch = tp17_batch(torch, cfg, arch, device)
+        sync()
+        if cuda:
+            torch.cuda.reset_peak_memory_stats()
+        base = allocated()
+        params, opt = init_sharded(mesh, model, oc, torch.Generator(
+            device).manual_seed(0), device)
+        if TP17[arch].get("fan_in"):
+            params = fan_in_qk(params)
+        sync()
+        held = allocated() - base
+        step = jit_train_step(mesh, model, types.SimpleNamespace(
+            grad_accum=1, zero1=True), oc, batch)
+        t0 = time.perf_counter()
+        loss, grads = step.grads(params, batch)
+        sync()
+        grads_wall = time.perf_counter() - t0
+        gaps, sq, split, same = [], [], [], []
+        for g, w, most, sh in zip(leaves(grads), ref, top, p_sh):
+            d_most, d_sq = diff_stats(g.to_local(), w)
+            gaps.append(d_most / max(most, 1e-30))
+            sq.append((d_sq, diff_stats(w)[1]))
+            split.append(sh.placements[model_dim].is_shard())
+            if not split[-1]:
+                same.append(digest(g))
+        del grads, ref
+        t0 = time.perf_counter()
+        _, _, met = step(params, opt, batch, 1)
+        sync()
+        out[arch] = dict(loss=float(loss), gaps=gaps, sq=sq, split=split,
+                         replicated=same,
+                         peak=peak(), held=held, grads_wall=grads_wall,
+                         step_wall=time.perf_counter() - t0,
+                         step_loss=float(met["loss"]), ref_loss=loss1,
+                         ref_wall=wall, ref_s=t_ref, **spread)
+        del params, opt, step, met
+        gc.collect()
+        free()
+    return out
+
+
+def tp_train_zoo(torch, device) -> None:
+    """Phase 17: tensor-parallel training of the zoo (TP17) on TP17_MESH's
+    ranks, spawned processes on this card under gloo (every collective
+    staged through host memory), each rank holding its pieces of the
+    one-device step's gradients, which it computes itself first (so no
+    process holds a whole model's gradients beside the ranks' steps).
+
+    Gates, each model on every rank: the sharded loss within TP17_SPREAD
+    times the one-device loss's one-ulp spread of it, each gradient leaf
+    within TP17_SPREAD times its own one-ulp spreads (of the leaf's
+    largest entry, and in norm of its norm, the pieces' squares summed
+    over the ranks that split it), every leaf's spread in norm below
+    TP17_MAX_SPREAD (the leaves whose spread of the largest entry reaches
+    it are named, with their numbers); the loss and every
+    gradient piece the ``model`` axis replicates bitwise alike on every
+    rank; a rank's card memory right after the sharded init of params and
+    moments at most TP17_MEM of one card's; the full step's loss the
+    ``grads`` loss. Printed beside them: the spreads, a rank's peak card
+    memory, its seconds for the gradients and a step (host-staged), one
+    device's for its gradients."""
+    from repro_torch.launch.mesh import run_ranks
+    from repro_torch.training.train_loop import _paths
+    t0 = time.perf_counter()
+    ranks = run_ranks(tp17_rank, *TP17_MESH, device=device.type,
+                      backend="gloo", args=(time.time(), device.type),
+                      threads=1, timeout=600)
+    took = time.perf_counter() - t0
+    log(f"[tp17] {len(ranks)} ranks on mesh {TP17_MESH} in {took:.1f}s "
+        f"(rank 0 reached the card after {ranks[0]['start']:.1f}s)")
+    failed = []
+    for arch in TP17:
+        cfg, model = tp17_model(arch)
+        rk = [r[arch] for r in ranks]
+        ref = rk[0]
+        tol_loss = TP17_SPREAD * max(ref["spread_loss"], 1e-6)
+        spreads = ref["spreads"]
+        dl = float(np.max([abs(r["loss"] - r["ref_loss"]) for r in rk]))
+        # numpy throughout: a NaN (a gradient not finite) fails its gate
+        spreads = np.array(spreads)
+        nspreads = np.array(ref["norm_spreads"])
+        gaps = np.max(np.array([r["gaps"] for r in rk]), axis=0)
+        sq = np.array([r["sq"] for r in rk])      # (ranks, leaves, 2)
+        ngaps = np.where(
+            ref["split"],
+            np.sqrt(sq[:, :, 0].sum(0) / np.maximum(sq[:, :, 1].sum(0),
+                                                    1e-300)),
+            np.max(np.sqrt(sq[:, :, 0] / np.maximum(sq[:, :, 1], 1e-300)),
+                   axis=0))
+        # the leaf nearest its gate: the largest gap over twice its spread
+        worst = int(np.nanargmax(gaps / np.maximum(TP17_SPREAD * spreads,
+                                                   1e-30)))
+        nworst = int(np.nanargmax(ngaps / np.maximum(
+            TP17_SPREAD * nspreads, 1e-30)))
+        grads_ok = bool(np.all(gaps <= TP17_SPREAD * spreads)
+                        and np.all(ngaps <= TP17_SPREAD * nspreads))
+        chaotic = not np.max(nspreads) < TP17_MAX_SPREAD
+        names = _paths(model.param_defs())
+        wild = "; ".join(
+            f"{names[i]} {spreads[i]:.3e} / {gaps[i]:.3e}, in norm "
+            f"{nspreads[i]:.3e} / {ngaps[i]:.3e}"
+            for i in range(len(gaps)) if spreads[i] >= TP17_MAX_SPREAD)
+        one = tp17_held(model)
+        share = max(r["held"] for r in rk) / one
+        alike = all(r["loss"] == rk[0]["loss"]
+                    and r["replicated"] == rk[0]["replicated"] for r in rk)
+        same_ref = all(r["ref_loss"] == ref["ref_loss"] for r in rk)
+        same_step = all(abs(r["step_loss"] - r["loss"]) <= tol_loss
+                        for r in rk)
+        ok = (dl <= tol_loss and grads_ok and not chaotic and alike
+              and same_step and share <= TP17_MEM)
+        ordered, nordered = np.sort(spreads), np.sort(nspreads)
+        R = TP17[arch]
+        log(f"[tp17] {arch} ({cfg.num_layers} layers, full width, bf16, B="
+            f"{R['batch']} S={R['seq']}): loss {rk[0]['loss']:.6f} vs one "
+            f"device {ref['ref_loss']:.6f} (|d| {dl:.3e}, one-ulp spread "
+            f"{ref['spread_loss']:.3e}, tol {tol_loss:.3e}; the ranks' "
+            f"one-device losses bitwise alike: {same_ref}); each of "
+            f"{len(gaps)} gradient leaves within {TP17_SPREAD:g}x its own "
+            f"one-ulp spreads: {grads_ok} (nearest its gate: "
+            f"{names[worst]}, {gaps[worst]:.3e} of its max, spread "
+            f"{spreads[worst]:.3e}; in norm {names[nworst]}, "
+            f"{ngaps[nworst]:.3e} of its norm, spread "
+            f"{nspreads[nworst]:.3e}; the largest gaps {max(gaps):.3e}, in "
+            f"norm {max(ngaps):.3e}); the leaves' spreads of the max min "
+            f"{ordered[0]:.3e} median {ordered[len(ordered) // 2]:.3e} max "
+            f"{ordered[-1]:.3e}, in norm min {nordered[0]:.3e} median "
+            f"{nordered[len(nordered) // 2]:.3e} max {nordered[-1]:.3e} "
+            f"(gate < {TP17_MAX_SPREAD:g}); spread of the max at least "
+            f"{TP17_MAX_SPREAD:g} (spread / gap): {wild or 'none'}; "
+            f"replicated pieces and loss bitwise across ranks: {alike}; a "
+            f"full step's "
+            f"loss within tol: {same_step} (bitwise: "
+            f"{all(r['step_loss'] == r['loss'] for r in rk)}); rank memory "
+            f"after the sharded init {share:.3f} of one device's params "
+            f"and moments ({one / 2**30:.2f} GiB; gate {TP17_MEM}), a "
+            f"rank's peak {max(r['peak'] for r in rk) / 2**30:.2f} GiB; "
+            f"rank 0: gradients {rk[0]['grads_wall']:.2f} s, a step "
+            f"{rk[0]['step_wall']:.2f} s (gloo, host-staged); one device's "
+            f"gradients {ref['ref_wall']:.2f} s (the references "
+            f"{ref['ref_s']:.1f} s)" + ("" if ok else " FAILED"))
+        if not ok:
+            failed.append(arch)
+    if failed:
+        raise AssertionError(f"phase 17: {failed} failed their gates")
+
+
 def dryrun_cmd(*args) -> list:
     return [sys.executable, "-m", "repro_torch.launch.dryrun", "--out",
             str(DRY14_OUT), "--force", *args]
@@ -6342,6 +6705,8 @@ def main() -> int:
     sharded_recurrent(torch, device, flush)
     del flush
     phase("16 sharded recurrent families and the sharded scheduler")
+    tp_train_zoo(torch, device)
+    phase("17 tensor-parallel training of the zoo")
     log("[graph] rows: " + json.dumps(GRAPH_ROWS))
 
     src = {"rb_dual_spmv": ("rb_spmv.cu", "src/repro/kernels/rb_spmv.py:86"),

@@ -65,29 +65,10 @@ from ..sharding import mesh_axes
 from .collective_ops import distribute, gather_axis
 from .partition import axis_rank, model_axis_size
 
-__all__ = ["supports_splitkv", "train_reason",
-           "partition_transformer_params", "check_splitkv_partitioned",
-           "cache_segment", "segment_bounds", "model_piece", "combine",
-           "merge", "attend", "attend_memory", "write_segment", "whole_kv",
-           "prompt_attention"]
-
-
-def train_reason(cfg) -> str | None:
-    """None when ``cfg`` trains tensor-parallel (``jit_train_step`` on
-    ``with_mesh``'s forms: the dense GQA transformers and the LSTM), else
-    why not (ROADMAP queue A item 11): the mixture of experts, the
-    encoder-decoder, the VLM and the recurrent blocks train data-parallel
-    only."""
-    if getattr(cfg, "encdec", False):
-        return "an encoder-decoder"
-    if getattr(cfg, "moe", False):
-        return "a mixture of experts"
-    if getattr(cfg, "num_patches", 0) or getattr(cfg, "pad_heads_to", None):
-        return "a VLM (patch embeddings, padded heads)"
-    pattern = set(getattr(cfg, "block_pattern", ("attn",)))
-    if pattern != {"attn"}:
-        return f"blocks {sorted(pattern)} (recurrent / local)"
-    return None
+__all__ = ["supports_splitkv", "partition_transformer_params",
+           "check_splitkv_partitioned", "cache_segment", "segment_bounds",
+           "model_piece", "combine", "merge", "attend", "attend_memory",
+           "write_segment", "whole_kv", "prompt_attention"]
 
 
 def supports_splitkv(model, mesh) -> bool:

@@ -40,9 +40,11 @@ step where the reference reads the compiled one):
   across), ``bound`` and ``step_s`` (the largest term);
 * ``trace_s``.
 
-A cell whose path the port refuses (``jit_train_step`` naming ROADMAP
-queue A item 11) is recorded ``not_ported`` with the refusal's words; a
-cell the reference's ``runnable`` rules out, ``n/a``. The reference's HLO
+A cell whose path the port refuses (``--brds``: no transformer forward
+takes packed rows) is recorded ``not_ported`` with the refusal's words; a
+cell the reference's ``runnable`` rules out, ``n/a``. Every family's train
+cell runs the tensor-parallel step, its loss on the rank's vocabulary
+columns (``TensorParallel.cross_entropy``). The reference's HLO
 half
 (``compile()``, its memory and cost analyses, ``--hlo-dir``,
 ``roofline.analyze_hlo``) has no counterpart.
@@ -259,13 +261,8 @@ def refusal(arch_name: str, shape_name: str, multi_pod: bool = False,
 def _refuse(mesh, arch, model, shape):
     """Raise ``NotPorted`` with the port's refusal of this cell's path;
     return the model the step runs (over the mesh)."""
-    from ..training.train_loop import tensor_parallel_model
     if shape.kind == "train":
-        try:
-            with _rules(arch):
-                return tensor_parallel_model(mesh, model)[0]
-        except NotImplementedError as e:
-            raise NotPorted(str(e)) from None
+        return model.with_mesh(mesh)
     if _lstm_cfg(arch):
         raise NotPorted(
             f"{arch.name}: the dry run traces an LSTM's train step; its "

@@ -15,9 +15,19 @@ newest checkpoint and replay from its step) and straggler monitoring.
 ``--mesh pod|multipod`` trains through the sharded step
 (``training.jit_train_step``) on ``launch.mesh.make_production_mesh``: run
 it under ``torchrun`` with 256 (512) ranks, one card each; a run over
-another number of ranks stops with the number it needs. ``_train(args,
-ckpt_dir, mesh)`` is the same body over any mesh (a test drives it on a
-small host mesh). Without ``--ckpt-dir`` the checkpoints go to a fresh
+another number of ranks stops with the number it needs. ``--mesh D,M``
+trains on a (data, model) mesh of D·M ranks, spawned here
+(``launch.mesh.run_ranks``; rank 0 prints) or joined under ``torchrun``:
+every family of the zoo, tensor-parallel over ``model`` (the loss on each
+rank's vocabulary columns) and data-parallel over ``data``, e.g.
+
+  PYTHONPATH=src python -m repro_torch.launch.train --arch rwkv6-7b \\
+      --smoke --device cpu --mesh 1,2 --steps 4 --batch 4 --seq 32
+
+On cards the ranks take one each under NCCL, or share them under gloo
+where they outnumber them. An encoder-decoder's batches carry frame
+embeddings (B, seq, d) drawn from the step's seed. ``_train(args,
+ckpt_dir, mesh)`` is the same body over any mesh. Without ``--ckpt-dir`` the checkpoints go to a fresh
 temporary directory that the run removes at its end, so a run resumes only
 from a directory it is given; a mesh whose ranks run on more than one host
 needs ``--ckpt-dir`` on a filesystem every host sees (rank 0 writes, every
@@ -47,7 +57,9 @@ def parser() -> argparse.ArgumentParser:
                          "removed at the end of the run)")
     ap.add_argument("--save-every", type=int, default=20)
     ap.add_argument("--mesh", default="host",
-                    choices=["host", "pod", "multipod"])
+                    help="host (one device), pod / multipod (the "
+                         "production meshes, under torchrun) or DATA,MODEL "
+                         "(a mesh of spawned ranks)")
     ap.add_argument("--brds", action="store_true",
                     help="apply BRDS dual-ratio masks and retrain")
     ap.add_argument("--spar-a", type=float, default=0.75)
@@ -64,8 +76,17 @@ def main(argv=None) -> dict:
     """Train; returns {"losses": {step: loss}, "step_ms": {step: ms},
     "resumed_from": [steps restored], "stragglers": n, "final_step": n,
     "ckpt_dir": path} (the last run of a replayed step wins)."""
-    args = parser().parse_args(argv)
+    ap = parser()
+    args = ap.parse_args(argv)
+    if args.mesh not in ("host", "pod", "multipod"):
+        return _launch_mesh(args, argv, *_mesh_shape(ap, args.mesh))
     mesh = None if args.mesh == "host" else _production_mesh(args)
+    return _run(args, mesh)
+
+
+def _run(args, mesh) -> dict:
+    """``_train`` in ``--ckpt-dir`` or a fresh temporary directory (rank
+    0's under a mesh), removed at the end."""
     if args.ckpt_dir is not None:
         return _train(args, args.ckpt_dir, mesh)
     ckpt_dir = _shared_tempdir(mesh)
@@ -74,6 +95,57 @@ def main(argv=None) -> dict:
     finally:
         if mesh is None or _rank() == 0:
             shutil.rmtree(ckpt_dir, ignore_errors=True)
+
+
+def _mesh_shape(ap, text: str) -> tuple[int, int]:
+    try:
+        d, m = (int(v) for v in text.split(","))
+    except ValueError:
+        ap.error(f"--mesh wants host, pod, multipod or 'DATA,MODEL' ints, "
+                 f"got {text!r}")
+    if d < 1 or m < 1:
+        ap.error(f"--mesh {text}: sizes must be positive")
+    return d, m
+
+
+def _train_rank(mesh, argv):
+    """One rank of a ``--mesh DATA,MODEL`` run: the run over ``mesh``;
+    only rank 0 prints."""
+    import contextlib
+    import os
+    import torch.distributed as dist
+    args = parser().parse_args(argv)
+    if dist.get_rank() == 0:
+        return _run(args, mesh)
+    with open(os.devnull, "w") as sink, contextlib.redirect_stdout(sink):
+        return _run(args, mesh)
+
+
+def _launch_mesh(args, argv, data: int, model: int) -> dict:
+    """The run on ``data × model`` ranks: in this process under torchrun
+    (its environment names the rank), else spawned. Returns rank 0's
+    summary."""
+    import os
+    import torch.distributed as dist
+    from repro_torch.device import resolve_device
+    from repro_torch.launch import mesh as M
+    import torch
+    device = resolve_device(args.device)
+    # NCCL with a card a rank; gloo where the ranks share the cards
+    shared = (device.type == "cuda"
+              and data * model > torch.cuda.device_count())
+    backend = M.backend_for(device, data * model, "gloo" if shared else None)
+    if "RANK" in os.environ and "WORLD_SIZE" in os.environ:
+        dist.init_process_group(backend)
+        try:
+            return _train_rank(M.make_mesh((data, model), device=device,
+                                           backend=backend), argv)
+        finally:
+            dist.destroy_process_group()
+    threads = max(1, (os.cpu_count() or 1) // (data * model))
+    return M.run_ranks(_train_rank, data, model, device=device,
+                       backend=backend, args=(argv,), threads=threads,
+                       timeout=1800.0)[0]
 
 
 def _rank() -> int:
@@ -166,8 +238,7 @@ def _train(args, ckpt_dir: str, mesh=None) -> dict:
     from repro_torch.training.train_loop import (init_sharded,
                                                  opt_shardings,
                                                  param_shardings,
-                                                 prune_sharded,
-                                                 tensor_parallel_model)
+                                                 prune_sharded)
 
     device = resolve_device(args.device)
     if mesh is not None and device.type == "cuda":
@@ -180,8 +251,6 @@ def _train(args, ckpt_dir: str, mesh=None) -> dict:
     oc = OptConfig(lr=args.lr, total_steps=args.steps,
                    warmup_steps=max(args.steps // 20, 1))
     gen = torch.Generator().manual_seed(0)
-    if mesh is not None:     # a family without tensor-parallel forms stops
-        tensor_parallel_model(mesh, model)
     if mesh is None:
         params = model.init(gen, device=device)
         opt_state = init_state(oc, params)
@@ -205,7 +274,7 @@ def _train(args, ckpt_dir: str, mesh=None) -> dict:
         step_fn = make_train_step(model, cfg, oc, masks)
     else:
         batch_abs = {k: torch.as_tensor(v)
-                     for k, v in loader.batch(0).items()}
+                     for k, v in _batch(loader, cfg, 0).items()}
         step_fn = jit_train_step(mesh, model, cfg, oc, batch_abs, masks)
         p_sh = param_shardings(mesh, model)
         shardings = (p_sh, opt_shardings(mesh, oc, p_sh, model.param_defs(),
@@ -241,7 +310,7 @@ def _train(args, ckpt_dir: str, mesh=None) -> dict:
                 continue
         t0 = time.time()
         batch = {k: torch.as_tensor(v, device=device)
-                 for k, v in loader.batch(step).items()}
+                 for k, v in _batch(loader, cfg, step).items()}
         params, opt_state, metrics = step_fn(params, opt_state, batch, step)
         loss = float(metrics["loss"])          # waits for the step
         dt = time.time() - t0
@@ -260,6 +329,19 @@ def _train(args, ckpt_dir: str, mesh=None) -> dict:
     print(f"done in {time.time()-t_all:.1f}s; straggler events: {mon.flagged}")
     out.update(stragglers=mon.flagged, final_step=step)
     return out
+
+
+def _batch(loader, cfg, step: int) -> dict:
+    """The loader's batch of ``step``; an encoder-decoder's with frame
+    embeddings (B, seq, d) drawn from the step's seed, as the serving CLI
+    draws its frames."""
+    import numpy as np
+    b = loader.batch(step)
+    if getattr(cfg, "encdec", False):
+        B, S = b["tokens"].shape
+        b = dict(b, frames=np.random.default_rng(step).normal(
+            size=(B, S, cfg.d_model)).astype(np.float32))
+    return b
 
 
 if __name__ == "__main__":

@@ -25,8 +25,8 @@ pieces of the params: the encoder on the rank's heads (B15 without a
 causal mask), the decoder's self cache and its cross memory each the
 rank's segment of ``cache_seq`` (``enc_len / model`` positions of the
 memory, the frames the prefill encoded live), both read by a decode step
-split-KV (``dist.splitkv``). It serves only: it trains data-parallel
-(ROADMAP queue A item 11).
+split-KV (``dist.splitkv``). Training runs the same forms on the rank's
+pieces, the loss on the rank's vocabulary columns.
 """
 from __future__ import annotations
 
@@ -37,7 +37,6 @@ from torch.utils.checkpoint import checkpoint
 
 from . import attention as A
 from . import layers as L
-from ..core.metrics import cross_entropy
 from ..device import resolve_device
 from ..dist.tensor_parallel import TensorParallel, local
 
@@ -138,6 +137,8 @@ class EncDecLM:
         training, B15 otherwise; under a mesh q on the rank's heads, k / v
         on its kv heads or whole."""
         if train:
+            k, v = self.tp.kv_for_q(q, k, v, self.cfg.num_heads,
+                                    self.cfg.num_kv_heads)
             return A.train_attention(q, k, v, block_q=self.cfg.block_q,
                                      block_kv=self.cfg.block_kv,
                                      causal=causal, full_upto=FULL_UPTO)
@@ -150,10 +151,12 @@ class EncDecLM:
         """Cross-attention queries (the rank's heads under a mesh): no
         RoPE."""
         tp = self.tp
-        q = L.pmm(tp.copy(h), local(p["wq"]))
+        split = tp.split_dim(p["wq"]) is not None
+        q = L.pmm(tp.copy(h) if split else h, local(p["wq"]))
         if not self.cfg.qk_norm:
             return q
-        return L.rmsnorm(q, tp.copy(local(p["q_norm"])))
+        qn = local(p["q_norm"])
+        return L.rmsnorm(q, tp.copy(qn) if split else qn)
 
     def _cross_kv(self, p, enc_out):
         """The cross-attention keys and values of the encoder's memory (the
@@ -277,17 +280,24 @@ class EncDecLM:
         """The training forward: tokens (B, S_dec), frames (B, S_enc, d) →
         (logits (B, S_dec, Vp) float32, 0.0: no auxiliary loss), plain
         PyTorch attention throughout."""
+        x = self._hidden(params, tokens, frames)
+        return self.tp.logits(params["head"], x, self.cfg.vocab_size), 0.0
+
+    def _hidden(self, params, tokens, frames):
+        """The training forward's last hidden state (B, S_dec, d)."""
         enc_out = self.encode(params, frames, train=True)
         positions = torch.arange(tokens.shape[1], device=tokens.device)[None]
-        x = self._decode_stack(params, tokens, positions, enc_out, train=True)
-        return self.tp.logits(params["head"], x, self.cfg.vocab_size), 0.0
+        return self._decode_stack(params, tokens, positions, enc_out,
+                                  train=True)
 
     def loss(self, params, batch):
         """Next-token cross-entropy of ``batch`` ({"tokens", "labels",
-        "frames"}, optional "mask")."""
-        logits, _ = self.forward(params, batch["tokens"], batch["frames"])
-        return cross_entropy(logits[:, :-1], batch["labels"][:, 1:],
-                             batch.get("mask"))
+        "frames"}, optional "mask"): under a mesh whose ``model`` axis
+        splits the head's vocabulary, on each rank's columns
+        (``TensorParallel.cross_entropy``)."""
+        x = self._hidden(params, batch["tokens"], batch["frames"])
+        return self.tp.cross_entropy(params["head"], x, batch["labels"],
+                                     batch.get("mask"), self.cfg.vocab_size)
 
     def cache_defs(self, batch: int, max_len: int) -> dict:
         """One entry a decoder layer: ``self``, its KV cache (B, max_len,

@@ -28,6 +28,8 @@ logical axes (no ``cache_seq``), so ``spec.verify`` reads them as state.
 """
 from __future__ import annotations
 
+import math
+
 import torch
 
 from .layers import PSpec
@@ -290,10 +292,15 @@ def _chunk_step(S_prev, rb, kb, vb, lwb, u):
     # over d is an elementwise product and a reduction: as one einsum of
     # the three it becomes a batch of tiny products (a GEMV a row on the
     # card, 2.4x slower)
+    # (the upper triangle's exponents are sums of -log decays, past exp's
+    # range at full width: masked before exp, so that the backward of the
+    # mask sees 0 there, not 0 * inf = NaN; the reference's where after exp
+    # gives NaN gradients once a chunk's decays sum past ~88)
     idx = torch.arange(L, device=rb.device)
     tri = idx[:, None] > idx[None, :]
-    decay3 = torch.where(tri[None, None, :, :, None], torch.exp(
-        logc_excl[:, :, :, None, :] - logc[:, :, None, :, :]), 0.0)
+    decay3 = torch.exp(torch.where(
+        tri[None, None, :, :, None],
+        logc_excl[:, :, :, None, :] - logc[:, :, None, :, :], -math.inf))
     att = (decay3 * rb[:, :, :, None, :] * kb[:, :, None, :, :]).sum(-1)
     del decay3
     o_intra = torch.einsum("bhts,bhse->bhte", att, vb)

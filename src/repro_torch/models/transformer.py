@@ -44,8 +44,8 @@ embedding and the head go through ``dist.tensor_parallel``'s forms
 (``self.tp``): the one-device math without a mesh; under one
 (``with_mesh``: every block kind, the int8 cache too) the
 tensor-parallel forms on each rank's pieces of the params, which the
-prefill and the split-KV decode step share, and the dense GQA
-transformers' training forward too.
+prefill and the split-KV decode step share, and the training forward and
+backward of every family (``loss``: the vocab-parallel cross-entropy).
 """
 from __future__ import annotations
 
@@ -58,7 +58,6 @@ from . import attention as A
 from . import layers as L
 from . import moe as M
 from . import recurrent as R
-from ..core.metrics import cross_entropy
 from ..device import resolve_device
 from ..dist.tensor_parallel import TensorParallel
 
@@ -196,6 +195,13 @@ class TransformerLM:
             from ..dist import splitkv
             return splitkv.attend(self, q, k, v, cache, pos, lengths,
                                   window)
+        if train and H != self.h_eff and q.shape[2] < self.h_eff:
+            # the rank's block of padded heads: all attend, the dummy
+            # heads' outputs scaled to 0
+            q, k, v, real = self.tp.real_heads(q, k, v, H, cfg.num_kv_heads)
+            return A.train_attention(q, k, v, block_q=cfg.block_q,
+                                     block_kv=cfg.block_kv,
+                                     window=window) * real
         q = q[:, :, :H]                  # the real heads attend
         k, v = self.tp.kv_for_q(q, k, v, H, cfg.num_kv_heads)
         if train:
@@ -310,21 +316,36 @@ class TransformerLM:
         load-balancing terms, a float32 scalar, 0.0 without experts), causal
         attention over the whole sequence in plain PyTorch
         (``attention.train_attention``)."""
+        x, aux = self._hidden(params, tokens, patch_embeds)
+        return self.tp.logits(params["head"], x, self.cfg.vocab_size), aux
+
+    def _hidden(self, params, tokens, patch_embeds=None):
+        """The training forward's (last hidden state (B, S, d), aux)."""
         positions = torch.arange(tokens.shape[1], device=tokens.device)[None]
         x, _, aux = self._run(params, tokens, positions, train=True,
                               patches=patch_embeds)
-        return self.tp.logits(params["head"], x, self.cfg.vocab_size), aux
+        return x, aux
+
+    def loss_terms(self, params, batch):
+        """(the next-token cross-entropy of ``batch``, ``aux_loss_coef``
+        times the MoE's load-balancing term or None without experts):
+        ``loss``'s two terms. The cross-entropy goes through
+        ``TensorParallel.cross_entropy``: under a mesh whose ``model`` axis
+        splits the head's vocabulary, on each rank's columns, never the
+        whole row of logits."""
+        x, aux = self._hidden(params, batch["tokens"],
+                              batch.get("patch_embeds"))
+        ce = self.tp.cross_entropy(params["head"], x, batch["labels"],
+                                   batch.get("mask"), self.cfg.vocab_size)
+        return ce, (self.cfg.aux_loss_coef * aux if self.cfg.moe else None)
 
     def loss(self, params, batch):
         """Next-token cross-entropy of ``batch`` ({"tokens", "labels"},
         optional "mask" over positions 1..S-1 and "patch_embeds") plus
         ``aux_loss_coef`` times the MoE's load-balancing term, as the
         reference's."""
-        logits, aux = self.forward(params, batch["tokens"],
-                                   batch.get("patch_embeds"))
-        ce = cross_entropy(logits[:, :-1], batch["labels"][:, 1:],
-                           batch.get("mask"))
-        return ce + self.cfg.aux_loss_coef * aux if self.cfg.moe else ce
+        ce, aux = self.loss_terms(params, batch)
+        return ce if aux is None else ce + aux
 
     # ------------------------------------------------------------- serving
     def _cache_defs_block(self, kind, batch: int, max_len: int) -> dict:

@@ -30,12 +30,16 @@ through host memory where gloo carries card tensors,
 * each rank updates its moment pieces, and the updated params are
   all-gathered over ``data`` back to each param's layout.
 
+Every family trains tensor-parallel: the LSTM, and every family of the
+zoo (dense, mixture of experts, RG-LRU, RWKV6, encoder-decoder, VLM), its
+loss on each rank's vocabulary columns (``TensorParallel.cross_entropy``).
+Under a batch ``mask`` the cross-entropy is weighted by a rank's share of
+the masked-in positions and the MoE's load-balancing term by its share of
+the routing groups (``loss_terms``), so the sum is the whole batch's loss.
+
 DTensor's op-by-op propagation is not used: a vocab-sharded embedding has
 no DTensor rule for a batch-sharded index, and gloo on the card takes only
-staged collectives. A model without tensor-parallel forms (the mixture of
-experts, the recurrent families, the encoder-decoder, the VLMs) trains
-here only where the rule table splits none of its params (a ``model`` axis
-of 1, or the "dp" layout): a data-parallel step.
+staged collectives.
 """
 from __future__ import annotations
 
@@ -51,8 +55,7 @@ from ..sparse import apply_masks, mask_grads
 
 __all__ = ["make_train_step", "param_shardings", "zero1_shardings",
            "opt_shardings", "batch_shardings", "jit_train_step",
-           "loss_and_grads", "init_sharded", "prune_sharded",
-           "tensor_parallel_model"]
+           "loss_and_grads", "init_sharded", "prune_sharded"]
 
 
 # ----------------------------------------------------------- shardings
@@ -252,32 +255,6 @@ def _paths(tree) -> list:
     return leaves(_map_with_path(tree, lambda ps, _: ps))
 
 
-def tensor_parallel_model(mesh, model):
-    """(``model`` over ``mesh``, True): its forward tensor-parallel on
-    the params' pieces (``with_mesh``); or (``model``, False) where it has
-    no such forward and the rule table splits no param (the data-parallel
-    step). Raises ``NotImplementedError`` otherwise."""
-    from ..dist.splitkv import train_reason
-    p_flat = leaves(param_shardings(mesh, model))
-    with_mesh = getattr(model, "with_mesh", None)
-    if with_mesh is not None and train_reason(model.cfg) is None:
-        try:
-            return with_mesh(mesh), True
-        except NotImplementedError:
-            pass
-    if any(pl.is_shard() and mesh.size(i) > 1 for sh in p_flat
-           for i, pl in enumerate(sh.placements)):
-        name = getattr(getattr(model, "cfg", None), "name",
-                       type(model).__name__)
-        raise NotImplementedError(
-            f"{name}: the rule table splits its params over "
-            f"{dict(mesh_axes(mesh))}, and it has no tensor-parallel "
-            "forward (the dense GQA transformers and the LSTM have one). "
-            "Train it over a model axis of 1 or with the 'dp' layout "
-            "(ROADMAP queue A item 11)")
-    return model, False
-
-
 def _narrow_to(x, mesh, frm: NamedSharding, to: NamedSharding):
     """A piece of ``x`` (laid out by ``frm``) cut further to ``to``'s
     layout: the rank's block of each dim ``to`` splits over a mesh axis
@@ -312,7 +289,6 @@ def jit_train_step(mesh, model, arch_cfg, opt_cfg: optim.OptConfig,
     them."""
     from ..dist.collective_ops import (all_reduce_axis, broadcast_axis,
                                        gather_axis, shard_local, to_dtensor)
-    from ..dist.tensor_parallel import local
     if not hasattr(mesh, "get_group"):
         raise TypeError("jit_train_step runs over a torch.distributed "
                         "DeviceMesh of initialized ranks (launch.mesh."
@@ -335,7 +311,7 @@ def jit_train_step(mesh, model, arch_cfg, opt_cfg: optim.OptConfig,
     p_flat, m_flat = leaves(p_sh), leaves(o_sh["m"])
     shapes = [tuple(d.shape) for d in leaves(defs)]
     paths = _paths(defs)
-    net, tp = tensor_parallel_model(mesh, model)
+    net = model.with_mesh(mesh)
     # the axes each param is split on: its squared norm sums over them
     split_on = [tuple(n for n, pl in zip(names, sh.placements)
                       if pl.is_shard()) for sh in p_flat]
@@ -375,9 +351,16 @@ def jit_train_step(mesh, model, arch_cfg, opt_cfg: optim.OptConfig,
         tree = unflatten(defs, [to_dtensor(x, mesh, sh.placements, shape)
                                 for x, sh, shape in zip(leaves(flat), p_flat,
                                                         shapes)])
-        if not tp:
-            tree = unflatten(defs, [local(x) for x in leaves(tree)])
-        return net.loss(tree, b) * share(b)
+        terms = getattr(net, "loss_terms", None)
+        if terms is None:
+            return net.loss(tree, b) * share(b)
+        # the cross-entropy weighs the rank's share of the batch (of its
+        # masked-in positions under a mask), the MoE's term its routing
+        # groups (equal on every rank): the whole batch's term, as one
+        # device takes it
+        ce, aux = terms(tree, b)
+        ce = ce * share(b)
+        return ce if aux is None else ce + aux / n_batch
 
     class _Net:
         loss = staticmethod(loss_fn)

@@ -10,9 +10,8 @@
   ``pod16x16``: ``ok`` and ``fits`` with every key of the record; a second
   run reads the JSON; ``--force`` traces again; ``--hlo-dir`` is refused.
 * The grid's statuses: ``n/a`` exactly where the reference's ``runnable``
-  is false, ``not_ported`` exactly for the train cells ROADMAP queue A
-  item 11 (tensor-parallel training) names, each refusal naming it; every
-  serving cell, the recurrent families' too, run by the port.
+  is false; every other cell's path run by the port: every family's train
+  cell tensor-parallel, every serving cell, the recurrent families' too.
 
 Each test leaves no process group behind: the trace's fake group belongs
 to this process.
@@ -33,12 +32,7 @@ from repro_torch.launch import dryrun
 
 ROOT = Path(__file__).resolve().parents[1]
 MESHES = [False, True]
-# the families whose sharded train step the port refuses, naming ROADMAP
-# item 11 (tensor-parallel training) where the layout splits their params;
-# the recurrent families' serving cells run (sharded serving, item 9)
 RECURRENT = {"recurrentgemma-9b", "rwkv6-7b"}
-NO_TP = {"llava-next-34b", "qwen3-moe-235b-a22b", "granite-moe-1b-a400m",
-         "seamless-m4t-medium", "recurrentgemma-9b", "rwkv6-7b"}
 RECORD_KEYS = {"status", "memory", "flops_per_chip", "model_flops",
                "useful_flops_ratio", "collectives", "collective_wire_bytes",
                "hbm_bytes", "roofline", "trace_s"}
@@ -169,9 +163,9 @@ def _cells():
 
 def test_grid_statuses_match_reference_and_roadmap(tmp_path):
     """n/a where the reference's runnable is false (each written as a
-    record), not_ported exactly for the train cells item 11 names (those
-    whose params the rule table splits), every other cell's path run by
-    the port: the recurrent families' serving cells too."""
+    record); every other cell's path run by the port: the train cells of
+    every family (tensor-parallel where the layout splits their params),
+    the serving cells, the recurrent families' too."""
     for arch, shape, multi in _cells():
         ok, reason = runnable(get_arch(arch), SHAPES[shape])
         assert (ok, reason) == jrunnable(jget_arch(arch), JSHAPES[shape])
@@ -180,19 +174,7 @@ def test_grid_statuses_match_reference_and_roadmap(tmp_path):
             assert (rec["status"], rec["reason"]) == ("n/a", reason)
             continue
         why = dryrun.refusal(arch, shape, multi)
-        cfg, sh, _, n = dryrun.cell_config(arch, shape, multi)
-        if arch not in NO_TP:
-            assert why is None, (arch, shape, multi, why)
-        elif sh.kind == "train":
-            # the "dp" layout keeps training data-parallel where the batch
-            # covers every rank: no param is split
-            splits = cfg.layout != "dp"
-            assert (why is not None) == splits, (arch, shape, multi)
-            assert why is None or "item 11" in why
-        elif arch in RECURRENT:
-            assert why is None, (arch, shape, multi, why)
-        else:
-            assert why is None, (arch, shape, multi, why)
+        assert why is None, (arch, shape, multi, why)
     assert not dist.is_initialized() or dist.get_backend() == "fake"
 
 

@@ -149,7 +149,7 @@ def _zoo_rank(mesh, trees):
     """Every arch on this rank: the split-KV run (and its routing, its
     cache, its dummy heads), a greedy ``generate`` through ``ServeEngine``
     and, for the encoder-decoder, a 12-frame run; the sharded init, the
-    expert-parallel MoE and the training refusal."""
+    expert-parallel MoE and the training forms."""
     from repro_torch.dist import splitkv
     from repro_torch.dist.collective_ops import batch_rows
     from repro_torch.models import build_model
@@ -204,7 +204,7 @@ def _zoo_rank(mesh, trees):
         out[arch] = rec
     out["init"] = _sharded_init(mesh)
     out["moe"] = _expert_parallel(mesh, trees[MOE[0]])
-    out["train"] = _train_refusal(mesh)
+    out["train"] = _train_forms(mesh)
     return out
 
 
@@ -271,15 +271,20 @@ def _expert_parallel(mesh, tree):
     return out
 
 
-def _train_refusal(mesh):
-    """``jit_train_step``'s model over a split model axis: the MoE,
-    the encoder-decoder and the VLM still refuse, naming item 11."""
+def _train_forms(mesh):
+    """``jit_train_step`` over a split model axis: the MoE, the
+    encoder-decoder and the VLM each build their tensor-parallel step
+    (None; an error's words where one does not)."""
+    import types
     from repro_torch.models import build_model
-    from repro_torch.training.train_loop import tensor_parallel_model
+    from repro_torch.training import OptConfig, jit_train_step
+    toks = torch.zeros((4, 8), dtype=torch.long)
     said = {}
     for arch in (MOE[0], ENCDEC, VLM):
         try:
-            tensor_parallel_model(mesh, build_model(_cfg(arch)))
+            jit_train_step(mesh, build_model(_cfg(arch)),
+                           types.SimpleNamespace(grad_accum=1, zero1=True),
+                           OptConfig(), {"tokens": toks, "labels": toks})
             said[arch] = None
         except NotImplementedError as e:
             said[arch] = str(e)
@@ -591,11 +596,14 @@ def test_expert_parallel_moe(runs, mesh):
 
 @pytest.mark.parametrize("mesh", MESHES, ids=lambda m: f"{m[0]}x{m[1]}")
 def test_zoo_training_still_refuses(runs, mesh):
-    """The sharded train step over a split ``model`` axis still refuses
-    the MoE, the encoder-decoder and the VLM (ROADMAP queue A item 11)."""
+    """What the sharded train step once refused over a split ``model``
+    axis it now takes: the MoE, the encoder-decoder and the VLM train
+    tensor-parallel on their mesh forms (their gradients:
+    tests/test_torch_tp_train_zoo.py)."""
     for rk in runs["ranks"][mesh]:
+        assert len(rk["train"]) == 3
         for arch, said in rk["train"].items():
-            assert said is not None and "item 11" in said, arch
+            assert said is None, (arch, said)
 
 
 @pytest.mark.parametrize("arch", [MOE[0], ENCDEC, VLM])

@@ -63,15 +63,21 @@ def _options(ap):
 
 
 def test_flags_and_defaults_match(monkeypatch):
-    """The reference's flags and defaults, but for ``--device`` (added)
-    and ``--ckpt-dir``'s default: the reference's fixed /tmp path becomes
-    a fresh temporary directory (None here)."""
+    """The reference's flags and defaults, but for ``--device`` (added),
+    ``--ckpt-dir``'s default (the reference's
+    fixed /tmp path becomes a fresh temporary directory, None here) and
+    ``--mesh``, which takes DATA,MODEL beside the reference's three
+    choices (checked by the parser's own code, not argparse's
+    ``choices``)."""
     ours = _options(train.parser())
     ref = _options(_reference_parser(monkeypatch))
     assert ours.pop("device") == (("--device",), None, None, None)
     assert ours.pop("ckpt_dir") == (("--ckpt-dir",), None, None, None)
     assert ref.pop("ckpt_dir") == (("--ckpt-dir",), "/tmp/repro_ckpt", None,
                                    None)
+    assert ours.pop("mesh") == (("--mesh",), "host", None, None)
+    assert ref.pop("mesh") == (("--mesh",), "host", None,
+                               ("host", "pod", "multipod"))
     assert ours == ref
 
 
@@ -94,6 +100,14 @@ def test_default_ckpt_dir_is_private(tmp_path, monkeypatch):
     assert os.path.basename(ck).startswith("repro_torch_ckpt_")
     assert out["resumed_from"] == [] and sorted(out["losses"]) == [0, 1]
     assert not os.path.exists(ck)
+
+
+def test_mesh_shape_checked():
+    """``--mesh`` takes host, pod, multipod or DATA,MODEL positive ints;
+    anything else stops at the parser."""
+    for bad in ("1x2", "0,2", "a,b", "2"):
+        with pytest.raises(SystemExit):
+            train.main(ARGS + ["--device", "cpu", "--mesh", bad])
 
 
 def test_mesh_raises():
